@@ -1,0 +1,70 @@
+"""Architecture registry: a uniform bundle over the ported configs.
+
+This slice ports chatglm3-6b (dense GQA decode); the reference's other
+architectures raise until their slice of the port lands.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.parallel.sharding import ParallelContext
+
+_MODULES = {
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+}
+
+# the reference's other architectures, and the ROADMAP Queue 1 item of each
+_LATER = {
+    "phi3-medium-14b": 7, "gemma2-27b": 7, "deepseek-67b": 7,
+    "musicgen-medium": 7, "rwkv6-7b": 7, "zamba2-7b": 7,
+    "deepseek-v3-671b": 5, "dbrx-132b": 5, "qwen2-vl-2b": 7, "dlrm": 6,
+}
+
+
+@dataclasses.dataclass
+class ArchBundle:
+    name: str
+    config: Any
+
+    def init_params(self, gen: torch.Generator):
+        """Random parameters on the generator's device."""
+        from repro_torch.models.transformer import transformer_init
+
+        return transformer_init(gen, self.config)
+
+    def decode_fn(self, ctx: ParallelContext) -> Callable:
+        """(params, tokens [B,1], cache, pos [B]) -> (logits [B,1,V], cache)."""
+        from repro_torch.models.transformer import decode_step
+
+        cfg = self.config
+        return lambda p, t, c, pos: decode_step(ctx, p, cfg, t, c, pos)
+
+    def init_cache(self, batch_size: int, device):
+        from repro_torch.models.transformer import init_cache
+
+        return init_cache(self.config, batch_size, device)
+
+    def reduced(self) -> "ArchBundle":
+        """The reference's reduced smoke config (same overrides)."""
+        c = self.config
+        over = dict(n_layers=2 * (c.local_global_period or 1), d_model=64,
+                    d_ff=128, vocab=512, head_dim=16, max_seq=64,
+                    param_dtype="float32", compute_dtype="float32")
+        over["n_heads"] = max(4, min(c.n_heads, 4))
+        kv = min(c.n_kv_heads, over["n_heads"])
+        over["n_kv_heads"] = kv if over["n_heads"] % kv == 0 else over["n_heads"]
+        if c.window:
+            over["window"] = 16
+        return dataclasses.replace(self, config=dataclasses.replace(c, **over))
+
+
+def get_arch(name: str) -> ArchBundle:
+    if name in _LATER:
+        raise NotImplementedError(
+            f"{name}: not ported yet (ROADMAP Queue 1 item {_LATER[name]})")
+    mod = importlib.import_module(_MODULES[name])
+    return ArchBundle(name=name, config=mod.CONFIG)

@@ -1,0 +1,149 @@
+"""Hand-written Hopper (sm_90a) kernels for the compute hot spots.
+
+Each kernel package holds:
+  ref.py  - the plain PyTorch version (the CPU path and the on-card oracle)
+  ops.py  - the wrapper: checks its inputs, allocates outputs and scratch,
+            launches the CUDA kernel on PyTorch's current stream for a CUDA
+            tensor, calls ``ref.py`` for a CPU tensor, and counts launches
+The CUDA C++ sources live in ``csrc/``.  :func:`load_library` compiles them
+with ``nvcc`` into one shared library with a plain C interface the first time
+a kernel is launched (and again whenever a source changes) and loads it with
+``ctypes``.  Nothing is compiled or loaded at import time, so every module
+imports on a machine without CUDA.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+import warnings
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+# <repo>/build/repro_torch (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_FP8_CLAMP_WARNED: set = set()
+
+
+def clamp_kernel_wire(wire: str, op: str) -> str:
+    """Device-initiated kernels stage PUT payloads at the wire dtype but
+    have no per-chunk-scale path, so ``"fp8"`` is clamped to ``"bf16"``.
+    Warns once per op family so ``--wire fp8`` users see the clamp."""
+    if wire != "fp8":
+        return wire
+    if op not in _FP8_CLAMP_WARNED:
+        _FP8_CLAMP_WARNED.add(op)
+        warnings.warn(
+            f"{op}: wire='fp8' is an XLA-path feature (per-chunk scale); "
+            f"the device-initiated kernel clamps the PUT payload to bf16",
+            stacklevel=3)
+    return "bf16"
+
+
+def source_digest() -> str:
+    """Hash of every CUDA source and header plus the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "source at first use and need the CUDA toolkit")
+    return found
+
+
+@dataclasses.dataclass
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float   # 0.0 when an up-to-date build was loaded
+    build_log: str         # nvcc/ptxas output of the build ("" when loaded)
+
+
+def _build(target: Path) -> str:
+    """Compile each source in parallel (one nvcc each), then link."""
+    nvcc = _nvcc()
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = []
+        for src, _, p in procs:
+            out, _ = p.communicate()
+            log.append(f"== {src.name}\n{out}")
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+        so_tmp = Path(tmp) / target.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(so_tmp), *(str(o) for _, o, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(so_tmp, target)   # atomic: a reader never sees half a file
+    return "\n".join(log)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ptrs = ctypes.POINTER(ctypes.c_uint64)
+    lib.repro_gemv.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.repro_gemv.restype = i32
+    lib.repro_fused_gemv_allreduce.argtypes = [
+        vp, vp, i64, i64, ptrs, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32,
+        i32, ctypes.c_uint, i32, i32, vp]
+    lib.repro_fused_gemv_allreduce.restype = i32
+    lib.repro_cuda_error_string.argtypes = [i32]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+
+
+@functools.cache
+def load_library() -> KernelLibrary:
+    """Build (if the sources changed) and load the kernels' shared library."""
+    target = BUILD_DIR / f"librepro_torch_{source_digest()}.so"
+    seconds, log = 0.0, ""
+    if not target.exists():
+        t0 = time.perf_counter()
+        log = _build(target)
+        seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(target))
+    _declare(lib)
+    return KernelLibrary(lib=lib, path=target, build_seconds=seconds,
+                         build_log=log)
+
+
+def check_launch(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    if code != 0:
+        msg = load_library().lib.repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({code})")
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """The C entry points' element-type code."""
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    return codes[dtype]

@@ -1,0 +1,38 @@
+"""Parameters from the JAX package's layout into the port's."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a, device):
+    a = np.array(a)   # a writable copy: JAX hands out read-only buffers
+    if a.dtype.name == "bfloat16":
+        # an ml_dtypes bfloat16 array, which torch.from_numpy refuses
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree, device="cpu"):
+    """JAX transformer params as nested dicts of numpy arrays (``split_params``
+    values through ``np.asarray``) -> the port's parameters.
+
+    The reference stacks the scanned layers: ``tree["layers"]["l<j>"]``
+    holds pattern position j of every group along a leading axis, so layer
+    ``g * P + j`` is group g's entry j for a pattern of P layers.  The port
+    keeps one dict per layer in ``params["layers"]``."""
+    if "prefix" in tree:
+        raise NotImplementedError("dense-prefix layers: ROADMAP Queue 1 item 5")
+
+    def conv(t, index=None):
+        if isinstance(t, dict):
+            return {k: conv(v, index) for k, v in t.items()}
+        return _tensor(t if index is None else np.asarray(t)[index], device)
+
+    stacked = tree["layers"]
+    period = len(stacked)
+    groups = len(np.asarray(stacked["l0"]["ln1"]))
+    layers = [conv(stacked[f"l{j}"], g) for g in range(groups)
+              for j in range(period)]
+    return {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"]),
+            "layers": layers}

@@ -1,0 +1,203 @@
+"""Decoder-only LM decode for dense GQA transformers.
+
+The JAX package's unified decoder also covers MoE, MLA, M-RoPE and the
+audio/vision front ends, and scans its layers with ``lax.scan``.  This
+port runs dense GQA decode with a Python loop over the layers; a config
+that needs the rest raises until its slice lands.  Decode keeps the
+reference's layouts: a per-layer cache slice is [B, S_max, Hkv, hd],
+``pos`` a [B] int32 vector, logits [B, 1, V] in f32.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models.attention import broadcast_pos, cache_update, decode_attention
+from repro_torch.models.common import dense_init
+from repro_torch.models.layers import (embedding_init, embedding_lookup, mlp_apply,
+                                       mlp_init, rms_norm, rms_norm_init)
+from repro_torch.models.rope import apply_rope, apply_rope_2d
+from repro_torch.parallel.sharding import ParallelContext
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None
+    act: str = "silu"
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    rope_style: str = "full"           # full | 2d | mrope
+    mrope_sections: tuple = (16, 24, 24)
+    logit_softcap: float | None = None
+    attn_softcap: float | None = None
+    window: int | None = None          # sliding window for local layers
+    local_global_period: int = 0       # gemma2: 2 -> [local, global] pattern
+    query_scale: float | None = None
+    embed_scale: bool = False          # gemma: x *= sqrt(d_model)
+    post_norms: bool = False           # gemma2 post-attn/ffn norms
+    norm_plus_one: bool = False        # gemma (1+w) RMSNorm
+    attn_type: str = "gqa"             # gqa | mla
+    mla: Any = None
+    moe: Any = None
+    dense_prefix: int = 0              # deepseek-v3: first k layers dense
+    frontend: str | None = None        # None | audio | vision
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    max_seq: int = 4096                # KV-cache length for decode
+    remat: bool = True
+    sub_quadratic: bool = False        # True for SSM/hybrid (long_500k ok)
+
+    @property
+    def hd(self):
+        return self.head_dim or self.d_model // self.n_heads
+
+    def layer_window(self, layer: int):
+        if not self.local_global_period:
+            return self.window if self.window else None
+        # gemma2 style: even layers local, odd layers global
+        idx_in_pattern = layer % self.local_global_period
+        return self.window if idx_in_pattern % 2 == 0 else None
+
+    @property
+    def pdtype(self):
+        return _DTYPES[self.param_dtype]
+
+    @property
+    def cdtype(self):
+        return _DTYPES[self.compute_dtype]
+
+
+def check_supported(cfg: TransformerConfig):
+    """Raise for the parts of the reference decoder this slice has not
+    ported, so that no config field is silently ignored."""
+    missing = []
+    if cfg.moe is not None:
+        missing.append("moe (ROADMAP Queue 1 item 5)")
+    if cfg.attn_type != "gqa" or cfg.mla is not None:
+        missing.append("mla attention (ROADMAP Queue 1 item 7)")
+    if cfg.rope_style not in ("full", "2d"):
+        missing.append(f"rope_style={cfg.rope_style!r} (ROADMAP Queue 1 item 7)")
+    if cfg.frontend is not None:
+        missing.append(f"frontend={cfg.frontend!r} (ROADMAP Queue 1 item 7)")
+    if cfg.dense_prefix:
+        missing.append("dense_prefix (ROADMAP Queue 1 item 5)")
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _layer_init(gen, cfg: TransformerConfig):
+    D, dev = cfg.d_model, gen.device
+    p: dict[str, Any] = {"ln1": rms_norm_init(D, dev, zero=cfg.norm_plus_one),
+                         "ln2": rms_norm_init(D, dev, zero=cfg.norm_plus_one)}
+    if cfg.post_norms:
+        p["post_ln1"] = rms_norm_init(D, dev, zero=cfg.norm_plus_one)
+        p["post_ln2"] = rms_norm_init(D, dev, zero=cfg.norm_plus_one)
+    qkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd
+    p["attn"] = {
+        "w_qkv": dense_init(gen, (D, qkv), cfg.pdtype),
+        "w_o": dense_init(gen, (cfg.n_heads * cfg.hd, D), cfg.pdtype),
+    }
+    p["ffn"] = mlp_init(gen, D, cfg.d_ff, cfg.pdtype)
+    return p
+
+
+def transformer_init(gen: torch.Generator, cfg: TransformerConfig):
+    """Random parameters on ``gen``'s device: {"embed": {"table"},
+    "final_norm", "layers": [per-layer dict, ...]}."""
+    check_supported(cfg)
+    return {
+        "embed": embedding_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype),
+        "final_norm": rms_norm_init(cfg.d_model, gen.device, zero=cfg.norm_plus_one),
+        "layers": [_layer_init(gen, cfg) for _ in range(cfg.n_layers)],
+    }
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: TransformerConfig, batch_size: int, device):
+    """Zeroed decode caches {"k", "v"}: [L, B, S_max, Hkv, hd] each."""
+    check_supported(cfg)
+    shape = (cfg.n_layers, batch_size, cfg.max_seq, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+
+
+def _apply_rope_any(cfg, x, positions):
+    if cfg.rope_style == "2d":
+        return apply_rope_2d(x, positions, theta=cfg.rope_theta)
+    return apply_rope(x, positions, theta=cfg.rope_theta)
+
+
+def _attn_decode(ctx, cfg: TransformerConfig, lp, x, k_cache, v_cache, pos, window):
+    """One decode-attention step; ``pos`` is the per-slot position [B]."""
+    B = x.shape[0]
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    qkv = h @ lp["attn"]["w_qkv"]
+    q, k, v = torch.split(qkv, [Hq * hd, Hkv * hd, Hkv * hd], dim=-1)
+    q = q.reshape(B, 1, Hq, hd)
+    k = k.reshape(B, 1, Hkv, hd)
+    v = v.reshape(B, 1, Hkv, hd)
+    positions = pos[:, None]                         # [B, 1] per-slot
+    q = _apply_rope_any(cfg, q, positions)
+    k = _apply_rope_any(cfg, k, positions)
+    cache_update(ctx, k_cache, k, pos)
+    cache_update(ctx, v_cache, v, pos)
+    o = decode_attention(ctx, q, k_cache, v_cache, pos, window=window,
+                         scale=cfg.query_scale, softcap_val=cfg.attn_softcap)
+    return o.reshape(B, 1, Hq * hd) @ lp["attn"]["w_o"]
+
+
+def _layer_decode(ctx, cfg, lp, x, k_cache, v_cache, pos, window):
+    a = _attn_decode(ctx, cfg, lp, x, k_cache, v_cache, pos, window)
+    if cfg.post_norms:
+        a = rms_norm(a, lp["post_ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    x = x + a
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    f = mlp_apply(ctx, lp["ffn"], h, act=cfg.act, seq_sharded=False)
+    if cfg.post_norms:
+        f = rms_norm(f, lp["post_ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    return x + f
+
+
+def decode_step(ctx: ParallelContext, params, cfg: TransformerConfig,
+                tokens, cache, pos):
+    """One decode step.  tokens: [B, 1]; pos: [B] int32 (0-based position
+    of each slot's new token; a scalar broadcasts).  Returns
+    (logits [B, 1, V] f32, cache); the cache is updated in place."""
+    check_supported(cfg)
+    B = tokens.shape[0]
+    pos = broadcast_pos(pos, B, tokens.device)
+    scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
+    x = embedding_lookup(ctx, params["embed"], tokens, seq_shard=False,
+                         scale=scale).to(cfg.cdtype)
+    for i, lp in enumerate(params["layers"]):
+        x = _layer_decode(ctx, cfg, lp, x, cache["k"][i], cache["v"][i], pos,
+                          cfg.layer_window(i))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    return _lm_logits(params, cfg, x), cache
+
+
+def _lm_logits(params, cfg, x):
+    """Decode-time logits [B, 1, V] in f32, tied to the embedding table."""
+    table = params["embed"]["table"]
+    logits = torch.einsum("bsd,vd->bsv", x.to(cfg.cdtype),
+                          table.to(cfg.cdtype)).float()
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
