@@ -16,11 +16,25 @@ prints one line, and any failure exits non-zero:
   5. full-width chatglm3-6b greedy decode through DecodeEngine, kernel mode
      against bulk mode (teacher-forced logits and both token streams)
   6. times from CUDA events
+  7. the MoE kernels (fused_dispatch_a2a, fused_gemm_a2a, and the chain of
+     the two) against their plain versions at n_dev = 1: dbrx-132b's
+     main-path shapes with its full expert weights, and ragged shapes
+  8. both MoE kernels' 4-rank world emulated on the card at dbrx's widths,
+     and the chain of the two (both wires, both schedules, chunks_per_rank
+     1 and 2, skew 0 and 1, capacity 2 and 8; 3 calls back to back per
+     case)
+  9. full-width dbrx-132b (cut to 8 of its 40 layers) greedy decode through
+     DecodeEngine, kernel mode against bulk mode: the launch counts, every
+     MoE layer's kernel output against bulk on the identical input, and
+     the whole model teacher-forced (tokens and experts) against bulk and
+     an exact f32 evaluation, with where each mode's own router first
+     parts from the kernel run's
+ 10. the MoE kernels' and dbrx decode's times from CUDA events
 
-Then one JSON line per the kernels, the card's name and power limit, and
-the result line.  Float32 matrix products run in full f32 here
-(``allow_tf32`` off for cuBLAS and cuDNN), so the plain versions are exact
-f32 references.
+chatglm3-6b's weights are freed before phase 7.  Then one JSON line per
+the kernels, the card's name and power limit, and the result line.  Float32
+matrix products run in full f32 here (``allow_tf32`` off for cuBLAS and
+cuDNN), so the plain versions are exact f32 references.
 """
 from __future__ import annotations
 
@@ -57,6 +71,23 @@ WIRE_BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 LOGITS_TOL_FACTOR = 3.0
 
 MAIN_B, MAIN_K, MAIN_N = 4, 13696, 4096   # chatglm3-6b w_down, batch 4
+
+# dbrx-132b's MoE layer at batch-4 decode: 16 experts, capacity
+# C = ceil(4 tokens x top-4 x 1.25 / 16) = 2, d_model 6144, d_ff 10752
+MOE_E, MOE_C, MOE_D, MOE_F = 16, 2, 6144, 10752
+DBRX_LAYERS = 8        # of 40: the depth that fits one 80 GB card (53.4 GB)
+# The MoE tolerances are relative to the largest |plain| value: the
+# reference's init gives expert weights std ~0.22 (fan_in = the expert
+# count), so expert outputs are of order 1e3-1e4.  f32 with an f32 wire:
+# the summation order only.  bf16 inputs: the kernel keeps h and g in f32
+# and rounds u once, as the TPU kernel does; the plain version rounds h, g
+# and act(g) h to bf16 as the JAX reference does.  bf16 wire: one bf16
+# rounding per value that crosses ranks.
+REL_F32, REL_BF16, REL_WIRE_BF16 = 3e-4, 2e-2, 3e-2
+# Where kernel and bulk mode first route a token differently, their MoE
+# inputs must still agree to rounding: a difference below 2^-4 of the
+# largest |h| says a near tie flipped, not a fault.
+H_DIVERGE_REL = 2.0 ** -4
 
 
 def say(phase, msg):
@@ -108,8 +139,71 @@ def check_close(name, got, want, tol):
     return errors(got, want)
 
 
+def check_rel(name, got, want, rel):
+    """Shape, finiteness, and max |got - want| within ``rel`` of max |want|."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = errors(got, want)
+    if err[1] > rel:
+        raise AssertionError(f"{name}: max abs err {err[0]:.3g} is {err[1]:.3g} of max |want|, "
+                             f"above {rel:.3g}")
+    return err
+
+
 def randn(gen, shape, dtype, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def counted_wrappers():
+    """Every kernel wrapper with a ``launches`` count."""
+    from repro_torch.kernels.fused_dispatch_a2a.ops import (fused_dispatch_a2a,
+                                                            fused_dispatch_a2a_ranks)
+    from repro_torch.kernels.fused_gemm_a2a.ops import (fused_gemm_a2a, fused_gemm_a2a_ranks,
+                                                        fused_moe_chain)
+    from repro_torch.kernels.fused_gemv_allreduce.ops import (fused_matmul_allreduce,
+                                                              fused_matmul_allreduce_ranks)
+    from repro_torch.kernels.gemv.ops import gemv
+
+    return (fused_matmul_allreduce, fused_matmul_allreduce_ranks, gemv, fused_dispatch_a2a,
+            fused_dispatch_a2a_ranks, fused_gemm_a2a, fused_gemm_a2a_ranks, fused_moe_chain)
+
+
+def serve_requests(step, bundle, batch, n_req, max_new):
+    """Drain the launcher's seeded requests through DecodeEngine with the
+    step function ``step``; returns (requests, host seconds)."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import DecodeEngine
+
+    cfg = bundle.config
+    eng = DecodeEngine(step, lambda b: bundle.init_cache(b, "cuda"), batch,
+                       device="cuda", max_seq=cfg.max_seq)
+    reqs = make_requests(n_req, cfg.vocab, max_new)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fin = eng.run_until_drained()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    if not fin.drained or len(fin) != n_req:
+        raise AssertionError("engine did not drain")
+    return reqs, dt
+
+
+def timed_decode_runs(serve, dec_k, dec_b) -> str:
+    """ms/step and tok/s of whole drains, in turns kernel, bulk, bulk, kernel."""
+    def serve_timed(decode):
+        log = []
+        reqs, dt = serve(decode, log)
+        return dt / len(log) * 1e3, sum(len(r.tokens) for r in reqs) / dt
+
+    runs = {"kernel": [], "bulk": []}
+    for mode, dec in (("kernel", dec_k), ("bulk", dec_b), ("bulk", dec_b), ("kernel", dec_k)):
+        runs[mode].append(serve_timed(dec))
+    return "; ".join(f"{m}: " + ", ".join(f"{ms:.2f} ms/step {tps:.1f} tok/s" for ms, tps in v)
+                     for m, v in runs.items())
 
 
 def main() -> int:
@@ -117,7 +211,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import load_library
     from repro_torch.kernels.fused_gemv_allreduce.ops import (
         fused_matmul_allreduce, fused_matmul_allreduce_ranks)
@@ -125,9 +218,6 @@ def main() -> int:
         fused_matmul_allreduce_ref, fused_matmul_allreduce_ref_ranks)
     from repro_torch.kernels.gemv.ops import gemv
     from repro_torch.kernels.gemv.ref import gemv_ref
-    from repro_torch.launch.serve import make_requests
-    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
-    from repro_torch.serve.engine import DecodeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -184,7 +274,28 @@ def main() -> int:
     say(4, f"emulated {n_dev}-rank world, [4,{k_loc}]@[{k_loc},{MAIN_N}] per rank, "
            f"3 calls each, max abs/rel err: " + "; ".join(cases))
 
+    kernels = chatglm_decode(card, x, w, fused_err, gemv_err)
+    torch.cuda.empty_cache()
+    kernels += dbrx_phases(card, gen)
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def chatglm_decode(card, x, w, fused_err, gemv_err) -> list[dict]:
+    """Phases 5 and 6: full-width chatglm3-6b decode and times; returns the
+    JSON rows of its kernels.  Its weights are freed on return."""
     # 5 ---------------------------------------------------------------
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce
+    from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
+    from repro_torch.kernels.gemv.ops import gemv
+    from repro_torch.kernels.gemv.ref import gemv_ref
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
     bundle = get_arch("chatglm3-6b")
     cfg = bundle.config
     t0 = time.perf_counter()
@@ -203,22 +314,10 @@ def main() -> int:
             if log is not None:
                 log.append((tok.clone(), pos.clone(), logits.clone()))
             return logits, cache
-        eng = DecodeEngine(step, lambda b: bundle.init_cache(b, "cuda"), batch,
-                           device="cuda", max_seq=cfg.max_seq)
-        reqs = make_requests(n_req, cfg.vocab, max_new)
-        for r in reqs:
-            eng.submit(r)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fin = eng.run_until_drained()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        if not fin.drained or len(fin) != n_req:
-            raise AssertionError("engine did not drain")
-        return reqs, dt
+        return serve_requests(step, bundle, batch, n_req, max_new)
 
     log_k, log_b = [], []
-    for counted in (fused_matmul_allreduce, fused_matmul_allreduce_ranks, gemv):
+    for counted in counted_wrappers():
         counted.launches = 0
     reqs_k, _ = serve(dec_k, log_k)
     launches = {"fused_matmul_allreduce": fused_matmul_allreduce.launches,
@@ -284,18 +383,8 @@ def main() -> int:
     t_gemv_plain = time_ms(lambda: gemv_ref(x, w), iters=10)
     bnd, bound_by = bound_ms(MAIN_B, MAIN_K, MAIN_N, 2)
 
-    def serve_timed(decode):
-        log = []
-        reqs, dt = serve(decode, log)
-        return dt / len(log) * 1e3, sum(len(r.tokens) for r in reqs) / dt
-
     prof_txt = profile_decode(dec_k, params, bundle.init_cache(batch, "cuda"), log_k[:4])
-    runs = {"kernel": [], "bulk": []}
-    for mode, dec in (("kernel", dec_k), ("bulk", dec_b), ("bulk", dec_b), ("kernel", dec_k)):
-        runs[mode].append(serve_timed(dec))
-    decode_txt = "; ".join(
-        f"{m}: " + ", ".join(f"{ms:.2f} ms/step {tps:.1f} tok/s" for ms, tps in v)
-        for m, v in runs.items())
+    decode_txt = timed_decode_runs(serve, dec_k, dec_b)
     say(6, f"on {card}: [4,13696]@[13696,4096] bf16: fused kernel {t_fused:.4f} ms, gemv "
            f"{t_gemv:.4f} ms, torch.matmul {t_lib:.4f} ms, plain {t_plain:.4f} ms (gemv's plain {t_gemv_plain:.4f} ms), bound "
            f"{bnd:.4f} ms ({bound_by}); decode (batch {batch}, {n_req} requests x {max_new} "
@@ -316,12 +405,350 @@ def main() -> int:
          "ms": t_gemv, "plain_ms": t_gemv_plain, "bound_ms": bnd, "bound_by": bound_by,
          "library_ms": t_lib},
     ]
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
+
+
+def dbrx_phases(card, gen) -> list[dict]:
+    """Phases 7-10: the MoE kernels, their emulated world, full-width
+    dbrx-132b decode (8 layers) and times; returns the JSON rows of the MoE
+    kernels."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.fused_dispatch_a2a.ops import (fused_dispatch_a2a,
+                                                            fused_dispatch_a2a_ranks)
+    from repro_torch.kernels.fused_dispatch_a2a.ref import (fused_dispatch_a2a_ref,
+                                                            fused_dispatch_a2a_ref_ranks)
+    from repro_torch.kernels.fused_gemm_a2a.ops import (fused_gemm_a2a, fused_gemm_a2a_ranks,
+                                                        fused_moe_chain)
+    from repro_torch.kernels.fused_gemm_a2a.ref import (fused_gemm_a2a_ref,
+                                                        fused_gemm_a2a_ref_ranks)
+    from repro_torch.models.moe import moe_init
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    bundle = get_arch("dbrx-132b")
+    bundle = dataclasses.replace(bundle, config=dataclasses.replace(
+        bundle.config, n_layers=DBRX_LAYERS))
+    cfg = bundle.config
+    E, C, D, Fd = MOE_E, MOE_C, MOE_D, MOE_F
+
+    # 7 ---------------------------------------------------------------
+    w = moe_init(gen, cfg.moe, bf16)             # one layer's full expert weights, 6.34 GB
+    wu, wg, wd = w["w_up"], w["w_gate"], w["w_down"]
+    xt = randn(gen, (1, 1, E, C, D), bf16)        # the dispatch buffer of one decode step
+    if not torch.equal(fused_dispatch_a2a(xt), fused_dispatch_a2a_ref(xt)):
+        raise AssertionError("fused_dispatch_a2a main: differs from its plain version")
+    ffn_err = check_rel("fused_gemm_a2a main", fused_gemm_a2a(xt, wu, wg, wd),
+                        fused_gemm_a2a_ref(xt, wu, wg, wd, "silu"), REL_BF16)
+    chain_err = check_rel("fused_moe_chain main", fused_moe_chain(xt, wu, wg, wd),
+                          fused_gemm_a2a_ref(fused_dispatch_a2a_ref(xt), wu, wg, wd, "silu"),
+                          REL_BF16)
+    del w, wu, wg, wd
+    xr = randn(gen, (1, 1, 3, 5, 1000), f32)      # ragged E, C, D and F
+    wur, wgr = (randn(gen, (3, 1000, 777), f32, 1000 ** -0.5) for _ in range(2))
+    wdr = randn(gen, (3, 777, 1000), f32, 777 ** -0.5)
+    rag = {act: check_rel(f"fused_gemm_a2a ragged {act}",
+                          fused_gemm_a2a(xr, wur, wgr, wdr, act=act),
+                          fused_gemm_a2a_ref(xr, wur, wgr, wdr, act), REL_F32)
+           for act in ("silu", "gelu", "relu")}
+    rag_chain = check_rel("fused_moe_chain ragged",
+                          fused_moe_chain(xr, wur, wgr, wdr, chunks_per_rank=5),
+                          fused_gemm_a2a_ref(fused_dispatch_a2a_ref(xr), wur, wgr, wdr, "silu"),
+                          REL_F32)
+    xo = randn(gen, (1, 2, 3, 5, 1001), bf16)     # odd rows: the kernel's element-wise path
+    if not torch.equal(fused_dispatch_a2a(xo[:1], chunks_per_rank=5), xo[:1]):
+        raise AssertionError("fused_dispatch_a2a ragged: differs from its plain version")
+    say(7, f"MoE kernels vs plain at n_dev=1: dispatch [1,1,{E},{C},{D}] bf16 exact; "
+           f"fused_gemm_a2a with dbrx-132b's expert weights [{E},{D},{Fd}] bf16 max abs/rel "
+           f"err {ffn_err[0]:.3g}/{ffn_err[1]:.3g} (bound {REL_BF16} rel), chain "
+           f"{chain_err[0]:.3g}/{chain_err[1]:.3g}; ragged E=3 C=5 D=1000 F=777 f32 "
+           + ", ".join(f"{a} {e[0]:.3g}/{e[1]:.3g}" for a, e in rag.items())
+           + f", chain (chunks_per_rank 5) {rag_chain[0]:.3g}/{rag_chain[1]:.3g} "
+           f"(bound {REL_F32} rel); dispatch D=1001 bf16 exact")
+    del xr, wur, wgr, wdr, xo
+
+    # 8 ---------------------------------------------------------------
+    n, e_loc = 4, 4
+    w32 = [randn(gen, (n, e_loc, D, Fd), f32, 0.25) for _ in range(2)]
+    w32.append(randn(gen, (n, e_loc, Fd, D), f32, 0.25))
+    wbf = [t.to(bf16) for t in w32]
+    cases, calls = [], 0
+    for cap in (2, 8):
+        for dtype, wire, rel in ((f32, "f32", REL_F32), (f32, "bf16", REL_WIRE_BF16),
+                                 (bf16, "f32", REL_BF16)):
+            ws = w32 if dtype == f32 else wbf
+            xs = randn(gen, (n, n, 1, e_loc, cap, D), dtype)
+            want_d = fused_dispatch_a2a_ref_ranks(xs, wire)
+            want_f = fused_gemm_a2a_ref_ranks(xs, *ws, "silu", wire)
+            want_c = fused_gemm_a2a_ref_ranks(want_d, *ws, "silu", wire)
+            worst_f = worst_c = 0.0
+            for comm_aware in (True, False):
+                for skew in (0, 1):
+                    name = (f"C={cap} {str(dtype)[6:]}/wire={wire}/comm_aware={comm_aware}"
+                            f"/skew={skew}")
+                    kw = dict(comm_aware=comm_aware, skew=skew, wire=wire)
+                    for i in range(3):   # back to back: 3 epochs on the same flag words
+                        got = fused_gemm_a2a_ranks(xs, *ws, **kw)
+                        worst_f = max(worst_f, check_rel(f"world ffn {name} call {i}", got,
+                                                         want_f, rel)[1])
+                    for q in (1, 2):
+                        for i in range(3):
+                            got = fused_dispatch_a2a_ranks(xs, chunks_per_rank=q, **kw)
+                            if not torch.equal(got, want_d):
+                                raise AssertionError(f"world dispatch {name}/q={q} call {i}: "
+                                                     f"differs from its plain version")
+                            got = fused_gemm_a2a_ranks(
+                                fused_dispatch_a2a_ranks(xs, chunks_per_rank=q, **kw), *ws,
+                                **kw)
+                            worst_c = max(worst_c, check_rel(f"world chain {name}/q={q} call {i}",
+                                                             got, want_c, rel)[1])
+                    calls += 3 + 2 * 3 * 3
+            cases.append(f"C={cap} {str(dtype)[6:]}/wire={wire}: ffn {worst_f:.3g}, "
+                         f"chain {worst_c:.3g}")
+    del w32, wbf, xs, want_d, want_f, want_c
+    torch.cuda.empty_cache()
+    say(8, f"emulated {n}-rank world, E_loc={e_loc} D={D} F={Fd} per rank, both schedules, "
+           f"skew 0/1, chunks_per_rank 1/2, 3 calls each ({calls} kernel launches): dispatch "
+           f"exact in every case; max rel err (of max |plain|): " + "; ".join(cases))
+
+    # 9 ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    ctx_k = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel"))
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    dec_k, dec_b = bundle.decode_fn(ctx_k), bundle.decode_fn(ctx_b)
+    batch, n_req, max_new = 4, 4, 8
+
+    def serve(decode, log=None):
+        def step(tok, cache, pos):
+            logits, cache = decode(params, tok, cache, pos)
+            if log is not None:
+                log.append((tok.clone(), pos.clone(), logits.clone()))
+            return logits, cache
+        return serve_requests(step, bundle, batch, n_req, max_new)
+
+    log_k = []
+    for counted in counted_wrappers():
+        counted.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    reqs_k, _ = serve(dec_k, log_k)
+    launches = {c.__name__: c.launches for c in counted_wrappers()}
+    steps = len(log_k)
+    for name in ("fused_dispatch_a2a", "fused_gemm_a2a", "fused_moe_chain"):
+        if launches[name] != cfg.n_layers * steps:
+            raise AssertionError(f"{name} launched {launches[name]} times in {steps} steps "
+                                 f"of {cfg.n_layers} layers")
+    if launches["fused_matmul_allreduce"]:
+        raise AssertionError("an MoE model launched the dense FFN's kernel")
+    reqs_b, _ = serve(dec_b)
+    tf = teacher_forced_dbrx(bundle, params, ctx_k, ctx_b, log_k)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    differing, flips = 0, []
+    for slot, (rk, rb) in enumerate(zip(reqs_k, reqs_b)):
+        if not all(0 <= t < cfg.vocab for t in rk.tokens + rb.tokens):
+            raise AssertionError(f"request {rk.uid}: token out of range")
+        diff = [t for t, (a, b) in enumerate(zip(rk.tokens, rb.tokens)) if a != b]
+        differing += len(diff)
+        if not diff:
+            continue
+        st = len(rk.prompt) - 1 + diff[0]            # the step that sampled it
+        if tf["s_kb"] is not None and st >= tf["s_kb"]:
+            flips.append(f"req {rk.uid} token {diff[0]} (step {st}): after the first route "
+                         f"divergence")
+            continue
+        # same routes so far: a near tie in bulk mode (each side within the
+        # logits bound: a gap of at most twice it)
+        top = tf["logits_b"][st][slot, 0].topk(2).values
+        gap = (top[0] - top[1]).item()
+        flips.append(f"req {rk.uid} token {diff[0]} (step {st}): top-2 gap {gap:.3g}")
+        if gap > 2 * tf["tol"]:
+            raise AssertionError(f"token streams differ beyond a near tie: {flips[-1]} "
+                                 f"(allowed {2 * tf['tol']:.3g})")
+    say(9, f"dbrx-132b full width cut to {cfg.n_layers} of 40 layers (d{cfg.d_model}, "
+           f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff {cfg.moe.d_ff}, "
+           f"{n_params / 1e9:.2f}B params, {n_bytes / 1e9:.1f} GB {cfg.param_dtype}, init "
+           f"{init_s:.1f}s, peak {peak_gb:.1f} GB), batch {batch}, {n_req} requests x {max_new} "
+           f"tokens: {steps} decode steps, launches: dispatch {launches['fused_dispatch_a2a']}, "
+           f"gemm_a2a {launches['fused_gemm_a2a']}, chain {launches['fused_moe_chain']} "
+           f"(= {cfg.n_layers} x {steps}), fused_matmul_allreduce "
+           f"{launches['fused_matmul_allreduce']}; {tf['summary']}; kernel streams "
+           f"{[r.tokens for r in reqs_k]}; bulk streams {[r.tokens for r in reqs_b]}; "
+           f"differing tokens {differing}" + (f" ({'; '.join(flips)})" if flips else ""))
+    del tf
+
+    # 10 --------------------------------------------------------------
+    lp0 = params["layers"][0]["ffn"]          # dbrx's expert weights, main-path shapes
+    wu, wg, wd = lp0["w_up"], lp0["w_gate"], lp0["w_down"]
+    copy_to = torch.empty_like(xt)
+    x0 = xt[0]                                 # the bulk path's [n_src, E, C, D]
+    t_disp = time_ms(lambda: fused_dispatch_a2a(xt))
+    t_disp_plain = time_ms(lambda: fused_dispatch_a2a_ref(xt))
+    t_copy = time_ms(lambda: copy_to.copy_(xt))
+    t_gemm = time_ms(lambda: fused_gemm_a2a(xt, wu, wg, wd), iters=20, warmup=3)
+    t_gemm_plain = time_ms(lambda: fused_gemm_a2a_ref(xt, wu, wg, wd, "silu"), iters=20,
+                           warmup=3)
+    t_gemm_lib = time_ms(lambda: torch.einsum(
+        "necf,efd->necd", F.silu(torch.einsum("necd,edf->necf", x0, wg))
+        * torch.einsum("necd,edf->necf", x0, wu), wd), iters=20, warmup=3)
+    item = xt.element_size()
+    disp_bound = 2 * xt.numel() * item / HBM_BYTES_PER_S * 1e3
+    gemm_bytes = (2 * xt.numel() + wu.numel() + wg.numel() + wd.numel()) * item
+    gemm_ops = 2 * 3 * E * C * D * Fd
+    gemm_bound = max(gemm_bytes / HBM_BYTES_PER_S, gemm_ops / BF16_FLOPS) * 1e3
+    gemm_by = "bytes" if gemm_bytes / HBM_BYTES_PER_S >= gemm_ops / BF16_FLOPS else "operations"
+    prof_txt = profile_decode(dec_k, params, bundle.init_cache(batch, "cuda"), log_k[:4])
+    decode_txt = timed_decode_runs(serve, dec_k, dec_b)
+    say(10, f"on {card}: dispatch [1,1,{E},{C},{D}] bf16: kernel {t_disp:.4f} ms, plain "
+            f"{t_disp_plain:.4f} ms, Tensor.copy_ {t_copy:.4f} ms, bound {disp_bound:.5f} ms "
+            f"(bytes); fused_gemm_a2a with [{E},{D},{Fd}] bf16 experts: kernel {t_gemm:.4f} ms, "
+            f"plain {t_gemm_plain:.4f} ms, bulk einsums+silu {t_gemm_lib:.4f} ms, bound "
+            f"{gemm_bound:.4f} ms ({gemm_by}: {gemm_bytes / 1e9:.2f} GB, "
+            f"{gemm_ops / 1e9:.1f} GFLOP); decode ({cfg.n_layers} layers, batch {batch}, "
+            f"{n_req} requests x {max_new} tokens, host clock around the drain): {decode_txt}; "
+            f"profile of kernel-mode decode: {prof_txt}")
+
+    return [
+        {"name": "fused_dispatch_a2a", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_dispatch_a2a.cu",
+         "replaces": "src/repro/kernels/fused_dispatch_a2a/kernel.py:44",
+         "launches": launches["fused_dispatch_a2a"], "max_abs_err": 0.0,
+         "ms": t_disp, "plain_ms": t_disp_plain, "bound_ms": disp_bound, "bound_by": "bytes",
+         "library_ms": t_copy},
+        {"name": "fused_gemm_a2a", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_gemm_a2a.cu",
+         "replaces": "src/repro/kernels/fused_gemm_a2a/kernel.py:67",
+         "launches": launches["fused_gemm_a2a"], "max_abs_err": ffn_err[0],
+         "ms": t_gemm, "plain_ms": t_gemm_plain, "bound_ms": gemm_bound, "bound_by": gemm_by,
+         "library_ms": t_gemm_lib},
+    ]
+
+
+def moe_routed(params, h, mcfg, gate_i):
+    """Bulk-mode MoE layer with the experts of each token given
+    (gate_i [T, K]) instead of chosen by its own router: the gate weights
+    are this input's router probabilities at those experts."""
+    from repro_torch.kernels.fused_gemm_a2a.ref import ACTS
+    from repro_torch.models.moe import _capacity_slots, _dispatch_buf, _unpermute
+
+    toks = h.reshape(-1, mcfg.d_model)
+    probs = torch.softmax(toks.float() @ params["router"].float(), dim=-1)
+    gate_w = probs.gather(1, gate_i)
+    if mcfg.norm_topk_prob:
+        gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    gate_w = gate_w * mcfg.router_scale
+    e_clip, p_clip, valid, cap = _capacity_slots(mcfg, gate_i)
+    buf = _dispatch_buf(mcfg, toks, e_clip, p_clip, valid, cap, h.dtype)
+    g = torch.einsum("ecd,edf->ecf", buf, params["w_gate"])
+    u = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
+    y = torch.einsum("ecf,efd->ecd", ACTS[mcfg.act](g) * u, params["w_down"])
+    return _unpermute(mcfg, y, gate_w, e_clip, p_clip, valid, h.shape, h.dtype)
+
+
+def teacher_forced_dbrx(bundle, params, ctx_k, ctx_b, log_k) -> dict:
+    """Decode the kernel run's inputs again, step by step, in three streams
+    with their own caches: kernel mode, bulk mode, and bulk mode in exact
+    f32 (each layer's weights upcast while it runs, since an f32 copy of all
+    of them would not fit).
+
+    A token whose router sits at a near tie may go to other experts in
+    another mode, and from there the streams part for good.  So the bulk
+    and exact streams are teacher-forced on routing too: their MoE layers
+    take the experts the kernel stream chose (:func:`moe_routed`), and the
+    logits of all steps are compared as phase 5 compares them.  Where a
+    stream's own router would first choose other experts than the kernel
+    stream's, the step, layer, token and router margin are reported, and
+    kernel and bulk MoE inputs there must agree to ``H_DIVERGE_REL``.  At
+    every MoE layer the kernel stream's input also goes through bulk mode,
+    and the two outputs must agree to ``REL_BF16`` of the largest."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embedding_lookup, rms_norm
+    from repro_torch.models.moe import moe_apply
+
+    cfg = bundle.config
+    cfg_x = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    streams = {"kernel": (ctx_k, cfg), "bulk": (ctx_b, cfg), "exact": (ctx_b, cfg_x)}
+    caches = {m: tfm.init_cache(c, len(log_k[0][0]), "cuda") for m, (_, c) in streams.items()}
+    K = cfg.moe.top_k
+    logits = {m: [] for m in streams}
+    first = {"bulk": None, "exact": None}
+    layer_rel, replay = 0.0, 0.0
+
+    def probs(h, router):
+        return torch.softmax(h.reshape(-1, cfg.d_model).float() @ router.float(), dim=-1)
+
+    def margin(p, tok):
+        top = p[tok].topk(K + 1).values
+        return (top[K - 1] - top[K]).item()
+
+    for s, (tok, pos, lk) in enumerate(log_k):
+        x = {m: embedding_lookup(ctx, params["embed"], tok, seq_shard=False).to(c.cdtype)
+             for m, (ctx, c) in streams.items()}
+        for i in range(cfg.n_layers):
+            lp = params["layers"][i]
+            lps = {"kernel": lp, "bulk": lp, "exact": _map(lp, lambda t: t.float())}
+            h, p = {}, {}
+            for m, (ctx, c) in streams.items():
+                x[m] = x[m] + tfm._attn_decode(ctx, c, lps[m], x[m], caches[m]["k"][i],
+                                               caches[m]["v"][i], pos, c.layer_window(i))
+                h[m] = rms_norm(x[m], lps[m]["ln2"], c.norm_eps, plus_one=c.norm_plus_one)
+                p[m] = probs(h[m], lp["ffn"]["router"])
+            chosen = p["kernel"].topk(K).indices.sort(dim=1).values
+            f = moe_apply(ctx_k, lp["ffn"], h["kernel"], cfg.moe)
+            layer_rel = max(layer_rel, check_rel(       # the same input through bulk mode
+                f"MoE layer {i} step {s}: kernel vs bulk on identical input", f,
+                moe_apply(ctx_b, lp["ffn"], h["kernel"], cfg.moe), REL_BF16)[1])
+            x["kernel"] = x["kernel"] + f
+            for m in ("bulk", "exact"):
+                own = p[m].topk(K).indices.sort(dim=1).values
+                if first[m] is None and not torch.equal(own, chosen):
+                    t = int((own != chosen).any(dim=1).nonzero()[0, 0])
+                    first[m] = dict(step=s, layer=i, token=t, h_rel=errors(h["kernel"], h[m])[1],
+                                    margin_k=margin(p["kernel"], t), margin=margin(p[m], t))
+                x[m] = x[m] + moe_routed(lps[m]["ffn"], h[m], cfg.moe, chosen)
+            del lps
+        for m, (ctx, c) in streams.items():
+            xf = rms_norm(x[m], params["final_norm"], c.norm_eps, plus_one=c.norm_plus_one)
+            lg = tfm._lm_logits(params, c, xf)      # upcasts the table for the exact stream
+            if lg.shape != lk.shape or not torch.isfinite(lg).all():
+                raise AssertionError(f"{m} logits: shape {tuple(lg.shape)} or non-finite")
+            logits[m].append(lg)
+        replay = max(replay, (logits["kernel"][-1] - lk).abs().max().item())
+
+    def err(a, b):
+        return max((la - lb).abs().max().item() for la, lb in zip(logits[a], logits[b]))
+
+    err_kb, err_bx, err_kx = err("kernel", "bulk"), err("bulk", "exact"), err("kernel", "exact")
+    tol = LOGITS_TOL_FACTOR * err_bx
+    if err_kb > tol:
+        raise AssertionError(f"teacher-forced logits: kernel vs bulk {err_kb:.3g} > "
+                             f"{LOGITS_TOL_FACTOR} x bulk vs exact f32 {err_bx:.3g}")
+    if first["bulk"] and first["bulk"]["h_rel"] > H_DIVERGE_REL:
+        raise AssertionError(f"bulk mode's router parts from kernel mode's with MoE inputs "
+                             f"{first['bulk']['h_rel']:.3g} apart (of max |h|), above "
+                             f"{H_DIVERGE_REL:.3g}: {first['bulk']}")
+
+    def where(d):
+        if d is None:
+            return "never"
+        return (f"step {d['step']} layer {d['layer']} token {d['token']} (MoE inputs "
+                f"{d['h_rel']:.3g} apart of max |h|; router margin, K-th minus (K+1)-th "
+                f"probability: {d['margin_k']:.3g} in the kernel stream, {d['margin']:.3g} "
+                f"in its own)")
+
+    summary = (f"every MoE layer, kernel vs bulk on identical input: max rel err {layer_rel:.3g} "
+               f"(bound {REL_BF16}); teacher-forced (tokens, and the kernel stream's experts in "
+               f"the bulk and exact streams) logits max abs err: kernel vs bulk {err_kb:.3g} "
+               f"(bound {tol:.3g}), bulk vs exact f32 {err_bx:.3g}, kernel vs exact f32 "
+               f"{err_kx:.3g}; the kernel stream replays the engine's logits to {replay:.3g}; "
+               f"where the bulk stream's own router first chooses other experts: "
+               f"{where(first['bulk'])}; the exact stream's: {where(first['exact'])}")
+    s_kb = first["bulk"]["step"] if first["bulk"] else None
+    return {"s_kb": s_kb, "tol": tol, "logits_b": logits["bulk"], "summary": summary}
 
 
 def profile_decode(decode, params, cache, inputs) -> str:

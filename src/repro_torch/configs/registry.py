@@ -1,7 +1,8 @@
 """Architecture registry: a uniform bundle over the ported configs.
 
-This slice ports chatglm3-6b (dense GQA decode); the reference's other
-architectures raise until their slice of the port lands.
+The port serves chatglm3-6b (dense GQA decode) and dbrx-132b (MoE decode);
+the reference's other architectures raise until their slice of the port
+lands.
 """
 from __future__ import annotations
 
@@ -15,13 +16,14 @@ from repro_torch.parallel.sharding import ParallelContext
 
 _MODULES = {
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
 }
 
 # the reference's other architectures, and the ROADMAP Queue 1 item of each
 _LATER = {
     "phi3-medium-14b": 7, "gemma2-27b": 7, "deepseek-67b": 7,
     "musicgen-medium": 7, "rwkv6-7b": 7, "zamba2-7b": 7,
-    "deepseek-v3-671b": 5, "dbrx-132b": 5, "qwen2-vl-2b": 7, "dlrm": 6,
+    "deepseek-v3-671b": 5, "qwen2-vl-2b": 7, "dlrm": 6,
 }
 
 
@@ -59,6 +61,10 @@ class ArchBundle:
         over["n_kv_heads"] = kv if over["n_heads"] % kv == 0 else over["n_heads"]
         if c.window:
             over["window"] = 16
+        if c.moe is not None:
+            over["moe"] = dataclasses.replace(
+                c.moe, n_experts=8, top_k=min(c.moe.top_k, 2), d_model=64,
+                d_ff=32)
         return dataclasses.replace(self, config=dataclasses.replace(c, **over))
 
 

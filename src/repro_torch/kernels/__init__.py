@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.tile_pipeline import step_schedule
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/repro_torch (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -49,6 +51,45 @@ def clamp_kernel_wire(wire: str, op: str) -> str:
             f"the device-initiated kernel clamps the PUT payload to bf16",
             stacklevel=3)
     return "bf16"
+
+
+def wire_dtype(dtype: torch.dtype, wire: str) -> torch.dtype:
+    """PUT payload dtype: ``"f32"`` keeps the compute dtype on the wire;
+    ``"bf16"`` narrows an f32 payload to bf16."""
+    if wire not in ("f32", "bf16"):
+        raise ValueError(f"kernel wire dtype must be 'f32' or 'bf16', got {wire!r}")
+    return torch.bfloat16 if wire == "bf16" and dtype.itemsize > 2 else dtype
+
+
+class PeerFlags:
+    """Flag words of an n-rank world, ``words_per_rank`` per rank, zeroed
+    once.
+
+    Each call publishes a new epoch, so the words never need resetting;
+    0 is never an epoch, and a wait compares with the current epoch only,
+    so kernels may share words."""
+
+    def __init__(self, n_dev, words_per_rank, device):
+        self.words = torch.zeros((n_dev, words_per_rank), dtype=torch.int32,
+                                 device=device)
+        self.epoch = 0
+
+    def next_epoch(self) -> int:
+        self.epoch = self.epoch % 0xFFFFFFFF + 1
+        return self.epoch
+
+
+@functools.lru_cache(maxsize=64)
+def peer_flags(device, n_dev, words_per_rank) -> PeerFlags:
+    return PeerFlags(n_dev, words_per_rank, device)
+
+
+@functools.lru_cache(maxsize=64)
+def schedule_table(device, n_dev, subs_per_rank, comm_aware, skew=0):
+    """The step schedule as a device table [offsets | sub-chunks], copied
+    to the card once per shape rather than once per call."""
+    offs, subs = step_schedule(n_dev, subs_per_rank, comm_aware, skew)
+    return torch.tensor(offs + subs, dtype=torch.int32, device=device)
 
 
 def source_digest() -> str:
@@ -114,6 +155,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, i64, i64, ptrs, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32,
         i32, ctypes.c_uint, i32, i32, vp]
     lib.repro_fused_gemv_allreduce.restype = i32
+    lib.repro_fused_dispatch_a2a.argtypes = [
+        vp, i64, ptrs, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32, i32,
+        i32, ctypes.c_uint, i32, i32, vp]
+    lib.repro_fused_dispatch_a2a.restype = i32
+    lib.repro_fused_gemm_a2a.argtypes = [
+        vp, vp, vp, vp, i64, i64, vp, i64, ptrs, ptrs, ptrs, vp, i32, i32,
+        i32, i32, i32, i32, i32, i32, ctypes.c_uint, i32, i32, i32, vp]
+    lib.repro_fused_gemm_a2a.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

@@ -47,32 +47,11 @@
 
 namespace repro_torch {
 
-constexpr int kMaxDev = 8;
-
 struct PeerTable {
   void* out[kMaxDev];        // each rank's [B, N] output
   void* rx[kMaxDev];         // each rank's [n_dev, B, bn] rx slots at the wire dtype
   unsigned* flags[kMaxDev];  // each rank's [2, n_dev, tiles_per_rank] flag words
 };
-
-__device__ __forceinline__ void store_release(unsigned* f, unsigned v) {
-  asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(f), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned load_acquire(const unsigned* f) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(f) : "memory");
-  return v;
-}
-
-// Spins until *f == epoch.  A flag that never arrives is a protocol fault;
-// trap after ~2^24 polls (seconds) instead of hanging the card.
-__device__ void wait_flag(const unsigned* f, unsigned epoch) {
-  for (unsigned polls = 0; load_acquire(f) != epoch; ++polls) {
-    if (polls > (1u << 24)) __trap();
-    __nanosleep(128);
-  }
-}
 
 template <typename T, typename WT>
 __global__ void __launch_bounds__(kThreads)
@@ -163,13 +142,9 @@ static int launch_fused(const void* x, const void* w, long long x_rank_stride,
     return static_cast<int>(cudaGetLastError());
   }
   // CTAs wait on flags set by other CTAs: all of them must be resident
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  int per_rank = 0;
+  cudaError_t err = resident_ctas(kernel, kThreads, ranks_in_launch, &per_rank);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int per_rank = per_sm * sms / ranks_in_launch;
   if (per_rank < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const dim3 grid(num_tiles < per_rank ? num_tiles : per_rank, ranks_in_launch);
   void* args[] = {(void*)&xp,      (void*)&wp,       (void*)&x_rank_stride,

@@ -7,14 +7,13 @@ one to the other.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from repro_torch.kernels import check_launch, dtype_code, load_library
+from repro_torch.kernels import (check_launch, dtype_code, load_library, peer_flags,
+                                 schedule_table, wire_dtype)
 from repro_torch.kernels.fused_gemv_allreduce.ref import (
-    fused_matmul_allreduce_ref, fused_matmul_allreduce_ref_ranks, wire_dtype)
-from repro_torch.kernels.tile_pipeline import step_schedule
+    fused_matmul_allreduce_ref, fused_matmul_allreduce_ref_ranks)
 
 TILE_N = 32     # output columns per CTA tile (kTileN in csrc/tile_gemv.cuh)
 MAX_DEV = 8     # size of the kernel's peer pointer table (kMaxDev)
@@ -75,35 +74,6 @@ def _check_operands(x, w, ndim):
                          f"w on {w.device}")
 
 
-class _Flags:
-    """One flag word per (rank, phase, source, sub-tile), zeroed once.
-
-    Each call publishes a new epoch, so the words never need resetting;
-    0 is never an epoch."""
-
-    def __init__(self, n_dev, tiles_per_rank, device):
-        self.words = torch.zeros((n_dev, 2, n_dev, tiles_per_rank),
-                                 dtype=torch.int32, device=device)
-        self.epoch = 0
-
-    def next_epoch(self) -> int:
-        self.epoch = self.epoch % 0xFFFFFFFF + 1
-        return self.epoch
-
-
-@functools.lru_cache(maxsize=64)
-def _flags(device, n_dev, tiles_per_rank) -> _Flags:
-    return _Flags(n_dev, tiles_per_rank, device)
-
-
-@functools.lru_cache(maxsize=64)
-def _schedule(device, n_dev, tiles_per_rank, comm_aware):
-    """The step schedule as a device table [offsets | sub-tiles], copied to
-    the card once per shape rather than once per call."""
-    offs, subs = step_schedule(n_dev, tiles_per_rank, comm_aware)
-    return torch.tensor(offs + subs, dtype=torch.int32, device=device)
-
-
 def _launch(xr, wr, wire, comm_aware):
     n, b, k = xr.shape
     big_n = wr.shape[2]
@@ -126,11 +96,12 @@ def _launch(xr, wr, wire, comm_aware):
     rx_ptrs, flag_ptrs, epoch = ptr_array(), ptr_array(), 0
     if n > 1:
         rx = torch.empty((n, n, b, bn), dtype=wdt, device=dev)
-        flags = _flags(dev, n, tiles)
+        # one word per (phase, source, sub-tile) on each rank
+        flags = peer_flags(dev, n, 2 * n * tiles)
         rx_ptrs = ptr_array(*(rx[r].data_ptr() for r in range(n)))
         flag_ptrs = ptr_array(*(flags.words[r].data_ptr() for r in range(n)))
         epoch = flags.next_epoch()
-    sched = _schedule(dev, n, tiles, bool(comm_aware))
+    sched = schedule_table(dev, n, tiles, bool(comm_aware))
     with torch.cuda.device(dev):
         lib = load_library().lib
         check_launch(lib.repro_fused_gemv_allreduce(

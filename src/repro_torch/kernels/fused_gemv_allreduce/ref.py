@@ -5,15 +5,8 @@ the kernel returns sum_r x_r @ w_r on every rank.
 """
 import torch
 
+from repro_torch.kernels import wire_dtype
 from repro_torch.kernels.tile_pipeline import step_schedule
-
-
-def wire_dtype(dtype: torch.dtype, wire: str) -> torch.dtype:
-    """PUT payload dtype: ``"f32"`` keeps the compute dtype on the wire;
-    ``"bf16"`` narrows an f32 payload to bf16."""
-    if wire not in ("f32", "bf16"):
-        raise ValueError(f"kernel wire dtype must be 'f32' or 'bf16', got {wire!r}")
-    return torch.bfloat16 if wire == "bf16" and dtype.itemsize > 2 else dtype
 
 
 def fused_matmul_allreduce_ref(x, w):

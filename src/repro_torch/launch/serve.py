@@ -1,7 +1,15 @@
-"""Serving launcher: batched greedy decode with the fused GEMV+AllReduce FFN.
+"""Serving launcher: batched greedy decode through the fused kernels.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
       --requests 8 --batch 4 --max-new 16 --fusion kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
+      --reduced --device cpu
+
+A dense model's FFN down projection runs the fused GEMV+AllReduce kernel;
+an MoE model's experts run the dispatch-A2A kernel chained into the expert
+FFN + combine-A2A kernel.  Full-width dbrx-132b (264 GB of bf16 weights)
+does not fit one card: ``chip_smoke.py`` serves it cut to 8 of its 40
+layers.
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
 device the default raises.  Weights are random, drawn from a fixed seed.

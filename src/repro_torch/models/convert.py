@@ -20,7 +20,9 @@ def params_from_numpy(tree, device="cpu"):
     The reference stacks the scanned layers: ``tree["layers"]["l<j>"]``
     holds pattern position j of every group along a leading axis, so layer
     ``g * P + j`` is group g's entry j for a pattern of P layers.  The port
-    keeps one dict per layer in ``params["layers"]``."""
+    keeps one dict per layer in ``params["layers"]``.  Every leaf is carried
+    across as it is, the MoE FFN's too: ``router`` f32 [D, E], ``w_gate`` and
+    ``w_up`` [E, D, F], ``w_down`` [E, F, D]."""
     if "prefix" in tree:
         raise NotImplementedError("dense-prefix layers: ROADMAP Queue 1 item 5")
 

@@ -1,11 +1,11 @@
-"""Decoder-only LM decode for dense GQA transformers.
+"""Decoder-only LM decode for GQA transformers, dense or MoE.
 
-The JAX package's unified decoder also covers MoE, MLA, M-RoPE and the
-audio/vision front ends, and scans its layers with ``lax.scan``.  This
-port runs dense GQA decode with a Python loop over the layers; a config
-that needs the rest raises until its slice lands.  Decode keeps the
-reference's layouts: a per-layer cache slice is [B, S_max, Hkv, hd],
-``pos`` a [B] int32 vector, logits [B, 1, V] in f32.
+The JAX package's unified decoder also covers MLA, M-RoPE, shared experts,
+dense-prefix layers and the audio/vision front ends, and scans its layers
+with ``lax.scan``.  This port runs GQA decode with a dense or MoE FFN and a
+Python loop over the layers; a config that needs the rest raises until its
+slice lands.  Decode keeps the reference's layouts: a per-layer cache slice
+is [B, S_max, Hkv, hd], ``pos`` a [B] int32 vector, logits [B, 1, V] in f32.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from repro_torch.models.attention import broadcast_pos, cache_update, decode_att
 from repro_torch.models.common import dense_init
 from repro_torch.models.layers import (embedding_init, embedding_lookup, mlp_apply,
                                        mlp_init, rms_norm, rms_norm_init)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rope import apply_rope, apply_rope_2d
 from repro_torch.parallel.sharding import ParallelContext
 
@@ -82,8 +83,8 @@ def check_supported(cfg: TransformerConfig):
     """Raise for the parts of the reference decoder this slice has not
     ported, so that no config field is silently ignored."""
     missing = []
-    if cfg.moe is not None:
-        missing.append("moe (ROADMAP Queue 1 item 5)")
+    if cfg.moe is not None and cfg.moe.n_shared_experts:
+        missing.append("moe shared experts (ROADMAP Queue 1 item 5)")
     if cfg.attn_type != "gqa" or cfg.mla is not None:
         missing.append("mla attention (ROADMAP Queue 1 item 7)")
     if cfg.rope_style not in ("full", "2d"):
@@ -111,7 +112,10 @@ def _layer_init(gen, cfg: TransformerConfig):
         "w_qkv": dense_init(gen, (D, qkv), cfg.pdtype),
         "w_o": dense_init(gen, (cfg.n_heads * cfg.hd, D), cfg.pdtype),
     }
-    p["ffn"] = mlp_init(gen, D, cfg.d_ff, cfg.pdtype)
+    if cfg.moe is not None:
+        p["ffn"] = moe_init(gen, cfg.moe, cfg.pdtype)
+    else:
+        p["ffn"] = mlp_init(gen, D, cfg.d_ff, cfg.pdtype)
     return p
 
 
@@ -169,7 +173,10 @@ def _layer_decode(ctx, cfg, lp, x, k_cache, v_cache, pos, window):
         a = rms_norm(a, lp["post_ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    f = mlp_apply(ctx, lp["ffn"], h, act=cfg.act, seq_sharded=False)
+    if cfg.moe is not None:
+        f = moe_apply(ctx, lp["ffn"], h, cfg.moe)
+    else:
+        f = mlp_apply(ctx, lp["ffn"], h, act=cfg.act, seq_sharded=False)
     if cfg.post_norms:
         f = rms_norm(f, lp["post_ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     return x + f

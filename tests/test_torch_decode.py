@@ -24,6 +24,7 @@ from repro_torch.core.matmul_allreduce import matmul_allreduce
 from repro_torch.models import attention, layers, rope, transformer
 from repro_torch.models.common import dense_init, embed_init
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.moe import MoEConfig
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -141,7 +142,8 @@ def test_decode_options_match_jax(ctx, rng, over):
 
 
 @pytest.mark.parametrize("over", [
-    {"moe": object()}, {"attn_type": "mla"}, {"rope_style": "mrope"},
+    {"moe": MoEConfig(n_experts=4, top_k=2, d_model=64, d_ff=32, n_shared_experts=1)},
+    {"attn_type": "mla"}, {"rope_style": "mrope"},
     {"frontend": "audio"}, {"dense_prefix": 1},
 ], ids=lambda o: ",".join(o))
 def test_unported_config_raises(over):
@@ -256,6 +258,6 @@ def test_registry_matches_reference_reduced_config():
     full = get_arch("chatglm3-6b").config
     assert (full.n_layers, full.d_model, full.d_ff, full.vocab) == (28, 4096, 13696, 65024)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("dbrx-132b")
+        get_arch("dlrm")
     with pytest.raises(KeyError):
         get_arch("no-such-model")
