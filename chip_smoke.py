@@ -30,8 +30,23 @@ prints one line, and any failure exits non-zero:
      an exact f32 evaluation, with where each mode's own router first
      parts from the kernel run's
  10. the MoE kernels' and dbrx decode's times from CUDA events
+ 11. embedding_pool against its plain version: DLRM's main-path shape (128
+     of its 512 tables of 1,000,000 x 92 f32, batch 8192, pooling 70, the
+     first and last rows included) and ragged shapes (D 1, 93, 160, 257,
+     L 1, bag counts off the CTA's multiple, bf16 tables)
+ 12. fused_embedding_a2a: one rank at the main-path shape bit-identical to
+     embedding_pool; its 4-rank world emulated on the card at full width
+     ([4, 32, V, D] tables) bit-identical to embedding_pool's rows, both
+     schedules, 3 calls back to back each; a ragged 3-rank world against
+     its plain version
+ 13. the full-width DLRM forward (128 tables, DLRMBatches(seed=0) batch of
+     8192) through the registry's bundle in kernel and bulk mode: launch
+     counts (1 pooling launch per forward, 4 at chunks_per_rank 4, where
+     the pooled output is bit-identical), logits and loss kernel vs bulk
+ 14. the DLRM kernels' and forward's times from CUDA events, and a profile
+     of the forward
 
-chatglm3-6b's weights are freed before phase 7.  Then one JSON line per
+chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase 11.  Then one JSON line per
 the kernels, the card's name and power limit, and the result line.  Float32
 matrix products run in full f32 here (``allow_tf32`` off for cuBLAS and
 cuDNN), so the plain versions are exact f32 references.
@@ -50,6 +65,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12            # H100 SXM float32 peak outside the tensor cores
 
 # Kernel against its plain version in bf16: both sum in f32, in different
 # orders, and round once to bf16, whose step is 2^-8 relative.
@@ -76,6 +92,9 @@ MAIN_B, MAIN_K, MAIN_N = 4, 13696, 4096   # chatglm3-6b w_down, batch 4
 # C = ceil(4 tokens x top-4 x 1.25 / 16) = 2, d_model 6144, d_ff 10752
 MOE_E, MOE_C, MOE_D, MOE_F = 16, 2, 6144, 10752
 DBRX_LAYERS = 8        # of 40: the depth that fits one 80 GB card (53.4 GB)
+# DLRM's 512 published tables of 1,000,000 x 92 f32 are 188.4 GB; 128 tables
+# (47.1 GB) are one rank's share of a 4-rank world, every width as published
+DLRM_TABLES = 128
 # The MoE tolerances are relative to the largest |plain| value: the
 # reference's init gives expert weights std ~0.22 (fan_in = the expert
 # count), so expert outputs are of order 1e3-1e4.  f32 with an f32 wire:
@@ -158,8 +177,11 @@ def randn(gen, shape, dtype, scale=1.0):
 
 def counted_wrappers():
     """Every kernel wrapper with a ``launches`` count."""
+    from repro_torch.kernels.embedding_pool.ops import embedding_pool_tables
     from repro_torch.kernels.fused_dispatch_a2a.ops import (fused_dispatch_a2a,
                                                             fused_dispatch_a2a_ranks)
+    from repro_torch.kernels.fused_embedding_a2a.ops import (fused_embedding_a2a,
+                                                             fused_embedding_a2a_ranks)
     from repro_torch.kernels.fused_gemm_a2a.ops import (fused_gemm_a2a, fused_gemm_a2a_ranks,
                                                         fused_moe_chain)
     from repro_torch.kernels.fused_gemv_allreduce.ops import (fused_matmul_allreduce,
@@ -167,7 +189,8 @@ def counted_wrappers():
     from repro_torch.kernels.gemv.ops import gemv
 
     return (fused_matmul_allreduce, fused_matmul_allreduce_ranks, gemv, fused_dispatch_a2a,
-            fused_dispatch_a2a_ranks, fused_gemm_a2a, fused_gemm_a2a_ranks, fused_moe_chain)
+            fused_dispatch_a2a_ranks, fused_gemm_a2a, fused_gemm_a2a_ranks, fused_moe_chain,
+            embedding_pool_tables, fused_embedding_a2a, fused_embedding_a2a_ranks)
 
 
 def serve_requests(step, bundle, batch, n_req, max_new):
@@ -277,6 +300,8 @@ def main() -> int:
     kernels = chatglm_decode(card, x, w, fused_err, gemv_err)
     torch.cuda.empty_cache()
     kernels += dbrx_phases(card, gen)
+    torch.cuda.empty_cache()
+    kernels += dlrm_phases(card, gen)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -628,6 +653,189 @@ def dbrx_phases(card, gen) -> list[dict]:
     ]
 
 
+def dlrm_phases(card, gen) -> list[dict]:
+    """Phases 11-14: the DLRM kernels at full width with 128 of the 512
+    tables, their emulated world, the full-width DLRM forward through the
+    registry's bundle, and times; returns the JSON rows of the two kernels."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.embedding_all_to_all import embedding_all_to_all
+    from repro_torch.data.synthetic import DLRMBatches
+    from repro_torch.kernels.embedding_pool.ops import embedding_pool, embedding_pool_tables
+    from repro_torch.kernels.embedding_pool.ref import embedding_pool_ref, embedding_pool_tables_ref
+    from repro_torch.kernels.fused_embedding_a2a.ops import (fused_embedding_a2a,
+                                                             fused_embedding_a2a_ranks)
+    from repro_torch.kernels.fused_embedding_a2a.ref import (fused_embedding_a2a_ref,
+                                                             fused_embedding_a2a_ref_ranks)
+    from repro_torch.models.dlrm import dlrm_forward
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    bundle = get_arch("dlrm")
+    bundle = dataclasses.replace(bundle, config=dataclasses.replace(
+        bundle.config, n_tables=DLRM_TABLES))
+    cfg = bundle.config
+    T, V, D, L = cfg.n_tables, cfg.table_vocab, cfg.embed_dim, cfg.pooling
+    B = bundle.shapes()["train_8k"]["batch"]
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tables = params["tables"]
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             next(DLRMBatches(T, V, L, cfg.n_dense, B, seed=0)).items()}
+    idx = batch["indices"]
+    ctx_k = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel"))
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+
+    # 11 --------------------------------------------------------------
+    # the batch's indices with the first and last rows of every table in it
+    edge = idx.clone()
+    edge[0, :, 0], edge[-1, :, -1] = 0, V - 1
+    pooled = embedding_pool_tables(tables, edge)
+    pool_err = check_close("embedding_pool main", pooled, embedding_pool_tables_ref(tables, edge),
+                           F32_TOL)
+    past = sum(1 for t in range(T) if t * V * D >= 2 ** 31)
+    rag = []
+    for n_tab, v, d, b, nl, dt in ((3, 1000, 1, 13, 70, f32), (3, 1000, 93, 13, 7, f32),
+                                   (2, 500, 257, 5, 33, f32), (2, 500, 160, 5, 9, f32),
+                                   (3, 1000, 92, 13, 1, f32),
+                                   (3, 1000, 92, 13, 70, bf16), (2, 1000, 64, 7, 9, bf16)):
+        tab = randn(gen, (n_tab, v, d), dt)
+        ix = torch.randint(0, v, (b, n_tab, nl), generator=gen, device="cuda", dtype=torch.int32)
+        ix[0, :, 0], ix[-1, :, -1] = 0, v - 1
+        name = f"T={n_tab} V={v} D={d} B={b} L={nl} {str(dt)[6:]}"
+        err = check_close(f"embedding_pool {name}", embedding_pool_tables(tab, ix),
+                          embedding_pool_tables_ref(tab, ix), F32_TOL if dt == f32 else BF16_TOL)
+        rag.append(f"{name} {err[0]:.3g}")
+    last = edge[:, T - 1].contiguous()
+    one = check_close("embedding_pool one table", embedding_pool(tables[T - 1], last),
+                      embedding_pool_ref(tables[T - 1], last), F32_TOL)
+    say(11, f"embedding_pool vs plain: main [{T},{V},{D}] f32 tables (init {init_s:.1f}s, "
+            f"{tables.numel() * 4 / 1e9:.1f} GB; {past} tables start past element 2^31), "
+            f"B={B} L={L}, indices 0 and V-1 included: max abs/rel err "
+            f"{pool_err[0]:.3g}/{pool_err[1]:.3g}; single-table entry (table {T - 1}) "
+            f"{one[0]:.3g}; ragged max abs err: " + "; ".join(rag))
+
+    # 12 --------------------------------------------------------------
+    if not torch.equal(fused_embedding_a2a(ctx_k, edge, tables), pooled):
+        raise AssertionError("fused_embedding_a2a n_dev=1: not bit-identical to embedding_pool")
+    n = 4
+    tab_r = tables.view(n, T // n, V, D)
+    idx_r = edge.view(B, n, T // n, L).permute(1, 0, 2, 3).contiguous()
+    calls = 0
+    for comm_aware in (True, False):
+        for i in range(3):   # back to back: 3 epochs on the same flag words
+            got = fused_embedding_a2a_ranks(tab_r, idx_r, comm_aware=comm_aware)
+            calls += 1
+            if not torch.equal(got.view(B, T, D), pooled):
+                raise AssertionError(f"emulated world comm_aware={comm_aware} call {i}: not "
+                                     f"bit-identical to embedding_pool's rows")
+    del idx_r, got
+    tab3 = randn(gen, (3, 2, 300, 93), f32)
+    idx3 = torch.randint(0, 300, (3, 15, 2, 7), generator=gen, device="cuda", dtype=torch.int32)
+    want3 = fused_embedding_a2a_ref_ranks(tab3, idx3)
+    rag3 = 0.0
+    for comm_aware in (True, False):
+        for i in range(3):
+            rag3 = max(rag3, check_close(f"ragged world comm_aware={comm_aware} call {i}",
+                                         fused_embedding_a2a_ranks(tab3, idx3, comm_aware=comm_aware),
+                                         want3, F32_TOL)[0])
+            calls += 1
+    say(12, f"fused_embedding_a2a: n_dev=1 at [{T},{V},{D}], B={B} bit-identical to "
+            f"embedding_pool; emulated {n}-rank world at full width ([{n},{T // n},{V},{D}] "
+            f"tables, rank r's output = rows r*{B // n}.. of embedding_pool's) bit-identical "
+            f"for both schedules, 3 calls each; ragged world n=3 B=15 T_loc=2 D=93 L=7 vs plain "
+            f"max abs err {rag3:.3g}, both schedules, 3 calls each ({calls} world launches)")
+
+    # 13 --------------------------------------------------------------
+    for counted in counted_wrappers():
+        counted.launches = 0
+    logits_k = dlrm_forward(ctx_k, params, cfg, batch)
+    launches = {c.__name__: c.launches for c in counted_wrappers()}
+    if launches["embedding_pool_tables"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"kernel-mode forward at q=1 launched {launches}")
+    loss_k = bundle.loss_fn(ctx_k)(params, batch)
+    q4 = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel", granularity=4))
+    embedding_pool_tables.launches = 0
+    pooled_q4 = embedding_all_to_all(q4, idx, tables)
+    if embedding_pool_tables.launches != 4:
+        raise AssertionError(f"q=4 launched embedding_pool {embedding_pool_tables.launches} times")
+    if not torch.equal(pooled_q4, embedding_all_to_all(ctx_k, idx, tables)):
+        raise AssertionError("pooled output at chunks_per_rank=4 differs from q=1")
+    del pooled_q4
+    logits_b = dlrm_forward(ctx_b, params, cfg, batch)
+    loss_b = bundle.loss_fn(ctx_b)(params, batch)
+    logit_err = check_close("DLRM logits kernel vs bulk", logits_k, logits_b, F32_TOL)
+    loss_err = check_close("DLRM loss kernel vs bulk", loss_k, loss_b, F32_TOL)
+    if logits_k.shape != (B,):
+        raise AssertionError(f"logits shape {tuple(logits_k.shape)}")
+    say(13, f"DLRM forward, full width with {T} of 512 tables ({cfg.table_vocab} x {D} f32 "
+            f"each, bottom {cfg.bottom_mlp}, top {cfg.top_mlp}, interaction "
+            f"{params['top'][0]['w'].shape[0]} wide), batch {B} from DLRMBatches(seed=0): "
+            f"kernel-mode launches at q=1 {launches['embedding_pool_tables']} (all wrappers "
+            f"{sum(launches.values())}), at q=4 4, pooled output at q=4 bit-identical to q=1; "
+            f"logits kernel vs bulk max abs/rel err {logit_err[0]:.3g}/{logit_err[1]:.3g} "
+            f"(|logits| <= {logits_b.abs().max().item():.3g}); loss kernel {loss_k.item():.6f}, "
+            f"bulk {loss_b.item():.6f}, err {loss_err[0]:.3g}")
+
+    # 14 --------------------------------------------------------------
+    offs = torch.arange(T, device="cuda", dtype=torch.int32)[None, :, None] * V
+    flat_idx, flat_w = (idx + offs).reshape(B * T, L), tables.view(T * V, D)
+    distinct = torch.unique(flat_idx).numel()
+    del offs
+    t_pool = time_ms(lambda: embedding_pool_tables(tables, idx), iters=10, warmup=2)
+    t_plain = time_ms(lambda: embedding_pool_tables_ref(tables, idx), iters=3, warmup=1)
+    t_lib = time_ms(lambda: F.embedding_bag(flat_idx, flat_w, mode="mean"), iters=10, warmup=2)
+    t_fused = time_ms(lambda: fused_embedding_a2a(ctx_k, idx, tables), iters=10, warmup=2)
+    t_fused_plain = time_ms(lambda: fused_embedding_a2a_ref(tables[None], idx[None]), iters=3,
+                            warmup=1)
+    idx_r = idx.view(B, n, T // n, L).permute(1, 0, 2, 3).contiguous()
+    t_world = time_ms(lambda: fused_embedding_a2a_ranks(tab_r, idx_r), iters=10, warmup=2)
+    t_world_plain = time_ms(lambda: fused_embedding_a2a_ref_ranks(tab_r, idx_r), iters=3,
+                            warmup=1)
+    del idx_r
+    fwd = {"kernel": [], "bulk": []}
+    for mode, ctx in (("kernel", ctx_k), ("bulk", ctx_b), ("bulk", ctx_b), ("kernel", ctx_k)):
+        fwd[mode].append(time_ms(lambda: dlrm_forward(ctx, params, cfg, batch), iters=10,
+                                 warmup=2))
+    prof_k = profile_device(lambda i: dlrm_forward(ctx_k, params, cfg, batch), 3, "forward")
+    prof_b = profile_device(lambda i: dlrm_forward(ctx_b, params, cfg, batch), 3, "forward")
+    pool_bytes = distinct * D * 4 + idx.numel() * 4 + B * T * D * 4
+    pool_ops = B * T * (L + 1) * D      # one add per lookup and element, one division
+    t_bytes, t_ops = pool_bytes / HBM_BYTES_PER_S * 1e3, pool_ops / F32_FLOPS * 1e3
+    bnd, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    say(14, f"on {card}: pooling [{T},{V},{D}] f32, B={B} L={L} ({distinct} distinct rows of "
+            f"{T * V}, {pool_bytes / 1e9:.2f} GB each read once, {idx.numel() * D * 4 / 1e9:.2f} "
+            f"GB gathered): embedding_pool kernel {t_pool:.4f} ms, plain {t_plain:.4f} ms, "
+            f"F.embedding_bag over all {T} tables {t_lib:.4f} ms, bound {bnd:.4f} ms "
+            f"({bound_by}); fused_embedding_a2a n_dev=1 {t_fused:.4f} ms (plain "
+            f"{t_fused_plain:.4f} ms), emulated {n}-rank "
+            f"world {t_world:.4f} ms per call (plain {t_world_plain:.4f} ms); DLRM forward per "
+            f"batch of {B} (CUDA events, turns kernel, bulk, bulk, kernel): "
+            + "; ".join(f"{m} " + ", ".join(f"{v:.4f}" for v in vs) + " ms"
+                        for m, vs in fwd.items())
+            + f"; profile of the kernel-mode forward: {prof_k}; of the bulk-mode forward: "
+            f"{prof_b}")
+
+    # fused_embedding_a2a is bit-identical to embedding_pool (phase 12), so
+    # its error against the plain version is embedding_pool's
+    row = {"route": "cuda", "max_abs_err": pool_err[0], "bound_ms": bnd, "bound_by": bound_by,
+           "library_ms": t_lib}
+    return [
+        {"name": "embedding_pool", **row,
+         "source": "src/repro_torch/kernels/csrc/embedding_pool.cu",
+         "replaces": "src/repro/kernels/embedding_pool/kernel.py:20",
+         "launches": launches["embedding_pool_tables"], "ms": t_pool, "plain_ms": t_plain},
+        {"name": "fused_embedding_a2a", **row,
+         "source": "src/repro_torch/kernels/csrc/fused_embedding_a2a.cu",
+         "replaces": "src/repro/kernels/fused_embedding_a2a/kernel.py:33",
+         "launches": launches["fused_embedding_a2a"], "main_path": False, "ms": t_fused,
+         "plain_ms": t_fused_plain},
+    ]
+
+
 def moe_routed(params, h, mcfg, gate_i):
     """Bulk-mode MoE layer with the experts of each token given
     (gate_i [T, K]) instead of chosen by its own router: the gate weights
@@ -752,16 +960,23 @@ def teacher_forced_dbrx(bundle, params, ctx_k, ctx_b, log_k) -> dict:
 
 
 def profile_decode(decode, params, cache, inputs) -> str:
-    """Device time of a few decode steps by kernel, from torch.profiler:
-    the device's busy share of the host-clock window and the top kernels."""
+    """Device time of a few decode steps by kernel (see :func:`profile_device`)."""
+    decode(params, inputs[0][0], cache, inputs[0][1])       # warm
+    return profile_device(lambda i: decode(params, inputs[i][0], cache, inputs[i][1]),
+                          len(inputs), "step")
+
+
+def profile_device(run, n, unit) -> str:
+    """Device time of ``run(0) .. run(n - 1)`` by kernel, from torch.profiler:
+    the device's busy share of the host-clock window and the top kernels,
+    per ``unit`` (one call of ``run``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    decode(params, inputs[0][0], cache, inputs[0][1])       # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for tok, pos, _ in inputs:
-            decode(params, tok, cache, pos)
+        for i in range(n):
+            run(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, launches = {}, 0
@@ -769,13 +984,12 @@ def profile_decode(decode, params, cache, inputs) -> str:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
             launches += 1
-    n = len(inputs)
     if not by_name:
-        return f"profiler recorded no device time (host {wall_ms / n:.2f} ms/step)"
+        return f"profiler recorded no device time (host {wall_ms / n:.2f} ms/{unit})"
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return (f"host {wall_ms / n:.2f} ms/step, device busy {busy / n:.2f} ms/step "
-            f"({100 * busy / wall_ms:.1f}%), {launches / n:.0f} device ops/step; top: "
+    return (f"host {wall_ms / n:.2f} ms/{unit}, device busy {busy / n:.2f} ms/{unit} "
+            f"({100 * busy / wall_ms:.1f}%), {launches / n:.0f} device ops/{unit}; top: "
             + ", ".join(f"{name[:60]} {ms / n:.3f} ms" for name, ms in top))
 
 

@@ -8,3 +8,5 @@ CONFIG = TransformerConfig(
     vocab=65024, head_dim=128, rope_style="2d", act="silu",
     param_dtype="bfloat16", compute_dtype="bfloat16",
 )
+
+FAMILY = "transformer"

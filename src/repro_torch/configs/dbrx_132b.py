@@ -11,3 +11,5 @@ CONFIG = TransformerConfig(
                   capacity_factor=1.25, norm_topk_prob=True),
     param_dtype="bfloat16", compute_dtype="bfloat16",
 )
+
+FAMILY = "transformer"

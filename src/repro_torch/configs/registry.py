@@ -1,7 +1,9 @@
 """Architecture registry: a uniform bundle over the ported configs.
 
-The port serves chatglm3-6b (dense GQA decode) and dbrx-132b (MoE decode);
-the reference's other architectures raise until their slice of the port
+The port serves chatglm3-6b (dense GQA decode) and dbrx-132b (MoE decode)
+and runs the forward of DLRM, the paper's own architecture (its
+``loss_fn`` scores a batch; training it waits for ROADMAP Queue 1 item 4).
+The reference's other architectures raise until their slice of the port
 lands.
 """
 from __future__ import annotations
@@ -14,45 +16,91 @@ import torch
 
 from repro_torch.parallel.sharding import ParallelContext
 
+SHAPES = {
+    "train_4k": {"seq": 4096, "batch": 256, "kind": "train"},
+    "prefill_32k": {"seq": 32768, "batch": 32, "kind": "prefill"},
+    "decode_32k": {"seq": 32768, "batch": 128, "kind": "decode"},
+    "long_500k": {"seq": 524288, "batch": 1, "kind": "decode"},
+}
+
+DLRM_SHAPES = {
+    "train_8k": {"batch": 8192, "kind": "dlrm_train"},
+}
+
 _MODULES = {
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "dlrm": "repro_torch.configs.dlrm",
 }
 
 # the reference's other architectures, and the ROADMAP Queue 1 item of each
 _LATER = {
     "phi3-medium-14b": 7, "gemma2-27b": 7, "deepseek-67b": 7,
     "musicgen-medium": 7, "rwkv6-7b": 7, "zamba2-7b": 7,
-    "deepseek-v3-671b": 5, "qwen2-vl-2b": 7, "dlrm": 6,
+    "deepseek-v3-671b": 5, "qwen2-vl-2b": 7,
 }
+_TRAIN_ITEM = "ROADMAP Queue 1 item 4 (dense training)"
 
 
 @dataclasses.dataclass
 class ArchBundle:
     name: str
+    family: str
     config: Any
 
     def init_params(self, gen: torch.Generator):
         """Random parameters on the generator's device."""
-        from repro_torch.models.transformer import transformer_init
+        if self.family == "transformer":
+            from repro_torch.models.transformer import transformer_init
 
-        return transformer_init(gen, self.config)
+            return transformer_init(gen, self.config)
+        if self.family == "dlrm":
+            from repro_torch.models.dlrm import dlrm_init
+
+            return dlrm_init(gen, self.config)
+        raise ValueError(self.family)
+
+    def loss_fn(self, ctx: ParallelContext) -> Callable:
+        """(params, batch) -> scalar loss."""
+        if self.family == "dlrm":
+            from repro_torch.models.dlrm import dlrm_loss
+
+            cfg = self.config
+            return lambda p, b: dlrm_loss(ctx, p, cfg, b)
+        raise NotImplementedError(f"{self.name}: the training forward is {_TRAIN_ITEM}")
 
     def decode_fn(self, ctx: ParallelContext) -> Callable:
         """(params, tokens [B,1], cache, pos [B]) -> (logits [B,1,V], cache)."""
         from repro_torch.models.transformer import decode_step
 
+        self._need_transformer()
         cfg = self.config
         return lambda p, t, c, pos: decode_step(ctx, p, cfg, t, c, pos)
 
     def init_cache(self, batch_size: int, device):
         from repro_torch.models.transformer import init_cache
 
+        self._need_transformer()
         return init_cache(self.config, batch_size, device)
+
+    def _need_transformer(self):
+        if self.family != "transformer":
+            raise ValueError(f"{self.name}: a {self.family} model does not decode")
+
+    def shapes(self):
+        if self.family == "dlrm":
+            return dict(DLRM_SHAPES)
+        sub_quadratic = bool(getattr(self.config, "sub_quadratic", False))
+        # quadratic attention skips the 500k context, as the reference does
+        return {k: v for k, v in SHAPES.items() if k != "long_500k" or sub_quadratic}
 
     def reduced(self) -> "ArchBundle":
         """The reference's reduced smoke config (same overrides)."""
         c = self.config
+        if self.family == "dlrm":
+            return dataclasses.replace(self, config=dataclasses.replace(
+                c, n_tables=8, table_vocab=128, embed_dim=16, n_dense=4,
+                bottom_mlp=(32, 16), top_mlp=(32, 1), pooling=5))
         over = dict(n_layers=2 * (c.local_global_period or 1), d_model=64,
                     d_ff=128, vocab=512, head_dim=16, max_seq=64,
                     param_dtype="float32", compute_dtype="float32")
@@ -73,4 +121,4 @@ def get_arch(name: str) -> ArchBundle:
         raise NotImplementedError(
             f"{name}: not ported yet (ROADMAP Queue 1 item {_LATER[name]})")
     mod = importlib.import_module(_MODULES[name])
-    return ArchBundle(name=name, config=mod.CONFIG)
+    return ArchBundle(name=name, family=mod.FAMILY, config=mod.CONFIG)

@@ -1,0 +1,115 @@
+"""Fused embedding pooling + All-to-All (paper Sec. III-A, Fig. 6: DLRM).
+
+DLRM splits its embedding tables over the whole world (model parallel)
+while the MLPs run data parallel; the switch between the two is an
+All-to-All of pooled embeddings.  The paper's kernel pools a *slice* (a
+batch fragment of the rank's tables) and PUTs it to the rank that owns
+those batch rows the moment the slice is done, remote slices first.
+
+  bulk   : pool every local table (one library call,
+           ``F.embedding_bag(mode="mean")``), then one All-to-All
+  kernel : the direct per-destination loop, each fragment pooled by the
+           hand-written ``embedding_pool`` kernel: one launch per fragment
+           over all local tables
+
+Shapes (global): indices [B, T, L] int32 (fixed-size bags, mean-pooled, as
+the DLRM data generator the paper evaluates with), tables [T, V, D],
+output [B, T, D].
+
+This port runs one card (world n = 1): the All-to-All keeps the rank's own
+block.  ``fused`` mode (the chunked collectives) is ROADMAP Queue 1 item 1;
+the reference's ``degrade_mode`` hook and the ``"auto"`` granularity and
+wire choices are item 3 (autotune/degrade) and are not ported.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.collectives import (bulk_all_to_all, direct_all_to_all_compute,
+                                          feasible_chunks_per_rank)
+from repro_torch.kernels.embedding_pool.ops import embedding_pool_tables
+from repro_torch.parallel.sharding import ParallelContext
+
+_FUSED_ITEM = ("ROADMAP Queue 1 item 1 (the multi-card tp world: "
+               "core/collectives.py and fused mode)")
+_AUTOTUNE_ITEM = "ROADMAP Queue 1 item 3 (autotune/degrade)"
+_WIRES = ("f32", "bf16", "fp8")
+
+
+def _pool(tables, idx, kernel: bool):
+    """Mean-pool the bags of every table: tables [T, V, D], idx [b, T, L]
+    -> [b, T, D]."""
+    if kernel:
+        return embedding_pool_tables(tables, idx)
+    n_tab, v, d = tables.shape
+    b, _, L = idx.shape
+    # one library call: the tables as one [T * V, D] weight (more than 2^31
+    # elements at full width, which it takes), table t's rows offset by t * V
+    offs = torch.arange(n_tab, device=idx.device, dtype=idx.dtype)[None, :, None] * v
+    flat = (idx + offs).reshape(b * n_tab, L)
+    return F.embedding_bag(flat, tables.reshape(n_tab * v, d), mode="mean").view(b, n_tab, d)
+
+
+def embedding_all_to_all(
+    ctx: ParallelContext,
+    indices,
+    tables,
+    *,
+    mode: str | None = None,
+    schedule: str | None = None,
+    chunks_per_rank: int | str | None = None,
+    skew: int | None = None,
+    wire: str | None = None,
+):
+    """Pooled embeddings exchanged table-parallel -> data-parallel.
+
+    Every rank holds T_local tables and the indices of the *global* batch
+    on them; it pools all of them and owes each peer the fragment for that
+    peer's batch shard.  Returns [B, T_global, D].
+
+    ``mode`` defaults to ``ctx.fusion.resolve("embed_a2a")``.  In kernel
+    mode ``chunks_per_rank`` (``None`` = ``ctx.fusion.granularity``) splits
+    each destination's batch fragment into that many sub-fragments, one
+    kernel launch each, clamped to a divisor of the fragment; ``schedule``
+    and ``skew`` (``None`` = ``ctx.fusion.skew_world``) order the
+    destinations; ``wire`` (``None`` = ``ctx.fusion.wire``) is the remote
+    payload's dtype, which a one-card world never uses."""
+    mode = mode or ctx.fusion.resolve("embed_a2a")
+    if mode not in ("bulk", "kernel"):
+        raise NotImplementedError(f"embedding_all_to_all mode={mode!r}: {_FUSED_ITEM}")
+    schedule = schedule or ctx.fusion.schedule
+    skew = ctx.fusion.skew_world if skew is None else int(skew)
+    n = ctx.tp * ctx.dp
+    B = indices.shape[0]
+    t_local, _, D = tables.shape
+    b_chunk = B // n
+
+    if mode == "bulk":
+        # pool everything, then one All-to-All (the NCCL-style baseline)
+        full = _pool(tables, indices, kernel=False)              # [B, T_local, D]
+        recv = bulk_all_to_all(ctx, full.view(n, b_chunk, t_local, D))
+    else:
+        gran = ctx.fusion.granularity if chunks_per_rank is None else chunks_per_rank
+        wire = ctx.fusion.wire if wire is None else wire
+        if gran == "auto" or wire == "auto":
+            raise NotImplementedError(
+                f"embedding_all_to_all granularity={gran!r}, wire={wire!r}: the 'auto' "
+                f"choices are {_AUTOTUNE_ITEM}")
+        if wire not in _WIRES:
+            raise ValueError(f"wire must be one of {_WIRES + ('auto',)}, got {wire!r}")
+        if isinstance(gran, bool) or int(gran) < 1:
+            raise ValueError(f"granularity must be >= 1 or 'auto', got {gran!r}")
+        q = feasible_chunks_per_rank(b_chunk, 1, int(gran))
+        rows = b_chunk // q
+
+        def pool_fragment(f):
+            # this rank's tables pooled for fine chunk f = dest * q + s:
+            # batch rows [f * rows, (f + 1) * rows)
+            return _pool(tables, indices[f * rows:(f + 1) * rows], kernel=True)
+
+        recv = direct_all_to_all_compute(
+            ctx, pool_fragment, (b_chunk, t_local, D), schedule=schedule,
+            chunks_per_rank=q, sub_axis=0, skew=skew)
+    # recv: [n_src, b_chunk, T_local, D] -> [b_chunk, T_global, D]
+    return recv.movedim(0, 1).reshape(b_chunk, n * t_local, D)

@@ -163,6 +163,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, i64, i64, vp, i64, ptrs, ptrs, ptrs, vp, i32, i32,
         i32, i32, i32, i32, i32, i32, ctypes.c_uint, i32, i32, i32, vp]
     lib.repro_fused_gemm_a2a.restype = i32
+    lib.repro_embedding_pool.argtypes = [vp, i64, vp, vp, i32, i32, i32, i32, i32, vp]
+    lib.repro_embedding_pool.restype = i32
+    lib.repro_fused_embedding_a2a.argtypes = [
+        vp, i64, i64, vp, i64, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32, i32,
+        ctypes.c_uint, i32, i32, vp]
+    lib.repro_fused_embedding_a2a.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

@@ -11,6 +11,9 @@ from __future__ import annotations
 
 import torch
 
+# config dtype names -> torch dtypes
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
 
 def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
     """Truncated-normal fan-in init: N(0, 1) cut at +-2, times

@@ -38,3 +38,13 @@ def params_from_numpy(tree, device="cpu"):
               for j in range(period)]
     return {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"]),
             "layers": layers}
+
+
+def dlrm_params_from_numpy(tree, device="cpu"):
+    """JAX DLRM params as nested numpy arrays (``split_params`` values
+    through ``np.asarray``: ``tables`` [T, V, D], ``bottom`` and ``top``
+    lists of ``{"w", "b"}``) -> the port's parameters, the same tree."""
+    layers = lambda key: [{k: _tensor(v, device) for k, v in layer.items()}
+                          for layer in tree[key]]
+    return {"tables": _tensor(tree["tables"], device), "bottom": layers("bottom"),
+            "top": layers("top")}

@@ -15,14 +15,12 @@ from typing import Any
 import torch
 
 from repro_torch.models.attention import broadcast_pos, cache_update, decode_attention
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import DTYPES, dense_init
 from repro_torch.models.layers import (embedding_init, embedding_lookup, mlp_apply,
                                        mlp_init, rms_norm, rms_norm_init)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rope import apply_rope, apply_rope_2d
 from repro_torch.parallel.sharding import ParallelContext
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +70,11 @@ class TransformerConfig:
 
     @property
     def pdtype(self):
-        return _DTYPES[self.param_dtype]
+        return DTYPES[self.param_dtype]
 
     @property
     def cdtype(self):
-        return _DTYPES[self.compute_dtype]
+        return DTYPES[self.compute_dtype]
 
 
 def check_supported(cfg: TransformerConfig):
