@@ -45,14 +45,34 @@ prints one line, and any failure exits non-zero:
      the pooled output is bit-identical), logits and loss kernel vs bulk
  14. the DLRM kernels' and forward's times from CUDA events, and a profile
      of the forward
+ 15. wkv6 against its plain chunked version and the per-step scan at the
+     main-path shape (rwkv6-7b's prefill: B*H = 4*64, T = 512, N = 64,
+     chunk 64; decays across the clip range, a non-zero bonus) and edge
+     shapes (one chunk, chunks 8/16/32, T below the chunk, N 16 and 32),
+     an unsupported N or chunk raising; gemm against its plain version at
+     ragged M, N, K (1, 33, 1000, 4097) in f32 and bf16
+ 16. full-width rwkv6-7b prefill (4 x 512 seeded tokens, random mu, w0 and
+     u) through the registry's bundle in kernel and bulk mode: launch
+     counts, every layer's wkv6 output and state against the plain version
+     on its identical input, logits and states of both modes against an
+     exact f32 evaluation
+ 17. 8 greedy decode steps from phase 16's states (launch counts; logits
+     teacher-forced, kernel vs bulk vs exact f32), and the prefill/decode
+     hand-off: a 64-token prefill against 64 decode steps from init_state
+ 18. times from CUDA events: wkv6 and gemm against their bounds, plain
+     versions and torch.matmul; prefill per batch and decode per step in
+     both modes with profiles; the fused GEMV kernel at prefill rows on
+     layer 0's w_o and channel-mix w_v, against its plain version first
 
-chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase 11.  Then one JSON line per
-the kernels, the card's name and power limit, and the result line.  Float32
+chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
+11, DLRM's before phase 15.  Then one JSON line per the kernels, the card's
+name and power limit, and the result line.  Float32
 matrix products run in full f32 here (``allow_tf32`` off for cuBLAS and
 cuDNN), so the plain versions are exact f32 references.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -107,6 +127,10 @@ REL_F32, REL_BF16, REL_WIRE_BF16 = 3e-4, 2e-2, 3e-2
 # inputs must still agree to rounding: a difference below 2^-4 of the
 # largest |h| says a near tie flipped, not a fault.
 H_DIVERGE_REL = 2.0 ** -4
+# rwkv6-7b: prefill of 4 prompts of 512 seeded tokens (the WKV6 kernel's
+# main-path shape B*H = 256, T = 512, N = 64, chunk 64), 8 greedy decode
+# steps, and the prefill/decode hand-off over the first 64 tokens
+RWKV_B, RWKV_T, RWKV_STEPS, RWKV_HANDOFF = 4, 512, 8, 64
 
 
 def say(phase, msg):
@@ -186,11 +210,13 @@ def counted_wrappers():
                                                         fused_moe_chain)
     from repro_torch.kernels.fused_gemv_allreduce.ops import (fused_matmul_allreduce,
                                                               fused_matmul_allreduce_ranks)
+    from repro_torch.kernels.gemm.ops import gemm
     from repro_torch.kernels.gemv.ops import gemv
+    from repro_torch.kernels.rwkv6.ops import wkv6
 
     return (fused_matmul_allreduce, fused_matmul_allreduce_ranks, gemv, fused_dispatch_a2a,
             fused_dispatch_a2a_ranks, fused_gemm_a2a, fused_gemm_a2a_ranks, fused_moe_chain,
-            embedding_pool_tables, fused_embedding_a2a, fused_embedding_a2a_ranks)
+            embedding_pool_tables, fused_embedding_a2a, fused_embedding_a2a_ranks, wkv6, gemm)
 
 
 def serve_requests(step, bundle, batch, n_req, max_new):
@@ -302,6 +328,8 @@ def main() -> int:
     kernels += dbrx_phases(card, gen)
     torch.cuda.empty_cache()
     kernels += dlrm_phases(card, gen)
+    torch.cuda.empty_cache()
+    kernels += rwkv6_phases(card, gen)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -834,6 +862,340 @@ def dlrm_phases(card, gen) -> list[dict]:
          "launches": launches["fused_embedding_a2a"], "main_path": False, "ms": t_fused,
          "plain_ms": t_fused_plain},
     ]
+
+
+def rwkv6_phases(card, gen) -> list[dict]:
+    """Phases 15-18: the WKV6 and GEMM kernels against their plain versions,
+    full-width rwkv6-7b prefill and decode through the registry's bundle in
+    kernel and bulk mode against an exact f32 evaluation, and times; returns
+    the JSON rows of the two kernels."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce
+    from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
+    from repro_torch.kernels.gemm.ops import gemm
+    from repro_torch.kernels.gemm.ref import gemm_ref
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    bundle = get_arch("rwkv6-7b")
+    cfg = bundle.config
+    L, H, N, C = cfg.n_layers, cfg.n_heads, cfg.head_size, cfg.chunk
+    B, T = RWKV_B, RWKV_T
+
+    # 15 --------------------------------------------------------------
+    # WKV6 and its plain versions all run in f32: they differ in summation
+    # order and in the exponentials' last bits, so REL_F32 bounds them
+    r, k, v, w, u = wkv6_inputs(gen, B, T, H, N)
+    o, s = wkv6(r, k, v, w, u, chunk=C)
+    po, ps = plain_wkv6(r, k, v, w, u, chunk=C)
+    o_err = check_rel("wkv6 main o", o, po, REL_F32)
+    s_err = check_rel("wkv6 main state", s, ps, REL_F32)
+    s_max = ps.abs().max().item()
+    fold = lambda a: a.transpose(1, 2).reshape(B * H, T, N)
+    lw = torch.log(torch.clamp(w, 1e-8, 1.0))
+    scan = wkv6_ref(fold(r), fold(k), fold(v), fold(lw),
+                    u[None].expand(B, H, N).reshape(B * H, 1, N))
+    scan_err = check_rel("wkv6 main o vs the per-step scan", fold(o), scan, REL_F32)
+    del po, ps, lw, scan
+    edges = []
+    for b, t, h, n, ch in ((2, 64, 3, 64, 64), (2, 96, 3, 64, 16), (3, 64, 2, 32, 32),
+                           (2, 40, 5, 16, 8), (2, 24, 4, 16, 64), (1, 512, 2, 32, 64)):
+        ins = wkv6_inputs(gen, b, t, h, n)
+        name = f"B={b} T={t} H={h} N={n} chunk={ch}"
+        got, want = wkv6(*ins, chunk=ch), plain_wkv6(*ins, chunk=ch)
+        e = max(check_rel(f"wkv6 {name} {part}", g, w_, REL_F32)[1]
+                for part, g, w_ in zip(("o", "state"), got, want))
+        edges.append(f"{name} {e:.3g}")
+    for bad_n, bad_c in ((8, 8), (64, 128)):
+        try:
+            wkv6(*wkv6_inputs(gen, 1, 128, 2, bad_n), chunk=bad_c)
+        except ValueError:
+            continue
+        raise AssertionError(f"wkv6 took N={bad_n}, chunk={bad_c}: the kernel takes neither")
+    gemm_cases = []
+    for m, kk, n in ((1, 1, 1), (33, 1000, 4097), (4097, 33, 1000), (1000, 4097, 33),
+                     (1, 4097, 1000), (4097, 1, 33)):
+        for dt, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
+            x = randn(gen, (m, kk), dt)
+            wg = randn(gen, (kk, n), dt, kk ** -0.5)
+            err = check_close(f"gemm [{m},{kk}]@[{kk},{n}] {str(dt)[6:]}", gemm(x, wg),
+                              gemm_ref(x, wg), tol)
+            gemm_cases.append((f"[{m},{kk}]@[{kk},{n}] {str(dt)[6:]}", err[0]))
+    say(15, f"wkv6 vs plain chunked at the main path r,k,v,w [{B},{T},{H},{N}] f32, chunk {C}: "
+            f"o max abs/rel err {o_err[0]:.3g}/{o_err[1]:.3g}, final state (max |state| "
+            f"{s_max:.3g}) {s_err[0]:.3g}/{s_err[1]:.3g} (bound {REL_F32} rel); o vs the "
+            f"per-step scan {scan_err[0]:.3g}/{scan_err[1]:.3g}; edge shapes max rel err: "
+            + "; ".join(edges)
+            + "; N=8 and chunk 128 raise; gemm vs plain max abs err: "
+            + ", ".join(f"{n_} {e:.3g}" for n_, e in gemm_cases))
+    del r, k, v, w, u, o, s
+
+    # 16 --------------------------------------------------------------
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    mix = torch.Generator(device="cuda").manual_seed(2)
+    for lp in params["layers"]:
+        # the reference inits mu, w0 and u to zeros, which would hide the token
+        # shift, the decay offset and the bonus: draw them (w0 spans the log-log
+        # decays of a trained rwkv6, about [-6, 1])
+        tm, cm = lp["tm"], lp["cm"]
+        tm["mu"] = torch.rand(tm["mu"].shape, generator=mix, device="cuda")
+        tm["w0"] = torch.rand(tm["w0"].shape, generator=mix, device="cuda") * 7.0 - 6.0
+        tm["u"] = torch.randn(tm["u"].shape, generator=mix, device="cuda") * 0.5
+        cm["mu"] = torch.rand(cm["mu"].shape, generator=mix, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t_.numel() for t_ in _leaves(params))
+    n_bytes = sum(t_.numel() * t_.element_size() for t_ in _leaves(params))
+    if not 7.3e9 < n_params < 7.4e9:
+        raise AssertionError(f"rwkv6-7b has {n_params} parameters, not about 7.35e9")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, T), generator=gen, device="cuda")}
+    ctx_k = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel"))
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    pre_k, pre_b = bundle.prefill_fn(ctx_k), bundle.prefill_fn(ctx_b)
+    exact = dataclasses.replace(bundle, config=dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    params_x = {**params, "layers": UpcastLayers(params["layers"])}
+
+    def exact_prefill(b):
+        with swapped_wkv6(plain_wkv6):
+            return exact.prefill_fn(ctx_b)(params_x, b)
+
+    def counted_run(fn, want_wkv6, want_fused):
+        for counted in counted_wrappers():
+            counted.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in counted_wrappers()}
+        want = {"wkv6": want_wkv6, "fused_matmul_allreduce": want_fused}
+        if any(got[n_] != want.get(n_, 0) for n_ in got):
+            raise AssertionError(f"launches {got}, expected {want} and 0 elsewhere")
+        return out, got
+
+    torch.cuda.reset_peak_memory_stats()
+    (logits_k, state_k), launch_k = counted_run(lambda: pre_k(params, batch), L, 2 * L)
+    layer_errs = []
+
+    def spy(r_, k_, v_, w_, u_, *, chunk):
+        """The kernel, then its plain version on the identical input."""
+        got = wkv6(r_, k_, v_, w_, u_, chunk=chunk)
+        want = plain_wkv6(r_, k_, v_, w_, u_, chunk=chunk)
+        i = len(layer_errs)
+        layer_errs.append(max(check_rel(f"prefill layer {i} wkv6 {part}", g, w2, REL_F32)[1]
+                              for part, g, w2 in zip(("o", "state"), got, want)))
+        return got
+
+    with swapped_wkv6(spy):
+        (logits_b, state_b), launch_b = counted_run(lambda: pre_b(params, batch), L, 0)
+    logits_x, state_x = exact_prefill(batch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for lg in (logits_k, logits_b, logits_x):
+        if lg.shape != (B, 1, cfg.vocab) or not torch.isfinite(lg).all():
+            raise AssertionError(f"prefill logits: shape {tuple(lg.shape)} or non-finite")
+    pre_errs = bounded_errors("prefill", {"logits": (logits_k, logits_b, logits_x),
+                                          **{key: (state_k[key], state_b[key], state_x[key])
+                                             for key in state_k}})
+    say(16, f"rwkv6-7b full width ({L}L d{cfg.d_model}, {H} heads of {N}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab}, {n_params / 1e9:.3f}B params, {n_bytes / 1e9:.2f} GB "
+            f"{cfg.param_dtype}, init {init_s:.1f}s, peak {peak_gb:.1f} GB), prefill of "
+            f"{B}x{T} seeded tokens: launches in kernel mode wkv6 {launch_k['wkv6']}, fused GEMV "
+            f"{launch_k['fused_matmul_allreduce']}; in bulk mode wkv6 {launch_b['wkv6']}, fused "
+            f"GEMV {launch_b['fused_matmul_allreduce']}; every layer's wkv6 (o, state) vs plain "
+            f"on its input: max rel err {max(layer_errs):.3g} over {len(layer_errs)} layers "
+            f"(bound {REL_F32}); max abs err (kernel vs exact f32, bulk vs exact f32, kernel vs "
+            f"bulk; bound {LOGITS_TOL_FACTOR} x bulk's): {pre_errs}")
+
+    # 17 --------------------------------------------------------------
+    dec_k, dec_b, dec_x = (bundle.decode_fn(ctx_k), bundle.decode_fn(ctx_b),
+                           exact.decode_fn(ctx_b))
+
+    def greedy():
+        st, tok, out = state_k, logits_k.argmax(-1), []
+        for _ in range(RWKV_STEPS):
+            lg, st = dec_k(params, tok, st, None)
+            out.append((tok, lg))
+            tok = lg.argmax(-1)
+        return out
+
+    steps, launch_d = counted_run(greedy, 0, 2 * L * RWKV_STEPS)
+    st_b, st_x, lb_all, lx_all = state_b, state_x, [], []
+    for tok, _ in steps:                      # teacher-forced on the kernel stream's tokens
+        lb, st_b = dec_b(params, tok, st_b, None)
+        lx, st_x = dec_x(params_x, tok, st_x, None)
+        lb_all.append(lb)
+        lx_all.append(lx)
+    cat = lambda ls: torch.cat(ls, dim=1)
+    lk = cat([lg for _, lg in steps])
+    if lk.shape != (B, RWKV_STEPS, cfg.vocab) or not torch.isfinite(lk).all():
+        raise AssertionError(f"decode logits: shape {tuple(lk.shape)} or non-finite")
+    dec_errs = bounded_errors("decode", {"logits": (lk, cat(lb_all), cat(lx_all))})
+    head = {"tokens": batch["tokens"][:, :RWKV_HANDOFF]}
+    lp_, sp_ = pre_k(params, head)
+    lpx, spx = exact_prefill(head)
+    st = bundle.init_cache(B, "cuda")
+    for i in range(RWKV_HANDOFF):
+        ld, st = dec_k(params, head["tokens"][:, i:i + 1], st, None)
+    handoff = []
+    for key, got, pre, ex in (("logits", ld, lp_, lpx),
+                              *((key, st[key], sp_[key], spx[key]) for key in st)):
+        d_pd, d_px = errors(got, pre)[0], errors(pre, ex)[0]
+        if d_pd > LOGITS_TOL_FACTOR * d_px:
+            raise AssertionError(f"hand-off {key}: {RWKV_HANDOFF} decode steps are {d_pd:.3g} "
+                                 f"from the prefill, above {LOGITS_TOL_FACTOR} x the prefill's "
+                                 f"distance {d_px:.3g} from exact f32")
+        handoff.append(f"{key} {d_pd:.3g} (bound {LOGITS_TOL_FACTOR * d_px:.3g})")
+    say(17, f"rwkv6-7b decode, {RWKV_STEPS} greedy steps from the prefill states: launches wkv6 "
+            f"{launch_d['wkv6']}, fused GEMV {launch_d['fused_matmul_allreduce']} (= 2 x {L} x "
+            f"{RWKV_STEPS}); teacher-forced {dec_errs}; kernel stream tokens "
+            f"{[[int(t_) for t_ in tok[:, 0]] for tok, _ in steps]}; hand-off, kernel mode, "
+            f"{RWKV_HANDOFF}-token prefill vs {RWKV_HANDOFF} decode steps from init_state, max "
+            f"abs err (bound {LOGITS_TOL_FACTOR} x the prefill's distance from exact f32): "
+            + ", ".join(handoff))
+    del steps, st_b, st_x, lb_all, lx_all, lk, st, sp_, spx, state_x, logits_x
+
+    # 18 --------------------------------------------------------------
+    r, k, v, w, u = wkv6_inputs(gen, B, T, H, N)
+    t_wkv = time_ms(lambda: wkv6(r, k, v, w, u, chunk=C), iters=20, warmup=3)
+    t_wkv_plain = time_ms(lambda: plain_wkv6(r, k, v, w, u, chunk=C), iters=5, warmup=1)
+    wkv_bnd, wkv_by, wkv_bytes, wkv_ops = wkv6_bound(B * H, T, N)
+    del r, k, v, w, u
+    gx = randn(gen, (2048, 4096), bf16)
+    gw = randn(gen, (4096, 4096), bf16, 4096 ** -0.5)
+    t_gemm = time_ms(lambda: gemm(gx, gw), iters=10, warmup=2)
+    t_gemm_plain = time_ms(lambda: gemm_ref(gx, gw), iters=10, warmup=2)
+    t_gemm_lib = time_ms(lambda: torch.matmul(gx, gw), iters=20, warmup=3)
+    gemm_bnd, gemm_by = bound_ms(2048, 4096, 4096, 2)
+    gx32, gw32 = gx.float(), gw.float()
+    t_gemm32 = time_ms(lambda: gemm(gx32, gw32), iters=10, warmup=2)
+    t_gemm32_lib = time_ms(lambda: torch.matmul(gx32, gw32), iters=10, warmup=2)
+    gemm32_bnd = max((3 * 2048 * 4096 + 4096 * 4096) * 4 / HBM_BYTES_PER_S,
+                     2 * 2048 * 4096 * 4096 / F32_FLOPS) * 1e3
+    del gx32, gw32
+    rows = {}
+    for name, wt in (("w_o", params["layers"][0]["tm"]["w_o"]),
+                     ("channel-mix w_v", params["layers"][0]["cm"]["w_v"])):
+        x = randn(gen, (B * T, wt.shape[0]), bf16)
+        err = check_close(f"fused GEMV at prefill rows, layer 0 {name}",
+                          fused_matmul_allreduce(x, wt), fused_matmul_allreduce_ref(x, wt),
+                          BF16_TOL)
+        rows[name] = (tuple(wt.shape), err, time_ms(lambda: fused_matmul_allreduce(x, wt), iters=3,
+                                               warmup=1),
+                      time_ms(lambda: torch.matmul(x, wt), iters=10, warmup=2),
+                      bound_ms(B * T, wt.shape[0], wt.shape[1], 2))
+    pre_t = {"kernel": [], "bulk": []}
+    for mode, fn in (("kernel", pre_k), ("bulk", pre_b), ("bulk", pre_b), ("kernel", pre_k)):
+        pre_t[mode].append(time_ms(lambda: fn(params, batch), iters=2, warmup=1))
+    tok = logits_k.argmax(-1)
+    dec_t = {"kernel": [], "bulk": []}
+    for mode, fn in (("kernel", dec_k), ("bulk", dec_b), ("bulk", dec_b), ("kernel", dec_k)):
+        dec_t[mode].append(time_ms(lambda: fn(params, tok, state_k, None), iters=10, warmup=2))
+    prof = {m: (profile_device(lambda i: fn(params, batch), 1, "prefill"),
+                profile_device(lambda i: dfn(params, tok, state_k, None), 4, "step"))
+            for m, fn, dfn in (("kernel", pre_k, dec_k), ("bulk", pre_b, dec_b))}
+    times = lambda d: "; ".join(f"{m} " + ", ".join(f"{t_:.4f}" for t_ in ts) + " ms"
+                                for m, ts in d.items())
+    say(18, f"on {card}: wkv6 [{B},{T},{H},{N}] chunk {C}: kernel {t_wkv:.4f} ms, plain chunked "
+            f"{t_wkv_plain:.4f} ms, no single PyTorch call computes it, bound {wkv_bnd:.4f} ms "
+            f"({wkv_by}: {wkv_bytes / 1e6:.1f} MB, {wkv_ops / 1e9:.2f} G f32 operations); gemm "
+            f"[2048,4096]@[4096,4096] bf16: kernel {t_gemm:.4f} ms, plain {t_gemm_plain:.4f} ms, "
+            f"torch.matmul {t_gemm_lib:.4f} ms, bound {gemm_bnd:.4f} ms ({gemm_by}); f32: kernel "
+            f"{t_gemm32:.4f} ms, torch.matmul {t_gemm32_lib:.4f} ms, bound {gemm32_bnd:.4f} ms "
+            f"(operations at the f32 peak); fused GEMV kernel at prefill rows {B * T}: "
+            + "; ".join(f"{n_} {shape}: vs plain max abs/rel err {e[0]:.3g}/{e[1]:.3g}, kernel "
+                        f"{tk:.4f} ms, torch.matmul {tl:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]})"
+                        for n_, (shape, e, tk, tl, bd) in rows.items())
+            + f"; prefill per batch of {B}x{T} (CUDA events, turns kernel, bulk, bulk, kernel): "
+            + times(pre_t) + f"; decode per step at batch {B}: " + times(dec_t)
+            + "; profiles: " + "; ".join(f"{m} prefill {p_[0]}; {m} decode {p_[1]}"
+                                         for m, p_ in prof.items()))
+
+    return [
+        {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/rwkv6/kernel.py:20", "launches": launch_k["wkv6"],
+         "max_abs_err": o_err[0], "ms": t_wkv, "plain_ms": t_wkv_plain, "bound_ms": wkv_bnd,
+         "bound_by": wkv_by, "library_ms": None},
+        {"name": "gemm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/gemm.cu",
+         "replaces": "src/repro/kernels/gemm/kernel.py:19", "launches": launch_k["gemm"],
+         "main_path": False, "max_abs_err": max(e for _, e in gemm_cases), "ms": t_gemm,
+         "plain_ms": t_gemm_plain, "bound_ms": gemm_bnd, "bound_by": gemm_by,
+         "library_ms": t_gemm_lib},
+    ]
+
+
+def wkv6_inputs(gen, b, t, h, n):
+    """r, k, v, w [b, t, h, n] f32 and u [h, n] on the card: decays
+    exp(-exp(N(0, 1))) with 5 % below the 1e-8 clip and 5 % within 1e-6 of
+    1, and a non-zero bonus."""
+    shape = (b, t, h, n)
+    r, v = randn(gen, shape, torch.float32), randn(gen, shape, torch.float32)
+    k = randn(gen, shape, torch.float32, 0.3)
+    w = torch.exp(-torch.exp(randn(gen, shape, torch.float32)))
+    pick = torch.rand(shape, generator=gen, device="cuda")
+    w = torch.where(pick < 0.05, 1e-12, torch.where(pick > 0.95, 1.0 - 1e-6, w))
+    return r, k, v, w, randn(gen, (h, n), torch.float32, 0.5)
+
+
+def plain_wkv6(r, k, v, w, u, *, chunk):
+    """The WKV6 op's plain chunked version from a zero state: (o, state)."""
+    from repro_torch.kernels.rwkv6.ref import wkv6_chunked
+
+    b, _, h, n = r.shape
+    zero = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    return wkv6_chunked(r.float(), k.float(), v.float(), w.float(), u.float(), zero,
+                        min(chunk, r.shape[1]))
+
+
+@contextlib.contextmanager
+def swapped_wkv6(fn):
+    """The rwkv6 time-mix calls ``fn`` in place of the WKV6 op meanwhile."""
+    from repro_torch.models import rwkv6
+
+    kept = rwkv6.wkv6
+    rwkv6.wkv6 = fn
+    try:
+        yield
+    finally:
+        rwkv6.wkv6 = kept
+
+
+class UpcastLayers:
+    """A model's layer list read in f32 one layer at a time, as the layer
+    loop reaches it: the exact f32 evaluation without an f32 copy of every
+    layer."""
+
+    def __init__(self, layers):
+        self.layers = layers
+
+    def __iter__(self):
+        return (_map(lp, lambda t: t.float()) for lp in self.layers)
+
+
+def wkv6_bound(bh, t, n):
+    """Least time for one WKV6 call, (ms, bound_by, bytes, operations): f32
+    r, k, v, w read once, o and the final state written once, over HBM; or
+    the f32 operations of the least work, the per-step recurrence, at the
+    f32 peak.  Per step and (b, h): o = r S + (r u k) v, 2 n^2 + 5 n; S <-
+    w S + k^T v, 3 n^2.  The chunked form does more (pairwise decays)."""
+    n_bytes = 4 * (5 * bh * t * n + bh * n * n)
+    ops = bh * t * (5 * n * n + 5 * n)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, ops
+
+
+def bounded_errors(what, triples) -> str:
+    """For each (kernel, bulk, exact) triple: kernel and bulk mode's distances
+    from the exact f32 evaluation and from each other; the kernel path's
+    must lie within LOGITS_TOL_FACTOR x the bulk path's."""
+    out = []
+    for key, (kern, bulk, ex) in triples.items():
+        kx, bx, kb = errors(kern, ex)[0], errors(bulk, ex)[0], errors(kern, bulk)[0]
+        if kx > LOGITS_TOL_FACTOR * bx or kb > LOGITS_TOL_FACTOR * bx:
+            raise AssertionError(f"{what} {key}: kernel vs exact f32 {kx:.3g}, kernel vs bulk "
+                                 f"{kb:.3g}, above {LOGITS_TOL_FACTOR} x bulk vs exact {bx:.3g}")
+        out.append(f"{key} {kx:.3g}/{bx:.3g}/{kb:.3g}")
+    return ", ".join(out)
 
 
 def moe_routed(params, h, mcfg, gate_i):

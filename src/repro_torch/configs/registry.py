@@ -1,10 +1,11 @@
 """Architecture registry: a uniform bundle over the ported configs.
 
-The port serves chatglm3-6b (dense GQA decode) and dbrx-132b (MoE decode)
-and runs the forward of DLRM, the paper's own architecture (its
-``loss_fn`` scores a batch; training it waits for ROADMAP Queue 1 item 4).
-The reference's other architectures raise until their slice of the port
-lands.
+The port serves chatglm3-6b (dense GQA decode) and dbrx-132b (MoE decode),
+runs rwkv6-7b's prefill and decode (``prefill_fn``, ``decode_fn``; no
+launcher serves it yet) and the forward of DLRM, the paper's own
+architecture (its ``loss_fn`` scores a batch; training it waits for ROADMAP
+Queue 1 item 4).  The reference's other architectures raise until their
+slice of the port lands.
 """
 from __future__ import annotations
 
@@ -31,15 +32,22 @@ _MODULES = {
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "dlrm": "repro_torch.configs.dlrm",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
 # the reference's other architectures, and the ROADMAP Queue 1 item of each
 _LATER = {
     "phi3-medium-14b": 7, "gemma2-27b": 7, "deepseek-67b": 7,
-    "musicgen-medium": 7, "rwkv6-7b": 7, "zamba2-7b": 7,
+    "musicgen-medium": 7, "zamba2-7b": 7,
     "deepseek-v3-671b": 5, "qwen2-vl-2b": 7,
 }
 _TRAIN_ITEM = "ROADMAP Queue 1 item 4 (dense training)"
+# the model module of each family that decodes
+_DECODERS = {"transformer": "repro_torch.models.transformer",
+             "rwkv6": "repro_torch.models.rwkv6"}
+# families whose prefill the reference has and the port has not, with the item
+_PREFILL_LATER = {"transformer": "ROADMAP Queue 1 item 2 (chunked prefill)",
+                  "zamba2": "ROADMAP Queue 1 item 7"}
 
 
 @dataclasses.dataclass
@@ -54,6 +62,10 @@ class ArchBundle:
             from repro_torch.models.transformer import transformer_init
 
             return transformer_init(gen, self.config)
+        if self.family == "rwkv6":
+            from repro_torch.models.rwkv6 import rwkv6_init
+
+            return rwkv6_init(gen, self.config)
         if self.family == "dlrm":
             from repro_torch.models.dlrm import dlrm_init
 
@@ -69,23 +81,31 @@ class ArchBundle:
             return lambda p, b: dlrm_loss(ctx, p, cfg, b)
         raise NotImplementedError(f"{self.name}: the training forward is {_TRAIN_ITEM}")
 
+    def prefill_fn(self, ctx: ParallelContext) -> Callable:
+        """(params, {"tokens": [B, S]}) -> (last logits [B, 1, V], state)."""
+        if self.family in _PREFILL_LATER:
+            raise NotImplementedError(f"{self.name}: prefill is {_PREFILL_LATER[self.family]}")
+        if self.family != "rwkv6":
+            raise ValueError(f"{self.name}: a {self.family} model does not prefill")
+        from repro_torch.models.rwkv6 import prefill_forward
+
+        cfg = self.config
+        return lambda p, b: prefill_forward(ctx, p, cfg, b)
+
     def decode_fn(self, ctx: ParallelContext) -> Callable:
         """(params, tokens [B,1], cache, pos [B]) -> (logits [B,1,V], cache)."""
-        from repro_torch.models.transformer import decode_step
-
-        self._need_transformer()
+        fn = self._decoder().decode_step
         cfg = self.config
-        return lambda p, t, c, pos: decode_step(ctx, p, cfg, t, c, pos)
+        return lambda p, t, c, pos: fn(ctx, p, cfg, t, c, pos)
 
     def init_cache(self, batch_size: int, device):
-        from repro_torch.models.transformer import init_cache
+        """The decode cache: a transformer's KV cache, rwkv6's recurrent state."""
+        return self._decoder().init_cache(self.config, batch_size, device)
 
-        self._need_transformer()
-        return init_cache(self.config, batch_size, device)
-
-    def _need_transformer(self):
-        if self.family != "transformer":
+    def _decoder(self):
+        if self.family not in _DECODERS:
             raise ValueError(f"{self.name}: a {self.family} model does not decode")
+        return importlib.import_module(_DECODERS[self.family])
 
     def shapes(self):
         if self.family == "dlrm":
@@ -101,6 +121,10 @@ class ArchBundle:
             return dataclasses.replace(self, config=dataclasses.replace(
                 c, n_tables=8, table_vocab=128, embed_dim=16, n_dense=4,
                 bottom_mlp=(32, 16), top_mlp=(32, 1), pooling=5))
+        if self.family == "rwkv6":
+            return dataclasses.replace(self, config=dataclasses.replace(
+                c, n_layers=2, d_model=64, d_ff=128, vocab=512, head_size=16,
+                lora_r=8, chunk=8, param_dtype="float32", compute_dtype="float32"))
         over = dict(n_layers=2 * (c.local_global_period or 1), d_model=64,
                     d_ff=128, vocab=512, head_dim=16, max_seq=64,
                     param_dtype="float32", compute_dtype="float32")

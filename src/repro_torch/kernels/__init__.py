@@ -169,6 +169,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, i64, i64, vp, i64, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32, i32,
         ctypes.c_uint, i32, i32, vp]
     lib.repro_fused_embedding_a2a.restype = i32
+    lib.repro_wkv6.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+    lib.repro_wkv6.restype = i32
+    lib.repro_gemm.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.repro_gemm.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

@@ -5,6 +5,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
       --reduced --device cpu
 
+rwkv6-7b is refused (see ``_RWKV6_REFUSAL``): its prefill and decode
+run through ``get_arch("rwkv6-7b").prefill_fn`` / ``decode_fn``.
+
 A dense model's FFN down projection runs the fused GEMV+AllReduce kernel;
 an MoE model's experts run the dispatch-A2A kernel chained into the expert
 FFN + combine-A2A kernel.  Full-width dbrx-132b (264 GB of bf16 weights)
@@ -28,6 +31,16 @@ from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 from repro_torch.serve.engine import DecodeEngine, Request
 
 
+# The reference's launcher cannot serve rwkv6 either, so neither does the port.
+_RWKV6_REFUSAL = (
+    "rwkv6-7b has no serving launcher: the reference's `repro.launch.serve "
+    "--arch rwkv6-7b` raises AttributeError at src/repro/launch/serve.py:146 "
+    "(RWKV6Config has no max_seq), and its DecodeEngine._admit resets only a "
+    "reused slot's position, which rwkv6's decode_step ignores, so a new "
+    "request would inherit the previous one's recurrent state (ROADMAP "
+    "Queue 3).  Call get_arch('rwkv6-7b').prefill_fn / decode_fn instead.")
+
+
 def make_requests(n: int, vocab: int, max_new: int) -> list[Request]:
     """The reference launcher's seeded prompts: 2-5 random token ids each."""
     rng = np.random.default_rng(0)
@@ -49,9 +62,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    bundle = get_arch(args.arch)
+    if bundle.family == "rwkv6":
+        raise NotImplementedError(_RWKV6_REFUSAL)
     ctx = ParallelContext(device=args.device,
                           fusion=FusionConfig(mode=args.fusion))
-    bundle = get_arch(args.arch)
     if args.reduced:
         bundle = bundle.reduced()
     cfg = bundle.config

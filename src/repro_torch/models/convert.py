@@ -13,6 +13,14 @@ def _tensor(a, device):
     return torch.from_numpy(a).to(device)
 
 
+def _conv(tree, device, index=None):
+    """A nested dict of arrays as tensors; with ``index``, the entry at that
+    position of every array's leading (stacked-layer) axis."""
+    if isinstance(tree, dict):
+        return {k: _conv(v, device, index) for k, v in tree.items()}
+    return _tensor(tree if index is None else np.asarray(tree)[index], device)
+
+
 def params_from_numpy(tree, device="cpu"):
     """JAX transformer params as nested dicts of numpy arrays (``split_params``
     values through ``np.asarray``) -> the port's parameters.
@@ -26,18 +34,13 @@ def params_from_numpy(tree, device="cpu"):
     if "prefix" in tree:
         raise NotImplementedError("dense-prefix layers: ROADMAP Queue 1 item 5")
 
-    def conv(t, index=None):
-        if isinstance(t, dict):
-            return {k: conv(v, index) for k, v in t.items()}
-        return _tensor(t if index is None else np.asarray(t)[index], device)
-
     stacked = tree["layers"]
     period = len(stacked)
     groups = len(np.asarray(stacked["l0"]["ln1"]))
-    layers = [conv(stacked[f"l{j}"], g) for g in range(groups)
+    layers = [_conv(stacked[f"l{j}"], device, g) for g in range(groups)
               for j in range(period)]
-    return {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"]),
-            "layers": layers}
+    return {"embed": _conv(tree["embed"], device),
+            "final_norm": _conv(tree["final_norm"], device), "layers": layers}
 
 
 def dlrm_params_from_numpy(tree, device="cpu"):
@@ -48,3 +51,14 @@ def dlrm_params_from_numpy(tree, device="cpu"):
                           for layer in tree[key]]
     return {"tables": _tensor(tree["tables"], device), "bottom": layers("bottom"),
             "top": layers("top")}
+
+
+def rwkv6_params_from_numpy(tree, device="cpu"):
+    """JAX rwkv6 params as nested numpy arrays (``split_params`` values
+    through ``np.asarray``) -> the port's parameters.  The reference stacks
+    its layers on a leading axis (``stacked_init``); the port keeps one dict
+    per layer in ``params["layers"]``."""
+    n_layers = len(np.asarray(tree["layers"]["ln1"]))
+    return {"embed": _conv(tree["embed"], device),
+            "final_norm": _conv(tree["final_norm"], device),
+            "layers": [_conv(tree["layers"], device, i) for i in range(n_layers)]}
