@@ -63,9 +63,25 @@ prints one line, and any failure exits non-zero:
      versions and torch.matmul; prefill per batch and decode per step in
      both modes with profiles; the fused GEMV kernel at prefill rows on
      layer 0's w_o and channel-mix w_v, against its plain version first
+ 19. flash_attention against its plain version at the main-path shape
+     (chatglm3-6b's prefill: B 4, S 2048, 32 query heads over 2 kv heads of
+     128, bf16, causal) and edge shapes (non-causal, S 1/37/1000/2049, hd
+     64, f32, one kv head per query head); hd 96, a window or a softcap
+     raising
+ 20. full-width chatglm3-6b prefill (4 x 2048 seeded tokens) through the
+     registry's bundle in kernel and bulk mode: launch counts (28 flash, no
+     fused GEMV), every layer's flash output against the plain version on
+     its identical input, logits and caches against an exact f32
+     evaluation (the bound: the same model with the plain attention in
+     bf16); the hand-off: 8 greedy decode steps from position 2048 in a
+     4096-position cache, the first step's logits against a prefill over
+     2049 tokens, and both modes' token streams
+ 21. times from CUDA events: the flash kernel per layer against its bound,
+     its plain version and F.scaled_dot_product_attention; prefill per
+     batch and decode per step in both modes; profiles
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
-11, DLRM's before phase 15.  Then one JSON line per the kernels, the card's
+11, DLRM's before phase 15, rwkv6-7b's before phase 19.  Then one JSON line per the kernels, the card's
 name and power limit, and the result line.  Float32
 matrix products run in full f32 here (``allow_tf32`` off for cuBLAS and
 cuDNN), so the plain versions are exact f32 references.
@@ -131,6 +147,10 @@ H_DIVERGE_REL = 2.0 ** -4
 # main-path shape B*H = 256, T = 512, N = 64, chunk 64), 8 greedy decode
 # steps, and the prefill/decode hand-off over the first 64 tokens
 RWKV_B, RWKV_T, RWKV_STEPS, RWKV_HANDOFF = 4, 512, 8, 64
+# chatglm3-6b prefill of 4 prompts of 2048 seeded tokens (the flash kernel's
+# main-path shape: B 4, S 2048, 32 query heads over 2 kv heads of 128), then
+# 8 greedy decode steps from position 2048 in a cache of 4096 positions
+GLM_B, GLM_S, GLM_STEPS = 4, 2048, 8
 
 
 def say(phase, msg):
@@ -202,6 +222,7 @@ def randn(gen, shape, dtype, scale=1.0):
 def counted_wrappers():
     """Every kernel wrapper with a ``launches`` count."""
     from repro_torch.kernels.embedding_pool.ops import embedding_pool_tables
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.fused_dispatch_a2a.ops import (fused_dispatch_a2a,
                                                             fused_dispatch_a2a_ranks)
     from repro_torch.kernels.fused_embedding_a2a.ops import (fused_embedding_a2a,
@@ -216,7 +237,22 @@ def counted_wrappers():
 
     return (fused_matmul_allreduce, fused_matmul_allreduce_ranks, gemv, fused_dispatch_a2a,
             fused_dispatch_a2a_ranks, fused_gemm_a2a, fused_gemm_a2a_ranks, fused_moe_chain,
-            embedding_pool_tables, fused_embedding_a2a, fused_embedding_a2a_ranks, wkv6, gemm)
+            embedding_pool_tables, fused_embedding_a2a, fused_embedding_a2a_ranks, wkv6, gemm,
+            flash_attention)
+
+
+def counted_run(fn, want):
+    """``fn()`` with every launch count set to 0 first; fails unless the
+    counts after it are ``want`` (wrapper name -> launches) and 0 elsewhere.
+    Returns (fn's result, the counts)."""
+    for counted in counted_wrappers():
+        counted.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {c.__name__: c.launches for c in counted_wrappers()}
+    if any(got[n_] != want.get(n_, 0) for n_ in got):
+        raise AssertionError(f"launches {got}, expected {want} and 0 elsewhere")
+    return out, got
 
 
 def serve_requests(step, bundle, batch, n_req, max_new):
@@ -330,6 +366,8 @@ def main() -> int:
     kernels += dlrm_phases(card, gen)
     torch.cuda.empty_cache()
     kernels += rwkv6_phases(card, gen)
+    torch.cuda.empty_cache()
+    kernels += chatglm_prefill_phases(card, gen)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -876,6 +914,7 @@ def rwkv6_phases(card, gen) -> list[dict]:
     from repro_torch.kernels.gemm.ref import gemm_ref
     from repro_torch.kernels.rwkv6.ops import wkv6
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    from repro_torch.models import rwkv6 as rwkv6_model
     from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -960,22 +999,12 @@ def rwkv6_phases(card, gen) -> list[dict]:
     params_x = {**params, "layers": UpcastLayers(params["layers"])}
 
     def exact_prefill(b):
-        with swapped_wkv6(plain_wkv6):
+        with swapped(rwkv6_model, "wkv6", plain_wkv6):
             return exact.prefill_fn(ctx_b)(params_x, b)
 
-    def counted_run(fn, want_wkv6, want_fused):
-        for counted in counted_wrappers():
-            counted.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        got = {c.__name__: c.launches for c in counted_wrappers()}
-        want = {"wkv6": want_wkv6, "fused_matmul_allreduce": want_fused}
-        if any(got[n_] != want.get(n_, 0) for n_ in got):
-            raise AssertionError(f"launches {got}, expected {want} and 0 elsewhere")
-        return out, got
-
     torch.cuda.reset_peak_memory_stats()
-    (logits_k, state_k), launch_k = counted_run(lambda: pre_k(params, batch), L, 2 * L)
+    (logits_k, state_k), launch_k = counted_run(lambda: pre_k(params, batch),
+                                                      {"wkv6": L, "fused_matmul_allreduce": 2 * L})
     layer_errs = []
 
     def spy(r_, k_, v_, w_, u_, *, chunk):
@@ -987,8 +1016,9 @@ def rwkv6_phases(card, gen) -> list[dict]:
                               for part, g, w2 in zip(("o", "state"), got, want)))
         return got
 
-    with swapped_wkv6(spy):
-        (logits_b, state_b), launch_b = counted_run(lambda: pre_b(params, batch), L, 0)
+    with swapped(rwkv6_model, "wkv6", spy):
+        (logits_b, state_b), launch_b = counted_run(lambda: pre_b(params, batch),
+                                                          {"wkv6": L})
     logits_x, state_x = exact_prefill(batch)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for lg in (logits_k, logits_b, logits_x):
@@ -1019,7 +1049,7 @@ def rwkv6_phases(card, gen) -> list[dict]:
             tok = lg.argmax(-1)
         return out
 
-    steps, launch_d = counted_run(greedy, 0, 2 * L * RWKV_STEPS)
+    steps, launch_d = counted_run(greedy, {"fused_matmul_allreduce": 2 * L * RWKV_STEPS})
     st_b, st_x, lb_all, lx_all = state_b, state_x, [], []
     for tok, _ in steps:                      # teacher-forced on the kernel stream's tokens
         lb, st_b = dec_b(params, tok, st_b, None)
@@ -1124,6 +1154,265 @@ def rwkv6_phases(card, gen) -> list[dict]:
     ]
 
 
+def flash_phase(gen) -> tuple:
+    """Phase 19: the flash kernel against its plain version at the prefill's
+    shape (chatglm3-6b: B 4, S 2048, 32 query heads over 2 kv heads of 128,
+    bf16, causal) and at edge shapes; unsupported calls must raise.  Returns
+    the main shape's (max abs, rel) error."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_arch("chatglm3-6b").config
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    errs = {}
+    for name, b, s, h, g_kv, d, dt, causal in (
+            ("main", GLM_B, GLM_S, hq, hkv, hd, bf16, True),
+            ("non-causal", GLM_B, GLM_S, hq, hkv, hd, bf16, False),
+            ("S=1", 2, 1, 4, 2, 128, bf16, True), ("S=37", 2, 37, 4, 2, 128, bf16, True),
+            ("S=1000", 2, 1000, 8, 2, 128, bf16, True), ("S=2049", 1, 2049, 8, 2, 128, bf16, True),
+            ("S=2049 non-causal", 1, 2049, 8, 2, 128, bf16, False),
+            ("hd=64 g=1", 2, 300, 4, 4, 64, bf16, True),
+            ("f32 S=515 g=2", 2, 515, 6, 3, 128, f32, True),
+            ("f32 hd=64 g=4 non-causal", 3, 129, 4, 1, 64, f32, False),
+            ("f32 hd=64 g=1 S=1", 1, 1, 2, 2, 64, f32, True)):
+        q = randn(gen, (b, s, h, d), dt)
+        k, v = randn(gen, (b, s, g_kv, d), dt), randn(gen, (b, s, g_kv, d), dt)
+        errs[name] = check_close(f"flash_attention {name}", flash_attention(q, k, v, causal=causal),
+                                 flash_attention_plain(q, k, v, causal=causal),
+                                 BF16_TOL if dt == bf16 else F32_TOL)
+        del q, k, v
+    x = randn(gen, (1, 8, 2, 96), bf16)
+    y = x[..., :64].contiguous()
+    for what, call in (("hd 96", lambda: flash_attention(x, x, x)),
+                       ("a window", lambda: flash_attention(y, y, y, window=4)),
+                       ("a softcap", lambda: flash_attention(y, y, y, softcap=2.0))):
+        try:
+            call()
+        except (ValueError, NotImplementedError):
+            continue
+        raise AssertionError(f"flash_attention took {what}: the kernel takes none")
+    say(19, f"flash_attention vs plain (bound: bf16 {BF16_TOL}, f32 {F32_TOL}), max abs/rel err: "
+            + "; ".join(f"{n_} {e[0]:.3g}/{e[1]:.3g}" for n_, e in errs.items())
+            + f" (main: [{GLM_B},{GLM_S},{hq},{hd}] q over {hkv} kv heads, bf16, causal); "
+              f"hd 96, a window and a softcap raise")
+    return errs["main"]
+
+
+def plain_attention(q, k, v, *, scale, causal, window, softcap):
+    """The model's plain blockwise attention (the reference's arithmetic) in
+    the flash op's place."""
+    from repro_torch.models.attention import span_attention
+
+    return span_attention(q, k, v, causal=causal, window=window, scale=scale, cap=softcap)
+
+
+def flash_bound(b, s, hq, hkv, d, itemsize, causal=True):
+    """Least time for one flash call, (ms, bound_by, bytes, operations): q, k
+    and v read once and o written once over HBM, or the two products over
+    the key pairs the mask keeps (s (s + 1) / 2 per head when causal) at the
+    inputs' peak (bf16 tensor cores, or f32)."""
+    n_bytes = 2 * b * s * (hq + hkv) * d * itemsize
+    ops = 4 * b * hq * d * (s * (s + 1) // 2 if causal else s * s)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (BF16_FLOPS if itemsize == 2 else F32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, ops
+
+
+def chatglm_prefill_phases(card, gen) -> list[dict]:
+    """Phases 19-21: the flash kernel against its plain version, full-width
+    chatglm3-6b prefill through the registry's bundle in kernel and bulk
+    mode against an exact f32 evaluation, the hand-off to decode, and
+    times; returns the JSON row of the flash kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.models import attention
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    main_err = flash_phase(gen)
+
+    # 20 --------------------------------------------------------------
+    bf16 = torch.bfloat16
+    bundle = get_arch("chatglm3-6b")
+    cfg = bundle.config
+    L, Hq, Hkv, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, S = GLM_B, GLM_S
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t_.numel() for t_ in _leaves(params))
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    batch = {"tokens": tokens}
+    ctx_k = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel"))
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    pre_k, pre_b = bundle.prefill_fn(ctx_k), bundle.prefill_fn(ctx_b)
+    exact = dataclasses.replace(bundle, config=dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    params_x = {**params, "layers": UpcastLayers(params["layers"])}
+
+    def plain_prefill(b, exact_f32):
+        """Bulk mode with the plain attention: in bf16 (the yardstick) or
+        in exact f32 arithmetic."""
+        with swapped(attention, "flash_attention", plain_attention):
+            if exact_f32:
+                return exact.prefill_fn(ctx_b)(params_x, b)
+            return pre_b(params, b)
+
+    torch.cuda.reset_peak_memory_stats()
+    (logits_k, cache_k), launch_k = counted_run(lambda: pre_k(params, batch),
+                                                {"flash_attention": L})
+    layer_errs = []
+
+    def spy(q, k, v, **kw):
+        """The kernel, then its plain version on the identical input."""
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, scale=kw["scale"], causal=kw["causal"])
+        layer_errs.append(check_close(f"prefill layer {len(layer_errs)} flash", got, want,
+                                      BF16_TOL)[0])
+        return got
+
+    with swapped(attention, "flash_attention", spy):
+        (logits_b, cache_b), launch_b = counted_run(lambda: pre_b(params, batch),
+                                                    {"flash_attention": L})
+    logits_p, cache_p = plain_prefill(batch, False)
+    logits_x, cache_x = plain_prefill(batch, True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for lg in (logits_k, logits_b, logits_p, logits_x):
+        if lg.shape != (B, 1, cfg.vocab) or not torch.isfinite(lg).all():
+            raise AssertionError(f"prefill logits: shape {tuple(lg.shape)} or non-finite")
+    for c in (cache_k, cache_b):
+        if any(tuple(c[key].shape) != (L, B, S, Hkv, hd) for key in ("k", "v")):
+            raise AssertionError(f"prefill cache: shapes {[tuple(t_.shape) for t_ in c.values()]}")
+
+    def triples(lg, c):
+        return {"logits": (lg, logits_p, logits_x),
+                **{key: (c[key], cache_p[key], cache_x[key]) for key in ("k", "v")}}
+
+    errs_k = bounded_errors("prefill kernel mode", triples(logits_k, cache_k), "plain attention")
+    errs_b = bounded_errors("prefill bulk mode", triples(logits_b, cache_b), "plain attention")
+    kb = max(errors(a, b_)[0] for a, b_ in ((logits_k, logits_b), (cache_k["k"], cache_b["k"]),
+                                            (cache_k["v"], cache_b["v"])))
+    del cache_p, cache_x, logits_p, logits_x
+    say(20, f"chatglm3-6b full width ({L}L d{cfg.d_model}, {Hq}/{Hkv} heads of {hd}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}, {n_params / 1e9:.3f}B params {cfg.param_dtype}, init "
+            f"{init_s:.1f}s, peak {peak_gb:.1f} GB), prefill of {B}x{S} seeded tokens: launches in "
+            f"kernel mode flash {launch_k['flash_attention']}, fused GEMV "
+            f"{launch_k['fused_matmul_allreduce']}; in bulk mode flash "
+            f"{launch_b['flash_attention']}, fused GEMV {launch_b['fused_matmul_allreduce']}; "
+            f"every layer's flash output vs plain on its input: max abs err {max(layer_errs):.3g} "
+            f"over {len(layer_errs)} layers (bound {BF16_TOL}); max abs err (mode vs exact f32, "
+            f"plain-attention bf16 path vs exact f32, mode vs that path; bound "
+            f"{LOGITS_TOL_FACTOR} x the plain path's): kernel mode {errs_k}; bulk mode {errs_b}; "
+            f"kernel vs bulk mode {kb:.3g}")
+
+    # hand-off: the prefill cache in a decode cache of max_seq positions, then
+    # greedy decode steps from position S
+    dec_k, dec_b = bundle.decode_fn(ctx_k), bundle.decode_fn(ctx_b)
+
+    def decode_cache(c):
+        dc = bundle.init_cache(B, "cuda")
+        for key in dc:
+            dc[key][:, :, :S] = c[key]
+        return dc
+
+    def greedy(dec, logits, c):
+        dc, tok, out = decode_cache(c), logits.argmax(-1), []
+        for i in range(GLM_STEPS):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
+            lg, dc = dec(params, tok, dc, pos)
+            out.append((tok, lg))
+            tok = lg.argmax(-1)
+        return out
+
+    steps_k, launch_d = counted_run(lambda: greedy(dec_k, logits_k, cache_k),
+                                    {"fused_matmul_allreduce": L * GLM_STEPS})
+    steps_b = greedy(dec_b, logits_b, cache_b)
+    for _, lg in steps_k + steps_b:
+        if lg.shape != (B, 1, cfg.vocab) or not torch.isfinite(lg).all():
+            raise AssertionError(f"decode logits: shape {tuple(lg.shape)} or non-finite")
+    longer = {"tokens": torch.cat([tokens, steps_k[0][0]], dim=1)}
+    logits_l = pre_k(params, longer)[0]
+    d_px = errors(logits_l, plain_prefill(longer, True)[0])[0]
+    d_pd = errors(steps_k[0][1], logits_l)[0]
+    tol = LOGITS_TOL_FACTOR * d_px
+    if d_pd > tol:
+        raise AssertionError(f"hand-off: the first decode step's logits are {d_pd:.3g} from a "
+                             f"prefill over {S + 1} tokens, above {LOGITS_TOL_FACTOR} x that "
+                             f"prefill's distance {d_px:.3g} from exact f32")
+    stream = lambda st: torch.cat([tok for tok, _ in st], dim=1)
+    sk, sb = stream(steps_k), stream(steps_b)
+    flips = []
+    for slot in range(B):
+        diff = (sk[slot] != sb[slot]).nonzero()
+        if len(diff):
+            # the first differing token must be a near tie in bulk mode: the
+            # logits that chose it (the prefill's for the first) have a top-2
+            # gap of at most twice the bound
+            t_ = int(diff[0, 0])
+            chose = logits_b if t_ == 0 else steps_b[t_ - 1][1]
+            top = chose[slot, 0].topk(2).values
+            gap = (top[0] - top[1]).item()
+            flips.append(f"slot {slot} token {t_}: top-2 gap {gap:.3g} (allowed {2 * tol:.3g})")
+            if gap > 2 * tol:
+                raise AssertionError("decode streams differ beyond a near tie: " + flips[-1])
+    say(20, f"hand-off: {GLM_STEPS} greedy decode steps from position {S} in a {cfg.max_seq}-"
+            f"position cache copied from the prefill's: launches fused GEMV "
+            f"{launch_d['fused_matmul_allreduce']} (= {L} x {GLM_STEPS}), flash "
+            f"{launch_d['flash_attention']}; first step's logits vs a kernel-mode prefill over "
+            f"{S + 1} tokens max abs err {d_pd:.3g} (bound {tol:.3g} = {LOGITS_TOL_FACTOR} x that "
+            f"prefill's distance from exact f32, {d_px:.3g}); kernel stream "
+            f"{sk.tolist()}; bulk stream {sb.tolist()}; differing tokens "
+            f"{int((sk != sb).sum())}" + (f" ({'; '.join(flips)})" if flips else ""))
+    del steps_b, cache_b, logits_l
+
+    # 21 --------------------------------------------------------------
+    q = randn(gen, (B, S, Hq, hd), bf16)
+    k, v = randn(gen, (B, S, Hkv, hd), bf16), randn(gen, (B, S, Hkv, hd), bf16)
+    t_flash = time_ms(lambda: flash_attention(q, k, v), iters=10, warmup=2)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    sdpa_err = check_close("scaled_dot_product_attention vs the kernel",
+                           sdpa().transpose(1, 2), flash_attention(q, k, v), BF16_TOL)
+    t_sdpa = time_ms(sdpa, iters=20, warmup=3)
+    t_plain = time_ms(lambda: flash_attention_plain(q, k, v), iters=3, warmup=1)
+    fl_bnd, fl_by, fl_bytes, fl_ops = flash_bound(B, S, Hq, Hkv, hd, 2)
+    del q, k, v, qt, kt, vt
+    pre_t = {"kernel": [], "bulk": []}
+    for mode, fn in (("kernel", pre_k), ("bulk", pre_b), ("bulk", pre_b), ("kernel", pre_k)):
+        pre_t[mode].append(time_ms(lambda: fn(params, batch), iters=2, warmup=1))
+    dc = decode_cache(cache_k)
+    tok = logits_k.argmax(-1)
+    pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    dec_t = {"kernel": [], "bulk": []}
+    for mode, fn in (("kernel", dec_k), ("bulk", dec_b), ("bulk", dec_b), ("kernel", dec_k)):
+        dec_t[mode].append(time_ms(lambda: fn(params, tok, dc, pos), iters=10, warmup=2))
+    prof = {m: profile_device(lambda i: fn(params, batch), 1, "prefill")
+            for m, fn in (("kernel", pre_k), ("bulk", pre_b))}
+    prof_dec = profile_device(lambda i: dec_k(params, tok, dc, pos), 4, "step")
+    times = lambda d: "; ".join(f"{m} " + ", ".join(f"{t_:.4f}" for t_ in ts) + " ms"
+                                for m, ts in d.items())
+    say(21, f"on {card}: flash_attention [{B},{S},{Hq},{hd}] over {Hkv} kv heads bf16 causal "
+            f"(one prefill layer): kernel {t_flash:.4f} ms ({fl_ops / t_flash / 1e9:.2f} TFLOP/s), "
+            f"plain {t_plain:.4f} ms, F.scaled_dot_product_attention(is_causal, enable_gqa) "
+            f"{t_sdpa:.4f} ms (vs the kernel max abs/rel err {sdpa_err[0]:.3g}/{sdpa_err[1]:.3g}), "
+            f"bound {fl_bnd:.4f} ms ({fl_by}: {fl_ops / 1e9:.1f} GFLOP, {fl_bytes / 1e6:.1f} MB); "
+            f"prefill per batch of {B}x{S} (CUDA events, turns kernel, bulk, bulk, kernel): "
+            + times(pre_t) + f"; decode per step at batch {B} from position {S}: " + times(dec_t)
+            + "; profiles: " + "; ".join(f"{m} prefill {p_}" for m, p_ in prof.items())
+            + f"; kernel decode {prof_dec}")
+
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:22",
+         "launches": launch_k["flash_attention"], "max_abs_err": main_err[0], "ms": t_flash,
+         "plain_ms": t_plain, "bound_ms": fl_bnd, "bound_by": fl_by, "library_ms": t_sdpa},
+    ]
+
+
 def wkv6_inputs(gen, b, t, h, n):
     """r, k, v, w [b, t, h, n] f32 and u [h, n] on the card: decays
     exp(-exp(N(0, 1))) with 5 % below the 1e-8 clip and 5 % within 1e-6 of
@@ -1148,16 +1437,15 @@ def plain_wkv6(r, k, v, w, u, *, chunk):
 
 
 @contextlib.contextmanager
-def swapped_wkv6(fn):
-    """The rwkv6 time-mix calls ``fn`` in place of the WKV6 op meanwhile."""
-    from repro_torch.models import rwkv6
-
-    kept = rwkv6.wkv6
-    rwkv6.wkv6 = fn
+def swapped(module, name, fn):
+    """The model module ``module`` calls ``fn`` in place of its kernel op
+    ``name`` meanwhile (the op's plain version, or a spy)."""
+    kept = getattr(module, name)
+    setattr(module, name, fn)
     try:
         yield
     finally:
-        rwkv6.wkv6 = kept
+        setattr(module, name, kept)
 
 
 class UpcastLayers:
@@ -1184,16 +1472,17 @@ def wkv6_bound(bh, t, n):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, ops
 
 
-def bounded_errors(what, triples) -> str:
-    """For each (kernel, bulk, exact) triple: kernel and bulk mode's distances
+def bounded_errors(what, triples, yard="bulk") -> str:
+    """For each (kernel, yardstick, exact) triple: the kernel path's and the
+    yardstick path's (bulk mode unless ``yard`` names another) distances
     from the exact f32 evaluation and from each other; the kernel path's
-    must lie within LOGITS_TOL_FACTOR x the bulk path's."""
+    must lie within LOGITS_TOL_FACTOR x the yardstick's."""
     out = []
     for key, (kern, bulk, ex) in triples.items():
         kx, bx, kb = errors(kern, ex)[0], errors(bulk, ex)[0], errors(kern, bulk)[0]
         if kx > LOGITS_TOL_FACTOR * bx or kb > LOGITS_TOL_FACTOR * bx:
-            raise AssertionError(f"{what} {key}: kernel vs exact f32 {kx:.3g}, kernel vs bulk "
-                                 f"{kb:.3g}, above {LOGITS_TOL_FACTOR} x bulk vs exact {bx:.3g}")
+            raise AssertionError(f"{what} {key}: kernel vs exact f32 {kx:.3g}, kernel vs {yard} "
+                                 f"{kb:.3g}, above {LOGITS_TOL_FACTOR} x {yard} vs exact {bx:.3g}")
         out.append(f"{key} {kx:.3g}/{bx:.3g}/{kb:.3g}")
     return ", ".join(out)
 

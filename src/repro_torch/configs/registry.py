@@ -1,11 +1,12 @@
 """Architecture registry: a uniform bundle over the ported configs.
 
 The port serves chatglm3-6b (dense GQA decode) and dbrx-132b (MoE decode),
-runs rwkv6-7b's prefill and decode (``prefill_fn``, ``decode_fn``; no
-launcher serves it yet) and the forward of DLRM, the paper's own
-architecture (its ``loss_fn`` scores a batch; training it waits for ROADMAP
-Queue 1 item 4).  The reference's other architectures raise until their
-slice of the port lands.
+runs chatglm3-6b's prefill (``prefill_fn``; dbrx's waits for the
+sequence-sharded MoE of ROADMAP Queue 1 item 5), rwkv6-7b's prefill and
+decode (``prefill_fn``, ``decode_fn``; no launcher serves it yet) and the
+forward of DLRM, the paper's own architecture (its ``loss_fn`` scores a
+batch; training it waits for ROADMAP Queue 1 item 4).  The reference's
+other architectures raise until their slice of the port lands.
 """
 from __future__ import annotations
 
@@ -42,12 +43,9 @@ _LATER = {
     "deepseek-v3-671b": 5, "qwen2-vl-2b": 7,
 }
 _TRAIN_ITEM = "ROADMAP Queue 1 item 4 (dense training)"
-# the model module of each family that decodes
+# the model module of each family that prefills and decodes
 _DECODERS = {"transformer": "repro_torch.models.transformer",
              "rwkv6": "repro_torch.models.rwkv6"}
-# families whose prefill the reference has and the port has not, with the item
-_PREFILL_LATER = {"transformer": "ROADMAP Queue 1 item 2 (chunked prefill)",
-                  "zamba2": "ROADMAP Queue 1 item 7"}
 
 
 @dataclasses.dataclass
@@ -82,15 +80,17 @@ class ArchBundle:
         raise NotImplementedError(f"{self.name}: the training forward is {_TRAIN_ITEM}")
 
     def prefill_fn(self, ctx: ParallelContext) -> Callable:
-        """(params, {"tokens": [B, S]}) -> (last logits [B, 1, V], state)."""
-        if self.family in _PREFILL_LATER:
-            raise NotImplementedError(f"{self.name}: prefill is {_PREFILL_LATER[self.family]}")
-        if self.family != "rwkv6":
+        """(params, {"tokens": [B, S]}) -> (last logits [B, 1, V], state):
+        a transformer's KV cache, rwkv6's recurrent state.  A MoE
+        transformer raises (ROADMAP Queue 1 item 5)."""
+        if self.family not in _DECODERS:
             raise ValueError(f"{self.name}: a {self.family} model does not prefill")
-        from repro_torch.models.rwkv6 import prefill_forward
-
+        mod = self._decoder()
         cfg = self.config
-        return lambda p, b: prefill_forward(ctx, p, cfg, b)
+        if self.family == "transformer":
+            mod.check_prefill(cfg)
+        fn = mod.prefill_forward
+        return lambda p, b: fn(ctx, p, cfg, b)
 
     def decode_fn(self, ctx: ParallelContext) -> Callable:
         """(params, tokens [B,1], cache, pos [B]) -> (logits [B,1,V], cache)."""

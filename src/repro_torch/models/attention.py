@@ -1,7 +1,14 @@
-"""Decode attention over a dense KV cache.
+"""Prefill attention over the prompt, and decode attention over a dense KV
+cache.
 
-The JAX package keeps the decode KV cache sequence-sharded over tp and
-merges per-rank flash partials; on one card (tp = 1) the whole sequence is
+Prefill (``context_attention``): the JAX package shards the sequence over
+tp and ring-gathers KV chunks into a blockwise online-softmax update
+(``_span_flash``); on one card (tp = 1) the whole span is local and the ring
+has no hops.  A CUDA tensor runs the span in the hand-written flash kernel
+(``kernels/flash_attention``), a CPU tensor in the plain ``_span_flash``.
+
+Decode: the JAX package keeps the decode KV cache sequence-sharded over tp
+and merges per-rank flash partials; on one card the whole sequence is
 local and the merge is the identity.  The cache is updated in place, which
 saves copying the whole [B, S_max, Hkv, hd] layer cache every step.
 """
@@ -9,11 +16,127 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.parallel.sharding import ParallelContext
 
 NEG_INF = -1e30
+_FUSED_ITEM = ("ROADMAP Queue 1 item 1 (the multi-card tp world: the KV ring of "
+               "fused mode)")
 
 
+# ---------------------------------------------------------------------------
+# blockwise online softmax (the plain version of the flash kernel's loop)
+# ---------------------------------------------------------------------------
+def _flash_update(carry, q5, k, v, mask, scale, cap):
+    """One flash-attention accumulation step (f32 carries).
+
+    carry = (m, l, o): [b,hk,g,sq], [b,hk,g,sq], [b,hk,g,sq,d]
+    q5: [b,sq,hk,g,d]; k, v: [b,sk,hk,d]; mask: [sq,sk] bool, or [b,sq,sk].
+    As in the reference, QK runs in the inputs' dtype and is then cast to
+    f32; the softmax and the PV product run in f32."""
+    m, l, o = carry
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q5, k).float() * scale
+    if cap is not None:
+        s = torch.tanh(s / cap) * cap
+    bias = torch.where(mask, 0.0, NEG_INF)
+    s = s + (bias[:, None, None] if mask.dim() == 3 else bias)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    o = o * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    return m_new, l, o
+
+
+def _span_flash(q5, k, v, qpos, kpos, carry, *, causal, window, scale, cap,
+                q_block, kv_block):
+    """Accumulate flash carries of q5 against one KV span, blocked so the
+    score matrix never exceeds [b, hk, g, q_block, kv_block].
+
+    Unlike the reference, whose loops run ``sq // q_block`` and
+    ``sk // kv_block`` times, the last query and key blocks may be short,
+    so no row or key past the last whole block is dropped.  The carries
+    are updated in place, a query block at a time."""
+    m, l, o = carry
+    sq, sk = q5.shape[1], k.shape[1]
+    qb, kb = min(q_block, sq), min(kv_block, sk)
+    for q0 in range(0, sq, qb):
+        rows = slice(q0, min(q0 + qb, sq))
+        qp = qpos[rows]
+        c = (m[..., rows], l[..., rows], o[..., rows, :])
+        for k0 in range(0, sk, kb):
+            keys = slice(k0, min(k0 + kb, sk))
+            kp = kpos[keys]
+            mask = torch.ones((len(qp), len(kp)), dtype=torch.bool, device=q5.device)
+            if causal:
+                mask &= kp[None, :] <= qp[:, None]
+            if window is not None:
+                mask &= qp[:, None] - kp[None, :] < window
+            c = _flash_update(c, q5[:, rows], k[:, keys], v[:, keys], mask, scale, cap)
+        m[..., rows], l[..., rows], o[..., rows, :] = c
+    return m, l, o
+
+
+def _init_carry(b, hk, g, sq, d, device=None):
+    return (torch.full((b, hk, g, sq), NEG_INF, dtype=torch.float32, device=device),
+            torch.zeros((b, hk, g, sq), dtype=torch.float32, device=device),
+            torch.zeros((b, hk, g, sq, d), dtype=torch.float32, device=device))
+
+
+def _finalize(carry, b, sq, hq, d):
+    m, l, o = carry
+    o = o / torch.clamp_min(l, 1e-30)[..., None]          # [b,hk,g,sq,d]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+
+
+# ---------------------------------------------------------------------------
+# train/prefill: context attention over the local span
+# ---------------------------------------------------------------------------
+def context_attention(
+    ctx: ParallelContext,
+    q, k, v,                  # [B, S, Hq|Hkv, hd]
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    softcap_val: float | None = None,
+):
+    """Attention of every position over the prompt, at q's dtype.
+
+    At tp = 1 the reference's ``bulk`` branch and its ring (``kernel``) both
+    reduce to one span over the whole sequence.  A CUDA tensor runs it in
+    the flash kernel (which takes neither ``window`` nor ``softcap_val``),
+    a CPU tensor in ``_span_flash`` with the reference's default blocks.
+    ``fused`` mode (``ctx.fusion.resolve("kv_ag")``) raises until the
+    multi-card world."""
+    mode = ctx.fusion.resolve("kv_ag")
+    if mode not in ("bulk", "kernel"):
+        raise NotImplementedError(f"context_attention mode={mode!r}: {_FUSED_ITEM}")
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type != "cpu":
+        return flash_attention(q, k, v, scale=scale, causal=causal, window=window,
+                               softcap=softcap_val)
+    return span_attention(q, k, v, causal=causal, window=window, scale=scale,
+                          cap=softcap_val)
+
+
+def span_attention(q, k, v, *, causal, window, scale, cap, q_block=256, kv_block=1024):
+    """The plain blockwise attention of one whole span on any device:
+    q [B, S, Hq, hd], k, v [B, S, Hkv, hd] -> [B, S, Hq, hd] at q's dtype."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    pos = torch.arange(S, device=q.device)
+    carry = _span_flash(q.reshape(B, S, Hkv, g, hd), k, v, pos, pos,
+                        _init_carry(B, Hkv, g, S, hd, q.device), causal=causal,
+                        window=window, scale=scale, cap=cap, q_block=q_block,
+                        kv_block=kv_block)
+    return _finalize(carry, B, S, Hq, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode: dense KV cache
+# ---------------------------------------------------------------------------
 def broadcast_pos(pos, B, device=None):
     """Normalize a decode position to a per-slot vector [B] int32.
 

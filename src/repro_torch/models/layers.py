@@ -4,11 +4,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.allgather_matmul import allgather_matmul, matmul_reducescatter
 from repro_torch.core.matmul_allreduce import matmul_allreduce
 from repro_torch.models.common import dense_init, embed_init
 from repro_torch.parallel.sharding import ParallelContext
-
-_TRAIN_ITEM = "ROADMAP Queue 1 item 4 (dense training)"
 
 
 # ---------------------------------------------------------------------------
@@ -50,12 +49,16 @@ _ACTS = {"silu": F.silu,
 def mlp_apply(ctx: ParallelContext, params, x, *, act="silu", seq_sharded: bool):
     """Column-parallel up/gate, row-parallel down.
 
+    Prefill (``seq_sharded=True``): AG&matmul in, matmul&RS out — the SP
+    split of the paper's GEMM+AllReduce (plain products at tp = 1).
     Decode (``seq_sharded=False``, S = 1): the column products are plain
     matmuls (at tp = 1 the columns are not split) and the down projection
     is the fused GEMV+AllReduce — the paper's flagship operator."""
-    if seq_sharded:
-        raise NotImplementedError(f"sequence-sharded mlp_apply: {_TRAIN_ITEM}")
     fn = _ACTS[act]
+    if seq_sharded:
+        g = allgather_matmul(ctx, x, params["w_gate"])
+        u = allgather_matmul(ctx, x, params["w_up"])
+        return matmul_reducescatter(ctx, fn(g) * u, params["w_down"])
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = fn(g) * u
@@ -72,9 +75,10 @@ def embedding_init(gen, vocab, d_model, dtype):
 def embedding_lookup(ctx: ParallelContext, params, tokens, *, seq_shard: bool,
                      scale: float | None = None):
     """tokens [B, S] -> x [B, S, D].  An id outside the vocabulary embeds
-    as zeros, as in the vocab-sharded reference."""
-    if seq_shard:
-        raise NotImplementedError(f"sequence-sharded embedding: {_TRAIN_ITEM}")
+    as zeros, as in the vocab-sharded reference.  At tp = 1 the
+    sequence-sharded lookup (``seq_shard``, the prefill's) is the same
+    lookup: its reduce-scatter over one rank is the identity."""
+    del seq_shard
     table = params["table"]
     V = table.shape[0]
     ok = (tokens >= 0) & (tokens < V)

@@ -1,11 +1,14 @@
-"""Decoder-only LM decode for GQA transformers, dense or MoE.
+"""Decoder-only LM prefill and decode for GQA transformers.
 
 The JAX package's unified decoder also covers MLA, M-RoPE, shared experts,
 dense-prefix layers and the audio/vision front ends, and scans its layers
-with ``lax.scan``.  This port runs GQA decode with a dense or MoE FFN and a
-Python loop over the layers; a config that needs the rest raises until its
-slice lands.  Decode keeps the reference's layouts: a per-layer cache slice
-is [B, S_max, Hkv, hd], ``pos`` a [B] int32 vector, logits [B, 1, V] in f32.
+with ``lax.scan``.  This port runs GQA decode with a dense or MoE FFN, the
+prefill of the dense ones, and a Python loop over the layers; a config that
+needs the rest raises until its slice lands.  Decode keeps the reference's
+layouts: a per-layer cache slice is [B, S_max, Hkv, hd], ``pos`` a [B] int32
+vector, logits [B, 1, V] in f32.  The prefill returns last-position logits
+[B, 1, V] in f32 and the cache {"k", "v"}, each [L, B, S, Hkv, hd] (k after
+RoPE): the decode layout with the prompt's length S.
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.models.attention import broadcast_pos, cache_update, decode_attention
+from repro_torch.models.attention import (broadcast_pos, cache_update, context_attention,
+                                          decode_attention)
 from repro_torch.models.common import DTYPES, dense_init
 from repro_torch.models.layers import (embedding_init, embedding_lookup, mlp_apply,
                                        mlp_init, rms_norm, rms_norm_init)
@@ -95,6 +99,15 @@ def check_supported(cfg: TransformerConfig):
         raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
 
 
+def check_prefill(cfg: TransformerConfig):
+    """Raise for a config whose prefill this slice has not ported."""
+    check_supported(cfg)
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE prefill is ROADMAP Queue 1 item 5 (sequence-sharded MoE: "
+            f"the MoE kernels at prefill rows, and their VJPs)")
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -126,6 +139,68 @@ def transformer_init(gen: torch.Generator, cfg: TransformerConfig):
         "final_norm": rms_norm_init(cfg.d_model, gen.device, zero=cfg.norm_plus_one),
         "layers": [_layer_init(gen, cfg) for _ in range(cfg.n_layers)],
     }
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+def _attn_train(ctx, cfg: TransformerConfig, lp, x, positions, window, collect_kv=False):
+    B, S, D = x.shape
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    qkv = h @ lp["attn"]["w_qkv"]
+    q, k, v = torch.split(qkv, [Hq * hd, Hkv * hd, Hkv * hd], dim=-1)
+    q = _apply_rope_any(cfg, q.reshape(B, S, Hq, hd), positions)
+    k = _apply_rope_any(cfg, k.reshape(B, S, Hkv, hd), positions)
+    v = v.reshape(B, S, Hkv, hd)
+    o = context_attention(ctx, q, k, v, causal=True, window=window,
+                          scale=cfg.query_scale, softcap_val=cfg.attn_softcap)
+    kv = {"k": k, "v": v} if collect_kv else None
+    return o.reshape(B, S, Hq * hd) @ lp["attn"]["w_o"], kv
+
+
+def _layer_train(ctx, cfg: TransformerConfig, lp, x, positions, window, collect_kv=False):
+    a, kv = _attn_train(ctx, cfg, lp, x, positions, window, collect_kv)
+    if cfg.post_norms:
+        a = rms_norm(a, lp["post_ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    x = x + a
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    f = mlp_apply(ctx, lp["ffn"], h, act=cfg.act, seq_sharded=True)
+    if cfg.post_norms:
+        f = rms_norm(f, lp["post_ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    return x + f, kv
+
+
+def _embed_inputs(ctx, params, cfg: TransformerConfig, batch):
+    """tokens -> x [B, S, D], sequence-sharded (the front ends raise in
+    ``check_supported``)."""
+    scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
+    x = embedding_lookup(ctx, params["embed"], batch["tokens"], seq_shard=True, scale=scale)
+    return x.to(cfg.cdtype)
+
+
+def _positions_for(S, device):
+    return torch.arange(S, device=device)[None, :]
+
+
+def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
+    """Inference prefill: forward over the prompt {"tokens": [B, S]},
+    returning last-position logits [B, 1, V] f32 and the cache {"k", "v"},
+    each [L, B, S, Hkv, hd] at the compute dtype."""
+    check_prefill(cfg)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = _embed_inputs(ctx, params, cfg, batch)
+    positions = _positions_for(S, tokens.device)
+    ks, vs = [], []
+    for i, lp in enumerate(params["layers"]):
+        x, kv = _layer_train(ctx, cfg, lp, x, positions, cfg.layer_window(i), collect_kv=True)
+        ks.append(kv["k"])
+        vs.append(kv["v"])
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    del ks, vs
+    x = rms_norm(x[:, S - 1:], params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    return _lm_logits(params, cfg, x), cache
 
 
 # ---------------------------------------------------------------------------

@@ -216,11 +216,19 @@ def test_parallel_context_defaults_to_cuda():
 
 
 def test_layers_training_paths_raise():
-    with pytest.raises(NotImplementedError):
-        layers.mlp_apply(CPU_KERNEL, {}, torch.zeros(1, 1, 4), seq_sharded=True)
-    with pytest.raises(NotImplementedError):
-        layers.embedding_lookup(CPU_KERNEL, {"table": torch.zeros(8, 4)},
-                                torch.zeros(1, 4, dtype=torch.long), seq_shard=True)
+    """The sequence-sharded paths run at tp = 1 in kernel and bulk mode (the
+    prefill's); fused mode, the rings of training, raises."""
+    p = {"w_gate": torch.ones(4, 8), "w_up": torch.ones(4, 8), "w_down": torch.ones(8, 4)}
+    with pytest.raises(NotImplementedError, match="Queue 1 items 1 and 4"):
+        layers.mlp_apply(ParallelContext(device="cpu"), p, torch.zeros(1, 1, 4),
+                         seq_sharded=True)
+    x = torch.ones(1, 2, 4)
+    torch.testing.assert_close(layers.mlp_apply(CPU_KERNEL, p, x, seq_sharded=True),
+                               layers.mlp_apply(CPU_BULK, p, x, seq_sharded=False))
+    table, tokens = torch.randn(8, 4), torch.tensor([[0, 7, 8, -1]])
+    torch.testing.assert_close(
+        layers.embedding_lookup(CPU_KERNEL, {"table": table}, tokens, seq_shard=True),
+        layers.embedding_lookup(CPU_KERNEL, {"table": table}, tokens, seq_shard=False))
 
 
 def test_embedding_out_of_vocab_is_zero(ctx):
