@@ -9,13 +9,19 @@ prints one line, and any failure exits non-zero:
 
   1. the card, torch/CUDA versions and the kernels' build time
   2. gemv kernel against its plain version (main-path and ragged shapes)
-  3. fused_matmul_allreduce (one rank) against its plain version
+  3. fused_matmul_allreduce (one rank) against its plain version: the
+     decode shape on the path the wrapper chooses (fused_path) and on the
+     GEMV path, an f32 call (GEMV path), and the tensor-core tile path at
+     [2048,13696]@[13696,4096], ragged [130,1000]@[1000,1024] and
+     [2049,4104]@[4104,4096], and 100 rows (below the tile's 128)
   4. the fused kernel's 4-rank world emulated on the card, against
-     fused_matmul_allreduce_ref_ranks (both wires, both schedules, 3 calls
-     back to back per case to reuse the flags across epochs)
+     fused_matmul_allreduce_ref_ranks (3 calls back to back per case to
+     reuse the flags across epochs, both schedules): the GEMV path at 4
+     rows (f32 with both wires, bf16), the tile path at 4, 256 and 130 rows
   5. full-width chatglm3-6b greedy decode through DecodeEngine, kernel mode
-     against bulk mode (teacher-forced logits and both token streams)
-  6. times from CUDA events
+     against bulk mode (launches per path, teacher-forced logits and both
+     token streams)
+  6. times from CUDA events (the decode shape on both paths)
   7. the MoE kernels (fused_dispatch_a2a, fused_gemm_a2a, and the chain of
      the two) against their plain versions at n_dev = 1: dbrx-132b's
      main-path shapes with its full expert weights, and ragged shapes
@@ -50,31 +56,37 @@ prints one line, and any failure exits non-zero:
      chunk 64; decays across the clip range, a non-zero bonus) and edge
      shapes (one chunk, chunks 8/16/32, T below the chunk, N 16 and 32),
      an unsupported N or chunk raising; gemm against its plain version at
-     ragged M, N, K (1, 33, 1000, 4097) in f32 and bf16
+     ragged M, N, K (1, 33, 1000, 4097; the CUDA-core kernel) and at shapes
+     the bf16 tile path takes ([2048,4096]@[4096,4096], [1000,4104]@
+     [4104,1032], [1,64]@[64,8], [4097,64]@[64,4096]), in f32 and bf16
  16. full-width rwkv6-7b prefill (4 x 512 seeded tokens, random mu, w0 and
      u) through the registry's bundle in kernel and bulk mode: launch
-     counts, every layer's wkv6 output and state against the plain version
-     on its identical input, logits and states of both modes against an
-     exact f32 evaluation
- 17. 8 greedy decode steps from phase 16's states (launch counts; logits
-     teacher-forced, kernel vs bulk vs exact f32), and the prefill/decode
-     hand-off: a 64-token prefill against 64 decode steps from init_state
- 18. times from CUDA events: wkv6 and gemm against their bounds, plain
-     versions and torch.matmul; prefill per batch and decode per step in
-     both modes with profiles; the fused GEMV kernel at prefill rows on
-     layer 0's w_o and channel-mix w_v, against its plain version first
+     counts (64 fused launches on the tile path), every layer's wkv6 output
+     and state against the plain version on its identical input, logits
+     and states of both modes against an exact f32 evaluation
+ 17. 8 greedy decode steps from phase 16's states (launch counts per path;
+     logits teacher-forced, kernel vs bulk vs exact f32), and the
+     prefill/decode hand-off: a 64-token prefill against 64 decode steps
+     from init_state
+ 18. times from CUDA events: wkv6 and gemm (both kernels) against their
+     bounds, plain versions and torch.matmul; the fused kernel at prefill
+     rows on layer 0's w_o and channel-mix w_v, checked on the tile path and
+     timed on both paths; the row sweep that sets TILE_ROWS (chatglm3-6b's
+     w_down at 1-2048 rows, both paths beside torch.matmul); prefill per
+     batch and decode per step in both modes with profiles
  19. flash_attention against its plain version at the main-path shape
      (chatglm3-6b's prefill: B 4, S 2048, 32 query heads over 2 kv heads of
      128, bf16, causal) and edge shapes (non-causal, S 1/37/1000/2049, hd
      64, f32, one kv head per query head); hd 96, a window or a softcap
      raising
  20. full-width chatglm3-6b prefill (4 x 2048 seeded tokens) through the
-     registry's bundle in kernel and bulk mode: launch counts (28 flash, no
-     fused GEMV), every layer's flash output against the plain version on
-     its identical input, logits and caches against an exact f32
-     evaluation (the bound: the same model with the plain attention in
-     bf16); the hand-off: 8 greedy decode steps from position 2048 in a
-     4096-position cache, the first step's logits against a prefill over
+     registry's bundle in kernel and bulk mode: launch counts (28 flash in
+     kernel mode, 0 in bulk mode, which runs span_attention as the
+     reference's bulk branch does; no fused GEMV), every layer's flash
+     output against the plain version on its identical input, logits and
+     caches against an exact f32 evaluation (the bound: bulk mode's own
+     distance); the hand-off: 8 greedy decode steps from position 2048 in
+     a 4096-position cache, the first step's logits against a prefill over
      2049 tokens, and both modes' token streams
  21. times from CUDA events: the flash kernel per layer against its bound,
      its plain version and F.scaled_dot_product_attention; prefill per
@@ -241,18 +253,47 @@ def counted_wrappers():
             flash_attention)
 
 
-def counted_run(fn, want):
-    """``fn()`` with every launch count set to 0 first; fails unless the
-    counts after it are ``want`` (wrapper name -> launches) and 0 elsewhere.
-    Returns (fn's result, the counts)."""
+def reset_counts():
+    """Every wrapper's launch count, and its per-path counts, to 0."""
     for counted in counted_wrappers():
         counted.launches = 0
+        for p_ in getattr(counted, "path_launches", {}):
+            counted.path_launches[p_] = 0
+
+
+def launch_counts():
+    """wrapper name -> launches, and "name.path" -> that path's launches for
+    the wrappers with two kernel paths (fused GEMV/GEMM, gemm)."""
+    got = {}
+    for c in counted_wrappers():
+        got[c.__name__] = c.launches
+        got.update({f"{c.__name__}.{p_}": v for p_, v in getattr(c, "path_launches", {}).items()})
+    return got
+
+
+def counted_run(fn, want):
+    """``fn()`` with every launch count set to 0 first; fails unless the
+    counts after it are ``want`` (wrapper name -> launches, 0 for a wrapper
+    not named; "name.path" -> that path's launches, checked where named).
+    Returns (fn's result, the counts)."""
+    reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    got = {c.__name__: c.launches for c in counted_wrappers()}
-    if any(got[n_] != want.get(n_, 0) for n_ in got):
+    got = launch_counts()
+    if any(got[n_] != want.get(n_, 0) for n_ in got if "." not in n_ or n_ in want):
         raise AssertionError(f"launches {got}, expected {want} and 0 elsewhere")
     return out, got
+
+
+def on_path(wrapper, fn):
+    """``fn()`` and the kernel path of ``wrapper`` it launched, which must be
+    exactly one launch."""
+    before = dict(wrapper.path_launches)
+    out = fn()
+    moved = {p_: v - before[p_] for p_, v in wrapper.path_launches.items() if v != before[p_]}
+    if list(moved.values()) != [1]:
+        raise AssertionError(f"{wrapper.__name__}: expected one launch, got {moved}")
+    return out, next(iter(moved))
 
 
 def serve_requests(step, bundle, batch, n_req, max_new):
@@ -298,7 +339,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import load_library
     from repro_torch.kernels.fused_gemv_allreduce.ops import (
-        fused_matmul_allreduce, fused_matmul_allreduce_ranks)
+        TILE_ROWS, fused_matmul_allreduce, fused_matmul_allreduce_ranks, fused_path)
     from repro_torch.kernels.fused_gemv_allreduce.ref import (
         fused_matmul_allreduce_ref, fused_matmul_allreduce_ref_ranks)
     from repro_torch.kernels.gemv.ops import gemv
@@ -335,37 +376,82 @@ def main() -> int:
            f"{f32_err[0]:.3g}/{f32_err[1]:.3g}")
 
     # 3 ---------------------------------------------------------------
-    fused_err = check_close("fused n_dev=1", fused_matmul_allreduce(x, w),
-                            fused_matmul_allreduce_ref(x, w), BF16_TOL)
-    say(3, f"fused_matmul_allreduce n_dev=1 vs plain: [4,13696]@[13696,4096] bf16 "
-           f"max abs/rel err {fused_err[0]:.3g}/{fused_err[1]:.3g}")
+    # the decode shape on the path the wrapper chooses and on the GEMV path;
+    # an f32 call (the GEMV path); the tile path at prefill rows, ragged
+    # edges (M, K off the 128 x 64 tile) and one M below the tile's 128 rows
+    main_path = fused_path(bf16, MAIN_B, MAIN_K, MAIN_N)
+    fused_want = fused_matmul_allreduce_ref(x, w)
+    fused_out, took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(x, w))
+    if took != main_path:
+        raise AssertionError(f"fused n_dev=1: took the {took} path, fused_path says {main_path}")
+    fused_err = check_close(f"fused n_dev=1 {took} path", fused_out, fused_want, BF16_TOL)
+    gemv_path_err = check_close("fused n_dev=1 GEMV path",
+                                fused_matmul_allreduce(x, w, _path="gemv"), fused_want, BF16_TOL)
+    xf, wf = randn(gen, (8, 2000), torch.float32), randn(gen, (2000, 1024), torch.float32,
+                                                          2000 ** -0.5)
+    f32_out, f32_took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(xf, wf))
+    fused_f32_err = check_close(f"fused n_dev=1 f32 {f32_took} path", f32_out,
+                                fused_matmul_allreduce_ref(xf, wf), F32_TOL)
+    tile_cases = []
+    for b, k, n in ((2048, MAIN_K, MAIN_N), (130, 1000, 1024), (2049, 4104, 4096),
+                    (100, 4096, 1024)):
+        xt, wt = randn(gen, (b, k), bf16), randn(gen, (k, n), bf16, k ** -0.5)
+        got, took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(xt, wt))
+        if took != "tile":
+            raise AssertionError(f"fused [{b},{k}]@[{k},{n}] bf16 took the {took} path")
+        err = check_close(f"fused [{b},{k}]@[{k},{n}] tile path", got,
+                          fused_matmul_allreduce_ref(xt, wt), BF16_TOL)
+        tile_cases.append(f"[{b},{k}]@[{k},{n}] {err[0]:.3g}/{err[1]:.3g}")
+    del xt, wt, got
+    say(3, f"fused_matmul_allreduce n_dev=1 vs plain (bound {BF16_TOL} bf16, {F32_TOL} f32), max "
+           f"abs/rel err: [4,13696]@[13696,4096] bf16 on the {main_path} path (TILE_ROWS = "
+           f"{TILE_ROWS}) {fused_err[0]:.3g}/{fused_err[1]:.3g}, on the GEMV path "
+           f"{gemv_path_err[0]:.3g}/{gemv_path_err[1]:.3g}; [8,2000]@[2000,1024] f32 on the "
+           f"{f32_took} path {fused_f32_err[0]:.3g}/{fused_f32_err[1]:.3g}; bf16 on the tile "
+           f"path: " + "; ".join(tile_cases))
 
     # 4 ---------------------------------------------------------------
     n_dev, k_loc = 4, MAIN_K // 4
     cases = []
-    for dtype, wire, tol in ((torch.float32, "f32", F32_TOL),
-                             (torch.float32, "bf16", WIRE_BF16_TOL),
-                             (bf16, "f32", BF16_TOL)):
-        xs = randn(gen, (n_dev, MAIN_B, k_loc), dtype)
-        ws = randn(gen, (n_dev, k_loc, MAIN_N), dtype, MAIN_K ** -0.5)
+    for dtype, wire, tol, rows, kk, nn, path in (
+            (torch.float32, "f32", F32_TOL, MAIN_B, k_loc, MAIN_N, "gemv"),
+            (torch.float32, "bf16", WIRE_BF16_TOL, MAIN_B, k_loc, MAIN_N, "gemv"),
+            (bf16, "f32", BF16_TOL, MAIN_B, k_loc, MAIN_N, "gemv"),
+            (bf16, "f32", BF16_TOL, MAIN_B, k_loc, MAIN_N, "tile"),
+            (bf16, "f32", BF16_TOL, 256, k_loc, MAIN_N, "tile"),
+            (bf16, "f32", BF16_TOL, 130, 1000, 1024, "tile")):
+        xs = randn(gen, (n_dev, rows, kk), dtype)
+        ws = randn(gen, (n_dev, kk, nn), dtype, (n_dev * kk) ** -0.5)
+        # a bf16 call's path is forced (phases 3 and 5 check the wrapper's
+        # choice); an f32 call must choose the GEMV path itself
+        force = path if dtype == bf16 else None
         for comm_aware in (True, False):
             want = fused_matmul_allreduce_ref_ranks(xs, ws, wire, comm_aware)
-            outs = [fused_matmul_allreduce_ranks(xs, ws, wire=wire, comm_aware=comm_aware)
-                    for _ in range(3)]   # back to back: 3 epochs on the same flag words
-            name = f"{str(dtype)[6:]}/wire={wire}/comm_aware={comm_aware}"
+            outs = []
+            for _ in range(3):   # back to back: 3 epochs on the same flag words
+                o, took = on_path(fused_matmul_allreduce_ranks, lambda: fused_matmul_allreduce_ranks(
+                    xs, ws, wire=wire, comm_aware=comm_aware, _path=force))
+                if took != path:
+                    raise AssertionError(f"world {dtype} rows {rows}: took the {took} path")
+                outs.append(o)
+            name = (f"{str(dtype)[6:]}/wire={wire}/[{n_dev},{rows},{kk}]@[{n_dev},{kk},{nn}]/"
+                    f"{path}/comm_aware={comm_aware}")
             errs = [check_close(f"world {name} call {i}", o, want, tol)
                     for i, o in enumerate(outs)]
             cases.append(f"{name} {max(e[0] for e in errs):.3g}/{max(e[1] for e in errs):.3g}")
-    say(4, f"emulated {n_dev}-rank world, [4,{k_loc}]@[{k_loc},{MAIN_N}] per rank, "
-           f"3 calls each, max abs/rel err: " + "; ".join(cases))
+    del xs, ws, outs
+    say(4, f"emulated {n_dev}-rank world, 3 calls each, max abs/rel err: " + "; ".join(cases))
 
-    kernels = chatglm_decode(card, x, w, fused_err, gemv_err)
+    kernels = chatglm_decode(card, x, w, fused_err, gemv_err, main_path)
     torch.cuda.empty_cache()
     kernels += dbrx_phases(card, gen)
     torch.cuda.empty_cache()
     kernels += dlrm_phases(card, gen)
     torch.cuda.empty_cache()
-    kernels += rwkv6_phases(card, gen)
+    fused_extra, rows = rwkv6_phases(card, gen)
+    # the fused kernel's row (phase 6) gains its numbers at prefill rows
+    next(k_ for k_ in kernels if k_["name"] == "fused_matmul_allreduce").update(fused_extra)
+    kernels += rows
     torch.cuda.empty_cache()
     kernels += chatglm_prefill_phases(card, gen)
     print(json.dumps({"kernels": kernels}))
@@ -376,7 +462,7 @@ def main() -> int:
     return 0
 
 
-def chatglm_decode(card, x, w, fused_err, gemv_err) -> list[dict]:
+def chatglm_decode(card, x, w, fused_err, gemv_err, main_path) -> list[dict]:
     """Phases 5 and 6: full-width chatglm3-6b decode and times; returns the
     JSON rows of its kernels.  Its weights are freed on return."""
     # 5 ---------------------------------------------------------------
@@ -408,15 +494,14 @@ def chatglm_decode(card, x, w, fused_err, gemv_err) -> list[dict]:
         return serve_requests(step, bundle, batch, n_req, max_new)
 
     log_k, log_b = [], []
-    for counted in counted_wrappers():
-        counted.launches = 0
+    reset_counts()
     reqs_k, _ = serve(dec_k, log_k)
-    launches = {"fused_matmul_allreduce": fused_matmul_allreduce.launches,
-                "gemv": gemv.launches}
+    launches = launch_counts()
     steps = len(log_k)
-    if launches["fused_matmul_allreduce"] != cfg.n_layers * steps:
-        raise AssertionError(f"fused kernel launched {launches['fused_matmul_allreduce']} "
-                             f"times in {steps} steps of {cfg.n_layers} layers")
+    fused_n = launches["fused_matmul_allreduce"]
+    if fused_n != cfg.n_layers * steps or launches[f"fused_matmul_allreduce.{main_path}"] != fused_n:
+        raise AssertionError(f"fused kernel launched {fused_n} times in {steps} steps of "
+                             f"{cfg.n_layers} layers, not all on the {main_path} path: {launches}")
     reqs_b, _ = serve(dec_b, log_b)
 
     # teacher-forced: bulk mode, and bulk mode in exact f32 arithmetic on
@@ -459,8 +544,8 @@ def chatglm_decode(card, x, w, fused_err, gemv_err) -> list[dict]:
                 raise AssertionError("token streams differ beyond a near tie: " + flips[-1])
     say(5, f"chatglm3-6b full width ({cfg.n_layers}L d{cfg.d_model}, {n_params / 1e9:.2f}B "
            f"params, {cfg.param_dtype}, init {init_s:.1f}s), batch {batch}, {n_req} requests x {max_new} "
-           f"tokens: {steps} decode steps, fused kernel launches {launches['fused_matmul_allreduce']}"
-           f" (= {cfg.n_layers} x {steps}), gemv launches {launches['gemv']}; teacher-forced "
+           f"tokens: {steps} decode steps, fused kernel launches {fused_n} (= {cfg.n_layers} x "
+           f"{steps}, all on the {main_path} path), gemv launches {launches['gemv']}; teacher-forced "
            f"logits max abs err: kernel vs bulk {err_kb:.3g} (bound {logits_tol:.3g}), "
            f"bulk vs exact f32 {err_bx:.3g}, kernel vs exact f32 {err_kx:.3g}; kernel streams "
            f"{[r.tokens for r in reqs_k]}; bulk streams {[r.tokens for r in reqs_b]}; "
@@ -468,6 +553,7 @@ def chatglm_decode(card, x, w, fused_err, gemv_err) -> list[dict]:
 
     # 6 ---------------------------------------------------------------
     t_fused = time_ms(lambda: fused_matmul_allreduce(x, w))
+    t_fused_gemv = time_ms(lambda: fused_matmul_allreduce(x, w, _path="gemv"))
     t_gemv = time_ms(lambda: gemv(x, w))
     t_lib = time_ms(lambda: torch.matmul(x, w))
     t_plain = time_ms(lambda: fused_matmul_allreduce_ref(x, w), iters=10)
@@ -476,7 +562,8 @@ def chatglm_decode(card, x, w, fused_err, gemv_err) -> list[dict]:
 
     prof_txt = profile_decode(dec_k, params, bundle.init_cache(batch, "cuda"), log_k[:4])
     decode_txt = timed_decode_runs(serve, dec_k, dec_b)
-    say(6, f"on {card}: [4,13696]@[13696,4096] bf16: fused kernel {t_fused:.4f} ms, gemv "
+    say(6, f"on {card}: [4,13696]@[13696,4096] bf16: fused kernel {t_fused:.4f} ms ({main_path} "
+           f"path; the GEMV path {t_fused_gemv:.4f} ms), gemv "
            f"{t_gemv:.4f} ms, torch.matmul {t_lib:.4f} ms, plain {t_plain:.4f} ms (gemv's plain {t_gemv_plain:.4f} ms), bound "
            f"{bnd:.4f} ms ({bound_by}); decode (batch {batch}, {n_req} requests x {max_new} "
            f"tokens, host clock around the drain): {decode_txt}; profile of "
@@ -486,9 +573,11 @@ def chatglm_decode(card, x, w, fused_err, gemv_err) -> list[dict]:
         {"name": "fused_matmul_allreduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_gemv_allreduce.cu",
          "replaces": "src/repro/kernels/fused_gemv_allreduce/kernel.py:59",
-         "launches": launches["fused_matmul_allreduce"], "max_abs_err": fused_err[0],
-         "ms": t_fused, "plain_ms": t_plain, "bound_ms": bnd, "bound_by": bound_by,
-         "library_ms": t_lib},
+         "launches": fused_n, "max_abs_err": fused_err[0], "ms": t_fused, "plain_ms": t_plain,
+         "bound_ms": bnd, "bound_by": bound_by, "library_ms": t_lib,
+         "path": main_path, "shape": f"[{MAIN_B},{MAIN_K}]@[{MAIN_K},{MAIN_N}] bf16",
+         "path_launches": {p_: launches[f"fused_matmul_allreduce.{p_}"] for p_ in ("gemv", "tile")},
+         "gemv_path_ms": t_fused_gemv},
         {"name": "gemv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gemv.cu",
          "replaces": "src/repro/kernels/gemv/kernel.py:19",
@@ -624,8 +713,7 @@ def dbrx_phases(card, gen) -> list[dict]:
         return serve_requests(step, bundle, batch, n_req, max_new)
 
     log_k = []
-    for counted in counted_wrappers():
-        counted.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     reqs_k, _ = serve(dec_k, log_k)
     launches = {c.__name__: c.launches for c in counted_wrappers()}
@@ -816,8 +904,7 @@ def dlrm_phases(card, gen) -> list[dict]:
             f"max abs err {rag3:.3g}, both schedules, 3 calls each ({calls} world launches)")
 
     # 13 --------------------------------------------------------------
-    for counted in counted_wrappers():
-        counted.launches = 0
+    reset_counts()
     logits_k = dlrm_forward(ctx_k, params, cfg, batch)
     launches = {c.__name__: c.launches for c in counted_wrappers()}
     if launches["embedding_pool_tables"] != 1 or sum(launches.values()) != 1:
@@ -902,15 +989,16 @@ def dlrm_phases(card, gen) -> list[dict]:
     ]
 
 
-def rwkv6_phases(card, gen) -> list[dict]:
+def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:
     """Phases 15-18: the WKV6 and GEMM kernels against their plain versions,
     full-width rwkv6-7b prefill and decode through the registry's bundle in
     kernel and bulk mode against an exact f32 evaluation, and times; returns
-    the JSON rows of the two kernels."""
+    the fused kernel's prefill-row numbers (for its JSON row) and the JSON
+    rows of the two kernels."""
     from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce, fused_path
     from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
-    from repro_torch.kernels.gemm.ops import gemm
+    from repro_torch.kernels.gemm.ops import gemm, gemm_path
     from repro_torch.kernels.gemm.ref import gemm_ref
     from repro_torch.kernels.rwkv6.ops import wkv6
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
@@ -953,15 +1041,23 @@ def rwkv6_phases(card, gen) -> list[dict]:
         except ValueError:
             continue
         raise AssertionError(f"wkv6 took N={bad_n}, chunk={bad_c}: the kernel takes neither")
+    # gemm: ragged shapes off TMA's 16-byte rows (the CUDA-core kernel in
+    # both dtypes), then shapes the bf16 tile path takes: the timed main
+    # shape, ragged M/N/K, a single row, K of one stage
     gemm_cases = []
     for m, kk, n in ((1, 1, 1), (33, 1000, 4097), (4097, 33, 1000), (1000, 4097, 33),
-                     (1, 4097, 1000), (4097, 1, 33)):
+                     (1, 4097, 1000), (4097, 1, 33), (2048, 4096, 4096), (1000, 4104, 1032),
+                     (1, 64, 8), (4097, 64, 4096)):
         for dt, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
             x = randn(gen, (m, kk), dt)
             wg = randn(gen, (kk, n), dt, kk ** -0.5)
-            err = check_close(f"gemm [{m},{kk}]@[{kk},{n}] {str(dt)[6:]}", gemm(x, wg),
-                              gemm_ref(x, wg), tol)
-            gemm_cases.append((f"[{m},{kk}]@[{kk},{n}] {str(dt)[6:]}", err[0]))
+            name = f"[{m},{kk}]@[{kk},{n}] {str(dt)[6:]}"
+            got, took = on_path(gemm, lambda: gemm(x, wg))
+            if took != gemm_path(dt, kk, n):
+                raise AssertionError(f"gemm {name} took the {took} path")
+            err = check_close(f"gemm {name} {took}", got, gemm_ref(x, wg), tol)
+            gemm_cases.append((f"{name} {took}", err[0]))
+    del x, wg, got
     say(15, f"wkv6 vs plain chunked at the main path r,k,v,w [{B},{T},{H},{N}] f32, chunk {C}: "
             f"o max abs/rel err {o_err[0]:.3g}/{o_err[1]:.3g}, final state (max |state| "
             f"{s_max:.3g}) {s_err[0]:.3g}/{s_err[1]:.3g} (bound {REL_F32} rel); o vs the "
@@ -1003,8 +1099,9 @@ def rwkv6_phases(card, gen) -> list[dict]:
             return exact.prefill_fn(ctx_b)(params_x, b)
 
     torch.cuda.reset_peak_memory_stats()
-    (logits_k, state_k), launch_k = counted_run(lambda: pre_k(params, batch),
-                                                      {"wkv6": L, "fused_matmul_allreduce": 2 * L})
+    (logits_k, state_k), launch_k = counted_run(
+        lambda: pre_k(params, batch),
+        {"wkv6": L, "fused_matmul_allreduce": 2 * L, "fused_matmul_allreduce.tile": 2 * L})
     layer_errs = []
 
     def spy(r_, k_, v_, w_, u_, *, chunk):
@@ -1031,7 +1128,8 @@ def rwkv6_phases(card, gen) -> list[dict]:
             f"vocab {cfg.vocab}, {n_params / 1e9:.3f}B params, {n_bytes / 1e9:.2f} GB "
             f"{cfg.param_dtype}, init {init_s:.1f}s, peak {peak_gb:.1f} GB), prefill of "
             f"{B}x{T} seeded tokens: launches in kernel mode wkv6 {launch_k['wkv6']}, fused GEMV "
-            f"{launch_k['fused_matmul_allreduce']}; in bulk mode wkv6 {launch_b['wkv6']}, fused "
+            f"{launch_k['fused_matmul_allreduce']} (tile path "
+            f"{launch_k['fused_matmul_allreduce.tile']}); in bulk mode wkv6 {launch_b['wkv6']}, fused "
             f"GEMV {launch_b['fused_matmul_allreduce']}; every layer's wkv6 (o, state) vs plain "
             f"on its input: max rel err {max(layer_errs):.3g} over {len(layer_errs)} layers "
             f"(bound {REL_F32}); max abs err (kernel vs exact f32, bulk vs exact f32, kernel vs "
@@ -1049,7 +1147,11 @@ def rwkv6_phases(card, gen) -> list[dict]:
             tok = lg.argmax(-1)
         return out
 
-    steps, launch_d = counted_run(greedy, {"fused_matmul_allreduce": 2 * L * RWKV_STEPS})
+    dec_path = fused_path(bf16, B, cfg.d_model, cfg.d_model)
+    if fused_path(bf16, B, cfg.d_ff, cfg.d_model) != dec_path:
+        raise AssertionError("rwkv6's w_o and w_v at decode rows take different paths")
+    steps, launch_d = counted_run(greedy, {"fused_matmul_allreduce": 2 * L * RWKV_STEPS,
+                                           f"fused_matmul_allreduce.{dec_path}": 2 * L * RWKV_STEPS})
     st_b, st_x, lb_all, lx_all = state_b, state_x, [], []
     for tok, _ in steps:                      # teacher-forced on the kernel stream's tokens
         lb, st_b = dec_b(params, tok, st_b, None)
@@ -1078,7 +1180,7 @@ def rwkv6_phases(card, gen) -> list[dict]:
         handoff.append(f"{key} {d_pd:.3g} (bound {LOGITS_TOL_FACTOR * d_px:.3g})")
     say(17, f"rwkv6-7b decode, {RWKV_STEPS} greedy steps from the prefill states: launches wkv6 "
             f"{launch_d['wkv6']}, fused GEMV {launch_d['fused_matmul_allreduce']} (= 2 x {L} x "
-            f"{RWKV_STEPS}); teacher-forced {dec_errs}; kernel stream tokens "
+            f"{RWKV_STEPS}, all on the {dec_path} path); teacher-forced {dec_errs}; kernel stream tokens "
             f"{[[int(t_) for t_ in tok[:, 0]] for tok, _ in steps]}; hand-off, kernel mode, "
             f"{RWKV_HANDOFF}-token prefill vs {RWKV_HANDOFF} decode steps from init_state, max "
             f"abs err (bound {LOGITS_TOL_FACTOR} x the prefill's distance from exact f32): "
@@ -1093,7 +1195,8 @@ def rwkv6_phases(card, gen) -> list[dict]:
     del r, k, v, w, u
     gx = randn(gen, (2048, 4096), bf16)
     gw = randn(gen, (4096, 4096), bf16, 4096 ** -0.5)
-    t_gemm = time_ms(lambda: gemm(gx, gw), iters=10, warmup=2)
+    t_gemm = time_ms(lambda: gemm(gx, gw), iters=20, warmup=3)
+    t_gemm_cc = time_ms(lambda: gemm(gx, gw, _path="cuda_core"), iters=10, warmup=2)
     t_gemm_plain = time_ms(lambda: gemm_ref(gx, gw), iters=10, warmup=2)
     t_gemm_lib = time_ms(lambda: torch.matmul(gx, gw), iters=20, warmup=3)
     gemm_bnd, gemm_by = bound_ms(2048, 4096, 4096, 2)
@@ -1103,17 +1206,36 @@ def rwkv6_phases(card, gen) -> list[dict]:
     gemm32_bnd = max((3 * 2048 * 4096 + 4096 * 4096) * 4 / HBM_BYTES_PER_S,
                      2 * 2048 * 4096 * 4096 / F32_FLOPS) * 1e3
     del gx32, gw32
+    # the fused kernel at rwkv6's prefill rows on layer 0's weights: the tile
+    # path (the wrapper's choice) checked and timed, the GEMV path timed
     rows = {}
     for name, wt in (("w_o", params["layers"][0]["tm"]["w_o"]),
                      ("channel-mix w_v", params["layers"][0]["cm"]["w_v"])):
         x = randn(gen, (B * T, wt.shape[0]), bf16)
-        err = check_close(f"fused GEMV at prefill rows, layer 0 {name}",
-                          fused_matmul_allreduce(x, wt), fused_matmul_allreduce_ref(x, wt),
-                          BF16_TOL)
-        rows[name] = (tuple(wt.shape), err, time_ms(lambda: fused_matmul_allreduce(x, wt), iters=3,
-                                               warmup=1),
-                      time_ms(lambda: torch.matmul(x, wt), iters=10, warmup=2),
-                      bound_ms(B * T, wt.shape[0], wt.shape[1], 2))
+        got, took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(x, wt))
+        if took != "tile":
+            raise AssertionError(f"fused kernel at rwkv6's prefill {name}: took the {took} path")
+        err = check_close(f"fused kernel at prefill rows, layer 0 {name}", got,
+                          fused_matmul_allreduce_ref(x, wt), BF16_TOL)
+        rows[name] = dict(
+            shape=f"[{B * T},{wt.shape[0]}]@[{wt.shape[0]},{wt.shape[1]}]", err=err,
+            same_as_lib=torch.equal(got, torch.matmul(x, wt)),
+            tile=time_ms(lambda: fused_matmul_allreduce(x, wt), iters=20, warmup=3),
+            gemv=time_ms(lambda: fused_matmul_allreduce(x, wt, _path="gemv"), iters=2, warmup=1),
+            lib=time_ms(lambda: torch.matmul(x, wt), iters=20, warmup=3),
+            bound=bound_ms(B * T, wt.shape[0], wt.shape[1], 2))
+    del x, got
+    # the row sweep that sets TILE_ROWS: chatglm3-6b's w_down shape
+    sw_k, sw_n = 13696, 4096
+    sw_w = randn(gen, (sw_k, sw_n), bf16, sw_k ** -0.5)
+    sweep = []
+    for r_ in (1, 2, 4, 8, 16, 32, 64, 128, 256, 2048):
+        sx = randn(gen, (r_, sw_k), bf16)
+        sweep.append((r_, time_ms(lambda: fused_matmul_allreduce(sx, sw_w, _path="gemv"),
+                                  iters=2 if r_ >= 256 else 10, warmup=1),
+                      time_ms(lambda: fused_matmul_allreduce(sx, sw_w, _path="tile")),
+                      time_ms(lambda: torch.matmul(sx, sw_w))))
+    del sw_w, sx
     pre_t = {"kernel": [], "bulk": []}
     for mode, fn in (("kernel", pre_k), ("bulk", pre_b), ("bulk", pre_b), ("kernel", pre_k)):
         pre_t[mode].append(time_ms(lambda: fn(params, batch), iters=2, warmup=1))
@@ -1129,19 +1251,32 @@ def rwkv6_phases(card, gen) -> list[dict]:
     say(18, f"on {card}: wkv6 [{B},{T},{H},{N}] chunk {C}: kernel {t_wkv:.4f} ms, plain chunked "
             f"{t_wkv_plain:.4f} ms, no single PyTorch call computes it, bound {wkv_bnd:.4f} ms "
             f"({wkv_by}: {wkv_bytes / 1e6:.1f} MB, {wkv_ops / 1e9:.2f} G f32 operations); gemm "
-            f"[2048,4096]@[4096,4096] bf16: kernel {t_gemm:.4f} ms, plain {t_gemm_plain:.4f} ms, "
+            f"[2048,4096]@[4096,4096] bf16: tile kernel {t_gemm:.4f} ms, CUDA-core kernel "
+            f"{t_gemm_cc:.4f} ms, plain {t_gemm_plain:.4f} ms, "
             f"torch.matmul {t_gemm_lib:.4f} ms, bound {gemm_bnd:.4f} ms ({gemm_by}); f32: kernel "
             f"{t_gemm32:.4f} ms, torch.matmul {t_gemm32_lib:.4f} ms, bound {gemm32_bnd:.4f} ms "
-            f"(operations at the f32 peak); fused GEMV kernel at prefill rows {B * T}: "
-            + "; ".join(f"{n_} {shape}: vs plain max abs/rel err {e[0]:.3g}/{e[1]:.3g}, kernel "
-                        f"{tk:.4f} ms, torch.matmul {tl:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]})"
-                        for n_, (shape, e, tk, tl, bd) in rows.items())
+            f"(operations at the f32 peak); fused kernel at prefill rows {B * T}: "
+            + "; ".join(f"{n_} {r['shape']}: tile path vs plain max abs/rel err {r['err'][0]:.3g}/"
+                        f"{r['err'][1]:.3g} (bit-identical to torch.matmul: {r['same_as_lib']}), "
+                        f"tile path {r['tile']:.4f} ms, GEMV path "
+                        f"{r['gemv']:.4f} ms, torch.matmul {r['lib']:.4f} ms, bound "
+                        f"{r['bound'][0]:.4f} ms ({r['bound'][1]})" for n_, r in rows.items())
+            + f"; row sweep [rows,{sw_k}]@[{sw_k},{sw_n}] bf16 (GEMV path / tile path / "
+              f"torch.matmul ms): "
+            + ", ".join(f"{r_} {g:.4f}/{t_:.4f}/{lb:.4f}" for r_, g, t_, lb in sweep)
             + f"; prefill per batch of {B}x{T} (CUDA events, turns kernel, bulk, bulk, kernel): "
             + times(pre_t) + f"; decode per step at batch {B}: " + times(dec_t)
             + "; profiles: " + "; ".join(f"{m} prefill {p_[0]}; {m} decode {p_[1]}"
                                          for m, p_ in prof.items()))
 
-    return [
+    prefill = {n_: {"shape": f"{r['shape']} bf16", "ms": r["tile"], "gemv_path_ms": r["gemv"],
+                    "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["lib"],
+                    "max_abs_err": r["err"][0]} for n_, r in rows.items()}
+    fused_extra = {"tile_path_prefill": {"launches": launch_k["fused_matmul_allreduce.tile"],
+                                         **prefill},
+                   "row_sweep": {"shape": f"[rows,{sw_k}]@[{sw_k},{sw_n}] bf16",
+                                 "rows_gemv_tile_library_ms": sweep}}
+    return fused_extra, [
         {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv6/kernel.py:20", "launches": launch_k["wkv6"],
          "max_abs_err": o_err[0], "ms": t_wkv, "plain_ms": t_wkv_plain, "bound_ms": wkv_bnd,
@@ -1150,7 +1285,9 @@ def rwkv6_phases(card, gen) -> list[dict]:
          "replaces": "src/repro/kernels/gemm/kernel.py:19", "launches": launch_k["gemm"],
          "main_path": False, "max_abs_err": max(e for _, e in gemm_cases), "ms": t_gemm,
          "plain_ms": t_gemm_plain, "bound_ms": gemm_bnd, "bound_by": gemm_by,
-         "library_ms": t_gemm_lib},
+         "library_ms": t_gemm_lib, "path": "tile", "shape": "[2048,4096]@[4096,4096] bf16",
+         "cuda_core_ms": t_gemm_cc, "f32": {"ms": t_gemm32, "library_ms": t_gemm32_lib,
+                                            "bound_ms": gemm32_bnd, "bound_by": "operations"}},
     ]
 
 
@@ -1199,14 +1336,6 @@ def flash_phase(gen) -> tuple:
     return errs["main"]
 
 
-def plain_attention(q, k, v, *, scale, causal, window, softcap):
-    """The model's plain blockwise attention (the reference's arithmetic) in
-    the flash op's place."""
-    from repro_torch.models.attention import span_attention
-
-    return span_attention(q, k, v, causal=causal, window=window, scale=scale, cap=softcap)
-
-
 def flash_bound(b, s, hq, hkv, d, itemsize, causal=True):
     """Least time for one flash call, (ms, bound_by, bytes, operations): q, k
     and v read once and o written once over HBM, or the two products over
@@ -1228,6 +1357,7 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_path
     from repro_torch.models import attention
     from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 
@@ -1253,17 +1383,11 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
         cfg, param_dtype="float32", compute_dtype="float32"))
     params_x = {**params, "layers": UpcastLayers(params["layers"])}
 
-    def plain_prefill(b, exact_f32):
-        """Bulk mode with the plain attention: in bf16 (the yardstick) or
-        in exact f32 arithmetic."""
-        with swapped(attention, "flash_attention", plain_attention):
-            if exact_f32:
-                return exact.prefill_fn(ctx_b)(params_x, b)
-            return pre_b(params, b)
+    def exact_prefill(b):
+        """Bulk mode in exact f32 arithmetic (layers upcast one at a time)."""
+        return exact.prefill_fn(ctx_b)(params_x, b)
 
     torch.cuda.reset_peak_memory_stats()
-    (logits_k, cache_k), launch_k = counted_run(lambda: pre_k(params, batch),
-                                                {"flash_attention": L})
     layer_errs = []
 
     def spy(q, k, v, **kw):
@@ -1274,39 +1398,34 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
                                       BF16_TOL)[0])
         return got
 
+    # kernel mode launches the flash kernel in every layer; bulk mode, the
+    # yardstick, runs the reference's bulk computation (span_attention)
     with swapped(attention, "flash_attention", spy):
-        (logits_b, cache_b), launch_b = counted_run(lambda: pre_b(params, batch),
+        (logits_k, cache_k), launch_k = counted_run(lambda: pre_k(params, batch),
                                                     {"flash_attention": L})
-    logits_p, cache_p = plain_prefill(batch, False)
-    logits_x, cache_x = plain_prefill(batch, True)
+    (logits_b, cache_b), launch_b = counted_run(lambda: pre_b(params, batch), {})
+    logits_x, cache_x = exact_prefill(batch)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for lg in (logits_k, logits_b, logits_p, logits_x):
+    for lg in (logits_k, logits_b, logits_x):
         if lg.shape != (B, 1, cfg.vocab) or not torch.isfinite(lg).all():
             raise AssertionError(f"prefill logits: shape {tuple(lg.shape)} or non-finite")
     for c in (cache_k, cache_b):
         if any(tuple(c[key].shape) != (L, B, S, Hkv, hd) for key in ("k", "v")):
             raise AssertionError(f"prefill cache: shapes {[tuple(t_.shape) for t_ in c.values()]}")
-
-    def triples(lg, c):
-        return {"logits": (lg, logits_p, logits_x),
-                **{key: (c[key], cache_p[key], cache_x[key]) for key in ("k", "v")}}
-
-    errs_k = bounded_errors("prefill kernel mode", triples(logits_k, cache_k), "plain attention")
-    errs_b = bounded_errors("prefill bulk mode", triples(logits_b, cache_b), "plain attention")
-    kb = max(errors(a, b_)[0] for a, b_ in ((logits_k, logits_b), (cache_k["k"], cache_b["k"]),
-                                            (cache_k["v"], cache_b["v"])))
-    del cache_p, cache_x, logits_p, logits_x
+    errs_k = bounded_errors("prefill kernel mode", {
+        "logits": (logits_k, logits_b, logits_x),
+        **{key: (cache_k[key], cache_b[key], cache_x[key]) for key in ("k", "v")}})
+    del cache_x, logits_x
     say(20, f"chatglm3-6b full width ({L}L d{cfg.d_model}, {Hq}/{Hkv} heads of {hd}, d_ff "
             f"{cfg.d_ff}, vocab {cfg.vocab}, {n_params / 1e9:.3f}B params {cfg.param_dtype}, init "
             f"{init_s:.1f}s, peak {peak_gb:.1f} GB), prefill of {B}x{S} seeded tokens: launches in "
             f"kernel mode flash {launch_k['flash_attention']}, fused GEMV "
-            f"{launch_k['fused_matmul_allreduce']}; in bulk mode flash "
+            f"{launch_k['fused_matmul_allreduce']}; in bulk mode (span_attention) flash "
             f"{launch_b['flash_attention']}, fused GEMV {launch_b['fused_matmul_allreduce']}; "
-            f"every layer's flash output vs plain on its input: max abs err {max(layer_errs):.3g} "
-            f"over {len(layer_errs)} layers (bound {BF16_TOL}); max abs err (mode vs exact f32, "
-            f"plain-attention bf16 path vs exact f32, mode vs that path; bound "
-            f"{LOGITS_TOL_FACTOR} x the plain path's): kernel mode {errs_k}; bulk mode {errs_b}; "
-            f"kernel vs bulk mode {kb:.3g}")
+            f"every layer's flash output vs plain on its input (kernel mode): max abs err "
+            f"{max(layer_errs):.3g} over {len(layer_errs)} layers (bound {BF16_TOL}); max abs err "
+            f"(kernel mode vs exact f32, bulk mode vs exact f32, kernel vs bulk mode; bound "
+            f"{LOGITS_TOL_FACTOR} x bulk's): {errs_k}")
 
     # hand-off: the prefill cache in a decode cache of max_seq positions, then
     # greedy decode steps from position S
@@ -1327,15 +1446,17 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
             tok = lg.argmax(-1)
         return out
 
+    dec_path = fused_path(bf16, B, cfg.d_ff, cfg.d_model)
     steps_k, launch_d = counted_run(lambda: greedy(dec_k, logits_k, cache_k),
-                                    {"fused_matmul_allreduce": L * GLM_STEPS})
+                                    {"fused_matmul_allreduce": L * GLM_STEPS,
+                                     f"fused_matmul_allreduce.{dec_path}": L * GLM_STEPS})
     steps_b = greedy(dec_b, logits_b, cache_b)
     for _, lg in steps_k + steps_b:
         if lg.shape != (B, 1, cfg.vocab) or not torch.isfinite(lg).all():
             raise AssertionError(f"decode logits: shape {tuple(lg.shape)} or non-finite")
     longer = {"tokens": torch.cat([tokens, steps_k[0][0]], dim=1)}
     logits_l = pre_k(params, longer)[0]
-    d_px = errors(logits_l, plain_prefill(longer, True)[0])[0]
+    d_px = errors(logits_l, exact_prefill(longer)[0])[0]
     d_pd = errors(steps_k[0][1], logits_l)[0]
     tol = LOGITS_TOL_FACTOR * d_px
     if d_pd > tol:
@@ -1360,7 +1481,8 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
                 raise AssertionError("decode streams differ beyond a near tie: " + flips[-1])
     say(20, f"hand-off: {GLM_STEPS} greedy decode steps from position {S} in a {cfg.max_seq}-"
             f"position cache copied from the prefill's: launches fused GEMV "
-            f"{launch_d['fused_matmul_allreduce']} (= {L} x {GLM_STEPS}), flash "
+            f"{launch_d['fused_matmul_allreduce']} (= {L} x {GLM_STEPS}, all on the {dec_path} "
+            f"path), flash "
             f"{launch_d['flash_attention']}; first step's logits vs a kernel-mode prefill over "
             f"{S + 1} tokens max abs err {d_pd:.3g} (bound {tol:.3g} = {LOGITS_TOL_FACTOR} x that "
             f"prefill's distance from exact f32, {d_px:.3g}); kernel stream "
@@ -1399,7 +1521,8 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
             f"plain {t_plain:.4f} ms, F.scaled_dot_product_attention(is_causal, enable_gqa) "
             f"{t_sdpa:.4f} ms (vs the kernel max abs/rel err {sdpa_err[0]:.3g}/{sdpa_err[1]:.3g}), "
             f"bound {fl_bnd:.4f} ms ({fl_by}: {fl_ops / 1e9:.1f} GFLOP, {fl_bytes / 1e6:.1f} MB); "
-            f"prefill per batch of {B}x{S} (CUDA events, turns kernel, bulk, bulk, kernel): "
+            f"prefill per batch of {B}x{S} (CUDA events, turns kernel, bulk, bulk, kernel; bulk "
+            f"mode runs span_attention): "
             + times(pre_t) + f"; decode per step at batch {B} from position {S}: " + times(dec_t)
             + "; profiles: " + "; ".join(f"{m} prefill {p_}" for m, p_ in prof.items())
             + f"; kernel decode {prof_dec}")

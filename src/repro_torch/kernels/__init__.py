@@ -155,6 +155,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, i64, i64, ptrs, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32,
         i32, ctypes.c_uint, i32, i32, vp]
     lib.repro_fused_gemv_allreduce.restype = i32
+    lib.repro_fused_gemm_allreduce_tile.argtypes = [
+        vp, vp, ptrs, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32, i32, ctypes.c_uint, vp]
+    lib.repro_fused_gemm_allreduce_tile.restype = i32
     lib.repro_fused_dispatch_a2a.argtypes = [
         vp, i64, ptrs, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32, i32,
         i32, ctypes.c_uint, i32, i32, vp]
@@ -173,6 +176,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_wkv6.restype = i32
     lib.repro_gemm.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.repro_gemm.restype = i32
+    lib.repro_gemm_tile.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    lib.repro_gemm_tile.restype = i32
     lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                           ctypes.c_float, i32, i32, vp]
     lib.repro_flash_attention.restype = i32

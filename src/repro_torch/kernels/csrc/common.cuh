@@ -53,15 +53,17 @@ __device__ __forceinline__ void wait_flag(const unsigned* f, unsigned epoch) {
   }
 }
 
-// The CTAs of `kernel` that fit on the card at once, split evenly over the
-// ranks of one launch; 0 when not even one CTA per rank fits.
+// The CTAs of `kernel` that fit on the card at once with `dyn_smem` bytes of
+// dynamic shared memory each, split evenly over the ranks of one launch; 0
+// when not even one CTA per rank fits.
 template <typename Kernel>
-static cudaError_t resident_ctas(Kernel kernel, int threads, int ranks_in_launch, int* per_rank) {
+static cudaError_t resident_ctas(Kernel kernel, int threads, int ranks_in_launch, int* per_rank,
+                                 size_t dyn_smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, dyn_smem);
   *per_rank = err == cudaSuccess ? per_sm * sms / ranks_in_launch : 0;
   return err;
 }

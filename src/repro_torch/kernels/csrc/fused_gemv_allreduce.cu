@@ -1,31 +1,49 @@
-// Device-initiated fused GEMV + AllReduce for Hopper (paper Sec. III-B, Fig. 7).
+// Device-initiated fused GEMV/GEMM + AllReduce for Hopper (paper Sec. III-B,
+// Fig. 7).
 //
 // Replaces the TPU kernel src/repro/kernels/fused_gemv_allreduce/kernel.py:59
 // (_fused_kernel, entry fused_matmul_allreduce_pallas at :219).  Every rank r
 // holds x_r [B, K] and w_r [K, N]; every rank ends with y = sum_r x_r @ w_r.
 // The output columns split into n_dev chunks of bn = N / n_dev; chunk d is
-// reduced by rank d.
+// reduced by rank d.  Each TPU grid step is a jnp.dot of the whole
+// [B, tile_k] x against a [tile_k, tile_n] weight panel, so at decode rows it
+// is a GEMV and at prefill rows a GEMM.  Here two paths share the protocol
+// below and differ in their unit of work; kernels/fused_gemv_allreduce/ops.py
+// chooses by dtype and shape (fused_path):
 //
-// What bounds it: at decode batch sizes the work is about one FMA per weight
-// element, so the time is the weight bytes over HBM bandwidth.  For
-// chatglm3-6b's FFN down projection at tp = 1 one launch reads
-// 13696 x 4096 x 2 B = 112 MB of w_down, which bounds it at about 33 us on an
-// H100 SXM (3.35 TB/s), 28 launches per decode step.  The design reads every
-// weight byte once with coalesced 16-byte loads (tile_gemv.cuh), gives each
-// CTA a 32-column tile so a 4096-wide output spreads over 128 CTAs, and keeps
-// the peer protocol out of the K loop.  TMA/wgmma pipelining is later work.
+//  * GEMV path (every f32 call, and bf16 off the tile path's shapes): a CTA
+//    of 256 threads owns a [B, 32] output strip and loops over row blocks of
+//    8 and all of K with f32 FMAs on CUDA cores (tile_gemv.cuh).  What
+//    bounds it: at decode rows about one FMA per weight element, so the
+//    weight bytes over HBM bandwidth; chatglm3-6b's FFN down projection at
+//    tp = 1 reads 13696 x 4096 x 2 B = 112 MB, about 33 us on an H100 SXM
+//    (3.35 TB/s).  It reads every weight byte once per row block with
+//    coalesced 16-byte loads and spreads a 4096-wide output over 128 CTAs;
+//    at many rows it streams the weights once per 8 rows.
+//  * Tile path (bf16 with B >= TILE_ROWS, K % 8 == 0 and bn a multiple of
+//    128): the tensor-core tile loop of tile_mma.cuh on [128, 128] output
+//    tiles, TMA-fed wgmma with f32 accumulators, each weight panel read once
+//    per 128 rows.  What bounds it: at decode rows the same weight bytes; at
+//    rwkv6's prefill rows the operations (2 B K N at 989 TFLOP/s: 0.0695 ms
+//    for [2048, 4096] x [4096, 4096]).  Measured on an H100 it beat the GEMV
+//    path from 1 row on, so TILE_ROWS is 1 and decode takes it too.
 //
-// What it computes, tile by tile (the TPU grid's order, not its grid):
-//  * A CTA owns one [B, 32] output tile at a time and loops over all of K
-//    itself; nothing carries between CTAs.  Tiles are taken in the order of
-//    the step schedule (kernels/tile_pipeline.py step_schedule): remote tiles
-//    first, farthest peer first when comm-aware, the rank's own tiles last.
+// The protocol, per output tile (the TPU grid's order, not its grid):
+//  * Tiles are taken in the order of the step schedule
+//    (kernels/tile_pipeline.py step_schedule) over a rank's column
+//    sub-tiles: remote tiles first, farthest peer first when comm-aware, the
+//    rank's own tiles last; on the tile path the row blocks of a sub-tile
+//    come next to each other.  A CTA computes its tile over all of K itself;
+//    nothing carries between CTAs.
 //  * A finished remote tile is stored at the wire dtype straight into the
-//    owner's per-source rx slot, then the sender publishes a per-(source,
-//    sub-tile) flag with release semantics (the paper's sliceRdy).
-//  * An own tile is computed first, then the CTA acquires the flags of all
-//    sources for that sub-tile, adds the rx slots in f32 in source order to
-//    its f32 tile, and writes the result at x's dtype into every rank's output
+//    owner's per-source rx slot, then the sender publishes a flag with
+//    release semantics (the paper's sliceRdy): one per (source, sub-tile) on
+//    the GEMV path, one per (source, sub-tile, row block) on the tile path,
+//    so a rank has n_dev * (bn / 128) * row blocks units to spread over its
+//    CTAs.
+//  * An own tile is computed first, then its CTA acquires the flags of all
+//    sources for that unit, adds the rx slots in f32 in source order to its
+//    f32 tile, and writes the result at x's dtype into every rank's output
 //    (phase 2, the direct broadcast), publishing a phase-2 flag to each peer
 //    (the paper's WG_Done).
 //  * Before the launch ends, CTA 0 of each rank acquires every peer's phase-2
@@ -34,16 +52,19 @@
 // Flags hold the call's epoch, a counter the caller increments per call, so
 // they are never reset.  Peer buffers come in a by-value pointer table, so
 // the same kernel serves an emulated world (gridDim.y = n_dev ranks in one
-// launch on one card, pointers into per-rank slices of single allocations)
-// and, later, real peers whose pointers come from symmetric memory.  A CTA
-// waits only after all of its remote tiles are out, and remote tiles never
-// wait, so the protocol cannot deadlock as long as every CTA is resident:
-// with n_dev > 1 the grid is sized from the occupancy and launched
-// cooperatively, which refuses a grid that does not fit.
+// launch on one card, pointers into per-rank slices of single allocations;
+// the tile path's tensor maps are 3-D over the ranks) and, later, real peers
+// whose pointers come from symmetric memory.  A CTA waits only after all of
+// its remote tiles are out, and remote tiles never wait, so the protocol
+// cannot deadlock as long as every CTA is resident: with n_dev > 1 the grid
+// is sized from the occupancy (with the tile path's 129 KB of dynamic shared
+// memory counted) and launched cooperatively, which refuses a grid that does
+// not fit; CTAs then loop over the units.
 //
-// At tp = 1 (the serving path) n_dev = 1: every tile is an own tile, there are
-// no flags, and the kernel is the tiled f32-accumulated GEMV.
+// At tp = 1 (the serving path) n_dev = 1: every tile is an own tile, there
+// are no flags, and the kernel is the tiled GEMV or GEMM, one CTA per tile.
 #include "tile_gemv.cuh"
+#include "tile_mma.cuh"
 
 namespace repro_torch {
 
@@ -157,6 +178,123 @@ static int launch_fused(const void* x, const void* w, long long x_rank_stride,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tile path (bf16, wire bf16).  Unit u of a rank is step u / row_blocks of
+// its schedule at row block u % row_blocks.
+__global__ void __launch_bounds__(kMmaThreads)
+    fused_tile_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap, PeerTable peers,
+                      const int* __restrict__ sched, int my_base, int n_dev, int B, int K, int N,
+                      int tiles_per_rank, unsigned epoch) {
+  const int my = my_base + blockIdx.y;
+  const int bn = N / n_dev;
+  const int row_blocks = (B + kMmaBM - 1) / kMmaBM;
+  const int num_steps = n_dev * tiles_per_rank;
+  const size_t words = (size_t)tiles_per_rank * row_blocks;  // flag words per (phase, source)
+  unsigned* my_flags = peers.flags[my];
+  const int ct = threadIdx.x;  // consumer thread, in the epilogue
+
+  auto coords = [&](int u) {
+    const int step = u / row_blocks;
+    const int dest = (my + sched[step]) % n_dev;
+    return TileCoord{static_cast<int>(blockIdx.y), (u % row_blocks) * kMmaBM,
+                     dest * bn + sched[num_steps + step] * kMmaBN};
+  };
+  auto epilogue = [&](int u, TileCoord tc, float(&acc)[kMmaAccs], int wg, int t) {
+    const int step = u / row_blocks;
+    const int off = sched[step];
+    const int dest = (my + off) % n_dev;
+    const int ccol = sched[num_steps + step] * kMmaBN;  // column inside the chunk
+    const size_t unit = (size_t)(ccol / kMmaBN) * row_blocks + u % row_blocks;
+    if (off != 0) {
+      // phase 1: PUT the tile into the owner's slot for this source
+      __nv_bfloat16* rx = static_cast<__nv_bfloat16*>(peers.rx[dest]) + (size_t)my * B * bn + ccol;
+      for_each_acc_pair(acc, wg, t, [&](int r, int c, float& v0, float& v1) {
+        if (tc.row0 + r < B) store_pair(rx + (size_t)(tc.row0 + r) * bn + c, v0, v1);
+      });
+      consumer_sync();
+      if (ct == 0) {
+        __threadfence_system();
+        store_release(peers.flags[dest] + (size_t)my * words + unit, epoch);
+      }
+      return;
+    }
+    // own tiles come last: add every source's tile for this unit, in source
+    // order, then write the result into every rank's output.  The source and
+    // rank loops stay outside the unrolled pair loop to keep the code short.
+    if (n_dev > 1) {
+      if (ct < n_dev && ct != my) wait_flag(my_flags + (size_t)ct * words + unit, epoch);
+      __threadfence();
+      consumer_sync();
+    }
+#pragma unroll 1
+    for (int s = 0; s < n_dev; ++s) {
+      if (s == my) continue;
+      const __nv_bfloat16* rx =
+          static_cast<const __nv_bfloat16*>(peers.rx[my]) + (size_t)s * B * bn + ccol;
+      for_each_acc_pair(acc, wg, t, [&](int r, int c, float& v0, float& v1) {
+        if (tc.row0 + r >= B) return;
+        const __nv_bfloat162 p =
+            __ldcg(reinterpret_cast<const __nv_bfloat162*>(rx + (size_t)(tc.row0 + r) * bn + c));
+        v0 += __low2float(p);
+        v1 += __high2float(p);
+      });
+    }
+#pragma unroll 1
+    for (int d = 0; d < n_dev; ++d) {
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(peers.out[d]) + my * bn + ccol;
+      for_each_acc_pair(acc, wg, t, [&](int r, int c, float& v0, float& v1) {
+        if (tc.row0 + r < B) store_pair(out + (size_t)(tc.row0 + r) * N + c, v0, v1);
+      });
+    }
+    if (n_dev > 1) {
+      consumer_sync();
+      if (ct == 0) {
+        __threadfence_system();
+        for (int d = 0; d < n_dev; ++d)
+          if (d != my) store_release(peers.flags[d] + ((size_t)n_dev + my) * words + unit, epoch);
+      }
+    }
+  };
+  mma_tile_loop(&xmap, &wmap, (K + kMmaBK - 1) / kMmaBK, num_steps * row_blocks, coords,
+                epilogue);
+
+  if (n_dev > 1 && blockIdx.x == 0 && threadIdx.x < kMmaConsumerThreads) {
+    for (size_t i = threadIdx.x; i < n_dev * words; i += kMmaConsumerThreads) {
+      const int s = static_cast<int>(i / words);
+      if (s != my) wait_flag(my_flags + (size_t)n_dev * words + i, epoch);
+    }
+  }
+}
+
+static int launch_fused_tile(const void* x, const void* w, const PeerTable& peers,
+                             const int* sched, int my_base, int ranks_in_launch, int n_dev, int B,
+                             int K, int N, int tiles_per_rank, unsigned epoch,
+                             cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  cudaError_t err = make_mma_maps(&xmap, &wmap, x, w, ranks_in_launch, B, K, N);
+  if (err == cudaSuccess) err = allow_mma_smem(fused_tile_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int units = n_dev * tiles_per_rank * ((B + kMmaBM - 1) / kMmaBM);
+  if (n_dev == 1) {
+    fused_tile_kernel<<<dim3(units, ranks_in_launch), kMmaThreads, kMmaSmemBytes, stream>>>(
+        xmap, wmap, peers, sched, my_base, n_dev, B, K, N, tiles_per_rank, epoch);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // CTAs wait on flags set by other CTAs: all of them must be resident
+  int per_rank = 0;
+  err = resident_ctas(fused_tile_kernel, kMmaThreads, ranks_in_launch, &per_rank, kMmaSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_rank < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const dim3 grid(units < per_rank ? units : per_rank, ranks_in_launch);
+  void* args[] = {(void*)&xmap, (void*)&wmap,  (void*)&peers,          (void*)&sched,
+                  (void*)&my_base, (void*)&n_dev, (void*)&B,            (void*)&K,
+                  (void*)&N,    (void*)&tiles_per_rank, (void*)&epoch};
+  err = cudaLaunchCooperativeKernel((const void*)fused_tile_kernel, grid, dim3(kMmaThreads), args,
+                                    kMmaSmemBytes, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace repro_torch
 
 // x, w: rank base pointers (rank r's operands at x + r * x_rank_stride, in
@@ -196,4 +334,32 @@ extern "C" int repro_fused_gemv_allreduce(const void* x, const void* w, long lon
                                               my_base, ranks_in_launch, n_dev, B, K, N,
                                               tiles_per_rank, epoch, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tile path: bf16 x [ranks_in_launch, B, K] and w [ranks_in_launch, K, N],
+// contiguous, K % 8 == 0, N == n_dev * tiles_per_rank * 128, 16-byte-aligned
+// bases; the wire is bf16.  out_ptrs/rx_ptrs/flag_ptrs and sched as above,
+// with tiles_per_rank 128-column sub-tiles and 2 * n_dev * tiles_per_rank *
+// ceil(B / 128) flag words per rank.  Returns a cudaError_t code (0 =
+// launched).
+extern "C" int repro_fused_gemm_allreduce_tile(const void* x, const void* w,
+                                               const uint64_t* out_ptrs, const uint64_t* rx_ptrs,
+                                               const uint64_t* flag_ptrs, const void* sched,
+                                               int my_base, int ranks_in_launch, int n_dev, int B,
+                                               int K, int N, int tiles_per_rank, unsigned epoch,
+                                               void* stream) {
+  using namespace repro_torch;
+  if (n_dev < 1 || n_dev > kMaxDev || B <= 0 || K <= 0 || tiles_per_rank <= 0 ||
+      N != n_dev * tiles_per_rank * kMmaBN || !mma_shape_ok(x, w, K, N) ||
+      (ranks_in_launch != 1 && ranks_in_launch != n_dev))
+    return static_cast<int>(cudaErrorInvalidValue);
+  PeerTable peers = {};
+  for (int d = 0; d < n_dev; ++d) {
+    peers.out[d] = reinterpret_cast<void*>(out_ptrs[d]);
+    peers.rx[d] = reinterpret_cast<void*>(rx_ptrs[d]);
+    peers.flags[d] = reinterpret_cast<unsigned*>(flag_ptrs[d]);
+  }
+  return launch_fused_tile(x, w, peers, static_cast<const int*>(sched), my_base, ranks_in_launch,
+                           n_dev, B, K, N, tiles_per_rank, epoch,
+                           static_cast<cudaStream_t>(stream));
 }

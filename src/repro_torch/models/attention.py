@@ -4,8 +4,10 @@ cache.
 Prefill (``context_attention``): the JAX package shards the sequence over
 tp and ring-gathers KV chunks into a blockwise online-softmax update
 (``_span_flash``); on one card (tp = 1) the whole span is local and the ring
-has no hops.  A CUDA tensor runs the span in the hand-written flash kernel
-(``kernels/flash_attention``), a CPU tensor in the plain ``_span_flash``.
+has no hops.  ``kernel`` mode on a CUDA tensor runs the span in the
+hand-written flash kernel (``kernels/flash_attention``); ``bulk`` mode, on
+any device, and a CPU tensor run the plain ``_span_flash``, as the
+reference's bulk branch does (``attention_path``).
 
 Decode: the JAX package keeps the decode KV cache sequence-sharded over tp
 and merges per-rank flash partials; on one card the whole sequence is
@@ -92,6 +94,14 @@ def _finalize(carry, b, sq, hq, d):
 # ---------------------------------------------------------------------------
 # train/prefill: context attention over the local span
 # ---------------------------------------------------------------------------
+def attention_path(mode: str, device: torch.device) -> str:
+    """How ``context_attention`` computes the span: ``"flash"`` (the hand
+    kernel) in kernel mode on a CUDA tensor, else ``"span"`` (the plain
+    blockwise attention, the computation of the reference's bulk branch;
+    the kernel's plain version on the CPU)."""
+    return "flash" if mode == "kernel" and device.type != "cpu" else "span"
+
+
 def context_attention(
     ctx: ParallelContext,
     q, k, v,                  # [B, S, Hq|Hkv, hd]
@@ -103,17 +113,18 @@ def context_attention(
 ):
     """Attention of every position over the prompt, at q's dtype.
 
-    At tp = 1 the reference's ``bulk`` branch and its ring (``kernel``) both
-    reduce to one span over the whole sequence.  A CUDA tensor runs it in
-    the flash kernel (which takes neither ``window`` nor ``softcap_val``),
-    a CPU tensor in ``_span_flash`` with the reference's default blocks.
-    ``fused`` mode (``ctx.fusion.resolve("kv_ag")``) raises until the
-    multi-card world."""
+    At tp = 1 the reference's ``bulk`` branch (an all-gather, then
+    ``_span_flash``) and its ring (``kernel``) both reduce to one span over
+    the whole sequence.  Kernel mode on a CUDA tensor runs it in the flash
+    kernel (which takes neither ``window`` nor ``softcap_val``); bulk mode
+    on any device, and a CPU tensor, run ``_span_flash`` with the
+    reference's default blocks (:func:`attention_path`).  ``fused`` mode
+    (``ctx.fusion.resolve("kv_ag")``) raises until the multi-card world."""
     mode = ctx.fusion.resolve("kv_ag")
     if mode not in ("bulk", "kernel"):
         raise NotImplementedError(f"context_attention mode={mode!r}: {_FUSED_ITEM}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type != "cpu":
+    if attention_path(mode, q.device) == "flash":
         return flash_attention(q, k, v, scale=scale, causal=causal, window=window,
                                softcap=softcap_val)
     return span_attention(q, k, v, causal=causal, window=window, scale=scale,

@@ -55,3 +55,16 @@ def test_gemm_wrapper_rejects_bad_input(bad):
             "f64": (x.double(), w.double())}[bad]
     with pytest.raises(err):
         gemm_ops.gemm(*args)
+
+
+@pytest.mark.parametrize("dtype,k,n,aligned,want", [
+    (torch.bfloat16, 4096, 4096, True, "tile"),
+    (torch.bfloat16, 4104, 1032, True, "tile"),            # ragged edges: TMA zero-fills
+    (torch.bfloat16, 64, 8, True, "tile"),
+    (torch.float32, 4096, 4096, True, "cuda_core"),        # tensor cores would be TF32
+    (torch.bfloat16, 4097, 1000, True, "cuda_core"),       # K off TMA's 16-byte rows
+    (torch.bfloat16, 1000, 4097, True, "cuda_core"),       # N off them
+    (torch.bfloat16, 4096, 4096, False, "cuda_core"),      # an unaligned base
+])
+def test_gemm_path_choice(dtype, k, n, aligned, want):
+    assert gemm_ops.gemm_path(dtype, k, n, aligned) == want

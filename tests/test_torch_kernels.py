@@ -43,7 +43,9 @@ def ctx4():
     return JaxContext.from_mesh(make_mesh((N_DEV,), ("model",)))
 
 
-@pytest.mark.parametrize("rows,k,n", [(4, 32, 64), (1, 64, 32), (8, 16, 128)])
+@pytest.mark.parametrize("rows,k,n", [(4, 32, 64), (1, 64, 32), (8, 16, 128),
+                                      # many rows: the tile path's row blocks, one ragged
+                                      (64, 32, 128), (130, 64, 256)])
 @pytest.mark.parametrize("comm_aware", [True, False])
 @pytest.mark.parametrize("wire", ["f32", "bf16"])
 def test_ref_ranks_matches_jax_kernel(ctx4, rng, rows, k, n, comm_aware, wire):
@@ -119,6 +121,35 @@ def test_fused_wrapper_rejects_bad_input(bad):
         kwargs["wire"] = "fp8"
     with pytest.raises((TypeError, ValueError)):
         fused_ops.fused_matmul_allreduce(x, w, **kwargs)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,rows,k,n,n_dev,aligned,want", [
+    (BF16, 4, 13696, 4096, 1, True, "tile"),               # chatglm3-6b decode (w_down)
+    (BF16, fused_ops.TILE_ROWS, 4096, 4096, 1, True, "tile"),
+    (BF16, fused_ops.TILE_ROWS - 1, 4096, 4096, 1, True, "gemv"),
+    (BF16, 2048, 14336, 4096, 1, True, "tile"),            # rwkv6-7b prefill (channel-mix w_v)
+    (BF16, 256, 3424, 4096, 4, True, "tile"),              # bn = 1024: 8 tiles per rank
+    (F32, 2048, 4096, 4096, 1, True, "gemv"),              # f32 stays exact on CUDA cores
+    (BF16, 2048, 4100, 4096, 1, True, "gemv"),             # K off TMA's 16-byte rows
+    (BF16, 2048, 4096, 4064, 1, True, "gemv"),             # N not whole 128-column tiles
+    (BF16, 256, 3424, 4 * 96, 4, True, "gemv"),            # bn = 96 not a multiple of 128
+    (BF16, 2048, 4096, 4096, 1, False, "gemv"),            # an unaligned base
+])
+def test_fused_path_choice(dtype, rows, k, n, n_dev, aligned, want):
+    assert fused_ops.fused_path(dtype, rows, k, n, n_dev, aligned) == want
+
+
+@pytest.mark.parametrize("dtype,k,path", [(F32, 64, "tile"), (BF16, 60, "tile"),
+                                          (BF16, 64, "simt")])
+def test_fused_forced_path_rejects_what_it_cannot_take(dtype, k, path):
+    """A forced path the shape does not fit raises before anything is
+    launched (the GEMV path takes every shape the wrapper takes)."""
+    x, w = torch.zeros(1, 4, k, dtype=dtype), torch.zeros(1, k, 256, dtype=dtype)
+    with pytest.raises(ValueError):
+        fused_ops._launch(x, w, "f32", True, path)
 
 
 def test_gemv_wrapper_rejects_bad_input():

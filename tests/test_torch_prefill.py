@@ -24,7 +24,7 @@ from repro.models import layers as jlayers
 from repro.models.common import split_params
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.allgather_matmul import allgather_matmul, matmul_reducescatter
-from repro_torch.models import layers, transformer
+from repro_torch.models import attention, layers, transformer
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 
@@ -228,3 +228,27 @@ def test_prefill_matches_token_by_token_decode(models, prompt, prefilled, mode):
     for key in cache:
         torch.testing.assert_close(cache[key][:, :, :S], cache_p[key], **F32)
         assert not cache[key][:, :, S:].any()
+
+
+@pytest.mark.parametrize("mode,device,want", [("kernel", "cuda", "flash"), ("bulk", "cuda", "span"),
+                                              ("kernel", "cpu", "span"), ("bulk", "cpu", "span")])
+def test_attention_path_choice(mode, device, want):
+    """Kernel mode on a card runs the flash kernel; bulk mode runs the
+    reference's bulk computation on any device; the CPU runs it too."""
+    assert attention.attention_path(mode, torch.device(device)) == want
+
+
+@pytest.mark.parametrize("mode,want", [("kernel", "flash"), ("bulk", "span")])
+def test_context_attention_routes_by_mode(monkeypatch, mode, want):
+    """context_attention on tensors off the CPU (meta tensors stand in for a
+    card) calls the op that attention_path names, with the same arguments."""
+    calls = []
+    monkeypatch.setattr(attention, "flash_attention",
+                        lambda q, k, v, **kw: calls.append(("flash", kw["causal"])) or q)
+    monkeypatch.setattr(attention, "span_attention",
+                        lambda q, k, v, **kw: calls.append(("span", kw["causal"])) or q)
+    q = torch.empty((1, 8, 4, 16), device="meta")
+    kv = torch.empty((1, 8, 2, 16), device="meta")
+    ctx = ParallelContext(device="cpu", fusion=FusionConfig(mode=mode))
+    attention.context_attention(ctx, q, kv, kv, causal=False)
+    assert calls == [(want, False)]
