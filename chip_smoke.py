@@ -76,21 +76,31 @@ prints one line, and any failure exits non-zero:
      batch and decode per step in both modes with profiles
  19. flash_attention against its plain version at the main-path shape
      (chatglm3-6b's prefill: B 4, S 2048, 32 query heads over 2 kv heads of
-     128, bf16, causal) and edge shapes (non-causal, S 1/37/1000/2049, hd
-     64, f32, one kv head per query head); hd 96, a window or a softcap
-     raising
+     128, bf16, causal) and edge shapes (non-causal, S 1/37/127/128/129/
+     255/1000/2049, 16 query heads per kv head, hd 64, f32, one kv head per
+     query head), each on the path flash_path chooses and every bf16 hd 128
+     shape on the CUDA-core path too; hd 96, a window, a softcap or f32
+     forced onto the tile path raising
  20. full-width chatglm3-6b prefill (4 x 2048 seeded tokens) through the
      registry's bundle in kernel and bulk mode: launch counts (28 flash in
-     kernel mode, 0 in bulk mode, which runs span_attention as the
-     reference's bulk branch does; no fused GEMV), every layer's flash
+     kernel mode, all on the tile path; 0 in bulk mode, which runs
+     span_attention as the reference's bulk branch does; no fused GEMV),
+     every layer's flash
      output against the plain version on its identical input, logits and
      caches against an exact f32 evaluation (the bound: bulk mode's own
      distance); the hand-off: 8 greedy decode steps from position 2048 in
      a 4096-position cache, the first step's logits against a prefill over
      2049 tokens, and both modes' token streams
- 21. times from CUDA events: the flash kernel per layer against its bound,
-     its plain version and F.scaled_dot_product_attention; prefill per
-     batch and decode per step in both modes; profiles
+ 21. times from CUDA events: the flash kernel per layer on both paths
+     against its bound, its plain version and
+     F.scaled_dot_product_attention; prefill per batch and decode per step
+     in both modes; profiles
+ 22. chatglm3-6b's prefill at the reference's prefill_32k length, cut from
+     batch 32 to 1 x 32768 seeded tokens, kernel mode: the flash kernel at
+     [1, 32768, 32, 128] on both paths against SDPA and its bound, query
+     heads 0 and 16 against the plain version on those heads, the
+     prefill's launches (28, tile path), finite logits, time, peak memory
+     and profile
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19.  Then one JSON line per the kernels, the card's
@@ -163,6 +173,9 @@ RWKV_B, RWKV_T, RWKV_STEPS, RWKV_HANDOFF = 4, 512, 8, 64
 # main-path shape: B 4, S 2048, 32 query heads over 2 kv heads of 128), then
 # 8 greedy decode steps from position 2048 in a cache of 4096 positions
 GLM_B, GLM_S, GLM_STEPS = 4, 2048, 8
+# chatglm3-6b prefill at the reference's prefill_32k length (registry.py:
+# batch 32 x 32768), cut to batch 1
+LONG_B, LONG_S = 1, 32768
 
 
 def say(phase, msg):
@@ -1292,12 +1305,15 @@ def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:
 
 
 def flash_phase(gen) -> tuple:
-    """Phase 19: the flash kernel against its plain version at the prefill's
-    shape (chatglm3-6b: B 4, S 2048, 32 query heads over 2 kv heads of 128,
-    bf16, causal) and at edge shapes; unsupported calls must raise.  Returns
-    the main shape's (max abs, rel) error."""
+    """Phase 19: the flash kernels against their plain version at the
+    prefill's shape (chatglm3-6b: B 4, S 2048, 32 query heads over 2 kv
+    heads of 128, bf16, causal) and at edge shapes, each on the path
+    ``flash_path`` chooses and every bf16 d = 128 shape on the CUDA-core
+    path too; unsupported calls must raise.  Returns the main shape's (max
+    abs, rel) error on the tile path."""
     from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_attention_plain,
+                                                         flash_path)
 
     bf16, f32 = torch.bfloat16, torch.float32
     cfg = get_arch("chatglm3-6b").config
@@ -1307,33 +1323,51 @@ def flash_phase(gen) -> tuple:
             ("main", GLM_B, GLM_S, hq, hkv, hd, bf16, True),
             ("non-causal", GLM_B, GLM_S, hq, hkv, hd, bf16, False),
             ("S=1", 2, 1, 4, 2, 128, bf16, True), ("S=37", 2, 37, 4, 2, 128, bf16, True),
+            ("S=127", 2, 127, 4, 2, 128, bf16, True), ("S=128", 2, 128, 4, 2, 128, bf16, True),
+            ("S=129", 2, 129, 4, 2, 128, bf16, True),
+            ("S=255 non-causal", 1, 255, 4, 1, 128, bf16, False),
+            ("S=255", 1, 255, 4, 1, 128, bf16, True),
             ("S=1000", 2, 1000, 8, 2, 128, bf16, True), ("S=2049", 1, 2049, 8, 2, 128, bf16, True),
             ("S=2049 non-causal", 1, 2049, 8, 2, 128, bf16, False),
+            ("g=16 S=300", 1, 300, 32, 2, 128, bf16, True),
             ("hd=64 g=1", 2, 300, 4, 4, 64, bf16, True),
             ("f32 S=515 g=2", 2, 515, 6, 3, 128, f32, True),
             ("f32 hd=64 g=4 non-causal", 3, 129, 4, 1, 64, f32, False),
             ("f32 hd=64 g=1 S=1", 1, 1, 2, 2, 64, f32, True)):
         q = randn(gen, (b, s, h, d), dt)
         k, v = randn(gen, (b, s, g_kv, d), dt), randn(gen, (b, s, g_kv, d), dt)
-        errs[name] = check_close(f"flash_attention {name}", flash_attention(q, k, v, causal=causal),
-                                 flash_attention_plain(q, k, v, causal=causal),
-                                 BF16_TOL if dt == bf16 else F32_TOL)
-        del q, k, v
+        want = flash_attention_plain(q, k, v, causal=causal)
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        chosen = flash_path(dt, d)
+        got, took = on_path(flash_attention, lambda: flash_attention(q, k, v, causal=causal))
+        if took != chosen:
+            raise AssertionError(f"flash_attention {name}: took the {took} path, flash_path "
+                                 f"says {chosen}")
+        errs[name] = {took: check_close(f"flash_attention {name} ({took} path)", got, want, tol)}
+        if chosen == "tile":
+            got = flash_attention(q, k, v, causal=causal, _path="cuda_core")
+            errs[name]["cuda_core"] = check_close(f"flash_attention {name} (cuda_core path)", got,
+                                                  want, tol)
+        del q, k, v, want, got
     x = randn(gen, (1, 8, 2, 96), bf16)
     y = x[..., :64].contiguous()
+    z = randn(gen, (1, 8, 2, 128), f32)
     for what, call in (("hd 96", lambda: flash_attention(x, x, x)),
                        ("a window", lambda: flash_attention(y, y, y, window=4)),
-                       ("a softcap", lambda: flash_attention(y, y, y, softcap=2.0))):
+                       ("a softcap", lambda: flash_attention(y, y, y, softcap=2.0)),
+                       ("f32 on the tile path", lambda: flash_attention(z, z, z, _path="tile"))):
         try:
             call()
         except (ValueError, NotImplementedError):
             continue
-        raise AssertionError(f"flash_attention took {what}: the kernel takes none")
-    say(19, f"flash_attention vs plain (bound: bf16 {BF16_TOL}, f32 {F32_TOL}), max abs/rel err: "
-            + "; ".join(f"{n_} {e[0]:.3g}/{e[1]:.3g}" for n_, e in errs.items())
+        raise AssertionError(f"flash_attention took {what}: the kernels take none")
+    say(19, f"flash_attention vs plain (bound: bf16 {BF16_TOL}, f32 {F32_TOL}), max abs/rel err "
+            f"per path (the first is flash_path's choice): "
+            + "; ".join(f"{n_} " + ", ".join(f"{p_} {e[0]:.3g}/{e[1]:.3g}" for p_, e in pe.items())
+                        for n_, pe in errs.items())
             + f" (main: [{GLM_B},{GLM_S},{hq},{hd}] q over {hkv} kv heads, bf16, causal); "
-              f"hd 96, a window and a softcap raise")
-    return errs["main"]
+              f"hd 96, a window, a softcap and f32 forced onto the tile path raise")
+    return errs["main"]["tile"]
 
 
 def flash_bound(b, s, hq, hkv, d, itemsize, causal=True):
@@ -1352,9 +1386,8 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
     """Phases 19-21: the flash kernel against its plain version, full-width
     chatglm3-6b prefill through the registry's bundle in kernel and bulk
     mode against an exact f32 evaluation, the hand-off to decode, and
-    times; returns the JSON row of the flash kernel."""
-    import torch.nn.functional as F
-
+    times; then phase 22 (the prefill at 32768 tokens); returns the JSON
+    row of the flash kernel."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
     from repro_torch.kernels.fused_gemv_allreduce.ops import fused_path
@@ -1401,8 +1434,7 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
     # kernel mode launches the flash kernel in every layer; bulk mode, the
     # yardstick, runs the reference's bulk computation (span_attention)
     with swapped(attention, "flash_attention", spy):
-        (logits_k, cache_k), launch_k = counted_run(lambda: pre_k(params, batch),
-                                                    {"flash_attention": L})
+        (logits_k, cache_k), launch_k = counted_run(lambda: pre_k(params, batch), flash_on_tile(L))
     (logits_b, cache_b), launch_b = counted_run(lambda: pre_b(params, batch), {})
     logits_x, cache_x = exact_prefill(batch)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1419,7 +1451,9 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
     say(20, f"chatglm3-6b full width ({L}L d{cfg.d_model}, {Hq}/{Hkv} heads of {hd}, d_ff "
             f"{cfg.d_ff}, vocab {cfg.vocab}, {n_params / 1e9:.3f}B params {cfg.param_dtype}, init "
             f"{init_s:.1f}s, peak {peak_gb:.1f} GB), prefill of {B}x{S} seeded tokens: launches in "
-            f"kernel mode flash {launch_k['flash_attention']}, fused GEMV "
+            f"kernel mode flash {launch_k['flash_attention']} (tile path "
+            f"{launch_k['flash_attention.tile']}, CUDA-core path "
+            f"{launch_k['flash_attention.cuda_core']}), fused GEMV "
             f"{launch_k['fused_matmul_allreduce']}; in bulk mode (span_attention) flash "
             f"{launch_b['flash_attention']}, fused GEMV {launch_b['fused_matmul_allreduce']}; "
             f"every layer's flash output vs plain on its input (kernel mode): max abs err "
@@ -1491,17 +1525,8 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
     del steps_b, cache_b, logits_l
 
     # 21 --------------------------------------------------------------
-    q = randn(gen, (B, S, Hq, hd), bf16)
-    k, v = randn(gen, (B, S, Hkv, hd), bf16), randn(gen, (B, S, Hkv, hd), bf16)
-    t_flash = time_ms(lambda: flash_attention(q, k, v), iters=10, warmup=2)
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    sdpa_err = check_close("scaled_dot_product_attention vs the kernel",
-                           sdpa().transpose(1, 2), flash_attention(q, k, v), BF16_TOL)
-    t_sdpa = time_ms(sdpa, iters=20, warmup=3)
-    t_plain = time_ms(lambda: flash_attention_plain(q, k, v), iters=3, warmup=1)
-    fl_bnd, fl_by, fl_bytes, fl_ops = flash_bound(B, S, Hq, Hkv, hd, 2)
-    del q, k, v, qt, kt, vt
+    fl = flash_times(gen, B, S, Hq, Hkv, hd, iters=10, plain=True)
+    t_flash = fl["tile"][-1]
     pre_t = {"kernel": [], "bulk": []}
     for mode, fn in (("kernel", pre_k), ("bulk", pre_b), ("bulk", pre_b), ("kernel", pre_k)):
         pre_t[mode].append(time_ms(lambda: fn(params, batch), iters=2, warmup=1))
@@ -1516,24 +1541,129 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
     prof_dec = profile_device(lambda i: dec_k(params, tok, dc, pos), 4, "step")
     times = lambda d: "; ".join(f"{m} " + ", ".join(f"{t_:.4f}" for t_ in ts) + " ms"
                                 for m, ts in d.items())
-    say(21, f"on {card}: flash_attention [{B},{S},{Hq},{hd}] over {Hkv} kv heads bf16 causal "
-            f"(one prefill layer): kernel {t_flash:.4f} ms ({fl_ops / t_flash / 1e9:.2f} TFLOP/s), "
-            f"plain {t_plain:.4f} ms, F.scaled_dot_product_attention(is_causal, enable_gqa) "
-            f"{t_sdpa:.4f} ms (vs the kernel max abs/rel err {sdpa_err[0]:.3g}/{sdpa_err[1]:.3g}), "
-            f"bound {fl_bnd:.4f} ms ({fl_by}: {fl_ops / 1e9:.1f} GFLOP, {fl_bytes / 1e6:.1f} MB); "
-            f"prefill per batch of {B}x{S} (CUDA events, turns kernel, bulk, bulk, kernel; bulk "
+    say(21, f"on {card}: flash_attention (one prefill layer) {fl['line']}; prefill per batch of {B}x{S} (CUDA events, turns kernel, bulk, bulk, kernel; bulk "
             f"mode runs span_attention): "
             + times(pre_t) + f"; decode per step at batch {B} from position {S}: " + times(dec_t)
             + "; profiles: " + "; ".join(f"{m} prefill {p_}" for m, p_ in prof.items())
             + f"; kernel decode {prof_dec}")
+    del dc, tok, pos, cache_k, logits_k
+    torch.cuda.empty_cache()
+    long_prefill_phase(card, gen, bundle, params, pre_k)
 
     return [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:22",
          "launches": launch_k["flash_attention"], "max_abs_err": main_err[0], "ms": t_flash,
-         "plain_ms": t_plain, "bound_ms": fl_bnd, "bound_by": fl_by, "library_ms": t_sdpa},
+         "plain_ms": fl["plain"], "bound_ms": fl["bound"], "bound_by": fl["bound_by"],
+         "library_ms": fl["sdpa"]},
     ]
+
+
+def flash_on_tile(n):
+    """counted_run's expectation: n flash launches, every one on the tile path."""
+    return {"flash_attention": n, "flash_attention.tile": n, "flash_attention.cuda_core": 0}
+
+
+def flash_times(gen, b, s, hq, hkv, d, iters, plain):
+    """CUDA-event times (means of ``iters`` launches) of the flash kernel at
+    [b, s, hq, d] over hkv kv heads, bf16, causal, on both paths in turns
+    (tile, CUDA core, CUDA core, tile), beside
+    F.scaled_dot_product_attention, the plain version (if ``plain``) and
+    flash_bound; the paths' outputs checked against SDPA's at BF16_TOL.
+    Returns the times (ms) and a summary line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+
+    bf16 = torch.bfloat16
+    q = randn(gen, (b, s, hq, d), bf16)
+    k, v = randn(gen, (b, s, hkv, d), bf16), randn(gen, (b, s, hkv, d), bf16)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    want = sdpa().transpose(1, 2)
+    out = {"tile": [], "cuda_core": []}
+    errs = {}
+    for path in ("tile", "cuda_core", "cuda_core", "tile"):
+        run = lambda: flash_attention(q, k, v, _path=path)
+        errs[path] = check_close(f"flash_attention {path} path vs SDPA [{b},{s},{hq},{d}]",
+                                 run(), want, BF16_TOL)
+        out[path].append(time_ms(run, iters=iters, warmup=1))
+    del want
+    out["sdpa"] = time_ms(sdpa, iters=2 * iters, warmup=2)
+    out["plain"] = time_ms(lambda: flash_attention_plain(q, k, v), iters=2, warmup=1) if plain else None
+    bnd, by, n_bytes, ops = flash_bound(b, s, hq, hkv, d, 2)
+    out.update(bound=bnd, bound_by=by)
+    ms = lambda ts: ", ".join(f"{t_:.4f}" for t_ in ts)
+    out["line"] = (
+        f"[{b},{s},{hq},{d}] over {hkv} kv heads bf16 causal: tile path {ms(out['tile'])} ms "
+        f"({ops / min(out['tile']) / 1e9:.1f} TFLOP/s), CUDA-core path {ms(out['cuda_core'])} ms "
+        f"({ops / min(out['cuda_core']) / 1e9:.1f} TFLOP/s), "
+        + (f"plain {out['plain']:.4f} ms, " if plain else "")
+        + f"F.scaled_dot_product_attention(is_causal, enable_gqa) {out['sdpa']:.4f} ms (max "
+        f"abs/rel err vs it: tile {errs['tile'][0]:.3g}/{errs['tile'][1]:.3g}, CUDA core "
+        f"{errs['cuda_core'][0]:.3g}/{errs['cuda_core'][1]:.3g}), bound {bnd:.4f} ms ({by}: "
+        f"{ops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB); tile path at "
+        f"{min(out['tile']) / out['sdpa']:.2f}x SDPA, "
+        f"{min(out['cuda_core']) / min(out['tile']):.2f}x faster than the CUDA-core path")
+    return out
+
+
+def long_prefill_phase(card, gen, bundle, params, pre_k):
+    """Phase 22: chatglm3-6b's prefill at the reference's prefill_32k length
+    (32768 tokens), cut from batch 32 to 1, in kernel mode: the flash kernel
+    alone at [1, 32768, 32, 128] on both paths beside SDPA and its bound,
+    its output for one query head per kv head against the plain version on
+    that head, and the whole prefill's time, peak memory, device busy share
+    and launches (all 28 on the tile path).  Bulk mode and the exact f32
+    evaluation are not run at this length."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+
+    cfg = bundle.config
+    L, Hq, Hkv, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, S = LONG_B, LONG_S
+    fl = flash_times(gen, B, S, Hq, Hkv, hd, iters=1, plain=False)
+    bf16 = torch.bfloat16
+    q = randn(gen, (B, S, Hq, hd), bf16)
+    k, v = randn(gen, (B, S, Hkv, hd), bf16), randn(gen, (B, S, Hkv, hd), bf16)
+    got = flash_attention(q, k, v)
+    g = Hq // Hkv
+    head_errs = []
+    for h in range(0, Hq, g):    # one query head per kv head; plain scores are S^2 f32 a head
+        hk = h // g
+        want = flash_attention_plain(q[:, :, h:h + 1], k[:, :, hk:hk + 1], v[:, :, hk:hk + 1])
+        head_errs.append(check_close(f"flash_attention [{B},{S}] head {h} vs plain",
+                                     got[:, :, h:h + 1], want, BF16_TOL))
+        del want
+    del q, k, v, got
+    torch.cuda.empty_cache()
+
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    batch = {"tokens": tokens}
+    torch.cuda.reset_peak_memory_stats()
+    (logits, cache), launch = counted_run(lambda: pre_k(params, batch), flash_on_tile(L))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if logits.shape != (B, 1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill_32k logits: shape {tuple(logits.shape)} or non-finite")
+    if any(tuple(cache[key].shape) != (L, B, S, Hkv, hd) or not torch.isfinite(cache[key]).all()
+           for key in ("k", "v")):
+        raise AssertionError("prefill_32k cache: shapes or non-finite values")
+    del logits, cache
+    t_pre = [time_ms(lambda: pre_k(params, batch), iters=1, warmup=1) for _ in range(2)]
+    prof = profile_device(lambda i: pre_k(params, batch), 1, "prefill")
+    say(22, f"on {card}: chatglm3-6b prefill at the reference's prefill_32k length, cut from "
+            f"batch 32 to {B} (at 32 each [B*S, {cfg.d_ff}] bf16 FFN intermediate alone is "
+            f"{32 * S * cfg.d_ff * 2 / 1e9:.1f} GB): flash_attention {fl['line']}; heads "
+            + ", ".join(f"{h}" for h in range(0, Hq, g))
+            + f" (one per kv head) vs plain on that head: max abs/rel err "
+            + ", ".join(f"{e[0]:.3g}/{e[1]:.3g}" for e in head_errs)
+            + f" (bound {BF16_TOL}); kernel-mode prefill of {B}x{S} seeded tokens: launches flash "
+            f"{launch['flash_attention']} (tile path {launch['flash_attention.tile']}), fused GEMV "
+            f"{launch['fused_matmul_allreduce']}; logits [{B}, 1, {cfg.vocab}] finite; peak "
+            f"{peak_gb:.1f} GB; " + ", ".join(f"{t_:.1f}" for t_ in t_pre)
+            + f" ms per prefill (CUDA events; {L} x the tile path's {min(fl['tile']):.2f} ms is "
+            f"{L * min(fl['tile']):.1f} ms of it); profile: {prof}; bulk mode and the exact f32 "
+            f"evaluation are not run at this length")
 
 
 def wkv6_inputs(gen, b, t, h, n):

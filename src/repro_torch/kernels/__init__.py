@@ -181,6 +181,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                           ctypes.c_float, i32, i32, vp]
     lib.repro_flash_attention.restype = i32
+    lib.repro_flash_attention_tile.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                                               ctypes.c_float, i32, vp]
+    lib.repro_flash_attention_tile.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

@@ -10,37 +10,60 @@
 //   out = acc / max(l, 1e-30), at the input dtype.
 // The TPU grid is (B*H, S/bq, S/bkv) with the key axis sequential and the
 // carries in VMEM scratch; a GPU grid has no sequential axis, so one CTA
-// per (batch*head, 64-row query block) loops over the 64-key blocks with
-// the carries in registers.  As there, a causal CTA stops at the diagonal:
-// blocks wholly above it are never read.  CTAs start with the longest
-// causal rows, so the short ones fill the tail of the grid.
+// per (batch*head, query block) loops over the key blocks with the carries
+// in registers.  A causal CTA stops at the diagonal: blocks wholly above it
+// are never read.  CTAs start with the longest causal rows, so the short
+// ones fill the tail of the grid, and the query heads of one kv head are
+// adjacent in launch order, so their K and V blocks are read from L2.
 //
-// Where it departs from the TPU kernel:
-//   - P stays f32 in the PV product.  The TPU kernel rounds P to V's dtype
-//     (kernel.py:56-57); the model's own blockwise attention
-//     (models/attention.py _flash_update) keeps P in f32, and this kernel
-//     runs in the model's place.
+// Two kernels; the wrapper's flash_path (kernels/flash_attention/ops.py)
+// picks one per call, with no fallback between them:
+//
+// flash_tile_kernel, bf16 at d = 128, on the tensor cores.  At the prefill's
+// shape (B 4, S 2048, Hq 32 over Hkv 2, causal) the two products are
+// 137.5 GFLOP against 143 MB, so the bound is operations: 0.139 ms at the
+// 989 TFLOP/s bf16 peak.  A CTA of 128 query rows of one (batch, head) has
+// two consumer warpgroups of 64 rows and a producer warpgroup, which hands
+// its registers to them (setmaxnreg: 24 and 240 a thread, where an even
+// split gives 168 and the consumers spill).  One producer thread loads Q
+// once and streams 128-key blocks of K and V through a 2-stage ring
+// with TMA (128-byte swizzle, full/empty mbarriers; zeros past S, so only
+// the diagonal and the tail block are masked).  Per block, each warpgroup
+// runs S = Q K^T as wgmma with A = Q and B = K, both K-major in shared
+// memory; the softmax on the f32 accumulator fragment, in the exp2 domain
+// with the scale folded in, row max over the 4 lanes that share a row; then
+// O += P V as wgmma with A = P from registers and B = V N-major (the
+// transpose bit).  P is rounded to bf16 before the PV product, as the TPU
+// kernel does (kernel.py:52-53); l sums it unrounded, as there.  The f32
+// accumulator fragment of S is the register-A fragment of P without
+// shuffles: the k16 slice kk is accumulators 8 kk .. 8 kk + 7, two
+// neighbours per bf16x2 word (see for_each_acc_pair in tile_mma.cuh).
+// The next block's Q K^T is issued behind the PV product, so a warpgroup's
+// tensor work runs back to back and only the softmax leaves a gap, which
+// the other warpgroup fills.  Left for later: explicit ping-pong of the two
+// warpgroups, overlap of the softmax with the next Q K^T inside one
+// warpgroup, persistent CTAs, a rescale skipped where the max did not move,
+// and a shared-memory epilogue with coalesced stores.
+//
+// flash_attention_kernel, every other call (f32, whose tensor-core product
+// would be TF32, and d = 64), on CUDA cores: Q, K and V tiles staged in
+// shared memory as f32 rows padded by 4 floats (float4 reads without bank
+// conflicts); each of the 256 threads holds a 4 x 4 block of the 64 x 64
+// score tile and the matching 4 rows x (d / 16) columns of acc; rows reduce
+// over 16 lanes with shuffles; P overwrites the K tile once the scores are
+// in registers and stays f32 in the PV product, as the model's own
+// blockwise attention (models/attention.py _flash_update) keeps it.
+//
+// Both depart from the TPU kernel in the same two ways:
 //   - Any S: the last query and key blocks are masked by bounds, so there
 //     is no block-divisor search and no row is dropped.
 //   - Grouped heads: q, k, v keep the model's [B, S, H, d] layout, and the
 //     CTA of query head h reads kv head h / (Hq / Hkv), so GQA needs no
 //     expanded copy of K and V.
-//
-// What bounds it: at the prefill's shape (B 4, S 2048, Hq 32, Hkv 2, d 128,
-// bf16, causal) the products are 1.37e11 FLOP against 143 MB of bytes, so
-// on tensor cores it would be bound by operations (0.14 ms at 989 TFLOP/s).
-// This first design is simple and runs on CUDA cores in f32: Q, K and V
-// tiles are staged in shared memory as f32 rows padded by 4 floats (float4
-// reads without bank conflicts); each of the 256 threads holds a 4 x 4
-// block of the 64 x 64 score tile and the matching 4 rows x (d / 16)
-// columns of acc; rows reduce over 16 lanes with shuffles; P overwrites
-// the K tile once the scores are in registers, so a CTA takes 99 KB at
-// d = 128 and two fit on an SM.  wgmma, TMA and a pipelined K/V ring are
-// later work.
 #include <limits.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 
@@ -240,6 +263,283 @@ static cudaError_t launch_flash(const void* q, const void* k, const void* v, voi
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core path: bf16, d = 128
+// ---------------------------------------------------------------------------
+constexpr int kTileD = 128;
+constexpr int kTileBQ = 128;    // query rows per CTA: two consumer warpgroups of 64
+constexpr int kTileBK = 128;    // keys per block: one m64n128 score tile per warpgroup
+constexpr int kTileHalf = 64;   // columns of one box: 64 bf16 = one 128-byte swizzle row
+constexpr int kTileStages = 2;
+constexpr int kTileConsumers = 256;                 // two warpgroups
+constexpr int kTileThreads = kTileConsumers + 128;  // + the producer warpgroup
+// registers per thread after setmaxnreg: 168 each at launch (65536 / 384,
+// rounded to 8), 24 + 2 x 240 = 3 x 168 after
+constexpr int kTileProducerRegs = 24;
+constexpr int kTileConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct FlashKV {
+  __nv_bfloat16 k[2][kTileBK * kTileHalf];   // [d half][key][64 d], 16 KB a box
+  __nv_bfloat16 v[2][kTileBK * kTileHalf];
+};
+
+struct FlashSmem {
+  __nv_bfloat16 q[2][kTileBQ * kTileHalf];   // [d half][query row][64 d]
+  FlashKV kv[kTileStages];                   // every box starts 1024-byte aligned
+  uint64_t q_full;
+  uint64_t full[kTileStages];
+  uint64_t empty[kTileStages];
+};
+
+// the ring, Q, the barriers, and slack to align them to the swizzle's 1024 bytes
+constexpr size_t kTileSmemBytes = sizeof(FlashSmem) + 1024;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// Consumer thread t of warpgroup wg holds, of its warpgroup's 64 x 128
+// tiles (scores and acc alike), rows r = 16 (t / 32) + (t % 32) / 4 and
+// r + 8 at columns 8 j + 2 (t % 4) + {0, 1}: accumulators 4 j + {0, 1} are
+// row r, 4 j + {2, 3} row r + 8 (wgmma's m64nN f32 fragment).
+__global__ void __launch_bounds__(kTileThreads, 1)
+    flash_tile_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                      int S, int Hq, int Hkv, int n_qblk, float scale_log2, int causal) {
+  extern __shared__ uint8_t flash_smem_raw[];
+  const uint32_t raw = smem_addr(flash_smem_raw);
+  FlashSmem& sm = *reinterpret_cast<FlashSmem*>(flash_smem_raw + (1024 - raw % 1024) % 1024);
+
+  const int BH = gridDim.x / n_qblk;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_qblk - 1 - blockIdx.x / BH) * kTileBQ;   // longest causal rows first
+  const int b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
+  const int n_blk = ((causal ? min(S, q0 + kTileBQ) : S) + kTileBK - 1) / kTileBK;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int st = 0; st < kTileStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kTileConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kTileConsumers) {
+    // the producer warpgroup gives its registers to the consumers; one
+    // thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kTileProducerRegs));
+    if (tid == kTileConsumers) {
+      mbar_expect_tx(&sm.q_full, sizeof(sm.q));
+      for (int half = 0; half < 2; ++half)
+        tma_load_3d(sm.q[half], &qmap, &sm.q_full, h * kTileD + half * kTileHalf, q0, b);
+      int stage = 0;
+      unsigned phase = 0;
+      for (int j = 0; j < n_blk; ++j) {
+        mbar_wait(&sm.empty[stage], phase ^ 1u);
+        FlashKV& kv = sm.kv[stage];
+        mbar_expect_tx(&sm.full[stage], sizeof(FlashKV));
+        for (int half = 0; half < 2; ++half) {
+          const int col = hk * kTileD + half * kTileHalf;
+          tma_load_3d(kv.k[half], &kmap, &sm.full[stage], col, j * kTileBK, b);
+          tma_load_3d(kv.v[half], &vmap, &sm.full[stage], col, j * kTileBK, b);
+        }
+        if (++stage == kTileStages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kTileConsumerRegs));
+    const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int row0 = q0 + wg * 64 + warp * 16 + lane / 4, row1 = row0 + 8;
+    const int col = (lane % 4) * 2;
+    float s[64], acc[64];
+    uint32_t p[kTileBK / 16][4];   // P's register-A fragments, one per 16 keys
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float m0 = kFlashNegInf, m1 = kFlashNegInf, l0 = 0.f, l1 = 0.f;   // l: this thread's columns
+
+    // S = Q K^T into s.  A: this warpgroup's 64 query rows; B: the block's
+    // 128 keys.  Both K-major: d advances 16 elements (32 bytes) inside a
+    // swizzle row, a box per 64 d; 8-row groups 1024 bytes apart.
+    auto scores = [&](const FlashKV& kv) {
+#pragma unroll
+      for (int ks = 0; ks < kTileD / 16; ++ks) {
+        const uint64_t da =
+            sw128_desc(sm.q[ks / 4] + wg * 64 * kTileHalf + (ks % 4) * 16, 16, 1024);
+        const uint64_t db = sw128_desc(kv.k[ks / 4] + (ks % 4) * 16, 16, 1024);
+        wgmma_ss_m64n128k16<0>(s, da, db, ks > 0);
+      }
+      wgmma_commit();
+    };
+
+    // Block j's softmax on s: P into p, acc rescaled.  Scores go to the exp2
+    // domain (scale_log2 = scale * log2 e); masked only where the block
+    // passes the end of S or this warpgroup's diagonal.
+    auto softmax = [&](int j) {
+      const int k0 = j * kTileBK;
+      const bool masked = k0 + kTileBK > S || (causal && k0 + kTileBK - 1 > q0 + wg * 64);
+      float mx0 = kFlashNegInf, mx1 = kFlashNegInf;
+#pragma unroll
+      for (int jj = 0; jj < kTileBK / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float t0 = s[4 * jj + e] * scale_log2, t1 = s[4 * jj + 2 + e] * scale_log2;
+          if (masked) {
+            const int kpos = k0 + 8 * jj + col + e;
+            if (kpos >= S || (causal && kpos > row0)) t0 = kFlashNegInf;
+            if (kpos >= S || (causal && kpos > row1)) t1 = kFlashNegInf;
+          }
+          s[4 * jj + e] = t0;
+          s[4 * jj + 2 + e] = t1;
+          mx0 = fmaxf(mx0, t0);
+          mx1 = fmaxf(mx1, t1);
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kTileBK / 16; ++kk) {
+        // accumulators 8 kk .. 8 kk + 7 are keys 16 kk .. 16 kk + 15: rows
+        // r, r + 8, r, r + 8 in pairs, the A fragment's a0 .. a3
+        float e[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) e[i] = ex2(s[8 * kk + i] - ((i & 2) ? mn1 : mn0));
+        sum0 += (e[0] + e[1]) + (e[4] + e[5]);
+        sum1 += (e[2] + e[3]) + (e[6] + e[7]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16x2(e[2 * i], e[2 * i + 1]);
+      }
+      l0 = l0 * c0 + sum0;
+      l1 = l1 * c1 + sum1;
+#pragma unroll
+      for (int jj = 0; jj < kTileD / 8; ++jj) {
+        acc[4 * jj] *= c0;
+        acc[4 * jj + 1] *= c0;
+        acc[4 * jj + 2] *= c1;
+        acc[4 * jj + 3] *= c1;
+      }
+    };
+
+    // O += P V.  B: V N-major, keys advance 16 rows (2048 bytes) per step;
+    // the two 64-column halves of d 16 KB apart (leading offset), 8-key
+    // groups 1024 bytes apart (stride offset).  The fence also covers the
+    // scores issued behind it.
+    auto pv = [&](const FlashKV& kv) {
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kTileBK / 16; ++kk)
+        wgmma_rs_m64n128k16(
+            acc, p[kk], sw128_desc(kv.v[0] + kk * 16 * kTileHalf, sizeof(kv.v[0]), 1024), 1);
+      wgmma_commit();
+    };
+
+    // every product in flight done, then the stage goes back to the producer
+    auto retire = [&](int stage) {
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      fence_regs(acc);
+      fence_regs(s);
+#pragma unroll
+      for (int kk = 0; kk < kTileBK / 16; ++kk) fence_regs(p[kk]);
+      mbar_arrive(&sm.empty[stage]);
+    };
+
+    mbar_wait(&sm.q_full, 0);
+    mbar_wait(&sm.full[0], 0);
+    __syncwarp();   // wgmma's .aligned forms need the warp converged
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    scores(sm.kv[0]);
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_regs(s);
+    int stage = 0;
+    unsigned phase = 0;
+    // the next block's scores go in behind each PV product, so a
+    // warpgroup's tensor work runs back to back; the last block is peeled
+    // off, so no wgmma is issued under a condition
+    for (int j = 0; j + 1 < n_blk; ++j) {
+      softmax(j);
+      pv(sm.kv[stage]);
+      const int next = stage + 1 == kTileStages ? 0 : stage + 1;
+      const unsigned next_phase = next == 0 ? phase ^ 1u : phase;
+      mbar_wait(&sm.full[next], next_phase);
+      __syncwarp();
+      scores(sm.kv[next]);
+      retire(stage);
+      stage = next;
+      phase = next_phase;
+    }
+    softmax(n_blk - 1);
+    pv(sm.kv[stage]);
+    retire(stage);
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    const size_t stride = (size_t)Hq * kTileD;
+    __nv_bfloat16* out0 = o + ((size_t)b * S + row0) * stride + (size_t)h * kTileD + col;
+    __nv_bfloat16* out1 = out0 + 8 * stride;
+#pragma unroll
+    for (int jj = 0; jj < kTileD / 8; ++jj) {
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(out0 + 8 * jj) =
+            __floats2bfloat162_rn(acc[4 * jj] * inv0, acc[4 * jj + 1] * inv0);
+      if (row1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(out1 + 8 * jj) =
+            __floats2bfloat162_rn(acc[4 * jj + 2] * inv1, acc[4 * jj + 3] * inv1);
+    }
+  }
+}
+
+static cudaError_t launch_flash_tile(const void* q, const void* k, const void* v, void* o, int B,
+                                     int S, int Hq, int Hkv, float scale, int causal,
+                                     cudaStream_t stream) {
+  // q and o as [B][S][Hq * d], k and v as [B][S][Hkv * d]: a box is 128
+  // rows of one 64-column half of one head
+  CUtensorMap qmap, kmap, vmap;
+  cudaError_t err = make_tile_map(&qmap, q, (uint64_t)Hq * kTileD, S, B, kTileHalf, kTileBQ);
+  if (err == cudaSuccess)
+    err = make_tile_map(&kmap, k, (uint64_t)Hkv * kTileD, S, B, kTileHalf, kTileBK);
+  if (err == cudaSuccess)
+    err = make_tile_map(&vmap, v, (uint64_t)Hkv * kTileD, S, B, kTileHalf, kTileBK);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kTileSmemBytes));
+  if (err != cudaSuccess) return err;
+  const int n_qblk = (S + kTileBQ - 1) / kTileBQ;
+  const long long grid = (long long)n_qblk * B * Hq;
+  if (grid > INT_MAX) return cudaErrorInvalidValue;
+  flash_tile_kernel<<<(unsigned)grid, kTileThreads, kTileSmemBytes, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), S, Hq, Hkv, n_qblk, scale * kLog2e,
+      causal);
+  return cudaGetLastError();
+}
+
 }  // namespace repro_torch
 
 // q, o [B, S, Hq, D]; k, v [B, S, Hkv, D]; all contiguous and 16-byte
@@ -264,4 +564,19 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   else if (dtype == 1 && D == 128)
     err = launch_flash<__nv_bfloat16, 128>(q, k, v, o, B, S, Hq, Hkv, scale, causal, st);
   return static_cast<int>(err);
+}
+
+// The tensor-core path: q, o [B, S, Hq, 128]; k, v [B, S, Hkv, 128]; all
+// bf16, contiguous and 16-byte aligned; Hq a multiple of Hkv.  Returns a
+// cudaError_t code (0 = launched).
+extern "C" int repro_flash_attention_tile(const void* q, const void* k, const void* v, void* o,
+                                          int B, int S, int Hq, int Hkv, int D, float scale,
+                                          int causal, void* stream) {
+  using namespace repro_torch;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D != kTileD || addr % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_flash_tile(q, k, v, o, B, S, Hq, Hkv, scale, causal,
+                                            static_cast<cudaStream_t>(stream)));
 }

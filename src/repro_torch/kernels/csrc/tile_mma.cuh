@@ -26,11 +26,10 @@
 // The tensor maps are 3-D, [depth][rows][cols], so one map covers the
 // per-rank operands [n, B, K] and [n, K, N] of an emulated world (depth 1
 // for a single product); a box never crosses from one rank into the next.
+// The mbarrier, TMA and wgmma primitives are hopper.cuh's.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 
@@ -64,98 +63,14 @@ struct TileCoord {
   int col0;  // first column of w and of the output tile
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Waits until the barrier's phase of parity `parity` has completed.  A stage
-// that never fills (a refused copy, a wrong byte count) is a fault: trap
-// after 4 s instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t a = smem_addr(bar);
-  uint64_t t0 = 0;
-  for (unsigned polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == 0) t0 = global_ns();
-    else if ((polls & 1023u) == 0 && global_ns() - t0 > 4000000000ull) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return ((smem_addr(p) & 0x3FFFFu) >> 4) | (uint64_t((lbo >> 4) & 0x3FFFu) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
-}
-
 // d[64 x 128] += a[64 x 16] (K-major) @ b[16 x 128] (N-major: transpose bit set)
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[kMmaAccs], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n\t}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+  wgmma_ss_m64n128k16<1>(d, da, db, 1);
 }
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma boundary.
-__device__ __forceinline__ void fence_accs(float (&d)[kMmaAccs]) {
-#pragma unroll
-  for (int i = 0; i < kMmaAccs; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+__device__ __forceinline__ void fence_accs(float (&d)[kMmaAccs]) { fence_regs(d); }
 
 // The 256 consumer threads only (the producer warp runs its own loop).
 __device__ __forceinline__ void consumer_sync() {
@@ -278,50 +193,6 @@ __device__ __forceinline__ void mma_tile_loop(const CUtensorMap* xmap, const CUt
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function: fetched through the
-// runtime's entry-point query, so the library needs no -lcuda.
-static cudaError_t tensor_map_encoder(EncodeTiledFn* fn) {
-  static EncodeTiledFn cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess) return err;
-    if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
-// A bf16 tensor map over a contiguous [depth][rows][cols] array with boxes of
-// [1][box_rows][box_cols], 128-byte swizzle, zeros outside the array.
-static cudaError_t make_tile_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
-                                 uint64_t depth, uint32_t box_cols, uint32_t box_rows) {
-  EncodeTiledFn encode;
-  cudaError_t err = tensor_map_encoder(&encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[3] = {cols, rows, depth};
-  const cuuint64_t strides[2] = {cols * sizeof(__nv_bfloat16), rows * cols * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[3] = {box_cols, box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // The maps of x [depth][M][K] and w [depth][K][N] for mma_tile_loop.
 static cudaError_t make_mma_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
                                  const void* w, int depth, int M, int K, int N) {

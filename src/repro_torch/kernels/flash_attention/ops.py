@@ -13,21 +13,36 @@ import torch
 from repro_torch.kernels import check_launch, dtype_code, load_library
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-KERNEL_D = (64, 128)   # head sizes the kernel takes
+KERNEL_D = (64, 128)   # head sizes the CUDA-core kernel takes
+TILE_D = 128           # the head size the tensor-core kernel takes
+PATHS = ("cuda_core", "tile")
 _TRAIN_ITEM = "ROADMAP Queue 1 item 4 (dense training: a flash backward)"
 
 
-def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=None):
+def flash_path(dtype, d, aligned=True) -> str:
+    """The kernel of a flash call: ``"tile"`` (tensor cores: TMA and
+    ``wgmma``, ``flash_tile_kernel``) for bf16 at d = 128 with 16-byte-aligned
+    bases (TMA's rows, ``Hq * d`` and ``Hkv * d`` elements, are then
+    16-byte multiples too), else ``"cuda_core"`` (every f32 call: a
+    tensor-core f32 product would be TF32; and d = 64)."""
+    if dtype == torch.bfloat16 and d == TILE_D and aligned:
+        return "tile"
+    return "cuda_core"
+
+
+def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=None, _path=None):
     """q: [B, S, Hq, d]; k, v: [B, S, Hkv, d] with Hq a multiple of Hkv ->
     [B, S, Hq, d] at q's dtype.
 
     Query head h attends to kv head ``h // (Hq // Hkv)``; with equal head
     counts this is the JAX ``flash_attention``.  Any S: the kernel masks the
     tail block by bounds (the reference op needs S to have a block divisor).
-    A CUDA tensor launches ``csrc/flash_attention.cu`` (d of 64 or 128, f32
-    or bf16) or raises; a CPU tensor takes :func:`flash_attention_plain`.
-    The TPU kernel has no sliding window and no softcap, so asking for
-    either raises."""
+    A CUDA tensor launches the kernel of ``csrc/flash_attention.cu`` that
+    :func:`flash_path` chooses (d of 64 or 128, f32 or bf16) or raises; a
+    CPU tensor takes :func:`flash_attention_plain`.  ``_path`` forces one of
+    :data:`PATHS` (for timing both; no caller passes it) and raises where
+    that kernel does not take the call, on any device.  The TPU kernel has
+    no sliding window and no softcap, so asking for either raises."""
     if window is not None or softcap is not None:
         raise NotImplementedError(
             f"flash_attention: window={window}, softcap={softcap}: the kernel, like the TPU "
@@ -44,11 +59,15 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=No
         raise TypeError(f"flash_attention: q, k, v are {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: operands on different devices")
+    if _path is not None and (_path not in PATHS or d not in KERNEL_D or (
+            _path == "tile" and flash_path(q.dtype, d) != "tile")):
+        raise ValueError(f"flash_attention: path {_path!r} does not take {q.dtype} at d = {d}")
     scale = float(scale) if scale is not None else d ** -0.5
-    return _Flash.apply(q, k, v, scale, bool(causal))
+    return _Flash.apply(q, k, v, scale, bool(causal), _path)
 
 
 flash_attention.launches = 0
+flash_attention.path_launches = dict.fromkeys(PATHS, 0)
 
 
 def flash_attention_plain(q, k, v, *, scale=None, causal=True):
@@ -65,11 +84,12 @@ def flash_attention_plain(q, k, v, *, scale=None, causal=True):
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
+    def forward(ctx, q, k, v, scale, causal, path):
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v, scale=scale, causal=causal)
-        out = _launch(q, k, v, scale, causal)
+        out, path = _launch(q, k, v, scale, causal, path)
         flash_attention.launches += 1
+        flash_attention.path_launches[path] += 1
         return out
 
     @staticmethod
@@ -77,20 +97,27 @@ class _Flash(torch.autograd.Function):
         raise NotImplementedError(f"flash_attention has no backward kernel: {_TRAIN_ITEM}")
 
 
-def _launch(q, k, v, scale, causal):
+def _launch(q, k, v, scale, causal, path):
+    """Launches the kernel ``path`` names, else the one :func:`flash_path`
+    chooses; returns (output, the path launched)."""
     b, s, hq, d = q.shape
     if d not in KERNEL_D:
         raise ValueError(f"flash_attention: the kernel takes head sizes {KERNEL_D}, got {d}")
     code = dtype_code(q.dtype)
     q, k, v = (_aligned(a) for a in (q, k, v))
     o = torch.empty_like(q)
+    path = path or flash_path(q.dtype, d, all(a.data_ptr() % 16 == 0 for a in (q, k, v, o)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, hq, k.shape[2], d,
+            scale, int(causal))
     with torch.cuda.device(q.device):
         lib = load_library().lib
-        check_launch(lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, hq, k.shape[2], d,
-            scale, int(causal), code, torch.cuda.current_stream().cuda_stream),
-            "flash_attention")
-    return o
+        if path == "tile":
+            err = lib.repro_flash_attention_tile(*args, stream)
+        else:
+            err = lib.repro_flash_attention(*args, code, stream)
+        check_launch(err, f"flash_attention ({path} path)")
+    return o, path
 
 
 def _aligned(a):

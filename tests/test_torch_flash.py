@@ -146,6 +146,45 @@ def test_flash_attention_counts_only_kernel_launches(rng):
     assert flash_ops.KERNEL_D == (64, 128)
 
 
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (torch.bfloat16, 128, True, "tile"),                 # chatglm3's heads: TMA + wgmma
+    (torch.bfloat16, 64, True, "cuda_core"),             # the tile kernel takes d = 128 only
+    (torch.float32, 128, True, "cuda_core"),             # tensor cores would be TF32
+    (torch.float32, 64, True, "cuda_core"),
+    (torch.bfloat16, 128, False, "cuda_core"),           # an unaligned base: no TMA
+])
+def test_flash_path_choice(dtype, d, aligned, want):
+    assert flash_ops.flash_path(dtype, d, aligned) == want
+
+
+@pytest.mark.parametrize("dtype,d,path", [
+    (np.float32, 128, "tile"),                           # f32 is never on the tile path
+    (np.float32, 64, "tile"),
+    (np.float32, 16, "cuda_core"),                       # no kernel takes d = 16
+    (np.float32, 128, "tensor"),                         # no such path
+])
+def test_flash_attention_forced_path_that_does_not_fit_raises(rng, dtype, d, path):
+    q, k, v = (t(a) for a in _qkv(rng, 1, 8, 4, 2, d, dtype))
+    before = (flash_attention.launches, dict(flash_attention.path_launches))
+    with pytest.raises(ValueError, match="does not take"):
+        flash_attention(q, k, v, _path=path)
+    assert (flash_attention.launches, flash_attention.path_launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", [None, "cuda_core", "tile"])
+def test_flash_attention_cpu_takes_plain_on_every_path(rng, dtype, path):
+    """A CPU tensor runs the plain version whatever path is asked for (where
+    that path fits), and counts no launch on either path."""
+    if path == "tile" and dtype == torch.float32:
+        path = "cuda_core"
+    q, k, v = (t(a).to(dtype) for a in _qkv(rng, 2, 33, 4, 2, 128))
+    before = (flash_attention.launches, dict(flash_attention.path_launches))
+    got = flash_attention(q, k, v, _path=path)
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v), rtol=0, atol=0)
+    assert (flash_attention.launches, flash_attention.path_launches) == before
+
+
 # ---------------------------------------------------------------------------
 # the model's blockwise attention and context_attention
 # ---------------------------------------------------------------------------
