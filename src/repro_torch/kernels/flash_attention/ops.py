@@ -19,13 +19,14 @@ PATHS = ("cuda_core", "tile")
 _TRAIN_ITEM = "ROADMAP Queue 1 item 4 (dense training: a flash backward)"
 
 
-def flash_path(dtype, d, aligned=True) -> str:
+def flash_path(dtype, d) -> str:
     """The kernel of a flash call: ``"tile"`` (tensor cores: TMA and
-    ``wgmma``, ``flash_tile_kernel``) for bf16 at d = 128 with 16-byte-aligned
-    bases (TMA's rows, ``Hq * d`` and ``Hkv * d`` elements, are then
-    16-byte multiples too), else ``"cuda_core"`` (every f32 call: a
-    tensor-core f32 product would be TF32; and d = 64)."""
-    if dtype == torch.bfloat16 and d == TILE_D and aligned:
+    ``wgmma``, ``flash_tile_kernel``) for bf16 at d = 128, else
+    ``"cuda_core"`` (every f32 call: a tensor-core f32 product would be
+    TF32; and d = 64).  The launch passes every operand through
+    :func:`_aligned`, so TMA's bases are 16-byte aligned, and its rows,
+    ``Hq * d`` and ``Hkv * d`` elements, are 16-byte multiples at d = 128."""
+    if dtype == torch.bfloat16 and d == TILE_D:
         return "tile"
     return "cuda_core"
 
@@ -106,7 +107,7 @@ def _launch(q, k, v, scale, causal, path):
     code = dtype_code(q.dtype)
     q, k, v = (_aligned(a) for a in (q, k, v))
     o = torch.empty_like(q)
-    path = path or flash_path(q.dtype, d, all(a.data_ptr() % 16 == 0 for a in (q, k, v, o)))
+    path = path or flash_path(q.dtype, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, hq, k.shape[2], d,
             scale, int(causal))
@@ -121,7 +122,8 @@ def _launch(q, k, v, scale, causal, path):
 
 
 def _aligned(a):
-    """Contiguous, starting on 16 bytes: the kernel moves rows 4 elements
-    at a time (a view into a larger tensor may start anywhere)."""
+    """Contiguous, starting on 16 bytes: the CUDA-core kernel moves rows 4
+    elements at a time and TMA needs 16-byte-aligned bases (a view into a
+    larger tensor may start anywhere)."""
     a = a.contiguous()
     return a if a.data_ptr() % 16 == 0 else a.clone()

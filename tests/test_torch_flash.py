@@ -146,15 +146,26 @@ def test_flash_attention_counts_only_kernel_launches(rng):
     assert flash_ops.KERNEL_D == (64, 128)
 
 
-@pytest.mark.parametrize("dtype,d,aligned,want", [
-    (torch.bfloat16, 128, True, "tile"),                 # chatglm3's heads: TMA + wgmma
-    (torch.bfloat16, 64, True, "cuda_core"),             # the tile kernel takes d = 128 only
-    (torch.float32, 128, True, "cuda_core"),             # tensor cores would be TF32
-    (torch.float32, 64, True, "cuda_core"),
-    (torch.bfloat16, 128, False, "cuda_core"),           # an unaligned base: no TMA
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "tile"),                       # chatglm3's heads: TMA + wgmma
+    (torch.bfloat16, 64, "cuda_core"),                   # the tile kernel takes d = 128 only
+    (torch.float32, 128, "cuda_core"),                   # tensor cores would be TF32
+    (torch.float32, 64, "cuda_core"),
 ])
-def test_flash_path_choice(dtype, d, aligned, want):
-    assert flash_ops.flash_path(dtype, d, aligned) == want
+def test_flash_path_choice(dtype, d, want):
+    assert flash_ops.flash_path(dtype, d) == want
+
+
+@pytest.mark.parametrize("offset", [0, 1, 7, 8])
+def test_flash_launch_operands_are_16_byte_aligned(offset):
+    """The launch passes q, k and v through ``_aligned``: a view that starts
+    off 16 bytes is copied, so the tile path's TMA bases are always aligned."""
+    buf = torch.arange(2 * 3 * 4 * 128 + offset, dtype=torch.bfloat16)
+    view = buf[offset:].view(2, 3, 4, 128)
+    got = flash_ops._aligned(view)
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert (got.data_ptr() == view.data_ptr()) == (view.data_ptr() % 16 == 0)
+    torch.testing.assert_close(got, view, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype,d,path", [
