@@ -109,8 +109,9 @@ name and power limit, and the result line.  Float32
 matrix products run in full f32 here (``allow_tf32`` off for cuBLAS and
 cuDNN), so the plain versions are exact f32 references.  The caching
 allocator grows expandable segments (``PYTORCH_CUDA_ALLOC_CONF``, unless
-the caller sets it): with fixed segments phase 22's 4 x 32768 prefill was
-refused with 55 GB allocated and 21 GB reserved but unused.
+the caller sets it): with fixed segments phase 22's 4 x 32768 prefill runs
+out of memory on an 80 GB H100 with 55 GB allocated and 21 GB reserved but
+unused.
 """
 from __future__ import annotations
 
