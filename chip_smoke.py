@@ -2,26 +2,33 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --wrapper-times [SRC]   # only the wrappers' host/device times
 
 Needs one CUDA card (an H100 for the sm_90a kernels) and the CUDA toolkit;
 builds the kernels from ``src/repro_torch/kernels/csrc`` first.  Each phase
 prints one line, and any failure exits non-zero:
 
   1. the card, torch/CUDA versions and the kernels' build time
-  2. gemv kernel against its plain version (main-path and ragged shapes)
+  2. gemv against its plain version, each shape on the path gemv_path
+     chooses (the stream path at the main shape, ragged K and N, f32 at one
+     and two row blocks; the panel path at rows TMA cannot read) and the
+     main shape forced onto the panel path
   3. fused_matmul_allreduce (one rank) against its plain version: the
-     decode shape on the path the wrapper chooses (fused_path) and on the
-     GEMV path, an f32 call (GEMV path), and the tensor-core tile path at
+     decode shape on the path the wrapper chooses (fused_path) and forced
+     onto each other path, f32 calls (stream path; an unaligned w on the
+     panel path), and the tensor-core tile path at
      [2048,13696]@[13696,4096], ragged [130,1000]@[1000,1024] and
      [2049,4104]@[4104,4096], and 100 rows (below the tile's 128)
   4. the fused kernel's 4-rank world emulated on the card, against
      fused_matmul_allreduce_ref_ranks (3 calls back to back per case to
-     reuse the flags across epochs, both schedules): the GEMV path at 4
-     rows (f32 with both wires, bf16), the tile path at 4, 256 and 130 rows
+     reuse the flags across epochs, both schedules): the stream and panel
+     paths at 4 rows (f32 with both wires, bf16), the stream path at a
+     ragged 96-column chunk, the tile path at 4, 256 and 130 rows
   5. full-width chatglm3-6b greedy decode through DecodeEngine, kernel mode
      against bulk mode (launches per path, teacher-forced logits and both
      token streams)
-  6. times from CUDA events (the decode shape on both paths)
+  6. times from CUDA events (the decode shape on every path), and each
+     wrapper's device time per launch and host time per call
   7. the MoE kernels (fused_dispatch_a2a, fused_gemm_a2a, and the chain of
      the two) against their plain versions at n_dev = 1: dbrx-132b's
      main-path shapes with its full expert weights, and ragged shapes
@@ -35,7 +42,9 @@ prints one line, and any failure exits non-zero:
      the whole model teacher-forced (tokens and experts) against bulk and
      an exact f32 evaluation, with where each mode's own router first
      parts from the kernel run's
- 10. the MoE kernels' and dbrx decode's times from CUDA events
+ 10. the MoE kernels' and dbrx decode's times from CUDA events; the
+     dispatch's device time per launch and host time per call beside
+     Tensor.copy_'s
  11. embedding_pool against its plain version: DLRM's main-path shape (128
      of its 512 tables of 1,000,000 x 92 f32, batch 8192, pooling 70, the
      first and last rows included) and ragged shapes (D 1, 93, 160, 257,
@@ -71,8 +80,9 @@ prints one line, and any failure exits non-zero:
  18. times from CUDA events: wkv6 and gemm (both kernels) against their
      bounds, plain versions and torch.matmul; the fused kernel at prefill
      rows on layer 0's w_o and channel-mix w_v, checked on the tile path and
-     timed on both paths; the row sweep that sets TILE_ROWS (chatglm3-6b's
-     w_down at 1-2048 rows, both paths beside torch.matmul); prefill per
+     timed on the stream path; the row sweep that sets TILE_ROWS
+     (chatglm3-6b's w_down at 1-2048 rows, the stream and tile paths beside
+     torch.matmul); prefill per
      batch and decode per step in both modes with profiles
  19. flash_attention against its plain version at the main-path shape
      (chatglm3-6b's prefill: B 4, S 2048, 32 query heads over 2 kv heads of
@@ -220,6 +230,33 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def split_ms(fn, calls=1000, prof_calls=200) -> tuple[float, float, float]:
+    """(device ms per call, host ms per call, device ops per call) of ``fn``:
+    the device time is the sum of the CUDA activity that torch.profiler
+    records over ``prof_calls`` calls; the host time is time.perf_counter
+    over ``calls`` calls, profiler off, divided by the count (the enqueue:
+    no synchronise inside the window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(prof_calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("torch.profiler recorded no device time")
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return sum(dev) / 1e3 / prof_calls, host, len(dev) / prof_calls
 
 
 def bound_ms(b, k, n, itemsize):
@@ -382,17 +419,55 @@ def timed_decode_runs(serve, dec_k, dec_b) -> str:
                      for m, v in runs.items())
 
 
+def wrapper_times() -> dict:
+    """Loop time (CUDA events around back-to-back calls), device time per
+    launch and host time per call (:func:`split_ms`) of the wrappers whose
+    host cost the decode pays, at their main-path shapes: dbrx's dispatch
+    beside Tensor.copy_, chatglm3-6b's w_down through gemv and
+    fused_matmul_allreduce beside torch.matmul.  Only the public entry
+    points are called, so the same function times another checkout's
+    package (``--wrapper-times SRC``)."""
+    from repro_torch.kernels import load_library
+    from repro_torch.kernels.fused_dispatch_a2a.ops import fused_dispatch_a2a
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce
+    from repro_torch.kernels.gemv.ops import gemv
+
+    load_library()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xt = randn(gen, (1, 1, MOE_E, MOE_C, MOE_D), torch.bfloat16)
+    dst = torch.empty_like(xt)
+    x = randn(gen, (MAIN_B, MAIN_K), torch.bfloat16)
+    w = randn(gen, (MAIN_K, MAIN_N), torch.bfloat16, MAIN_K ** -0.5)
+    got = {}
+    for name, fn in (("fused_dispatch_a2a", lambda: fused_dispatch_a2a(xt)),
+                     ("Tensor.copy_", lambda: dst.copy_(xt)), ("gemv", lambda: gemv(x, w)),
+                     ("fused_matmul_allreduce", lambda: fused_matmul_allreduce(x, w)),
+                     ("torch.matmul", lambda: torch.matmul(x, w))):
+        loop = time_ms(fn, iters=200)
+        dev, host, ops = split_ms(fn)
+        got[name] = {"loop_ms": loop, "device_ms": dev, "host_ms": host, "device_ops": ops}
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--wrapper-times"]:
+        # python3 chip_smoke.py --wrapper-times [SRC]: the wrappers' times
+        # of the package under SRC (default: this checkout's src)
+        src = Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT / "src"
+        sys.path.insert(0, str(src))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps({"card": card_line(), "src": str(src), "wrappers": wrapper_times()}))
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import load_library
     from repro_torch.kernels.fused_gemv_allreduce.ops import (
         TILE_ROWS, fused_matmul_allreduce, fused_matmul_allreduce_ranks, fused_path)
     from repro_torch.kernels.fused_gemv_allreduce.ref import (
         fused_matmul_allreduce_ref, fused_matmul_allreduce_ref_ranks)
-    from repro_torch.kernels.gemv.ops import gemv
+    from repro_torch.kernels.gemv.ops import gemv, gemv_path
     from repro_torch.kernels.gemv.ref import gemv_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -410,38 +485,57 @@ def main() -> int:
            f"-> {built.path.name}")
 
     # 2 ---------------------------------------------------------------
-    bf16 = torch.bfloat16
+    # each shape on the path gemv_path chooses: the main shape (stream), ragged
+    # K and N TMA still reads (stream), f32 (stream, one and two row blocks),
+    # rows TMA cannot read (panel); the main shape also forced onto the panel
+    bf16, f32 = torch.bfloat16, torch.float32
     x = randn(gen, (MAIN_B, MAIN_K), bf16)
     w = randn(gen, (MAIN_K, MAIN_N), bf16, MAIN_K ** -0.5)
-    gemv_err = check_close("gemv main", gemv(x, w), gemv_ref(x, w), BF16_TOL)
-    xr = randn(gen, (11, 1000), bf16)             # ragged rows, K and N
-    wr = randn(gen, (1000, 1001), bf16, 1000 ** -0.5)
-    rag_err = check_close("gemv ragged", gemv(xr, wr), gemv_ref(xr, wr), BF16_TOL)
-    xf = randn(gen, (3, 777), torch.float32)
-    wf = randn(gen, (777, 200), torch.float32, 777 ** -0.5)
-    f32_err = check_close("gemv f32", gemv(xf, wf), gemv_ref(xf, wf), F32_TOL)
-    say(2, f"gemv vs plain: [4,13696]@[13696,4096] bf16 max abs/rel err "
-           f"{gemv_err[0]:.3g}/{gemv_err[1]:.3g}; ragged [11,1000]@[1000,1001] bf16 "
-           f"{rag_err[0]:.3g}/{rag_err[1]:.3g}; [3,777]@[777,200] f32 "
-           f"{f32_err[0]:.3g}/{f32_err[1]:.3g}")
+    gemv_cases = {}
+    for b, k, n, dt in ((MAIN_B, MAIN_K, MAIN_N, bf16), (5, 1000, 1000, bf16),
+                        (11, 1000, 1001, bf16), (3, 777, 200, f32), (9, 4097, 1000, f32),
+                        (3, 777, 201, f32), (1, 1, 8, bf16)):
+        xg = x if b == MAIN_B else randn(gen, (b, k), dt)
+        wg = w if b == MAIN_B else randn(gen, (k, n), dt, k ** -0.5)
+        got, took = on_path(gemv, lambda: gemv(xg, wg))
+        if took != gemv_path(dt, b, k, n):
+            raise AssertionError(f"gemv [{b},{k}]@[{k},{n}]: took the {took} path")
+        gemv_cases[f"[{b},{k}]@[{k},{n}] {str(dt)[6:]} {took}"] = check_close(
+            f"gemv [{b},{k}]@[{k},{n}] {took}", got, gemv_ref(xg, wg),
+            BF16_TOL if dt == bf16 else F32_TOL)
+    gemv_err = gemv_cases[f"[{MAIN_B},{MAIN_K}]@[{MAIN_K},{MAIN_N}] bfloat16 stream"]
+    gemv_cases["main shape forced onto the panel path"] = check_close(
+        "gemv main panel", gemv(x, w, _path="panel"), gemv_ref(x, w), BF16_TOL)
+    say(2, f"gemv vs plain (bound {BF16_TOL} bf16, {F32_TOL} f32), max abs/rel err on the path "
+           f"gemv_path chooses: " + "; ".join(f"{n_} {e[0]:.3g}/{e[1]:.3g}"
+                                              for n_, e in gemv_cases.items()))
 
     # 3 ---------------------------------------------------------------
-    # the decode shape on the path the wrapper chooses and on the GEMV path;
-    # an f32 call (the GEMV path); the tile path at prefill rows, ragged
-    # edges (M, K off the 128 x 64 tile) and one M below the tile's 128 rows
+    # the decode shape on the path the wrapper chooses and forced onto each of
+    # the others; f32 calls (the stream path) and one TMA cannot read (the
+    # panel path); the tile path at prefill rows, ragged edges (M, K off the
+    # 128 x 64 tile) and one M below the tile's 128 rows
     main_path = fused_path(bf16, MAIN_B, MAIN_K, MAIN_N)
     fused_want = fused_matmul_allreduce_ref(x, w)
     fused_out, took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(x, w))
     if took != main_path:
         raise AssertionError(f"fused n_dev=1: took the {took} path, fused_path says {main_path}")
     fused_err = check_close(f"fused n_dev=1 {took} path", fused_out, fused_want, BF16_TOL)
-    gemv_path_err = check_close("fused n_dev=1 GEMV path",
-                                fused_matmul_allreduce(x, w, _path="gemv"), fused_want, BF16_TOL)
-    xf, wf = randn(gen, (8, 2000), torch.float32), randn(gen, (2000, 1024), torch.float32,
-                                                          2000 ** -0.5)
-    f32_out, f32_took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(xf, wf))
-    fused_f32_err = check_close(f"fused n_dev=1 f32 {f32_took} path", f32_out,
-                                fused_matmul_allreduce_ref(xf, wf), F32_TOL)
+    forced = {p_: check_close(f"fused n_dev=1 {p_} path", fused_matmul_allreduce(x, w, _path=p_),
+                              fused_want, BF16_TOL)
+              for p_ in ("stream", "panel", "tile") if p_ != main_path}
+    f32_cases = []
+    for b, k, n, off in ((8, 2000, 1024, 0), (3, 777, 200, 0), (3, 777, 224, 1)):
+        # off: w one element past a 16-byte boundary, which TMA cannot read
+        xf = randn(gen, (b, k), f32)
+        wf = randn(gen, (k * n + off,), f32, k ** -0.5)[off:].view(k, n)
+        f32_out, f32_took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(xf, wf))
+        if f32_took != fused_path(f32, b, k, n, aligned=off == 0):
+            raise AssertionError(f"fused [{b},{k}]@[{k},{n}] f32 took the {f32_took} path")
+        e = check_close(f"fused n_dev=1 f32 [{b},{k}]@[{k},{n}] {f32_took} path", f32_out,
+                        fused_matmul_allreduce_ref(xf, wf), F32_TOL)
+        f32_cases.append(f"[{b},{k}]@[{k},{n}]{' (unaligned w)' if off else ''} on the "
+                         f"{f32_took} path {e[0]:.3g}/{e[1]:.3g}")
     tile_cases = []
     for b, k, n in ((2048, MAIN_K, MAIN_N), (130, 1000, 1024), (2049, 4104, 4096),
                     (100, 4096, 1024)):
@@ -455,26 +549,29 @@ def main() -> int:
     del xt, wt, got
     say(3, f"fused_matmul_allreduce n_dev=1 vs plain (bound {BF16_TOL} bf16, {F32_TOL} f32), max "
            f"abs/rel err: [4,13696]@[13696,4096] bf16 on the {main_path} path (TILE_ROWS = "
-           f"{TILE_ROWS}) {fused_err[0]:.3g}/{fused_err[1]:.3g}, on the GEMV path "
-           f"{gemv_path_err[0]:.3g}/{gemv_path_err[1]:.3g}; [8,2000]@[2000,1024] f32 on the "
-           f"{f32_took} path {fused_f32_err[0]:.3g}/{fused_f32_err[1]:.3g}; bf16 on the tile "
-           f"path: " + "; ".join(tile_cases))
+           f"{TILE_ROWS}) {fused_err[0]:.3g}/{fused_err[1]:.3g}, "
+           + ", ".join(f"forced onto the {p_} path {e[0]:.3g}/{e[1]:.3g}" for p_, e in forced.items())
+           + "; f32 " + ", ".join(f32_cases) + "; bf16 on the tile path: " + "; ".join(tile_cases))
 
     # 4 ---------------------------------------------------------------
     n_dev, k_loc = 4, MAIN_K // 4
     cases = []
     for dtype, wire, tol, rows, kk, nn, path in (
-            (torch.float32, "f32", F32_TOL, MAIN_B, k_loc, MAIN_N, "gemv"),
-            (torch.float32, "bf16", WIRE_BF16_TOL, MAIN_B, k_loc, MAIN_N, "gemv"),
-            (bf16, "f32", BF16_TOL, MAIN_B, k_loc, MAIN_N, "gemv"),
+            (f32, "f32", F32_TOL, MAIN_B, k_loc, MAIN_N, "stream"),
+            (f32, "bf16", WIRE_BF16_TOL, MAIN_B, k_loc, MAIN_N, "stream"),
+            (f32, "f32", F32_TOL, MAIN_B, k_loc, MAIN_N, "panel"),
+            (f32, "bf16", WIRE_BF16_TOL, MAIN_B, k_loc, MAIN_N, "panel"),
+            (bf16, "f32", BF16_TOL, MAIN_B, k_loc, MAIN_N, "stream"),
+            (bf16, "f32", BF16_TOL, MAIN_B, k_loc, MAIN_N, "panel"),
+            (bf16, "f32", BF16_TOL, 11, 1000, 4 * 96, "stream"),
             (bf16, "f32", BF16_TOL, MAIN_B, k_loc, MAIN_N, "tile"),
             (bf16, "f32", BF16_TOL, 256, k_loc, MAIN_N, "tile"),
             (bf16, "f32", BF16_TOL, 130, 1000, 1024, "tile")):
         xs = randn(gen, (n_dev, rows, kk), dtype)
         ws = randn(gen, (n_dev, kk, nn), dtype, (n_dev * kk) ** -0.5)
-        # a bf16 call's path is forced (phases 3 and 5 check the wrapper's
-        # choice); an f32 call must choose the GEMV path itself
-        force = path if dtype == bf16 else None
+        # bf16 and the panel paths are forced (phases 3 and 5 check the
+        # wrapper's choice); an f32 stream call must choose its path itself
+        force = None if dtype == f32 and path == "stream" else path
         for comm_aware in (True, False):
             want = fused_matmul_allreduce_ref_ranks(xs, ws, wire, comm_aware)
             outs = []
@@ -517,9 +614,11 @@ def chatglm_decode(card, x, w, fused_err, gemv_err, main_path) -> list[dict]:
     JSON rows of its kernels.  Its weights are freed on return."""
     # 5 ---------------------------------------------------------------
     from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce
+    from repro_torch.kernels.fused_gemv_allreduce.ops import PATHS, fused_matmul_allreduce
     from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
-    from repro_torch.kernels.gemv.ops import gemv
+    from repro_torch.kernels import cluster_capacity, load_library, sm_count
+    from repro_torch.kernels.gemv.ops import gemv, gemv_path
+    from repro_torch.kernels.gemv.plan import stream_plan
     from repro_torch.kernels.gemv.ref import gemv_ref
     from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 
@@ -603,21 +702,37 @@ def chatglm_decode(card, x, w, fused_err, gemv_err, main_path) -> list[dict]:
 
     # 6 ---------------------------------------------------------------
     t_fused = time_ms(lambda: fused_matmul_allreduce(x, w))
-    t_fused_gemv = time_ms(lambda: fused_matmul_allreduce(x, w, _path="gemv"))
+    t_paths = {p_: time_ms(lambda: fused_matmul_allreduce(x, w, _path=p_)) for p_ in PATHS}
     t_gemv = time_ms(lambda: gemv(x, w))
+    t_gemv_panel = time_ms(lambda: gemv(x, w, _path="panel"))
     t_lib = time_ms(lambda: torch.matmul(x, w))
     t_plain = time_ms(lambda: fused_matmul_allreduce_ref(x, w), iters=10)
     t_gemv_plain = time_ms(lambda: gemv_ref(x, w), iters=10)
     bnd, bound_by = bound_ms(MAIN_B, MAIN_K, MAIN_N, 2)
+    split = wrapper_times()
+    g_path = gemv_path(x.dtype, MAIN_B, MAIN_K, MAIN_N)
+    # the stream path's split: sized to the clusters the card holds at once,
+    # beside the split shared memory alone would give
+    cap = cluster_capacity(load_library().lib.repro_gemv_stream_capacity, 1, name="gemv")
+    sp = stream_plan(MAIN_B, MAIN_K, MAIN_N, sms=sm_count(0), capacity=cap)
+    by_smem = stream_plan(MAIN_B, MAIN_K, MAIN_N, sms=sm_count(0))
+    plan_txt = (f"stream plan {sp.splits} CTAs a cluster, {sp.units} clusters, of which the card "
+                f"holds {cap(sp.splits, sp.rows_per_block, sp.ks)} at once; by shared memory "
+                f"alone {by_smem.splits} a cluster, of which it holds "
+                f"{cap(by_smem.splits, by_smem.rows_per_block, by_smem.ks)}")
 
     prof_txt = profile_decode(dec_k, params, bundle.init_cache(batch, "cuda"), log_k[:4])
     decode_txt = timed_decode_runs(serve, dec_k, dec_b)
     say(6, f"on {card}: [4,13696]@[13696,4096] bf16: fused kernel {t_fused:.4f} ms ({main_path} "
-           f"path; the GEMV path {t_fused_gemv:.4f} ms), gemv "
-           f"{t_gemv:.4f} ms, torch.matmul {t_lib:.4f} ms, plain {t_plain:.4f} ms (gemv's plain {t_gemv_plain:.4f} ms), bound "
-           f"{bnd:.4f} ms ({bound_by}); decode (batch {batch}, {n_req} requests x {max_new} "
-           f"tokens, host clock around the drain): {decode_txt}; profile of "
-           f"kernel-mode decode: {prof_txt}")
+           f"path; by path " + ", ".join(f"{p_} {t_:.4f}" for p_, t_ in t_paths.items())
+           + f" ms), gemv {t_gemv:.4f} ms ({g_path} path; panel path {t_gemv_panel:.4f} ms), "
+           f"{plan_txt}; torch.matmul {t_lib:.4f} ms, plain {t_plain:.4f} ms (gemv's plain "
+           f"{t_gemv_plain:.4f} ms), bound {bnd:.4f} ms ({bound_by}); the wrappers' loop ms / "
+           f"device ms per launch / host ms per call / device ops per call: "
+           + ", ".join(f"{n_} {v['loop_ms']:.4f}/{v['device_ms']:.5f}/{v['host_ms']:.4f}/"
+                       f"{v['device_ops']:.0f}" for n_, v in split.items())
+           + f"; decode (batch {batch}, {n_req} requests x {max_new} tokens, host clock around "
+           f"the drain): {decode_txt}; profile of kernel-mode decode: {prof_txt}")
 
     kernels = [
         {"name": "fused_matmul_allreduce", "route": "cuda",
@@ -626,14 +741,17 @@ def chatglm_decode(card, x, w, fused_err, gemv_err, main_path) -> list[dict]:
          "launches": fused_n, "max_abs_err": fused_err[0], "ms": t_fused, "plain_ms": t_plain,
          "bound_ms": bnd, "bound_by": bound_by, "library_ms": t_lib,
          "path": main_path, "shape": f"[{MAIN_B},{MAIN_K}]@[{MAIN_K},{MAIN_N}] bf16",
-         "path_launches": {p_: launches[f"fused_matmul_allreduce.{p_}"] for p_ in ("gemv", "tile")},
-         "gemv_path_ms": t_fused_gemv},
+         "path_launches": {p_: launches[f"fused_matmul_allreduce.{p_}"] for p_ in PATHS},
+         "path_ms": t_paths, "device_ms": split["fused_matmul_allreduce"]["device_ms"],
+         "host_ms": split["fused_matmul_allreduce"]["host_ms"]},
         {"name": "gemv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gemv.cu",
          "replaces": "src/repro/kernels/gemv/kernel.py:19",
          "launches": launches["gemv"], "main_path": False, "max_abs_err": gemv_err[0],
          "ms": t_gemv, "plain_ms": t_gemv_plain, "bound_ms": bnd, "bound_by": bound_by,
-         "library_ms": t_lib},
+         "library_ms": t_lib, "path": g_path, "panel_ms": t_gemv_panel,
+         "stream_plan": sp._asdict(),
+         "device_ms": split["gemv"]["device_ms"], "host_ms": split["gemv"]["host_ms"]},
     ]
     return kernels
 
@@ -818,6 +936,10 @@ def dbrx_phases(card, gen) -> list[dict]:
     t_disp = time_ms(lambda: fused_dispatch_a2a(xt))
     t_disp_plain = time_ms(lambda: fused_dispatch_a2a_ref(xt))
     t_copy = time_ms(lambda: copy_to.copy_(xt))
+    # the loop above times the host; split it: device time per launch and
+    # host time per call, the kernel's beside Tensor.copy_'s
+    disp_split = split_ms(lambda: fused_dispatch_a2a(xt))
+    copy_split = split_ms(lambda: copy_to.copy_(xt))
     t_gemm = time_ms(lambda: fused_gemm_a2a(xt, wu, wg, wd), iters=20, warmup=3)
     t_gemm_plain = time_ms(lambda: fused_gemm_a2a_ref(xt, wu, wg, wd, "silu"), iters=20,
                            warmup=3)
@@ -832,8 +954,10 @@ def dbrx_phases(card, gen) -> list[dict]:
     gemm_by = "bytes" if gemm_bytes / HBM_BYTES_PER_S >= gemm_ops / BF16_FLOPS else "operations"
     prof_txt = profile_decode(dec_k, params, bundle.init_cache(batch, "cuda"), log_k[:4])
     decode_txt = timed_decode_runs(serve, dec_k, dec_b)
-    say(10, f"on {card}: dispatch [1,1,{E},{C},{D}] bf16: kernel {t_disp:.4f} ms, plain "
-            f"{t_disp_plain:.4f} ms, Tensor.copy_ {t_copy:.4f} ms, bound {disp_bound:.5f} ms "
+    say(10, f"on {card}: dispatch [1,1,{E},{C},{D}] bf16: kernel {t_disp:.4f} ms (loop), "
+            f"device {disp_split[0]:.5f} ms per launch, host {disp_split[1]:.5f} ms per call; "
+            f"plain {t_disp_plain:.4f} ms; Tensor.copy_ {t_copy:.4f} ms (loop), device "
+            f"{copy_split[0]:.5f} ms, host {copy_split[1]:.5f} ms; bound {disp_bound:.5f} ms "
             f"(bytes); fused_gemm_a2a with [{E},{D},{Fd}] bf16 experts: kernel {t_gemm:.4f} ms, "
             f"plain {t_gemm_plain:.4f} ms, bulk einsums+silu {t_gemm_lib:.4f} ms, bound "
             f"{gemm_bound:.4f} ms ({gemm_by}: {gemm_bytes / 1e9:.2f} GB, "
@@ -847,7 +971,8 @@ def dbrx_phases(card, gen) -> list[dict]:
          "replaces": "src/repro/kernels/fused_dispatch_a2a/kernel.py:44",
          "launches": launches["fused_dispatch_a2a"], "max_abs_err": 0.0,
          "ms": t_disp, "plain_ms": t_disp_plain, "bound_ms": disp_bound, "bound_by": "bytes",
-         "library_ms": t_copy},
+         "library_ms": t_copy, "device_ms": disp_split[0], "host_ms": disp_split[1],
+         "library_device_ms": copy_split[0], "library_host_ms": copy_split[1]},
         {"name": "fused_gemm_a2a", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_gemm_a2a.cu",
          "replaces": "src/repro/kernels/fused_gemm_a2a/kernel.py:67",
@@ -1257,7 +1382,7 @@ def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:
                      2 * 2048 * 4096 * 4096 / F32_FLOPS) * 1e3
     del gx32, gw32
     # the fused kernel at rwkv6's prefill rows on layer 0's weights: the tile
-    # path (the wrapper's choice) checked and timed, the GEMV path timed
+    # path (the wrapper's choice) checked and timed, the stream path timed
     rows = {}
     for name, wt in (("w_o", params["layers"][0]["tm"]["w_o"]),
                      ("channel-mix w_v", params["layers"][0]["cm"]["w_v"])):
@@ -1271,7 +1396,8 @@ def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:
             shape=f"[{B * T},{wt.shape[0]}]@[{wt.shape[0]},{wt.shape[1]}]", err=err,
             same_as_lib=torch.equal(got, torch.matmul(x, wt)),
             tile=time_ms(lambda: fused_matmul_allreduce(x, wt), iters=20, warmup=3),
-            gemv=time_ms(lambda: fused_matmul_allreduce(x, wt, _path="gemv"), iters=2, warmup=1),
+            stream=time_ms(lambda: fused_matmul_allreduce(x, wt, _path="stream"), iters=5,
+                           warmup=1),
             lib=time_ms(lambda: torch.matmul(x, wt), iters=20, warmup=3),
             bound=bound_ms(B * T, wt.shape[0], wt.shape[1], 2))
     del x, got
@@ -1279,10 +1405,10 @@ def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:
     sw_k, sw_n = 13696, 4096
     sw_w = randn(gen, (sw_k, sw_n), bf16, sw_k ** -0.5)
     sweep = []
-    for r_ in (1, 2, 4, 8, 16, 32, 64, 128, 256, 2048):
+    for r_ in (1, 2, 4, 8, 9, 12, 16, 32, 64, 128, 256, 2048):
         sx = randn(gen, (r_, sw_k), bf16)
-        sweep.append((r_, time_ms(lambda: fused_matmul_allreduce(sx, sw_w, _path="gemv"),
-                                  iters=2 if r_ >= 256 else 10, warmup=1),
+        sweep.append((r_, time_ms(lambda: fused_matmul_allreduce(sx, sw_w, _path="stream"),
+                                  iters=5 if r_ >= 256 else 20, warmup=2),
                       time_ms(lambda: fused_matmul_allreduce(sx, sw_w, _path="tile")),
                       time_ms(lambda: torch.matmul(sx, sw_w))))
     del sw_w, sx
@@ -1308,10 +1434,10 @@ def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:
             f"(operations at the f32 peak); fused kernel at prefill rows {B * T}: "
             + "; ".join(f"{n_} {r['shape']}: tile path vs plain max abs/rel err {r['err'][0]:.3g}/"
                         f"{r['err'][1]:.3g} (bit-identical to torch.matmul: {r['same_as_lib']}), "
-                        f"tile path {r['tile']:.4f} ms, GEMV path "
-                        f"{r['gemv']:.4f} ms, torch.matmul {r['lib']:.4f} ms, bound "
+                        f"tile path {r['tile']:.4f} ms, stream path "
+                        f"{r['stream']:.4f} ms, torch.matmul {r['lib']:.4f} ms, bound "
                         f"{r['bound'][0]:.4f} ms ({r['bound'][1]})" for n_, r in rows.items())
-            + f"; row sweep [rows,{sw_k}]@[{sw_k},{sw_n}] bf16 (GEMV path / tile path / "
+            + f"; row sweep [rows,{sw_k}]@[{sw_k},{sw_n}] bf16 (stream path / tile path / "
               f"torch.matmul ms): "
             + ", ".join(f"{r_} {g:.4f}/{t_:.4f}/{lb:.4f}" for r_, g, t_, lb in sweep)
             + f"; prefill per batch of {B}x{T} (CUDA events, turns kernel, bulk, bulk, kernel): "
@@ -1319,13 +1445,13 @@ def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:
             + "; profiles: " + "; ".join(f"{m} prefill {p_[0]}; {m} decode {p_[1]}"
                                          for m, p_ in prof.items()))
 
-    prefill = {n_: {"shape": f"{r['shape']} bf16", "ms": r["tile"], "gemv_path_ms": r["gemv"],
+    prefill = {n_: {"shape": f"{r['shape']} bf16", "ms": r["tile"], "stream_path_ms": r["stream"],
                     "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["lib"],
                     "max_abs_err": r["err"][0]} for n_, r in rows.items()}
     fused_extra = {"tile_path_prefill": {"launches": launch_k["fused_matmul_allreduce.tile"],
                                          **prefill},
                    "row_sweep": {"shape": f"[rows,{sw_k}]@[{sw_k},{sw_n}] bf16",
-                                 "rows_gemv_tile_library_ms": sweep}}
+                                 "rows_stream_tile_library_ms": sweep}}
     return fused_extra, [
         {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv6/kernel.py:20", "launches": launch_k["wkv6"],

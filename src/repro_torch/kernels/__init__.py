@@ -158,10 +158,27 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_fused_gemm_allreduce_tile.argtypes = [
         vp, vp, ptrs, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32, i32, ctypes.c_uint, vp]
     lib.repro_fused_gemm_allreduce_tile.restype = i32
-    lib.repro_fused_dispatch_a2a.argtypes = [
-        vp, i64, ptrs, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32, i32,
-        i32, ctypes.c_uint, i32, i32, vp]
-    lib.repro_fused_dispatch_a2a.restype = i32
+    handle = ctypes.POINTER(vp)
+    lib.repro_gemv_stream_plan.argtypes = [handle, vp, i32, i32, i32, i32, i32, i32, i32]
+    lib.repro_gemv_stream_plan.restype = i32
+    lib.repro_fused_stream_plan.argtypes = [
+        handle, vp, ptrs, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32]
+    lib.repro_fused_stream_plan.restype = i32
+    lib.repro_gemv_stream_capacity.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
+    lib.repro_gemv_stream_capacity.restype = i32
+    lib.repro_fused_stream_capacity.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
+    lib.repro_fused_stream_capacity.restype = i32
+    lib.repro_stream_launch.argtypes = [vp, vp, vp, vp, ctypes.c_uint, vp]
+    lib.repro_stream_launch.restype = i32
+    lib.repro_stream_plan_free.argtypes = [vp]
+    lib.repro_stream_plan_free.restype = None
+    lib.repro_dispatch_plan.argtypes = [
+        handle, ptrs, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32]
+    lib.repro_dispatch_plan.restype = i32
+    lib.repro_dispatch_launch.argtypes = [vp, vp, vp, vp, ctypes.c_uint, vp]
+    lib.repro_dispatch_launch.restype = i32
+    lib.repro_dispatch_plan_free.argtypes = [vp]
+    lib.repro_dispatch_plan_free.restype = None
     lib.repro_fused_gemm_a2a.argtypes = [
         vp, vp, vp, vp, i64, i64, vp, i64, ptrs, ptrs, ptrs, vp, i32, i32,
         i32, i32, i32, i32, i32, i32, ctypes.c_uint, i32, i32, i32, vp]
@@ -209,6 +226,76 @@ def check_launch(code: int, name: str) -> None:
     if code != 0:
         msg = load_library().lib.repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({code})")
+
+
+class PlanCache:
+    """Launch plans cached per call signature.
+
+    A wrapper looks its call's key up here first and builds a plan only for
+    a new key, so a repeated call skips the checks, the schedule and flag
+    lookups and the marshalling of constant arguments.  At most ``size``
+    plans are kept; the oldest goes first, and its ``free`` method (a C
+    plan's) is called then."""
+
+    def __init__(self, size=256):
+        self.size = size
+        self.plans: dict = {}
+
+    def get(self, key):
+        return self.plans.get(key)
+
+    def put(self, key, plan):
+        if len(self.plans) >= self.size:
+            old = self.plans.pop(next(iter(self.plans)))
+            if hasattr(old, "free"):
+                old.free()
+        self.plans[key] = plan
+        return plan
+
+
+@functools.cache
+def _raw_stream_getter():
+    # the current stream's handle as an int, without building a Stream object
+    return getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(index: int) -> int:
+    """The handle of PyTorch's current stream on device ``index``."""
+    get = _raw_stream_getter()
+    return get(index) if get is not None else torch.cuda.current_stream(index).cuda_stream
+
+
+def launch_on(index: int, launch, *args) -> int:
+    """``launch(*args, stream)`` on PyTorch's current stream of device
+    ``index``, entering that device only when it is not the current one."""
+    if torch.cuda.current_device() == index:
+        return launch(*args, stream_handle(index))
+    with torch.cuda.device(index):
+        return launch(*args, stream_handle(index))
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cluster_capacity(query, *args, name: str):
+    """A ``capacity(splits, rows_per_block, ks)`` for
+    :func:`~repro_torch.kernels.gemv.plan.stream_plan` that asks the card
+    through ``query(*args, rows_per_block, splits, ks, &clusters)``; call
+    it on the device the plan is for."""
+    def capacity(splits, rows_per_block, ks):
+        got = ctypes.c_int()
+        check_launch(query(*args, rows_per_block, splits, ks, ctypes.byref(got)), name)
+        return got.value
+    return capacity
+
+
+def new_handle(build, *args, name: str) -> ctypes.c_void_p:
+    """A C plan handle from ``build(&handle, *args)``; raises if refused."""
+    h = ctypes.c_void_p()
+    check_launch(build(ctypes.byref(h), *args), name)
+    return h
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -10,13 +10,15 @@
 // launch on one card, pointers into per-rank slices of single allocations)
 // and, later, real peers whose pointers come from symmetric memory.  CTAs
 // that wait on other CTAs need all of them resident: such grids are sized
-// from the occupancy (resident_ctas) and launched cooperatively, which
+// from the occupancy (resident_ctas, cached) and launched cooperatively, which
 // refuses a grid that does not fit.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace repro_torch {
 
@@ -55,16 +57,48 @@ __device__ __forceinline__ void wait_flag(const unsigned* f, unsigned epoch) {
 
 // The CTAs of `kernel` that fit on the card at once with `dyn_smem` bytes of
 // dynamic shared memory each, split evenly over the ranks of one launch; 0
-// when not even one CTA per rank fits.
+// when not even one CTA per rank fits.  The occupancy query is made once per
+// (kernel, device, threads, shared memory) and cached: a plan-cached launch
+// should cost no more than the launch.
+inline cudaError_t resident_ctas_total(const void* kernel, int threads, size_t dyn_smem,
+                                       int* total) {
+  struct Entry {
+    const void* kernel;
+    int dev, threads;
+    size_t smem;
+    int total;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.kernel == kernel && e.dev == dev && e.threads == threads && e.smem == dyn_smem) {
+      *total = e.total;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, dyn_smem);
+  if (err != cudaSuccess) return err;
+  *total = per_sm * sms;
+  if (used < 64) cache[used++] = Entry{kernel, dev, threads, dyn_smem, *total};
+  return cudaSuccess;
+}
+
 template <typename Kernel>
 static cudaError_t resident_ctas(Kernel kernel, int threads, int ranks_in_launch, int* per_rank,
                                  size_t dyn_smem = 0) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, dyn_smem);
-  *per_rank = err == cudaSuccess ? per_sm * sms / ranks_in_launch : 0;
+  int total = 0;
+  const cudaError_t err =
+      resident_ctas_total(reinterpret_cast<const void*>(kernel), threads, dyn_smem, &total);
+  *per_rank = err == cudaSuccess ? total / ranks_in_launch : 0;
   return err;
 }
 

@@ -11,34 +11,43 @@
 // below and differ in their unit of work; kernels/fused_gemv_allreduce/ops.py
 // chooses by dtype and shape (fused_path):
 //
-//  * GEMV path (every f32 call, and bf16 off the tile path's shapes): a CTA
-//    of 256 threads owns a [B, 32] output strip and loops over row blocks of
-//    8 and all of K with f32 FMAs on CUDA cores (tile_gemv.cuh).  What
-//    bounds it: at decode rows about one FMA per weight element, so the
-//    weight bytes over HBM bandwidth; chatglm3-6b's FFN down projection at
-//    tp = 1 reads 13696 x 4096 x 2 B = 112 MB, about 33 us on an H100 SXM
-//    (3.35 TB/s).  It reads every weight byte once per row block with
-//    coalesced 16-byte loads and spreads a 4096-wide output over 128 CTAs;
-//    at many rows it streams the weights once per 8 rows.
+//  * GEMV path (the wrapper's "stream"; every call the tile path does not
+//    take whose w TMA can read, every f32 call among them): stream_gemv.cuh's
+//    loop.  A unit is (step of the schedule, row block of up to 8 rows): a
+//    thread-block cluster of up to 8 CTAs splits the unit's K, each CTA
+//    streaming its share of a [K, 128] weight column tile through a TMA-fed
+//    shared-memory ring, and the leader (cluster rank 0) sums the partial
+//    tiles in cluster-rank order through distributed shared memory and runs
+//    the protocol below.  What bounds it: at decode rows about one FMA per
+//    weight element, so the weight bytes over HBM bandwidth; chatglm3-6b's
+//    FFN down projection at tp = 1 reads 13696 x 4096 x 2 B = 112 MB, about
+//    33.5 us on an H100 SXM (3.35 TB/s).  The cluster split spreads a
+//    4096-wide output over 256 CTAs, and the ring keeps 64 KB of weights in
+//    flight per CTA.
+//  * Panel path (the other shapes: N * sizeof(T) not a multiple of 16, an
+//    unaligned w, or x's slice too large for shared memory): a CTA of 256
+//    threads owns a [B, 32] output strip and loops over row blocks of 8 and
+//    all of K with f32 FMAs on CUDA cores (tile_gemv.cuh), staging x in
+//    512-deep panels.
 //  * Tile path (bf16 with B >= TILE_ROWS, K % 8 == 0 and bn a multiple of
 //    128): the tensor-core tile loop of tile_mma.cuh on [128, 128] output
 //    tiles, TMA-fed wgmma with f32 accumulators, each weight panel read once
-//    per 128 rows.  What bounds it: at decode rows the same weight bytes; at
-//    rwkv6's prefill rows the operations (2 B K N at 989 TFLOP/s: 0.0695 ms
-//    for [2048, 4096] x [4096, 4096]).  Measured on an H100 it beat the GEMV
-//    path from 1 row on, so TILE_ROWS is 1 and decode takes it too.
+//    per 128 rows.  What bounds it: at rwkv6's prefill rows the operations
+//    (2 B K N at 989 TFLOP/s: 0.0695 ms for [2048, 4096] x [4096, 4096]).
+//    TILE_ROWS comes from the row sweep of chip_smoke.py phase 18.
 //
 // The protocol, per output tile (the TPU grid's order, not its grid):
 //  * Tiles are taken in the order of the step schedule
 //    (kernels/tile_pipeline.py step_schedule) over a rank's column
 //    sub-tiles: remote tiles first, farthest peer first when comm-aware, the
-//    rank's own tiles last; on the tile path the row blocks of a sub-tile
-//    come next to each other.  A CTA computes its tile over all of K itself;
-//    nothing carries between CTAs.
+//    rank's own tiles last; the row blocks of a sub-tile come next to each
+//    other.  A CTA (on the GEMV path a cluster) computes its tile over all
+//    of K itself; nothing carries between them.
 //  * A finished remote tile is stored at the wire dtype straight into the
 //    owner's per-source rx slot, then the sender publishes a flag with
 //    release semantics (the paper's sliceRdy): one per (source, sub-tile) on
-//    the GEMV path, one per (source, sub-tile, row block) on the tile path,
+//    the panel path, one per (source, sub-tile, row block) on the GEMV and
+//    tile paths,
 //    so a rank has n_dev * (bn / 128) * row blocks units to spread over its
 //    CTAs.
 //  * An own tile is computed first, then its CTA acquires the flags of all
@@ -57,23 +66,116 @@
 // whose pointers come from symmetric memory.  A CTA waits only after all of
 // its remote tiles are out, and remote tiles never wait, so the protocol
 // cannot deadlock as long as every CTA is resident: with n_dev > 1 the grid
-// is sized from the occupancy (with the tile path's 129 KB of dynamic shared
-// memory counted) and launched cooperatively, which refuses a grid that does
+// is sized from the occupancy (with the dynamic shared memory counted; on
+// the GEMV path in whole clusters, cudaOccupancyMaxActiveClusters) and
+// launched cooperatively (the GEMV path through cudaLaunchKernelEx with both
+// the cluster and the cooperative attribute), which refuses a grid that does
 // not fit; CTAs then loop over the units.
 //
 // At tp = 1 (the serving path) n_dev = 1: every tile is an own tile, there
-// are no flags, and the kernel is the tiled GEMV or GEMM, one CTA per tile.
+// are no flags, and the kernel is the tiled GEMV or GEMM, one CTA (or
+// cluster) per tile.
+#include "stream_gemv.cuh"
 #include "tile_gemv.cuh"
 #include "tile_mma.cuh"
 
 namespace repro_torch {
 
-struct PeerTable {
-  void* out[kMaxDev];        // each rank's [B, N] output
-  void* rx[kMaxDev];         // each rank's [n_dev, B, bn] rx slots at the wire dtype
-  unsigned* flags[kMaxDev];  // each rank's [2, n_dev, tiles_per_rank] flag words
-};
+using PeerTable = StreamPeers;
 
+// The GEMV path.  Unit u of a rank is step u / row_blocks of its schedule at
+// row block u % row_blocks; cluster c of the rank takes units c, c + clusters,
+// ...
+template <typename T, typename WT, int R>
+__global__ void __launch_bounds__(kStreamThreads, R <= 4 ? 2 : 1)
+    fused_stream_kernel(const __grid_constant__ CUtensorMap wmap, const StreamArgs a) {
+  const StreamSmem<T> sm = stream_smem<T>();
+  StreamRing ring;
+  const int split = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const int my = a.my_base + blockIdx.y;
+  const T* x = static_cast<const T*>(a.x) + (size_t)blockIdx.y * a.B * a.K;
+  const int n_dev = a.n_dev, B = a.B, N = a.N;
+  const int bn = N / n_dev;
+  const int num_steps = n_dev * a.tiles;
+  const int units = num_steps * a.row_blocks;
+  const size_t words = (size_t)a.tiles * a.row_blocks;  // flag words per (phase, source)
+  unsigned* my_flags = a.peers.flags[my];
+  const int tid = threadIdx.x;
+
+  for (int u = blockIdx.x / a.splits; u < units; u += gridDim.x / a.splits) {
+    const int step = u / a.row_blocks, rb = u % a.row_blocks;
+    const int off = a.sched[step], sub = a.sched[num_steps + step];
+    const int dest = (my + off) % n_dev;
+    const int ccol = sub * kStreamN, row0 = rb * R;  // ccol: column inside the chunk
+    const float* tile = stream_unit<T, R>(&wmap, sm, ring, x, B, a.K, a.ks, split, a.splits,
+                                          blockIdx.y, row0, dest * bn + ccol);
+    if (split == 0 && tid < kStreamConsumers) {
+      const size_t unit = (size_t)sub * a.row_blocks + rb;
+      if (off != 0) {
+        // phase 1: PUT the tile into the owner's slot for this source
+        WT* rx = static_cast<WT*>(a.peers.rx[dest]);
+        for (int i = tid; i < R * kStreamN; i += kStreamConsumers) {
+          const int row = row0 + i / kStreamN, col = ccol + i % kStreamN;
+          if (row < B && col < bn) rx[((size_t)my * B + row) * bn + col] = from_float<WT>(tile[i]);
+        }
+        stream_consumer_sync();
+        if (tid == 0) {
+          __threadfence_system();
+          store_release(a.peers.flags[dest] + (size_t)my * words + unit, a.epoch);
+        }
+      } else {
+        // own tiles come last: every source's tile for this unit, added in
+        // source order, then the result into every rank's output
+        if (n_dev > 1) {
+          if (tid < n_dev && tid != my) wait_flag(my_flags + (size_t)tid * words + unit, a.epoch);
+          __threadfence();
+          stream_consumer_sync();
+        }
+        const WT* rx = static_cast<const WT*>(a.peers.rx[my]);
+        for (int i = tid; i < R * kStreamN; i += kStreamConsumers) {
+          const int row = row0 + i / kStreamN, col = ccol + i % kStreamN;
+          if (row >= B || col >= bn) continue;
+          float v = tile[i];
+          for (int s = 0; s < n_dev; ++s)
+            if (s != my) v += to_float(__ldcg(rx + ((size_t)s * B + row) * bn + col));
+          const T o = from_float<T>(v);
+          for (int d = 0; d < n_dev; ++d)
+            static_cast<T*>(a.peers.out[d])[(size_t)row * N + my * bn + col] = o;
+        }
+        if (n_dev > 1) {
+          stream_consumer_sync();
+          if (tid == 0) {
+            __threadfence_system();
+            for (int d = 0; d < n_dev; ++d)
+              if (d != my)
+                store_release(a.peers.flags[d] + ((size_t)n_dev + my) * words + unit, a.epoch);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next unit's stream reuses the ring that holds the tile
+  }
+
+  if (n_dev > 1 && blockIdx.x == 0) {
+    for (size_t i = tid; i < n_dev * words; i += kStreamThreads) {
+      const int s = static_cast<int>(i / words);
+      if (s != my) wait_flag(my_flags + (size_t)n_dev * words + i, a.epoch);
+    }
+  }
+}
+
+template <typename T, typename WT>
+static const void* fused_stream_fn(int rows_per_block) {
+  switch (rows_per_block) {
+    case 1: return reinterpret_cast<const void*>(fused_stream_kernel<T, WT, 1>);
+    case 2: return reinterpret_cast<const void*>(fused_stream_kernel<T, WT, 2>);
+    case 4: return reinterpret_cast<const void*>(fused_stream_kernel<T, WT, 4>);
+    case 8: return reinterpret_cast<const void*>(fused_stream_kernel<T, WT, 8>);
+    default: return nullptr;
+  }
+}
+
+// The panel path (tile_gemv.cuh).
 template <typename T, typename WT>
 __global__ void __launch_bounds__(kThreads)
     fused_gemv_allreduce_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -362,4 +464,77 @@ extern "C" int repro_fused_gemm_allreduce_tile(const void* x, const void* w,
   return launch_fused_tile(x, w, peers, static_cast<const int*>(sched), my_base, ranks_in_launch,
                            n_dev, B, K, N, tiles_per_rank, epoch,
                            static_cast<cudaStream_t>(stream));
+}
+
+// The GEMV path's launch plan for w [ranks_in_launch, K, N] (contiguous,
+// 16-byte aligned, N * sizeof(T) % 16 == 0) at B rows: rows_per_block rows
+// per unit (1, 2, 4 or 8), K split into `splits` shares of ks rows across a
+// cluster (kernels/gemv/plan.py), tiles_per_rank = ceil(N / n_dev / 128)
+// sub-tiles per rank, flag_ptrs (host array of n_dev device pointers, each
+// 2 * n_dev * tiles_per_rank * ceil(B / rows_per_block) words) and sched
+// (device int32 [2 * n_dev * tiles_per_rank]) as above; both stay valid for
+// the plan's life.  Writes a handle for repro_stream_launch, whose out is
+// [ranks_in_launch, B, N] and rx [ranks_in_launch, n_dev, B, N / n_dev] at
+// the wire dtype (null at n_dev = 1).  n_dev > 1 launches cooperatively
+// with clusters.  dtype and wire as above.  Returns a cudaError_t code (0 =
+// built).
+extern "C" int repro_fused_stream_plan(void** plan, const void* w, const uint64_t* flag_ptrs,
+                                       const void* sched, int my_base, int ranks_in_launch,
+                                       int n_dev, int B, int K, int N, int tiles_per_rank,
+                                       int rows_per_block, int splits, int ks, int dtype,
+                                       int wire) {
+  using namespace repro_torch;
+  *plan = nullptr;
+  const void* kernel =
+      dtype == 1              ? fused_stream_fn<__nv_bfloat16, __nv_bfloat16>(rows_per_block)
+      : dtype == 0 && wire == 0 ? fused_stream_fn<float, float>(rows_per_block)
+      : dtype == 0 && wire == 1 ? fused_stream_fn<float, __nv_bfloat16>(rows_per_block)
+                                : nullptr;
+  if (kernel == nullptr || n_dev < 1 || n_dev > kMaxDev || B <= 0 || K <= 0 || N <= 0 ||
+      N % n_dev != 0 || tiles_per_rank != (N / n_dev + kStreamN - 1) / kStreamN ||
+      (ranks_in_launch != 1 && ranks_in_launch != n_dev))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int esize = dtype == 0 ? 4 : 2, wsize = dtype == 0 && wire == 0 ? 4 : 2;
+  StreamPlan* p = new StreamPlan{};
+  StreamArgs& a = p->args;
+  for (int d = 0; d < n_dev; ++d) a.peers.flags[d] = reinterpret_cast<unsigned*>(flag_ptrs[d]);
+  a.sched = static_cast<const int*>(sched);
+  a.my_base = my_base;
+  a.n_dev = n_dev;
+  a.B = B;
+  a.K = K;
+  a.N = N;
+  a.tiles = tiles_per_rank;
+  a.row_blocks = (B + rows_per_block - 1) / rows_per_block;
+  a.splits = splits;
+  a.ks = ks;
+  p->out_rank_bytes = (size_t)B * N * esize;
+  p->rx_rank_bytes = (size_t)n_dev * B * (N / n_dev) * wsize;
+  const cudaError_t err =
+      stream_plan_init(p, kernel, w, esize, ranks_in_launch, rows_per_block,
+                       n_dev * tiles_per_rank * a.row_blocks, n_dev > 1);
+  if (err != cudaSuccess) {
+    delete p;
+    return static_cast<int>(err);
+  }
+  *plan = p;
+  return 0;
+}
+
+// The clusters of `splits` CTAs of the GEMV path's kernel for dtype, wire
+// and rows_per_block, with ks rows of K per CTA, that the card holds at once
+// (kernels/gemv/plan.py sizes the split with it).  Returns a cudaError_t
+// code (0 = answered).
+extern "C" int repro_fused_stream_capacity(int dtype, int wire, int rows_per_block, int splits,
+                                           int ks, int* clusters) {
+  using namespace repro_torch;
+  const void* kernel =
+      dtype == 1              ? fused_stream_fn<__nv_bfloat16, __nv_bfloat16>(rows_per_block)
+      : dtype == 0 && wire == 0 ? fused_stream_fn<float, float>(rows_per_block)
+      : dtype == 0 && wire == 1 ? fused_stream_fn<float, __nv_bfloat16>(rows_per_block)
+                                : nullptr;
+  if (kernel == nullptr || splits < 1 || splits > kStreamMaxSplits || ks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      stream_max_clusters(kernel, splits, stream_smem_bytes(rows_per_block, ks), clusters));
 }

@@ -1,15 +1,22 @@
-// Tiled GEMV for Hopper: y[B, N] = x[B, K] @ w[K, N], f32 accumulation.
+// GEMV for Hopper: y[B, N] = x[B, K] @ w[K, N], f32 accumulation.
 //
 // Replaces the TPU kernel src/repro/kernels/gemv/kernel.py:19 (_gemv_kernel,
 // entry gemv_pallas at :33).  At decode batch sizes it does about one FMA per
 // weight element read, far below the ~295 operations per byte where an H100
 // stops being bound by memory, so its time is the weight bytes over the
-// 3.35 TB/s of HBM.  The design reads every weight byte once with 16-byte
-// coalesced loads, keeps kUnroll loads in flight per thread, and gives each
-// CTA a narrow 32-column tile so that a 4096-wide output already spreads over
-// 128 CTAs (the TPU kernel's 256-wide blocks would give 16).  Ragged K and N
-// are masked.  The loop is shared with the fused GEMV+AllReduce kernel
-// (tile_gemv.cuh).
+// 3.35 TB/s of HBM.  Two paths, chosen by the wrapper (kernels/gemv/ops.py
+// gemv_path):
+//
+//  * stream (every call whose w TMA can read: N * sizeof(T) % 16 == 0, a
+//    16-byte-aligned w, and x's slice within shared memory): stream_gemv.cuh's
+//    loop, a TMA-fed weight ring per CTA, K split over a thread-block
+//    cluster, the split partials reduced through distributed shared memory
+//    into the cluster's leader, which stores the tile.  One cluster per
+//    (128-column tile, row block); kernels/gemv/plan.py sizes it.
+//  * panel (the other shapes): tile_gemv.cuh's loop, one CTA per 32-column
+//    strip, x staged in 512-deep panels, 16-byte coalesced loads with
+//    kUnroll in flight per thread.  Ragged K and N are masked.
+#include "stream_gemv.cuh"
 #include "tile_gemv.cuh"
 
 namespace repro_torch {
@@ -40,9 +47,103 @@ static int launch_gemv(const void* x, const void* w, void* y, int B, int K, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The stream path: one cluster of a.splits CTAs per (column tile, row block).
+template <typename T, int R>
+__global__ void __launch_bounds__(kStreamThreads, R <= 4 ? 2 : 1)
+    gemv_stream_kernel(const __grid_constant__ CUtensorMap wmap, const StreamArgs a) {
+  const StreamSmem<T> sm = stream_smem<T>();
+  StreamRing ring;
+  const int split = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const int u = blockIdx.x / a.splits;
+  const int row0 = (u % a.row_blocks) * R, col0 = (u / a.row_blocks) * kStreamN;
+  const float* tile = stream_unit<T, R>(&wmap, sm, ring, static_cast<const T*>(a.x), a.B, a.K,
+                                        a.ks, split, a.splits, 0, row0, col0);
+  if (split != 0) return;
+  T* y = static_cast<T*>(a.peers.out[0]);
+  for (int i = threadIdx.x; i < R * kStreamN; i += kStreamThreads) {
+    const int row = row0 + i / kStreamN, col = col0 + i % kStreamN;
+    if (row < a.B && col < a.N) y[(size_t)row * a.N + col] = from_float<T>(tile[i]);
+  }
+}
+
+template <typename T>
+static const void* gemv_stream_fn(int rows_per_block) {
+  switch (rows_per_block) {
+    case 1: return reinterpret_cast<const void*>(gemv_stream_kernel<T, 1>);
+    case 2: return reinterpret_cast<const void*>(gemv_stream_kernel<T, 2>);
+    case 4: return reinterpret_cast<const void*>(gemv_stream_kernel<T, 4>);
+    case 8: return reinterpret_cast<const void*>(gemv_stream_kernel<T, 8>);
+    default: return nullptr;
+  }
+}
+
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t code (0 = launched).
+// The stream path's launch plan for w [K, N] at B rows of x: rows_per_block
+// rows per unit (1, 2, 4 or 8), K split into `splits` shares of ks rows (a
+// multiple of 32) across a cluster, as kernels/gemv/plan.py computes them.
+// Writes a handle for repro_stream_launch (free it with
+// repro_stream_plan_free).  dtype: 0 = float32, 1 = bfloat16.  Returns a
+// cudaError_t code (0 = built).
+extern "C" int repro_gemv_stream_plan(void** plan, const void* w, int B, int K, int N,
+                                      int rows_per_block, int splits, int ks, int dtype) {
+  using namespace repro_torch;
+  *plan = nullptr;
+  const void* kernel = dtype == 0   ? gemv_stream_fn<float>(rows_per_block)
+                       : dtype == 1 ? gemv_stream_fn<__nv_bfloat16>(rows_per_block)
+                                    : nullptr;
+  if (kernel == nullptr || B <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  StreamPlan* p = new StreamPlan{};
+  StreamArgs& a = p->args;
+  a.n_dev = 1;
+  a.B = B;
+  a.K = K;
+  a.N = N;
+  a.tiles = (N + kStreamN - 1) / kStreamN;
+  a.row_blocks = (B + rows_per_block - 1) / rows_per_block;
+  a.splits = splits;
+  a.ks = ks;
+  const cudaError_t err = stream_plan_init(p, kernel, w, dtype == 0 ? 4 : 2, 1, rows_per_block,
+                                           a.tiles * a.row_blocks, false);
+  if (err != cudaSuccess) {
+    delete p;
+    return static_cast<int>(err);
+  }
+  *plan = p;
+  return 0;
+}
+
+// The clusters of `splits` CTAs of the stream path's kernel for dtype and
+// rows_per_block, with ks rows of K per CTA, that the card holds at once
+// (kernels/gemv/plan.py sizes the split with it).  Returns a cudaError_t
+// code (0 = answered).
+extern "C" int repro_gemv_stream_capacity(int dtype, int rows_per_block, int splits, int ks,
+                                          int* clusters) {
+  using namespace repro_torch;
+  const void* kernel = dtype == 0   ? gemv_stream_fn<float>(rows_per_block)
+                       : dtype == 1 ? gemv_stream_fn<__nv_bfloat16>(rows_per_block)
+                                    : nullptr;
+  if (kernel == nullptr || splits < 1 || splits > kStreamMaxSplits || ks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      stream_max_clusters(kernel, splits, stream_smem_bytes(rows_per_block, ks), clusters));
+}
+
+// Launches a stream plan (gemv's or the fused kernel's) on x, writing out;
+// rx (the fused kernel's rx slots at n_dev > 1, else null) and epoch as the
+// plan's kernel needs them.  Returns a cudaError_t code (0 = launched).
+extern "C" int repro_stream_launch(const void* plan, const void* x, void* out, void* rx,
+                                   unsigned epoch, void* stream) {
+  using namespace repro_torch;
+  return stream_plan_launch(static_cast<const StreamPlan*>(plan), x, out, rx, epoch,
+                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" void repro_stream_plan_free(void* plan) {
+  delete static_cast<repro_torch::StreamPlan*>(plan);
+}
+
+// The panel path.  dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t code (0 = launched).
 extern "C" int repro_gemv(const void* x, const void* w, void* y, int B, int K, int N, int dtype,
                           void* stream) {
   using namespace repro_torch;

@@ -2,7 +2,11 @@
 
 A CUDA tensor launches ``csrc/fused_dispatch_a2a.cu`` or raises; a CPU
 tensor takes the plain version in ``ref.py``.  There is no fallback from
-one to the other.
+one to the other.  A call launches from a plan built once per call
+signature (shape, dtype, wire, chunks_per_rank, comm_aware, skew, device):
+the checked wire and q, the schedule table, the flag words and a C plan
+holding every constant argument and the grid, so that a repeated call
+allocates its output and makes one foreign call.
 """
 from __future__ import annotations
 
@@ -11,13 +15,15 @@ import ctypes
 import torch
 
 from repro_torch.core.collectives import feasible_chunks_per_rank
-from repro_torch.kernels import (check_launch, clamp_kernel_wire, dtype_code, load_library,
-                                 peer_flags, schedule_table, wire_dtype)
+from repro_torch.kernels import (PlanCache, check_launch, clamp_kernel_wire, dtype_code,
+                                 launch_on, load_library, new_handle, peer_flags, schedule_table,
+                                 wire_dtype)
 from repro_torch.kernels.fused_dispatch_a2a.ref import (fused_dispatch_a2a_ref,
                                                         fused_dispatch_a2a_ref_ranks)
 
 MAX_DEV = 8     # size of the kernel's peer pointer tables (kMaxDev)
 REAL_PEERS_ITEM = "ROADMAP Queue 1 item 1 (the multi-card tp world)"
+_PLANS = PlanCache()
 
 
 def fused_dispatch_a2a(xt, *, comm_aware=True, chunks_per_rank=1, skew=0, wire="f32"):
@@ -29,13 +35,11 @@ def fused_dispatch_a2a(xt, *, comm_aware=True, chunks_per_rank=1, skew=0, wire="
     positive int) is clamped to the largest divisor of C no larger than
     it; ``wire="fp8"`` is clamped to bf16 with a one-time warning.  A CUDA
     tensor launches the kernel or raises."""
-    wire, q = _check(xt, 5, chunks_per_rank, wire)
-    if xt.shape[0] != 1:
-        raise NotImplementedError(f"fused_dispatch_a2a over {xt.shape[0]} ranks needs "
-                                  f"real peers: {REAL_PEERS_ITEM}")
-    if xt.device.type == "cpu":
+    if not xt.is_cuda:
+        _check(xt, 5, chunks_per_rank, wire)
+        _one_rank(xt)
         return fused_dispatch_a2a_ref(xt)
-    out = _launch(xt[None], q, wire, comm_aware, skew)[0]
+    out = _run(xt, 5, chunks_per_rank, wire, comm_aware, skew)
     fused_dispatch_a2a.launches += 1
     return out
 
@@ -52,13 +56,11 @@ def fused_dispatch_a2a_ranks(x_ranks, *, comm_aware=True, chunks_per_rank=1, ske
     PUT / flag protocol between them, pointer tables aimed at per-rank
     slices of single allocations.  It exists to exercise that protocol on
     one card; the serving path calls :func:`fused_dispatch_a2a`."""
-    wire, q = _check(x_ranks, 6, chunks_per_rank, wire)
-    if x_ranks.shape[0] != x_ranks.shape[1]:
-        raise ValueError(f"fused_dispatch_a2a: {x_ranks.shape[0]} ranks hold blocks for "
-                         f"{x_ranks.shape[1]} destinations")
-    if x_ranks.device.type == "cpu":
+    if not x_ranks.is_cuda:
+        wire, _ = _check(x_ranks, 6, chunks_per_rank, wire)
+        _square(x_ranks)
         return fused_dispatch_a2a_ref_ranks(x_ranks, wire)
-    out = _launch(x_ranks, q, wire, comm_aware, skew)
+    out = _run(x_ranks, 6, chunks_per_rank, wire, comm_aware, skew)
     fused_dispatch_a2a_ranks.launches += 1
     return out
 
@@ -81,30 +83,75 @@ def _check(x, ndim, chunks_per_rank, wire):
     return wire, feasible_chunks_per_rank(x.shape[-2], 1, chunks_per_rank)
 
 
-def _launch(xr, q, wire, comm_aware, skew):
-    n, _, b, e, c, d = xr.shape
-    if not xr.is_contiguous():
+def _one_rank(x):
+    if x.shape[0] != 1:
+        raise NotImplementedError(f"fused_dispatch_a2a over {x.shape[0]} ranks needs "
+                                  f"real peers: {REAL_PEERS_ITEM}")
+
+
+def _square(x):
+    if x.shape[0] != x.shape[1]:
+        raise ValueError(f"fused_dispatch_a2a: {x.shape[0]} ranks hold blocks for "
+                         f"{x.shape[1]} destinations")
+
+
+def _run(x, ndim, chunks_per_rank, wire, comm_aware, skew):
+    """Launch one rank's call (ndim 5) or the n-rank world (ndim 6) from its
+    plan; a new signature is checked in full first."""
+    key = (x.shape, x.dtype, x.get_device(), wire, chunks_per_rank, type(chunks_per_rank),
+           comm_aware, skew)
+    plan = _PLANS.get(key)
+    if plan is None:
+        wire, q = _check(x, ndim, chunks_per_rank, wire)
+        if ndim == 5:
+            _one_rank(x)
+        else:
+            _square(x)
+        plan = _PLANS.put(key, _DispatchPlan(x if ndim == 6 else x[None], q, wire, comm_aware,
+                                             skew))
+    if not x.is_contiguous():
         raise ValueError("fused_dispatch_a2a: the kernel takes a contiguous x")
-    if n > MAX_DEV:
-        raise ValueError(f"fused_dispatch_a2a: at most {MAX_DEV} ranks")
-    wdt = wire_dtype(xr.dtype, wire)
-    dev = xr.device
-    out = torch.empty_like(xr)
-    # a narrowed wire lands in rx staging, widened into out at the end
-    recv = out if n == 1 or wdt == xr.dtype else torch.empty(xr.shape, dtype=wdt, device=dev)
-    ptr_array = ctypes.c_uint64 * n
-    out_ptrs = ptr_array(*(out[r].data_ptr() for r in range(n)))
-    recv_ptrs = ptr_array(*(recv[r].data_ptr() for r in range(n)))
-    flag_ptrs, epoch = ptr_array(), 0
-    if n > 1:
-        flags = peer_flags(dev, n, n * b * e * c)   # one word per (source, row) on each rank
-        flag_ptrs = ptr_array(*(flags.words[r].data_ptr() for r in range(n)))
-        epoch = flags.next_epoch()
-    sched = schedule_table(dev, n, q, bool(comm_aware), int(skew))
-    with torch.cuda.device(dev):
-        lib = load_library().lib
-        check_launch(lib.repro_fused_dispatch_a2a(
-            xr.data_ptr(), xr[0].numel(), out_ptrs, recv_ptrs, flag_ptrs, sched.data_ptr(),
-            0, n, n, b, e, c, d, q, epoch, dtype_code(xr.dtype), int(wdt != xr.dtype),
-            torch.cuda.current_stream().cuda_stream), "fused_dispatch_a2a")
+    out = torch.empty_like(x)
+    check_launch(plan.launch(x.data_ptr(), out.data_ptr()), "fused_dispatch_a2a")
     return out
+
+
+class _DispatchPlan:
+    """What a call of one signature launches, built once: the schedule
+    table, the flag words, the rx staging of a narrowed wire (reused call
+    after call on the stream's order) and the C plan."""
+
+    def __init__(self, xr, q, wire, comm_aware, skew):
+        n, _, b, e, c, d = xr.shape
+        if n > MAX_DEV:
+            raise ValueError(f"fused_dispatch_a2a: at most {MAX_DEV} ranks")
+        wdt = wire_dtype(xr.dtype, wire)
+        dev = xr.device
+        self.index = xr.get_device()
+        self.flags, self.rx_ptr = None, None
+        flag_ptrs = (ctypes.c_uint64 * n)()
+        if n > 1:
+            self.flags = peer_flags(dev, n, n * b * e * c)   # one word per (source, row) on each rank
+            for r in range(n):
+                flag_ptrs[r] = self.flags.words[r].data_ptr()
+            if wdt != xr.dtype:
+                # a narrowed wire lands in rx staging, widened into out at the end
+                self.rx = torch.empty(xr.shape, dtype=wdt, device=dev)
+                self.rx_ptr = self.rx.data_ptr()
+        self.sched = schedule_table(dev, n, q, bool(comm_aware), int(skew))
+        self.lib = load_library().lib
+        with torch.cuda.device(self.index):
+            self.handle = new_handle(self.lib.repro_dispatch_plan, flag_ptrs,
+                                     self.sched.data_ptr(), 0, n, n, b, e, c, d, q,
+                                     dtype_code(xr.dtype), int(wdt != xr.dtype),
+                                     name="fused_dispatch_a2a")
+
+    def launch(self, x_ptr, out_ptr) -> int:
+        epoch = self.flags.next_epoch() if self.flags is not None else 0
+        return launch_on(self.index, self.lib.repro_dispatch_launch, self.handle, x_ptr, out_ptr,
+                         self.rx_ptr, epoch)
+
+    def free(self):
+        if self.handle is not None:
+            self.lib.repro_dispatch_plan_free(self.handle)
+            self.handle = None

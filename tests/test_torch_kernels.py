@@ -126,17 +126,26 @@ def test_fused_wrapper_rejects_bad_input(bad):
 BF16, F32 = torch.bfloat16, torch.float32
 
 
+DECODE_PATH = "tile" if fused_ops.TILE_ROWS <= 4 else "stream"
+
+
 @pytest.mark.parametrize("dtype,rows,k,n,n_dev,aligned,want", [
-    (BF16, 4, 13696, 4096, 1, True, "tile"),               # chatglm3-6b decode (w_down)
+    (BF16, 4, 13696, 4096, 1, True, DECODE_PATH),          # chatglm3-6b decode (w_down)
+    (BF16, 4, 14336, 4096, 1, True, DECODE_PATH),          # rwkv6-7b decode (channel-mix w_v)
     (BF16, fused_ops.TILE_ROWS, 4096, 4096, 1, True, "tile"),
-    (BF16, fused_ops.TILE_ROWS - 1, 4096, 4096, 1, True, "gemv"),
+    (BF16, fused_ops.TILE_ROWS - 1, 4096, 4096, 1, True, "stream"),
     (BF16, 2048, 14336, 4096, 1, True, "tile"),            # rwkv6-7b prefill (channel-mix w_v)
     (BF16, 256, 3424, 4096, 4, True, "tile"),              # bn = 1024: 8 tiles per rank
-    (F32, 2048, 4096, 4096, 1, True, "gemv"),              # f32 stays exact on CUDA cores
-    (BF16, 2048, 4100, 4096, 1, True, "gemv"),             # K off TMA's 16-byte rows
-    (BF16, 2048, 4096, 4064, 1, True, "gemv"),             # N not whole 128-column tiles
-    (BF16, 256, 3424, 4 * 96, 4, True, "gemv"),            # bn = 96 not a multiple of 128
-    (BF16, 2048, 4096, 4096, 1, False, "gemv"),            # an unaligned base
+    (F32, 2048, 4096, 4096, 1, True, "stream"),            # f32 stays exact on CUDA cores
+    (F32, 4, 1000, 1000, 1, True, "stream"),               # 4000-byte rows: TMA takes them
+    (BF16, 2048, 4100, 4096, 1, True, "stream"),           # K off TMA's 16-byte rows
+    (BF16, 2048, 4096, 4064, 1, True, "stream"),           # N not whole 128-column tiles
+    (BF16, 256, 3424, 4 * 96, 4, True, "stream"),          # bn = 96 not a multiple of 128
+    (BF16, 4, 1000, 1001, 1, True, "panel"),               # rows of 2002 bytes: not for TMA
+    (F32, 4, 1000, 1002, 1, True, "panel"),                # rows of 4008 bytes
+    (F32, 8, 400000, 4096, 1, True, "panel"),              # x's slice past shared memory
+    (BF16, 2048, 4096, 4096, 1, False, "panel"),           # an unaligned base
+    (BF16, 4, 4096, 4096, 1, False, "panel"),
 ])
 def test_fused_path_choice(dtype, rows, k, n, n_dev, aligned, want):
     assert fused_ops.fused_path(dtype, rows, k, n, n_dev, aligned) == want
