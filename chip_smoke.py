@@ -2,7 +2,6 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
   python3 chip_smoke.py
-  python3 chip_smoke.py --wrapper-times [SRC]   # only the wrappers' host/device times
 
 Needs one CUDA card (an H100 for the sm_90a kernels) and the CUDA toolkit;
 builds the kernels from ``src/repro_torch/kernels/csrc`` first.  Each phase
@@ -18,7 +17,9 @@ prints one line, and any failure exits non-zero:
      onto each other path, f32 calls (stream path; an unaligned w on the
      panel path), and the tensor-core tile path at
      [2048,13696]@[13696,4096], ragged [130,1000]@[1000,1024] and
-     [2049,4104]@[4104,4096], and 100 rows (below the tile's 128)
+     [2049,4104]@[4104,4096], and 100 rows (below the tile's 128); a
+     stream plan launched again after a plan of the same kernel that needs
+     less shared memory was built (gemv and the fused kernel)
   4. the fused kernel's 4-rank world emulated on the card, against
      fused_matmul_allreduce_ref_ranks (3 calls back to back per case to
      reuse the flags across epochs, both schedules): the stream and panel
@@ -114,8 +115,10 @@ prints one line, and any failure exits non-zero:
      per row and profile
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
-11, DLRM's before phase 15, rwkv6-7b's before phase 19.  Then one JSON line per the kernels, the card's
-name and power limit, and the result line.  Float32
+11, DLRM's before phase 15, rwkv6-7b's before phase 19.  Phases 5, 9 and 17
+and the end print how many launch plans the plan-cached wrappers hold.
+Then one JSON line per the kernels, the card's name and power limit, and
+the result line.  Float32
 matrix products run in full f32 here (``allow_tf32`` off for cuBLAS and
 cuDNN), so the plain versions are exact f32 references.  The caching
 allocator grows expandable segments (``PYTORCH_CUDA_ALLOC_CONF``, unless
@@ -383,6 +386,57 @@ def on_path(wrapper, fn):
     return out, next(iter(moved))
 
 
+def plan_counts() -> str:
+    """How many launch plans each plan-cached wrapper holds."""
+    from repro_torch.kernels.fused_dispatch_a2a import ops as dispatch_ops
+    from repro_torch.kernels.fused_gemv_allreduce import ops as fused_ops
+    from repro_torch.kernels.gemv import ops as gemv_ops
+
+    return ", ".join(f"{n_} {len(m._PLANS)}" for n_, m in (
+        ("gemv", gemv_ops), ("fused_matmul_allreduce", fused_ops),
+        ("fused_dispatch_a2a", dispatch_ops)))
+
+
+def plan_order_check(gen) -> str:
+    """A stream plan stays launchable after a plan of the same kernel that
+    needs less shared memory is built: rwkv6-7b's w_v ([4,14336]@[14336,4096],
+    the deepest slice at 4 rows) is planned and launched, then a shallow
+    [4,1024]@[1024,4096] of the same row block, then w_v is launched again
+    from its cached plan, through gemv and fused_matmul_allreduce, each held
+    against its plain version."""
+    from repro_torch.kernels import cluster_capacity, load_library, sm_count
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce
+    from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
+    from repro_torch.kernels.gemv.ops import gemv
+    from repro_torch.kernels.gemv.plan import stream_plan
+    from repro_torch.kernels.gemv.ref import gemv_ref
+
+    bf16, lib = torch.bfloat16, load_library().lib
+    deep_k, shallow_k = 14336, 1024
+    xd, wd = randn(gen, (MAIN_B, deep_k), bf16), randn(gen, (deep_k, MAIN_N), bf16, deep_k ** -0.5)
+    xs, ws = (randn(gen, (MAIN_B, shallow_k), bf16),
+              randn(gen, (shallow_k, MAIN_N), bf16, shallow_k ** -0.5))
+    out = []
+    for name, fn, ref, fused in (("gemv", gemv, gemv_ref, 0),
+                                 ("fused_matmul_allreduce", fused_matmul_allreduce,
+                                  fused_matmul_allreduce_ref, 1)):
+        cap = cluster_capacity(lib.repro_stream_capacity, fused, 1, 0, name=name)
+        deep, shallow = (stream_plan(MAIN_B, k, MAIN_N, sms=sm_count(0), capacity=cap)
+                         for k in (deep_k, shallow_k))
+        if not (deep.rows_per_block == shallow.rows_per_block and shallow.smem < deep.smem):
+            raise AssertionError(f"{name}: plans {deep} and {shallow} do not test the order")
+        errs = []
+        for x_, w_ in ((xd, wd), (xs, ws), (xd, wd)):
+            got, took = on_path(fn, lambda: fn(x_, w_))
+            if took != "stream":
+                raise AssertionError(f"{name} [{MAIN_B},{x_.shape[1]}]: took the {took} path")
+            errs.append(check_close(f"{name} [{MAIN_B},{x_.shape[1]}] after planning "
+                                    f"{len(errs)} before it", got, ref(x_, w_), BF16_TOL)[0])
+        out.append(f"{name} smem {deep.smem} then {shallow.smem} B, errs "
+                   + "/".join(f"{e:.3g}" for e in errs))
+    return "; ".join(out)
+
+
 def serve_requests(step, bundle, batch, n_req, max_new):
     """Drain the launcher's seeded requests through DecodeEngine with the
     step function ``step``; returns (requests, host seconds)."""
@@ -426,7 +480,7 @@ def wrapper_times() -> dict:
     beside Tensor.copy_, chatglm3-6b's w_down through gemv and
     fused_matmul_allreduce beside torch.matmul.  Only the public entry
     points are called, so the same function times another checkout's
-    package (``--wrapper-times SRC``)."""
+    package when that checkout's ``src`` comes first on ``sys.path``."""
     from repro_torch.kernels import load_library
     from repro_torch.kernels.fused_dispatch_a2a.ops import fused_dispatch_a2a
     from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce
@@ -453,14 +507,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--wrapper-times"]:
-        # python3 chip_smoke.py --wrapper-times [SRC]: the wrappers' times
-        # of the package under SRC (default: this checkout's src)
-        src = Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT / "src"
-        sys.path.insert(0, str(src))
-        torch.backends.cuda.matmul.allow_tf32 = False
-        print(json.dumps({"card": card_line(), "src": str(src), "wrappers": wrapper_times()}))
-        return 0
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import load_library
     from repro_torch.kernels.fused_gemv_allreduce.ops import (
@@ -547,11 +593,13 @@ def main() -> int:
                           fused_matmul_allreduce_ref(xt, wt), BF16_TOL)
         tile_cases.append(f"[{b},{k}]@[{k},{n}] {err[0]:.3g}/{err[1]:.3g}")
     del xt, wt, got
+    order_txt = plan_order_check(gen)
     say(3, f"fused_matmul_allreduce n_dev=1 vs plain (bound {BF16_TOL} bf16, {F32_TOL} f32), max "
            f"abs/rel err: [4,13696]@[13696,4096] bf16 on the {main_path} path (TILE_ROWS = "
            f"{TILE_ROWS}) {fused_err[0]:.3g}/{fused_err[1]:.3g}, "
            + ", ".join(f"forced onto the {p_} path {e[0]:.3g}/{e[1]:.3g}" for p_, e in forced.items())
-           + "; f32 " + ", ".join(f32_cases) + "; bf16 on the tile path: " + "; ".join(tile_cases))
+           + "; f32 " + ", ".join(f32_cases) + "; bf16 on the tile path: " + "; ".join(tile_cases)
+           + f"; a deep plan launched after a shallow one of the same row block: {order_txt}")
 
     # 4 ---------------------------------------------------------------
     n_dev, k_loc = 4, MAIN_K // 4
@@ -601,6 +649,7 @@ def main() -> int:
     kernels += rows
     torch.cuda.empty_cache()
     kernels += chatglm_prefill_phases(card, gen)
+    say("end", f"plans cached: {plan_counts()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -698,7 +747,8 @@ def chatglm_decode(card, x, w, fused_err, gemv_err, main_path) -> list[dict]:
            f"logits max abs err: kernel vs bulk {err_kb:.3g} (bound {logits_tol:.3g}), "
            f"bulk vs exact f32 {err_bx:.3g}, kernel vs exact f32 {err_kx:.3g}; kernel streams "
            f"{[r.tokens for r in reqs_k]}; bulk streams {[r.tokens for r in reqs_b]}; "
-           f"differing tokens {differing}" + (f" ({'; '.join(flips)})" if flips else ""))
+           f"differing tokens {differing}" + (f" ({'; '.join(flips)})" if flips else "")
+           + f"; plans cached: {plan_counts()}")
 
     # 6 ---------------------------------------------------------------
     t_fused = time_ms(lambda: fused_matmul_allreduce(x, w))
@@ -713,7 +763,7 @@ def chatglm_decode(card, x, w, fused_err, gemv_err, main_path) -> list[dict]:
     g_path = gemv_path(x.dtype, MAIN_B, MAIN_K, MAIN_N)
     # the stream path's split: sized to the clusters the card holds at once,
     # beside the split shared memory alone would give
-    cap = cluster_capacity(load_library().lib.repro_gemv_stream_capacity, 1, name="gemv")
+    cap = cluster_capacity(load_library().lib.repro_stream_capacity, 0, 1, 0, name="gemv")
     sp = stream_plan(MAIN_B, MAIN_K, MAIN_N, sms=sm_count(0), capacity=cap)
     by_smem = stream_plan(MAIN_B, MAIN_K, MAIN_N, sms=sm_count(0))
     plan_txt = (f"stream plan {sp.splits} CTAs a cluster, {sp.units} clusters, of which the card "
@@ -925,7 +975,8 @@ def dbrx_phases(card, gen) -> list[dict]:
            f"(= {cfg.n_layers} x {steps}), fused_matmul_allreduce "
            f"{launches['fused_matmul_allreduce']}; {tf['summary']}; kernel streams "
            f"{[r.tokens for r in reqs_k]}; bulk streams {[r.tokens for r in reqs_b]}; "
-           f"differing tokens {differing}" + (f" ({'; '.join(flips)})" if flips else ""))
+           f"differing tokens {differing}" + (f" ({'; '.join(flips)})" if flips else "")
+           + f"; plans cached: {plan_counts()}")
     del tf
 
     # 10 --------------------------------------------------------------
@@ -1359,7 +1410,7 @@ def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:
             f"{[[int(t_) for t_ in tok[:, 0]] for tok, _ in steps]}; hand-off, kernel mode, "
             f"{RWKV_HANDOFF}-token prefill vs {RWKV_HANDOFF} decode steps from init_state, max "
             f"abs err (bound {LOGITS_TOL_FACTOR} x the prefill's distance from exact f32): "
-            + ", ".join(handoff))
+            + ", ".join(handoff) + f"; plans cached: {plan_counts()}")
     del steps, st_b, st_x, lb_all, lx_all, lk, st, sp_, spx, state_x, logits_x
 
     # 18 --------------------------------------------------------------

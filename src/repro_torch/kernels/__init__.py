@@ -13,6 +13,7 @@ imports on a machine without CUDA.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -23,6 +24,7 @@ import subprocess
 import tempfile
 import time
 import warnings
+import weakref
 from pathlib import Path
 
 import torch
@@ -164,10 +166,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_fused_stream_plan.argtypes = [
         handle, vp, ptrs, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32]
     lib.repro_fused_stream_plan.restype = i32
-    lib.repro_gemv_stream_capacity.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
-    lib.repro_gemv_stream_capacity.restype = i32
-    lib.repro_fused_stream_capacity.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
-    lib.repro_fused_stream_capacity.restype = i32
+    lib.repro_stream_capacity.argtypes = [i32, i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
+    lib.repro_stream_capacity.restype = i32
     lib.repro_stream_launch.argtypes = [vp, vp, vp, vp, ctypes.c_uint, vp]
     lib.repro_stream_launch.restype = i32
     lib.repro_stream_plan_free.argtypes = [vp]
@@ -233,24 +233,46 @@ class PlanCache:
 
     A wrapper looks its call's key up here first and builds a plan only for
     a new key, so a repeated call skips the checks, the schedule and flag
-    lookups and the marshalling of constant arguments.  At most ``size``
-    plans are kept; the oldest goes first, and its ``free`` method (a C
-    plan's) is called then."""
+    lookups and the marshalling of constant arguments.  A plan made for one
+    weight tensor (``owner``) goes when that tensor is freed, so a model's
+    plans live as long as its weights.  Past ``size`` plans the least
+    recently used goes first.  A plan's ``free`` method (a C plan's) is
+    called when it goes."""
 
-    def __init__(self, size=256):
+    def __init__(self, size=1024):
         self.size = size
-        self.plans: dict = {}
+        self.plans: collections.OrderedDict = collections.OrderedDict()  # key -> (plan, finalizer)
+
+    def __len__(self):
+        return len(self.plans)
 
     def get(self, key):
-        return self.plans.get(key)
+        entry = self.plans.get(key)
+        if entry is None:
+            return None
+        self.plans.move_to_end(key)
+        return entry[0]
 
-    def put(self, key, plan):
-        if len(self.plans) >= self.size:
-            old = self.plans.pop(next(iter(self.plans)))
-            if hasattr(old, "free"):
-                old.free()
-        self.plans[key] = plan
+    def put(self, key, plan, owner=None):
+        """Keep ``plan`` under ``key``; with an ``owner`` tensor, until it
+        (or the tensor it is a view of) is freed."""
+        while len(self.plans) >= self.size:
+            self.drop(next(iter(self.plans)))
+        done = None
+        if owner is not None:
+            done = weakref.finalize(owner if owner._base is None else owner._base,
+                                    self.drop, key)
+            done.atexit = False
+        self.plans[key] = (plan, done)
         return plan
+
+    def drop(self, key):
+        """Forget ``key``'s plan, if any, and free it."""
+        plan, done = self.plans.pop(key, (None, None))
+        if done is not None:
+            done.detach()
+        if hasattr(plan, "free"):
+            plan.free()
 
 
 @functools.cache

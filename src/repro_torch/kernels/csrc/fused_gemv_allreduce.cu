@@ -166,13 +166,16 @@ __global__ void __launch_bounds__(kStreamThreads, R <= 4 ? 2 : 1)
 
 template <typename T, typename WT>
 static const void* fused_stream_fn(int rows_per_block) {
-  switch (rows_per_block) {
-    case 1: return reinterpret_cast<const void*>(fused_stream_kernel<T, WT, 1>);
-    case 2: return reinterpret_cast<const void*>(fused_stream_kernel<T, WT, 2>);
-    case 4: return reinterpret_cast<const void*>(fused_stream_kernel<T, WT, 4>);
-    case 8: return reinterpret_cast<const void*>(fused_stream_kernel<T, WT, 8>);
-    default: return nullptr;
-  }
+  return stream_kernel_for_rows(rows_per_block, [](auto r) {
+    return reinterpret_cast<const void*>(fused_stream_kernel<T, WT, decltype(r)::value>);
+  });
+}
+
+const void* fused_stream_kernel_for(int dtype, int wire, int rows_per_block) {
+  return dtype == 1                ? fused_stream_fn<__nv_bfloat16, __nv_bfloat16>(rows_per_block)
+         : dtype == 0 && wire == 0 ? fused_stream_fn<float, float>(rows_per_block)
+         : dtype == 0 && wire == 1 ? fused_stream_fn<float, __nv_bfloat16>(rows_per_block)
+                                   : nullptr;
 }
 
 // The panel path (tile_gemv.cuh).
@@ -485,11 +488,7 @@ extern "C" int repro_fused_stream_plan(void** plan, const void* w, const uint64_
                                        int wire) {
   using namespace repro_torch;
   *plan = nullptr;
-  const void* kernel =
-      dtype == 1              ? fused_stream_fn<__nv_bfloat16, __nv_bfloat16>(rows_per_block)
-      : dtype == 0 && wire == 0 ? fused_stream_fn<float, float>(rows_per_block)
-      : dtype == 0 && wire == 1 ? fused_stream_fn<float, __nv_bfloat16>(rows_per_block)
-                                : nullptr;
+  const void* kernel = fused_stream_kernel_for(dtype, wire, rows_per_block);
   if (kernel == nullptr || n_dev < 1 || n_dev > kMaxDev || B <= 0 || K <= 0 || N <= 0 ||
       N % n_dev != 0 || tiles_per_rank != (N / n_dev + kStreamN - 1) / kStreamN ||
       (ranks_in_launch != 1 && ranks_in_launch != n_dev))
@@ -519,22 +518,4 @@ extern "C" int repro_fused_stream_plan(void** plan, const void* w, const uint64_
   }
   *plan = p;
   return 0;
-}
-
-// The clusters of `splits` CTAs of the GEMV path's kernel for dtype, wire
-// and rows_per_block, with ks rows of K per CTA, that the card holds at once
-// (kernels/gemv/plan.py sizes the split with it).  Returns a cudaError_t
-// code (0 = answered).
-extern "C" int repro_fused_stream_capacity(int dtype, int wire, int rows_per_block, int splits,
-                                           int ks, int* clusters) {
-  using namespace repro_torch;
-  const void* kernel =
-      dtype == 1              ? fused_stream_fn<__nv_bfloat16, __nv_bfloat16>(rows_per_block)
-      : dtype == 0 && wire == 0 ? fused_stream_fn<float, float>(rows_per_block)
-      : dtype == 0 && wire == 1 ? fused_stream_fn<float, __nv_bfloat16>(rows_per_block)
-                                : nullptr;
-  if (kernel == nullptr || splits < 1 || splits > kStreamMaxSplits || ks < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      stream_max_clusters(kernel, splits, stream_smem_bytes(rows_per_block, ks), clusters));
 }

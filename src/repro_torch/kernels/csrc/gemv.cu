@@ -68,13 +68,15 @@ __global__ void __launch_bounds__(kStreamThreads, R <= 4 ? 2 : 1)
 
 template <typename T>
 static const void* gemv_stream_fn(int rows_per_block) {
-  switch (rows_per_block) {
-    case 1: return reinterpret_cast<const void*>(gemv_stream_kernel<T, 1>);
-    case 2: return reinterpret_cast<const void*>(gemv_stream_kernel<T, 2>);
-    case 4: return reinterpret_cast<const void*>(gemv_stream_kernel<T, 4>);
-    case 8: return reinterpret_cast<const void*>(gemv_stream_kernel<T, 8>);
-    default: return nullptr;
-  }
+  return stream_kernel_for_rows(rows_per_block, [](auto r) {
+    return reinterpret_cast<const void*>(gemv_stream_kernel<T, decltype(r)::value>);
+  });
+}
+
+const void* gemv_stream_kernel_for(int dtype, int rows_per_block) {
+  return dtype == 0   ? gemv_stream_fn<float>(rows_per_block)
+         : dtype == 1 ? gemv_stream_fn<__nv_bfloat16>(rows_per_block)
+                      : nullptr;
 }
 
 }  // namespace repro_torch
@@ -89,9 +91,7 @@ extern "C" int repro_gemv_stream_plan(void** plan, const void* w, int B, int K, 
                                       int rows_per_block, int splits, int ks, int dtype) {
   using namespace repro_torch;
   *plan = nullptr;
-  const void* kernel = dtype == 0   ? gemv_stream_fn<float>(rows_per_block)
-                       : dtype == 1 ? gemv_stream_fn<__nv_bfloat16>(rows_per_block)
-                                    : nullptr;
+  const void* kernel = gemv_stream_kernel_for(dtype, rows_per_block);
   if (kernel == nullptr || B <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   StreamPlan* p = new StreamPlan{};
   StreamArgs& a = p->args;
@@ -113,15 +113,16 @@ extern "C" int repro_gemv_stream_plan(void** plan, const void* w, int B, int K, 
   return 0;
 }
 
-// The clusters of `splits` CTAs of the stream path's kernel for dtype and
-// rows_per_block, with ks rows of K per CTA, that the card holds at once
-// (kernels/gemv/plan.py sizes the split with it).  Returns a cudaError_t
-// code (0 = answered).
-extern "C" int repro_gemv_stream_capacity(int dtype, int rows_per_block, int splits, int ks,
-                                          int* clusters) {
+// The clusters of `splits` CTAs of a stream kernel, each with ks rows of K,
+// that the card holds at once (kernels/gemv/plan.py sizes the split with
+// it): gemv's (fused = 0) or the fused kernel's GEMV path (fused = 1, with
+// its wire), for dtype and rows_per_block as in the plans.  Returns a
+// cudaError_t code (0 = answered).
+extern "C" int repro_stream_capacity(int fused, int dtype, int wire, int rows_per_block,
+                                     int splits, int ks, int* clusters) {
   using namespace repro_torch;
-  const void* kernel = dtype == 0   ? gemv_stream_fn<float>(rows_per_block)
-                       : dtype == 1 ? gemv_stream_fn<__nv_bfloat16>(rows_per_block)
+  const void* kernel = fused == 0   ? gemv_stream_kernel_for(dtype, rows_per_block)
+                       : fused == 1 ? fused_stream_kernel_for(dtype, wire, rows_per_block)
                                     : nullptr;
   if (kernel == nullptr || splits < 1 || splits > kStreamMaxSplits || ks < 1)
     return static_cast<int>(cudaErrorInvalidValue);

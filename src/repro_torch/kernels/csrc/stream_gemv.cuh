@@ -44,6 +44,8 @@
 
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace repro_torch {
@@ -335,6 +337,17 @@ static cudaError_t make_stream_map(CUtensorMap* map, const void* base, int elem_
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Lets `kernel` take up to kStreamSmemLimit bytes of dynamic shared memory
+// on the current device.  The attribute belongs to the kernel, for the whole
+// process, and a launch fails above it: set to one plan's size, it would
+// refuse a cached plan of the same kernel that needs more.  So it is the
+// ceiling, never a plan's size; each launch and occupancy query states its
+// own size (cudaLaunchConfig_t::dynamicSmemBytes).
+static cudaError_t allow_stream_smem(const void* kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kStreamSmemLimit));
+}
+
 struct StreamPlan {
   CUtensorMap wmap;  // w's map, encoded once: a layer's weights do not move
   StreamArgs args;   // x, out, rx and the epoch are filled per call
@@ -379,9 +392,7 @@ static cudaError_t stream_plan_init(StreamPlan* p, const void* kernel, const voi
   if (p->smem > kStreamSmemLimit) return cudaErrorInvalidValue;
   p->cooperative = cooperative;
   cudaError_t err = make_stream_map(&p->wmap, w, elem_bytes, a.N, a.K, ranks_in_launch);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(p->smem));
+  if (err == cudaSuccess) err = allow_stream_smem(kernel);
   if (err != cudaSuccess) return err;
   p->grid = dim3(units_per_rank * a.splits, ranks_in_launch);
   if (!cooperative) return cudaSuccess;
@@ -403,8 +414,7 @@ static cudaError_t stream_plan_init(StreamPlan* p, const void* kernel, const voi
 // dynamic shared memory, the card holds at once.
 static cudaError_t stream_max_clusters(const void* kernel, int splits, size_t smem,
                                        int* clusters) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const cudaError_t err = allow_stream_smem(kernel);
   if (err != cudaSuccess) return err;
   StreamPlan p = {};
   p.args.splits = splits;
@@ -416,6 +426,26 @@ static cudaError_t stream_max_clusters(const void* kernel, int splits, size_t sm
   cfg.numAttrs = 1;
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
+
+// The instantiation of a stream kernel for R = rows_per_block rows a unit
+// (1, 2, 4 or 8): make(std::integral_constant<int, R>{}), or null.
+template <typename Make>
+static const void* stream_kernel_for_rows(int rows_per_block, Make make) {
+  switch (rows_per_block) {
+    case 1: return make(std::integral_constant<int, 1>{});
+    case 2: return make(std::integral_constant<int, 2>{});
+    case 4: return make(std::integral_constant<int, 4>{});
+    case 8: return make(std::integral_constant<int, 8>{});
+    default: return nullptr;
+  }
+}
+
+// The stream kernel for an element type (0 = float32, 1 = bfloat16), and for
+// the fused kernel its wire (0 = the element type, 1 = bfloat16), at
+// rows_per_block; null where there is none.  gemv.cu and
+// fused_gemv_allreduce.cu define them.
+const void* gemv_stream_kernel_for(int dtype, int rows_per_block);
+const void* fused_stream_kernel_for(int dtype, int wire, int rows_per_block);
 
 static int stream_plan_launch(const StreamPlan* p, const void* x, void* out, void* rx,
                               unsigned epoch, cudaStream_t stream) {

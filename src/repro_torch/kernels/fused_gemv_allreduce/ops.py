@@ -19,8 +19,7 @@ from repro_torch.kernels import (PlanCache, check_launch, cluster_capacity, dtyp
                                  sm_count, wire_dtype)
 from repro_torch.kernels.fused_gemv_allreduce.ref import (
     fused_matmul_allreduce_ref, fused_matmul_allreduce_ref_ranks)
-from repro_torch.kernels.gemv.ops import stream_fits
-from repro_torch.kernels.gemv.plan import stream_plan
+from repro_torch.kernels.gemv.plan import stream_fits, stream_plan
 
 TILE_N = 32     # panel path: output columns per CTA strip (kTileN in csrc/tile_gemv.cuh)
 MMA_BM = 128    # tile path: output tile rows (kMmaBM in csrc/tile_mma.cuh)
@@ -135,7 +134,7 @@ def _run(x, w, ndim, wire, comm_aware, path):
         _check_operands(x, w, ndim)
         if ndim == 3:
             _check_ranks(x, w)
-        plan = _PLANS.put(key, _FusedPlan(x, w, ndim, wire, comm_aware, path))
+        plan = _PLANS.put(key, _FusedPlan(x, w, ndim, wire, comm_aware, path), owner=w)
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("fused_matmul_allreduce: the kernel takes contiguous operands")
     out = torch.empty(plan.out_shape, dtype=x.dtype, device=plan.device)
@@ -180,7 +179,7 @@ class _FusedPlan:
         if path == "stream":
             with torch.cuda.device(self.index):
                 sp = stream_plan(b, k, big_n, n, sm_count(self.index), n, cluster_capacity(
-                    self.lib.repro_fused_stream_capacity, dt, int(wdt != xr.dtype),
+                    self.lib.repro_stream_capacity, 1, dt, int(wdt != xr.dtype),
                     name="fused_matmul_allreduce"))
             tiles, row_blocks = sp.tiles, sp.row_blocks
         elif path == "tile":

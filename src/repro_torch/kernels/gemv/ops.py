@@ -13,24 +13,17 @@ import torch
 
 from repro_torch.kernels import (PlanCache, check_launch, cluster_capacity, dtype_code,
                                  launch_on, load_library, new_handle, sm_count)
-from repro_torch.kernels.gemv.plan import stream_plan
+from repro_torch.kernels.gemv.plan import stream_fits, stream_plan
 from repro_torch.kernels.gemv.ref import gemv_ref
 
 PATHS = ("stream", "panel")
 _PLANS = PlanCache()
 
 
-def stream_fits(dtype, rows, k, n, n_dev=1, aligned=True) -> bool:
-    """The stream path takes w when TMA can read it (rows of a multiple of
-    16 bytes at a 16-byte-aligned base), n splits over the ranks, and x's
-    slice fits in shared memory (:func:`~repro_torch.kernels.gemv.plan.stream_plan`)."""
-    return (aligned and (n * dtype.itemsize) % 16 == 0 and n % n_dev == 0
-            and stream_plan(rows, k, n, n_dev, ranks_in_launch=n_dev) is not None)
-
-
 def gemv_path(dtype, rows, k, n, aligned=True) -> str:
     """The kernel path of x [rows, k] @ w [k, n]: ``"stream"`` where it
-    fits (:func:`stream_fits`), else ``"panel"``."""
+    fits (:func:`~repro_torch.kernels.gemv.plan.stream_fits`), else
+    ``"panel"``."""
     return "stream" if stream_fits(dtype, rows, k, n, 1, aligned) else "panel"
 
 
@@ -53,7 +46,7 @@ def gemv(x, w, *, _path=None):
     plan = _PLANS.get(key)
     if plan is None:
         _check(x, w)
-        plan = _PLANS.put(key, _GemvPlan(x, w, _path))
+        plan = _PLANS.put(key, _GemvPlan(x, w, _path), owner=w)
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("gemv: the kernel takes contiguous x and w")
     y = torch.empty(plan.out_shape, dtype=x.dtype, device=plan.device)
@@ -96,7 +89,7 @@ class _GemvPlan:
         if path == "stream":
             with torch.cuda.device(self.index):
                 sp = stream_plan(b, k, n, sms=sm_count(self.index), capacity=cluster_capacity(
-                    self.lib.repro_gemv_stream_capacity, code, name="gemv"))
+                    self.lib.repro_stream_capacity, 0, code, 0, name="gemv"))
                 self.handle = new_handle(self.lib.repro_gemv_stream_plan, w.data_ptr(), b, k, n,
                                          sp.rows_per_block, sp.splits, sp.ks, code, name="gemv")
         else:

@@ -58,6 +58,16 @@ def model_capacity(sms: int = H100_SMS):
     return capacity
 
 
+def stream_fits(dtype, rows, k, n, n_dev=1, aligned=True) -> bool:
+    """Whether the stream path takes x [rows, k] @ w [k, n] over n_dev ranks
+    (``dtype``: anything with an ``itemsize``, such as a torch dtype;
+    ``aligned``: w at a 16-byte-aligned base): TMA can read w (rows of a
+    multiple of 16 bytes at an aligned base), n splits over the ranks, and
+    x's slice fits in shared memory (:func:`stream_plan`)."""
+    return (aligned and (n * dtype.itemsize) % 16 == 0 and n % n_dev == 0
+            and stream_plan(rows, k, n, n_dev, ranks_in_launch=n_dev) is not None)
+
+
 def stream_plan(rows: int, k: int, n: int, n_dev: int = 1, sms: int = H100_SMS,
                 ranks_in_launch: int = 1, capacity=None) -> StreamPlan | None:
     """The partition of x [rows, k] @ w [k, n] over n_dev ranks, or None when

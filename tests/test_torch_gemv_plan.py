@@ -28,9 +28,9 @@ BF16, F32 = torch.bfloat16, torch.float32
 MAIN = [(4, 13696, 4096), (4, 4096, 4096), (4, 14336, 4096)]
 
 
-def _coverage(rows, k, n, n_dev):
+def _coverage(rows, k, n, n_dev, capacity=None):
     """How often each (row, K, N) element is computed by the plan's units."""
-    p = stream_plan(rows, k, n, n_dev, ranks_in_launch=n_dev)
+    p = stream_plan(rows, k, n, n_dev, ranks_in_launch=n_dev, capacity=capacity)
     bn = n // n_dev
     kn = np.zeros((k, n), np.int32)
     for d in range(n_dev):
@@ -56,6 +56,38 @@ def test_partition_covers_every_element_once(rows, k, n, n_dev):
     assert (row == 1).all(), "a row is computed twice or never"
     assert p.ks % gemv_plan.STAGE_ROWS == 0
     assert (p.splits - 1) * p.ks < k <= p.splits * p.ks, "a CTA of the cluster has no K rows"
+
+
+def _holds_up_to(most):
+    """A card that holds every cluster of at most ``most`` CTAs at once
+    and none larger, so the planner takes ``most`` splits where K allows."""
+    return lambda splits, rows_per_block, ks: 1 << 20 if splits <= most else 0
+
+
+# cudaOccupancyMaxActiveClusters on an H100 (chip_smoke.py phase 6) at
+# chatglm3-6b's w_down: 30 clusters of 8 CTAs, 32 of 7
+def _h100(splits, rows_per_block, ks):
+    return {8: 30, 7: 32}.get(splits, 1 << 20)
+
+
+@pytest.mark.parametrize("most", range(1, 9))
+@pytest.mark.parametrize("rows,k,n,n_dev", [*((r, k, n, 1) for r, k, n in MAIN),
+                                            (4, 3424, 4096, 4), (9, 4097, 1001, 1)])
+def test_partition_covers_every_element_once_at_each_split(rows, k, n, n_dev, most):
+    p, kn, row = _coverage(rows, k, n, n_dev, _holds_up_to(most))
+    # the world's 128 clusters take at most 3 CTAs each (about two per SM)
+    assert p.splits == most if n_dev == 1 else p.splits == min(most, 3)
+    assert (kn == 1).all() and (row == 1).all()
+    assert (p.splits - 1) * p.ks < k <= p.splits * p.ks
+
+
+def test_card_capacity_gives_the_split_the_card_runs():
+    """At chatglm3-6b's w_down the H100 holds 30 clusters of 8 and 32 of 7:
+    the planner takes 7 splits (224 CTAs), every cluster in one wave."""
+    p, kn, row = _coverage(*MAIN[0], 1, _h100)
+    assert (p.splits, p.ks, p.units, p.rows_per_block) == (7, 1984, 32, 4)
+    assert (kn == 1).all() and (row == 1).all()
+    assert p.units * p.splits == 224
 
 
 @pytest.mark.parametrize("rows,k,n", MAIN)
@@ -247,6 +279,55 @@ def test_plan_cache_evicts_the_oldest_and_frees_it():
         cache.put(i, Plan(i))
     assert freed == [0] and cache.get(0) is None and cache.get(2).i == 2
     assert cache.put(3, Plan(3)).i == 3 and freed == [0, 1]
+
+
+def test_plan_cache_keeps_the_recently_used():
+    cache = PlanCache(size=2)
+    cache.put(0, "a")
+    cache.put(1, "b")
+    assert cache.get(0) == "a"          # 0 is now the most recently used
+    cache.put(2, "c")
+    assert cache.get(1) is None and cache.get(0) == "a" and len(cache) == 2
+
+
+def test_plan_cache_drops_a_plan_with_its_weight():
+    freed = []
+
+    class Plan:
+        def free(self):
+            freed.append(self)
+
+    cache = PlanCache()
+    w, other = torch.zeros(4, 4), torch.zeros(4, 4)
+    cache.put("w", Plan(), owner=w)
+    cache.put("view", Plan(), owner=other[1:])      # a view's plan lives with its base
+    cache.put("free", Plan())
+    assert len(cache) == 3 and not freed
+    del w
+    assert cache.get("w") is None and len(freed) == 1 and len(cache) == 2
+    assert cache.get("view") is not None
+    del other
+    assert cache.get("view") is None and len(freed) == 2
+    # a plan evicted first is not freed again when its weight goes
+    small, w2 = PlanCache(size=1), torch.zeros(2)
+    small.put("a", Plan(), owner=w2)
+    small.put("b", Plan())
+    assert len(freed) == 3
+    del w2
+    assert len(freed) == 3 and small.get("b") is not None
+    small.drop("b")
+    assert len(freed) == 4 and len(small) == 0
+
+
+def test_gemv_plan_lives_with_its_weight(recorder):
+    x, w = torch.zeros(4, 64), torch.zeros(64, 32)
+    gemv_ops.gemv(_on_card(x), _on_card(w))
+    assert len(gemv_ops._PLANS) == 1
+    gemv_ops.gemv(_on_card(x), _on_card(w))
+    assert len(recorder.built) == 1
+    recorder.built.clear()                  # the recorder kept the call's tensors
+    del w
+    assert len(gemv_ops._PLANS) == 0
 
 
 def test_stream_sources_are_in_the_build():
