@@ -32,18 +32,27 @@ prints one line, and any failure exits non-zero:
      wrapper's device time per launch and host time per call
   7. the MoE kernels (fused_dispatch_a2a, fused_gemm_a2a, and the chain of
      the two) against their plain versions at n_dev = 1: dbrx-132b's
-     main-path shapes with its full expert weights, and ragged shapes
+     main-path shapes with its full expert weights (fused_gemm_a2a on the
+     stream path gemm_a2a_path chooses and forced onto the panel path; the
+     stream plan and the clusters the card holds at each split), and
+     ragged f32 shapes on the path gemm_a2a_path picks (F = 777: panel;
+     F = 776: stream)
   8. both MoE kernels' 4-rank world emulated on the card at dbrx's widths,
      and the chain of the two (both wires, both schedules, chunks_per_rank
      1 and 2, skew 0 and 1, capacity 2 and 8; 3 calls back to back per
-     case)
+     case; the expert FFN on the stream path, and in every case also on
+     the panel path)
   9. full-width dbrx-132b (cut to 8 of its 40 layers) greedy decode through
-     DecodeEngine, kernel mode against bulk mode: the launch counts, every
-     MoE layer's kernel output against bulk on the identical input, and
-     the whole model teacher-forced (tokens and experts) against bulk and
-     an exact f32 evaluation, with where each mode's own router first
-     parts from the kernel run's
- 10. the MoE kernels' and dbrx decode's times from CUDA events; the
+     DecodeEngine, kernel mode against bulk mode: the launch counts (every
+     fused_gemm_a2a launch on the stream path), every MoE layer's kernel
+     output against bulk on the identical input, and the whole model
+     teacher-forced (tokens and experts) against bulk and an exact f32
+     evaluation, with where each mode's own router first parts from the
+     kernel run's
+ 10. the MoE kernels' and dbrx decode's times from CUDA events: both
+     fused_gemm_a2a paths beside the bulk einsums in turns, with the stream
+     path's and the einsums' device time and host time per call, and the
+     stream path at each cluster split from 1 to 8 CTAs; the
      dispatch's device time per launch and host time per call beside
      Tensor.copy_'s
  11. embedding_pool against its plain version: DLRM's main-path shape (128
@@ -64,8 +73,11 @@ prints one line, and any failure exits non-zero:
  15. wkv6 against its plain chunked version and the per-step scan at the
      main-path shape (rwkv6-7b's prefill: B*H = 4*64, T = 512, N = 64,
      chunk 64; decays across the clip range, a non-zero bonus) and edge
-     shapes (one chunk, chunks 8/16/32, T below the chunk, N 16 and 32),
-     an unsupported N or chunk raising; gemm against its plain version at
+     shapes (one chunk, chunks 8/16/32, T below the chunk, N 16 and 32,
+     16 and 10 chunks: more than a cluster's 8 CTAs, chunk 20 off the
+     8-step sub-chunk, B*H = 65600 heads), an unsupported N or chunk
+     raising; gemm against
+     its plain version at
      ragged M, N, K (1, 33, 1000, 4097; the CUDA-core kernel) and at shapes
      the bf16 tile path takes ([2048,4096]@[4096,4096], [1000,4104]@
      [4104,1032], [1,64]@[64,8], [4097,64]@[64,4096]), in f32 and bf16
@@ -79,7 +91,9 @@ prints one line, and any failure exits non-zero:
      prefill/decode hand-off: a 64-token prefill against 64 decode steps
      from init_state
  18. times from CUDA events: wkv6 and gemm (both kernels) against their
-     bounds, plain versions and torch.matmul; the fused kernel at prefill
+     bounds, plain versions and torch.matmul (wkv6 also with the
+     exponentials of the reference's form and of the kernel's, and their
+     time at 16 a clock per SM); the fused kernel at prefill
      rows on layer 0's w_o and channel-mix w_v, checked on the tile path and
      timed on the stream path; the row sweep that sets TILE_ROWS
      (chatglm3-6b's w_down at 1-2048 rows, the stream and tile paths beside
@@ -389,12 +403,13 @@ def on_path(wrapper, fn):
 def plan_counts() -> str:
     """How many launch plans each plan-cached wrapper holds."""
     from repro_torch.kernels.fused_dispatch_a2a import ops as dispatch_ops
+    from repro_torch.kernels.fused_gemm_a2a import ops as ffn_ops
     from repro_torch.kernels.fused_gemv_allreduce import ops as fused_ops
     from repro_torch.kernels.gemv import ops as gemv_ops
 
     return ", ".join(f"{n_} {len(m._PLANS)}" for n_, m in (
         ("gemv", gemv_ops), ("fused_matmul_allreduce", fused_ops),
-        ("fused_dispatch_a2a", dispatch_ops)))
+        ("fused_dispatch_a2a", dispatch_ops), ("fused_gemm_a2a", ffn_ops)))
 
 
 def plan_order_check(gen) -> str:
@@ -800,7 +815,6 @@ def chatglm_decode(card, x, w, fused_err, gemv_err, main_path) -> list[dict]:
          "launches": launches["gemv"], "main_path": False, "max_abs_err": gemv_err[0],
          "ms": t_gemv, "plain_ms": t_gemv_plain, "bound_ms": bnd, "bound_by": bound_by,
          "library_ms": t_lib, "path": g_path, "panel_ms": t_gemv_panel,
-         "stream_plan": sp._asdict(),
          "device_ms": split["gemv"]["device_ms"], "host_ms": split["gemv"]["host_ms"]},
     ]
     return kernels
@@ -817,8 +831,10 @@ def dbrx_phases(card, gen) -> list[dict]:
                                                             fused_dispatch_a2a_ranks)
     from repro_torch.kernels.fused_dispatch_a2a.ref import (fused_dispatch_a2a_ref,
                                                             fused_dispatch_a2a_ref_ranks)
+    from repro_torch.kernels import cluster_capacity, load_library, sm_count
     from repro_torch.kernels.fused_gemm_a2a.ops import (fused_gemm_a2a, fused_gemm_a2a_ranks,
-                                                        fused_moe_chain)
+                                                        fused_moe_chain, gemm_a2a_path)
+    from repro_torch.kernels.fused_gemm_a2a.plan import ffn_plan
     from repro_torch.kernels.fused_gemm_a2a.ref import (fused_gemm_a2a_ref,
                                                         fused_gemm_a2a_ref_ranks)
     from repro_torch.models.moe import moe_init
@@ -837,19 +853,42 @@ def dbrx_phases(card, gen) -> list[dict]:
     xt = randn(gen, (1, 1, E, C, D), bf16)        # the dispatch buffer of one decode step
     if not torch.equal(fused_dispatch_a2a(xt), fused_dispatch_a2a_ref(xt)):
         raise AssertionError("fused_dispatch_a2a main: differs from its plain version")
-    ffn_err = check_rel("fused_gemm_a2a main", fused_gemm_a2a(xt, wu, wg, wd),
-                        fused_gemm_a2a_ref(xt, wu, wg, wd, "silu"), REL_BF16)
+    ffn_want = fused_gemm_a2a_ref(xt, wu, wg, wd, "silu")
+    ffn_path = gemm_a2a_path(bf16, 1, 1, E, C, D, Fd)
+    got, took = on_path(fused_gemm_a2a, lambda: fused_gemm_a2a(xt, wu, wg, wd))
+    if took != ffn_path or took != "stream":
+        raise AssertionError(f"fused_gemm_a2a main: took the {took} path, gemm_a2a_path says "
+                             f"{ffn_path}")
+    ffn_err = check_rel(f"fused_gemm_a2a main {took}", got, ffn_want, REL_BF16)
+    ffn_panel_err = check_rel("fused_gemm_a2a main forced onto the panel path",
+                              fused_gemm_a2a(xt, wu, wg, wd, _path="panel"), ffn_want, REL_BF16)
     chain_err = check_rel("fused_moe_chain main", fused_moe_chain(xt, wu, wg, wd),
                           fused_gemm_a2a_ref(fused_dispatch_a2a_ref(xt), wu, wg, wd, "silu"),
                           REL_BF16)
-    del w, wu, wg, wd
-    xr = randn(gen, (1, 1, 3, 5, 1000), f32)      # ragged E, C, D and F
-    wur, wgr = (randn(gen, (3, 1000, 777), f32, 1000 ** -0.5) for _ in range(2))
-    wdr = randn(gen, (3, 777, 1000), f32, 777 ** -0.5)
-    rag = {act: check_rel(f"fused_gemm_a2a ragged {act}",
-                          fused_gemm_a2a(xr, wur, wgr, wdr, act=act),
-                          fused_gemm_a2a_ref(xr, wur, wgr, wdr, act), REL_F32)
-           for act in ("silu", "gelu", "relu")}
+    # the stream path's partition at the main shape, and the clusters the
+    # card holds at each split (tests/test_torch_gemv_plan.py's H100_FFN)
+    lib = load_library().lib
+    ffn_cap = cluster_capacity(lib.repro_gemm_a2a_stream_capacity, 1, 0, name="fused_gemm_a2a")
+    ffn_sp = ffn_plan(1, 1, E, C, D, Fd, sms=sm_count(0), capacity=ffn_cap)
+    ceil32 = lambda v: -(-v // 32) * 32
+    ffn_caps = {sp: ffn_cap(sp, ffn_sp.rows_per_block, ceil32(max(-(-D // sp), -(-Fd // sp))))
+                for sp in range(1, 9)}
+    del w, wu, wg, wd, got, ffn_want
+    rag = {}
+    for fd in (777, 776):                          # F rows TMA cannot read, and can
+        xr = randn(gen, (1, 1, 3, 5, 1000), f32)   # ragged E, C, D and F
+        wur, wgr = (randn(gen, (3, 1000, fd), f32, 1000 ** -0.5) for _ in range(2))
+        wdr = randn(gen, (3, fd, 1000), f32, fd ** -0.5)
+        want_path = gemm_a2a_path(f32, 1, 1, 3, 5, 1000, fd)
+        for act in ("silu", "gelu", "relu"):
+            got, took = on_path(fused_gemm_a2a, lambda: fused_gemm_a2a(xr, wur, wgr, wdr, act=act))
+            if took != want_path:
+                raise AssertionError(f"fused_gemm_a2a ragged F={fd}: took the {took} path")
+            rag[f"F={fd} {act} {took}"] = check_rel(
+                f"fused_gemm_a2a ragged F={fd} {act} {took}", got,
+                fused_gemm_a2a_ref(xr, wur, wgr, wdr, act), REL_F32)
+    if {k_.split()[-1] for k_ in rag} != {"stream", "panel"}:
+        raise AssertionError(f"the ragged shapes did not reach both paths: {list(rag)}")
     rag_chain = check_rel("fused_moe_chain ragged",
                           fused_moe_chain(xr, wur, wgr, wdr, chunks_per_rank=5),
                           fused_gemm_a2a_ref(fused_dispatch_a2a_ref(xr), wur, wgr, wdr, "silu"),
@@ -859,10 +898,13 @@ def dbrx_phases(card, gen) -> list[dict]:
         raise AssertionError("fused_dispatch_a2a ragged: differs from its plain version")
     say(7, f"MoE kernels vs plain at n_dev=1: dispatch [1,1,{E},{C},{D}] bf16 exact; "
            f"fused_gemm_a2a with dbrx-132b's expert weights [{E},{D},{Fd}] bf16 max abs/rel "
-           f"err {ffn_err[0]:.3g}/{ffn_err[1]:.3g} (bound {REL_BF16} rel), chain "
-           f"{chain_err[0]:.3g}/{chain_err[1]:.3g}; ragged E=3 C=5 D=1000 F=777 f32 "
+           f"err on the {ffn_path} path (gemm_a2a_path) {ffn_err[0]:.3g}/{ffn_err[1]:.3g}, "
+           f"forced onto the panel path {ffn_panel_err[0]:.3g}/{ffn_panel_err[1]:.3g} (bound "
+           f"{REL_BF16} rel), chain {chain_err[0]:.3g}/{chain_err[1]:.3g}; stream plan "
+           f"{ffn_sp._asdict()}, clusters the card holds at splits 1-8: {ffn_caps}; ragged E=3 "
+           f"C=5 D=1000 f32, each on the path gemm_a2a_path picks: "
            + ", ".join(f"{a} {e[0]:.3g}/{e[1]:.3g}" for a, e in rag.items())
-           + f", chain (chunks_per_rank 5) {rag_chain[0]:.3g}/{rag_chain[1]:.3g} "
+           + f", chain (F=776, chunks_per_rank 5) {rag_chain[0]:.3g}/{rag_chain[1]:.3g} "
            f"(bound {REL_F32} rel); dispatch D=1001 bf16 exact")
     del xr, wur, wgr, wdr, xo
 
@@ -880,16 +922,24 @@ def dbrx_phases(card, gen) -> list[dict]:
             want_d = fused_dispatch_a2a_ref_ranks(xs, wire)
             want_f = fused_gemm_a2a_ref_ranks(xs, *ws, "silu", wire)
             want_c = fused_gemm_a2a_ref_ranks(want_d, *ws, "silu", wire)
-            worst_f = worst_c = 0.0
+            worst_f = worst_c = worst_p = 0.0
             for comm_aware in (True, False):
                 for skew in (0, 1):
                     name = (f"C={cap} {str(dtype)[6:]}/wire={wire}/comm_aware={comm_aware}"
                             f"/skew={skew}")
                     kw = dict(comm_aware=comm_aware, skew=skew, wire=wire)
                     for i in range(3):   # back to back: 3 epochs on the same flag words
-                        got = fused_gemm_a2a_ranks(xs, *ws, **kw)
+                        got, took = on_path(fused_gemm_a2a_ranks,
+                                            lambda: fused_gemm_a2a_ranks(xs, *ws, **kw))
+                        if took != "stream":
+                            raise AssertionError(f"world ffn {name}: took the {took} path")
                         worst_f = max(worst_f, check_rel(f"world ffn {name} call {i}", got,
                                                          want_f, rel)[1])
+                    # the panel path's protocol, kept beside the stream path's
+                    for i in range(3):
+                        got = fused_gemm_a2a_ranks(xs, *ws, **kw, _path="panel")
+                        worst_p = max(worst_p, check_rel(f"world ffn panel {name} call {i}",
+                                                         got, want_f, rel)[1])
                     for q in (1, 2):
                         for i in range(3):
                             got = fused_dispatch_a2a_ranks(xs, chunks_per_rank=q, **kw)
@@ -901,14 +951,15 @@ def dbrx_phases(card, gen) -> list[dict]:
                                 **kw)
                             worst_c = max(worst_c, check_rel(f"world chain {name}/q={q} call {i}",
                                                              got, want_c, rel)[1])
-                    calls += 3 + 2 * 3 * 3
+                    calls += 3 + 3 + 2 * 3 * 3
             cases.append(f"C={cap} {str(dtype)[6:]}/wire={wire}: ffn {worst_f:.3g}, "
-                         f"chain {worst_c:.3g}")
+                         f"chain {worst_c:.3g}, panel path {worst_p:.3g}")
     del w32, wbf, xs, want_d, want_f, want_c
     torch.cuda.empty_cache()
     say(8, f"emulated {n}-rank world, E_loc={e_loc} D={D} F={Fd} per rank, both schedules, "
-           f"skew 0/1, chunks_per_rank 1/2, 3 calls each ({calls} kernel launches): dispatch "
-           f"exact in every case; max rel err (of max |plain|): " + "; ".join(cases))
+           f"skew 0/1, chunks_per_rank 1/2, 3 calls each ({calls} kernel launches; the expert "
+           f"FFN on the stream path, and in every case also forced onto the panel path): "
+           f"dispatch exact in every case; max rel err (of max |plain|): " + "; ".join(cases))
 
     # 9 ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -936,7 +987,9 @@ def dbrx_phases(card, gen) -> list[dict]:
     reqs_k, _ = serve(dec_k, log_k)
     launches = {c.__name__: c.launches for c in counted_wrappers()}
     steps = len(log_k)
-    for name in ("fused_dispatch_a2a", "fused_gemm_a2a", "fused_moe_chain"):
+    launches["fused_gemm_a2a.stream"] = fused_gemm_a2a.path_launches["stream"]
+    for name in ("fused_dispatch_a2a", "fused_gemm_a2a", "fused_gemm_a2a.stream",
+                 "fused_moe_chain"):
         if launches[name] != cfg.n_layers * steps:
             raise AssertionError(f"{name} launched {launches[name]} times in {steps} steps "
                                  f"of {cfg.n_layers} layers")
@@ -971,7 +1024,8 @@ def dbrx_phases(card, gen) -> list[dict]:
            f"{n_params / 1e9:.2f}B params, {n_bytes / 1e9:.1f} GB {cfg.param_dtype}, init "
            f"{init_s:.1f}s, peak {peak_gb:.1f} GB), batch {batch}, {n_req} requests x {max_new} "
            f"tokens: {steps} decode steps, launches: dispatch {launches['fused_dispatch_a2a']}, "
-           f"gemm_a2a {launches['fused_gemm_a2a']}, chain {launches['fused_moe_chain']} "
+           f"gemm_a2a {launches['fused_gemm_a2a']} (stream path "
+           f"{launches['fused_gemm_a2a.stream']}), chain {launches['fused_moe_chain']} "
            f"(= {cfg.n_layers} x {steps}), fused_matmul_allreduce "
            f"{launches['fused_matmul_allreduce']}; {tf['summary']}; kernel streams "
            f"{[r.tokens for r in reqs_k]}; bulk streams {[r.tokens for r in reqs_b]}; "
@@ -991,12 +1045,22 @@ def dbrx_phases(card, gen) -> list[dict]:
     # host time per call, the kernel's beside Tensor.copy_'s
     disp_split = split_ms(lambda: fused_dispatch_a2a(xt))
     copy_split = split_ms(lambda: copy_to.copy_(xt))
-    t_gemm = time_ms(lambda: fused_gemm_a2a(xt, wu, wg, wd), iters=20, warmup=3)
+    bulk = lambda: torch.einsum(
+        "necf,efd->necd", F.silu(torch.einsum("necd,edf->necf", x0, wg))
+        * torch.einsum("necd,edf->necf", x0, wu), wd)
+    # both paths and the bulk einsums in turns: stream, panel, bulk, bulk,
+    # panel, stream
+    gemm_t = {"stream": [], "panel": [], "bulk": []}
+    for which in ("stream", "panel", "bulk", "bulk", "panel", "stream"):
+        fn = bulk if which == "bulk" else (lambda p_=which: fused_gemm_a2a(xt, wu, wg, wd,
+                                                                         _path=p_))
+        gemm_t[which].append(time_ms(fn, iters=20, warmup=3))
+    t_gemm, t_gemm_panel, t_gemm_lib = (min(gemm_t[k_]) for k_ in ("stream", "panel", "bulk"))
+    gemm_split = split_ms(lambda: fused_gemm_a2a(xt, wu, wg, wd), calls=200, prof_calls=50)
+    split_t = ffn_split_times(xt, wu, wg, wd)
+    bulk_split = split_ms(bulk, calls=200, prof_calls=50)
     t_gemm_plain = time_ms(lambda: fused_gemm_a2a_ref(xt, wu, wg, wd, "silu"), iters=20,
                            warmup=3)
-    t_gemm_lib = time_ms(lambda: torch.einsum(
-        "necf,efd->necd", F.silu(torch.einsum("necd,edf->necf", x0, wg))
-        * torch.einsum("necd,edf->necf", x0, wu), wd), iters=20, warmup=3)
     item = xt.element_size()
     disp_bound = 2 * xt.numel() * item / HBM_BYTES_PER_S * 1e3
     gemm_bytes = (2 * xt.numel() + wu.numel() + wg.numel() + wd.numel()) * item
@@ -1009,8 +1073,18 @@ def dbrx_phases(card, gen) -> list[dict]:
             f"device {disp_split[0]:.5f} ms per launch, host {disp_split[1]:.5f} ms per call; "
             f"plain {t_disp_plain:.4f} ms; Tensor.copy_ {t_copy:.4f} ms (loop), device "
             f"{copy_split[0]:.5f} ms, host {copy_split[1]:.5f} ms; bound {disp_bound:.5f} ms "
-            f"(bytes); fused_gemm_a2a with [{E},{D},{Fd}] bf16 experts: kernel {t_gemm:.4f} ms, "
-            f"plain {t_gemm_plain:.4f} ms, bulk einsums+silu {t_gemm_lib:.4f} ms, bound "
+            f"(bytes); fused_gemm_a2a with [{E},{D},{Fd}] bf16 experts (turns stream, panel, "
+            f"bulk, bulk, panel, stream): stream path "
+            + ", ".join(f"{t_:.4f}" for t_ in gemm_t["stream"]) + " ms, panel path "
+            + ", ".join(f"{t_:.4f}" for t_ in gemm_t["panel"]) + " ms, bulk einsums+silu "
+            + ", ".join(f"{t_:.4f}" for t_ in gemm_t["bulk"])
+            + f" ms (stream / bulk {t_gemm / t_gemm_lib:.3f}x); the stream path at each split "
+            f"(CTAs a cluster: resident clusters, ms): "
+            + ", ".join(f"{sp_}: {cl_}, {t_:.4f}" for sp_, (cl_, t_) in split_t.items())
+            + "; stream path device "
+            f"{gemm_split[0]:.4f} ms per call ({gemm_split[2]:.0f} kernels), host "
+            f"{gemm_split[1]:.4f} ms; bulk device {bulk_split[0]:.4f} ms ({bulk_split[2]:.0f} "
+            f"kernels), host {bulk_split[1]:.4f} ms; plain {t_gemm_plain:.4f} ms, bound "
             f"{gemm_bound:.4f} ms ({gemm_by}: {gemm_bytes / 1e9:.2f} GB, "
             f"{gemm_ops / 1e9:.1f} GFLOP); decode ({cfg.n_layers} layers, batch {batch}, "
             f"{n_req} requests x {max_new} tokens, host clock around the drain): {decode_txt}; "
@@ -1029,7 +1103,12 @@ def dbrx_phases(card, gen) -> list[dict]:
          "replaces": "src/repro/kernels/fused_gemm_a2a/kernel.py:67",
          "launches": launches["fused_gemm_a2a"], "max_abs_err": ffn_err[0],
          "ms": t_gemm, "plain_ms": t_gemm_plain, "bound_ms": gemm_bound, "bound_by": gemm_by,
-         "library_ms": t_gemm_lib},
+         "library_ms": t_gemm_lib, "path": ffn_path,
+         "path_launches": {"stream": launches["fused_gemm_a2a.stream"]},
+         "panel_ms": t_gemm_panel, "panel_max_abs_err": ffn_panel_err[0],
+         "device_ms": gemm_split[0], "host_ms": gemm_split[1],
+         "library_device_ms": bulk_split[0], "library_host_ms": bulk_split[1],
+         "split_ms": {sp_: t_ for sp_, (_, t_) in split_t.items()}},
     ]
 
 
@@ -1253,8 +1332,12 @@ def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:
     scan_err = check_rel("wkv6 main o vs the per-step scan", fold(o), scan, REL_F32)
     del po, ps, lw, scan
     edges = []
+    # the six edge shapes, then two with more chunks than a cluster's 8 CTAs
+    # (a CTA carries the state over its range; 20 is off the 8-step
+    # sub-chunk), then B*H = 65600 heads, past the 65535 of a grid's y
     for b, t, h, n, ch in ((2, 64, 3, 64, 64), (2, 96, 3, 64, 16), (3, 64, 2, 32, 32),
-                           (2, 40, 5, 16, 8), (2, 24, 4, 16, 64), (1, 512, 2, 32, 64)):
+                           (2, 40, 5, 16, 8), (2, 24, 4, 16, 64), (1, 512, 2, 32, 64),
+                           (2, 1024, 3, 64, 64), (1, 200, 2, 16, 20), (1025, 16, 64, 16, 8)):
         ins = wkv6_inputs(gen, b, t, h, n)
         name = f"B={b} T={t} H={h} N={n} chunk={ch}"
         got, want = wkv6(*ins, chunk=ch), plain_wkv6(*ins, chunk=ch)
@@ -1418,6 +1501,8 @@ def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:
     t_wkv = time_ms(lambda: wkv6(r, k, v, w, u, chunk=C), iters=20, warmup=3)
     t_wkv_plain = time_ms(lambda: plain_wkv6(r, k, v, w, u, chunk=C), iters=5, warmup=1)
     wkv_bnd, wkv_by, wkv_bytes, wkv_ops = wkv6_bound(B * H, T, N)
+    exps = wkv6_exps(B * H, T, N, C)
+    exp_rate = 16 * torch.cuda.get_device_properties(0).multi_processor_count * max_sm_hz()
     del r, k, v, w, u
     gx = randn(gen, (2048, 4096), bf16)
     gw = randn(gen, (4096, 4096), bf16, 4096 ** -0.5)
@@ -1477,7 +1562,11 @@ def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:
                                 for m, ts in d.items())
     say(18, f"on {card}: wkv6 [{B},{T},{H},{N}] chunk {C}: kernel {t_wkv:.4f} ms, plain chunked "
             f"{t_wkv_plain:.4f} ms, no single PyTorch call computes it, bound {wkv_bnd:.4f} ms "
-            f"({wkv_by}: {wkv_bytes / 1e6:.1f} MB, {wkv_ops / 1e9:.2f} G f32 operations); gemm "
+            f"({wkv_by}: {wkv_bytes / 1e6:.1f} MB, {wkv_ops / 1e9:.2f} G f32 operations); "
+            f"exponentials: the reference's form {exps['reference'] / 1e6:.1f} M "
+            f"({exps['reference'] / exp_rate * 1e3:.4f} ms), the kernel's factored form "
+            f"{exps['kernel'] / 1e6:.1f} M ({exps['kernel'] / exp_rate * 1e3:.4f} ms) at 16 a "
+            f"clock per SM and {max_sm_hz() / 1e6:.0f} MHz; gemm "
             f"[2048,4096]@[4096,4096] bf16: tile kernel {t_gemm:.4f} ms, CUDA-core kernel "
             f"{t_gemm_cc:.4f} ms, plain {t_gemm_plain:.4f} ms, "
             f"torch.matmul {t_gemm_lib:.4f} ms, bound {gemm_bnd:.4f} ms ({gemm_by}); f32: kernel "
@@ -1951,6 +2040,53 @@ def wkv6_bound(bh, t, n):
     ops = bh * t * (5 * n * n + 5 * n)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, ops
+
+
+def ffn_split_times(xt, wu, wg, wd) -> dict:
+    """fused_gemm_a2a's stream path with the cluster forced to each split
+    from 1 to 8 CTAs (the planner's capacity query answers 0 for every
+    other split), in fresh plan caches: split -> (resident clusters, ms)."""
+    from repro_torch.kernels import PlanCache
+    from repro_torch.kernels.fused_gemm_a2a import ops as ffn_ops
+
+    real = ffn_ops.cluster_capacity
+    got = {}
+    for split in range(1, 9):
+        def forced(query, *args, name, split=split):
+            cap = real(query, *args, name=name)
+            return lambda s_, r_, ks_: cap(s_, r_, ks_) if s_ == split else 0
+        cache = PlanCache()
+        with swapped(ffn_ops, "cluster_capacity", forced), swapped(ffn_ops, "_PLANS", cache):
+            t_ = time_ms(lambda: ffn_ops.fused_gemm_a2a(xt, wu, wg, wd), iters=20, warmup=3)
+        (key, (plan, _)), = cache.plans.items()
+        got[split] = (plan.stream_plan.clusters, t_)
+        cache.drop(key)
+    return got
+
+
+def wkv6_exps(bh, t, n, c) -> dict:
+    """Exponentials one WKV6 call evaluates over bh heads of t steps in
+    chunks of c: the reference's form (a pairwise decay for each s < t of a
+    chunk, and the decays of r, k and the state), and the kernel's
+    (csrc/wkv6.cu: pairs only inside 8-step sub-chunks, the factors of the
+    cross terms, the same decays of r, k and the state)."""
+    from repro_torch.kernels.rwkv6.ref import SUB
+
+    subs = [min(SUB, c - j) for j in range(0, c, SUB)]
+    per_ref = c * (c - 1) // 2 * n + 2 * c * n + n
+    per_kernel = (sum(q * (q - 1) // 2 for q in subs) * n       # pairs inside sub-chunks
+                  + len(subs) * (len(subs) - 1) // 2 * n        # M
+                  + (c - subs[0]) * n + c * n                   # r', k''
+                  + 2 * c * n + n)                              # rdec, kdec, the state's
+    chunks = bh * (t // c)
+    return {"reference": chunks * per_ref, "kernel": chunks * per_kernel}
+
+
+def max_sm_hz() -> float:
+    """The card's highest SM clock, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def bounded_errors(what, triples, yard="bulk") -> str:

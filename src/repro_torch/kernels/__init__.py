@@ -183,6 +183,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, i64, i64, vp, i64, ptrs, ptrs, ptrs, vp, i32, i32,
         i32, i32, i32, i32, i32, i32, ctypes.c_uint, i32, i32, i32, vp]
     lib.repro_fused_gemm_a2a.restype = i32
+    lib.repro_gemm_a2a_stream_plan.argtypes = [
+        handle, vp, vp, vp, ptrs, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        i32, i32, i32, i32]
+    lib.repro_gemm_a2a_stream_plan.restype = i32
+    lib.repro_gemm_a2a_stream_capacity.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
+    lib.repro_gemm_a2a_stream_capacity.restype = i32
+    lib.repro_gemm_a2a_stream_launch.argtypes = [vp, vp, vp, vp, vp, ctypes.c_uint, vp]
+    lib.repro_gemm_a2a_stream_launch.restype = i32
+    lib.repro_gemm_a2a_stream_plan_free.argtypes = [vp]
+    lib.repro_gemm_a2a_stream_plan_free.restype = None
     lib.repro_embedding_pool.argtypes = [vp, i64, vp, vp, i32, i32, i32, i32, i32, vp]
     lib.repro_embedding_pool.restype = i32
     lib.repro_fused_embedding_a2a.argtypes = [
@@ -254,23 +264,25 @@ class PlanCache:
         return entry[0]
 
     def put(self, key, plan, owner=None):
-        """Keep ``plan`` under ``key``; with an ``owner`` tensor, until it
-        (or the tensor it is a view of) is freed."""
+        """Keep ``plan`` under ``key``; with an ``owner`` tensor (or a tuple
+        of them), until it (or the tensor it is a view of) is freed: the
+        first of them to go takes the plan with it."""
         while len(self.plans) >= self.size:
             self.drop(next(iter(self.plans)))
-        done = None
-        if owner is not None:
-            done = weakref.finalize(owner if owner._base is None else owner._base,
-                                    self.drop, key)
-            done.atexit = False
+        owners = () if owner is None else owner if isinstance(owner, tuple) else (owner,)
+        done = []
+        for o in owners:
+            f = weakref.finalize(o if o._base is None else o._base, self.drop, key)
+            f.atexit = False
+            done.append(f)
         self.plans[key] = (plan, done)
         return plan
 
     def drop(self, key):
         """Forget ``key``'s plan, if any, and free it."""
-        plan, done = self.plans.pop(key, (None, None))
-        if done is not None:
-            done.detach()
+        plan, done = self.plans.pop(key, (None, ()))
+        for f in done:
+            f.detach()
         if hasattr(plan, "free"):
             plan.free()
 

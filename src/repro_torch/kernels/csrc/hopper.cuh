@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels: the
-// mbarrier protocol, TMA tensor loads and their host-side tensor maps, the
+// Hopper (sm_90a) building blocks shared by the kernels: the mbarrier
+// protocol (within a CTA and across a cluster), the cluster barrier,
+// cp.async and TMA tensor loads and their host-side tensor maps, the
 // wgmma shared-memory descriptor, and the m64n128k16 wgmma instructions.
 // tile_mma.cuh (the GEMM tile loop of gemm.cu and fused_gemv_allreduce.cu)
 // and flash_attention.cu's tensor-core path are built from them.
@@ -30,31 +31,68 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
 }
 
+// Arrives on the barrier at `bar`'s offset in CTA `cta` of the cluster, with
+// release semantics at cluster scope: the arriving CTA's shared-memory
+// writes are visible to a mbar_wait<true> on that barrier.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, unsigned cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_addr(bar)), "r"(cta));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote)
+               : "memory");
+}
+
 __device__ __forceinline__ uint64_t global_ns() {
   uint64_t t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
 
-// Waits until the barrier's phase of parity `parity` has completed.  A stage
-// that never fills (a refused copy, a wrong byte count) is a fault: trap
-// after 4 s instead of hanging the card.
+// Waits until the barrier's phase of parity `parity` has completed; with
+// kCluster, with acquire semantics at cluster scope (the other side of
+// mbar_arrive_cluster).  A stage that never fills (a refused copy, a wrong
+// byte count) is a fault: trap after 4 s instead of hanging the card.
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   const uint32_t a = smem_addr(bar);
   uint64_t t0 = 0;
   for (unsigned polls = 0;; ++polls) {
     uint32_t done;
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
+    if constexpr (kCluster)
+      asm volatile(
+          "{\n\t.reg .pred p;\n\t"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+          "selp.u32 %0, 1, 0, p;\n\t}"
+          : "=r"(done)
+          : "r"(a), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n\t.reg .pred p;\n\t"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+          "selp.u32 %0, 1, 0, p;\n\t}"
+          : "=r"(done)
+          : "r"(a), "r"(parity)
+          : "memory");
     if (done) return;
     if (polls == 0) t0 = global_ns();
     else if ((polls & 1023u) == 0 && global_ns() - t0 > 4000000000ull) __trap();
   }
+}
+
+// The two halves of a cluster-wide barrier: writes before the arrive are
+// visible, at cluster scope, to reads after the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// 16 bytes global -> shared through L2 (cp.async.cg); complete with
+// cp.async.wait_all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
 }
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,

@@ -1,6 +1,7 @@
 // Streaming GEMV loop for Hopper (sm_90a), shared by the GEMV kernel
 // (gemv.cu) and the fused GEMV+AllReduce kernel's GEMV path
-// (fused_gemv_allreduce.cu).
+// (fused_gemv_allreduce.cu); the expert FFN's stream path
+// (fused_gemm_a2a.cu) reuses its ring, layout, x staging and host helpers.
 //
 // y[B, N] = x[B, K] @ w[K, N] with f32 accumulation: the K-panel loop of
 // src/repro/kernels/gemv/kernel.py:19 (_gemv_kernel), which the TPU fused
@@ -149,10 +150,17 @@ struct StreamRing {
 // past the rows and past kend; the consumer threads share it.  Each thread
 // issues all its loads before its first store (kXUnroll 16-byte vectors
 // where x's rows allow them), so the slice costs about one L2 round trip
-// rather than one per element.
+// rather than one per element.  kL2 reads through L2 only (__ldcg), for an
+// x that other CTAs of the same launch wrote (the expert FFN's u).
 constexpr int kXUnroll = 4;
 
-template <typename T>
+template <bool kL2, typename V>
+__device__ __forceinline__ V load_x(const V* p) {
+  if constexpr (kL2) return __ldcg(p);
+  else return __ldg(p);
+}
+
+template <typename T, bool kL2 = false>
 __device__ __forceinline__ void stage_x(float* __restrict__ xs, const T* __restrict__ x, int rows,
                                         int K, int ks, int k0, int kend, int row0, int n_rows) {
   constexpr int XV = 16 / sizeof(T);
@@ -168,7 +176,7 @@ __device__ __forceinline__ void stage_x(float* __restrict__ xs, const T* __restr
         const int r = i / vpr, k = k0 + (i - r * vpr) * XV;
         v[u] = make_uint4(0u, 0u, 0u, 0u);
         if (i < nv && row0 + r < rows && k < kend)
-          v[u] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * K + k));
+          v[u] = load_x<kL2>(reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * K + k));
       }
 #pragma unroll
       for (int u = 0; u < kXUnroll; ++u) {
@@ -189,7 +197,7 @@ __device__ __forceinline__ void stage_x(float* __restrict__ xs, const T* __restr
       const int i = i0 + u * kStreamConsumers;
       const int r = i / ks, k = k0 + (i - r * ks);
       v[u] = (i < n_rows * ks && row0 + r < rows && k < kend)
-                 ? to_float(x[(size_t)(row0 + r) * K + k])
+                 ? to_float(load_x<kL2>(x + (size_t)(row0 + r) * K + k))
                  : 0.f;
     }
 #pragma unroll
@@ -359,21 +367,29 @@ struct StreamPlan {
   size_t rx_rank_bytes;     // rank r's rx slots at rx + r * rx_rank_bytes
 };
 
-static void stream_launch_config(const StreamPlan& p, cudaStream_t stream,
-                                 cudaLaunchAttribute (&attrs)[2], cudaLaunchConfig_t* cfg) {
+// A launch of kStreamThreads-thread CTAs in clusters of `splits` along x,
+// with the cooperative attribute when every CTA must be resident.
+static void stream_launch_config(dim3 grid, size_t smem, int splits, bool cooperative,
+                                 cudaStream_t stream, cudaLaunchAttribute (&attrs)[2],
+                                 cudaLaunchConfig_t* cfg) {
   *cfg = {};
-  cfg->gridDim = p.grid;
+  cfg->gridDim = grid;
   cfg->blockDim = dim3(kStreamThreads);
-  cfg->dynamicSmemBytes = p.smem;
+  cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
   attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = p.args.splits;
+  attrs[0].val.clusterDim.x = splits;
   attrs[0].val.clusterDim.y = 1;
   attrs[0].val.clusterDim.z = 1;
   attrs[1].id = cudaLaunchAttributeCooperative;
   attrs[1].val.cooperative = 1;
   cfg->attrs = attrs;
-  cfg->numAttrs = p.cooperative ? 2 : 1;
+  cfg->numAttrs = cooperative ? 2 : 1;
+}
+
+static void stream_launch_config(const StreamPlan& p, cudaStream_t stream,
+                                 cudaLaunchAttribute (&attrs)[2], cudaLaunchConfig_t* cfg) {
+  stream_launch_config(p.grid, p.smem, p.args.splits, p.cooperative, stream, attrs, cfg);
 }
 
 // Fills the plan's map, shared memory and grid: units_per_rank clusters of
@@ -416,14 +432,9 @@ static cudaError_t stream_max_clusters(const void* kernel, int splits, size_t sm
                                        int* clusters) {
   const cudaError_t err = allow_stream_smem(kernel);
   if (err != cudaSuccess) return err;
-  StreamPlan p = {};
-  p.args.splits = splits;
-  p.smem = smem;
-  p.grid = dim3(splits);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attrs[2];
-  stream_launch_config(p, nullptr, attrs, &cfg);
-  cfg.numAttrs = 1;
+  stream_launch_config(dim3(splits), smem, splits, false, nullptr, attrs, &cfg);
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 

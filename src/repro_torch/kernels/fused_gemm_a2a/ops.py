@@ -7,6 +7,14 @@ by-source slot layout the FFN+combine kernel reads, so
 launches with nothing in between.  A CUDA tensor launches
 ``csrc/fused_gemm_a2a.cu`` or raises; a CPU tensor takes the plain version
 in ``ref.py``.  There is no fallback from one to the other.
+
+The kernel has two paths, chosen by :func:`gemm_a2a_path`: ``"stream"``
+(128-column units on the streaming loop's TMA ring, K split over a
+thread-block cluster, partition from :mod:`.plan`) wherever TMA can read
+the weights, ``"panel"`` (``csrc/tile_gemv.cuh``'s loop) for the rest.  A
+call launches from a plan built once per call signature
+(:class:`~repro_torch.kernels.PlanCache`): the tensor maps, grid, flag
+words, schedule table and the u scratch.
 """
 from __future__ import annotations
 
@@ -14,19 +22,31 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (check_launch, clamp_kernel_wire, dtype_code, load_library,
-                                 peer_flags, schedule_table, wire_dtype)
+from repro_torch.kernels import (PlanCache, check_launch, clamp_kernel_wire, cluster_capacity,
+                                 dtype_code, launch_on, load_library, new_handle, peer_flags,
+                                 schedule_table, sm_count, wire_dtype)
 from repro_torch.kernels.fused_dispatch_a2a.ops import (MAX_DEV, REAL_PEERS_ITEM,
                                                         fused_dispatch_a2a)
+from repro_torch.kernels.fused_gemm_a2a.plan import TILE_N, ffn_plan, ffn_stream_fits
 from repro_torch.kernels.fused_gemm_a2a.ref import (ACTS, fused_gemm_a2a_ref,
                                                     fused_gemm_a2a_ref_ranks)
 
-TILE = 32   # columns of u (F) or y (D) per work item (kTileN in csrc/tile_gemv.cuh)
+PANEL_TILE = 32   # columns of u (F) or y (D) per panel item (kTileN in csrc/tile_gemv.cuh)
 ACT_CODES = {name: i for i, name in enumerate(ACTS)}   # the kernel's `act` codes
+PATHS = ("stream", "panel")
+_PLANS = PlanCache()
+
+
+def gemm_a2a_path(dtype, n_dev, b, e, c, d, f, aligned=True) -> str:
+    """The kernel path of one rank's call with x [n_dev, b, e, c, d] and
+    weights [e, d, f] / [e, f, d]: ``"stream"`` where it fits
+    (:func:`~repro_torch.kernels.fused_gemm_a2a.plan.ffn_stream_fits`),
+    else ``"panel"``."""
+    return "stream" if ffn_stream_fits(dtype, n_dev, b, e, c, d, f, aligned) else "panel"
 
 
 def fused_gemm_a2a(xt, w_up, w_gate, w_down, *, act="silu", comm_aware=True, skew=0,
-                   wire="f32"):
+                   wire="f32", _path=None):
     """One EP rank: xt [n, B, E_loc, C, D] stacked by combine destination,
     w_up/w_gate [E_loc, D, F], w_down [E_loc, F, D] -> [n, B, E_loc, C, D]
     stacked by source: act(x w_gate) (x w_up) w_down per block, then the
@@ -35,24 +55,27 @@ def fused_gemm_a2a(xt, w_up, w_gate, w_down, *, act="silu", comm_aware=True, ske
     The port's world is one card (n = 1), where the exchange keeps the
     rank's own block.  The kernel accumulates in f32 and rounds u and y to
     x's dtype; ``wire="fp8"`` is clamped to bf16 with a one-time warning.
-    A CUDA tensor launches the kernel or raises."""
-    wire = _check(xt, (w_up, w_gate, w_down), 5, act, wire)
-    if xt.shape[0] != 1:
-        raise NotImplementedError(f"fused_gemm_a2a over {xt.shape[0]} ranks needs real "
-                                  f"peers: {REAL_PEERS_ITEM}")
-    if xt.device.type == "cpu":
+    A CUDA tensor launches the kernel or raises, on the path
+    :func:`gemm_a2a_path` chooses or ``_path`` (one of :data:`PATHS`, for
+    timing both; a path that does not fit the call raises, on the CPU
+    too)."""
+    if not xt.is_cuda:
+        wire = _check(xt, (w_up, w_gate, w_down), 5, act, wire)
+        _one_rank(xt)
+        _resolve_path(_path, xt[None], w_up, w_gate, w_down)
         return fused_gemm_a2a_ref(xt, w_up, w_gate, w_down, act)
-    out = _launch(xt[None], w_up[None], w_gate[None], w_down[None], act, wire, comm_aware,
-                  skew)[0]
+    out, path = _run(xt, (w_up, w_gate, w_down), 5, act, wire, comm_aware, skew, _path)
     fused_gemm_a2a.launches += 1
+    fused_gemm_a2a.path_launches[path] += 1
     return out
 
 
 fused_gemm_a2a.launches = 0
+fused_gemm_a2a.path_launches = dict.fromkeys(PATHS, 0)
 
 
 def fused_gemm_a2a_ranks(x_ranks, wu_ranks, wg_ranks, wd_ranks, *, act="silu",
-                         comm_aware=True, skew=0, wire="f32"):
+                         comm_aware=True, skew=0, wire="f32", _path=None):
     """An n-rank world emulated on one device: x_ranks [n, n, B, E_loc, C, D]
     (rank, destination, ...), per-rank weights [n, E_loc, D, F] /
     [n, E_loc, F, D] -> [n, n, B, E_loc, C, D] (rank, source, ...).
@@ -60,18 +83,20 @@ def fused_gemm_a2a_ranks(x_ranks, wu_ranks, wg_ranks, wd_ranks, *, act="silu",
     On a card, one launch runs all n ranks (``gridDim.y = n``) with the full
     PUT / flag protocol between them.  It exists to exercise that protocol
     on one card; the serving path calls :func:`fused_gemm_a2a`."""
-    wire = _check(x_ranks, (wu_ranks, wg_ranks, wd_ranks), 6, act, wire)
-    if not x_ranks.shape[0] == x_ranks.shape[1] == wu_ranks.shape[0]:
-        raise ValueError(f"fused_gemm_a2a: x {tuple(x_ranks.shape)} and weights "
-                         f"{tuple(wu_ranks.shape)} disagree on the number of ranks")
-    if x_ranks.device.type == "cpu":
+    if not x_ranks.is_cuda:
+        wire = _check(x_ranks, (wu_ranks, wg_ranks, wd_ranks), 6, act, wire)
+        _square(x_ranks, wu_ranks)
+        _resolve_path(_path, x_ranks, wu_ranks, wg_ranks, wd_ranks)
         return fused_gemm_a2a_ref_ranks(x_ranks, wu_ranks, wg_ranks, wd_ranks, act, wire)
-    out = _launch(x_ranks, wu_ranks, wg_ranks, wd_ranks, act, wire, comm_aware, skew)
+    out, path = _run(x_ranks, (wu_ranks, wg_ranks, wd_ranks), 6, act, wire, comm_aware, skew,
+                     _path)
     fused_gemm_a2a_ranks.launches += 1
+    fused_gemm_a2a_ranks.path_launches[path] += 1
     return out
 
 
 fused_gemm_a2a_ranks.launches = 0
+fused_gemm_a2a_ranks.path_launches = dict.fromkeys(PATHS, 0)
 
 
 def fused_moe_chain(xt, w_up, w_gate, w_down, *, act="silu", comm_aware=True,
@@ -123,34 +148,128 @@ def _check(x, weights, ndim, act, wire):
     return wire
 
 
-def _launch(xr, wu, wg, wd, act, wire, comm_aware, skew):
+def _one_rank(x):
+    if x.shape[0] != 1:
+        raise NotImplementedError(f"fused_gemm_a2a over {x.shape[0]} ranks needs real "
+                                  f"peers: {REAL_PEERS_ITEM}")
+
+
+def _square(x, w):
+    if not x.shape[0] == x.shape[1] == w.shape[0]:
+        raise ValueError(f"fused_gemm_a2a: x {tuple(x.shape)} and weights "
+                         f"{tuple(w.shape)} disagree on the number of ranks")
+
+
+def _resolve_path(path, xr, wu, wg, wd):
+    """The path a call takes: ``path`` if given (raises where it does not
+    fit the call), else :func:`gemm_a2a_path`'s choice.  ``xr`` is
+    [n, n, B, E, C, D], with the rank axis even at n = 1."""
     n, _, b, e, c, d = xr.shape
-    f = wu.shape[-1]
-    if not all(t.is_contiguous() for t in (xr, wu, wg, wd)):
+    aligned = all(t.data_ptr() % 16 == 0 for t in (wu, wg, wd))
+    chosen = gemm_a2a_path(xr.dtype, n, b, e, c, d, wu.shape[-1], aligned)
+    if path is None:
+        return chosen
+    if path not in PATHS:
+        raise ValueError(f"fused_gemm_a2a: path must be one of {PATHS}, got {path!r}")
+    if path == "stream" and chosen != "stream":
+        raise ValueError(f"fused_gemm_a2a: the stream path takes C <= 8 and weights whose D and F "
+                         f"rows are a multiple of 16 bytes at aligned bases; got C={c}, D={d}, "
+                         f"F={wu.shape[-1]} {xr.dtype}")
+    return path
+
+
+def _run(x, weights, ndim, act, wire, comm_aware, skew, path):
+    """Launch one rank's call (ndim 5) or the n-rank world (ndim 6) from its
+    plan; a new signature is checked in full first.  Returns (out, path)."""
+    key = (x.shape, x.dtype, x.get_device(),
+           tuple((w.shape, w.dtype, w.get_device(), w.data_ptr()) for w in weights),
+           act, wire, bool(comm_aware), int(skew), path)
+    plan = _PLANS.get(key)
+    if plan is None:
+        wire = _check(x, weights, ndim, act, wire)
+        if ndim == 5:
+            _one_rank(x)
+        else:
+            _square(x, weights[0])
+        lead = (lambda t: t) if ndim == 6 else (lambda t: t[None])
+        plan = _PLANS.put(key, _GemmA2APlan(lead(x), *(lead(w) for w in weights), act, wire,
+                                            comm_aware, skew, path), owner=tuple(weights))
+    if not all(t.is_contiguous() for t in (x, *weights)):
         raise ValueError("fused_gemm_a2a: the kernel takes contiguous operands")
-    if n > MAX_DEV:
-        raise ValueError(f"fused_gemm_a2a: at most {MAX_DEV} ranks")
-    wdt = wire_dtype(xr.dtype, wire)
-    dev = xr.device
-    out = torch.empty_like(xr)
-    u = torch.empty((n, n, b, e, c, f), dtype=xr.dtype, device=dev)   # act(g) h, per rank
-    # a narrowed wire lands in rx staging, widened into out at the end
-    recv = out if n == 1 or wdt == xr.dtype else torch.empty(xr.shape, dtype=wdt, device=dev)
-    ptr_array = ctypes.c_uint64 * n
-    out_ptrs = ptr_array(*(out[r].data_ptr() for r in range(n)))
-    recv_ptrs = ptr_array(*(recv[r].data_ptr() for r in range(n)))
-    # per rank: one word per (group, F tile) for u, then one per
-    # (source, group, D tile) for the y tiles arriving from each source
-    tiles = -(-f // TILE) + -(-d // TILE)
-    flags = peer_flags(dev, n, n * b * e * tiles)
-    flag_ptrs = ptr_array(*(flags.words[r].data_ptr() for r in range(n)))
-    sched = schedule_table(dev, n, 1, bool(comm_aware), int(skew))
-    with torch.cuda.device(dev):
-        lib = load_library().lib
-        check_launch(lib.repro_fused_gemm_a2a(
-            xr.data_ptr(), wu.data_ptr(), wg.data_ptr(), wd.data_ptr(), xr[0].numel(),
-            wu[0].numel(), u.data_ptr(), u[0].numel(), out_ptrs, recv_ptrs, flag_ptrs,
-            sched.data_ptr(), 0, n, n, b, e, c, d, f, flags.next_epoch(), ACT_CODES[act],
-            dtype_code(xr.dtype), int(wdt != xr.dtype),
-            torch.cuda.current_stream().cuda_stream), "fused_gemm_a2a")
-    return out
+    out = torch.empty_like(x)
+    check_launch(plan.launch(x.data_ptr(), out.data_ptr()), "fused_gemm_a2a")
+    return out, plan.path
+
+
+class _GemmA2APlan:
+    """What a call of one signature launches, built once: the path, the
+    schedule table, the flag words, the u scratch and, with a narrowed
+    wire, the rx staging (both reused call after call on the stream's
+    order), and the stream path's C plan or the panel path's constant
+    arguments."""
+
+    def __init__(self, xr, wu, wg, wd, act, wire, comm_aware, skew, path):
+        n, _, b, e, c, d = xr.shape
+        f = wu.shape[-1]
+        if n > MAX_DEV:
+            raise ValueError(f"fused_gemm_a2a: at most {MAX_DEV} ranks")
+        self.path = _resolve_path(path, xr, wu, wg, wd)
+        wdt = wire_dtype(xr.dtype, wire)
+        dev, self.index = xr.device, xr.get_device()
+        self.u = torch.empty((n, n, b, e, c, f), dtype=xr.dtype, device=dev)  # act(g) h, per rank
+        # a narrowed wire lands in rx staging, widened into out at the end
+        self.recv = None if n == 1 or wdt == xr.dtype else torch.empty(xr.shape, dtype=wdt,
+                                                                       device=dev)
+        # per rank: one word per (group, F tile) for u, then one per
+        # (source, group, D tile) for the y tiles arriving from each source
+        tile = TILE_N if self.path == "stream" else PANEL_TILE
+        self.flags = peer_flags(dev, n, n * b * e * (-(-f // tile) + -(-d // tile)))
+        flag_ptrs = (ctypes.c_uint64 * n)(*(self.flags.words[r].data_ptr() for r in range(n)))
+        self.sched = schedule_table(dev, n, 1, bool(comm_aware), int(skew))
+        self.lib = load_library().lib
+        code, wire_code = dtype_code(xr.dtype), int(wdt != xr.dtype)
+        if self.path == "stream":
+            with torch.cuda.device(self.index):
+                fp = ffn_plan(n, b, e, c, d, f, ranks_in_launch=n, sms=sm_count(self.index),
+                              capacity=cluster_capacity(self.lib.repro_gemm_a2a_stream_capacity,
+                                                        code, wire_code, name="fused_gemm_a2a"))
+                if fp is None:
+                    raise RuntimeError(f"fused_gemm_a2a: the card holds no cluster of the stream "
+                                       f"path at C={c}, D={d}, F={f} over {n} ranks")
+                self.handle = new_handle(
+                    self.lib.repro_gemm_a2a_stream_plan, wu.data_ptr(), wg.data_ptr(),
+                    wd.data_ptr(), flag_ptrs, self.sched.data_ptr(), 0, n, n, b, e, c, d, f,
+                    fp.rows_per_block, fp.splits, fp.ks_up, fp.ks_down, ACT_CODES[act], code,
+                    wire_code, name="fused_gemm_a2a")
+            self.stream_plan = fp   # the partition, for the record (chip_smoke.py prints it)
+        else:
+            self.handle = None
+            self.flag_ptrs = flag_ptrs
+            self.fixed = (wu.data_ptr(), wg.data_ptr(), wd.data_ptr(), xr[0].numel(),
+                          wu[0].numel(), self.u[0].numel())
+            self.dims = (n, b, e, c, d, f, ACT_CODES[act], code, wire_code)
+
+    def launch(self, x_ptr, out_ptr) -> int:
+        epoch = self.flags.next_epoch()
+        u_ptr = self.u.data_ptr()
+        if self.handle is not None:
+            recv_ptr = out_ptr if self.recv is None else self.recv.data_ptr()
+            return launch_on(self.index, self.lib.repro_gemm_a2a_stream_launch, self.handle,
+                             x_ptr, u_ptr, out_ptr, recv_ptr, epoch)
+        n, b, e, c, d, f, act, code, wire_code = self.dims
+        per_rank = n * b * e * c * d
+        ptr_array = ctypes.c_uint64 * n
+        item = self.u.element_size()
+        out_ptrs = ptr_array(*(out_ptr + r * per_rank * item for r in range(n)))
+        recv_ptrs = out_ptrs if self.recv is None else ptr_array(
+            *(self.recv[r].data_ptr() for r in range(n)))
+        wu, wg, wd, x_stride, w_stride, u_stride = self.fixed
+        return launch_on(self.index, self.lib.repro_fused_gemm_a2a, x_ptr, wu, wg, wd, x_stride,
+                         w_stride, u_ptr, u_stride, out_ptrs, recv_ptrs, self.flag_ptrs,
+                         self.sched.data_ptr(), 0, n, n, b, e, c, d, f, epoch, act, code,
+                         wire_code)
+
+    def free(self):
+        if self.handle is not None:
+            self.lib.repro_gemm_a2a_stream_plan_free(self.handle)
+            self.handle = None

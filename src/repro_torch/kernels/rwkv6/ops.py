@@ -26,8 +26,11 @@ def wkv6(r, k, v, w, u, *, chunk=32):
     state after the last chunk, which the prefill needs.  As there, the
     operands are taken in f32, ``lw = log(clip(w, 1e-8, 1))`` and the chunk
     is ``min(chunk, T)``, which must divide T.  A CUDA tensor launches
-    ``csrc/wkv6.cu`` (N of 16, 32 or 64, chunk at most 64) or raises; a CPU
-    tensor takes the plain chunked version."""
+    ``csrc/wkv6.cu`` (N of 16, 32 or 64, chunk at most 64; the chunks of a
+    head run in parallel over a thread-block cluster, the pairwise decay
+    factored through 8-step sub-chunks as
+    :func:`~repro_torch.kernels.rwkv6.ref.wkv6_factored` mirrors)
+    or raises; a CPU tensor takes the plain chunked version."""
     if r.dim() != 4 or any(a.shape != r.shape for a in (k, v, w)):
         raise ValueError(f"wkv6: need r, k, v, w of one shape [B, T, H, N], got "
                          f"{[tuple(a.shape) for a in (r, k, v, w)]}")
@@ -67,14 +70,19 @@ def _launch(r, k, v, w, u, c):
         raise ValueError(f"wkv6: the kernel takes head sizes {KERNEL_N}, got {n}")
     if c > MAX_CHUNK:
         raise ValueError(f"wkv6: the kernel takes chunks of at most {MAX_CHUNK}, got {c}")
-    r, k, v, u = (a.contiguous() for a in (r, k, v, u))
-    lw = torch.log(torch.clamp(w, 1e-8, 1.0)).contiguous()
+    # the kernel reads 16-byte vectors and takes log(clip(w, 1e-8, 1)) itself
+    r, k, v, w, u = (_aligned(a.contiguous()) for a in (r, k, v, w, u))
     o = torch.empty_like(r)
     state = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         lib = load_library().lib
         check_launch(lib.repro_wkv6(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             o.data_ptr(), state.data_ptr(), b, t, h, n, c,
             torch.cuda.current_stream().cuda_stream), "wkv6")
     return o, state
+
+
+def _aligned(a):
+    """``a``, copied if it does not start on a 16-byte boundary."""
+    return a if a.data_ptr() % 16 == 0 else a.clone()

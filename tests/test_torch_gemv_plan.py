@@ -333,3 +333,249 @@ def test_gemv_plan_lives_with_its_weight(recorder):
 def test_stream_sources_are_in_the_build():
     names = {p.name for p in Path(CSRC).glob("*.cu*")}
     assert {"stream_gemv.cuh", "gemv.cu", "fused_gemv_allreduce.cu"} <= names
+
+
+# ---------------------------------------------------------------------------
+# the expert FFN's stream path (kernels/fused_gemm_a2a/plan.py)
+# ---------------------------------------------------------------------------
+from repro_torch.kernels.fused_gemm_a2a import ops as ffn_ops  # noqa: E402
+from repro_torch.kernels.fused_gemm_a2a import plan as ffn_plan_mod  # noqa: E402
+from repro_torch.kernels.fused_gemm_a2a.plan import ffn_plan, unit_order  # noqa: E402
+
+# (n_dev, b, e, c, d, f): dbrx-132b's decode at n_dev = 1 (the main path),
+# its emulated 4-rank world at capacities 2 and 8, ragged shapes
+FFN_MAIN = (1, 1, 16, 2, 6144, 10752)
+FFN_SHAPES = [FFN_MAIN, (4, 1, 4, 2, 6144, 10752), (4, 1, 4, 8, 6144, 10752),
+              (1, 1, 3, 5, 1000, 776), (1, 2, 3, 1, 64, 32), (2, 1, 2, 3, 4096, 1000)]
+
+
+def _ffn_plan(shape, capacity=None):
+    n_dev = shape[0]
+    return ffn_plan(*shape, ranks_in_launch=n_dev, capacity=capacity)
+
+
+def _ffn_coverage(shape, p):
+    """How often each element of u [groups, C, F] and y [groups, C, D], and
+    each K row of each unit, is computed by the plan's units."""
+    _, _, _, c, d, f = shape
+    u = np.zeros((p.groups, f), np.int32)
+    y = np.zeros((p.groups, d), np.int32)
+    k_up, k_down = np.zeros(d, np.int32), np.zeros(f, np.int32)
+    for up, g, t in unit_order(p.groups, p.f_tiles, p.d_tiles):
+        (u if up else y)[g, t * ffn_plan_mod.TILE_N:(t + 1) * ffn_plan_mod.TILE_N] += 1
+    for s in range(p.splits):
+        k_up[s * p.ks_up:(s + 1) * p.ks_up] += 1
+        k_down[s * p.ks_down:(s + 1) * p.ks_down] += 1
+    return u, y, k_up, k_down
+
+
+@pytest.mark.parametrize("shape", FFN_SHAPES)
+def test_ffn_partition_covers_every_element_once(shape):
+    p = _ffn_plan(shape)
+    u, y, k_up, k_down = _ffn_coverage(shape, p)
+    assert (u == 1).all() and (y == 1).all(), "a column of u or y is computed twice or never"
+    assert (k_up == 1).all() and (k_down == 1).all(), "a K row is streamed twice or never"
+    assert p.ks_up % gemv_plan.STAGE_ROWS == 0 and p.ks_down % gemv_plan.STAGE_ROWS == 0
+    assert shape[3] <= p.rows_per_block <= 8, "one row block holds every row of a group"
+    assert len(unit_order(p.groups, p.f_tiles, p.d_tiles)) == p.units
+
+
+@pytest.mark.parametrize("shape", FFN_SHAPES)
+def test_ffn_down_units_follow_their_groups_up_units(shape):
+    """In the static order, and so in each cluster's share of it, every down
+    unit of a group comes after all the up/gate units of that group."""
+    p = _ffn_plan(shape)
+    order = unit_order(p.groups, p.f_tiles, p.d_tiles)
+    last_up = {}
+    for pos, (up, g, _) in enumerate(order):
+        if up:
+            last_up[g] = pos
+    for cid in range(p.clusters):
+        mine = order[cid::p.clusters]
+        for i, (up, g, _) in enumerate(mine):
+            if not up:
+                assert all(not (u and gg == g) for u, gg, _ in mine[i + 1:])
+    for pos, (up, g, _) in enumerate(order):
+        if not up:
+            assert last_up[g] < pos
+
+
+# cudaOccupancyMaxActiveClusters on an H100 at dbrx's main shape (R = 2,
+# each split's x slice): clusters of 1..8 CTAs (chip_smoke.py phase 7
+# prints them)
+H100_FFN = {1: 132, 2: 66, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30}
+
+
+def _h100_ffn(splits, rows_per_block, ks):
+    return H100_FFN[splits]
+
+
+@pytest.mark.parametrize("capacity", [None, _h100_ffn])
+def test_ffn_main_path_waits_only_on_earlier_rounds(capacity):
+    """At the main shape the resident clusters fit in one group's up/gate
+    units, so clusters walking the order in rounds find every up/gate unit
+    a down unit needs in an earlier round."""
+    p = _ffn_plan(FFN_MAIN, capacity)
+    assert p.clusters <= p.f_tiles
+    order = unit_order(p.groups, p.f_tiles, p.d_tiles)
+    up_round = {}
+    for pos, (up, g, _) in enumerate(order):
+        if up:
+            up_round[g] = pos // p.clusters
+    for pos, (up, g, _) in enumerate(order):
+        if not up:
+            assert up_round[g] < pos // p.clusters
+
+
+def test_ffn_card_capacity_gives_the_split_the_card_runs():
+    """One CTA a cluster would make 132 clusters, above the 84 up/gate units
+    of a group; of the others 4 keeps the most CTAs resident (62 clusters,
+    248 CTAs, two an SM)."""
+    p = _ffn_plan(FFN_MAIN, _h100_ffn)
+    assert (p.splits, p.ks_up, p.ks_down, p.clusters) == (4, 1536, 2688, 62)
+    assert p.clusters * p.splits == max(c * s for s, c in H100_FFN.items() if c <= p.f_tiles)
+
+
+@pytest.mark.parametrize("most", range(1, 9))
+@pytest.mark.parametrize("shape", FFN_SHAPES)
+def test_ffn_clusters_fit_the_capacity_at_each_split(shape, most):
+    """A card that holds clusters of at most ``most`` CTAs, more of them
+    than there are units: the planner takes ``most`` splits (where the
+    shorter K has that many stages), or none where x's slice at that split
+    is past shared memory, and no more clusters than it holds."""
+    held = 1 << 20
+    cap = lambda splits, rows_per_block, ks: held if splits <= most else 0
+    p = _ffn_plan(shape, cap)
+    _, _, _, c, d, f = shape
+    want = min(most, -(-min(d, f) // gemv_plan.STAGE_ROWS))
+    r = 1 << (c - 1).bit_length()
+    ks = max(-(-d // want), -(-f // want))
+    if ffn_plan_mod.smem_bytes(r, -(-ks // 32) * 32) > gemv_plan.SMEM_LIMIT:
+        assert p is None
+        return
+    assert p.splits == want
+    assert p.clusters <= held // shape[0] and p.clusters <= p.units
+    assert p.smem <= gemv_plan.SMEM_LIMIT
+    u, y, k_up, k_down = _ffn_coverage(shape, p)
+    assert (u == 1).all() and (y == 1).all() and (k_up == 1).all() and (k_down == 1).all()
+
+
+def test_ffn_plan_mirrors_the_kernel_constants():
+    src = (CSRC / "fused_gemm_a2a.cu").read_text() + (CSRC / "stream_gemv.cuh").read_text()
+
+    def const(name):
+        expr = re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1)
+        for k in re.findall(r"k[A-Z]\w+", expr):
+            expr = expr.replace(k, str(const(k)))
+        return int(eval(expr))
+
+    assert const("kFfnFixedSmem") == ffn_plan_mod.FIXED_SMEM
+    assert const("kStreamConsumerWarps") == ffn_plan_mod.CONSUMER_WARPS
+    assert "(kStreamConsumerWarps + 2) * kStreamN + ks" in src   # ffn_smem_bytes per row
+
+
+def test_ffn_plan_refuses_what_the_stream_path_cannot_take():
+    assert ffn_plan(1, 1, 4, 9, 6144, 10752) is None                  # C above 8 rows
+    assert ffn_plan(1, 1, 4, 8, 8 * 60000, 64) is None                # x's slice past 227 KB
+    with pytest.raises(ValueError):
+        ffn_plan(1, 1, 0, 2, 64, 64)
+
+
+@pytest.mark.parametrize("dtype,c,d,f,aligned,want", [
+    (BF16, 2, 6144, 10752, True, "stream"),   # dbrx decode
+    (F32, 5, 1000, 776, True, "stream"),      # 4000- and 3104-byte rows
+    (BF16, 8, 4096, 1024, True, "stream"),
+    (F32, 5, 1000, 777, True, "panel"),       # F rows of 3108 bytes: not for TMA
+    (BF16, 2, 6143, 10752, True, "panel"),    # D rows of 12286 bytes
+    (BF16, 9, 6144, 10752, True, "panel"),    # C above 8
+    (BF16, 2, 6144, 10752, False, "panel"),   # an unaligned weight
+])
+def test_gemm_a2a_path_choice(dtype, c, d, f, aligned, want):
+    assert ffn_ops.gemm_a2a_path(dtype, 1, 1, 4, c, d, f, aligned) == want
+
+
+@pytest.mark.parametrize("path,c,f,raises", [
+    ("stream", 9, 8, True), ("stream", 3, 7, True), ("stream", 3, 8, False),
+    ("panel", 9, 7, False), ("tile", 3, 8, True)])
+def test_gemm_a2a_forced_path_that_does_not_fit_raises_on_cpu(path, c, f, raises):
+    x = torch.randn(1, 1, 2, c, 16)
+    wu, wg, wd = torch.randn(2, 16, f), torch.randn(2, 16, f), torch.randn(2, f, 16)
+    for fn, args in ((ffn_ops.fused_gemm_a2a, (x, wu, wg, wd)),
+                     (ffn_ops.fused_gemm_a2a_ranks, (x[None], wu[None], wg[None], wd[None]))):
+        if raises:
+            with pytest.raises(ValueError):
+                fn(*args, _path=path)
+        else:
+            assert fn(*args, _path=path).shape == args[0].shape
+
+
+class _FfnRecorder(_Recorder):
+    """Stands in for the expert FFN's plan class."""
+
+    def __init__(self, xr, wu, wg, wd, act, wire, comm_aware, skew, path):
+        type(self).built.append((xr, act, wire, comm_aware, skew, path))
+        self.launched, self.path = 0, path or "stream"
+
+
+@pytest.fixture
+def ffn_recorder(monkeypatch):
+    _FfnRecorder.built = []
+    monkeypatch.setattr(ffn_ops, "_GemmA2APlan", _FfnRecorder)
+    monkeypatch.setattr(ffn_ops, "_PLANS", PlanCache())
+    return _FfnRecorder
+
+
+def test_gemm_a2a_plan_is_built_once_per_signature(ffn_recorder):
+    fn = ffn_ops.fused_gemm_a2a
+    x = torch.zeros(1, 1, 2, 3, 16)
+    wu, wg, wd = torch.zeros(2, 16, 8), torch.zeros(2, 16, 8), torch.zeros(2, 8, 16)
+    ops = [_on_card(a) for a in (wu, wg, wd)]
+    launches, stream = fn.launches, fn.path_launches["stream"]
+    for _ in range(3):
+        assert fn(_on_card(x), *ops).shape == x.shape
+    assert len(ffn_recorder.built) == 1
+    assert fn.launches == launches + 3 and fn.path_launches["stream"] == stream + 3
+    for kw in ({"act": "gelu"}, {"wire": "bf16"}, {"comm_aware": False}, {"skew": 1},
+               {"_path": "panel"}):
+        fn(_on_card(x), *ops, **kw)
+        fn(_on_card(x), *ops, **kw)
+    fn(_on_card(x), _on_card(wu.clone()), *ops[1:])           # another weight tensor
+    assert len(ffn_recorder.built) == 7 and fn.path_launches["panel"] >= 2
+    assert ffn_recorder.built[0][0].shape == (1,) + x.shape   # the rank axis added
+    fn(x, wu, wg, wd)                                         # CPU: the plain version
+    assert len(ffn_recorder.built) == 7
+    with pytest.raises(ValueError):
+        fn(_on_card(x), *ops, act="swish")
+    ffn_ops.fused_gemm_a2a_ranks(_on_card(x[None]), *(_on_card(a[None]) for a in (wu, wg, wd)))
+    assert len(ffn_recorder.built) == 8
+
+
+@pytest.mark.parametrize("which", range(3))
+def test_gemm_a2a_plan_goes_with_any_of_its_weights(ffn_recorder, which):
+    x = torch.zeros(1, 1, 2, 3, 16)
+    w = [torch.zeros(2, 16, 8), torch.zeros(2, 16, 8), torch.zeros(2, 8, 16)]
+    ffn_ops.fused_gemm_a2a(_on_card(x), *(_on_card(a) for a in w))
+    assert len(ffn_ops._PLANS) == 1
+    ffn_recorder.built.clear()                  # the recorder kept the call's tensors
+    del w[which]
+    assert len(ffn_ops._PLANS) == 0
+
+
+def test_plan_cache_drops_a_plan_with_any_owner():
+    freed = []
+
+    class Plan:
+        def free(self):
+            freed.append(self)
+
+    cache, a, b = PlanCache(), torch.zeros(2), torch.zeros(2)
+    cache.put("ab", Plan(), owner=(a, b))
+    del b
+    assert cache.get("ab") is None and len(freed) == 1
+    del a                                       # the other owner's finalizer was detached
+    assert len(freed) == 1
+
+
+def test_stream_path_of_the_expert_ffn_is_in_the_build():
+    src = (CSRC / "fused_gemm_a2a.cu").read_text()
+    assert '#include "stream_gemv.cuh"' in src and "ffn_stream_kernel" in src

@@ -27,7 +27,7 @@ from repro.models import rwkv6 as jrwkv6
 from repro.models.common import split_params
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
-from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_ref
+from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_factored, wkv6_ref
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import rwkv6
 from repro_torch.models.convert import rwkv6_params_from_numpy
@@ -91,6 +91,68 @@ def test_wkv6_op_matches_jax_kernel_and_chunked(rng, T, n, chunk):
     np.testing.assert_allclose(o.numpy(), want_o, **F32)
     np.testing.assert_allclose(o.numpy(), np.asarray(want_oc), **F32)
     np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **F32)
+
+
+def _clipped(rng, b, T, h, n, at_clip):
+    """_rkvwu's operands with a share ``at_clip`` of the decays below the
+    1e-8 clip (log decay -18.4 a step, so the -60 clip binds four steps
+    apart) and the rest within 1e-6 of 1 or drawn as there."""
+    r, k, v, w, u = _rkvwu(rng, b, T, h, n)
+    pick = rng.random(w.shape)
+    w[pick < at_clip] = 1e-12
+    w[pick > 1 - (1 - at_clip) / 2] = 1.0 - 1e-6
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("T,n,chunk", [(64, 8, 64), (96, 16, 32), (48, 8, 16), (40, 8, 20),
+                                       (32, 4, 8), (24, 8, 24)])
+@pytest.mark.parametrize("at_clip", [0.05, 0.5])
+def test_wkv6_factored_matches_jax_kernel_and_chunked(rng, T, n, chunk, at_clip):
+    """The CUDA kernel's factored pairwise decay, in its plain mirror,
+    against the JAX kernel in interpret mode and the chunked form, with
+    decays at the clip (where the factored form may differ, by at most
+    e^-60 |r k| a term) and close to 1."""
+    r, k, v, w, u = _clipped(rng, 2, T, 2, n, at_clip)
+    want_o = np.asarray(jax_wkv6(r, k, v, w, u, chunk=chunk))
+    want_oc, want_s = jrwkv6.wkv6_chunked(r, k, v, w, u, jnp.zeros((2, 2, n, n)), chunk)
+    o, s = wkv6_factored(t(r), t(k), t(v), t(w), t(u), torch.zeros(2, 2, n, n), chunk)
+    np.testing.assert_allclose(o.numpy(), want_o, **F32)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_oc), **F32)
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), **F32)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_wkv6_factored_matches_chunked_from_a_state(rng, chunk):
+    """From a non-zero state, over several chunks, against the port's own
+    chunked form (the CPU path of the op)."""
+    r, k, v, w, u = (t(a) for a in _clipped(rng, 2, 128, 3, 16, 0.2))
+    S0 = t(rng.standard_normal((2, 3, 16, 16)).astype(np.float32))
+    o_f, s_f = wkv6_factored(r, k, v, w, u, S0, chunk)
+    o_c, s_c = wkv6_chunked(r, k, v, w, u, S0, chunk)
+    torch.testing.assert_close(o_f, o_c, **F32)
+    torch.testing.assert_close(s_f, s_c, **F32)
+
+
+def test_wkv6_factored_is_the_chunked_form_where_no_clip_binds(rng):
+    """Decays in [0.5, 1): a chunk of 64 steps decays by at most e^-44.4,
+    so no factor is clipped and the two forms differ by rounding only."""
+    r, k, v, _, u = _rkvwu(rng, 2, 128, 2, 16)
+    w = (0.5 + 0.5 * rng.random(r.shape)).astype(np.float32)
+    got = wkv6_factored(*(t(a) for a in (r, k, v, w, u)), torch.zeros(2, 2, 16, 16), 64)
+    want = wkv6_chunked(*(t(a) for a in (r, k, v, w, u)), torch.zeros(2, 2, 16, 16), 64)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+
+
+def test_wkv6_launch_operands_are_16_byte_aligned():
+    """The kernel reads 16-byte vectors: an operand off that boundary is
+    copied first, an aligned one is passed as it is."""
+    base = torch.zeros(65)
+    assert wkv_ops._aligned(base[:64]) is not None
+    assert wkv_ops._aligned(base[:64]).data_ptr() == base.data_ptr()
+    off = base[1:]
+    assert off.data_ptr() % 16 != 0 and wkv_ops._aligned(off).data_ptr() % 16 == 0
+    assert torch.equal(wkv_ops._aligned(off), off)
 
 
 @pytest.mark.parametrize("chunk", [4, 8, 16, 32])
