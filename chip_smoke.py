@@ -57,19 +57,31 @@ prints one line, and any failure exits non-zero:
      Tensor.copy_'s
  11. embedding_pool against its plain version: DLRM's main-path shape (128
      of its 512 tables of 1,000,000 x 92 f32, batch 8192, pooling 70, the
-     first and last rows included) and ragged shapes (D 1, 93, 160, 257,
-     L 1, bag counts off the CTA's multiple, bf16 tables)
- 12. fused_embedding_a2a: one rank at the main-path shape bit-identical to
-     embedding_pool; its 4-rank world emulated on the card at full width
-     ([4, 32, V, D] tables) bit-identical to embedding_pool's rows, both
-     schedules, 3 calls back to back each; a ragged 3-rank world against
-     its plain version
+     first and last rows included) on the path bag_path chooses and forced
+     onto the other, the ring path bit-identical to the warp path, and
+     ragged shapes (D 1, 8, 93, 160, 256, 257, L 1, bag counts off the CTA's
+     multiple, bf16 tables at D 4, 64 and 92, an unaligned table), each on
+     bag_path's path and, where the ring path takes it, bit-identical on it
+ 12. fused_embedding_a2a on bag_path's path and forced onto each path: one
+     rank at the main-path shape bit-identical to embedding_pool; its
+     4-rank world emulated on the card at full width ([4, 32, V, D]
+     tables) bit-identical to embedding_pool's rows, both schedules, 3
+     calls back to back each; ragged 3-rank worlds (D 92 and 93) against
+     their plain version
  13. the full-width DLRM forward (128 tables, DLRMBatches(seed=0) batch of
      8192) through the registry's bundle in kernel and bulk mode: launch
-     counts (1 pooling launch per forward, 4 at chunks_per_rank 4, where
-     the pooled output is bit-identical), logits and loss kernel vs bulk
- 14. the DLRM kernels' and forward's times from CUDA events, and a profile
-     of the forward
+     counts (1 pooling launch per forward, on bag_path's path; 4 at
+     chunks_per_rank 4, where the pooled output is bit-identical), logits
+     and loss kernel vs bulk
+ 14. the bag kernels' registers and CTAs an SM on each path (and scratch
+     builds of the parent's fused kernel, with and without a bound of
+     three CTAs an SM), both
+     kernels and the world on each path beside the bound, the
+     gathered-bytes floor, the plain versions and F.embedding_bag; both
+     paths on indices whose rows stay in L2 and on rows in sequence;
+     scratch builds of both paths with batch-major units and of the warp
+     path at four CTAs an SM; both paths at bf16 rows of D = 64; the
+     ring-size sweep; the forward in both modes with profiles
  15. wkv6 against its plain chunked version and the per-step scan at the
      main-path shape (rwkv6-7b's prefill: B*H = 4*64, T = 512, N = 64,
      chunk 64; decays across the clip range, a non-zero bonus) and edge
@@ -146,6 +158,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1122,6 +1135,7 @@ def dlrm_phases(card, gen) -> list[dict]:
     from repro_torch.core.embedding_all_to_all import embedding_all_to_all
     from repro_torch.data.synthetic import DLRMBatches
     from repro_torch.kernels.embedding_pool.ops import embedding_pool, embedding_pool_tables
+    from repro_torch.kernels.embedding_pool.plan import RING_BYTES, RING_SWEEP, bag_path, ring_fits
     from repro_torch.kernels.embedding_pool.ref import embedding_pool_ref, embedding_pool_tables_ref
     from repro_torch.kernels.fused_embedding_a2a.ops import (fused_embedding_a2a,
                                                              fused_embedding_a2a_ranks)
@@ -1149,71 +1163,113 @@ def dlrm_phases(card, gen) -> list[dict]:
     ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
 
     # 11 --------------------------------------------------------------
-    # the batch's indices with the first and last rows of every table in it
+    # the batch's indices with the first and last rows of every table in it;
+    # the main shape on both paths, each against plain and the ring path
+    # bit-identical to the warp path; ragged shapes on the path bag_path
+    # chooses, and those the ring path takes forced onto it too
     edge = idx.clone()
     edge[0, :, 0], edge[-1, :, -1] = 0, V - 1
-    pooled = embedding_pool_tables(tables, edge)
-    pool_err = check_close("embedding_pool main", pooled, embedding_pool_tables_ref(tables, edge),
-                           F32_TOL)
+    main_path = bag_path(tables.dtype, D, tables.data_ptr() % 16 == 0, B * T)
+    pooled, took = on_path(embedding_pool_tables, lambda: embedding_pool_tables(tables, edge))
+    if took != main_path:
+        raise AssertionError(f"embedding_pool main: took the {took} path, bag_path says {main_path}")
+    pool_want = embedding_pool_tables_ref(tables, edge)
+    pool_err = check_close(f"embedding_pool main {main_path}", pooled, pool_want, F32_TOL)
+    other = "ring" if main_path == "warp" else "warp"
+    pooled_other = embedding_pool_tables(tables, edge, _path=other)
+    other_err = check_close(f"embedding_pool main {other}", pooled_other, pool_want, F32_TOL)
+    if not torch.equal(pooled, pooled_other):
+        raise AssertionError("embedding_pool main: the ring path is not bit-identical to the warp path")
+    del pool_want, pooled_other
     past = sum(1 for t in range(T) if t * V * D >= 2 ** 31)
     rag = []
-    for n_tab, v, d, b, nl, dt in ((3, 1000, 1, 13, 70, f32), (3, 1000, 93, 13, 7, f32),
-                                   (2, 500, 257, 5, 33, f32), (2, 500, 160, 5, 9, f32),
-                                   (3, 1000, 92, 13, 1, f32),
-                                   (3, 1000, 92, 13, 70, bf16), (2, 1000, 64, 7, 9, bf16)):
-        tab = randn(gen, (n_tab, v, d), dt)
+    for n_tab, v, d, b, nl, dt, off in (
+            (3, 1000, 1, 13, 70, f32, 0), (3, 1000, 93, 13, 7, f32, 0),
+            (2, 500, 257, 5, 33, f32, 0), (2, 500, 160, 5, 9, f32, 0),
+            (3, 1000, 92, 13, 1, f32, 0), (3, 1000, 92, 13, 70, f32, 1),
+            (2, 300, 256, 9, 70, f32, 0), (2, 300, 8, 21, 3, f32, 0),
+            (3, 1000, 92, 13, 70, bf16, 0), (2, 1000, 64, 7, 9, bf16, 0),
+            (3, 1000, 64, 37, 70, bf16, 0), (2, 300, 4, 9, 5, bf16, 0)):
+        # off: the tables one element past a 16-byte boundary
+        tab = randn(gen, (n_tab * v * d + off,), dt)[off:].view(n_tab, v, d)
         ix = torch.randint(0, v, (b, n_tab, nl), generator=gen, device="cuda", dtype=torch.int32)
         ix[0, :, 0], ix[-1, :, -1] = 0, v - 1
-        name = f"T={n_tab} V={v} D={d} B={b} L={nl} {str(dt)[6:]}"
-        err = check_close(f"embedding_pool {name}", embedding_pool_tables(tab, ix),
-                          embedding_pool_tables_ref(tab, ix), F32_TOL if dt == f32 else BF16_TOL)
-        rag.append(f"{name} {err[0]:.3g}")
+        name = f"T={n_tab} V={v} D={d} B={b} L={nl} {str(dt)[6:]}{' unaligned' if off else ''}"
+        got, took = on_path(embedding_pool_tables, lambda: embedding_pool_tables(tab, ix))
+        if took != bag_path(dt, d, off == 0, b * n_tab):
+            raise AssertionError(f"embedding_pool {name}: took the {took} path")
+        err = check_close(f"embedding_pool {name} {took}", got, embedding_pool_tables_ref(tab, ix),
+                          F32_TOL if dt == f32 else BF16_TOL)
+        same = ""
+        if ring_fits(dt, d, off == 0, b * n_tab):
+            if not torch.equal(got, embedding_pool_tables(tab, ix, _path="ring")):
+                raise AssertionError(f"embedding_pool {name}: ring path not bit-identical to warp")
+            same = ", ring path = warp path"
+        rag.append(f"{name} {took} {err[0]:.3g}{same}")
     last = edge[:, T - 1].contiguous()
     one = check_close("embedding_pool one table", embedding_pool(tables[T - 1], last),
                       embedding_pool_ref(tables[T - 1], last), F32_TOL)
     say(11, f"embedding_pool vs plain: main [{T},{V},{D}] f32 tables (init {init_s:.1f}s, "
             f"{tables.numel() * 4 / 1e9:.1f} GB; {past} tables start past element 2^31), "
-            f"B={B} L={L}, indices 0 and V-1 included: max abs/rel err "
-            f"{pool_err[0]:.3g}/{pool_err[1]:.3g}; single-table entry (table {T - 1}) "
-            f"{one[0]:.3g}; ragged max abs err: " + "; ".join(rag))
+            f"B={B} L={L}, indices 0 and V-1 included: max abs/rel err on the {main_path} path "
+            f"(bag_path's choice) {pool_err[0]:.3g}/{pool_err[1]:.3g}, forced onto the {other} "
+            f"path {other_err[0]:.3g}/{other_err[1]:.3g}, the two bit-identical; single-table "
+            f"entry (table {T - 1}) {one[0]:.3g}; ragged, on bag_path's path, max abs err: "
+            + "; ".join(rag))
 
     # 12 --------------------------------------------------------------
-    if not torch.equal(fused_embedding_a2a(ctx_k, edge, tables), pooled):
-        raise AssertionError("fused_embedding_a2a n_dev=1: not bit-identical to embedding_pool")
+    # each call on bag_path's path (the warp path at one rank, the ring path
+    # in the full-width world), then forced onto the other
     n = 4
     tab_r = tables.view(n, T // n, V, D)
     idx_r = edge.view(B, n, T // n, L).permute(1, 0, 2, 3).contiguous()
-    calls = 0
-    for comm_aware in (True, False):
-        for i in range(3):   # back to back: 3 epochs on the same flag words
-            got = fused_embedding_a2a_ranks(tab_r, idx_r, comm_aware=comm_aware)
-            calls += 1
-            if not torch.equal(got.view(B, T, D), pooled):
-                raise AssertionError(f"emulated world comm_aware={comm_aware} call {i}: not "
-                                     f"bit-identical to embedding_pool's rows")
-    del idx_r, got
-    tab3 = randn(gen, (3, 2, 300, 93), f32)
-    idx3 = torch.randint(0, 300, (3, 15, 2, 7), generator=gen, device="cuda", dtype=torch.int32)
-    want3 = fused_embedding_a2a_ref_ranks(tab3, idx3)
-    rag3 = 0.0
-    for comm_aware in (True, False):
-        for i in range(3):
-            rag3 = max(rag3, check_close(f"ragged world comm_aware={comm_aware} call {i}",
-                                         fused_embedding_a2a_ranks(tab3, idx3, comm_aware=comm_aware),
-                                         want3, F32_TOL)[0])
-            calls += 1
-    say(12, f"fused_embedding_a2a: n_dev=1 at [{T},{V},{D}], B={B} bit-identical to "
-            f"embedding_pool; emulated {n}-rank world at full width ([{n},{T // n},{V},{D}] "
-            f"tables, rank r's output = rows r*{B // n}.. of embedding_pool's) bit-identical "
-            f"for both schedules, 3 calls each; ragged world n=3 B=15 T_loc=2 D=93 L=7 vs plain "
-            f"max abs err {rag3:.3g}, both schedules, 3 calls each ({calls} world launches)")
+    calls, rag3, took_world = 0, {}, set()
+    rag_worlds = [(randn(gen, (3, 2, 300, d3), f32),
+                   torch.randint(0, 300, (3, 15, 2, 7), generator=gen, device="cuda",
+                                 dtype=torch.int32)) for d3 in (92, 93)]
+    for force in (None, "ring", "warp"):
+        got, took = on_path(fused_embedding_a2a,
+                            lambda: fused_embedding_a2a(ctx_k, edge, tables, _path=force))
+        if took != (force or main_path) or not torch.equal(got, pooled):
+            raise AssertionError(f"fused_embedding_a2a n_dev=1 on the {took} path: not "
+                                 f"bit-identical to embedding_pool")
+        for comm_aware in (True, False):
+            for i in range(3):   # back to back: 3 epochs on the same flag words
+                got, took = on_path(fused_embedding_a2a_ranks, lambda: fused_embedding_a2a_ranks(
+                    tab_r, idx_r, comm_aware=comm_aware, _path=force))
+                calls += 1
+                took_world.add(f"{force or 'chosen'}: {took}")
+                if (force is None and took != bag_path(f32, D, True, B * T, n)) or \
+                        not torch.equal(got.view(B, T, D), pooled):
+                    raise AssertionError(f"emulated world on the {took} path comm_aware="
+                                         f"{comm_aware} call {i}: not bit-identical to "
+                                         f"embedding_pool's rows")
+        for tab3, idx3 in rag_worlds:
+            if force == "ring" and not ring_fits(f32, tab3.shape[-1]):
+                continue
+            want3 = fused_embedding_a2a_ref_ranks(tab3, idx3)
+            for comm_aware in (True, False):
+                for i in range(3):
+                    got, took = on_path(fused_embedding_a2a_ranks, lambda: fused_embedding_a2a_ranks(
+                        tab3, idx3, comm_aware=comm_aware, _path=force))
+                    calls += 1
+                    key = f"D={tab3.shape[-1]} {took}"
+                    rag3[key] = max(rag3.get(key, 0.0), check_close(
+                        f"ragged world {key} comm_aware={comm_aware} call {i}", got, want3,
+                        F32_TOL)[0])
+    del idx_r, got, rag_worlds
+    say(12, f"fused_embedding_a2a on bag_path's path and forced onto each: n_dev=1 at "
+            f"[{T},{V},{D}], B={B} bit-identical to embedding_pool on both paths; emulated "
+            f"{n}-rank world at full width ([{n},{T // n},{V},{D}] tables, rank r's output = "
+            f"rows r*{B // n}.. of embedding_pool's) bit-identical for both schedules, 3 calls "
+            f"each, on the paths (" + ", ".join(sorted(took_world)) + "); ragged worlds n=3 "
+            f"B=15 T_loc=2 L=7 vs plain, both schedules, 3 calls each, max abs err: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rag3.items()) + f" ({calls} world launches)")
 
     # 13 --------------------------------------------------------------
-    reset_counts()
-    logits_k = dlrm_forward(ctx_k, params, cfg, batch)
-    launches = {c.__name__: c.launches for c in counted_wrappers()}
-    if launches["embedding_pool_tables"] != 1 or sum(launches.values()) != 1:
-        raise AssertionError(f"kernel-mode forward at q=1 launched {launches}")
+    logits_k, launches = counted_run(lambda: dlrm_forward(ctx_k, params, cfg, batch),
+                                     {"embedding_pool_tables": 1,
+                                      f"embedding_pool_tables.{main_path}": 1})
     loss_k = bundle.loss_fn(ctx_k)(params, batch)
     q4 = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel", granularity=4))
     embedding_pool_tables.launches = 0
@@ -1232,28 +1288,40 @@ def dlrm_phases(card, gen) -> list[dict]:
     say(13, f"DLRM forward, full width with {T} of 512 tables ({cfg.table_vocab} x {D} f32 "
             f"each, bottom {cfg.bottom_mlp}, top {cfg.top_mlp}, interaction "
             f"{params['top'][0]['w'].shape[0]} wide), batch {B} from DLRMBatches(seed=0): "
-            f"kernel-mode launches at q=1 {launches['embedding_pool_tables']} (all wrappers "
-            f"{sum(launches.values())}), at q=4 4, pooled output at q=4 bit-identical to q=1; "
+            f"kernel-mode launches at q=1 {launches['embedding_pool_tables']} (on the {main_path} "
+            f"path {launches[f'embedding_pool_tables.{main_path}']}; all wrappers "
+            f"{sum(v for k, v in launches.items() if '.' not in k)}), at q=4 4, pooled output "
+            f"at q=4 bit-identical to q=1; "
             f"logits kernel vs bulk max abs/rel err {logit_err[0]:.3g}/{logit_err[1]:.3g} "
             f"(|logits| <= {logits_b.abs().max().item():.3g}); loss kernel {loss_k.item():.6f}, "
             f"bulk {loss_b.item():.6f}, err {loss_err[0]:.3g}")
 
     # 14 --------------------------------------------------------------
+    say(14, f"on {card}: registers and occupancy of the bag kernels: "
+            f"{bag_occupancy(ctx_k, tables, idx)}")
     offs = torch.arange(T, device="cuda", dtype=torch.int32)[None, :, None] * V
     flat_idx, flat_w = (idx + offs).reshape(B * T, L), tables.view(T * V, D)
     distinct = torch.unique(flat_idx).numel()
     del offs
-    t_pool = time_ms(lambda: embedding_pool_tables(tables, idx), iters=10, warmup=2)
+    idx_r = idx.view(B, n, T // n, L).permute(1, 0, 2, 3).contiguous()
+    calls = {"embedding_pool": lambda **kw: embedding_pool_tables(tables, idx, **kw),
+             "fused_embedding_a2a": lambda **kw: fused_embedding_a2a(ctx_k, idx, tables, **kw),
+             "world": lambda **kw: fused_embedding_a2a_ranks(tab_r, idx_r, **kw)}
+    t_path = {}   # name -> path -> ms, in turns ring, warp, warp, ring
+    for name, fn in calls.items():
+        t_path[name] = {"ring": [], "warp": []}
+        for p_ in ("ring", "warp", "warp", "ring"):
+            t_path[name][p_].append(time_ms(lambda: fn(_path=p_), iters=10, warmup=2))
+    sweep = {name: {rb: time_ms(lambda: calls[name](_path="ring", _ring_bytes=rb), iters=10,
+                                warmup=2) for rb in RING_SWEEP} for name in calls}
+    per_sm = {rb: ring_ctas_per_sm(rb, D) for rb in RING_SWEEP}
     t_plain = time_ms(lambda: embedding_pool_tables_ref(tables, idx), iters=3, warmup=1)
     t_lib = time_ms(lambda: F.embedding_bag(flat_idx, flat_w, mode="mean"), iters=10, warmup=2)
-    t_fused = time_ms(lambda: fused_embedding_a2a(ctx_k, idx, tables), iters=10, warmup=2)
     t_fused_plain = time_ms(lambda: fused_embedding_a2a_ref(tables[None], idx[None]), iters=3,
                             warmup=1)
-    idx_r = idx.view(B, n, T // n, L).permute(1, 0, 2, 3).contiguous()
-    t_world = time_ms(lambda: fused_embedding_a2a_ranks(tab_r, idx_r), iters=10, warmup=2)
     t_world_plain = time_ms(lambda: fused_embedding_a2a_ref_ranks(tab_r, idx_r), iters=3,
                             warmup=1)
-    del idx_r
+    del idx_r, flat_idx
     fwd = {"kernel": [], "bulk": []}
     for mode, ctx in (("kernel", ctx_k), ("bulk", ctx_b), ("bulk", ctx_b), ("kernel", ctx_k)):
         fwd[mode].append(time_ms(lambda: dlrm_forward(ctx, params, cfg, batch), iters=10,
@@ -1264,34 +1332,314 @@ def dlrm_phases(card, gen) -> list[dict]:
     pool_ops = B * T * (L + 1) * D      # one add per lookup and element, one division
     t_bytes, t_ops = pool_bytes / HBM_BYTES_PER_S * 1e3, pool_ops / F32_FLOPS * 1e3
     bnd, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    # a gather in lookup order that reads every lookup's row from HBM: the
+    # 32-byte sectors each row spans at its address, the indices, the output
+    gathered = gathered_bytes(tables, idx)
+    best = {k: min(min(v) for v in t_path[k].values()) for k in t_path}
     say(14, f"on {card}: pooling [{T},{V},{D}] f32, B={B} L={L} ({distinct} distinct rows of "
             f"{T * V}, {pool_bytes / 1e9:.2f} GB each read once, {idx.numel() * D * 4 / 1e9:.2f} "
-            f"GB gathered): embedding_pool kernel {t_pool:.4f} ms, plain {t_plain:.4f} ms, "
-            f"F.embedding_bag over all {T} tables {t_lib:.4f} ms, bound {bnd:.4f} ms "
-            f"({bound_by}); fused_embedding_a2a n_dev=1 {t_fused:.4f} ms (plain "
-            f"{t_fused_plain:.4f} ms), emulated {n}-rank "
-            f"world {t_world:.4f} ms per call (plain {t_world_plain:.4f} ms); DLRM forward per "
-            f"batch of {B} (CUDA events, turns kernel, bulk, bulk, kernel): "
-            + "; ".join(f"{m} " + ", ".join(f"{v:.4f}" for v in vs) + " ms"
-                        for m, vs in fwd.items())
+            f"GB gathered, {gathered / 1e9:.2f} GB in the sectors of a gather in lookup order): "
+            f"bound {bnd:.4f} ms ({bound_by}), gathered-bytes floor "
+            f"{gathered / HBM_BYTES_PER_S * 1e3:.4f} ms; per path, in turns ring, warp, warp, "
+            f"ring (ms): " + "; ".join(
+                f"{k} " + ", ".join(f"{p_} " + "/".join(f"{t:.4f}" for t in v)
+                                    for p_, v in t_path[k].items()) for k in t_path)
+            + "; fused n_dev=1 over embedding_pool: "
+            + ", ".join(f"{p_} path {min(t_path['fused_embedding_a2a'][p_]) / min(t_path['embedding_pool'][p_]):.4f}"
+                        for p_ in ("ring", "warp"))
+            + f"; plain: embedding_pool {t_plain:.4f} ms, fused_embedding_a2a n_dev=1 "
+            f"{t_fused_plain:.4f} ms, emulated {n}-rank world {t_world_plain:.4f} ms; "
+            f"F.embedding_bag over all {T} tables {t_lib:.4f} ms")
+    say(14, f"on {card}: embedding_pool per path on other indices of the same shape, ms in "
+            f"turns ring, warp, warp, ring: {gather_limits(tables, idx)}")
+    say(14, f"on {card}: embedding_pool on scratch builds beside the build, in turns: "
+            f"{pool_variant_times(tables, idx)}")
+    say(14, f"on {card}: embedding_pool at bf16 rows of D = 64, per path, in turns: "
+            f"{narrow_rows_times(gen)}")
+    say(14, f"on {card}: ring sizes, ms on the ring path (CTAs an SM): " + "; ".join(
+            f"{k} " + ", ".join(f"{rb // 1024} KB {t:.4f} ({per_sm[rb]})" for rb, t in v.items())
+            for k, v in sweep.items())
+            + f" (RING_BYTES = {RING_BYTES // 1024} KB)")
+    say(14, f"on {card}: DLRM forward per batch of {B} (CUDA events, turns kernel, bulk, bulk, "
+            f"kernel): " + "; ".join(f"{m} " + ", ".join(f"{v:.4f}" for v in vs) + " ms"
+                                     for m, vs in fwd.items())
             + f"; profile of the kernel-mode forward: {prof_k}; of the bulk-mode forward: "
             f"{prof_b}")
 
     # fused_embedding_a2a is bit-identical to embedding_pool (phase 12), so
     # its error against the plain version is embedding_pool's
     row = {"route": "cuda", "max_abs_err": pool_err[0], "bound_ms": bnd, "bound_by": bound_by,
-           "library_ms": t_lib}
+           "library_ms": t_lib, "path": main_path}
     return [
         {"name": "embedding_pool", **row,
          "source": "src/repro_torch/kernels/csrc/embedding_pool.cu",
          "replaces": "src/repro/kernels/embedding_pool/kernel.py:20",
-         "launches": launches["embedding_pool_tables"], "ms": t_pool, "plain_ms": t_plain},
+         "launches": launches["embedding_pool_tables"],
+         "ms": min(t_path["embedding_pool"][main_path]), "plain_ms": t_plain,
+         "ring_ms": min(t_path["embedding_pool"]["ring"])},
         {"name": "fused_embedding_a2a", **row,
          "source": "src/repro_torch/kernels/csrc/fused_embedding_a2a.cu",
          "replaces": "src/repro/kernels/fused_embedding_a2a/kernel.py:33",
-         "launches": launches["fused_embedding_a2a"], "main_path": False, "ms": t_fused,
-         "plain_ms": t_fused_plain},
+         "launches": launches["fused_embedding_a2a"], "main_path": False,
+         "ms": min(t_path["fused_embedding_a2a"][main_path]), "plain_ms": t_fused_plain,
+         "ring_ms": min(t_path["fused_embedding_a2a"]["ring"])},
     ]
+
+
+def gathered_bytes(tables, idx) -> int:
+    """Bytes a gather in lookup order moves when it reads every lookup's
+    row from HBM: the 32-byte sectors each row spans at its address, the
+    int32 indices, the output written once."""
+    n_tab, v, d = tables.shape
+    row = d * tables.element_size()
+    base = tables.data_ptr() + torch.arange(n_tab, device=idx.device,
+                                            dtype=torch.int64)[None, :, None] * v * row
+    start = (idx.long() * row + base) % 32
+    sectors = ((start + row + 31) // 32).sum().item()
+    return sectors * 32 + idx.numel() * 4 + idx.shape[0] * n_tab * row
+
+
+def ring_ctas_per_sm(ring_bytes, d, itemsize=4) -> int:
+    """CTAs of embedding_pool's ring kernel an SM holds at a ring of
+    ``ring_bytes`` on rows of ``d`` elements (cudaOccupancyMaxActive-
+    BlocksPerMultiprocessor)."""
+    import ctypes
+
+    from repro_torch.kernels import check_launch, load_library
+    from repro_torch.kernels.embedding_pool.plan import ring_slots, smem_bytes
+
+    row = d * itemsize
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    check_launch(load_library().lib.repro_embedding_pool_info(
+        1, 0 if itemsize == 4 else 1, smem_bytes(ring_slots(row, ring_bytes), row),
+        ctypes.byref(regs), ctypes.byref(ctas)), "embedding_pool info")
+    return ctas.value
+
+
+def ptxas_registers(log, kernel, flag=None) -> dict:
+    """dtype ("f32", "bf16") -> (registers, spill stores in bytes) that
+    ptxas reported for that instantiation of the kernel template ``kernel``
+    (with its bool template argument ``flag``, where it has one) in a build
+    log."""
+    got = {}
+    for m in re.finditer(r"Function properties for (\S+)\n.*?(\d+) bytes spill stores.*\n"
+                         r".*Used (\d+) registers", log):
+        name = m.group(1)
+        if f"{kernel}I" in name and (flag is None or f"Lb{int(flag)}E" in name):
+            got["bf16" if "bfloat16" in name else "f32"] = (int(m.group(3)), int(m.group(2)))
+    return got
+
+
+def variant_lib(source, subs, tag):
+    """``csrc/<source>`` built alone into a shared library of its own under
+    ``build/repro_torch_variants/<tag>``, beside copies of the headers, each
+    (file, old, new) of ``subs`` replaced in its file first; returns (the
+    ctypes library, nvcc's output)."""
+    import ctypes
+
+    from repro_torch.kernels import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc
+
+    out = BUILD_DIR.parent / "repro_torch_variants" / tag
+    out.mkdir(parents=True, exist_ok=True)
+    texts = {p_.name: p_.read_text() for p_ in [*CSRC.glob("*.cuh"), CSRC / source]}
+    for name, old, new in subs:
+        if old not in texts[name]:
+            raise AssertionError(f"{name} no longer holds {old!r} ({tag})")
+        texts[name] = texts[name].replace(old, new)
+    for name, text in texts.items():
+        (out / name).write_text(text)
+    so = out / f"lib{tag}.so"
+    p = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(out), "-shared", "-o", str(so),
+                        str(out / source)], capture_output=True, text=True)
+    if p.returncode != 0:
+        raise AssertionError(f"nvcc failed on the {tag} variant of {source}:\n{p.stdout}{p.stderr}")
+    return ctypes.CDLL(str(so)), p.stdout + p.stderr
+
+
+# The parent commit's fused_embedding_a2a_kernel (before the ring path), for
+# phase 14's "before" scratch builds: the same body, on the current
+# EmbA2AArgs (blocks_per_frag is now units_per_frag) and under the
+# template signature the launcher instantiates; {bound} is "" (as it was)
+# or ", 3".
+PARENT_FUSED_KERNEL = """template <typename T, bool kPeers>
+__global__ void __launch_bounds__(kBagThreads{bound}) fused_embedding_a2a_kernel(EmbA2AArgs a) {{
+  const int ry = blockIdx.y, my = a.my_base + ry;
+  const int step = blockIdx.x / a.units_per_frag;
+  const int off = a.comm_aware ? a.n_dev - 1 - step : step;
+  const int dest = (my + off) % a.n_dev;
+  const int bag = (blockIdx.x % a.units_per_frag) * kBagWarps + threadIdx.x / 32;
+  if (bag < a.B_loc * a.T_loc) {{
+    const int b = bag / a.T_loc, t = bag % a.T_loc;
+    const T* tab = static_cast<const T*>(a.tables) + ry * a.tables_rank_stride + (size_t)t * a.V * a.D;
+    const int* ix = a.idx + ry * a.idx_rank_stride +
+                    ((size_t)(dest * a.B_loc + b) * a.T_loc + t) * a.L;
+    T* o = static_cast<T*>(a.out[dest]) +
+           ((size_t)b * a.n_dev * a.T_loc + (size_t)my * a.T_loc + t) * a.D;
+    pool_bag(tab, ix, a.L, a.D, o, a.vec);
+  }}
+  if (a.n_dev == 1) return;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned* tk = a.tickets + (size_t)ry * (a.n_dev + 1);
+  __threadfence_system();
+  if (off != 0 && atomicAdd(tk + dest, 1u) == (unsigned)a.units_per_frag - 1) {{
+    tk[dest] = 0;
+    __threadfence_system();
+    store_release(a.flags[dest] + my, a.epoch);
+  }}
+  if (atomicAdd(tk + a.n_dev, 1u) == gridDim.x - 1) {{
+    tk[a.n_dev] = 0;
+    for (int s = 0; s < a.n_dev; ++s)
+      if (s != my) wait_flag(a.flags[my] + s, a.epoch);
+  }}
+}}
+"""
+
+
+def bag_occupancy(ctx, tables, idx) -> str:
+    """Registers per thread (from the runtime, and registers and spill
+    stores from the build log) and CTAs resident on an SM of both bag
+    kernels in f32 on both paths (the ring path at the plan's shared
+    memory; the fused kernel at n = 1 and with the peer protocol), and of
+    the parent's fused kernel (before the ring path: the protocol's values
+    computed before the loop and kept across it, its tail behind a
+    run-time test, batch-major bags; PARENT_FUSED_KERNEL), unbounded as it
+    was and bounded to three CTAs an SM (scratch builds).  The fused kernel
+    at n = 1 on the warp path is timed on each build in turns on DLRM's
+    tables."""
+    import ctypes
+    import types
+
+    from repro_torch.kernels import CSRC, check_launch, load_library
+    from repro_torch.kernels.embedding_pool.plan import RING_BYTES, ring_slots, smem_bytes
+    from repro_torch.kernels.fused_embedding_a2a import ops as fused_ops
+
+    built = load_library()
+    row = tables.shape[-1] * tables.element_size()
+    ring_smem = smem_bytes(ring_slots(row, RING_BYTES), row)
+
+    def info(lib, name, ring, log, peers=None):
+        r, c = ctypes.c_int(), ctypes.c_int()
+        fn = getattr(lib, f"repro_{name}_info")
+        args = [ring, 0, ring_smem if ring else 0] + ([] if peers is None else [peers])
+        fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 2
+        check_launch(fn(*args, ctypes.byref(r), ctypes.byref(c)), name)
+        kernel = name + ("_ring_kernel" if ring else "_kernel")
+        regs, spills = ptxas_registers(log, kernel, peers).get("f32", ("not in it", "?"))
+        return (f"{name} {'ring' if ring else 'warp'} path"
+                f"{'' if peers is None else ' with the protocol' if peers else ' at n = 1'} "
+                f"{r.value} registers (build log: {regs}, {spills} bytes spilled), "
+                f"{c.value} CTAs an SM")
+
+    cu = "fused_embedding_a2a.cu"
+    text = (CSRC / cu).read_text()
+    start = text.index("template <typename T, bool kPeers>\n__global__ void __launch_bounds__(kBagThreads, 3)")
+    ours = text[start:text.index("\n}\n", start) + 3]
+    variants = {"parent's kernel (before)": PARENT_FUSED_KERNEL.format(bound=""),
+                "parent's kernel bounded to 3 CTAs an SM": PARENT_FUSED_KERNEL.format(bound=", 3")}
+    libs, lines = {"build": built.lib}, []
+    for i, (name, kernel) in enumerate(variants.items()):
+        lib, log = variant_lib(cu, [(cu, ours, kernel)], f"fused_variant{i}")
+        lib.repro_fused_embedding_a2a.argtypes = built.lib.repro_fused_embedding_a2a.argtypes
+        lib.repro_fused_embedding_a2a.restype = built.lib.repro_fused_embedding_a2a.restype
+        libs[name] = lib
+        lines.append(f"{name} (a scratch build): " + info(lib, "fused_embedding_a2a", 0, log, 0))
+    want = fused_ops.fused_embedding_a2a(ctx, idx, tables, _path="warp")
+    times = {k: [] for k in libs}
+    for which in [*libs, *reversed(libs)]:
+        use = libs[which]
+        with swapped(fused_ops, "load_library", lambda: types.SimpleNamespace(lib=use)):
+            if not torch.equal(fused_ops.fused_embedding_a2a(ctx, idx, tables, _path="warp"), want):
+                raise AssertionError(f"the fused kernel's {which} build is not bit-identical")
+            times[which].append(time_ms(lambda: fused_ops.fused_embedding_a2a(
+                ctx, idx, tables, _path="warp"), iters=10, warmup=2))
+    return ("; ".join([info(built.lib, "embedding_pool", ring, built.build_log)
+                       for ring in (1, 0)]
+                      + [info(built.lib, "fused_embedding_a2a", ring, built.build_log, peers)
+                         for ring in (1, 0) for peers in (0, 1)]
+                      + [f"ring at {ring_smem} B of shared memory"] + lines)
+            + "; fused_embedding_a2a n_dev=1 on the warp path, each build in turns: " + ", ".join(
+                f"{w} " + "/".join(f"{t:.4f}" for t in v) + " ms" for w, v in times.items()))
+
+
+def gather_limits(tables, idx) -> str:
+    """embedding_pool on both paths with the batch's shape but other rows,
+    each bag's rows in sequence from row b * L: cycling over each table's
+    first 256 rows (they stay in L2: what the path costs without HBM), and
+    over all its rows (HBM read in order, each row once)."""
+    from repro_torch.kernels.embedding_pool.ops import embedding_pool_tables
+
+    b, n_tab, L = idx.shape
+    v = tables.shape[1]
+    seq = (torch.arange(b, device=idx.device)[:, None, None] * L
+           + torch.arange(L, device=idx.device)[None, None, :]).expand(b, n_tab, L)
+    hot = min(256, v)
+    out = []
+    for name, ix in ((f"rows in L2 ({hot} a table, {n_tab * hot * tables.shape[2] * 4 / 1e6:.1f} "
+                      f"MB)", seq % hot), ("rows in sequence", seq % v)):
+        ix = ix.to(torch.int32).contiguous()
+        t = {"ring": [], "warp": []}
+        for p_ in ("ring", "warp", "warp", "ring"):
+            t[p_].append(time_ms(lambda: embedding_pool_tables(tables, ix, _path=p_),
+                                 iters=10, warmup=2))
+        out.append(f"{name}: " + ", ".join(f"{p_} " + "/".join(f"{x:.4f}" for x in v_)
+                                           for p_, v_ in t.items()))
+    return "; ".join(out)
+
+
+def pool_variant_times(tables, idx) -> str:
+    """embedding_pool on scratch builds beside the build, each bit-identical
+    to it and timed in turns: both paths with the units batch major (bag b
+    * T + t, the order before table major), and the warp path bounded to
+    four CTAs an SM."""
+    import types
+
+    from repro_torch.kernels import load_library
+    from repro_torch.kernels.embedding_pool import ops as pool_ops
+
+    built = load_library()
+    cu = "embedding_pool.cu"
+    batch_major = [(cu, "const long long t = s / B, b = s - t * B;",
+                    "const long long b = s / n_tab, t = s - b * n_tab;")]
+    four = [(cu, "__launch_bounds__(kBagThreads)\n    embedding_pool_kernel",
+             "__launch_bounds__(kBagThreads, 4)\n    embedding_pool_kernel")]
+    libs = {"build": built.lib}
+    for i, (name, subs) in enumerate((("batch major", batch_major), ("4 CTAs an SM", four))):
+        lib, _ = variant_lib(cu, subs, f"pool_variant{i}")
+        lib.repro_embedding_pool.argtypes = built.lib.repro_embedding_pool.argtypes
+        lib.repro_embedding_pool.restype = built.lib.repro_embedding_pool.restype
+        libs[name] = lib
+    runs = [(f"{p_}, {k}", p_, k) for k in libs for p_ in ("ring", "warp")
+            if not (k == "4 CTAs an SM" and p_ == "ring")]
+    want = pool_ops.embedding_pool_tables(tables, idx)
+    times = {name: [] for name, _, _ in runs}
+    for name, path, which in [*runs, *reversed(runs)]:
+        use = libs[which]
+        with swapped(pool_ops, "load_library", lambda: types.SimpleNamespace(lib=use)):
+            if not torch.equal(pool_ops.embedding_pool_tables(tables, idx, _path=path), want):
+                raise AssertionError(f"embedding_pool {name}: not bit-identical")
+            times[name].append(time_ms(lambda: pool_ops.embedding_pool_tables(
+                tables, idx, _path=path), iters=10, warmup=2))
+    return ", ".join(f"{w} " + "/".join(f"{t:.4f}" for t in v) + " ms" for w, v in times.items())
+
+
+def narrow_rows_times(gen) -> str:
+    """embedding_pool on each path at rows of 128 bytes (bf16, D = 64; 128
+    tables of 200,000 rows, B = 8192, L = 70), where the warp path's
+    16-byte loads keep 8 of a warp's 32 lanes busy."""
+    from repro_torch.kernels.embedding_pool.ops import embedding_pool_tables
+
+    tab = randn(gen, (128, 200000, 64), torch.bfloat16)
+    ix = torch.randint(0, 200000, (8192, 128, 70), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    want = embedding_pool_tables(tab, ix, _path="warp")
+    t = {"ring": [], "warp": []}
+    for p_ in ("ring", "warp", "warp", "ring"):
+        if not torch.equal(embedding_pool_tables(tab, ix, _path=p_), want):
+            raise AssertionError(f"bf16 D=64 on the {p_} path: not bit-identical")
+        t[p_].append(time_ms(lambda: embedding_pool_tables(tab, ix, _path=p_), iters=10,
+                             warmup=2))
+    return ", ".join(f"{k} " + "/".join(f"{x:.4f}" for x in v) + " ms" for k, v in t.items())
 
 
 def rwkv6_phases(card, gen) -> tuple[dict, list[dict]]:

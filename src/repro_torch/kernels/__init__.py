@@ -193,12 +193,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_gemm_a2a_stream_launch.restype = i32
     lib.repro_gemm_a2a_stream_plan_free.argtypes = [vp]
     lib.repro_gemm_a2a_stream_plan_free.restype = None
-    lib.repro_embedding_pool.argtypes = [vp, i64, vp, vp, i32, i32, i32, i32, i32, vp]
+    lib.repro_embedding_pool.argtypes = [vp, i64, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.repro_embedding_pool.restype = i32
     lib.repro_fused_embedding_a2a.argtypes = [
         vp, i64, i64, vp, i64, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32, i32,
-        ctypes.c_uint, i32, i32, vp]
+        ctypes.c_uint, i32, i32, i32, i32, vp]
     lib.repro_fused_embedding_a2a.restype = i32
+    lib.repro_embedding_pool_info.argtypes = [i32, i32, i32, ctypes.POINTER(i32),
+                                              ctypes.POINTER(i32)]
+    lib.repro_embedding_pool_info.restype = i32
+    lib.repro_fused_embedding_a2a_info.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32),
+                                                   ctypes.POINTER(i32)]
+    lib.repro_fused_embedding_a2a_info.restype = i32
     lib.repro_wkv6.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
     lib.repro_wkv6.restype = i32
     lib.repro_gemm.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]

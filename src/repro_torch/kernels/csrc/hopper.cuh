@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels: the mbarrier
 // protocol (within a CTA and across a cluster), the cluster barrier,
-// cp.async and TMA tensor loads and their host-side tensor maps, the
-// wgmma shared-memory descriptor, and the m64n128k16 wgmma instructions.
+// cp.async, 1-D bulk copies and TMA tensor loads and their host-side tensor
+// maps, the wgmma shared-memory descriptor, and the m64n128k16 wgmma
+// instructions.
 // tile_mma.cuh (the GEMM tile loop of gemm.cu and fused_gemv_allreduce.cu)
 // and flash_attention.cu's tensor-core path are built from them.
 #pragma once
@@ -93,6 +94,17 @@ __device__ __forceinline__ void cluster_wait() {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
+}
+
+// `bytes` (a multiple of 16) from global to shared memory by the bulk copy
+// engine, both addresses 16-byte aligned; completion is reported to `bar`
+// as transaction bytes.  One instruction, no registers for the data.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
