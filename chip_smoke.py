@@ -139,6 +139,26 @@ prints one line, and any failure exits non-zero:
      version on that head (at BF16_TOL and scaled to each row), the
      prefill's launches (28, tile path), finite logits, time, peak memory
      per row and profile
+ 23. full-width chatglm3-6b served through the paged engine (chunked
+     prefill) on phase 20's weights, kernel and bulk mode: (a) the
+     launcher's own traffic through launch.serve.main(["--paged", ...])
+     (8 seeded requests of 2-5 tokens, batch 4, 16 new tokens, block 16,
+     chunk 8, the default pool of 512 blocks), kernel mode against bulk
+     mode teacher-forced (bound: LOGITS_TOL_FACTOR x bulk mode's distance
+     from an exact f32 evaluation), both token streams; (b) prompts of 1,
+     37, 300 and 1000 seeded tokens, 8 new each: the same bound, and each
+     request's first generated token's logits (bulk) against a dense
+     prefill_forward of its prompt; (c) (b)'s traffic on 82 blocks, where
+     admissions are deferred and a request is preempted, every request
+     drained; (d) launches per step (28 fused, tile path at the chunk's 32
+     rows, stream path at C = 1's 4; no flash, no gemv); (e) serve_step at
+     C = 1 and C = 8 under torch.cuda.set_sync_debug_mode("error"); (f) the
+     fused kernel at [32,13696]@[13696,4096] bf16 against its plain version
+ 24. times from CUDA events: serve_step at C = 1 and C = 8 in both modes,
+     profiles, tok/s of the launcher's traffic through the paged and the
+     dense engine, the fused kernel at 32 rows on the tile and stream paths
+     beside torch.matmul and its bound, the pool's bytes against the dense
+     cache's
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19.  Phases 5, 9 and 17
@@ -676,7 +696,10 @@ def main() -> int:
     next(k_ for k_ in kernels if k_["name"] == "fused_matmul_allreduce").update(fused_extra)
     kernels += rows
     torch.cuda.empty_cache()
-    kernels += chatglm_prefill_phases(card, gen)
+    rows, fused_paged = chatglm_prefill_phases(card, gen)
+    # the fused kernel's row (phase 6) gains its numbers at the chunk's rows
+    next(k_ for k_ in kernels if k_["name"] == "fused_matmul_allreduce").update(fused_paged)
+    kernels += rows
     say("end", f"plans cached: {plan_counts()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -2033,12 +2056,13 @@ def flash_bound(b, s, hq, hkv, d, itemsize, causal=True):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, ops
 
 
-def chatglm_prefill_phases(card, gen) -> list[dict]:
+def chatglm_prefill_phases(card, gen) -> tuple[list[dict], dict]:
     """Phases 19-21: the flash kernel against its plain version, full-width
     chatglm3-6b prefill through the registry's bundle in kernel and bulk
     mode against an exact f32 evaluation, the hand-off to decode, and
-    times; then phase 22 (the prefill at 32768 tokens); returns the JSON
-    row of the flash kernel."""
+    times; then phase 22 (the prefill at 32768 tokens) and phases 23-24
+    (paged serving) on the same weights; returns the JSON row of the flash
+    kernel and the fused kernel's numbers at the paged chunk's rows."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
     from repro_torch.kernels.fused_gemv_allreduce.ops import fused_path
@@ -2200,6 +2224,8 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
     del dc, tok, pos, cache_k, logits_k
     torch.cuda.empty_cache()
     long_prefill_phase(card, gen, bundle, params, pre_k)
+    torch.cuda.empty_cache()
+    fused_paged = paged_phases(card, gen, bundle, params)
 
     return [
         {"name": "flash_attention", "route": "cuda",
@@ -2208,7 +2234,7 @@ def chatglm_prefill_phases(card, gen) -> list[dict]:
          "launches": launch_k["flash_attention"], "max_abs_err": main_err[0], "ms": t_flash,
          "plain_ms": fl["plain"], "bound_ms": fl["bound"], "bound_by": fl["bound_by"],
          "library_ms": fl["sdpa"]},
-    ]
+    ], fused_paged
 
 
 def flash_on_tile(n):
@@ -2329,6 +2355,362 @@ def long_prefill_phase(card, gen, bundle, params, pre_k):
             + f" ms per prefill (CUDA events; {L} x the tile path's {min(fl['tile']):.2f} ms is "
             f"{L * min(fl['tile']):.1f} ms of it); profile: {prof}; bulk mode and the exact f32 "
             f"evaluation are not run at this length")
+
+
+# Paged serving (phases 23-24): the launcher's defaults (batch 4, block 16,
+# chunk 8, a pool of half the dense B x S_max budget: 512 blocks); (b)'s
+# prompts of 1, 37, 300 and 1000 seeded tokens, 8 new tokens each; (c) the
+# same traffic on 82 blocks (1312 tokens).  The engine allocates a prompt's
+# blocks whole at admission, so a request grows only while it decodes, a
+# block per 16 tokens: on 80 blocks the 1000-token prompt waits until the
+# 300-token one has finished and nothing is ever preempted; on 82 it is
+# admitted beside it, the pool fills, and the 300-token request's growth at
+# position 304 preempts it.
+PAGED_B, PAGED_BLOCK, PAGED_CHUNK = 4, 16, 8
+PAGED_PROMPTS, PAGED_NEW, PAGED_TIGHT = (1, 37, 300, 1000), 8, 82
+
+
+def record(fn, log):
+    """``fn`` (a serve step: params, tokens, pool, tables, pos, n_new) that
+    appends each call's inputs, logits and launches per wrapper to ``log``
+    (the counts are the host-side counters: no synchronisation)."""
+    def run(p, tokens, pool, tables, pos, n_new):
+        before = launch_counts()
+        logits, pool = fn(p, tokens, pool, tables, pos, n_new)
+        after = launch_counts()
+        log.append({"in": (tokens.clone(), tables.clone(), pos.clone(), n_new.clone()),
+                    "logits": logits.clone(),
+                    "launches": {n_: after[n_] - before[n_] for n_ in after}})
+        return logits, pool
+    return run
+
+
+def tracked_engine(log, where):
+    """A PagedDecodeEngine class that notes which logged step (an index into
+    ``log``, which its serve function appends to) and slot produced each
+    generated token: ``where[(uid, k)] = (step, slot)`` for token k."""
+    from repro_torch.serve.engine import PagedDecodeEngine
+
+    class Tracked(PagedDecodeEngine):
+        def _admit(self, finished):
+            super()._admit(finished)
+            self._seen = [(i, r, len(r.tokens)) for i, r in enumerate(self.slots) if r]
+
+        def step(self):
+            out = super().step()
+            for i, r, n in self._seen:
+                for k in range(n, len(r.tokens)):
+                    where[(r.uid, k)] = (len(log) - 1, i)
+            return out
+    return Tracked
+
+
+def check_step_launches(log, mode, L, d_ff, d_model) -> dict:
+    """Every logged step launched the fused kernel once a layer (kernel
+    mode), on the path fused_path picks for its B x C rows, and no other
+    kernel; bulk mode launched nothing.  Returns steps by path."""
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_path
+
+    by_path = {}
+    for i, e in enumerate(log):
+        rows = e["in"][0].numel()
+        path = fused_path(torch.bfloat16, rows, d_ff, d_model)
+        want = ({"fused_matmul_allreduce": L, f"fused_matmul_allreduce.{path}": L}
+                if mode == "kernel" else {})
+        got = e["launches"]
+        if any(v != want.get(n_, 0) for n_, v in got.items() if "." not in n_ or n_ in want):
+            raise AssertionError(f"{mode} step {i} ({rows} rows): launches {got}, expected "
+                                 f"{want} and 0 elsewhere")
+        key = f"{rows} rows/{path if mode == 'kernel' else 'no kernel'}"
+        by_path[key] = by_path.get(key, 0) + 1
+    return by_path
+
+
+def replay(serve, params, log, new_pool):
+    """Teacher-forced: ``log``'s inputs, in order, through ``serve`` on a
+    fresh pool; returns the logits of each step."""
+    pool, out = new_pool(), []
+    for e in log:
+        lg, pool = serve(params, e["in"][0], pool, *e["in"][1:])
+        out.append(lg)
+    return out
+
+
+def live_err(log, a, b):
+    """Max |a - b| over the live rows (n_new > 0) of every step of ``log``,
+    for two lists of its steps' logits."""
+    return max(((x - y)[e["in"][3] > 0].abs().max().item() for e, x, y in zip(log, a, b)),
+               default=0.0)
+
+
+def paged_phases(card, gen, bundle, params) -> dict:
+    """Phases 23-24: full-width chatglm3-6b served through the paged engine
+    (chunked prefill) on phases 20-22's weights, in kernel and bulk mode:
+    (a) the launcher's own traffic through ``launch.serve.main(["--paged",
+    ...])``, its weights swapped in for the ones its ``init_params`` would
+    draw (the same seed on the card: the same values), kernel mode held to
+    bulk mode teacher-forced; (b) prompts of 1-1000 tokens, their first
+    generated token's logits against a dense prefill; (c) (b)'s traffic on
+    a pool that defers and preempts; (d) launches per step; (e) no host
+    synchronisation inside ``serve_step``; (f) the fused kernel at the
+    chunk's rows against its plain version; then the times.  Returns the
+    fused kernel's numbers at the chunk's rows for its JSON row."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce, fused_path
+    from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+    from repro_torch.serve.engine import DecodeEngine, PagedDecodeEngine, Request
+    from repro_torch.serve.kv_cache import dense_cache_hbm_bytes, pool_hbm_bytes
+
+    # 23 --------------------------------------------------------------
+    bf16 = torch.bfloat16
+    cfg = bundle.config
+    L, B, D, F = cfg.n_layers, PAGED_B, cfg.d_model, cfg.d_ff
+    ctx = {m: ParallelContext(device="cuda", fusion=FusionConfig(mode=m))
+           for m in ("kernel", "bulk")}
+    serve = {m: bundle.serve_step_fn(c) for m, c in ctx.items()}
+    exact = dataclasses.replace(bundle, config=dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    serve_x = exact.serve_step_fn(ctx["bulk"])
+    params32 = _map(params, lambda t_: t_.float())
+    nb = B * cfg.max_seq // 2 // PAGED_BLOCK           # the launcher's default pool
+    new_pool = lambda b_, n_: (lambda: b_.init_paged_pool(n_, PAGED_BLOCK, "cuda"))
+    real_fn = registry.ArchBundle.serve_step_fn
+
+    def launcher(mode, log, where):
+        argv = ["--paged", "--fusion", mode, "--requests", "8", "--batch", str(B),
+                "--max-new", "16", "--block-size", str(PAGED_BLOCK), "--chunk",
+                str(PAGED_CHUNK)]
+        with swapped(registry.ArchBundle, "init_params", lambda self, g: params), \
+                swapped(registry.ArchBundle, "serve_step_fn",
+                        lambda self, c: record(real_fn(self, c), log)), \
+                swapped(launch_serve, "PagedDecodeEngine", tracked_engine(log, where)):
+            return launch_serve.main(argv)
+
+    def forced(name, log, ref_k, ref_b, ref_x):
+        """Kernel vs bulk teacher-forced, bound LOGITS_TOL_FACTOR x bulk's
+        distance from exact f32; returns the three distances."""
+        e_kb, e_bx, e_kx = (live_err(log, a, b) for a, b in ((ref_k, ref_b), (ref_b, ref_x),
+                                                              (ref_k, ref_x)))
+        if not e_kb <= LOGITS_TOL_FACTOR * e_bx:
+            raise AssertionError(f"{name}: teacher-forced logits kernel vs bulk {e_kb:.3g} > "
+                                 f"{LOGITS_TOL_FACTOR} x bulk vs exact f32 {e_bx:.3g}")
+        for lg in ref_k:
+            if lg.shape != (B, cfg.vocab) or not torch.isfinite(lg).all():
+                raise AssertionError(f"{name}: logits of shape {tuple(lg.shape)} or non-finite")
+        return e_kb, e_bx, e_kx
+
+    # (a) the launcher's traffic, kernel then bulk mode, each with its streams
+    log_a, log_ab, where_a = [], [], {}
+    fin_k = launcher("kernel", log_a, where_a)
+    fin_b = launcher("bulk", log_ab, {})
+    paths_a = check_step_launches(log_a, "kernel", L, F, D)
+    check_step_launches(log_ab, "bulk", L, F, D)
+    ref_b = replay(serve["bulk"], params, log_a, new_pool(bundle, nb))
+    ref_x = replay(serve_x, params32, log_a, new_pool(exact, nb))
+    e_a = forced("(a)", log_a, [e["logits"] for e in log_a], ref_b, ref_x)
+    sk = {r.uid: r.tokens for r in fin_k}
+    sb = {r.uid: r.tokens for r in fin_b}
+    if sorted(sk) != list(range(8)) or any(len(v) != 16 for v in list(sk.values()) + list(
+            sb.values())) or any(not 0 <= t_ < cfg.vocab for v in sk.values() for t_ in v):
+        raise AssertionError(f"(a): streams {sk} / {sb}")
+    differing = sum(a != b for u in sk for a, b in zip(sk[u], sb[u]))
+    if any(int(log_a[s_]["logits"][slot].argmax()) != sk[u][k]
+           for (u, k), (s_, slot) in where_a.items()) or len(where_a) != 8 * 16:
+        raise AssertionError("(a): the kernel streams are not the logged steps' greedy tokens")
+    flips = []
+    for u in sorted(sk):
+        diff = [k for k, (a, b) in enumerate(zip(sk[u], sb[u])) if a != b]
+        if diff:
+            # a request's first differing token must be a near tie in bulk mode
+            # (teacher-forced on the kernel run's inputs, which match the bulk
+            # run's for this request up to here): a top-2 gap of at most twice
+            # the bound, as in phase 5
+            s_, slot = where_a[(u, diff[0])]
+            top = ref_b[s_][slot].topk(2).values
+            gap, allowed = (top[0] - top[1]).item(), 2 * LOGITS_TOL_FACTOR * e_a[1]
+            flips.append(f"req {u} token {diff[0]}: top-2 gap {gap:.3g} (allowed {allowed:.3g})")
+            if gap > allowed:
+                raise AssertionError("(a): streams differ beyond a near tie: " + flips[-1])
+    del ref_b, ref_x
+    say(23, f"(a) the launcher (--paged, batch {B}, 8 requests x 16 tokens, block "
+            f"{PAGED_BLOCK}, chunk {PAGED_CHUNK}, default pool {nb} blocks): {len(log_a)} steps "
+            f"by B x C rows and fused path {paths_a}; teacher-forced logits (live rows) max abs "
+            f"err: kernel vs bulk {e_a[0]:.3g} (bound {LOGITS_TOL_FACTOR * e_a[1]:.3g}), bulk vs "
+            f"exact f32 {e_a[1]:.3g}, kernel vs exact f32 {e_a[2]:.3g}; kernel streams "
+            f"{[sk[u] for u in sorted(sk)]}; bulk streams {[sb[u] for u in sorted(sb)]}; "
+            f"differing tokens {differing}" + (f" ({'; '.join(flips)})" if flips else ""))
+
+    # (b) long prompts: many chunk steps crossing blocks while others decode
+    prompts = [torch.randint(0, cfg.vocab, (n_,), generator=gen, device="cuda").tolist()
+               for n_ in PAGED_PROMPTS]
+
+    def drive(num_blocks, log):
+        """(b)'s requests through a kernel-mode PagedDecodeEngine of
+        ``num_blocks`` blocks, its steps recorded in ``log``; returns the
+        engine, the requests and, per request, the step and slot of its
+        first generated token."""
+        rec, where = record(serve["kernel"], log), {}
+        eng = tracked_engine(log, where)(
+            lambda t_, pl, tb, p_, n_: rec(params, t_, pl, tb, p_, n_),
+            lambda n_, bs: bundle.init_paged_pool(n_, bs, "cuda"), B, num_blocks=num_blocks,
+            block_size=PAGED_BLOCK, max_seq=cfg.max_seq, chunk=PAGED_CHUNK, device="cuda")
+        reqs = [Request(uid=i, prompt=p_, max_new=PAGED_NEW) for i, p_ in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        if not eng.run_until_drained().drained or any(
+                len(r.tokens) != PAGED_NEW or not r.done for r in reqs):
+            raise AssertionError(f"paged engine: requests {[len(r.tokens) for r in reqs]}")
+        return eng, reqs, {r.uid: where[(r.uid, 0)] for r in reqs}
+
+    log_b = []
+    eng_b, reqs_b, first = drive(nb, log_b)
+    paths_b = check_step_launches(log_b, "kernel", L, F, D)
+    ref_b = replay(serve["bulk"], params, log_b, new_pool(bundle, nb))
+    ref_x = replay(serve_x, params32, log_b, new_pool(exact, nb))
+    e_b = forced("(b)", log_b, [e["logits"] for e in log_b], ref_b, ref_x)
+    pre_b = bundle.prefill_fn(ctx["bulk"])
+    pre_x = exact.prefill_fn(ctx["bulk"])
+    firsts = []
+    for r in reqs_b:
+        s_, slot = first[r.uid]
+        batch = {"tokens": torch.tensor([r.prompt], device="cuda")}
+        db, dx = pre_b(params, batch)[0][0, 0], pre_x(params32, batch)[0][0, 0]
+        pb_, px_ = ref_b[s_][slot], ref_x[s_][slot]
+        d = errors(pb_, db)[0]
+        tol = LOGITS_TOL_FACTOR * max(errors(pb_, px_)[0], errors(db, dx)[0])
+        if d > tol:
+            raise AssertionError(f"(b) request {r.uid} ({len(r.prompt)} tokens): paged first-token "
+                                 f"logits {d:.3g} from the dense prefill's, above {tol:.3g}")
+        firsts.append(f"{len(r.prompt)} tokens {d:.3g} (bound {tol:.3g}; exact f32 paged vs "
+                      f"dense {errors(px_, dx)[0]:.3g})")
+    del ref_b, ref_x
+    say(23, f"(b) prompts of {list(PAGED_PROMPTS)} seeded tokens x {PAGED_NEW} new, batch {B}, "
+            f"chunk {PAGED_CHUNK}, {nb} blocks: {len(log_b)} steps {paths_b}, peak "
+            f"{eng_b.kv.peak_blocks} blocks; teacher-forced kernel vs bulk {e_b[0]:.3g} (bound "
+            f"{LOGITS_TOL_FACTOR * e_b[1]:.3g}), bulk vs exact f32 {e_b[1]:.3g}, kernel vs exact "
+            f"{e_b[2]:.3g}; first generated token's logits, paged (bulk) vs a dense prefill_forward "
+            f"on the prompt (bulk), bound {LOGITS_TOL_FACTOR} x the larger of the two's distances "
+            f"from their exact f32 evaluations: " + "; ".join(firsts))
+
+    # (c) a pool that must defer admissions and preempt
+    log_c = []
+    eng_c, reqs_c, _ = drive(PAGED_TIGHT, log_c)
+    check_step_launches(log_c, "kernel", L, F, D)
+    if not (eng_c.deferred >= 1 and eng_c.preempted >= 1):
+        raise AssertionError(f"(c): deferred {eng_c.deferred}, preempted {eng_c.preempted}")
+    for e in log_c:
+        if not torch.isfinite(e["logits"][e["in"][3] > 0]).all():
+            raise AssertionError("(c): non-finite logits")
+    say(23, f"(c) (b)'s traffic on {PAGED_TIGHT} blocks ({PAGED_TIGHT * PAGED_BLOCK} tokens): "
+            f"{len(log_c)} steps, admissions deferred {eng_c.deferred} times, requests "
+            f"preempted {eng_c.preempted} times, peak {eng_c.kv.peak_blocks} blocks; every request "
+            f"drained with {PAGED_NEW} tokens and finite logits; kernel streams "
+            f"{[r.tokens for r in reqs_c]} (without the squeeze: {[r.tokens for r in reqs_b]})")
+    del log_c, eng_c
+
+    # (d) launches per step, checked on every step above
+    c1 = next(e for e in log_a if e["in"][0].shape[1] == 1)
+    c8 = next(e for e in log_b if e["in"][0].shape[1] == PAGED_CHUNK and (e["in"][3] > 0).all())
+    say(23, f"(d) launches per step in kernel mode, every step of (a), (b) and (c): "
+            f"fused_matmul_allreduce {L} (tile path at {B * PAGED_CHUNK} rows: "
+            f"{c8['launches']['fused_matmul_allreduce.tile']}, stream path at {B} rows: "
+            f"{c1['launches']['fused_matmul_allreduce.stream']}), flash "
+            f"{c8['launches']['flash_attention']}, gemv {c8['launches']['gemv']}; bulk mode 0")
+
+    # (e) serve_step never synchronises with the host
+    pool = eng_b.pool
+    for e in (c1, c8):
+        for m in ("kernel", "bulk"):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                serve[m](params, e["in"][0], pool, *e["in"][1:])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say(23, f"(e) serve_step at C = 1 and C = {PAGED_CHUNK}, kernel and bulk mode, under "
+            f"torch.cuda.set_sync_debug_mode('error'): no call synchronised")
+
+    # (f) the fused kernel at the chunk's rows against its plain version
+    rows = B * PAGED_CHUNK
+    w = params["layers"][0]["ffn"]["w_down"]
+    x = randn(gen, (rows, F), bf16)
+    path = fused_path(bf16, rows, F, D)
+    got, took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(x, w))
+    if took != path:
+        raise AssertionError(f"fused [{rows},{F}]: took the {took} path, fused_path says {path}")
+    err = check_close(f"fused [{rows},{F}]@[{F},{D}] {took} path", got,
+                      fused_matmul_allreduce_ref(x, w), BF16_TOL)
+    say(23, f"(f) fused_matmul_allreduce [{rows},{F}]@[{F},{D}] bf16 (layer 0's w_down) on the "
+            f"{took} path vs plain: max abs/rel err {err[0]:.3g}/{err[1]:.3g} (bound {BF16_TOL})")
+
+    # 24 --------------------------------------------------------------
+    step_t = {}
+    for name, e in (("C=1", c1), (f"C={PAGED_CHUNK}", c8)):
+        step_t[name] = {"kernel": [], "bulk": []}
+        for m in ("kernel", "bulk", "bulk", "kernel"):
+            step_t[name][m].append(time_ms(
+                lambda: serve[m](params, e["in"][0], pool, *e["in"][1:]), iters=5, warmup=1))
+    prof = {f"{m} {name}": profile_device(lambda i: serve[m](params, e["in"][0], pool,
+                                                             *e["in"][1:]), 3, "step")
+            for name, e in (("C=1", c1), (f"C={PAGED_CHUNK}", c8)) for m in ("kernel", "bulk")}
+
+    def drain(paged):
+        reqs = launch_serve.make_requests(8, cfg.vocab, 16)
+        if paged:
+            eng = PagedDecodeEngine(
+                lambda t_, pl, tb, p_, n_: serve["kernel"](params, t_, pl, tb, p_, n_),
+                lambda n_, bs: bundle.init_paged_pool(n_, bs, "cuda"), B, num_blocks=nb,
+                block_size=PAGED_BLOCK, max_seq=cfg.max_seq, chunk=PAGED_CHUNK, device="cuda")
+        else:
+            dec = bundle.decode_fn(ctx["kernel"])
+            eng = DecodeEngine(lambda t_, c_, p_: dec(params, t_, c_, p_),
+                               lambda b_: bundle.init_cache(b_, "cuda"), B, device="cuda",
+                               max_seq=cfg.max_seq)
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin = eng.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not fin.drained:
+            raise AssertionError("drain did not finish")
+        return sum(len(r.tokens) for r in fin) / dt, dt
+
+    tps = {"paged": [], "dense": []}
+    for kind in ("paged", "dense", "dense", "paged"):
+        tps[kind].append(drain(kind == "paged"))
+    t_path = {"tile": [], "stream": []}
+    for p_ in ("tile", "stream", "stream", "tile"):
+        t_path[p_].append(time_ms(lambda: fused_matmul_allreduce(x, w, _path=p_)))
+    t_mm = time_ms(lambda: torch.matmul(x, w))
+    t_plain = time_ms(lambda: fused_matmul_allreduce_ref(x, w), iters=10)
+    bnd, bound_by = bound_ms(rows, F, D, 2)
+    pool_b = pool_hbm_bytes(pool)
+    dense_b = dense_cache_hbm_bytes(bundle.init_cache(B, "meta"))
+    ms = lambda ts: ", ".join(f"{t_:.4f}" for t_ in ts)
+    say(24, f"on {card}: serve_step per step (CUDA events, turns kernel, bulk, bulk, kernel): "
+            + "; ".join(f"{name} " + ", ".join(f"{m} {ms(v)}" for m, v in d.items()) + " ms"
+                        for name, d in step_t.items())
+            + "; profiles: " + "; ".join(f"{n_} {p_}" for n_, p_ in prof.items())
+            + f"; the launcher's traffic (8 requests x 16 tokens, batch {B}, kernel mode, host "
+            f"clock around the drain, turns paged, dense, dense, paged): "
+            + "; ".join(f"{k_} " + ", ".join(f"{v[0]:.1f} tok/s ({v[1]:.2f} s)" for v in vs)
+                        for k_, vs in tps.items())
+            + f"; fused_matmul_allreduce [{rows},{F}]@[{F},{D}] bf16: tile path {ms(t_path['tile'])}"
+            f" ms, stream path {ms(t_path['stream'])} ms, torch.matmul {t_mm:.4f} ms, plain "
+            f"{t_plain:.4f} ms, bound {bnd:.4f} ms ({bound_by}); pool {pool_b / 2**20:.1f} MiB "
+            f"({nb} + 1 sink blocks of {PAGED_BLOCK} tokens) vs dense B x S_max cache "
+            f"{dense_b / 2**20:.1f} MiB")
+    return {"chunk_rows": {
+        "shape": f"[{rows},{F}]@[{F},{D}] bf16", "path": took, "max_abs_err": err[0],
+        "ms": min(t_path[took]), "path_ms": {k_: min(v) for k_, v in t_path.items()},
+        "plain_ms": t_plain, "bound_ms": bnd, "bound_by": bound_by, "library_ms": t_mm,
+        "launches_per_step": L, "launches": sum(e["launches"]["fused_matmul_allreduce"]
+                                                for e in log_a)}}
 
 
 def wkv6_inputs(gen, b, t, h, n):

@@ -1,6 +1,7 @@
 """Architecture registry: a uniform bundle over the ported configs.
 
 The port serves chatglm3-6b (dense GQA decode) and dbrx-132b (MoE decode),
+through the dense engine or the paged one (``serve_step_fn``),
 runs chatglm3-6b's prefill (``prefill_fn``; dbrx's waits for the
 sequence-sharded MoE of ROADMAP Queue 1 item 5), rwkv6-7b's prefill and
 decode (``prefill_fn``, ``decode_fn``; no launcher serves it yet) and the
@@ -101,6 +102,33 @@ class ArchBundle:
     def init_cache(self, batch_size: int, device):
         """The decode cache: a transformer's KV cache, rwkv6's recurrent state."""
         return self._decoder().init_cache(self.config, batch_size, device)
+
+    # ---- paged serving (continuous batching) -----------------------------
+    @property
+    def supports_paged(self) -> bool:
+        """Paged KV is implemented for GQA transformers; MLA and the
+        recurrent families keep their dense caches or states."""
+        return (self.family == "transformer"
+                and getattr(self.config, "attn_type", None) == "gqa")
+
+    def serve_step_fn(self, ctx: ParallelContext) -> Callable:
+        """Mixed prefill-chunk/decode step over the paged pool:
+        (params, tokens [B,C], pool, tables [B,MB], pos [B], n_new [B])
+        -> (last-valid logits [B,V], pool)."""
+        from repro_torch.models.transformer import serve_step
+
+        cfg = self.config
+        return lambda p, t, pool, tbl, pos, nn: serve_step(ctx, p, cfg, t, pool, tbl, pos, nn)
+
+    def init_paged_pool(self, num_blocks: int, block_size: int, device):
+        from repro_torch.models.transformer import init_paged_pool
+
+        return init_paged_pool(self.config, num_blocks, block_size, device)
+
+    def pool_specs(self, pool):
+        from repro_torch.models.transformer import pool_logical_specs
+
+        return pool_logical_specs(self.config, pool)
 
     def _decoder(self):
         if self.family not in _DECODERS:

@@ -2,8 +2,18 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
       --requests 8 --batch 4 --max-new 16 --fusion kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --paged --block-size 16 \
+      --chunk 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
       --reduced --device cpu
+
+Without ``--paged`` the dense engine serves (a ``B x S_max`` cache, the
+prompt fed one token per step); with it the paged engine (a shared pool of
+``--block-size``-token blocks, prompts fed ``--chunk`` tokens per step
+through ``serve_step``, whose FFN down projection takes B x C rows).
+``--journal PATH`` resubmits the unfinished requests a journal file holds
+(``serve.engine.request_journal``) in place of the seeded ones; writing it
+on a liveness failure waits for the runtime (ROADMAP Queue 1 item 7).
 
 rwkv6-7b is refused (see ``_RWKV6_REFUSAL``): its prefill and decode
 run through ``get_arch("rwkv6-7b").prefill_fn`` / ``decode_fn``.
@@ -20,6 +30,8 @@ device the default raises.  Weights are random, drawn from a fixed seed.
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 
 import numpy as np
@@ -28,7 +40,8 @@ import torch
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels import load_library
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
-from repro_torch.serve.engine import DecodeEngine, Request
+from repro_torch.serve.engine import DecodeEngine, PagedDecodeEngine, Request, resubmit_journal
+from repro_torch.serve.kv_cache import dense_cache_hbm_bytes, pool_hbm_bytes
 
 
 # The reference's launcher cannot serve rwkv6 either, so neither does the port.
@@ -60,11 +73,26 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--fusion", default="kernel", choices=["kernel", "bulk"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache + chunked prefill (continuous batching "
+                         "over a shared block pool)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV block (paged mode)")
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="pool blocks; 0 = half the dense B x S_max budget")
+    ap.add_argument("--chunk", type=int, default=8,
+                    help="prefill chunk width C (paged mode)")
+    ap.add_argument("--journal", default=None,
+                    help="request journal to resubmit (tokens intact) in place "
+                         "of the seeded requests, if the file exists")
     args = ap.parse_args(argv)
 
     bundle = get_arch(args.arch)
     if bundle.family == "rwkv6":
         raise NotImplementedError(_RWKV6_REFUSAL)
+    if args.paged and not bundle.supports_paged:
+        raise SystemExit(f"--paged requires a GQA transformer ({args.arch} is "
+                         f"{bundle.family}/{getattr(bundle.config, 'attn_type', '?')})")
     ctx = ParallelContext(device=args.device,
                           fusion=FusionConfig(mode=args.fusion))
     if args.reduced:
@@ -72,12 +100,34 @@ def main(argv=None):
     cfg = bundle.config
     gen = torch.Generator(device=ctx.device).manual_seed(0)
     params = bundle.init_params(gen)
-    decode = bundle.decode_fn(ctx)
-    engine = DecodeEngine(lambda t, c, pos: decode(params, t, c, pos),
-                          lambda b: bundle.init_cache(b, ctx.device),
-                          args.batch, device=ctx.device, max_seq=cfg.max_seq)
-    for r in make_requests(args.requests, cfg.vocab, args.max_new):
-        engine.submit(r)
+    if args.paged:
+        # half the dense budget, rounded to a tp-divisible block count
+        num_blocks = args.num_blocks or max(
+            ctx.tp, args.batch * cfg.max_seq // 2 // args.block_size // ctx.tp * ctx.tp)
+        serve = bundle.serve_step_fn(ctx)
+        engine = PagedDecodeEngine(
+            lambda t, pl, tb, pos, nn: serve(params, t, pl, tb, pos, nn),
+            lambda nb, bs: bundle.init_paged_pool(nb, bs, ctx.device), args.batch,
+            num_blocks=num_blocks, block_size=args.block_size, max_seq=cfg.max_seq,
+            chunk=args.chunk, device=ctx.device, n_stripes=ctx.tp)
+        paged_b = pool_hbm_bytes(engine.pool)
+        dense_b = dense_cache_hbm_bytes(bundle.init_cache(args.batch, "meta"))
+        print(f"paged pool: {num_blocks} x {args.block_size}-token blocks "
+              f"= {paged_b / 2**20:.1f} MiB vs dense B x S_max "
+              f"{dense_b / 2**20:.1f} MiB")
+    else:
+        decode = bundle.decode_fn(ctx)
+        engine = DecodeEngine(lambda t, c, pos: decode(params, t, c, pos),
+                              lambda b: bundle.init_cache(b, ctx.device),
+                              args.batch, device=ctx.device, max_seq=cfg.max_seq)
+    if args.journal and os.path.exists(args.journal):
+        with open(args.journal) as f:
+            n = resubmit_journal(engine, json.load(f))
+        print(f"journal: resubmitted {n} unfinished requests (tokens intact) "
+              f"from {args.journal}")
+    else:
+        for r in make_requests(args.requests, cfg.vocab, args.max_new):
+            engine.submit(r)
 
     where = "cpu"
     if ctx.device.type == "cuda":
@@ -86,7 +136,7 @@ def main(argv=None):
             load_library()   # build the kernels outside the timed drain
     t0 = time.perf_counter()
     finished = engine.run_until_drained(
-        max_steps=args.requests * (cfg.max_seq - 1))
+        max_steps=len(engine.queue) * (cfg.max_seq - 1))
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
     dt = time.perf_counter() - t0
@@ -95,7 +145,8 @@ def main(argv=None):
     total_tokens = sum(len(r.tokens) for r in finished)
     print(f"served {len(finished)} requests, {total_tokens} tokens in "
           f"{dt:.3f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s, "
-          f"batch={args.batch}, fusion={args.fusion}, device={where})")
+          f"batch={args.batch}, fusion={args.fusion}, "
+          f"{'paged' if args.paged else 'dense'}, device={where})")
     for r in finished[:4]:
         print(f"  req {r.uid}: prompt {r.prompt} -> {r.tokens[:12]}")
     return finished

@@ -26,8 +26,10 @@ def apply_rope(x, positions, *, theta: float = 10000.0,
     if positions.dim() == 1:
         positions = positions[None, :]
     cos, sin = _angles(positions, rd, theta)                      # [B, S, rd//2]
-    cos = torch.repeat_interleave(cos, 2, dim=-1)[:, :, None, :]  # [B, S, 1, rd]
-    sin = torch.repeat_interleave(sin, 2, dim=-1)[:, :, None, :]
+    # each angle twice, [B, S, 1, rd], by expand and reshape: no output size is
+    # read back from the device (serve_step stays free of host synchronisation)
+    pair = lambda a: a[..., None].expand(*a.shape, 2).reshape(*a.shape[:-1], rd)[:, :, None, :]
+    cos, sin = pair(cos), pair(sin)
     xr, xp = x[..., :rd], x[..., rd:]
     out = xr * cos.to(x.dtype) + _rot_half_interleaved(xr) * sin.to(x.dtype)
     return torch.cat([out, xp], dim=-1) if rd < hd else out

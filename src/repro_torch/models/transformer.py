@@ -9,6 +9,11 @@ layouts: a per-layer cache slice is [B, S_max, Hkv, hd], ``pos`` a [B] int32
 vector, logits [B, 1, V] in f32.  The prefill returns last-position logits
 [B, 1, V] in f32 and the cache {"k", "v"}, each [L, B, S, Hkv, hd] (k after
 RoPE): the decode layout with the prompt's length S.
+
+Paged serving (``serve_step``) mixes prefill chunks and decode steps in one
+call over a block pool {"k", "v"}, each [L, NB + 1, block, Hkv, hd]: the
+reference's ``[L, NB, block, Hkv, hd]`` (its ``pool["scan"]``) plus one sink
+block per layer (``models/attention.py``).  The pool is updated in place.
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ from typing import Any
 import torch
 
 from repro_torch.models.attention import (broadcast_pos, cache_update, context_attention,
-                                          decode_attention)
+                                          decode_attention, paged_attention,
+                                          paged_cache_update)
 from repro_torch.models.common import DTYPES, dense_init
 from repro_torch.models.layers import (embedding_init, embedding_lookup, mlp_apply,
                                        mlp_init, rms_norm, rms_norm_init)
@@ -281,3 +287,98 @@ def _lm_logits(params, cfg, x):
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
+
+
+# ---------------------------------------------------------------------------
+# paged serving (continuous batching)
+# ---------------------------------------------------------------------------
+def init_paged_pool(cfg: TransformerConfig, num_blocks: int, block_size: int, device):
+    """Zeroed paged KV block pools shared by all in-flight requests:
+    {"k", "v"}, each [L, num_blocks + 1, block_size, Hkv, hd] at the compute
+    dtype; block ``num_blocks`` of each layer is the sink that dropped
+    writes land in (``models/attention.paged_cache_update``).  Blocks map to
+    requests through host-side block tables (``serve/kv_cache.py``).  GQA
+    only: MLA keeps the dense latent cache (the registry gates on
+    ``supports_paged``)."""
+    check_supported(cfg)
+    if cfg.attn_type != "gqa":
+        raise NotImplementedError(
+            f"paged KV requires attn_type='gqa' ({cfg.name} is {cfg.attn_type})")
+    shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+
+
+def pool_logical_specs(cfg: TransformerConfig, pool):
+    """Logical sharding specs of a paged pool: its blocks shard over tp."""
+    raise NotImplementedError(
+        "pool_logical_specs: the pool's blocks shard over tp, ROADMAP Queue 1 item 1 "
+        "(the multi-card tp world)")
+
+
+def _attn_serve(ctx, cfg: TransformerConfig, lp, x, k_pool, v_pool, tables, positions,
+                valid, window):
+    """Chunked attention against the paged pool.  x: [B, C, D]; positions
+    [B, C] are per-slot global offsets (decode: C = 1 at pos; prefill: a
+    C-token chunk starting at pos); ``valid`` drops padding and idle rows
+    from the cache write.  The chunk's own KV lands in the pool before
+    attention, so one causal pass covers the cache and the chunk."""
+    B, C, D = x.shape
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    qkv = h @ lp["attn"]["w_qkv"]
+    q, k, v = torch.split(qkv, [Hq * hd, Hkv * hd, Hkv * hd], dim=-1)
+    q = _apply_rope_any(cfg, q.reshape(B, C, Hq, hd), positions)
+    k = _apply_rope_any(cfg, k.reshape(B, C, Hkv, hd), positions)
+    v = v.reshape(B, C, Hkv, hd)
+    paged_cache_update(ctx, k_pool, k, tables, positions, valid)
+    paged_cache_update(ctx, v_pool, v, tables, positions, valid)
+    o = paged_attention(ctx, q, k_pool, v_pool, tables, positions, window=window,
+                        scale=cfg.query_scale, softcap_val=cfg.attn_softcap)
+    return o.reshape(B, C, Hq * hd) @ lp["attn"]["w_o"]
+
+
+def _layer_serve(ctx, cfg, lp, x, k_pool, v_pool, tables, positions, valid, window):
+    a = _attn_serve(ctx, cfg, lp, x, k_pool, v_pool, tables, positions, valid, window)
+    if cfg.post_norms:
+        a = rms_norm(a, lp["post_ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    x = x + a
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    if cfg.moe is not None and "router" in lp["ffn"]:
+        f = moe_apply(ctx, lp["ffn"], h, cfg.moe)
+    else:
+        f = mlp_apply(ctx, lp["ffn"], h, act=cfg.act, seq_sharded=False)
+    if cfg.post_norms:
+        f = rms_norm(f, lp["post_ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    return x + f
+
+
+def serve_step(ctx: ParallelContext, params, cfg: TransformerConfig,
+               tokens, pool, tables, pos, n_new):
+    """One continuous-batching step mixing prefill chunks and decode.
+
+    tokens: [B, C] (slot i's next n_new[i] tokens, zero-padded); tables:
+    [B, MB] block ids; pos: [B] first new position per slot; n_new: [B]
+    with 0 = idle slot, 1 = decode step, >1 = prefill chunk.  Each slot's
+    logits come from its last valid token (``n_new - 1``, clipped; an idle
+    slot's row is discarded by the caller).  Returns (logits [B, V] f32,
+    pool); the pool is updated in place.  Nothing here synchronises with
+    the host, given tensors on one device."""
+    check_supported(cfg)
+    B, C = tokens.shape
+    dev = tokens.device
+    pos = broadcast_pos(pos, B, dev)
+    n_new = torch.as_tensor(n_new, dtype=torch.int32, device=dev)
+    steps = torch.arange(C, dtype=torch.int32, device=dev)
+    positions = pos[:, None] + steps[None, :]
+    valid = steps[None, :] < n_new[:, None]
+    scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
+    x = embedding_lookup(ctx, params["embed"], tokens, seq_shard=False,
+                         scale=scale).to(cfg.cdtype)
+    for i, lp in enumerate(params["layers"]):
+        x = _layer_serve(ctx, cfg, lp, x, pool["k"][i], pool["v"][i], tables, positions,
+                         valid, cfg.layer_window(i))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    idx = (n_new.long() - 1).clamp(0, C - 1)
+    x_last = torch.take_along_dim(x, idx[:, None, None], dim=1)      # [B, 1, D]
+    return _lm_logits(params, cfg, x_last)[:, 0], pool
