@@ -159,9 +159,29 @@ prints one line, and any failure exits non-zero:
      dense engine, the fused kernel at 32 rows on the tile and stream paths
      beside torch.matmul and its bound, the pool's bytes against the dense
      cache's
+ 25. the flash kernel for training at the prefill's shape (bf16, tile path)
+     and an f32 shape (CUDA-core path): its softmax statistics m and l
+     against the plain version's, its output with statistics bit-identical
+     to without, and dq, dk, dv (the kernel's forward, the analytic
+     backward) within LOGITS_TOL_FACTOR x bulk mode's (autograd through
+     span_attention) distance from an exact evaluation (f32; f64 for the
+     f32 case); the backward's time beside SDPA's backward and its bound
+ 26. every parameter's gradient of 2 full-width chatglm3-6b layers at
+     16 x 64 tokens in kernel and bulk mode against an exact f32
+     evaluation (kernel mode within LOGITS_TOL_FACTOR x bulk's on every
+     leaf), 4 flash launches (forward and remat) in kernel mode
+ 27. the launcher, launch.train.main, at full width (28 layers, AdamW with
+     f32 moments, lr TRAIN_LR): 6 steps at 16 x 64 in each mode from seed 0 (finite
+     losses, the sixth below the first, step 1's kernel loss within
+     LOGITS_TOL_FACTOR x bulk's distance from an exact f32 evaluation,
+     steps 2-6 within TRAIN_LOSS_REL of bulk's, 56 flash launches a
+     kernel-mode step, 0 in bulk mode; ms a step, its forward / backward /
+     optimizer split, tok/s, device busy share, peak memory); then 3
+     kernel-mode steps at 4 x 2048 tokens
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
-11, DLRM's before phase 15, rwkv6-7b's before phase 19.  Phases 5, 9 and 17
+11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
+before phase 25.  Phases 5, 9 and 17
 and the end print how many launch plans the plan-cached wrappers hold.
 Then one JSON line per the kernels, the card's name and power limit, and
 the result line.  Float32
@@ -255,6 +275,26 @@ GLM_B, GLM_S, GLM_STEPS = 4, 2048, 8
 # section 4).  Phase 22 prints the peak, the memory held before the
 # prefill, each row's share, and what one more row would need.
 LONG_B, LONG_S = 4, 32768
+# chatglm3-6b training (phases 25-27): the launcher's defaults, 16 x 64
+# tokens, TRAIN_STEPS steps a mode on all 28 layers; phase 26's gradients on
+# TRAIN_GRAD_LAYERS layers; then TRAIN_LONG_STEPS kernel-mode steps at the
+# prefill's 4 x 2048 tokens on TRAIN_LONG_LAYERS layers
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_GRAD_LAYERS = 16, 64, 6, 2
+TRAIN_LONG_B, TRAIN_LONG_S, TRAIN_LONG_STEPS, TRAIN_LONG_LAYERS = 4, 2048, 3, 28
+# The launcher's default lr, 3e-3, suits the reduced model (d_model 64).  At
+# full width AdamW's first steps move every weight by about the lr, in the
+# sign of its gradient, coherently across 4096-wide matrices: on an H100
+# the loss rose within 6 steps at a peak lr of 1e-3, 3e-4 and 1e-4 and fell
+# at 3e-5 (PERF.md, PR 22).  Phase 27 passes --lr TRAIN_LR.
+TRAIN_LR = "3e-5"
+# Steps 2-6 of kernel and bulk mode: the two runs start from the same
+# weights and differ only by rounding in attention, so their gradients
+# differ by bf16 rounding; Adam makes each step about +-lr per element, so
+# only elements whose gradient is within that rounding of zero move
+# differently (by at most 2 lr each).  The losses must stay within 1 % of
+# each other; a wrong or missing attention gradient changes the whole
+# update (phase 26 checks the gradients themselves).
+TRAIN_LOSS_REL = 0.01
 
 
 def say(phase, msg):
@@ -700,6 +740,9 @@ def main() -> int:
     # the fused kernel's row (phase 6) gains its numbers at the chunk's rows
     next(k_ for k_ in kernels if k_["name"] == "fused_matmul_allreduce").update(fused_paged)
     kernels += rows
+    torch.cuda.empty_cache()
+    # the flash kernel's row gains its training numbers (phases 25-27)
+    next(k_ for k_ in kernels if k_["name"] == "flash_attention").update(train_phases(card, gen))
     say("end", f"plans cached: {plan_counts()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -2235,6 +2278,345 @@ def chatglm_prefill_phases(card, gen) -> tuple[list[dict], dict]:
          "plain_ms": fl["plain"], "bound_ms": fl["bound"], "bound_by": fl["bound_by"],
          "library_ms": fl["sdpa"]},
     ], fused_paged
+
+
+# ---------------------------------------------------------------------------
+# phases 25-27: dense training of chatglm3-6b
+# ---------------------------------------------------------------------------
+def dense_attention(q, k, v, scale):
+    """Causal GQA attention in q's dtype, every score at once (the exact
+    evaluation of phase 25: f32 for bf16 inputs, f64 for f32 ones)."""
+    g = q.shape[2] // k.shape[2]
+    kk, vv = (a.repeat_interleave(g, dim=2) for a in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) * scale
+    n = q.shape[1]
+    s = s.masked_fill(~torch.tril(torch.ones((n, n), dtype=torch.bool, device=q.device)),
+                      float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vv)
+
+
+def grads_of(fn, inputs, cot):
+    """d(sum(fn(*inputs) * cot)) / d inputs, for leaves that require grad."""
+    return torch.autograd.grad(fn(*inputs), inputs, cot)
+
+
+def flash_train_phase(gen) -> dict:
+    """Phase 25: the flash kernel's softmax statistics (m, l) against the
+    plain version's, its output with statistics bit-identical to without,
+    and the training gradient (the kernel's forward, the analytic backward)
+    against bulk mode (autograd through span_attention), each measured from
+    an exact evaluation; at the prefill's shape in bf16 (tile path) and at
+    one f32 shape (CUDA-core path).  Then the backward's time beside
+    SDPA's backward and its bound.  Returns the flash row's training
+    numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.models.attention import span_attention
+
+    from repro_torch.configs.registry import get_arch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_arch("chatglm3-6b").config
+    lines, row = [], {}
+    for name, b, s, hq, hkv, d, dt, path in (
+            ("main", GLM_B, GLM_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd, bf16, "tile"),
+            ("f32", 2, 515, 6, 3, 128, f32, "cuda_core")):
+        q = randn(gen, (b, s, hq, d), dt)
+        k, v = randn(gen, (b, s, hkv, d), dt), randn(gen, (b, s, hkv, d), dt)
+        do = randn(gen, (b, s, hq, d), dt)
+        scale = d ** -0.5
+        # (a) the statistics, and the output with and without them (direct
+        # launches: comparisons, not the main path's)
+        (o_s, m_k, l_k), took = flash_ops._launch(q, k, v, scale, True, None, True)
+        o_n, _ = flash_ops._launch(q, k, v, scale, True, None, False)
+        if took != path:
+            raise AssertionError(f"flash stats {name}: took the {took} path, expected {path}")
+        if not torch.equal(o_s, o_n):
+            raise AssertionError(f"flash {name}: the output with statistics differs from without")
+        _, m_p, l_p = flash_attention_plain(q, k, v, scale=scale, causal=True, stats=True)
+        err_m = check_close(f"flash {name} m", m_k, m_p, F32_TOL)
+        err_l = check_close(f"flash {name} l", l_k, l_p, F32_TOL)
+        del o_s, o_n, m_k, l_k, m_p, l_p
+        # (b) gradients, each from an exact evaluation
+        leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        g_k = grads_of(lambda *a: flash_attention(*a, scale=scale, causal=True), leaves, do)
+        g_b = grads_of(lambda *a: span_attention(*a, causal=True, window=None, scale=scale,
+                                                  cap=None), leaves, do)
+        wide = torch.float64 if dt == f32 else f32
+        exact = [a.detach().to(wide).requires_grad_(True) for a in (q, k, v)]
+        g_x = grads_of(lambda *a: dense_attention(*a, scale), exact, do.to(wide))
+        del exact
+        dists = []
+        for gname, gk, gb, gx in zip(("dq", "dk", "dv"), g_k, g_b, g_x):
+            dk_, db_ = errors(gk, gx)[0], errors(gb, gx)[0]
+            if not (torch.isfinite(gk.float()).all() and dk_ <= LOGITS_TOL_FACTOR * db_):
+                raise AssertionError(f"flash backward {name} {gname}: kernel mode {dk_:.3g} from "
+                                     f"exact, above {LOGITS_TOL_FACTOR} x bulk mode's {db_:.3g}")
+            dists.append(f"{gname} {dk_:.3g}/{db_:.3g}")
+        del g_k, g_b, g_x
+        lines.append(f"{name} [{b},{s},{hq}/{hkv},{d}] {str(dt)[6:]} on the {took} path: m err "
+                     f"{err_m[0]:.3g}, l err {err_l[0]:.3g} (bound {F32_TOL}), output with stats "
+                     f"bit-identical to without; grads' max abs err from exact "
+                     f"{'f64' if dt == f32 else 'f32'}, kernel/bulk (bound "
+                     f"{LOGITS_TOL_FACTOR} x bulk's): " + ", ".join(dists))
+        if name != "main":
+            continue
+        # (c) times: the analytic backward (the flash op's), bulk mode's
+        # autograd and SDPA's backward, each on its own forward's graph
+        o_k = flash_attention(*leaves, scale=scale, causal=True)
+        o_b = span_attention(*leaves, causal=True, window=None, scale=scale, cap=None)
+        qt, kt, vt = (a.transpose(1, 2) for a in leaves)
+        o_sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        bwd = lambda o, c: lambda: torch.autograd.grad(o, leaves, c, retain_graph=True)
+        t_k = [time_ms(bwd(o_k, do), iters=3, warmup=1)]
+        t_sd = [time_ms(bwd(o_sd, dot), iters=10, warmup=2)]
+        t_b = time_ms(bwd(o_b, do), iters=2, warmup=1)
+        t_sd.append(time_ms(bwd(o_sd, dot), iters=10, warmup=2))
+        t_k.append(time_ms(bwd(o_k, do), iters=3, warmup=1))
+        fwd_ms, _, n_bytes, ops = flash_bound(b, s, hq, hkv, d, 2)
+        # read q, k, v, o, do, m, l once, write dq, dk, dv once; the backward
+        # does 2.5 times the forward's products (5 of the forward's 2 kinds)
+        b_bytes = n_bytes + 3 * b * s * hq * d * 2 + 2 * b * hq * s * 4 + b * s * (hq + 2 * hkv) * d * 2
+        t_bytes, t_ops = b_bytes / HBM_BYTES_PER_S * 1e3, 2.5 * ops / BF16_FLOPS * 1e3
+        row = {"backward_ms": min(t_k), "backward_bound_ms": max(t_bytes, t_ops),
+               "backward_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "sdpa_backward_ms": min(t_sd), "bulk_backward_ms": t_b}
+        lines.append(f"backward at [{b},{s},{hq}/{hkv},{d}] bf16 causal (CUDA events, turns "
+                     f"kernel, SDPA, bulk, SDPA, kernel): the flash op's analytic backward "
+                     f"(plain PyTorch, _span_flash_bwd) " + ", ".join(f"{t_:.3f}" for t_ in t_k)
+                     + f" ms; F.scaled_dot_product_attention's backward "
+                     + ", ".join(f"{t_:.3f}" for t_ in t_sd) + f" ms; bulk mode's autograd "
+                     f"through span_attention {t_b:.3f} ms; bound {row['backward_bound_ms']:.4f} "
+                     f"ms ({row['backward_bound_by']}: {2.5 * ops / 1e9:.1f} GFLOP, "
+                     f"{b_bytes / 1e6:.1f} MB); analytic backward at "
+                     f"{min(t_k) / min(t_sd):.2f}x SDPA's")
+        del o_k, o_b, o_sd, qt, kt, vt, dot
+    say(25, "flash statistics and backward: " + "; ".join(lines))
+    return row
+
+
+def train_grad_phase(gen) -> None:
+    """Phase 26: TRAIN_GRAD_LAYERS layers of full-width chatglm3-6b at
+    TRAIN_B x TRAIN_S: every parameter's gradient in kernel and bulk mode,
+    each against an exact f32 evaluation (f32 weights and arithmetic, bulk
+    mode); kernel mode's largest error on every leaf within
+    LOGITS_TOL_FACTOR x bulk mode's."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic import LMBatches
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+    from repro_torch.train.optimizer import tree_leaves, tree_map, tree_paths
+
+    bundle = get_arch("chatglm3-6b")
+    cfg = dataclasses.replace(bundle.config, n_layers=TRAIN_GRAD_LAYERS)
+    bundle = dataclasses.replace(bundle, config=cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    leaves = tree_leaves(params)
+    for p_ in leaves:
+        p_.requires_grad_(True)
+    batch = to_device(next(LMBatches(cfg.vocab, TRAIN_B, TRAIN_S, 0)), "cuda")
+    out = {}
+    for mode in ("kernel", "bulk"):
+        ctx = ParallelContext(device="cuda", fusion=FusionConfig(mode=mode))
+        want = flash_on_tile(2 * cfg.n_layers) if mode == "kernel" else {}
+        (loss, grads), counts = counted_run(
+            lambda: (lambda l_: (l_.detach(), torch.autograd.grad(l_, leaves)))(
+                bundle.loss_fn(ctx)(params, batch)), want)
+        out[mode] = (loss, grads)
+    exact = dataclasses.replace(bundle, config=dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    params_x = tree_map(lambda t_: t_.detach().float().requires_grad_(True), params)
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    loss_x = exact.loss_fn(ctx_b)(params_x, batch)
+    grads_x = torch.autograd.grad(loss_x, tree_leaves(params_x))
+    worst, rows = 0.0, []
+    names = [".".join(map(str, path)) for path, _ in tree_paths(params)]
+    for name, gk, gb, gx in zip(names, out["kernel"][1], out["bulk"][1], grads_x):
+        ek, eb = errors(gk, gx)[0], errors(gb, gx)[0]
+        if not (torch.isfinite(gk.float()).all() and ek <= LOGITS_TOL_FACTOR * eb):
+            raise AssertionError(f"gradient {name}: kernel mode {ek:.3g} from exact f32, above "
+                                 f"{LOGITS_TOL_FACTOR} x bulk mode's {eb:.3g}")
+        worst = max(worst, ek / eb)
+        rows.append(f"{name} {ek:.3g}/{eb:.3g}")
+    lk, lb, lx = out["kernel"][0].item(), out["bulk"][0].item(), loss_x.item()
+    say(26, f"gradients of {cfg.n_layers} full-width chatglm3-6b layers at {TRAIN_B}x{TRAIN_S} "
+            f"tokens (LMBatches seed 0, weights seed 0): loss kernel {lk:.6f}, bulk {lb:.6f}, "
+            f"exact f32 {lx:.6f}; flash launches in kernel mode {2 * cfg.n_layers} (forward and "
+            f"remat, tile path), 0 in bulk mode; each leaf's max abs err from exact f32, "
+            f"kernel/bulk (bound {LOGITS_TOL_FACTOR} x bulk's; worst ratio {worst:.3g}): "
+            + ", ".join(rows))
+
+
+class StepClock:
+    """``on_phase`` hook of the train step: a CUDA event as each part
+    (forward, backward, optimizer) has been enqueued, the flash launches of
+    each step, and a torch.profiler window over step ``profile_step``."""
+
+    def __init__(self, profile_step):
+        self.steps, self.launches, self.profile_step = [], [], profile_step
+        self.busy = None
+
+    def __call__(self, name):
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+
+        if name == "start":
+            self.steps.append({})
+            self.flash0 = flash_attention.launches
+            if len(self.steps) == self.profile_step:
+                from torch.profiler import ProfilerActivity, profile
+
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.start()
+                self.t0 = time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.steps[-1][name] = ev
+        if name == "optimizer":
+            self.launches.append(flash_attention.launches - self.flash0)
+            if len(self.steps) == self.profile_step:
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - self.t0) * 1e3
+                self.prof.stop()
+                dev = [e.time_range.elapsed_us() / 1e3 for e in self.prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+                if not dev:
+                    raise AssertionError("torch.profiler recorded no device time in a train step")
+                self.busy = (sum(dev), wall, len(dev))
+                del self.prof
+
+    def split(self):
+        """Per step: (forward, backward, optimizer, whole) ms from the events."""
+        torch.cuda.synchronize()
+        ms = lambda a, b: a.elapsed_time(b)
+        return [(ms(e["start"], e["forward"]), ms(e["forward"], e["backward"]),
+                 ms(e["backward"], e["optimizer"]), ms(e["start"], e["optimizer"]))
+                for e in self.steps]
+
+
+def launch_run(argv, tokens):
+    """``launch.train.main(argv)`` with every launch count set to 0 first and
+    the peak memory reset; returns (losses, counts, StepClock, peak GB,
+    summary) of the run."""
+    from repro_torch.launch import train as launch_train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    clock = StepClock(profile_step=int(argv[argv.index("--steps") + 1]))
+    reset_counts()
+    losses = launch_train.main(argv, on_phase=clock)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        raise AssertionError(f"launcher {argv}: non-finite losses {losses}")
+    split = clock.split()
+    later = split[1:]
+    med = sorted(later, key=lambda r: r[3])[len(later) // 2]
+    dev, wall, ops = clock.busy
+    summary = (f"losses {', '.join(f'{x:.4f}' for x in losses)}; step (median of steps 2-"
+               f"{len(split)}, CUDA events) {med[3]:.1f} ms = forward {med[0]:.1f} + backward "
+               f"{med[1]:.1f} + optimizer {med[2]:.1f}, {tokens / med[3] * 1e3:.0f} tok/s "
+               f"(steps: {', '.join(f'{r[3]:.1f}' for r in split)} ms); device busy "
+               f"{100 * dev / wall:.1f}% of step {len(split)}'s {wall:.1f} ms under the profiler "
+               f"({ops} device ops); peak {peak:.2f} GB; flash launches a step "
+               f"{clock.launches}")
+    return losses, counts, clock, peak, summary, med
+
+
+def train_launcher_phase(card) -> dict:
+    """Phase 27: the launcher (``launch.train.main``) at full width, all 28
+    layers, TRAIN_STEPS steps at TRAIN_B x TRAIN_S in each mode from seed 0
+    (gates: finite losses, the last below the first, step 1's kernel loss
+    within LOGITS_TOL_FACTOR x bulk's distance from an exact f32 evaluation
+    of that loss, later steps within TRAIN_LOSS_REL of bulk's, 56 flash
+    launches a kernel-mode step and 0 in bulk mode); then TRAIN_LONG_STEPS
+    kernel-mode steps at TRAIN_LONG_B x TRAIN_LONG_S on TRAIN_LONG_LAYERS
+    layers."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import train as launch_train
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    bundle = get_arch("chatglm3-6b")
+    cfg = bundle.config
+    L = cfg.n_layers
+    # the exact f32 loss of step 1: the launcher's seed-0 weights and first batch
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batch = to_device(next(launch_train.make_batches(bundle, TRAIN_B, TRAIN_S)), "cuda")
+    exact = dataclasses.replace(bundle, config=dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    with torch.no_grad():
+        params_x = {"embed": {"table": params["embed"]["table"].float()},
+                    "final_norm": params["final_norm"], "layers": UpcastLayers(params["layers"])}
+        ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+        loss_x = exact.loss_fn(ctx_b)(params_x, batch).item()
+    del params, params_x
+    argv = ["--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+            "--lr", TRAIN_LR, "--log-every", "1"]
+    runs = {}
+    for mode in ("kernel", "bulk"):
+        runs[mode] = launch_run(argv + ["--fusion", mode], TRAIN_B * TRAIN_S)
+        want = TRAIN_STEPS * 2 * L if mode == "kernel" else 0
+        expect_counts(f"{mode} mode", runs[mode][1], flash_on_tile(want))
+        if runs[mode][2].launches != [want // TRAIN_STEPS] * TRAIN_STEPS:
+            raise AssertionError(f"{mode} mode: flash launches a step {runs[mode][2].launches}")
+        losses = runs[mode][0]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{mode} mode: loss did not fall: {losses}")
+    lk, lb = runs["kernel"][0], runs["bulk"][0]
+    d_k, d_b = abs(lk[0] - loss_x), abs(lb[0] - loss_x)
+    if d_k > LOGITS_TOL_FACTOR * d_b:
+        raise AssertionError(f"step 1: kernel loss {lk[0]:.6f} is {d_k:.3g} from exact f32 "
+                             f"{loss_x:.6f}, above {LOGITS_TOL_FACTOR} x bulk's {d_b:.3g}")
+    rel = max(abs(a - b) / b for a, b in zip(lk[1:], lb[1:]))
+    if rel > TRAIN_LOSS_REL:
+        raise AssertionError(f"steps 2-{TRAIN_STEPS}: kernel losses {lk} differ from bulk's {lb} "
+                             f"by {rel:.3g} of bulk's, above {TRAIN_LOSS_REL}")
+    say(27, f"on {card}: python -m repro_torch.launch.train --steps {TRAIN_STEPS} --lr "
+            f"{TRAIN_LR} (full-width chatglm3-6b, {L} layers, {TRAIN_B}x{TRAIN_S} tokens, AdamW "
+            f"with f32 moments, weights and batches from seed 0): kernel mode {runs['kernel'][4]}; bulk mode "
+            f"{runs['bulk'][4]}; step 1 vs exact f32 {loss_x:.6f}: kernel {d_k:.3g}, bulk "
+            f"{d_b:.3g} (bound {LOGITS_TOL_FACTOR} x bulk's); steps 2-{TRAIN_STEPS} kernel vs bulk "
+            f"{rel:.3g} of bulk's loss (bound {TRAIN_LOSS_REL})")
+    row = {"train_flash_launches_per_step": 2 * L, "train_step_ms": runs["kernel"][5][3],
+           "train_step_ms_bulk": runs["bulk"][5][3],
+           "train_tok_per_s": TRAIN_B * TRAIN_S / runs["kernel"][5][3] * 1e3,
+           "train_peak_gb": runs["kernel"][3]}
+    del runs
+    # the prefill's 4 x 2048 tokens, kernel mode
+    long_argv = ["--steps", str(TRAIN_LONG_STEPS), "--batch", str(TRAIN_LONG_B), "--seq",
+                 str(TRAIN_LONG_S), "--lr", TRAIN_LR, "--log-every", "1", "--fusion", "kernel"]
+    cut = dataclasses.replace(bundle, config=dataclasses.replace(cfg, n_layers=TRAIN_LONG_LAYERS))
+    with swapped(launch_train, "get_arch", lambda name: cut):
+        losses, counts, clock, peak, summary, med = launch_run(
+            long_argv, TRAIN_LONG_B * TRAIN_LONG_S)
+    expect_counts(f"{TRAIN_LONG_B}x{TRAIN_LONG_S}", counts,
+                  flash_on_tile(TRAIN_LONG_STEPS * 2 * TRAIN_LONG_LAYERS))
+    say(27, f"kernel mode at {TRAIN_LONG_B}x{TRAIN_LONG_S} tokens, {TRAIN_LONG_LAYERS} of {L} "
+            f"layers{' (cut: the 28 do not fit)' if TRAIN_LONG_LAYERS < L else ''}, "
+            f"{TRAIN_LONG_STEPS} steps: {summary}")
+    return {**row, "train_long_step_ms": med[3], "train_long_peak_gb": peak}
+
+
+def expect_counts(what, got, want):
+    """counted_run's check on counts read after a run."""
+    if any(got[n_] != want.get(n_, 0) for n_ in got if "." not in n_ or n_ in want):
+        raise AssertionError(f"{what}: launches {got}, expected {want} and 0 elsewhere")
+
+
+def train_phases(card, gen) -> dict:
+    """Phases 25-27 (dense training of chatglm3-6b); returns the flash
+    row's training numbers."""
+    row = flash_train_phase(gen)
+    torch.cuda.empty_cache()
+    train_grad_phase(gen)
+    torch.cuda.empty_cache()
+    row.update(train_launcher_phase(card))
+    return row
 
 
 def flash_on_tile(n):

@@ -13,3 +13,5 @@ CONFIG = TransformerConfig(
 )
 
 FAMILY = "transformer"
+OPTIMIZER = "adafactor"
+MICROBATCHES = 2  # gradient accumulation, as the reference's config sets it

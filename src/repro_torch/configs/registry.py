@@ -2,12 +2,13 @@
 
 The port serves chatglm3-6b (dense GQA decode) and dbrx-132b (MoE decode),
 through the dense engine or the paged one (``serve_step_fn``),
-runs chatglm3-6b's prefill (``prefill_fn``; dbrx's waits for the
-sequence-sharded MoE of ROADMAP Queue 1 item 5), rwkv6-7b's prefill and
-decode (``prefill_fn``, ``decode_fn``; no launcher serves it yet) and the
-forward of DLRM, the paper's own architecture (its ``loss_fn`` scores a
-batch; training it waits for ROADMAP Queue 1 item 4).  The reference's
-other architectures raise until their slice of the port lands.
+trains and prefills chatglm3-6b (``loss_fn``, ``prefill_fn``; dbrx's wait
+for the sequence-sharded MoE of ROADMAP Queue 1 item 5), runs rwkv6-7b's
+prefill and decode (``prefill_fn``, ``decode_fn``; no launcher serves it
+yet, and its training is item 7) and the forward of DLRM, the paper's own
+architecture (its ``loss_fn`` scores a batch; its kernel-mode pooling has no
+backward, so training it is item 6).  The reference's other architectures
+raise until their slice of the port lands.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ _LATER = {
     "musicgen-medium": 7, "zamba2-7b": 7,
     "deepseek-v3-671b": 5, "qwen2-vl-2b": 7,
 }
-_TRAIN_ITEM = "ROADMAP Queue 1 item 4 (dense training)"
+_RWKV6_TRAIN_ITEM = ("ROADMAP Queue 1 item 7 (rwkv6 training: train_forward with a WKV6 "
+                     "backward)")
 # the model module of each family that prefills and decodes
 _DECODERS = {"transformer": "repro_torch.models.transformer",
              "rwkv6": "repro_torch.models.rwkv6"}
@@ -54,6 +56,8 @@ class ArchBundle:
     name: str
     family: str
     config: Any
+    optimizer: str = "adamw"
+    microbatches: int = 1   # train-time gradient accumulation (memory knob)
 
     def init_params(self, gen: torch.Generator):
         """Random parameters on the generator's device."""
@@ -72,13 +76,19 @@ class ArchBundle:
         raise ValueError(self.family)
 
     def loss_fn(self, ctx: ParallelContext) -> Callable:
-        """(params, batch) -> scalar loss."""
+        """(params, batch) -> scalar loss, for autograd.  A MoE transformer
+        raises (ROADMAP Queue 1 item 5), rwkv6 too (item 7)."""
+        cfg = self.config
+        if self.family == "transformer":
+            from repro_torch.models.transformer import check_prefill, train_forward
+
+            check_prefill(cfg, "training")
+            return lambda p, b: train_forward(ctx, p, cfg, b)
         if self.family == "dlrm":
             from repro_torch.models.dlrm import dlrm_loss
 
-            cfg = self.config
             return lambda p, b: dlrm_loss(ctx, p, cfg, b)
-        raise NotImplementedError(f"{self.name}: the training forward is {_TRAIN_ITEM}")
+        raise NotImplementedError(f"{self.name}: the training forward is {_RWKV6_TRAIN_ITEM}")
 
     def prefill_fn(self, ctx: ParallelContext) -> Callable:
         """(params, {"tokens": [B, S]}) -> (last logits [B, 1, V], state):
@@ -173,4 +183,6 @@ def get_arch(name: str) -> ArchBundle:
         raise NotImplementedError(
             f"{name}: not ported yet (ROADMAP Queue 1 item {_LATER[name]})")
     mod = importlib.import_module(_MODULES[name])
-    return ArchBundle(name=name, family=mod.FAMILY, config=mod.CONFIG)
+    return ArchBundle(name=name, family=mod.FAMILY, config=mod.CONFIG,
+                      optimizer=getattr(mod, "OPTIMIZER", "adamw"),
+                      microbatches=getattr(mod, "MICROBATCHES", 1))

@@ -1,1 +1,1 @@
-"""Synthetic data generators."""
+"""Synthetic data generators and the input pipeline."""

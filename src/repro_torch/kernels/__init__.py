@@ -211,10 +211,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_gemm.restype = i32
     lib.repro_gemm_tile.argtypes = [vp, vp, vp, i32, i32, i32, vp]
     lib.repro_gemm_tile.restype = i32
-    lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
+    lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                           ctypes.c_float, i32, i32, vp]
     lib.repro_flash_attention.restype = i32
-    lib.repro_flash_attention_tile.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
+    lib.repro_flash_attention_tile.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                                ctypes.c_float, i32, vp]
     lib.repro_flash_attention_tile.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]

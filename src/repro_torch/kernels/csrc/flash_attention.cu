@@ -8,6 +8,11 @@
 //   m'  = max(m, max s);  p = exp(s - m');  corr = exp(m - m')
 //   l   = l corr + sum p;  acc = acc corr + p V;  m = m'
 //   out = acc / max(l, 1e-30), at the input dtype.
+// Given non-null m_out and l_out ([B, Hq, S] f32), each row's final m and l
+// are written too, in natural units on both paths: the residuals that the
+// reference's ring attention keeps for its analytic backward
+// (src/repro/models/attention.py fwd_rule).  Null pointers (prefill and
+// serving) skip the stores and change nothing else.
 // The TPU grid is (B*H, S/bq, S/bkv) with the key axis sequential and the
 // carries in VMEM scratch; a GPU grid has no sequential axis, so one CTA
 // per (batch*head, query block) loops over the key blocks with the carries
@@ -109,8 +114,9 @@ __device__ __forceinline__ void stage(float* dst, const T* src, size_t stride, i
 template <typename T, int D>
 __global__ void __launch_bounds__(kFlashThreads, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int S, int Hq, int Hkv,
-                           int n_qblk, float scale, int causal) {
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ m_out, float* __restrict__ l_out, int S, int Hq,
+                           int Hkv, int n_qblk, float scale, int causal) {
   constexpr int PD = D + 4;    // row pitch of Q, K and V in shared memory
   constexpr int CV = D / 64;   // float4 column groups of acc per thread
   static_assert(kFlashBQ == 64 && kFlashBK == 64, "the thread layout assumes 64 x 64 tiles");
@@ -235,6 +241,10 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= S) continue;
+    if (m_out != nullptr && tx == 0) {   // the 16 lanes of a row hold the same m and l
+      m_out[(size_t)bh * S + qpos] = m[i];
+      l_out[(size_t)bh * S + qpos] = l[i];
+    }
     const float den = fmaxf(l[i], 1e-30f);
     T* out = o + ((size_t)b * S + qpos) * qstride + (size_t)h * D;
 #pragma unroll
@@ -246,9 +256,9 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
 }
 
 template <typename T, int D>
-static cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o, int B,
-                                int S, int Hq, int Hkv, float scale, int causal,
-                                cudaStream_t stream) {
+static cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
+                                float* m_out, float* l_out, int B, int S, int Hq, int Hkv,
+                                float scale, int causal, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, D>;
   const size_t smem = sizeof(float) * (kFlashBQ + 2 * kFlashBK) * (D + 4);
   cudaError_t err =
@@ -259,7 +269,7 @@ static cudaError_t launch_flash(const void* q, const void* k, const void* v, voi
   if (grid > INT_MAX) return cudaErrorInvalidValue;
   kernel<<<(unsigned)grid, kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, Hq, Hkv, n_qblk, scale, causal);
+      static_cast<T*>(o), m_out, l_out, S, Hq, Hkv, n_qblk, scale, causal);
   return cudaGetLastError();
 }
 
@@ -278,6 +288,7 @@ constexpr int kTileThreads = kTileConsumers + 128;  // + the producer warpgroup
 constexpr int kTileProducerRegs = 24;
 constexpr int kTileConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct FlashKV {
   __nv_bfloat16 k[2][kTileBK * kTileHalf];   // [d half][key][64 d], 16 KB a box
@@ -318,7 +329,8 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     flash_tile_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                      int S, int Hq, int Hkv, int n_qblk, float scale_log2, int causal) {
+                      float* __restrict__ m_out, float* __restrict__ l_out, int S, int Hq,
+                      int Hkv, int n_qblk, float scale_log2, int causal) {
   extern __shared__ uint8_t flash_smem_raw[];
   const uint32_t raw = smem_addr(flash_smem_raw);
   FlashSmem& sm = *reinterpret_cast<FlashSmem*>(flash_smem_raw + (1024 - raw % 1024) % 1024);
@@ -500,6 +512,19 @@ __global__ void __launch_bounds__(kTileThreads, 1)
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
+    if (m_out != nullptr && lane % 4 == 0) {
+      // m is in the exp2 domain of scale_log2; back to natural units (a
+      // wholly masked row keeps the mask value)
+      const size_t base = (size_t)bh * S;
+      if (row0 < S) {
+        m_out[base + row0] = m0 == kFlashNegInf ? m0 : m0 * kLn2;
+        l_out[base + row0] = l0;
+      }
+      if (row1 < S) {
+        m_out[base + row1] = m1 == kFlashNegInf ? m1 : m1 * kLn2;
+        l_out[base + row1] = l1;
+      }
+    }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
     const size_t stride = (size_t)Hq * kTileD;
     __nv_bfloat16* out0 = o + ((size_t)b * S + row0) * stride + (size_t)h * kTileD + col;
@@ -516,9 +541,9 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   }
 }
 
-static cudaError_t launch_flash_tile(const void* q, const void* k, const void* v, void* o, int B,
-                                     int S, int Hq, int Hkv, float scale, int causal,
-                                     cudaStream_t stream) {
+static cudaError_t launch_flash_tile(const void* q, const void* k, const void* v, void* o,
+                                     float* m_out, float* l_out, int B, int S, int Hq, int Hkv,
+                                     float scale, int causal, cudaStream_t stream) {
   // q and o as [B][S][Hq * d], k and v as [B][S][Hkv * d]: a box is 128
   // rows of one 64-column half of one head
   CUtensorMap qmap, kmap, vmap;
@@ -535,8 +560,8 @@ static cudaError_t launch_flash_tile(const void* q, const void* k, const void* v
   const long long grid = (long long)n_qblk * B * Hq;
   if (grid > INT_MAX) return cudaErrorInvalidValue;
   flash_tile_kernel<<<(unsigned)grid, kTileThreads, kTileSmemBytes, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), S, Hq, Hkv, n_qblk, scale * kLog2e,
-      causal);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), m_out, l_out, S, Hq, Hkv, n_qblk,
+      scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
@@ -544,39 +569,43 @@ static cudaError_t launch_flash_tile(const void* q, const void* k, const void* v
 
 // q, o [B, S, Hq, D]; k, v [B, S, Hkv, D]; all contiguous and 16-byte
 // aligned, of one element type (dtype 0 = f32, 1 = bf16).  D must be 64 or
-// 128 and Hq a multiple of Hkv.  Returns a cudaError_t code (0 = launched).
+// 128 and Hq a multiple of Hkv.  m and l: [B, Hq, S] f32 softmax statistics,
+// both null (none written) or both given.  Returns a cudaError_t code (0 =
+// launched).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int B, int S, int Hq, int Hkv, int D, float scale,
-                                     int causal, int dtype, void* stream) {
+                                     float* m, float* l, int B, int S, int Hq, int Hkv, int D,
+                                     float scale, int causal, int dtype, void* stream) {
   using namespace repro_torch;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || addr % 16 != 0)
+  if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || addr % 16 != 0 ||
+      (m == nullptr) != (l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
-    err = launch_flash<float, 64>(q, k, v, o, B, S, Hq, Hkv, scale, causal, st);
+    err = launch_flash<float, 64>(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal, st);
   else if (dtype == 0 && D == 128)
-    err = launch_flash<float, 128>(q, k, v, o, B, S, Hq, Hkv, scale, causal, st);
+    err = launch_flash<float, 128>(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal, st);
   else if (dtype == 1 && D == 64)
-    err = launch_flash<__nv_bfloat16, 64>(q, k, v, o, B, S, Hq, Hkv, scale, causal, st);
+    err = launch_flash<__nv_bfloat16, 64>(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal, st);
   else if (dtype == 1 && D == 128)
-    err = launch_flash<__nv_bfloat16, 128>(q, k, v, o, B, S, Hq, Hkv, scale, causal, st);
+    err = launch_flash<__nv_bfloat16, 128>(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal, st);
   return static_cast<int>(err);
 }
 
 // The tensor-core path: q, o [B, S, Hq, 128]; k, v [B, S, Hkv, 128]; all
-// bf16, contiguous and 16-byte aligned; Hq a multiple of Hkv.  Returns a
-// cudaError_t code (0 = launched).
+// bf16, contiguous and 16-byte aligned; Hq a multiple of Hkv; m and l as
+// above.  Returns a cudaError_t code (0 = launched).
 extern "C" int repro_flash_attention_tile(const void* q, const void* k, const void* v, void* o,
-                                          int B, int S, int Hq, int Hkv, int D, float scale,
-                                          int causal, void* stream) {
+                                          float* m, float* l, int B, int S, int Hq, int Hkv,
+                                          int D, float scale, int causal, void* stream) {
   using namespace repro_torch;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D != kTileD || addr % 16 != 0)
+  if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D != kTileD ||
+      addr % 16 != 0 || (m == nullptr) != (l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_flash_tile(q, k, v, o, B, S, Hq, Hkv, scale, causal,
+  return static_cast<int>(launch_flash_tile(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal,
                                             static_cast<cudaStream_t>(stream)));
 }

@@ -28,7 +28,7 @@ from repro_torch.kernels import check_launch, dtype_code, load_library, sm_count
 from repro_torch.kernels.embedding_pool.plan import PATHS, RING_BYTES, call_plan
 from repro_torch.kernels.embedding_pool.ref import embedding_pool_tables_ref
 
-_TRAIN_ITEM = "ROADMAP Queue 1 item 4 (training)"
+_TRAIN_ITEM = "ROADMAP Queue 1 item 6 (DLRM training)"
 
 
 def embedding_pool(table, idx):

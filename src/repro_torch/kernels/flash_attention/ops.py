@@ -1,14 +1,19 @@
 """Flash-attention wrapper: the CUDA kernel for a CUDA tensor, the plain
 version for a CPU tensor.
 
-The wrapper is a ``torch.autograd.Function`` whose backward raises: the
-kernel has no backward yet (dense training needs one), and a ctypes launch
-is invisible to autograd, so without it a gradient would be lost silently.
-It raises on the CPU too, so the op behaves the same on both devices.
+The wrapper is a ``torch.autograd.Function``.  When a gradient is wanted,
+the forward also returns each row's softmax statistics (m, l) and saves q,
+k, v, o, m and l, the residuals of the reference's ring attention
+(``src/repro/models/attention.py`` ``fwd_rule``); the backward is the
+reference's analytic gradient, ``_span_flash_bwd`` recomputing the scores
+block by block (``models/attention.flash_backward``).  The reference has no
+backward kernel, so that backward is plain PyTorch on both devices.  Without
+a gradient (prefill, serving) no statistics are written.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import check_launch, dtype_code, load_library
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -16,7 +21,6 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 KERNEL_D = (64, 128)   # head sizes the CUDA-core kernel takes
 TILE_D = 128           # the head size the tensor-core kernel takes
 PATHS = ("cuda_core", "tile")
-_TRAIN_ITEM = "ROADMAP Queue 1 item 4 (dense training: a flash backward)"
 
 
 def flash_path(dtype, d) -> str:
@@ -43,7 +47,9 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=No
     CPU tensor takes :func:`flash_attention_plain`.  ``_path`` forces one of
     :data:`PATHS` (for timing both; no caller passes it) and raises where
     that kernel does not take the call, on any device.  The TPU kernel has
-    no sliding window and no softcap, so asking for either raises."""
+    no sliding window and no softcap, so asking for either raises.  The
+    gradient is the analytic backward of the module docstring; it cannot be
+    differentiated again."""
     if window is not None or softcap is not None:
         raise NotImplementedError(
             f"flash_attention: window={window}, softcap={softcap}: the kernel, like the TPU "
@@ -64,53 +70,76 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=No
             _path == "tile" and flash_path(q.dtype, d) != "tile")):
         raise ValueError(f"flash_attention: path {_path!r} does not take {q.dtype} at d = {d}")
     scale = float(scale) if scale is not None else d ** -0.5
-    return _Flash.apply(q, k, v, scale, bool(causal), _path)
+    stats = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    return _Flash.apply(q, k, v, scale, bool(causal), _path, stats)
 
 
 flash_attention.launches = 0
 flash_attention.path_launches = dict.fromkeys(PATHS, 0)
 
 
-def flash_attention_plain(q, k, v, *, scale=None, causal=True):
+def flash_attention_plain(q, k, v, *, scale=None, causal=True, stats=False):
     """The op's plain version on any device: each kv head repeated over its
-    query heads, heads folded into the batch, :func:`flash_attention_ref`."""
+    query heads, heads folded into the batch, :func:`flash_attention_ref`.
+    With ``stats`` also (m, l), each [B, Hq, S] f32."""
     b, s, hq, d = q.shape
     g = hq // k.shape[2]
     scale = scale if scale is not None else d ** -0.5
     fold = lambda t: t.repeat_interleave(g, dim=2).transpose(1, 2).reshape(b * hq, s, d)
     out = flash_attention_ref(q.transpose(1, 2).reshape(b * hq, s, d), fold(k), fold(v),
-                              scale=scale, causal=causal)
-    return out.reshape(b, hq, s, d).transpose(1, 2)
+                              scale=scale, causal=causal, stats=stats)
+    unfold = lambda o: o.reshape(b, hq, s, d).transpose(1, 2)
+    if stats:
+        return unfold(out[0]), out[1].reshape(b, hq, s), out[2].reshape(b, hq, s)
+    return unfold(out)
 
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, path):
+    def forward(ctx, q, k, v, scale, causal, path, stats):
         if q.device.type == "cpu":
-            return flash_attention_plain(q, k, v, scale=scale, causal=causal)
-        out, path = _launch(q, k, v, scale, causal, path)
-        flash_attention.launches += 1
-        flash_attention.path_launches[path] += 1
-        return out
+            out = flash_attention_plain(q, k, v, scale=scale, causal=causal, stats=stats)
+        else:
+            out, path = _launch(q, k, v, scale, causal, path, stats)
+            flash_attention.launches += 1
+            flash_attention.path_launches[path] += 1
+        if not stats:
+            return out
+        o, m, l = out
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.scale, ctx.causal = scale, causal
+        return o
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(f"flash_attention has no backward kernel: {_TRAIN_ITEM}")
+    @once_differentiable
+    def backward(ctx, do):
+        # the model module imports this one: import it at first use
+        from repro_torch.models.attention import flash_backward
+
+        q, k, v, o, m, l = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, o, m, l, do, causal=ctx.causal, window=None,
+                                    scale=ctx.scale, cap=None)
+        return dq, dk, dv, None, None, None, None
 
 
-def _launch(q, k, v, scale, causal, path):
+def _launch(q, k, v, scale, causal, path, stats=False):
     """Launches the kernel ``path`` names, else the one :func:`flash_path`
-    chooses; returns (output, the path launched)."""
+    chooses; returns (output, the path launched).  With ``stats`` the output
+    is (o, m, l), m and l [B, Hq, S] f32."""
     b, s, hq, d = q.shape
     if d not in KERNEL_D:
         raise ValueError(f"flash_attention: the kernel takes head sizes {KERNEL_D}, got {d}")
     code = dtype_code(q.dtype)
     q, k, v = (_aligned(a) for a in (q, k, v))
     o = torch.empty_like(q)
+    m = l = None
+    if stats:
+        m, l = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device) for _ in "ml")
     path = path or flash_path(q.dtype, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, hq, k.shape[2], d,
-            scale, int(causal))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(m), ptr(l), b, s, hq,
+            k.shape[2], d, scale, int(causal))
     with torch.cuda.device(q.device):
         lib = load_library().lib
         if path == "tile":
@@ -118,7 +147,7 @@ def _launch(q, k, v, scale, causal, path):
         else:
             err = lib.repro_flash_attention(*args, code, stream)
         check_launch(err, f"flash_attention ({path} path)")
-    return o, path
+    return ((o, m, l) if stats else o), path
 
 
 def _aligned(a):

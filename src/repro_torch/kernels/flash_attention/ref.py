@@ -4,11 +4,15 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, scale, causal=True):
+def flash_attention_ref(q, k, v, *, scale, causal=True, stats=False):
     """q, k, v: [BH, S, d] -> [BH, S, d] at q's dtype: the JAX
     ``flash_attention_ref`` with the scores summed in f32 from the inputs as
     given (the TPU kernel's ``preferred_element_type=f32``; the JAX oracle
-    rounds them to the input dtype first), f32 softmax and PV product."""
+    rounds them to the input dtype first), f32 softmax and PV product.
+
+    With ``stats`` also each row's softmax statistics, [BH, S] f32 each: m,
+    the max of the scaled, masked scores, and l = sum exp(s - m) (the
+    carries the reference's flash loop ends with)."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if causal:
         sq = q.shape[1]
@@ -16,5 +20,6 @@ def flash_attention_ref(q, k, v, *, scale, causal=True):
         s = s.masked_fill(~mask[None], NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
-    p = e / e.sum(dim=-1, keepdim=True)
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    l = e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bqk,bkd->bqd", e / l, v.float()).to(q.dtype)
+    return (out, m[..., 0], l[..., 0]) if stats else out

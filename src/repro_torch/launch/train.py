@@ -1,0 +1,155 @@
+"""Training launcher: a few AdamW (or the config's optimizer) steps on
+synthetic data through the fused operators.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
+      --steps 6 --batch 16 --seq 64 --fusion kernel
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 6
+
+Dense transformers train (``bundle.loss_fn``: ``train_forward`` with remat,
+the vocab-sharded CE), at tp = 1, in ``kernel`` mode (every attention
+forward is the flash kernel; its backward the reference's analytic one) or
+``bulk`` mode.  Weights are random, drawn from seed 0; batches are
+``LMBatches`` from seed 0, copied to the device ahead of the step
+(``data.pipeline.prefetch``).  It prints the reference launcher's per-step
+line every ``--log-every`` steps and returns the losses.
+
+The reference launcher also runs under a restart-on-failure supervisor with
+checkpoints, chaos injection, liveness, skew scheduling, calibration and
+the comm-graph rewrite; here each of those flags raises with the ROADMAP
+item that brings it.  The port's trainer does not checkpoint.
+
+Runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
+device the default raises.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs.registry import get_arch
+from repro_torch.data.pipeline import prefetch
+from repro_torch.data.synthetic import LMBatches
+from repro_torch.kernels import load_library
+from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+from repro_torch.train.optimizer import OptimizerConfig
+from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
+
+_RUNTIME = "ROADMAP Queue 1 item 7 (the runtime)"
+# flags of the reference launcher that later slices bring: (flag, dest, ROADMAP item)
+_LATER_FLAGS = (
+    ("--auto-fuse", "auto_fuse", "ROADMAP Queue 1 item 7 (the comm-graph analyzer)"),
+    ("--explain-comm", "explain_comm", "ROADMAP Queue 1 item 7 (the comm-graph analyzer)"),
+    ("--calibrate", "calibrate", "ROADMAP Queue 1 item 3 (autotune/calibrate)"),
+    ("--skew-schedule", "skew_schedule", f"{_RUNTIME}: the straggler loop"),
+    ("--degrade", "degrade", f"{_RUNTIME}: degradation"),
+    ("--production-mesh", "production_mesh", "ROADMAP Queue 1 item 1 (the multi-card tp world)"),
+)
+_LATER_VALUES = (
+    ("--chaos", "chaos", f"{_RUNTIME}: chaos injection"),
+    ("--ckpt-dir", "ckpt_dir", f"{_RUNTIME}: checkpoints and the supervisor"),
+    ("--ckpt-every", "ckpt_every", f"{_RUNTIME}: checkpoints and the supervisor"),
+    ("--coordinator", "coordinator", f"{_RUNTIME}: multi-process launch"),
+    ("--num-processes", "num_processes", f"{_RUNTIME}: multi-process launch"),
+    ("--process-id", "process_id", f"{_RUNTIME}: multi-process launch"),
+    ("--heartbeat-dir", "heartbeat_dir", f"{_RUNTIME}: liveness"),
+    ("--step-deadline", "step_deadline", f"{_RUNTIME}: liveness"),
+    ("--tune-cache", "tune_cache", "ROADMAP Queue 1 item 3 (autotune)"),
+)
+_NOT_TRAINED = {
+    "dlrm": "ROADMAP Queue 1 item 6 (DLRM training: kernel-mode pooling has no backward)",
+    "rwkv6": "ROADMAP Queue 1 item 7 (rwkv6 training: a WKV6 backward)",
+}
+
+
+def parse_granularity(value: str):
+    """``"auto"`` or a positive int (the reference's ``--granularity``)."""
+    if value == "auto":
+        return value
+    q = int(value)
+    if q < 1:
+        raise ValueError(f"granularity must be >= 1 or 'auto', got {q}")
+    return q
+
+
+def make_batches(bundle, batch: int, seq: int, seed: int = 0):
+    """The reference launcher's batches for a transformer: numpy
+    ``LMBatches`` over the config's vocabulary."""
+    if bundle.family != "transformer":
+        raise NotImplementedError(f"{bundle.name}: {_NOT_TRAINED[bundle.family]}")
+    return LMBatches(bundle.config.vocab, batch, seq, seed)
+
+
+def build_parser():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="chatglm3-6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--fusion", default="kernel", choices=["kernel", "bulk"])
+    ap.add_argument("--granularity", default=1, type=parse_granularity,
+                    help="chunks_per_rank of the CE's sub-chunks (an int >= 1; 'auto' is "
+                         "ROADMAP Queue 1 item 3)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    for flag, dest, _ in _LATER_FLAGS:
+        ap.add_argument(flag, dest=dest, action="store_true", help=argparse.SUPPRESS)
+    for flag, dest, _ in _LATER_VALUES:
+        ap.add_argument(flag, dest=dest, default=None, help=argparse.SUPPRESS)
+    return ap
+
+
+def _refuse_later(args):
+    for flag, dest, item in _LATER_FLAGS + _LATER_VALUES:
+        if getattr(args, dest) not in (None, False):
+            raise NotImplementedError(f"{flag}: {item}")
+    if args.granularity == "auto":
+        raise NotImplementedError("--granularity auto: ROADMAP Queue 1 item 3 (autotune)")
+
+
+def main(argv=None, *, on_phase=None):
+    """Parse ``argv``, train, return the per-step losses (floats).
+    ``on_phase`` goes to ``build_train_step`` (for timing each part)."""
+    args = build_parser().parse_args(argv)
+    _refuse_later(args)
+    bundle = get_arch(args.arch)
+    if args.reduced:
+        bundle = bundle.reduced()
+    batches = make_batches(bundle, args.batch, args.seq)
+    ctx = ParallelContext(device=args.device,
+                          fusion=FusionConfig(mode=args.fusion, granularity=args.granularity))
+    loss_fn = bundle.loss_fn(ctx)
+    if ctx.device.type == "cuda" and args.fusion == "kernel":
+        load_library()   # build the kernels before the first step
+    params = bundle.init_params(torch.Generator(device=ctx.device).manual_seed(0))
+    tc = TrainConfig(
+        optimizer=OptimizerConfig(name=bundle.optimizer, lr=args.lr,
+                                  warmup_steps=max(args.steps // 20, 5),
+                                  total_steps=args.steps),
+        microbatches=bundle.microbatches)
+    state = init_train_state(tc, params)
+    del params
+    step_fn = build_train_step(loss_fn, tc, on_phase=on_phase)
+
+    t0 = time.time()
+    losses = []
+    batch_iter = prefetch(batches, ctx.device)
+    for step in range(1, args.steps + 1):
+        state, metrics = step_fn(state, next(batch_iter))
+        losses.append(float(metrics["loss"]))
+        if step % args.log_every == 0:
+            print(f"step {step:5d} loss {losses[-1]:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"lr {float(metrics['lr']):.2e} "
+                  f"({(time.time() - t0) / max(step, 1):.2f}s/step)",
+                  flush=True)
+    span = f"loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else "no steps run"
+    print(f"done at step {args.steps}; {span}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

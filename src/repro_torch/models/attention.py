@@ -1,13 +1,19 @@
-"""Prefill attention over the prompt, and decode attention over a dense KV
-cache.
+"""Train/prefill attention over the sequence, and decode attention over a
+dense KV cache.
 
-Prefill (``context_attention``): the JAX package shards the sequence over
-tp and ring-gathers KV chunks into a blockwise online-softmax update
+Train/prefill (``context_attention``): the JAX package shards the sequence
+over tp and ring-gathers KV chunks into a blockwise online-softmax update
 (``_span_flash``); on one card (tp = 1) the whole span is local and the ring
 has no hops.  ``kernel`` mode on a CUDA tensor runs the span in the
 hand-written flash kernel (``kernels/flash_attention``); ``bulk`` mode, on
 any device, and a CPU tensor run the plain ``_span_flash``, as the
-reference's bulk branch does (``attention_path``).
+reference's bulk branch does (``attention_path``).  Gradients follow the
+reference: bulk mode differentiates through ``_span_flash`` by autograd, as
+its bulk branch does; kernel mode is its ring attention at n = 1, whose
+analytic backward (``flash_backward``, the port of ``_span_flash_bwd``)
+recomputes the scores block by block from the forward's softmax statistics
+(on a card the flash kernel writes them; on the CPU ``_SpanFlash`` keeps the
+plain loop's carries).
 
 Decode: the JAX package keeps the decode KV cache sequence-sharded over tp
 and merges per-rank flash partials; on one card the whole sequence is
@@ -23,11 +29,13 @@ host (``chip_smoke.py`` phase 23(e) holds ``serve_step`` to that).
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.parallel.sharding import ParallelContext
 
 NEG_INF = -1e30
+Q_BLOCK, KV_BLOCK = 256, 1024   # the reference context_attention's default blocks
 _FUSED_ITEM = ("ROADMAP Queue 1 item 1 (the multi-card tp world: the KV ring of "
                "fused mode)")
 
@@ -56,6 +64,15 @@ def _flash_update(carry, q5, k, v, mask, scale, cap):
     return m_new, l, o
 
 
+def _span_mask(qp, kp, causal, window):
+    mask = torch.ones((len(qp), len(kp)), dtype=torch.bool, device=qp.device)
+    if causal:
+        mask &= kp[None, :] <= qp[:, None]
+    if window is not None:
+        mask &= qp[:, None] - kp[None, :] < window
+    return mask
+
+
 def _span_flash(q5, k, v, qpos, kpos, carry, *, causal, window, scale, cap,
                 q_block, kv_block):
     """Accumulate flash carries of q5 against one KV span, blocked so the
@@ -63,26 +80,117 @@ def _span_flash(q5, k, v, qpos, kpos, carry, *, causal, window, scale, cap,
 
     Unlike the reference, whose loops run ``sq // q_block`` and
     ``sk // kv_block`` times, the last query and key blocks may be short,
-    so no row or key past the last whole block is dropped.  The carries
-    are updated in place, a query block at a time."""
+    so no row or key past the last whole block is dropped.  Each query
+    block's carries are new tensors, joined at the end, so autograd can
+    differentiate through the loop (bulk mode's gradient)."""
     m, l, o = carry
     sq, sk = q5.shape[1], k.shape[1]
     qb, kb = min(q_block, sq), min(kv_block, sk)
+    out = []
     for q0 in range(0, sq, qb):
         rows = slice(q0, min(q0 + qb, sq))
         qp = qpos[rows]
         c = (m[..., rows], l[..., rows], o[..., rows, :])
         for k0 in range(0, sk, kb):
             keys = slice(k0, min(k0 + kb, sk))
-            kp = kpos[keys]
-            mask = torch.ones((len(qp), len(kp)), dtype=torch.bool, device=q5.device)
-            if causal:
-                mask &= kp[None, :] <= qp[:, None]
-            if window is not None:
-                mask &= qp[:, None] - kp[None, :] < window
+            mask = _span_mask(qp, kpos[keys], causal, window)
             c = _flash_update(c, q5[:, rows], k[:, keys], v[:, keys], mask, scale, cap)
-        m[..., rows], l[..., rows], o[..., rows, :] = c
-    return m, l, o
+        out.append(c)
+    if len(out) == 1:
+        return out[0]
+    return tuple(torch.cat(parts, dim=3) for parts in zip(*out))
+
+
+# ---------------------------------------------------------------------------
+# flash backward over one KV span (blocked; recompute-in-backward)
+# ---------------------------------------------------------------------------
+def _span_flash_bwd(q5, kc, vc, do5, delta, m, l, qpos, kpos, dq5, *, causal, window,
+                    scale, cap, q_block, kv_block):
+    """Accumulate flash gradients of q5 against one KV span; returns (dq5,
+    dk, dv), dk and dv [b,skc,hk,d] f32.
+
+    q5/do5/dq5: [b,sq,hk,g,d]; kc, vc: [b,skc,hk,d]; delta, m, l:
+    [b,hk,g,sq].  dq5 is a running accumulator, updated in place (the
+    reference's (dk, dv) accumulators that travel the ring with their chunk
+    come with the multi-card world).  Scores are recomputed per (q_block,
+    kv_block) tile, never materialized whole.  The dtypes follow the reference: the QK product at
+    the inputs' dtype, then f32; do, v, p and ds in f32.  As in
+    ``_span_flash``, the last query and key blocks may be short."""
+    b, sq, hk, g, dd = q5.shape
+    skc = kc.shape[1]
+    qb, kb = min(q_block, sq), min(kv_block, skc)
+    f32 = torch.float32
+    dk = torch.zeros((b, skc, hk, dd), dtype=f32, device=q5.device)
+    dv = torch.zeros((b, skc, hk, dd), dtype=f32, device=q5.device)
+    for q0 in range(0, sq, qb):
+        rows = slice(q0, min(q0 + qb, sq))
+        qs, dos = q5[:, rows], do5[:, rows].float()
+        ms, dls = m[..., rows], delta[..., rows]
+        ls = torch.clamp_min(l[..., rows], 1e-30)
+        dq_blk = torch.zeros(qs.shape, dtype=f32, device=q5.device)
+        for k0 in range(0, skc, kb):
+            keys = slice(k0, min(k0 + kb, skc))
+            ks, vs = kc[:, keys], vc[:, keys]
+            raw = torch.einsum("bqhgd,bkhd->bhgqk", qs, ks).float() * scale
+            s = raw if cap is None else torch.tanh(raw / cap) * cap
+            s = s + torch.where(_span_mask(qpos[rows], kpos[keys], causal, window), 0.0, NEG_INF)
+            p = torch.exp(s - ms[..., None]) / ls[..., None]
+            dv[:, keys] += torch.einsum("bhgqk,bqhgd->bkhd", p, dos)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dos, vs.float())
+            ds = p * (dp - dls[..., None])
+            if cap is not None:
+                t = torch.tanh(raw / cap)
+                ds = ds * (1.0 - t * t)
+            ds = ds * scale
+            dq_blk += torch.einsum("bhgqk,bkhd->bqhgd", ds, ks.float())
+            dk[:, keys] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qs.float())
+        dq5[:, rows] += dq_blk
+    return dq5, dk, dv
+
+
+def flash_backward(q, k, v, o, m, l, do, *, causal, window, scale, cap):
+    """The analytic gradient of one whole span's attention: the reference's
+    ring-attention ``bwd_rule`` at n = 1 (no hops), at its default blocks.  q, o, do [B, S, Hq, hd];
+    k, v [B, S, Hkv, hd]; m, l the forward's softmax statistics, [B, Hq, S]
+    or [B, Hkv, g, S] f32.  Returns (dq, dk, dv) at q's, k's and v's dtypes."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    q5 = q.reshape(B, S, Hkv, g, hd)
+    do5 = do.float().reshape(B, S, Hkv, g, hd)
+    delta = torch.einsum("bqhgd,bqhgd->bhgq", do5, o.reshape(B, S, Hkv, g, hd).float())
+    pos = torch.arange(S, device=q.device)
+    dq5, dk, dv = _span_flash_bwd(
+        q5, k, v, do5, delta, m.reshape(B, Hkv, g, S), l.reshape(B, Hkv, g, S), pos, pos,
+        torch.zeros(q5.shape, dtype=torch.float32, device=q.device), causal=causal,
+        window=window, scale=scale, cap=cap, q_block=Q_BLOCK, kv_block=KV_BLOCK)
+    return dq5.reshape(B, S, Hq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _SpanFlash(torch.autograd.Function):
+    """Kernel mode off the card: the plain span forward, keeping its m and l,
+    with the analytic backward (the reference's ring attention at n = 1)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, cap):
+        B, S, Hq, hd = q.shape
+        Hkv = k.shape[2]
+        g = Hq // Hkv
+        pos = torch.arange(S, device=q.device)
+        carry = _span_flash(q.reshape(B, S, Hkv, g, hd), k, v, pos, pos,
+                            _init_carry(B, Hkv, g, S, hd, q.device), causal=causal,
+                            window=window, scale=scale, cap=cap, q_block=Q_BLOCK,
+                            kv_block=KV_BLOCK)
+        o = _finalize(carry, B, S, Hq, hd).to(q.dtype)
+        ctx.save_for_backward(q, k, v, o, carry[0], carry[1])
+        ctx.args = dict(causal=causal, window=window, scale=scale, cap=cap)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        dq, dk, dv = flash_backward(*ctx.saved_tensors, do, **ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def _init_carry(b, hk, g, sq, d, device=None):
@@ -124,7 +232,10 @@ def context_attention(
     the whole sequence.  Kernel mode on a CUDA tensor runs it in the flash
     kernel (which takes neither ``window`` nor ``softcap_val``); bulk mode
     on any device, and a CPU tensor, run ``_span_flash`` with the
-    reference's default blocks (:func:`attention_path`).  ``fused`` mode
+    reference's default blocks (:func:`attention_path`).  Kernel mode's
+    gradient is the analytic ``flash_backward`` on both devices (the flash
+    op's backward on a card, ``_SpanFlash`` on the CPU); bulk mode's is
+    autograd through ``_span_flash``.  ``fused`` mode
     (``ctx.fusion.resolve("kv_ag")``) raises until the multi-card world."""
     mode = ctx.fusion.resolve("kv_ag")
     if mode not in ("bulk", "kernel"):
@@ -133,11 +244,13 @@ def context_attention(
     if attention_path(mode, q.device) == "flash":
         return flash_attention(q, k, v, scale=scale, causal=causal, window=window,
                                softcap=softcap_val)
+    if mode == "kernel":
+        return _SpanFlash.apply(q, k, v, causal, window, scale, softcap_val)
     return span_attention(q, k, v, causal=causal, window=window, scale=scale,
                           cap=softcap_val)
 
 
-def span_attention(q, k, v, *, causal, window, scale, cap, q_block=256, kv_block=1024):
+def span_attention(q, k, v, *, causal, window, scale, cap, q_block=Q_BLOCK, kv_block=KV_BLOCK):
     """The plain blockwise attention of one whole span on any device:
     q [B, S, Hq, hd], k, v [B, S, Hkv, hd] -> [B, S, Hq, hd] at q's dtype."""
     B, S, Hq, hd = q.shape

@@ -4,6 +4,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.train.optimizer import tree_leaves
+
 
 def _tensor(a, device):
     a = np.array(a)   # a writable copy: JAX hands out read-only buffers
@@ -21,6 +23,12 @@ def _conv(tree, device, index=None):
     return _tensor(tree if index is None else np.asarray(tree)[index], device)
 
 
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
 def params_from_numpy(tree, device="cpu"):
     """JAX transformer params as nested dicts of numpy arrays (``split_params``
     values through ``np.asarray``) -> the port's parameters.
@@ -30,13 +38,15 @@ def params_from_numpy(tree, device="cpu"):
     ``g * P + j`` is group g's entry j for a pattern of P layers.  The port
     keeps one dict per layer in ``params["layers"]``.  Every leaf is carried
     across as it is, the MoE FFN's too: ``router`` f32 [D, E], ``w_gate`` and
-    ``w_up`` [E, D, F], ``w_down`` [E, F, D]."""
+    ``w_up`` [E, D, F], ``w_down`` [E, F, D].  Any tree with the parameters'
+    layout converts the same way, with more structure below a parameter's
+    place (Adafactor's ``{"vr", "vc"}``)."""
     if "prefix" in tree:
         raise NotImplementedError("dense-prefix layers: ROADMAP Queue 1 item 5")
 
     stacked = tree["layers"]
     period = len(stacked)
-    groups = len(np.asarray(stacked["l0"]["ln1"]))
+    groups = len(np.asarray(_first_leaf(stacked["l0"])))
     layers = [_conv(stacked[f"l{j}"], device, g) for g in range(groups)
               for j in range(period)]
     return {"embed": _conv(tree["embed"], device),
@@ -62,3 +72,31 @@ def rwkv6_params_from_numpy(tree, device="cpu"):
     return {"embed": _conv(tree["embed"], device),
             "final_norm": _conv(tree["final_norm"], device),
             "layers": [_conv(tree["layers"], device, i) for i in range(n_layers)]}
+
+
+def train_state_from_numpy(state, device="cpu"):
+    """A JAX transformer train state (``init_train_state``'s tree through
+    ``np.asarray``: ``params``, ``opt`` with AdamW's ``mu``/``nu``/``step``
+    or Adafactor's ``v``/``step``, and the compression ``residuals`` if
+    any) -> the port's state (``repro_torch.train.step``).  Parameters are
+    marked as requiring a gradient, as ``init_train_state`` marks them."""
+    conv = lambda t: params_from_numpy(t, device)
+    params = conv(state["params"])
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    opt = state["opt"]
+    if "v" in opt:
+        # Adafactor keeps the reference's stacked state under "layers"
+        # (a layer pattern of one: the one stack "l0")
+        v = opt["v"]
+        if set(v["layers"]) != {"l0"}:
+            raise NotImplementedError("a layer pattern longer than one: ROADMAP Queue 1 item 7")
+        opt = {"v": {**{k: _conv(t, device) for k, t in v.items() if k != "layers"},
+                     "layers": _conv(v["layers"]["l0"], device)}}
+    else:
+        opt = {k: conv(v) for k, v in opt.items() if k != "step"}
+    opt["step"] = torch.tensor(int(np.asarray(state["opt"]["step"])), dtype=torch.int32)
+    out = {"params": params, "opt": opt}
+    if "residuals" in state:
+        out["residuals"] = conv(state["residuals"])
+    return out

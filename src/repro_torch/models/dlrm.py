@@ -9,7 +9,7 @@ that output directly in its {local batch, tables x dim} layout.
 This slice runs the forward on one card: scoring a batch, which is what
 recommendation inference runs and the first half of a training step.  In
 kernel mode the pooling has no backward (neither has the TPU kernel), so
-training DLRM waits for ROADMAP Queue 1 item 4.  Plain products stay
+training DLRM waits for ROADMAP Queue 1 item 6.  Plain products stay
 ``torch.matmul``, as the reference leaves them to XLA.
 """
 from __future__ import annotations

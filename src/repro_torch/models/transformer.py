@@ -1,10 +1,11 @@
-"""Decoder-only LM prefill and decode for GQA transformers.
+"""Decoder-only LM training, prefill and decode for GQA transformers.
 
 The JAX package's unified decoder also covers MLA, M-RoPE, shared experts,
 dense-prefix layers and the audio/vision front ends, and scans its layers
 with ``lax.scan``.  This port runs GQA decode with a dense or MoE FFN, the
-prefill of the dense ones, and a Python loop over the layers; a config that
-needs the rest raises until its slice lands.  Decode keeps the reference's
+training forward (``train_forward``: the loss, differentiated by autograd)
+and the prefill of the dense ones, and a Python loop over the layers; a
+config that needs the rest raises until its slice lands.  Decode keeps the reference's
 layouts: a per-layer cache slice is [B, S_max, Hkv, hd], ``pos`` a [B] int32
 vector, logits [B, 1, V] in f32.  The prefill returns last-position logits
 [B, 1, V] in f32 and the cache {"k", "v"}, each [L, B, S, Hkv, hd] (k after
@@ -21,7 +22,9 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.loss import sharded_cross_entropy
 from repro_torch.models.attention import (broadcast_pos, cache_update, context_attention,
                                           decode_attention, paged_attention,
                                           paged_cache_update)
@@ -105,12 +108,13 @@ def check_supported(cfg: TransformerConfig):
         raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
 
 
-def check_prefill(cfg: TransformerConfig):
-    """Raise for a config whose prefill this slice has not ported."""
+def check_prefill(cfg: TransformerConfig, what: str = "prefill"):
+    """Raise for a config whose prefill (or training forward, which runs
+    the same sequence-sharded layers) this slice has not ported."""
     check_supported(cfg)
     if cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MoE prefill is ROADMAP Queue 1 item 5 (sequence-sharded MoE: "
+            f"{cfg.name}: MoE {what} is ROADMAP Queue 1 item 5 (sequence-sharded MoE: "
             f"the MoE kernels at prefill rows, and their VJPs)")
 
 
@@ -187,6 +191,43 @@ def _embed_inputs(ctx, params, cfg: TransformerConfig, batch):
 
 def _positions_for(S, device):
     return torch.arange(S, device=device)[None, :]
+
+
+def _group_train(ctx, cfg, layers, x, positions, first):
+    """One remat group of consecutive layers (a period of the layer
+    pattern, as the reference's scan groups them)."""
+    for i, lp in enumerate(layers):
+        x, _ = _layer_train(ctx, cfg, lp, x, positions, cfg.layer_window(first + i))
+    return x
+
+
+def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
+    """batch: {"tokens" [B, S], "labels" [B, S]} -> the scalar mean token
+    cross-entropy, for autograd.  With ``cfg.remat`` each group of layers
+    (``local_global_period`` layers, else one) runs under
+    ``torch.utils.checkpoint``: only its input is kept, and backward runs
+    its forward again, as the reference's ``jax.checkpoint`` does."""
+    check_prefill(cfg, "training")
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = _embed_inputs(ctx, params, cfg, batch)
+    positions = _positions_for(S, tokens.device)
+    period = cfg.local_global_period or 1
+    group = []
+    for i, lp in enumerate(params["layers"]):      # any iterable of layer dicts
+        group.append(lp)
+        if len(group) < period:
+            continue
+        first = i + 1 - period
+        if cfg.remat:
+            x = checkpoint(_group_train, ctx, cfg, group, x, positions, first,
+                           use_reentrant=False)
+        else:
+            x = _group_train(ctx, cfg, group, x, positions, first)
+        group = []
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    return sharded_cross_entropy(ctx, x, params["embed"]["table"], batch["labels"],
+                                 logit_softcap=cfg.logit_softcap)
 
 
 def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):

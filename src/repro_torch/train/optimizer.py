@@ -1,0 +1,287 @@
+"""Optimizers: AdamW (dtype-configurable state) and Adafactor-lite.
+
+Plain functions on trees of tensors (nested dicts and lists, the port's
+parameter layout), after the JAX package's.  JAX returns new trees; the port
+updates parameters and state in place, leaf by leaf, under
+``torch.no_grad()``, so a full-width model never holds a second copy of its
+weights or moments.  The f32 temporaries of an update never exceed two of
+one leaf's size (chatglm3-6b's embedding table is 1.07 GB in f32), beside
+an f32 copy of a moment kept in a narrower dtype.
+
+The reference scans its layers, so its optimizer sees each layer leaf
+stacked over the layers ([L, ...]): its weight decay ("matrices only")
+reaches the layers' norm weights, and Adafactor factors a stacked norm over
+the layer axis and clips each update by the RMS of the whole stack.  The
+port keeps one dict per layer, and :func:`leaf_groups` hands the update the
+same groups: a leaf outside ``params["layers"]`` alone, a layer leaf
+together with its counterparts in every other layer (the scan of a layer
+pattern of one; no ported model has a longer one).  AdamW's update is
+elementwise, so its state stays per layer; Adafactor keeps the stacked
+factored state of the reference.
+
+State dtype matters at scale: bf16 moments (or Adafactor) halve the
+optimizer's memory.  Configs pick via ``state_dtype``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.models.common import DTYPES
+
+_SPECS_ITEM = "ROADMAP Queue 1 item 1 (the multi-card tp world: sharded optimizer state)"
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"            # adamw | adafactor
+    lr: float = 3e-4
+    betas: tuple = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    state_dtype: str = "float32"   # bf16 for the largest configs
+
+
+# ---------------------------------------------------------------------------
+# trees: nested dicts and lists with tensors at the leaves
+# ---------------------------------------------------------------------------
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree``, with the matching subtrees of
+    ``rest`` (which may hold more structure below a leaf of ``tree``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_paths(tree, path=()):
+    """(path, leaf) pairs in ``tree_leaves`` order; a path holds dict keys
+    and list indices."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_paths(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set_path(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def leaf_groups(tree) -> list:
+    """[(path, tensors, stacked)]: the leaves as the reference's optimizer
+    sees them.  A leaf outside ``tree["layers"]`` is a group of one
+    (``stacked`` False); each leaf of the per-layer dicts forms a group with
+    the same leaf of every layer (``stacked`` True), path ``("layers", ...)``.
+    Trees of one structure (parameters, gradients, AdamW moments) give
+    aligned groups."""
+    groups = [(path, [leaf], False)
+              for path, leaf in tree_paths({k: v for k, v in tree.items() if k != "layers"})]
+    layers = tree.get("layers", [])
+    if layers:
+        groups += [(("layers",) + path, [get_path(lp, path) for lp in layers], True)
+                   for path, _ in tree_paths(layers[0])]
+    return groups
+
+
+def _f32(x):
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def lr_schedule(cfg: OptimizerConfig, step):
+    """Linear warmup -> cosine decay to min_lr_ratio; an f32 scalar tensor
+    (computed in f32 from the integer step, as the reference does)."""
+    step = _f32(step)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1),
+                       0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
+
+
+@torch.no_grad()
+def global_norm(tree):
+    """sqrt of the sum of every leaf's squares, summed in f32 leaf by leaf."""
+    leaves = tree_leaves(tree)
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm):
+    """Scale every gradient by min(1, max_norm / norm) in place (in f32,
+    rounded back to the leaf's dtype); returns (grads, norm).  Nothing
+    reads the norm back to the host."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
+    for g in tree_leaves(grads):
+        if g.dtype == torch.float32:
+            g.mul_(scale)
+        else:
+            g.copy_(g.float() * scale)
+    return grads, norm
+
+
+def _step_scalars(state):
+    step = state["step"] + 1
+    return step, _f32(step)
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+def adamw_init(cfg: OptimizerConfig, params):
+    dt = DTYPES[cfg.state_dtype]
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)
+    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32)}
+
+
+@torch.no_grad()
+def adamw_update(cfg: OptimizerConfig, grads, state, params):
+    """One AdamW step in place on ``params`` and ``state``; returns (params,
+    state, lr).  Decoupled weight decay on matrices only."""
+    step, step_f = _step_scalars(state)
+    lr = lr_schedule(cfg, step)
+    b1, b2 = cfg.betas
+    bc1, bc2 = 1 - _f32(b1) ** step_f, 1 - _f32(b2) ** step_f
+
+    def upd(g, p, m, v, decay):
+        buf = g.to(torch.float32, copy=True)
+        m32 = m if m.dtype == torch.float32 else m.float()
+        v32 = v if v.dtype == torch.float32 else v.float()
+        m32.mul_(b1).add_(buf, alpha=1 - b1)
+        v32.mul_(b2).addcmul_(buf, buf, value=1 - b2)
+        den = torch.div(v32, bc2, out=buf).sqrt_().add_(cfg.eps)
+        delta = torch.div(m32, bc1).div_(den)
+        p32 = buf.copy_(p)
+        if decay:
+            delta.add_(p32, alpha=cfg.weight_decay)
+        p.copy_(p32.sub_(delta.mul_(lr)))
+        if m32 is not m:
+            m.copy_(m32)
+            v.copy_(v32)
+
+    for (_, gs, stacked), (_, ps, _), (_, ms, _), (_, vs, _) in zip(
+            leaf_groups(grads), leaf_groups(params), leaf_groups(state["mu"]),
+            leaf_groups(state["nu"])):
+        for g, p, m, v in zip(gs, ps, ms, vs):
+            # decoupled weight decay on matrices only, as the reference's
+            # stacked leaves count their dimensions
+            upd(g, p, m, v, p.dim() + stacked >= 2)
+    state["step"] = step
+    return params, state, lr
+
+
+# ---------------------------------------------------------------------------
+# Adafactor-lite (factored second moment; for the 100B+ configs)
+# ---------------------------------------------------------------------------
+def adafactor_init(cfg: OptimizerConfig, params):
+    """{"v": the factored second moments, laid out like ``params`` outside
+    the layers and, under "layers", like one layer dict holding each
+    group's stacked state; "step"}."""
+    v = {}
+    for path, ps, stacked in leaf_groups(params):
+        shape = ((len(ps),) if stacked else ()) + tuple(ps[0].shape)
+        f32 = dict(dtype=torch.float32, device=ps[0].device)
+        if len(shape) >= 2:
+            _set_path(v, path, {"vr": torch.zeros(shape[:-1], **f32),
+                                "vc": torch.zeros(shape[:-2] + shape[-1:], **f32)})
+        else:
+            _set_path(v, path, {"v": torch.zeros(shape, **f32)})
+    return {"v": v, "step": torch.zeros((), dtype=torch.int32)}
+
+
+def _adafactor_u(g, v, decay):
+    """The reference's unclipped update of one (stacked) leaf, its factored
+    state updated in place."""
+    if g.dim() >= 2:
+        g2 = g * g + 1e-30
+        v["vr"].copy_(decay * v["vr"] + (1 - decay) * g2.mean(dim=-1))
+        v["vc"].copy_(decay * v["vc"] + (1 - decay) * g2.mean(dim=-2))
+        del g2
+        return g / torch.sqrt(_adafactor_denom(v["vr"], v["vc"]) + 1e-30)
+    v["v"].copy_(decay * v["v"] + (1 - decay) * g * g)
+    return g / torch.sqrt(v["v"] + 1e-30)
+
+
+def _adafactor_denom(vr, vc):
+    return (vr[..., None] * vc[..., None, :]) / torch.clamp_min(
+        vr.mean(dim=-1, keepdim=True)[..., None], 1e-30)
+
+
+@torch.no_grad()
+def adafactor_update(cfg: OptimizerConfig, grads, state, params):
+    """One Adafactor-lite step in place; returns (params, state, lr).  A
+    stack of 1-D layer leaves (the norms) is updated stacked; a stack of
+    matrices layer by layer, in two passes: the first updates the factored
+    state and sums the squares of the update over the stack, the second
+    applies it clipped by the stack's RMS (the reference's rule)."""
+    step, step_f = _step_scalars(state)
+    lr = lr_schedule(cfg, step)
+    decay = 1.0 - (step_f + 1) ** -0.8
+
+    def apply(p, u, ndim):
+        p32 = p.float()
+        new_p = p32 - lr * u
+        if ndim >= 2:
+            new_p -= lr * cfg.weight_decay * p32
+        p.copy_(new_p)
+
+    for (path, gs, stacked), (_, ps, _) in zip(leaf_groups(grads), leaf_groups(params)):
+        v = get_path(state["v"], path)
+        if not stacked or ps[0].dim() == 1:
+            g = torch.stack([x.float() for x in gs]) if stacked else gs[0].float()
+            u = _adafactor_u(g, v, decay)
+            # update clipping (Adafactor RMS rule)
+            u /= torch.clamp_min(torch.sqrt(torch.mean(u * u) + 1e-30), 1.0)
+            for i, p in enumerate(ps):
+                apply(p, u[i] if stacked else u, g.dim())
+            continue
+        total = 0.0
+        for i, g in enumerate(gs):
+            u = _adafactor_u(g.float(), {"vr": v["vr"][i], "vc": v["vc"][i]}, decay)
+            total = total + torch.sum(u * u)
+        rms = torch.sqrt(total / (len(gs) * gs[0].numel()) + 1e-30)
+        for i, (g, p) in enumerate(zip(gs, ps)):
+            u = g.float() / torch.sqrt(_adafactor_denom(v["vr"][i], v["vc"][i]) + 1e-30)
+            apply(p, u / torch.clamp_min(rms, 1.0), p.dim() + 1)
+    state["step"] = step
+    return params, state, lr
+
+
+def make_optimizer(cfg: OptimizerConfig):
+    if cfg.name == "adamw":
+        return adamw_init, adamw_update
+    if cfg.name == "adafactor":
+        return adafactor_init, adafactor_update
+    raise ValueError(cfg.name)
+
+
+def optimizer_state_specs(cfg: OptimizerConfig, param_specs):
+    """Optimizer state inherits each parameter's sharding: a multi-card
+    concept (the port runs one card)."""
+    raise NotImplementedError(f"optimizer_state_specs: {_SPECS_ITEM}")

@@ -1,0 +1,97 @@
+"""train_step factory: loss -> grads -> clip -> (compress) -> optimizer.
+
+After the JAX package's ``train/step.py``.  Gradients come from autograd
+(``torch.autograd.grad`` over the parameter leaves); microbatch gradient
+accumulation (for memory) sums them in f32 over slices of the batch, as the
+reference's scan does.  The remat policy lives in the model configs.  The
+returned step updates the state in place and returns it with the metrics.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.train.grad_compression import (CompressionConfig, compress_decompress,
+                                                init_residuals)
+from repro_torch.train.optimizer import (OptimizerConfig, clip_by_global_norm, make_optimizer,
+                                         tree_leaves, tree_map)
+
+_SPECS_ITEM = "ROADMAP Queue 1 item 1 (the multi-card tp world: sharded train state)"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
+    compression: CompressionConfig = dataclasses.field(default_factory=CompressionConfig)
+    microbatches: int = 1
+
+
+def init_train_state(tc: TrainConfig, params):
+    """{"params", "opt", ("residuals")}: every parameter leaf is marked as
+    requiring a gradient."""
+    opt_init, _ = make_optimizer(tc.optimizer)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    state = {"params": params, "opt": opt_init(tc.optimizer, params)}
+    if tc.compression.scheme != "none":
+        state["residuals"] = init_residuals(tc.compression, params)
+    return state
+
+
+def build_train_step(loss_fn: Callable, tc: TrainConfig, *, on_phase: Callable | None = None):
+    """loss_fn(params, batch) -> scalar loss.  Returns ``train_step(state,
+    batch) -> (state, metrics)`` with metrics {"loss", "grad_norm", "lr",
+    "step"} as tensors (nothing is read back to the host).  ``on_phase``,
+    if given, is called with "start", "forward", "backward" and "optimizer"
+    as each part of a step has been enqueued (for timing)."""
+    _, opt_update = make_optimizer(tc.optimizer)
+    mark = on_phase or (lambda name: None)
+
+    def split_micro(batch, i):
+        def sl(x):
+            mb = x.shape[0] // tc.microbatches
+            return x[i * mb:(i + 1) * mb]
+        return {k: sl(v) for k, v in batch.items()}
+
+    def train_step(state, batch):
+        params = state["params"]
+        leaves = tree_leaves(params)
+        mark("start")
+        if tc.microbatches == 1:
+            loss = loss_fn(params, batch)
+            mark("forward")
+            grads = list(torch.autograd.grad(loss, leaves))
+            loss = loss.detach()
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+            for i in range(tc.microbatches):
+                li = loss_fn(params, split_micro(batch, i))
+                mark("forward")
+                for acc, g in zip(grads, torch.autograd.grad(li, leaves)):
+                    acc += g.float()
+                loss += li.detach()
+            loss /= tc.microbatches
+            for g in grads:
+                g /= tc.microbatches
+        mark("backward")
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), params)
+        grads, gnorm = clip_by_global_norm(grads, tc.optimizer.grad_clip)
+        if tc.compression.scheme != "none":
+            grads, state["residuals"] = compress_decompress(tc.compression, grads,
+                                                            state["residuals"])
+        _, state["opt"], lr = opt_update(tc.optimizer, grads, state["opt"], params)
+        del grads
+        mark("optimizer")
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "step": state["opt"]["step"]}
+        return state, metrics
+
+    return train_step
+
+
+def train_state_specs(tc: TrainConfig, param_specs):
+    """The train state's sharding specs: a multi-card concept."""
+    raise NotImplementedError(f"train_state_specs: {_SPECS_ITEM}")

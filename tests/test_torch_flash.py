@@ -7,6 +7,11 @@ runs under the conftest ``ctx`` (a (2, 4) data x model mesh of CPU
 devices), the port on one rank.  On the CPU the port's op runs its plain
 version and ``context_attention`` its plain ``_span_flash`` (the CUDA kernel
 runs only on a card, in chip_smoke.py).  f32 unless a test says otherwise.
+
+The gradients (the port's analytic ``flash_backward``, the reference's
+``_span_flash_bwd``) are held to the JAX package's on a one-device mesh
+(the ring attention of one card, no hops), at rtol 2e-3, atol 1e-5: the
+bounds of ``tests/test_loss.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -17,7 +22,10 @@ from test_parity_matrix import TOL
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
+from repro.compat import make_mesh
 from repro.models import attention as jattn
+from repro.parallel.sharding import FusionConfig as JaxFusion
+from repro.parallel.sharding import ParallelContext as JaxContext
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -33,6 +41,7 @@ F32 = TOL["f32"]
 # the PV product and the port keeps it in f32, and both round the output to
 # bf16 once (a step of 2^-8 relative): TOL["bf16"].
 BF16 = TOL["bf16"]
+GRAD = dict(rtol=2e-3, atol=1e-5)
 
 
 def t(a):
@@ -133,9 +142,12 @@ def test_flash_attention_refuses(rng, bad):
         with pytest.raises(TypeError):
             flash_attention(q, k.double(), v.double())
     else:
+        # the analytic backward is not itself differentiable
         q.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            flash_attention(q, k, v).sum().backward()
+        w = torch.ones_like(q, requires_grad=True)
+        (dq,) = torch.autograd.grad(flash_attention(q, k, v), q, w, create_graph=True)
+        with pytest.raises(RuntimeError, match="differentiate twice"):
+            dq.sum().backward()
 
 
 def test_flash_attention_counts_only_kernel_launches(rng):
@@ -254,3 +266,124 @@ def test_context_attention_fused_mode_raises(rng):
     q, k, v = (t(a) for a in _qkv(rng, 1, 8, 2, 2, 16))
     with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         attention.context_attention(ParallelContext(device="cpu"), q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# training: the softmax statistics and the analytic backward
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def jctx1():
+    """A one-device mesh: the reference's ring attention with no hops."""
+    return {m: JaxContext.from_mesh(make_mesh((1, 1), ("data", "model")),
+                                    fusion=JaxFusion(mode=m)) for m in ("fused", "bulk")}
+
+
+def _jax_carry(q, k, v, *, causal, window=None, cap=None, qb=16, kb=16, scale=None):
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    pos = jnp.arange(s)
+    return jattn._span_flash(jnp.asarray(q).reshape(b, s, hkv, hq // hkv, hd), k, v, pos, pos,
+                             jattn._init_carry(b, hkv, hq // hkv, s, hd), causal=causal,
+                             window=window, scale=scale, cap=cap, q_block=qb, kv_block=kb)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4), (6, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_stats_match_the_reference_carry(rng, hq, hkv, causal):
+    """The op's m and l ([B, Hq, S]) against the final (m, l) carry of the
+    reference's blockwise loop: the residuals its fwd_rule keeps."""
+    q, k, v = _qkv(rng, 2, 48, hq, hkv, 16)
+    out, m, l = flash_attention_plain(t(q), t(k), t(v), causal=causal, stats=True)
+    assert m.shape == l.shape == (2, hq, 48) and m.dtype == l.dtype == torch.float32
+    torch.testing.assert_close(out, flash_attention_plain(t(q), t(k), t(v), causal=causal),
+                               rtol=0, atol=0)
+    jm, jl, _ = _jax_carry(q, k, v, causal=causal)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm).reshape(2, hq, 48), **F32)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl).reshape(2, hq, 48), **F32)
+
+
+@pytest.mark.parametrize("causal,window,cap", [(True, None, None), (False, None, None),
+                                               (True, 12, None), (True, None, 2.0),
+                                               (False, 20, 3.0)])
+@pytest.mark.parametrize("hq,hkv,qb,kb", [(4, 2, 16, 32), (4, 4, 64, 64), (6, 2, 32, 16)])
+def test_span_flash_bwd_matches_jax(rng, causal, window, cap, hq, hkv, qb, kb):
+    """The port's ``_span_flash_bwd`` against the reference's on the same
+    inputs and statistics; S = 64 is a multiple of both blocks."""
+    b, s, hd, scale = 2, 64, 16, 0.25
+    g = hq // hkv
+    q, k, v = _qkv(rng, b, s, hq, hkv, hd)
+    do = rng.standard_normal((b, s, hq, hd)).astype(np.float32)
+    m, l, o = _jax_carry(q, k, v, causal=causal, window=window, cap=cap, scale=scale)
+    o5 = np.asarray(o / jnp.maximum(l, 1e-30)[..., None]).transpose(0, 3, 1, 2, 4)
+    q5, do5 = q.reshape(b, s, hkv, g, hd), do.reshape(b, s, hkv, g, hd)
+    delta = np.einsum("bqhgd,bqhgd->bhgq", do5, o5)
+    pos = np.arange(s)
+    kw = dict(causal=causal, window=window, scale=scale, cap=cap, q_block=qb, kv_block=kb)
+    want = jattn._span_flash_bwd(q5, k, v, do5, delta, m, l, pos, pos,
+                                 jnp.zeros(q5.shape, jnp.float32), **kw)
+    got = attention._span_flash_bwd(t(q5), t(k), t(v), t(do5), t(delta), t(np.asarray(m)),
+                                    t(np.asarray(l)), torch.arange(s), torch.arange(s),
+                                    torch.zeros(q5.shape), **kw)
+    for name, gt_, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(gt_.numpy(), np.asarray(w), **GRAD, err_msg=name)
+
+
+def _jax_grads(ctx, q, k, v, do, **kw):
+    fn = lambda q, k, v: jnp.sum(jattn.context_attention(ctx, q, k, v, causal=True, **kw) * do)
+    return [np.asarray(a) for a in jax.jit(jax.grad(fn, argnums=(0, 1, 2)))(q, k, v)]
+
+
+def _port_grads(c, q, k, v, do, **kw):
+    qt, kt, vt = (t(a).requires_grad_(True) for a in (q, k, v))
+    out = attention.context_attention(c, qt, kt, vt, causal=True, **kw)
+    return torch.autograd.grad((out * t(do)).sum(), (qt, kt, vt))
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (12, None), (None, 2.0)])
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 1)])
+def test_context_attention_grads_match_jax(rng, jctx1, window, cap, hq, hkv):
+    """dq, dk, dv of ``context_attention`` against ``jax.grad``: kernel mode
+    (the analytic backward) against the reference's ring attention (its
+    custom VJP), bulk mode (autograd through ``_span_flash``) against its
+    bulk branch (autodiff)."""
+    q, k, v = _qkv(rng, 2, 32, hq, hkv, 16)
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    kw = dict(window=window, softcap_val=cap)
+    for jmode, mode in (("fused", "kernel"), ("bulk", "bulk")):
+        want = _jax_grads(jctx1[jmode], q, k, v, do, **kw)
+        got = _port_grads(CPU[mode], q, k, v, do, **kw)
+        for name, gt_, w in zip(("dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(gt_.numpy(), w, **GRAD, err_msg=f"{mode} {name}")
+
+
+def test_flash_op_grads_match_jax_and_bulk(rng, jctx1):
+    """The flash op's own backward (the one a card runs after the kernel),
+    on the CPU's plain forward with its statistics: against the
+    reference's ring attention and the port's bulk-mode autograd."""
+    q, k, v = _qkv(rng, 2, 40, 4, 2, 16)
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    qt, kt, vt = (t(a).requires_grad_(True) for a in (q, k, v))
+    got = torch.autograd.grad((flash_attention(qt, kt, vt) * t(do)).sum(), (qt, kt, vt))
+    bulk = _port_grads(CPU["bulk"], q, k, v, do)
+    q32, k32, v32 = (a[:, :32] for a in (q, k, v))      # the reference drops ragged rows
+    want = _jax_grads(jctx1["fused"], q32, k32, v32, do[:, :32])
+    got32 = _port_grads(CPU["kernel"], q32, k32, v32, do[:, :32])
+    for name, gt_, b_ in zip(("dq", "dk", "dv"), got, bulk):
+        torch.testing.assert_close(gt_, b_, **GRAD, msg=name)
+    for name, gt_, w in zip(("dq", "dk", "dv"), got32, want):
+        np.testing.assert_allclose(gt_.numpy(), w, **GRAD, err_msg=name)
+
+
+def test_flash_op_without_grad_saves_nothing(monkeypatch, rng):
+    """No gradient wanted (prefill, serving): the op asks for no statistics."""
+    seen = []
+    real = flash_ops.flash_attention_plain
+    monkeypatch.setattr(flash_ops, "flash_attention_plain",
+                        lambda *a, **kw: seen.append(kw["stats"]) or real(*a, **kw))
+    q, k, v = (t(a) for a in _qkv(rng, 1, 8, 2, 2, 16))
+    flash_attention(q, k, v)
+    with torch.no_grad():
+        flash_attention(q.requires_grad_(True), k, v)
+    flash_attention(q, k, v)
+    assert seen == [False, False, True]

@@ -405,7 +405,7 @@ def test_registry_rwkv6_entry_points(models):
         get_arch("dbrx-132b").prefill_fn(CPU["bulk"])
     with pytest.raises(ValueError, match="does not prefill"):
         get_arch("dlrm").prefill_fn(CPU["bulk"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         pb.loss_fn(CPU["bulk"])
 
 

@@ -154,6 +154,9 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M
 def test_port_never_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    names = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files[:-1]}
+    assert {"core/loss.py", "train/optimizer.py", "train/step.py", "train/grad_compression.py",
+            "data/pipeline.py", "data/synthetic.py", "launch/train.py"} <= names
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert bad == []
