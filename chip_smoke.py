@@ -178,10 +178,29 @@ prints one line, and any failure exits non-zero:
      kernel-mode step, 0 in bulk mode; ms a step, its forward / backward /
      optimizer split, tok/s, device busy share, peak memory); then 3
      kernel-mode steps at 4 x 2048 tokens
+ 28. the serving launcher at tp = 4 through its entry point, python -m
+     torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.serve
+     --tp 4 --backend gloo, in fused and bulk mode: four processes sharing
+     the one card, full-width chatglm3-6b (each rank its shards of the
+     seed-0 weights), the launcher's 4 requests x 8 tokens at batch 4; ms a
+     step and tok/s per mode, every rank's streams equal (the launcher
+     checks), and the streams against phase 5's kernel mode at tp = 1 (a
+     first difference only at a near tie of phase 5's logits)
+ 29. spawned tp = 4 and tp = 2 (granularity 2) worlds on the card,
+     teacher-forced on phase 5's inputs, logits against phase 5's exact f32
+     evaluation: fused (comm_aware) and oblivious within
+     LOGITS_TOL_FACTOR x bulk's own distance at that tp, skew 1
+     bit-identical to skew 0, a bf16 and an fp8 wire within their stated
+     bounds, every rank's logits equal; then matmul_allreduce fused (by
+     rows) and bulk at [4,13696]@[13696,4096] row-sharded over the world
+     against torch.matmul of the whole in f32.  Every time 28-29 print is
+     labelled "one card, N processes, wire staged through host": no
+     NVLink number
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
-before phase 25.  Phases 5, 9 and 17
+before phase 25; phases 28-29 run in processes of their own, each holding
+its shards.  Phases 5, 9 and 17
 and the end print how many launch plans the plan-cached wrappers hold.
 Then one JSON line per the kernels, the card's name and power limit, and
 the result line.  Float32
@@ -196,12 +215,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -299,6 +320,26 @@ TRAIN_LOSS_REL = 0.01
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+# The tensor-parallel world (phases 28-29): full-width chatglm3-6b decode at
+# tp = 4, and at tp = 2 with 2 sub-chunks a rank (decode's 4 rows split into
+# 2 x 2 ring chunks), as processes that share the one card in a gloo world
+# whose wire goes through host memory.  Its times say nothing about NVLink.
+TP_WORLD, TP_PAIR, TP_PAIR_Q = 4, 2, 2
+TP_LABEL = "one card, {} processes, wire staged through host"
+# An fp8 wire (e4m3 with a per-chunk scale) keeps 3 mantissa bits against
+# bf16's 7: each value it carries rounds by up to 2^-4 relative where the f32
+# wire of a bf16 model rounds the same values by 2^-8, 16 times as much, so
+# its logits are held to 16 x the f32 wire's bound.  A bf16 wire rounds
+# those values as the f32 wire does (the model is bf16) and adds in f32: the
+# f32 wire's bound.
+FP8_WIRE_FACTOR = 16.0
+# the FFN down at decode's shape, row-sharded over the world, against the
+# whole product in f32: each rank's partial rounds to bf16 and the ring adds
+# the partials in bf16, one rounding (2^-8 relative) per add
+TP_OP_TOL = BF16_TOL
+GLM_DECODE: dict = {}     # phase 5's run, which phases 28-29 are held to
 
 
 def card_line() -> str:
@@ -743,6 +784,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the flash kernel's row gains its training numbers (phases 25-27)
     next(k_ for k_ in kernels if k_["name"] == "flash_attention").update(train_phases(card, gen))
+    torch.cuda.empty_cache()
+    tp_phases(card)
     say("end", f"plans cached: {plan_counts()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -804,9 +847,11 @@ def chatglm_decode(card, x, w, fused_err, gemv_err, main_path) -> list[dict]:
     dec_x = exact.decode_fn(ctx_b)
     cache_b, cache_x = bundle.init_cache(batch, "cuda"), exact.init_cache(batch, "cuda")
     logits_bt, err_kb, err_bx, err_kx = [], 0.0, 0.0, 0.0
+    exact_steps = []
     for tok, pos, lk in log_k:
         lb, cache_b = dec_b(params, tok, cache_b, pos)
         lx, cache_x = dec_x(params32, tok, cache_x, pos)
+        exact_steps.append(lx.cpu())
         for t in (lk, lb):
             if t.shape != (batch, 1, cfg.vocab) or not torch.isfinite(t).all():
                 raise AssertionError(f"logits: shape {tuple(t.shape)} or non-finite")
@@ -816,6 +861,13 @@ def chatglm_decode(card, x, w, fused_err, gemv_err, main_path) -> list[dict]:
         logits_bt.append(lb)
     del params32, cache_x
     logits_tol = LOGITS_TOL_FACTOR * err_bx
+    # phases 28-29 hold the tp world to this run: its inputs, exact logits,
+    # kernel-mode streams and logits, and bulk mode's distance
+    GLM_DECODE.update(inputs=[(tok.cpu(), pos.cpu()) for tok, pos, _ in log_k],
+                      exact=exact_steps, kernel_logits=[lk.cpu() for _, _, lk in log_k],
+                      streams=[list(r.tokens) for r in reqs_k],
+                      prompts=[len(r.prompt) for r in reqs_k], err_bx=err_bx, vocab=cfg.vocab,
+                      logits_tol=logits_tol)
     if err_kb > logits_tol:
         raise AssertionError(f"teacher-forced logits: kernel vs bulk {err_kb:.3g} > "
                              f"{LOGITS_TOL_FACTOR} x bulk vs exact f32 {err_bx:.3g}")
@@ -2864,7 +2916,7 @@ def paged_phases(card, gen, bundle, params) -> dict:
         argv = ["--paged", "--fusion", mode, "--requests", "8", "--batch", str(B),
                 "--max-new", "16", "--block-size", str(PAGED_BLOCK), "--chunk",
                 str(PAGED_CHUNK)]
-        with swapped(registry.ArchBundle, "init_params", lambda self, g: params), \
+        with swapped(registry.ArchBundle, "init_params", lambda self, g, ctx=None: params), \
                 swapped(registry.ArchBundle, "serve_step_fn",
                         lambda self, c: record(real_fn(self, c), log)), \
                 swapped(launch_serve, "PagedDecodeEngine", tracked_engine(log, where)):
@@ -3371,6 +3423,240 @@ def profile_device(run, n, unit) -> str:
     return (f"host {wall_ms / n:.2f} ms/{unit}, device busy {busy / n:.2f} ms/{unit} "
             f"({100 * busy / wall_ms:.1f}%), {launches / n:.0f} device ops/{unit}; top: "
             + ", ".join(f"{name[:60]} {ms / n:.3f} ms" for name, ms in top))
+
+
+# ---------------------------------------------------------------------------
+# phases 28-29: chatglm3-6b decode over a tensor-parallel world on one card
+# ---------------------------------------------------------------------------
+def tp_phases(card) -> None:
+    """Phase 28 (the launcher at tp = 4 under torch.distributed.run, fused and
+    bulk mode) and phase 29 (teacher-forced logits of spawned tp = 4 and tp =
+    2 worlds against phase 5's exact f32 evaluation, and the FFN down product
+    over the world).  Needs phase 5's run (``GLM_DECODE``)."""
+    runs = {m: launcher_world_run(m) for m in ("fused", "bulk")}
+    streams5, tol = GLM_DECODE["streams"], GLM_DECODE["logits_tol"]
+    notes = []
+    for mode, r in runs.items():
+        if sorted(r["streams"]) != list(range(len(streams5))):
+            raise AssertionError(f"tp={TP_WORLD} {mode}: served requests {sorted(r['streams'])}")
+        for uid, want in enumerate(streams5):
+            got = r["streams"][uid]
+            if not all(0 <= t_ < GLM_DECODE["vocab"] for t_ in got) or len(got) != len(want):
+                raise AssertionError(f"tp={TP_WORLD} {mode} req {uid}: stream {got}")
+            diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            if diff:
+                # the first difference must be a near tie in phase 5's kernel
+                # run (each side within logits_tol: a gap of at most twice it)
+                i = diff[0]
+                top = GLM_DECODE["kernel_logits"][GLM_DECODE["prompts"][uid] - 1 + i][uid, 0]
+                gap = (lambda v: (v[0] - v[1]).item())(top.topk(2).values)
+                notes.append(f"{mode} req {uid} token {i}: top-2 gap {gap:.3g} "
+                             f"(allowed {2 * tol:.3g})")
+                if gap > 2 * tol:
+                    raise AssertionError("token streams differ beyond a near tie: " + notes[-1])
+    say(28, f"[{TP_LABEL.format(TP_WORLD)}] python -m torch.distributed.run --nproc-per-node {TP_WORLD} -m "
+            f"repro_torch.launch.serve --tp {TP_WORLD} --backend gloo, full-width chatglm3-6b "
+            f"(28 layers, seed-0 weights sliced), 4 requests x 8 tokens at batch 4: "
+            + "; ".join(f"{m} {r['ms_step']:.2f} ms/step {r['tok_s']:.1f} tok/s ({r['steps']} "
+                        f"steps, {r['wall']:.1f} s with start and init), all {TP_WORLD} ranks' "
+                        f"streams equal" for m, r in runs.items())
+            + f"; streams {runs['fused']['streams']}; fused = bulk: "
+            f"{runs['fused']['streams'] == runs['bulk']['streams']}, = tp 1 kernel mode (phase 5): "
+            + ", ".join(f"{m} {[r['streams'][u] for u in range(len(streams5))] == streams5}"
+                        for m, r in runs.items())
+            + (f" ({'; '.join(notes)})" if notes else ""))
+
+    settings = [("bulk", dict(mode="bulk")), ("fused", dict(mode="fused")),
+                ("fused skew 1", dict(mode="fused", skew=1)),
+                ("fused oblivious", dict(mode="fused", schedule="oblivious")),
+                ("fused bf16 wire", dict(mode="fused", wire="bf16")),
+                ("fused fp8 wire", dict(mode="fused", wire="fp8"))]
+    pair = [("bulk", dict(mode="bulk")),
+            ("fused", dict(mode="fused", granularity=TP_PAIR_Q)),
+            ("fused skew 1", dict(mode="fused", granularity=TP_PAIR_Q, skew=1))]
+    for tp, sets in ((TP_WORLD, settings), (TP_PAIR, pair)):
+        res = spawn_world(tp, sets)
+        err_b = res["bulk"]["err"]
+        bound = LOGITS_TOL_FACTOR * err_b
+        bounds = {name: FP8_WIRE_FACTOR * bound if "fp8" in name else bound
+                  for name, _ in sets if name != "bulk"}
+        for name, b in bounds.items():
+            if not res[name]["err"] <= b:
+                raise AssertionError(f"tp={tp} {name}: logits {res[name]['err']:.4g} from exact "
+                                     f"f32 > bound {b:.4g}")
+        if not res["skew_equal"]:
+            raise AssertionError(f"tp={tp}: skew 1's logits are not bit-identical to skew 0's")
+        # the oblivious schedule adds the same values in the same order
+        same_bits = {n: res[n]["digest"] == res["fused"]["digest"]
+                     for n in ("fused oblivious",) if n in res}
+        if not all(same_bits.values()):
+            raise AssertionError(f"tp={tp}: oblivious logits are not comm_aware's bits")
+        for mode in ("fused", "bulk"):
+            op = res[f"op {mode}"]
+            if not op["ok"]:
+                raise AssertionError(f"tp={tp} matmul_allreduce {mode}: {op['msg']}")
+        q = 1 if tp == TP_WORLD else TP_PAIR_Q
+        say(29, f"[{TP_LABEL.format(tp)}] spawned tp = {tp} world, granularity {q}, teacher-forced on phase 5's "
+                f"{len(GLM_DECODE['inputs'])} decode steps, max abs logits error from exact f32 "
+                f"(bound): bulk {err_b:.4g} (tp 1 bulk: {GLM_DECODE['err_bx']:.4g}); "
+                + "; ".join(f"{n} {res[n]['err']:.4g} ({b:.4g})" for n, b in bounds.items())
+                + f"; skew 1 bit-identical to skew 0: {res['skew_equal']}"
+                + "".join(f", {n} bit-identical to comm_aware: {v}" for n, v in same_bits.items())
+                + f"; ms/step "
+                + ", ".join(f"{n} {res[n]['ms']:.2f}" for n, _ in sets)
+                + f"; every rank's logits equal; matmul_allreduce [{MAIN_B},{MAIN_K}]@[{MAIN_K},"
+                f"{MAIN_N}] bf16 row-sharded vs torch.matmul of the whole in f32 (bound "
+                f"{TP_OP_TOL}), max abs/rel err, ms a call: "
+                + ", ".join(f"{m} {res[f'op {m}']['err']:.3g}/{res[f'op {m}']['rel']:.3g} "
+                            f"{res[f'op {m}']['ms']:.3f}" for m in ("fused", "bulk"))
+                + f"; an all-reduce of [{MAIN_B},{MAIN_N}] bf16 (the bulk FFN's), ms a call: "
+                f"from the card (staged) {res['ar card']:.3f}, from host memory "
+                f"{res['ar host']:.3f}; the product alone {res['product']:.4f}")
+
+
+def launcher_world_run(mode) -> dict:
+    """The launcher at tp = TP_WORLD on the one card through its entry point."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(TP_WORLD), "-m", "repro_torch.launch.serve", "--tp", str(TP_WORLD), "--backend",
+           "gloo", "--fusion", mode, "--requests", "4", "--batch", "4", "--max-new", "8"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    served = re.search(r"\(([\d.]+) tok/s, (\d+) steps, ([\d.]+) ms/step", proc.stdout)
+    if (proc.returncode or served is None
+            or f"all {TP_WORLD} ranks' token streams equal: True" not in proc.stdout):
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
+        raise AssertionError(f"launcher at tp={TP_WORLD} {mode}: exit {proc.returncode}")
+    streams = {int(u): json.loads(t_) for u, t_ in
+               re.findall(r"req (\d+): prompt .* -> (\[.*\])", proc.stdout)}
+    return {"tok_s": float(served[1]), "steps": int(served[2]), "ms_step": float(served[3]),
+            "streams": streams, "wall": wall}
+
+
+def spawn_world(tp, settings) -> dict:
+    """Run ``tp_world_rank`` on ``tp`` spawned processes sharing the card;
+    rank 0's results, after checking that every rank's logits are its own."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    spawn = mp.get_context("spawn")
+    out = spawn.Queue()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as rdv:
+        procs = [spawn.Process(target=tp_world_rank, args=(
+            r, tp, f"file://{rdv}/rdv", settings, GLM_DECODE["inputs"], GLM_DECODE["exact"], out))
+            for r in range(tp)]
+        for p_ in procs:
+            p_.start()
+        got = {}
+        try:
+            while len(got) < tp:
+                rank, status, value = out.get(timeout=600)
+                if status != "ok":
+                    raise AssertionError(f"tp={tp} world, rank {rank}:\n{value}")
+                got[rank] = value
+        finally:
+            for p_ in procs:
+                p_.join(timeout=60)
+                if p_.is_alive():
+                    p_.kill()
+                    p_.join()
+    for name, _ in settings:
+        if len({got[r][name]["digest"] for r in range(tp)}) != 1:
+            raise AssertionError(f"tp={tp} {name}: the ranks' logits differ")
+        if not got[0][name]["finite"]:
+            raise AssertionError(f"tp={tp} {name}: logits non-finite or misshapen")
+    return got[0]
+
+
+def tp_world_rank(rank, tp, init, settings, inputs, exact, out):
+    """One rank of phase 29's world: this rank's shards of the seed-0 weights,
+    each setting's teacher-forced decode on phase 5's inputs, and the FFN
+    down product over the world."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.matmul_allreduce import matmul_allreduce
+    from repro_torch.launch.mesh import close_world, init_world
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dev = init_world(tp, "gloo", "cuda", rank=rank, init_method=init)
+        ctx = lambda **kw: ParallelContext(device=dev, tp=tp, fusion=FusionConfig(**kw))
+        bundle = get_arch("chatglm3-6b")
+        params = bundle.init_params(torch.Generator(device=dev).manual_seed(0), ctx(mode="bulk"))
+        res, kept = {}, {}
+        for name, kw in settings:
+            dec = bundle.decode_fn(ctx(**kw))
+            cache = bundle.init_cache(inputs[0][0].shape[0], dev, tp)
+            logits = []
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for tok, pos in inputs:
+                lg, cache = dec(params, tok.to(dev), cache, pos.to(dev))
+                logits.append(lg)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) / len(inputs) * 1e3
+            res[name] = {
+                "ms": ms, "err": max((g - e.to(dev)).abs().max().item()
+                                     for g, e in zip(logits, exact)),
+                "finite": all(g.shape == e.shape and torch.isfinite(g).all().item()
+                              for g, e in zip(logits, exact)),
+                "digest": hashlib.sha256(b"".join(g.cpu().numpy().tobytes()
+                                                  for g in logits)).hexdigest()}
+            if name in ("fused", "fused skew 1"):
+                kept[name] = logits
+            del cache, logits
+        res["skew_equal"] = all(torch.equal(a, b) for a, b in
+                                zip(kept["fused"], kept["fused skew 1"]))
+        del kept, params
+        g = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(MAIN_B, MAIN_K, generator=g, device=dev).bfloat16()
+        w = (torch.randn(MAIN_K, MAIN_N, generator=g, device=dev) * MAIN_K ** -0.5).bfloat16()
+        k = MAIN_K // tp
+        xl, wl = x[:, rank * k:(rank + 1) * k].contiguous(), w[rank * k:(rank + 1) * k]
+        want = x.float() @ w.float()
+        for mode in ("fused", "bulk"):
+            c = ctx(mode=mode)
+            y = matmul_allreduce(c, xl, wl)
+            try:
+                check_close(f"matmul_allreduce {mode}", y, want, TP_OP_TOL)
+                ok, msg = True, ""
+            except AssertionError as e:
+                ok, msg = False, str(e)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                matmul_allreduce(c, xl, wl)
+            torch.cuda.synchronize(dev)
+            e_abs, e_rel = errors(y, want)
+            res[f"op {mode}"] = {"ok": ok, "msg": msg, "err": e_abs, "rel": e_rel,
+                                 "ms": (time.perf_counter() - t0) / 20 * 1e3}
+        # where a staged collective's time goes: the same all-reduce from the
+        # card and from host memory, and the local product alone
+        from repro_torch.core.collectives import all_reduce
+        c = ctx(mode="bulk")
+        y_card = torch.zeros(MAIN_B, MAIN_N, dtype=torch.bfloat16, device=dev)
+        y_host = y_card.cpu()
+        for name, fn in (("ar card", lambda: all_reduce(c, y_card)),
+                         ("ar host", lambda: all_reduce(c, y_host)),
+                         ("product", lambda: xl @ wl)):
+            fn()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize(dev)
+            res[name] = (time.perf_counter() - t0) / 20 * 1e3
+        out.put((rank, "ok", res))
+    except Exception:
+        out.put((rank, "err", traceback.format_exc()))
+    finally:
+        close_world()
 
 
 def _map(tree, fn):

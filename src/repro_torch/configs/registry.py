@@ -9,6 +9,10 @@ yet, and its training is item 7) and the forward of DLRM, the paper's own
 architecture (its ``loss_fn`` scores a batch; its kernel-mode pooling has no
 backward, so training it is item 6).  The reference's other architectures
 raise until their slice of the port lands.
+
+At tp > 1 (a ``ParallelContext`` over a tp world) only the dense transformers
+run, and only their decode: rwkv6's heads over ranks are item 7, DLRM's
+tables over ranks item 6, MoE experts over ranks item 5 (``check_tp``).
 """
 from __future__ import annotations
 
@@ -46,6 +50,11 @@ _LATER = {
 }
 _RWKV6_TRAIN_ITEM = ("ROADMAP Queue 1 item 7 (rwkv6 training: train_forward with a WKV6 "
                      "backward)")
+# what a family needs before it runs over several ranks
+_MULTI_RANK_ITEMS = {
+    "rwkv6": "rwkv6's heads sharded over tp (state_logical_specs) are ROADMAP Queue 1 item 7",
+    "dlrm": "DLRM's tables split over real ranks are ROADMAP Queue 1 item 6",
+}
 # the model module of each family that prefills and decodes
 _DECODERS = {"transformer": "repro_torch.models.transformer",
              "rwkv6": "repro_torch.models.rwkv6"}
@@ -59,12 +68,21 @@ class ArchBundle:
     optimizer: str = "adamw"
     microbatches: int = 1   # train-time gradient accumulation (memory knob)
 
-    def init_params(self, gen: torch.Generator):
-        """Random parameters on the generator's device."""
+    def check_tp(self, ctx: ParallelContext | None):
+        """Raise for a family that does not run over ``ctx``'s tp ranks."""
+        if ctx is not None and ctx.tp > 1 and self.family in _MULTI_RANK_ITEMS:
+            raise NotImplementedError(f"{self.name} at tp={ctx.tp}: "
+                                      f"{_MULTI_RANK_ITEMS[self.family]}")
+
+    def init_params(self, gen: torch.Generator, ctx: ParallelContext | None = None):
+        """Random parameters on the generator's device; with a ``ctx`` at tp >
+        1, this rank's shards of the tp = 1 weights (drawn a part at a
+        time, each part whole, the rest freed)."""
+        self.check_tp(ctx)
         if self.family == "transformer":
             from repro_torch.models.transformer import transformer_init
 
-            return transformer_init(gen, self.config)
+            return transformer_init(gen, self.config, ctx)
         if self.family == "rwkv6":
             from repro_torch.models.rwkv6 import rwkv6_init
 
@@ -79,10 +97,11 @@ class ArchBundle:
         """(params, batch) -> scalar loss, for autograd.  A MoE transformer
         raises (ROADMAP Queue 1 item 5), rwkv6 too (item 7)."""
         cfg = self.config
+        self.check_tp(ctx)
         if self.family == "transformer":
             from repro_torch.models.transformer import check_prefill, train_forward
 
-            check_prefill(cfg, "training")
+            check_prefill(cfg, "training", ctx.tp)
             return lambda p, b: train_forward(ctx, p, cfg, b)
         if self.family == "dlrm":
             from repro_torch.models.dlrm import dlrm_loss
@@ -98,20 +117,27 @@ class ArchBundle:
             raise ValueError(f"{self.name}: a {self.family} model does not prefill")
         mod = self._decoder()
         cfg = self.config
+        self.check_tp(ctx)
         if self.family == "transformer":
-            mod.check_prefill(cfg)
+            mod.check_prefill(cfg, tp=ctx.tp)
         fn = mod.prefill_forward
         return lambda p, b: fn(ctx, p, cfg, b)
 
     def decode_fn(self, ctx: ParallelContext) -> Callable:
         """(params, tokens [B,1], cache, pos [B]) -> (logits [B,1,V], cache)."""
+        self.check_tp(ctx)
         fn = self._decoder().decode_step
         cfg = self.config
         return lambda p, t, c, pos: fn(ctx, p, cfg, t, c, pos)
 
-    def init_cache(self, batch_size: int, device):
-        """The decode cache: a transformer's KV cache, rwkv6's recurrent state."""
-        return self._decoder().init_cache(self.config, batch_size, device)
+    def init_cache(self, batch_size: int, device, tp: int = 1):
+        """The decode cache: a transformer's KV cache (at tp > 1 a rank's
+        ``S_max / tp`` rows of it), rwkv6's recurrent state."""
+        if tp == 1:
+            return self._decoder().init_cache(self.config, batch_size, device)
+        if self.family != "transformer":
+            raise NotImplementedError(f"{self.name} at tp={tp}: {_MULTI_RANK_ITEMS[self.family]}")
+        return self._decoder().init_cache(self.config, batch_size, device, tp)
 
     # ---- paged serving (continuous batching) -----------------------------
     @property

@@ -3,36 +3,101 @@
 Under sequence parallelism the row-parallel AllReduce splits into a
 reduce-scatter fused with the producing matmul and the next layer's
 all-gather fused with the consuming matmul.  The JAX package computes both
-as plain products around ring hops, outside any Pallas kernel.
+as plain products around ring hops, outside any Pallas kernel, and so does
+the port: ``fused`` and ``kernel`` mode run the ring (at tp = 1 it has no
+hops), ``bulk`` mode one collective and one product.
 
-This slice runs one card (tp = 1): the gather and the scatter are the
-identity, so ``bulk`` and ``kernel`` mode are the one product (the
-reference's ``bulk`` branch, and its ring with no hops).  ``fused`` mode
-(the chunked ring) comes with the multi-card tp world, and its gradient
-with dense training.
+  allgather_matmul:     x [B, S_local, K] (this rank's sequence chunk), w
+                        [K, N_local] (its columns) -> y [B, S, N_local]
+  matmul_reducescatter: x [B, S, K_local], w [K_local, N] (its rows)
+                        -> y [B, S_local, N], summed over the ranks
+
+The rings are not differentiable at tp > 1 (training at tp > 1, and the
+prefill around these ops, are ROADMAP Queue 1 item 1's left part).
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.core.collectives import (_no_grad_over_ranks, all_gather, all_reduce,
+                                          ring_permute_start, ring_reduce_scatter_compute,
+                                          wire_cast, wire_uncast)
+from repro_torch.core.matmul_allreduce import resolve_overlap
+from repro_torch.core.scheduling import sub_chunk_service_order
 from repro_torch.parallel.sharding import ParallelContext
 
-_FUSED_ITEM = ("ROADMAP Queue 1 items 1 and 4 (the multi-card tp world's rings, "
-               "and dense training)")
+
+def allgather_matmul(ctx: ParallelContext, x, w, *, mode: str | None = None,
+                     chunks_per_rank: int | str | None = None,
+                     skew: int | None = None, wire: str | None = None):
+    """y[b, s, :] = (AG_tp(x) @ w_colshard)[b, s, :], in the mode
+    ``ctx.fusion.resolve("ag_matmul")`` unless ``mode`` is given.
+
+    The ring: the local sequence chunk is multiplied first (it is there at
+    once, hiding the first hop), then each arriving chunk while the next
+    is on the wire.  ``chunks_per_rank`` splits the payload into sub-chunks
+    that ring (and are consumed) on their own (Fig. 13); ``skew`` rotates
+    their service order (Fig. 14; results land in disjoint slices, so the
+    rotation is bit-exact); ``wire`` compresses the forwarded sub-chunks
+    once at their source.  The defaults are ``ctx.fusion``'s."""
+    mode = mode or ctx.fusion.resolve("ag_matmul")
+    n, d = ctx.tp, ctx.tp_rank
+    if mode == "bulk":
+        return all_gather(ctx, x, axis=1) @ w
+    if n == 1 and mode == "kernel":
+        return x @ w     # the ring with no hops and one sub-chunk: one product
+    _no_grad_over_ranks(ctx, "allgather_matmul", x, w)
+    s_loc = x.shape[1]
+    q, wire = resolve_overlap(
+        ctx.fusion.granularity if chunks_per_rank is None else chunks_per_rank,
+        wire or ctx.fusion.wire, s_loc, 1)
+    order = sub_chunk_service_order(q, ctx.fusion.skew if skew is None else int(skew))
+    sub = s_loc // q
+    out = torch.empty((x.shape[0], s_loc * n, w.shape[1]), dtype=x.dtype, device=x.device)
+    bufs = [wire_cast(b, wire) for b in x.split(sub, dim=1)] if n > 1 else []
+    pending = {j: ring_permute_start(ctx, bufs[j]) for j in order} if n > 1 else {}
+    for j, xj in enumerate(x.split(sub, dim=1)):
+        out[:, d * s_loc + j * sub:d * s_loc + (j + 1) * sub] = xj @ w
+    for i in range(1, n):
+        src = (d - i) % n
+        for j in order:
+            bufs[j] = pending[j]()
+            if i < n - 1:
+                pending[j] = ring_permute_start(ctx, bufs[j])
+            lo = src * s_loc + j * sub
+            out[:, lo:lo + sub] = wire_uncast(bufs[j], x.dtype) @ w
+    return out
 
 
-def _one_card_product(ctx: ParallelContext, op: str, family: str, x, w):
-    mode = ctx.fusion.resolve(family)
-    if mode not in ("bulk", "kernel"):
-        raise NotImplementedError(f"{op} mode={mode!r}: {_FUSED_ITEM}")
-    return x @ w
+def matmul_reducescatter(ctx: ParallelContext, x, w, *, mode: str | None = None,
+                         schedule: str | None = None,
+                         chunks_per_rank: int | str | None = None,
+                         skew: int | None = None, wire: str | None = None):
+    """y = ReduceScatter_tp(x @ w_rowshard) over the sequence dim, in the mode
+    ``ctx.fusion.resolve("matmul_rs")`` unless ``mode`` is given.  The ring
+    (``ring_reduce_scatter_compute`` over sequence chunks) takes
+    ``schedule``, ``chunks_per_rank``, ``skew`` and ``wire``, defaulting to
+    ``ctx.fusion``'s; bulk mode sums the whole product over the ranks and
+    keeps this rank's sequence chunk."""
+    mode = mode or ctx.fusion.resolve("matmul_rs")
+    n, d = ctx.tp, ctx.tp_rank
+    s = x.shape[1]
+    if mode == "bulk":
+        y = all_reduce(ctx, x @ w)
+        return y if n == 1 else y[:, d * (s // n):(d + 1) * (s // n)]
+    if n == 1 and mode == "kernel":
+        return x @ w
+    _no_grad_over_ranks(ctx, "matmul_reducescatter", x, w)
+    q, wire = resolve_overlap(
+        ctx.fusion.granularity if chunks_per_rank is None else chunks_per_rank,
+        wire or ctx.fusion.wire, s, n)
+    chunk = s // (n * q)
+    return ring_reduce_scatter_compute(
+        ctx, lambda f: x[:, f * chunk:(f + 1) * chunk] @ w,
+        schedule=schedule or ctx.fusion.schedule, chunks_per_rank=q, sub_axis=1,
+        skew=ctx.fusion.skew if skew is None else int(skew), wire=wire)
 
 
-def allgather_matmul(ctx: ParallelContext, x, w):
-    """y[b, s, :] = (AG_tp(x) @ w_colshard)[b, s, :]: x [B, S, K], w [K, N]
-    -> [B, S, N], in the mode ``ctx.fusion.resolve("ag_matmul")``."""
-    return _one_card_product(ctx, "allgather_matmul", "ag_matmul", x, w)
-
-
-def matmul_reducescatter(ctx: ParallelContext, x, w):
-    """y = ReduceScatter_tp(x @ w_rowshard) over the sequence dim: x [B, S, K],
-    w [K, N] -> [B, S, N], in the mode ``ctx.fusion.resolve("matmul_rs")``."""
-    return _one_card_product(ctx, "matmul_reducescatter", "matmul_rs", x, w)
+def allgather_seq(ctx: ParallelContext, x, *, axis_pos: int = 1):
+    """Plain all-gather of a sequence-sharded activation (layout boundaries)."""
+    return all_gather(ctx, x, axis=axis_pos)

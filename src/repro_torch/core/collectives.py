@@ -1,20 +1,246 @@
-"""Collective building blocks.
+"""Decomposed compute-collective combinators (the paper's core, SPMD).
 
-The JAX package's module also holds the chunked rings of ``fused`` mode and
-the remote sends of the decomposed All-to-All; they come with ROADMAP Queue
-1 item 1 (the multi-card tp world).  This port runs one card, where every
-All-to-All keeps each rank's own block.
+The paper's GPU kernels put each output slice on the wire the moment its
+workgroups finish it.  ``fused`` mode does the same at the level of whole
+products: the op is cut into chunks, each chunk's point-to-point send (a
+ring hop, or a direct send at an offset) is issued right after the chunk
+is computed, and waited on only where the value it carries is consumed,
+so the next chunk's product runs while the send is in flight.  On a host
+with several cards and NCCL that order lets the two overlap; a world of
+processes sharing one card, whose gloo wire goes through host memory,
+cannot show it, and nothing here has been timed with real peers.
+
+Every function runs on every rank of the tp world (``ctx.tp`` ranks in
+``ctx.group``) on that rank's shard, like the body of the reference's
+``shard_map``.  A world of one rank makes no call to ``torch.distributed``.
+
+Every payload meets the backend in one place, :func:`_on_wire`: a gloo
+world handed CUDA tensors moves them through pinned host buffers (gloo
+takes CPU tensors), which :func:`wire_staged` decides from the world's
+backend and the tensor's device alone; an NCCL world never stages.  fp8
+payloads travel as their ``uint8`` bytes (gloo has no float8 type).
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.scheduling import ring_offsets
+from repro_torch.core.scheduling import ring_offsets, sub_chunk_service_order
 from repro_torch.parallel.sharding import ParallelContext
 
-_MULTI_CARD_ITEM = "ROADMAP Queue 1 item 1 (the multi-card tp world)"
+_DP_ITEM = ("ROADMAP Queue 1 item 1 (left: data parallel, dp > 1, with the reference's "
+            "fsdp weight sharding)")
+
+# ---------------------------------------------------------------------------
+# wire-fault injection hook (chaos engineering)
+# ---------------------------------------------------------------------------
+# Applied to every payload leaf as it goes on the wire (ring hops, direct
+# sends and the phase-2 all-gather), as in the reference.  ``None``, the
+# default, leaves the payload as it is.  The chaos runtime (ROADMAP Queue 1
+# item 7) installs a corruptor here to reproduce flipped-link / NaN-payload
+# faults inside the real rings.
+_WIRE_FAULT_HOOK = None
+
+
+def set_wire_fault_hook(hook):
+    """Install (or clear, with ``None``) the wire-fault hook.  Returns the
+    previous hook so scoped injectors can restore it."""
+    global _WIRE_FAULT_HOOK
+    prev = _WIRE_FAULT_HOOK
+    _WIRE_FAULT_HOOK = hook
+    return prev
+
+
+def _wire_fault(leaf):
+    return leaf if _WIRE_FAULT_HOOK is None else _WIRE_FAULT_HOOK(leaf)
+
+
+# ---------------------------------------------------------------------------
+# the one place a payload meets the backend
+# ---------------------------------------------------------------------------
+def wire_staged(backend: str | None, device) -> bool:
+    """Whether payloads go through host memory: in a gloo world handed CUDA
+    tensors (gloo's send, receive and reductions take CPU tensors).  An
+    NCCL world, and a CPU tensor, never stage."""
+    return backend == "gloo" and torch.device(device).type == "cuda"
+
+
+def _bytes(t):
+    """The tensor the backend takes: fp8 as its uint8 bytes."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _like(t):
+    """A new contiguous tensor of t's shape, dtype and device (the backends
+    take contiguous tensors)."""
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+
+def _on_wire(ctx: ParallelContext, op: Callable, ins, outs) -> Callable:
+    """Run the collective ``op(ins, outs)`` (it returns its ``Work``
+    handles) on tensors the world's backend takes, and return the function
+    that finishes it: it waits, moves staged results into ``outs`` and
+    returns ``outs``.
+
+    Staging (:func:`wire_staged`) copies each input to a pinned host buffer
+    and receives into pinned host buffers, which the finisher copies back
+    to the card."""
+    ins = [_bytes(t.contiguous()) for t in ins]
+    outs_b = [_bytes(t) for t in outs]
+    staged = wire_staged(ctx.backend, outs_b[0].device)
+    if staged:
+        host = lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        # the copy to the host waits for the card, so the payload is complete
+        ins = [host(t).copy_(t) for t in ins]
+        bufs = [host(t) for t in outs_b]
+    else:
+        bufs = outs_b
+    works = op(ins, bufs)
+
+    def finish():
+        for w in works:
+            w.wait()
+        if staged:
+            for o, b in zip(outs_b, bufs):
+                o.copy_(b, non_blocking=True)
+        return outs
+    return finish
+
+
+def all_reduce(ctx: ParallelContext, x, op: str = "sum"):
+    """``x`` reduced over the tp ranks (``"sum"`` or ``"max"``) at x's dtype,
+    into a new tensor; ``x`` itself at tp = 1."""
+    if ctx.tp == 1:
+        return x
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+
+    def run(ins, bufs):
+        bufs[0].copy_(ins[0])
+        return [dist.all_reduce(bufs[0], red, group=ctx.group, async_op=True)]
+    return _on_wire(ctx, run, [x], [_like(x)])()[0]
+
+
+def _all_gather(ctx: ParallelContext, x) -> list:
+    """Every rank's ``x``, in tp-rank order."""
+    return _on_wire(ctx, lambda ins, bufs: [dist.all_gather(bufs, ins[0], group=ctx.group,
+                                                            async_op=True)],
+                    [x], [_like(x) for _ in range(ctx.tp)])()
+
+
+def all_gather(ctx: ParallelContext, x, *, axis: int = 0):
+    """Every rank's ``x`` concatenated along ``axis`` in tp-rank order (the
+    gather GSPMD inserts where the reference reads a sharded array whole);
+    ``x`` itself at tp = 1."""
+    if ctx.tp == 1:
+        return x
+    return torch.cat(_all_gather(ctx, x), dim=axis)
+
+
+def _leaves(payload):
+    return list(payload) if isinstance(payload, tuple) else [payload]
+
+
+def ring_permute_start(ctx: ParallelContext, x, shift: int = 1) -> Callable:
+    """Send ``x`` to tp rank ``(d + shift) % n`` and receive the payload of
+    rank ``(d - shift) % n`` (the reference's ``_ring_perm``); returns the
+    function that waits and gives the received payload.  A tuple payload
+    (fp8 values and their scale) permutes each leaf."""
+    n, d = ctx.tp, ctx.tp_rank
+    if shift % n == 0:        # every rank keeps its own payload
+        return lambda: x
+    leaves = [_wire_fault(t) for t in _leaves(x)]
+    outs = [_like(t) for t in leaves]
+    dst, src = ctx.peer((d + shift) % n), ctx.peer((d - shift) % n)
+
+    def op(ins, bufs):
+        ops = [dist.P2POp(dist.isend, t, dst, ctx.group) for t in ins]
+        ops += [dist.P2POp(dist.irecv, b, src, ctx.group) for b in bufs]
+        return dist.batch_isend_irecv(ops)
+
+    finish = _on_wire(ctx, op, leaves, outs)
+
+    def wait():
+        got = finish()
+        return tuple(got) if isinstance(x, tuple) else got[0]
+    return wait
+
+
+def ring_permute(ctx: ParallelContext, x, shift: int = 1):
+    """:func:`ring_permute_start`, waited on at once."""
+    return ring_permute_start(ctx, x, shift)()
+
+
+# ---------------------------------------------------------------------------
+# wire-dtype compression (CoCoNet-style fused precision conversion)
+# ---------------------------------------------------------------------------
+# "f32" is the uncompressed setting: the payload travels at the op's
+# compute dtype.
+WIRE_DTYPES = ("f32", "bf16", "fp8")
+WIRE_SETTINGS = WIRE_DTYPES + ("auto",)
+FP8_MAX = 448.0  # float8_e4m3fn finite max
+
+
+def wire_itemsize(wire: str, dtype_bytes: int) -> int:
+    """Bytes per element on the wire.  The wire is never widened: a bf16
+    model under ``wire="bf16"`` already travels at 2 bytes."""
+    if wire == "bf16":
+        return min(2, int(dtype_bytes))
+    if wire == "fp8":
+        return min(1, int(dtype_bytes))
+    return int(dtype_bytes)
+
+
+def _passthrough(x, wire: str) -> bool:
+    if wire in (None, "f32"):
+        return True
+    if not x.dtype.is_floating_point:
+        return True  # integer payloads (routing ids, ...) stay exact
+    return x.element_size() <= wire_itemsize(wire, x.element_size())
+
+
+def wire_cast(x, wire: str):
+    """Compress one ring/A2A payload chunk for the wire.
+
+    bf16: a plain narrowing cast.  fp8: ``float8_e4m3fn`` values with a
+    per-chunk max-abs scale riding alongside as a ``(values, scale)`` pair;
+    the scale is a [1] f32 tensor, so it travels like any payload.
+    ``wire="f32"`` (and any non-narrowing combination) returns ``x``."""
+    if wire not in WIRE_DTYPES and wire is not None:
+        raise ValueError(f"unknown wire dtype {wire!r}; expected one of {WIRE_DTYPES}")
+    if _passthrough(x, wire):
+        return x
+    if wire == "bf16":
+        return x.to(torch.bfloat16)
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().max(), 1e-30) / FP8_MAX
+    return (xf / scale).to(torch.float8_e4m3fn), scale.reshape(1)
+
+
+def wire_uncast(payload, dtype):
+    """Decompress a :func:`wire_cast` payload back to ``dtype`` (callers pass
+    f32 where the value feeds a local accumulation)."""
+    if isinstance(payload, tuple):
+        q, scale = payload
+        return (q.float() * scale[0]).to(dtype)
+    return payload.to(dtype)
+
+
+def all_gather_wire(ctx: ParallelContext, x, *, axis: int = 0, wire: str = "f32"):
+    """Every rank's ``x`` concatenated along ``axis`` in tp-rank order (the
+    reference's tiled ``all_gather``), each rank's chunk compressed to the
+    wire dtype (the phase-2 all-gather of the fused AllReduce).
+    ``wire="f32"`` is the exact gather; at tp = 1 a compressing wire still
+    rounds, as the reference's does."""
+    p = x if _passthrough(x, wire) else wire_cast(x, wire)
+    if ctx.tp == 1:
+        return x if p is x else wire_uncast(p, x.dtype)
+    if isinstance(p, tuple):
+        qs, ss = _all_gather(ctx, _wire_fault(p[0])), _all_gather(ctx, p[1])
+        return torch.cat([wire_uncast((q, s), torch.float32) for q, s in zip(qs, ss)],
+                         dim=axis).to(x.dtype)
+    return torch.cat(_all_gather(ctx, _wire_fault(p)), dim=axis).to(x.dtype)
 
 
 def feasible_chunks_per_rank(dim: int, n: int, q: int) -> int:
@@ -26,12 +252,154 @@ def feasible_chunks_per_rank(dim: int, n: int, q: int) -> int:
     return q
 
 
+def split_ring_payload(a, n_sub: int, axis: int = 1):
+    """Split a ring payload into ``n_sub`` equal sub-chunks along ``axis``
+    so each can ring (and be consumed) on its own, the paper's Fig. 13
+    sub-chunk granularity.  ``n_sub`` must divide the axis (callers clamp
+    with :func:`feasible_chunks_per_rank` first)."""
+    if n_sub == 1:
+        return [a]
+    if a.shape[axis] % n_sub:
+        raise ValueError(
+            f"sub-chunk factor {n_sub} does not divide ring-payload axis {axis} of size "
+            f"{a.shape[axis]}; clamp via feasible_chunks_per_rank first")
+    return list(a.chunk(n_sub, dim=axis))
+
+
+def _no_grad_over_ranks(ctx: ParallelContext, what: str, *tensors):
+    """The point-to-point rings are not differentiable: refuse to run one
+    where autograd would record it (training at tp > 1 is left for later)."""
+    if ctx.tp > 1 and torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} under autograd at tp={ctx.tp}: ROADMAP Queue 1 item 1 (left: training "
+            f"at tp > 1, the CE ring and sharded optimizer state)")
+
+
+# ---------------------------------------------------------------------------
+# reduce-scatter fused with per-chunk compute (GEMV/GEMM + AllReduce core)
+# ---------------------------------------------------------------------------
+def ring_reduce_scatter_compute(
+    ctx: ParallelContext,
+    partial_fn: Callable[[int], torch.Tensor],
+    *,
+    schedule: str = "comm_aware",
+    chunks_per_rank: int = 1,
+    sub_axis: int = 0,
+    skew: int = 0,
+    wire: str = "f32",
+):
+    """sum over ranks of ``partial_fn(chunk)`` -> this rank's reduced chunks.
+
+    ``partial_fn(f)`` returns this rank's partial contribution to fine
+    output chunk ``f``.  The output is split into ``n * q`` fine chunks
+    (``q = chunks_per_rank``); rank ``r`` owns fine chunks ``r*q ..
+    r*q+q-1``, returned concatenated along ``sub_axis``.  Each ring step's
+    payload is ``q`` sub-chunks, each put on the wire the moment it is
+    produced (paper Fig. 13).
+
+    comm_aware: the carry destined for rank ``d`` starts at ``d + 1``, each
+    hop adds the local partial of the chunk in flight, and a rank's own
+    chunk is added last (paper Fig. 7b).  Each hop's send is issued before
+    the next partial is computed and waited on only where the carry is
+    consumed.  oblivious: every partial is computed first, then a bare ring
+    reduce (the paper's communication-oblivious baseline).  Both add the
+    same values in the same order, so they give the same bits.
+
+    ``skew`` rotates the service order of the ``q`` sub-chunk rings
+    (Fig. 14); each sub-ring's chain is untouched, so the result is
+    bit-identical under any skew.  ``wire`` compresses the carry on the
+    send side of every hop while the local accumulation runs in f32;
+    ``wire="f32"`` carries and accumulates partials at their own dtype, as
+    the reference does."""
+    n, d, q = ctx.tp, ctx.tp_rank, chunks_per_rank
+    if schedule not in ("comm_aware", "oblivious"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    order = sub_chunk_service_order(q, skew)
+    compress = wire not in (None, "f32")
+
+    def merge(accs, dtype=None):
+        out = accs[0] if q == 1 else torch.cat(accs, dim=sub_axis)
+        return out if dtype is None else out.to(dtype)
+
+    if n == 1:
+        return merge([partial_fn(s) for s in range(q)])
+    widen = (lambda p: p.float()) if compress else (lambda p: p)
+    if schedule == "oblivious":
+        # all compute up front (own chunk first), then the bare ring
+        parts = [[partial_fn(((d - 1 - i) % n) * q + s) for s in range(q)]
+                 for i in reversed(range(n))]
+        part = lambda i, s: parts[-(i + 1)][s]
+    else:
+        part = lambda i, s: partial_fn(((d - 1 - i) % n) * q + s)
+    accs: list = [None] * q
+    out_dtype = None
+    for s in order:
+        p = part(0, s)
+        out_dtype = p.dtype
+        accs[s] = widen(p)
+
+    def send(acc):
+        return ring_permute_start(ctx, wire_cast(acc, wire) if compress else acc)
+
+    inflight = {s: send(accs[s]) for s in order}
+    for i in range(1, n):
+        for s in order:
+            p = widen(part(i, s))
+            got = inflight[s]()
+            accs[s] = (wire_uncast(got, torch.float32) if compress else got) + p
+            if i < n - 1:
+                inflight[s] = send(accs[s])
+    return merge(accs, out_dtype if compress else None)
+
+
+# ---------------------------------------------------------------------------
+# all-gather fused with per-chunk consumption (AG + matmul / KV-gather core)
+# ---------------------------------------------------------------------------
+def ring_all_gather_compute(
+    ctx: ParallelContext,
+    x_local,
+    consume_fn: Callable,
+    *,
+    out_init=None,
+    wire: str = "f32",
+):
+    """Gather ``x_local`` around the ring, applying
+    ``consume_fn(src_rank, x_src, acc) -> acc`` to each arriving shard while
+    the next hop is in flight.  The local shard is consumed first (it is
+    there at once, so its compute hides the first hop).
+
+    ``wire`` compresses the forwarded shard once at its source (the payload
+    then rings unchanged, so a remote shard rounds once however many hops it
+    rides); the local shard is consumed uncompressed."""
+    n, d = ctx.tp, ctx.tp_rank
+    if n == 1:
+        return consume_fn(0, x_local, out_init)
+    buf = wire_cast(x_local, wire) if wire not in (None, "f32") else x_local
+    pending = ring_permute_start(ctx, buf)
+    acc = consume_fn(d, x_local, out_init)
+    for i in range(1, n):
+        buf = pending()
+        if i < n - 1:
+            pending = ring_permute_start(ctx, buf)
+        acc = consume_fn((d - i) % n, wire_uncast(buf, x_local.dtype), acc)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# direct all-to-all fused with per-destination compute (GEMM/embedding + A2A)
+# ---------------------------------------------------------------------------
 def bulk_all_to_all(ctx: ParallelContext, x):
     """Baseline: one All-to-All over the leading dim [n, ...] -> [n, ...]
-    across the tp ranks.  On a one-card world it is the identity."""
-    if ctx.tp != 1:
-        raise NotImplementedError(f"bulk_all_to_all over tp={ctx.tp}: {_MULTI_CARD_ITEM}")
-    return x
+    across the tp ranks (block ``j`` goes to rank ``j``; the result is
+    stacked by source).  On a one-rank world it is the identity."""
+    if ctx.dp != 1:
+        raise NotImplementedError(f"bulk_all_to_all at dp={ctx.dp}: {_DP_ITEM}")
+    if ctx.tp == 1:
+        return x
+    out = _like(x)
+    return _on_wire(ctx, lambda ins, bufs: [dist.all_to_all_single(
+        bufs[0], ins[0], group=ctx.group, async_op=True)], [x], [out])()[0]
 
 
 def direct_all_to_all_compute(
@@ -43,6 +411,7 @@ def direct_all_to_all_compute(
     chunks_per_rank: int = 1,
     sub_axis: int = 0,
     skew: int = 0,
+    wire: str = "f32",
 ):
     """Fused compute + All-to-All by per-destination direct sends.
 
@@ -50,25 +419,61 @@ def direct_all_to_all_compute(
     ``s``-th of ``q = chunks_per_rank`` slices along ``sub_axis`` of the
     chunk this rank owes rank ``dest`` (``chunk_shape`` describes the whole
     chunk).  Destinations are visited in ``ring_offsets(n, schedule,
-    skew)`` order.  Returns ``[n, *chunk_shape]`` stacked by source rank.
+    skew)`` order, remote ones first under comm_aware; each remote slice is
+    sent (at offset ``off``: to ``d + off``, from ``d - off``) the moment it
+    is produced and received at the end.  Returns ``[n, *chunk_shape]``
+    stacked by source rank.
 
-    On one card (n = 1) the only destination is the rank itself, whose
-    chunk never touches the wire, so the reference's ``wire`` (the remote
-    payload's dtype) has nothing to act on and is not taken; with q = 1 the
-    produced chunk is returned without a copy."""
-    n = ctx.tp * ctx.dp
-    if n != 1:
-        raise NotImplementedError(f"direct_all_to_all_compute over {n} ranks: "
-                                  f"{_MULTI_CARD_ITEM}")
+    ``wire`` compresses each remote send on the producer side (one rounding
+    per value); the local chunk never touches the wire.  On a one-rank
+    world with q = 1 the produced chunk is returned without a copy."""
+    if ctx.dp != 1:
+        raise NotImplementedError(f"direct_all_to_all_compute at dp={ctx.dp}: {_DP_ITEM}")
+    n, d = ctx.tp, ctx.tp_rank
     q = chunks_per_rank
     if chunk_shape[sub_axis] % q:
         raise ValueError(
             f"sub-chunk factor {q} does not divide destination-chunk axis "
             f"{sub_axis} of size {chunk_shape[sub_axis]}; clamp via "
             f"feasible_chunks_per_rank first")
-    pieces = []
+    if n == 1:
+        pieces = [produce_fn(s) for s in range(q)]
+        own = pieces[0] if q == 1 else torch.cat(pieces, dim=sub_axis)
+        return own.unsqueeze(0)
+    sub = chunk_shape[sub_axis] // q
+    out, pending = None, []
     for off in ring_offsets(n, schedule, skew):
-        dest = off            # (my + off) % n with my = 0
-        pieces += [produce_fn(dest * q + s) for s in range(q)]
-    own = pieces[0] if q == 1 else torch.cat(pieces, dim=sub_axis)
-    return own.unsqueeze(0)
+        dest = (d + off) % n
+        for s in range(q):
+            y = produce_fn(dest * q + s)
+            if out is None:
+                out = torch.empty((n,) + tuple(chunk_shape), dtype=y.dtype, device=y.device)
+            if off == 0:
+                out[d].narrow(sub_axis, s * sub, sub).copy_(y)
+            else:
+                pending.append((ring_permute_start(ctx, wire_cast(y, wire), shift=off),
+                                (d - off) % n, s))
+    for wait, src, s in pending:
+        out[src].narrow(sub_axis, s * sub, sub).copy_(wire_uncast(wait(), out.dtype))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# partial-softmax merge (sequence-sharded decode attention)
+# ---------------------------------------------------------------------------
+def attention_partial_merge(ctx: ParallelContext, o, m, l):
+    """Merge flash-attention partials across the sequence-sharded tp ranks.
+
+    o: [..., d] unnormalized partial output (sum of exp(s - m) * v);
+    m: [...] local running max; l: [...] local sum of exp(s - m).
+
+    A MAX all-reduce of m, then SUM all-reduces of the rescaled l and o: the
+    collective itself is the readiness signal (the paper's ``sliceRdy``).
+    At tp = 1 the rescaling is by exp(0) = 1 and is skipped."""
+    if ctx.tp == 1:
+        return o / torch.clamp_min(l, 1e-30)[..., None]
+    m_glob = all_reduce(ctx, m, "max")
+    corr = torch.exp(m - m_glob)
+    l_glob = all_reduce(ctx, l * corr)
+    o_glob = all_reduce(ctx, o * corr[..., None])
+    return o_glob / torch.clamp_min(l_glob, 1e-30)[..., None]

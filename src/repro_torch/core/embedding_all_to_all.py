@@ -16,10 +16,11 @@ Shapes (global): indices [B, T, L] int32 (fixed-size bags, mean-pooled, as
 the DLRM data generator the paper evaluates with), tables [T, V, D],
 output [B, T, D].
 
-This port runs one card (world n = 1): the All-to-All keeps the rank's own
-block.  ``fused`` mode (the chunked collectives) is ROADMAP Queue 1 item 1;
-the reference's ``degrade_mode`` hook and the ``"auto"`` granularity and
-wire choices are item 3 (autotune/degrade) and are not ported.
+This port runs it on one rank (world n = 1): the All-to-All keeps the
+rank's own block.  Tables split over several ranks, and ``fused`` mode (the
+direct sends of ``core/collectives.py``), are ROADMAP Queue 1 item 6; the
+reference's ``degrade_mode`` hook and the ``"auto"`` granularity and wire
+choices are item 3 (autotune/degrade) and are not ported.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ from repro_torch.core.collectives import (bulk_all_to_all, direct_all_to_all_com
 from repro_torch.kernels.embedding_pool.ops import embedding_pool_tables
 from repro_torch.parallel.sharding import ParallelContext
 
-_FUSED_ITEM = ("ROADMAP Queue 1 item 1 (the multi-card tp world: "
-               "core/collectives.py and fused mode)")
+_FUSED_ITEM = ("ROADMAP Queue 1 item 1 (left: fused mode of the embedding All-to-All) and "
+               "item 6 (DLRM's tables over several ranks)")
 _AUTOTUNE_ITEM = "ROADMAP Queue 1 item 3 (autotune/degrade)"
 _WIRES = ("f32", "bf16", "fp8")
 
@@ -76,8 +77,9 @@ def embedding_all_to_all(
     destinations; ``wire`` (``None`` = ``ctx.fusion.wire``) is the remote
     payload's dtype, which a one-card world never uses."""
     mode = mode or ctx.fusion.resolve("embed_a2a")
-    if mode not in ("bulk", "kernel"):
-        raise NotImplementedError(f"embedding_all_to_all mode={mode!r}: {_FUSED_ITEM}")
+    if mode not in ("bulk", "kernel") or ctx.tp * ctx.dp > 1:
+        raise NotImplementedError(f"embedding_all_to_all mode={mode!r} over "
+                                  f"{ctx.tp * ctx.dp} ranks: {_FUSED_ITEM}")
     schedule = schedule or ctx.fusion.schedule
     skew = ctx.fusion.skew_world if skew is None else int(skew)
     n = ctx.tp * ctx.dp

@@ -20,7 +20,7 @@ from repro_torch.core.collectives import feasible_chunks_per_rank
 from repro_torch.parallel.sharding import ParallelContext
 
 _AUTOTUNE_ITEM = "ROADMAP Queue 1 item 3 (autotune/degrade)"
-_WIRE_ITEM = "ROADMAP Queue 1 item 1 (the multi-card tp world: wire_cast on the CE ring)"
+_WIRE_ITEM = "ROADMAP Queue 1 item 1 (left: training at tp > 1, wire_cast on the CE ring)"
 
 
 def _cap_fwd(lg, cap):

@@ -2,9 +2,11 @@
 
 The paper schedules the workgroups that produce *remote* slices ahead of
 those producing locally consumed slices, so remote wire time hides behind
-local compute.  This is the order in which a fused loop visits its
-destinations.  Only ``ring_offsets`` is ported so far: the sub-chunk event
-lists come with ROADMAP Queue 1 item 1 (the multi-card tp world).
+local compute.  These are the orders in which a fused loop visits its
+destinations and services its sub-chunk rings, on every rank of the tp
+world alike (so each peer pair's point-to-point messages match in issue
+order).  The reference's modeled finish times and skew statistics come with
+the autotuner (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -36,3 +38,59 @@ def ring_offsets(world: int, schedule: str = "comm_aware",
         it = iter(remote)
         offs = [o if o == 0 else next(it) for o in offs]
     return offs
+
+
+def sub_chunk_send_events(world: int, chunks_per_rank: int,
+                          schedule: str = "comm_aware",
+                          skew: int = 0) -> list[list[tuple[int, int]]]:
+    """Per-rank (destination, fine-chunk) send events of the sub-chunked
+    direct-send schedule (``direct_all_to_all_compute`` with
+    ``chunks_per_rank=q``), in issue order.
+
+    Fine chunk ``f = dest * q + s`` is the ``s``-th sub-slice of the payload
+    rank ``r`` owes rank ``dest``.  The schedule is a permutation: every
+    (rank, fine-chunk) pair is sent exactly once and lands at the rank that
+    owns it."""
+    q = chunks_per_rank
+    offs = ring_offsets(world, schedule, skew)
+    return [[((r + off) % world, ((r + off) % world) * q + s) for off in offs for s in range(q)]
+            for r in range(world)]
+
+
+def expected_send_cover(world: int, chunks_per_rank: int) -> set:
+    """The (destination, fine-chunk) pairs every rank's send schedule must
+    emit exactly once: fine chunk ``dest * q + s`` for each destination's
+    ``q`` sub-slices."""
+    q = chunks_per_rank
+    return {(d, d * q + s) for d in range(world) for s in range(q)}
+
+
+def sub_chunk_service_order(n_sub: int, skew: int = 0) -> list[int]:
+    """Service order of the ``n_sub`` independent sub-chunk rings inside a
+    ring-carry op (reduce-scatter, all-gather).
+
+    The ring fixes which chunk a rank touches at each hop, so the only
+    freedom a measured skew can use is the order in which the sub-chunk
+    rings are serviced within a hop: rotating it by ``skew`` puts the
+    straggler-facing sub-ring on the wire first.  Each sub-ring's compute
+    chain is untouched, so outputs are unchanged."""
+    if n_sub <= 1:
+        return [0]
+    r = skew % n_sub
+    return list(range(r, n_sub)) + list(range(r))
+
+
+def reduce_ring_chunk_order(world: int, schedule: str = "comm_aware") -> list[int]:
+    """Chunk index (relative to the own rank) computed at each step of a
+    reduce-scatter ring.
+
+    In the overlapped ring the carry that lands on rank ``d`` starts at
+    rank ``d + 1``; at step ``i`` rank ``d`` adds its partial for chunk
+    ``(d - i - 1) mod world``, its own chunk last (comm-aware).  The
+    oblivious order takes its own chunk first, exposing the whole ring's
+    latency at the end (the Fig. 14 baseline)."""
+    if schedule == "comm_aware":
+        return [-(i + 1) % world for i in range(world)]
+    if schedule == "oblivious":
+        return [i % world for i in range(world)]
+    raise ValueError(f"unknown schedule {schedule!r}")

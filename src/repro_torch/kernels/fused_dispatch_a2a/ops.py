@@ -22,7 +22,8 @@ from repro_torch.kernels.fused_dispatch_a2a.ref import (fused_dispatch_a2a_ref,
                                                         fused_dispatch_a2a_ref_ranks)
 
 MAX_DEV = 8     # size of the kernel's peer pointer tables (kMaxDev)
-REAL_PEERS_ITEM = "ROADMAP Queue 1 item 1 (the multi-card tp world)"
+REAL_PEERS_ITEM = ("ROADMAP Queue 1 item 1 (left: the real-peer half, symmetric-memory "
+                   "pointer tables on a multi-card host)")
 _PLANS = PlanCache()
 
 

@@ -22,7 +22,8 @@ from repro_torch.kernels.fused_embedding_a2a.ref import (fused_embedding_a2a_ref
 from repro_torch.parallel.sharding import ParallelContext
 
 MAX_DEV = 8     # size of the kernel's peer pointer tables (kMaxDev)
-REAL_PEERS_ITEM = "ROADMAP Queue 1 item 1 (the multi-card tp world)"
+REAL_PEERS_ITEM = ("ROADMAP Queue 1 item 1 (left: the real-peer half, symmetric-memory "
+                   "pointer tables on a multi-card host)")
 
 
 def fused_embedding_a2a(ctx: ParallelContext, indices, tables, *, comm_aware=True, _path=None,

@@ -1,0 +1,88 @@
+"""Starting the tensor-parallel world.
+
+The JAX package builds a device mesh over the devices one process sees
+(``make_host_mesh``); the port runs one process per rank instead, joined by
+``torch.distributed``:
+
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.serve --tp 4 --backend gloo
+
+A world of one rank needs no process group, so every tp = 1 path runs as it
+did without one.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+BACKENDS = ("nccl", "gloo")
+
+
+def default_backend(device) -> str:
+    """NCCL on a card, gloo on the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def world_device(backend: str, device, local_rank: int) -> torch.device:
+    """The device rank ``local_rank`` of a host computes on.
+
+    An NCCL world takes one card a rank (``cuda:LOCAL_RANK``; NCCL refuses
+    two ranks on one card).  A gloo world on cards spreads its ranks over
+    the cards there are, so on a one-card host every rank shares the one
+    card.  ``cpu`` only when asked for."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        if backend == "nccl":
+            raise ValueError("the nccl backend needs CUDA tensors (use --backend gloo on the CPU)")
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available (pass device='cpu' to run on the CPU)")
+    count = torch.cuda.device_count()
+    if backend == "nccl":
+        if local_rank >= count:
+            raise ValueError(f"an NCCL world needs a card a rank: local rank {local_rank} "
+                             f"of a host with {count} cards (a gloo world can share one)")
+        return torch.device("cuda", local_rank)
+    return torch.device("cuda", local_rank % count)
+
+
+def init_world(tp: int, backend: str | None, device, *, rank: int | None = None,
+               init_method: str | None = None) -> torch.device:
+    """Join a tp world of ``tp`` ranks and return this rank's device.
+
+    Under ``torch.distributed.run`` the rank, the world size and the local
+    rank come from ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` (and the
+    rendezvous from ``MASTER_ADDR``/``MASTER_PORT``); a caller that spawns
+    its own ranks passes ``rank`` and an ``init_method`` (a ``file://``
+    path or a ``tcp://localhost:<port>`` address).  ``backend`` ``None``
+    picks :func:`default_backend`.  At tp = 1 no process group is made."""
+    backend = backend or default_backend(device)
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    env_rank = os.environ.get("RANK")
+    rank = int(env_rank) if rank is None and env_rank is not None else rank
+    local_rank = int(os.environ.get("LOCAL_RANK", rank or 0))
+    size = int(os.environ.get("WORLD_SIZE", tp))
+    if size != tp:
+        raise ValueError(f"--tp {tp} in a world of {size} processes")
+    if tp == 1:
+        return world_device(backend, device, 0)
+    if rank is None:
+        raise ValueError(f"tp={tp}: no rank given and RANK is not set (run under "
+                         f"torch.distributed.run, or pass rank= and init_method=)")
+    dev = world_device(backend, device, local_rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method=init_method or "env://",
+                                world_size=tp, rank=rank)
+    return dev
+
+
+def close_world():
+    """Leave the world (a no-op where none was started)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

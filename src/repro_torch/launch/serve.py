@@ -6,6 +6,18 @@
       --chunk 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
       --reduced --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 4 -m repro_torch.launch.serve --tp 4 --fusion fused
+
+``--tp N`` serves over a tensor-parallel world of N processes, started by
+``torch.distributed.run`` (one process a rank): dense decode only, in
+``fused`` or ``bulk`` mode (``kernel`` mode at tp > 1 waits for a host with
+real peers).  ``--backend`` is ``nccl`` by default on cards (one card a
+rank) and ``gloo`` on the CPU; ``--backend gloo`` also runs a world whose
+ranks share one card, its wire staged through host memory.  Every rank
+serves the same requests with the same gathered logits; rank 0 prints, and
+checks that every rank's token streams are its own.  ``--granularity`` and
+``--wire`` set the fused ring's sub-chunks and payload dtype.
 
 Without ``--paged`` the dense engine serves (a ``B x S_max`` cache, the
 prompt fed one token per step); with it the paged engine (a shared pool of
@@ -39,6 +51,7 @@ import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels import load_library
+from repro_torch.launch.mesh import BACKENDS, close_world, init_world
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 from repro_torch.serve.engine import DecodeEngine, PagedDecodeEngine, Request, resubmit_journal
 from repro_torch.serve.kv_cache import dense_cache_hbm_bytes, pool_hbm_bytes
@@ -71,7 +84,15 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--fusion", default="kernel", choices=["kernel", "bulk"])
+    ap.add_argument("--fusion", default="kernel", choices=["kernel", "fused", "bulk"])
+    ap.add_argument("--granularity", type=int, default=1,
+                    help="sub-chunks a rank of the fused ring (paper Fig. 13)")
+    ap.add_argument("--wire", default="f32", choices=["f32", "bf16", "fp8"],
+                    help="payload dtype of the fused ring (f32: the compute dtype)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (run under torch.distributed.run)")
+    ap.add_argument("--backend", default=None, choices=BACKENDS,
+                    help="the world's backend (default: nccl on cuda, gloo on cpu)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache + chunked prefill (continuous batching "
@@ -93,20 +114,39 @@ def main(argv=None):
     if args.paged and not bundle.supports_paged:
         raise SystemExit(f"--paged requires a GQA transformer ({args.arch} is "
                          f"{bundle.family}/{getattr(bundle.config, 'attn_type', '?')})")
-    ctx = ParallelContext(device=args.device,
-                          fusion=FusionConfig(mode=args.fusion))
+    if args.tp > 1 and args.paged:
+        raise NotImplementedError(
+            "--paged at --tp > 1: ROADMAP Queue 1 item 1 (left: pool_logical_specs and "
+            "striped blocks)")
+    device = init_world(args.tp, args.backend, args.device)
+    try:
+        return _serve(args, bundle, device)
+    finally:
+        close_world()
+
+
+def _serve(args, bundle, device):
+    ctx = ParallelContext(device=device, tp=args.tp, fusion=FusionConfig(
+        mode=args.fusion, granularity=args.granularity, wire=args.wire))
     if args.reduced:
         bundle = bundle.reduced()
     cfg = bundle.config
     gen = torch.Generator(device=ctx.device).manual_seed(0)
-    params = bundle.init_params(gen)
+    params = bundle.init_params(gen, ctx)
+    steps = [0]      # model steps of the drain
+
+    def counted(fn):
+        def step(*a):
+            steps[0] += 1
+            return fn(*a)
+        return step
     if args.paged:
         # half the dense budget, rounded to a tp-divisible block count
         num_blocks = args.num_blocks or max(
             ctx.tp, args.batch * cfg.max_seq // 2 // args.block_size // ctx.tp * ctx.tp)
         serve = bundle.serve_step_fn(ctx)
         engine = PagedDecodeEngine(
-            lambda t, pl, tb, pos, nn: serve(params, t, pl, tb, pos, nn),
+            counted(lambda t, pl, tb, pos, nn: serve(params, t, pl, tb, pos, nn)),
             lambda nb, bs: bundle.init_paged_pool(nb, bs, ctx.device), args.batch,
             num_blocks=num_blocks, block_size=args.block_size, max_seq=cfg.max_seq,
             chunk=args.chunk, device=ctx.device, n_stripes=ctx.tp)
@@ -117,8 +157,8 @@ def main(argv=None):
               f"{dense_b / 2**20:.1f} MiB")
     else:
         decode = bundle.decode_fn(ctx)
-        engine = DecodeEngine(lambda t, c, pos: decode(params, t, c, pos),
-                              lambda b: bundle.init_cache(b, ctx.device),
+        engine = DecodeEngine(counted(lambda t, c, pos: decode(params, t, c, pos)),
+                              lambda b: bundle.init_cache(b, ctx.device, ctx.tp),
                               args.batch, device=ctx.device, max_seq=cfg.max_seq)
     if args.journal and os.path.exists(args.journal):
         with open(args.journal) as f:
@@ -140,13 +180,27 @@ def main(argv=None):
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
     dt = time.perf_counter() - t0
+    rank0 = ctx.tp_rank == 0
+    if ctx.tp > 1:
+        # every rank took the same greedy tokens from the same gathered logits
+        streams = [None] * ctx.tp
+        torch.distributed.all_gather_object(streams, [(r.uid, r.tokens) for r in finished])
+        if any(s != streams[0] for s in streams):
+            raise AssertionError(f"the ranks' token streams differ: {streams}")
+    if not rank0:
+        return finished
     if not finished.drained:
         print("WARNING: stopped at max_steps before draining — results truncated")
     total_tokens = sum(len(r.tokens) for r in finished)
+    world = (f", tp={ctx.tp} ({ctx.backend}), granularity={args.granularity}, "
+             f"wire={args.wire}" if ctx.tp > 1 else "")
     print(f"served {len(finished)} requests, {total_tokens} tokens in "
           f"{dt:.3f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s, "
+          f"{steps[0]} steps, {dt / max(steps[0], 1) * 1e3:.2f} ms/step, "
           f"batch={args.batch}, fusion={args.fusion}, "
-          f"{'paged' if args.paged else 'dense'}, device={where})")
+          f"{'paged' if args.paged else 'dense'}, device={where}{world})")
+    if ctx.tp > 1:
+        print(f"all {ctx.tp} ranks' token streams equal: True")
     for r in finished[:4]:
         print(f"  req {r.uid}: prompt {r.prompt} -> {r.tokens[:12]}")
     return finished

@@ -44,7 +44,8 @@ _LATER_FLAGS = (
     ("--calibrate", "calibrate", "ROADMAP Queue 1 item 3 (autotune/calibrate)"),
     ("--skew-schedule", "skew_schedule", f"{_RUNTIME}: the straggler loop"),
     ("--degrade", "degrade", f"{_RUNTIME}: degradation"),
-    ("--production-mesh", "production_mesh", "ROADMAP Queue 1 item 1 (the multi-card tp world)"),
+    ("--production-mesh", "production_mesh",
+     "ROADMAP Queue 1 item 1 (left: training at tp > 1 and dp > 1)"),
 )
 _LATER_VALUES = (
     ("--chaos", "chaos", f"{_RUNTIME}: chaos injection"),

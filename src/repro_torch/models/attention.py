@@ -15,10 +15,12 @@ recomputes the scores block by block from the forward's softmax statistics
 (on a card the flash kernel writes them; on the CPU ``_SpanFlash`` keeps the
 plain loop's carries).
 
-Decode: the JAX package keeps the decode KV cache sequence-sharded over tp
-and merges per-rank flash partials; on one card the whole sequence is
-local and the merge is the identity.  The cache is updated in place, which
-saves copying the whole [B, S_max, Hkv, hd] layer cache every step.
+Decode: the KV cache is sequence-sharded over tp, as in the reference (GQA
+with 2 KV heads cannot split its heads over 4 ranks): rank ``d`` holds rows
+``[d * S_max / tp, (d + 1) * S_max / tp)`` of every slot, attends over them
+and merges its flash partial with the others' (``attention_partial_merge``);
+at tp = 1 the merge is a division.  The cache is updated in place, which
+saves copying the whole [B, S_local, Hkv, hd] layer cache every step.
 
 Paged serving (``paged_cache_update``, ``paged_attention``): a pool of
 fixed-size KV blocks shared by every request, mapped by per-request block
@@ -31,13 +33,14 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.core.collectives import attention_partial_merge
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.parallel.sharding import ParallelContext
 
 NEG_INF = -1e30
 Q_BLOCK, KV_BLOCK = 256, 1024   # the reference context_attention's default blocks
-_FUSED_ITEM = ("ROADMAP Queue 1 item 1 (the multi-card tp world: the KV ring of "
-               "fused mode)")
+_FUSED_ITEM = ("ROADMAP Queue 1 item 1 (left: prefill at tp > 1 and in fused mode, the KV "
+               "ring of the reference's _make_ring_attention)")
 
 
 # ---------------------------------------------------------------------------
@@ -236,10 +239,12 @@ def context_attention(
     gradient is the analytic ``flash_backward`` on both devices (the flash
     op's backward on a card, ``_SpanFlash`` on the CPU); bulk mode's is
     autograd through ``_span_flash``.  ``fused`` mode
-    (``ctx.fusion.resolve("kv_ag")``) raises until the multi-card world."""
+    (``ctx.fusion.resolve("kv_ag")``) and tp > 1 raise: the KV ring is
+    left for later."""
     mode = ctx.fusion.resolve("kv_ag")
-    if mode not in ("bulk", "kernel"):
-        raise NotImplementedError(f"context_attention mode={mode!r}: {_FUSED_ITEM}")
+    if mode not in ("bulk", "kernel") or ctx.tp > 1:
+        raise NotImplementedError(f"context_attention mode={mode!r} at tp={ctx.tp}: "
+                                  f"{_FUSED_ITEM}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if attention_path(mode, q.device) == "flash":
         return flash_attention(q, k, v, scale=scale, causal=causal, window=window,
@@ -278,8 +283,8 @@ def broadcast_pos(pos, B, device=None):
 
 def decode_attention(
     ctx: ParallelContext,
-    q,                  # [B, 1, Hq, hd]
-    k_cache, v_cache,   # [B, S_max, Hkv, hd]
+    q,                  # [B, 1, Hq, hd], the same on every rank
+    k_cache, v_cache,   # [B, S_local, Hkv, hd]: this rank's rows of the cache
     pos,                # [B] (or scalar) int32 per-slot position (kv written)
     *,
     window: int | None = None,
@@ -287,10 +292,11 @@ def decode_attention(
     softcap_val: float | None = None,
 ):
     """One-token GQA attention of each slot over its cache rows 0..pos[b]
-    (the last ``window`` of them when ``window`` is set).  The QK product
-    runs in the compute dtype and is then cast to f32, like the reference;
-    softmax and the PV product run in f32."""
-    B, S_max, Hkv, hd = k_cache.shape
+    (the last ``window`` of them when ``window`` is set).  Each rank attends
+    over its ``S_local`` rows and the partials merge across the ranks.  The
+    QK product runs in the compute dtype and is then cast to f32, like the
+    reference; softmax and the PV product run in f32."""
+    B, s_loc, Hkv, hd = k_cache.shape
     Hq = q.shape[2]
     g = Hq // Hkv
     scale = scale if scale is not None else hd ** -0.5
@@ -299,8 +305,10 @@ def decode_attention(
     s = torch.einsum("bqhgd,bkhd->bhgqk", q5, k_cache).float() * scale
     if softcap_val is not None:
         s = torch.tanh(s / softcap_val) * softcap_val
-    kpos = torch.arange(S_max, device=q.device)
-    valid = kpos[None, :] <= pos[:, None]              # [B, S_max] per slot
+    kpos = torch.arange(s_loc, device=q.device)
+    if ctx.tp > 1:
+        kpos = kpos + ctx.tp_rank * s_loc
+    valid = kpos[None, :] <= pos[:, None]              # [B, S_local] per slot
     if window is not None:
         valid &= pos[:, None] - kpos[None, :] < window
     s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
@@ -308,23 +316,29 @@ def decode_attention(
     pr = torch.exp(s - m[..., None])
     l = pr.sum(dim=-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", pr, v_cache.float())
-    o = o / torch.clamp_min(l, 1e-30)[..., None]      # one-rank partial merge
+    o = attention_partial_merge(ctx, o, m, l)
     return o.permute(0, 3, 1, 2, 4).reshape(B, 1, Hq, hd).to(q.dtype)
 
 
 def cache_update(ctx: ParallelContext, cache, new, pos):
-    """Write ``new`` [B, 1, *rest] into ``cache`` [B, S_max, *rest] in
-    place, row ``b`` at its own position ``pos[b]``, and return ``cache``.
+    """Write ``new`` [B, 1, *rest] into this rank's rows of a
+    sequence-sharded cache [B, S_local, *rest] in place, row ``b`` at its
+    own position ``pos[b]``, and return ``cache``.
 
-    A position at or past ``S_max`` is dropped (the engine retires a slot
-    before it reaches the bound, so a write past the end must not rewrite
-    the last row).  The dropped row rewrites the last row with its own
-    value, so the update needs no host synchronisation."""
-    B, S_max = cache.shape[:2]
+    Only the rank owning the position writes (``pos - d * S_local`` inside
+    ``[0, S_local)``); a position at or past ``S_max`` is dropped (the
+    engine retires a slot before it reaches the bound, so a write past the
+    end must not rewrite the last row).  A dropped row rewrites a row with
+    its own value, so the update needs no host synchronisation."""
+    B, s_loc = cache.shape[:2]
     pos = broadcast_pos(pos, B, cache.device).long()
-    rows = pos.clamp(max=S_max - 1)
+    local = pos - ctx.tp_rank * s_loc if ctx.tp > 1 else pos
+    keep = local < s_loc
+    if ctx.tp > 1:
+        keep &= local >= 0
+    rows = local.clamp(0, s_loc - 1)
     b = torch.arange(B, device=cache.device)
-    keep = (pos < S_max).reshape((B,) + (1,) * (cache.dim() - 2))
+    keep = keep.reshape((B,) + (1,) * (cache.dim() - 2))
     cache[b, rows] = torch.where(keep, new[:, 0].to(cache.dtype), cache[b, rows])
     return cache
 

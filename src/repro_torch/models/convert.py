@@ -4,6 +4,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import shard_params
 from repro_torch.train.optimizer import tree_leaves
 
 
@@ -29,7 +30,7 @@ def _first_leaf(tree):
     return tree
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device="cpu", ctx=None):
     """JAX transformer params as nested dicts of numpy arrays (``split_params``
     values through ``np.asarray``) -> the port's parameters.
 
@@ -40,16 +41,21 @@ def params_from_numpy(tree, device="cpu"):
     across as it is, the MoE FFN's too: ``router`` f32 [D, E], ``w_gate`` and
     ``w_up`` [E, D, F], ``w_down`` [E, F, D].  Any tree with the parameters'
     layout converts the same way, with more structure below a parameter's
-    place (Adafactor's ``{"vr", "vc"}``)."""
+    place (Adafactor's ``{"vr", "vc"}``).
+
+    With a ``ctx`` at tp > 1 each leaf is sliced to this rank's shard by the
+    reference's logical spec (``transformer.PARAM_SPECS``: ``w_qkv`` and
+    ``w_o`` whole, ``w_gate`` and ``w_up`` by columns, ``w_down`` by rows,
+    the embedding table by vocabulary rows)."""
     if "prefix" in tree:
         raise NotImplementedError("dense-prefix layers: ROADMAP Queue 1 item 5")
 
     stacked = tree["layers"]
     period = len(stacked)
     groups = len(np.asarray(_first_leaf(stacked["l0"])))
-    layers = [_conv(stacked[f"l{j}"], device, g) for g in range(groups)
+    layers = [shard_params(_conv(stacked[f"l{j}"], device, g), ctx) for g in range(groups)
               for j in range(period)]
-    return {"embed": _conv(tree["embed"], device),
+    return {"embed": shard_params(_conv(tree["embed"], device), ctx),
             "final_norm": _conv(tree["final_norm"], device), "layers": layers}
 
 

@@ -31,8 +31,8 @@ from repro_torch.models.common import dense_init
 from repro_torch.parallel.sharding import ParallelContext
 
 _MOE_ITEM = "ROADMAP Queue 1 item 5 (MoE)"
-_FUSED_ITEM = ("ROADMAP Queue 1 item 1 (the multi-card tp world: "
-               "core/collectives.py and fused mode)")
+_FUSED_ITEM = ("ROADMAP Queue 1 item 1 (left: fused mode of the MoE All-to-Alls) and "
+               "item 5 (the experts over several ranks)")
 _AUTOTUNE_ITEM = "ROADMAP Queue 1 item 3 (autotune/degrade)"
 
 

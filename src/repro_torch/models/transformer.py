@@ -7,7 +7,14 @@ training forward (``train_forward``: the loss, differentiated by autograd)
 and the prefill of the dense ones, and a Python loop over the layers; a
 config that needs the rest raises until its slice lands.  Decode keeps the reference's
 layouts: a per-layer cache slice is [B, S_max, Hkv, hd], ``pos`` a [B] int32
-vector, logits [B, 1, V] in f32.  The prefill returns last-position logits
+vector, logits [B, 1, V] in f32.
+
+Decode runs at any tp (SPMD, one process a rank): each rank holds the
+parameters' shards of ``PARAM_SPECS`` (``w_qkv`` and ``w_o`` whole, as GSPMD
+runs them in the reference), its ``S_max / tp`` rows of the cache, and
+computes its vocabulary slice of the logits, which are then gathered so
+every rank takes the same greedy tokens.  Prefill, training and paged
+serving run at tp = 1.  The prefill returns last-position logits
 [B, 1, V] in f32 and the cache {"k", "v"}, each [L, B, S, Hkv, hd] (k after
 RoPE): the decode layout with the prompt's length S.
 
@@ -24,6 +31,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.collectives import all_gather
 from repro_torch.core.loss import sharded_cross_entropy
 from repro_torch.models.attention import (broadcast_pos, cache_update, context_attention,
                                           decode_attention, paged_attention,
@@ -33,7 +41,19 @@ from repro_torch.models.layers import (embedding_init, embedding_lookup, mlp_app
                                        mlp_init, rms_norm, rms_norm_init)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rope import apply_rope, apply_rope_2d
-from repro_torch.parallel.sharding import ParallelContext
+from repro_torch.parallel.sharding import ParallelContext, shard_leaf
+
+# The reference's logical specs of the dense transformer's parameters
+# (src/repro/models/transformer.py:107-108, layers.py:47-49 and :99), by leaf
+# name; a leaf not named (the norms) is whole on every rank.
+PARAM_SPECS = {"w_qkv": ("fsdp", None), "w_o": (None, "fsdp"),
+               "w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"), "w_down": ("tp", "fsdp"),
+               "table": ("tp", "fsdp")}
+_MULTI_RANK_ITEMS = {
+    "moe": "MoE over experts on several ranks is ROADMAP Queue 1 item 5",
+    "paged": ("paged serving at tp > 1 is ROADMAP Queue 1 item 1 (left: pool_logical_specs "
+              "and striped blocks)"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,10 +110,16 @@ class TransformerConfig:
         return DTYPES[self.compute_dtype]
 
 
-def check_supported(cfg: TransformerConfig):
+def check_supported(cfg: TransformerConfig, tp: int = 1):
     """Raise for the parts of the reference decoder this slice has not
-    ported, so that no config field is silently ignored."""
+    ported, so that no config field is silently ignored; at tp > 1 also
+    for a MoE config, and for widths tp does not divide."""
     missing = []
+    if tp > 1 and cfg.moe is not None:
+        missing.append(f"tp={tp}: {_MULTI_RANK_ITEMS['moe']}")
+    for name in ("vocab", "d_ff", "max_seq"):
+        if getattr(cfg, name) % tp:
+            raise ValueError(f"{cfg.name}: tp={tp} does not divide {name}={getattr(cfg, name)}")
     if cfg.moe is not None and cfg.moe.n_shared_experts:
         missing.append("moe shared experts (ROADMAP Queue 1 item 5)")
     if cfg.attn_type != "gqa" or cfg.mla is not None:
@@ -108,10 +134,15 @@ def check_supported(cfg: TransformerConfig):
         raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
 
 
-def check_prefill(cfg: TransformerConfig, what: str = "prefill"):
+def check_prefill(cfg: TransformerConfig, what: str = "prefill", tp: int = 1):
     """Raise for a config whose prefill (or training forward, which runs
-    the same sequence-sharded layers) this slice has not ported."""
+    the same sequence-sharded layers) this slice has not ported, and at tp
+    > 1 (``models/layers.check_seq_sharded``)."""
     check_supported(cfg)
+    if tp > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} at tp={tp} is ROADMAP Queue 1 item 1 (left: prefill and "
+            f"training at tp > 1, the KV ring and the CE ring)")
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE {what} is ROADMAP Queue 1 item 5 (sequence-sharded MoE: "
@@ -140,14 +171,31 @@ def _layer_init(gen, cfg: TransformerConfig):
     return p
 
 
-def transformer_init(gen: torch.Generator, cfg: TransformerConfig):
+def shard_params(tree, ctx: ParallelContext | None):
+    """A parameter tree (or a part of one) sliced to this rank's shards by
+    ``PARAM_SPECS``; the tree itself at tp = 1."""
+    if ctx is None or ctx.tp == 1:
+        return tree
+    return {k: shard_params(v, ctx) if isinstance(v, dict) else
+            shard_leaf(v, PARAM_SPECS.get(k, (None,) * v.dim()), ctx)
+            for k, v in tree.items()}
+
+
+def transformer_init(gen: torch.Generator, cfg: TransformerConfig,
+                     ctx: ParallelContext | None = None):
     """Random parameters on ``gen``'s device: {"embed": {"table"},
-    "final_norm", "layers": [per-layer dict, ...]}."""
-    check_supported(cfg)
+    "final_norm", "layers": [per-layer dict, ...]}.
+
+    With a ``ctx`` at tp > 1 each part is drawn whole, in the order tp = 1
+    draws it, and only this rank's shard kept (``shard_params``), so the
+    world's weights are exactly the tp = 1 weights; a rank's peak is its
+    shards and one layer drawn whole."""
+    tp = 1 if ctx is None else ctx.tp
+    check_supported(cfg, tp)
     return {
-        "embed": embedding_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype),
+        "embed": shard_params(embedding_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype), ctx),
         "final_norm": rms_norm_init(cfg.d_model, gen.device, zero=cfg.norm_plus_one),
-        "layers": [_layer_init(gen, cfg) for _ in range(cfg.n_layers)],
+        "layers": [shard_params(_layer_init(gen, cfg), ctx) for _ in range(cfg.n_layers)],
     }
 
 
@@ -203,11 +251,11 @@ def _group_train(ctx, cfg, layers, x, positions, first):
 
 def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
     """batch: {"tokens" [B, S], "labels" [B, S]} -> the scalar mean token
-    cross-entropy, for autograd.  With ``cfg.remat`` each group of layers
+    cross-entropy, for autograd (at tp = 1).  With ``cfg.remat`` each group of layers
     (``local_global_period`` layers, else one) runs under
     ``torch.utils.checkpoint``: only its input is kept, and backward runs
     its forward again, as the reference's ``jax.checkpoint`` does."""
-    check_prefill(cfg, "training")
+    check_prefill(cfg, "training", ctx.tp)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = _embed_inputs(ctx, params, cfg, batch)
@@ -233,8 +281,8 @@ def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
 def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
     """Inference prefill: forward over the prompt {"tokens": [B, S]},
     returning last-position logits [B, 1, V] f32 and the cache {"k", "v"},
-    each [L, B, S, Hkv, hd] at the compute dtype."""
-    check_prefill(cfg)
+    each [L, B, S, Hkv, hd] at the compute dtype (at tp = 1)."""
+    check_prefill(cfg, tp=ctx.tp)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = _embed_inputs(ctx, params, cfg, batch)
@@ -253,10 +301,11 @@ def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch)
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
-def init_cache(cfg: TransformerConfig, batch_size: int, device):
-    """Zeroed decode caches {"k", "v"}: [L, B, S_max, Hkv, hd] each."""
-    check_supported(cfg)
-    shape = (cfg.n_layers, batch_size, cfg.max_seq, cfg.n_kv_heads, cfg.hd)
+def init_cache(cfg: TransformerConfig, batch_size: int, device, tp: int = 1):
+    """Zeroed decode caches {"k", "v"}: [L, B, S_max / tp, Hkv, hd] each, a
+    rank's rows of the sequence-sharded cache."""
+    check_supported(cfg, tp)
+    shape = (cfg.n_layers, batch_size, cfg.max_seq // tp, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
 
@@ -306,8 +355,9 @@ def decode_step(ctx: ParallelContext, params, cfg: TransformerConfig,
                 tokens, cache, pos):
     """One decode step.  tokens: [B, 1]; pos: [B] int32 (0-based position
     of each slot's new token; a scalar broadcasts).  Returns
-    (logits [B, 1, V] f32, cache); the cache is updated in place."""
-    check_supported(cfg)
+    (logits [B, 1, V] f32, the same on every rank, and cache); the cache is
+    updated in place."""
+    check_supported(cfg, ctx.tp)
     B = tokens.shape[0]
     pos = broadcast_pos(pos, B, tokens.device)
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
@@ -317,11 +367,12 @@ def decode_step(ctx: ParallelContext, params, cfg: TransformerConfig,
         x = _layer_decode(ctx, cfg, lp, x, cache["k"][i], cache["v"][i], pos,
                           cfg.layer_window(i))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    return _lm_logits(params, cfg, x), cache
+    return all_gather(ctx, _lm_logits(params, cfg, x), axis=-1), cache
 
 
 def _lm_logits(params, cfg, x):
-    """Decode-time logits [B, 1, V] in f32, tied to the embedding table."""
+    """Decode-time logits [B, 1, V_local] in f32, tied to the embedding table
+    (this rank's vocabulary rows; all of them at tp = 1)."""
     table = params["embed"]["table"]
     logits = torch.einsum("bsd,vd->bsv", x.to(cfg.cdtype),
                           table.to(cfg.cdtype)).float()
@@ -352,9 +403,7 @@ def init_paged_pool(cfg: TransformerConfig, num_blocks: int, block_size: int, de
 
 def pool_logical_specs(cfg: TransformerConfig, pool):
     """Logical sharding specs of a paged pool: its blocks shard over tp."""
-    raise NotImplementedError(
-        "pool_logical_specs: the pool's blocks shard over tp, ROADMAP Queue 1 item 1 "
-        "(the multi-card tp world)")
+    raise NotImplementedError(f"pool_logical_specs: {_MULTI_RANK_ITEMS['paged']}")
 
 
 def _attn_serve(ctx, cfg: TransformerConfig, lp, x, k_pool, v_pool, tables, positions,
@@ -404,8 +453,10 @@ def serve_step(ctx: ParallelContext, params, cfg: TransformerConfig,
     logits come from its last valid token (``n_new - 1``, clipped; an idle
     slot's row is discarded by the caller).  Returns (logits [B, V] f32,
     pool); the pool is updated in place.  Nothing here synchronises with
-    the host, given tensors on one device."""
+    the host, given tensors on one device.  At tp = 1 only."""
     check_supported(cfg)
+    if ctx.tp > 1:
+        raise NotImplementedError(f"serve_step at tp={ctx.tp}: {_MULTI_RANK_ITEMS['paged']}")
     B, C = tokens.shape
     dev = tokens.device
     pos = broadcast_pos(pos, B, dev)

@@ -1,15 +1,28 @@
 """Fusion settings and the parallel context threaded through the model code.
 
-This slice of the port runs on one card: tensor- and data-parallel sizes
-are both 1.  A multi-card ``torch.distributed`` world comes with ROADMAP
-Queue 1 item 1 (the multi-card tp world: ``core/collectives.py``, ``fused``
-mode and symmetric-memory peer pointers for the same kernel).
+The model code is SPMD: every rank of a tensor-parallel (tp) world runs it
+on its own shard, and the collectives of ``core/collectives.py`` run over
+the tp process group the context holds.  Where the JAX package states a
+parameter's layout as a logical spec (``("fsdp", "tp")`` and the like) and
+lets GSPMD place it, the port slices the whole tensor to this rank's part
+with :func:`shard_leaf`.  Data parallelism (``dp > 1``, with the reference's
+``fsdp`` weight sharding) is not ported: ROADMAP Queue 1 item 1 (left).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
+import torch.distributed as dist
+
+# logical axes the reference's ``_resolve`` maps onto the tp axis
+# (src/repro/parallel/sharding.py:171-183); ``None``, "none", "batch" and
+# "fsdp" map onto the data axes, which are one rank wide while dp = 1
+_TP_AXES = ("tp", "model", "vocab", "seq", "heads", "expert")
+_WHOLE_AXES = (None, "none", "batch", "fsdp")
+_DP_ITEM = ("ROADMAP Queue 1 item 1 (left: data parallel, dp > 1, with the reference's "
+            "fsdp weight sharding)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +83,10 @@ class FusionConfig:
       granularity choice — a slow DCN axis picks a narrow wire, a fast
       ICI axis whose wire hides behind compute keeps f32.
 
-    In this port so far only ``"bulk"`` and ``"kernel"`` run.
+    In this port ``"bulk"`` and ``"fused"`` run at any tp, ``"kernel"`` at
+    tp = 1 (the real-peer kernels wait for a multi-card host); ``"auto"``
+    and the ``"auto"`` granularity and wire wait for the autotuner (ROADMAP
+    Queue 1 item 3).
     """
 
     mode: str = "fused"
@@ -95,26 +111,74 @@ class FusionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
-    """Device + fusion settings threaded through the model code.
+    """Device, fusion settings and the tp world threaded through the model code.
 
     ``device`` defaults to ``"cuda"`` and a CUDA device that is not there
     raises: nothing falls back to the CPU unless the caller asks for it.
-    ``tp`` and ``dp`` are the world's tensor- and data-parallel sizes; only
-    1 runs in this slice."""
+    ``tp`` is the tensor-parallel world's size.  At tp > 1 ``group`` is its
+    process group (``None``: the default world, which must then be exactly
+    tp ranks wide), started beforehand (``launch.mesh.init_world``); the
+    context reads this rank's place in it (``tp_rank``) and the world's
+    backend (``"gloo"`` or ``"nccl"``).  ``dp`` must be 1."""
 
     device: torch.device | str = "cuda"
     fusion: FusionConfig = dataclasses.field(default_factory=FusionConfig)
     tp: int = 1
     dp: int = 1
+    group: Any = None
+    tp_rank: int = dataclasses.field(init=False, default=0)
+    backend: str | None = dataclasses.field(init=False, default=None)
 
     def __post_init__(self):
         dev = torch.device(self.device)
         object.__setattr__(self, "device", dev)
-        if self.tp != 1 or self.dp != 1:
-            raise NotImplementedError(
-                f"tp={self.tp}, dp={self.dp}: multi-card worlds are ROADMAP "
-                f"Queue 1 item 1 (the multi-card tp world); this slice runs "
-                f"on one card")
+        if self.dp != 1:
+            raise NotImplementedError(f"dp={self.dp}: {_DP_ITEM}")
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {self.tp}")
+        if self.tp > 1:
+            if not (dist.is_available() and dist.is_initialized()):
+                raise RuntimeError(
+                    f"tp={self.tp} needs a torch.distributed world of {self.tp} ranks: "
+                    f"start one with repro_torch.launch.mesh.init_world")
+            group = self.group if self.group is not None else dist.group.WORLD
+            size = dist.get_world_size(group)
+            if size != self.tp:
+                raise ValueError(f"tp={self.tp} but the process group has {size} ranks")
+            object.__setattr__(self, "tp_rank", dist.get_rank(group))
+            object.__setattr__(self, "backend", str(dist.get_backend(group)))
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is "
                                "available (pass device='cpu' to run on the CPU)")
+
+    def peer(self, tp_rank: int) -> int:
+        """The global rank of tp rank ``tp_rank`` (what point-to-point calls take)."""
+        if self.group is None:
+            return tp_rank
+        return dist.get_global_rank(self.group, tp_rank)
+
+    def with_fusion(self, fusion: FusionConfig) -> "ParallelContext":
+        return dataclasses.replace(self, fusion=fusion)
+
+
+def shard_leaf(x: torch.Tensor, spec, ctx: ParallelContext) -> torch.Tensor:
+    """This rank's part of the whole tensor ``x`` under the reference's
+    logical ``spec`` (one entry per dim): a dim named ``"tp"``, ``"vocab"``,
+    ``"seq"`` or ``"heads"`` is split into ``ctx.tp`` equal blocks and block
+    ``ctx.tp_rank`` kept; ``None`` and ``"fsdp"`` keep the dim whole (at dp
+    = 1).  The SPMD counterpart of the reference's
+    ``param_sharding_rules``.  At tp = 1, or when no dim splits, ``x``
+    itself is returned; otherwise a compact copy, so the whole can be freed."""
+    if len(spec) != x.dim():
+        raise ValueError(f"spec {spec} for a tensor of shape {tuple(x.shape)}")
+    split = [i for i, ax in enumerate(spec) if ax in _TP_AXES]
+    unknown = [ax for ax in spec if ax not in _TP_AXES and ax not in _WHOLE_AXES]
+    if unknown or len(split) > 1:
+        raise ValueError(f"logical spec {spec}: one tp axis at most, of {_TP_AXES}")
+    if not split or ctx.tp == 1:
+        return x
+    dim = split[0]
+    if x.shape[dim] % ctx.tp:
+        raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not split over tp={ctx.tp}")
+    size = x.shape[dim] // ctx.tp
+    return x.narrow(dim, ctx.tp_rank * size, size).clone()

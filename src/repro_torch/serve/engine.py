@@ -26,6 +26,11 @@ Two backends:
     exhaustion defers admission or preempts a request back to the queue
     instead of corrupting a neighbour.
 
+Over a tp world every rank runs the same engine on the same requests: the
+step function's logits are gathered over the vocabulary on every rank, so
+every rank's greedy tokens, slots and positions agree
+(``launch/serve.py`` checks the streams and prints from rank 0 only).
+
 Elastic serving: ``reshard`` swaps the step function and the cache (or
 pool) mid-flight.  In-flight requests go back to the queue front with their
 generated tokens; on re-admission the engine replays prompt + generated

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.models.common import DTYPES
 
-_SPECS_ITEM = "ROADMAP Queue 1 item 1 (the multi-card tp world: sharded optimizer state)"
+_SPECS_ITEM = "ROADMAP Queue 1 item 1 (left: training at tp > 1, sharded optimizer state)"
 
 
 @dataclasses.dataclass(frozen=True)

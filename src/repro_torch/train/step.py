@@ -18,7 +18,7 @@ from repro_torch.train.grad_compression import (CompressionConfig, compress_deco
 from repro_torch.train.optimizer import (OptimizerConfig, clip_by_global_norm, make_optimizer,
                                          tree_leaves, tree_map)
 
-_SPECS_ITEM = "ROADMAP Queue 1 item 1 (the multi-card tp world: sharded train state)"
+_SPECS_ITEM = "ROADMAP Queue 1 item 1 (left: training at tp > 1, sharded train state)"
 
 
 @dataclasses.dataclass(frozen=True)

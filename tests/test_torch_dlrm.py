@@ -199,8 +199,8 @@ def test_direct_all_to_all_compute_on_one_card():
         y.data_ptr()                                # q = 1: no copy
     with pytest.raises(ValueError, match="feasible_chunks_per_rank"):
         direct_all_to_all_compute(CPU["kernel"], produce, (6, 3), chunks_per_rank=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        direct_all_to_all_compute(types.SimpleNamespace(tp=2, dp=1), produce, (6, 3))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):   # dp > 1: not ported
+        direct_all_to_all_compute(types.SimpleNamespace(tp=1, dp=2), produce, (6, 3))
 
 
 @pytest.mark.parametrize("mode", ["kernel", "bulk"])
@@ -249,9 +249,10 @@ def test_bulk_pooling_is_one_library_call(rng, monkeypatch):
                                   "zero_granularity", "tp2"])
 def test_unported_embedding_paths_raise(rng, what):
     tabs, idx = (t(a) for a in _tables_idx(rng, 2, 8, 4, 4, 2))
-    if what == "tp2":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            ParallelContext(device="cpu", tp=2)
+    if what == "tp2":       # tables over several ranks are item 6
+        two = types.SimpleNamespace(tp=2, dp=1, fusion=FusionConfig(mode="kernel"))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1.*item 6"):
+            emb_a2a.embedding_all_to_all(two, idx, tabs)
         return
     err, kw, match = {
         "fused": (NotImplementedError, dict(mode="fused"), "Queue 1 item 1"),

@@ -60,8 +60,18 @@ def test_allgather_matmul_and_reducescatter_match_jax(ctx, rng, jax_mode):
 
 @pytest.mark.parametrize("op", [allgather_matmul, matmul_reducescatter])
 def test_sequence_parallel_products_refuse_fused_mode(op):
+    """Fused mode runs at op level (at tp = 1 the ring has no hops and gives
+    the product) but refuses the autotuner's 'auto' granularity; the
+    sequence-sharded layers refuse fused mode (the KV and CE rings are
+    left for later)."""
+    x, w = torch.randn(1, 4, 8), torch.randn(8, 8)
+    torch.testing.assert_close(op(ParallelContext(device="cpu"), x, w), x @ w)
+    auto = ParallelContext(device="cpu", fusion=FusionConfig(granularity="auto"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        op(auto, x, w)
+    p = {"w_gate": w, "w_up": w, "w_down": w}
     with pytest.raises(NotImplementedError, match="Queue 1 items 1 and 4"):
-        op(ParallelContext(device="cpu"), torch.zeros(1, 4, 8), torch.zeros(8, 8))
+        layers.mlp_apply(ParallelContext(device="cpu"), p, x, seq_sharded=True)
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu"])

@@ -1,0 +1,343 @@
+"""A gloo world of spawned CPU processes for the port's tensor-parallel tests.
+
+Not collected (no ``test_`` prefix).  It imports neither ``jax`` nor
+``repro``: ``torch.multiprocessing``'s spawn imports the module that defines
+the worker again in every rank, which must stay free of JAX.
+
+One world of ``WORLD = 4`` ranks serves a test module.  A tp = 4 task runs
+over all four ranks; a tp = 2 task over the pairs (0, 1) and (2, 3), each
+pair on the same inputs.  A task is a function of ``TASKS``, called on every
+rank as ``fn(ctx_factory, **inputs)`` with numpy inputs; ``World.run``
+returns each rank's result in rank order and fails after a timeout, tearing
+the world down (the next task starts a new one), so that a hang fails one
+test and not the whole run.
+"""
+from __future__ import annotations
+
+import queue
+import traceback
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+WORLD = 4
+TIMEOUT_S = 120
+TASKS = {}
+
+
+def task(fn):
+    TASKS[fn.__name__] = fn
+    return fn
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _rank_main(rank, init_method, inbox, outbox):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    torch.set_num_threads(1)
+    init_world(WORLD, "gloo", "cpu", rank=rank, init_method=init_method)
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    groups = {WORLD: None, 2: pairs[rank // 2]}
+    outbox.put((rank, "ready", None))
+    while True:
+        item = inbox.get()
+        if item is None:
+            break
+        name, tp, kwargs = item
+
+        def ctx(mode="fused", **fusion):
+            return ParallelContext(device="cpu", tp=tp, group=groups[tp],
+                                   fusion=FusionConfig(mode=mode, **fusion))
+        try:
+            outbox.put((rank, "ok", TASKS[name](ctx, **kwargs)))
+        except Exception:        # the test shows the rank's traceback
+            outbox.put((rank, "err", traceback.format_exc()))
+    dist.destroy_process_group()
+
+
+class World:
+    """Spawns the world on first use; ``close`` ends every rank."""
+
+    def __init__(self, rdv_dir):
+        self.rdv_dir = rdv_dir
+        self.procs = None
+        self.gen = 0
+
+    def _start(self):
+        spawn = mp.get_context("spawn")
+        self.gen += 1
+        init = f"file://{self.rdv_dir}/rdv{self.gen}"
+        self.inboxes = [spawn.Queue() for _ in range(WORLD)]
+        self.outbox = spawn.Queue()
+        self.procs = [spawn.Process(target=_rank_main, daemon=True,
+                                    args=(r, init, self.inboxes[r], self.outbox))
+                      for r in range(WORLD)]
+        for p in self.procs:
+            p.start()
+        self._collect("ready")
+
+    def _collect(self, what):
+        got = {}
+        while len(got) < WORLD:
+            try:
+                rank, status, value = self.outbox.get(timeout=TIMEOUT_S)
+            except queue.Empty:
+                self.close()
+                raise TimeoutError(f"the world did not answer {what} within {TIMEOUT_S} s")
+            if status == "err":
+                self.close()
+                raise RuntimeError(f"{what} failed on rank {rank}:\n{value}")
+            got[rank] = value
+        return [got[r] for r in range(WORLD)]
+
+    def run(self, name: str, tp: int, **inputs) -> list:
+        """``TASKS[name]`` on every rank at ``tp``; each rank's result."""
+        if tp not in (2, WORLD):
+            raise ValueError(f"tp must be 2 or {WORLD}")
+        if self.procs is None:
+            self._start()
+        for box in self.inboxes:
+            box.put((name, tp, inputs))
+        return self._collect(name)
+
+    def close(self):
+        if self.procs is None:
+            return
+        for box, p in zip(self.inboxes, self.procs):
+            if p.is_alive():
+                box.put(None)
+        for p in self.procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        self.procs = None
+
+
+# ---------------------------------------------------------------------------
+# tasks: every rank runs one on its shard of the inputs (rank d of a tp
+# world takes block d, as the reference's shard_map hands it out)
+# ---------------------------------------------------------------------------
+def _block(a, c, axis):
+    """Rank ``c.tp_rank``'s block of ``a`` split into ``c.tp`` along ``axis``."""
+    n = a.shape[axis] // c.tp
+    return t(np.take(a, np.arange(c.tp_rank * n, (c.tp_rank + 1) * n), axis=axis))
+
+
+@task
+def ring_permute_task(ctx, x, shift, payload="tensor"):
+    from repro_torch.core import collectives as col
+
+    c = ctx()
+    xl = t(x[c.tp_rank])
+    if payload == "fp8":       # a (values, scale) pair permutes leaf by leaf
+        got = col.ring_permute(c, col.wire_cast(xl, "fp8"), shift)
+        return col.wire_uncast(got, torch.float32).numpy()
+    return col.ring_permute(c, xl, shift).numpy()
+
+
+@task
+def wire_fault_task(ctx, x):
+    """ring_permute with a hook that doubles every payload leaf on the wire."""
+    from repro_torch.core import collectives as col
+
+    c = ctx()
+    prev = col.set_wire_fault_hook(lambda leaf: leaf * 2)
+    try:
+        return col.ring_permute(c, t(x[c.tp_rank])).numpy()
+    finally:
+        col.set_wire_fault_hook(prev)
+
+
+@task
+def all_gather_wire_task(ctx, x, wire, axis):
+    from repro_torch.core.collectives import all_gather_wire
+
+    c = ctx()
+    return all_gather_wire(c, t(x[c.tp_rank]), axis=axis, wire=wire).numpy()
+
+
+@task
+def ring_rs_task(ctx, x, schedule, q, wire, skews=(0, 1), dtype="float32"):
+    """ring_reduce_scatter_compute over this rank's partials x[d][f]."""
+    from repro_torch.core.collectives import ring_reduce_scatter_compute
+
+    c = ctx()
+    xl = t(x[c.tp_rank]).to(getattr(torch, dtype))
+    return [ring_reduce_scatter_compute(c, lambda f: xl[f], schedule=schedule,
+                                        chunks_per_rank=q, sub_axis=0, skew=s,
+                                        wire=wire).float().numpy() for s in skews]
+
+
+@task
+def ring_ag_task(ctx, x, wire):
+    from repro_torch.core.collectives import ring_all_gather_compute
+
+    c = ctx()
+    xl = t(x[c.tp_rank])
+
+    def place(src, xs, acc):
+        acc = acc.clone()
+        acc[src] = xs
+        return acc
+    return ring_all_gather_compute(c, xl, place, out_init=torch.zeros((c.tp,) + xl.shape),
+                                   wire=wire).numpy()
+
+
+@task
+def direct_a2a_task(ctx, x, schedule, q, wire, skews=(0, 1)):
+    """direct_all_to_all_compute of this rank's fine chunks x[d][f]."""
+    from repro_torch.core.collectives import direct_all_to_all_compute
+
+    c = ctx()
+    xl = t(x[c.tp_rank])
+    shape = (q * xl.shape[1],) + tuple(xl.shape[2:])
+    return [direct_all_to_all_compute(c, lambda f: xl[f], shape, schedule=schedule,
+                                      chunks_per_rank=q, sub_axis=0, skew=s,
+                                      wire=wire).numpy() for s in skews]
+
+
+@task
+def bulk_a2a_task(ctx, x):
+    from repro_torch.core.collectives import bulk_all_to_all
+
+    c = ctx()
+    return bulk_all_to_all(c, t(x[c.tp_rank])).numpy()
+
+
+@task
+def merge_task(ctx, o, m, l):
+    from repro_torch.core.collectives import attention_partial_merge
+
+    c = ctx()
+    d = c.tp_rank
+    return attention_partial_merge(c, t(o[d]), t(m[d]), t(l[d])).numpy()
+
+
+@task
+def matmul_allreduce_task(ctx, x, w, mode, q=1, wire="f32", schedule="comm_aware", skew=0):
+    """x [..., K] and w [K, N] whole; this rank takes its K slice."""
+    from repro_torch.core.matmul_allreduce import matmul_allreduce
+
+    c = ctx(mode, granularity=q, wire=wire, schedule=schedule, skew=skew)
+    return matmul_allreduce(c, _block(x, c, x.ndim - 1), _block(w, c, 0)).numpy()
+
+
+@task
+def sp_products_task(ctx, x, w, mode, q=1):
+    """allgather_matmul of this rank's sequence chunk and w columns, and
+    matmul_reducescatter of its K slice and w rows (x [B, S, K], w [K, K])."""
+    from repro_torch.core.allgather_matmul import (allgather_matmul, allgather_seq,
+                                                   matmul_reducescatter)
+
+    c = ctx(mode, granularity=q)
+    ag = allgather_matmul(c, _block(x, c, 1), _block(w, c, 1))
+    rs = matmul_reducescatter(c, _block(x, c, 2), _block(w, c, 0))
+    return ag.numpy(), rs.numpy(), allgather_seq(c, _block(x, c, 1)).numpy()
+
+
+def _shard_tree(tree, c):
+    from repro_torch.models.transformer import shard_params
+
+    as_t = lambda v: {k: as_t(u) for k, u in v.items()} if isinstance(v, dict) else t(v)
+    return shard_params(as_t(tree), c)
+
+
+@task
+def mlp_decode_task(ctx, params, x, mode, act="silu"):
+    from repro_torch.models.layers import mlp_apply
+
+    c = ctx(mode)
+    return mlp_apply(c, _shard_tree(params, c), t(x), act=act, seq_sharded=False).numpy()
+
+
+@task
+def embedding_task(ctx, table, tokens, scale=None):
+    from repro_torch.models.layers import embedding_lookup
+
+    c = ctx()
+    p = _shard_tree({"table": table}, c)
+    return embedding_lookup(c, p, t(tokens), seq_shard=False, scale=scale).numpy()
+
+
+@task
+def cache_update_task(ctx, cache, new, pos):
+    from repro_torch.models.attention import cache_update
+
+    c = ctx()
+    local = _block(cache, c, 1)
+    return cache_update(c, local, t(new), t(pos)).numpy()
+
+
+@task
+def decode_attention_task(ctx, q, k, v, pos, window=None, softcap=None):
+    from repro_torch.models.attention import decode_attention
+
+    c = ctx()
+    return decode_attention(c, t(q), _block(k, c, 1), _block(v, c, 1), t(pos),
+                            window=window, softcap_val=softcap).numpy()
+
+
+@task
+def decode_steps_task(ctx, tree, mode, tokens, positions, q=1, wire="f32"):
+    """The reduced chatglm3-6b from the JAX package's weights (numpy), its
+    decode steps on the given tokens; each step's logits and the cache."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.convert import params_from_numpy
+
+    c = ctx(mode, granularity=q, wire=wire)
+    bundle = get_arch("chatglm3-6b").reduced()
+    params = params_from_numpy(tree, "cpu", c)
+    dec = bundle.decode_fn(c)
+    cache = bundle.init_cache(tokens.shape[1], "cpu", c.tp)
+    logits = []
+    for tok, pos in zip(tokens, positions):
+        lg, cache = dec(params, t(tok), cache, t(pos))
+        logits.append(lg.numpy())
+    return np.stack(logits), cache["k"].numpy(), cache["v"].numpy()
+
+
+@task
+def init_params_task(ctx):
+    """This rank's shards of the reduced chatglm3-6b's seeded weights."""
+    from repro_torch.configs.registry import get_arch
+
+    c = ctx()
+    p = get_arch("chatglm3-6b").reduced().init_params(torch.Generator().manual_seed(0), c)
+    lp = p["layers"][-1]
+    return {"table": p["embed"]["table"].numpy(), "w_qkv": lp["attn"]["w_qkv"].numpy(),
+            "w_gate": lp["ffn"]["w_gate"].numpy(), "w_down": lp["ffn"]["w_down"].numpy(),
+            "ln2": lp["ln2"].numpy()}
+
+
+@task
+def refusal_task(ctx, what):
+    """The message a path that does not run at tp > 1 raises with."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.matmul_allreduce import matmul_allreduce
+
+    try:
+        if what == "kernel":
+            matmul_allreduce(ctx("kernel"), torch.ones(4, 8), torch.ones(8, 4))
+        elif what == "auto":
+            matmul_allreduce(ctx(granularity="auto"), torch.ones(4, 8), torch.ones(8, 4))
+        elif what == "moe":
+            get_arch("dbrx-132b").reduced().init_params(torch.Generator(), ctx())
+        elif what == "prefill":
+            b = get_arch("chatglm3-6b").reduced()
+            b.prefill_fn(ctx("bulk"))
+        elif what == "rwkv6":
+            get_arch("rwkv6-7b").reduced().decode_fn(ctx())
+        elif what == "grad":
+            x = torch.ones(4, 8, requires_grad=True)
+            matmul_allreduce(ctx(), x, torch.ones(8, 4))
+    except NotImplementedError as e:
+        return str(e)
+    return None
