@@ -196,11 +196,29 @@ prints one line, and any failure exits non-zero:
      against torch.matmul of the whole in f32.  Every time 28-29 print is
      labelled "one card, N processes, wire staged through host": no
      NVLink number
+ 30. the overlap autotuner at tp = 1 on phase 5's seed-0 weights, kernel
+     mode: (a) launch.serve.main with --granularity auto --wire auto (the
+     H100 NVLink link class), every decision printed, 28 fused launches a
+     step, the streams phase 5's (or apart first at a near tie); (b) a
+     DegradationPolicy with the FFN down's key quarantined through
+     record_failure: phase 5's teacher-forced steps with 0 fused launches,
+     28 demotions a step, logits within LOGITS_TOL_FACTOR x bulk mode's
+     distance from exact f32; (c) released after cooldown record_healthy
+     calls: 28 launches a step again; (d) the host time of one cache-hit
+     resolve (through the memo and through the TuneKey)
+ 31. the launcher at tp = 4 (gloo, one card) with --fusion fused
+     --granularity auto --wire auto --calibrate --tune-cache: every rank's
+     model and measured decisions and candidate times equal, the cache's
+     keys under the gloo link class, the streams phase 28's (or apart first
+     at a near tie); (b) a second launch from the saved cache sweeps no new
+     key and serves the same streams with the same decisions.  Labelled
+     "one card, N processes, wire staged through host: not NVLink"
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
 before phase 25; phases 28-29 run in processes of their own, each holding
-its shards.  Phases 5, 9 and 17
+its shards; phase 30 draws the seed-0 weights again, phase 31 runs in
+processes of its own.  Phases 5, 9 and 17
 and the end print how many launch plans the plan-cached wrappers hold.
 Then one JSON line per the kernels, the card's name and power limit, and
 the result line.  Float32
@@ -786,6 +804,7 @@ def main() -> int:
     next(k_ for k_ in kernels if k_["name"] == "flash_attention").update(train_phases(card, gen))
     torch.cuda.empty_cache()
     tp_phases(card)
+    autotune_phases(card)
     say("end", f"plans cached: {plan_counts()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -3434,26 +3453,11 @@ def tp_phases(card) -> None:
     2 worlds against phase 5's exact f32 evaluation, and the FFN down product
     over the world).  Needs phase 5's run (``GLM_DECODE``)."""
     runs = {m: launcher_world_run(m) for m in ("fused", "bulk")}
-    streams5, tol = GLM_DECODE["streams"], GLM_DECODE["logits_tol"]
+    streams5 = GLM_DECODE["streams"]
     notes = []
     for mode, r in runs.items():
-        if sorted(r["streams"]) != list(range(len(streams5))):
-            raise AssertionError(f"tp={TP_WORLD} {mode}: served requests {sorted(r['streams'])}")
-        for uid, want in enumerate(streams5):
-            got = r["streams"][uid]
-            if not all(0 <= t_ < GLM_DECODE["vocab"] for t_ in got) or len(got) != len(want):
-                raise AssertionError(f"tp={TP_WORLD} {mode} req {uid}: stream {got}")
-            diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
-            if diff:
-                # the first difference must be a near tie in phase 5's kernel
-                # run (each side within logits_tol: a gap of at most twice it)
-                i = diff[0]
-                top = GLM_DECODE["kernel_logits"][GLM_DECODE["prompts"][uid] - 1 + i][uid, 0]
-                gap = (lambda v: (v[0] - v[1]).item())(top.topk(2).values)
-                notes.append(f"{mode} req {uid} token {i}: top-2 gap {gap:.3g} "
-                             f"(allowed {2 * tol:.3g})")
-                if gap > 2 * tol:
-                    raise AssertionError("token streams differ beyond a near tie: " + notes[-1])
+        notes += near_tie_notes(f"tp={TP_WORLD} {mode}", r["streams"])
+    GLM_DECODE["tp_streams"] = {m: r["streams"] for m, r in runs.items()}
     say(28, f"[{TP_LABEL.format(TP_WORLD)}] python -m torch.distributed.run --nproc-per-node {TP_WORLD} -m "
             f"repro_torch.launch.serve --tp {TP_WORLD} --backend gloo, full-width chatglm3-6b "
             f"(28 layers, seed-0 weights sliced), 4 requests x 8 tokens at batch 4: "
@@ -3514,13 +3518,41 @@ def tp_phases(card) -> None:
                 f"{res['ar host']:.3f}; the product alone {res['product']:.4f}")
 
 
-def launcher_world_run(mode) -> dict:
-    """The launcher at tp = TP_WORLD on the one card through its entry point."""
+def near_tie_notes(label, streams) -> list[str]:
+    """Checks the served ``streams`` (uid -> tokens) against phase 5's
+    kernel-mode streams: every request served, tokens in range, and a
+    first difference only at a near tie of phase 5's logits (each side
+    within logits_tol: a top-2 gap of at most twice it).  Returns a note per
+    differing request."""
+    streams5, tol = GLM_DECODE["streams"], GLM_DECODE["logits_tol"]
+    if sorted(streams) != list(range(len(streams5))):
+        raise AssertionError(f"{label}: served requests {sorted(streams)}")
+    notes = []
+    for uid, want in enumerate(streams5):
+        got = streams[uid]
+        if not all(0 <= t_ < GLM_DECODE["vocab"] for t_ in got) or len(got) != len(want):
+            raise AssertionError(f"{label} req {uid}: stream {got}")
+        diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        if diff:
+            i = diff[0]
+            top = GLM_DECODE["kernel_logits"][GLM_DECODE["prompts"][uid] - 1 + i][uid, 0]
+            gap = (lambda v: (v[0] - v[1]).item())(top.topk(2).values)
+            notes.append(f"{label} req {uid} token {i}: top-2 gap {gap:.3g} "
+                         f"(allowed {2 * tol:.3g})")
+            if gap > 2 * tol:
+                raise AssertionError("token streams differ beyond a near tie: " + notes[-1])
+    return notes
+
+
+def launcher_world_run(mode, extra=()) -> dict:
+    """The launcher at tp = TP_WORLD on the one card through its entry
+    point, with the flags ``extra`` added."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
            str(TP_WORLD), "-m", "repro_torch.launch.serve", "--tp", str(TP_WORLD), "--backend",
-           "gloo", "--fusion", mode, "--requests", "4", "--batch", "4", "--max-new", "8"]
+           "gloo", "--fusion", mode, "--requests", "4", "--batch", "4", "--max-new", "8",
+           *extra]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
@@ -3532,7 +3564,7 @@ def launcher_world_run(mode) -> dict:
     streams = {int(u): json.loads(t_) for u, t_ in
                re.findall(r"req (\d+): prompt .* -> (\[.*\])", proc.stdout)}
     return {"tok_s": float(served[1]), "steps": int(served[2]), "ms_step": float(served[3]),
-            "streams": streams, "wall": wall}
+            "streams": streams, "wall": wall, "out": proc.stdout}
 
 
 def spawn_world(tp, settings) -> dict:
@@ -3657,6 +3689,185 @@ def tp_world_rank(rank, tp, init, settings, inputs, exact, out):
         out.put((rank, "err", traceback.format_exc()))
     finally:
         close_world()
+
+
+# ---------------------------------------------------------------------------
+# phases 30-31: the overlap autotuner, calibration and graceful degradation
+# ---------------------------------------------------------------------------
+# the FFN down's degradation key at decode: x [B, 1, F] @ w [F, D]
+FFN_DOWN_KEY = ("matmul_allreduce", (MAIN_B, 1, MAIN_K, MAIN_N))
+AUTO_LABEL = "one card, {} processes, wire staged through host: not NVLink"
+RESOLVE_CALLS = 20000
+
+
+def autotune_phases(card) -> None:
+    """Phase 30 (tp = 1, kernel mode: the launcher with 'auto' granularity
+    and wire, the FFN down's key quarantined and released, a cache-hit
+    resolve's host time) and phase 31 (the launcher at tp = 4 with
+    --calibrate and a tune cache, then again from the cache).  Needs phases
+    5 and 28 (``GLM_DECODE``)."""
+    import io
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import autotune
+    from repro_torch.core.degrade import DegradationPolicy, set_degradation_policy
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_path
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    # 30 (a) ----------------------------------------------------------
+    bundle = get_arch("chatglm3-6b")
+    n_layers = bundle.config.n_layers
+    path = fused_path(torch.bfloat16, MAIN_B, MAIN_K, MAIN_N)
+    autotune.clear_cache()
+    text = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(text):
+        finished = launch_serve.main(["--fusion", "kernel", "--granularity", "auto", "--wire",
+                                      "auto", "--requests", "4", "--batch", "4",
+                                      "--max-new", "8"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    out = text.getvalue()
+    print(out, file=sys.stderr)
+    served = re.search(r"\(([\d.]+) tok/s, (\d+) steps, ([\d.]+) ms/step", out)
+    steps = int(served[2])
+    decisions = re.findall(r"decision: (.*)", out)
+    fused_n = launches["fused_matmul_allreduce"]
+    if (fused_n != n_layers * steps or launches[f"fused_matmul_allreduce.{path}"] != fused_n
+            or len(decisions) != 1):
+        raise AssertionError(f"auto launcher: {fused_n} fused launches in {steps} steps "
+                             f"({launches}), decisions {decisions}")
+    streams = {r.uid: list(r.tokens) for r in finished}
+    notes = near_tie_notes("tp=1 auto", streams)
+    same5 = [streams[u] for u in range(len(streams))] == GLM_DECODE["streams"]
+
+    # 30 (b), (c) -----------------------------------------------------
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    ctx = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel", granularity="auto",
+                                                             wire="auto"))
+    decode = bundle.decode_fn(ctx)
+    inputs, exact = GLM_DECODE["inputs"], GLM_DECODE["exact"]
+
+    def forced():
+        cache = bundle.init_cache(MAIN_B, "cuda")
+        logits = []
+        for tok, pos in inputs:
+            lg, cache = decode(params, tok.cuda(), cache, pos.cuda())
+            logits.append(lg)
+        return logits
+
+    def exact_err(logits):
+        return max((g.float() - e.cuda()).abs().max().item() for g, e in zip(logits, exact))
+
+    tol = GLM_DECODE["logits_tol"]
+    pol = DegradationPolicy()
+    prev = set_degradation_policy(pol)
+    try:
+        strikes = 0
+        while not pol.quarantined(*FFN_DOWN_KEY):
+            pol.record_failure(FFN_DOWN_KEY)
+            strikes += 1
+        jailed = pol.summary()
+        demoted, _ = counted_run(forced, {})           # no kernel launches at all
+        demotions = pol.demotions
+        err_demoted = exact_err(demoted)
+        if demotions != n_layers * len(inputs) or not err_demoted <= tol:
+            raise AssertionError(f"quarantined: {demotions} demotions in {len(inputs)} steps, "
+                                 f"logits {err_demoted:.4g} from exact f32 (bound {tol:.4g})")
+        released = [k for _ in range(pol.cfg.cooldown) for k in pol.record_healthy()]
+        if released != [FFN_DOWN_KEY] or pol.quarantined_keys():
+            raise AssertionError(f"released {released}, still jailed {pol.quarantined_keys()}")
+        back, counts = counted_run(forced, {"fused_matmul_allreduce": n_layers * len(inputs)})
+        err_back = exact_err(back)
+        if pol.demotions != demotions or not err_back <= tol:
+            raise AssertionError(f"released: {pol.demotions} demotions, logits {err_back:.4g}")
+        same_bits = all(torch.equal(a.cpu(), b) for a, b in zip(back, GLM_DECODE["kernel_logits"]))
+    finally:
+        set_degradation_policy(prev)
+    del params, demoted, back
+
+    # 30 (d) ----------------------------------------------------------
+    pick = lambda fq, wr: autotune.tune_matmul_allreduce(
+        MAIN_B, MAIN_K, MAIN_N, dtype_bytes=2, n_dev=1, chunk_dim=MAIN_B, hw=ctx.hw, wire=wr,
+        fixed_q=fq, allow_fp8=False)
+    resolve = lambda: autotune.resolve_overlap(None, "auto", None, "auto", pick, dim=MAIN_B,
+                                               ring=1)
+    keyed = lambda: autotune._choose_keyed(
+        "matmul_allreduce", shape=(MAIN_B, MAIN_K, MAIN_N), dtype_bytes=2, n_dev=1,
+        flops=2.0 * MAIN_B * MAIN_K * MAIN_N, hbm_bytes=float(MAIN_K * MAIN_N * 2),
+        wire_bytes=float(MAIN_B * MAIN_N * 2 * 2), divisor_of=MAIN_B, divisor_ring=None,
+        max_q=autotune.MAX_CHUNKS_PER_RANK, hw=ctx.hw, axis=None, skew=0, wire="auto",
+        fixed_q=None, allow_fp8=False)
+    if resolve() != keyed():
+        raise AssertionError(f"the memo's decision {resolve()} is not the cache's {keyed()}")
+    us = {}
+    for name, fn in (("resolve_overlap (memo hit)", resolve), ("TuneKey hit", keyed)):
+        t0 = time.perf_counter()
+        for _ in range(RESOLVE_CALLS):
+            fn()
+        us[name] = (time.perf_counter() - t0) / RESOLVE_CALLS * 1e6
+    say(30, f"chatglm3-6b full width, tp = 1, kernel mode: (a) launch.serve.main(--fusion kernel "
+            f"--granularity auto --wire auto), 4 requests x 8 tokens at batch 4: decisions "
+            f"{decisions} (link class H100 NVLink, provisional), {steps} steps, "
+            f"{served[3]} ms/step, fused kernel launches {fused_n} (= {n_layers} x {steps}, "
+            f"{path} path); streams = phase 5's kernel-mode streams: {same5}"
+            + (f" ({'; '.join(notes)})" if notes else "")
+            + f"; (b) {FFN_DOWN_KEY} quarantined after {strikes} record_failure calls "
+            f"({jailed['quarantined']}), phase 5's {len(inputs)} teacher-forced steps: fused "
+            f"kernel launches 0, demotions {demotions} (= {n_layers} x {len(inputs)}), logits "
+            f"{err_demoted:.4g} from exact f32 (bound {tol:.4g}, bulk mode's {GLM_DECODE['err_bx']:.4g}); "
+            f"(c) released after {pol.cfg.cooldown} record_healthy calls: launches "
+            f"{counts['fused_matmul_allreduce']} (= {n_layers} x {len(inputs)}), logits "
+            f"{err_back:.4g} from exact f32, bit-identical to phase 5's kernel logits: {same_bits}; "
+            f"(d) host us a cache-hit call on {card}: "
+            + ", ".join(f"{n_} {v:.3f}" for n_, v in us.items()))
+
+    # 31 ----------------------------------------------------------------
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        cache = f"{tmp}/tune.json"
+        extra = ["--granularity", "auto", "--wire", "auto", "--calibrate", "--tune-cache", cache]
+        runs = [launcher_world_run("fused", extra) for _ in range(2)]
+        with open(cache) as f:
+            entries = json.load(f)["entries"]
+    from repro_torch.core.perfmodel import GLOO_HOST
+    if [e["key"]["hw"] for e in entries] != [dataclasses.asdict(GLOO_HOST)] * len(entries):
+        raise AssertionError(f"tune cache keys not under the gloo class: {entries}")
+    summary = []
+    for i, r in enumerate(runs):
+        out = r["out"]
+        per_rank = {k: sorted(re.findall(rf"calibrate \[rank {k}\]: (.*)", out))
+                    for k in range(TP_WORLD)}
+        if any(per_rank[k] != per_rank[0] for k in per_rank) or not per_rank[0]:
+            raise AssertionError(f"run {i}: the ranks' calibration differs: {per_rank}")
+        if f"all {TP_WORLD} ranks' autotune decisions equal: True" not in out:
+            raise AssertionError(f"run {i}: decisions not checked equal")
+        swept = re.search(r"calibrate \[rank 0\]: (\d+)/(\d+) newly traced", out)
+        if (i == 0 and not (int(swept[2]) >= 1 and swept[1] == swept[2])) or (
+                i == 1 and swept[0] != "calibrate [rank 0]: 0/0 newly traced"):
+            raise AssertionError(f"run {i}: swept {swept[0]}")
+        r["notes"] = near_tie_notes(f"tp={TP_WORLD} auto run {i}", r["streams"])
+        r["decisions"] = re.findall(r"decision: (.*)", out)
+        summary.append((swept[0].split(": ")[1], [ln for ln in per_rank[0] if "->" in ln]))
+    if runs[1]["decisions"] != runs[0]["decisions"] or runs[1]["streams"] != runs[0]["streams"]:
+        raise AssertionError(f"from the cache: decisions {runs[1]['decisions']}, streams "
+                             f"{runs[1]['streams']}; first run {runs[0]['decisions']}, "
+                             f"{runs[0]['streams']}")
+    bulk28 = GLM_DECODE["tp_streams"]["bulk"]
+    say(31, f"[{AUTO_LABEL.format(TP_WORLD)}] python -m torch.distributed.run --nproc-per-node "
+            f"{TP_WORLD} -m repro_torch.launch.serve --tp {TP_WORLD} --backend gloo --fusion fused "
+            f"--granularity auto --wire auto --calibrate --tune-cache, full-width chatglm3-6b: "
+            f"(a) {summary[0][0]}, every rank's calibration equal; "
+            + "; ".join(summary[0][1]) + f"; decisions {runs[0]['decisions']} (link class gloo "
+            f"host-staged, provisional; {len(entries)} cache entries under it); {runs[0]['ms_step']:.2f} "
+            f"ms/step, {runs[0]['wall']:.1f} s with start, init and calibration; streams = phase "
+            f"28's bulk streams: {runs[0]['streams'] == bulk28}"
+            + (f" ({'; '.join(runs[0]['notes'])})" if runs[0]["notes"] else "")
+            + f"; (b) again from the cache: {summary[1][0]}, the same decisions and streams, "
+            f"{runs[1]['ms_step']:.2f} ms/step, {runs[1]['wall']:.1f} s with start and init")
 
 
 def _map(tree, fn):

@@ -14,15 +14,22 @@ hops), ``bulk`` mode one collective and one product.
 
 The rings are not differentiable at tp > 1 (training at tp > 1, and the
 prefill around these ops, are ROADMAP Queue 1 item 1's left part).
+
+Both consult the degradation policy (``core/degrade.py``) before their
+mode branch, under the reference's keys (``x.shape + w.shape`` in whole
+shapes), and resolve ``"auto"`` granularity or wire through
+``tune_allgather_matmul`` / ``tune_matmul_allreduce`` (``core/autotune.py``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.autotune import (resolve_overlap, tune_allgather_matmul,
+                                       tune_matmul_allreduce)
 from repro_torch.core.collectives import (_no_grad_over_ranks, all_gather, all_reduce,
                                           ring_permute_start, ring_reduce_scatter_compute,
                                           wire_cast, wire_uncast)
-from repro_torch.core.matmul_allreduce import resolve_overlap
+from repro_torch.core.degrade import degrade_mode
 from repro_torch.core.scheduling import sub_chunk_service_order
 from repro_torch.parallel.sharding import ParallelContext
 
@@ -42,16 +49,22 @@ def allgather_matmul(ctx: ParallelContext, x, w, *, mode: str | None = None,
     once at their source.  The defaults are ``ctx.fusion``'s."""
     mode = mode or ctx.fusion.resolve("ag_matmul")
     n, d = ctx.tp, ctx.tp_rank
+    b, s_loc, k = x.shape
+    n_loc = w.shape[1]
+    mode = degrade_mode("allgather_matmul", (b, s_loc * n, k, k, n_loc * n), mode)
     if mode == "bulk":
         return all_gather(ctx, x, axis=1) @ w
+    skew = ctx.fusion.skew if skew is None else int(skew)
+    q, wire = resolve_overlap(
+        chunks_per_rank, ctx.fusion.granularity, wire, ctx.fusion.wire,
+        lambda fq, wr: tune_allgather_matmul(
+            b, s_loc, k, n_loc, dtype_bytes=x.element_size(), n_dev=n, hw=ctx.hw,
+            skew=skew, wire=wr, fixed_q=fq),
+        dim=s_loc, ring=1)
     if n == 1 and mode == "kernel":
         return x @ w     # the ring with no hops and one sub-chunk: one product
     _no_grad_over_ranks(ctx, "allgather_matmul", x, w)
-    s_loc = x.shape[1]
-    q, wire = resolve_overlap(
-        ctx.fusion.granularity if chunks_per_rank is None else chunks_per_rank,
-        wire or ctx.fusion.wire, s_loc, 1)
-    order = sub_chunk_service_order(q, ctx.fusion.skew if skew is None else int(skew))
+    order = sub_chunk_service_order(q, skew)
     sub = s_loc // q
     out = torch.empty((x.shape[0], s_loc * n, w.shape[1]), dtype=x.dtype, device=x.device)
     bufs = [wire_cast(b, wire) for b in x.split(sub, dim=1)] if n > 1 else []
@@ -81,21 +94,27 @@ def matmul_reducescatter(ctx: ParallelContext, x, w, *, mode: str | None = None,
     keeps this rank's sequence chunk."""
     mode = mode or ctx.fusion.resolve("matmul_rs")
     n, d = ctx.tp, ctx.tp_rank
-    s = x.shape[1]
+    b, s, k_loc = x.shape
+    nout = w.shape[1]
+    mode = degrade_mode("matmul_reducescatter", (b, s, k_loc * n, k_loc * n, nout), mode)
     if mode == "bulk":
         y = all_reduce(ctx, x @ w)
         return y if n == 1 else y[:, d * (s // n):(d + 1) * (s // n)]
+    skew = ctx.fusion.skew if skew is None else int(skew)
+    q, wire = resolve_overlap(
+        chunks_per_rank, ctx.fusion.granularity, wire, ctx.fusion.wire,
+        lambda fq, wr: tune_matmul_allreduce(
+            b * s, k_loc, nout, dtype_bytes=x.element_size(), n_dev=n, chunk_dim=s,
+            allgather_phase=False, hw=ctx.hw, skew=skew, wire=wr, fixed_q=fq),
+        dim=s, ring=n)
     if n == 1 and mode == "kernel":
         return x @ w
     _no_grad_over_ranks(ctx, "matmul_reducescatter", x, w)
-    q, wire = resolve_overlap(
-        ctx.fusion.granularity if chunks_per_rank is None else chunks_per_rank,
-        wire or ctx.fusion.wire, s, n)
     chunk = s // (n * q)
     return ring_reduce_scatter_compute(
         ctx, lambda f: x[:, f * chunk:(f + 1) * chunk] @ w,
         schedule=schedule or ctx.fusion.schedule, chunks_per_rank=q, sub_axis=1,
-        skew=ctx.fusion.skew if skew is None else int(skew), wire=wire)
+        skew=skew, wire=wire)
 
 
 def allgather_seq(ctx: ParallelContext, x, *, axis_pos: int = 1):

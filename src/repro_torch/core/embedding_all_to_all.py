@@ -18,24 +18,24 @@ output [B, T, D].
 
 This port runs it on one rank (world n = 1): the All-to-All keeps the
 rank's own block.  Tables split over several ranks, and ``fused`` mode (the
-direct sends of ``core/collectives.py``), are ROADMAP Queue 1 item 6; the
-reference's ``degrade_mode`` hook and the ``"auto"`` granularity and wire
-choices are item 3 (autotune/degrade) and are not ported.
+direct sends of ``core/collectives.py``), are ROADMAP Queue 1 item 6.  The
+call consults the degradation policy (``core/degrade.py``) before its mode
+branch, and ``"auto"`` granularity or wire resolves through
+``tune_all_to_all`` (``core/autotune.py``), as in the reference.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.collectives import (bulk_all_to_all, direct_all_to_all_compute,
-                                          feasible_chunks_per_rank)
+from repro_torch.core.autotune import resolve_overlap, tune_all_to_all
+from repro_torch.core.collectives import bulk_all_to_all, direct_all_to_all_compute
+from repro_torch.core.degrade import degrade_mode
 from repro_torch.kernels.embedding_pool.ops import embedding_pool_tables
 from repro_torch.parallel.sharding import ParallelContext
 
 _FUSED_ITEM = ("ROADMAP Queue 1 item 1 (left: fused mode of the embedding All-to-All) and "
                "item 6 (DLRM's tables over several ranks)")
-_AUTOTUNE_ITEM = "ROADMAP Queue 1 item 3 (autotune/degrade)"
-_WIRES = ("f32", "bf16", "fp8")
 
 
 def _pool(tables, idx, kernel: bool):
@@ -75,15 +75,18 @@ def embedding_all_to_all(
     kernel launch each, clamped to a divisor of the fragment; ``schedule``
     and ``skew`` (``None`` = ``ctx.fusion.skew_world``) order the
     destinations; ``wire`` (``None`` = ``ctx.fusion.wire``) is the remote
-    payload's dtype, which a one-card world never uses."""
+    payload's dtype, which a one-card world never uses.  ``"auto"`` (either
+    knob) resolves through :func:`tune_all_to_all` under the reference's
+    key."""
     mode = mode or ctx.fusion.resolve("embed_a2a")
+    mode = degrade_mode("embedding_a2a", tuple(indices.shape) + tuple(tables.shape), mode)
     if mode not in ("bulk", "kernel") or ctx.tp * ctx.dp > 1:
         raise NotImplementedError(f"embedding_all_to_all mode={mode!r} over "
                                   f"{ctx.tp * ctx.dp} ranks: {_FUSED_ITEM}")
     schedule = schedule or ctx.fusion.schedule
     skew = ctx.fusion.skew_world if skew is None else int(skew)
     n = ctx.tp * ctx.dp
-    B = indices.shape[0]
+    B, _, L = indices.shape
     t_local, _, D = tables.shape
     b_chunk = B // n
 
@@ -92,17 +95,13 @@ def embedding_all_to_all(
         full = _pool(tables, indices, kernel=False)              # [B, T_local, D]
         recv = bulk_all_to_all(ctx, full.view(n, b_chunk, t_local, D))
     else:
-        gran = ctx.fusion.granularity if chunks_per_rank is None else chunks_per_rank
-        wire = ctx.fusion.wire if wire is None else wire
-        if gran == "auto" or wire == "auto":
-            raise NotImplementedError(
-                f"embedding_all_to_all granularity={gran!r}, wire={wire!r}: the 'auto' "
-                f"choices are {_AUTOTUNE_ITEM}")
-        if wire not in _WIRES:
-            raise ValueError(f"wire must be one of {_WIRES + ('auto',)}, got {wire!r}")
-        if isinstance(gran, bool) or int(gran) < 1:
-            raise ValueError(f"granularity must be >= 1 or 'auto', got {gran!r}")
-        q = feasible_chunks_per_rank(b_chunk, 1, int(gran))
+        q, _ = resolve_overlap(
+            chunks_per_rank, ctx.fusion.granularity, wire, ctx.fusion.wire,
+            lambda fq, wr: tune_all_to_all(
+                b_chunk * t_local * D, float(b_chunk * t_local * L * D),
+                dtype_bytes=tables.element_size(), n_dev=n, sub_dim=b_chunk, hw=ctx.hw,
+                skew=skew, wire=wr, fixed_q=fq),
+            dim=b_chunk, ring=1)
         rows = b_chunk // q
 
         def pool_fragment(f):

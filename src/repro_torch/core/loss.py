@@ -16,10 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.collectives import feasible_chunks_per_rank
+from repro_torch.core.autotune import resolve_overlap, tune_ce_ring
 from repro_torch.parallel.sharding import ParallelContext
 
-_AUTOTUNE_ITEM = "ROADMAP Queue 1 item 3 (autotune/degrade)"
 _WIRE_ITEM = "ROADMAP Queue 1 item 1 (left: training at tp > 1, wire_cast on the CE ring)"
 
 
@@ -116,18 +115,20 @@ def sharded_cross_entropy(
     """Mean token cross-entropy of ``x @ embed.T`` against ``labels``; a label
     outside the vocabulary contributes its logsumexp alone, as in the
     reference.  ``chunks_per_rank`` (``None``: ``ctx.fusion.granularity``)
-    splits the sequence into sub-chunks, clamped to a divisor of S by
-    :func:`feasible_chunks_per_rank`; ``"auto"`` raises (the autotuner is
-    ROADMAP Queue 1 item 3).  ``mode`` and ``skew`` change nothing at tp = 1
-    (the ring has no hops to order); a compressed ``wire`` raises."""
-    del mode, skew
-    gran = ctx.fusion.granularity if chunks_per_rank is None else chunks_per_rank
-    if gran == "auto":
-        raise NotImplementedError(f"sharded_cross_entropy granularity='auto': {_AUTOTUNE_ITEM}")
-    wire = ctx.fusion.wire if wire is None else wire
+    splits the sequence into sub-chunks, clamped to a divisor of S;
+    ``"auto"`` granularity or wire resolves through :func:`tune_ce_ring`
+    (the reference's key: this rank's sequence and vocabulary rows).
+    ``mode`` changes nothing at tp = 1 (the ring has no hops to order); a
+    compressed wire, asked for or chosen, raises."""
+    del mode
+    n = ctx.tp
+    b, s, d = x.shape
+    skew = ctx.fusion.skew if skew is None else int(skew)
+    n_sub, wire = resolve_overlap(
+        chunks_per_rank, ctx.fusion.granularity, wire, ctx.fusion.wire,
+        lambda fq, wr: tune_ce_ring(b, s // n, d, embed.shape[0], dtype_bytes=x.element_size(),
+                                    n_dev=n, hw=ctx.hw, skew=skew, wire=wr, fixed_q=fq),
+        dim=s // n, ring=1)
     if wire != "f32":
         raise NotImplementedError(f"sharded_cross_entropy wire={wire!r}: {_WIRE_ITEM}")
-    if int(gran) < 1:
-        raise ValueError(f"granularity must be >= 1 or 'auto', got {gran!r}")
-    n_sub = feasible_chunks_per_rank(x.shape[1], ctx.tp, int(gran))
     return _LocalCE.apply(x, embed, labels, logit_softcap, n_sub)

@@ -21,37 +21,25 @@ dims) when they split over the ring, else the output columns.
 
 Granularity (paper Fig. 13): ``chunks_per_rank`` splits each ring step's
 payload into sub-chunks, each shipped the moment its partial product is
-done; it is clamped to the largest factor dividing the chunked dim.  The
-``"auto"`` granularity and wire need the autotuner (ROADMAP Queue 1 item 3).
+done; it is clamped to the largest factor dividing the chunked dim.
+``"auto"`` granularity or wire resolves through ``tune_matmul_allreduce``
+(``core/autotune.py``).  Before the mode branch the call consults the
+degradation policy (``core/degrade.py``), which demotes a quarantined
+``(op, shape)`` key to bulk mode.
 """
 from __future__ import annotations
 
-from repro_torch.core.collectives import (WIRE_DTYPES, _no_grad_over_ranks, all_gather_wire,
-                                          all_reduce, feasible_chunks_per_rank,
+from repro_torch.core.autotune import resolve_overlap, tune_matmul_allreduce
+from repro_torch.core.collectives import (_no_grad_over_ranks, all_gather_wire, all_reduce,
                                           ring_reduce_scatter_compute)
+from repro_torch.core.degrade import degrade_mode
 from repro_torch.kernels import clamp_kernel_wire
 from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce
 from repro_torch.parallel.sharding import ParallelContext
 
 _KERNEL_PEERS_ITEM = ("ROADMAP Queue 1 item 1 (left: the real-peer half, kernel mode at tp > 1 "
                       "with symmetric-memory pointer tables; use fused or bulk mode)")
-_AUTOTUNE_ITEM = "ROADMAP Queue 1 item 3 (autotune/degrade)"
 MODES = ("bulk", "fused", "kernel")
-
-
-def resolve_overlap(granularity, wire, dim: int, ring: int) -> tuple[int, str]:
-    """The fixed branch of the reference's ``resolve_overlap``: an integer
-    granularity clamped to ``feasible_chunks_per_rank(dim, ring, q)`` and a
-    wire of ``WIRE_DTYPES``; ``"auto"`` (either) raises."""
-    if granularity == "auto" or wire == "auto":
-        raise NotImplementedError(
-            f"granularity={granularity!r}, wire={wire!r}: the 'auto' choices are "
-            f"{_AUTOTUNE_ITEM}")
-    if wire not in WIRE_DTYPES:
-        raise ValueError(f"wire must be one of {WIRE_DTYPES + ('auto',)}, got {wire!r}")
-    if isinstance(granularity, bool) or int(granularity) < 1:
-        raise ValueError(f"granularity must be >= 1 or 'auto', got {granularity!r}")
-    return feasible_chunks_per_rank(dim, ring, int(granularity)), wire
 
 
 def matmul_allreduce(
@@ -77,32 +65,42 @@ def matmul_allreduce(
     payload's dtype) default to ``ctx.fusion``'s.  In kernel mode the
     kernel's granularity is its own tile pipeline and ``wire`` is its PUT
     payload dtype, fp8 clamped to bf16; a CUDA tensor launches the kernel
-    or raises."""
+    or raises.
+
+    The degradation key is the reference's, ``x.shape[:-1] + w.shape`` in
+    whole (unsharded) shapes; the tune key holds this rank's shapes, as the
+    reference's local view does."""
     mode = mode or ctx.fusion.resolve("matmul_rs")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     n = ctx.tp
     lead = x.shape[:-1]
+    k_loc, nout = w.shape
+    mode = degrade_mode("matmul_allreduce", tuple(lead) + (k_loc * n, nout), mode)
     xf = x.reshape(-1, x.shape[-1])
-    nout = w.shape[1]
     if mode == "bulk":
         return all_reduce(ctx, xf @ w).reshape(*lead, nout)
-    granularity = ctx.fusion.granularity if chunks_per_rank is None else chunks_per_rank
-    wire = wire or ctx.fusion.wire
-    if mode == "kernel":
-        if n > 1:
-            raise NotImplementedError(f"matmul_allreduce mode='kernel' at tp={n}: "
-                                      f"{_KERNEL_PEERS_ITEM}")
-        resolve_overlap(granularity, wire, 1, 1)
-        y = fused_matmul_allreduce(
-            xf.contiguous(), w, wire=clamp_kernel_wire(wire, "matmul_allreduce"))
-        return y.reshape(*lead, nout)
-    _no_grad_over_ranks(ctx, "matmul_allreduce", x, w)
+    if mode == "kernel" and n > 1:
+        raise NotImplementedError(f"matmul_allreduce mode='kernel' at tp={n}: "
+                                  f"{_KERNEL_PEERS_ITEM}")
+    skew = ctx.fusion.skew if skew is None else int(skew)
     rows = xf.shape[0]
     use_rows = rows % n == 0 and rows >= n
-    q, wire = resolve_overlap(granularity, wire, rows if use_rows else nout, n)
+    chunk_dim = rows if use_rows else nout
+    dec = resolve_overlap(
+        chunks_per_rank, ctx.fusion.granularity, wire, ctx.fusion.wire,
+        lambda fq, wr: tune_matmul_allreduce(
+            rows, k_loc, nout, dtype_bytes=x.element_size(), n_dev=n, chunk_dim=chunk_dim,
+            hw=ctx.hw, skew=skew, wire=wr, fixed_q=fq, allow_fp8=mode != "kernel"),
+        dim=chunk_dim, ring=n)
+    if mode == "kernel":
+        # the kernel's granularity is its own tile pipeline
+        y = fused_matmul_allreduce(
+            xf.contiguous(), w, wire=clamp_kernel_wire(dec.wire, "matmul_allreduce"))
+        return y.reshape(*lead, nout)
+    _no_grad_over_ranks(ctx, "matmul_allreduce", x, w)
+    q, wire = dec
     schedule = schedule or ctx.fusion.schedule
-    skew = ctx.fusion.skew if skew is None else int(skew)
     if use_rows:
         chunk = rows // (n * q)
         partial = lambda f: xf[f * chunk:(f + 1) * chunk] @ w

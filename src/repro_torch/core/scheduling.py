@@ -6,7 +6,7 @@ local compute.  These are the orders in which a fused loop visits its
 destinations and services its sub-chunk rings, on every rank of the tp
 world alike (so each peer pair's point-to-point messages match in issue
 order).  The reference's modeled finish times and skew statistics come with
-the autotuner (ROADMAP Queue 1 item 3).
+the straggler loop of the runtime (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 

@@ -100,18 +100,21 @@ fused_gemm_a2a_ranks.path_launches = dict.fromkeys(PATHS, 0)
 
 
 def fused_moe_chain(xt, w_up, w_gate, w_down, *, act="silu", comm_aware=True,
-                    chunks_per_rank=1, skew=0, wire="f32"):
+                    chunks_per_rank=1, skew=0, wire="f32", combine_wire=None):
     """Chained dispatch -> expert FFN -> combine for one EP rank.
 
     xt: [n, B, E_loc, C, D] stacked by dispatch destination.  The dispatch
     kernel's output (tokens stacked by source) is the FFN+combine kernel's
     input as it stands.  Returns blocks stacked by combine destination
-    (= dispatch source): each rank's tokens come home.  ``launches`` counts
-    the chains that ran on a card, each one launch of either kernel."""
+    (= dispatch source): each rank's tokens come home.  ``wire`` is the
+    dispatch's payload dtype, ``combine_wire`` (``None``: ``wire``) the
+    combine's, as the autotuner decides each side apart.  ``launches``
+    counts the chains that ran on a card, each one launch of either
+    kernel."""
     xr = fused_dispatch_a2a(xt, comm_aware=comm_aware, chunks_per_rank=chunks_per_rank,
                             skew=skew, wire=wire)
     y = fused_gemm_a2a(xr, w_up, w_gate, w_down, act=act, comm_aware=comm_aware, skew=skew,
-                       wire=wire)
+                       wire=wire if combine_wire is None else combine_wire)
     if xt.device.type == "cuda":
         fused_moe_chain.launches += 1
     return y

@@ -17,7 +17,14 @@ rank) and ``gloo`` on the CPU; ``--backend gloo`` also runs a world whose
 ranks share one card, its wire staged through host memory.  Every rank
 serves the same requests with the same gathered logits; rank 0 prints, and
 checks that every rank's token streams are its own.  ``--granularity`` and
-``--wire`` set the fused ring's sub-chunks and payload dtype.
+``--wire`` set the fused ring's sub-chunks and payload dtype; ``auto`` (either)
+lets the autotuner choose per call site (``core/autotune.py``), from the link
+class of the world's backend.  ``--calibrate`` runs one decode step on a
+scratch cache to record the hot keys, then times every candidate of each
+(``core/calibrate.py``) and keeps the fastest; ``--tune-cache PATH`` loads
+decisions at the start and saves them (rank 0) at the end.  The decisions
+taken print as ``op shape -> (q, wire)``, one line a key; in a world rank 0
+checks that every rank took the same ones.
 
 Without ``--paged`` the dense engine serves (a ``B x S_max`` cache, the
 prompt fed one token per step); with it the paged engine (a shared pool of
@@ -50,6 +57,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_arch
+from repro_torch.core.autotune import (add_granularity_cli_args, cache_info,
+                                       load_cache_if_exists, save_cache)
+from repro_torch.core.calibrate import add_calibration_cli_args, warmup_and_calibrate
 from repro_torch.kernels import load_library
 from repro_torch.launch.mesh import BACKENDS, close_world, init_world
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
@@ -85,10 +95,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--fusion", default="kernel", choices=["kernel", "fused", "bulk"])
-    ap.add_argument("--granularity", type=int, default=1,
-                    help="sub-chunks a rank of the fused ring (paper Fig. 13)")
-    ap.add_argument("--wire", default="f32", choices=["f32", "bf16", "fp8"],
-                    help="payload dtype of the fused ring (f32: the compute dtype)")
+    add_granularity_cli_args(ap)
+    add_calibration_cli_args(ap)
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel ranks (run under torch.distributed.run)")
     ap.add_argument("--backend", default=None, choices=BACKENDS,
@@ -125,9 +133,18 @@ def main(argv=None):
         close_world()
 
 
+def decision_lines() -> list[str]:
+    """Every cached autotune decision as ``op shape -> (q, wire)``, sorted."""
+    return sorted(f"{k.op} {k.shape} -> ({d.q}, {d.wire})" for k, d in cache_info().items())
+
+
 def _serve(args, bundle, device):
     ctx = ParallelContext(device=device, tp=args.tp, fusion=FusionConfig(
         mode=args.fusion, granularity=args.granularity, wire=args.wire))
+    rank0 = ctx.tp_rank == 0
+    loaded = load_cache_if_exists(args.tune_cache)
+    if args.tune_cache and rank0:
+        print(f"tune cache: {loaded} decisions loaded from {args.tune_cache}")
     if args.reduced:
         bundle = bundle.reduced()
     cfg = bundle.config
@@ -174,21 +191,37 @@ def _serve(args, bundle, device):
         where = torch.cuda.get_device_name(ctx.device)
         if args.fusion == "kernel":
             load_library()   # build the kernels outside the timed drain
+    if args.calibrate:
+        # one decode step on a scratch cache records the hot keys; the
+        # engine's cache and requests are untouched
+        decode = bundle.decode_fn(ctx)
+        tok = torch.zeros((args.batch, 1), dtype=torch.int32, device=ctx.device)
+        pos = torch.zeros(args.batch, dtype=torch.int32, device=ctx.device)
+        warmup_and_calibrate(ctx, lambda c: decode(params, tok, c, pos),
+                             bundle.init_cache(args.batch, ctx.device, ctx.tp),
+                             iters=args.calibrate_iters, granularity=args.granularity,
+                             rank_tag=f" [rank {ctx.tp_rank}]" if ctx.tp > 1 else "")
     t0 = time.perf_counter()
     finished = engine.run_until_drained(
         max_steps=len(engine.queue) * (cfg.max_seq - 1))
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
     dt = time.perf_counter() - t0
-    rank0 = ctx.tp_rank == 0
+    decisions = decision_lines()
     if ctx.tp > 1:
-        # every rank took the same greedy tokens from the same gathered logits
-        streams = [None] * ctx.tp
+        # every rank took the same greedy tokens from the same gathered
+        # logits, and the same autotune decisions
+        streams, taken = [None] * ctx.tp, [None] * ctx.tp
         torch.distributed.all_gather_object(streams, [(r.uid, r.tokens) for r in finished])
+        torch.distributed.all_gather_object(taken, decisions)
         if any(s != streams[0] for s in streams):
             raise AssertionError(f"the ranks' token streams differ: {streams}")
+        if any(t != taken[0] for t in taken):
+            raise AssertionError(f"the ranks' autotune decisions differ: {taken}")
     if not rank0:
         return finished
+    if args.tune_cache:
+        print(f"tune cache: {save_cache(args.tune_cache)} decisions saved to {args.tune_cache}")
     if not finished.drained:
         print("WARNING: stopped at max_steps before draining — results truncated")
     total_tokens = sum(len(r.tokens) for r in finished)
@@ -201,6 +234,9 @@ def _serve(args, bundle, device):
           f"{'paged' if args.paged else 'dense'}, device={where}{world})")
     if ctx.tp > 1:
         print(f"all {ctx.tp} ranks' token streams equal: True")
+        print(f"all {ctx.tp} ranks' autotune decisions equal: True")
+    for line in decisions:
+        print(f"decision: {line}")
     for r in finished[:4]:
         print(f"  req {r.uid}: prompt {r.prompt} -> {r.tokens[:12]}")
     return finished

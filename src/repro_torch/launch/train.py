@@ -13,8 +13,14 @@ forward is the flash kernel; its backward the reference's analytic one) or
 (``data.pipeline.prefetch``).  It prints the reference launcher's per-step
 line every ``--log-every`` steps and returns the losses.
 
+``--granularity`` / ``--wire`` set the CE's sub-chunks and wire (``auto``:
+the autotuner's choice, ``core/autotune.py``); ``--calibrate`` runs the
+loss once without gradients on a fresh first batch to record the hot keys
+and times their candidates (``core/calibrate.py``); ``--tune-cache PATH``
+loads decisions at the start and saves them at the end.
+
 The reference launcher also runs under a restart-on-failure supervisor with
-checkpoints, chaos injection, liveness, skew scheduling, calibration and
+checkpoints, chaos injection, liveness, skew scheduling, degradation and
 the comm-graph rewrite; here each of those flags raises with the ROADMAP
 item that brings it.  The port's trainer does not checkpoint.
 
@@ -29,7 +35,10 @@ import time
 import torch
 
 from repro_torch.configs.registry import get_arch
-from repro_torch.data.pipeline import prefetch
+from repro_torch.core.autotune import (add_granularity_cli_args, load_cache_if_exists,
+                                       save_cache)
+from repro_torch.core.calibrate import add_calibration_cli_args, warmup_and_calibrate
+from repro_torch.data.pipeline import prefetch, to_device
 from repro_torch.data.synthetic import LMBatches
 from repro_torch.kernels import load_library
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
@@ -41,9 +50,8 @@ _RUNTIME = "ROADMAP Queue 1 item 7 (the runtime)"
 _LATER_FLAGS = (
     ("--auto-fuse", "auto_fuse", "ROADMAP Queue 1 item 7 (the comm-graph analyzer)"),
     ("--explain-comm", "explain_comm", "ROADMAP Queue 1 item 7 (the comm-graph analyzer)"),
-    ("--calibrate", "calibrate", "ROADMAP Queue 1 item 3 (autotune/calibrate)"),
     ("--skew-schedule", "skew_schedule", f"{_RUNTIME}: the straggler loop"),
-    ("--degrade", "degrade", f"{_RUNTIME}: degradation"),
+    ("--degrade", "degrade", f"{_RUNTIME}: degradation, which only the supervisor feeds"),
     ("--production-mesh", "production_mesh",
      "ROADMAP Queue 1 item 1 (left: training at tp > 1 and dp > 1)"),
 )
@@ -56,22 +64,11 @@ _LATER_VALUES = (
     ("--process-id", "process_id", f"{_RUNTIME}: multi-process launch"),
     ("--heartbeat-dir", "heartbeat_dir", f"{_RUNTIME}: liveness"),
     ("--step-deadline", "step_deadline", f"{_RUNTIME}: liveness"),
-    ("--tune-cache", "tune_cache", "ROADMAP Queue 1 item 3 (autotune)"),
 )
 _NOT_TRAINED = {
     "dlrm": "ROADMAP Queue 1 item 6 (DLRM training: kernel-mode pooling has no backward)",
     "rwkv6": "ROADMAP Queue 1 item 7 (rwkv6 training: a WKV6 backward)",
 }
-
-
-def parse_granularity(value: str):
-    """``"auto"`` or a positive int (the reference's ``--granularity``)."""
-    if value == "auto":
-        return value
-    q = int(value)
-    if q < 1:
-        raise ValueError(f"granularity must be >= 1 or 'auto', got {q}")
-    return q
 
 
 def make_batches(bundle, batch: int, seq: int, seed: int = 0):
@@ -91,9 +88,8 @@ def build_parser():
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--fusion", default="kernel", choices=["kernel", "bulk"])
-    ap.add_argument("--granularity", default=1, type=parse_granularity,
-                    help="chunks_per_rank of the CE's sub-chunks (an int >= 1; 'auto' is "
-                         "ROADMAP Queue 1 item 3)")
+    add_granularity_cli_args(ap)
+    add_calibration_cli_args(ap)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     for flag, dest, _ in _LATER_FLAGS:
@@ -107,8 +103,6 @@ def _refuse_later(args):
     for flag, dest, item in _LATER_FLAGS + _LATER_VALUES:
         if getattr(args, dest) not in (None, False):
             raise NotImplementedError(f"{flag}: {item}")
-    if args.granularity == "auto":
-        raise NotImplementedError("--granularity auto: ROADMAP Queue 1 item 3 (autotune)")
 
 
 def main(argv=None, *, on_phase=None):
@@ -120,8 +114,9 @@ def main(argv=None, *, on_phase=None):
     if args.reduced:
         bundle = bundle.reduced()
     batches = make_batches(bundle, args.batch, args.seq)
-    ctx = ParallelContext(device=args.device,
-                          fusion=FusionConfig(mode=args.fusion, granularity=args.granularity))
+    load_cache_if_exists(args.tune_cache)
+    ctx = ParallelContext(device=args.device, fusion=FusionConfig(
+        mode=args.fusion, granularity=args.granularity, wire=args.wire))
     loss_fn = bundle.loss_fn(ctx)
     if ctx.device.type == "cuda" and args.fusion == "kernel":
         load_library()   # build the kernels before the first step
@@ -134,6 +129,12 @@ def main(argv=None, *, on_phase=None):
     state = init_train_state(tc, params)
     del params
     step_fn = build_train_step(loss_fn, tc, on_phase=on_phase)
+    if args.calibrate:
+        # the loss on a fresh iterator's first batch records the hot keys;
+        # the training batches and the state are untouched
+        batch0 = to_device(next(iter(make_batches(bundle, args.batch, args.seq))), ctx.device)
+        warmup_and_calibrate(ctx, loss_fn, state["params"], batch0,
+                             iters=args.calibrate_iters, granularity=args.granularity)
 
     t0 = time.time()
     losses = []
@@ -149,6 +150,8 @@ def main(argv=None, *, on_phase=None):
                   flush=True)
     span = f"loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else "no steps run"
     print(f"done at step {args.steps}; {span}")
+    if args.tune_cache:
+        save_cache(args.tune_cache)
     return losses
 
 

@@ -16,6 +16,12 @@ static shapes, so routing never synchronises with the host.
 
 On one card the All-to-Alls move each rank's own block only.  What needs a
 multi-card world or training raises and names its ROADMAP item.
+
+The dispatch and the combine each consult the degradation policy
+(``core/degrade.py``) under the reference's keys (``moe_dispatch_a2a``,
+``moe_combine_a2a``); a quarantined side runs its bulk form.  Kernel mode
+resolves the dispatch's granularity and both wires through
+``tune_all_to_all`` (``core/autotune.py``) under the kernel's own op.
 """
 from __future__ import annotations
 
@@ -24,8 +30,12 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.autotune import resolve_overlap, tune_all_to_all
 from repro_torch.core.collectives import bulk_all_to_all
-from repro_torch.kernels.fused_gemm_a2a.ops import fused_moe_chain
+from repro_torch.core.degrade import degrade_mode
+from repro_torch.kernels import clamp_kernel_wire
+from repro_torch.kernels.fused_dispatch_a2a.ops import fused_dispatch_a2a
+from repro_torch.kernels.fused_gemm_a2a.ops import fused_gemm_a2a, fused_moe_chain
 from repro_torch.kernels.fused_gemm_a2a.ref import ACTS
 from repro_torch.models.common import dense_init
 from repro_torch.parallel.sharding import ParallelContext
@@ -33,7 +43,6 @@ from repro_torch.parallel.sharding import ParallelContext
 _MOE_ITEM = "ROADMAP Queue 1 item 5 (MoE)"
 _FUSED_ITEM = ("ROADMAP Queue 1 item 1 (left: fused mode of the MoE All-to-Alls) and "
                "item 5 (the experts over several ranks)")
-_AUTOTUNE_ITEM = "ROADMAP Queue 1 item 3 (autotune/degrade)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +153,23 @@ def _unpermute(cfg: MoEConfig, out_buf, gate_w, e_clip, p_clip, valid, shape, dt
     return y.reshape(shape).to(dtype)
 
 
+def _resolve(ctx: ParallelContext, granularity, wire, *, cap, chunk_elems, flops_per_dest,
+             dtype_bytes):
+    """The kernel path's ``(chunks_per_rank, wire)``: the reference's
+    ``moe_all_to_all._resolve`` with ``kernel=True`` (sub-chunks along the
+    capacity axis, fp8 clamped to bf16 in the decision, and a pinned fp8
+    clamped after it)."""
+    dec = resolve_overlap(
+        None, granularity, None, wire,
+        lambda fq, wr: tune_all_to_all(chunk_elems, flops_per_dest, dtype_bytes=dtype_bytes,
+                                       n_dev=ctx.tp, sub_dim=cap, hw=ctx.hw,
+                                       skew=ctx.fusion.skew, wire=wr, fixed_q=fq, kernel=True),
+        dim=cap, ring=1)
+    if dec.wire == "fp8":
+        dec = dec._replace(wire=clamp_kernel_wire(dec.wire, "moe_a2a_kernel"))
+    return dec
+
+
 def _moe_local(ctx: ParallelContext, cfg: MoEConfig, x, params, mode):
     """Per-rank MoE body: route -> dispatch A2A -> expert FFN + combine A2A
     -> unpermute."""
@@ -154,21 +180,39 @@ def _moe_local(ctx: ParallelContext, cfg: MoEConfig, x, params, mode):
     buf = _dispatch_buf(cfg, toks, e_clip, p_clip, valid, C, x.dtype)
     buf = buf.reshape(n_ep, E // n_ep, C, D)
     wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
-    if mode == "kernel":
-        fc = ctx.fusion
-        if fc.granularity == "auto" or fc.wire == "auto":
-            raise NotImplementedError(
-                f"moe_apply granularity={fc.granularity!r}, wire={fc.wire!r}: the 'auto' "
-                f"choices are {_AUTOTUNE_ITEM}")
-        comb = fused_moe_chain(buf[:, None], wu, wg, wd, act=cfg.act,
-                               comm_aware=fc.schedule == "comm_aware",
-                               chunks_per_rank=fc.granularity, skew=fc.skew,
-                               wire=fc.wire)[:, 0]
+    fc = ctx.fusion
+    # the reference's keys: the dispatch buffer in its global [rows, n_ep,
+    # E, C, D] layout, and that with the expert width for the combine
+    key = (1, n_ep, E, C, D)
+    mode_d = degrade_mode("moe_dispatch_a2a", key, mode)
+    mode_c = degrade_mode("moe_combine_a2a", key + (wu.shape[-1],), mode)
+    flops_c = 2.0 * 3 * (E // n_ep) * C * D * wu.shape[-1]
+    dec_d = dec_c = None
+    if mode_d == "kernel":
+        dec_d = _resolve(ctx, fc.granularity, fc.wire, cap=C, chunk_elems=buf[0].numel(),
+                         flops_per_dest=0.0, dtype_bytes=x.element_size())
+    if mode_c == "kernel":
+        dec_c = _resolve(ctx, 1, fc.wire, cap=C, chunk_elems=buf[0].numel(),
+                         flops_per_dest=flops_c, dtype_bytes=x.element_size())
+    comm_aware = fc.schedule == "comm_aware"
+    if mode_d == mode_c == "kernel":
+        comb = fused_moe_chain(buf[:, None], wu, wg, wd, act=cfg.act, comm_aware=comm_aware,
+                               chunks_per_rank=dec_d.q, skew=fc.skew, wire=dec_d.wire,
+                               combine_wire=dec_c.wire)[:, 0]
     else:
-        recv = bulk_all_to_all(ctx, buf)                         # [n_src, E_loc, C, D]
-        g = torch.einsum("necd,edf->necf", recv, wg)             # all GEMMs first...
-        u = torch.einsum("necd,edf->necf", recv, wu)
-        y = torch.einsum("necf,efd->necd", ACTS[cfg.act](g) * u, wd)
-        comb = bulk_all_to_all(ctx, y)                           # ...then one A2A
+        if mode_d == "kernel":
+            recv = fused_dispatch_a2a(buf[:, None], comm_aware=comm_aware,
+                                      chunks_per_rank=dec_d.q, skew=fc.skew,
+                                      wire=dec_d.wire)[:, 0]
+        else:
+            recv = bulk_all_to_all(ctx, buf)                     # [n_src, E_loc, C, D]
+        if mode_c == "kernel":
+            comb = fused_gemm_a2a(recv[:, None], wu, wg, wd, act=cfg.act, comm_aware=comm_aware,
+                                  skew=fc.skew, wire=dec_c.wire)[:, 0]
+        else:
+            g = torch.einsum("necd,edf->necf", recv, wg)         # all GEMMs first...
+            u = torch.einsum("necd,edf->necf", recv, wu)
+            y = torch.einsum("necf,efd->necd", ACTS[cfg.act](g) * u, wd)
+            comb = bulk_all_to_all(ctx, y)                       # ...then one A2A
     return _unpermute(cfg, comb.reshape(E, C, D), gate_w, e_clip, p_clip, valid,
                       x.shape, x.dtype)

@@ -16,6 +16,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.perfmodel import GLOO_HOST, H100_NVLINK, MeshHardwareModel
+
 # logical axes the reference's ``_resolve`` maps onto the tp axis
 # (src/repro/parallel/sharding.py:171-183); ``None``, "none", "batch" and
 # "fsdp" map onto the data axes, which are one rank wide while dp = 1
@@ -55,7 +57,7 @@ class FusionConfig:
       larger values put each sub-slice on the wire as soon as it is
       produced, hiding more wire time until per-slice overhead wins.
       "auto" defers to the shape-keyed alpha-beta autotuner
-      (:mod:`repro.core.autotune`) per fused-op call site.  Values that
+      (:mod:`repro_torch.core.autotune`) per fused-op call site.  Values that
       do not divide the chunked dimension are clamped per-op to the
       largest feasible factor.
     skew: measured straggler rotation (paper Fig. 14).  An integer bucket
@@ -77,16 +79,17 @@ class FusionConfig:
       compute dtype on the wire (exact — the pre-wire graphs,
       bit-identical); ``"bf16"``/``"fp8"`` compress payloads on the send
       side while all local accumulation stays f32 (fp8 ships a per-chunk
-      max-abs scale alongside the payload); ``"auto"`` defers to the
-      per-mesh-axis alpha-beta model (:class:`~repro.core.perfmodel.
+      max-abs scale alongside the payload); ``"auto"`` defers to the link
+      class's alpha-beta model (:class:`~repro_torch.core.perfmodel.
       MeshHardwareModel` via ``ParallelContext.hw``) jointly with the
-      granularity choice — a slow DCN axis picks a narrow wire, a fast
-      ICI axis whose wire hides behind compute keeps f32.
+      granularity choice: a slow link picks a narrow wire, a fast one whose
+      wire hides behind compute keeps f32.
 
     In this port ``"bulk"`` and ``"fused"`` run at any tp, ``"kernel"`` at
-    tp = 1 (the real-peer kernels wait for a multi-card host); ``"auto"``
-    and the ``"auto"`` granularity and wire wait for the autotuner (ROADMAP
-    Queue 1 item 3).
+    tp = 1 (the real-peer kernels wait for a multi-card host); the
+    ``"auto"`` granularity and wire resolve at every fused-op call site.
+    The ``"auto"`` mode (the comm-graph rewrite) waits for ROADMAP Queue 1
+    item 7.
     """
 
     mode: str = "fused"
@@ -119,13 +122,21 @@ class ParallelContext:
     process group (``None``: the default world, which must then be exactly
     tp ranks wide), started beforehand (``launch.mesh.init_world``); the
     context reads this rank's place in it (``tp_rank``) and the world's
-    backend (``"gloo"`` or ``"nccl"``).  ``dp`` must be 1."""
+    backend (``"gloo"`` or ``"nccl"``).  ``dp`` must be 1.
+
+    ``hw`` is the link model the autotuner decides under (a
+    :class:`MeshHardwareModel`).  ``None`` takes it from the world: a gloo
+    world of more than one rank stages its payloads through host memory
+    (``GLOO_HOST``); an NCCL world, and one rank, take the H100 NVLink
+    class (``H100_NVLINK``).  Both classes are provisional until
+    ``--calibrate`` measures the choices."""
 
     device: torch.device | str = "cuda"
     fusion: FusionConfig = dataclasses.field(default_factory=FusionConfig)
     tp: int = 1
     dp: int = 1
     group: Any = None
+    hw: MeshHardwareModel | None = None
     tp_rank: int = dataclasses.field(init=False, default=0)
     backend: str | None = dataclasses.field(init=False, default=None)
 
@@ -150,12 +161,19 @@ class ParallelContext:
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is "
                                "available (pass device='cpu' to run on the CPU)")
+        if self.hw is None:
+            link = GLOO_HOST if self.tp > 1 and self.backend == "gloo" else H100_NVLINK
+            object.__setattr__(self, "hw", MeshHardwareModel.uniform(link))
 
     def peer(self, tp_rank: int) -> int:
         """The global rank of tp rank ``tp_rank`` (what point-to-point calls take)."""
         if self.group is None:
             return tp_rank
         return dist.get_global_rank(self.group, tp_rank)
+
+    def hw_for(self, axis):
+        """The link model of ``axis`` (a name or a tuple of names)."""
+        return self.hw.for_axes(axis)
 
     def with_fusion(self, fusion: FusionConfig) -> "ParallelContext":
         return dataclasses.replace(self, fusion=fusion)

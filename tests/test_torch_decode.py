@@ -13,12 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.compat import make_mesh
 from repro.configs.registry import get_arch as jax_get_arch
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import rope as jrope
 from repro.models import transformer as jtf
 from repro.models.common import split_params
+from repro.parallel.sharding import FusionConfig as JaxFusion
+from repro.parallel.sharding import ParallelContext as JaxContext
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.matmul_allreduce import matmul_allreduce
 from repro_torch.models import attention, layers, rope, transformer
@@ -26,6 +29,7 @@ from repro_torch.models.common import dense_init, embed_init
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.moe import MoEConfig
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+from torch_tune import clear_both, same_decisions, v5e_ctx
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -189,11 +193,19 @@ def test_matmul_allreduce_kernel_equals_bulk_and_jax(ctx, rng):
 
 @pytest.mark.parametrize("kwargs", [{"mode": "fused", "chunks_per_rank": "auto"},
                                     {"wire": "auto"}, {"chunks_per_rank": "auto"}])
-def test_matmul_allreduce_unported_choices_raise(kwargs):
-    """The 'auto' choices wait for the autotuner, in kernel and fused mode
-    (fused mode itself runs since the tp world landed)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        matmul_allreduce(CPU_KERNEL, torch.zeros(2, 8), torch.zeros(8, 4), **kwargs)
+def test_matmul_allreduce_auto_choices_match_jax(rng, kwargs):
+    """The 'auto' choices resolve through the autotuner, in kernel and fused
+    mode: the JAX package's decision on the same inputs under the same link
+    constants (its one-device mesh), and its product."""
+    x = rng.standard_normal((8, 1, 64)).astype(np.float32)
+    w = rng.standard_normal((64, 32)).astype(np.float32)
+    jc = JaxContext.from_mesh(make_mesh((1, 1), ("data", "model")), fusion=JaxFusion())
+    clear_both()
+    want = np.asarray(jax.jit(lambda x, w: jlayers.matmul_allreduce(
+        jc, x, w, **dict(kwargs, mode="fused")))(x, w))
+    got = matmul_allreduce(v5e_ctx(mode="kernel"), t(x), t(w), **kwargs)
+    assert len(same_decisions()) == 1
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 def test_matmul_allreduce_fp8_wire_clamps_to_bf16():

@@ -43,6 +43,7 @@ from repro_torch.kernels.fused_embedding_a2a.ref import (fused_embedding_a2a_ref
 from repro_torch.models import dlrm
 from repro_torch.models.convert import dlrm_params_from_numpy
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+from torch_tune import clear_both, same_decisions, v5e_ctx
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -245,8 +246,7 @@ def test_bulk_pooling_is_one_library_call(rng, monkeypatch):
     torch.testing.assert_close(got, embedding_pool_tables_ref(tabs, idx), **TOL["f32"])
 
 
-@pytest.mark.parametrize("what", ["fused", "auto_granularity", "auto_wire", "bad_wire",
-                                  "zero_granularity", "tp2"])
+@pytest.mark.parametrize("what", ["fused", "bad_wire", "zero_granularity", "tp2"])
 def test_unported_embedding_paths_raise(rng, what):
     tabs, idx = (t(a) for a in _tables_idx(rng, 2, 8, 4, 4, 2))
     if what == "tp2":       # tables over several ranks are item 6
@@ -256,13 +256,24 @@ def test_unported_embedding_paths_raise(rng, what):
         return
     err, kw, match = {
         "fused": (NotImplementedError, dict(mode="fused"), "Queue 1 item 1"),
-        "auto_granularity": (NotImplementedError, dict(chunks_per_rank="auto"), "item 3"),
-        "auto_wire": (NotImplementedError, dict(wire="auto"), "item 3"),
         "bad_wire": (ValueError, dict(wire="f16"), "wire"),
         "zero_granularity": (ValueError, dict(chunks_per_rank=0), "granularity"),
     }[what]
     with pytest.raises(err, match=match):
         emb_a2a.embedding_all_to_all(CPU["kernel"], idx, tabs, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(chunks_per_rank="auto"), dict(wire="auto")],
+                         ids=["auto_granularity", "auto_wire"])
+def test_embedding_auto_choices_match_jax(ctx1, rng, kw):
+    """'auto' resolves through tune_all_to_all: the JAX package's decision on
+    the same inputs under the same link constants, and its pooled output."""
+    tabs, idx = _tables_idx(rng, 5, 30, 16, 16, 4)
+    clear_both()
+    want = np.asarray(jax.jit(lambda i, tb: jax_emb_a2a(ctx1, i, tb, **kw))(idx, tabs))
+    got = emb_a2a.embedding_all_to_all(v5e_ctx(mode="kernel"), t(idx), t(tabs), **kw)
+    assert len(same_decisions()) == 1
+    np.testing.assert_allclose(got.numpy(), want, **TOL["f32"])
 
 
 def test_fusion_config_sets_the_kernel_granularity(rng, monkeypatch):
@@ -273,9 +284,15 @@ def test_fusion_config_sets_the_kernel_granularity(rng, monkeypatch):
     ctx = ParallelContext(device="cpu", fusion=FusionConfig(mode="kernel", granularity=4))
     emb_a2a.embedding_all_to_all(ctx, idx, tabs)
     assert rows == [2] * 4
-    auto = ParallelContext(device="cpu", fusion=FusionConfig(mode="kernel", granularity="auto"))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        emb_a2a.embedding_all_to_all(auto, idx, tabs)
+    # "auto" takes the granularity the JAX package's tuner takes on these inputs
+    clear_both()
+    jc = JaxContext.from_mesh(make_mesh((1, 1), ("data", "model")),
+                              JaxFusion(mode="kernel", granularity="auto"))
+    jax.eval_shape(lambda i, tb: jax_emb_a2a(jc, i, tb), idx.numpy(), tabs.numpy())
+    rows.clear()
+    emb_a2a.embedding_all_to_all(v5e_ctx(mode="kernel", granularity="auto"), idx, tabs)
+    ((q, _),) = same_decisions().values()
+    assert rows == [8 // q] * q
 
 
 # ---------------------------------------------------------------------------

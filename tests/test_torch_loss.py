@@ -19,6 +19,7 @@ from repro.parallel.sharding import ParallelContext as JaxContext
 from repro_torch.core import loss as ploss
 from repro_torch.core.loss import sharded_cross_entropy
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+from torch_tune import clear_both, same_decisions, v5e_ctx
 
 LOSS_TOL = dict(rtol=1e-5, atol=0)
 GRAD_TOL = dict(rtol=2e-3, atol=1e-5)
@@ -121,7 +122,6 @@ def test_ce_bf16_grads_keep_the_inputs_dtypes(rng):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    ({"chunks_per_rank": "auto"}, NotImplementedError, "Queue 1 item 3"),
     ({"wire": "bf16"}, NotImplementedError, "Queue 1 item 1"),
     ({"chunks_per_rank": 0}, ValueError, ">= 1"),
 ])
@@ -131,7 +131,26 @@ def test_ce_refuses(rng, kw, err, match):
         sharded_cross_entropy(_ctx(), x, e, y, **kw)
 
 
-def test_ce_auto_granularity_from_the_context_raises(rng):
-    x, e, y = (torch.from_numpy(a) for a in _inputs(rng))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        sharded_cross_entropy(_ctx("auto"), x, e, y)
+def _auto_matches_jax(jctx, rng, port_ctx, jax_kw, port_kw):
+    """The port's 'auto' CE against the JAX package's: the same tune_ce_ring
+    decision under the same link constants, the same loss and gradients."""
+    x, e, y = _inputs(rng)
+    clear_both()
+    want = _jax(jctx, x, e, y, **jax_kw)
+    got = _port(x, e, y, port_ctx, **port_kw)
+    assert len(same_decisions()) == 1
+    np.testing.assert_allclose(float(got[0]), want[0], **LOSS_TOL)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL)
+
+
+def test_ce_auto_granularity_matches_jax(jctx, rng):
+    _auto_matches_jax(jctx, rng, v5e_ctx(mode="kernel"), {"chunks_per_rank": "auto"},
+                      {"chunks_per_rank": "auto"})
+
+
+def test_ce_auto_granularity_from_the_context_matches_jax(jctx, rng):
+    jc = jctx.with_fusion(JaxFusion(granularity="auto", wire="auto"))
+    _auto_matches_jax(jctx=jc, rng=rng, port_ctx=v5e_ctx(mode="kernel", granularity="auto",
+                                                         wire="auto"),
+                      jax_kw={}, port_kw={})

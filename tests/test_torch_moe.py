@@ -19,6 +19,7 @@ from test_parity_matrix import TOL, WIRE_TOL
 from repro.compat import make_mesh
 from repro.configs.registry import get_arch as jax_get_arch
 from repro.core.collectives import feasible_chunks_per_rank as jax_feasible
+from repro.core import moe_all_to_all as jmoe_a2a
 from repro.core.moe_all_to_all import moe_dispatch_all_to_all
 from repro.kernels.fused_gemm_a2a.ops import fused_gemm_a2a as jax_fused_gemm_a2a
 from repro.models import moe as jmoe
@@ -40,6 +41,7 @@ from repro_torch.models import moe
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 from repro_torch.serve.engine import DecodeEngine, Request
+from torch_tune import clear_both, same_decisions, v5e_ctx
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -331,11 +333,44 @@ def test_moe_apply_passes_fusion_settings_to_the_kernels(rng, monkeypatch):
     ctx = ParallelContext(device="cpu", fusion=FusionConfig(
         mode="kernel", schedule="oblivious", granularity=2, skew=1, wire="bf16"))
     moe.moe_apply(ctx, {k: t(v) for k, v in p.items()}, t(x), moe.MoEConfig(**cfg_kw))
-    assert seen == dict(act="silu", comm_aware=False, chunks_per_rank=2, skew=1, wire="bf16")
+    assert seen == dict(act="silu", comm_aware=False, chunks_per_rank=2, skew=1, wire="bf16",
+                        combine_wire="bf16")
 
 
-@pytest.mark.parametrize("what", ["shared", "fused", "auto", "aux_loss", "decode_ep",
-                                  "staged"])
+def test_moe_auto_choices_match_jax(rng, monkeypatch):
+    """Kernel mode's 'auto' granularity and wire resolve through
+    tune_all_to_all under the kernel's op, as the JAX package's
+    ``moe_all_to_all._resolve(kernel=True)`` resolves the dispatch and the
+    combine on the same shapes under the same link constants; the layer's
+    output stays the JAX package's."""
+    cfg_kw = dict(n_experts=8, top_k=2, d_model=16, d_ff=8)
+    p, x = _moe_case(rng, cfg_kw)
+    cfg = moe.MoEConfig(**cfg_kw)
+    seen = {}
+
+    def chain(*args, **kwargs):
+        seen.update(kwargs)
+        return gemm_ops.fused_moe_chain(*args, **kwargs)
+
+    monkeypatch.setattr(moe, "fused_moe_chain", chain)
+    params = {k: t(v) for k, v in p.items()}
+    C = moe._route(cfg, t(x).reshape(-1, 16), params["router"])[-1]
+    jc = JaxContext.from_mesh(make_mesh((1, 1), ("data", "model")),
+                              fusion=JaxFusion(mode="kernel", granularity="auto", wire="auto"))
+    common = dict(sub_dim=C, chunk_elems=8 * C * 16, dtype_bytes=4, kernel=True)
+    clear_both()
+    jd = jmoe_a2a._resolve(jc, None, None, flops_per_dest=0.0, **common)
+    jcomb = jmoe_a2a._resolve(jc, 1, None, flops_per_dest=2.0 * 3 * 8 * C * 16 * 8, **common)
+    got = moe.moe_apply(v5e_ctx(mode="kernel", granularity="auto", wire="auto"), params, t(x), cfg)
+    assert len(same_decisions()) == 2
+    assert (seen["chunks_per_rank"], seen["wire"], seen["combine_wire"]) == (
+        jd.q, jd.wire, jcomb.wire)
+    want = np.asarray(jmoe.moe_apply(jc.with_fusion(JaxFusion(mode="bulk")), p, x,
+                                     jmoe.MoEConfig(**cfg_kw)))
+    np.testing.assert_allclose(got.numpy(), want, **TOL["f32"])
+
+
+@pytest.mark.parametrize("what", ["shared", "fused", "aux_loss", "decode_ep", "staged"])
 def test_moe_unported_paths_raise(rng, what):
     cfg_kw = dict(n_experts=4, top_k=2, d_model=16, d_ff=8)
     p, x = _moe_case(rng, cfg_kw)
@@ -346,10 +381,6 @@ def test_moe_unported_paths_raise(rng, what):
                          torch.float32)
         elif what == "fused":
             moe.moe_apply(ctx, params, t(x), cfg, mode="fused")
-        elif what == "auto":
-            actx = ParallelContext(device="cpu", fusion=FusionConfig(mode="kernel",
-                                                                     granularity="auto"))
-            moe.moe_apply(actx, params, t(x), cfg)
         elif what == "aux_loss":
             moe.moe_aux_loss(None, None, 4)
         elif what == "decode_ep":

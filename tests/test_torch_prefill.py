@@ -18,15 +18,19 @@ import pytest
 import torch
 from test_parity_matrix import TOL
 
+from repro.compat import make_mesh
 from repro.configs.registry import get_arch as jax_get_arch
 from repro.core import allgather_matmul as jagmm
 from repro.models import layers as jlayers
 from repro.models.common import split_params
+from repro.parallel.sharding import FusionConfig as JaxFusion
+from repro.parallel.sharding import ParallelContext as JaxContext
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.allgather_matmul import allgather_matmul, matmul_reducescatter
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+from torch_tune import clear_both, same_decisions, v5e_ctx
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -61,14 +65,17 @@ def test_allgather_matmul_and_reducescatter_match_jax(ctx, rng, jax_mode):
 @pytest.mark.parametrize("op", [allgather_matmul, matmul_reducescatter])
 def test_sequence_parallel_products_refuse_fused_mode(op):
     """Fused mode runs at op level (at tp = 1 the ring has no hops and gives
-    the product) but refuses the autotuner's 'auto' granularity; the
-    sequence-sharded layers refuse fused mode (the KV and CE rings are
-    left for later)."""
+    the product), its 'auto' granularity resolving to the JAX package's
+    decision under the same link constants; the sequence-sharded layers
+    refuse fused mode (the KV and CE rings are left for later)."""
     x, w = torch.randn(1, 4, 8), torch.randn(8, 8)
     torch.testing.assert_close(op(ParallelContext(device="cpu"), x, w), x @ w)
-    auto = ParallelContext(device="cpu", fusion=FusionConfig(granularity="auto"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        op(auto, x, w)
+    jc = JaxContext.from_mesh(make_mesh((1, 1), ("data", "model")),
+                              fusion=JaxFusion(granularity="auto"))
+    clear_both()
+    jax.eval_shape(lambda x, w: getattr(jagmm, op.__name__)(jc, x, w), x.numpy(), w.numpy())
+    torch.testing.assert_close(op(v5e_ctx(granularity="auto"), x, w), x @ w)
+    assert len(same_decisions()) == 1
     p = {"w_gate": w, "w_up": w, "w_down": w}
     with pytest.raises(NotImplementedError, match="Queue 1 items 1 and 4"):
         layers.mlp_apply(ParallelContext(device="cpu"), p, x, seq_sharded=True)

@@ -11,6 +11,8 @@ CPU processes (``tests/torch_world.py``), each rank on its shard.  f32
 throughout: ``TOL["f32"]`` of tests/test_parity_matrix.py (rtol = atol =
 3e-4, sums in another order); a compressed wire: its ``WIRE_TOL``.
 """
+import dataclasses
+import json
 import os
 import re
 import subprocess
@@ -26,6 +28,8 @@ import torch
 from repro.compat import make_mesh
 from repro.configs.registry import get_arch as jax_get_arch
 from repro.core import allgather_matmul as jagmm
+from repro.core import autotune as jtune
+from repro.core import perfmodel as jperf
 from repro.core.matmul_allreduce import matmul_allreduce as jax_matmul_allreduce
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
@@ -37,6 +41,7 @@ from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.parallel.sharding import ParallelContext, shard_leaf
+from torch_tune import as_json, clear_both
 from torch_world import World
 
 TOL = dict(rtol=3e-4, atol=3e-4)                 # TOL["f32"]
@@ -255,12 +260,29 @@ def test_shard_leaf_and_params_from_numpy_follow_the_reference_specs(jax_glm):
             shard_leaf(x, ("tp", "heads"), c)
 
 
+def test_auto_choices_resolve_at_tp2(world, rng):
+    """'auto' granularity resolves at tp > 1 through the autotuner: every rank
+    takes the JAX package's decision under the same link constants (V5E),
+    and the product is the JAX package's."""
+    x = rng.standard_normal((8, 1, 64)).astype(np.float32)
+    w = rng.standard_normal((64, 32)).astype(np.float32)
+    clear_both()
+    want = np.asarray(jax.jit(lambda x, w: jax_matmul_allreduce(
+        jctx(2, granularity="auto"), x, w))(x, w))
+    jdec = sorted((json.dumps(as_json(k), sort_keys=True), d.q, d.wire)
+                  for k, d in jtune.cache_info().items())
+    for got, dec in run(world, "auto_task", 2, x=x, w=w, op="matmul_allreduce",
+                        hw=dataclasses.asdict(jperf.V5E)):
+        assert dec == jdec
+        np.testing.assert_allclose(got, want, **TOL)
+
+
 @pytest.mark.parametrize("what,item", [
-    ("kernel", "item 1 .*real-peer"), ("auto", "item 3"), ("moe", "item 5"),
+    ("kernel", "item 1 .*real-peer"), ("moe", "item 5"),
     ("prefill", "item 1 .*prefill"), ("rwkv6", "item 7"), ("grad", "item 1 .*training")])
 def test_paths_left_for_later_raise_at_tp2(world, what, item):
-    """Kernel mode at tp > 1 raises (no fallback to fused mode), as do the
-    'auto' choices, MoE, prefill, rwkv6 and gradients through the rings."""
+    """Kernel mode at tp > 1 raises (no fallback to fused mode), as do MoE,
+    prefill, rwkv6 and gradients through the rings."""
     for msg in run(world, "refusal_task", 2, what=what):
         assert msg is not None and re.search(f"ROADMAP Queue 1 {item}", msg), msg
 

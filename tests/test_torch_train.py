@@ -10,6 +10,7 @@ rtol 1e-5 and every parameter's gradient at rtol 2e-3, atol 1e-5 (the
 bounds of ``tests/test_loss.py``); six steps' losses at rtol 1e-4.
 """
 import dataclasses
+import re
 
 import jax
 import numpy as np
@@ -35,6 +36,8 @@ from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 from repro_torch.train import grad_compression as pcomp
 from repro_torch.train import optimizer as popt
 from repro_torch.train import step as pstep
+from repro_torch.core import autotune as ptune
+from torch_tune import jax_decision
 
 LOSS = dict(rtol=1e-5, atol=0)
 GRAD = dict(rtol=2e-3, atol=1e-5)
@@ -212,13 +215,59 @@ def test_launcher_matches_the_jax_loop(monkeypatch, jctx, models, capsys):
     assert out.count("gnorm") == 3 and "done at step 6" in out
 
 
+TRAIN_CPU = ["--reduced", "--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "32"]
+
+
+def _auto_run(argv, measured=()):
+    """The launcher's losses with ``argv`` on a cleared tuner cache, and its
+    decisions, each checked against the JAX package's on the same key
+    (except the ops in ``measured``, whose decisions calibration took)."""
+    ptune.clear_cache()
+    losses = launch_train.main(TRAIN_CPU + argv)
+    taken = ptune.cache_info()
+    assert {k.op for k in taken} >= {"ce_ring"}
+    for key, dec in taken.items():
+        if key.op not in measured:
+            assert tuple(dec) == jax_decision(key), key
+    return losses, taken
+
+
+@pytest.mark.parametrize("flag", ["granularity_auto", "calibrate", "tune_cache"])
+def test_launcher_autotune_flags(tmp_path, capsys, flag):
+    """--granularity auto, --calibrate and --tune-cache run: the CE takes
+    the sub-chunks the tuner chose (the JAX package's decision), and the
+    losses equal a run pinned to that q."""
+    losses, taken = _auto_run(["--granularity", "auto"])
+    (ce,) = [d for k, d in taken.items() if k.op == "ce_ring"]
+    if flag == "granularity_auto":
+        ptune.clear_cache()
+        assert launch_train.main(TRAIN_CPU + ["--granularity", str(ce.q)]) == losses
+    elif flag == "calibrate":
+        got, _ = _auto_run(["--granularity", "auto", "--wire", "auto", "--calibrate",
+                            "--calibrate-iters", "1"],
+                           measured=("allgather_matmul", "matmul_reducescatter"))
+        out = capsys.readouterr().out
+        assert re.search(r"calibrate: 2/3 newly traced hot keys", out), out
+        assert re.search(r"calibrate: ce_ring .* keeps the model's decision .* waits for "
+                         r"ROADMAP Queue 1 item 1", out), out
+        np.testing.assert_allclose(got, losses, rtol=1e-6)
+    else:
+        path = str(tmp_path / "tune.json")
+        _auto_run(["--granularity", "auto", "--tune-cache", path])
+        ptune.clear_cache()
+        assert ptune.load_cache(path) == len(taken)
+        assert ptune.cache_info() == taken
+        ptune.clear_cache()
+        assert launch_train.main(TRAIN_CPU + ["--granularity", "auto",
+                                              "--tune-cache", path]) == losses
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--auto-fuse"], "item 7"), (["--explain-comm"], "item 7"), (["--calibrate"], "item 3"),
-    (["--granularity", "auto"], "item 3"), (["--skew-schedule"], "item 7"),
+    (["--auto-fuse"], "item 7"), (["--explain-comm"], "item 7"), (["--skew-schedule"], "item 7"),
     (["--chaos", "rate=0.1"], "item 7"), (["--degrade"], "item 7"),
     (["--ckpt-dir", "x"], "item 7"), (["--ckpt-every", "5"], "item 7"),
     (["--heartbeat-dir", "x"], "item 7"), (["--coordinator", "h:1"], "item 7"),
-    (["--production-mesh"], "item 1"), (["--tune-cache", "x"], "item 3"),
+    (["--production-mesh"], "item 1"),
     (["--arch", "rwkv6-7b"], "item 7"), (["--arch", "dlrm"], "item 6"),
     (["--arch", "dbrx-132b"], "item 5"),
 ])

@@ -52,8 +52,12 @@ def _rank_main(rank, init_method, inbox, outbox):
             break
         name, tp, kwargs = item
 
-        def ctx(mode="fused", **fusion):
-            return ParallelContext(device="cpu", tp=tp, group=groups[tp],
+        def ctx(mode="fused", hw=None, **fusion):
+            """``hw``: the link constants as a dict (None: the world's class)."""
+            from repro_torch.core.perfmodel import HardwareModel, MeshHardwareModel
+
+            link = None if hw is None else MeshHardwareModel.uniform(HardwareModel(**hw))
+            return ParallelContext(device="cpu", tp=tp, group=groups[tp], hw=link,
                                    fusion=FusionConfig(mode=mode, **fusion))
         try:
             outbox.put((rank, "ok", TASKS[name](ctx, **kwargs)))
@@ -326,8 +330,6 @@ def refusal_task(ctx, what):
     try:
         if what == "kernel":
             matmul_allreduce(ctx("kernel"), torch.ones(4, 8), torch.ones(8, 4))
-        elif what == "auto":
-            matmul_allreduce(ctx(granularity="auto"), torch.ones(4, 8), torch.ones(8, 4))
         elif what == "moe":
             get_arch("dbrx-132b").reduced().init_params(torch.Generator(), ctx())
         elif what == "prefill":
@@ -341,3 +343,72 @@ def refusal_task(ctx, what):
     except NotImplementedError as e:
         return str(e)
     return None
+
+
+def _decisions():
+    """This rank's cached autotune decisions: (key JSON, q, wire), sorted."""
+    import json
+
+    from repro_torch.core import autotune
+
+    return sorted((json.dumps(autotune._key_to_json(k), sort_keys=True), d.q, d.wire)
+                  for k, d in autotune.cache_info().items())
+
+
+@task
+def auto_task(ctx, x, w, op, hw=None, q="auto", wire="f32"):
+    """``op`` ("matmul_allreduce": x [..., K], w [K, N] split by K;
+    "allgather_matmul": x [B, S, K] by S, w [K, N] by N) with the given
+    choices on a cleared tuner cache under the link constants ``hw``; this
+    rank's output and its decisions."""
+    from repro_torch.core import autotune
+    from repro_torch.core.allgather_matmul import allgather_matmul
+    from repro_torch.core.matmul_allreduce import matmul_allreduce
+
+    c = ctx("fused", hw=hw, granularity=q, wire=wire)
+    autotune.clear_cache()
+    if op == "matmul_allreduce":
+        y = matmul_allreduce(c, _block(x, c, x.ndim - 1), _block(w, c, 0))
+    else:
+        y = allgather_matmul(c, _block(x, c, 1), _block(w, c, 1))
+    return y.numpy(), _decisions()
+
+
+@task
+def calibrate_task(ctx, x, w, hw=None, fail=None):
+    """matmul_allreduce's 'auto' key re-scored by measured_calibration_pass
+    (one iteration a candidate); ``fail`` names a wire whose candidates
+    raise on rank 1 only.  This rank's decisions and the report."""
+    from repro_torch.core import autotune, calibrate
+    from repro_torch.core.matmul_allreduce import matmul_allreduce
+
+    c = ctx("fused", hw=hw, granularity="auto", wire="auto")
+    autotune.clear_cache()
+    matmul_allreduce(c, _block(x, c, x.ndim - 1), _block(w, c, 0))
+    builder = calibrate._BUILDERS["matmul_allreduce"]
+    if fail is not None:
+        def failing(cx, key):
+            build = builder(cx, key)
+
+            def pick(dec):
+                if dec.wire == fail and cx.tp_rank == 1:
+                    raise RuntimeError(f"no {fail} wire on rank 1")
+                return build(dec)
+            return pick
+        calibrate._BUILDERS["matmul_allreduce"] = failing
+    try:
+        rep = calibrate.measured_calibration_pass(c, iters=1, warmup=0)
+    finally:
+        calibrate._BUILDERS["matmul_allreduce"] = builder
+    return _decisions(), [(tuple(r["model_q"]), tuple(r["measured_q"]),
+                           sorted((tuple(d), t) for d, t in r["times"].items()),
+                           sorted(tuple(d) for d in r["excluded"]))
+                          for r in rep.values()]
+
+
+@task
+def link_task(ctx):
+    """The link constants a context of this world takes by default."""
+    import dataclasses
+
+    return dataclasses.asdict(ctx().hw.default)
