@@ -116,8 +116,8 @@ prints one line, and any failure exits non-zero:
      128, bf16, causal) and edge shapes (non-causal, S 1/37/127/128/129/
      255/1000/2049, 16 query heads per kv head, hd 64, f32, one kv head per
      query head), each on the path flash_path chooses and every bf16 hd 128
-     shape on the CUDA-core path too; hd 96, a window, a softcap or f32
-     forced onto the tile path raising
+     shape on the CUDA-core path too; hd 96, a window or softcap of 0 or
+     f32 forced onto the tile path raising
  20. full-width chatglm3-6b prefill (4 x 2048 seeded tokens) through the
      registry's bundle in kernel and bulk mode: launch counts (28 flash in
      kernel mode, all on the tile path; 0 in bulk mode, which runs
@@ -146,9 +146,9 @@ prints one line, and any failure exits non-zero:
      chunk 8, the default pool of 512 blocks), kernel mode against bulk
      mode teacher-forced (bound: LOGITS_TOL_FACTOR x bulk mode's distance
      from an exact f32 evaluation), both token streams; (b) prompts of 1,
-     37, 300 and 1000 seeded tokens, 8 new each: the same bound, and each
+     37, 300 and 500 seeded tokens, 8 new each: the same bound, and each
      request's first generated token's logits (bulk) against a dense
-     prefill_forward of its prompt; (c) (b)'s traffic on 82 blocks, where
+     prefill_forward of its prompt; (c) (b)'s traffic on 51 blocks, where
      admissions are deferred and a request is preempted, every request
      drained; (d) launches per step (28 fused, tile path at the chunk's 32
      rows, stream path at C = 1's 4; no flash, no gemv); (e) serve_step at
@@ -187,7 +187,8 @@ prints one line, and any failure exits non-zero:
      checks), and the streams against phase 5's kernel mode at tp = 1 (a
      first difference only at a near tie of phase 5's logits)
  29. spawned tp = 4 and tp = 2 (granularity 2) worlds on the card,
-     teacher-forced on phase 5's inputs, logits against phase 5's exact f32
+     teacher-forced on the first TP_STEPS (6) of phase 5's inputs, logits
+     against phase 5's exact f32
      evaluation: fused (comm_aware) and oblivious within
      LOGITS_TOL_FACTOR x bulk's own distance at that tp, skew 1
      bit-identical to skew 0, a bf16 and an fp8 wire within their stated
@@ -213,12 +214,40 @@ prints one line, and any failure exits non-zero:
      at a near tie); (b) a second launch from the saved cache sweeps no new
      key and serves the same streams with the same decisions.  Labelled
      "one card, N processes, wire staged through host: not NVLink"
+ 32. flash_attention with gemma2-27b's sliding window (4096) and softcap
+     (50) against its plain version: [1, 8192, 32/16, 128] bf16 (scale
+     144^-0.5, q scaled so that the scores reach 2-3x the cap; the share the
+     cap bends printed) with both, either alone, a window of 1000 at S =
+     3001 (causal and not), hd 64 in bf16 and the CUDA-core path in f32 at hd
+     64 and 128, every bf16 hd 128 shape also on the CUDA-core path; m and l
+     with both against the plain version's; the op's gradient with both
+     against bulk mode's autograd through span_attention, each from an
+     exact evaluation; times at [4, 2048, 32/16, 128] with and without the
+     cap and at [1, 32768, 32/16, 128] causal, windowed and both, beside
+     their bounds and flex_attention
+ 33. full-width gemma2-27b (46 layers, seed-0 weights) prefill of 1 x 8192
+     seeded tokens in kernel and bulk mode: 46 flash launches on the tile
+     path (23 windowed, all capped), every layer's flash output against the
+     plain version on its input, logits against an exact f32 evaluation
+     (layers upcast one at a time); 8 greedy decode steps from position 8192
+     in an 8200-position cache, the first against a prefill over 8193
+     tokens, both modes' streams; prefill times, profile, peak memory
+ 34. gemma2-27b decode through DecodeEngine at the launcher's traffic
+     (batch 4, 4 requests x 8 tokens): 46 fused launches a step on the stream
+     path, teacher-forced logits against bulk mode and exact f32, streams;
+     the launcher itself, --arch gemma2-27b --paged (block 16, chunk 8), in
+     both modes: 46 fused launches a step (the tile path at the chunk's 32
+     rows), teacher-forced logits, streams; times of decode and serve steps,
+     profiles, the fused kernel at [4,36864]@[36864,4608] and at 32 rows
+     beside torch.matmul and its bound
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
 before phase 25; phases 28-29 run in processes of their own, each holding
 its shards; phase 30 draws the seed-0 weights again, phase 31 runs in
-processes of its own.  Phases 5, 9 and 17
+processes of its own; phase 33 draws gemma2-27b's, freed after phase 34.
+Every line ends with the seconds since the previous line and since the
+start; the end line gives each phase's seconds.  Phases 5, 9 and 17
 and the end print how many launch plans the plan-cached wrappers hold.
 Then one JSON line per the kernels, the card's name and power limit, and
 the result line.  Float32
@@ -336,8 +365,26 @@ TRAIN_LR = "3e-5"
 TRAIN_LOSS_REL = 0.01
 
 
+# seconds each phase took: a phase's time runs from the previous line that
+# say() printed to its own last line
+CLOCK = {"start": time.perf_counter(), "last": time.perf_counter(), "phases": {}}
+
+
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    """One result line of ``phase``, ending with the seconds since the
+    previous line (this phase's own time, or its part since its previous
+    line) and since the start of the script."""
+    now = time.perf_counter()
+    took = now - CLOCK["last"]
+    CLOCK["last"] = now
+    CLOCK["phases"][phase] = CLOCK["phases"].get(phase, 0.0) + took
+    print(f"[{phase}] {msg} [{took:.1f} s; {now - CLOCK['start']:.1f} s since the start]",
+          flush=True)
+
+
+def phase_seconds() -> str:
+    """Every phase's seconds, in the order the phases ran."""
+    return ", ".join(f"{p_} {t_:.1f}" for p_, t_ in CLOCK["phases"].items())
 
 
 # The tensor-parallel world (phases 28-29): full-width chatglm3-6b decode at
@@ -345,6 +392,11 @@ def say(phase, msg):
 # 2 x 2 ring chunks), as processes that share the one card in a gloo world
 # whose wire goes through host memory.  Its times say nothing about NVLink.
 TP_WORLD, TP_PAIR, TP_PAIR_Q = 4, 2, 2
+# Phase 29's spawned worlds replay the first TP_STEPS of phase 5's 12
+# teacher-forced steps a setting (cut from all 12: on one H100 80GB HBM3 a
+# step of the tp = 4 world takes about 0.75 s, and its six settings took 63
+# s of a 719 s run of this script)
+TP_STEPS = 6
 TP_LABEL = "one card, {} processes, wire staged through host"
 # An fp8 wire (e4m3 with a per-chunk scale) keeps 3 mantissa bits against
 # bf16's 7: each value it carries rounds by up to 2^-4 relative where the f32
@@ -384,15 +436,16 @@ def time_ms(fn, iters=50, warmup=5) -> float:
 def split_ms(fn, calls=1000, prof_calls=200) -> tuple[float, float, float]:
     """(device ms per call, host ms per call, device ops per call) of ``fn``:
     the device time is the sum of the CUDA activity that torch.profiler
-    records over ``prof_calls`` calls; the host time is time.perf_counter
-    over ``calls`` calls, profiler off, divided by the count (the enqueue:
-    no synchronise inside the window)."""
+    records over ``prof_calls`` calls (CUDA activity only: see
+    :func:`profile_device`); the host time is time.perf_counter over
+    ``calls`` calls, profiler off, divided by the count (the enqueue: no
+    synchronise inside the window)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(20):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(prof_calls):
             fn()
         torch.cuda.synchronize()
@@ -606,6 +659,24 @@ def serve_requests(step, bundle, batch, n_req, max_new):
     return reqs, dt
 
 
+def near_tie_flips(streams_k, streams_b, chose, tol) -> list[str]:
+    """Two runs' token streams (per request or slot) may part only at a
+    near tie: where they first differ, the yardstick run's logits that chose
+    the token (``chose(request, index)``) have a top-2 gap of at most twice
+    ``tol`` (each side within it).  Returns a note per differing stream."""
+    flips = []
+    for key, (sk, sb) in enumerate(zip(streams_k, streams_b)):
+        diff = [i for i, (a, b) in enumerate(zip(sk, sb)) if a != b]
+        if diff:
+            top = chose(key, diff[0]).float().topk(2).values
+            gap = (top[0] - top[1]).item()
+            flips.append(f"stream {key} token {diff[0]}: top-2 gap {gap:.3g} (allowed "
+                         f"{2 * tol:.3g})")
+            if gap > 2 * tol:
+                raise AssertionError("token streams differ beyond a near tie: " + flips[-1])
+    return flips
+
+
 def timed_decode_runs(serve, dec_k, dec_b) -> str:
     """ms/step and tok/s of whole drains, in turns kernel, bulk, bulk, kernel."""
     def serve_timed(decode):
@@ -805,7 +876,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp_phases(card)
     autotune_phases(card)
-    say("end", f"plans cached: {plan_counts()}")
+    flash_row = next(k_ for k_ in kernels if k_["name"] == "flash_attention")
+    flash_row.update(flash_window_phase(card, gen))
+    flash_gemma, fused_gemma = gemma2_phases(card, gen)
+    flash_row.update(flash_gemma)
+    next(k_ for k_ in kernels if k_["name"] == "fused_matmul_allreduce").update(fused_gemma)
+    say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -890,21 +966,14 @@ def chatglm_decode(card, x, w, fused_err, gemv_err, main_path) -> list[dict]:
     if err_kb > logits_tol:
         raise AssertionError(f"teacher-forced logits: kernel vs bulk {err_kb:.3g} > "
                              f"{LOGITS_TOL_FACTOR} x bulk vs exact f32 {err_bx:.3g}")
-    differing, flips = 0, []
-    for slot, (rk, rb) in enumerate(zip(reqs_k, reqs_b)):
-        if not all(0 <= t < cfg.vocab for t in rk.tokens + rb.tokens):
-            raise AssertionError(f"request {rk.uid}: token out of range")
-        diff = [t for t, (a, b) in enumerate(zip(rk.tokens, rb.tokens)) if a != b]
-        differing += len(diff)
-        if diff:
-            # the first differing token of a request must be a near tie in
-            # bulk mode (each side within logits_tol: a gap of at most twice it)
-            t = diff[0]
-            top = logits_bt[len(rk.prompt) - 1 + t][slot, 0].topk(2).values
-            gap, bound = (top[0] - top[1]).item(), 2 * logits_tol
-            flips.append(f"req {rk.uid} token {t}: top-2 gap {gap:.3g} (allowed {bound:.3g})")
-            if gap > bound:
-                raise AssertionError("token streams differ beyond a near tie: " + flips[-1])
+    if not all(0 <= t < cfg.vocab for r in reqs_k + reqs_b for t in r.tokens):
+        raise AssertionError("a token out of range")
+    differing = sum(a != b for rk, rb in zip(reqs_k, reqs_b) for a, b in zip(rk.tokens, rb.tokens))
+    # request r sits in slot r from the first step: its token t was chosen
+    # at step len(prompt) - 1 + t
+    flips = near_tie_flips([r.tokens for r in reqs_k], [r.tokens for r in reqs_b],
+                           lambda r, t: logits_bt[len(reqs_k[r].prompt) - 1 + t][r, 0],
+                           logits_tol)
     say(5, f"chatglm3-6b full width ({cfg.n_layers}L d{cfg.d_model}, {n_params / 1e9:.2f}B "
            f"params, {cfg.param_dtype}, init {init_s:.1f}s), batch {batch}, {n_req} requests x {max_new} "
            f"tokens: {steps} decode steps, fused kernel launches {fused_n} (= {cfg.n_layers} x "
@@ -2141,30 +2210,35 @@ def flash_phase(gen) -> tuple:
     y = x[..., :64].contiguous()
     z = randn(gen, (1, 8, 2, 128), f32)
     for what, call in (("hd 96", lambda: flash_attention(x, x, x)),
-                       ("a window", lambda: flash_attention(y, y, y, window=4)),
-                       ("a softcap", lambda: flash_attention(y, y, y, softcap=2.0)),
+                       ("a window of 0", lambda: flash_attention(y, y, y, window=0)),
+                       ("a softcap of 0", lambda: flash_attention(y, y, y, softcap=0.0)),
                        ("f32 on the tile path", lambda: flash_attention(z, z, z, _path="tile"))):
         try:
             call()
         except (ValueError, NotImplementedError):
             continue
-        raise AssertionError(f"flash_attention took {what}: the kernels take none")
+        raise AssertionError(f"flash_attention took {what}: it must raise")
     say(19, f"flash_attention vs plain (bound: bf16 {BF16_TOL}, f32 {F32_TOL}), max abs/rel err "
             f"per path (the first is flash_path's choice): "
             + "; ".join(f"{n_} " + ", ".join(f"{p_} {e[0]:.3g}/{e[1]:.3g}" for p_, e in pe.items())
                         for n_, pe in errs.items())
             + f" (main: [{GLM_B},{GLM_S},{hq},{hd}] q over {hkv} kv heads, bf16, causal); "
-              f"hd 96, a window, a softcap and f32 forced onto the tile path raise")
+              f"hd 96, a window or softcap of 0 and f32 forced onto the tile path raise (phase "
+              f"32 computes windows and softcaps)")
     return errs["main"]["tile"]
 
 
-def flash_bound(b, s, hq, hkv, d, itemsize, causal=True):
+def flash_bound(b, s, hq, hkv, d, itemsize, causal=True, window=None):
     """Least time for one flash call, (ms, bound_by, bytes, operations): q, k
     and v read once and o written once over HBM, or the two products over
-    the key pairs the mask keeps (s (s + 1) / 2 per head when causal) at the
-    inputs' peak (bf16 tensor cores, or f32)."""
+    the key pairs the mask keeps (s (s + 1) / 2 per head when causal; with a
+    window w, min(i + 1, w) keys for causal row i) at the inputs' peak
+    (bf16 tensor cores, or f32)."""
     n_bytes = 2 * b * s * (hq + hkv) * d * itemsize
-    ops = 4 * b * hq * d * (s * (s + 1) // 2 if causal else s * s)
+    w = min(window or s, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w if causal else sum(s - max(0, i - w + 1)
+                                                              for i in range(s))
+    ops = 4 * b * hq * d * pairs
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / (BF16_FLOPS if itemsize == 2 else F32_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, ops
@@ -2288,20 +2362,10 @@ def chatglm_prefill_phases(card, gen) -> tuple[list[dict], dict]:
                              f"prefill's distance {d_px:.3g} from exact f32")
     stream = lambda st: torch.cat([tok for tok, _ in st], dim=1)
     sk, sb = stream(steps_k), stream(steps_b)
-    flips = []
-    for slot in range(B):
-        diff = (sk[slot] != sb[slot]).nonzero()
-        if len(diff):
-            # the first differing token must be a near tie in bulk mode: the
-            # logits that chose it (the prefill's for the first) have a top-2
-            # gap of at most twice the bound
-            t_ = int(diff[0, 0])
-            chose = logits_b if t_ == 0 else steps_b[t_ - 1][1]
-            top = chose[slot, 0].topk(2).values
-            gap = (top[0] - top[1]).item()
-            flips.append(f"slot {slot} token {t_}: top-2 gap {gap:.3g} (allowed {2 * tol:.3g})")
-            if gap > 2 * tol:
-                raise AssertionError("decode streams differ beyond a near tie: " + flips[-1])
+    # the logits that chose token t of a slot: the prefill's for the first
+    flips = near_tie_flips(sk.tolist(), sb.tolist(),
+                           lambda s_, t_: (logits_b if t_ == 0 else steps_b[t_ - 1][1])[s_, 0],
+                           tol)
     say(20, f"hand-off: {GLM_STEPS} greedy decode steps from position {S} in a {cfg.max_seq}-"
             f"position cache copied from the prefill's: launches fused GEMV "
             f"{launch_d['fused_matmul_allreduce']} (= {L} x {GLM_STEPS}, all on the {dec_path} "
@@ -2354,15 +2418,20 @@ def chatglm_prefill_phases(card, gen) -> tuple[list[dict], dict]:
 # ---------------------------------------------------------------------------
 # phases 25-27: dense training of chatglm3-6b
 # ---------------------------------------------------------------------------
-def dense_attention(q, k, v, scale):
-    """Causal GQA attention in q's dtype, every score at once (the exact
-    evaluation of phase 25: f32 for bf16 inputs, f64 for f32 ones)."""
+def dense_attention(q, k, v, scale, window=None, cap=None):
+    """Causal GQA attention in q's dtype, every score at once, with an
+    optional sliding window and softcap (the exact evaluation of phases 25
+    and 32: f32 for bf16 inputs, f64 for f32 ones)."""
     g = q.shape[2] // k.shape[2]
     kk, vv = (a.repeat_interleave(g, dim=2) for a in (k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", q, kk) * scale
-    n = q.shape[1]
-    s = s.masked_fill(~torch.tril(torch.ones((n, n), dtype=torch.bool, device=q.device)),
-                      float("-inf"))
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    i = torch.arange(q.shape[1], device=q.device)
+    keep = i[None, :] <= i[:, None]
+    if window is not None:
+        keep &= i[:, None] - i[None, :] < window
+    s = s.masked_fill(~keep, float("-inf"))
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vv)
 
 
@@ -2400,8 +2469,8 @@ def flash_train_phase(gen) -> dict:
         scale = d ** -0.5
         # (a) the statistics, and the output with and without them (direct
         # launches: comparisons, not the main path's)
-        (o_s, m_k, l_k), took = flash_ops._launch(q, k, v, scale, True, None, True)
-        o_n, _ = flash_ops._launch(q, k, v, scale, True, None, False)
+        (o_s, m_k, l_k), took = flash_ops._launch(q, k, v, scale, True, None, None, None, True)
+        o_n, _ = flash_ops._launch(q, k, v, scale, True, None, None, None, False)
         if took != path:
             raise AssertionError(f"flash stats {name}: took the {took} path, expected {path}")
         if not torch.equal(o_s, o_n):
@@ -2540,7 +2609,7 @@ class StepClock:
                 from torch.profiler import ProfilerActivity, profile
 
                 torch.cuda.synchronize()
-                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof = profile(activities=[ProfilerActivity.CUDA])   # as profile_device
                 self.prof.start()
                 self.t0 = time.perf_counter()
         ev = torch.cuda.Event(enable_timing=True)
@@ -2812,15 +2881,34 @@ def long_prefill_phase(card, gen, bundle, params, pre_k):
 
 # Paged serving (phases 23-24): the launcher's defaults (batch 4, block 16,
 # chunk 8, a pool of half the dense B x S_max budget: 512 blocks); (b)'s
-# prompts of 1, 37, 300 and 1000 seeded tokens, 8 new tokens each; (c) the
-# same traffic on 82 blocks (1312 tokens).  The engine allocates a prompt's
+# prompts of 1, 37, 300 and 500 seeded tokens, 8 new tokens each; (c) the
+# same traffic on 51 blocks (816 tokens).  The engine allocates a prompt's
 # blocks whole at admission, so a request grows only while it decodes, a
-# block per 16 tokens: on 80 blocks the 1000-token prompt waits until the
-# 300-token one has finished and nothing is ever preempted; on 82 it is
-# admitted beside it, the pool fills, and the 300-token request's growth at
-# position 304 preempts it.
+# block per 16 tokens: on 50 blocks the 500-token prompt (32 blocks) waits
+# until the 300-token one (19) has finished and nothing is ever preempted;
+# on 51 it is admitted beside it, the pool fills, and the 300-token
+# request's growth at position 304 preempts it.  (The longest prompt was
+# 1000 tokens on 82 blocks: its chunk steps and their replays took 84 s of
+# a 771 s run on one H100 80GB HBM3.)
 PAGED_B, PAGED_BLOCK, PAGED_CHUNK = 4, 16, 8
-PAGED_PROMPTS, PAGED_NEW, PAGED_TIGHT = (1, 37, 300, 1000), 8, 82
+PAGED_PROMPTS, PAGED_NEW, PAGED_TIGHT = (1, 37, 300, 500), 8, 51
+# gemma2-27b (phases 32-34), full width: 46 layers, 54.5 GB of bf16 weights
+# on one card.  A prefill of 1 x GEMMA_S seeded tokens, past the window of
+# 4096 on its 23 local layers (at 2048 every layer would see every key),
+# then GEMMA_STEPS greedy decode steps from position GEMMA_S in a cache of
+# GEMMA_S + GEMMA_STEPS positions; decode and paged serving at the
+# launcher's traffic, batch 4, GEMMA_REQS prompts x GEMMA_NEW new tokens.
+GEMMA_S, GEMMA_STEPS, GEMMA_REQS, GEMMA_NEW = 8192, 8, 4, 8
+# The teacher-forced bulk and exact f32 decode replays run on a cache of
+# GEMMA_TF_SEQ positions (the requests end by position 13): the launcher's
+# 4096-position cache in f32 would take 12.3 GB beside the weights.
+GEMMA_TF_SEQ = 64
+# q is scaled by FLASH_Q_SCALE in phase 32 so that gemma2's scores, (q . k)
+# / 12 at head size 128, have a spread of about 19 and reach 2-3 times the
+# cap of 50: the cap bends their tails
+FLASH_Q_SCALE = 20.0
+FLASH_LONG_S = 32768     # the reference's prefill_32k length, batch 1
+
 
 
 def record(fn, log):
@@ -2856,6 +2944,23 @@ def tracked_engine(log, where):
                     where[(r.uid, k)] = (len(log) - 1, i)
             return out
     return Tracked
+
+
+def recorded_launch(argv, params, log, where):
+    """``launch.serve.main(argv)`` (a --paged serve) with ``params`` swapped
+    in for the weights its init_params would draw (the same seed on the
+    card: the same values), every serve step recorded in ``log``
+    (:func:`record`) and each generated token's step and slot in ``where``
+    (:func:`tracked_engine`); returns the finished requests."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as launch_serve
+
+    real_fn = registry.ArchBundle.serve_step_fn
+    with swapped(registry.ArchBundle, "init_params", lambda self, g, ctx=None: params), \
+            swapped(registry.ArchBundle, "serve_step_fn",
+                    lambda self, c: record(real_fn(self, c), log)), \
+            swapped(launch_serve, "PagedDecodeEngine", tracked_engine(log, where)):
+        return launch_serve.main(argv)
 
 
 def check_step_launches(log, mode, L, d_ff, d_model) -> dict:
@@ -2908,7 +3013,6 @@ def paged_phases(card, gen, bundle, params) -> dict:
     synchronisation inside ``serve_step``; (f) the fused kernel at the
     chunk's rows against its plain version; then the times.  Returns the
     fused kernel's numbers at the chunk's rows for its JSON row."""
-    from repro_torch.configs import registry
     from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce, fused_path
     from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
     from repro_torch.launch import serve as launch_serve
@@ -2929,17 +3033,10 @@ def paged_phases(card, gen, bundle, params) -> dict:
     params32 = _map(params, lambda t_: t_.float())
     nb = B * cfg.max_seq // 2 // PAGED_BLOCK           # the launcher's default pool
     new_pool = lambda b_, n_: (lambda: b_.init_paged_pool(n_, PAGED_BLOCK, "cuda"))
-    real_fn = registry.ArchBundle.serve_step_fn
-
     def launcher(mode, log, where):
-        argv = ["--paged", "--fusion", mode, "--requests", "8", "--batch", str(B),
-                "--max-new", "16", "--block-size", str(PAGED_BLOCK), "--chunk",
-                str(PAGED_CHUNK)]
-        with swapped(registry.ArchBundle, "init_params", lambda self, g, ctx=None: params), \
-                swapped(registry.ArchBundle, "serve_step_fn",
-                        lambda self, c: record(real_fn(self, c), log)), \
-                swapped(launch_serve, "PagedDecodeEngine", tracked_engine(log, where)):
-            return launch_serve.main(argv)
+        return recorded_launch(["--paged", "--fusion", mode, "--requests", "8", "--batch",
+                                str(B), "--max-new", "16", "--block-size", str(PAGED_BLOCK),
+                                "--chunk", str(PAGED_CHUNK)], params, log, where)
 
     def forced(name, log, ref_k, ref_b, ref_x):
         """Kernel vs bulk teacher-forced, bound LOGITS_TOL_FACTOR x bulk's
@@ -2972,20 +3069,11 @@ def paged_phases(card, gen, bundle, params) -> dict:
     if any(int(log_a[s_]["logits"][slot].argmax()) != sk[u][k]
            for (u, k), (s_, slot) in where_a.items()) or len(where_a) != 8 * 16:
         raise AssertionError("(a): the kernel streams are not the logged steps' greedy tokens")
-    flips = []
-    for u in sorted(sk):
-        diff = [k for k, (a, b) in enumerate(zip(sk[u], sb[u])) if a != b]
-        if diff:
-            # a request's first differing token must be a near tie in bulk mode
-            # (teacher-forced on the kernel run's inputs, which match the bulk
-            # run's for this request up to here): a top-2 gap of at most twice
-            # the bound, as in phase 5
-            s_, slot = where_a[(u, diff[0])]
-            top = ref_b[s_][slot].topk(2).values
-            gap, allowed = (top[0] - top[1]).item(), 2 * LOGITS_TOL_FACTOR * e_a[1]
-            flips.append(f"req {u} token {diff[0]}: top-2 gap {gap:.3g} (allowed {allowed:.3g})")
-            if gap > allowed:
-                raise AssertionError("(a): streams differ beyond a near tie: " + flips[-1])
+    # bulk mode teacher-forced on the kernel run's inputs, which match the
+    # bulk run's for a request up to its first difference
+    flips = near_tie_flips([sk[u] for u in sorted(sk)], [sb[u] for u in sorted(sk)],
+                           lambda u, k: ref_b[where_a[(u, k)][0]][where_a[(u, k)][1]],
+                           LOGITS_TOL_FACTOR * e_a[1])
     del ref_b, ref_x
     say(23, f"(a) the launcher (--paged, batch {B}, 8 requests x 16 tokens, block "
             f"{PAGED_BLOCK}, chunk {PAGED_CHUNK}, default pool {nb} blocks): {len(log_a)} steps "
@@ -3204,13 +3292,22 @@ def swapped(module, name, fn):
 class UpcastLayers:
     """A model's layer list read in f32 one layer at a time, as the layer
     loop reaches it: the exact f32 evaluation without an f32 copy of every
-    layer."""
+    layer.  A layer's copy is emptied when the loop asks for the next one
+    (the loop's variable still names it then), so that one f32 layer is
+    alive, not two (gemma2-27b's are 2.3 GB each).  So the loop must be done
+    with a layer when it asks for the next: every prefill and decode loop
+    is, and train_forward's at a layer pattern of one (a longer pattern's
+    groups are not)."""
 
     def __init__(self, layers):
         self.layers = layers
 
     def __iter__(self):
-        return (_map(lp, lambda t: t.float()) for lp in self.layers)
+        prev = {}
+        for lp in self.layers:
+            prev.clear()
+            prev = _map(lp, lambda t: t.float())
+            yield prev
 
 
 def wkv6_bound(bh, t, n):
@@ -3420,11 +3517,15 @@ def profile_decode(decode, params, cache, inputs) -> str:
 def profile_device(run, n, unit) -> str:
     """Device time of ``run(0) .. run(n - 1)`` by kernel, from torch.profiler:
     the device's busy share of the host-clock window and the top kernels,
-    per ``unit`` (one call of ``run``)."""
+    per ``unit`` (one call of ``run``).  The profiler records CUDA activity
+    only: the host's operator events add nothing to the device ops and time
+    and cost seconds a profile to record and process
+    (``scripts/profile_cost.py`` measures both settings), and they slow the
+    host window."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
             run(i)
@@ -3501,7 +3602,8 @@ def tp_phases(card) -> None:
                 raise AssertionError(f"tp={tp} matmul_allreduce {mode}: {op['msg']}")
         q = 1 if tp == TP_WORLD else TP_PAIR_Q
         say(29, f"[{TP_LABEL.format(tp)}] spawned tp = {tp} world, granularity {q}, teacher-forced on phase 5's "
-                f"{len(GLM_DECODE['inputs'])} decode steps, max abs logits error from exact f32 "
+                f"first {TP_STEPS} of {len(GLM_DECODE['inputs'])} decode steps, max abs logits "
+                f"error from exact f32 "
                 f"(bound): bulk {err_b:.4g} (tp 1 bulk: {GLM_DECODE['err_bx']:.4g}); "
                 + "; ".join(f"{n} {res[n]['err']:.4g} ({b:.4g})" for n, b in bounds.items())
                 + f"; skew 1 bit-identical to skew 0: {res['skew_equal']}"
@@ -3524,24 +3626,16 @@ def near_tie_notes(label, streams) -> list[str]:
     first difference only at a near tie of phase 5's logits (each side
     within logits_tol: a top-2 gap of at most twice it).  Returns a note per
     differing request."""
-    streams5, tol = GLM_DECODE["streams"], GLM_DECODE["logits_tol"]
+    streams5 = GLM_DECODE["streams"]
     if sorted(streams) != list(range(len(streams5))):
         raise AssertionError(f"{label}: served requests {sorted(streams)}")
-    notes = []
     for uid, want in enumerate(streams5):
         got = streams[uid]
         if not all(0 <= t_ < GLM_DECODE["vocab"] for t_ in got) or len(got) != len(want):
             raise AssertionError(f"{label} req {uid}: stream {got}")
-        diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
-        if diff:
-            i = diff[0]
-            top = GLM_DECODE["kernel_logits"][GLM_DECODE["prompts"][uid] - 1 + i][uid, 0]
-            gap = (lambda v: (v[0] - v[1]).item())(top.topk(2).values)
-            notes.append(f"{label} req {uid} token {i}: top-2 gap {gap:.3g} "
-                         f"(allowed {2 * tol:.3g})")
-            if gap > 2 * tol:
-                raise AssertionError("token streams differ beyond a near tie: " + notes[-1])
-    return notes
+    chose = lambda u, i: GLM_DECODE["kernel_logits"][GLM_DECODE["prompts"][u] - 1 + i][u, 0]
+    return [f"{label} {n_}" for n_ in near_tie_flips(
+        [streams[u] for u in range(len(streams5))], streams5, chose, GLM_DECODE["logits_tol"])]
 
 
 def launcher_world_run(mode, extra=()) -> dict:
@@ -3580,7 +3674,8 @@ def spawn_world(tp, settings) -> dict:
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as rdv:
         procs = [spawn.Process(target=tp_world_rank, args=(
-            r, tp, f"file://{rdv}/rdv", settings, GLM_DECODE["inputs"], GLM_DECODE["exact"], out))
+            r, tp, f"file://{rdv}/rdv", settings, GLM_DECODE["inputs"][:TP_STEPS],
+            GLM_DECODE["exact"][:TP_STEPS], out))
             for r in range(tp)]
         for p_ in procs:
             p_.start()
@@ -3868,6 +3963,540 @@ def autotune_phases(card) -> None:
             + (f" ({'; '.join(runs[0]['notes'])})" if runs[0]["notes"] else "")
             + f"; (b) again from the cache: {summary[1][0]}, the same decisions and streams, "
             f"{runs[1]['ms_step']:.2f} ms/step, {runs[1]['wall']:.1f} s with start and init")
+
+
+# ---------------------------------------------------------------------------
+# phases 32-34: gemma2-27b serving, the flash kernel's window and softcap
+# ---------------------------------------------------------------------------
+def plain_by_heads(q, k, v, heads=4, **kw):
+    """flash_attention_plain over groups of about ``heads`` query heads (and
+    their kv heads), so that one call's scores are [B * heads, S, S] f32
+    (at 8192 keys, 32 heads at once would hold 8.6 GB a temporary); with
+    ``stats=True`` also m and l, [B, Hq, S] each."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+
+    g = q.shape[2] // k.shape[2]
+    heads = max(1, heads // g) * g
+    parts = [flash_attention_plain(q[:, :, h:h + heads], k[:, :, h // g:(h + heads) // g],
+                                   v[:, :, h // g:(h + heads) // g], **kw)
+             for h in range(0, q.shape[2], heads)]
+    if not kw.get("stats"):
+        return torch.cat(parts, dim=2)
+    return tuple(torch.cat([p_[i] for p_ in parts], dim=2 if i == 0 else 1) for i in range(3))
+
+
+def flex_time(q, k, v, *, scale, causal, window, cap, want, iters) -> tuple:
+    """The library column of a windowed, capped flash call:
+    torch.nn.attention.flex_attention under torch.compile, a score_mod for
+    the cap and a block_mask for the mask, held to ``want`` at BF16_TOL.
+    Returns (ms or None, a note: its compile time, or why there is none)."""
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    except ImportError as e:
+        return None, f"none: torch {torch.__version__} has no flex_attention ({e})"
+    s = q.shape[1]
+
+    def mask_mod(b, h, qi, ki):
+        keep = (ki <= qi) if causal else (ki >= 0)
+        return keep & (qi - ki < window) if window else keep
+
+    score_mod = (lambda sc, b, h, qi, ki: cap * torch.tanh(sc / cap)) if cap else None
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    try:
+        t0 = time.perf_counter()
+        block_mask = create_block_mask(mask_mod, None, None, s, s, device=q.device)
+        fn = torch.compile(flex_attention)
+        run = lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=block_mask, scale=scale,
+                         enable_gqa=True)
+        got = run().transpose(1, 2)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+    except Exception as e:   # noqa: BLE001 (a yardstick only: say why there is none)
+        return None, f"none: flex_attention did not compile here ({type(e).__name__}: " \
+                     f"{str(e).splitlines()[0][:160] if str(e) else ''})"
+    err = check_close("flex_attention", got, want, BF16_TOL)
+    return time_ms(run, iters=iters, warmup=1), (f"flex_attention compiled in {compile_s:.1f} s, "
+                                                 f"max abs err vs plain {err[0]:.3g}")
+
+
+def flash_window_phase(card, gen) -> dict:
+    """Phase 32: the flash kernel with gemma2's sliding window and softcap
+    against its plain version, on both paths; its statistics and its
+    gradient with both; times with and without each beside their bounds and
+    flex_attention.  Returns the flash row's window/cap numbers."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_path
+    from repro_torch.models.attention import span_attention
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_arch("gemma2-27b").config
+    hq, hkv, hd, win, cap = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window, cfg.attn_softcap
+    scale = cfg.query_scale
+    qs = FLASH_Q_SCALE
+    inputs = lambda b, s, h, g_kv, d, dt, q_scale: (
+        randn(gen, (b, s, h, d), dt, q_scale), randn(gen, (b, s, g_kv, d), dt),
+        randn(gen, (b, s, g_kv, d), dt))
+    # (a) each shape on the path flash_path chooses, bf16 d = 128 also on
+    # the CUDA-core path: gemma2's shape with both, either and ragged edges
+    errs, cap_txt = {}, ""
+    for name, b, s, h, g_kv, d, dt, causal, w, c, q_scale in (
+            ("window+cap", 1, GEMMA_S, hq, hkv, hd, bf16, True, win, cap, qs),
+            ("window", 1, GEMMA_S, hq, hkv, hd, bf16, True, win, None, qs),
+            ("cap", 1, GEMMA_S, hq, hkv, hd, bf16, True, None, cap, qs),
+            ("window 1000 S=3001", 1, 3001, hq, hkv, hd, bf16, True, 1000, cap, qs),
+            ("window 1000 S=3001 non-causal", 1, 3001, hq, hkv, hd, bf16, False, 1000, cap, qs),
+            ("hd=64 window 300 cap 5", 2, 1000, 8, 2, 64, bf16, True, 300, 5.0, 3.0),
+            ("f32 hd=64 window 300 cap 5", 2, 1000, 4, 2, 64, f32, True, 300, 5.0, 3.0),
+            ("f32 hd=128 window 300 cap 5", 2, 1000, 4, 2, 128, f32, True, 300, 5.0, 3.0)):
+        q, k, v = inputs(b, s, h, g_kv, d, dt, q_scale)
+        kw = dict(scale=scale if h == hq else d ** -0.5, causal=causal, window=w, softcap=c)
+        want = plain_by_heads(q, k, v, **kw)
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        chosen = flash_path(dt, d)
+        got, took = on_path(flash_attention, lambda: flash_attention(q, k, v, **kw))
+        if took != chosen:
+            raise AssertionError(f"flash {name}: took the {took} path, flash_path says {chosen}")
+        errs[name] = {took: check_close(f"flash {name} ({took} path)", got, want, tol)}
+        if chosen == "tile":
+            errs[name]["cuda_core"] = check_close(
+                f"flash {name} (cuda_core path)",
+                flash_attention(q, k, v, _path="cuda_core", **kw), want, tol)
+        if name == "window+cap":
+            # the cap at work: one head's scores before it
+            sc = (q[0, :, 0].float() @ k[0, :, 0].float().T) * kw["scale"]
+            cap_txt = (f"head 0's {sc.numel() / 1e6:.1f} M scores before the cap: max |s| "
+                       f"{sc.abs().max().item():.1f} = {sc.abs().max().item() / c:.2f} x the cap, "
+                       f"{100 * (sc.abs() > c / 2).float().mean().item():.1f}% with |s| > cap / 2")
+            del sc
+        del q, k, v, want, got
+    say(32, f"(a) flash_attention with a window and/or softcap vs plain (bound: bf16 {BF16_TOL}, "
+            f"f32 {F32_TOL}), max abs/rel err per path (the first is flash_path's choice; gemma2: "
+            f"[1,{GEMMA_S},{hq}/{hkv},{hd}] bf16, scale 144^-0.5, window {win}, cap {cap}, q x "
+            f"{qs}): " + "; ".join(
+                f"{n_} " + ", ".join(f"{p_} {e[0]:.3g}/{e[1]:.3g}" for p_, e in pe.items())
+                for n_, pe in errs.items()) + f"; {cap_txt}")
+
+    # (b) the statistics (direct launches: comparisons, not the main path's)
+    # and the gradient, each against an exact evaluation.  The gradient's
+    # scores stay small (a cap of 2 on scores of spread 1, which it bends at
+    # the tails): the analytic backward recomputes them in the inputs'
+    # dtype, as the reference's does, and at gemma2's spread of 19 bf16's
+    # rounding of a score (0.06 at 20) would move each probability by 6 %
+    lines = []
+    for name, b, s, h, g_kv, d, dt, w, c, q_scale, path in (
+            ("bf16", 1, 2048, 8, 4, 128, bf16, 1000, cap, qs, "tile"),
+            ("f32", 2, 1000, 4, 2, 64, f32, 300, 5.0, 3.0, "cuda_core")):
+        q, k, v = inputs(b, s, h, g_kv, d, dt, q_scale)
+        sc = d ** -0.5
+        (_, m_k, l_k), took = flash_ops._launch(q, k, v, sc, True, w, c, None, True)
+        if took != path:
+            raise AssertionError(f"flash stats {name}: took the {took} path, expected {path}")
+        _, m_p, l_p = plain_by_heads(q, k, v, scale=sc, causal=True, window=w, softcap=c,
+                                     stats=True)
+        err_m = check_close(f"flash {name} m (window {w}, cap {c})", m_k, m_p, F32_TOL)
+        err_l = check_close(f"flash {name} l (window {w}, cap {c})", l_k, l_p, F32_TOL)
+        del m_k, l_k, m_p, l_p
+        lines.append(f"statistics {name} [{b},{s},{h}/{g_kv},{d}] window {w} cap {c} on the "
+                     f"{took} path: m err {err_m[0]:.3g}, l err {err_l[0]:.3g} (bound {F32_TOL})")
+    for name, b, s, h, g_kv, d, dt, w, c, q_scale in (
+            ("bf16", 1, 1000, 8, 4, 128, bf16, 300, 2.0, 1.0),
+            ("f32", 2, 515, 6, 3, 128, f32, 100, 2.0, 1.0)):
+        q, k, v = inputs(b, s, h, g_kv, d, dt, q_scale)
+        do = randn(gen, (b, s, h, d), dt)
+        sc = d ** -0.5
+        leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        g_k = grads_of(lambda *a: flash_attention(*a, scale=sc, window=w, softcap=c), leaves, do)
+        g_b = grads_of(lambda *a: span_attention(*a, causal=True, window=w, scale=sc, cap=c),
+                       leaves, do)
+        wide = torch.float64 if dt == f32 else f32
+        exact = [a.detach().to(wide).requires_grad_(True) for a in (q, k, v)]
+        g_x = grads_of(lambda *a: dense_attention(*a, sc, window=w, cap=c), exact, do.to(wide))
+        dists = []
+        for gname, gk, gb, gx in zip(("dq", "dk", "dv"), g_k, g_b, g_x):
+            dk_, db_ = errors(gk, gx)[0], errors(gb, gx)[0]
+            if not (torch.isfinite(gk.float()).all() and dk_ <= LOGITS_TOL_FACTOR * db_):
+                raise AssertionError(f"flash backward {name} {gname} (window {w}, cap {c}): "
+                                     f"kernel mode {dk_:.3g} from exact, above "
+                                     f"{LOGITS_TOL_FACTOR} x bulk mode's {db_:.3g}")
+            dists.append(f"{gname} {dk_:.3g}/{db_:.3g}")
+        lines.append(f"gradient {name} [{b},{s},{h}/{g_kv},{d}] window {w} cap {c} (the op's "
+                     f"forward on the {flash_path(dt, d)} path, its analytic backward) vs bulk "
+                     f"mode's autograd through span_attention, max abs err from exact "
+                     f"{'f64' if dt == f32 else 'f32'} kernel/bulk (bound {LOGITS_TOL_FACTOR} x "
+                     f"bulk's): " + ", ".join(dists))
+        del q, k, v, do, leaves, exact, g_k, g_b, g_x
+    say(32, "(b) " + "; ".join(lines))
+
+    # (d) times (CUDA events): the cap at the chatglm3 prefill's size, the
+    # window at the reference's prefill_32k length, flex_attention beside
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+
+    q, k, v = inputs(GLM_B, GLM_S, hq, hkv, hd, bf16, qs)
+    runs = {"causal": lambda: flash_attention(q, k, v, scale=scale),
+            "cap": lambda: flash_attention(q, k, v, scale=scale, softcap=cap)}
+    t_short = {n_: [] for n_ in runs}
+    for n_ in ("causal", "cap", "cap", "causal"):
+        t_short[n_].append(time_ms(runs[n_], iters=20, warmup=2))
+    b_short = flash_bound(GLM_B, GLM_S, hq, hkv, hd, 2)
+    want = flash_attention_plain(q, k, v, scale=scale, softcap=cap)
+    t_plain = time_ms(lambda: flash_attention_plain(q, k, v, scale=scale, softcap=cap), iters=2,
+                      warmup=1)
+    flex_s, flex_s_txt = flex_time(q, k, v, scale=scale, causal=True, window=None, cap=cap,
+                                   want=want, iters=20)
+    del q, k, v, want
+    q, k, v = inputs(1, FLASH_LONG_S, hq, hkv, hd, bf16, qs)
+    kws = {"causal": {}, "window": {"window": win}, "window+cap": {"window": win, "softcap": cap}}
+    t_long = {n_: [] for n_ in kws}
+    for n_ in ("causal", "window", "window+cap", "window+cap", "window", "causal"):
+        t_long[n_].append(time_ms(lambda: flash_attention(q, k, v, scale=scale, **kws[n_]),
+                                  iters=3, warmup=1))
+    b_long = {n_: flash_bound(1, FLASH_LONG_S, hq, hkv, hd, 2, window=kw_.get("window"))
+              for n_, kw_ in kws.items()}
+    want = flash_attention(q, k, v, scale=scale, window=win, softcap=cap)
+    # yardstick: flex_attention held to the kernel, which (a) held to plain
+    flex_l, flex_l_txt = flex_time(q, k, v, scale=scale, causal=True, window=win, cap=cap,
+                                   want=want, iters=3)
+    del q, k, v, want
+    ms = lambda ts: ", ".join(f"{t_:.4f}" for t_ in ts)
+    ratio = min(t_long["window"]) / min(t_long["causal"])
+    say(32, f"(c) on {card}, tile path: [{GLM_B},{GLM_S},{hq}/{hkv},{hd}] bf16 causal without the "
+            f"cap {ms(t_short['causal'])} ms, with cap {cap} {ms(t_short['cap'])} ms "
+            f"({min(t_short['cap']) / min(t_short['causal']):.3f}x), bound {b_short[0]:.4f} ms "
+            f"({b_short[1]}), plain (cap) {t_plain:.4f} ms, flex_attention (cap) "
+            + (f"{flex_s:.4f} ms ({flex_s_txt})" if flex_s is not None else flex_s_txt)
+            + f"; [1,{FLASH_LONG_S},{hq}/{hkv},{hd}] bf16: "
+            + "; ".join(f"{n_} {ms(t_long[n_])} ms (bound {b_long[n_][0]:.4f} ms, "
+                        f"{b_long[n_][1]}: {b_long[n_][3] / 1e9:.1f} GFLOP)" for n_ in kws)
+            + f"; window {win} / causal {ratio:.3f} (the work: "
+            f"{b_long['window'][3] / b_long['causal'][3]:.3f}); flex_attention (window + cap) "
+            + (f"{flex_l:.4f} ms ({flex_l_txt})" if flex_l is not None else flex_l_txt))
+    return {"window_cap": {
+        "max_abs_err": errs["window+cap"]["tile"][0],
+        "shape": f"[{GLM_B},{GLM_S},{hq}/{hkv},{hd}] bf16 causal",
+        "ms": min(t_short["causal"]), "cap_ms": min(t_short["cap"]), "bound_ms": b_short[0],
+        "plain_cap_ms": t_plain, "library_cap_ms": flex_s,
+        "long_shape": f"[1,{FLASH_LONG_S},{hq}/{hkv},{hd}] bf16",
+        "long_ms": {n_: min(t_) for n_, t_ in t_long.items()},
+        "long_bound_ms": {n_: b_[0] for n_, b_ in b_long.items()},
+        "long_library_ms": flex_l}}
+
+
+def gemma2_phases(card, gen) -> tuple[dict, dict]:
+    """Phases 33-34: full-width gemma2-27b (seed-0 weights) prefill of 1 x
+    GEMMA_S tokens in kernel and bulk mode against an exact f32 evaluation,
+    the hand-off to decode, then dense decode and paged serving at the
+    launcher's traffic, and times.  Returns (the flash row's gemma2
+    numbers, the fused row's)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce, fused_path
+    from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
+    from repro_torch.models import attention
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    # 33 --------------------------------------------------------------
+    bf16 = torch.bfloat16
+    bundle = get_arch("gemma2-27b")
+    cfg = bundle.config
+    L, Hq, Hkv, hd, D, F = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model,
+                            cfg.d_ff)
+    S = GEMMA_S
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t_.numel() for t_ in _leaves(params))
+    ctx = {m: ParallelContext(device="cuda", fusion=FusionConfig(mode=m))
+           for m in ("kernel", "bulk")}
+    exact = dataclasses.replace(bundle, config=dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    params_x = {**params, "layers": UpcastLayers(params["layers"])}
+    pre = {m: bundle.prefill_fn(c) for m, c in ctx.items()}
+    pre_x = exact.prefill_fn(ctx["bulk"])
+    tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    layer_errs, windows = [], []
+
+    def spy(q, k, v, **kw):
+        """The kernel, then its plain version on the identical input."""
+        got = flash_attention(q, k, v, **kw)
+        want = plain_by_heads(q, k, v, scale=kw["scale"], causal=kw["causal"],
+                              window=kw["window"], softcap=kw["softcap"])
+        layer_errs.append(check_close(f"gemma2 prefill layer {len(layer_errs)} flash", got, want,
+                                      BF16_TOL)[0])
+        windows.append((kw["window"], kw["softcap"]))
+        return got
+
+    # the hand-off: each mode's prefill cache in a decode cache of S +
+    # GEMMA_STEPS positions, greedy steps from position S (the local layers'
+    # window still masks: each sees its last 4096 positions); each cache
+    # goes before the next run, so that the exact f32 run (about 22 GB
+    # beside the weights, its own f32 cache among them) fits
+    long_b = dataclasses.replace(bundle, config=dataclasses.replace(cfg, max_seq=S + GEMMA_STEPS))
+    dec = {m: long_b.decode_fn(c) for m, c in ctx.items()}
+
+    def greedy(mode, logits, c):
+        if any(tuple(t_.shape) != (L, 1, S, Hkv, hd) for t_ in c.values()):
+            raise AssertionError(f"gemma2 prefill cache shapes "
+                                 f"{[tuple(t_.shape) for t_ in c.values()]}")
+        dc = long_b.init_cache(1, "cuda")
+        for key in dc:
+            dc[key][:, :, :S] = c[key]
+        c.clear()
+        tok, out = logits.argmax(-1), []
+        for i in range(GEMMA_STEPS):
+            pos = torch.full((1,), S + i, dtype=torch.int32, device="cuda")
+            lg, dc = dec[mode](params, tok, dc, pos)
+            out.append((tok, lg))
+            tok = lg.argmax(-1)
+        return out
+
+    with swapped(attention, "flash_attention", spy):
+        (logits_k, cache_k), launch_k = counted_run(
+            lambda: pre["kernel"](params, {"tokens": tokens}), flash_on_tile(L))
+    peak_k = torch.cuda.max_memory_allocated() / 1e9
+    dec_path = fused_path(bf16, 1, F, D)
+    steps_k, launch_d = counted_run(lambda: greedy("kernel", logits_k, cache_k),
+                                    {"fused_matmul_allreduce": L * GEMMA_STEPS,
+                                     f"fused_matmul_allreduce.{dec_path}": L * GEMMA_STEPS})
+    (logits_b, cache_b), launch_b = counted_run(lambda: pre["bulk"](params, {"tokens": tokens}),
+                                                {})
+    steps_b = greedy("bulk", logits_b, cache_b)
+    del cache_k, cache_b
+    logits_x = pre_x(params_x, {"tokens": tokens})[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    local = [w for w, _ in windows if w is not None]
+    if len(local) != L // 2 or set(local) != {cfg.window} or {c for _, c in windows} != {
+            cfg.attn_softcap}:
+        raise AssertionError(f"gemma2 prefill: flash windows and caps {windows}")
+    for lg in (logits_k, logits_b, logits_x):
+        if lg.shape != (1, 1, cfg.vocab) or not torch.isfinite(lg).all():
+            raise AssertionError(f"gemma2 prefill logits: shape {tuple(lg.shape)} or non-finite")
+    errs_k = bounded_errors("gemma2 prefill kernel mode", {"logits": (logits_k, logits_b,
+                                                                      logits_x)})
+    del logits_x
+    say(33, f"gemma2-27b full width ({L}L d{D}, {Hq}/{Hkv} heads of {hd}, d_ff {F}, vocab "
+            f"{cfg.vocab}, {n_params / 1e9:.3f}B params {cfg.param_dtype}, init {init_s:.1f}s), "
+            f"prefill of 1x{S} seeded tokens: kernel mode flash launches "
+            f"{launch_k['flash_attention']} (tile path {launch_k['flash_attention.tile']}, "
+            f"CUDA-core path {launch_k['flash_attention.cuda_core']}), {len(local)} of them with "
+            f"window {cfg.window}, all with softcap {cfg.attn_softcap}; fused GEMV "
+            f"{launch_k['fused_matmul_allreduce']}; bulk mode (span_attention) flash "
+            f"{launch_b['flash_attention']}; every layer's flash output vs plain on its input: "
+            f"max abs err {max(layer_errs):.3g} over {len(layer_errs)} layers (bound {BF16_TOL}); "
+            f"logits max abs err (kernel vs exact f32 / bulk vs exact f32 / kernel vs bulk; bound "
+            f"{LOGITS_TOL_FACTOR} x bulk's): {errs_k}; peak {peak_k:.2f} GB through the "
+            f"kernel-mode prefill, {peak_gb:.2f} GB through the exact f32 one")
+
+    # times: kernel and bulk mode in turns, then a profile of kernel mode
+    pre_t = {"kernel": [], "bulk": []}
+    for m in ("kernel", "bulk", "kernel"):
+        pre_t[m].append(time_ms(lambda: pre[m](params, {"tokens": tokens}), iters=1, warmup=0))
+    prof_pre = profile_device(lambda i: pre["kernel"](params, {"tokens": tokens}), 1, "prefill")
+    # bound: the products of every layer's weights at S tokens at the bf16 peak
+    layer_params = n_params - cfg.vocab * D
+    pre_bound = 2 * layer_params * S / BF16_FLOPS * 1e3
+
+    longer = {"tokens": torch.cat([tokens, steps_k[0][0]], dim=1)}
+    logits_l = pre["kernel"](params, longer)[0]
+    d_px = errors(logits_l, pre_x(params_x, longer)[0])[0]
+    d_pd = errors(steps_k[0][1], logits_l)[0]
+    tol = LOGITS_TOL_FACTOR * d_px
+    if d_pd > tol:
+        raise AssertionError(f"gemma2 hand-off: the first decode step's logits are {d_pd:.3g} "
+                             f"from a prefill over {S + 1} tokens, above {LOGITS_TOL_FACTOR} x "
+                             f"that prefill's distance {d_px:.3g} from exact f32")
+    sk = [[int(t_) for t_, _ in steps_k]]
+    sb = [[int(t_) for t_, _ in steps_b]]
+    flips = near_tie_flips(sk, sb, lambda _, i: (logits_b if i == 0 else steps_b[i - 1][1])[0, 0],
+                           tol)
+    say(33, f"hand-off: {GEMMA_STEPS} greedy decode steps from position {S} in a "
+            f"{S + GEMMA_STEPS}-position cache copied from the prefill's: launches fused GEMV "
+            f"{launch_d['fused_matmul_allreduce']} (= {L} x {GEMMA_STEPS}, all on the {dec_path} "
+            f"path), flash {launch_d['flash_attention']}; first step's logits vs a kernel-mode "
+            f"prefill over {S + 1} tokens max abs err {d_pd:.3g} (bound {tol:.3g} = "
+            f"{LOGITS_TOL_FACTOR} x that prefill's distance from exact f32, {d_px:.3g}); kernel "
+            f"stream {sk[0]}; bulk stream {sb[0]}" + (f" ({'; '.join(flips)})" if flips else ""))
+    del steps_k, steps_b, logits_l, logits_k, logits_b, dec
+    torch.cuda.empty_cache()
+
+    say(33, f"on {card}: prefill of 1x{S} per call (CUDA events, turns kernel, bulk, "
+            f"kernel): " + "; ".join(f"{m} " + ", ".join(f"{t_:.1f}" for t_ in ts) + " ms"
+                                     for m, ts in pre_t.items())
+            + f"; bound {pre_bound:.1f} ms (operations: 2 x {layer_params / 1e9:.2f} G layer "
+            f"parameters x {S} tokens); kernel-mode profile: {prof_pre}")
+
+    # 34 --------------------------------------------------------------
+    # (a) dense decode through DecodeEngine at the launcher's traffic; the
+    # teacher-forced bulk and exact f32 replays on a short cache (the
+    # requests end before position GEMMA_TF_SEQ)
+    B = PAGED_B
+    dec_k, dec_b = (bundle.decode_fn(ctx[m]) for m in ("kernel", "bulk"))
+    tf = dataclasses.replace(bundle, config=dataclasses.replace(cfg, max_seq=GEMMA_TF_SEQ))
+    tf_x = dataclasses.replace(exact, config=dataclasses.replace(exact.config,
+                                                                 max_seq=GEMMA_TF_SEQ))
+    dec_tb, dec_tx = tf.decode_fn(ctx["bulk"]), tf_x.decode_fn(ctx["bulk"])
+
+    def serve(decode, log=None):
+        def step(tok, cache, pos):
+            logits, cache = decode(params, tok, cache, pos)
+            if log is not None:
+                log.append((tok.clone(), pos.clone(), logits.clone()))
+            return logits, cache
+        return serve_requests(step, bundle, B, GEMMA_REQS, GEMMA_NEW)
+
+    log_k = []
+    reset_counts()
+    reqs_k, _ = serve(dec_k, log_k)
+    launches = launch_counts()
+    steps = len(log_k)
+    dpath = fused_path(bf16, B, F, D)
+    if (launches["fused_matmul_allreduce"] != L * steps
+            or launches[f"fused_matmul_allreduce.{dpath}"] != L * steps
+            or launches["flash_attention"]):
+        raise AssertionError(f"gemma2 decode: launches {launches} in {steps} steps of {L} layers")
+    reqs_b, _ = serve(dec_b)
+    if steps >= GEMMA_TF_SEQ:
+        raise AssertionError(f"gemma2 decode: {steps} steps outrun the replay cache")
+    cache_b, cache_x = tf.init_cache(B, "cuda"), tf_x.init_cache(B, "cuda")
+    err_kb = err_bx = err_kx = 0.0
+    logits_bt = []
+    for tok, pos, lk in log_k:
+        lb, cache_b = dec_tb(params, tok, cache_b, pos)
+        lx, cache_x = dec_tx(params_x, tok, cache_x, pos)
+        for t_ in (lk, lb, lx):
+            if t_.shape != (B, 1, cfg.vocab) or not torch.isfinite(t_).all():
+                raise AssertionError(f"gemma2 decode logits: shape {tuple(t_.shape)} or "
+                                     f"non-finite")
+        err_kb = max(err_kb, errors(lk, lb)[0])
+        err_bx = max(err_bx, errors(lb, lx)[0])
+        err_kx = max(err_kx, errors(lk, lx)[0])
+        logits_bt.append(lb)
+    del cache_b, cache_x
+    logits_tol = LOGITS_TOL_FACTOR * err_bx
+    if err_kb > logits_tol:
+        raise AssertionError(f"gemma2 decode teacher-forced: kernel vs bulk {err_kb:.3g} > "
+                             f"{LOGITS_TOL_FACTOR} x bulk vs exact f32 {err_bx:.3g}")
+    if any(not 0 <= t_ < cfg.vocab or len(r.tokens) != GEMMA_NEW
+           for r in reqs_k + reqs_b for t_ in r.tokens):
+        raise AssertionError("gemma2 decode: streams of the wrong length or out of range")
+    flips = near_tie_flips([r.tokens for r in reqs_k], [r.tokens for r in reqs_b],
+                           lambda r, i: logits_bt[len(reqs_k[r].prompt) - 1 + i][r, 0],
+                           logits_tol)
+    say(34, f"(a) gemma2-27b dense decode (DecodeEngine, batch {B}, {GEMMA_REQS} requests x "
+            f"{GEMMA_NEW} tokens, the launcher's seeded prompts): {steps} steps, fused kernel "
+            f"launches {launches['fused_matmul_allreduce']} (= {L} x {steps}, all on the {dpath} "
+            f"path), flash 0; teacher-forced logits max abs err: kernel vs bulk {err_kb:.3g} "
+            f"(bound {logits_tol:.3g}), bulk vs exact f32 {err_bx:.3g}, kernel vs exact f32 "
+            f"{err_kx:.3g}; kernel streams {[r.tokens for r in reqs_k]}; bulk streams "
+            f"{[r.tokens for r in reqs_b]}" + (f" ({'; '.join(flips)})" if flips else ""))
+
+    # (b) the launcher itself, --arch gemma2-27b --paged, in kernel and bulk
+    # mode
+    def launcher(mode, log, where):
+        return recorded_launch(["--arch", "gemma2-27b", "--paged", "--fusion", mode,
+                                "--requests", str(GEMMA_REQS), "--batch", str(B), "--max-new",
+                                str(GEMMA_NEW), "--block-size", str(PAGED_BLOCK), "--chunk",
+                                str(PAGED_CHUNK)], params, log, where)
+
+    log_pk, log_pb, where = [], [], {}
+    fin_k = launcher("kernel", log_pk, where)
+    fin_b = launcher("bulk", log_pb, {})
+    paths = check_step_launches(log_pk, "kernel", L, F, D)
+    check_step_launches(log_pb, "bulk", L, F, D)
+    nb = B * cfg.max_seq // 2 // PAGED_BLOCK           # the launcher's default pool
+    serve_b, serve_x = bundle.serve_step_fn(ctx["bulk"]), exact.serve_step_fn(ctx["bulk"])
+    got_k = [e["logits"] for e in log_pk]
+    ref_b = replay(serve_b, params, log_pk, lambda: bundle.init_paged_pool(nb, PAGED_BLOCK, "cuda"))
+    ref_x = replay(serve_x, params_x, log_pk,
+                   lambda: exact.init_paged_pool(nb, PAGED_BLOCK, "cuda"))
+    e_kb, e_bx, e_kx = (live_err(log_pk, a, b) for a, b in ((got_k, ref_b), (ref_b, ref_x),
+                                                             (got_k, ref_x)))
+    if not e_kb <= LOGITS_TOL_FACTOR * e_bx:
+        raise AssertionError(f"gemma2 paged teacher-forced: kernel vs bulk {e_kb:.3g} > "
+                             f"{LOGITS_TOL_FACTOR} x bulk vs exact f32 {e_bx:.3g}")
+    sk = {r.uid: r.tokens for r in fin_k}
+    sb = {r.uid: r.tokens for r in fin_b}
+    if (sorted(sk) != list(range(GEMMA_REQS)) or sorted(sb) != sorted(sk)
+            or any(len(v) != GEMMA_NEW for v in list(sk.values()) + list(sb.values()))
+            or len(where) != GEMMA_REQS * GEMMA_NEW
+            or any(int(log_pk[s_]["logits"][slot].argmax()) != sk[u][k]
+                   for (u, k), (s_, slot) in where.items())):
+        raise AssertionError(f"gemma2 paged: streams {sk} / {sb} are not the logged steps' "
+                             f"greedy tokens")
+    paged_flips = near_tie_flips([sk[u] for u in sorted(sk)], [sb[u] for u in sorted(sk)],
+                                 lambda u, i: ref_b[where[(u, i)][0]][where[(u, i)][1]],
+                                 LOGITS_TOL_FACTOR * e_bx)
+    dense_same = [sk[u] for u in sorted(sk)] == [r.tokens for r in reqs_k]
+    del ref_b, ref_x
+    say(34, f"(b) the launcher, --arch gemma2-27b --paged (batch {B}, {GEMMA_REQS} requests x "
+            f"{GEMMA_NEW} tokens, block {PAGED_BLOCK}, chunk {PAGED_CHUNK}, default pool {nb} "
+            f"blocks): {len(log_pk)} steps by B x C rows and fused path {paths} ({L} launches a "
+            f"step in kernel mode, 0 in bulk mode); teacher-forced logits (live rows) max abs "
+            f"err: kernel vs bulk {e_kb:.3g} (bound {LOGITS_TOL_FACTOR * e_bx:.3g}), bulk vs "
+            f"exact f32 {e_bx:.3g}, kernel vs exact f32 {e_kx:.3g}; kernel streams "
+            f"{[sk[u] for u in sorted(sk)]}; bulk streams {[sb[u] for u in sorted(sb)]}"
+            + (f" ({'; '.join(paged_flips)})" if paged_flips else "")
+            + f"; kernel streams = (a)'s dense kernel streams: {dense_same}")
+
+    # (c) times: decode and serve steps, profiles, the fused kernel at
+    # decode's 4 rows and the paged chunk's 32
+    decode_txt = timed_decode_runs(serve, dec_k, dec_b)
+    prof_dec = profile_decode(dec_k, params, bundle.init_cache(B, "cuda"), log_k[:4])
+    serve_k = bundle.serve_step_fn(ctx["kernel"])
+    pool = bundle.init_paged_pool(nb, PAGED_BLOCK, "cuda")
+    c1 = next(e for e in log_pk if e["in"][0].shape[1] == 1)
+    c8 = next(e for e in log_pk if e["in"][0].shape[1] == PAGED_CHUNK)
+    serves = {"kernel": serve_k, "bulk": serve_b}
+    step_t = {}
+    for name, e in (("C=1", c1), (f"C={PAGED_CHUNK}", c8)):
+        step_t[name] = {"kernel": [], "bulk": []}
+        for m in ("kernel", "bulk", "bulk", "kernel"):
+            step_t[name][m].append(time_ms(
+                lambda: serves[m](params, e["in"][0], pool, *e["in"][1:]), iters=3, warmup=1))
+    prof_srv = {f"C={PAGED_CHUNK}": profile_device(
+        lambda i: serve_k(params, c8["in"][0], pool, *c8["in"][1:]), 3, "step")}
+    del pool
+    w = params["layers"][0]["ffn"]["w_down"]
+    fused = {}
+    for rows in (B, B * PAGED_CHUNK):
+        x = randn(gen, (rows, F), bf16)
+        got, took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(x, w))
+        if took != fused_path(bf16, rows, F, D):
+            raise AssertionError(f"fused [{rows},{F}]: took the {took} path")
+        err = check_close(f"fused [{rows},{F}]@[{F},{D}] {took} path", got,
+                          fused_matmul_allreduce_ref(x, w), BF16_TOL)
+        t_k = [time_ms(lambda: fused_matmul_allreduce(x, w))]
+        t_mm = time_ms(lambda: torch.matmul(x, w))
+        t_k.append(time_ms(lambda: fused_matmul_allreduce(x, w)))
+        bnd, by = bound_ms(rows, F, D, 2)
+        fused[rows] = {"shape": f"[{rows},{F}]@[{F},{D}] bf16", "path": took,
+                       "max_abs_err": err[0], "ms": min(t_k), "ms_turns": t_k,
+                       "plain_ms": time_ms(lambda: fused_matmul_allreduce_ref(x, w), iters=10),
+                       "bound_ms": bnd, "bound_by": by, "library_ms": t_mm}
+    del x, got
+    ms = lambda ts: ", ".join(f"{t_:.4f}" for t_ in ts)
+    say(34, f"(c) on {card}: dense decode (host clock around the drain): {decode_txt}; profile "
+            f"of kernel-mode decode: {prof_dec}; serve_step per step (CUDA events, turns kernel, "
+            f"bulk, bulk, kernel): " + "; ".join(
+                f"{name} " + ", ".join(f"{m} {ms(v)}" for m, v in d.items()) + " ms"
+                for name, d in step_t.items())
+            + "; kernel-mode profile: " + "; ".join(f"{n_} {p_}" for n_, p_ in prof_srv.items())
+            + "; fused_matmul_allreduce (layer 0's w_down) vs plain, times in turns with "
+            f"torch.matmul between: " + "; ".join(
+                f"{v['shape']} {v['path']} path err {v['max_abs_err']:.3g}, {ms(v['ms_turns'])} "
+                f"ms, torch.matmul {v['library_ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
+                f"{v['bound_ms']:.4f} ms ({v['bound_by']})" for v in fused.values()))
+    del params, params_x, w
+    torch.cuda.empty_cache()
+    return ({"gemma2": {"launches": launch_k["flash_attention"], "windowed": len(local),
+                        "max_abs_err": max(layer_errs), "prefill_ms": min(pre_t["kernel"]),
+                        "prefill_bound_ms": pre_bound}},
+            {"gemma2": {"launches": launches["fused_matmul_allreduce"],
+                        "paged_launches": sum(e["launches"]["fused_matmul_allreduce"]
+                                              for e in log_pk),
+                        "decode": fused[B], "chunk_rows": fused[B * PAGED_CHUNK]}})
 
 
 def _map(tree, fn):

@@ -1,8 +1,10 @@
 """Architecture registry: a uniform bundle over the ported configs.
 
-The port serves chatglm3-6b (dense GQA decode) and dbrx-132b (MoE decode),
-through the dense engine or the paged one (``serve_step_fn``),
-trains and prefills chatglm3-6b (``loss_fn``, ``prefill_fn``; dbrx's wait
+The port serves the dense transformers (chatglm3-6b, phi3-medium-14b,
+gemma2-27b with its sliding-window and softcapped attention, deepseek-67b)
+and dbrx-132b (MoE decode), through the dense engine or the paged one
+(``serve_step_fn``), trains and prefills the dense ones (``loss_fn``,
+``prefill_fn``; dbrx's wait
 for the sequence-sharded MoE of ROADMAP Queue 1 item 5), runs rwkv6-7b's
 prefill and decode (``prefill_fn``, ``decode_fn``; no launcher serves it
 yet, and its training is item 7) and the forward of DLRM, the paper's own
@@ -40,11 +42,13 @@ _MODULES = {
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "dlrm": "repro_torch.configs.dlrm",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
+    "gemma2-27b": "repro_torch.configs.gemma2_27b",
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
 }
 
 # the reference's other architectures, and the ROADMAP Queue 1 item of each
 _LATER = {
-    "phi3-medium-14b": 7, "gemma2-27b": 7, "deepseek-67b": 7,
     "musicgen-medium": 7, "zamba2-7b": 7,
     "deepseek-v3-671b": 5, "qwen2-vl-2b": 7,
 }

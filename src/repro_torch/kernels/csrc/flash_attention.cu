@@ -4,7 +4,10 @@
 // (_flash_kernel, entry flash_attention_pallas at :63).  For each query row
 // and head, over the keys in blocks, with f32 running max m, denominator l
 // and accumulator acc (m from -1e30, the reference's mask value):
-//   s   = (q . k) * scale, -1e30 where masked (causal: kpos > qpos)
+//   s   = (q . k) * scale
+//   s   = cap * tanh(s / cap)                         (with a softcap)
+//   s   = -1e30 where masked (causal: kpos > qpos; with a sliding window
+//         also qpos - kpos >= window)
 //   m'  = max(m, max s);  p = exp(s - m');  corr = exp(m - m')
 //   l   = l corr + sum p;  acc = acc corr + p V;  m = m'
 //   out = acc / max(l, 1e-30), at the input dtype.
@@ -17,9 +20,20 @@
 // carries in VMEM scratch; a GPU grid has no sequential axis, so one CTA
 // per (batch*head, query block) loops over the key blocks with the carries
 // in registers.  A causal CTA stops at the diagonal: blocks wholly above it
-// are never read.  CTAs start with the longest causal rows, so the short
-// ones fill the tail of the grid, and the query heads of one kv head are
-// adjacent in launch order, so their K and V blocks are read from L2.
+// are never read.  With a window the CTA of query block [q0, q0 + BQ)
+// starts at the block of key q0 - window + 1: blocks wholly left of every
+// row's window are never read either (at S = 32768 and window 4096 a local
+// layer reads about 0.24 of the causal square).  CTAs start with the
+// longest causal rows, so the short ones fill the tail of the grid (with a
+// window the order no longer sorts by work, and is kept), and the query
+// heads of one kv head are adjacent in launch order, so their K and V
+// blocks are read from L2.
+//
+// The window and the softcap are not in the TPU kernel (kernel.py:63 takes
+// neither); they are those of the model's blockwise attention, the
+// reference's _span_flash (src/repro/models/attention.py:62, the cap at
+// :47-48, the mask at :86-87), which this kernel computes for gemma2's
+// layers.
 //
 // Two kernels; the wrapper's flash_path (kernels/flash_attention/ops.py)
 // picks one per call, with no fallback between them:
@@ -33,11 +47,12 @@
 // split gives 168 and the consumers spill).  One producer thread loads Q
 // once and streams 128-key blocks of K and V through a 2-stage ring
 // with TMA (128-byte swizzle, full/empty mbarriers; zeros past S, so only
-// the diagonal and the tail block are masked).  Per block, each warpgroup
-// runs S = Q K^T as wgmma with A = Q and B = K, both K-major in shared
-// memory; the softmax on the f32 accumulator fragment, in the exp2 domain
-// with the scale folded in, row max over the 4 lanes that share a row; then
-// O += P V as wgmma with A = P from registers and B = V N-major (the
+// the diagonal, the window's left edge and the tail block are masked).
+// Per block, each warpgroup runs S = Q K^T as wgmma with A = Q and B = K,
+// both K-major in shared memory; the softmax on the f32 accumulator
+// fragment, in the exp2 domain with the scale folded in (and the softcap:
+// see below), row max over the 4 lanes that share a row; then O += P V as
+// wgmma with A = P from registers and B = V N-major (the
 // transpose bit).  P is rounded to bf16 before the PV product, as the TPU
 // kernel does (kernel.py:52-53); l sums it unrounded, as there.  The f32
 // accumulator fragment of S is the register-A fragment of P without
@@ -49,6 +64,16 @@
 // warpgroups, overlap of the softmax with the next Q K^T inside one
 // warpgroup, persistent CTAs, a rescale skipped where the max did not move,
 // and a shared-memory epilogue with coalesced stores.
+//
+// The softcap's tanh on the tile path: tanh.approx.f32 errs by about 2^-11
+// relative, up to 0.025 in a score at cap 50 (2.5 % in a probability, above
+// the bf16 bound), so tanh(y) = 1 - 2 / (1 + 2^(2 y log2 e)) through
+// ex2.approx and rcp.approx (each within a few ulp: the capped score errs
+// by about 1e-5 at cap 50).  In the exp2 domain the whole cap is
+//   t log2 e = cap log2 e - (2 cap log2 e) / (1 + 2^(s * 2 scale log2 e / cap))
+// one multiply, two MUFU ops and two adds a score, beside the softmax's
+// exp2: the cap triples the MUFU work of a score.  The CUDA-core path
+// calls the precise tanhf.
 //
 // flash_attention_kernel, every other call (f32, whose tensor-core product
 // would be TF32, and d = 64), on CUDA cores: Q, K and V tiles staged in
@@ -116,7 +141,8 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
                            float* __restrict__ m_out, float* __restrict__ l_out, int S, int Hq,
-                           int Hkv, int n_qblk, float scale, int causal) {
+                           int Hkv, int n_qblk, float scale, int causal, int window,
+                           float softcap) {
   constexpr int PD = D + 4;    // row pitch of Q, K and V in shared memory
   constexpr int CV = D / 64;   // float4 column groups of acc per thread
   static_assert(kFlashBQ == 64 && kFlashBK == 64, "the thread layout assumes 64 x 64 tiles");
@@ -148,7 +174,10 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
   }
 
   const int k_end = causal ? min(S, q0 + kFlashBQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += kFlashBK) {
+  // with a window, the first block holding a key inside row q0's window
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kFlashBK * kFlashBK : 0;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+  for (int k0 = k_begin; k0 < k_end; k0 += kFlashBK) {
     __syncthreads();   // the previous block's P and V are read
     const int valid = min(kFlashBK, S - k0);
     stage<T, D>(ks, k + kbase + (size_t)k0 * kstride, kstride, valid);
@@ -182,12 +211,17 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q0 + ty + 16 * i;
+      // the keys this row sees: [lo, hi]
+      const int lo = window > 0 ? qpos - window + 1 : 0;
+      const int hi = causal ? min(qpos, S - 1) : S - 1;
       float mx = kFlashNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < S && (!causal || kpos <= qpos);
-        s[i][j] = ok ? s[i][j] * scale : kFlashNegInf;
+        const bool ok = kpos >= lo && kpos <= hi;
+        float x = s[i][j] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x * inv_cap);
+        s[i][j] = ok ? x : kFlashNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -258,7 +292,8 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
 template <typename T, int D>
 static cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
                                 float* m_out, float* l_out, int B, int S, int Hq, int Hkv,
-                                float scale, int causal, cudaStream_t stream) {
+                                float scale, int causal, int window, float softcap,
+                                cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, D>;
   const size_t smem = sizeof(float) * (kFlashBQ + 2 * kFlashBK) * (D + 4);
   cudaError_t err =
@@ -269,7 +304,7 @@ static cudaError_t launch_flash(const void* q, const void* k, const void* v, voi
   if (grid > INT_MAX) return cudaErrorInvalidValue;
   kernel<<<(unsigned)grid, kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), m_out, l_out, S, Hq, Hkv, n_qblk, scale, causal);
+      static_cast<T*>(o), m_out, l_out, S, Hq, Hkv, n_qblk, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
@@ -312,6 +347,12 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -325,12 +366,19 @@ __device__ __forceinline__ void wgmma_commit() {
 // tiles (scores and acc alike), rows r = 16 (t / 32) + (t % 32) / 4 and
 // r + 8 at columns 8 j + 2 (t % 4) + {0, 1}: accumulators 4 j + {0, 1} are
 // row r, 4 j + {2, 3} row r + 8 (wgmma's m64nN f32 fragment).
+//
+// kCap: a softcap.  Without it a score goes to the exp2 domain as s *
+// scale_log2 (scale log2 e); with it as cap_log2 - 2 cap_log2 / (1 +
+// 2^(s * cap_in)), cap_in = 2 scale log2 e / cap, cap_log2 = cap log2 e.
+// window > 0: a sliding window of that many keys (0: none).
+template <bool kCap>
 __global__ void __launch_bounds__(kTileThreads, 1)
     flash_tile_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
                       float* __restrict__ m_out, float* __restrict__ l_out, int S, int Hq,
-                      int Hkv, int n_qblk, float scale_log2, int causal) {
+                      int Hkv, int n_qblk, float scale_log2, int causal, int window,
+                      float cap_in, float cap_log2) {
   extern __shared__ uint8_t flash_smem_raw[];
   const uint32_t raw = smem_addr(flash_smem_raw);
   FlashSmem& sm = *reinterpret_cast<FlashSmem*>(flash_smem_raw + (1024 - raw % 1024) % 1024);
@@ -340,6 +388,8 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   const int q0 = (n_qblk - 1 - blockIdx.x / BH) * kTileBQ;   // longest causal rows first
   const int b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
   const int n_blk = ((causal ? min(S, q0 + kTileBQ) : S) + kTileBK - 1) / kTileBK;
+  // with a window, the first block holding a key inside row q0's window
+  const int j0 = window > 0 ? max(0, q0 - window + 1) / kTileBK : 0;
   const int tid = threadIdx.x;
   if (tid == 0) {
     mbar_init(&sm.q_full, 1);
@@ -361,7 +411,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
         tma_load_3d(sm.q[half], &qmap, &sm.q_full, h * kTileD + half * kTileHalf, q0, b);
       int stage = 0;
       unsigned phase = 0;
-      for (int j = 0; j < n_blk; ++j) {
+      for (int j = j0; j < n_blk; ++j) {
         mbar_wait(&sm.empty[stage], phase ^ 1u);
         FlashKV& kv = sm.kv[stage];
         mbar_expect_tx(&sm.full[stage], sizeof(FlashKV));
@@ -381,6 +431,12 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
     const int row0 = q0 + wg * 64 + warp * 16 + lane / 4, row1 = row0 + 8;
     const int col = (lane % 4) * 2;
+    // the keys rows row0 and row1 see: [lo, hi] (one range test a score in
+    // a masked block, whatever mask is on)
+    const int lo0 = window > 0 ? row0 - window + 1 : 0;
+    const int lo1 = window > 0 ? row1 - window + 1 : 0;
+    const int hi0 = causal ? min(row0, S - 1) : S - 1;
+    const int hi1 = causal ? min(row1, S - 1) : S - 1;
     float s[64], acc[64];
     uint32_t p[kTileBK / 16][4];   // P's register-A fragments, one per 16 keys
 #pragma unroll
@@ -401,22 +457,31 @@ __global__ void __launch_bounds__(kTileThreads, 1)
       wgmma_commit();
     };
 
+    // a raw score into the exp2 domain, capped with kCap (see above)
+    auto exp2_score = [&](float x) {
+      if constexpr (kCap)
+        return fmaf(rcp(1.f + ex2(x * cap_in)), -2.f * cap_log2, cap_log2);
+      else
+        return x * scale_log2;
+    };
+
     // Block j's softmax on s: P into p, acc rescaled.  Scores go to the exp2
-    // domain (scale_log2 = scale * log2 e); masked only where the block
-    // passes the end of S or this warpgroup's diagonal.
+    // domain; masked only where the block passes the end of S, this
+    // warpgroup's diagonal or the left edge of its last row's window.
     auto softmax = [&](int j) {
-      const int k0 = j * kTileBK;
-      const bool masked = k0 + kTileBK > S || (causal && k0 + kTileBK - 1 > q0 + wg * 64);
+      const int k0 = j * kTileBK, wrow = q0 + wg * 64;
+      const bool masked = k0 + kTileBK > S || (causal && k0 + kTileBK - 1 > wrow) ||
+                          (window > 0 && k0 + window <= wrow + 63);
       float mx0 = kFlashNegInf, mx1 = kFlashNegInf;
 #pragma unroll
       for (int jj = 0; jj < kTileBK / 8; ++jj)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float t0 = s[4 * jj + e] * scale_log2, t1 = s[4 * jj + 2 + e] * scale_log2;
+          float t0 = exp2_score(s[4 * jj + e]), t1 = exp2_score(s[4 * jj + 2 + e]);
           if (masked) {
             const int kpos = k0 + 8 * jj + col + e;
-            if (kpos >= S || (causal && kpos > row0)) t0 = kFlashNegInf;
-            if (kpos >= S || (causal && kpos > row1)) t1 = kFlashNegInf;
+            if (kpos < lo0 || kpos > hi0) t0 = kFlashNegInf;
+            if (kpos < lo1 || kpos > hi1) t1 = kFlashNegInf;
           }
           s[4 * jj + e] = t0;
           s[4 * jj + 2 + e] = t1;
@@ -491,7 +556,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     // the next block's scores go in behind each PV product, so a
     // warpgroup's tensor work runs back to back; the last block is peeled
     // off, so no wgmma is issued under a condition
-    for (int j = 0; j + 1 < n_blk; ++j) {
+    for (int j = j0; j + 1 < n_blk; ++j) {
       softmax(j);
       pv(sm.kv[stage]);
       const int next = stage + 1 == kTileStages ? 0 : stage + 1;
@@ -541,9 +606,30 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   }
 }
 
+template <bool kCap>
+static cudaError_t launch_flash_tile(const CUtensorMap& qmap, const CUtensorMap& kmap,
+                                     const CUtensorMap& vmap, void* o, float* m_out,
+                                     float* l_out, int B, int S, int Hq, int Hkv, float scale,
+                                     int causal, int window, float softcap,
+                                     cudaStream_t stream) {
+  auto kernel = flash_tile_kernel<kCap>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kTileSmemBytes));
+  if (err != cudaSuccess) return err;
+  const int n_qblk = (S + kTileBQ - 1) / kTileBQ;
+  const long long grid = (long long)n_qblk * B * Hq;
+  if (grid > INT_MAX) return cudaErrorInvalidValue;
+  const float cap_in = kCap ? 2.f * scale * kLog2e / softcap : 0.f;
+  kernel<<<(unsigned)grid, kTileThreads, kTileSmemBytes, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), m_out, l_out, S, Hq, Hkv, n_qblk,
+      scale * kLog2e, causal, window, cap_in, softcap * kLog2e);
+  return cudaGetLastError();
+}
+
 static cudaError_t launch_flash_tile(const void* q, const void* k, const void* v, void* o,
                                      float* m_out, float* l_out, int B, int S, int Hq, int Hkv,
-                                     float scale, int causal, cudaStream_t stream) {
+                                     float scale, int causal, int window, float softcap,
+                                     cudaStream_t stream) {
   // q and o as [B][S][Hq * d], k and v as [B][S][Hkv * d]: a box is 128
   // rows of one 64-column half of one head
   CUtensorMap qmap, kmap, vmap;
@@ -552,17 +638,11 @@ static cudaError_t launch_flash_tile(const void* q, const void* k, const void* v
     err = make_tile_map(&kmap, k, (uint64_t)Hkv * kTileD, S, B, kTileHalf, kTileBK);
   if (err == cudaSuccess)
     err = make_tile_map(&vmap, v, (uint64_t)Hkv * kTileD, S, B, kTileHalf, kTileBK);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kTileSmemBytes));
   if (err != cudaSuccess) return err;
-  const int n_qblk = (S + kTileBQ - 1) / kTileBQ;
-  const long long grid = (long long)n_qblk * B * Hq;
-  if (grid > INT_MAX) return cudaErrorInvalidValue;
-  flash_tile_kernel<<<(unsigned)grid, kTileThreads, kTileSmemBytes, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), m_out, l_out, S, Hq, Hkv, n_qblk,
-      scale * kLog2e, causal);
-  return cudaGetLastError();
+  return softcap > 0.f ? launch_flash_tile<true>(qmap, kmap, vmap, o, m_out, l_out, B, S, Hq,
+                                                 Hkv, scale, causal, window, softcap, stream)
+                       : launch_flash_tile<false>(qmap, kmap, vmap, o, m_out, l_out, B, S, Hq,
+                                                  Hkv, scale, causal, window, softcap, stream);
 }
 
 }  // namespace repro_torch
@@ -570,42 +650,48 @@ static cudaError_t launch_flash_tile(const void* q, const void* k, const void* v
 // q, o [B, S, Hq, D]; k, v [B, S, Hkv, D]; all contiguous and 16-byte
 // aligned, of one element type (dtype 0 = f32, 1 = bf16).  D must be 64 or
 // 128 and Hq a multiple of Hkv.  m and l: [B, Hq, S] f32 softmax statistics,
-// both null (none written) or both given.  Returns a cudaError_t code (0 =
-// launched).
+// both null (none written) or both given.  window: a sliding window of that
+// many keys (0 = none); softcap: cap * tanh(s / cap) on every score (0 =
+// none).  Returns a cudaError_t code (0 = launched).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      float* m, float* l, int B, int S, int Hq, int Hkv, int D,
-                                     float scale, int causal, int dtype, void* stream) {
+                                     float scale, int causal, int window, float softcap,
+                                     int dtype, void* stream) {
   using namespace repro_torch;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
   if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || addr % 16 != 0 ||
-      (m == nullptr) != (l == nullptr))
+      (m == nullptr) != (l == nullptr) || window < 0 || !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  const auto launch = [&](auto kernel_launch) {
+    return kernel_launch(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal, window, softcap, st);
+  };
   if (dtype == 0 && D == 64)
-    err = launch_flash<float, 64>(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal, st);
+    err = launch(launch_flash<float, 64>);
   else if (dtype == 0 && D == 128)
-    err = launch_flash<float, 128>(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal, st);
+    err = launch(launch_flash<float, 128>);
   else if (dtype == 1 && D == 64)
-    err = launch_flash<__nv_bfloat16, 64>(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal, st);
+    err = launch(launch_flash<__nv_bfloat16, 64>);
   else if (dtype == 1 && D == 128)
-    err = launch_flash<__nv_bfloat16, 128>(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal, st);
+    err = launch(launch_flash<__nv_bfloat16, 128>);
   return static_cast<int>(err);
 }
 
 // The tensor-core path: q, o [B, S, Hq, 128]; k, v [B, S, Hkv, 128]; all
-// bf16, contiguous and 16-byte aligned; Hq a multiple of Hkv; m and l as
-// above.  Returns a cudaError_t code (0 = launched).
+// bf16, contiguous and 16-byte aligned; Hq a multiple of Hkv; m, l, window
+// and softcap as above.  Returns a cudaError_t code (0 = launched).
 extern "C" int repro_flash_attention_tile(const void* q, const void* k, const void* v, void* o,
                                           float* m, float* l, int B, int S, int Hq, int Hkv,
-                                          int D, float scale, int causal, void* stream) {
+                                          int D, float scale, int causal, int window,
+                                          float softcap, void* stream) {
   using namespace repro_torch;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
   if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D != kTileD ||
-      addr % 16 != 0 || (m == nullptr) != (l == nullptr))
+      addr % 16 != 0 || (m == nullptr) != (l == nullptr) || window < 0 || !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_flash_tile(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal,
-                                            static_cast<cudaStream_t>(stream)));
+                                            window, softcap, static_cast<cudaStream_t>(stream)));
 }

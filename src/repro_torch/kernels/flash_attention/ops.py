@@ -9,6 +9,11 @@ reference's analytic gradient, ``_span_flash_bwd`` recomputing the scores
 block by block (``models/attention.flash_backward``).  The reference has no
 backward kernel, so that backward is plain PyTorch on both devices.  Without
 a gradient (prefill, serving) no statistics are written.
+
+A sliding window and a softcap (gemma2's local layers, and every one of its
+layers) are computed inside the kernel, on both paths, with the semantics of
+the model's blockwise attention (the reference's ``_span_flash``), which the
+TPU kernel lacks; the plain version and the backward take them too.
 """
 from __future__ import annotations
 
@@ -46,14 +51,16 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=No
     :func:`flash_path` chooses (d of 64 or 128, f32 or bf16) or raises; a
     CPU tensor takes :func:`flash_attention_plain`.  ``_path`` forces one of
     :data:`PATHS` (for timing both; no caller passes it) and raises where
-    that kernel does not take the call, on any device.  The TPU kernel has
-    no sliding window and no softcap, so asking for either raises.  The
-    gradient is the analytic backward of the module docstring; it cannot be
-    differentiated again."""
-    if window is not None or softcap is not None:
-        raise NotImplementedError(
-            f"flash_attention: window={window}, softcap={softcap}: the kernel, like the TPU "
-            f"kernel it ports, has neither")
+    that kernel does not take the call, on any device.  ``window`` (keys
+    with ``qpos - kpos < window``, a positive int) and ``softcap`` (scores
+    ``softcap * tanh(s / softcap)``, a positive float) are those of the
+    reference's ``_span_flash``; either may be None.  The gradient is the
+    analytic backward of the module docstring; it cannot be differentiated
+    again."""
+    if window is not None and (int(window) != window or window < 1):
+        raise ValueError(f"flash_attention: window {window} is not a positive int")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention: softcap {softcap} is not positive")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention: need q [B, S, Hq, d] and k, v [B, S, Hkv, d], got "
                          f"{[tuple(a.shape) for a in (q, k, v)]}")
@@ -70,24 +77,29 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=No
             _path == "tile" and flash_path(q.dtype, d) != "tile")):
         raise ValueError(f"flash_attention: path {_path!r} does not take {q.dtype} at d = {d}")
     scale = float(scale) if scale is not None else d ** -0.5
+    window = None if window is None else int(window)
+    softcap = None if softcap is None else float(softcap)
     stats = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    return _Flash.apply(q, k, v, scale, bool(causal), _path, stats)
+    return _Flash.apply(q, k, v, scale, bool(causal), window, softcap, _path, stats)
 
 
 flash_attention.launches = 0
 flash_attention.path_launches = dict.fromkeys(PATHS, 0)
 
 
-def flash_attention_plain(q, k, v, *, scale=None, causal=True, stats=False):
+def flash_attention_plain(q, k, v, *, scale=None, causal=True, window=None, softcap=None,
+                          stats=False):
     """The op's plain version on any device: each kv head repeated over its
     query heads, heads folded into the batch, :func:`flash_attention_ref`.
-    With ``stats`` also (m, l), each [B, Hq, S] f32."""
+    With ``stats`` also (m, l), each [B, Hq, S] f32: those of the capped,
+    masked scores."""
     b, s, hq, d = q.shape
     g = hq // k.shape[2]
     scale = scale if scale is not None else d ** -0.5
     fold = lambda t: t.repeat_interleave(g, dim=2).transpose(1, 2).reshape(b * hq, s, d)
     out = flash_attention_ref(q.transpose(1, 2).reshape(b * hq, s, d), fold(k), fold(v),
-                              scale=scale, causal=causal, stats=stats)
+                              scale=scale, causal=causal, window=window, softcap=softcap,
+                              stats=stats)
     unfold = lambda o: o.reshape(b, hq, s, d).transpose(1, 2)
     if stats:
         return unfold(out[0]), out[1].reshape(b, hq, s), out[2].reshape(b, hq, s)
@@ -96,18 +108,19 @@ def flash_attention_plain(q, k, v, *, scale=None, causal=True, stats=False):
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, path, stats):
+    def forward(ctx, q, k, v, scale, causal, window, softcap, path, stats):
         if q.device.type == "cpu":
-            out = flash_attention_plain(q, k, v, scale=scale, causal=causal, stats=stats)
+            out = flash_attention_plain(q, k, v, scale=scale, causal=causal, window=window,
+                                        softcap=softcap, stats=stats)
         else:
-            out, path = _launch(q, k, v, scale, causal, path, stats)
+            out, path = _launch(q, k, v, scale, causal, window, softcap, path, stats)
             flash_attention.launches += 1
             flash_attention.path_launches[path] += 1
         if not stats:
             return out
         o, m, l = out
         ctx.save_for_backward(q, k, v, o, m, l)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.args = dict(causal=causal, window=window, scale=scale, cap=softcap)
         return o
 
     @staticmethod
@@ -117,15 +130,15 @@ class _Flash(torch.autograd.Function):
         from repro_torch.models.attention import flash_backward
 
         q, k, v, o, m, l = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, o, m, l, do, causal=ctx.causal, window=None,
-                                    scale=ctx.scale, cap=None)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = flash_backward(q, k, v, o, m, l, do, **ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
-def _launch(q, k, v, scale, causal, path, stats=False):
+def _launch(q, k, v, scale, causal, window, softcap, path, stats=False):
     """Launches the kernel ``path`` names, else the one :func:`flash_path`
     chooses; returns (output, the path launched).  With ``stats`` the output
-    is (o, m, l), m and l [B, Hq, S] f32."""
+    is (o, m, l), m and l [B, Hq, S] f32.  A window of S or more keys is no
+    window, and goes to the kernel as S (its int)."""
     b, s, hq, d = q.shape
     if d not in KERNEL_D:
         raise ValueError(f"flash_attention: the kernel takes head sizes {KERNEL_D}, got {d}")
@@ -139,7 +152,7 @@ def _launch(q, k, v, scale, causal, path, stats=False):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(m), ptr(l), b, s, hq,
-            k.shape[2], d, scale, int(causal))
+            k.shape[2], d, scale, int(causal), min(window or 0, s), softcap or 0.0)
     with torch.cuda.device(q.device):
         lib = load_library().lib
         if path == "tile":

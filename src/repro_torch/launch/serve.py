@@ -6,6 +6,7 @@
       --chunk 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --paged
   PYTHONPATH=src python -m torch.distributed.run --standalone \
       --nproc-per-node 4 -m repro_torch.launch.serve --tp 4 --fusion fused
 
@@ -39,9 +40,12 @@ run through ``get_arch("rwkv6-7b").prefill_fn`` / ``decode_fn``.
 
 A dense model's FFN down projection runs the fused GEMV+AllReduce kernel;
 an MoE model's experts run the dispatch-A2A kernel chained into the expert
-FFN + combine-A2A kernel.  Full-width dbrx-132b (264 GB of bf16 weights)
-does not fit one card: ``chip_smoke.py`` serves it cut to 8 of its 40
-layers.
+FFN + combine-A2A kernel.  The dense configs are chatglm3-6b (the
+default), phi3-medium-14b, gemma2-27b (its sliding window and softcaps in
+the same decode and paged steps; 54.5 GB of bf16 weights, which fit one
+card) and deepseek-67b (134 GB: not one card).  Full-width dbrx-132b (264
+GB of bf16 weights) does not fit one card: ``chip_smoke.py`` serves it cut
+to 8 of its 40 layers.
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
 device the default raises.  Weights are random, drawn from a fixed seed.

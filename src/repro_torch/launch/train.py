@@ -125,7 +125,8 @@ def main(argv=None, *, on_phase=None):
         optimizer=OptimizerConfig(name=bundle.optimizer, lr=args.lr,
                                   warmup_steps=max(args.steps // 20, 5),
                                   total_steps=args.steps),
-        microbatches=bundle.microbatches)
+        microbatches=bundle.microbatches,
+        layer_period=getattr(bundle.config, "local_global_period", 0) or 1)
     state = init_train_state(tc, params)
     del params
     step_fn = build_train_step(loss_fn, tc, on_phase=on_phase)

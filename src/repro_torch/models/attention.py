@@ -233,9 +233,10 @@ def context_attention(
     At tp = 1 the reference's ``bulk`` branch (an all-gather, then
     ``_span_flash``) and its ring (``kernel``) both reduce to one span over
     the whole sequence.  Kernel mode on a CUDA tensor runs it in the flash
-    kernel (which takes neither ``window`` nor ``softcap_val``); bulk mode
-    on any device, and a CPU tensor, run ``_span_flash`` with the
-    reference's default blocks (:func:`attention_path`).  Kernel mode's
+    kernel, ``window`` and ``softcap_val`` included (gemma2's local layers
+    and its capped scores, computed inside the kernel); bulk mode on any
+    device, and a CPU tensor, run ``_span_flash`` with the reference's
+    default blocks (:func:`attention_path`).  Kernel mode's
     gradient is the analytic ``flash_backward`` on both devices (the flash
     op's backward on a card, ``_SpanFlash`` on the CPU); bulk mode's is
     autograd through ``_span_flash``.  ``fused`` mode

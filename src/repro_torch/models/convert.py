@@ -92,13 +92,13 @@ def train_state_from_numpy(state, device="cpu"):
         p.requires_grad_(True)
     opt = state["opt"]
     if "v" in opt:
-        # Adafactor keeps the reference's stacked state under "layers"
-        # (a layer pattern of one: the one stack "l0")
+        # Adafactor keeps the reference's stacked state under "layers": the
+        # one stack "l0" of a layer pattern of one as it is, a longer
+        # pattern's stacks "l0", "l1", ... by name (optimizer.adafactor_init)
         v = opt["v"]
-        if set(v["layers"]) != {"l0"}:
-            raise NotImplementedError("a layer pattern longer than one: ROADMAP Queue 1 item 7")
+        layers = _conv(v["layers"], device)
         opt = {"v": {**{k: _conv(t, device) for k, t in v.items() if k != "layers"},
-                     "layers": _conv(v["layers"]["l0"], device)}}
+                     "layers": layers["l0"] if set(layers) == {"l0"} else layers}}
     else:
         opt = {k: conv(v) for k, v in opt.items() if k != "step"}
     opt["step"] = torch.tensor(int(np.asarray(state["opt"]["step"])), dtype=torch.int32)

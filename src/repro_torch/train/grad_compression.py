@@ -12,8 +12,9 @@ They wrap the gradients before the optimizer, after the JAX package's
 reduction for the payload to shrink, so this models the compression loss
 and the error feedback only; gradients and residuals are updated in place.
 As in the reference, whose layers are stacked, a layer leaf is compressed
-together with the same leaf of every other layer (one int8 scale, one
-top-k over the stack: ``optimizer.leaf_groups``).
+together with the same leaf of every other layer at its position of the
+layer pattern (one int8 scale, one top-k over the stack:
+``optimizer.leaf_groups``).
 """
 from __future__ import annotations
 
@@ -49,15 +50,17 @@ def _dequantize_int8(q, scale):
 
 
 @torch.no_grad()
-def compress_decompress(cfg: CompressionConfig, grads, residuals):
+def compress_decompress(cfg: CompressionConfig, grads, residuals, period: int = 1):
     """Compress each gradient group plus its residuals; returns (the
     gradients, overwritten with their decompressed values, and the
-    residuals, updated in place with what the compression dropped)."""
+    residuals, updated in place with what the compression dropped).
+    ``period``: the model's layer pattern (``optimizer.leaf_groups``)."""
     if cfg.scheme == "none":
         return grads, residuals
     if cfg.scheme not in ("int8", "topk"):
         raise ValueError(cfg.scheme)
-    for (_, gs, _), (_, rs, _) in zip(leaf_groups(grads), leaf_groups(residuals)):
+    for (_, gs, _), (_, rs, _) in zip(leaf_groups(grads, period),
+                                      leaf_groups(residuals, period)):
         g32 = [g.float() + r for g, r in zip(gs, rs)]
         if cfg.scheme == "int8":
             scale = _int8_scale(g32)

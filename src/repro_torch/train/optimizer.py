@@ -14,10 +14,12 @@ reaches the layers' norm weights, and Adafactor factors a stacked norm over
 the layer axis and clips each update by the RMS of the whole stack.  The
 port keeps one dict per layer, and :func:`leaf_groups` hands the update the
 same groups: a leaf outside ``params["layers"]`` alone, a layer leaf
-together with its counterparts in every other layer (the scan of a layer
-pattern of one; no ported model has a longer one).  AdamW's update is
-elementwise, so its state stays per layer; Adafactor keeps the stacked
-factored state of the reference.
+together with its counterparts in every other layer at the same position of
+the layer pattern (the reference scans a pattern of P layers as P stacks,
+``l0`` .. ``l<P-1>``: gemma2's local and global layers are two).  The update
+functions take that ``period``; ``train/step.py`` passes the model's.
+AdamW's update is elementwise, so its state stays per layer; Adafactor
+keeps the stacked factored state of the reference.
 
 State dtype matters at scale: bf16 moments (or Adafactor) halve the
 optimizer's memory.  Configs pick via ``state_dtype``.
@@ -92,19 +94,26 @@ def _set_path(tree, path, value):
     tree[path[-1]] = value
 
 
-def leaf_groups(tree) -> list:
+def leaf_groups(tree, period: int = 1) -> list:
     """[(path, tensors, stacked)]: the leaves as the reference's optimizer
     sees them.  A leaf outside ``tree["layers"]`` is a group of one
     (``stacked`` False); each leaf of the per-layer dicts forms a group with
-    the same leaf of every layer (``stacked`` True), path ``("layers", ...)``.
-    Trees of one structure (parameters, gradients, AdamW moments) give
-    aligned groups."""
+    the same leaf of every layer at the same position j of a layer pattern
+    of ``period`` layers (layers j, j + period, ...; ``stacked`` True), as
+    the reference's scan stacks them: path ``("layers", ...)`` for a
+    pattern of one, ``("layers", "l<j>", ...)`` for a longer one.  Trees of
+    one structure (parameters, gradients, AdamW moments) give aligned
+    groups."""
     groups = [(path, [leaf], False)
               for path, leaf in tree_paths({k: v for k, v in tree.items() if k != "layers"})]
     layers = tree.get("layers", [])
-    if layers:
-        groups += [(("layers",) + path, [get_path(lp, path) for lp in layers], True)
-                   for path, _ in tree_paths(layers[0])]
+    if len(layers) % period:
+        raise ValueError(f"{len(layers)} layers are not whole patterns of {period}")
+    for j in range(period if layers else 0):
+        stack = layers[j::period]
+        prefix = ("layers",) if period == 1 else ("layers", f"l{j}")
+        groups += [(prefix + path, [get_path(lp, path) for lp in stack], True)
+                   for path, _ in tree_paths(stack[0])]
     return groups
 
 
@@ -153,7 +162,7 @@ def _step_scalars(state):
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
-def adamw_init(cfg: OptimizerConfig, params):
+def adamw_init(cfg: OptimizerConfig, params, period: int = 1):
     dt = DTYPES[cfg.state_dtype]
     zeros = lambda p: torch.zeros_like(p, dtype=dt)
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
@@ -161,9 +170,10 @@ def adamw_init(cfg: OptimizerConfig, params):
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, grads, state, params):
+def adamw_update(cfg: OptimizerConfig, grads, state, params, period: int = 1):
     """One AdamW step in place on ``params`` and ``state``; returns (params,
-    state, lr).  Decoupled weight decay on matrices only."""
+    state, lr).  Decoupled weight decay on matrices only.  ``period``: the
+    model's layer pattern (:func:`leaf_groups`)."""
     step, step_f = _step_scalars(state)
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.betas
@@ -186,8 +196,7 @@ def adamw_update(cfg: OptimizerConfig, grads, state, params):
             v.copy_(v32)
 
     for (_, gs, stacked), (_, ps, _), (_, ms, _), (_, vs, _) in zip(
-            leaf_groups(grads), leaf_groups(params), leaf_groups(state["mu"]),
-            leaf_groups(state["nu"])):
+            *(leaf_groups(tr, period) for tr in (grads, params, state["mu"], state["nu"]))):
         for g, p, m, v in zip(gs, ps, ms, vs):
             # decoupled weight decay on matrices only, as the reference's
             # stacked leaves count their dimensions
@@ -199,12 +208,14 @@ def adamw_update(cfg: OptimizerConfig, grads, state, params):
 # ---------------------------------------------------------------------------
 # Adafactor-lite (factored second moment; for the 100B+ configs)
 # ---------------------------------------------------------------------------
-def adafactor_init(cfg: OptimizerConfig, params):
+def adafactor_init(cfg: OptimizerConfig, params, period: int = 1):
     """{"v": the factored second moments, laid out like ``params`` outside
     the layers and, under "layers", like one layer dict holding each
-    group's stacked state; "step"}."""
+    group's stacked state (for a layer pattern of ``period`` > 1, one such
+    dict per position, "l0", "l1", ..., as the reference keeps them);
+    "step"}."""
     v = {}
-    for path, ps, stacked in leaf_groups(params):
+    for path, ps, stacked in leaf_groups(params, period):
         shape = ((len(ps),) if stacked else ()) + tuple(ps[0].shape)
         f32 = dict(dtype=torch.float32, device=ps[0].device)
         if len(shape) >= 2:
@@ -234,7 +245,7 @@ def _adafactor_denom(vr, vc):
 
 
 @torch.no_grad()
-def adafactor_update(cfg: OptimizerConfig, grads, state, params):
+def adafactor_update(cfg: OptimizerConfig, grads, state, params, period: int = 1):
     """One Adafactor-lite step in place; returns (params, state, lr).  A
     stack of 1-D layer leaves (the norms) is updated stacked; a stack of
     matrices layer by layer, in two passes: the first updates the factored
@@ -251,7 +262,8 @@ def adafactor_update(cfg: OptimizerConfig, grads, state, params):
             new_p -= lr * cfg.weight_decay * p32
         p.copy_(new_p)
 
-    for (path, gs, stacked), (_, ps, _) in zip(leaf_groups(grads), leaf_groups(params)):
+    for (path, gs, stacked), (_, ps, _) in zip(leaf_groups(grads, period),
+                                               leaf_groups(params, period)):
         v = get_path(state["v"], path)
         if not stacked or ps[0].dim() == 1:
             g = torch.stack([x.float() for x in gs]) if stacked else gs[0].float()

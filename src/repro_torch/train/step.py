@@ -26,6 +26,10 @@ class TrainConfig:
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
     compression: CompressionConfig = dataclasses.field(default_factory=CompressionConfig)
     microbatches: int = 1
+    # the model's layer pattern (gemma2: 2), whose positions the optimizer
+    # and the compression stack apart, as the reference's scan does
+    # (``optimizer.leaf_groups``); the reference reads it from its stacked tree
+    layer_period: int = 1
 
 
 def init_train_state(tc: TrainConfig, params):
@@ -34,7 +38,7 @@ def init_train_state(tc: TrainConfig, params):
     opt_init, _ = make_optimizer(tc.optimizer)
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    state = {"params": params, "opt": opt_init(tc.optimizer, params)}
+    state = {"params": params, "opt": opt_init(tc.optimizer, params, tc.layer_period)}
     if tc.compression.scheme != "none":
         state["residuals"] = init_residuals(tc.compression, params)
     return state
@@ -82,8 +86,9 @@ def build_train_step(loss_fn: Callable, tc: TrainConfig, *, on_phase: Callable |
         grads, gnorm = clip_by_global_norm(grads, tc.optimizer.grad_clip)
         if tc.compression.scheme != "none":
             grads, state["residuals"] = compress_decompress(tc.compression, grads,
-                                                            state["residuals"])
-        _, state["opt"], lr = opt_update(tc.optimizer, grads, state["opt"], params)
+                                                            state["residuals"], tc.layer_period)
+        _, state["opt"], lr = opt_update(tc.optimizer, grads, state["opt"], params,
+                                         tc.layer_period)
         del grads
         mark("optimizer")
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "step": state["opt"]["step"]}

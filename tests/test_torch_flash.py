@@ -130,11 +130,14 @@ def test_flash_attention_any_s_matches_ref(rng, s):
 def test_flash_attention_refuses(rng, bad):
     q, k, v = (t(a) for a in _qkv(rng, 1, 8, 4, 2, 16))
     if bad == "window":
-        with pytest.raises(NotImplementedError, match="window"):
-            flash_attention(q, k, v, window=4)
+        # a window takes at least the diagonal (test_flash_window_and_cap_* compute)
+        for w in (0, -3, 2.5):
+            with pytest.raises(ValueError, match="window"):
+                flash_attention(q, k, v, window=w)
     elif bad == "softcap":
-        with pytest.raises(NotImplementedError, match="softcap"):
-            flash_attention(q, k, v, softcap=2.0)
+        for c in (0.0, -2.0):
+            with pytest.raises(ValueError, match="softcap"):
+                flash_attention(q, k, v, softcap=c)
     elif bad == "heads":
         with pytest.raises(ValueError, match="multiple of Hkv"):
             flash_attention(q, k[:, :, :1].expand(1, 8, 3, 16), v[:, :, :1].expand(1, 8, 3, 16))
@@ -148,6 +151,73 @@ def test_flash_attention_refuses(rng, bad):
         (dq,) = torch.autograd.grad(flash_attention(q, k, v), q, w, create_graph=True)
         with pytest.raises(RuntimeError, match="differentiate twice"):
             dq.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# a sliding window and a softcap (gemma2): the plain version against the
+# reference's blockwise attention, which is what the kernel computes for them
+# ---------------------------------------------------------------------------
+WINDOW_CAP = [(12, None), (None, 2.0), (16, 50.0), (7, 3.0), (100, None)]
+
+
+def _jax_span_kw(q, k, v, *, causal, window, cap, scale, qb=16, kb=16):
+    return _jax_span(q, k, v, causal=causal, window=window, cap=cap, qb=qb, kb=kb, scale=scale)
+
+
+@pytest.mark.parametrize("window,cap", WINDOW_CAP)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_window_and_cap_match_jax_span(rng, window, cap, causal):
+    """f32: the op (its plain version on the CPU) and ``flash_attention_plain``
+    against ``_span_flash`` at blocks of 16 dividing S = 64; windows of 7 and
+    12 are not block multiples, 100 is wider than S.  q is scaled so that
+    the scores reach several times the cap."""
+    q, k, v = _qkv(rng, 2, 64, 4, 2, 16)
+    q = q * 4.0
+    want = _jax_span_kw(q, k, v, causal=causal, window=window, cap=cap, scale=0.25)
+    got = flash_attention(t(q), t(k), t(v), causal=causal, scale=0.25, window=window,
+                          softcap=cap)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    plain = flash_attention_plain(t(q), t(k), t(v), causal=causal, scale=0.25, window=window,
+                                  softcap=cap)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("window,cap", WINDOW_CAP[:4])
+def test_flash_window_and_cap_bf16(rng, window, cap):
+    """bf16 inputs, causal: the op against ``_span_flash`` on the same
+    bf16-representable values in f32 (the kernel sums the scores in f32 from
+    bf16 inputs); the output rounds once to bf16."""
+    q, k, v = (t(a).to(torch.bfloat16) for a in _qkv(rng, 2, 48, 4, 2, 32))
+    q = q * 3
+    want = _jax_span_kw(*(a.float().numpy() for a in (q, k, v)), causal=True, window=window,
+                        cap=cap, scale=32 ** -0.5)
+    got = flash_attention(q, k, v, window=window, softcap=cap)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16)
+
+
+@pytest.mark.parametrize("s,window", [(37, 5), (40, 16), (129, 33)])
+def test_flash_window_any_s(rng, s, window):
+    """A ragged S (no block divisor) with a window off every block: the
+    plain version against the dense ``flash_attention_ref`` of the JAX
+    package on the rows the window keeps, masked by hand."""
+    q, k, v = _qkv(rng, 1, s, 2, 1, 16)
+    got = flash_attention(t(q), t(k), t(v), window=window, softcap=5.0, scale=0.3).numpy()
+    sc = np.einsum("bqhd,bkd->bhqk", q, k[:, :, 0]) * 0.3
+    sc = 5.0 * np.tanh(sc / 5.0)
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    sc = np.where((j <= i) & (i - j < window), sc, -np.inf)
+    p = np.exp(sc - sc.max(-1, keepdims=True))
+    want = np.einsum("bhqk,bkd->bqhd", p / p.sum(-1, keepdims=True), v[:, :, 0])
+    np.testing.assert_allclose(got, want, **F32)
+
+
+def test_flash_window_wider_than_s_is_no_window(rng):
+    q, k, v = (t(a) for a in _qkv(rng, 1, 20, 2, 2, 16))
+    torch.testing.assert_close(flash_attention(q, k, v, window=20), flash_attention(q, k, v),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(flash_attention(q, k, v, window=10 ** 12),
+                               flash_attention(q, k, v), rtol=0, atol=0)
 
 
 def test_flash_attention_counts_only_kernel_launches(rng):
@@ -329,6 +399,23 @@ def test_span_flash_bwd_matches_jax(rng, causal, window, cap, hq, hkv, qb, kb):
         np.testing.assert_allclose(gt_.numpy(), np.asarray(w), **GRAD, err_msg=name)
 
 
+@pytest.mark.parametrize("window,cap", [(12, None), (None, 2.0), (16, 50.0), (7, 3.0)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_stats_with_window_and_cap_match_the_reference_carry(rng, window, cap, causal):
+    """m and l of the capped, masked scores against the reference's final
+    carries of ``_span_flash`` with the same window and cap."""
+    q, k, v = _qkv(rng, 2, 48, 4, 2, 16)
+    q = q * 4.0
+    out, m, l = flash_attention_plain(t(q), t(k), t(v), causal=causal, window=window,
+                                      softcap=cap, stats=True)
+    torch.testing.assert_close(out, flash_attention_plain(t(q), t(k), t(v), causal=causal,
+                                                          window=window, softcap=cap),
+                               rtol=0, atol=0)
+    jm, jl, _ = _jax_carry(q, k, v, causal=causal, window=window, cap=cap)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm).reshape(2, 4, 48), **F32)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl).reshape(2, 4, 48), **F32)
+
+
 def _jax_grads(ctx, q, k, v, do, **kw):
     fn = lambda q, k, v: jnp.sum(jattn.context_attention(ctx, q, k, v, causal=True, **kw) * do)
     return [np.asarray(a) for a in jax.jit(jax.grad(fn, argnums=(0, 1, 2)))(q, k, v)]
@@ -373,6 +460,26 @@ def test_flash_op_grads_match_jax_and_bulk(rng, jctx1):
         torch.testing.assert_close(gt_, b_, **GRAD, msg=name)
     for name, gt_, w in zip(("dq", "dk", "dv"), got32, want):
         np.testing.assert_allclose(gt_.numpy(), w, **GRAD, err_msg=name)
+
+
+@pytest.mark.parametrize("window,cap", [(12, None), (None, 2.0), (7, 3.0), (16, 50.0)])
+def test_flash_op_grads_with_window_and_cap_match_jax(rng, jctx1, window, cap):
+    """The flash op's own backward with a window and a cap (the window and
+    cap it saves and hands to ``flash_backward``) against the reference's
+    ring attention (its custom VJP) and the port's bulk-mode autograd
+    through ``span_attention``."""
+    q, k, v = _qkv(rng, 2, 32, 4, 2, 16)
+    q = q * 3.0
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    kw = dict(window=window, softcap_val=cap)
+    qt, kt, vt = (t(a).requires_grad_(True) for a in (q, k, v))
+    out = flash_attention(qt, kt, vt, window=window, softcap=cap)
+    got = torch.autograd.grad((out * t(do)).sum(), (qt, kt, vt))
+    want = _jax_grads(jctx1["fused"], q, k, v, do, **kw)
+    bulk = _port_grads(CPU["bulk"], q, k, v, do, **kw)
+    for name, gt_, w, b_ in zip(("dq", "dk", "dv"), got, want, bulk):
+        np.testing.assert_allclose(gt_.numpy(), w, **GRAD, err_msg=name)
+        torch.testing.assert_close(gt_, b_, **GRAD, msg=name)
 
 
 def test_flash_op_without_grad_saves_nothing(monkeypatch, rng):

@@ -208,3 +208,51 @@ def test_bf16_inputs_through_plain_versions(rng):
                               preferred_element_type=jnp.float32).astype(jnp.bfloat16),
                       np.float32)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2, atol=2e-2)
+
+
+def _c_entries():
+    """Every ``extern "C"`` function of the CUDA sources: name -> its
+    parameters' C types (``void* p`` -> ``void*``)."""
+    import re
+
+    from repro_torch.kernels import CSRC
+
+    out = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" [\w\s*]*?(\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            out[name] = [" ".join(p.split()[:-1]) for p in params.split(",") if p.strip()]
+    return out
+
+
+_C_TYPES = {"int": "c_int", "unsigned": "c_uint", "long long": "c_longlong", "float": "c_float"}
+
+
+@pytest.mark.parametrize("name", sorted(_c_entries()))
+def test_c_entries_match_their_ctypes_declarations(name):
+    """The argument list ctypes passes (``kernels._declare``) against the C
+    signature, type by type: a scalar of the wrong width or a missing
+    argument (a window or softcap added to one side only) would reach the
+    kernel as garbage, on the card only."""
+    import ctypes
+    import types
+
+    from repro_torch import kernels
+
+    class Lib:
+        def __getattr__(self, attr):
+            setattr(self, attr, types.SimpleNamespace())
+            return getattr(self, attr)
+
+    lib = Lib()
+    kernels._declare(lib)
+    declared = getattr(lib, name).argtypes
+    params = _c_entries()[name]
+    assert len(declared) == len(params), (declared, params)
+    for c_type, ct in zip(params, declared):
+        base = c_type.replace("const ", "").strip()
+        if "*" in base or base in ("void", "void*"):
+            assert ct is ctypes.c_void_p or issubclass(ct, ctypes._Pointer) or \
+                ct.__name__.startswith("LP_"), (c_type, ct)
+        else:
+            assert ct is getattr(ctypes, _C_TYPES[base]), (c_type, ct)

@@ -164,8 +164,8 @@ def test_prefill_matches_jax(prefilled, models, mode):
 
 @pytest.mark.parametrize("over", [{"window": 12}, {"attn_softcap": 5.0, "logit_softcap": 30.0}])
 def test_prefill_window_and_softcap_match_jax(ctx, prompt, over):
-    """The plain attention's window and softcap through the whole model (a
-    CUDA tensor would raise: the flash kernel has neither)."""
+    """The plain attention's window and softcap through the whole model (on
+    a card kernel mode computes both in the flash kernel)."""
     models = _models(over)
     cfg = models[2].config
     _assert_prefill_close(*_prefill_both(ctx, models, prompt), cfg.vocab, cfg.n_layers)
