@@ -240,12 +240,44 @@ prints one line, and any failure exits non-zero:
      rows), teacher-forced logits, streams; times of decode and serve steps,
      profiles, the fused kernel at [4,36864]@[36864,4608] and at 32 rows
      beside torch.matmul and its bound
+ 35. flash_attention as a KV-ring hop's consumer (keys of their own length
+     Sk at an offset delta from the queries, statistics with stats=True)
+     against its plain version on both paths: chatglm3-6b's hops at tp = 4
+     ([4, 512, 32/2, 128]: the local causal span, whole spans of ranks d-1
+     and d-3, a sub-chunk of 256 keys), gemma2-27b's windowed and capped hop
+     at tp = 4 ([1, 2048, 32/16, 128], delta 4096, window 4096, cap 50; its
+     last row sees no key) and a span no row sees (o = 0, m = -1e30, l =
+     0); o, m and l; Sk = Sq, delta = 0 bit-identical to the call without
+     them; times beside the bound and F.scaled_dot_product_attention on the
+     same unmasked hop
+ 36. spawned tp = 4 and tp = 2 gloo worlds on the card, full-width
+     chatglm3-6b prefill of phase 20's 4 x 2048 tokens through prefill_fn:
+     tp = 4 in bulk, fused and kernel mode and fused at 2 sub-chunks with a
+     bf16 wire at skew 0 and 1, tp = 2 in bulk and kernel mode; logits
+     against phase 20's exact f32 evaluation and each rank's cache chunk
+     against phase 20's kernel-mode rows, within LOGITS_TOL_FACTOR x bulk's
+     own distance at that tp; every rank's logits equal; skew 1
+     bit-identical to skew 0; 28 (1 + d) flash launches on rank d in kernel
+     mode, 0 otherwise; the hand-off (the chunks gathered into a tp = 4
+     decode cache, one fused-mode decode step from position 2048, against
+     phase 20's prefill over 2049 tokens); ms a prefill, labelled "one
+     card, N processes, wire staged through host"
+ 37. gemma2-27b at full width cut to its first 4 layers (2 local, 2
+     global), prefill of 1 x 8192 seeded tokens at tp = 4 (spawned gloo
+     world) in kernel and fused mode: logits against a tp = 1 kernel-mode
+     prefill of the same layers and its exact f32 evaluation (within
+     LOGITS_TOL_FACTOR x the tp = 1 prefill's distance), the ring's hops a
+     layer (2 on the windowed layers, 3 on the global ones) and sends,
+     flash launches a rank, ms a prefill
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
 before phase 25; phases 28-29 run in processes of their own, each holding
 its shards; phase 30 draws the seed-0 weights again, phase 31 runs in
-processes of its own; phase 33 draws gemma2-27b's, freed after phase 34.
+processes of its own; phase 33 draws gemma2-27b's, freed after phase 34;
+phases 36-37 run in processes of their own (phase 20's logits, exact
+logits and cache stay on the host for phase 36: GLM_PREFILL), phase 37's
+tp = 1 yardsticks draw gemma2's first 4 layers and free them first.
 Every line ends with the seconds since the previous line and since the
 start; the end line gives each phase's seconds.  Phases 5, 9 and 17
 and the end print how many launch plans the plan-cached wrappers hold.
@@ -881,6 +913,11 @@ def main() -> int:
     flash_gemma, fused_gemma = gemma2_phases(card, gen)
     flash_row.update(flash_gemma)
     next(k_ for k_ in kernels if k_["name"] == "fused_matmul_allreduce").update(fused_gemma)
+    torch.cuda.empty_cache()
+    # the flash row gains its KV-ring numbers (phases 35-37)
+    flash_row.update(flash_ring_phase(card, gen))
+    flash_row.update(ring_prefill_phase(card))
+    flash_row.update(gemma2_ring_phase(card, gen))
     say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -2310,6 +2347,10 @@ def chatglm_prefill_phases(card, gen) -> tuple[list[dict], dict]:
     errs_k = bounded_errors("prefill kernel mode", {
         "logits": (logits_k, logits_b, logits_x),
         **{key: (cache_k[key], cache_b[key], cache_x[key]) for key in ("k", "v")}})
+    # phase 36's yardsticks, on the host
+    GLM_PREFILL.update(layers=L, max_seq=cfg.max_seq, tokens=tokens.cpu(), exact=logits_x.cpu(),
+                       err_bx=errors(logits_b, logits_x)[0],
+                       cache={key: cache_k[key].cpu() for key in ("k", "v")})
     del cache_x, logits_x
     say(20, f"chatglm3-6b full width ({L}L d{cfg.d_model}, {Hq}/{Hkv} heads of {hd}, d_ff "
             f"{cfg.d_ff}, vocab {cfg.vocab}, {n_params / 1e9:.3f}B params {cfg.param_dtype}, init "
@@ -2355,6 +2396,7 @@ def chatglm_prefill_phases(card, gen) -> tuple[list[dict], dict]:
     logits_l = pre_k(params, longer)[0]
     d_px = errors(logits_l, exact_prefill(longer)[0])[0]
     d_pd = errors(steps_k[0][1], logits_l)[0]
+    GLM_PREFILL["handoff"] = dict(token=steps_k[0][0].cpu(), logits=logits_l.cpu(), d_px=d_px)
     tol = LOGITS_TOL_FACTOR * d_px
     if d_pd > tol:
         raise AssertionError(f"hand-off: the first decode step's logits are {d_pd:.3g} from a "
@@ -3661,9 +3703,11 @@ def launcher_world_run(mode, extra=()) -> dict:
             "streams": streams, "wall": wall, "out": proc.stdout}
 
 
-def spawn_world(tp, settings) -> dict:
-    """Run ``tp_world_rank`` on ``tp`` spawned processes sharing the card;
-    rank 0's results, after checking that every rank's logits are its own."""
+def spawn_world(tp, settings, target=None, args=None) -> dict:
+    """Run ``target(rank, tp, init, settings, *args, out)`` (by default
+    ``tp_world_rank`` on phase 5's inputs) on ``tp`` spawned processes
+    sharing the card; rank 0's results, and every rank's under "ranks",
+    after checking that every rank's logits are rank 0's."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -3673,10 +3717,12 @@ def spawn_world(tp, settings) -> dict:
     out = spawn.Queue()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as rdv:
-        procs = [spawn.Process(target=tp_world_rank, args=(
-            r, tp, f"file://{rdv}/rdv", settings, GLM_DECODE["inputs"][:TP_STEPS],
-            GLM_DECODE["exact"][:TP_STEPS], out))
-            for r in range(tp)]
+        if target is None:
+            target = tp_world_rank
+            args = (GLM_DECODE["inputs"][:TP_STEPS], GLM_DECODE["exact"][:TP_STEPS])
+        procs = [spawn.Process(target=target, args=(r, tp, f"file://{rdv}/rdv", settings, *args,
+                                                    out))
+                 for r in range(tp)]
         for p_ in procs:
             p_.start()
         got = {}
@@ -3697,7 +3743,7 @@ def spawn_world(tp, settings) -> dict:
             raise AssertionError(f"tp={tp} {name}: the ranks' logits differ")
         if not got[0][name]["finite"]:
             raise AssertionError(f"tp={tp} {name}: logits non-finite or misshapen")
-    return got[0]
+    return {**got[0], "ranks": [got[r] for r in range(tp)]}
 
 
 def tp_world_rank(rank, tp, init, settings, inputs, exact, out):
@@ -4497,6 +4543,363 @@ def gemma2_phases(card, gen) -> tuple[dict, dict]:
                         "paged_launches": sum(e["launches"]["fused_matmul_allreduce"]
                                               for e in log_pk),
                         "decode": fused[B], "chunk_rows": fused[B * PAGED_CHUNK]}})
+
+
+# ---------------------------------------------------------------------------
+# phases 35-37: sequence-sharded prefill at tp > 1, the KV ring
+# ---------------------------------------------------------------------------
+# The hop of chatglm3-6b's KV ring at tp = 4 (each rank's 512 positions of
+# phase 20's 4 x 2048 prompt) and of gemma2-27b's at tp = 4 and S = 8192
+# (2048 positions a rank; its windowed layers stop at 2 of 3 hops)
+RING_TP = 4
+# gemma2-27b in phase 37 is cut to its first 4 layers (2 local, 2 global):
+# 46 full-width layers on one card take 54.5 GB, and four processes would
+# each draw every layer whole before keeping their shards
+RING_GEMMA_LAYERS = 4
+# phase 36's worlds: (tp, settings); skew 1 at 2 sub-chunks against skew 0
+RING_WORLDS = (
+    (RING_TP, [("bulk", dict(mode="bulk")), ("fused", dict(mode="fused")),
+               ("kernel", dict(mode="kernel")),
+               ("fused q2 bf16", dict(mode="fused", granularity=2, wire="bf16")),
+               ("fused q2 bf16 skew 1", dict(mode="fused", granularity=2, wire="bf16",
+                                             skew=1))]),
+    (2, [("bulk", dict(mode="bulk")), ("kernel", dict(mode="kernel"))]))
+GLM_PREFILL: dict = {}    # phase 20's run, which phase 36 is held to
+
+
+def hop_bound(b, sq, sk, hq, hkv, d, itemsize, delta=0, causal=True, window=None):
+    """Least time for one ring hop's flash call with its statistics, (ms,
+    bound_by, bytes, operations): q, k and v read once, o, m and l written
+    once, over HBM; or the two products over the (query, key) pairs this
+    hop's mask keeps (counted from the mask at this ``delta``), at the
+    inputs' peak."""
+    i = torch.arange(sq)[:, None] + delta
+    j = torch.arange(sk)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        keep &= j <= i
+    if window is not None:
+        keep &= i - j < window
+    n_bytes = b * (2 * sq * hq + 2 * sk * hkv) * d * itemsize + 2 * b * hq * sq * 4
+    ops = 4 * b * hq * d * int(keep.sum())
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (BF16_FLOPS if itemsize == 2 else F32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, ops
+
+
+def flash_ring_phase(card, gen) -> dict:
+    """Phase 35: the flash kernel as a KV-ring hop's consumer against its
+    plain version, on both paths: keys of their own length (Sk) at an offset
+    (delta) from the queries, with statistics (stats=True): chatglm3-6b's
+    hop at tp = 4 (the local causal span, a whole span of a lower rank, a
+    sub-chunk of 256 keys at chunks_per_rank 2), gemma2-27b's windowed and
+    capped hop at tp = 4 and S = 8192 (the window cuts through the span, its
+    last row sees no key), and a span no row sees; the call with Sk = Sq and
+    delta = 0 bit-identical to the call without them; times beside the
+    bound and F.scaled_dot_product_attention on the same non-causal hop.
+    Returns the flash row's hop numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_attention_plain,
+                                                         flash_path)
+
+    bf16 = torch.bfloat16
+    cfg, gcfg = get_arch("chatglm3-6b").config, get_arch("gemma2-27b").config
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s, gs = GLM_S // RING_TP, GEMMA_S // RING_TP
+    cases = (   # name, b, sq, sk, hq, hkv, delta, causal, window, cap, q scale
+        ("local span", GLM_B, s, s, hq, hkv, 0, True, None, None, 1.0),
+        ("hop of rank d-1", GLM_B, s, s, hq, hkv, s, True, None, None, 1.0),
+        ("hop of rank d-3", GLM_B, s, s, hq, hkv, 3 * s, True, None, None, 1.0),
+        ("second sub-chunk of rank d-1", GLM_B, s, s // 2, hq, hkv, s // 2, True, None, None,
+         1.0),
+        ("gemma2 windowed hop of rank d-2", 1, gs, gs, gcfg.n_heads, gcfg.n_kv_heads, 2 * gs,
+         True, gcfg.window, gcfg.attn_softcap, FLASH_Q_SCALE),
+        ("no key seen", 2, s, s // 2, hq, hkv, -s - 88, True, None, None, 1.0))
+    lines, kept = [], {}
+    for name, b, sq, sk, h, g_kv, delta, causal, window, cap, qs in cases:
+        q = randn(gen, (b, sq, h, hd), bf16, qs)
+        k, v = randn(gen, (b, sk, g_kv, hd), bf16), randn(gen, (b, sk, g_kv, hd), bf16)
+        scale = gcfg.query_scale if cap else hd ** -0.5
+        kw = dict(scale=scale, causal=causal, window=window, softcap=cap, delta=delta)
+        want = plain_by_heads(q, k, v, stats=True, **kw)
+        errs = []
+        for path in ("tile", "cuda_core"):
+            (o, m, l), took = on_path(flash_attention, lambda: flash_attention(
+                q, k, v, stats=True, _path=path, **kw))
+            e_o = check_close(f"flash hop {name} {took} o", o, want[0], BF16_TOL)
+            e_m = check_close(f"flash hop {name} {took} m", m, want[1], F32_TOL)
+            e_l = check_close(f"flash hop {name} {took} l", l, want[2], F32_TOL)
+            errs.append(f"{took} o {e_o[0]:.3g}, m {e_m[0]:.3g}, l {e_l[0]:.3g}")
+            if delta == 0 and sk == sq:
+                same = torch.equal(o, flash_attention(q, k, v, scale=scale, causal=causal,
+                                                      _path=path))
+                if not same:
+                    raise AssertionError(f"flash {took} path: delta 0 and Sk = Sq differ from "
+                                         f"the call without them")
+            if delta < -sq:
+                if not (o.eq(0).all() and m.eq(-1e30).all() and l.eq(0).all()):
+                    raise AssertionError(f"flash hop {name} {took}: a span no row sees must "
+                                         f"give o = 0, m = -1e30, l = 0")
+        empty = int(want[2].eq(0).any(dim=(0, 1)).sum())
+        lines.append(f"{name} [{b},{sq},{h}/{g_kv},{hd}] x {sk} keys, delta {delta}"
+                     + (f", window {window}, cap {cap}" if window else "")
+                     + f" ({flash_path(bf16, hd)} chosen; rows that see no key: {empty}): "
+                     + "; ".join(errs))
+        if name in ("local span", "hop of rank d-1", "gemma2 windowed hop of rank d-2"):
+            kept[name] = (q, k, v, kw)
+        del want, o, m, l
+    # times: the hop of rank d-1 (non-causal in effect) on both paths beside
+    # SDPA without a mask, the local causal span, gemma2's windowed hop
+    q, k, v, kw = kept["hop of rank d-1"]
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=False, enable_gqa=True)
+    check_close("SDPA vs the hop", sdpa().transpose(1, 2), flash_attention(q, k, v, **kw),
+                BF16_TOL)
+    t = {"tile": [], "cuda_core": [], "sdpa": []}
+    for path in ("tile", "sdpa", "cuda_core", "cuda_core", "sdpa", "tile"):
+        run = sdpa if path == "sdpa" else (lambda: flash_attention(q, k, v, stats=True,
+                                                                   _path=path, **kw))
+        t[path].append(time_ms(run, iters=20, warmup=2))
+    bnd = hop_bound(GLM_B, s, s, hq, hkv, hd, 2, delta=s)
+    timed = {}
+    for name in ("local span", "gemma2 windowed hop of rank d-2"):
+        q, k, v, kw = kept[name]
+        timed[name] = (time_ms(lambda: flash_attention(q, k, v, stats=True, **kw), iters=10,
+                               warmup=2),
+                       hop_bound(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], hd,
+                                 2, delta=kw["delta"], causal=kw["causal"],
+                                 window=kw["window"]))
+    del kept, q, k, v, qt, kt, vt
+    ms = lambda ts: ", ".join(f"{t_:.4f}" for t_ in ts)
+    say(35, f"flash_attention at KV-ring hop shapes vs plain (bound o {BF16_TOL}, m and l "
+            f"{F32_TOL}), max abs err on both paths: " + "; ".join(lines)
+            + f"; delta 0 with Sk = Sq bit-identical to the call without them on both paths; "
+            f"the span no row sees gives o = 0, m = -1e30, l = 0 on both paths; on {card}, CUDA "
+            f"events with statistics, the hop of rank d-1 [{GLM_B},{s},{hq}/{hkv},{hd}] x {s} "
+            f"keys: tile path {ms(t['tile'])} ms, CUDA-core path {ms(t['cuda_core'])} ms, "
+            f"F.scaled_dot_product_attention (no mask, enable_gqa) {ms(t['sdpa'])} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}: {bnd[3] / 1e9:.2f} GFLOP, {bnd[2] / 1e6:.1f} MB); "
+            + "; ".join(f"{n_} {t_:.4f} ms (bound {b_[0]:.4f}, {b_[1]})"
+                        for n_, (t_, b_) in timed.items()))
+    return {"ring_hop": {"ms": min(t["tile"]), "cuda_core_ms": min(t["cuda_core"]),
+                         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": min(t["sdpa"]),
+                         "local_ms": timed["local span"][0],
+                         "gemma2_window_ms": timed["gemma2 windowed hop of rank d-2"][0]}}
+
+
+def ring_prefill_phase(card) -> dict:
+    """Phase 36: spawned gloo worlds on the one card (tp = 4 and 2), every
+    rank its shards of chatglm3-6b's seed-0 weights, prefilling phase 20's
+    4 x 2048 tokens through ``prefill_fn`` in each setting of RING_WORLDS:
+    logits against phase 20's exact f32 evaluation and each rank's cache
+    chunk against the matching rows of phase 20's kernel-mode cache, both
+    within LOGITS_TOL_FACTOR x bulk mode's own distance at that tp; every
+    rank's logits equal; skew 1 bit-identical to skew 0; flash launches a
+    rank 28 (1 + d) in kernel mode, 0 in bulk and fused mode; the hand-off
+    (the chunks gathered into a tp = 4 decode cache, one fused-mode decode
+    step from position 2048 against phase 20's prefill over 2049 tokens);
+    ms a prefill.  Needs phase 20's run (GLM_PREFILL).  Returns the flash
+    row's prefill numbers."""
+    L = GLM_PREFILL["layers"]
+    row = {}
+    for tp, settings in RING_WORLDS:
+        res = spawn_world(tp, settings, target=prefill_world_rank, args=(dict(
+            arch="chatglm3-6b", tokens=GLM_PREFILL["tokens"], exact=GLM_PREFILL["exact"],
+            cache=GLM_PREFILL["cache"], handoff=GLM_PREFILL["handoff"] if tp == RING_TP else None),))
+        ranks = res["ranks"]
+        err_b, cache_b = ranks[0]["bulk"]["err"], max(r["bulk"]["cache_err"] for r in ranks)
+        bound, cache_bound = LOGITS_TOL_FACTOR * err_b, LOGITS_TOL_FACTOR * cache_b
+        notes = []
+        for name, kw in settings:
+            mine = [r[name] for r in ranks]
+            err, cerr = mine[0]["err"], max(m_["cache_err"] for m_ in mine)
+            if not (err <= bound and cerr <= cache_bound):
+                raise AssertionError(f"tp={tp} {name}: logits {err:.4g} from exact f32 (bound "
+                                     f"{bound:.4g}), cache {cerr:.4g} from phase 20's kernel "
+                                     f"mode (bound {cache_bound:.4g})")
+            want = [L * (1 + d) if kw["mode"] == "kernel" else 0 for d in range(tp)]
+            if [m_["launches"] for m_ in mine] != want:
+                raise AssertionError(f"tp={tp} {name}: flash launches a rank "
+                                     f"{[m_['launches'] for m_ in mine]}, expected {want}")
+            notes.append(f"{name} logits {err:.4g}, cache {cerr:.4g}, flash launches a rank "
+                         f"{want}, {mine[0]['ms']:.1f} ms")
+        skew = ""
+        if "fused q2 bf16 skew 1" in ranks[0]:
+            same = ranks[0]["fused q2 bf16 skew 1"]["digest"] == ranks[0]["fused q2 bf16"]["digest"]
+            if not same:
+                raise AssertionError(f"tp={tp}: skew 1's logits are not skew 0's bits")
+            skew = "; skew 1 bit-identical to skew 0 (2 sub-chunks, bf16 wire): True"
+        hand = ""
+        if tp == RING_TP:
+            h = ranks[0]["kernel"]["handoff"]
+            tol = LOGITS_TOL_FACTOR * GLM_PREFILL["handoff"]["d_px"]
+            if not h["err"] <= tol:
+                raise AssertionError(f"hand-off at tp={tp}: the decode step's logits are "
+                                     f"{h['err']:.4g} from a prefill over {GLM_S + 1} tokens, "
+                                     f"above {tol:.4g}")
+            hand = (f"; hand-off (the kernel-mode chunks gathered with allgather_seq into a "
+                    f"{GLM_PREFILL['max_seq']}-position tp = {tp} decode cache, one fused-mode "
+                    f"decode_step from position {GLM_S}): logits {h['err']:.4g} from phase 20's "
+                    f"prefill over {GLM_S + 1} tokens (bound {tol:.4g} = {LOGITS_TOL_FACTOR} x "
+                    f"that prefill's distance from exact f32)")
+            row = {"ring_prefill": {m_: ranks[0][m_]["ms"] for m_, _ in settings},
+                   "ring_launches": [r["kernel"]["launches"] for r in ranks]}
+        say(36, f"[{TP_LABEL.format(tp)}] chatglm3-6b full width, prefill of {GLM_B}x{GLM_S} "
+                f"(phase 20's tokens) at tp = {tp} through prefill_fn, {GLM_S // tp} positions a "
+                f"rank, every rank's logits equal; max abs err of the logits from phase 20's "
+                f"exact f32 and of the ranks' cache chunks from phase 20's kernel-mode cache "
+                f"(bounds {bound:.4g} and {cache_bound:.4g} = {LOGITS_TOL_FACTOR} x bulk's; tp 1 "
+                f"bulk's logits {GLM_PREFILL['err_bx']:.4g}): " + "; ".join(notes) + skew + hand
+                + f"; ms a prefill (host clock around the synchronised run, after a warm-up)")
+    return row
+
+
+def gemma2_ring_phase(card, gen) -> dict:
+    """Phase 37: gemma2-27b at full width cut to its first RING_GEMMA_LAYERS
+    layers (2 local, 2 global), prefill of 1 x GEMMA_S seeded tokens at tp =
+    4 (spawned gloo world on the one card) in kernel and fused mode: logits
+    against a tp = 1 kernel-mode prefill of the same layers and against its
+    exact f32 evaluation (within LOGITS_TOL_FACTOR x the tp = 1 prefill's
+    distance from it); the ring's hops a layer (2 on the windowed layers, 3
+    on the global ones) and its sends; flash launches a rank; ms a prefill.
+    Returns the flash row's gemma2 ring numbers."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    bundle = get_arch("gemma2-27b")
+    cfg = dataclasses.replace(bundle.config, n_layers=RING_GEMMA_LAYERS)
+    cut = dataclasses.replace(bundle, config=cfg)
+    params = cut.init_params(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (1, GEMMA_S), generator=gen, device="cuda")
+    ctx = {m: ParallelContext(device="cuda", fusion=FusionConfig(mode=m))
+           for m in ("kernel", "bulk")}
+    logits_1 = cut.prefill_fn(ctx["kernel"])(params, {"tokens": tokens})[0]
+    exact = dataclasses.replace(cut, config=dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    logits_x = exact.prefill_fn(ctx["bulk"])({**params, "layers": UpcastLayers(
+        params["layers"])}, {"tokens": tokens})[0]
+    d1 = errors(logits_1, logits_x)[0]
+    inputs = dict(arch="gemma2-27b", layers=RING_GEMMA_LAYERS, tokens=tokens.cpu(),
+                  exact=logits_x.cpu(), tp1=logits_1.cpu())
+    del params, logits_1, logits_x
+    torch.cuda.empty_cache()
+    settings = [("kernel", dict(mode="kernel")), ("fused", dict(mode="fused"))]
+    ranks = spawn_world(RING_TP, settings, target=prefill_world_rank, args=(inputs,))["ranks"]
+    bound = LOGITS_TOL_FACTOR * d1
+    windows = [cfg.layer_window(i) for i in range(cfg.n_layers)]
+    s_loc = GEMMA_S // RING_TP
+    want_hops = [RING_TP - 1 if w is None else min(RING_TP - 1, -(-w // s_loc)) for w in windows]
+    notes = []
+    for name, kw in settings:
+        mine = [r[name] for r in ranks]
+        if not mine[0]["err"] <= bound:
+            raise AssertionError(f"gemma2 tp={RING_TP} {name}: logits {mine[0]['err']:.4g} from "
+                                 f"exact f32, above {bound:.4g}")
+        if any(m_["hops"] != want_hops or m_["sends"] != 2 * sum(want_hops) for m_ in mine):
+            raise AssertionError(f"gemma2 tp={RING_TP} {name}: hops {mine[0]['hops']} and sends "
+                                 f"{mine[0]['sends']}, expected {want_hops} and "
+                                 f"{2 * sum(want_hops)}")
+        notes.append(f"{name}: logits {mine[0]['err']:.4g} from exact f32, {mine[0]['err_tp1']:.4g}"
+                     f" from the tp = 1 kernel-mode prefill; ring hops a layer {mine[0]['hops']}, "
+                     f"sends a rank {mine[0]['sends']}; flash launches a rank "
+                     f"{[m_['launches'] for m_ in mine]}; {mine[0]['ms']:.1f} ms a prefill")
+    say(37, f"[{TP_LABEL.format(RING_TP)}] gemma2-27b full width cut to its first "
+            f"{RING_GEMMA_LAYERS} of {bundle.config.n_layers} layers (windows {windows}), "
+            f"prefill of 1x{GEMMA_S} seeded tokens at tp = {RING_TP} ({s_loc} positions a rank; "
+            f"the windowed layers' ring stops at {want_hops[0]} of {RING_TP - 1} hops), every "
+            f"rank's logits equal; bound {bound:.4g} = {LOGITS_TOL_FACTOR} x the tp = 1 "
+            f"kernel-mode prefill's distance from exact f32 ({d1:.4g}): " + "; ".join(notes))
+    return {"gemma2_ring": {m_: ranks[0][m_]["ms"] for m_, _ in settings},
+            "gemma2_ring_launches": [r["kernel"]["launches"] for r in ranks]}
+
+
+def prefill_world_rank(rank, tp, init, settings, inputs, out):
+    """One rank of phase 36's or 37's world: this rank's shards of the
+    seed-0 weights of ``inputs["arch"]`` (cut to ``inputs["layers"]``
+    layers if given), each setting's prefill of ``inputs["tokens"]``
+    (counted, timed and checked, after one warm-up prefill), and the
+    hand-off where asked."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.allgather_matmul import allgather_seq
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.mesh import close_world, init_world
+    from repro_torch.models import attention
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dev = init_world(tp, "gloo", "cuda", rank=rank, init_method=init)
+        ctx = lambda **kw: ParallelContext(device=dev, tp=tp, fusion=FusionConfig(**kw))
+        bundle = get_arch(inputs["arch"])
+        if inputs.get("layers"):
+            bundle = dataclasses.replace(bundle, config=dataclasses.replace(
+                bundle.config, n_layers=inputs["layers"]))
+        params = bundle.init_params(torch.Generator(device=dev).manual_seed(0), ctx(mode="bulk"))
+        batch = {"tokens": inputs["tokens"].to(dev)}
+        exact = inputs["exact"].to(dev)
+        s_loc = batch["tokens"].shape[1] // tp
+        rows = slice(rank * s_loc, (rank + 1) * s_loc)
+        # a warm-up prefill (the world's first exchanges, cuBLAS's first
+        # products), untimed; then each setting's one prefill is counted,
+        # timed and checked
+        bundle.prefill_fn(ctx(**settings[0][1]))(params, batch)
+        res = {}
+        for name, kw in settings:
+            pre = bundle.prefill_fn(ctx(**kw))
+            hops, sends = [], [0]
+            ring, start = attention._ring_attention, attention.ring_permute_start
+
+            def record(*a, **k_):
+                hops.append(k_["hops"])
+                return ring(*a, **k_)
+
+            def count(*a, **k_):
+                sends[0] += 1
+                return start(*a, **k_)
+            flash_attention.launches = 0
+            attention._ring_attention, attention.ring_permute_start = record, count
+            try:
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                logits, cache = pre(params, batch)
+                torch.cuda.synchronize(dev)
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                attention._ring_attention, attention.ring_permute_start = ring, start
+            r = {"ms": ms, "launches": flash_attention.launches, "hops": hops, "sends": sends[0],
+                 "err": (logits - exact).abs().max().item(),
+                 "finite": bool(torch.isfinite(logits).all()) and logits.shape == exact.shape,
+                 "digest": hashlib.sha256(logits.cpu().numpy().tobytes()).hexdigest()}
+            if "tp1" in inputs:
+                r["err_tp1"] = (logits - inputs["tp1"].to(dev)).abs().max().item()
+            if "cache" in inputs:
+                r["cache_err"] = max((cache[key] - inputs["cache"][key][:, :, rows].to(dev))
+                                     .abs().max().item() for key in ("k", "v"))
+            if kw["mode"] == "kernel" and inputs.get("handoff"):
+                r_h = inputs["handoff"]
+                dc = bundle.init_cache(batch["tokens"].shape[0], dev, tp)
+                n_loc = dc["k"].shape[2]
+                for key in dc:
+                    whole = allgather_seq(ctx(mode="fused"), cache[key], axis_pos=2)
+                    mine = whole[:, :, rank * n_loc:(rank + 1) * n_loc]
+                    dc[key][:, :, :mine.shape[2]] = mine
+                    del whole
+                pos = torch.full((batch["tokens"].shape[0],), batch["tokens"].shape[1],
+                                 dtype=torch.int32, device=dev)
+                lg, _ = bundle.decode_fn(ctx(mode="fused"))(params, r_h["token"].to(dev), dc,
+                                                            pos)
+                r["handoff"] = {"err": (lg - r_h["logits"].to(dev)).abs().max().item()}
+                del dc
+            del logits, cache
+            res[name] = r
+        out.put((rank, "ok", res))
+    except Exception:
+        out.put((rank, "err", traceback.format_exc()))
+    finally:
+        close_world()
 
 
 def _map(tree, fn):

@@ -13,8 +13,10 @@ backward, so training it is item 6).  The reference's other architectures
 raise until their slice of the port lands.
 
 At tp > 1 (a ``ParallelContext`` over a tp world) only the dense transformers
-run, and only their decode: rwkv6's heads over ranks are item 7, DLRM's
-tables over ranks item 6, MoE experts over ranks item 5 (``check_tp``).
+run, their decode and their prefill (sequence-sharded: the KV ring and the
+embedding ring); their training at tp > 1 is item 1's left part, rwkv6's
+heads over ranks item 7, DLRM's tables over ranks item 6, MoE experts over
+ranks item 5 (``check_tp``, ``check_prefill``).
 """
 from __future__ import annotations
 

@@ -23,9 +23,9 @@ is printed and kept in the report.
 
 The reconstruction is a proxy: operand values are random and the model
 around the op is absent, but shape, dtype, sharding, ring world and
-schedule are exact.  The ``ring_attention`` and ``ce_ring`` families have
-no builder yet: their rings at tp > 1 are ROADMAP Queue 1 item 1, and a key
-without a builder stays on its model decision, as in the reference.
+schedule are exact.  The ``ce_ring`` family has no builder yet: its ring at
+tp > 1 is ROADMAP Queue 1 item 1 (training at tp > 1), and a key without a
+builder stays on its model decision, as in the reference.
 """
 from __future__ import annotations
 
@@ -140,15 +140,36 @@ def _build_all_to_all(ctx: ParallelContext, key: TuneKey):
     return build
 
 
+def _build_ring_attention(ctx: ParallelContext, key: TuneKey):
+    """The KV ring of the key's chunk in fused mode: this rank's q, k and v
+    chunks of a causal prefill, windowed where the key's ``hops`` fall
+    short of the full ring (``window = hops * s_loc``, which bounds the ring
+    at those hops), at blocks of ``min(64, s_loc)``."""
+    from repro_torch.models.attention import context_attention
+
+    b_loc, s_loc, hq, hkv, hd, hops = key.shape
+    window = None if hops >= ctx.tp - 1 else hops * s_loc
+    q, k, v = _randn(ctx, key, (b_loc, s_loc, hq, hd), (b_loc, s_loc, hkv, hd),
+                     (b_loc, s_loc, hkv, hd))
+    blk = min(64, s_loc)
+
+    def build(dec):
+        return lambda: context_attention(ctx, q, k, v, causal=True, window=window, mode="fused",
+                                         q_block=blk, kv_block=blk, chunks_per_rank=dec.q,
+                                         wire=dec.wire, skew=key.skew)
+
+    return build
+
+
 _BUILDERS: Mapping[str, Callable] = {
     "matmul_allreduce": _build_matmul_allreduce,
     "matmul_reducescatter": _build_matmul_reducescatter,
     "allgather_matmul": _build_allgather_matmul,
     "all_to_all": _build_all_to_all,
+    "ring_attention": _build_ring_attention,
 }
 # the reference's builders whose rings the port does not run yet
-_LATER = {op: "ROADMAP Queue 1 item 1 (left: the KV ring and the CE ring at tp > 1)"
-          for op in ("ring_attention", "ce_ring")}
+_LATER = {"ce_ring": "ROADMAP Queue 1 item 1 (left: training at tp > 1, the CE ring)"}
 
 
 def add_calibration_cli_args(ap) -> None:

@@ -122,6 +122,19 @@ def all_reduce(ctx: ParallelContext, x, op: str = "sum"):
     return _on_wire(ctx, run, [x], [_like(x)])()[0]
 
 
+def broadcast(ctx: ParallelContext, x, src: int):
+    """tp rank ``src``'s ``x`` on every rank, into a new tensor (every rank
+    passes a tensor of its shape and dtype; the others' values are unread);
+    ``x`` itself at tp = 1."""
+    if ctx.tp == 1:
+        return x
+
+    def run(ins, bufs):
+        bufs[0].copy_(ins[0])
+        return [dist.broadcast(bufs[0], ctx.peer(src), group=ctx.group, async_op=True)]
+    return _on_wire(ctx, run, [x], [_like(x)])()[0]
+
+
 def _all_gather(ctx: ParallelContext, x) -> list:
     """Every rank's ``x``, in tp-rank order."""
     return _on_wire(ctx, lambda ins, bufs: [dist.all_gather(bufs, ins[0], group=ctx.group,

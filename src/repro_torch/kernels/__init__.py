@@ -212,11 +212,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_gemm_tile.argtypes = [vp, vp, vp, i32, i32, i32, vp]
     lib.repro_gemm_tile.restype = i32
     f32 = ctypes.c_float
-    lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                                          f32, i32, i32, f32, i32, vp]
+    lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                          i32, f32, i32, i32, f32, i32, vp]
     lib.repro_flash_attention.restype = i32
     lib.repro_flash_attention_tile.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                                               f32, i32, i32, f32, vp]
+                                               i32, i32, f32, i32, i32, f32, vp]
     lib.repro_flash_attention_tile.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p

@@ -11,23 +11,38 @@
 //   m'  = max(m, max s);  p = exp(s - m');  corr = exp(m - m')
 //   l   = l corr + sum p;  acc = acc corr + p V;  m = m'
 //   out = acc / max(l, 1e-30), at the input dtype.
-// Given non-null m_out and l_out ([B, Hq, S] f32), each row's final m and l
+// Given non-null m_out and l_out ([B, Hq, Sq] f32), each row's final m and l
 // are written too, in natural units on both paths: the residuals that the
 // reference's ring attention keeps for its analytic backward
-// (src/repro/models/attention.py fwd_rule).  Null pointers (prefill and
-// serving) skip the stores and change nothing else.
+// (src/repro/models/attention.py fwd_rule), and what a hop of the KV ring
+// hands to the online-softmax merge of the hops (models/attention.py).
+// Null pointers (prefill and serving) skip the stores and change nothing
+// else.
+//
+// The keys may be a span of their own: q is [B, Sq, Hq, d], k and v
+// [B, Sk, Hkv, d], and query row i and key j sit at relative distance
+// i + delta - j (delta: the position of query row 0 minus that of key 0;
+// a ring hop's span of another rank's keys).  Causal masks j > i + delta,
+// the window i + delta - j >= window.  A row that sees no key (a span
+// wholly above the diagonal, or left of the row's window) ends with o = 0,
+// m = -1e30 and l = 0; the mask value alone would leave l counting the
+// masked keys.  With Sk = Sq and delta = 0 the kernels compute what they
+// computed before the span was split off, to the bit.
+//
 // The TPU grid is (B*H, S/bq, S/bkv) with the key axis sequential and the
 // carries in VMEM scratch; a GPU grid has no sequential axis, so one CTA
 // per (batch*head, query block) loops over the key blocks with the carries
-// in registers.  A causal CTA stops at the diagonal: blocks wholly above it
-// are never read.  With a window the CTA of query block [q0, q0 + BQ)
-// starts at the block of key q0 - window + 1: blocks wholly left of every
-// row's window are never read either (at S = 32768 and window 4096 a local
-// layer reads about 0.24 of the causal square).  CTAs start with the
-// longest causal rows, so the short ones fill the tail of the grid (with a
-// window the order no longer sorts by work, and is kept), and the query
-// heads of one kv head are adjacent in launch order, so their K and V
-// blocks are read from L2.
+// in registers.  A causal CTA stops at the diagonal, key q0 + BQ - 1 +
+// delta: blocks wholly above it are never read.  With a window the CTA of
+// query block [q0, q0 + BQ) starts at the block of key q0 + delta - window
+// + 1: blocks wholly left of every row's window are never read either (at
+// S = 32768 and window 4096 a local layer reads about 0.24 of the causal
+// square).  A CTA with no block left writes its empty rows and ends.  CTAs
+// start with the longest causal rows (a row sees min(i + delta + 1, Sk)
+// keys, which grows with i whatever delta is), so the short ones fill the
+// tail of the grid (with a window the order no longer sorts by work, and is
+// kept), and the query heads of one kv head are adjacent in launch order,
+// so their K and V blocks are read from L2.
 //
 // The window and the softcap are not in the TPU kernel (kernel.py:63 takes
 // neither); they are those of the model's blockwise attention, the
@@ -140,9 +155,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kFlashThreads, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
-                           float* __restrict__ m_out, float* __restrict__ l_out, int S, int Hq,
-                           int Hkv, int n_qblk, float scale, int causal, int window,
-                           float softcap) {
+                           float* __restrict__ m_out, float* __restrict__ l_out, int Sq,
+                           int Sk, int delta, int Hq, int Hkv, int n_qblk, float scale,
+                           int causal, int window, float softcap) {
   constexpr int PD = D + 4;    // row pitch of Q, K and V in shared memory
   constexpr int CV = D / 64;   // float4 column groups of acc per thread
   static_assert(kFlashBQ == 64 && kFlashBK == 64, "the thread layout assumes 64 x 64 tiles");
@@ -158,11 +173,11 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
   const int q0 = (n_qblk - 1 - blockIdx.x / BH) * kFlashBQ;   // longest causal rows first
   const int b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
   const size_t qstride = (size_t)Hq * D, kstride = (size_t)Hkv * D;
-  const size_t kbase = (size_t)b * S * kstride + (size_t)hk * D;
+  const size_t kbase = (size_t)b * Sk * kstride + (size_t)hk * D;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;   // rows ty + 16 i, cols tx + 16 j
 
-  stage<T, D>(qs, q + ((size_t)b * S + q0) * qstride + (size_t)h * D, qstride,
-              min(kFlashBQ, S - q0));
+  stage<T, D>(qs, q + ((size_t)b * Sq + q0) * qstride + (size_t)h * D, qstride,
+              min(kFlashBQ, Sq - q0));
 
   float m[4], l[4], acc[4][4 * CV];
 #pragma unroll
@@ -173,13 +188,13 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
     for (int c = 0; c < 4 * CV; ++c) acc[i][c] = 0.f;
   }
 
-  const int k_end = causal ? min(S, q0 + kFlashBQ) : S;
+  const int k_end = causal ? min(Sk, q0 + kFlashBQ + delta) : Sk;
   // with a window, the first block holding a key inside row q0's window
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kFlashBK * kFlashBK : 0;
+  const int k_begin = window > 0 ? max(0, q0 + delta - window + 1) / kFlashBK * kFlashBK : 0;
   const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
   for (int k0 = k_begin; k0 < k_end; k0 += kFlashBK) {
     __syncthreads();   // the previous block's P and V are read
-    const int valid = min(kFlashBK, S - k0);
+    const int valid = min(kFlashBK, Sk - k0);
     stage<T, D>(ks, k + kbase + (size_t)k0 * kstride, kstride, valid);
     stage<T, D>(vs, v + kbase + (size_t)k0 * kstride, kstride, valid);
     __syncthreads();
@@ -212,8 +227,8 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
     for (int i = 0; i < 4; ++i) {
       const int qpos = q0 + ty + 16 * i;
       // the keys this row sees: [lo, hi]
-      const int lo = window > 0 ? qpos - window + 1 : 0;
-      const int hi = causal ? min(qpos, S - 1) : S - 1;
+      const int lo = window > 0 ? qpos + delta - window + 1 : 0;
+      const int hi = causal ? min(qpos + delta, Sk - 1) : Sk - 1;
       float mx = kFlashNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -274,37 +289,41 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
-    if (qpos >= S) continue;
+    if (qpos >= Sq) continue;
+    // a row that saw no key: its l counted masked keys at the mask value
+    const bool empty = m[i] == kFlashNegInf;
     if (m_out != nullptr && tx == 0) {   // the 16 lanes of a row hold the same m and l
-      m_out[(size_t)bh * S + qpos] = m[i];
-      l_out[(size_t)bh * S + qpos] = l[i];
+      m_out[(size_t)bh * Sq + qpos] = m[i];
+      l_out[(size_t)bh * Sq + qpos] = empty ? 0.f : l[i];
     }
     const float den = fmaxf(l[i], 1e-30f);
-    T* out = o + ((size_t)b * S + qpos) * qstride + (size_t)h * D;
+    T* out = o + ((size_t)b * Sq + qpos) * qstride + (size_t)h * D;
 #pragma unroll
     for (int cv = 0; cv < CV; ++cv)
       store4(out + 64 * cv + 4 * tx,
-             make_float4(acc[i][4 * cv] / den, acc[i][4 * cv + 1] / den,
-                         acc[i][4 * cv + 2] / den, acc[i][4 * cv + 3] / den));
+             empty ? make_float4(0.f, 0.f, 0.f, 0.f)
+                   : make_float4(acc[i][4 * cv] / den, acc[i][4 * cv + 1] / den,
+                                 acc[i][4 * cv + 2] / den, acc[i][4 * cv + 3] / den));
   }
 }
 
 template <typename T, int D>
 static cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                                float* m_out, float* l_out, int B, int S, int Hq, int Hkv,
-                                float scale, int causal, int window, float softcap,
-                                cudaStream_t stream) {
+                                float* m_out, float* l_out, int B, int Sq, int Sk, int delta,
+                                int Hq, int Hkv, float scale, int causal, int window,
+                                float softcap, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, D>;
   const size_t smem = sizeof(float) * (kFlashBQ + 2 * kFlashBK) * (D + 4);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_qblk = (S + kFlashBQ - 1) / kFlashBQ;
+  const int n_qblk = (Sq + kFlashBQ - 1) / kFlashBQ;
   const long long grid = (long long)n_qblk * B * Hq;
   if (grid > INT_MAX) return cudaErrorInvalidValue;
   kernel<<<(unsigned)grid, kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), m_out, l_out, S, Hq, Hkv, n_qblk, scale, causal, window, softcap);
+      static_cast<T*>(o), m_out, l_out, Sq, Sk, delta, Hq, Hkv, n_qblk, scale, causal, window,
+      softcap);
   return cudaGetLastError();
 }
 
@@ -370,15 +389,16 @@ __device__ __forceinline__ void wgmma_commit() {
 // kCap: a softcap.  Without it a score goes to the exp2 domain as s *
 // scale_log2 (scale log2 e); with it as cap_log2 - 2 cap_log2 / (1 +
 // 2^(s * cap_in)), cap_in = 2 scale log2 e / cap, cap_log2 = cap log2 e.
-// window > 0: a sliding window of that many keys (0: none).
+// window > 0: a sliding window of that many keys (0: none).  Query rows
+// are [0, Sq), keys [0, Sk), at relative distance i + delta - j.
 template <bool kCap>
 __global__ void __launch_bounds__(kTileThreads, 1)
     flash_tile_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ m_out, float* __restrict__ l_out, int S, int Hq,
-                      int Hkv, int n_qblk, float scale_log2, int causal, int window,
-                      float cap_in, float cap_log2) {
+                      float* __restrict__ m_out, float* __restrict__ l_out, int Sq, int Sk,
+                      int delta, int Hq, int Hkv, int n_qblk, float scale_log2, int causal,
+                      int window, float cap_in, float cap_log2) {
   extern __shared__ uint8_t flash_smem_raw[];
   const uint32_t raw = smem_addr(flash_smem_raw);
   FlashSmem& sm = *reinterpret_cast<FlashSmem*>(flash_smem_raw + (1024 - raw % 1024) % 1024);
@@ -387,10 +407,27 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   const int bh = blockIdx.x % BH;
   const int q0 = (n_qblk - 1 - blockIdx.x / BH) * kTileBQ;   // longest causal rows first
   const int b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
-  const int n_blk = ((causal ? min(S, q0 + kTileBQ) : S) + kTileBK - 1) / kTileBK;
+  const int n_blk = (max(0, causal ? min(Sk, q0 + kTileBQ + delta) : Sk) + kTileBK - 1) / kTileBK;
   // with a window, the first block holding a key inside row q0's window
-  const int j0 = window > 0 ? max(0, q0 - window + 1) / kTileBK : 0;
+  const int j0 = window > 0 ? max(0, q0 + delta - window + 1) / kTileBK : 0;
   const int tid = threadIdx.x;
+  if (j0 >= n_blk) {
+    const size_t stride = (size_t)Hq * kTileD;
+    // no key block is left to this CTA (a hop's span wholly above the
+    // diagonal or left of the window): its rows are empty
+    for (int i = tid; i < kTileBQ * (kTileD / 8); i += kTileThreads) {
+      const int r = q0 + i / (kTileD / 8), c = (i % (kTileD / 8)) * 8;
+      if (r < Sq)
+        *reinterpret_cast<uint4*>(o + ((size_t)b * Sq + r) * stride + (size_t)h * kTileD + c) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (m_out != nullptr)
+      for (int r = q0 + tid; r < min(Sq, q0 + kTileBQ); r += kTileThreads) {
+        m_out[(size_t)bh * Sq + r] = kFlashNegInf;
+        l_out[(size_t)bh * Sq + r] = 0.f;
+      }
+    return;
+  }
   if (tid == 0) {
     mbar_init(&sm.q_full, 1);
     for (int st = 0; st < kTileStages; ++st) {
@@ -433,10 +470,10 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     const int col = (lane % 4) * 2;
     // the keys rows row0 and row1 see: [lo, hi] (one range test a score in
     // a masked block, whatever mask is on)
-    const int lo0 = window > 0 ? row0 - window + 1 : 0;
-    const int lo1 = window > 0 ? row1 - window + 1 : 0;
-    const int hi0 = causal ? min(row0, S - 1) : S - 1;
-    const int hi1 = causal ? min(row1, S - 1) : S - 1;
+    const int lo0 = window > 0 ? row0 + delta - window + 1 : 0;
+    const int lo1 = window > 0 ? row1 + delta - window + 1 : 0;
+    const int hi0 = causal ? min(row0 + delta, Sk - 1) : Sk - 1;
+    const int hi1 = causal ? min(row1 + delta, Sk - 1) : Sk - 1;
     float s[64], acc[64];
     uint32_t p[kTileBK / 16][4];   // P's register-A fragments, one per 16 keys
 #pragma unroll
@@ -466,11 +503,11 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     };
 
     // Block j's softmax on s: P into p, acc rescaled.  Scores go to the exp2
-    // domain; masked only where the block passes the end of S, this
+    // domain; masked only where the block passes the end of Sk, this
     // warpgroup's diagonal or the left edge of its last row's window.
     auto softmax = [&](int j) {
-      const int k0 = j * kTileBK, wrow = q0 + wg * 64;
-      const bool masked = k0 + kTileBK > S || (causal && k0 + kTileBK - 1 > wrow) ||
+      const int k0 = j * kTileBK, wrow = q0 + wg * 64 + delta;
+      const bool masked = k0 + kTileBK > Sk || (causal && k0 + kTileBK - 1 > wrow) ||
                           (window > 0 && k0 + window <= wrow + 63);
       float mx0 = kFlashNegInf, mx1 = kFlashNegInf;
 #pragma unroll
@@ -577,29 +614,32 @@ __global__ void __launch_bounds__(kTileThreads, 1)
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
+    // a row that saw no key keeps the mask value as its m; its l counted the
+    // masked keys, and it is empty
+    const bool empty0 = m0 == kFlashNegInf, empty1 = m1 == kFlashNegInf;
     if (m_out != nullptr && lane % 4 == 0) {
-      // m is in the exp2 domain of scale_log2; back to natural units (a
-      // wholly masked row keeps the mask value)
-      const size_t base = (size_t)bh * S;
-      if (row0 < S) {
-        m_out[base + row0] = m0 == kFlashNegInf ? m0 : m0 * kLn2;
-        l_out[base + row0] = l0;
+      // m is in the exp2 domain of scale_log2; back to natural units
+      const size_t base = (size_t)bh * Sq;
+      if (row0 < Sq) {
+        m_out[base + row0] = empty0 ? m0 : m0 * kLn2;
+        l_out[base + row0] = empty0 ? 0.f : l0;
       }
-      if (row1 < S) {
-        m_out[base + row1] = m1 == kFlashNegInf ? m1 : m1 * kLn2;
-        l_out[base + row1] = l1;
+      if (row1 < Sq) {
+        m_out[base + row1] = empty1 ? m1 : m1 * kLn2;
+        l_out[base + row1] = empty1 ? 0.f : l1;
       }
     }
-    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    const float inv0 = empty0 ? 0.f : 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = empty1 ? 0.f : 1.f / fmaxf(l1, 1e-30f);
     const size_t stride = (size_t)Hq * kTileD;
-    __nv_bfloat16* out0 = o + ((size_t)b * S + row0) * stride + (size_t)h * kTileD + col;
+    __nv_bfloat16* out0 = o + ((size_t)b * Sq + row0) * stride + (size_t)h * kTileD + col;
     __nv_bfloat16* out1 = out0 + 8 * stride;
 #pragma unroll
     for (int jj = 0; jj < kTileD / 8; ++jj) {
-      if (row0 < S)
+      if (row0 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(out0 + 8 * jj) =
             __floats2bfloat162_rn(acc[4 * jj] * inv0, acc[4 * jj + 1] * inv0);
-      if (row1 < S)
+      if (row1 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(out1 + 8 * jj) =
             __floats2bfloat162_rn(acc[4 * jj + 2] * inv1, acc[4 * jj + 3] * inv1);
     }
@@ -609,64 +649,67 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 template <bool kCap>
 static cudaError_t launch_flash_tile(const CUtensorMap& qmap, const CUtensorMap& kmap,
                                      const CUtensorMap& vmap, void* o, float* m_out,
-                                     float* l_out, int B, int S, int Hq, int Hkv, float scale,
-                                     int causal, int window, float softcap,
+                                     float* l_out, int B, int Sq, int Sk, int delta, int Hq,
+                                     int Hkv, float scale, int causal, int window, float softcap,
                                      cudaStream_t stream) {
   auto kernel = flash_tile_kernel<kCap>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kTileSmemBytes));
   if (err != cudaSuccess) return err;
-  const int n_qblk = (S + kTileBQ - 1) / kTileBQ;
+  const int n_qblk = (Sq + kTileBQ - 1) / kTileBQ;
   const long long grid = (long long)n_qblk * B * Hq;
   if (grid > INT_MAX) return cudaErrorInvalidValue;
   const float cap_in = kCap ? 2.f * scale * kLog2e / softcap : 0.f;
   kernel<<<(unsigned)grid, kTileThreads, kTileSmemBytes, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), m_out, l_out, S, Hq, Hkv, n_qblk,
-      scale * kLog2e, causal, window, cap_in, softcap * kLog2e);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), m_out, l_out, Sq, Sk, delta, Hq, Hkv,
+      n_qblk, scale * kLog2e, causal, window, cap_in, softcap * kLog2e);
   return cudaGetLastError();
 }
 
 static cudaError_t launch_flash_tile(const void* q, const void* k, const void* v, void* o,
-                                     float* m_out, float* l_out, int B, int S, int Hq, int Hkv,
-                                     float scale, int causal, int window, float softcap,
-                                     cudaStream_t stream) {
-  // q and o as [B][S][Hq * d], k and v as [B][S][Hkv * d]: a box is 128
-  // rows of one 64-column half of one head
+                                     float* m_out, float* l_out, int B, int Sq, int Sk,
+                                     int delta, int Hq, int Hkv, float scale, int causal,
+                                     int window, float softcap, cudaStream_t stream) {
+  // q and o as [B][Sq][Hq * d], k and v as [B][Sk][Hkv * d]: a box is 128
+  // rows of one 64-column half of one head; rows past each span read zeros
   CUtensorMap qmap, kmap, vmap;
-  cudaError_t err = make_tile_map(&qmap, q, (uint64_t)Hq * kTileD, S, B, kTileHalf, kTileBQ);
+  cudaError_t err = make_tile_map(&qmap, q, (uint64_t)Hq * kTileD, Sq, B, kTileHalf, kTileBQ);
   if (err == cudaSuccess)
-    err = make_tile_map(&kmap, k, (uint64_t)Hkv * kTileD, S, B, kTileHalf, kTileBK);
+    err = make_tile_map(&kmap, k, (uint64_t)Hkv * kTileD, Sk, B, kTileHalf, kTileBK);
   if (err == cudaSuccess)
-    err = make_tile_map(&vmap, v, (uint64_t)Hkv * kTileD, S, B, kTileHalf, kTileBK);
+    err = make_tile_map(&vmap, v, (uint64_t)Hkv * kTileD, Sk, B, kTileHalf, kTileBK);
   if (err != cudaSuccess) return err;
-  return softcap > 0.f ? launch_flash_tile<true>(qmap, kmap, vmap, o, m_out, l_out, B, S, Hq,
-                                                 Hkv, scale, causal, window, softcap, stream)
-                       : launch_flash_tile<false>(qmap, kmap, vmap, o, m_out, l_out, B, S, Hq,
-                                                  Hkv, scale, causal, window, softcap, stream);
+  return softcap > 0.f
+             ? launch_flash_tile<true>(qmap, kmap, vmap, o, m_out, l_out, B, Sq, Sk, delta, Hq,
+                                       Hkv, scale, causal, window, softcap, stream)
+             : launch_flash_tile<false>(qmap, kmap, vmap, o, m_out, l_out, B, Sq, Sk, delta,
+                                        Hq, Hkv, scale, causal, window, softcap, stream);
 }
 
 }  // namespace repro_torch
 
-// q, o [B, S, Hq, D]; k, v [B, S, Hkv, D]; all contiguous and 16-byte
+// q, o [B, Sq, Hq, D]; k, v [B, Sk, Hkv, D]; all contiguous and 16-byte
 // aligned, of one element type (dtype 0 = f32, 1 = bf16).  D must be 64 or
-// 128 and Hq a multiple of Hkv.  m and l: [B, Hq, S] f32 softmax statistics,
+// 128 and Hq a multiple of Hkv.  Query row i and key j are at relative
+// distance i + delta - j.  m and l: [B, Hq, Sq] f32 softmax statistics,
 // both null (none written) or both given.  window: a sliding window of that
 // many keys (0 = none); softcap: cap * tanh(s / cap) on every score (0 =
 // none).  Returns a cudaError_t code (0 = launched).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     float* m, float* l, int B, int S, int Hq, int Hkv, int D,
-                                     float scale, int causal, int window, float softcap,
-                                     int dtype, void* stream) {
+                                     float* m, float* l, int B, int Sq, int Sk, int delta,
+                                     int Hq, int Hkv, int D, float scale, int causal, int window,
+                                     float softcap, int dtype, void* stream) {
   using namespace repro_torch;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || addr % 16 != 0 ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || addr % 16 != 0 ||
       (m == nullptr) != (l == nullptr) || window < 0 || !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   const auto launch = [&](auto kernel_launch) {
-    return kernel_launch(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal, window, softcap, st);
+    return kernel_launch(q, k, v, o, m, l, B, Sq, Sk, delta, Hq, Hkv, scale, causal, window,
+                         softcap, st);
   };
   if (dtype == 0 && D == 64)
     err = launch(launch_flash<float, 64>);
@@ -679,19 +722,20 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   return static_cast<int>(err);
 }
 
-// The tensor-core path: q, o [B, S, Hq, 128]; k, v [B, S, Hkv, 128]; all
-// bf16, contiguous and 16-byte aligned; Hq a multiple of Hkv; m, l, window
-// and softcap as above.  Returns a cudaError_t code (0 = launched).
+// The tensor-core path: q, o [B, Sq, Hq, 128]; k, v [B, Sk, Hkv, 128]; all
+// bf16, contiguous and 16-byte aligned; Hq a multiple of Hkv; delta, m, l,
+// window and softcap as above.  Returns a cudaError_t code (0 = launched).
 extern "C" int repro_flash_attention_tile(const void* q, const void* k, const void* v, void* o,
-                                          float* m, float* l, int B, int S, int Hq, int Hkv,
-                                          int D, float scale, int causal, int window,
-                                          float softcap, void* stream) {
+                                          float* m, float* l, int B, int Sq, int Sk, int delta,
+                                          int Hq, int Hkv, int D, float scale, int causal,
+                                          int window, float softcap, void* stream) {
   using namespace repro_torch;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D != kTileD ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D != kTileD ||
       addr % 16 != 0 || (m == nullptr) != (l == nullptr) || window < 0 || !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_flash_tile(q, k, v, o, m, l, B, S, Hq, Hkv, scale, causal,
-                                            window, softcap, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_flash_tile(q, k, v, o, m, l, B, Sq, Sk, delta, Hq, Hkv, scale,
+                                            causal, window, softcap,
+                                            static_cast<cudaStream_t>(stream)));
 }

@@ -8,7 +8,11 @@ k, v, o, m and l, the residuals of the reference's ring attention
 reference's analytic gradient, ``_span_flash_bwd`` recomputing the scores
 block by block (``models/attention.flash_backward``).  The reference has no
 backward kernel, so that backward is plain PyTorch on both devices.  Without
-a gradient (prefill, serving) no statistics are written.
+a gradient (prefill, serving) no statistics are written, unless the caller
+asks for them with ``stats=True``: a hop of the KV ring (``models/attention``)
+takes (o, m, l) without autograd and merges the hops' partials itself.  Such
+a hop attends a span of keys of its own length at a position offset
+(``delta``) from the queries.
 
 A sliding window and a softcap (gemma2's local layers, and every one of its
 layers) are computed inside the kernel, on both paths, with the semantics of
@@ -40,9 +44,10 @@ def flash_path(dtype, d) -> str:
     return "cuda_core"
 
 
-def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=None, _path=None):
-    """q: [B, S, Hq, d]; k, v: [B, S, Hkv, d] with Hq a multiple of Hkv ->
-    [B, S, Hq, d] at q's dtype.
+def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=None, delta=0,
+                    stats=False, _path=None):
+    """q: [B, Sq, Hq, d]; k, v: [B, Sk, Hkv, d] with Hq a multiple of Hkv ->
+    [B, Sq, Hq, d] at q's dtype.
 
     Query head h attends to kv head ``h // (Hq // Hkv)``; with equal head
     counts this is the JAX ``flash_attention``.  Any S: the kernel masks the
@@ -54,21 +59,30 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=No
     that kernel does not take the call, on any device.  ``window`` (keys
     with ``qpos - kpos < window``, a positive int) and ``softcap`` (scores
     ``softcap * tanh(s / softcap)``, a positive float) are those of the
-    reference's ``_span_flash``; either may be None.  The gradient is the
+    reference's ``_span_flash``; either may be None.  ``delta`` is the
+    position of query row 0 minus that of key 0: row i and key j are at
+    relative distance ``i + delta - j``, so causal masks ``j > i + delta``
+    (a KV-ring hop; 0 with Sk = Sq is one span of both).  A row that sees no
+    key gives zeros.  ``stats=True`` returns ``(o, m, l)``, m and l [B, Hq,
+    Sq] f32 in natural units (m = -1e30 and l = 0 on a row that sees no
+    key), with no autograd.  The gradient (of the default call) is the
     analytic backward of the module docstring; it cannot be differentiated
-    again."""
+    again, and a span of its own (``delta``, ``Sk != Sq``) or ``stats``
+    under autograd raises: that is training at tp > 1."""
     if window is not None and (int(window) != window or window < 1):
         raise ValueError(f"flash_attention: window {window} is not a positive int")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap {softcap} is not positive")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"flash_attention: need q [B, S, Hq, d] and k, v [B, S, Hkv, d], got "
-                         f"{[tuple(a.shape) for a in (q, k, v)]}")
+        raise ValueError(f"flash_attention: need q [B, Sq, Hq, d] and k, v [B, Sk, Hkv, d], "
+                         f"got {[tuple(a.shape) for a in (q, k, v)]}")
     b, s, hq, d = q.shape
     hkv = k.shape[2]
-    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d) or hkv < 1 or hq % hkv:
+    if (k.shape[0], k.shape[3]) != (b, d) or k.shape[1] < 1 or hkv < 1 or hq % hkv:
         raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not fit q {tuple(q.shape)} "
-                         f"(need equal B, S and d, and Hq a multiple of Hkv)")
+                         f"(need equal B and d, and Hq a multiple of Hkv)")
+    if int(delta) != delta:
+        raise ValueError(f"flash_attention: delta {delta} is not an int")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v are {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
@@ -79,8 +93,15 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=No
     scale = float(scale) if scale is not None else d ** -0.5
     window = None if window is None else int(window)
     softcap = None if softcap is None else float(softcap)
-    stats = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    return _Flash.apply(q, k, v, scale, bool(causal), window, softcap, _path, stats)
+    delta = int(delta)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if grad and (stats or delta or k.shape[1] != s):
+        raise NotImplementedError(
+            "flash_attention: a gradient through a KV-ring hop (stats=True, delta or Sk != Sq) "
+            "is ROADMAP Queue 1 item 1 (left: training at tp > 1, the ring's backward)")
+    if stats or delta or k.shape[1] != s:     # no gradient is wanted here
+        return _forward(q, k, v, scale, bool(causal), window, softcap, delta, _path, stats)
+    return _Flash.apply(q, k, v, scale, bool(causal), window, softcap, _path, grad)
 
 
 flash_attention.launches = 0
@@ -88,34 +109,39 @@ flash_attention.path_launches = dict.fromkeys(PATHS, 0)
 
 
 def flash_attention_plain(q, k, v, *, scale=None, causal=True, window=None, softcap=None,
-                          stats=False):
+                          delta=0, stats=False):
     """The op's plain version on any device: each kv head repeated over its
     query heads, heads folded into the batch, :func:`flash_attention_ref`.
-    With ``stats`` also (m, l), each [B, Hq, S] f32: those of the capped,
+    With ``stats`` also (m, l), each [B, Hq, Sq] f32: those of the capped,
     masked scores."""
     b, s, hq, d = q.shape
     g = hq // k.shape[2]
     scale = scale if scale is not None else d ** -0.5
-    fold = lambda t: t.repeat_interleave(g, dim=2).transpose(1, 2).reshape(b * hq, s, d)
+    fold = lambda t: t.repeat_interleave(g, dim=2).transpose(1, 2).reshape(b * hq, -1, d)
     out = flash_attention_ref(q.transpose(1, 2).reshape(b * hq, s, d), fold(k), fold(v),
                               scale=scale, causal=causal, window=window, softcap=softcap,
-                              stats=stats)
+                              delta=delta, stats=stats)
     unfold = lambda o: o.reshape(b, hq, s, d).transpose(1, 2)
     if stats:
         return unfold(out[0]), out[1].reshape(b, hq, s), out[2].reshape(b, hq, s)
     return unfold(out)
 
 
+def _forward(q, k, v, scale, causal, window, softcap, delta, path, stats):
+    """The plain version for a CPU tensor, else the kernel (counted)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, causal=causal, window=window,
+                                     softcap=softcap, delta=delta, stats=stats)
+    out, path = _launch(q, k, v, scale, causal, window, softcap, path, stats, delta)
+    flash_attention.launches += 1
+    flash_attention.path_launches[path] += 1
+    return out
+
+
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window, softcap, path, stats):
-        if q.device.type == "cpu":
-            out = flash_attention_plain(q, k, v, scale=scale, causal=causal, window=window,
-                                        softcap=softcap, stats=stats)
-        else:
-            out, path = _launch(q, k, v, scale, causal, window, softcap, path, stats)
-            flash_attention.launches += 1
-            flash_attention.path_launches[path] += 1
+        out = _forward(q, k, v, scale, causal, window, softcap, 0, path, stats)
         if not stats:
             return out
         o, m, l = out
@@ -134,11 +160,12 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
-def _launch(q, k, v, scale, causal, window, softcap, path, stats=False):
+def _launch(q, k, v, scale, causal, window, softcap, path, stats=False, delta=0):
     """Launches the kernel ``path`` names, else the one :func:`flash_path`
     chooses; returns (output, the path launched).  With ``stats`` the output
-    is (o, m, l), m and l [B, Hq, S] f32.  A window of S or more keys is no
-    window, and goes to the kernel as S (its int)."""
+    is (o, m, l), m and l [B, Hq, Sq] f32.  A window wider than every
+    distance ``i + delta - j`` (at least ``Sq + delta``) is no window, and
+    goes to the kernel as ``max(1, Sq + delta)`` (its int)."""
     b, s, hq, d = q.shape
     if d not in KERNEL_D:
         raise ValueError(f"flash_attention: the kernel takes head sizes {KERNEL_D}, got {d}")
@@ -151,8 +178,9 @@ def _launch(q, k, v, scale, causal, window, softcap, path, stats=False):
     path = path or flash_path(q.dtype, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(m), ptr(l), b, s, hq,
-            k.shape[2], d, scale, int(causal), min(window or 0, s), softcap or 0.0)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(m), ptr(l), b, s,
+            k.shape[1], delta, hq, k.shape[2], d, scale, int(causal),
+            min(window or 0, max(1, s + delta)), softcap or 0.0)
     with torch.cuda.device(q.device):
         lib = load_library().lib
         if path == "tile":

@@ -1,19 +1,25 @@
 """Train/prefill attention over the sequence, and decode attention over a
 dense KV cache.
 
-Train/prefill (``context_attention``): the JAX package shards the sequence
-over tp and ring-gathers KV chunks into a blockwise online-softmax update
-(``_span_flash``); on one card (tp = 1) the whole span is local and the ring
-has no hops.  ``kernel`` mode on a CUDA tensor runs the span in the
-hand-written flash kernel (``kernels/flash_attention``); ``bulk`` mode, on
-any device, and a CPU tensor run the plain ``_span_flash``, as the
-reference's bulk branch does (``attention_path``).  Gradients follow the
-reference: bulk mode differentiates through ``_span_flash`` by autograd, as
-its bulk branch does; kernel mode is its ring attention at n = 1, whose
-analytic backward (``flash_backward``, the port of ``_span_flash_bwd``)
-recomputes the scores block by block from the forward's softmax statistics
-(on a card the flash kernel writes them; on the CPU ``_SpanFlash`` keeps the
-plain loop's carries).
+Train/prefill (``context_attention``): the sequence is sharded over tp, as
+in the JAX package, and each rank attends its chunk of queries over the
+prompt.  ``bulk`` mode all-gathers k and v and runs the plain blockwise
+online softmax (``_span_flash``) over them, as the reference's bulk branch
+does, on any device.  ``fused`` and ``kernel`` mode run the KV ring of the
+reference's ``_make_ring_attention``: the local chunk first, then each
+arriving KV sub-chunk while the next is on the wire.  Fused mode consumes a
+hop with ``_span_flash``; kernel mode with the hand-written flash kernel
+(``kernels/flash_attention``; its plain version on a CPU tensor), whose
+per-hop (o, m, l) fold into one carry by the online-softmax merge
+(``attention_path``).  On one card (tp = 1) the ring has no hops: kernel
+mode on a CUDA tensor is one flash launch over the span.  Gradients follow
+the reference at tp = 1: bulk mode differentiates through ``_span_flash``
+by autograd, as its bulk branch does; kernel and fused mode are its ring
+attention at n = 1, whose analytic backward (``flash_backward``, the port of
+``_span_flash_bwd``) recomputes the scores block by block from the forward's
+softmax statistics (on a card the flash kernel writes them; on the CPU
+``_SpanFlash`` keeps the plain loop's carries).  The ring's backward (tp >
+1) is not ported: under autograd the ring raises.
 
 Decode: the KV cache is sequence-sharded over tp, as in the reference (GQA
 with 2 KV heads cannot split its heads over 4 ranks): rank ``d`` holds rows
@@ -33,14 +39,16 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.core.collectives import attention_partial_merge
+from repro_torch.core.autotune import resolve_overlap, tune_ring_attention
+from repro_torch.core.collectives import (_no_grad_over_ranks, all_gather,
+                                          attention_partial_merge, ring_permute_start,
+                                          split_ring_payload, wire_cast, wire_uncast)
+from repro_torch.core.scheduling import sub_chunk_service_order
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.parallel.sharding import ParallelContext
 
 NEG_INF = -1e30
 Q_BLOCK, KV_BLOCK = 256, 1024   # the reference context_attention's default blocks
-_FUSED_ITEM = ("ROADMAP Queue 1 item 1 (left: prefill at tp > 1 and in fused mode, the KV "
-               "ring of the reference's _make_ring_attention)")
 
 
 # ---------------------------------------------------------------------------
@@ -171,19 +179,20 @@ def flash_backward(q, k, v, o, m, l, do, *, causal, window, scale, cap):
 
 
 class _SpanFlash(torch.autograd.Function):
-    """Kernel mode off the card: the plain span forward, keeping its m and l,
-    with the analytic backward (the reference's ring attention at n = 1)."""
+    """The ring attention at n = 1 in plain PyTorch (fused mode, and kernel
+    mode off the card): the span forward, keeping its m and l, with the
+    analytic backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, cap):
+    def forward(ctx, q, k, v, causal, window, scale, cap, q_block=Q_BLOCK, kv_block=KV_BLOCK):
         B, S, Hq, hd = q.shape
         Hkv = k.shape[2]
         g = Hq // Hkv
         pos = torch.arange(S, device=q.device)
         carry = _span_flash(q.reshape(B, S, Hkv, g, hd), k, v, pos, pos,
                             _init_carry(B, Hkv, g, S, hd, q.device), causal=causal,
-                            window=window, scale=scale, cap=cap, q_block=Q_BLOCK,
-                            kv_block=KV_BLOCK)
+                            window=window, scale=scale, cap=cap, q_block=q_block,
+                            kv_block=kv_block)
         o = _finalize(carry, B, S, Hq, hd).to(q.dtype)
         ctx.save_for_backward(q, k, v, o, carry[0], carry[1])
         ctx.args = dict(causal=causal, window=window, scale=scale, cap=cap)
@@ -193,7 +202,7 @@ class _SpanFlash(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         dq, dk, dv = flash_backward(*ctx.saved_tensors, do, **ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _init_carry(b, hk, g, sq, d, device=None):
@@ -209,61 +218,208 @@ def _finalize(carry, b, sq, hq, d):
 
 
 # ---------------------------------------------------------------------------
-# train/prefill: context attention over the local span
+# train/prefill: context attention, the sequence sharded over tp
 # ---------------------------------------------------------------------------
-def attention_path(mode: str, device: torch.device) -> str:
-    """How ``context_attention`` computes the span: ``"flash"`` (the hand
-    kernel) in kernel mode on a CUDA tensor, else ``"span"`` (the plain
-    blockwise attention, the computation of the reference's bulk branch;
-    the kernel's plain version on the CPU)."""
-    return "flash" if mode == "kernel" and device.type != "cpu" else "span"
+def attention_path(mode: str, device: torch.device, tp: int = 1) -> str:
+    """What computes ``context_attention``'s spans: ``"flash"``, the flash
+    op, or ``"span"``, the plain blockwise ``_span_flash``.
+
+    Kernel mode takes the op: at tp = 1 on a CUDA tensor (the whole span,
+    one launch), and at tp > 1 on every device (one call a KV-ring hop that
+    holds a key it may see; the op runs its plain version on a CPU tensor).
+    Every other call takes ``_span_flash``: bulk mode (the reference's bulk
+    branch, after an all-gather at tp > 1), fused mode (the reference's ring,
+    one span a hop) and kernel mode on the CPU at tp = 1 (``_SpanFlash``, for
+    its analytic backward)."""
+    if mode == "kernel" and (tp > 1 or device.type != "cpu"):
+        return "flash"
+    return "span"
+
+
+def _empty_span(q0, sq, k0, sk, causal, window) -> bool:
+    """Whether no query in [q0, q0 + sq) sees a key in [k0, k0 + sk): the
+    span lies wholly above the diagonal or left of every row's window."""
+    return (causal and k0 > q0 + sq - 1) or (window is not None and q0 - (k0 + sk - 1) >= window)
+
+
+def _merge(a, b):
+    """Two online-softmax carries (m, l, o) over disjoint keys, as one (the
+    rescaling of decode's ``attention_partial_merge``, without the
+    collective).  A carry whose rows saw no key (m = -1e30, l = 0, o = 0)
+    leaves the other as it is, to the bit."""
+    (ma, la, oa), (mb, lb, ob) = a, b
+    m = torch.maximum(ma, mb)
+    ca, cb = torch.exp(ma - m), torch.exp(mb - m)
+    return m, la * ca + lb * cb, oa * ca[..., None] + ob * cb[..., None]
+
+
+def _flash_carry(q, k, v, delta, *, causal, window, scale, cap):
+    """One span through the flash op with its statistics, as a carry (m, l,
+    o) in the layout ``_span_flash`` keeps: m, l [b, hk, g, sq] and o
+    unnormalized [b, hk, g, sq, d], f32."""
+    B, sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    o, m, l = flash_attention(q, k, v, scale=scale, causal=causal, window=window, softcap=cap,
+                              delta=delta, stats=True)
+    m, l = m.reshape(B, Hkv, g, sq), l.reshape(B, Hkv, g, sq)
+    o = o.float().reshape(B, sq, Hkv, g, hd).permute(0, 2, 3, 1, 4) * l[..., None]
+    return m, l, o
+
+
+def _ring_attention(ctx: ParallelContext, q, k, v, *, mode, hops, causal, window, scale, cap,
+                    q_block, kv_block, n_sub, skew, wire):
+    """The forward of the reference's ``_make_ring_attention`` on this rank's
+    chunks q [B, s_loc, Hq, hd], k, v [B, s_loc, Hkv, hd] -> [B, s_loc, Hq, hd].
+
+    The local chunk is consumed first (it is there at once); its KV is split
+    into ``n_sub`` sub-chunks, each rounded once to the wire dtype at its
+    source and put on the ring before the local span is computed.  At each
+    of ``hops`` hops every sub-chunk is waited on in
+    ``sub_chunk_service_order`` (``skew`` rotates it), forwarded at once
+    (but after the last hop) and then consumed: sub-chunk j of source rank
+    ``src = (d - i) % n`` holds positions ``src * s_loc + j * sub +
+    arange(sub)``.  Each sub-chunk ring keeps a carry of its own, merged
+    into the local one at the end in sub-chunk order, so the rotation
+    reorders only waits and sends: the result has the same bits under any
+    ``skew``.
+
+    Fused mode consumes a span with ``_span_flash``, as the reference does;
+    kernel mode with the flash op (``stats=True``; on a card the kernel),
+    whose (o, m, l) fold into the carry by the online-softmax merge, and
+    launches nothing for a span no row sees (wholly above the diagonal or
+    left of the window): its partial is exactly empty.  The payload still
+    rings on."""
+    n, d = ctx.tp, ctx.tp_rank
+    B, s_loc, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    sub = s_loc // n_sub
+    q0 = d * s_loc
+    q5 = q.reshape(B, s_loc, Hkv, g, hd)
+    qpos = q0 + torch.arange(s_loc, device=q.device)
+    kw = dict(causal=causal, window=window, scale=scale, cap=cap)
+    flash = attention_path(mode, q.device, n) == "flash"
+
+    def consume(carry, kc, vc, k0):
+        if flash:
+            if _empty_span(q0, s_loc, k0, kc.shape[1], causal, window):
+                return carry
+            part = _flash_carry(q, kc, vc, q0 - k0, **kw)
+            return part if carry is None else _merge(carry, part)
+        if carry is None:
+            carry = _init_carry(B, Hkv, g, s_loc, hd, q.device)
+        kpos = k0 + torch.arange(kc.shape[1], device=q.device)
+        return _span_flash(q5, kc, vc, qpos, kpos, carry, q_block=q_block, kv_block=kv_block,
+                           **kw)
+
+    order = sub_chunk_service_order(n_sub, skew)
+    bufs = {j: (wire_cast(ks, wire), wire_cast(vs, wire)) for j, (ks, vs) in
+            enumerate(zip(split_ring_payload(k, n_sub), split_ring_payload(v, n_sub)))}
+    pending = {}
+
+    def send(j):
+        pending[j] = (ring_permute_start(ctx, bufs[j][0]), ring_permute_start(ctx, bufs[j][1]))
+
+    if hops:
+        for j in order:
+            send(j)
+    local = consume(None, k, v, q0)
+    rings = [None] * n_sub
+    for i in range(1, hops + 1):
+        src = (d - i) % n
+        for j in order:
+            bufs[j] = (pending[j][0](), pending[j][1]())
+            if i < hops:
+                send(j)
+            rings[j] = consume(rings[j], wire_uncast(bufs[j][0], k.dtype),
+                               wire_uncast(bufs[j][1], v.dtype), src * s_loc + j * sub)
+    for part in rings:
+        if part is not None:
+            local = _merge(local, part)
+    return _finalize(local, B, s_loc, Hq, hd).to(q.dtype)
 
 
 def context_attention(
     ctx: ParallelContext,
-    q, k, v,                  # [B, S, Hq|Hkv, hd]
+    q, k, v,                  # [B, S / tp, Hq|Hkv, hd]: this rank's chunk of the sequence
     *,
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
     softcap_val: float | None = None,
+    mode: str | None = None,
+    q_block: int = Q_BLOCK,
+    kv_block: int = KV_BLOCK,
+    chunks_per_rank: int | str | None = None,
+    skew: int | None = None,
+    wire: str | None = None,
 ):
-    """Attention of every position over the prompt, at q's dtype.
+    """Attention of every position of this rank's chunk over the prompt, at
+    q's dtype.  Rank d holds positions ``[d * S / tp, (d + 1) * S / tp)``.
 
-    At tp = 1 the reference's ``bulk`` branch (an all-gather, then
-    ``_span_flash``) and its ring (``kernel``) both reduce to one span over
-    the whole sequence.  Kernel mode on a CUDA tensor runs it in the flash
-    kernel, ``window`` and ``softcap_val`` included (gemma2's local layers
-    and its capped scores, computed inside the kernel); bulk mode on any
-    device, and a CPU tensor, run ``_span_flash`` with the reference's
-    default blocks (:func:`attention_path`).  Kernel mode's
-    gradient is the analytic ``flash_backward`` on both devices (the flash
-    op's backward on a card, ``_SpanFlash`` on the CPU); bulk mode's is
-    autograd through ``_span_flash``.  ``fused`` mode
-    (``ctx.fusion.resolve("kv_ag")``) and tp > 1 raise: the KV ring is
-    left for later."""
-    mode = ctx.fusion.resolve("kv_ag")
-    if mode not in ("bulk", "kernel") or ctx.tp > 1:
-        raise NotImplementedError(f"context_attention mode={mode!r} at tp={ctx.tp}: "
-                                  f"{_FUSED_ITEM}")
+    ``mode`` defaults to ``ctx.fusion.resolve("kv_ag")``.  ``bulk``: the
+    reference's bulk branch, an all-gather of k and v (none at tp = 1) and
+    ``span_attention`` over all S keys, on any device.  ``fused`` and
+    ``kernel``: the KV ring (:func:`_ring_attention`) at tp > 1; at tp = 1
+    it has no hop, and kernel mode on a CUDA tensor runs the whole span in
+    the flash kernel, ``window`` and ``softcap_val`` included, while fused
+    mode, and kernel mode on the CPU, run ``_SpanFlash`` (the plain span;
+    :func:`attention_path`).  A windowed causal layer bounds the ring at
+    ``ceil(window / s_loc)`` hops, as the reference's does (not in bulk
+    mode).  ``chunks_per_rank`` (``None``: ``ctx.fusion.granularity``;
+    ``"auto"``: ``tune_ring_attention``), ``skew`` and ``wire`` are the
+    ring's, defaulting to ``ctx.fusion``'s.
+
+    Gradients at tp = 1: bulk mode's is autograd through ``_span_flash``,
+    as the reference's bulk branch; fused and kernel mode's the analytic
+    ``flash_backward`` (the reference's ring ``bwd_rule`` at n = 1; on a
+    card in kernel mode the flash op's backward).  At tp > 1 the ring has
+    no backward yet: under autograd it raises."""
+    mode = mode or ctx.fusion.resolve("kv_ag")
+    if mode not in ("bulk", "fused", "kernel"):
+        raise ValueError(f"context_attention: unknown mode {mode!r}")
+    n = ctx.tp
+    _no_grad_over_ranks(ctx, "context_attention", q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if attention_path(mode, q.device) == "flash":
-        return flash_attention(q, k, v, scale=scale, causal=causal, window=window,
-                               softcap=softcap_val)
-    if mode == "kernel":
-        return _SpanFlash.apply(q, k, v, causal, window, scale, softcap_val)
-    return span_attention(q, k, v, causal=causal, window=window, scale=scale,
-                          cap=softcap_val)
+    if mode == "bulk":
+        if n > 1:
+            k, v = all_gather(ctx, k, axis=1), all_gather(ctx, v, axis=1)
+        return span_attention(q, k, v, causal=causal, window=window, scale=scale,
+                              cap=softcap_val, q_block=q_block, kv_block=kv_block,
+                              q0=ctx.tp_rank * q.shape[1])
+    if n == 1:
+        if attention_path(mode, q.device) == "flash":
+            return flash_attention(q, k, v, scale=scale, causal=causal, window=window,
+                                   softcap=softcap_val)
+        return _SpanFlash.apply(q, k, v, causal, window, scale, softcap_val, q_block, kv_block)
+    B, s_loc, Hq, hd = q.shape
+    hops = n - 1
+    if window is not None and causal:
+        hops = min(n - 1, -(-window // s_loc))
+    skew = ctx.fusion.skew if skew is None else int(skew)
+    dec = resolve_overlap(
+        chunks_per_rank, ctx.fusion.granularity, wire, ctx.fusion.wire,
+        lambda fq, wr: tune_ring_attention(
+            B, s_loc, Hq, k.shape[2], hd, dtype_bytes=k.element_size(), n_dev=n, hops=hops,
+            hw=ctx.hw, skew=skew, wire=wr, fixed_q=fq),
+        dim=s_loc, ring=1)
+    return _ring_attention(ctx, q, k, v, mode=mode, hops=hops, causal=causal, window=window,
+                           scale=scale, cap=softcap_val, q_block=q_block, kv_block=kv_block,
+                           n_sub=dec.q, skew=skew, wire=dec.wire)
 
 
-def span_attention(q, k, v, *, causal, window, scale, cap, q_block=Q_BLOCK, kv_block=KV_BLOCK):
-    """The plain blockwise attention of one whole span on any device:
-    q [B, S, Hq, hd], k, v [B, S, Hkv, hd] -> [B, S, Hq, hd] at q's dtype."""
+def span_attention(q, k, v, *, causal, window, scale, cap, q_block=Q_BLOCK, kv_block=KV_BLOCK,
+                   q0=0):
+    """The plain blockwise attention of queries at positions ``q0 + arange(Sq)``
+    over keys at ``arange(Sk)``, on any device: q [B, Sq, Hq, hd], k, v [B,
+    Sk, Hkv, hd] -> [B, Sq, Hq, hd] at q's dtype."""
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv
-    pos = torch.arange(S, device=q.device)
-    carry = _span_flash(q.reshape(B, S, Hkv, g, hd), k, v, pos, pos,
+    qpos = q0 + torch.arange(S, device=q.device)
+    carry = _span_flash(q.reshape(B, S, Hkv, g, hd), k, v, qpos,
+                        torch.arange(k.shape[1], device=q.device),
                         _init_carry(B, Hkv, g, S, hd, q.device), causal=causal,
                         window=window, scale=scale, cap=cap, q_block=q_block,
                         kv_block=kv_block)

@@ -9,14 +9,19 @@ config that needs the rest raises until its slice lands.  Decode keeps the refer
 layouts: a per-layer cache slice is [B, S_max, Hkv, hd], ``pos`` a [B] int32
 vector, logits [B, 1, V] in f32.
 
-Decode runs at any tp (SPMD, one process a rank): each rank holds the
-parameters' shards of ``PARAM_SPECS`` (``w_qkv`` and ``w_o`` whole, as GSPMD
-runs them in the reference), its ``S_max / tp`` rows of the cache, and
-computes its vocabulary slice of the logits, which are then gathered so
-every rank takes the same greedy tokens.  Prefill, training and paged
-serving run at tp = 1.  The prefill returns last-position logits
-[B, 1, V] in f32 and the cache {"k", "v"}, each [L, B, S, Hkv, hd] (k after
-RoPE): the decode layout with the prompt's length S.
+Decode and prefill run at any tp (SPMD, one process a rank): each rank holds
+the parameters' shards of ``PARAM_SPECS`` (``w_qkv`` and ``w_o`` whole, as
+GSPMD runs them in the reference) and computes its vocabulary slice of the
+logits, which are then gathered so every rank takes the same greedy tokens.
+Decode keeps a rank's ``S_max / tp`` rows of the cache.  The prefill shards
+the prompt's sequence over the ranks, as the reference does: rank d runs
+positions ``[d S / tp, (d + 1) S / tp)`` through the sequence-sharded
+embedding ring, the KV ring and the AG/RS products, and returns the
+last-position logits [B, 1, V] in f32 (the same on every rank: rank tp - 1's
+last row broadcast, each rank's vocabulary slice, gathered) and its chunk of
+the cache {"k", "v"}, each [L, B, S / tp, Hkv, hd] (k after RoPE): the
+decode layout with the prompt's length, rows sharded as decode's are.
+Training and paged serving run at tp = 1.
 
 Paged serving (``serve_step``) mixes prefill chunks and decode steps in one
 call over a block pool {"k", "v"}, each [L, NB + 1, block, Hkv, hd]: the
@@ -31,7 +36,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.collectives import all_gather
+from repro_torch.core.collectives import all_gather, broadcast
 from repro_torch.core.loss import sharded_cross_entropy
 from repro_torch.models.attention import (broadcast_pos, cache_update, context_attention,
                                           decode_attention, paged_attention,
@@ -51,7 +56,7 @@ PARAM_SPECS = {"w_qkv": ("fsdp", None), "w_o": (None, "fsdp"),
                "table": ("tp", "fsdp")}
 _MULTI_RANK_ITEMS = {
     "moe": "MoE over experts on several ranks is ROADMAP Queue 1 item 5",
-    "paged": ("paged serving at tp > 1 is ROADMAP Queue 1 item 1 (left: pool_logical_specs "
+    "paged": ("ROADMAP Queue 1 item 1 (left: paged serving at tp > 1, pool_logical_specs "
               "and striped blocks)"),
 }
 
@@ -136,13 +141,14 @@ def check_supported(cfg: TransformerConfig, tp: int = 1):
 
 def check_prefill(cfg: TransformerConfig, what: str = "prefill", tp: int = 1):
     """Raise for a config whose prefill (or training forward, which runs
-    the same sequence-sharded layers) this slice has not ported, and at tp
-    > 1 (``models/layers.check_seq_sharded``)."""
-    check_supported(cfg)
-    if tp > 1:
+    the same sequence-sharded layers) this slice has not ported: a MoE
+    config, and training at tp > 1, whose rings have no backward yet."""
+    check_supported(cfg, tp)
+    if tp > 1 and what != "prefill":
         raise NotImplementedError(
-            f"{cfg.name}: {what} at tp={tp} is ROADMAP Queue 1 item 1 (left: prefill and "
-            f"training at tp > 1, the KV ring and the CE ring)")
+            f"{cfg.name}: {what} at tp={tp} is ROADMAP Queue 1 item 1 (left: training at "
+            f"tp > 1, the KV ring's backward, the CE ring, gradients through the AG/RS rings "
+            f"and sharded optimizer state)")
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE {what} is ROADMAP Queue 1 item 5 (sequence-sharded MoE: "
@@ -237,8 +243,10 @@ def _embed_inputs(ctx, params, cfg: TransformerConfig, batch):
     return x.to(cfg.cdtype)
 
 
-def _positions_for(S, device):
-    return torch.arange(S, device=device)[None, :]
+def _positions_for(S, device, ctx: ParallelContext | None = None):
+    """This rank's positions [1, S / tp] of a sequence of S."""
+    n, d = (1, 0) if ctx is None else (ctx.tp, ctx.tp_rank)
+    return torch.arange(d * (S // n), (d + 1) * (S // n), device=device)[None, :]
 
 
 def _group_train(ctx, cfg, layers, x, positions, first):
@@ -279,14 +287,19 @@ def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
 
 
 def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
-    """Inference prefill: forward over the prompt {"tokens": [B, S]},
-    returning last-position logits [B, 1, V] f32 and the cache {"k", "v"},
-    each [L, B, S, Hkv, hd] at the compute dtype (at tp = 1)."""
+    """Inference prefill: forward over the prompt {"tokens": [B, S]} (every
+    rank the whole prompt), returning last-position logits [B, 1, V] f32,
+    the same on every rank, and this rank's chunk of the cache {"k", "v"},
+    each [L, B, S / tp, Hkv, hd] at the compute dtype.  S must be a multiple
+    of tp (the reference's ``s_loc = S // n``)."""
     check_prefill(cfg, tp=ctx.tp)
     tokens = batch["tokens"]
-    S = tokens.shape[1]
+    S, n = tokens.shape[1], ctx.tp
+    if S % n:
+        raise ValueError(f"{cfg.name}: a prefill at tp={n} shards the prompt's {S} positions "
+                         f"over the ranks: S must be a multiple of tp")
     x = _embed_inputs(ctx, params, cfg, batch)
-    positions = _positions_for(S, tokens.device)
+    positions = _positions_for(S, tokens.device, ctx)
     ks, vs = [], []
     for i, lp in enumerate(params["layers"]):
         x, kv = _layer_train(ctx, cfg, lp, x, positions, cfg.layer_window(i), collect_kv=True)
@@ -294,8 +307,10 @@ def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch)
         vs.append(kv["v"])
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     del ks, vs
-    x = rms_norm(x[:, S - 1:], params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    return _lm_logits(params, cfg, x), cache
+    # position S - 1 is the last row of rank tp - 1's chunk
+    x = broadcast(ctx, x[:, -1:].contiguous(), n - 1)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    return all_gather(ctx, _lm_logits(params, cfg, x), axis=-1), cache
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ and its counterpart in ``repro_torch`` on the CPU (one rank).  f32
 throughout; matrix products in full f32 (TF32 off for cuBLAS and cuDNN).
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -233,15 +234,17 @@ def test_parallel_context_defaults_to_cuda():
 
 
 def test_layers_training_paths_raise():
-    """The sequence-sharded paths run at tp = 1 in kernel and bulk mode (the
-    prefill's); fused mode, the rings of training, raises."""
+    """The sequence-sharded paths run at tp = 1 in every mode (the prefill's
+    and the training's); under autograd over ranks (training at tp > 1, a
+    context standing in for rank 0 of 2) they raise."""
     p = {"w_gate": torch.ones(4, 8), "w_up": torch.ones(4, 8), "w_down": torch.ones(8, 4)}
-    with pytest.raises(NotImplementedError, match="Queue 1 items 1 and 4"):
-        layers.mlp_apply(ParallelContext(device="cpu"), p, torch.zeros(1, 1, 4),
-                         seq_sharded=True)
     x = torch.ones(1, 2, 4)
-    torch.testing.assert_close(layers.mlp_apply(CPU_KERNEL, p, x, seq_sharded=True),
-                               layers.mlp_apply(CPU_BULK, p, x, seq_sharded=False))
+    for c in (CPU_KERNEL, ParallelContext(device="cpu")):
+        torch.testing.assert_close(layers.mlp_apply(c, p, x, seq_sharded=True),
+                                   layers.mlp_apply(CPU_BULK, p, x, seq_sharded=False))
+    two = types.SimpleNamespace(tp=2, tp_rank=0, fusion=FusionConfig())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1 .*training at tp > 1"):
+        layers.mlp_apply(two, p, x.requires_grad_(True), seq_sharded=True)
     table, tokens = torch.randn(8, 4), torch.tensor([[0, 7, 8, -1]])
     torch.testing.assert_close(
         layers.embedding_lookup(CPU_KERNEL, {"table": table}, tokens, seq_shard=True),

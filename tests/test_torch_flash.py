@@ -13,6 +13,8 @@ The gradients (the port's analytic ``flash_backward``, the reference's
 (the ring attention of one card, no hops), at rtol 2e-3, atol 1e-5: the
 bounds of ``tests/test_loss.py``.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -332,10 +334,88 @@ def test_context_attention_matches_jax(ctx, rng, jax_mode, window, cap):
         np.testing.assert_allclose(got.numpy(), want, **F32, err_msg=mode)
 
 
-def test_context_attention_fused_mode_raises(rng):
-    q, k, v = (t(a) for a in _qkv(rng, 1, 8, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        attention.context_attention(ParallelContext(device="cpu"), q, k, v)
+def test_context_attention_fused_mode_raises(rng, jctx1):
+    """Fused mode at tp = 1 is the reference's KV ring with no hop: its
+    output and its gradient (the analytic backward) against the JAX
+    package's fused mode on one device.  It raises only under autograd over
+    ranks: training at tp > 1 (a context standing in for rank 0 of 2)."""
+    q, k, v = _qkv(rng, 2, 32, 4, 2, 16)
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    fused = ParallelContext(device="cpu")
+    for kw in (dict(), dict(window=12), dict(softcap_val=2.0)):
+        want = np.asarray(jax.jit(lambda q, k, v: jattn.context_attention(
+            jctx1["fused"], q, k, v, causal=True, **kw))(q, k, v))
+        got = attention.context_attention(fused, t(q), t(k), t(v), causal=True, **kw)
+        np.testing.assert_allclose(got.numpy(), want, **F32, err_msg=str(kw))
+        for name, gt_, w in zip(("dq", "dk", "dv"), _port_grads(fused, q, k, v, do, **kw),
+                                _jax_grads(jctx1["fused"], q, k, v, do, **kw)):
+            np.testing.assert_allclose(gt_.numpy(), w, **GRAD, err_msg=f"{kw} {name}")
+    two = types.SimpleNamespace(tp=2, tp_rank=0, fusion=FusionConfig(mode="fused"))
+    qt = t(q).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1 .*training at tp > 1"):
+        attention.context_attention(two, qt, t(k), t(v))
+
+
+@pytest.mark.parametrize("sq,sk,delta,causal,window,cap", [
+    (32, 16, 32, True, None, None),      # a hop from a lower rank: every key seen
+    (32, 16, 8, True, None, None),       # the diagonal cuts the span
+    (16, 32, -40, True, None, None),     # wholly above the diagonal: every row empty
+    (32, 16, 24, True, 24, None),        # the window cuts the span: some rows empty
+    (32, 16, 16, False, None, 2.0),
+    (32, 32, -8, False, 12, 30.0)], ids=str)
+def test_flash_span_of_its_own_matches_jax_span(rng, sq, sk, delta, causal, window, cap):
+    """The op (its plain version on the CPU) with keys of their own length at
+    an offset ``delta`` and ``stats=True``, against the JAX package's
+    ``_span_flash`` with ``qpos = delta + arange(Sq)`` and ``kpos =
+    arange(Sk)``: o, m and l of every row that sees a key; a row that sees
+    none gives o = 0, m = -1e30 and l = 0."""
+    b, hq, hkv, hd = 2, 4, 2, 16
+    q = rng.standard_normal((b, sq, hq, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((b, sk, hkv, hd)).astype(np.float32) for _ in "kv")
+    o, m, l = flash_attention(t(q), t(k), t(v), causal=causal, window=window, softcap=cap,
+                              delta=delta, stats=True)
+    assert torch.equal(flash_attention(t(q), t(k), t(v), causal=causal, window=window,
+                                       softcap=cap, delta=delta), o)
+    jm, jl, jo = jattn._span_flash(
+        jnp.asarray(q).reshape(b, sq, hkv, hq // hkv, hd), k, v, delta + jnp.arange(sq),
+        jnp.arange(sk), jattn._init_carry(b, hkv, hq // hkv, sq, hd), causal=causal,
+        window=window, scale=hd ** -0.5, cap=cap, q_block=16, kv_block=16)
+    qpos, kpos = delta + np.arange(sq), np.arange(sk)
+    seen = np.ones((sq, sk), bool)
+    if causal:
+        seen &= kpos[None] <= qpos[:, None]
+    if window is not None:
+        seen &= qpos[:, None] - kpos[None] < window
+    rows = seen.any(axis=1)
+    want_o = np.asarray(jattn._finalize((jm, jl, jo), b, sq, hq, hd))
+    np.testing.assert_allclose(o.numpy()[:, rows], want_o[:, rows], **F32)
+    np.testing.assert_allclose(m.numpy()[..., rows], np.asarray(jm).reshape(b, hq, sq)[..., rows],
+                               **F32)
+    np.testing.assert_allclose(l.numpy()[..., rows], np.asarray(jl).reshape(b, hq, sq)[..., rows],
+                               **F32)
+    assert (o.numpy()[:, ~rows] == 0).all() and (l.numpy()[..., ~rows] == 0).all()
+    assert (m.numpy()[..., ~rows] == np.float32(-1e30)).all()
+    assert rows.all() != (delta in (-40, 24))
+
+
+def test_flash_span_defaults_are_one_span(rng):
+    """Sk = Sq and delta = 0 are the call without them, to the bit, with and
+    without statistics; statistics or a span of its own under autograd
+    raise (the ring's backward is training at tp > 1)."""
+    q, k, v = (t(a) for a in _qkv(rng, 2, 40, 4, 2, 16))
+    for kw in (dict(), dict(window=12, softcap=3.0), dict(causal=False)):
+        base = flash_attention(q, k, v, **kw)
+        assert torch.equal(flash_attention(q, k, v, delta=0, **kw), base)
+        o, m, l = flash_attention(q, k, v, delta=0, stats=True, **kw)
+        assert torch.equal(o, base)
+        want_m, want_l = flash_attention_plain(q, k, v, stats=True, **kw)[1:]
+        assert torch.equal(m, want_m) and torch.equal(l, want_l)
+    qg = q.clone().requires_grad_(True)
+    for kw in (dict(stats=True), dict(delta=4)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1 .*training at tp > 1"):
+            flash_attention(qg, k, v, **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1 .*training at tp > 1"):
+        flash_attention(qg, k[:, :16], v[:, :16])
 
 
 # ---------------------------------------------------------------------------

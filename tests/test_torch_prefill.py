@@ -66,8 +66,8 @@ def test_allgather_matmul_and_reducescatter_match_jax(ctx, rng, jax_mode):
 def test_sequence_parallel_products_refuse_fused_mode(op):
     """Fused mode runs at op level (at tp = 1 the ring has no hops and gives
     the product), its 'auto' granularity resolving to the JAX package's
-    decision under the same link constants; the sequence-sharded layers
-    refuse fused mode (the KV and CE rings are left for later)."""
+    decision under the same link constants; the sequence-sharded MLP in
+    fused mode at tp = 1 is kernel mode's (its rings have no hops)."""
     x, w = torch.randn(1, 4, 8), torch.randn(8, 8)
     torch.testing.assert_close(op(ParallelContext(device="cpu"), x, w), x @ w)
     jc = JaxContext.from_mesh(make_mesh((1, 1), ("data", "model")),
@@ -77,8 +77,8 @@ def test_sequence_parallel_products_refuse_fused_mode(op):
     torch.testing.assert_close(op(v5e_ctx(granularity="auto"), x, w), x @ w)
     assert len(same_decisions()) == 1
     p = {"w_gate": w, "w_up": w, "w_down": w}
-    with pytest.raises(NotImplementedError, match="Queue 1 items 1 and 4"):
-        layers.mlp_apply(ParallelContext(device="cpu"), p, x, seq_sharded=True)
+    fused = layers.mlp_apply(ParallelContext(device="cpu"), p, x, seq_sharded=True)
+    torch.testing.assert_close(fused, layers.mlp_apply(CPU["kernel"], p, x, seq_sharded=True))
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu"])

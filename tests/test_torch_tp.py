@@ -279,10 +279,11 @@ def test_auto_choices_resolve_at_tp2(world, rng):
 
 @pytest.mark.parametrize("what,item", [
     ("kernel", "item 1 .*real-peer"), ("moe", "item 5"),
-    ("prefill", "item 1 .*prefill"), ("rwkv6", "item 7"), ("grad", "item 1 .*training")])
+    ("paged", "item 1 .*paged"), ("rwkv6", "item 7"), ("grad", "item 1 .*training")])
 def test_paths_left_for_later_raise_at_tp2(world, what, item):
-    """Kernel mode at tp > 1 raises (no fallback to fused mode), as do MoE,
-    prefill, rwkv6 and gradients through the rings."""
+    """Kernel mode of the fused GEMV at tp > 1 raises (no fallback to fused
+    mode), as do MoE, paged serving, rwkv6 and gradients through the
+    rings."""
     for msg in run(world, "refusal_task", 2, what=what):
         assert msg is not None and re.search(f"ROADMAP Queue 1 {item}", msg), msg
 

@@ -42,7 +42,7 @@ from torch_tune import jax_decision
 LOSS = dict(rtol=1e-5, atol=0)
 GRAD = dict(rtol=2e-3, atol=1e-5)
 STEPS = dict(rtol=1e-4, atol=0)
-MODES = {"kernel": "fused", "bulk": "bulk"}     # port mode -> the reference's
+MODES = {"kernel": "fused", "bulk": "bulk", "fused": "fused"}   # port mode -> the reference's
 CPU = {m: ParallelContext(device="cpu", fusion=FusionConfig(mode=m)) for m in MODES}
 B, S = 8, 32
 
@@ -74,8 +74,11 @@ def _batch(n=B, s=S, seed=0):
 # ---------------------------------------------------------------------------
 # the model: loss and every parameter's gradient
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("mode", ["kernel", "bulk"])
+@pytest.mark.parametrize("mode", ["kernel", "bulk", "fused"])
 def test_train_forward_loss_and_grads_match_jax(jctx, models, mode):
+    """The loss and every gradient at tp = 1; fused mode's rings have no
+    hops there (the KV ring's gradient is the analytic one, as kernel
+    mode's on the CPU)."""
     jb, jparams, pb, np_params = models
     batch = _batch()
     jloss, jgrads = jax.jit(jax.value_and_grad(jb.loss_fn(jctx[MODES[mode]])))(jparams, batch)

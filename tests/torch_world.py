@@ -290,14 +290,14 @@ def decode_attention_task(ctx, q, k, v, pos, window=None, softcap=None):
 
 
 @task
-def decode_steps_task(ctx, tree, mode, tokens, positions, q=1, wire="f32"):
-    """The reduced chatglm3-6b from the JAX package's weights (numpy), its
+def decode_steps_task(ctx, tree, mode, tokens, positions, q=1, wire="f32", arch="chatglm3-6b"):
+    """The reduced ``arch`` from the JAX package's weights (numpy), its
     decode steps on the given tokens; each step's logits and the cache."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.convert import params_from_numpy
 
     c = ctx(mode, granularity=q, wire=wire)
-    bundle = get_arch("chatglm3-6b").reduced()
+    bundle = get_arch(arch).reduced()
     params = params_from_numpy(tree, "cpu", c)
     dec = bundle.decode_fn(c)
     cache = bundle.init_cache(tokens.shape[1], "cpu", c.tp)
@@ -332,9 +332,13 @@ def refusal_task(ctx, what):
             matmul_allreduce(ctx("kernel"), torch.ones(4, 8), torch.ones(8, 4))
         elif what == "moe":
             get_arch("dbrx-132b").reduced().init_params(torch.Generator(), ctx())
-        elif what == "prefill":
-            b = get_arch("chatglm3-6b").reduced()
-            b.prefill_fn(ctx("bulk"))
+        elif what == "paged":
+            from repro_torch.models.transformer import serve_step
+
+            cfg = get_arch("chatglm3-6b").reduced().config
+            serve_step(ctx("bulk"), {}, cfg, torch.zeros(1, 1, dtype=torch.long), {}, None, 0, 1)
+        elif what == "training":
+            get_arch("chatglm3-6b").reduced().loss_fn(ctx("bulk"))
         elif what == "rwkv6":
             get_arch("rwkv6-7b").reduced().decode_fn(ctx())
         elif what == "grad":
@@ -343,6 +347,101 @@ def refusal_task(ctx, what):
     except NotImplementedError as e:
         return str(e)
     return None
+
+
+def _sends(fn):
+    """``fn()`` and how many ring sends ``models/attention`` started in it."""
+    from repro_torch.models import attention
+
+    start, count = attention.ring_permute_start, [0]
+
+    def counted(*a, **kw):
+        count[0] += 1
+        return start(*a, **kw)
+    attention.ring_permute_start = counted
+    try:
+        return fn(), count[0]
+    finally:
+        attention.ring_permute_start = start
+
+
+@task
+def ring_attention_task(ctx, q, k, v, mode, causal=True, window=None, cap=None, qs=1,
+                        wire="f32", skews=(0,)):
+    """context_attention of this rank's sequence chunks of q, k and v (whole
+    [B, S, H, d]) at blocks of 16, once a skew; each output, the sends the
+    ring started and the flash op's calls (kernel mode's spans)."""
+    from repro_torch.models.attention import context_attention
+
+    outs, sends, calls = [], [], []
+    for skew in skews:
+        c = ctx(mode, granularity=qs, wire=wire, skew=skew)
+        before = _plain_calls()
+        out, n = _sends(lambda: context_attention(
+            c, _block(q, c, 1), _block(k, c, 1), _block(v, c, 1), causal=causal, window=window,
+            softcap_val=cap, q_block=16, kv_block=16))
+        outs.append(out.numpy())
+        sends.append(n)
+        calls.append(_plain_calls() - before)
+    return outs, sends, calls
+
+
+_PLAIN = [0]
+
+
+def _plain_calls():
+    """How often the flash op ran its plain version (the CPU's kernel mode)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    if not getattr(ops.flash_attention_plain, "counted", False):
+        plain = ops.flash_attention_plain
+
+        def counted(*a, **kw):
+            _PLAIN[0] += 1
+            return plain(*a, **kw)
+        counted.counted = True
+        ops.flash_attention_plain = counted
+    return _PLAIN[0]
+
+
+@task
+def embedding_seq_task(ctx, table, tokens, schedule, scale=None):
+    from repro_torch.models.layers import embedding_lookup
+
+    c = ctx(schedule=schedule)
+    p = _shard_tree({"table": table}, c)
+    return embedding_lookup(c, p, t(tokens), seq_shard=True, scale=scale).numpy()
+
+
+@task
+def prefill_task(ctx, tree, tokens, mode, arch="chatglm3-6b", q=1, wire="f32"):
+    """The reduced ``arch`` from the JAX package's weights (numpy): its
+    prefill of the tokens through ``prefill_fn``; the logits and this
+    rank's chunk of the cache."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.convert import params_from_numpy
+
+    c = ctx(mode, granularity=q, wire=wire)
+    logits, cache = get_arch(arch).reduced().prefill_fn(c)(params_from_numpy(tree, "cpu", c),
+                                                           {"tokens": t(tokens)})
+    return logits.numpy(), cache["k"].numpy(), cache["v"].numpy()
+
+
+@task
+def calibrate_ring_task(ctx, q, k, v, window=None):
+    """A fused-mode context_attention with 'auto' granularity and wire on a
+    cleared tuner cache, then the measured pass over its ring_attention key
+    (one iteration a candidate): this rank's decisions and report."""
+    from repro_torch.core import autotune, calibrate
+    from repro_torch.models.attention import context_attention
+
+    c = ctx("fused", granularity="auto", wire="auto")
+    autotune.clear_cache()
+    context_attention(c, _block(q, c, 1), _block(k, c, 1), _block(v, c, 1), window=window)
+    rep = calibrate.measured_calibration_pass(c, iters=1, warmup=0)
+    return _decisions(), [(k_.op, tuple(r["model_q"]), tuple(r["measured_q"]),
+                           sorted(tuple(d) for d in r["times"]), r["fallback"])
+                          for k_, r in rep.items()]
 
 
 def _decisions():
