@@ -180,14 +180,14 @@ prints one line, and any failure exits non-zero:
      kernel-mode steps at 4 x 2048 tokens
  28. the serving launcher at tp = 4 through its entry point, python -m
      torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.serve
-     --tp 4 --backend gloo, in fused and bulk mode: four processes sharing
-     the one card, full-width chatglm3-6b (each rank its shards of the
-     seed-0 weights), the launcher's 4 requests x 8 tokens at batch 4; ms a
-     step and tok/s per mode, every rank's streams equal (the launcher
+     --tp 4 --backend gloo, in fused mode: four processes sharing the one
+     card, full-width chatglm3-6b (each rank its shards of the seed-0
+     weights), the launcher's 4 requests x 8 tokens at batch 4; ms a step
+     and tok/s, every rank's streams equal (the launcher
      checks), and the streams against phase 5's kernel mode at tp = 1 (a
      first difference only at a near tie of phase 5's logits)
  29. spawned tp = 4 and tp = 2 (granularity 2) worlds on the card,
-     teacher-forced on the first TP_STEPS (6) of phase 5's inputs, logits
+     teacher-forced on the first TP_STEPS (2) of phase 5's inputs, logits
      against phase 5's exact f32
      evaluation: fused (comm_aware) and oblivious within
      LOGITS_TOL_FACTOR x bulk's own distance at that tp, skew 1
@@ -250,13 +250,12 @@ prints one line, and any failure exits non-zero:
      0); o, m and l; Sk = Sq, delta = 0 bit-identical to the call without
      them; times beside the bound and F.scaled_dot_product_attention on the
      same unmasked hop
- 36. spawned tp = 4 and tp = 2 gloo worlds on the card, full-width
-     chatglm3-6b prefill of phase 20's 4 x 2048 tokens through prefill_fn:
-     tp = 4 in bulk, fused and kernel mode and fused at 2 sub-chunks with a
-     bf16 wire at skew 0 and 1, tp = 2 in bulk and kernel mode; logits
-     against phase 20's exact f32 evaluation and each rank's cache chunk
-     against phase 20's kernel-mode rows, within LOGITS_TOL_FACTOR x bulk's
-     own distance at that tp; every rank's logits equal; skew 1
+ 36. a spawned tp = 4 gloo world on the card, full-width chatglm3-6b
+     prefill of phase 20's 4 x 2048 tokens through prefill_fn in bulk and
+     kernel mode and fused at 2 sub-chunks with a bf16 wire at skew 0 and
+     1; logits against phase 20's exact f32 evaluation and each rank's
+     cache chunk against phase 20's kernel-mode rows, within
+     LOGITS_TOL_FACTOR x bulk's own distance; every rank's logits equal; skew 1
      bit-identical to skew 0; 28 (1 + d) flash launches on rank d in kernel
      mode, 0 otherwise; the hand-off (the chunks gathered into a tp = 4
      decode cache, one fused-mode decode step from position 2048, against
@@ -269,6 +268,30 @@ prints one line, and any failure exits non-zero:
      LOGITS_TOL_FACTOR x the tp = 1 prefill's distance), the ring's hops a
      layer (2 on the windowed layers, 3 on the global ones) and sends,
      flash launches a rank, ms a prefill
+ 38. training at tp > 1: a spawned gloo world of 4 ranks on the card,
+     full-width chatglm3-6b cut to 2 layers at phase 27's 4 x 2048 tokens
+     through loss_fn: tp = 4 in bulk, fused and kernel mode and fused at 2
+     sub-chunks with a bf16 wire at skew 0 and 1, tp = 2 (the world's pairs)
+     in kernel mode;
+     the loss and each rank's shard of every gradient (the whole leaves
+     all-reduced) against one exact f32 tp = 1 evaluation written to a file
+     the ranks map, within LOGITS_TOL_FACTOR x tp = 1 bulk mode's distance
+     on that leaf; every rank's loss equal, the whole leaves' gradients
+     bit-identical across the ranks, skew 1 bit-identical to skew 0 (every
+     leaf but the table, whose scatter-adds are atomics), 2 L (1 + d) flash
+     launches on rank d in kernel mode (forward and remat), 0
+     otherwise; ms of forward, backward and the gradients' all-reduce
+ 39. 3 AdamW steps (lr TRAIN_LR) of the model cut to 4 layers at 4 x 2048
+     at tp = 4 in kernel and fused mode (spawned world): losses within
+     TRAIN_LOSS_REL of 3 tp = 1 kernel-mode steps, every whole parameter
+     bit-identical across the ranks after the last step, ms a step split
+     into forward, backward, all-reduce and optimizer, each rank's peak
+     memory
+ 40. the train launcher at tp = 2 through torch.distributed.run (--backend
+     gloo --fusion kernel, full width cut to 2 layers, 6 steps at lr
+     TRAIN_LR): exit 0, every rank's losses equal, the losses within
+     TRAIN_LOSS_REL of the tp = 1 launcher's on the same flags.  Phases
+     38-40 are labelled "one card, N processes, wire staged through host"
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
@@ -277,7 +300,9 @@ its shards; phase 30 draws the seed-0 weights again, phase 31 runs in
 processes of its own; phase 33 draws gemma2-27b's, freed after phase 34;
 phases 36-37 run in processes of their own (phase 20's logits, exact
 logits and cache stay on the host for phase 36: GLM_PREFILL), phase 37's
-tp = 1 yardsticks draw gemma2's first 4 layers and free them first.
+tp = 1 yardsticks draw gemma2's first 4 layers and free them first;
+phases 38-40 draw chatglm3-6b's first layers here for their tp = 1
+yardsticks, free them, and run their worlds in processes of their own.
 Every line ends with the seconds since the previous line and since the
 start; the end line gives each phase's seconds.  Phases 5, 9 and 17
 and the end print how many launch plans the plan-cached wrappers hold.
@@ -427,8 +452,9 @@ TP_WORLD, TP_PAIR, TP_PAIR_Q = 4, 2, 2
 # Phase 29's spawned worlds replay the first TP_STEPS of phase 5's 12
 # teacher-forced steps a setting (cut from all 12: on one H100 80GB HBM3 a
 # step of the tp = 4 world takes about 0.75 s, and its six settings took 63
-# s of a 719 s run of this script)
-TP_STEPS = 6
+# s of a 719 s run of this script; cut to 2 when phases 38-40 came, to keep
+# the script under 900 s)
+TP_STEPS = 2
 TP_LABEL = "one card, {} processes, wire staged through host"
 # An fp8 wire (e4m3 with a per-chunk scale) keeps 3 mantissa bits against
 # bf16's 7: each value it carries rounds by up to 2^-4 relative where the f32
@@ -918,6 +944,9 @@ def main() -> int:
     flash_row.update(flash_ring_phase(card, gen))
     flash_row.update(ring_prefill_phase(card))
     flash_row.update(gemma2_ring_phase(card, gen))
+    torch.cuda.empty_cache()
+    # the flash row gains its numbers of training at tp > 1 (phases 38-40)
+    flash_row.update(train_tp_phases(card))
     say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -3591,11 +3620,14 @@ def profile_device(run, n, unit) -> str:
 # phases 28-29: chatglm3-6b decode over a tensor-parallel world on one card
 # ---------------------------------------------------------------------------
 def tp_phases(card) -> None:
-    """Phase 28 (the launcher at tp = 4 under torch.distributed.run, fused and
-    bulk mode) and phase 29 (teacher-forced logits of spawned tp = 4 and tp =
+    """Phase 28 (the launcher at tp = 4 under torch.distributed.run, fused
+    mode) and phase 29 (teacher-forced logits of spawned tp = 4 and tp =
     2 worlds against phase 5's exact f32 evaluation, and the FFN down product
     over the world).  Needs phase 5's run (``GLM_DECODE``)."""
-    runs = {m: launcher_world_run(m) for m in ("fused", "bulk")}
+    # fused mode only: bulk mode at tp = 4 is phase 29's yardstick (its
+    # launcher run was cut when phases 38-40 came, to keep the script
+    # under 900 s)
+    runs = {m: launcher_world_run(m) for m in ("fused",)}
     streams5 = GLM_DECODE["streams"]
     notes = []
     for mode, r in runs.items():
@@ -3607,8 +3639,7 @@ def tp_phases(card) -> None:
             + "; ".join(f"{m} {r['ms_step']:.2f} ms/step {r['tok_s']:.1f} tok/s ({r['steps']} "
                         f"steps, {r['wall']:.1f} s with start and init), all {TP_WORLD} ranks' "
                         f"streams equal" for m, r in runs.items())
-            + f"; streams {runs['fused']['streams']}; fused = bulk: "
-            f"{runs['fused']['streams'] == runs['bulk']['streams']}, = tp 1 kernel mode (phase 5): "
+            + f"; streams {runs['fused']['streams']}; = tp 1 kernel mode (phase 5): "
             + ", ".join(f"{m} {[r['streams'][u] for u in range(len(streams5))] == streams5}"
                         for m, r in runs.items())
             + (f" ({'; '.join(notes)})" if notes else ""))
@@ -3997,7 +4028,7 @@ def autotune_phases(card) -> None:
         raise AssertionError(f"from the cache: decisions {runs[1]['decisions']}, streams "
                              f"{runs[1]['streams']}; first run {runs[0]['decisions']}, "
                              f"{runs[0]['streams']}")
-    bulk28 = GLM_DECODE["tp_streams"]["bulk"]
+    fused28 = GLM_DECODE["tp_streams"]["fused"]
     say(31, f"[{AUTO_LABEL.format(TP_WORLD)}] python -m torch.distributed.run --nproc-per-node "
             f"{TP_WORLD} -m repro_torch.launch.serve --tp {TP_WORLD} --backend gloo --fusion fused "
             f"--granularity auto --wire auto --calibrate --tune-cache, full-width chatglm3-6b: "
@@ -4005,7 +4036,7 @@ def autotune_phases(card) -> None:
             + "; ".join(summary[0][1]) + f"; decisions {runs[0]['decisions']} (link class gloo "
             f"host-staged, provisional; {len(entries)} cache entries under it); {runs[0]['ms_step']:.2f} "
             f"ms/step, {runs[0]['wall']:.1f} s with start, init and calibration; streams = phase "
-            f"28's bulk streams: {runs[0]['streams'] == bulk28}"
+            f"28's streams: {runs[0]['streams'] == fused28}"
             + (f" ({'; '.join(runs[0]['notes'])})" if runs[0]["notes"] else "")
             + f"; (b) again from the cache: {summary[1][0]}, the same decisions and streams, "
             f"{runs[1]['ms_step']:.2f} ms/step, {runs[1]['wall']:.1f} s with start and init")
@@ -4557,13 +4588,14 @@ RING_TP = 4
 # each draw every layer whole before keeping their shards
 RING_GEMMA_LAYERS = 4
 # phase 36's worlds: (tp, settings); skew 1 at 2 sub-chunks against skew 0
+# (cut when phases 38-40 came, to keep the script under 900 s: fused mode's
+# ring with one sub-chunk, whose code the sub-chunked ring runs, and the tp
+# = 2 world, whose kernel-mode ring phase 38 runs at tp = 2)
 RING_WORLDS = (
-    (RING_TP, [("bulk", dict(mode="bulk")), ("fused", dict(mode="fused")),
-               ("kernel", dict(mode="kernel")),
+    (RING_TP, [("bulk", dict(mode="bulk")), ("kernel", dict(mode="kernel")),
                ("fused q2 bf16", dict(mode="fused", granularity=2, wire="bf16")),
                ("fused q2 bf16 skew 1", dict(mode="fused", granularity=2, wire="bf16",
-                                             skew=1))]),
-    (2, [("bulk", dict(mode="bulk")), ("kernel", dict(mode="kernel"))]))
+                                             skew=1))]),)
 GLM_PREFILL: dict = {}    # phase 20's run, which phase 36 is held to
 
 
@@ -4690,7 +4722,7 @@ def flash_ring_phase(card, gen) -> dict:
 
 
 def ring_prefill_phase(card) -> dict:
-    """Phase 36: spawned gloo worlds on the one card (tp = 4 and 2), every
+    """Phase 36: a spawned gloo world on the one card (tp = 4), every
     rank its shards of chatglm3-6b's seed-0 weights, prefilling phase 20's
     4 x 2048 tokens through ``prefill_fn`` in each setting of RING_WORLDS:
     logits against phase 20's exact f32 evaluation and each rank's cache
@@ -4895,6 +4927,439 @@ def prefill_world_rank(rank, tp, init, settings, inputs, out):
                 del dc
             del logits, cache
             res[name] = r
+        out.put((rank, "ok", res))
+    except Exception:
+        out.put((rank, "err", traceback.format_exc()))
+    finally:
+        close_world()
+
+
+# ---------------------------------------------------------------------------
+# phases 38-40: training at tp > 1
+# ---------------------------------------------------------------------------
+# Phase 38's settings, in one spawned world of RING_TP ranks: (name, fusion
+# settings and the setting's tp; tp = 2 runs on the pairs (0, 1) and (2, 3)),
+# on TRAIN_GRAD_LAYERS full-width layers at phase 27's long batch
+# (TRAIN_LONG_B x TRAIN_LONG_S: 512 positions a rank at tp = 4, phase 35's hop
+# shapes); skew 1 at 2 sub-chunks against skew 0
+TRAIN_TP_GRADS = [
+    ("bulk", dict(mode="bulk")), ("fused", dict(mode="fused")), ("kernel", dict(mode="kernel")),
+    ("fused q2 bf16", dict(mode="fused", granularity=2, wire="bf16")),
+    ("fused q2 bf16 skew 1", dict(mode="fused", granularity=2, wire="bf16", skew=1)),
+    ("tp 2 kernel", dict(mode="kernel", tp=2))]
+# Phase 39: TRAIN_TP_STEPS AdamW steps at tp = 4 of the model cut to
+# TRAIN_TP_LAYERS layers, at the same batch.  A rank at tp = 4 holds w_qkv and
+# w_o whole (35.7 M parameters a layer), a quarter of the FFN (42.1 M) and of
+# the table (66.6 M): with bf16 weights and gradients and f32 AdamW moments
+# about 12 bytes a parameter, 4.5 GB a rank at 4 layers and 18 GB for the
+# four, beside four CUDA contexts; at all 28 layers (2.25 G parameters a
+# rank) four ranks do not fit one card
+TRAIN_TP_LAYERS, TRAIN_TP_STEPS = 4, 3
+TRAIN_TP_SETTINGS = [("kernel", dict(mode="kernel")), ("fused", dict(mode="fused"))]
+# Phase 40: the launcher at tp = 2 against tp = 1 on the same flags, full
+# width cut to TRAIN_GRAD_LAYERS layers (the reduced model's heads of 16 are
+# not a size the flash kernel takes)
+TRAIN_TP_LAUNCH = ["--fusion", "kernel", "--layers", str(TRAIN_GRAD_LAYERS), "--steps", "6",
+                   "--lr", TRAIN_LR, "--log-every", "1"]
+
+
+def train_tp_phases(card) -> dict:
+    """Phases 38-40; returns the flash row's numbers of training at tp > 1."""
+    row = train_tp_grad_phase(card)
+    torch.cuda.empty_cache()
+    row.update(train_tp_step_phase(card))
+    torch.cuda.empty_cache()
+    row.update(train_tp_launcher_phase(card))
+    return row
+
+
+def _whole(specs):
+    """Which leaves (in tree_leaves order) are whole on every rank."""
+    from repro_torch.parallel.sharding import splits_over_tp
+
+    return [not splits_over_tp(sp) for sp in specs]
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t_ in tensors:
+        h.update(t_.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_tp_grad_phase(card) -> dict:
+    """Phase 38: the loss and every gradient of TRAIN_GRAD_LAYERS full-width
+    chatglm3-6b layers at TRAIN_LONG_B x TRAIN_LONG_S (LMBatches seed 0,
+    weights seed 0) over a spawned gloo world on the card (TRAIN_TP_GRADS),
+    each rank's shard against the matching slice of one exact f32 tp = 1
+    evaluation made here (bulk mode, f32 weights and arithmetic) and written
+    to a file the ranks map: the loss and each leaf within LOGITS_TOL_FACTOR
+    x tp = 1 bulk mode's distance on that leaf; every rank's loss equal, the
+    whole leaves' gradients bit-identical across ranks (after the
+    all-reduce), skew 1 bit-identical to skew 0, flash launches a rank 2 L (1
+    + d) in kernel mode (the forward and the remat recompute), 0 otherwise;
+    ms of the forward, the backward and the gradients' all-reduce."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic import LMBatches
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+    from repro_torch.train.optimizer import tree_leaves, tree_map, tree_paths
+
+    bundle = get_arch("chatglm3-6b")
+    cfg = dataclasses.replace(bundle.config, n_layers=TRAIN_GRAD_LAYERS)
+    cut = dataclasses.replace(bundle, config=cfg)
+    L = cfg.n_layers
+    batch_np = next(LMBatches(cfg.vocab, TRAIN_LONG_B, TRAIN_LONG_S, 0))
+    batch = to_device(batch_np, "cuda")
+    params = cut.init_params(torch.Generator(device="cuda").manual_seed(0))
+    names = [".".join(map(str, p_)) for p_, _ in tree_paths(params)]
+    leaves = tree_leaves(params)
+    for p_ in leaves:
+        p_.requires_grad_(True)
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    loss_b = cut.loss_fn(ctx_b)(params, batch)
+    grads_b = torch.autograd.grad(loss_b, leaves)
+    exact = dataclasses.replace(cut, config=dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    params_x = tree_map(lambda t_: t_.detach().float().requires_grad_(True), params)
+    del params, leaves
+    loss_x = exact.loss_fn(ctx_b)(params_x, batch)
+    grads_x = torch.autograd.grad(loss_x, tree_leaves(params_x))
+    del params_x
+    dist_b = [errors(gb, gx)[0] for gb, gx in zip(grads_b, grads_x)]
+    lb, lx = loss_b.item(), loss_x.item()
+    del grads_b, loss_b, loss_x
+    (ROOT / "build").mkdir(exist_ok=True)
+    notes, row = [], {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = Path(tmp) / "exact_grads.pt"
+        torch.save({n_: g.cpu() for n_, g in zip(names, grads_x)}, path)
+        del grads_x
+        torch.cuda.empty_cache()
+        ranks = spawn_world(RING_TP, TRAIN_TP_GRADS, target=train_world_rank, args=(dict(
+            kind="grads", layers=L, batch=batch_np, exact=str(path), loss=lx),))["ranks"]
+    for name, kw in TRAIN_TP_GRADS:
+        tp = kw.get("tp", RING_TP)
+        mine = [r_[name] for r_ in ranks]
+        loss_bound = LOGITS_TOL_FACTOR * abs(lb - lx)
+        if not mine[0]["loss_err"] <= loss_bound:
+            raise AssertionError(f"tp={tp} {name}: loss {mine[0]['loss']:.6f} is "
+                                 f"{mine[0]['loss_err']:.3g} from exact f32 {lx:.6f}, above "
+                                 f"{loss_bound:.3g}")
+        worst = []
+        for i, n_ in enumerate(names):
+            e = max(m_["errs"][i] for m_ in mine)
+            if not e <= LOGITS_TOL_FACTOR * dist_b[i]:
+                raise AssertionError(f"tp={tp} {name} gradient {n_}: {e:.3g} from exact f32, "
+                                     f"above {LOGITS_TOL_FACTOR} x tp = 1 bulk's {dist_b[i]:.3g}")
+            worst.append(e / dist_b[i])
+        worlds = [mine[w_:w_ + tp] for w_ in range(0, RING_TP, tp)]
+        if any(len({m_["whole_digest"] for m_ in w_}) != 1 for w_ in worlds):
+            raise AssertionError(f"tp={tp} {name}: the whole leaves' gradients differ across the "
+                                 f"ranks")
+        want = [2 * L * (1 + r_ % tp) if kw["mode"] == "kernel" else 0 for r_ in range(RING_TP)]
+        if [m_["launches"] for m_ in mine] != want:
+            raise AssertionError(f"tp={tp} {name}: flash launches a rank "
+                                 f"{[m_['launches'] for m_ in mine]}, expected {want}")
+        fwd, bwd, ar = (max(m_["ms"][i] for m_ in mine) for i in range(3))
+        errs = ", ".join(f"{n_} {max(m_['errs'][i] for m_ in mine):.3g}"
+                         for i, n_ in enumerate(names))
+        notes.append(f"tp = {tp} {name}: loss {mine[0]['loss']:.6f} ({mine[0]['loss_err']:.3g} "
+                     f"from exact), worst leaf at {max(worst):.3g} of its bulk distance, flash "
+                     f"launches a rank {want[:tp]}; ms forward {fwd:.1f}, backward {bwd:.1f}, "
+                     f"all-reduce {ar:.2f} (slowest rank)"
+                     + (f"; each leaf's max abs err from exact f32 over the ranks: {errs}"
+                        if kw["mode"] == "kernel" else ""))
+        row.setdefault("train_tp_grad_ms", {})[name] = [fwd, bwd, ar]
+    # the table's gradient is left out: its rows gather scatter-adds
+    # (index_add_), whose order on the card is the atomics'
+    a, b = (ranks[0][n_]["grads_digest"] for n_ in ("fused q2 bf16", "fused q2 bf16 skew 1"))
+    if a != b:
+        raise AssertionError(f"tp={RING_TP}: skew 1's gradients are not skew 0's bits")
+    row["train_tp_launches"] = [r_["kernel"]["launches"] for r_ in ranks]
+    say(38, f"[{TP_LABEL.format(RING_TP)}] gradients of {L} full-width chatglm3-6b layers at "
+            f"{TRAIN_LONG_B}x{TRAIN_LONG_S} tokens (LMBatches seed 0, weights seed 0) at tp = 4 "
+            f"and 2 (the pairs of one world) through loss_fn: exact f32 loss {lx:.6f}, tp = 1 bulk "
+            f"{lb:.6f}; every rank's loss equal, the whole leaves' gradients bit-identical across "
+            f"the ranks, skew 1 bit-identical to skew 0 (2 sub-chunks, bf16 wire; every leaf but "
+            f"the table); tp = 1 bulk's max abs err from exact f32 on each leaf (the bound is "
+            f"{LOGITS_TOL_FACTOR} x it): "
+            + ", ".join(f"{n_} {d_:.3g}" for n_, d_ in zip(names, dist_b)) + "; "
+            + "; ".join(notes))
+    return row
+
+
+class EventClock:
+    """``on_phase`` hook of the train step in a rank: a CUDA event as each
+    part of a step has been enqueued."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __call__(self, name):
+        if name == "start":
+            self.steps.append({})
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.steps[-1][name] = ev
+
+    def split(self):
+        """Per step: (forward, backward, all-reduce, optimizer, whole) ms."""
+        torch.cuda.synchronize()
+        parts = ("start", "forward", "backward", "allreduce", "optimizer")
+        return [tuple(e[a].elapsed_time(e[b]) for a, b in zip(parts, parts[1:]))
+                + (e["start"].elapsed_time(e["optimizer"]),) for e in self.steps]
+
+
+def train_steps(bundle, ctx, batches, on_phase=None):
+    """TRAIN_TP_STEPS AdamW steps at lr TRAIN_LR (f32 moments) from the
+    seed-0 weights (this rank's shards at tp > 1) on ``batches``, the second
+    under torch.profiler (CUDA activity); returns (losses, state, (the
+    second step's device ms, of which the flash kernel's))."""
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
+
+    gen = torch.Generator(device=ctx.device).manual_seed(0)
+    params = bundle.init_params(gen, ctx) if ctx.tp > 1 else bundle.init_params(gen)
+    tc = TrainConfig(optimizer=OptimizerConfig(lr=float(TRAIN_LR), warmup_steps=5,
+                                               total_steps=TRAIN_TP_STEPS))
+    step = build_train_step(bundle.loss_fn(ctx), tc, ctx=ctx,
+                            param_specs=bundle.param_specs(params), on_phase=on_phase)
+    state = init_train_state(tc, params)
+    del params
+    from torch.profiler import ProfilerActivity, profile
+
+    losses, device = [], None
+    for i, b_ in enumerate(batches):
+        prof = None
+        if i == 1:
+            torch.cuda.synchronize(ctx.device)
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+        state, metrics = step(state, b_)
+        losses.append(metrics["loss"].item())
+        if prof is not None:
+            torch.cuda.synchronize(ctx.device)
+            prof.stop()
+            dev = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            if not dev:
+                raise AssertionError("torch.profiler recorded no device time in a train step")
+            device = (sum(t_ for _, t_ in dev), sum(t_ for n_, t_ in dev if "flash" in n_))
+            del prof
+    return losses, state, device
+
+
+def train_tp_step_phase(card) -> dict:
+    """Phase 39: TRAIN_TP_STEPS AdamW steps of full-width chatglm3-6b cut to
+    TRAIN_TP_LAYERS layers at TRAIN_LONG_B x TRAIN_LONG_S (LMBatches seed 0)
+    at tp = 4 in kernel and fused mode (a spawned gloo world on the card),
+    each rank from its shards of the seed-0 weights: the losses within
+    TRAIN_LOSS_REL of TRAIN_TP_STEPS tp = 1 kernel-mode steps of the same
+    layers made here, every whole parameter bit-identical across the ranks
+    after the last step, ms a step split into forward, backward, all-reduce
+    and optimizer, each rank's peak memory."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic import LMBatches
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    bundle = get_arch("chatglm3-6b")
+    cfg = dataclasses.replace(bundle.config, n_layers=TRAIN_TP_LAYERS)
+    cut = dataclasses.replace(bundle, config=cfg)
+    it = LMBatches(cfg.vocab, TRAIN_LONG_B, TRAIN_LONG_S, 0)
+    batches = [next(it) for _ in range(TRAIN_TP_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    clock = EventClock()
+    want, state, dev1 = train_steps(cut, ParallelContext(device="cuda", fusion=FusionConfig(
+        mode="kernel")), [to_device(b_, "cuda") for b_ in batches], clock)
+    split1 = clock.split()[-1]
+    peak1 = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
+    ranks = spawn_world(RING_TP, TRAIN_TP_SETTINGS, target=train_world_rank, args=(dict(
+        kind="steps", layers=TRAIN_TP_LAYERS, batches=batches),))["ranks"]
+    notes, row = [], {}
+    for name, _ in TRAIN_TP_SETTINGS:
+        mine = [r_[name] for r_ in ranks]
+        got = mine[0]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if any(m_["losses"] != got for m_ in mine) or not rel <= TRAIN_LOSS_REL:
+            raise AssertionError(f"tp={RING_TP} {name}: losses {[m_['losses'] for m_ in mine]} "
+                                 f"against tp = 1's {want} ({rel:.3g} of them, bound "
+                                 f"{TRAIN_LOSS_REL})")
+        if len({m_["whole_digest"] for m_ in mine}) != 1:
+            raise AssertionError(f"tp={RING_TP} {name}: the whole parameters differ across the "
+                                 f"ranks after step {TRAIN_TP_STEPS}")
+        last = [max(m_["split"][-1][i] for m_ in mine) for i in range(5)]
+        dev_ms, flash_ms = mine[0]["device"]
+        notes.append(f"{name}: losses {', '.join(f'{x:.5f}' for x in got)} ({rel:.3g} of tp = "
+                     f"1's at most), step {TRAIN_TP_STEPS} {last[4]:.1f} ms = forward "
+                     f"{last[0]:.1f} + backward {last[1]:.1f} + all-reduce {last[2]:.1f} + "
+                     f"optimizer {last[3]:.1f} (slowest rank each), flash launches a rank "
+                     f"{[m_['launches'] for m_ in mine]}, rank 0's device time in step 2 "
+                     f"(torch.profiler) {dev_ms:.1f} ms, the flash kernel's {flash_ms:.2f} ms "
+                     f"({100 * flash_ms / dev_ms:.2f} %), peak a rank "
+                     + ", ".join(f"{m_['peak']:.2f}" for m_ in mine) + " GB")
+        row.setdefault("train_tp_step_ms", {})[name] = last
+        row.setdefault("train_tp_flash_share", {})[name] = flash_ms / dev_ms
+    say(39, f"[{TP_LABEL.format(RING_TP)}] {TRAIN_TP_STEPS} AdamW steps (lr {TRAIN_LR}, f32 "
+            f"moments) of full-width chatglm3-6b cut to {TRAIN_TP_LAYERS} of "
+            f"{bundle.config.n_layers} layers at {TRAIN_LONG_B}x{TRAIN_LONG_S} tokens at tp = "
+            f"{RING_TP}; every whole parameter bit-identical across the ranks after the last "
+            f"step; tp = 1 kernel mode: losses {', '.join(f'{x:.5f}' for x in want)}, step "
+            f"{TRAIN_TP_STEPS} {split1[4]:.1f} ms (forward {split1[0]:.1f}, backward "
+            f"{split1[1]:.1f}, optimizer {split1[3]:.1f}), device time in step 2 {dev1[0]:.1f} "
+            f"ms, the flash kernel's {dev1[1]:.2f} ({100 * dev1[1] / dev1[0]:.2f} %), peak "
+            f"{peak1:.2f} GB; "
+            + "; ".join(notes) + " (CUDA events in each rank)")
+    row["train_tp_step_ms_tp1"] = split1[4]
+    return row
+
+
+def train_tp_launcher_phase(card) -> dict:
+    """Phase 40: ``python -m torch.distributed.run --nproc-per-node 2 -m
+    repro_torch.launch.train --tp 2 --backend gloo`` with TRAIN_TP_LAUNCH
+    (two processes on the card): it exits 0, says every rank's losses are
+    equal, and its losses are within TRAIN_LOSS_REL of the tp = 1
+    launcher's on the same flags."""
+    from repro_torch.launch import train as launch_train
+
+    want = launch_train.main(TRAIN_TP_LAUNCH)
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+           "-m", "repro_torch.launch.train", "--tp", "2", "--backend", "gloo", *TRAIN_TP_LAUNCH]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    got = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", proc.stdout)]
+    if proc.returncode or "all 2 ranks' losses equal: True" not in proc.stdout:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
+        raise AssertionError(f"train launcher at tp=2: exit {proc.returncode}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want)) if len(got) == len(want) else 1.0
+    if not rel <= TRAIN_LOSS_REL:
+        raise AssertionError(f"train launcher at tp=2: losses {got} against tp = 1's {want}")
+    step_s = re.findall(r"\(([\d.]+)s/step\)", proc.stdout)
+    say(40, f"[{TP_LABEL.format(2)}] python -m torch.distributed.run --nproc-per-node 2 -m "
+            f"repro_torch.launch.train --tp 2 --backend gloo {' '.join(TRAIN_TP_LAUNCH)} "
+            f"(full-width chatglm3-6b, {TRAIN_GRAD_LAYERS} layers, 16x64 tokens): exit 0, all 2 "
+            f"ranks' losses equal; losses {', '.join(f'{x:.4f}' for x in got)} against tp = 1's "
+            f"{', '.join(f'{x:.4f}' for x in want)} ({rel:.3g} of them at most, bound "
+            f"{TRAIN_LOSS_REL}); {step_s[-1] if step_s else '?'} s a step on the host clock "
+            f"(rank 0's average over the run); {wall:.1f} s with the processes' start")
+    return {"train_tp_launcher_s": wall}
+
+
+def _pair_params(bundle, ctx, dev):
+    """This rank's shards of the seed-0 weights at ``ctx``'s tp, each leaf
+    requiring a gradient."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0), ctx)
+    for p_ in tree_leaves(params):
+        p_.requires_grad_(True)
+    return params
+
+
+def train_world_rank(rank, tp, init, settings, inputs, out):
+    """One rank of phase 38's or 39's world: this rank's shards of the
+    seed-0 weights of full-width chatglm3-6b cut to ``inputs["layers"]``;
+    phase 38 (``kind`` "grads"): each setting's loss and gradients
+    (counted, timed and checked against the mapped exact f32 ones, after a
+    warm-up); phase 39 ("steps"): each setting's AdamW steps."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.collectives import all_reduce_grads
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.mesh import close_world, init_world
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext, shard_leaf
+    from repro_torch.train.optimizer import spec_leaves, tree_leaves, tree_paths
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dev = init_world(tp, "gloo", "cuda", rank=rank, init_method=init)
+        ctx = lambda **kw: ParallelContext(device=dev, tp=tp, fusion=FusionConfig(**kw))
+        bundle = get_arch("chatglm3-6b")
+        bundle = dataclasses.replace(bundle, config=dataclasses.replace(
+            bundle.config, n_layers=inputs["layers"]))
+        sync = lambda: torch.cuda.synchronize(dev)
+        res = {}
+        if inputs["kind"] == "steps":
+            batches = [{k: torch.as_tensor(v).to(dev) for k, v in b_.items()}
+                       for b_ in inputs["batches"]]
+            for name, kw in settings:
+                c = ctx(**kw)
+                torch.cuda.reset_peak_memory_stats(dev)
+                flash_attention.launches = 0
+                clock = EventClock()
+                losses, state, device = train_steps(bundle, c, batches, clock)
+                specs = spec_leaves(bundle.param_specs(state["params"]))
+                whole = [p_ for p_, w_ in zip(tree_leaves(state["params"]), _whole(specs)) if w_]
+                res[name] = {"losses": losses, "split": clock.split(), "device": device,
+                             "launches": flash_attention.launches,
+                             "peak": torch.cuda.max_memory_allocated(dev) / 1e9,
+                             "whole_digest": _digest(whole),
+                             "digest": _digest([torch.tensor(losses)]),
+                             "finite": all(x == x and abs(x) < float("inf") for x in losses)}
+                del state, whole
+                torch.cuda.empty_cache()
+            out.put((rank, "ok", res))
+            return
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in inputs["batch"].items()}
+        params = bundle.init_params(torch.Generator(device=dev).manual_seed(0), ctx(mode="bulk"))
+        names = [".".join(map(str, p_)) for p_, _ in tree_paths(params)]
+        leaves = tree_leaves(params)
+        for p_ in leaves:
+            p_.requires_grad_(True)
+        specs = spec_leaves(bundle.param_specs(params))
+        # the pairs (0, 1) and (2, 3) for the settings at tp = 2 (every rank
+        # makes both groups); the world's rank d is tp rank d % 2 there
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        world = {tp: dict(), 2: dict(group=pairs[rank // 2])}
+        exact = torch.load(inputs["exact"], mmap=True)
+        shards = {}     # this rank's slices of the exact gradients, a tp
+        for t_ in {kw.get("tp", tp) for _, kw in settings}:
+            c = ParallelContext(device=dev, tp=t_, **world[t_])
+            shards[t_] = [shard_leaf(exact[n_], sp, c).to(dev) for n_, sp in zip(names, specs)]
+        del exact
+        c0 = ctx(**settings[0][1])      # a warm-up: the world's first exchanges, untimed
+        torch.autograd.grad(bundle.loss_fn(c0)(params, batch), leaves)
+        for name, kw in settings:
+            kw = dict(kw)
+            t_ = kw.pop("tp", tp)
+            c = ParallelContext(device=dev, tp=t_, fusion=FusionConfig(**kw), **world[t_])
+            p_t = params if t_ == tp else _pair_params(bundle, c, dev)
+            lv = tree_leaves(p_t)
+            flash_attention.launches = 0
+            sync()
+            t0 = time.perf_counter()
+            loss = bundle.loss_fn(c)(p_t, batch)
+            sync()
+            t1 = time.perf_counter()
+            grads = list(torch.autograd.grad(loss, lv))
+            sync()
+            t2 = time.perf_counter()
+            all_reduce_grads(c, grads, specs)
+            sync()
+            t3 = time.perf_counter()
+            errs = [(g.float() - w_).abs().max().item() for g, w_ in zip(grads, shards[t_])]
+            res[name] = {"ms": ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3),
+                         "launches": flash_attention.launches, "loss": loss.item(),
+                         "loss_err": abs(loss.item() - inputs["loss"]), "errs": errs,
+                         "digest": _digest([loss]),
+                         "finite": bool(torch.isfinite(loss)) and all(
+                             bool(torch.isfinite(g).all()) for g in grads),
+                         "whole_digest": _digest([g for g, w_ in zip(grads, _whole(specs))
+                                                  if w_]),
+                         "grads_digest": _digest([g for g, n_ in zip(grads, names)
+                                                  if n_ != "embed.table"])}
+            del loss, grads, p_t, lv
         out.put((rank, "ok", res))
     except Exception:
         out.put((rank, "err", traceback.format_exc()))

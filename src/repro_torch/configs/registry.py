@@ -13,10 +13,11 @@ backward, so training it is item 6).  The reference's other architectures
 raise until their slice of the port lands.
 
 At tp > 1 (a ``ParallelContext`` over a tp world) only the dense transformers
-run, their decode and their prefill (sequence-sharded: the KV ring and the
-embedding ring); their training at tp > 1 is item 1's left part, rwkv6's
-heads over ranks item 7, DLRM's tables over ranks item 6, MoE experts over
-ranks item 5 (``check_tp``, ``check_prefill``).
+run: their decode, their prefill and their training (sequence-sharded: the KV
+ring, the embedding ring and the CE ring, each with its backward;
+``param_specs`` gives the leaves' logical specs the train step reads).
+rwkv6's heads over ranks are item 7, DLRM's tables over ranks item 6, MoE
+experts over ranks item 5 (``check_tp``, ``check_prefill``).
 """
 from __future__ import annotations
 
@@ -114,6 +115,20 @@ class ArchBundle:
 
             return lambda p, b: dlrm_loss(ctx, p, cfg, b)
         raise NotImplementedError(f"{self.name}: the training forward is {_RWKV6_TRAIN_ITEM}")
+
+    def param_specs(self, params):
+        """The logical spec of every parameter leaf, in a tree of
+        ``params``' structure (a transformer's ``PARAM_SPECS``); what
+        ``build_train_step`` reads to sum the gradients of whole leaves over
+        the tp ranks.  Other families run at tp = 1 and hold every leaf
+        whole."""
+        if self.family == "transformer":
+            from repro_torch.models.transformer import param_specs
+
+            return param_specs(params)
+        from repro_torch.train.optimizer import tree_map
+
+        return tree_map(lambda p: (None,) * p.dim(), params)
 
     def prefill_fn(self, ctx: ParallelContext) -> Callable:
         """(params, {"tokens": [B, S]}) -> (last logits [B, 1, V], state):

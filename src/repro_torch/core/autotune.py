@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core.collectives import (WIRE_SETTINGS, feasible_chunks_per_rank,
                                           wire_itemsize)
+from repro_torch.core.degrade import pin
 from repro_torch.core.perfmodel import (H100_NVLINK, HardwareModel, MeshHardwareModel,
                                         model_fused, resolve_hw)
 
@@ -640,7 +641,13 @@ def resolve_overlap(override_q, config_q, override_wire, config_wire,
     either knob is ``"auto"``, ``pick(fixed_q, wire_request)`` runs the
     model sweep (``fixed_q`` pins a concrete granularity while the wire is
     still chosen, and vice versa).  The granularity is clamped so ``dim``
-    splits evenly into ``ring * q`` fine chunks."""
+    splits evenly into ``ring * q`` fine chunks.  Inside a checkpointed
+    region the decision is pinned (``degrade.pinned``)."""
+    return pin(lambda: _resolve(override_q, config_q, override_wire, config_wire, pick,
+                                dim=dim, ring=ring))
+
+
+def _resolve(override_q, config_q, override_wire, config_wire, pick, *, dim, ring):
     gran = config_q if override_q is None else override_q
     wire = config_wire if override_wire is None else override_wire
     if wire not in WIRE_SETTINGS:

@@ -23,9 +23,9 @@ is printed and kept in the report.
 
 The reconstruction is a proxy: operand values are random and the model
 around the op is absent, but shape, dtype, sharding, ring world and
-schedule are exact.  The ``ce_ring`` family has no builder yet: its ring at
-tp > 1 is ROADMAP Queue 1 item 1 (training at tp > 1), and a key without a
-builder stays on its model decision, as in the reference.
+schedule are exact.  Every op family of the reference's has a builder here,
+the CE ring's (``ce_ring``) included; a key without one would stay on its
+model decision, as in the reference.
 """
 from __future__ import annotations
 
@@ -161,15 +161,34 @@ def _build_ring_attention(ctx: ParallelContext, key: TuneKey):
     return build
 
 
+def _build_ce_ring(ctx: ParallelContext, key: TuneKey):
+    """The CE ring of the key's shapes: this rank's sequence chunk x [b,
+    s_loc, D], its vocabulary rows [v_loc, D] and the whole labels [b, S],
+    the loss alone (the forward's stats ring and all-reduces)."""
+    from repro_torch.core.loss import sharded_cross_entropy
+
+    b_loc, s_loc, d_model, v_loc = key.shape
+    n = ctx.tp
+    x, e = _randn(ctx, key, (b_loc, s_loc, d_model), (v_loc, d_model))
+    g = torch.Generator(device=ctx.device)
+    g.manual_seed(zlib.crc32(repr((key.op, key.shape, "labels")).encode()))
+    y = torch.randint(0, v_loc * n, (b_loc, s_loc * n), generator=g, device=ctx.device)
+
+    def build(dec):
+        return lambda: sharded_cross_entropy(ctx, x, e, y, chunks_per_rank=dec.q,
+                                             wire=dec.wire, skew=key.skew)
+
+    return build
+
+
 _BUILDERS: Mapping[str, Callable] = {
     "matmul_allreduce": _build_matmul_allreduce,
     "matmul_reducescatter": _build_matmul_reducescatter,
     "allgather_matmul": _build_allgather_matmul,
     "all_to_all": _build_all_to_all,
     "ring_attention": _build_ring_attention,
+    "ce_ring": _build_ce_ring,
 }
-# the reference's builders whose rings the port does not run yet
-_LATER = {"ce_ring": "ROADMAP Queue 1 item 1 (left: training at tp > 1, the CE ring)"}
 
 
 def add_calibration_cli_args(ap) -> None:
@@ -232,9 +251,6 @@ def measured_calibration_pass(
     for key in todo:
         builder = _BUILDERS.get(key.op)
         model_q = autotune.cache_info().get(key)
-        if key.op in _LATER and model_q is not None:
-            _say(f"calibrate{rank_tag}: {key.op} {key.shape} keeps the model's decision "
-                 f"{tuple(model_q)}: its measured builder waits for {_LATER[key.op]}")
         if builder is None or model_q is None:
             continue
         if key.n_dev != ctx.tp:

@@ -19,6 +19,14 @@ world handed CUDA tensors moves them through pinned host buffers (gloo
 takes CPU tensors), which :func:`wire_staged` decides from the world's
 backend and the tensor's device alone; an NCCL world never stages.  fp8
 payloads travel as their ``uint8`` bytes (gloo has no float8 type).
+
+The bulk collectives are differentiable (their backward is the reference's
+transpose: an all-gather's is a reduce-scatter of the cotangents, an
+all-reduce passes its replicated cotangent through); the rings are not, on
+their own: each op that runs a ring is one ``torch.autograd.Function``
+whose backward runs the dual ring, so that every rank posts the same sends
+and receives in the same order.  :func:`all_reduce_grads` sums the
+gradients of the leaves every rank holds whole.
 """
 from __future__ import annotations
 
@@ -109,17 +117,37 @@ def _on_wire(ctx: ParallelContext, op: Callable, ins, outs) -> Callable:
     return finish
 
 
-def all_reduce(ctx: ParallelContext, x, op: str = "sum"):
-    """``x`` reduced over the tp ranks (``"sum"`` or ``"max"``) at x's dtype,
-    into a new tensor; ``x`` itself at tp = 1."""
-    if ctx.tp == 1:
-        return x
+def _all_reduce(ctx: ParallelContext, x, op: str = "sum"):
+    """``x`` reduced over the tp ranks at x's dtype, into a new tensor; no
+    autograd."""
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
     def run(ins, bufs):
         bufs[0].copy_(ins[0])
         return [dist.all_reduce(bufs[0], red, group=ctx.group, async_op=True)]
     return _on_wire(ctx, run, [x], [_like(x)])()[0]
+
+
+class _AllReduce(torch.autograd.Function):
+    """The SUM all-reduce of a replicated result: its backward passes the
+    cotangent through unchanged (Megatron's "g").  The output is the same on
+    every rank and every rank consumes it in the same way, so each rank
+    already holds the whole cotangent; summing it again would make the
+    gradient tp times too large."""
+
+    @staticmethod
+    def forward(fctx, ctx, x):
+        return _all_reduce(ctx, x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, g
+
+
+def all_reduce(ctx: ParallelContext, x):
+    """``x`` summed over the tp ranks at x's dtype, into a new tensor; ``x``
+    itself at tp = 1.  Differentiable (:class:`_AllReduce`)."""
+    return x if ctx.tp == 1 else _AllReduce.apply(ctx, x)
 
 
 def broadcast(ctx: ParallelContext, x, src: int):
@@ -142,13 +170,83 @@ def _all_gather(ctx: ParallelContext, x) -> list:
                     [x], [_like(x) for _ in range(ctx.tp)])()
 
 
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``x`` concatenated along ``axis``.  Every rank consumes
+    the gathered tensor in its own way (its own query rows), so the
+    backward is a reduce-scatter of the cotangents: the sum over the ranks
+    of this rank's slice."""
+
+    @staticmethod
+    def forward(fctx, ctx, x, axis):
+        fctx.pctx, fctx.axis = ctx, axis
+        return torch.cat(_all_gather(ctx, x), dim=axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, _reduce_scatter(fctx.pctx, g, fctx.axis), None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The sum over the ranks of ``x``, this rank's slice along ``axis``;
+    the backward is an all-gather of the cotangents."""
+
+    @staticmethod
+    def forward(fctx, ctx, x, axis):
+        fctx.pctx, fctx.axis = ctx, axis
+        return _reduce_scatter(ctx, x, axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, torch.cat(_all_gather(fctx.pctx, g), dim=fctx.axis), None
+
+
+def _reduce_scatter(ctx: ParallelContext, x, axis: int):
+    """This rank's slice along ``axis`` of the sum over the ranks (a SUM
+    all-reduce, then the slice: gloo has no reduce-scatter of its own)."""
+    size = x.shape[axis] // ctx.tp
+    return _all_reduce(ctx, x).narrow(axis, ctx.tp_rank * size, size).contiguous()
+
+
 def all_gather(ctx: ParallelContext, x, *, axis: int = 0):
     """Every rank's ``x`` concatenated along ``axis`` in tp-rank order (the
     gather GSPMD inserts where the reference reads a sharded array whole);
-    ``x`` itself at tp = 1."""
+    ``x`` itself at tp = 1.  Differentiable (:class:`_AllGather`)."""
     if ctx.tp == 1:
         return x
-    return torch.cat(_all_gather(ctx, x), dim=axis)
+    return _AllGather.apply(ctx, x, axis)
+
+
+def reduce_scatter(ctx: ParallelContext, x, *, axis: int = 0):
+    """This rank's slice along ``axis`` of the sum of ``x`` over the tp
+    ranks (``axis`` must split into tp equal slices); ``x`` itself at tp =
+    1.  Differentiable (:class:`_ReduceScatter`)."""
+    if ctx.tp == 1:
+        return x
+    if x.shape[axis] % ctx.tp:
+        raise ValueError(f"reduce_scatter: dim {axis} of {tuple(x.shape)} does not split over "
+                         f"tp={ctx.tp}")
+    return _ReduceScatter.apply(ctx, x, axis)
+
+
+def all_reduce_grads(ctx: ParallelContext, grads: list, specs: list) -> list:
+    """Sum over the tp ranks, in place, the gradients of the leaves whose
+    logical spec names no tp axis (the leaves every rank holds whole, each
+    rank's gradient a partial over its own tokens); ``grads`` and ``specs``
+    are aligned lists.  The gradients of each dtype travel flattened in one
+    buffer: one all-reduce a dtype.  A no-op at tp = 1.  Returns ``grads``."""
+    if ctx.tp == 1:
+        return grads
+    from repro_torch.parallel.sharding import splits_over_tp
+
+    whole = [g for g, spec in zip(grads, specs) if not splits_over_tp(spec)]
+    for dtype in sorted({g.dtype for g in whole}, key=str):
+        group = [g for g in whole if g.dtype == dtype]
+        flat = _all_reduce(ctx, torch.cat([g.reshape(-1) for g in group]))
+        off = 0
+        for g in group:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+    return grads
 
 
 def _leaves(payload):
@@ -183,6 +281,18 @@ def ring_permute_start(ctx: ParallelContext, x, shift: int = 1) -> Callable:
 def ring_permute(ctx: ParallelContext, x, shift: int = 1):
     """:func:`ring_permute_start`, waited on at once."""
     return ring_permute_start(ctx, x, shift)()
+
+
+def accumulator_permute_start(ctx: ParallelContext, acc, wire: str, shift: int = 1) -> Callable:
+    """:func:`ring_permute_start` of a gradient accumulator that travels a
+    backward ring with its chunk (the KV ring's dk and dv, the CE ring's
+    dx): with an f32 wire it travels as it is (the callers keep it at the
+    operand dtype); with a compressed one it is cast to the wire on this
+    send and lands back in f32 for the next local add."""
+    if wire in (None, "f32"):
+        return ring_permute_start(ctx, acc, shift)
+    wait = ring_permute_start(ctx, wire_cast(acc, wire), shift)
+    return lambda: wire_uncast(wait(), torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -277,16 +387,6 @@ def split_ring_payload(a, n_sub: int, axis: int = 1):
             f"sub-chunk factor {n_sub} does not divide ring-payload axis {axis} of size "
             f"{a.shape[axis]}; clamp via feasible_chunks_per_rank first")
     return list(a.chunk(n_sub, dim=axis))
-
-
-def _no_grad_over_ranks(ctx: ParallelContext, what: str, *tensors):
-    """The point-to-point rings are not differentiable: refuse to run one
-    where autograd would record it (training at tp > 1 is left for later)."""
-    if ctx.tp > 1 and torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what} under autograd at tp={ctx.tp}: ROADMAP Queue 1 item 1 (left: training "
-            f"at tp > 1, the CE ring and sharded optimizer state)")
 
 
 # ---------------------------------------------------------------------------
@@ -485,8 +585,8 @@ def attention_partial_merge(ctx: ParallelContext, o, m, l):
     At tp = 1 the rescaling is by exp(0) = 1 and is skipped."""
     if ctx.tp == 1:
         return o / torch.clamp_min(l, 1e-30)[..., None]
-    m_glob = all_reduce(ctx, m, "max")
+    m_glob = _all_reduce(ctx, m, "max")
     corr = torch.exp(m - m_glob)
-    l_glob = all_reduce(ctx, l * corr)
-    o_glob = all_reduce(ctx, o * corr[..., None])
+    l_glob = _all_reduce(ctx, l * corr)
+    o_glob = _all_reduce(ctx, o * corr[..., None])
     return o_glob / torch.clamp_min(l_glob, 1e-30)[..., None]

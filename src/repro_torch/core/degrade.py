@@ -19,12 +19,20 @@ In eager PyTorch a mode decision takes effect at the next call, so there
 is nothing to re-trace; ``consume_dirty`` still tells an owner that the
 quarantine set changed.  With no policy installed the hook is one ``None``
 check.
+
+A region run under ``torch.utils.checkpoint`` runs again in the backward,
+and at tp > 1 every rank's recompute must post the sends and receives of
+its first forward.  :class:`Pins` records the region's mode decisions
+(:func:`degrade_mode`) and overlap decisions (``autotune.resolve_overlap``)
+at its first forward and replays them in the recompute, so a demotion or a
+new tuner decision between the two cannot change one rank's graph.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
-from typing import Sequence
+from typing import Callable, Sequence
 
 log = logging.getLogger("repro_torch.core.degrade")
 
@@ -152,7 +160,50 @@ def is_quarantined(op: str, shape: Sequence[int]) -> bool:
 
 def degrade_mode(op: str, shape: Sequence[int], mode: str) -> str:
     """The fused-op call-site hook: ``"bulk"`` where the installed policy
-    has quarantined this (op, shape) key, else ``mode``."""
-    if _POLICY is None:
-        return mode
-    return _POLICY.effective_mode(op, shape, mode)
+    has quarantined this (op, shape) key, else ``mode`` (pinned inside a
+    :func:`pinned` region)."""
+    return pin(lambda: mode if _POLICY is None else _POLICY.effective_mode(op, shape, mode))
+
+
+# ---------------------------------------------------------------------------
+# decisions pinned across a checkpointed region's recompute
+# ---------------------------------------------------------------------------
+class Pins:
+    """The decisions of one region, in call order: recorded on its first
+    run, replayed on every later one."""
+
+    def __init__(self):
+        self.values: list = []
+        self.recorded = False
+        self.pos = 0
+
+    def next(self, decide: Callable):
+        if not self.recorded:
+            self.values.append(decide())
+            return self.values[-1]
+        if self.pos >= len(self.values):
+            raise RuntimeError("a pinned region made more decisions in its recompute than in "
+                               "its first forward")
+        self.pos += 1
+        return self.values[self.pos - 1]
+
+
+_PINS: Pins | None = None
+
+
+@contextlib.contextmanager
+def pinned(pins: Pins):
+    """Run a region under ``pins``: its first run records, later runs replay."""
+    global _PINS
+    prev, _PINS = _PINS, pins
+    pins.pos = 0
+    try:
+        yield pins
+    finally:
+        _PINS = prev
+        pins.recorded = True
+
+
+def pin(decide: Callable):
+    """``decide()``, recorded or replayed inside a :func:`pinned` region."""
+    return decide() if _PINS is None else _PINS.next(decide)

@@ -16,6 +16,12 @@ output that must be summed across the tp ranks.
            real peers it needs symmetric-memory pointer tables, which wait
            for a multi-card host; at tp > 1 it raises (no fallback).
 
+Gradients: bulk mode trains through the differentiable all-reduce (its
+backward passes the replicated output's cotangent through); fused mode at
+tp > 1 is one ``torch.autograd.Function`` whose backward needs no
+collective: y is the same on every rank, so dx = dy @ w.T and dw = x.T dy
+on this rank's shards.
+
 The chunked dim is chosen as in the reference: rows (the flattened leading
 dims) when they split over the ring, else the output columns.
 
@@ -29,8 +35,10 @@ degradation policy (``core/degrade.py``), which demotes a quarantined
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.autotune import resolve_overlap, tune_matmul_allreduce
-from repro_torch.core.collectives import (_no_grad_over_ranks, all_gather_wire, all_reduce,
+from repro_torch.core.collectives import (all_gather_wire, all_reduce,
                                           ring_reduce_scatter_compute)
 from repro_torch.core.degrade import degrade_mode
 from repro_torch.kernels import clamp_kernel_wire
@@ -98,16 +106,39 @@ def matmul_allreduce(
         y = fused_matmul_allreduce(
             xf.contiguous(), w, wire=clamp_kernel_wire(dec.wire, "matmul_allreduce"))
         return y.reshape(*lead, nout)
-    _no_grad_over_ranks(ctx, "matmul_allreduce", x, w)
     q, wire = dec
     schedule = schedule or ctx.fusion.schedule
+    if n == 1:
+        return _ring(ctx, xf, w, use_rows, schedule, q, skew, wire).reshape(*lead, nout)
+    return _MatmulAllReduce.apply(ctx, xf, w, use_rows, schedule, q, skew,
+                                  wire).reshape(*lead, nout)
+
+
+def _ring(ctx: ParallelContext, xf, w, use_rows, schedule, q, skew, wire):
+    """The fused ring: a reduce-scatter of the chunks' partial products,
+    then the all-gather of the reduced chunks."""
+    n = ctx.tp
     if use_rows:
-        chunk = rows // (n * q)
+        chunk = xf.shape[0] // (n * q)
         partial = lambda f: xf[f * chunk:(f + 1) * chunk] @ w
     else:
-        chunk = nout // (n * q)
+        chunk = w.shape[1] // (n * q)
         partial = lambda f: xf @ w[:, f * chunk:(f + 1) * chunk]
     mine = ring_reduce_scatter_compute(ctx, partial, schedule=schedule, chunks_per_rank=q,
                                        sub_axis=0 if use_rows else 1, skew=skew, wire=wire)
-    y = all_gather_wire(ctx, mine, axis=0 if use_rows else 1, wire=wire)
-    return y.reshape(*lead, nout)
+    return all_gather_wire(ctx, mine, axis=0 if use_rows else 1, wire=wire)
+
+
+class _MatmulAllReduce(torch.autograd.Function):
+    """The fused ring at tp > 1; its backward is local (y is replicated, so
+    every rank holds the whole dy)."""
+
+    @staticmethod
+    def forward(fctx, ctx, xf, w, use_rows, schedule, q, skew, wire):
+        fctx.save_for_backward(xf, w)
+        return _ring(ctx, xf, w, use_rows, schedule, q, skew, wire)
+
+    @staticmethod
+    def backward(fctx, dy):
+        xf, w = fctx.saved_tensors
+        return None, dy @ w.t(), (xf.t() @ dy).to(w.dtype), None, None, None, None, None

@@ -67,8 +67,11 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=No
     Sq] f32 in natural units (m = -1e30 and l = 0 on a row that sees no
     key), with no autograd.  The gradient (of the default call) is the
     analytic backward of the module docstring; it cannot be differentiated
-    again, and a span of its own (``delta``, ``Sk != Sq``) or ``stats``
-    under autograd raises: that is training at tp > 1."""
+    again.  A span of its own (``delta``, ``Sk != Sq``) or ``stats`` has no
+    gradient here and raises under autograd: a KV-ring hop is
+    differentiated through ``context_attention``'s ring
+    (``models/attention._RingAttention``), which calls the op with grad mode
+    off."""
     if window is not None and (int(window) != window or window < 1):
         raise ValueError(f"flash_attention: window {window} is not a positive int")
     if softcap is not None and not softcap > 0:
@@ -97,8 +100,9 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=No
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     if grad and (stats or delta or k.shape[1] != s):
         raise NotImplementedError(
-            "flash_attention: a gradient through a KV-ring hop (stats=True, delta or Sk != Sq) "
-            "is ROADMAP Queue 1 item 1 (left: training at tp > 1, the ring's backward)")
+            "flash_attention: a span of its own (stats=True, delta or Sk != Sq) has no gradient "
+            "of its own; differentiate a KV-ring hop through context_attention's ring, which "
+            "calls the op without autograd")
     if stats or delta or k.shape[1] != s:     # no gradient is wanted here
         return _forward(q, k, v, scale, bool(causal), window, softcap, delta, _path, stats)
     return _Flash.apply(q, k, v, scale, bool(causal), window, softcap, _path, grad)

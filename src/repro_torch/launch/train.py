@@ -4,14 +4,26 @@ synthetic data through the fused operators.
   PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
       --steps 6 --batch 16 --seq 64 --fusion kernel
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 6
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --tp 2 --backend gloo --reduced --device cpu
 
 Dense transformers train (``bundle.loss_fn``: ``train_forward`` with remat,
-the vocab-sharded CE), at tp = 1, in ``kernel`` mode (every attention
-forward is the flash kernel; its backward the reference's analytic one) or
-``bulk`` mode.  Weights are random, drawn from seed 0; batches are
-``LMBatches`` from seed 0, copied to the device ahead of the step
-(``data.pipeline.prefetch``).  It prints the reference launcher's per-step
-line every ``--log-every`` steps and returns the losses.
+the vocab-sharded CE ring), in ``kernel`` mode (every attention forward is
+the flash kernel, a launch a KV-ring hop at tp > 1; its backward the
+reference's analytic one), ``fused`` mode (the reference's rings in plain
+PyTorch, its default) or ``bulk`` mode.  ``--tp N`` trains over a
+tensor-parallel world of N processes started by ``torch.distributed.run``
+(``launch/mesh.py``; ``--backend`` as the serving launcher's): each rank
+draws its shards of the tp = 1 seed-0 weights, runs the same batches on its
+chunk of the sequence and updates its shards (``train/step.py``); rank 0
+prints, and checks at the end that every rank's losses are its own.
+``--layers N`` cuts the model to its first N layers at full width (the
+reduced model's heads of 16 are not a size the flash kernel takes, so a
+card runs kernel mode at full width).
+Weights are random, drawn from seed 0; batches are ``LMBatches`` from seed
+0, copied to the device ahead of the step (``data.pipeline.prefetch``).  It
+prints the reference launcher's per-step line every ``--log-every`` steps
+and returns the losses.
 
 ``--granularity`` / ``--wire`` set the CE's sub-chunks and wire (``auto``:
 the autotuner's choice, ``core/autotune.py``); ``--calibrate`` runs the
@@ -30,6 +42,7 @@ device the default raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -41,6 +54,7 @@ from repro_torch.core.calibrate import add_calibration_cli_args, warmup_and_cali
 from repro_torch.data.pipeline import prefetch, to_device
 from repro_torch.data.synthetic import LMBatches
 from repro_torch.kernels import load_library
+from repro_torch.launch.mesh import BACKENDS, close_world, init_world
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
@@ -53,7 +67,7 @@ _LATER_FLAGS = (
     ("--skew-schedule", "skew_schedule", f"{_RUNTIME}: the straggler loop"),
     ("--degrade", "degrade", f"{_RUNTIME}: degradation, which only the supervisor feeds"),
     ("--production-mesh", "production_mesh",
-     "ROADMAP Queue 1 item 1 (left: training at tp > 1 and dp > 1)"),
+     "ROADMAP Queue 1 item 1 (left: data parallel, dp > 1)"),
 )
 _LATER_VALUES = (
     ("--chaos", "chaos", f"{_RUNTIME}: chaos injection"),
@@ -83,13 +97,19 @@ def build_parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="chatglm3-6b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to its first N layers, widths kept (0: all)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
-    ap.add_argument("--fusion", default="kernel", choices=["kernel", "bulk"])
+    ap.add_argument("--fusion", default="kernel", choices=["kernel", "fused", "bulk"])
     add_granularity_cli_args(ap)
     add_calibration_cli_args(ap)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (run under torch.distributed.run)")
+    ap.add_argument("--backend", default=None, choices=BACKENDS,
+                    help="the world's backend (default: nccl on cuda, gloo on cpu)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     for flag, dest, _ in _LATER_FLAGS:
@@ -106,36 +126,51 @@ def _refuse_later(args):
 
 
 def main(argv=None, *, on_phase=None):
-    """Parse ``argv``, train, return the per-step losses (floats).
+    """Parse ``argv``, train, return this rank's per-step losses (floats).
     ``on_phase`` goes to ``build_train_step`` (for timing each part)."""
     args = build_parser().parse_args(argv)
     _refuse_later(args)
+    device = init_world(args.tp, args.backend, args.device)
+    try:
+        return _train(args, device, on_phase)
+    finally:
+        close_world()
+
+
+def _train(args, device, on_phase):
     bundle = get_arch(args.arch)
     if args.reduced:
         bundle = bundle.reduced()
+    if args.layers:
+        bundle = dataclasses.replace(bundle, config=dataclasses.replace(
+            bundle.config, n_layers=args.layers))
     batches = make_batches(bundle, args.batch, args.seq)
     load_cache_if_exists(args.tune_cache)
-    ctx = ParallelContext(device=args.device, fusion=FusionConfig(
+    ctx = ParallelContext(device=device, tp=args.tp, fusion=FusionConfig(
         mode=args.fusion, granularity=args.granularity, wire=args.wire))
+    rank0 = ctx.tp_rank == 0
     loss_fn = bundle.loss_fn(ctx)
     if ctx.device.type == "cuda" and args.fusion == "kernel":
         load_library()   # build the kernels before the first step
-    params = bundle.init_params(torch.Generator(device=ctx.device).manual_seed(0))
+    gen = torch.Generator(device=ctx.device).manual_seed(0)
+    params = bundle.init_params(gen, ctx) if ctx.tp > 1 else bundle.init_params(gen)
     tc = TrainConfig(
         optimizer=OptimizerConfig(name=bundle.optimizer, lr=args.lr,
                                   warmup_steps=max(args.steps // 20, 5),
                                   total_steps=args.steps),
         microbatches=bundle.microbatches,
         layer_period=getattr(bundle.config, "local_global_period", 0) or 1)
+    specs = bundle.param_specs(params)
     state = init_train_state(tc, params)
     del params
-    step_fn = build_train_step(loss_fn, tc, on_phase=on_phase)
+    step_fn = build_train_step(loss_fn, tc, ctx=ctx, param_specs=specs, on_phase=on_phase)
     if args.calibrate:
         # the loss on a fresh iterator's first batch records the hot keys;
         # the training batches and the state are untouched
         batch0 = to_device(next(iter(make_batches(bundle, args.batch, args.seq))), ctx.device)
         warmup_and_calibrate(ctx, loss_fn, state["params"], batch0,
-                             iters=args.calibrate_iters, granularity=args.granularity)
+                             iters=args.calibrate_iters, granularity=args.granularity,
+                             rank_tag=f" [rank {ctx.tp_rank}]" if ctx.tp > 1 else "")
 
     t0 = time.time()
     losses = []
@@ -143,14 +178,25 @@ def main(argv=None, *, on_phase=None):
     for step in range(1, args.steps + 1):
         state, metrics = step_fn(state, next(batch_iter))
         losses.append(float(metrics["loss"]))
-        if step % args.log_every == 0:
+        if rank0 and step % args.log_every == 0:
             print(f"step {step:5d} loss {losses[-1]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"({(time.time() - t0) / max(step, 1):.2f}s/step)",
                   flush=True)
+    if ctx.tp > 1:
+        # the loss is a replicated scalar: every rank's must be rank 0's
+        every = [None] * ctx.tp
+        torch.distributed.all_gather_object(every, losses)
+        if any(x != every[0] for x in every):
+            raise AssertionError(f"the ranks' losses differ: {every}")
+    if not rank0:
+        return losses
     span = f"loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else "no steps run"
-    print(f"done at step {args.steps}; {span}")
+    world = f" (tp={ctx.tp}, {ctx.backend}, fusion={args.fusion})" if ctx.tp > 1 else ""
+    print(f"done at step {args.steps}; {span}{world}")
+    if ctx.tp > 1:
+        print(f"all {ctx.tp} ranks' losses equal: True")
     if args.tune_cache:
         save_cache(args.tune_cache)
     return losses

@@ -18,8 +18,14 @@ by autograd, as its bulk branch does; kernel and fused mode are its ring
 attention at n = 1, whose analytic backward (``flash_backward``, the port of
 ``_span_flash_bwd``) recomputes the scores block by block from the forward's
 softmax statistics (on a card the flash kernel writes them; on the CPU
-``_SpanFlash`` keeps the plain loop's carries).  The ring's backward (tp >
-1) is not ported: under autograd the ring raises.
+``_SpanFlash`` keeps the plain loop's carries).  At tp > 1 bulk mode's
+gradient is autograd through the all-gather (a reduce-scatter of the
+cotangents) and ``_span_flash``; fused and kernel mode's ring is one
+``torch.autograd.Function`` (:class:`_RingAttention`) whose backward is the
+reference's ``bwd_rule``: the analytic ``_span_flash_bwd`` over the local
+span, then the KV sub-chunk rings replayed, each sub-chunk's (dk, dv)
+accumulator travelling with it and sent home at the end, in plain PyTorch
+on every device (the reference has no backward kernel).
 
 Decode: the KV cache is sequence-sharded over tp, as in the reference (GQA
 with 2 KV heads cannot split its heads over 4 ranks): rank ``d`` holds rows
@@ -40,7 +46,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.core.autotune import resolve_overlap, tune_ring_attention
-from repro_torch.core.collectives import (_no_grad_over_ranks, all_gather,
+from repro_torch.core.collectives import (accumulator_permute_start, all_gather,
                                           attention_partial_merge, ring_permute_start,
                                           split_ring_payload, wire_cast, wire_uncast)
 from repro_torch.core.scheduling import sub_chunk_service_order
@@ -116,14 +122,14 @@ def _span_flash(q5, k, v, qpos, kpos, carry, *, causal, window, scale, cap,
 # flash backward over one KV span (blocked; recompute-in-backward)
 # ---------------------------------------------------------------------------
 def _span_flash_bwd(q5, kc, vc, do5, delta, m, l, qpos, kpos, dq5, *, causal, window,
-                    scale, cap, q_block, kv_block):
+                    scale, cap, q_block, kv_block, dk0=None, dv0=None):
     """Accumulate flash gradients of q5 against one KV span; returns (dq5,
     dk, dv), dk and dv [b,skc,hk,d] f32.
 
     q5/do5/dq5: [b,sq,hk,g,d]; kc, vc: [b,skc,hk,d]; delta, m, l:
-    [b,hk,g,sq].  dq5 is a running accumulator, updated in place (the
-    reference's (dk, dv) accumulators that travel the ring with their chunk
-    come with the multi-card world).  Scores are recomputed per (q_block,
+    [b,hk,g,sq].  dq5 is a running accumulator, updated in place, and so
+    are ``dk0`` and ``dv0`` where given (f32; the accumulators that travel
+    the KV ring with their chunk).  Scores are recomputed per (q_block,
     kv_block) tile, never materialized whole.  The dtypes follow the reference: the QK product at
     the inputs' dtype, then f32; do, v, p and ds in f32.  As in
     ``_span_flash``, the last query and key blocks may be short."""
@@ -131,8 +137,8 @@ def _span_flash_bwd(q5, kc, vc, do5, delta, m, l, qpos, kpos, dq5, *, causal, wi
     skc = kc.shape[1]
     qb, kb = min(q_block, sq), min(kv_block, skc)
     f32 = torch.float32
-    dk = torch.zeros((b, skc, hk, dd), dtype=f32, device=q5.device)
-    dv = torch.zeros((b, skc, hk, dd), dtype=f32, device=q5.device)
+    dk = torch.zeros((b, skc, hk, dd), dtype=f32, device=q5.device) if dk0 is None else dk0
+    dv = torch.zeros((b, skc, hk, dd), dtype=f32, device=q5.device) if dv0 is None else dv0
     for q0 in range(0, sq, qb):
         rows = slice(q0, min(q0 + qb, sq))
         qs, dos = q5[:, rows], do5[:, rows].float()
@@ -226,7 +232,9 @@ def attention_path(mode: str, device: torch.device, tp: int = 1) -> str:
 
     Kernel mode takes the op: at tp = 1 on a CUDA tensor (the whole span,
     one launch), and at tp > 1 on every device (one call a KV-ring hop that
-    holds a key it may see; the op runs its plain version on a CPU tensor).
+    holds a key it may see; the op runs its plain version on a CPU tensor),
+    in the forward and in a remat recompute; the ring's backward is the
+    plain ``_span_flash_bwd`` on every path.
     Every other call takes ``_span_flash``: bulk mode (the reference's bulk
     branch, after an all-gather at tp > 1), fused mode (the reference's ring,
     one span a hop) and kernel mode on the CPU at tp = 1 (``_SpanFlash``, for
@@ -269,8 +277,19 @@ def _flash_carry(q, k, v, delta, *, causal, window, scale, cap):
 
 def _ring_attention(ctx: ParallelContext, q, k, v, *, mode, hops, causal, window, scale, cap,
                     q_block, kv_block, n_sub, skew, wire):
-    """The forward of the reference's ``_make_ring_attention`` on this rank's
-    chunks q [B, s_loc, Hq, hd], k, v [B, s_loc, Hkv, hd] -> [B, s_loc, Hq, hd].
+    """The reference's ``_make_ring_attention`` on this rank's chunks q [B,
+    s_loc, Hq, hd], k, v [B, s_loc, Hkv, hd] -> [B, s_loc, Hq, hd]: one
+    autograd node (:class:`_RingAttention`), its forward
+    :func:`_ring_forward`."""
+    return _RingAttention.apply(ctx, q, k, v, dict(
+        mode=mode, hops=hops, causal=causal, window=window, scale=scale, cap=cap,
+        q_block=q_block, kv_block=kv_block, n_sub=n_sub, skew=skew, wire=wire))
+
+
+def _ring_forward(ctx: ParallelContext, q, k, v, *, mode, hops, causal, window, scale, cap,
+                  q_block, kv_block, n_sub, skew, wire):
+    """The ring's forward: returns (o, m, l), m and l the merged softmax
+    statistics in ``_span_flash``'s carry layout [B, Hkv, g, s_loc].
 
     The local chunk is consumed first (it is there at once); its KV is split
     into ``n_sub`` sub-chunks, each rounded once to the wire dtype at its
@@ -337,7 +356,104 @@ def _ring_attention(ctx: ParallelContext, q, k, v, *, mode, hops, causal, window
     for part in rings:
         if part is not None:
             local = _merge(local, part)
-    return _finalize(local, B, s_loc, Hq, hd).to(q.dtype)
+    return _finalize(local, B, s_loc, Hq, hd).to(q.dtype), local[0], local[1]
+
+
+class _RingAttention(torch.autograd.Function):
+    """The KV ring as one autograd node.  Forward: :func:`_ring_forward`,
+    saving q, k, v, o and the merged (m, l), as the reference's ``fwd_rule``
+    does.  Backward: the reference's ``bwd_rule``.  delta = rowsum(do * o);
+    ``_span_flash_bwd`` over the local span; then the KV sub-chunk rings
+    replayed under the forward's hop bound, service order and wire (the
+    payloads round once at their source), each sub-chunk's (dk, dv)
+    accumulator travelling with it; one offset permute by ``-hops`` takes
+    each accumulator home.  The accumulators travel at the operand dtype
+    with an f32 wire, else are cast to the wire on every send; the local
+    accumulation is f32.  Every rank posts the same sends and receives in
+    the same order; kernel mode skips the compute of a hop no row sees,
+    never its sends."""
+
+    @staticmethod
+    def forward(fctx, ctx, q, k, v, args):
+        o, m, l = _ring_forward(ctx, q, k, v, **args)
+        fctx.save_for_backward(q, k, v, o, m, l)
+        fctx.pctx, fctx.args = ctx, args
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(fctx, do):
+        q, k, v, o, m, l = fctx.saved_tensors
+        ctx, a = fctx.pctx, fctx.args
+        n, d = ctx.tp, ctx.tp_rank
+        B, s_loc, Hq, hd = q.shape
+        Hkv = k.shape[2]
+        g = Hq // Hkv
+        n_sub, hops, wire = a["n_sub"], a["hops"], a["wire"]
+        sub = s_loc // n_sub
+        compress = wire not in (None, "f32")
+        kw = dict(causal=a["causal"], window=a["window"], scale=a["scale"], cap=a["cap"],
+                  q_block=a["q_block"], kv_block=a["kv_block"])
+        skip = attention_path(a["mode"], q.device, n) == "flash"
+        q0 = d * s_loc
+        qpos = q0 + torch.arange(s_loc, device=q.device)
+        q5 = q.reshape(B, s_loc, Hkv, g, hd)
+        do5 = do.float().reshape(B, s_loc, Hkv, g, hd)
+        delta = torch.einsum("bqhgd,bqhgd->bhgq", do5, o.reshape(B, s_loc, Hkv, g, hd).float())
+        dq5 = torch.zeros(q5.shape, dtype=torch.float32, device=q.device)
+        dq5, dk, dv = _span_flash_bwd(q5, k, v, do5, delta, m, l, qpos, qpos, dq5, **kw)
+        # the travelling accumulators: at the operand dtype with an f32 wire,
+        # f32 (cast to the wire on each send) with a compressed one
+        rest = (lambda t, ref: t) if compress else (lambda t, ref: t.to(ref.dtype))
+        dks = [rest(t, k) for t in split_ring_payload(dk, n_sub)]
+        dvs = [rest(t, v) for t in split_ring_payload(dv, n_sub)]
+        kbufs = [wire_cast(t, wire) for t in split_ring_payload(k, n_sub)]
+        vbufs = [wire_cast(t, wire) for t in split_ring_payload(v, n_sub)]
+        order = sub_chunk_service_order(n_sub, a["skew"])
+
+        dsend = lambda t, shift=1: accumulator_permute_start(ctx, t, wire, shift)
+        # with sub-chunks, each sub-chunk ring adds its dq into an
+        # accumulator of its own, summed in sub-chunk order at the end, so
+        # that a skew (which reorders the service) changes no bit
+        dq_ring = [dq5] * n_sub if n_sub == 1 else [None] * n_sub
+        kv_wait, d_wait = {}, {}
+        if hops:
+            for j in order:
+                kv_wait[j] = (ring_permute_start(ctx, kbufs[j]), ring_permute_start(ctx, vbufs[j]))
+                d_wait[j] = (dsend(dks[j]), dsend(dvs[j]))
+        for i in range(1, hops + 1):
+            src = (d - i) % n
+            for j in order:
+                kbufs[j], vbufs[j] = kv_wait[j][0](), kv_wait[j][1]()
+                if i < hops:
+                    kv_wait[j] = (ring_permute_start(ctx, kbufs[j]),
+                                  ring_permute_start(ctx, vbufs[j]))
+                dk_j, dv_j = d_wait[j][0]().float(), d_wait[j][1]().float()
+                k0 = src * s_loc + j * sub
+                if not (skip and _empty_span(q0, s_loc, k0, sub, a["causal"], a["window"])):
+                    kpos = k0 + torch.arange(sub, device=q.device)
+                    if dq_ring[j] is None:
+                        dq_ring[j] = torch.zeros_like(dq5)
+                    dq_ring[j], dk_j, dv_j = _span_flash_bwd(
+                        q5, wire_uncast(kbufs[j], k.dtype), wire_uncast(vbufs[j], v.dtype), do5,
+                        delta, m, l, qpos, kpos, dq_ring[j], dk0=dk_j, dv0=dv_j, **kw)
+                dks[j], dvs[j] = rest(dk_j, k), rest(dv_j, v)
+                if i < hops:
+                    d_wait[j] = (dsend(dks[j]), dsend(dvs[j]))
+        # each accumulator rests hops ranks ahead of its chunk's owner: one
+        # offset permute home
+        if hops % n:
+            home = [(dsend(dks[j], -hops), dsend(dvs[j], -hops)) for j in range(n_sub)]
+            for j, (wk, wv) in enumerate(home):
+                dks[j], dvs[j] = wk(), wv()
+        if n_sub > 1:
+            for part in dq_ring:
+                if part is not None:
+                    dq5 += part
+        dk = dks[0] if n_sub == 1 else torch.cat(dks, dim=1)
+        dv = dvs[0] if n_sub == 1 else torch.cat(dvs, dim=1)
+        return (None, dq5.reshape(B, s_loc, Hq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None)
 
 
 def context_attention(
@@ -371,16 +487,20 @@ def context_attention(
     ``"auto"``: ``tune_ring_attention``), ``skew`` and ``wire`` are the
     ring's, defaulting to ``ctx.fusion``'s.
 
-    Gradients at tp = 1: bulk mode's is autograd through ``_span_flash``,
-    as the reference's bulk branch; fused and kernel mode's the analytic
-    ``flash_backward`` (the reference's ring ``bwd_rule`` at n = 1; on a
-    card in kernel mode the flash op's backward).  At tp > 1 the ring has
-    no backward yet: under autograd it raises."""
+    Gradients: bulk mode's is autograd through ``_span_flash`` (and at tp >
+    1 through the all-gather, whose backward reduce-scatters the cotangents
+    of k and v), as the reference's bulk branch; fused and kernel mode's the
+    analytic one of the reference's ring ``bwd_rule``: at tp = 1
+    ``flash_backward`` (on a card in kernel mode the flash op's backward),
+    at tp > 1 :class:`_RingAttention`'s, which replays the ring (the same
+    hop bound, sub-chunks, skew and wire) with each sub-chunk's (dk, dv)
+    accumulator travelling with it.  Kernel mode's backward is that plain
+    backward on every hop, the flash kernel running only in the forward
+    (and in a remat recompute)."""
     mode = mode or ctx.fusion.resolve("kv_ag")
     if mode not in ("bulk", "fused", "kernel"):
         raise ValueError(f"context_attention: unknown mode {mode!r}")
     n = ctx.tp
-    _no_grad_over_ranks(ctx, "context_attention", q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if mode == "bulk":
         if n > 1:

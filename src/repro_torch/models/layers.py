@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.allgather_matmul import allgather_matmul, matmul_reducescatter
-from repro_torch.core.collectives import (_no_grad_over_ranks, all_reduce,
+from repro_torch.core.collectives import (all_reduce, ring_all_gather_compute,
                                           ring_reduce_scatter_compute)
 from repro_torch.core.matmul_allreduce import matmul_allreduce
 from repro_torch.models.common import dense_init, embed_init
@@ -57,17 +57,14 @@ _ACTS = {"silu": F.silu,
 def mlp_apply(ctx: ParallelContext, params, x, *, act="silu", seq_sharded: bool):
     """Column-parallel up/gate, row-parallel down.
 
-    Prefill (``seq_sharded=True``): AG&matmul in, matmul&RS out — the SP
-    split of the paper's GEMM+AllReduce, in every mode; at tp > 1 not under
-    autograd (the collectives carry no gradient: a bulk all-gather would cut
-    the graph without a word; training at tp > 1 is ROADMAP Queue 1 item 1's
-    left part).  Decode (``seq_sharded=False``, S = 1): x
+    Prefill and training (``seq_sharded=True``): AG&matmul in, matmul&RS
+    out — the SP split of the paper's GEMM+AllReduce, in every mode, each
+    with its backward at any tp.  Decode (``seq_sharded=False``, S = 1): x
     is the same on every rank, the gate and up products take this rank's
     columns, and the down projection its rows through the fused
     GEMV+AllReduce — the paper's flagship operator."""
     fn = _ACTS[act]
     if seq_sharded:
-        _no_grad_over_ranks(ctx, "mlp_apply(seq_sharded=True)", x, *params.values())
         g = allgather_matmul(ctx, x, params["w_gate"])
         u = allgather_matmul(ctx, x, params["w_up"])
         return matmul_reducescatter(ctx, fn(g) * u, params["w_down"])
@@ -100,25 +97,66 @@ def embedding_lookup(ctx: ParallelContext, params, tokens, *, seq_shard: bool,
     operator), each hop adding this rank's partial embedding of the chunk
     in flight.  Where S does not split over the ranks (``S % tp`` or ``S <
     tp``) the reference falls back to the all-reduce and returns the whole
-    sequence, and so does this."""
+    sequence, and so does this.
+
+    Gradients at tp > 1: the ring is one ``torch.autograd.Function``
+    (:class:`_EmbeddingRing`) whose backward is an all-gather ring of the
+    output's cotangent chunks, each chunk's rows ``index_add_``-ed into the
+    table rows this rank holds; the all-reduce passes the replicated
+    cotangent through, and autograd scatters it into this rank's rows."""
     table = params["table"]
-    V = table.shape[0]
     n = ctx.tp
     S = tokens.shape[1]
-
-    def partial(ids):
-        rel = ids - ctx.tp_rank * V if n > 1 else ids
-        ok = (rel >= 0) & (rel < V)
-        return table[rel.clamp(0, V - 1)].masked_fill(~ok[..., None], 0)
-
     if seq_shard and n > 1 and S % n == 0 and S >= n:
-        _no_grad_over_ranks(ctx, "embedding_lookup(seq_shard=True)", table)
-        s_loc = S // n
-        x = ring_reduce_scatter_compute(
-            ctx, lambda c: partial(tokens[:, c * s_loc:(c + 1) * s_loc]),
-            schedule=ctx.fusion.schedule, sub_axis=1)
+        x = _EmbeddingRing.apply(ctx, table, tokens)
     else:
-        x = all_reduce(ctx, partial(tokens))
+        x = all_reduce(ctx, _partial(table, tokens, ctx))
     if scale is not None:
         x = (x.float() * scale).to(x.dtype)
     return x
+
+
+def _local_ids(ids, ctx: ParallelContext, v):
+    """ids relative to this rank's vocabulary rows, clipped into them, and
+    which ones lie in them."""
+    rel = ids - ctx.tp_rank * v if ctx.tp > 1 else ids
+    ok = (rel >= 0) & (rel < v)
+    return rel.clamp(0, v - 1), ok
+
+
+def _partial(table, ids, ctx: ParallelContext):
+    """This rank's part of the lookup: its rows, zeros elsewhere."""
+    rel, ok = _local_ids(ids, ctx, table.shape[0])
+    return table[rel].masked_fill(~ok[..., None], 0)
+
+
+class _EmbeddingRing(torch.autograd.Function):
+    """The sequence-sharded lookup's ring reduce-scatter (both schedules),
+    and its backward: an all-gather ring of the cotangent's chunks, each
+    arriving chunk's rows whose ids fall in this rank's vocabulary rows
+    ``index_add_``-ed (in f32) into the table's gradient."""
+
+    @staticmethod
+    def forward(fctx, ctx, table, tokens):
+        s_loc = tokens.shape[1] // ctx.tp
+        fctx.save_for_backward(tokens)
+        fctx.args = (ctx, table.shape, table.dtype)
+        return ring_reduce_scatter_compute(
+            ctx, lambda c: _partial(table, tokens[:, c * s_loc:(c + 1) * s_loc], ctx),
+            schedule=ctx.fusion.schedule, sub_axis=1)
+
+    @staticmethod
+    def backward(fctx, dx):
+        tokens, = fctx.saved_tensors
+        ctx, shape, dtype = fctx.args
+        s_loc = dx.shape[1]
+
+        def consume(src, dx_src, dt):
+            rel, ok = _local_ids(tokens[:, src * s_loc:(src + 1) * s_loc], ctx, shape[0])
+            rows = dx_src.float().masked_fill(~ok[..., None], 0)
+            return dt.index_add_(0, rel.reshape(-1), rows.reshape(-1, shape[1]))
+
+        dt = ring_all_gather_compute(ctx, dx.contiguous(), consume,
+                                     out_init=torch.zeros(shape, dtype=torch.float32,
+                                                          device=dx.device))
+        return None, dt.to(dtype), None

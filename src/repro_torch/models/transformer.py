@@ -9,7 +9,7 @@ config that needs the rest raises until its slice lands.  Decode keeps the refer
 layouts: a per-layer cache slice is [B, S_max, Hkv, hd], ``pos`` a [B] int32
 vector, logits [B, 1, V] in f32.
 
-Decode and prefill run at any tp (SPMD, one process a rank): each rank holds
+Decode, prefill and training run at any tp (SPMD, one process a rank): each rank holds
 the parameters' shards of ``PARAM_SPECS`` (``w_qkv`` and ``w_o`` whole, as
 GSPMD runs them in the reference) and computes its vocabulary slice of the
 logits, which are then gathered so every rank takes the same greedy tokens.
@@ -21,7 +21,10 @@ last-position logits [B, 1, V] in f32 (the same on every rank: rank tp - 1's
 last row broadcast, each rank's vocabulary slice, gathered) and its chunk of
 the cache {"k", "v"}, each [L, B, S / tp, Hkv, hd] (k after RoPE): the
 decode layout with the prompt's length, rows sharded as decode's are.
-Training and paged serving run at tp = 1.
+Training runs the prefill's sequence-sharded layers, each ring with its
+backward, and the CE ring; its loss is the same scalar on every rank, and
+``param_specs`` says which gradients ``train/step.py`` sums over the ranks.
+Paged serving runs at tp = 1.
 
 Paged serving (``serve_step``) mixes prefill chunks and decode steps in one
 call over a block pool {"k", "v"}, each [L, NB + 1, block, Hkv, hd]: the
@@ -46,6 +49,7 @@ from repro_torch.models.layers import (embedding_init, embedding_lookup, mlp_app
                                        mlp_init, rms_norm, rms_norm_init)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rope import apply_rope, apply_rope_2d
+from repro_torch.core.degrade import Pins, pinned
 from repro_torch.parallel.sharding import ParallelContext, shard_leaf
 
 # The reference's logical specs of the dense transformer's parameters
@@ -142,13 +146,8 @@ def check_supported(cfg: TransformerConfig, tp: int = 1):
 def check_prefill(cfg: TransformerConfig, what: str = "prefill", tp: int = 1):
     """Raise for a config whose prefill (or training forward, which runs
     the same sequence-sharded layers) this slice has not ported: a MoE
-    config, and training at tp > 1, whose rings have no backward yet."""
+    config."""
     check_supported(cfg, tp)
-    if tp > 1 and what != "prefill":
-        raise NotImplementedError(
-            f"{cfg.name}: {what} at tp={tp} is ROADMAP Queue 1 item 1 (left: training at "
-            f"tp > 1, the KV ring's backward, the CE ring, gradients through the AG/RS rings "
-            f"and sharded optimizer state)")
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE {what} is ROADMAP Queue 1 item 5 (sequence-sharded MoE: "
@@ -175,6 +174,16 @@ def _layer_init(gen, cfg: TransformerConfig):
     else:
         p["ffn"] = mlp_init(gen, D, cfg.d_ff, cfg.pdtype)
     return p
+
+
+def param_specs(tree):
+    """The logical spec of every leaf of a parameter tree, in a tree of the
+    same structure: ``PARAM_SPECS`` by leaf name, a leaf not named whole on
+    every rank."""
+    if isinstance(tree, dict):
+        return {k: param_specs(v) if isinstance(v, (dict, list)) else
+                PARAM_SPECS.get(k, (None,) * v.dim()) for k, v in tree.items()}
+    return [param_specs(v) for v in tree]
 
 
 def shard_params(tree, ctx: ParallelContext | None):
@@ -258,16 +267,26 @@ def _group_train(ctx, cfg, layers, x, positions, first):
 
 
 def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
-    """batch: {"tokens" [B, S], "labels" [B, S]} -> the scalar mean token
-    cross-entropy, for autograd (at tp = 1).  With ``cfg.remat`` each group of layers
-    (``local_global_period`` layers, else one) runs under
-    ``torch.utils.checkpoint``: only its input is kept, and backward runs
-    its forward again, as the reference's ``jax.checkpoint`` does."""
+    """batch: {"tokens" [B, S], "labels" [B, S]}, whole on every rank -> the
+    scalar mean token cross-entropy over the B x S tokens, the same on every
+    rank, for autograd.  At tp > 1 rank d runs positions ``[d S / tp, (d +
+    1) S / tp)`` (S must be a multiple of tp), as the prefill does, and
+    this rank's gradients are its shards' (a leaf whole on every rank gets
+    this rank's partial: ``train/step.py`` sums those over the ranks).
+    With ``cfg.remat`` each group of layers (``local_global_period``
+    layers, else one) runs under ``torch.utils.checkpoint``: only its input
+    is kept, and backward runs its forward again, as the reference's
+    ``jax.checkpoint`` does; the group's mode and overlap decisions are
+    pinned at its first forward (``degrade.pinned``), so that the recompute
+    posts the same sends and receives on every rank."""
     check_prefill(cfg, "training", ctx.tp)
     tokens = batch["tokens"]
-    S = tokens.shape[1]
+    S, n = tokens.shape[1], ctx.tp
+    if S % n:
+        raise ValueError(f"{cfg.name}: training at tp={n} shards the batch's {S} positions over "
+                         f"the ranks: S must be a multiple of tp")
     x = _embed_inputs(ctx, params, cfg, batch)
-    positions = _positions_for(S, tokens.device)
+    positions = _positions_for(S, tokens.device, ctx)
     period = cfg.local_global_period or 1
     group = []
     for i, lp in enumerate(params["layers"]):      # any iterable of layer dicts
@@ -276,7 +295,7 @@ def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
             continue
         first = i + 1 - period
         if cfg.remat:
-            x = checkpoint(_group_train, ctx, cfg, group, x, positions, first,
+            x = checkpoint(_pinned_group, Pins(), ctx, cfg, group, x, positions, first,
                            use_reentrant=False)
         else:
             x = _group_train(ctx, cfg, group, x, positions, first)
@@ -284,6 +303,11 @@ def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     return sharded_cross_entropy(ctx, x, params["embed"]["table"], batch["labels"],
                                  logit_softcap=cfg.logit_softcap)
+
+
+def _pinned_group(pins, ctx, cfg, layers, x, positions, first):
+    with pinned(pins):
+        return _group_train(ctx, cfg, layers, x, positions, first)
 
 
 def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):

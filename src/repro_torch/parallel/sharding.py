@@ -179,6 +179,12 @@ class ParallelContext:
         return dataclasses.replace(self, fusion=fusion)
 
 
+def splits_over_tp(spec) -> bool:
+    """Whether a logical ``spec`` splits a dim over the tp ranks (else the
+    leaf is whole on every rank)."""
+    return any(ax in _TP_AXES for ax in spec)
+
+
 def shard_leaf(x: torch.Tensor, spec, ctx: ParallelContext) -> torch.Tensor:
     """This rank's part of the whole tensor ``x`` under the reference's
     logical ``spec`` (one entry per dim): a dim named ``"tp"``, ``"vocab"``,

@@ -23,6 +23,17 @@ keeps the stacked factored state of the reference.
 
 State dtype matters at scale: bf16 moments (or Adafactor) halve the
 optimizer's memory.  Configs pick via ``state_dtype``.
+
+At tp > 1 each rank updates its own shards (``models/transformer.py``
+``PARAM_SPECS``): AdamW is elementwise, so a shard's update is the whole
+rule on it, and a leaf whole on every rank gets the same gradient and so
+the same bits everywhere (``train/step.py`` sums its partials over the
+ranks first).  :func:`clip_by_global_norm` takes the world and the specs
+and sums the squares of the sharded leaves over the ranks;
+:func:`optimizer_state_specs` gives the state the parameters' specs.
+Adafactor's factored moments and update clip reduce over sharded axes: its
+update at tp > 1 is ROADMAP Queue 1 item 5 (dbrx, its only user, trains
+there).
 """
 from __future__ import annotations
 
@@ -33,7 +44,8 @@ import torch
 
 from repro_torch.models.common import DTYPES
 
-_SPECS_ITEM = "ROADMAP Queue 1 item 1 (left: training at tp > 1, sharded optimizer state)"
+ADAFACTOR_TP_ITEM = ("ROADMAP Queue 1 item 5 (Adafactor's update at tp > 1: its factored "
+                     "moments and RMS clip reduce over sharded axes; dbrx trains there)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,19 +144,44 @@ def lr_schedule(cfg: OptimizerConfig, step):
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+def spec_leaves(specs) -> list:
+    """The logical specs of a spec tree (nested dicts and lists with a
+    tuple at each leaf), in ``tree_leaves`` order of the matching tree."""
+    if isinstance(specs, dict):
+        return [s for v in specs.values() for s in spec_leaves(v)]
+    if isinstance(specs, list):
+        return [s for v in specs for s in spec_leaves(v)]
+    return [tuple(specs)]
+
+
 @torch.no_grad()
-def global_norm(tree):
-    """sqrt of the sum of every leaf's squares, summed in f32 leaf by leaf."""
+def global_norm(tree, ctx=None, specs=None):
+    """sqrt of the sum of every leaf's squares, summed in f32 leaf by leaf.
+    Over a tp world (``ctx`` at tp > 1, ``specs`` the leaves' logical
+    specs): the squares of the leaves split over tp summed over the ranks,
+    those of a leaf whole on every rank counted once; the same bits on
+    every rank."""
     leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    sq = lambda xs: sum(torch.sum(torch.square(x.float())) for x in xs)
+    if ctx is None or ctx.tp == 1:
+        return torch.sqrt(sq(leaves))
+    from repro_torch.core.collectives import _all_reduce
+    from repro_torch.parallel.sharding import splits_over_tp
+
+    split = [splits_over_tp(sp) for sp in spec_leaves(specs)]
+    shards = sq(x for x, sp in zip(leaves, split) if sp)
+    shards = _all_reduce(ctx, torch.as_tensor(shards, dtype=torch.float32,
+                                              device=leaves[0].device).reshape(1))[0]
+    return torch.sqrt(shards + sq(x for x, sp in zip(leaves, split) if not sp))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, ctx=None, specs=None):
     """Scale every gradient by min(1, max_norm / norm) in place (in f32,
-    rounded back to the leaf's dtype); returns (grads, norm).  Nothing
-    reads the norm back to the host."""
-    norm = global_norm(grads)
+    rounded back to the leaf's dtype); returns (grads, norm).  ``ctx`` and
+    ``specs`` give the world's norm (:func:`global_norm`).  Nothing reads
+    the norm back to the host."""
+    norm = global_norm(grads, ctx, specs)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     for g in tree_leaves(grads):
         if g.dtype == torch.float32:
@@ -293,7 +330,33 @@ def make_optimizer(cfg: OptimizerConfig):
     raise ValueError(cfg.name)
 
 
-def optimizer_state_specs(cfg: OptimizerConfig, param_specs):
-    """Optimizer state inherits each parameter's sharding: a multi-card
-    concept (the port runs one card)."""
-    raise NotImplementedError(f"optimizer_state_specs: {_SPECS_ITEM}")
+class _Spec:
+    """A logical spec as a tree leaf (``tree_paths`` walks into tuples)."""
+
+    def __init__(self, spec):
+        self.spec = tuple(spec)
+
+
+def optimizer_state_specs(cfg: OptimizerConfig, param_specs, period: int = 1):
+    """The optimizer state's logical specs: each moment inherits its
+    parameter's.  AdamW's moments are laid out as the parameters, so their
+    specs are ``param_specs``; Adafactor's factored state (laid out as
+    :func:`adafactor_init` keeps it, a layer leaf stacked over the layers
+    with a leading unsharded layer axis) drops the last axis's spec for its
+    row factor and the second-to-last's for its column factor, as the
+    reference's does."""
+    if cfg.name == "adamw":
+        return {"mu": param_specs, "nu": param_specs, "step": ()}
+    if cfg.name != "adafactor":
+        raise ValueError(cfg.name)
+
+    def wrap(t):
+        if isinstance(t, dict):
+            return {k: wrap(v) for k, v in t.items()}
+        return [wrap(v) for v in t] if isinstance(t, list) else _Spec(t)
+
+    v = {}
+    for path, leaves, stacked in leaf_groups(wrap(param_specs), period):
+        s = ((None,) if stacked else ()) + leaves[0].spec
+        _set_path(v, path, {"vr": s[:-1], "vc": s[:-2] + s[-1:]} if len(s) >= 2 else {"v": s})
+    return {"v": v, "step": ()}

@@ -1,10 +1,21 @@
-"""train_step factory: loss -> grads -> clip -> (compress) -> optimizer.
+"""train_step factory: loss -> grads -> (all-reduce) -> clip -> (compress)
+-> optimizer.
 
 After the JAX package's ``train/step.py``.  Gradients come from autograd
 (``torch.autograd.grad`` over the parameter leaves); microbatch gradient
 accumulation (for memory) sums them in f32 over slices of the batch, as the
 reference's scan does.  The remat policy lives in the model configs.  The
 returned step updates the state in place and returns it with the metrics.
+
+At tp > 1 every rank runs the step on its shards.  A leaf whole on every
+rank (its logical spec names no tp axis) gets only this rank's tokens'
+part of its gradient: after the gradients (and the microbatch sum) one
+all-reduce a dtype sums those over the ranks
+(``collectives.all_reduce_grads``), the clip's norm is the world's, and
+AdamW updates each shard in place, so a whole leaf leaves the step with the
+same bits on every rank.  Gradient compression over shards (its int8 scale
+and top-k over a whole tp-sharded stack) raises at tp > 1, and Adafactor's
+update too (``optimizer.ADAFACTOR_TP_ITEM``).
 """
 from __future__ import annotations
 
@@ -15,10 +26,13 @@ import torch
 
 from repro_torch.train.grad_compression import (CompressionConfig, compress_decompress,
                                                 init_residuals)
-from repro_torch.train.optimizer import (OptimizerConfig, clip_by_global_norm, make_optimizer,
+from repro_torch.core.collectives import all_reduce_grads
+from repro_torch.train.optimizer import (ADAFACTOR_TP_ITEM, OptimizerConfig, clip_by_global_norm,
+                                         make_optimizer, optimizer_state_specs, spec_leaves,
                                          tree_leaves, tree_map)
 
-_SPECS_ITEM = "ROADMAP Queue 1 item 1 (left: training at tp > 1, sharded train state)"
+COMPRESSION_TP_ITEM = ("ROADMAP Queue 1 item 1 (left: gradient compression over shards, the "
+                       "int8 scale and the top-k over a whole tp-sharded stack)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,14 +58,27 @@ def init_train_state(tc: TrainConfig, params):
     return state
 
 
-def build_train_step(loss_fn: Callable, tc: TrainConfig, *, on_phase: Callable | None = None):
+def build_train_step(loss_fn: Callable, tc: TrainConfig, *, ctx=None, param_specs=None,
+                     on_phase: Callable | None = None):
     """loss_fn(params, batch) -> scalar loss.  Returns ``train_step(state,
     batch) -> (state, metrics)`` with metrics {"loss", "grad_norm", "lr",
-    "step"} as tensors (nothing is read back to the host).  ``on_phase``,
-    if given, is called with "start", "forward", "backward" and "optimizer"
-    as each part of a step has been enqueued (for timing)."""
+    "step"} as tensors (nothing is read back to the host).  ``ctx`` (the
+    loss's context) and ``param_specs`` (the parameters' logical specs,
+    ``ArchBundle.param_specs``) are needed at tp > 1.  ``on_phase``, if
+    given, is called with "start", "forward", "backward", "allreduce" and
+    "optimizer" as each part of a step has been enqueued (for timing)."""
     _, opt_update = make_optimizer(tc.optimizer)
     mark = on_phase or (lambda name: None)
+    tp = 1 if ctx is None else ctx.tp
+    if tp > 1:
+        if param_specs is None:
+            raise ValueError(f"build_train_step at tp={tp} needs the parameters' specs")
+        if tc.optimizer.name == "adafactor":
+            raise NotImplementedError(f"adafactor at tp={tp}: {ADAFACTOR_TP_ITEM}")
+        if tc.compression.scheme != "none":
+            raise NotImplementedError(f"{tc.compression.scheme} gradient compression at tp={tp}: "
+                                      f"{COMPRESSION_TP_ITEM}")
+    specs = spec_leaves(param_specs) if tp > 1 else None
 
     def split_micro(batch, i):
         def sl(x):
@@ -81,9 +108,12 @@ def build_train_step(loss_fn: Callable, tc: TrainConfig, *, on_phase: Callable |
             for g in grads:
                 g /= tc.microbatches
         mark("backward")
+        if tp > 1:
+            all_reduce_grads(ctx, grads, specs)
+        mark("allreduce")
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
-        grads, gnorm = clip_by_global_norm(grads, tc.optimizer.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, tc.optimizer.grad_clip, ctx, param_specs)
         if tc.compression.scheme != "none":
             grads, state["residuals"] = compress_decompress(tc.compression, grads,
                                                             state["residuals"], tc.layer_period)
@@ -98,5 +128,11 @@ def build_train_step(loss_fn: Callable, tc: TrainConfig, *, on_phase: Callable |
 
 
 def train_state_specs(tc: TrainConfig, param_specs):
-    """The train state's sharding specs: a multi-card concept."""
-    raise NotImplementedError(f"train_state_specs: {_SPECS_ITEM}")
+    """The train state's logical specs: the parameters', the optimizer
+    state's (:func:`optimizer.optimizer_state_specs`) and the compression
+    residuals' (the parameters')."""
+    specs = {"params": param_specs,
+             "opt": optimizer_state_specs(tc.optimizer, param_specs, tc.layer_period)}
+    if tc.compression.scheme != "none":
+        specs["residuals"] = param_specs
+    return specs

@@ -6,7 +6,6 @@ and its counterpart in ``repro_torch`` on the CPU (one rank).  f32
 throughout; matrix products in full f32 (TF32 off for cuBLAS and cuDNN).
 """
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -235,16 +234,13 @@ def test_parallel_context_defaults_to_cuda():
 
 def test_layers_training_paths_raise():
     """The sequence-sharded paths run at tp = 1 in every mode (the prefill's
-    and the training's); under autograd over ranks (training at tp > 1, a
-    context standing in for rank 0 of 2) they raise."""
+    and the training's); their gradients at tp > 1 are held to the JAX
+    package's in tests/test_torch_ring_train.py."""
     p = {"w_gate": torch.ones(4, 8), "w_up": torch.ones(4, 8), "w_down": torch.ones(8, 4)}
     x = torch.ones(1, 2, 4)
     for c in (CPU_KERNEL, ParallelContext(device="cpu")):
         torch.testing.assert_close(layers.mlp_apply(c, p, x, seq_sharded=True),
                                    layers.mlp_apply(CPU_BULK, p, x, seq_sharded=False))
-    two = types.SimpleNamespace(tp=2, tp_rank=0, fusion=FusionConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1 .*training at tp > 1"):
-        layers.mlp_apply(two, p, x.requires_grad_(True), seq_sharded=True)
     table, tokens = torch.randn(8, 4), torch.tensor([[0, 7, 8, -1]])
     torch.testing.assert_close(
         layers.embedding_lookup(CPU_KERNEL, {"table": table}, tokens, seq_shard=True),

@@ -171,7 +171,7 @@ def _site(name, rng):
         w = rng.standard_normal((16, 16)).astype(np.float32)
         return (lambda: getattr(jagmm, name)(_jctx(), x, w),
                 lambda m: getattr(pagmm, name)(_pctx(m), t(x), t(w)),
-                (pagmm, "all_reduce" if name == "matmul_reducescatter" else "all_gather"))
+                (pagmm, "reduce_scatter" if name == "matmul_reducescatter" else "all_gather"))
     tabs = rng.standard_normal((4, 30, 16)).astype(np.float32)
     idx = rng.integers(0, 30, (8, 4, 2)).astype(np.int32)
     return (lambda: jax_emb_a2a(_jctx("kernel"), idx, tabs),
@@ -202,7 +202,7 @@ def test_quarantined_key_runs_bulk_and_is_counted(policies, rng, monkeypatch, na
     calls = []
     real = getattr(mod, fn_name)
     monkeypatch.setattr(mod, fn_name, lambda *a, **k: calls.append(1) or real(*a, **k))
-    bulk_spy = fn_name in ("all_reduce", "all_gather")    # called by bulk mode only
+    bulk_spy = fn_name in ("all_reduce", "all_gather", "reduce_scatter")  # bulk mode's only
     want = run_port("bulk").clone()
     calls.clear()
     run_port("kernel")

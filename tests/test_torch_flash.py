@@ -13,7 +13,6 @@ The gradients (the port's analytic ``flash_backward``, the reference's
 (the ring attention of one card, no hops), at rtol 2e-3, atol 1e-5: the
 bounds of ``tests/test_loss.py``.
 """
-import types
 
 import jax
 import jax.numpy as jnp
@@ -337,8 +336,8 @@ def test_context_attention_matches_jax(ctx, rng, jax_mode, window, cap):
 def test_context_attention_fused_mode_raises(rng, jctx1):
     """Fused mode at tp = 1 is the reference's KV ring with no hop: its
     output and its gradient (the analytic backward) against the JAX
-    package's fused mode on one device.  It raises only under autograd over
-    ranks: training at tp > 1 (a context standing in for rank 0 of 2)."""
+    package's fused mode on one device (at tp > 1 the ring's backward is
+    held to the JAX package's in tests/test_torch_ring_train.py)."""
     q, k, v = _qkv(rng, 2, 32, 4, 2, 16)
     do = rng.standard_normal(q.shape).astype(np.float32)
     fused = ParallelContext(device="cpu")
@@ -350,10 +349,6 @@ def test_context_attention_fused_mode_raises(rng, jctx1):
         for name, gt_, w in zip(("dq", "dk", "dv"), _port_grads(fused, q, k, v, do, **kw),
                                 _jax_grads(jctx1["fused"], q, k, v, do, **kw)):
             np.testing.assert_allclose(gt_.numpy(), w, **GRAD, err_msg=f"{kw} {name}")
-    two = types.SimpleNamespace(tp=2, tp_rank=0, fusion=FusionConfig(mode="fused"))
-    qt = t(q).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1 .*training at tp > 1"):
-        attention.context_attention(two, qt, t(k), t(v))
 
 
 @pytest.mark.parametrize("sq,sk,delta,causal,window,cap", [
@@ -401,7 +396,8 @@ def test_flash_span_of_its_own_matches_jax_span(rng, sq, sk, delta, causal, wind
 def test_flash_span_defaults_are_one_span(rng):
     """Sk = Sq and delta = 0 are the call without them, to the bit, with and
     without statistics; statistics or a span of its own under autograd
-    raise (the ring's backward is training at tp > 1)."""
+    raise (a ring hop is differentiated through context_attention's
+    ring)."""
     q, k, v = (t(a) for a in _qkv(rng, 2, 40, 4, 2, 16))
     for kw in (dict(), dict(window=12, softcap=3.0), dict(causal=False)):
         base = flash_attention(q, k, v, **kw)
@@ -412,9 +408,9 @@ def test_flash_span_defaults_are_one_span(rng):
         assert torch.equal(m, want_m) and torch.equal(l, want_l)
     qg = q.clone().requires_grad_(True)
     for kw in (dict(stats=True), dict(delta=4)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1 .*training at tp > 1"):
+        with pytest.raises(NotImplementedError, match="through context_attention's ring"):
             flash_attention(qg, k, v, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1 .*training at tp > 1"):
+    with pytest.raises(NotImplementedError, match="through context_attention's ring"):
         flash_attention(qg, k[:, :16], v[:, :16])
 
 

@@ -121,8 +121,22 @@ def test_ce_bf16_grads_keep_the_inputs_dtypes(rng):
     assert torch.isfinite(xt.grad.float()).all() and torch.isfinite(et.grad.float()).all()
 
 
+@pytest.mark.parametrize("wire", ["bf16", "fp8"])
+def test_ce_compressed_wire_matches_jax(jctx, rng, wire):
+    """A compressed wire at tp = 1: the loss is untouched (the ring has no
+    hop) and dx rounds once through the wire on the final hop home, as the
+    reference's does even at n = 1."""
+    x, e, y = _inputs(rng)
+    want = _jax(jctx, x, e, y, wire=wire, chunks_per_rank=2)
+    got = _port(x, e, y, _ctx(2), wire=wire)
+    np.testing.assert_allclose(got[0].item(), want[0], **LOSS_TOL)
+    for name, g, w in zip(("dx", "dE"), got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL, err_msg=name)
+    exact = _port(x, e, y, _ctx(2))[1]
+    assert not torch.equal(got[1], exact)       # the wire rounded dx
+
+
 @pytest.mark.parametrize("kw,err,match", [
-    ({"wire": "bf16"}, NotImplementedError, "Queue 1 item 1"),
     ({"chunks_per_rank": 0}, ValueError, ">= 1"),
 ])
 def test_ce_refuses(rng, kw, err, match):

@@ -173,14 +173,62 @@ def test_tree_helpers_keep_the_layout(rng):
     torch.testing.assert_close(doubled["layers"][1]["w"], 2 * tree["layers"][1]["w"])
 
 
+def _jax_specs(arch):
+    """The JAX package's parameter specs of the reduced ``arch`` (its layers
+    stacked under ``"l0"``, ``"l1"``, ...) and the port's of the same model
+    (one dict per layer)."""
+    from repro.configs.registry import get_arch as jax_get_arch
+    from repro.models.common import split_params
+    from repro_torch.configs.registry import get_arch
+
+    _, jspecs = split_params(jax.eval_shape(jax_get_arch(arch).reduced().init_params,
+                                            jax.random.PRNGKey(0)))
+    bundle = get_arch(arch).reduced()
+    pspecs = bundle.param_specs(bundle.init_params(torch.Generator().manual_seed(0)))
+    return jspecs, pspecs, bundle.config.local_global_period or 1
+
+
+def _stacked(layers, period):
+    """The port's per-layer specs as the reference stacks them: position j
+    of the pattern under "l<j>", with a leading (unsharded) layer axis."""
+    return {f"l{j}": jax.tree.map(lambda sp: (None,) + sp, layers[j],
+                                  is_leaf=lambda x: isinstance(x, tuple))
+            for j in range(period)}
+
+
 @pytest.mark.parametrize("what", ["optimizer", "train_state", "name"])
 def test_specs_and_unknown_optimizer_raise(what):
-    if what == "optimizer":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            popt.optimizer_state_specs(popt.OptimizerConfig(), {})
-    elif what == "train_state":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            train_state_specs(TrainConfig(), {})
-    else:
+    """AdamW's and Adafactor's state specs and the train state's against the
+    JAX package's, on reduced chatglm3-6b and gemma2-27b (layer period 2);
+    an unknown optimizer raises."""
+    if what == "name":
         with pytest.raises(ValueError, match="sgd"):
             popt.make_optimizer(popt.OptimizerConfig(name="sgd"))
+        return
+    is_spec = lambda x: isinstance(x, tuple)
+    for arch in ("chatglm3-6b", "gemma2-27b"):
+        jspecs, pspecs, period = _jax_specs(arch)
+        assert all(lp == pspecs["layers"][i % period] for i, lp in enumerate(pspecs["layers"]))
+        as_jax = {**{k: v for k, v in pspecs.items() if k != "layers"},
+                  "layers": _stacked(pspecs["layers"], period)}
+        assert as_jax == jspecs
+        for name in ("adamw", "adafactor"):
+            cfg = popt.OptimizerConfig(name=name)
+            want = jopt.optimizer_state_specs(jopt.OptimizerConfig(name=name), jspecs)
+            if what == "optimizer":
+                got = popt.optimizer_state_specs(cfg, pspecs, period)
+            else:
+                tc = TrainConfig(optimizer=cfg, layer_period=period)
+                got = train_state_specs(tc, pspecs)
+                assert got["params"] is pspecs and "residuals" not in got
+                got = got["opt"]
+            if name == "adamw":
+                for key in ("mu", "nu"):
+                    assert got[key] is pspecs
+                    got = {**got, key: as_jax}
+            else:
+                v = got["v"]
+                layers = v["layers"] if period > 1 else {"l0": v["layers"]}
+                got = {**got, "v": {**v, "layers": layers}}
+            assert jax.tree.map(tuple, got, is_leaf=is_spec) == jax.tree.map(
+                tuple, want, is_leaf=is_spec), (arch, name)

@@ -267,10 +267,12 @@ def test_ring_attention_calibration_agrees_on_every_rank(world, qkv, window):
     assert [json.loads(key)["op"] for key, _, _ in decisions] == ["ring_attention"]
 
 
-@pytest.mark.parametrize("what,item", [("training", "item 1 .*training at tp > 1"),
+@pytest.mark.parametrize("what,item", [("compression", "item 1 .*compression over shards"),
+                                       ("adafactor", "item 5 .*Adafactor"),
                                        ("paged", "item 1 .*paged")])
 def test_training_and_paged_serving_still_raise_at_tp2(world, what, item):
-    """Training at tp > 1 (the ring's backward, the CE ring) and paged serving
-    at tp > 1 are the next slices; both name their ROADMAP entry."""
+    """What training at tp > 1 leaves (gradient compression over shards,
+    Adafactor's update) and paged serving at tp > 1 raise, each naming its
+    ROADMAP entry."""
     for msg in run(world, "refusal_task", 2, what=what):
         assert msg is not None and re.search(f"ROADMAP Queue 1 {item}", msg), msg

@@ -279,13 +279,28 @@ def test_auto_choices_resolve_at_tp2(world, rng):
 
 @pytest.mark.parametrize("what,item", [
     ("kernel", "item 1 .*real-peer"), ("moe", "item 5"),
-    ("paged", "item 1 .*paged"), ("rwkv6", "item 7"), ("grad", "item 1 .*training")])
+    ("paged", "item 1 .*paged"), ("rwkv6", "item 7")])
 def test_paths_left_for_later_raise_at_tp2(world, what, item):
     """Kernel mode of the fused GEMV at tp > 1 raises (no fallback to fused
-    mode), as do MoE, paged serving, rwkv6 and gradients through the
-    rings."""
+    mode), as do MoE, paged serving and rwkv6."""
     for msg in run(world, "refusal_task", 2, what=what):
         assert msg is not None and re.search(f"ROADMAP Queue 1 {item}", msg), msg
+
+
+@pytest.mark.parametrize("mode", ["bulk", "fused"])
+def test_matmul_allreduce_grad_at_tp2(world, rng, mode):
+    """matmul_allreduce under autograd at tp = 2: each rank's (dx, dw) of its
+    K slice against the dense gradient of sum((x @ w) * co); bulk mode
+    through the all-reduce's pass-through backward, fused mode through the
+    ring's local one."""
+    x = rng.standard_normal((4, 8, 32)).astype(np.float32)
+    w = rng.standard_normal((32, 16)).astype(np.float32)
+    co = rng.standard_normal((4, 8, 16)).astype(np.float32)
+    dx, dw = np.einsum("bsn,kn->bsk", co, w), np.einsum("bsk,bsn->kn", x, co)
+    for d, (gx, gw) in enumerate(run(world, "product_grads_task", 2, x=x, w=w, co=co,
+                                     op="matmul_allreduce", mode=mode)):
+        np.testing.assert_allclose(gx, dx[..., d * 16:(d + 1) * 16], **TOL)
+        np.testing.assert_allclose(gw, dw[d * 16:(d + 1) * 16], **TOL)
 
 
 def test_dp_above_one_and_world_starts_refuse_plainly(monkeypatch):

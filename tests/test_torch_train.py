@@ -246,14 +246,19 @@ def test_launcher_autotune_flags(tmp_path, capsys, flag):
         ptune.clear_cache()
         assert launch_train.main(TRAIN_CPU + ["--granularity", str(ce.q)]) == losses
     elif flag == "calibrate":
-        got, _ = _auto_run(["--granularity", "auto", "--wire", "auto", "--calibrate",
-                            "--calibrate-iters", "1"],
-                           measured=("allgather_matmul", "matmul_reducescatter"))
+        got, measured = _auto_run(["--granularity", "auto", "--wire", "auto", "--calibrate",
+                                   "--calibrate-iters", "1"],
+                                  measured=("allgather_matmul", "matmul_reducescatter",
+                                            "ce_ring"))
         out = capsys.readouterr().out
-        assert re.search(r"calibrate: 2/3 newly traced hot keys", out), out
-        assert re.search(r"calibrate: ce_ring .* keeps the model's decision .* waits for "
-                         r"ROADMAP Queue 1 item 1", out), out
-        np.testing.assert_allclose(got, losses, rtol=1e-6)
+        assert re.search(r"calibrate: 3/3 newly traced hot keys", out), out
+        assert re.search(r"calibrate: ce_ring .* model .* -> measured", out), out
+        # the run on the CE's measured decision, pinned (the products' take
+        # no sub-chunks or wire at tp = 1)
+        (ce,) = [d for k, d in measured.items() if k.op == "ce_ring"]
+        ptune.clear_cache()
+        pinned = launch_train.main(TRAIN_CPU + ["--granularity", str(ce.q), "--wire", ce.wire])
+        np.testing.assert_allclose(got, pinned, rtol=1e-6)
     else:
         path = str(tmp_path / "tune.json")
         _auto_run(["--granularity", "auto", "--tune-cache", path])

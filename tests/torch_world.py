@@ -337,32 +337,42 @@ def refusal_task(ctx, what):
 
             cfg = get_arch("chatglm3-6b").reduced().config
             serve_step(ctx("bulk"), {}, cfg, torch.zeros(1, 1, dtype=torch.long), {}, None, 0, 1)
-        elif what == "training":
-            get_arch("chatglm3-6b").reduced().loss_fn(ctx("bulk"))
+        elif what in ("compression", "adafactor"):
+            from repro_torch.train.grad_compression import CompressionConfig
+            from repro_torch.train.optimizer import OptimizerConfig
+            from repro_torch.train.step import TrainConfig, build_train_step
+
+            tc = (TrainConfig(compression=CompressionConfig(scheme="int8"))
+                  if what == "compression" else
+                  TrainConfig(optimizer=OptimizerConfig(name="adafactor")))
+            build_train_step(lambda p, b: None, tc, ctx=ctx("bulk"), param_specs={})
         elif what == "rwkv6":
             get_arch("rwkv6-7b").reduced().decode_fn(ctx())
-        elif what == "grad":
-            x = torch.ones(4, 8, requires_grad=True)
-            matmul_allreduce(ctx(), x, torch.ones(8, 4))
     except NotImplementedError as e:
         return str(e)
     return None
 
 
 def _sends(fn):
-    """``fn()`` and how many ring sends ``models/attention`` started in it."""
+    """``fn()`` and how many ring sends ``models/attention`` started in it
+    (payloads and travelling accumulators)."""
     from repro_torch.models import attention
 
-    start, count = attention.ring_permute_start, [0]
+    names = ("ring_permute_start", "accumulator_permute_start")
+    real, count = {n: getattr(attention, n) for n in names}, [0]
 
-    def counted(*a, **kw):
-        count[0] += 1
-        return start(*a, **kw)
-    attention.ring_permute_start = counted
+    def counted(name):
+        def send(*a, **kw):
+            count[0] += 1
+            return real[name](*a, **kw)
+        return send
+    for n in names:
+        setattr(attention, n, counted(n))
     try:
         return fn(), count[0]
     finally:
-        attention.ring_permute_start = start
+        for n in names:
+            setattr(attention, n, real[n])
 
 
 @task
@@ -511,3 +521,162 @@ def link_task(ctx):
     import dataclasses
 
     return dataclasses.asdict(ctx().hw.default)
+
+
+# ---------------------------------------------------------------------------
+# training at tp > 1: each ring's backward (tests/test_torch_ring_train.py)
+# ---------------------------------------------------------------------------
+def _grads(loss, leaves):
+    return [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+
+
+@task
+def product_grads_task(ctx, x, w, co, op, mode, q=1):
+    """``op`` on this rank's shards of x [B, S, K] and w [K, N] (the
+    reference's specs), the loss sum(y * co) over this rank's part of y;
+    (dx, dw) of this rank's shards."""
+    from repro_torch.core.allgather_matmul import allgather_matmul, matmul_reducescatter
+    from repro_torch.core.matmul_allreduce import matmul_allreduce
+
+    c = ctx(mode, granularity=q)
+    if op == "allgather_matmul":
+        xl, wl = _block(x, c, 1), _block(w, c, 1)
+        col = _block(co, c, 2)
+        fn = allgather_matmul
+    elif op == "matmul_reducescatter":
+        xl, wl = _block(x, c, 2), _block(w, c, 0)
+        col = _block(co, c, 1)
+        fn = matmul_reducescatter
+    else:
+        xl, wl = _block(x, c, 2), _block(w, c, 0)
+        col = t(co)
+        fn = matmul_allreduce
+    xl.requires_grad_(True)
+    wl.requires_grad_(True)
+    return _grads((fn(c, xl, wl) * col).sum(), [xl, wl])
+
+
+@task
+def ring_attention_grads_task(ctx, q, k, v, do, mode, causal=True, window=None, cap=None, qs=1,
+                              wire="f32", skews=(0,)):
+    """context_attention of this rank's chunks at blocks of 16 and its
+    gradient with this rank's chunk of ``do``, once a skew: (dq, dk, dv)
+    a skew, the sends the ring started in the forward and in the backward,
+    and the flash op's calls."""
+    from repro_torch.models.attention import context_attention
+
+    grads, sends, calls = [], [], []
+    for skew in skews:
+        c = ctx(mode, granularity=qs, wire=wire, skew=skew)
+        leaves = [_block(a, c, 1).requires_grad_(True) for a in (q, k, v)]
+        before = _plain_calls()
+        out, n_fwd = _sends(lambda: context_attention(
+            c, *leaves, causal=causal, window=window, softcap_val=cap, q_block=16, kv_block=16))
+        g, n_bwd = _sends(lambda: [a.numpy() for a in
+                                   torch.autograd.grad(out, leaves, _block(do, c, 1))])
+        grads.append(g)
+        sends.append((n_fwd, n_bwd))
+        calls.append(_plain_calls() - before)
+    return grads, sends, calls
+
+
+@task
+def embedding_grad_task(ctx, table, tokens, dy, schedule):
+    """The sequence-sharded lookup's table gradient (this rank's rows) under
+    the loss sum(x * dy) over this rank's chunk (the whole x where S does
+    not split)."""
+    from repro_torch.models.layers import embedding_lookup
+
+    c = ctx(schedule=schedule)
+    tb = _block(table, c, 0).requires_grad_(True)
+    x = embedding_lookup(c, {"table": tb}, t(tokens), seq_shard=True, scale=2.0)
+    split = tokens.shape[1] % c.tp == 0
+    return _grads((x * (_block(dy, c, 1) if split else t(dy))).sum(), [tb])[0]
+
+
+@task
+def ce_grads_task(ctx, x, e, y, cap=None, q=1, wire="f32", skew=0):
+    """sharded_cross_entropy on this rank's sequence chunk of x (the whole x
+    where S does not split) and vocabulary rows of e: the loss and (dx,
+    dE)."""
+    from repro_torch.core.loss import sharded_cross_entropy
+
+    c = ctx("fused", granularity=q, wire=wire, skew=skew)
+    S = y.shape[1]
+    seq = S % c.tp == 0 and S >= c.tp
+    xl = (_block(x, c, 1) if seq else t(x)).requires_grad_(True)
+    el = _block(e, c, 0).requires_grad_(True)
+    loss = sharded_cross_entropy(c, xl, el, t(y), logit_softcap=cap)
+    return loss.item(), _grads(loss, [xl, el])
+
+
+def _params_from(tree, c, arch):
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.train.optimizer import tree_leaves
+
+    bundle = get_arch(arch).reduced()
+    params = params_from_numpy(tree, "cpu", c)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    return bundle, params
+
+
+@task
+def loss_grads_task(ctx, tree, tokens, labels, mode, arch="chatglm3-6b", q=1, wire="f32"):
+    """The reduced ``arch`` from the JAX package's weights: ``loss_fn``'s loss
+    and this rank's gradients, the whole leaves' summed over the ranks
+    (``all_reduce_grads``, as the train step does), in ``tree_leaves``
+    order."""
+    from repro_torch.core.collectives import all_reduce_grads
+    from repro_torch.train.optimizer import spec_leaves, tree_leaves
+
+    c = ctx(mode, granularity=q, wire=wire)
+    bundle, params = _params_from(tree, c, arch)
+    leaves = tree_leaves(params)
+    loss = bundle.loss_fn(c)(params, {"tokens": t(tokens), "labels": t(labels)})
+    grads = list(torch.autograd.grad(loss, leaves))
+    all_reduce_grads(c, grads, spec_leaves(bundle.param_specs(params)))
+    return loss.item(), [g.numpy() for g in grads]
+
+
+@task
+def train_steps_task(ctx, tree, batches, mode, arch="chatglm3-6b", lr=3e-3, steps=6,
+                     microbatches=1):
+    """``build_train_step`` with AdamW from the JAX package's weights on the
+    given batches: each step's loss and grad norm, then this rank's
+    parameters."""
+    from repro_torch.train.optimizer import OptimizerConfig, tree_leaves
+    from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
+
+    c = ctx(mode)
+    bundle, params = _params_from(tree, c, arch)
+    tc = TrainConfig(optimizer=OptimizerConfig(lr=lr, warmup_steps=max(steps // 20, 5),
+                                               total_steps=steps),
+                     microbatches=microbatches,
+                     layer_period=bundle.config.local_global_period or 1)
+    step = build_train_step(bundle.loss_fn(c), tc, ctx=c,
+                            param_specs=bundle.param_specs(params))
+    state = init_train_state(tc, params)
+    out = []
+    for tok, lab in batches[:steps]:
+        state, m = step(state, {"tokens": t(tok), "labels": t(lab)})
+        out.append((m["loss"].item(), m["grad_norm"].item()))
+    return out, [p.detach().numpy() for p in tree_leaves(state["params"])]
+
+
+@task
+def calibrate_ce_task(ctx, x, e, y):
+    """The CE with 'auto' granularity and wire on a cleared tuner cache, then
+    the measured pass over its ce_ring key (one iteration a candidate):
+    this rank's decisions and report."""
+    from repro_torch.core import autotune, calibrate
+    from repro_torch.core.loss import sharded_cross_entropy
+
+    c = ctx("fused", granularity="auto", wire="auto")
+    autotune.clear_cache()
+    sharded_cross_entropy(c, _block(x, c, 1), _block(e, c, 0), t(y))
+    rep = calibrate.measured_calibration_pass(c, iters=1, warmup=0)
+    return _decisions(), [(k_.op, tuple(r["model_q"]), tuple(r["measured_q"]),
+                           sorted(tuple(d) for d in r["times"]), r["fallback"])
+                          for k_, r in rep.items()]
