@@ -211,9 +211,10 @@ prints one line, and any failure exits non-zero:
      --granularity auto --wire auto --calibrate --tune-cache: every rank's
      model and measured decisions and candidate times equal, the cache's
      keys under the gloo link class, the streams phase 28's (or apart first
-     at a near tie); (b) a second launch from the saved cache sweeps no new
-     key and serves the same streams with the same decisions.  Labelled
-     "one card, N processes, wire staged through host: not NVLink"
+     at a near tie).  (A second launch from the saved cache was cut for
+     phases 41-43's time; tests/test_torch_autotune.py holds the round
+     trip.)  Labelled "one card, N processes, wire staged through host: not
+     NVLink"
  32. flash_attention with gemma2-27b's sliding window (4096) and softcap
      (50) against its plain version: [1, 8192, 32/16, 128] bf16 (scale
      144^-0.5, q scaled so that the scores reach 2-3x the cap; the share the
@@ -270,9 +271,9 @@ prints one line, and any failure exits non-zero:
      flash launches a rank, ms a prefill
  38. training at tp > 1: a spawned gloo world of 4 ranks on the card,
      full-width chatglm3-6b cut to 2 layers at phase 27's 4 x 2048 tokens
-     through loss_fn: tp = 4 in bulk, fused and kernel mode and fused at 2
-     sub-chunks with a bf16 wire at skew 0 and 1, tp = 2 (the world's pairs)
-     in kernel mode;
+     through loss_fn: tp = 4 in kernel mode and fused at 2 sub-chunks with a
+     bf16 wire at skew 0 and 1, tp = 2 (the world's pairs) in kernel mode
+     (bulk and plain fused mode at tp = 4 were cut for phases 41-43's time);
      the loss and each rank's shard of every gradient (the whole leaves
      all-reduced) against one exact f32 tp = 1 evaluation written to a file
      the ranks map, within LOGITS_TOL_FACTOR x tp = 1 bulk mode's distance
@@ -281,8 +282,9 @@ prints one line, and any failure exits non-zero:
      leaf but the table, whose scatter-adds are atomics), 2 L (1 + d) flash
      launches on rank d in kernel mode (forward and remat), 0
      otherwise; ms of forward, backward and the gradients' all-reduce
- 39. 3 AdamW steps (lr TRAIN_LR) of the model cut to 4 layers at 4 x 2048
-     at tp = 4 in kernel and fused mode (spawned world): losses within
+ 39. 3 AdamW steps (lr TRAIN_LR) of the model cut to 2 layers at 4 x 2048
+     at tp = 4 in kernel mode (spawned world; fused mode cut for phases
+     41-43's time): losses within
      TRAIN_LOSS_REL of 3 tp = 1 kernel-mode steps, every whole parameter
      bit-identical across the ranks after the last step, ms a step split
      into forward, backward, all-reduce and optimizer, each rank's peak
@@ -292,6 +294,45 @@ prints one line, and any failure exits non-zero:
      TRAIN_LR): exit 0, every rank's losses equal, the losses within
      TRAIN_LOSS_REL of the tp = 1 launcher's on the same flags.  Phases
      38-40 are labelled "one card, N processes, wire staged through host"
+ 41. paged serving at tp = 4 and 2 (a spawned gloo world of 4 ranks on the
+     card; tp = 2 on its pairs), full-width chatglm3-6b cut to PAGED_TP_LAYERS
+     layers, fused and bulk mode at tp = 4, fused at tp = 2, phase 23(b)'s
+     traffic (prompts of 1-500
+     seeded tokens x 8 new, batch 4, chunk 8, the launcher's default pool
+     striped over the ranks): every rank's streams equal, and equal to a tp
+     = 1 paged run's (bulk) or apart first at a near tie; each request's
+     first generated token's logits against a dense prefill_fn of its prompt
+     within LOGITS_TOL_FACTOR x the larger of the tp = 1 paged run's and the
+     dense prefill's distances from their exact f32 evaluations; each
+     stripe's peak of blocks the tables name; ms a serve_step at C = 1 and C
+     = 8 (slowest rank), beside tp = 1's
+ 42. the data axis: first, here, the fused kernel at a (4, 1) replica's
+     decode row ([1, 13696] @ layer 0's w_down, the stream path) and flash
+     with statistics at its training row ([1, 2048] x 32/2 heads of 128)
+     against their plain versions; then one spawned gloo world of 4 ranks
+     on the card: (a) (dp, tp) = (4, 1) in kernel mode: DATA_LAYERS-layer
+     decode at B = 4 (a replica's one row, the fused kernel's stream path,
+     launches counted) teacher-forced, logits within LOGITS_TOL_FACTOR x tp
+     = 1 bulk's distance from exact f32; phase 38's gradients (2 layers, 4
+     x 2048, a replica's row; timed cold, without a warm-up pass) with
+     flash launches a rank, every fsdp shard within LOGITS_TOL_FACTOR x tp
+     = 1 bulk's distance; (b) (2, 2) in fused and bulk mode: the same
+     decode, phase 41's paged traffic (streams and first tokens as there),
+     phase 38's gradients in fused mode (one sub-chunk, f32 wire: every
+     shard within LOGITS_TOL_FACTOR x tp = 1 bulk's distance), phase 39's
+     first 2 AdamW steps (losses within TRAIN_LOSS_REL of its tp = 1
+     steps), ms a step split with the data-axis collectives' host time
+     apart; after the gradients and the steps, each leaf bit-identical on
+     the ranks that hold the same part of it; each rank's parameter and
+     moment bytes a leaf the (1, 2) world's (the pairs) over 2 where the
+     leaf splits over data, and a rank's peak memory below the (1, 2)
+     world's by at least the bytes that split saves
+ 43. the launchers at --dp 2 --tp 2 through torch.distributed.run: train
+     (phase 40's flags at 2 steps: every rank's losses equal, within
+     TRAIN_LOSS_REL of phase 40's first 2 tp = 1 losses) and serve --paged (full width, fused, 4
+     requests x 8 tokens: every rank's streams equal, phase 5's or apart
+     first at a near tie).  Phases 41-43 are labelled "one card, N
+     processes, wire staged through host"
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
@@ -302,7 +343,10 @@ phases 36-37 run in processes of their own (phase 20's logits, exact
 logits and cache stay on the host for phase 36: GLM_PREFILL), phase 37's
 tp = 1 yardsticks draw gemma2's first 4 layers and free them first;
 phases 38-40 draw chatglm3-6b's first layers here for their tp = 1
-yardsticks, free them, and run their worlds in processes of their own.
+yardsticks, free them, and run their worlds in processes of their own;
+phases 41-42 do the same, phase 42 reusing phases 38, 39 and 41's
+yardsticks (phase 38's exact gradients stay in a file under build/ until
+phase 42 ends), and phase 43 runs the launchers.
 Every line ends with the seconds since the previous line and since the
 start; the end line gives each phase's seconds.  Phases 5, 9 and 17
 and the end print how many launch plans the plan-cached wrappers hold.
@@ -947,6 +991,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the flash row gains its numbers of training at tp > 1 (phases 38-40)
     flash_row.update(train_tp_phases(card))
+    torch.cuda.empty_cache()
+    paged_tp_phase(card)
+    torch.cuda.empty_cache()
+    # the flash and fused rows gain their launches over data replicas (phase 42)
+    dp_row = data_axis_phase(card)
+    PAGED_TP.clear()
+    fused_keys = ("dp_decode_launches", "dp_row_err")
+    flash_row.update({k_: v for k_, v in dp_row.items() if k_ not in fused_keys})
+    next(k_ for k_ in kernels if k_["name"] == "fused_matmul_allreduce").update(
+        {k_: dp_row[k_] for k_ in fused_keys})
+    data_launcher_phase(card)
     say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -3711,23 +3766,24 @@ def near_tie_notes(label, streams) -> list[str]:
         [streams[u] for u in range(len(streams5))], streams5, chose, GLM_DECODE["logits_tol"])]
 
 
-def launcher_world_run(mode, extra=()) -> dict:
-    """The launcher at tp = TP_WORLD on the one card through its entry
-    point, with the flags ``extra`` added."""
+def launcher_world_run(mode, extra=(), tp=TP_WORLD, dp=1) -> dict:
+    """The serve launcher at (dp, tp) (dp * tp processes) on the one card
+    through its entry point, with the flags ``extra`` added."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    world = dp * tp
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(TP_WORLD), "-m", "repro_torch.launch.serve", "--tp", str(TP_WORLD), "--backend",
-           "gloo", "--fusion", mode, "--requests", "4", "--batch", "4", "--max-new", "8",
-           *extra]
+           str(world), "-m", "repro_torch.launch.serve", "--tp", str(tp), "--dp", str(dp),
+           "--backend", "gloo", "--fusion", mode, "--requests", "4", "--batch", "4",
+           "--max-new", "8", *extra]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     served = re.search(r"\(([\d.]+) tok/s, (\d+) steps, ([\d.]+) ms/step", proc.stdout)
     if (proc.returncode or served is None
-            or f"all {TP_WORLD} ranks' token streams equal: True" not in proc.stdout):
+            or f"all {world} ranks' token streams equal: True" not in proc.stdout):
         print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
-        raise AssertionError(f"launcher at tp={TP_WORLD} {mode}: exit {proc.returncode}")
+        raise AssertionError(f"launcher at dp={dp}, tp={tp} {mode}: exit {proc.returncode}")
     streams = {int(u): json.loads(t_) for u, t_ in
                re.findall(r"req (\d+): prompt .* -> (\[.*\])", proc.stdout)}
     return {"tok_s": float(served[1]), "steps": int(served[2]), "ms_step": float(served[3]),
@@ -4002,7 +4058,7 @@ def autotune_phases(card) -> None:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         cache = f"{tmp}/tune.json"
         extra = ["--granularity", "auto", "--wire", "auto", "--calibrate", "--tune-cache", cache]
-        runs = [launcher_world_run("fused", extra) for _ in range(2)]
+        runs = [launcher_world_run("fused", extra)]
         with open(cache) as f:
             entries = json.load(f)["entries"]
     from repro_torch.core.perfmodel import GLOO_HOST
@@ -4018,16 +4074,11 @@ def autotune_phases(card) -> None:
         if f"all {TP_WORLD} ranks' autotune decisions equal: True" not in out:
             raise AssertionError(f"run {i}: decisions not checked equal")
         swept = re.search(r"calibrate \[rank 0\]: (\d+)/(\d+) newly traced", out)
-        if (i == 0 and not (int(swept[2]) >= 1 and swept[1] == swept[2])) or (
-                i == 1 and swept[0] != "calibrate [rank 0]: 0/0 newly traced"):
+        if not (int(swept[2]) >= 1 and swept[1] == swept[2]):
             raise AssertionError(f"run {i}: swept {swept[0]}")
         r["notes"] = near_tie_notes(f"tp={TP_WORLD} auto run {i}", r["streams"])
         r["decisions"] = re.findall(r"decision: (.*)", out)
         summary.append((swept[0].split(": ")[1], [ln for ln in per_rank[0] if "->" in ln]))
-    if runs[1]["decisions"] != runs[0]["decisions"] or runs[1]["streams"] != runs[0]["streams"]:
-        raise AssertionError(f"from the cache: decisions {runs[1]['decisions']}, streams "
-                             f"{runs[1]['streams']}; first run {runs[0]['decisions']}, "
-                             f"{runs[0]['streams']}")
     fused28 = GLM_DECODE["tp_streams"]["fused"]
     say(31, f"[{AUTO_LABEL.format(TP_WORLD)}] python -m torch.distributed.run --nproc-per-node "
             f"{TP_WORLD} -m repro_torch.launch.serve --tp {TP_WORLD} --backend gloo --fusion fused "
@@ -4037,9 +4088,7 @@ def autotune_phases(card) -> None:
             f"host-staged, provisional; {len(entries)} cache entries under it); {runs[0]['ms_step']:.2f} "
             f"ms/step, {runs[0]['wall']:.1f} s with start, init and calibration; streams = phase "
             f"28's streams: {runs[0]['streams'] == fused28}"
-            + (f" ({'; '.join(runs[0]['notes'])})" if runs[0]["notes"] else "")
-            + f"; (b) again from the cache: {summary[1][0]}, the same decisions and streams, "
-            f"{runs[1]['ms_step']:.2f} ms/step, {runs[1]['wall']:.1f} s with start and init")
+            + (f" ({'; '.join(runs[0]['notes'])})" if runs[0]["notes"] else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -4941,9 +4990,10 @@ def prefill_world_rank(rank, tp, init, settings, inputs, out):
 # settings and the setting's tp; tp = 2 runs on the pairs (0, 1) and (2, 3)),
 # on TRAIN_GRAD_LAYERS full-width layers at phase 27's long batch
 # (TRAIN_LONG_B x TRAIN_LONG_S: 512 positions a rank at tp = 4, phase 35's hop
-# shapes); skew 1 at 2 sub-chunks against skew 0
+# shapes); skew 1 at 2 sub-chunks against skew 0.  Bulk and plain fused mode
+# at tp = 4 were cut when phases 41-43 came, for the script's time
 TRAIN_TP_GRADS = [
-    ("bulk", dict(mode="bulk")), ("fused", dict(mode="fused")), ("kernel", dict(mode="kernel")),
+    ("kernel", dict(mode="kernel")),
     ("fused q2 bf16", dict(mode="fused", granularity=2, wire="bf16")),
     ("fused q2 bf16 skew 1", dict(mode="fused", granularity=2, wire="bf16", skew=1)),
     ("tp 2 kernel", dict(mode="kernel", tp=2))]
@@ -4953,12 +5003,17 @@ TRAIN_TP_GRADS = [
 # the table (66.6 M): with bf16 weights and gradients and f32 AdamW moments
 # about 12 bytes a parameter, 4.5 GB a rank at 4 layers and 18 GB for the
 # four, beside four CUDA contexts; at all 28 layers (2.25 G parameters a
-# rank) four ranks do not fit one card
-TRAIN_TP_LAYERS, TRAIN_TP_STEPS = 4, 3
-TRAIN_TP_SETTINGS = [("kernel", dict(mode="kernel")), ("fused", dict(mode="fused"))]
+# rank) four ranks do not fit one card.  Cut from 4 layers to 2 when phases
+# 41-43 came, for the script's time (phase 39 took 82.6 s at 4)
+TRAIN_TP_LAYERS, TRAIN_TP_STEPS = 2, 3
+# kernel mode only: fused mode's steps were cut when phases 41-43 came (phase
+# 38 holds fused mode's gradients)
+TRAIN_TP_SETTINGS = [("kernel", dict(mode="kernel"))]
 # Phase 40: the launcher at tp = 2 against tp = 1 on the same flags, full
 # width cut to TRAIN_GRAD_LAYERS layers (the reduced model's heads of 16 are
 # not a size the flash kernel takes)
+TRAIN_EXACT: dict = {}    # phase 38's exact gradients, which phase 42 is held to
+TRAIN_TP1: dict = {}      # phases 39-40's tp = 1 runs, which phases 42-43 are held to
 TRAIN_TP_LAUNCH = ["--fusion", "kernel", "--layers", str(TRAIN_GRAD_LAYERS), "--steps", "6",
                    "--lr", TRAIN_LR, "--log-every", "1"]
 
@@ -5033,13 +5088,14 @@ def train_tp_grad_phase(card) -> dict:
     del grads_b, loss_b, loss_x
     (ROOT / "build").mkdir(exist_ok=True)
     notes, row = [], {}
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        path = Path(tmp) / "exact_grads.pt"
-        torch.save({n_: g.cpu() for n_, g in zip(names, grads_x)}, path)
-        del grads_x
-        torch.cuda.empty_cache()
-        ranks = spawn_world(RING_TP, TRAIN_TP_GRADS, target=train_world_rank, args=(dict(
-            kind="grads", layers=L, batch=batch_np, exact=str(path), loss=lx),))["ranks"]
+    # the file stays for phase 42, which removes it
+    path = Path(tempfile.mkdtemp(dir=ROOT / "build")) / "exact_grads.pt"
+    torch.save({n_: g.cpu() for n_, g in zip(names, grads_x)}, path)
+    del grads_x
+    torch.cuda.empty_cache()
+    TRAIN_EXACT.update(path=path, names=names, dist_b=dist_b, lb=lb, lx=lx, batch=batch_np)
+    ranks = spawn_world(RING_TP, TRAIN_TP_GRADS, target=train_world_rank, args=(dict(
+        kind="grads", layers=L, batch=batch_np, exact=str(path), loss=lx),))["ranks"]
     for name, kw in TRAIN_TP_GRADS:
         tp = kw.get("tp", RING_TP)
         mine = [r_[name] for r_ in ranks]
@@ -5115,14 +5171,15 @@ class EventClock:
 
 def train_steps(bundle, ctx, batches, on_phase=None):
     """TRAIN_TP_STEPS AdamW steps at lr TRAIN_LR (f32 moments) from the
-    seed-0 weights (this rank's shards at tp > 1) on ``batches``, the second
+    seed-0 weights (this rank's training shards in a world) on ``batches``, the second
     under torch.profiler (CUDA activity); returns (losses, state, (the
     second step's device ms, of which the flash kernel's))."""
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
 
     gen = torch.Generator(device=ctx.device).manual_seed(0)
-    params = bundle.init_params(gen, ctx) if ctx.tp > 1 else bundle.init_params(gen)
+    params = (bundle.init_params(gen, ctx, training=True) if ctx.tp > 1 or ctx.dp > 1 else
+              bundle.init_params(gen))
     tc = TrainConfig(optimizer=OptimizerConfig(lr=float(TRAIN_LR), warmup_steps=5,
                                                total_steps=TRAIN_TP_STEPS))
     step = build_train_step(bundle.loss_fn(ctx), tc, ctx=ctx,
@@ -5155,7 +5212,7 @@ def train_steps(bundle, ctx, batches, on_phase=None):
 def train_tp_step_phase(card) -> dict:
     """Phase 39: TRAIN_TP_STEPS AdamW steps of full-width chatglm3-6b cut to
     TRAIN_TP_LAYERS layers at TRAIN_LONG_B x TRAIN_LONG_S (LMBatches seed 0)
-    at tp = 4 in kernel and fused mode (a spawned gloo world on the card),
+    at tp = 4 in kernel mode (a spawned gloo world on the card),
     each rank from its shards of the seed-0 weights: the losses within
     TRAIN_LOSS_REL of TRAIN_TP_STEPS tp = 1 kernel-mode steps of the same
     layers made here, every whole parameter bit-identical across the ranks
@@ -5177,6 +5234,7 @@ def train_tp_step_phase(card) -> dict:
         mode="kernel")), [to_device(b_, "cuda") for b_ in batches], clock)
     split1 = clock.split()[-1]
     peak1 = torch.cuda.max_memory_allocated() / 1e9
+    TRAIN_TP1.update(losses=want, batches=batches, step_ms=split1[4], peak=peak1)
     del state
     torch.cuda.empty_cache()
     ranks = spawn_world(RING_TP, TRAIN_TP_SETTINGS, target=train_world_rank, args=(dict(
@@ -5228,6 +5286,7 @@ def train_tp_launcher_phase(card) -> dict:
     from repro_torch.launch import train as launch_train
 
     want = launch_train.main(TRAIN_TP_LAUNCH)
+    TRAIN_TP1["launcher_losses"] = want
     torch.cuda.empty_cache()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -5365,6 +5424,639 @@ def train_world_rank(rank, tp, init, settings, inputs, out):
         out.put((rank, "err", traceback.format_exc()))
     finally:
         close_world()
+
+
+# ---------------------------------------------------------------------------
+# phases 41-43: paged serving at tp > 1, the data axis, the launchers there
+# ---------------------------------------------------------------------------
+# Phases 41-42 cut full-width chatglm3-6b to PAGED_TP_LAYERS layers (the
+# worlds' steps pass every payload through host memory: at 28 layers phase
+# 23's traffic takes minutes a setting); phase 42's decode and paged serving
+# run at the same depth, its gradients at phase 38's TRAIN_GRAD_LAYERS and
+# its AdamW steps at phase 39's TRAIN_TP_LAYERS (held to phase 39's tp = 1
+# steps).  At 4 layers a (2, 2) step took 7.1-8.6 s on an H100,
+# the fsdp gathers through host memory 5.2-5.7 s of it, and the whole script
+# 1071.5 s of its 1200
+PAGED_TP_LAYERS = DATA_LAYERS = 2
+DATA_STEPS = 2           # of phase 39's 3 AdamW steps
+PAGED_TP_SETTINGS = [("tp 4 fused", dict(mode="fused")), ("tp 4 bulk", dict(mode="bulk")),
+                     ("tp 2 fused", dict(mode="fused", tp=2))]
+PAGED_TP: dict = {}       # phase 41's tp = 1 run, which phase 42's paged serving is held to
+DATA_DECODE_STEPS = 4
+# phase 42's settings in one world of 4 ranks: (name, kind, (dp, tp), mode)
+DATA_SETTINGS = [("(4, 1) kernel decode", dict(kind="decode", dp=4, tp=1, mode="kernel")),
+                 ("(4, 1) kernel grads", dict(kind="grads", dp=4, tp=1, mode="kernel")),
+                 ("(2, 2) fused grads", dict(kind="grads", dp=2, tp=2, mode="fused")),
+                 ("(2, 2) fused decode", dict(kind="decode", dp=2, tp=2, mode="fused")),
+                 ("(2, 2) bulk decode", dict(kind="decode", dp=2, tp=2, mode="bulk")),
+                 ("(2, 2) fused paged", dict(kind="paged", dp=2, tp=2, mode="fused")),
+                 ("(2, 2) bulk paged", dict(kind="paged", dp=2, tp=2, mode="bulk")),
+                 ("(2, 2) fused steps", dict(kind="steps", dp=2, tp=2, mode="fused")),
+                 ("(2, 2) bulk steps", dict(kind="steps", dp=2, tp=2, mode="bulk")),
+                 ("(1, 2) fused steps", dict(kind="steps", dp=1, tp=2, mode="fused"))]
+
+
+def cut_glm(layers):
+    """Full-width chatglm3-6b cut to its first ``layers`` layers, and the
+    same in f32 (the exact evaluation)."""
+    from repro_torch.configs.registry import get_arch
+
+    bundle = get_arch("chatglm3-6b")
+    cfg = dataclasses.replace(bundle.config, n_layers=layers)
+    return (dataclasses.replace(bundle, config=cfg), dataclasses.replace(bundle, config=(
+        dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32"))))
+
+
+def paged_drive(bundle, params, serve, prompts, dev, tp=1, stripes=None):
+    """Phase 23(b)'s traffic (``prompts`` x PAGED_NEW, batch PAGED_B, chunk
+    PAGED_CHUNK, the launcher's default pool striped over ``tp``) through a
+    tracked PagedDecodeEngine: (streams, first generated tokens' logits,
+    the log, where, the engine, host seconds).  ``stripes``, a list of tp
+    zeros, gathers each stripe's peak of the blocks the tables name."""
+    from repro_torch.serve.engine import Request
+
+    cfg = bundle.config
+    nb = PAGED_B * cfg.max_seq // 2 // PAGED_BLOCK
+    log, where = [], {}
+    rec = record(serve, log)
+
+    def step(t_, pl, tb, p_, n_):
+        if stripes is not None:
+            held = torch.unique(tb)
+            per = torch.bincount(held[held >= 0] // (nb // tp), minlength=tp).tolist()
+            stripes[:] = [max(a, b) for a, b in zip(stripes, per)]
+        return rec(params, t_, pl, tb, p_, n_)
+    eng = tracked_engine(log, where)(
+        step, lambda n_, bs: bundle.init_paged_pool(n_, bs, dev, tp), PAGED_B, num_blocks=nb,
+        block_size=PAGED_BLOCK, max_seq=cfg.max_seq, chunk=PAGED_CHUNK, device=dev,
+        n_stripes=tp)
+    reqs = [Request(uid=i, prompt=list(p_), max_new=PAGED_NEW) for i, p_ in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    if not eng.run_until_drained().drained or any(len(r.tokens) != PAGED_NEW for r in reqs):
+        raise AssertionError(f"paged engine at tp={tp}: requests {[len(r.tokens) for r in reqs]}")
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    firsts = [log[where[(r.uid, 0)][0]]["logits"][where[(r.uid, 0)][1]] for r in reqs]
+    return [r.tokens for r in reqs], firsts, log, where, eng, wall
+
+
+def step_ms(serve, params, log, pool, dev, sync_world=None) -> dict:
+    """ms of one serve_step at C = 1 and C = PAGED_CHUNK on a logged step's
+    inputs (the best of 5 on the host clock, synchronised; in a world the
+    ranks call in lockstep)."""
+    c1 = next(e for e in log if e["in"][0].shape[1] == 1)
+    c8 = next(e for e in log if e["in"][0].shape[1] == PAGED_CHUNK and bool((e["in"][3] > 0).all()))
+    out = {}
+    for name, e in (("C=1", c1), (f"C={PAGED_CHUNK}", c8)):
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize(dev)
+            if sync_world is not None:
+                sync_world()
+            t0 = time.perf_counter()
+            serve(params, e["in"][0], pool, *e["in"][1:])
+            torch.cuda.synchronize(dev)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[name] = min(ts)
+    return out
+
+
+def paged_refs(bundle, exact, params) -> dict:
+    """Phase 41's tp = 1 yardsticks on ``params``: a bulk paged run of the
+    seeded prompts (its streams, log and first tokens), its exact f32
+    replay, and a dense bulk and exact prefill of each prompt."""
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    cfg = bundle.config
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    prompts = [torch.randint(0, cfg.vocab, (n_,), generator=gen, device="cuda").tolist()
+               for n_ in PAGED_PROMPTS]
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    params32 = _map(params, lambda t_: t_.float())
+    streams, firsts, log, where, eng, wall = paged_drive(bundle, params,
+                                                         bundle.serve_step_fn(ctx_b), prompts,
+                                                         "cuda")
+    nb = eng.kv.num_blocks
+    ref_x = replay(exact.serve_step_fn(ctx_b), params32, log,
+                   lambda: exact.init_paged_pool(nb, PAGED_BLOCK, "cuda"))
+    e_bx = live_err(log, [e["logits"] for e in log], ref_x)
+    firsts_x = [ref_x[where[(u, 0)][0]][where[(u, 0)][1]] for u in range(len(prompts))]
+    del ref_x
+    pre_b, pre_x = bundle.prefill_fn(ctx_b), exact.prefill_fn(ctx_b)
+    dense, bounds = [], []
+    for u, p_ in enumerate(prompts):
+        batch = {"tokens": torch.tensor([p_], device="cuda")}
+        db, dx = pre_b(params, batch)[0][0, 0], pre_x(params32, batch)[0][0, 0]
+        dense.append(db)
+        bounds.append(LOGITS_TOL_FACTOR * max(errors(firsts[u], firsts_x[u])[0],
+                                              errors(db, dx)[0]))
+    del params32
+    ms = step_ms(bundle.serve_step_fn(ctx_b), params, log, eng.pool, "cuda")
+    first_err = [errors(f_, d_)[0] for f_, d_ in zip(firsts, dense)]
+    return {"prompts": prompts, "streams": streams, "log": log, "where": where,
+            "tie_tol": LOGITS_TOL_FACTOR * e_bx, "dense": dense, "bounds": bounds,
+            "first_err": first_err, "ms": ms, "wall": wall, "steps": len(log), "nb": nb}
+
+
+def check_paged_world(label, got, refs) -> str:
+    """A world's paged run (every rank's streams equal: spawn_world checked
+    their digests) against phase 41's tp = 1 yardsticks: the streams equal
+    or apart first at a near tie, each first token's logits within its
+    bound of the dense prefill's; returns the line's part."""
+    chose = lambda u, k: refs["log"][refs["where"][(u, k)][0]]["logits"][refs["where"][(u, k)][1]]
+    flips = near_tie_flips(got["streams"], refs["streams"], chose, refs["tie_tol"])
+    errs = []
+    for u, (f_, d_, b_) in enumerate(zip(got["firsts"], refs["dense"], refs["bounds"])):
+        e = errors(torch.as_tensor(f_).to(d_.device), d_)[0]
+        if not e <= b_:
+            raise AssertionError(f"{label} request {u} ({len(refs['prompts'][u])} tokens): first "
+                                 f"token's logits {e:.3g} from the dense prefill's, above {b_:.3g}")
+        errs.append(f"{e:.3g}")
+    return (f"{label}: streams = tp 1's {got['streams'] == refs['streams']}"
+            + (f" ({'; '.join(flips)})" if flips else "")
+            + f", first tokens from the dense prefill {', '.join(errs)}")
+
+
+def paged_tp_phase(card) -> None:
+    """Phase 41: paged serving at tp = 4 and 2 (see the module docstring)."""
+    bundle, exact = cut_glm(PAGED_TP_LAYERS)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    refs = paged_refs(bundle, exact, params)
+    del params
+    torch.cuda.empty_cache()
+    PAGED_TP.update(refs)
+    ranks = spawn_world(RING_TP, PAGED_TP_SETTINGS, target=paged_world_rank, args=(dict(
+        layers=PAGED_TP_LAYERS, prompts=refs["prompts"]),))["ranks"]
+    notes = []
+    for name, kw in PAGED_TP_SETTINGS:
+        tp = kw.get("tp", RING_TP)
+        mine = [r_[name] for r_ in ranks]
+        part = check_paged_world(name, mine[0], refs)
+        stripes = mine[0]["stripes"]
+        if any(m_["stripes"] != stripes for m_ in mine) or not all(x > 0 for x in stripes):
+            raise AssertionError(f"{name}: stripe peaks {[m_['stripes'] for m_ in mine]}")
+        ms = {k_: max(m_["ms"][k_] for m_ in mine) for k_ in mine[0]["ms"]}
+        notes.append(f"{part}; {mine[0]['steps']} steps in {max(m_['wall'] for m_ in mine):.2f} "
+                     f"s, each stripe's peak blocks {stripes} (of {refs['nb'] // tp}); ms a "
+                     f"serve_step " + ", ".join(f"{k_} {v:.2f}" for k_, v in ms.items()))
+    say(41, f"[{TP_LABEL.format(RING_TP)}] paged serving of full-width chatglm3-6b cut to "
+            f"{PAGED_TP_LAYERS} layers (seed-0 weights), prompts of {list(PAGED_PROMPTS)} seeded "
+            f"tokens x {PAGED_NEW} new, batch {PAGED_B}, chunk {PAGED_CHUNK}, {refs['nb']} blocks "
+            f"of {PAGED_BLOCK} striped over the ranks; every rank's streams equal; tp = 1 bulk: "
+            f"{refs['steps']} steps in {refs['wall']:.2f} s, first tokens from the dense prefill "
+            + ", ".join(f"{e:.3g}" for e in refs["first_err"]) + " (bounds "
+            + ", ".join(f"{b_:.3g}" for b_ in refs["bounds"]) + "), ms a serve_step "
+            + ", ".join(f"{k_} {v:.2f}" for k_, v in refs["ms"].items()) + "; "
+            + "; ".join(notes))
+
+
+def paged_world_rank(rank, tp, init, settings, inputs, out):
+    """One rank of phase 41's world: each setting's paged run over its stripe
+    (tp = 2 on the pairs of the world), timed steps."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import close_world, init_world
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dev = init_world(tp, "gloo", "cuda", rank=rank, init_method=init)
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        world = {tp: dict(), 2: dict(group=pairs[rank // 2])}
+        bundle, _ = cut_glm(inputs["layers"])
+        res = {}
+        for name, kw in settings:
+            kw = dict(kw)
+            t_ = kw.pop("tp", tp)
+            c = ParallelContext(device=dev, tp=t_, fusion=FusionConfig(**kw), **world[t_])
+            params = bundle.init_params(torch.Generator(device=dev).manual_seed(0), c)
+            serve = bundle.serve_step_fn(c)
+            stripes = [0] * t_
+            streams, firsts, log, _, eng, wall = paged_drive(bundle, params, serve,
+                                                             inputs["prompts"], dev, t_, stripes)
+            group = world[t_].get("group")
+            ms = step_ms(serve, params, log, eng.pool, dev, lambda: dist.barrier(group=group))
+            # numpy, not tensors: a tensor would be handed over through this
+            # process's file descriptors, which close when it ends
+            res[name] = {"streams": streams, "firsts": [f_.float().cpu().numpy() for f_ in firsts],
+                         "stripes": stripes, "steps": len(log), "wall": wall, "ms": ms,
+                         "digest": _digest([torch.tensor(sum(streams, []))]),
+                         "finite": all(bool(torch.isfinite(f_).all()) for f_ in firsts)}
+            del params, log, eng
+            torch.cuda.empty_cache()
+        out.put((rank, "ok", res))
+    except Exception:
+        out.put((rank, "err", traceback.format_exc()))
+    finally:
+        close_world()
+
+
+def decode_refs(bundle, exact, params) -> dict:
+    """Phase 42's decode yardsticks: DATA_DECODE_STEPS teacher-forced steps
+    of seeded tokens at batch 4 (per-slot positions), tp = 1 bulk and exact
+    f32 logits."""
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    cfg = bundle.config
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    tokens = [torch.randint(0, cfg.vocab, (4, 1), generator=gen, device="cuda")
+              for _ in range(DATA_DECODE_STEPS)]
+    pos = [torch.arange(4, device="cuda", dtype=torch.int32) * 3 + s
+           for s in range(DATA_DECODE_STEPS)]
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    out = {}
+    for name, b_, p_ in (("bulk", bundle, params),
+                         ("exact", exact, _map(params, lambda t_: t_.float()))):
+        dec, cache, logits = b_.decode_fn(ctx_b), b_.init_cache(4, "cuda"), []
+        for tk, ps in zip(tokens, pos):
+            lg, cache = dec(p_, tk, cache, ps)
+            logits.append(lg)
+        out[name] = torch.stack(logits)
+        del cache
+    return {"tokens": [t_.cpu() for t_ in tokens], "pos": [p_.cpu() for p_ in pos],
+            "exact": out["exact"], "err_bx": errors(out["bulk"], out["exact"])[0]}
+
+
+def data_axis_phase(card) -> dict:
+    """Phase 42: the data axis (see the module docstring); returns the flash
+    and fused rows' numbers at (4, 1)."""
+    import shutil
+
+    bundle, exact = cut_glm(DATA_LAYERS)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    dec = decode_refs(bundle, exact, params)
+    kern = replica_kernels(params)
+    del params
+    torch.cuda.empty_cache()
+    # phase 39's first DATA_STEPS batches and its tp = 1 losses on them
+    want_steps = TRAIN_TP1["losses"][:DATA_STEPS]
+    tex = TRAIN_EXACT
+    try:
+        ranks = spawn_world(RING_TP, DATA_SETTINGS, target=data_world_rank, args=(dict(
+            layers=DATA_LAYERS, grad_layers=TRAIN_GRAD_LAYERS, step_layers=TRAIN_TP_LAYERS,
+            tokens=dec["tokens"], pos=dec["pos"], prompts=PAGED_TP["prompts"],
+            exact=str(tex["path"]), loss=tex["lx"], batch=tex["batch"],
+            batches=TRAIN_TP1["batches"][:DATA_STEPS]),))["ranks"]
+    finally:
+        shutil.rmtree(Path(tex["path"]).parent, ignore_errors=True)
+    notes, row = [], {}
+    bound_dec = LOGITS_TOL_FACTOR * dec["err_bx"]
+    for name, kw in DATA_SETTINGS:
+        mine = [r_[name] for r_ in ranks]
+        if kw["kind"] == "decode":
+            e = max(errors(torch.as_tensor(m_["logits"]).to(dec["exact"].device), dec["exact"])[0]
+                    for m_ in mine)
+            if not e <= bound_dec:
+                raise AssertionError(f"{name}: logits {e:.4g} from exact f32, above {bound_dec:.4g}")
+            part = f"{name}: logits {e:.4g} from exact f32"
+            if kw["mode"] == "kernel":
+                want = DATA_LAYERS * DATA_DECODE_STEPS
+                got = [(m_["launches"], m_["stream"]) for m_ in mine]
+                if got != [(want, want)] * RING_TP:
+                    raise AssertionError(f"{name}: fused launches (all, stream path) a rank {got}, "
+                                         f"expected {want} each on the stream path")
+                row["dp_decode_launches"] = [g_[0] for g_ in got]
+                part += (f", fused_matmul_allreduce launches a rank {[g_[0] for g_ in got]}, all "
+                         f"on the stream path at 1 row")
+        elif kw["kind"] == "grads":
+            loss_bound = LOGITS_TOL_FACTOR * abs(tex["lb"] - tex["lx"])
+            if not mine[0]["loss_err"] <= loss_bound:
+                raise AssertionError(f"{name}: loss {mine[0]['loss']:.6f} {mine[0]['loss_err']:.3g} "
+                                     f"from exact f32, above {loss_bound:.3g}")
+            worst = 0.0
+            for i, n_ in enumerate(tex["names"]):
+                e = max(m_["errs"][i] for m_ in mine)
+                if not e <= LOGITS_TOL_FACTOR * tex["dist_b"][i]:
+                    raise AssertionError(f"{name} gradient {n_}: {e:.3g} from exact f32, above "
+                                         f"{LOGITS_TOL_FACTOR} x tp = 1 bulk's {tex['dist_b'][i]:.3g}")
+                worst = max(worst, e / tex["dist_b"][i])
+            want = [2 * TRAIN_GRAD_LAYERS if kw["mode"] == "kernel" else 0] * RING_TP
+            if [m_["launches"] for m_ in mine] != want:
+                raise AssertionError(f"{name}: flash launches a rank "
+                                     f"{[m_['launches'] for m_ in mine]}, expected {want}")
+            if kw["mode"] == "kernel":
+                row["dp_train_launches"] = want
+            shared = check_placed(f"{name} gradients", [m_["placed"] for m_ in mine])
+            fwd, bwd, ar = (max(m_["ms"][i] for m_ in mine) for i in range(3))
+            part = (f"{name} ({TRAIN_GRAD_LAYERS} layers, {TRAIN_LONG_B}x{TRAIN_LONG_S}, "
+                    f"{TRAIN_LONG_B // kw['dp']} rows a replica): loss {mine[0]['loss']:.6f} "
+                    f"({mine[0]['loss_err']:.3g} from exact), every shard within {worst:.3g} of "
+                    f"its tp = 1 bulk distance, {shared} leaves held by several ranks "
+                    f"bit-identical on them, flash launches a rank {want}; ms forward "
+                    f"{fwd:.1f}, backward {bwd:.1f}, all-reduce {ar:.2f}")
+        elif kw["kind"] == "paged":
+            part = check_paged_world(name, mine[0], PAGED_TP) + (
+                f"; {mine[0]['steps']} steps in {max(m_['wall'] for m_ in mine):.2f} s")
+        else:
+            got, want = mine[0]["losses"], want_steps
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            if any(m_["losses"] != got for m_ in mine) or not rel <= TRAIN_LOSS_REL:
+                raise AssertionError(f"{name}: losses {[m_['losses'] for m_ in mine]} against "
+                                     f"tp = 1's {want} (bound {TRAIN_LOSS_REL})")
+            shared = check_placed(f"{name} parameters", [m_["placed"] for m_ in mine])
+            last = [max(m_["split"][-1][i] for m_ in mine) for i in range(5)]
+            data_ms = max(m_["data_ms"][-1] for m_ in mine)
+            peak = max(m_["peak"] for m_ in mine)
+            row.setdefault("dp_step_ms", {})[name] = last
+            row.setdefault("dp_peak_gb", {})[name] = peak
+            part = (f"{name}: losses {', '.join(f'{x:.5f}' for x in got)} ({rel:.3g} of tp = 1's "
+                    f"at most), step {DATA_STEPS} {last[4]:.1f} ms = forward {last[0]:.1f} + "
+                    f"backward {last[1]:.1f} + all-reduce {last[2]:.1f} + optimizer "
+                    f"{last[3]:.1f} (slowest rank each), of which the data-axis collectives "
+                    f"{data_ms:.1f} ms on the host clock, peak a rank {peak:.2f} GB, "
+                    f"parameters and moments {sum(mine[0]['state_bytes']) / 1e9:.3f} GB a rank; "
+                    f"{shared} parameter leaves held by several ranks bit-identical on them")
+        notes.append(part)
+    split_note = check_fsdp_split([r_["(2, 2) fused steps"] for r_ in ranks],
+                                  [r_["(1, 2) fused steps"] for r_ in ranks], row["dp_peak_gb"])
+    say(42, f"[{TP_LABEL.format(RING_TP)}] the data axis, full-width chatglm3-6b cut to "
+            f"{DATA_LAYERS} layers (seed-0 weights; the gradients at {TRAIN_GRAD_LAYERS}): "
+            f"decode of {DATA_DECODE_STEPS} teacher-forced steps at batch 4, bound "
+            f"{bound_dec:.4g} ({LOGITS_TOL_FACTOR} x tp = 1 bulk's {dec['err_bx']:.4g}); paged "
+            f"serving as phase 41; {DATA_STEPS} AdamW steps of {TRAIN_TP_LAYERS} layers at "
+            f"{TRAIN_LONG_B}x{TRAIN_LONG_S} against phase 39's tp = 1 losses "
+            f"{', '.join(f'{x:.5f}' for x in want_steps)}; every rank's logits, streams and "
+            f"losses equal in each setting; {kern['note']}; " + "; ".join(notes)
+            + f"; {split_note}")
+    row.update(kern["row"])
+    return row
+
+
+def check_placed(what, placed) -> int:
+    """Each leaf's digest equal on every rank that holds the same part of it
+    (``placed``: each rank's [(place, digest)] a leaf); returns how many
+    leaves' parts were held by more than one rank."""
+    held = {}
+    for mine in placed:
+        for i, (place, dg) in enumerate(mine):
+            held.setdefault((i, tuple(place)), []).append(dg)
+    bad = sorted({i for (i, _), dgs in held.items() if len(set(dgs)) != 1})
+    if bad:
+        raise AssertionError(f"{what}: leaves {bad} differ between ranks that hold the same part")
+    return len({i for (i, _), dgs in held.items() if len(dgs) > 1})
+
+
+def check_fsdp_split(split, whole, peaks) -> str:
+    """The fsdp split on the card: each rank's parameter and AdamW moment
+    bytes a leaf at (2, 2) are the (1, 2) rank's over dp = 2 where the
+    leaf's spec splits over data and equal elsewhere; and the (2, 2) peak
+    lies below the (1, 2) one by at least the bytes the split saves (its
+    gradients and its rows a replica halve too, so the peak drops by more;
+    the bytes check is the one that sees the split alone)."""
+    for r, (a, b) in enumerate(zip(split, whole)):
+        want = [w_ // 2 if over else w_ for w_, over in zip(b["state_bytes"], a["over_data"])]
+        if a["state_bytes"] != want:
+            raise AssertionError(f"rank {r}: (2, 2) parameter and moment bytes a leaf "
+                                 f"{a['state_bytes']}, expected {want} (the fsdp split of (1, 2)'s)")
+    saved = (sum(whole[0]["state_bytes"]) - sum(split[0]["state_bytes"])) / 1e9
+    drop = peaks["(1, 2) fused steps"] - peaks["(2, 2) fused steps"]
+    if not drop >= saved:
+        raise AssertionError(f"the (2, 2) world's peak {peaks['(2, 2) fused steps']:.2f} GB is "
+                             f"{drop:.2f} GB below the (1, 2) world's, under the "
+                             f"{saved:.3f} GB the fsdp split saves")
+    return (f"the fsdp split: every leaf's (2, 2) parameter and moment bytes the (1, 2) rank's "
+            f"over 2 where it splits over data, {saved:.3f} GB a rank saved; peak a rank "
+            f"{peaks['(2, 2) fused steps']:.2f} GB against (1, 2)'s "
+            f"{peaks['(1, 2) fused steps']:.2f}, {drop:.2f} GB lower (bound {saved:.3f})")
+
+
+def replica_kernels(params) -> dict:
+    """The two kernels at the shapes a (4, 1) replica gives them, against
+    their plain versions on the same inputs: the fused GEMV+AllReduce kernel
+    on one decode row ([1, 13696] bf16 @ layer 0's w_down: the stream path
+    at one row a block) at BF16_TOL, and flash with statistics on one
+    training row (chatglm3-6b's 32 query and 2 kv heads of 128 over
+    TRAIN_LONG_S causal positions: the tile path), o at BF16_TOL and m, l
+    at F32_TOL as phase 35 holds a hop."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce
+    from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    w = params["layers"][0]["ffn"]["w_down"]
+    F, D = w.shape
+    x = randn(gen, (1, F), bf16)
+    got, took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(x, w))
+    if took != "stream":
+        raise AssertionError(f"fused [1,{F}]@[{F},{D}]: took the {took} path, not stream")
+    fused = check_close(f"fused [1,{F}]@[{F},{D}] stream path", got,
+                        fused_matmul_allreduce_ref(x, w), BF16_TOL)
+    cfg = get_arch("chatglm3-6b").config
+    q = randn(gen, (1, TRAIN_LONG_S, cfg.n_heads, cfg.hd), bf16)
+    k, v = (randn(gen, (1, TRAIN_LONG_S, cfg.n_kv_heads, cfg.hd), bf16) for _ in range(2))
+    kw = dict(scale=cfg.hd ** -0.5, causal=True)
+    want = plain_by_heads(q, k, v, stats=True, **kw)
+    (o, m, l), took = on_path(flash_attention, lambda: flash_attention(q, k, v, stats=True, **kw))
+    if took != "tile":
+        raise AssertionError(f"flash {tuple(q.shape)}: took the {took} path, not tile")
+    flash = [check_close(f"flash {tuple(q.shape)} {n_}", a, b, t_)[0] for n_, a, b, t_ in (
+        ("o", o, want[0], BF16_TOL), ("m", m, want[1], F32_TOL), ("l", l, want[2], F32_TOL))]
+    return {"row": {"dp_row_err": list(fused), "dp_flash_err": flash},
+            "note": (f"at a (4, 1) replica's shapes against the plain versions: "
+                     f"fused_matmul_allreduce [1,{F}]@[{F},{D}] bf16 (layer 0's w_down) on the "
+                     f"stream path, max abs/rel err {fused[0]:.3g}/{fused[1]:.3g} (bound "
+                     f"{BF16_TOL}); flash_attention with statistics [1,{TRAIN_LONG_S},"
+                     f"{cfg.n_heads}/{cfg.n_kv_heads},{cfg.hd}] causal on the tile path, max abs "
+                     f"err o {flash[0]:.3g} (bound {BF16_TOL}), m {flash[1]:.3g}, l "
+                     f"{flash[2]:.3g} (bound {F32_TOL})")}
+
+
+def data_world_rank(rank, tp, init, settings, inputs, out):
+    """One rank of phase 42's world of 4: each setting at its (dp, tp), the
+    groups made on every rank in the same order."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import collectives as col
+    from repro_torch.core.collectives import all_reduce_grads
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce
+    from repro_torch.launch.mesh import close_world, init_world
+    from repro_torch.parallel.sharding import (FusionConfig, ParallelContext, make_world_groups,
+                                               shard_leaf, splits_over_data, splits_over_tp)
+    from repro_torch.train.optimizer import spec_leaves, tree_leaves
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dev = init_world(tp, "gloo", "cuda", rank=rank, init_method=init)
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        make_world_groups(2, 2)
+        sync = lambda: torch.cuda.synchronize(dev)
+
+        def placed(c, tensors, specs):
+            """Each leaf's digest beside the part of the whole it is: the
+            world (the pairs are two), the tp rank where it splits over tp,
+            the data rank where it splits over data."""
+            world = rank // (c.dp * c.tp)
+            return [((world, c.tp_rank if splits_over_tp(sp) else None,
+                      c.dp_rank if c.dp > 1 and splits_over_data(sp) else None), _digest([t_]))
+                    for t_, sp in zip(tensors, specs)]
+
+        def ctx(kw):
+            extra = dict(group=pairs[rank // 2]) if (kw["dp"], kw["tp"]) == (1, 2) else {}
+            return ParallelContext(device=dev, tp=kw["tp"], dp=kw["dp"],
+                                   fusion=FusionConfig(mode=kw["mode"]), **extra)
+        bundle, _ = cut_glm(inputs["layers"])
+        grad_bundle, _ = cut_glm(inputs["grad_layers"])
+        step_bundle, _ = cut_glm(inputs["step_layers"])
+        real_on_wire, spent = col._on_wire, [0.0]
+        res = {}
+        for name, kw in settings:
+            c = ctx(kw)
+            if kw["kind"] == "decode":
+                params = bundle.init_params(torch.Generator(device=dev).manual_seed(0), c)
+                dec, cache = bundle.decode_fn(c), bundle.init_cache(4, dev, c.tp, c.dp)
+                reset_counts()
+                logits = []
+                for tk, ps in zip(inputs["tokens"], inputs["pos"]):
+                    lg, cache = dec(params, tk.to(dev), cache, ps.to(dev))
+                    logits.append(lg)
+                logits = torch.stack(logits)
+                res[name] = {"logits": logits.float().cpu().numpy(), "digest": _digest([logits]),
+                             "finite": bool(torch.isfinite(logits).all()),
+                             "launches": fused_matmul_allreduce.launches,
+                             "stream": fused_matmul_allreduce.path_launches.get("stream", 0)}
+                del params, cache
+            elif kw["kind"] == "paged":
+                params = bundle.init_params(torch.Generator(device=dev).manual_seed(0), c)
+                streams, firsts, log, _, eng, wall = paged_drive(
+                    bundle, params, bundle.serve_step_fn(c), inputs["prompts"], dev, c.tp)
+                res[name] = {"streams": streams,
+                             "firsts": [f_.float().cpu().numpy() for f_ in firsts],
+                             "steps": len(log), "wall": wall,
+                             "digest": _digest([torch.tensor(sum(streams, []))]),
+                             "finite": all(bool(torch.isfinite(f_).all()) for f_ in firsts)}
+                del params, log, eng
+            elif kw["kind"] == "grads":
+                batch = {k: torch.as_tensor(v).to(dev) for k, v in inputs["batch"].items()}
+                params = grad_bundle.init_params(torch.Generator(device=dev).manual_seed(0), c,
+                                                 training=True)
+                leaves = tree_leaves(params)
+                for p_ in leaves:
+                    p_.requires_grad_(True)
+                specs = spec_leaves(grad_bundle.param_specs(params))
+                exact = torch.load(inputs["exact"], mmap=True)
+                want = [shard_leaf(g, sp, c, training=True).to(dev)
+                        for g, sp in zip(exact.values(), specs)]
+                del exact
+                loss_fn = grad_bundle.loss_fn(c)
+                flash_attention.launches = 0
+                sync()
+                t0 = time.perf_counter()
+                loss = loss_fn(params, batch)
+                sync()
+                t1 = time.perf_counter()
+                grads = list(torch.autograd.grad(loss, leaves))
+                sync()
+                t2 = time.perf_counter()
+                all_reduce_grads(c, grads, specs)
+                sync()
+                t3 = time.perf_counter()
+                res[name] = {"ms": ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3),
+                             "launches": flash_attention.launches, "loss": loss.item(),
+                             "loss_err": abs(loss.item() - inputs["loss"]),
+                             "errs": [(g.float() - w_).abs().max().item()
+                                      for g, w_ in zip(grads, want)],
+                             "placed": placed(c, grads, specs),
+                             "digest": _digest([loss.detach()]),
+                             "finite": bool(torch.isfinite(loss)) and all(
+                                 bool(torch.isfinite(g).all()) for g in grads)}
+                del params, leaves, grads, want, loss
+            else:
+                batches = [{k: torch.as_tensor(v).to(dev) for k, v in b_.items()}
+                           for b_ in inputs["batches"]]
+                clock, per_step = EventClock(), []
+                data = c.data if c.dp > 1 else None
+
+                def timed(cx, op, ins, outs_):
+                    """_on_wire, the data group's exchanges timed on the host."""
+                    if cx is not data:
+                        return real_on_wire(cx, op, ins, outs_)
+                    t0 = time.perf_counter()
+                    fin = real_on_wire(cx, op, ins, outs_)
+
+                    def finish():
+                        got = fin()
+                        sync()
+                        spent[0] += time.perf_counter() - t0
+                        return got
+                    return finish
+
+                def mark(name_):
+                    if name_ == "start":
+                        spent[0] = 0.0
+                    elif name_ == "optimizer":
+                        per_step.append(spent[0] * 1e3)
+                    clock(name_)
+                torch.cuda.reset_peak_memory_stats(dev)
+                col._on_wire = timed
+                try:
+                    losses, state, _ = train_steps(step_bundle, c, batches, mark)
+                finally:
+                    col._on_wire = real_on_wire
+                leaves = tree_leaves(state["params"])
+                specs = spec_leaves(step_bundle.param_specs(state["params"]))
+                moments = [tree_leaves(state["opt"][k_]) for k_ in ("mu", "nu")]
+                res[name] = {"losses": losses, "split": clock.split(), "data_ms": per_step,
+                             "peak": torch.cuda.max_memory_allocated(dev) / 1e9,
+                             "placed": placed(c, leaves, specs),
+                             "state_bytes": [sum(t_.nbytes for t_ in ts)
+                                             for ts in zip(leaves, *moments, strict=True)],
+                             "over_data": [splits_over_data(sp) for sp in specs],
+                             "digest": _digest([torch.tensor(losses)]),
+                             "finite": all(x == x and abs(x) < float("inf") for x in losses)}
+                del state, leaves, moments
+            torch.cuda.empty_cache()
+        out.put((rank, "ok", res))
+    except Exception:
+        out.put((rank, "err", traceback.format_exc()))
+    finally:
+        close_world()
+
+
+def data_launcher_phase(card) -> None:
+    """Phase 43: both launchers at --dp 2 --tp 2 (see the module docstring)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    # phase 40's flags at 2 steps: the warm-up's 5 steps keep the lr, and so
+    # the losses, of phase 40's first 2 steps
+    argv = list(TRAIN_TP_LAUNCH)
+    argv[argv.index("--steps") + 1] = "2"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+           "-m", "repro_torch.launch.train", "--dp", "2", "--tp", "2", "--backend", "gloo",
+           *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    got = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", proc.stdout)]
+    want = TRAIN_TP1["launcher_losses"][:2]
+    if proc.returncode or "all 4 ranks' losses equal: True" not in proc.stdout:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
+        raise AssertionError(f"train launcher at dp=2 tp=2: exit {proc.returncode}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want)) if len(got) == len(want) else 1.0
+    if not rel <= TRAIN_LOSS_REL:
+        raise AssertionError(f"train launcher at dp=2 tp=2: losses {got} against tp = 1's {want}")
+    step_s = re.findall(r"\(([\d.]+)s/step\)", proc.stdout)
+    serve = launcher_world_run("fused", ["--paged"], tp=2, dp=2)
+    notes = near_tie_notes("dp=2 tp=2 paged", serve["streams"])
+    say(43, f"[{TP_LABEL.format(4)}] python -m torch.distributed.run --nproc-per-node 4 -m "
+            f"repro_torch.launch.train --dp 2 --tp 2 --backend gloo {' '.join(argv)}: "
+            f"exit 0, all 4 ranks' losses equal; losses {', '.join(f'{x:.4f}' for x in got)} "
+            f"against tp = 1's {', '.join(f'{x:.4f}' for x in want)} ({rel:.3g} of them at most, "
+            f"bound {TRAIN_LOSS_REL}); {step_s[-1] if step_s else '?'} s a step on the host clock; "
+            f"{wall:.1f} s with start; -m repro_torch.launch.serve --dp 2 --tp 2 --paged --fusion "
+            f"fused (full width, 4 requests x 8 tokens, batch 4): all 4 ranks' streams equal, "
+            f"{serve['ms_step']:.2f} ms/step ({serve['steps']} steps, {serve['wall']:.1f} s with "
+            f"start and init), streams {[serve['streams'][u] for u in sorted(serve['streams'])]}; "
+            f"= tp 1 kernel mode (phase 5): "
+            f"{[serve['streams'][u] for u in sorted(serve['streams'])] == GLM_DECODE['streams']}"
+            + (f" ({'; '.join(notes)})" if notes else ""))
 
 
 def _map(tree, fn):

@@ -13,11 +13,16 @@ backward, so training it is item 6).  The reference's other architectures
 raise until their slice of the port lands.
 
 At tp > 1 (a ``ParallelContext`` over a tp world) only the dense transformers
-run: their decode, their prefill and their training (sequence-sharded: the KV
-ring, the embedding ring and the CE ring, each with its backward;
-``param_specs`` gives the leaves' logical specs the train step reads).
-rwkv6's heads over ranks are item 7, DLRM's tables over ranks item 6, MoE
-experts over ranks item 5 (``check_tp``, ``check_prefill``).
+run: their decode, their prefill, their paged serving (the pool's blocks
+striped over the ranks) and their training (sequence-sharded: the KV ring,
+the embedding ring and the CE ring, each with its backward; ``param_specs``
+gives the leaves' logical specs the train step reads).  Over data replicas
+(dp > 1) the same holds: decode and prefill split the batch's rows, paged
+serving is replicated, and training splits the rows and the fsdp dims of
+the train state (``init_params(..., training=True)``).  rwkv6's heads over
+ranks are item 7, DLRM's tables over ranks item 6, MoE experts over ranks
+item 5; MoE over data is item 5, DLRM over data item 6 (``check_tp``,
+``check_prefill``).
 """
 from __future__ import annotations
 
@@ -62,6 +67,14 @@ _MULTI_RANK_ITEMS = {
     "rwkv6": "rwkv6's heads sharded over tp (state_logical_specs) are ROADMAP Queue 1 item 7",
     "dlrm": "DLRM's tables split over real ranks are ROADMAP Queue 1 item 6",
 }
+# what a family needs before it runs over data replicas
+_DATA_ITEMS = {
+    "rwkv6": "rwkv6 over data replicas is ROADMAP Queue 1 item 7",
+    "dlrm": ("DLRM over data replicas (its embedding all-to-all over the flattened world) "
+             "is ROADMAP Queue 1 item 6"),
+    "moe": ("MoE over data replicas (decode over the (data, model) EP world, "
+            "src/repro/parallel/sharding.py:178-180) is ROADMAP Queue 1 item 5"),
+}
 # the model module of each family that prefills and decodes
 _DECODERS = {"transformer": "repro_torch.models.transformer",
              "rwkv6": "repro_torch.models.rwkv6"}
@@ -76,20 +89,28 @@ class ArchBundle:
     microbatches: int = 1   # train-time gradient accumulation (memory knob)
 
     def check_tp(self, ctx: ParallelContext | None):
-        """Raise for a family that does not run over ``ctx``'s tp ranks."""
+        """Raise for a family that does not run over ``ctx``'s tp ranks or
+        data replicas."""
         if ctx is not None and ctx.tp > 1 and self.family in _MULTI_RANK_ITEMS:
             raise NotImplementedError(f"{self.name} at tp={ctx.tp}: "
                                       f"{_MULTI_RANK_ITEMS[self.family]}")
+        if ctx is not None and getattr(ctx, "dp", 1) > 1:
+            kind = "moe" if getattr(self.config, "moe", None) is not None else self.family
+            if kind in _DATA_ITEMS:
+                raise NotImplementedError(f"{self.name} at dp={ctx.dp}: {_DATA_ITEMS[kind]}")
 
-    def init_params(self, gen: torch.Generator, ctx: ParallelContext | None = None):
-        """Random parameters on the generator's device; with a ``ctx`` at tp >
-        1, this rank's shards of the tp = 1 weights (drawn a part at a
-        time, each part whole, the rest freed)."""
+    def init_params(self, gen: torch.Generator, ctx: ParallelContext | None = None,
+                    training: bool = False):
+        """Random parameters on the generator's device; with a ``ctx`` of
+        more than one rank, this rank's shards of the one-rank weights
+        (drawn a part at a time, each part whole, the rest freed):
+        ``training`` places the fsdp dims over the data ranks, as the train
+        state is placed; serving keeps them whole."""
         self.check_tp(ctx)
         if self.family == "transformer":
             from repro_torch.models.transformer import transformer_init
 
-            return transformer_init(gen, self.config, ctx)
+            return transformer_init(gen, self.config, ctx, training)
         if self.family == "rwkv6":
             from repro_torch.models.rwkv6 import rwkv6_init
 
@@ -151,14 +172,16 @@ class ArchBundle:
         cfg = self.config
         return lambda p, t, c, pos: fn(ctx, p, cfg, t, c, pos)
 
-    def init_cache(self, batch_size: int, device, tp: int = 1):
+    def init_cache(self, batch_size: int, device, tp: int = 1, dp: int = 1):
         """The decode cache: a transformer's KV cache (at tp > 1 a rank's
-        ``S_max / tp`` rows of it), rwkv6's recurrent state."""
-        if tp == 1:
+        ``S_max / tp`` rows of it; at dp > 1 where dp divides the batch a
+        replica's rows of it), rwkv6's recurrent state."""
+        if tp == 1 and dp == 1:
             return self._decoder().init_cache(self.config, batch_size, device)
         if self.family != "transformer":
-            raise NotImplementedError(f"{self.name} at tp={tp}: {_MULTI_RANK_ITEMS[self.family]}")
-        return self._decoder().init_cache(self.config, batch_size, device, tp)
+            raise NotImplementedError(f"{self.name} at tp={tp}, dp={dp}: "
+                                      f"{_MULTI_RANK_ITEMS[self.family]}")
+        return self._decoder().init_cache(self.config, batch_size, device, tp, dp)
 
     # ---- paged serving (continuous batching) -----------------------------
     @property
@@ -174,13 +197,15 @@ class ArchBundle:
         -> (last-valid logits [B,V], pool)."""
         from repro_torch.models.transformer import serve_step
 
+        self.check_tp(ctx)
         cfg = self.config
         return lambda p, t, pool, tbl, pos, nn: serve_step(ctx, p, cfg, t, pool, tbl, pos, nn)
 
-    def init_paged_pool(self, num_blocks: int, block_size: int, device):
+    def init_paged_pool(self, num_blocks: int, block_size: int, device, tp: int = 1):
+        """A rank's stripe of a pool of ``num_blocks`` blocks, and its sink."""
         from repro_torch.models.transformer import init_paged_pool
 
-        return init_paged_pool(self.config, num_blocks, block_size, device)
+        return init_paged_pool(self.config, num_blocks, block_size, device, tp)
 
     def pool_specs(self, pool):
         from repro_torch.models.transformer import pool_logical_specs

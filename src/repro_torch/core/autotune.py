@@ -479,14 +479,28 @@ def _sync(out) -> None:
 
 
 def _world_reduce(ctx, values: list[float], op) -> list[float]:
-    """``values`` reduced over the tp world by ``op``: a list of the same
-    length, the same on every rank."""
+    """``values`` reduced by ``op`` over the whole world: over the tp group,
+    then over the data group at dp > 1; a list of the same length, the same
+    on every rank."""
     import torch.distributed as dist
 
     dev = ctx.device if ctx.backend == "nccl" else "cpu"
     t = torch.tensor(values, dtype=torch.float64, device=dev)
-    dist.all_reduce(t, op=op, group=ctx.group)
+    if ctx.tp > 1:
+        dist.all_reduce(t, op=op, group=ctx.group)
+    if ctx.dp > 1:
+        dist.all_reduce(t, op=op, group=ctx.data_group)
     return t.tolist()
+
+
+def _world_barrier(ctx):
+    """A barrier over the tp group, then over the data group at dp > 1."""
+    import torch.distributed as dist
+
+    if ctx.tp > 1:
+        dist.barrier(group=ctx.group)
+    if ctx.dp > 1:
+        dist.barrier(group=ctx.data_group)
 
 
 def measured_best(build_fn: Callable, candidates: Sequence, *,
@@ -498,11 +512,11 @@ def measured_best(build_fn: Callable, candidates: Sequence, *,
     Each candidate's window is timed on the host clock
     (``time.perf_counter``) from a synchronised start to a synchronised
     end: ``torch.cuda.synchronize`` on a CUDA result, and in a world
-    (``ctx`` with tp > 1) a barrier before and after, since a gloo
-    exchange waits on the host, where an event on the stream cannot see
-    it.  In a world every rank gets the same times (all-reduced with MAX:
-    a collective step is as slow as its slowest rank), so every rank picks
-    the same winner.
+    (``ctx`` of more than one rank) a barrier before and after, since a
+    gloo exchange waits on the host, where an event on the stream cannot
+    see it.  In a world every rank gets the same times (all-reduced with
+    MAX over the whole world, data replicas included: a collective step is
+    as slow as its slowest rank), so every rank picks the same winner.
 
     A candidate that raises is excluded, on every rank, and its error is
     put in ``errors`` (candidate -> message) when a dict is given; a CUDA
@@ -514,8 +528,8 @@ def measured_best(build_fn: Callable, candidates: Sequence, *,
     with no fallback the last error propagates."""
     import torch.distributed as dist
 
-    world = ctx is not None and ctx.tp > 1
-    barrier = (lambda: dist.barrier(group=ctx.group)) if world else (lambda: None)
+    world = ctx is not None and (ctx.tp > 1 or ctx.dp > 1)
+    barrier = (lambda: _world_barrier(ctx)) if world else (lambda: None)
 
     def agree(ok: bool) -> bool:
         """Whether the step went through on every rank of the world."""

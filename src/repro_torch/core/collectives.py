@@ -27,6 +27,10 @@ their own: each op that runs a ring is one ``torch.autograd.Function``
 whose backward runs the dual ring, so that every rank posts the same sends
 and receives in the same order.  :func:`all_reduce_grads` sums the
 gradients of the leaves every rank holds whole.
+
+The data axis (dp > 1): ``ctx.data`` is the data group as a context of its
+own, so the same collectives run over it (:func:`all_gather_data`,
+:func:`reduce_scatter_data`, :func:`data_mean`, :func:`fsdp_gather`).
 """
 from __future__ import annotations
 
@@ -38,8 +42,8 @@ import torch.distributed as dist
 from repro_torch.core.scheduling import ring_offsets, sub_chunk_service_order
 from repro_torch.parallel.sharding import ParallelContext
 
-_DP_ITEM = ("ROADMAP Queue 1 item 1 (left: data parallel, dp > 1, with the reference's "
-            "fsdp weight sharding)")
+_A2A_DATA_ITEM = ("ROADMAP Queue 1 items 5 and 6 (an all-to-all over the (data, model) "
+                  "world: MoE decode's two EP axes, DLRM's flattened world axis)")
 
 # ---------------------------------------------------------------------------
 # wire-fault injection hook (chaos engineering)
@@ -229,24 +233,80 @@ def reduce_scatter(ctx: ParallelContext, x, *, axis: int = 0):
 
 
 def all_reduce_grads(ctx: ParallelContext, grads: list, specs: list) -> list:
-    """Sum over the tp ranks, in place, the gradients of the leaves whose
-    logical spec names no tp axis (the leaves every rank holds whole, each
-    rank's gradient a partial over its own tokens); ``grads`` and ``specs``
-    are aligned lists.  The gradients of each dtype travel flattened in one
-    buffer: one all-reduce a dtype.  A no-op at tp = 1.  Returns ``grads``."""
-    if ctx.tp == 1:
-        return grads
-    from repro_torch.parallel.sharding import splits_over_tp
+    """Sum, in place, each gradient over the ranks that hold its leaf whole
+    (``grads`` and ``specs``, the leaves' logical specs, are aligned
+    lists): over the tp ranks a leaf whose spec names no tp axis (each
+    rank's gradient a partial over its own tokens), then over the data
+    ranks a leaf whose spec names no data axis (each replica's a partial
+    over its own rows; an fsdp-sharded leaf's gradient was reduce-scattered
+    over the data ranks by :class:`_FsdpGather`'s backward).  The loss a
+    replica differentiates is already the global mean (:func:`data_mean`),
+    so the sums are the gradient of the global mean loss.  The gradients of
+    each dtype travel flattened in one buffer: one all-reduce a dtype and
+    axis.  A no-op in a world of one rank.  Returns ``grads``."""
+    from repro_torch.parallel.sharding import splits_over_data, splits_over_tp
 
-    whole = [g for g, spec in zip(grads, specs) if not splits_over_tp(spec)]
-    for dtype in sorted({g.dtype for g in whole}, key=str):
-        group = [g for g in whole if g.dtype == dtype]
+    if ctx.tp > 1:
+        _sum_flat(ctx, [g for g, spec in zip(grads, specs) if not splits_over_tp(spec)])
+    if ctx.dp > 1:
+        _sum_flat(ctx.data, [g for g, spec in zip(grads, specs) if not splits_over_data(spec)])
+    return grads
+
+
+def _sum_flat(ctx: ParallelContext, grads: list):
+    """``grads`` summed in place over ``ctx``'s tp ranks, one flattened
+    all-reduce a dtype."""
+    for dtype in sorted({g.dtype for g in grads}, key=str):
+        group = [g for g in grads if g.dtype == dtype]
         flat = _all_reduce(ctx, torch.cat([g.reshape(-1) for g in group]))
         off = 0
         for g in group:
             g.copy_(flat[off:off + g.numel()].view_as(g))
             off += g.numel()
-    return grads
+
+
+# ---------------------------------------------------------------------------
+# the data axis: the same collectives over the data group
+# ---------------------------------------------------------------------------
+def all_gather_data(ctx: ParallelContext, x, *, axis: int = 0):
+    """Every data replica's ``x`` concatenated along ``axis`` in data-rank
+    order (the rows of a batch split over data); ``x`` itself at dp = 1.
+    Differentiable (a reduce-scatter of the cotangents over data)."""
+    return x if ctx.dp == 1 else all_gather(ctx.data, x, axis=axis)
+
+
+def reduce_scatter_data(ctx: ParallelContext, x, *, axis: int = 0):
+    """This data rank's slice along ``axis`` of the sum of ``x`` over the
+    data replicas; ``x`` itself at dp = 1.  Differentiable."""
+    return x if ctx.dp == 1 else reduce_scatter(ctx.data, x, axis=axis)
+
+
+def data_mean(ctx: ParallelContext, x):
+    """The mean of ``x`` over the data replicas, the same on every rank (a
+    replica's mean loss -> the global mean); ``x`` itself at dp = 1.  Its
+    backward hands each replica ``1 / dp`` of the cotangent."""
+    return x if ctx.dp == 1 else all_reduce(ctx.data, x) / ctx.dp
+
+
+class _FsdpGather(_AllGather):
+    """An fsdp-sharded weight made whole for its use: the data replicas'
+    shards all-gathered along ``axis``; the backward reduce-scatters the
+    whole weight's gradient over the data ranks (each replica's partial
+    over its rows), leaving this rank its shard's sum.  Every rank of a data
+    group runs the same layers in the same order, so the gathers and,
+    in the backward, the reduce-scatters come in the same order on each."""
+
+
+def fsdp_gather(ctx: ParallelContext, w, spec):
+    """``w``, this rank's training shard of a leaf of logical ``spec``, whole
+    over the data ranks (:class:`_FsdpGather` along its ``"fsdp"`` dim);
+    ``w`` itself at dp = 1 or where the spec names no data axis."""
+    from repro_torch.parallel.sharding import _DATA_AXES
+
+    dims = [i for i, ax in enumerate(spec) if ax in _DATA_AXES]
+    if ctx.dp == 1 or not dims:
+        return w
+    return _FsdpGather.apply(ctx.data, w, dims[0])
 
 
 def _leaves(payload):
@@ -507,7 +567,7 @@ def bulk_all_to_all(ctx: ParallelContext, x):
     across the tp ranks (block ``j`` goes to rank ``j``; the result is
     stacked by source).  On a one-rank world it is the identity."""
     if ctx.dp != 1:
-        raise NotImplementedError(f"bulk_all_to_all at dp={ctx.dp}: {_DP_ITEM}")
+        raise NotImplementedError(f"bulk_all_to_all at dp={ctx.dp}: {_A2A_DATA_ITEM}")
     if ctx.tp == 1:
         return x
     out = _like(x)
@@ -541,7 +601,7 @@ def direct_all_to_all_compute(
     per value); the local chunk never touches the wire.  On a one-rank
     world with q = 1 the produced chunk is returned without a copy."""
     if ctx.dp != 1:
-        raise NotImplementedError(f"direct_all_to_all_compute at dp={ctx.dp}: {_DP_ITEM}")
+        raise NotImplementedError(f"direct_all_to_all_compute at dp={ctx.dp}: {_A2A_DATA_ITEM}")
     n, d = ctx.tp, ctx.tp_rank
     q = chunks_per_rank
     if chunk_shape[sub_axis] % q:

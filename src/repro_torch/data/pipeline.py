@@ -5,6 +5,10 @@ and copied with ``non_blocking`` on a side stream, and the consumer's
 stream waits on an event recorded after the copy, so host-to-device time
 hides behind the previous step's compute (the JAX package gets the same
 overlap from its asynchronous ``device_put``).
+
+Over data replicas (dp > 1) every rank draws the same global batches from
+the seed, and :func:`shard_batch` keeps a replica's rows, as the reference's
+``"batch"`` spec places them; so the losses are dp = 1's.
 """
 from __future__ import annotations
 
@@ -26,6 +30,28 @@ def to_device(batch, device, *, pin: bool = False):
             t = (t.pin_memory() if pin else t).to(device, non_blocking=pin)
         out[k] = t
     return out
+
+
+def batch_rows(ctx, B: int) -> tuple[int, int] | None:
+    """(first row, rows) of data replica ``ctx.dp_rank``'s part of a batch of
+    ``B`` rows split over the replicas, or ``None`` where the batch stays
+    whole on every replica: at dp = 1, and where dp does not divide B (the
+    reference keeps such a batch whole, ``models/layers.py:82``)."""
+    dp = getattr(ctx, "dp", 1)
+    if dp == 1 or B % dp:
+        return None
+    return ctx.dp_rank * (B // dp), B // dp
+
+
+def shard_batch(batch: dict, ctx) -> dict:
+    """Data replica ``ctx.dp_rank``'s rows of every array of a global batch
+    (leading dim B; :func:`batch_rows`): the dict itself where the batch
+    stays whole."""
+    rows = batch_rows(ctx, next(iter(batch.values())).shape[0])
+    if rows is None:
+        return batch
+    lo, n = rows
+    return {k: v[lo:lo + n] for k, v in batch.items()}
 
 
 def prefetch(it: Iterator, device, depth: int = 2):

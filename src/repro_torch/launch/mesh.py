@@ -1,4 +1,4 @@
-"""Starting the tensor-parallel world.
+"""Starting the (dp, tp) world.
 
 The JAX package builds a device mesh over the devices one process sees
 (``make_host_mesh``); the port runs one process per rank instead, joined by
@@ -7,8 +7,14 @@ The JAX package builds a device mesh over the devices one process sees
   python -m torch.distributed.run --standalone --nproc-per-node 4 \\
       -m repro_torch.launch.serve --tp 4 --backend gloo
 
-A world of one rank needs no process group, so every tp = 1 path runs as it
-did without one.
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --dp 2 --tp 2 --backend gloo
+
+A world of ``dp * tp`` ranks holds ``dp`` replicas of a tp world: global
+rank ``r`` is tp rank ``r % tp`` of replica ``r // tp``
+(``parallel.sharding.make_world_groups`` makes the groups).  A world of one
+rank needs no process group, so every (1, 1) path runs as it did without
+one.
 """
 from __future__ import annotations
 
@@ -16,6 +22,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.parallel.sharding import forget_world_groups, make_world_groups
 
 BACKENDS = ("nccl", "gloo")
 
@@ -49,40 +57,46 @@ def world_device(backend: str, device, local_rank: int) -> torch.device:
     return torch.device("cuda", local_rank % count)
 
 
-def init_world(tp: int, backend: str | None, device, *, rank: int | None = None,
+def init_world(tp: int, backend: str | None, device, *, dp: int = 1, rank: int | None = None,
                init_method: str | None = None) -> torch.device:
-    """Join a tp world of ``tp`` ranks and return this rank's device.
+    """Join a world of ``dp * tp`` ranks and return this rank's device; at
+    dp > 1 and tp > 1 every rank makes every tp and data group here, in the
+    same order, before any collective.
 
     Under ``torch.distributed.run`` the rank, the world size and the local
     rank come from ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` (and the
     rendezvous from ``MASTER_ADDR``/``MASTER_PORT``); a caller that spawns
     its own ranks passes ``rank`` and an ``init_method`` (a ``file://``
     path or a ``tcp://localhost:<port>`` address).  ``backend`` ``None``
-    picks :func:`default_backend`.  At tp = 1 no process group is made."""
+    picks :func:`default_backend`.  In a world of one rank no process group
+    is made."""
     backend = backend or default_backend(device)
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     env_rank = os.environ.get("RANK")
     rank = int(env_rank) if rank is None and env_rank is not None else rank
     local_rank = int(os.environ.get("LOCAL_RANK", rank or 0))
-    size = int(os.environ.get("WORLD_SIZE", tp))
-    if size != tp:
-        raise ValueError(f"--tp {tp} in a world of {size} processes")
-    if tp == 1:
+    world = dp * tp
+    size = int(os.environ.get("WORLD_SIZE", world))
+    if size != world:
+        raise ValueError(f"--dp {dp} --tp {tp} is {world} ranks, in a world of {size} processes")
+    if world == 1:
         return world_device(backend, device, 0)
     if rank is None:
-        raise ValueError(f"tp={tp}: no rank given and RANK is not set (run under "
-                         f"torch.distributed.run, or pass rank= and init_method=)")
+        raise ValueError(f"(dp, tp) = ({dp}, {tp}): no rank given and RANK is not set (run "
+                         f"under torch.distributed.run, or pass rank= and init_method=)")
     dev = world_device(backend, device, local_rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method=init_method or "env://",
-                                world_size=tp, rank=rank)
+                                world_size=world, rank=rank)
+    make_world_groups(dp, tp)
     return dev
 
 
 def close_world():
     """Leave the world (a no-op where none was started)."""
     if dist.is_initialized():
+        forget_world_groups()
         dist.destroy_process_group()

@@ -9,15 +9,23 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --paged
   PYTHONPATH=src python -m torch.distributed.run --standalone \
       --nproc-per-node 4 -m repro_torch.launch.serve --tp 4 --fusion fused
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 4 -m repro_torch.launch.serve --dp 2 --tp 2 --paged \
+      --fusion fused --backend gloo
 
 ``--tp N`` serves over a tensor-parallel world of N processes, started by
-``torch.distributed.run`` (one process a rank): dense decode only, in
-``fused`` or ``bulk`` mode (``kernel`` mode at tp > 1 waits for a host with
-real peers).  ``--backend`` is ``nccl`` by default on cards (one card a
-rank) and ``gloo`` on the CPU; ``--backend gloo`` also runs a world whose
-ranks share one card, its wire staged through host memory.  Every rank
-serves the same requests with the same gathered logits; rank 0 prints, and
-checks that every rank's token streams are its own.  ``--granularity`` and
+``torch.distributed.run`` (one process a rank), in ``fused`` or ``bulk``
+mode (``kernel`` mode at tp > 1 waits for a host with real peers), dense or
+``--paged`` (the pool's blocks striped over the ranks, ``--num-blocks``
+rounded to a multiple of tp).  ``--dp D`` runs D data replicas of that
+world (``D * N`` processes): the dense engine's batch rows split over the
+replicas where D divides ``--batch``, the paged engine replicated, as the
+reference's serve launcher replicates its parameters over data; kernel mode
+runs at ``--tp 1`` over any ``--dp``.  ``--backend`` is ``nccl`` by default
+on cards (one card a rank) and ``gloo`` on the CPU; ``--backend gloo`` also
+runs a world whose ranks share one card, its wire staged through host
+memory.  Every rank serves the same requests with the same gathered logits;
+rank 0 prints, and checks that every rank's token streams are its own.  ``--granularity`` and
 ``--wire`` set the fused ring's sub-chunks and payload dtype; ``auto`` (either)
 lets the autotuner choose per call site (``core/autotune.py``), from the link
 class of the world's backend.  ``--calibrate`` runs one decode step on a
@@ -103,6 +111,8 @@ def main(argv=None):
     add_calibration_cli_args(ap)
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel ranks (run under torch.distributed.run)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data replicas of the tp world (dp * tp processes)")
     ap.add_argument("--backend", default=None, choices=BACKENDS,
                     help="the world's backend (default: nccl on cuda, gloo on cpu)")
     ap.add_argument("--device", default="cuda")
@@ -126,11 +136,7 @@ def main(argv=None):
     if args.paged and not bundle.supports_paged:
         raise SystemExit(f"--paged requires a GQA transformer ({args.arch} is "
                          f"{bundle.family}/{getattr(bundle.config, 'attn_type', '?')})")
-    if args.tp > 1 and args.paged:
-        raise NotImplementedError(
-            "--paged at --tp > 1: ROADMAP Queue 1 item 1 (left: pool_logical_specs and "
-            "striped blocks)")
-    device = init_world(args.tp, args.backend, args.device)
+    device = init_world(args.tp, args.backend, args.device, dp=args.dp)
     try:
         return _serve(args, bundle, device)
     finally:
@@ -143,9 +149,10 @@ def decision_lines() -> list[str]:
 
 
 def _serve(args, bundle, device):
-    ctx = ParallelContext(device=device, tp=args.tp, fusion=FusionConfig(
+    ctx = ParallelContext(device=device, tp=args.tp, dp=args.dp, fusion=FusionConfig(
         mode=args.fusion, granularity=args.granularity, wire=args.wire))
-    rank0 = ctx.tp_rank == 0
+    world = ctx.tp * ctx.dp
+    rank0 = ctx.tp_rank == 0 and ctx.dp_rank == 0
     loaded = load_cache_if_exists(args.tune_cache)
     if args.tune_cache and rank0:
         print(f"tune cache: {loaded} decisions loaded from {args.tune_cache}")
@@ -168,18 +175,20 @@ def _serve(args, bundle, device):
         serve = bundle.serve_step_fn(ctx)
         engine = PagedDecodeEngine(
             counted(lambda t, pl, tb, pos, nn: serve(params, t, pl, tb, pos, nn)),
-            lambda nb, bs: bundle.init_paged_pool(nb, bs, ctx.device), args.batch,
+            lambda nb, bs: bundle.init_paged_pool(nb, bs, ctx.device, ctx.tp), args.batch,
             num_blocks=num_blocks, block_size=args.block_size, max_seq=cfg.max_seq,
             chunk=args.chunk, device=ctx.device, n_stripes=ctx.tp)
         paged_b = pool_hbm_bytes(engine.pool)
-        dense_b = dense_cache_hbm_bytes(bundle.init_cache(args.batch, "meta"))
-        print(f"paged pool: {num_blocks} x {args.block_size}-token blocks "
-              f"= {paged_b / 2**20:.1f} MiB vs dense B x S_max "
-              f"{dense_b / 2**20:.1f} MiB")
+        dense_b = dense_cache_hbm_bytes(bundle.init_cache(args.batch, "meta", ctx.tp, ctx.dp))
+        if rank0:
+            stripe = f" a rank (its stripe of {num_blocks // ctx.tp})" if ctx.tp > 1 else ""
+            print(f"paged pool: {num_blocks} x {args.block_size}-token blocks "
+                  f"= {paged_b / 2**20:.1f} MiB{stripe} vs dense B x S_max "
+                  f"{dense_b / 2**20:.1f} MiB")
     else:
         decode = bundle.decode_fn(ctx)
         engine = DecodeEngine(counted(lambda t, c, pos: decode(params, t, c, pos)),
-                              lambda b: bundle.init_cache(b, ctx.device, ctx.tp),
+                              lambda b: bundle.init_cache(b, ctx.device, ctx.tp, ctx.dp),
                               args.batch, device=ctx.device, max_seq=cfg.max_seq)
     if args.journal and os.path.exists(args.journal):
         with open(args.journal) as f:
@@ -202,9 +211,10 @@ def _serve(args, bundle, device):
         tok = torch.zeros((args.batch, 1), dtype=torch.int32, device=ctx.device)
         pos = torch.zeros(args.batch, dtype=torch.int32, device=ctx.device)
         warmup_and_calibrate(ctx, lambda c: decode(params, tok, c, pos),
-                             bundle.init_cache(args.batch, ctx.device, ctx.tp),
+                             bundle.init_cache(args.batch, ctx.device, ctx.tp, ctx.dp),
                              iters=args.calibrate_iters, granularity=args.granularity,
-                             rank_tag=f" [rank {ctx.tp_rank}]" if ctx.tp > 1 else "")
+                             rank_tag=f" [rank {torch.distributed.get_rank()}]"
+                             if world > 1 else "")
     t0 = time.perf_counter()
     finished = engine.run_until_drained(
         max_steps=len(engine.queue) * (cfg.max_seq - 1))
@@ -212,10 +222,10 @@ def _serve(args, bundle, device):
         torch.cuda.synchronize(ctx.device)
     dt = time.perf_counter() - t0
     decisions = decision_lines()
-    if ctx.tp > 1:
+    if world > 1:
         # every rank took the same greedy tokens from the same gathered
         # logits, and the same autotune decisions
-        streams, taken = [None] * ctx.tp, [None] * ctx.tp
+        streams, taken = [None] * world, [None] * world
         torch.distributed.all_gather_object(streams, [(r.uid, r.tokens) for r in finished])
         torch.distributed.all_gather_object(taken, decisions)
         if any(s != streams[0] for s in streams):
@@ -229,16 +239,16 @@ def _serve(args, bundle, device):
     if not finished.drained:
         print("WARNING: stopped at max_steps before draining — results truncated")
     total_tokens = sum(len(r.tokens) for r in finished)
-    world = (f", tp={ctx.tp} ({ctx.backend}), granularity={args.granularity}, "
-             f"wire={args.wire}" if ctx.tp > 1 else "")
+    where_world = (f", dp={ctx.dp}, tp={ctx.tp} ({ctx.backend}), granularity="
+                   f"{args.granularity}, wire={args.wire}" if world > 1 else "")
     print(f"served {len(finished)} requests, {total_tokens} tokens in "
           f"{dt:.3f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s, "
           f"{steps[0]} steps, {dt / max(steps[0], 1) * 1e3:.2f} ms/step, "
           f"batch={args.batch}, fusion={args.fusion}, "
-          f"{'paged' if args.paged else 'dense'}, device={where}{world})")
-    if ctx.tp > 1:
-        print(f"all {ctx.tp} ranks' token streams equal: True")
-        print(f"all {ctx.tp} ranks' autotune decisions equal: True")
+          f"{'paged' if args.paged else 'dense'}, device={where}{where_world})")
+    if world > 1:
+        print(f"all {world} ranks' token streams equal: True")
+        print(f"all {world} ranks' autotune decisions equal: True")
     for line in decisions:
         print(f"decision: {line}")
     for r in finished[:4]:

@@ -6,6 +6,8 @@ synthetic data through the fused operators.
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 6
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
       -m repro_torch.launch.train --tp 2 --backend gloo --reduced --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --dp 2 --tp 2 --backend gloo --reduced --device cpu
 
 Dense transformers train (``bundle.loss_fn``: ``train_forward`` with remat,
 the vocab-sharded CE ring), in ``kernel`` mode (every attention forward is
@@ -15,8 +17,12 @@ PyTorch, its default) or ``bulk`` mode.  ``--tp N`` trains over a
 tensor-parallel world of N processes started by ``torch.distributed.run``
 (``launch/mesh.py``; ``--backend`` as the serving launcher's): each rank
 draws its shards of the tp = 1 seed-0 weights, runs the same batches on its
-chunk of the sequence and updates its shards (``train/step.py``); rank 0
-prints, and checks at the end that every rank's losses are its own.
+chunk of the sequence and updates its shards (``train/step.py``).  ``--dp
+D`` runs D data replicas of that world (``D * N`` processes): each replica
+its ``--batch / D`` rows of the same global batches, the train state's fsdp
+dims split over the replicas (``init_params(..., training=True)``), the
+loss the global mean.  Rank 0 prints, and checks at the end that every
+rank's losses are its own.
 ``--layers N`` cuts the model to its first N layers at full width (the
 reduced model's heads of 16 are not a size the flash kernel takes, so a
 card runs kernel mode at full width).
@@ -67,7 +73,8 @@ _LATER_FLAGS = (
     ("--skew-schedule", "skew_schedule", f"{_RUNTIME}: the straggler loop"),
     ("--degrade", "degrade", f"{_RUNTIME}: degradation, which only the supervisor feeds"),
     ("--production-mesh", "production_mesh",
-     "ROADMAP Queue 1 item 1 (left: data parallel, dp > 1)"),
+     "ROADMAP Queue 1 item 1 (left: the real-peer half, a host of many cards: the reference's "
+     "16 x 16 TPU mesh)"),
 )
 _LATER_VALUES = (
     ("--chaos", "chaos", f"{_RUNTIME}: chaos injection"),
@@ -108,6 +115,8 @@ def build_parser():
     add_calibration_cli_args(ap)
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel ranks (run under torch.distributed.run)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data replicas of the tp world (dp * tp processes)")
     ap.add_argument("--backend", default=None, choices=BACKENDS,
                     help="the world's backend (default: nccl on cuda, gloo on cpu)")
     ap.add_argument("--log-every", type=int, default=10)
@@ -130,7 +139,7 @@ def main(argv=None, *, on_phase=None):
     ``on_phase`` goes to ``build_train_step`` (for timing each part)."""
     args = build_parser().parse_args(argv)
     _refuse_later(args)
-    device = init_world(args.tp, args.backend, args.device)
+    device = init_world(args.tp, args.backend, args.device, dp=args.dp)
     try:
         return _train(args, device, on_phase)
     finally:
@@ -146,14 +155,16 @@ def _train(args, device, on_phase):
             bundle.config, n_layers=args.layers))
     batches = make_batches(bundle, args.batch, args.seq)
     load_cache_if_exists(args.tune_cache)
-    ctx = ParallelContext(device=device, tp=args.tp, fusion=FusionConfig(
+    ctx = ParallelContext(device=device, tp=args.tp, dp=args.dp, fusion=FusionConfig(
         mode=args.fusion, granularity=args.granularity, wire=args.wire))
-    rank0 = ctx.tp_rank == 0
+    world = ctx.tp * ctx.dp
+    rank0 = ctx.tp_rank == 0 and ctx.dp_rank == 0
     loss_fn = bundle.loss_fn(ctx)
     if ctx.device.type == "cuda" and args.fusion == "kernel":
         load_library()   # build the kernels before the first step
     gen = torch.Generator(device=ctx.device).manual_seed(0)
-    params = bundle.init_params(gen, ctx) if ctx.tp > 1 else bundle.init_params(gen)
+    params = (bundle.init_params(gen, ctx, training=True) if world > 1 else
+              bundle.init_params(gen))
     tc = TrainConfig(
         optimizer=OptimizerConfig(name=bundle.optimizer, lr=args.lr,
                                   warmup_steps=max(args.steps // 20, 5),
@@ -170,7 +181,8 @@ def _train(args, device, on_phase):
         batch0 = to_device(next(iter(make_batches(bundle, args.batch, args.seq))), ctx.device)
         warmup_and_calibrate(ctx, loss_fn, state["params"], batch0,
                              iters=args.calibrate_iters, granularity=args.granularity,
-                             rank_tag=f" [rank {ctx.tp_rank}]" if ctx.tp > 1 else "")
+                             rank_tag=f" [rank {torch.distributed.get_rank()}]"
+                             if world > 1 else "")
 
     t0 = time.time()
     losses = []
@@ -184,19 +196,20 @@ def _train(args, device, on_phase):
                   f"lr {float(metrics['lr']):.2e} "
                   f"({(time.time() - t0) / max(step, 1):.2f}s/step)",
                   flush=True)
-    if ctx.tp > 1:
+    if world > 1:
         # the loss is a replicated scalar: every rank's must be rank 0's
-        every = [None] * ctx.tp
+        every = [None] * world
         torch.distributed.all_gather_object(every, losses)
         if any(x != every[0] for x in every):
             raise AssertionError(f"the ranks' losses differ: {every}")
     if not rank0:
         return losses
     span = f"loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else "no steps run"
-    world = f" (tp={ctx.tp}, {ctx.backend}, fusion={args.fusion})" if ctx.tp > 1 else ""
-    print(f"done at step {args.steps}; {span}{world}")
-    if ctx.tp > 1:
-        print(f"all {ctx.tp} ranks' losses equal: True")
+    where = (f" (dp={ctx.dp}, tp={ctx.tp}, {ctx.backend}, fusion={args.fusion})"
+             if world > 1 else "")
+    print(f"done at step {args.steps}; {span}{where}")
+    if world > 1:
+        print(f"all {world} ranks' losses equal: True")
     if args.tune_cache:
         save_cache(args.tune_cache)
     return losses

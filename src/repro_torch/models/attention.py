@@ -37,8 +37,12 @@ saves copying the whole [B, S_local, Hkv, hd] layer cache every step.
 Paged serving (``paged_cache_update``, ``paged_attention``): a pool of
 fixed-size KV blocks shared by every request, mapped by per-request block
 tables, in plain PyTorch (the reference has no kernel here: its attention is
-``_flash_update`` over the table's blocks).  Neither synchronises with the
-host (``chip_smoke.py`` phase 23(e) holds ``serve_step`` to that).
+``_flash_update`` over the table's blocks).  At tp > 1 the blocks are
+striped over the ranks as the reference's are: rank d holds global blocks
+``[d NB / tp, (d + 1) NB / tp)``, writes and attends only those, and the
+partials merge across the ranks (``attention_partial_merge``).  Neither
+synchronises with the host (``chip_smoke.py`` phase 23(e) holds
+``serve_step`` to that).
 """
 from __future__ import annotations
 
@@ -627,38 +631,52 @@ def cache_update(ctx: ParallelContext, cache, new, pos):
 # longest request it might serve.  The paged layout shares one pool of
 # fixed-size blocks among all in-flight requests; a per-request block table
 # [B, MB] maps the request's sequence block m to the pool block that holds
-# it (allocation lives host-side in repro_torch.serve.kv_cache).  The
-# reference shards the blocks over tp and merges per-rank partials; on one
-# card every block is local and the merge is the one-rank normalisation.
+# it (allocation lives host-side in repro_torch.serve.kv_cache, which
+# stripes a request's blocks over the ranks).  The reference shards the
+# blocks contiguously over tp and merges per-rank partials; on one card
+# every block is local and the merge is the one-rank normalisation.
 #
-# Layout: a layer's pool is [NB + 1, block, *rest].  Blocks 0..NB-1 are the
-# allocator's, laid out as the reference's [NB, block, *rest]; block NB is a
-# sink that no table names.  Every write the reference drops (a row past a
+# Layout: a rank's layer pool is [NB / tp + 1, block, *rest].  Blocks
+# 0..NB/tp-1 are its stripe of the allocator's global blocks (global block
+# g is local block g - d NB / tp on rank d), laid out as the reference's
+# shard of [NB, block, *rest]; the last block is this rank's sink, which no
+# table names.  Every write the reference drops (a row past a
 # slot's n_new, an idle slot, a sentinel (-1) table entry, a position past
 # the table) is aimed at the sink instead: a boolean filter would call
 # nonzero (a host synchronisation), an out-of-range index is a device-side
 # assert on CUDA, and clamping a dropped write onto a live block could alias
 # a live write to the same (block, slot), where index_put_'s winner is
-# undefined.  The sink alone takes duplicate writes, and no read gathers it.
+# undefined.  A write to another rank's block is dropped the same way.  The
+# sink alone takes duplicate writes, and no read gathers it.
+
+
+def _stripe(ctx: ParallelContext, nb_loc: int, g):
+    """Global block ids ``g`` (-1 for none) -> (this rank's local ids,
+    whether this rank holds each): rank d holds ``[d nb_loc, (d + 1)
+    nb_loc)``."""
+    local = g - ctx.tp_rank * nb_loc if ctx.tp > 1 else g
+    return local, (g >= 0) & (local >= 0) & (local < nb_loc)
 
 def paged_cache_update(ctx: ParallelContext, pool, new, tables, pos, valid):
-    """Scatter a token chunk into the block pool, in place; returns ``pool``.
+    """Scatter a token chunk into this rank's stripe of the block pool, in
+    place; returns ``pool``.
 
-    pool: [NB + 1, block, *rest] (block NB the sink); new: [B, C, *rest];
-    tables: [B, MB] block ids (-1 for none); pos: [B, C] global positions;
-    valid: [B, C] bool (False rows, padding past a slot's ``n_new`` or idle
-    slots, are dropped).  A position whose block index falls outside the
-    table, or whose table entry is not a pool block, is dropped too, never
-    clamped: all dropped rows land in the sink block."""
-    del ctx
-    NB, block = pool.shape[0] - 1, pool.shape[1]
+    pool: [NB / tp + 1, block, *rest] (the last block this rank's sink);
+    new: [B, C, *rest], the same on every rank; tables: [B, MB] global
+    block ids (-1 for none); pos: [B, C] global positions; valid: [B, C]
+    bool (False rows, padding past a slot's ``n_new`` or idle slots, are
+    dropped).  A position whose block index falls outside the table, or
+    whose table entry is not a block of this rank's stripe, is dropped too,
+    never clamped: all dropped rows land in the sink block."""
+    nb_loc, block = pool.shape[0] - 1, pool.shape[1]
     B, C = pos.shape
     MB = tables.shape[1]
     pos = pos.long()
     blk = pos // block                                 # [B, C] sequence block
     g = torch.gather(tables.long(), 1, blk.clamp(0, MB - 1))
-    keep = valid & (blk < MB) & (g >= 0) & (g < NB)
-    rows = torch.where(keep, g, NB).reshape(-1)
+    local, own = _stripe(ctx, nb_loc, g)
+    keep = valid & (blk < MB) & own
+    rows = torch.where(keep, local, nb_loc).reshape(-1)
     slots = (pos % block).reshape(-1)
     pool[rows, slots] = new.reshape((B * C,) + tuple(new.shape[2:])).to(pool.dtype)
     return pool
@@ -666,9 +684,9 @@ def paged_cache_update(ctx: ParallelContext, pool, new, tables, pos, valid):
 
 def paged_attention(
     ctx: ParallelContext,
-    q,                  # [B, C, Hq, hd]
-    pool_k, pool_v,     # [NB + 1, block, Hkv, hd], block NB the sink
-    tables,             # [B, MB] int32 block ids (-1 for none)
+    q,                  # [B, C, Hq, hd], the same on every rank
+    pool_k, pool_v,     # [NB / tp + 1, block, Hkv, hd], the last block the sink
+    tables,             # [B, MB] int32 global block ids (-1 for none)
     pos,                # [B, C] global position of each query token
     *,
     window: int | None = None,
@@ -678,25 +696,24 @@ def paged_attention(
 ):
     """Flash attention of a token chunk against a paged KV pool.
 
-    The table's blocks are gathered (a sentinel entry as block 0, masked
-    out) and run through ``_flash_update`` span by span, ``kv_block //
-    block`` table blocks a span, with per-query causal and window masks: the
-    chunk's own KV is already in the pool, so one pass covers both the
-    cache and causality within the chunk.  C = 1 is the decode step; C > 1
-    a prefill chunk; one call mixes both through the per-slot positions.
-    QK runs in q's dtype and is then cast to f32; softmax and PV run in
-    f32; the output is at q's dtype."""
-    del ctx
-    NB, block, Hkv, hd = pool_k.shape[0] - 1, *pool_k.shape[1:]
+    The table's blocks this rank holds are gathered (any other entry as
+    local block 0, masked out) and run through ``_flash_update`` span by
+    span, ``kv_block // block`` table blocks a span, with per-query causal
+    and window masks: the chunk's own KV is already in the pool, so one
+    pass covers both the cache and causality within the chunk; the ranks'
+    partials then merge (``attention_partial_merge``).  C = 1 is the decode
+    step; C > 1 a prefill chunk; one call mixes both through the per-slot
+    positions.  QK runs in q's dtype and is then cast to f32; softmax and
+    PV run in f32; the output is at q's dtype."""
+    nb_loc, block, Hkv, hd = pool_k.shape[0] - 1, *pool_k.shape[1:]
     B, C, Hq, _ = q.shape
     g = Hq // Hkv
     scale = scale if scale is not None else hd ** -0.5
     MB = tables.shape[1]
     span = max(1, min(MB, kv_block // block))   # table blocks per flash span
     q5 = q.reshape(B, C, Hkv, g, hd)
-    tbl = tables.long()
-    own = (tbl >= 0) & (tbl < NB)
-    rows = torch.where(own, tbl, 0)
+    local, own = _stripe(ctx, nb_loc, tables.long())
+    rows = torch.where(own, local, 0)
     kg, vg = pool_k[rows], pool_v[rows]                 # [B, MB, block, Hkv, hd]
     p = pos[:, :, None]
     carry = _init_carry(B, Hkv, g, C, hd, q.device)
@@ -711,4 +728,6 @@ def paged_attention(
         if window is not None:
             mask &= p - kpos < window
         carry = _flash_update(carry, q5, ks, vs, mask, scale, softcap_val)
-    return _finalize(carry, B, C, Hq, hd).to(q.dtype)       # one-rank merge
+    m, l, o = carry
+    o = attention_partial_merge(ctx, o, m, l)               # [B, Hkv, g, C, hd]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, C, Hq, hd).to(q.dtype)

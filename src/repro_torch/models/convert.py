@@ -30,7 +30,7 @@ def _first_leaf(tree):
     return tree
 
 
-def params_from_numpy(tree, device="cpu", ctx=None):
+def params_from_numpy(tree, device="cpu", ctx=None, training: bool = False):
     """JAX transformer params as nested dicts of numpy arrays (``split_params``
     values through ``np.asarray``) -> the port's parameters.
 
@@ -46,16 +46,18 @@ def params_from_numpy(tree, device="cpu", ctx=None):
     With a ``ctx`` at tp > 1 each leaf is sliced to this rank's shard by the
     reference's logical spec (``transformer.PARAM_SPECS``: ``w_qkv`` and
     ``w_o`` whole, ``w_gate`` and ``w_up`` by columns, ``w_down`` by rows,
-    the embedding table by vocabulary rows)."""
+    the embedding table by vocabulary rows); with ``training`` at dp > 1
+    also by its ``"fsdp"`` dim over the data ranks (the train state's
+    placement; serving keeps those whole)."""
     if "prefix" in tree:
         raise NotImplementedError("dense-prefix layers: ROADMAP Queue 1 item 5")
 
     stacked = tree["layers"]
     period = len(stacked)
     groups = len(np.asarray(_first_leaf(stacked["l0"])))
-    layers = [shard_params(_conv(stacked[f"l{j}"], device, g), ctx) for g in range(groups)
-              for j in range(period)]
-    return {"embed": shard_params(_conv(tree["embed"], device), ctx),
+    layers = [shard_params(_conv(stacked[f"l{j}"], device, g), ctx, training)
+              for g in range(groups) for j in range(period)]
+    return {"embed": shard_params(_conv(tree["embed"], device), ctx, training),
             "final_norm": _conv(tree["final_norm"], device), "layers": layers}
 
 
@@ -80,13 +82,17 @@ def rwkv6_params_from_numpy(tree, device="cpu"):
             "layers": [_conv(tree["layers"], device, i) for i in range(n_layers)]}
 
 
-def train_state_from_numpy(state, device="cpu"):
+def train_state_from_numpy(state, device="cpu", ctx=None):
     """A JAX transformer train state (``init_train_state``'s tree through
     ``np.asarray``: ``params``, ``opt`` with AdamW's ``mu``/``nu``/``step``
     or Adafactor's ``v``/``step``, and the compression ``residuals`` if
     any) -> the port's state (``repro_torch.train.step``).  Parameters are
-    marked as requiring a gradient, as ``init_train_state`` marks them."""
-    conv = lambda t: params_from_numpy(t, device)
+    marked as requiring a gradient, as ``init_train_state`` marks them.
+    With a ``ctx`` of more than one rank, this rank's shards of the
+    parameters, AdamW's moments and the residuals, in the training
+    placement (``train_state_specs``); Adafactor's stacked state is one
+    rank's only (its update raises in a world)."""
+    conv = lambda t: params_from_numpy(t, device, ctx, training=True)
     params = conv(state["params"])
     for p in tree_leaves(params):
         p.requires_grad_(True)

@@ -24,12 +24,25 @@ decode layout with the prompt's length, rows sharded as decode's are.
 Training runs the prefill's sequence-sharded layers, each ring with its
 backward, and the CE ring; its loss is the same scalar on every rank, and
 ``param_specs`` says which gradients ``train/step.py`` sums over the ranks.
-Paged serving runs at tp = 1.
 
 Paged serving (``serve_step``) mixes prefill chunks and decode steps in one
-call over a block pool {"k", "v"}, each [L, NB + 1, block, Hkv, hd]: the
-reference's ``[L, NB, block, Hkv, hd]`` (its ``pool["scan"]``) plus one sink
-block per layer (``models/attention.py``).  The pool is updated in place.
+call over a block pool {"k", "v"}, each [L, NB / tp + 1, block, Hkv, hd] on a
+rank: its stripe of the reference's ``[L, NB, block, Hkv, hd]`` (its
+``pool["scan"]``, blocks split over tp, ``pool_logical_specs``) plus one
+sink block per layer (``models/attention.py``).  The pool is updated in
+place.  Every rank returns the same logits.
+
+Data replicas (dp > 1): decode and prefill split the batch's rows over the
+replicas where dp divides B (each replica a dense cache of ``B / dp`` rows,
+``init_cache(..., dp)``) and gather the logits over data, so every rank sees
+all B rows; where dp does not divide B every replica runs the whole batch,
+as the reference does.  Paged serving replicates the pool and the attention
+over data, as the reference's specs do.  Training runs a replica's ``B / dp``
+rows on parameters whose ``"fsdp"`` dims are split over the data ranks
+(``shard_params(..., training=True)``): each layer gathers its weights over
+data at its start (``collectives.fsdp_gather``; under remat the recompute
+gathers again), the gathers' backward reduce-scatters their gradients, and
+the loss is the global mean (``collectives.data_mean``).
 """
 from __future__ import annotations
 
@@ -39,7 +52,8 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.collectives import all_gather, broadcast
+from repro_torch.core.collectives import (all_gather, all_gather_data, broadcast, data_mean,
+                                          fsdp_gather)
 from repro_torch.core.loss import sharded_cross_entropy
 from repro_torch.models.attention import (broadcast_pos, cache_update, context_attention,
                                           decode_attention, paged_attention,
@@ -50,6 +64,7 @@ from repro_torch.models.layers import (embedding_init, embedding_lookup, mlp_app
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rope import apply_rope, apply_rope_2d
 from repro_torch.core.degrade import Pins, pinned
+from repro_torch.data.pipeline import batch_rows, shard_batch
 from repro_torch.parallel.sharding import ParallelContext, shard_leaf
 
 # The reference's logical specs of the dense transformer's parameters
@@ -60,8 +75,6 @@ PARAM_SPECS = {"w_qkv": ("fsdp", None), "w_o": (None, "fsdp"),
                "table": ("tp", "fsdp")}
 _MULTI_RANK_ITEMS = {
     "moe": "MoE over experts on several ranks is ROADMAP Queue 1 item 5",
-    "paged": ("ROADMAP Queue 1 item 1 (left: paged serving at tp > 1, pool_logical_specs "
-              "and striped blocks)"),
 }
 
 
@@ -186,32 +199,47 @@ def param_specs(tree):
     return [param_specs(v) for v in tree]
 
 
-def shard_params(tree, ctx: ParallelContext | None):
+def shard_params(tree, ctx: ParallelContext | None, training: bool = False):
     """A parameter tree (or a part of one) sliced to this rank's shards by
-    ``PARAM_SPECS``; the tree itself at tp = 1."""
-    if ctx is None or ctx.tp == 1:
+    ``PARAM_SPECS``: the tp dims over the tp ranks, and with ``training``
+    the ``"fsdp"`` dims over the data ranks (the train state's placement;
+    serving keeps them whole).  The tree itself where nothing splits."""
+    if ctx is None or (ctx.tp == 1 and (not training or getattr(ctx, "dp", 1) == 1)):
         return tree
-    return {k: shard_params(v, ctx) if isinstance(v, dict) else
-            shard_leaf(v, PARAM_SPECS.get(k, (None,) * v.dim()), ctx)
+    return {k: shard_params(v, ctx, training) if isinstance(v, dict) else
+            shard_leaf(v, PARAM_SPECS.get(k, (None,) * v.dim()), ctx, training)
             for k, v in tree.items()}
 
 
 def transformer_init(gen: torch.Generator, cfg: TransformerConfig,
-                     ctx: ParallelContext | None = None):
+                     ctx: ParallelContext | None = None, training: bool = False):
     """Random parameters on ``gen``'s device: {"embed": {"table"},
     "final_norm", "layers": [per-layer dict, ...]}.
 
-    With a ``ctx`` at tp > 1 each part is drawn whole, in the order tp = 1
-    draws it, and only this rank's shard kept (``shard_params``), so the
-    world's weights are exactly the tp = 1 weights; a rank's peak is its
-    shards and one layer drawn whole."""
+    With a ``ctx`` of more than one rank each part is drawn whole, in the
+    order one rank draws it, and only this rank's shard kept
+    (``shard_params``, ``training`` its placement), so the world's weights
+    are exactly the one-rank weights; a rank's peak is its shards and one
+    layer drawn whole."""
     tp = 1 if ctx is None else ctx.tp
     check_supported(cfg, tp)
+    shard = lambda tree: shard_params(tree, ctx, training)
     return {
-        "embed": shard_params(embedding_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype), ctx),
+        "embed": shard(embedding_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype)),
         "final_norm": rms_norm_init(cfg.d_model, gen.device, zero=cfg.norm_plus_one),
-        "layers": [shard_params(_layer_init(gen, cfg), ctx) for _ in range(cfg.n_layers)],
+        "layers": [shard(_layer_init(gen, cfg)) for _ in range(cfg.n_layers)],
     }
+
+
+def gather_layer(ctx: ParallelContext, lp):
+    """A layer's training shards with every fsdp-split weight made whole over
+    the data ranks (``collectives.fsdp_gather``): the one place a layer
+    gathers, at its start.  The layer dict itself at dp = 1."""
+    if ctx.dp == 1:
+        return lp
+    return {k: gather_layer(ctx, v) if isinstance(v, dict) else
+            fsdp_gather(ctx, v, PARAM_SPECS.get(k, (None,) * v.dim()))
+            for k, v in lp.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +260,10 @@ def _attn_train(ctx, cfg: TransformerConfig, lp, x, positions, window, collect_k
     return o.reshape(B, S, Hq * hd) @ lp["attn"]["w_o"], kv
 
 
-def _layer_train(ctx, cfg: TransformerConfig, lp, x, positions, window, collect_kv=False):
+def _layer_train(ctx, cfg: TransformerConfig, lp, x, positions, window, collect_kv=False,
+                 fsdp=False):
+    if fsdp:
+        lp = gather_layer(ctx, lp)
     a, kv = _attn_train(ctx, cfg, lp, x, positions, window, collect_kv)
     if cfg.post_norms:
         a = rms_norm(a, lp["post_ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
@@ -244,11 +275,13 @@ def _layer_train(ctx, cfg: TransformerConfig, lp, x, positions, window, collect_
     return x + f, kv
 
 
-def _embed_inputs(ctx, params, cfg: TransformerConfig, batch):
+def _embed_inputs(ctx, params, cfg: TransformerConfig, batch, fsdp=False):
     """tokens -> x [B, S, D], sequence-sharded (the front ends raise in
-    ``check_supported``)."""
+    ``check_supported``); ``fsdp``: the table is a training shard, gathered
+    over data for the lookup."""
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
-    x = embedding_lookup(ctx, params["embed"], batch["tokens"], seq_shard=True, scale=scale)
+    embed = gather_layer(ctx, params["embed"]) if fsdp else params["embed"]
+    x = embedding_lookup(ctx, embed, batch["tokens"], seq_shard=True, scale=scale)
     return x.to(cfg.cdtype)
 
 
@@ -260,9 +293,11 @@ def _positions_for(S, device, ctx: ParallelContext | None = None):
 
 def _group_train(ctx, cfg, layers, x, positions, first):
     """One remat group of consecutive layers (a period of the layer
-    pattern, as the reference's scan groups them)."""
+    pattern, as the reference's scan groups them); at dp > 1 each layer
+    gathers its fsdp-split weights."""
     for i, lp in enumerate(layers):
-        x, _ = _layer_train(ctx, cfg, lp, x, positions, cfg.layer_window(first + i))
+        x, _ = _layer_train(ctx, cfg, lp, x, positions, cfg.layer_window(first + i),
+                            fsdp=ctx.dp > 1)
     return x
 
 
@@ -272,7 +307,13 @@ def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
     rank, for autograd.  At tp > 1 rank d runs positions ``[d S / tp, (d +
     1) S / tp)`` (S must be a multiple of tp), as the prefill does, and
     this rank's gradients are its shards' (a leaf whole on every rank gets
-    this rank's partial: ``train/step.py`` sums those over the ranks).
+    this rank's partial: ``train/step.py`` sums those over the ranks).  At
+    dp > 1 (dp must divide B) a replica runs its ``B / dp`` rows
+    (``data.pipeline.shard_batch``) on its training shards
+    (``shard_params(..., training=True)``), the layers and the CE gathering
+    their fsdp-split weights over data, and the replicas' means are
+    averaged (``collectives.data_mean``): the loss and its gradients are
+    the global mean's.
     With ``cfg.remat`` each group of layers (``local_global_period``
     layers, else one) runs under ``torch.utils.checkpoint``: only its input
     is kept, and backward runs its forward again, as the reference's
@@ -281,11 +322,17 @@ def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
     posts the same sends and receives on every rank."""
     check_prefill(cfg, "training", ctx.tp)
     tokens = batch["tokens"]
-    S, n = tokens.shape[1], ctx.tp
+    (B, S), n, fsdp = tokens.shape, ctx.tp, ctx.dp > 1
     if S % n:
         raise ValueError(f"{cfg.name}: training at tp={n} shards the batch's {S} positions over "
                          f"the ranks: S must be a multiple of tp")
-    x = _embed_inputs(ctx, params, cfg, batch)
+    if fsdp:
+        if batch_rows(ctx, B) is None:
+            raise ValueError(f"{cfg.name}: training at dp={ctx.dp} splits the batch's {B} rows "
+                             f"over the replicas: B must be a multiple of dp")
+        batch = shard_batch(batch, ctx)
+        tokens = batch["tokens"]
+    x = _embed_inputs(ctx, params, cfg, batch, fsdp)
     positions = _positions_for(S, tokens.device, ctx)
     period = cfg.local_global_period or 1
     group = []
@@ -301,8 +348,11 @@ def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
             x = _group_train(ctx, cfg, group, x, positions, first)
         group = []
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    return sharded_cross_entropy(ctx, x, params["embed"]["table"], batch["labels"],
-                                 logit_softcap=cfg.logit_softcap)
+    table = params["embed"]["table"]
+    if fsdp:
+        table = fsdp_gather(ctx, table, PARAM_SPECS["table"])
+    return data_mean(ctx, sharded_cross_entropy(ctx, x, table, batch["labels"],
+                                                logit_softcap=cfg.logit_softcap))
 
 
 def _pinned_group(pins, ctx, cfg, layers, x, positions, first):
@@ -314,9 +364,13 @@ def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch)
     """Inference prefill: forward over the prompt {"tokens": [B, S]} (every
     rank the whole prompt), returning last-position logits [B, 1, V] f32,
     the same on every rank, and this rank's chunk of the cache {"k", "v"},
-    each [L, B, S / tp, Hkv, hd] at the compute dtype.  S must be a multiple
-    of tp (the reference's ``s_loc = S // n``)."""
+    each [L, B, S / tp, Hkv, hd] at the compute dtype (at dp > 1 where dp
+    divides B, this replica's ``B / dp`` rows of it; the logits are gathered
+    over data).  S must be a multiple of tp (the reference's ``s_loc = S //
+    n``)."""
     check_prefill(cfg, tp=ctx.tp)
+    split = batch_rows(ctx, batch["tokens"].shape[0]) is not None
+    batch = shard_batch(batch, ctx)
     tokens = batch["tokens"]
     S, n = tokens.shape[1], ctx.tp
     if S % n:
@@ -334,16 +388,27 @@ def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch)
     # position S - 1 is the last row of rank tp - 1's chunk
     x = broadcast(ctx, x[:, -1:].contiguous(), n - 1)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    return all_gather(ctx, _lm_logits(params, cfg, x), axis=-1), cache
+    return _gathered_logits(ctx, _lm_logits(params, cfg, x), split), cache
+
+
+def _gathered_logits(ctx, logits, split: bool):
+    """A rank's logits [b, 1, V_local] -> [B, 1, V] on every rank: gathered
+    over the vocabulary's tp ranks, and over data where the replicas split
+    the rows."""
+    logits = all_gather(ctx, logits, axis=-1)
+    return all_gather_data(ctx, logits) if split else logits
 
 
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
-def init_cache(cfg: TransformerConfig, batch_size: int, device, tp: int = 1):
+def init_cache(cfg: TransformerConfig, batch_size: int, device, tp: int = 1, dp: int = 1):
     """Zeroed decode caches {"k", "v"}: [L, B, S_max / tp, Hkv, hd] each, a
-    rank's rows of the sequence-sharded cache."""
+    rank's rows of the sequence-sharded cache; at dp > 1 where dp divides B
+    a replica's ``B / dp`` of its rows (``data.pipeline.batch_rows``)."""
     check_supported(cfg, tp)
+    if dp > 1 and batch_size % dp == 0:
+        batch_size //= dp
     shape = (cfg.n_layers, batch_size, cfg.max_seq // tp, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
@@ -395,10 +460,14 @@ def decode_step(ctx: ParallelContext, params, cfg: TransformerConfig,
     """One decode step.  tokens: [B, 1]; pos: [B] int32 (0-based position
     of each slot's new token; a scalar broadcasts).  Returns
     (logits [B, 1, V] f32, the same on every rank, and cache); the cache is
-    updated in place."""
+    updated in place.  At dp > 1 where dp divides B the cache is this
+    replica's (``init_cache(..., dp)``) and the replica runs its rows."""
     check_supported(cfg, ctx.tp)
     B = tokens.shape[0]
     pos = broadcast_pos(pos, B, tokens.device)
+    rows = batch_rows(ctx, B)
+    if rows is not None:
+        tokens, pos = tokens[rows[0]:rows[0] + rows[1]], pos[rows[0]:rows[0] + rows[1]]
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
     x = embedding_lookup(ctx, params["embed"], tokens, seq_shard=False,
                          scale=scale).to(cfg.cdtype)
@@ -406,7 +475,7 @@ def decode_step(ctx: ParallelContext, params, cfg: TransformerConfig,
         x = _layer_decode(ctx, cfg, lp, x, cache["k"][i], cache["v"][i], pos,
                           cfg.layer_window(i))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    return all_gather(ctx, _lm_logits(params, cfg, x), axis=-1), cache
+    return _gathered_logits(ctx, _lm_logits(params, cfg, x), rows is not None), cache
 
 
 def _lm_logits(params, cfg, x):
@@ -423,26 +492,33 @@ def _lm_logits(params, cfg, x):
 # ---------------------------------------------------------------------------
 # paged serving (continuous batching)
 # ---------------------------------------------------------------------------
-def init_paged_pool(cfg: TransformerConfig, num_blocks: int, block_size: int, device):
+def init_paged_pool(cfg: TransformerConfig, num_blocks: int, block_size: int, device,
+                    tp: int = 1):
     """Zeroed paged KV block pools shared by all in-flight requests:
-    {"k", "v"}, each [L, num_blocks + 1, block_size, Hkv, hd] at the compute
-    dtype; block ``num_blocks`` of each layer is the sink that dropped
-    writes land in (``models/attention.paged_cache_update``).  Blocks map to
-    requests through host-side block tables (``serve/kv_cache.py``).  GQA
-    only: MLA keeps the dense latent cache (the registry gates on
+    {"k", "v"}, each [L, num_blocks / tp + 1, block_size, Hkv, hd] at the
+    compute dtype: this rank's stripe of the ``num_blocks`` global blocks
+    (``pool_logical_specs``; tp must divide them) and its sink, the last
+    block of each layer, that dropped writes land in
+    (``models/attention.paged_cache_update``).  Blocks map to requests
+    through host-side block tables (``serve/kv_cache.py``).  GQA only: MLA
+    keeps the dense latent cache (the registry gates on
     ``supports_paged``)."""
-    check_supported(cfg)
+    check_supported(cfg, tp)
     if cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"paged KV requires attn_type='gqa' ({cfg.name} is {cfg.attn_type})")
-    shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
+    if num_blocks % tp:
+        raise ValueError(f"{num_blocks} pool blocks do not stripe over tp={tp}")
+    shape = (cfg.n_layers, num_blocks // tp + 1, block_size, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
 
 
 def pool_logical_specs(cfg: TransformerConfig, pool):
-    """Logical sharding specs of a paged pool: its blocks shard over tp."""
-    raise NotImplementedError(f"pool_logical_specs: {_MULTI_RANK_ITEMS['paged']}")
+    """Logical sharding specs of a paged pool, the reference's: [L, blocks
+    over tp ("seq"), ...], whole over data.  A rank's sink block rides
+    beside its stripe and is no global block."""
+    return {k: (None, "seq") + (None,) * (v.dim() - 2) for k, v in pool.items()}
 
 
 def _attn_serve(ctx, cfg: TransformerConfig, lp, x, k_pool, v_pool, tables, positions,
@@ -492,10 +568,12 @@ def serve_step(ctx: ParallelContext, params, cfg: TransformerConfig,
     logits come from its last valid token (``n_new - 1``, clipped; an idle
     slot's row is discarded by the caller).  Returns (logits [B, V] f32,
     pool); the pool is updated in place.  Nothing here synchronises with
-    the host, given tensors on one device.  At tp = 1 only."""
-    check_supported(cfg)
-    if ctx.tp > 1:
-        raise NotImplementedError(f"serve_step at tp={ctx.tp}: {_MULTI_RANK_ITEMS['paged']}")
+    the host, given tensors on one device.  At tp > 1 ``pool`` is this
+    rank's stripe (``init_paged_pool(..., tp)``), ``tables`` hold global
+    block ids, and the logits are gathered over the vocabulary's ranks: the
+    same on every rank.  At dp > 1 every replica runs the whole step on a
+    pool of its own, as the reference replicates both over data."""
+    check_supported(cfg, ctx.tp)
     B, C = tokens.shape
     dev = tokens.device
     pos = broadcast_pos(pos, B, dev)
@@ -512,4 +590,4 @@ def serve_step(ctx: ParallelContext, params, cfg: TransformerConfig,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     idx = (n_new.long() - 1).clamp(0, C - 1)
     x_last = torch.take_along_dim(x, idx[:, None, None], dim=1)      # [B, 1, D]
-    return _lm_logits(params, cfg, x_last)[:, 0], pool
+    return all_gather(ctx, _lm_logits(params, cfg, x_last), axis=-1)[:, 0], pool

@@ -5,8 +5,17 @@ on its own shard, and the collectives of ``core/collectives.py`` run over
 the tp process group the context holds.  Where the JAX package states a
 parameter's layout as a logical spec (``("fsdp", "tp")`` and the like) and
 lets GSPMD place it, the port slices the whole tensor to this rank's part
-with :func:`shard_leaf`.  Data parallelism (``dp > 1``, with the reference's
-``fsdp`` weight sharding) is not ported: ROADMAP Queue 1 item 1 (left).
+with :func:`shard_leaf`.
+
+A world of ``dp * tp`` ranks is ``dp`` data replicas of a tp world, as the
+reference's ``("data", "model")`` mesh: global rank ``r`` is tp rank ``r %
+tp`` of replica ``r // tp``.  Its tp group holds the ranks of one replica,
+its data group the ranks with the same tp rank (``make_world_groups``, which
+every rank runs in the same order).  ``ParallelContext.data`` is the data
+axis seen as a context of its own (its ``tp`` the data group's size), so the
+collectives of ``core/collectives.py`` run over it unchanged.  Training
+places the ``"fsdp"`` dims over the data ranks (``shard_leaf(...,
+training=True)``); serving keeps them whole, as the reference's launchers do.
 """
 from __future__ import annotations
 
@@ -19,12 +28,55 @@ import torch.distributed as dist
 from repro_torch.core.perfmodel import GLOO_HOST, H100_NVLINK, MeshHardwareModel
 
 # logical axes the reference's ``_resolve`` maps onto the tp axis
-# (src/repro/parallel/sharding.py:171-183); ``None``, "none", "batch" and
-# "fsdp" map onto the data axes, which are one rank wide while dp = 1
+# (src/repro/parallel/sharding.py:171-183); "batch" and "fsdp" map onto the
+# data axes, ``None`` and "none" onto no axis
 _TP_AXES = ("tp", "model", "vocab", "seq", "heads", "expert")
-_WHOLE_AXES = (None, "none", "batch", "fsdp")
-_DP_ITEM = ("ROADMAP Queue 1 item 1 (left: data parallel, dp > 1, with the reference's "
-            "fsdp weight sharding)")
+_DATA_AXES = ("batch", "fsdp")
+_WHOLE_AXES = (None, "none") + _DATA_AXES
+
+# (dp, tp) -> (this rank's tp group, its data group), made by make_world_groups
+_WORLD_GROUPS: dict = {}
+
+
+def make_world_groups(dp: int, tp: int):
+    """Make the tp groups and the data groups of a world of ``dp * tp`` ranks
+    (``dist.new_group`` is collective: every rank makes every group, in the
+    same order, tp groups first) and keep this rank's two; returns them.  A
+    group that would be the whole world is ``None`` (the default group), one
+    of one rank is never made."""
+    if (dp, tp) in _WORLD_GROUPS:
+        return _WORLD_GROUPS[(dp, tp)]
+    rank = dist.get_rank()
+    tp_group = data_group = None
+    if dp > 1 and tp > 1:
+        for i in range(dp):
+            g = dist.new_group(list(range(i * tp, (i + 1) * tp)))
+            if rank // tp == i:
+                tp_group = g
+        for j in range(tp):
+            g = dist.new_group(list(range(j, dp * tp, tp)))
+            if rank % tp == j:
+                data_group = g
+    _WORLD_GROUPS[(dp, tp)] = (tp_group, data_group)
+    return tp_group, data_group
+
+
+def world_groups(dp: int, tp: int):
+    """This rank's (tp group, data group) of a (dp, tp) world, as
+    :func:`make_world_groups` made them; raises where they were not made
+    (making them here, on one rank's first context, would be a collective
+    that the ranks might reach in different orders)."""
+    if (dp, tp) not in _WORLD_GROUPS:
+        raise RuntimeError(
+            f"(dp, tp) = ({dp}, {tp}): no tp and data groups were made for this world; start "
+            f"it with repro_torch.launch.mesh.init_world(tp, ..., dp=dp), or call "
+            f"make_world_groups(dp, tp) on every rank, or pass group= and data_group=")
+    return _WORLD_GROUPS[(dp, tp)]
+
+
+def forget_world_groups():
+    """Drop the groups :func:`make_world_groups` kept (the world is ending)."""
+    _WORLD_GROUPS.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +138,7 @@ class FusionConfig:
       wire hides behind compute keeps f32.
 
     In this port ``"bulk"`` and ``"fused"`` run at any tp, ``"kernel"`` at
-    tp = 1 (the real-peer kernels wait for a multi-card host); the
+    tp = 1 (the real-peer kernels wait for a multi-card host), at any dp; the
     ``"auto"`` granularity and wire resolve at every fused-op call site.
     The ``"auto"`` mode (the comm-graph rewrite) waits for ROADMAP Queue 1
     item 7.
@@ -114,15 +166,19 @@ class FusionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
-    """Device, fusion settings and the tp world threaded through the model code.
+    """Device, fusion settings and the (dp, tp) world threaded through the
+    model code.
 
     ``device`` defaults to ``"cuda"`` and a CUDA device that is not there
     raises: nothing falls back to the CPU unless the caller asks for it.
-    ``tp`` is the tensor-parallel world's size.  At tp > 1 ``group`` is its
-    process group (``None``: the default world, which must then be exactly
-    tp ranks wide), started beforehand (``launch.mesh.init_world``); the
-    context reads this rank's place in it (``tp_rank``) and the world's
-    backend (``"gloo"`` or ``"nccl"``).  ``dp`` must be 1.
+    ``tp`` is the tensor-parallel world's size, ``dp`` the number of data
+    replicas.  At tp > 1 ``group`` is the tp process group, at dp > 1
+    ``data_group`` the data group (``None``: the groups
+    :func:`make_world_groups` made for this (dp, tp), or the default world
+    where one axis is the whole world), started beforehand
+    (``launch.mesh.init_world``); the context reads this rank's place in
+    each (``tp_rank``, ``dp_rank``) and the world's backend (``"gloo"`` or
+    ``"nccl"``).  ``data`` is the data axis as a context of its own.
 
     ``hw`` is the link model the autotuner decides under (a
     :class:`MeshHardwareModel`).  ``None`` takes it from the world: a gloo
@@ -136,34 +192,53 @@ class ParallelContext:
     tp: int = 1
     dp: int = 1
     group: Any = None
+    data_group: Any = None
     hw: MeshHardwareModel | None = None
     tp_rank: int = dataclasses.field(init=False, default=0)
+    dp_rank: int = dataclasses.field(init=False, default=0)
     backend: str | None = dataclasses.field(init=False, default=None)
+    data: Any = dataclasses.field(init=False, default=None, repr=False, compare=False)
 
     def __post_init__(self):
         dev = torch.device(self.device)
         object.__setattr__(self, "device", dev)
-        if self.dp != 1:
-            raise NotImplementedError(f"dp={self.dp}: {_DP_ITEM}")
-        if self.tp < 1:
-            raise ValueError(f"tp must be >= 1, got {self.tp}")
-        if self.tp > 1:
+        if self.tp < 1 or self.dp < 1:
+            raise ValueError(f"tp and dp must be >= 1, got tp={self.tp}, dp={self.dp}")
+        if self.tp > 1 or self.dp > 1:
             if not (dist.is_available() and dist.is_initialized()):
                 raise RuntimeError(
-                    f"tp={self.tp} needs a torch.distributed world of {self.tp} ranks: "
-                    f"start one with repro_torch.launch.mesh.init_world")
-            group = self.group if self.group is not None else dist.group.WORLD
-            size = dist.get_world_size(group)
-            if size != self.tp:
-                raise ValueError(f"tp={self.tp} but the process group has {size} ranks")
-            object.__setattr__(self, "tp_rank", dist.get_rank(group))
-            object.__setattr__(self, "backend", str(dist.get_backend(group)))
+                    f"(dp, tp) = ({self.dp}, {self.tp}) needs a torch.distributed world of "
+                    f"{self.dp * self.tp} ranks: start one with "
+                    f"repro_torch.launch.mesh.init_world")
+            if self.tp > 1 and self.dp > 1 and (self.group is None or self.data_group is None):
+                tp_group, data_group = world_groups(self.dp, self.tp)
+                if self.group is None:
+                    object.__setattr__(self, "group", tp_group)
+                if self.data_group is None:
+                    object.__setattr__(self, "data_group", data_group)
+            object.__setattr__(self, "backend", str(dist.get_backend()))
+        if self.tp > 1:
+            object.__setattr__(self, "tp_rank", self._place(self.group, self.tp, "tp"))
+        if self.dp > 1:
+            object.__setattr__(self, "dp_rank", self._place(self.data_group, self.dp, "dp"))
+            object.__setattr__(self, "data", ParallelContext(
+                device=dev, fusion=self.fusion, tp=self.dp, group=self.data_group, hw=self.hw))
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is "
                                "available (pass device='cpu' to run on the CPU)")
         if self.hw is None:
             link = GLOO_HOST if self.tp > 1 and self.backend == "gloo" else H100_NVLINK
             object.__setattr__(self, "hw", MeshHardwareModel.uniform(link))
+
+    @staticmethod
+    def _place(group, size: int, axis: str) -> int:
+        """This rank's place in ``group`` (``None``: the default world),
+        which must be ``size`` ranks wide."""
+        group = group if group is not None else dist.group.WORLD
+        got = dist.get_world_size(group)
+        if got != size:
+            raise ValueError(f"{axis}={size} but the process group has {got} ranks")
+        return dist.get_rank(group)
 
     def peer(self, tp_rank: int) -> int:
         """The global rank of tp rank ``tp_rank`` (what point-to-point calls take)."""
@@ -181,28 +256,53 @@ class ParallelContext:
 
 def splits_over_tp(spec) -> bool:
     """Whether a logical ``spec`` splits a dim over the tp ranks (else the
-    leaf is whole on every rank)."""
+    leaf is whole on every rank of a replica)."""
     return any(ax in _TP_AXES for ax in spec)
 
 
-def shard_leaf(x: torch.Tensor, spec, ctx: ParallelContext) -> torch.Tensor:
+def splits_over_data(spec) -> bool:
+    """Whether a logical ``spec`` splits a dim over the data ranks where it
+    is placed for training (a ``"fsdp"`` or ``"batch"`` dim); else the leaf
+    is whole on every replica."""
+    return any(ax in _DATA_AXES for ax in spec)
+
+
+def split_dims(spec, ctx, training: bool = False) -> list:
+    """[(dim, ranks, rank)] of each dim ``spec`` splits in ``ctx``'s world:
+    a tp axis over ``ctx.tp``, with ``training`` a data axis over ``ctx.dp``
+    (a dim split over one rank is left out).  ``ctx`` needs only ``tp``,
+    ``tp_rank`` and, where dp > 1, ``dp`` and ``dp_rank``."""
+    unknown = [ax for ax in spec if ax not in _TP_AXES and ax not in _WHOLE_AXES]
+    tp_dims = [i for i, ax in enumerate(spec) if ax in _TP_AXES]
+    data_dims = [i for i, ax in enumerate(spec) if ax in _DATA_AXES]
+    if unknown or len(tp_dims) > 1 or len(data_dims) > 1:
+        raise ValueError(f"logical spec {spec}: one tp axis of {_TP_AXES} and one data axis "
+                         f"of {_DATA_AXES} at most")
+    dp = getattr(ctx, "dp", 1)
+    out = [(i, ctx.tp, ctx.tp_rank) for i in tp_dims if ctx.tp > 1]
+    if training:
+        out += [(i, dp, ctx.dp_rank) for i in data_dims if dp > 1]
+    return sorted(out)
+
+
+def shard_leaf(x: torch.Tensor, spec, ctx: ParallelContext, training: bool = False
+               ) -> torch.Tensor:
     """This rank's part of the whole tensor ``x`` under the reference's
     logical ``spec`` (one entry per dim): a dim named ``"tp"``, ``"vocab"``,
     ``"seq"`` or ``"heads"`` is split into ``ctx.tp`` equal blocks and block
-    ``ctx.tp_rank`` kept; ``None`` and ``"fsdp"`` keep the dim whole (at dp
-    = 1).  The SPMD counterpart of the reference's
-    ``param_sharding_rules``.  At tp = 1, or when no dim splits, ``x``
-    itself is returned; otherwise a compact copy, so the whole can be freed."""
+    ``ctx.tp_rank`` kept; with ``training`` a dim named ``"fsdp"`` is split
+    into ``ctx.dp`` blocks and block ``ctx.dp_rank`` kept (the train state's
+    placement); ``None``, and ``"fsdp"`` in serving, keep the dim whole.
+    The SPMD counterpart of the reference's ``param_sharding_rules``.  When
+    no dim splits, ``x`` itself is returned; otherwise a compact copy, so
+    the whole can be freed."""
     if len(spec) != x.dim():
         raise ValueError(f"spec {spec} for a tensor of shape {tuple(x.shape)}")
-    split = [i for i, ax in enumerate(spec) if ax in _TP_AXES]
-    unknown = [ax for ax in spec if ax not in _TP_AXES and ax not in _WHOLE_AXES]
-    if unknown or len(split) > 1:
-        raise ValueError(f"logical spec {spec}: one tp axis at most, of {_TP_AXES}")
-    if not split or ctx.tp == 1:
-        return x
-    dim = split[0]
-    if x.shape[dim] % ctx.tp:
-        raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not split over tp={ctx.tp}")
-    size = x.shape[dim] // ctx.tp
-    return x.narrow(dim, ctx.tp_rank * size, size).clone()
+    splits = split_dims(spec, ctx, training)
+    for dim, n, r in splits:
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not split over {n} "
+                             f"ranks (spec {spec})")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, r * size, size)
+    return x.clone() if splits else x

@@ -28,12 +28,14 @@ At tp > 1 each rank updates its own shards (``models/transformer.py``
 ``PARAM_SPECS``): AdamW is elementwise, so a shard's update is the whole
 rule on it, and a leaf whole on every rank gets the same gradient and so
 the same bits everywhere (``train/step.py`` sums its partials over the
-ranks first).  :func:`clip_by_global_norm` takes the world and the specs
-and sums the squares of the sharded leaves over the ranks;
-:func:`optimizer_state_specs` gives the state the parameters' specs.
-Adafactor's factored moments and update clip reduce over sharded axes: its
-update at tp > 1 is ROADMAP Queue 1 item 5 (dbrx, its only user, trains
-there).
+ranks first).  Over data replicas (dp > 1) the train state's fsdp dims are
+split over the data ranks as well, and AdamW updates those shards the same
+way.  :func:`clip_by_global_norm` takes the world and the specs and sums
+the squares of each leaf over the ranks it is split over;
+:func:`optimizer_state_specs` gives the state the parameters' specs (the
+moments inherit the fsdp split).  Adafactor's factored moments and update
+clip reduce over sharded axes: its update at tp > 1 or dp > 1 is ROADMAP
+Queue 1 item 5 (dbrx, its only user, trains there).
 """
 from __future__ import annotations
 
@@ -44,8 +46,9 @@ import torch
 
 from repro_torch.models.common import DTYPES
 
-ADAFACTOR_TP_ITEM = ("ROADMAP Queue 1 item 5 (Adafactor's update at tp > 1: its factored "
-                     "moments and RMS clip reduce over sharded axes; dbrx trains there)")
+ADAFACTOR_TP_ITEM = ("ROADMAP Queue 1 item 5 (Adafactor's update at tp > 1 or dp > 1: its "
+                     "factored moments and RMS clip reduce over sharded axes; dbrx trains "
+                     "there)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,22 +160,31 @@ def spec_leaves(specs) -> list:
 @torch.no_grad()
 def global_norm(tree, ctx=None, specs=None):
     """sqrt of the sum of every leaf's squares, summed in f32 leaf by leaf.
-    Over a tp world (``ctx`` at tp > 1, ``specs`` the leaves' logical
-    specs): the squares of the leaves split over tp summed over the ranks,
-    those of a leaf whole on every rank counted once; the same bits on
-    every rank."""
+    Over a world (``ctx`` of more than one rank, ``specs`` the leaves'
+    logical specs in their training placement): the squares of a leaf
+    summed over the ranks it is split over (tp, data, or both), those of a
+    leaf whole on every rank counted once; the same bits on every rank."""
     leaves = tree_leaves(tree)
     sq = lambda xs: sum(torch.sum(torch.square(x.float())) for x in xs)
-    if ctx is None or ctx.tp == 1:
+    tp, dp = (1, 1) if ctx is None else (ctx.tp, ctx.dp)
+    if tp == 1 and dp == 1:
         return torch.sqrt(sq(leaves))
     from repro_torch.core.collectives import _all_reduce
-    from repro_torch.parallel.sharding import splits_over_tp
+    from repro_torch.parallel.sharding import splits_over_data, splits_over_tp
 
-    split = [splits_over_tp(sp) for sp in spec_leaves(specs)]
-    shards = sq(x for x, sp in zip(leaves, split) if sp)
-    shards = _all_reduce(ctx, torch.as_tensor(shards, dtype=torch.float32,
-                                              device=leaves[0].device).reshape(1))[0]
-    return torch.sqrt(shards + sq(x for x, sp in zip(leaves, split) if not sp))
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    kinds = [(tp > 1 and splits_over_tp(sp), dp > 1 and splits_over_data(sp))
+             for sp in spec_leaves(specs)]
+    part = {k: sq([x for x, kind in zip(leaves, kinds) if kind == k]) + zero
+            for k in ((False, False), (True, False), (False, True), (True, True))}
+    # [tp only, both] summed over tp; then [data only, both's tp sum] over data
+    over_tp = torch.stack([part[(True, False)], part[(True, True)]])
+    if tp > 1:
+        over_tp = _all_reduce(ctx, over_tp)
+    over_data = torch.stack([part[(False, True)], over_tp[1]])
+    if dp > 1:
+        over_data = _all_reduce(ctx.data, over_data)
+    return torch.sqrt(part[(False, False)] + over_tp[0] + over_data[0] + over_data[1])
 
 
 @torch.no_grad()
@@ -337,6 +349,14 @@ class _Spec:
         self.spec = tuple(spec)
 
 
+def spec_tree(specs):
+    """A spec tree with each logical spec wrapped as one leaf (``_Spec``), so
+    that ``leaf_groups`` groups it as it groups the parameters."""
+    if isinstance(specs, dict):
+        return {k: spec_tree(v) for k, v in specs.items()}
+    return [spec_tree(v) for v in specs] if isinstance(specs, list) else _Spec(specs)
+
+
 def optimizer_state_specs(cfg: OptimizerConfig, param_specs, period: int = 1):
     """The optimizer state's logical specs: each moment inherits its
     parameter's.  AdamW's moments are laid out as the parameters, so their
@@ -350,13 +370,8 @@ def optimizer_state_specs(cfg: OptimizerConfig, param_specs, period: int = 1):
     if cfg.name != "adafactor":
         raise ValueError(cfg.name)
 
-    def wrap(t):
-        if isinstance(t, dict):
-            return {k: wrap(v) for k, v in t.items()}
-        return [wrap(v) for v in t] if isinstance(t, list) else _Spec(t)
-
     v = {}
-    for path, leaves, stacked in leaf_groups(wrap(param_specs), period):
+    for path, leaves, stacked in leaf_groups(spec_tree(param_specs), period):
         s = ((None,) if stacked else ()) + leaves[0].spec
         _set_path(v, path, {"vr": s[:-1], "vc": s[:-2] + s[-1:]} if len(s) >= 2 else {"v": s})
     return {"v": v, "step": ()}

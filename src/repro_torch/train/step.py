@@ -13,9 +13,17 @@ part of its gradient: after the gradients (and the microbatch sum) one
 all-reduce a dtype sums those over the ranks
 (``collectives.all_reduce_grads``), the clip's norm is the world's, and
 AdamW updates each shard in place, so a whole leaf leaves the step with the
-same bits on every rank.  Gradient compression over shards (its int8 scale
-and top-k over a whole tp-sharded stack) raises at tp > 1, and Adafactor's
-update too (``optimizer.ADAFACTOR_TP_ITEM``).
+same bits on every rank.
+
+Over data replicas (dp > 1) the train state's fsdp dims are split over the
+data ranks (``train_state_specs``; ``init_params(..., training=True)``
+places them), each replica runs its rows of the batch, and the loss is the
+global mean (``models/transformer.train_forward``); the gradients of the
+leaves whole over data are summed over the data ranks
+(``all_reduce_grads``), those of the fsdp shards come reduce-scattered from
+their gathers' backward.  Gradient compression runs over the shards
+(``compress_decompress`` with the world and the specs); Adafactor's update
+raises at tp > 1 or dp > 1 (``optimizer.ADAFACTOR_TP_ITEM``).
 """
 from __future__ import annotations
 
@@ -30,9 +38,6 @@ from repro_torch.core.collectives import all_reduce_grads
 from repro_torch.train.optimizer import (ADAFACTOR_TP_ITEM, OptimizerConfig, clip_by_global_norm,
                                          make_optimizer, optimizer_state_specs, spec_leaves,
                                          tree_leaves, tree_map)
-
-COMPRESSION_TP_ITEM = ("ROADMAP Queue 1 item 1 (left: gradient compression over shards, the "
-                       "int8 scale and the top-k over a whole tp-sharded stack)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,19 +71,19 @@ def build_train_step(loss_fn: Callable, tc: TrainConfig, *, ctx=None, param_spec
     loss's context) and ``param_specs`` (the parameters' logical specs,
     ``ArchBundle.param_specs``) are needed at tp > 1.  ``on_phase``, if
     given, is called with "start", "forward", "backward", "allreduce" and
-    "optimizer" as each part of a step has been enqueued (for timing)."""
+    "optimizer" as each part of a step has been enqueued (for timing).
+    The loss reported is the global mean, the same on every rank."""
     _, opt_update = make_optimizer(tc.optimizer)
     mark = on_phase or (lambda name: None)
-    tp = 1 if ctx is None else ctx.tp
-    if tp > 1:
+    tp, dp = (1, 1) if ctx is None else (ctx.tp, ctx.dp)
+    world = tp > 1 or dp > 1
+    if world:
         if param_specs is None:
-            raise ValueError(f"build_train_step at tp={tp} needs the parameters' specs")
+            raise ValueError(f"build_train_step at (dp, tp) = ({dp}, {tp}) needs the "
+                             f"parameters' specs")
         if tc.optimizer.name == "adafactor":
-            raise NotImplementedError(f"adafactor at tp={tp}: {ADAFACTOR_TP_ITEM}")
-        if tc.compression.scheme != "none":
-            raise NotImplementedError(f"{tc.compression.scheme} gradient compression at tp={tp}: "
-                                      f"{COMPRESSION_TP_ITEM}")
-    specs = spec_leaves(param_specs) if tp > 1 else None
+            raise NotImplementedError(f"adafactor at tp={tp}, dp={dp}: {ADAFACTOR_TP_ITEM}")
+    specs = spec_leaves(param_specs) if world else None
 
     def split_micro(batch, i):
         def sl(x):
@@ -108,15 +113,16 @@ def build_train_step(loss_fn: Callable, tc: TrainConfig, *, ctx=None, param_spec
             for g in grads:
                 g /= tc.microbatches
         mark("backward")
-        if tp > 1:
+        if world:
             all_reduce_grads(ctx, grads, specs)
         mark("allreduce")
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
         grads, gnorm = clip_by_global_norm(grads, tc.optimizer.grad_clip, ctx, param_specs)
         if tc.compression.scheme != "none":
-            grads, state["residuals"] = compress_decompress(tc.compression, grads,
-                                                            state["residuals"], tc.layer_period)
+            grads, state["residuals"] = compress_decompress(
+                tc.compression, grads, state["residuals"], tc.layer_period, ctx,
+                param_specs if world else None)
         _, state["opt"], lr = opt_update(tc.optimizer, grads, state["opt"], params,
                                          tc.layer_period)
         del grads
@@ -130,7 +136,9 @@ def build_train_step(loss_fn: Callable, tc: TrainConfig, *, ctx=None, param_spec
 def train_state_specs(tc: TrainConfig, param_specs):
     """The train state's logical specs: the parameters', the optimizer
     state's (:func:`optimizer.optimizer_state_specs`) and the compression
-    residuals' (the parameters')."""
+    residuals' (the parameters').  Their ``"fsdp"`` dims are split over the
+    data ranks (``parallel.sharding.shard_leaf(..., training=True)``), as
+    the reference maps ``"fsdp"`` onto its data axes."""
     specs = {"params": param_specs,
              "opt": optimizer_state_specs(tc.optimizer, param_specs, tc.layer_period)}
     if tc.compression.scheme != "none":

@@ -217,10 +217,8 @@ def test_matmul_allreduce_fp8_wire_clamps_to_bf16():
 
 @pytest.mark.parametrize("kwargs", [{"tp": 2}, {"dp": 2}])
 def test_parallel_context_world_above_one_raises(kwargs):
-    """tp > 1 needs a started world (none here); dp > 1 is not ported."""
-    err, match = ((RuntimeError, "init_world") if "tp" in kwargs
-                  else (NotImplementedError, "ROADMAP Queue 1 item 1"))
-    with pytest.raises(err, match=match):
+    """tp > 1 and dp > 1 need a started world (none here)."""
+    with pytest.raises(RuntimeError, match="init_world"):
         ParallelContext(device="cpu", **kwargs)
 
 

@@ -295,8 +295,9 @@ def test_dbrx_serve_step_matches_jax_bulk(rng):
 
 def test_unported_paged_paths_raise(glm):
     _, _, pb, _ = glm
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        pb.pool_specs(pb.init_paged_pool(4, BS, "cpu"))
+    # pool_logical_specs is ported (the reference's [L, blocks over tp, ...])
+    assert pb.pool_specs(pb.init_paged_pool(4, BS, "cpu")) == {
+        k: (None, "seq", None, None, None) for k in ("k", "v")}
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         engine.serve_with_chaos(None, None)
     for name, cfg_kw in (("deepseek-v3", dict(dense_prefix=1)), ("mla", dict(attn_type="mla"))):

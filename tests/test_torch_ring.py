@@ -267,12 +267,16 @@ def test_ring_attention_calibration_agrees_on_every_rank(world, qkv, window):
     assert [json.loads(key)["op"] for key, _, _ in decisions] == ["ring_attention"]
 
 
-@pytest.mark.parametrize("what,item", [("compression", "item 1 .*compression over shards"),
+@pytest.mark.parametrize("what,item", [("compression", None),
                                        ("adafactor", "item 5 .*Adafactor"),
-                                       ("paged", "item 1 .*paged")])
+                                       ("paged", "item 5")])
 def test_training_and_paged_serving_still_raise_at_tp2(world, what, item):
-    """What training at tp > 1 leaves (gradient compression over shards,
-    Adafactor's update) and paged serving at tp > 1 raise, each naming its
-    ROADMAP entry."""
+    """What training at tp > 1 leaves (Adafactor's update) and paged serving
+    of a MoE model at tp > 1 raise, each naming its ROADMAP entry; gradient
+    compression over shards (``item`` None) builds its step without a
+    refusal."""
     for msg in run(world, "refusal_task", 2, what=what):
-        assert msg is not None and re.search(f"ROADMAP Queue 1 {item}", msg), msg
+        if item is None:
+            assert msg is None, msg
+        else:
+            assert msg is not None and re.search(f"ROADMAP Queue 1 {item}", msg), msg

@@ -279,10 +279,10 @@ def test_auto_choices_resolve_at_tp2(world, rng):
 
 @pytest.mark.parametrize("what,item", [
     ("kernel", "item 1 .*real-peer"), ("moe", "item 5"),
-    ("paged", "item 1 .*paged"), ("rwkv6", "item 7")])
+    ("paged", "item 5"), ("rwkv6", "item 7")])
 def test_paths_left_for_later_raise_at_tp2(world, what, item):
     """Kernel mode of the fused GEMV at tp > 1 raises (no fallback to fused
-    mode), as do MoE, paged serving and rwkv6."""
+    mode), as do MoE, a MoE model's paged serving and rwkv6."""
     for msg in run(world, "refusal_task", 2, what=what):
         assert msg is not None and re.search(f"ROADMAP Queue 1 {item}", msg), msg
 
@@ -304,7 +304,7 @@ def test_matmul_allreduce_grad_at_tp2(world, rng, mode):
 
 
 def test_dp_above_one_and_world_starts_refuse_plainly(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1 .*dp > 1"):
+    with pytest.raises(RuntimeError, match="init_world"):     # dp > 1 needs a started world
         ParallelContext(device="cpu", dp=2)
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(var, raising=False)
@@ -317,7 +317,7 @@ def test_dp_above_one_and_world_starts_refuse_plainly(monkeypatch):
     with pytest.raises(ValueError, match="no rank"):
         launch_mesh.init_world(2, "gloo", "cpu")
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(ValueError, match="--tp 2 in a world of 4"):
+    with pytest.raises(ValueError, match="--tp 2 is 2 ranks, in a world of 4"):
         launch_mesh.init_world(2, "gloo", "cpu")
     assert launch_mesh.default_backend("cpu") == "gloo"
     assert launch_mesh.default_backend("cuda") == "nccl"

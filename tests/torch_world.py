@@ -6,7 +6,11 @@ the worker again in every rank, which must stay free of JAX.
 
 One world of ``WORLD = 4`` ranks serves a test module.  A tp = 4 task runs
 over all four ranks; a tp = 2 task over the pairs (0, 1) and (2, 3), each
-pair on the same inputs.  A task is a function of ``TASKS``, called on every
+pair on the same inputs.  With data replicas (``dp``, the layouts of
+``LAYOUTS``): (dp, tp) = (2, 2) runs one world, the pairs its tp groups and
+(0, 2), (1, 3) its data groups (global rank ``r`` is tp rank ``r % 2`` of
+replica ``r // 2``); (2, 1) runs two worlds of two replicas on the pairs;
+(4, 1) one world of four replicas.  A task is a function of ``TASKS``, called on every
 rank as ``fn(ctx_factory, **inputs)`` with numpy inputs; ``World.run``
 returns each rank's result in rank order and fails after a timeout, tearing
 the world down (the next task starts a new one), so that a hang fails one
@@ -23,6 +27,8 @@ import torch.multiprocessing as mp
 
 WORLD = 4
 TIMEOUT_S = 120
+# the (dp, tp) layouts a task can run at
+LAYOUTS = ((1, 2), (1, 4), (2, 1), (2, 2), (4, 1))
 TASKS = {}
 
 
@@ -44,20 +50,26 @@ def _rank_main(rank, init_method, inbox, outbox):
     torch.set_num_threads(1)
     init_world(WORLD, "gloo", "cpu", rank=rank, init_method=init_method)
     pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
-    groups = {WORLD: None, 2: pairs[rank // 2]}
+    cross = [dist.new_group([0, 2]), dist.new_group([1, 3])]
+    pair, across = pairs[rank // 2], cross[rank % 2]
+    # (dp, tp) -> (tp group, data group)
+    groups = {(1, WORLD): (None, None), (1, 2): (pair, None), (2, 2): (pair, across),
+              (2, 1): (None, pair), (4, 1): (None, None)}
     outbox.put((rank, "ready", None))
     while True:
         item = inbox.get()
         if item is None:
             break
-        name, tp, kwargs = item
+        name, (dp, tp), kwargs = item
 
         def ctx(mode="fused", hw=None, **fusion):
             """``hw``: the link constants as a dict (None: the world's class)."""
             from repro_torch.core.perfmodel import HardwareModel, MeshHardwareModel
 
             link = None if hw is None else MeshHardwareModel.uniform(HardwareModel(**hw))
-            return ParallelContext(device="cpu", tp=tp, group=groups[tp], hw=link,
+            group, data_group = groups[(dp, tp)]
+            return ParallelContext(device="cpu", tp=tp, dp=dp, group=group,
+                                   data_group=data_group, hw=link,
                                    fusion=FusionConfig(mode=mode, **fusion))
         try:
             outbox.put((rank, "ok", TASKS[name](ctx, **kwargs)))
@@ -101,14 +113,14 @@ class World:
             got[rank] = value
         return [got[r] for r in range(WORLD)]
 
-    def run(self, name: str, tp: int, **inputs) -> list:
-        """``TASKS[name]`` on every rank at ``tp``; each rank's result."""
-        if tp not in (2, WORLD):
-            raise ValueError(f"tp must be 2 or {WORLD}")
+    def run(self, name: str, tp: int, dp: int = 1, **inputs) -> list:
+        """``TASKS[name]`` on every rank at (dp, tp); each rank's result."""
+        if (dp, tp) not in LAYOUTS:
+            raise ValueError(f"(dp, tp) must be one of {LAYOUTS}")
         if self.procs is None:
             self._start()
         for box in self.inboxes:
-            box.put((name, tp, inputs))
+            box.put((name, (dp, tp), inputs))
         return self._collect(name)
 
     def close(self):
@@ -300,7 +312,7 @@ def decode_steps_task(ctx, tree, mode, tokens, positions, q=1, wire="f32", arch=
     bundle = get_arch(arch).reduced()
     params = params_from_numpy(tree, "cpu", c)
     dec = bundle.decode_fn(c)
-    cache = bundle.init_cache(tokens.shape[1], "cpu", c.tp)
+    cache = bundle.init_cache(tokens.shape[1], "cpu", c.tp, c.dp)
     logits = []
     for tok, pos in zip(tokens, positions):
         lg, cache = dec(params, t(tok), cache, t(pos))
@@ -332,10 +344,10 @@ def refusal_task(ctx, what):
             matmul_allreduce(ctx("kernel"), torch.ones(4, 8), torch.ones(8, 4))
         elif what == "moe":
             get_arch("dbrx-132b").reduced().init_params(torch.Generator(), ctx())
-        elif what == "paged":
+        elif what == "paged":      # a MoE model's paged serving over ranks (item 5)
             from repro_torch.models.transformer import serve_step
 
-            cfg = get_arch("chatglm3-6b").reduced().config
+            cfg = get_arch("dbrx-132b").reduced().config
             serve_step(ctx("bulk"), {}, cfg, torch.zeros(1, 1, dtype=torch.long), {}, None, 0, 1)
         elif what in ("compression", "adafactor"):
             from repro_torch.train.grad_compression import CompressionConfig
@@ -616,7 +628,7 @@ def _params_from(tree, c, arch):
     from repro_torch.train.optimizer import tree_leaves
 
     bundle = get_arch(arch).reduced()
-    params = params_from_numpy(tree, "cpu", c)
+    params = params_from_numpy(tree, "cpu", c, training=True)
     for p in tree_leaves(params):
         p.requires_grad_(True)
     return bundle, params
@@ -680,3 +692,173 @@ def calibrate_ce_task(ctx, x, e, y):
     return _decisions(), [(k_.op, tuple(r["model_q"]), tuple(r["measured_q"]),
                            sorted(tuple(d) for d in r["times"]), r["fallback"])
                           for k_, r in rep.items()]
+
+
+# ---------------------------------------------------------------------------
+# paged serving at tp > 1 (tests/test_torch_paged_tp.py)
+# ---------------------------------------------------------------------------
+def _stripe_of(pool, c):
+    """Rank ``c.tp_rank``'s stripe of a whole pool [.., NB, ...] (numpy,
+    blocks on axis ``-4``) with its zeroed sink block appended."""
+    nb = pool.shape[-4] // c.tp
+    part = np.take(pool, np.arange(c.tp_rank * nb, (c.tp_rank + 1) * nb), axis=-4)
+    sink = np.zeros_like(np.take(part, [0], axis=-4))
+    return t(np.concatenate([part, sink], axis=-4))
+
+
+@task
+def paged_ops_task(ctx, pool_k, pool_v, new, tables, pos, valid, q, window=None, cap=None):
+    """paged_cache_update of ``new`` into this rank's stripe of both pools
+    (whole [NB, block, H, d]), then paged_attention of q over them: the
+    stripes (the sink apart), the sinks and the output."""
+    from repro_torch.models.attention import paged_attention, paged_cache_update
+
+    c = ctx("bulk")
+    pk, pv = _stripe_of(pool_k, c), _stripe_of(pool_v, c)
+    for pl in (pk, pv):
+        paged_cache_update(c, pl, t(new), t(tables), t(pos), t(valid))
+    out = paged_attention(c, t(q), pk, pv, t(tables), t(pos), window=window, softcap_val=cap)
+    return pk[:-1].numpy(), pv[:-1].numpy(), pk[-1].numpy(), out.numpy()
+
+
+@task
+def paged_serve_task(ctx, tree, arch, mode, steps, tables, nb, block):
+    """``serve_step`` of the reduced ``arch`` from the JAX package's weights
+    (serving shards) over this rank's stripe of an ``nb``-block pool: each
+    step's logits, then the stripes (the sink apart)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.convert import params_from_numpy
+
+    c = ctx(mode)
+    bundle = get_arch(arch).reduced()
+    params = params_from_numpy(tree, "cpu", c)
+    pool = bundle.init_paged_pool(nb, block, "cpu", c.tp)
+    serve = bundle.serve_step_fn(c)
+    logits = []
+    for tk, pos, nn in steps:
+        lg, pool = serve(params, t(tk), pool, t(tables), t(pos), t(nn))
+        logits.append(lg.numpy())
+    return logits, pool["k"][:, :-1].numpy(), pool["v"][:, :-1].numpy()
+
+
+@task
+def paged_engine_task(ctx, tree, arch, mode, prompts, max_new, batch, num_blocks, block,
+                      chunk):
+    """The paged engine over this rank's stripes (``n_stripes`` = tp) on the
+    given prompts: each request's tokens, the allocator's peak blocks, each
+    stripe's peak of the blocks the step's tables name, and how often it
+    deferred an admission and preempted a request."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.serve.engine import PagedDecodeEngine, Request
+
+    c = ctx(mode)
+    bundle = get_arch(arch).reduced()
+    params = params_from_numpy(tree, "cpu", c)
+    serve = bundle.serve_step_fn(c)
+    peaks = [0] * c.tp
+
+    def step(tk, pl, tb, pos, nn):
+        """serve_step, noting the blocks each stripe holds in the tables."""
+        held = np.unique(tb.numpy())
+        for s_, n_ in enumerate(np.bincount(held[held >= 0] // (num_blocks // c.tp),
+                                            minlength=c.tp)):
+            peaks[s_] = max(peaks[s_], int(n_))
+        return serve(params, tk, pl, tb, pos, nn)
+    eng = PagedDecodeEngine(step,
+                            lambda nb, bs: bundle.init_paged_pool(nb, bs, "cpu", c.tp), batch,
+                            num_blocks=num_blocks, block_size=block,
+                            max_seq=bundle.config.max_seq, chunk=chunk, device="cpu",
+                            n_stripes=c.tp)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new=max_new))
+    done = eng.run_until_drained(max_steps=500)
+    return (sorted((r.uid, r.tokens) for r in done), eng.kv.peak_blocks, peaks, eng.deferred,
+            eng.preempted)
+
+
+# ---------------------------------------------------------------------------
+# the data axis (tests/test_torch_dp.py)
+# ---------------------------------------------------------------------------
+@task
+def place_task(ctx, tree):
+    """This rank's serving and training shards of a JAX-layout tree."""
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.train.optimizer import tree_leaves
+
+    c = ctx()
+    return [[a.numpy() for a in tree_leaves(params_from_numpy(tree, "cpu", c, training=tr))]
+            for tr in (False, True)]
+
+
+@task
+def global_norm_task(ctx, grads, specs):
+    """``global_norm`` of this rank's training shards of whole numpy leaves
+    under their specs."""
+    from repro_torch.parallel.sharding import shard_leaf
+    from repro_torch.train.optimizer import global_norm
+
+    c = ctx()
+    leaves = [shard_leaf(t(g), tuple(sp), c, training=True) for g, sp in zip(grads, specs)]
+    return global_norm(leaves, c, [tuple(sp) for sp in specs]).item()
+
+
+@task
+def compress_task(ctx, grads, residuals, specs, scheme, ratio=0.01, period=1, steps=1):
+    """``compress_decompress`` of this rank's training shards of a tree of
+    whole numpy gradients and residuals (``specs`` its logical specs),
+    ``steps`` times on the same gradients: the gradients and residuals, this
+    rank's shards, in tree order."""
+    from repro_torch.parallel.sharding import shard_leaf
+    from repro_torch.train.grad_compression import CompressionConfig, compress_decompress
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    c = ctx()
+    # copies: the update is in place, and a whole leaf's tensor would share
+    # the input array's memory
+    cut = lambda tree: tree_map(lambda a, sp: shard_leaf(t(a).clone(), tuple(sp), c,
+                                                         training=True), tree, specs)
+    res = cut(residuals)
+    cfg = CompressionConfig(scheme=scheme, topk_ratio=ratio)
+    for _ in range(steps):
+        g, res = compress_decompress(cfg, cut(grads), res, period, c, specs)
+    return [x.numpy() for x in tree_leaves(g)], [x.numpy() for x in tree_leaves(res)]
+
+
+@task
+def train_state_task(ctx, state):
+    """This rank's shards of a JAX train state (``train_state_from_numpy``):
+    the params, mu and nu leaves."""
+    from repro_torch.models.convert import train_state_from_numpy
+    from repro_torch.train.optimizer import tree_leaves
+
+    c = ctx()
+    st = train_state_from_numpy(state, "cpu", c)
+    return [[a.detach().numpy() for a in tree_leaves(tr)]
+            for tr in (st["params"], st["opt"]["mu"], st["opt"]["nu"])]
+
+
+@task
+def unmade_groups_task(ctx):
+    """A (2, 2) context with no groups passed, in a world whose (2, 2)
+    groups were never made: the error it raises (None if it raised none)."""
+    from repro_torch.parallel.sharding import ParallelContext
+
+    try:
+        ParallelContext(device="cpu", tp=2, dp=2)
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+@task
+def data_collectives_task(ctx, x):
+    """all_gather_data, reduce_scatter_data and data_mean (with its gradient)
+    of this rank's x[dp_rank, tp_rank]."""
+    from repro_torch.core.collectives import all_gather_data, data_mean, reduce_scatter_data
+
+    c = ctx()
+    xl = t(x[c.dp_rank, c.tp_rank]).requires_grad_(True)
+    mean = data_mean(c, xl.sum())
+    return (all_gather_data(c, xl.detach()).numpy(), reduce_scatter_data(c, xl.detach()).numpy(),
+            mean.item(), torch.autograd.grad(mean, xl)[0].numpy())
