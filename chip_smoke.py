@@ -73,15 +73,13 @@ prints one line, and any failure exits non-zero:
      counts (1 pooling launch per forward, on bag_path's path; 4 at
      chunks_per_rank 4, where the pooled output is bit-identical), logits
      and loss kernel vs bulk
- 14. the bag kernels' registers and CTAs an SM on each path (and scratch
-     builds of the parent's fused kernel, with and without a bound of
-     three CTAs an SM), both
+ 14. the bag kernels' registers and CTAs an SM on each path, both
      kernels and the world on each path beside the bound, the
      gathered-bytes floor, the plain versions and F.embedding_bag; both
-     paths on indices whose rows stay in L2 and on rows in sequence;
-     scratch builds of both paths with batch-major units and of the warp
-     path at four CTAs an SM; both paths at bf16 rows of D = 64; the
-     ring-size sweep; the forward in both modes with profiles
+     paths on indices whose rows stay in L2 and on rows in sequence; both
+     paths at bf16 rows of D = 64; the ring-size sweep; the forward in both
+     modes with profiles (the scratch builds of the ring path's design study were
+     cut for phases 44-48's time)
  15. wkv6 against its plain chunked version and the per-step scan at the
      main-path shape (rwkv6-7b's prefill: B*H = 4*64, T = 512, N = 64,
      chunk 64; decays across the clip range, a non-zero bonus) and edge
@@ -144,9 +142,10 @@ prints one line, and any failure exits non-zero:
      launcher's own traffic through launch.serve.main(["--paged", ...])
      (8 seeded requests of 2-5 tokens, batch 4, 16 new tokens, block 16,
      chunk 8, the default pool of 512 blocks), kernel mode against bulk
-     mode teacher-forced (bound: LOGITS_TOL_FACTOR x bulk mode's distance
-     from an exact f32 evaluation), both token streams; (b) prompts of 1,
-     37, 300 and 500 seeded tokens, 8 new each: the same bound, and each
+     mode teacher-forced (bound: LOGITS_TOL_FACTOR x (b)'s bulk distance
+     from an exact f32 evaluation; (a)'s own exact replay was cut for
+     phases 44-48's time), both token streams; (b) prompts of 1,
+     37, 140 and 250 seeded tokens, 8 new each: the same bound, and each
      request's first generated token's logits (bulk) against a dense
      prefill_forward of its prompt; (c) (b)'s traffic on 51 blocks, where
      admissions are deferred and a request is preempted, every request
@@ -154,9 +153,9 @@ prints one line, and any failure exits non-zero:
      rows, stream path at C = 1's 4; no flash, no gemv); (e) serve_step at
      C = 1 and C = 8 under torch.cuda.set_sync_debug_mode("error"); (f) the
      fused kernel at [32,13696]@[13696,4096] bf16 against its plain version
- 24. times from CUDA events: serve_step at C = 1 and C = 8 in both modes,
-     profiles, tok/s of the launcher's traffic through the paged and the
-     dense engine, the fused kernel at 32 rows on the tile and stream paths
+ 24. times from CUDA events: serve_step at C = 1 and C = 8 in both modes
+     (one turn each), profiles, tok/s of the launcher's traffic through the
+     paged and the dense engine (one drain each), the fused kernel at 32 rows on the tile and stream paths
      beside torch.matmul and its bound, the pool's bytes against the dense
      cache's
  25. the flash kernel for training at the prefill's shape (bf16, tile path)
@@ -178,21 +177,14 @@ prints one line, and any failure exits non-zero:
      kernel-mode step, 0 in bulk mode; ms a step, its forward / backward /
      optimizer split, tok/s, device busy share, peak memory); then 3
      kernel-mode steps at 4 x 2048 tokens
- 28. the serving launcher at tp = 4 through its entry point, python -m
-     torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.serve
-     --tp 4 --backend gloo, in fused mode: four processes sharing the one
-     card, full-width chatglm3-6b (each rank its shards of the seed-0
-     weights), the launcher's 4 requests x 8 tokens at batch 4; ms a step
-     and tok/s, every rank's streams equal (the launcher
-     checks), and the streams against phase 5's kernel mode at tp = 1 (a
-     first difference only at a near tie of phase 5's logits)
- 29. spawned tp = 4 and tp = 2 (granularity 2) worlds on the card,
-     teacher-forced on the first TP_STEPS (2) of phase 5's inputs, logits
-     against phase 5's exact f32
-     evaluation: fused (comm_aware) and oblivious within
-     LOGITS_TOL_FACTOR x bulk's own distance at that tp, skew 1
-     bit-identical to skew 0, a bf16 and an fp8 wire within their stated
-     bounds, every rank's logits equal; then matmul_allreduce fused (by
+ 28. (cut for phases 44-48's time: the serving launcher at tp = 4 in
+     fused mode, which phase 31 runs with the same gates and auto knobs)
+ 29. (run after phase 35) a spawned tp = 4 world on the card,
+     teacher-forced on the first TP_STEPS (2) of phase 5's inputs, logits against phase 5's exact f32
+     evaluation: fused within LOGITS_TOL_FACTOR x bulk's own distance at
+     that tp, skew 1 bit-identical to skew 0, an fp8 wire within its stated
+     bound, every rank's logits equal (the tp = 2 world and the oblivious
+     and bf16-wire settings were cut for phases 44-48's time); then matmul_allreduce fused (by
      rows) and bulk at [4,13696]@[13696,4096] row-sharded over the world
      against torch.matmul of the whole in f32.  Every time 28-29 print is
      labelled "one card, N processes, wire staged through host": no
@@ -225,7 +217,8 @@ prints one line, and any failure exits non-zero:
      against bulk mode's autograd through span_attention, each from an
      exact evaluation; times at [4, 2048, 32/16, 128] with and without the
      cap and at [1, 32768, 32/16, 128] causal, windowed and both, beside
-     their bounds and flex_attention
+     their bounds (the flex_attention yardsticks were cut for phases
+     44-48's time)
  33. full-width gemma2-27b (46 layers, seed-0 weights) prefill of 1 x 8192
      seeded tokens in kernel and bulk mode: 46 flash launches on the tile
      path (23 windowed, all capped), every layer's flash output against the
@@ -252,7 +245,8 @@ prints one line, and any failure exits non-zero:
      them; times beside the bound and F.scaled_dot_product_attention on the
      same unmasked hop
  36. a spawned tp = 4 gloo world on the card, full-width chatglm3-6b
-     prefill of phase 20's 4 x 2048 tokens through prefill_fn in bulk and
+     prefill of the first RING_B (1) of phase 20's 4 rows of 2048 tokens
+     through prefill_fn in bulk and
      kernel mode and fused at 2 sub-chunks with a bf16 wire at skew 0 and
      1; logits against phase 20's exact f32 evaluation and each rank's
      cache chunk against phase 20's kernel-mode rows, within
@@ -290,14 +284,14 @@ prints one line, and any failure exits non-zero:
      into forward, backward, all-reduce and optimizer, each rank's peak
      memory
  40. the train launcher at tp = 2 through torch.distributed.run (--backend
-     gloo --fusion kernel, full width cut to 2 layers, 6 steps at lr
+     gloo --fusion kernel, full width cut to 2 layers, 3 steps at lr
      TRAIN_LR): exit 0, every rank's losses equal, the losses within
      TRAIN_LOSS_REL of the tp = 1 launcher's on the same flags.  Phases
      38-40 are labelled "one card, N processes, wire staged through host"
  41. paged serving at tp = 4 and 2 (a spawned gloo world of 4 ranks on the
      card; tp = 2 on its pairs), full-width chatglm3-6b cut to PAGED_TP_LAYERS
      layers, fused and bulk mode at tp = 4, fused at tp = 2, phase 23(b)'s
-     traffic (prompts of 1-500
+     traffic (prompts of 1-250
      seeded tokens x 8 new, batch 4, chunk 8, the launcher's default pool
      striped over the ranks): every rank's streams equal, and equal to a tp
      = 1 paged run's (bulk) or apart first at a near tie; each request's
@@ -327,11 +321,48 @@ prints one line, and any failure exits non-zero:
      moment bytes a leaf the (1, 2) world's (the pairs) over 2 where the
      leaf splits over data, and a rank's peak memory below the (1, 2)
      world's by at least the bytes that split saves
- 43. the launchers at --dp 2 --tp 2 through torch.distributed.run: train
-     (phase 40's flags at 2 steps: every rank's losses equal, within
-     TRAIN_LOSS_REL of phase 40's first 2 tp = 1 losses) and serve --paged (full width, fused, 4
-     requests x 8 tokens: every rank's streams equal, phase 5's or apart
-     first at a near tie).  Phases 41-43 are labelled "one card, N
+ 43. the launchers at --dp 2 --tp 2 through torch.distributed.run, both
+     at once: train (phase 40's flags at 2 steps: every rank's losses equal,
+     within TRAIN_LOSS_REL of phase 40's first 2 tp = 1 losses) and serve
+     --paged (full width, fused, 4 requests x 8 tokens: every rank's
+     streams equal, phase 5's or apart first at a near tie).  Phases 41-43 are labelled "one card, N
+     processes, wire staged through host"
+ 44. (runs after phase 10, on phase 9's weights) the MoE kernels at prefill
+     rows: the expert FFN's tile path (tensor cores, C > 8) at dbrx's widths
+     against its plain version at C = 2560 (the prefill of 4 x 2048), 1280
+     (a prefill of 2 x 2048) and 640 (phase 46's training microbatch of 1 x
+     2048), launches counted by path; the
+     emulated 4-rank world on the tile path at C = 160; the dispatch's VJP
+     bit-identical to the kernel on the cotangent; times beside the bound
+     and bulk mode's three einsums, in turns
+ 45. (after 44) dbrx-132b's prefill of 4 x 2048 seeded tokens at phase 9's 8
+     layers through prefill_fn in kernel and bulk mode: launches (a dispatch,
+     a tile-path expert FFN and a flash launch a layer), no plan built by a
+     second prefill, every MoE layer's kernel output against bulk mode on
+     its input (REL_BF16), the logits within LOGITS_TOL_FACTOR x bulk's
+     distance from an exact f32 evaluation (bulk and exact teacher-forced on
+     the kernel run's routing); 8 greedy decode steps from the prefill's
+     cache (stream-path launches, bulk teacher-forced on the tokens)
+ 46. dbrx-132b cut to 2 layers (14 GB bf16) on one card: every gradient at
+     16 x 64 tokens in kernel and bulk mode against exact f32 (kernel
+     within LOGITS_TOL_FACTOR x bulk's on every leaf, routing teacher-forced
+     on the exact run's), launches; 4 steps of Adafactor with 2 microbatches
+     at 2 x 2048 on one batch in each mode (the loss falling, steps 2-4 within
+     TRAIN_LOSS_REL of bulk's), launches, ms a step, peak memory
+ 47. dbrx-132b at 2 full-width layers over a spawned gloo world of 4 ranks
+     on the card, 2 x 1024 tokens: tp = 4 prefill and gradients in bulk and
+     fused mode (skew 0 and 1), (2, 2) decode EP (4 steps) and an Adafactor
+     step over shards (on 1 layer) with a forward after it; the tp = 1 yardsticks (exact f32 and bulk, the MoE
+     layers run in the world's per-rank blocks, routing teacher-forced)
+     made here first; logits, the loss and 65536 sampled elements of every
+     gradient within LOGITS_TOL_FACTOR x tp = 1 bulk's distance from exact
+     f32, the ranks' logits equal, skew 1 bit-identical to skew 0 (every
+     leaf but the table), the (2, 2) losses before and after the step
+     within TRAIN_LOSS_REL of tp = 1's, the loss falling
+ 48. the launchers with --arch dbrx-132b --tp 2 --layers 2 (gloo, fused)
+     through torch.distributed.run, both at once: train 1 step at 2 x 1024
+     (every rank's loss equal, finite) and serve 4 requests x 8 tokens through decode EP (every
+     rank's streams equal).  Phases 47-48 are labelled "one card, N
      processes, wire staged through host"
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
@@ -346,7 +377,12 @@ phases 38-40 draw chatglm3-6b's first layers here for their tp = 1
 yardsticks, free them, and run their worlds in processes of their own;
 phases 41-42 do the same, phase 42 reusing phases 38, 39 and 41's
 yardsticks (phase 38's exact gradients stay in a file under build/ until
-phase 42 ends), and phase 43 runs the launchers.
+phase 42 ends), and phase 43 runs the launchers.  Phases 44-45 run inside
+the dbrx phases, after phase 10, on phase 9's weights; phases 46-48 run
+last, each drawing its own weights (phase 47's and 48's in processes of
+their own).  Phase 29 runs after phase 35: its world starts one pool of 4
+rank processes (spawn_world) that the worlds of phases 36-47 reuse, each
+opening and closing its own process group; the pool ends after phase 47.
 Every line ends with the seconds since the previous line and since the
 start; the end line gives each phase's seconds.  Phases 5, 9 and 17
 and the end print how many launch plans the plan-cached wrappers hold.
@@ -367,6 +403,7 @@ import hashlib
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -780,14 +817,15 @@ def near_tie_flips(streams_k, streams_b, chose, tol) -> list[str]:
 
 
 def timed_decode_runs(serve, dec_k, dec_b) -> str:
-    """ms/step and tok/s of whole drains, in turns kernel, bulk, bulk, kernel."""
+    """ms/step and tok/s of a whole drain in each mode, kernel then bulk
+    (the turns kernel, bulk, bulk, kernel were cut for the script's time)."""
     def serve_timed(decode):
         log = []
         reqs, dt = serve(decode, log)
         return dt / len(log) * 1e3, sum(len(r.tokens) for r in reqs) / dt
 
     runs = {"kernel": [], "bulk": []}
-    for mode, dec in (("kernel", dec_k), ("bulk", dec_b), ("bulk", dec_b), ("kernel", dec_k)):
+    for mode, dec in (("kernel", dec_k), ("bulk", dec_b)):
         runs[mode].append(serve_timed(dec))
     return "; ".join(f"{m}: " + ", ".join(f"{ms:.2f} ms/step {tps:.1f} tok/s" for ms, tps in v)
                      for m, v in runs.items())
@@ -976,7 +1014,6 @@ def main() -> int:
     # the flash kernel's row gains its training numbers (phases 25-27)
     next(k_ for k_ in kernels if k_["name"] == "flash_attention").update(train_phases(card, gen))
     torch.cuda.empty_cache()
-    tp_phases(card)
     autotune_phases(card)
     flash_row = next(k_ for k_ in kernels if k_["name"] == "flash_attention")
     flash_row.update(flash_window_phase(card, gen))
@@ -986,6 +1023,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the flash row gains its KV-ring numbers (phases 35-37)
     flash_row.update(flash_ring_phase(card, gen))
+    # phase 29 runs here, after the single-card phases 30-35 (whose peaks want
+    # the card's memory), and its world starts the pool of rank processes
+    # that phases 36-47 reuse
+    tp_phases(card)
     flash_row.update(ring_prefill_phase(card))
     flash_row.update(gemma2_ring_phase(card, gen))
     torch.cuda.empty_cache()
@@ -1002,6 +1043,18 @@ def main() -> int:
     next(k_ for k_ in kernels if k_["name"] == "fused_matmul_allreduce").update(
         {k_: dp_row[k_] for k_ in fused_keys})
     data_launcher_phase(card)
+    torch.cuda.empty_cache()
+    # the MoE rows gain their training numbers (phase 46)
+    trained = dbrx_train_phase(card)
+    torch.cuda.empty_cache()
+    moe_row = next(k_ for k_ in kernels if k_["name"] == "fused_gemm_a2a")
+    moe_row["path_launches"]["tile_train_step"] = trained.pop("train_tile_launches_per_step")
+    next(k_ for k_ in kernels if k_["name"] == "fused_dispatch_a2a")["train_launches_per_step"] = \
+        trained.pop("train_dispatch_launches_per_step")
+    moe_row.update(trained)
+    dbrx_world_phase(card)
+    stop_pool()
+    dbrx_launcher_phase(card)
     say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1328,8 +1381,7 @@ def dbrx_phases(card, gen) -> list[dict]:
     launches = {c.__name__: c.launches for c in counted_wrappers()}
     steps = len(log_k)
     launches["fused_gemm_a2a.stream"] = fused_gemm_a2a.path_launches["stream"]
-    for name in ("fused_dispatch_a2a", "fused_gemm_a2a", "fused_gemm_a2a.stream",
-                 "fused_moe_chain"):
+    for name in ("fused_dispatch_a2a", "fused_gemm_a2a", "fused_gemm_a2a.stream"):
         if launches[name] != cfg.n_layers * steps:
             raise AssertionError(f"{name} launched {launches[name]} times in {steps} steps "
                                  f"of {cfg.n_layers} layers")
@@ -1365,8 +1417,8 @@ def dbrx_phases(card, gen) -> list[dict]:
            f"{init_s:.1f}s, peak {peak_gb:.1f} GB), batch {batch}, {n_req} requests x {max_new} "
            f"tokens: {steps} decode steps, launches: dispatch {launches['fused_dispatch_a2a']}, "
            f"gemm_a2a {launches['fused_gemm_a2a']} (stream path "
-           f"{launches['fused_gemm_a2a.stream']}), chain {launches['fused_moe_chain']} "
-           f"(= {cfg.n_layers} x {steps}), fused_matmul_allreduce "
+           f"{launches['fused_gemm_a2a.stream']}) (each = {cfg.n_layers} x {steps}), "
+           f"fused_matmul_allreduce "
            f"{launches['fused_matmul_allreduce']}; {tf['summary']}; kernel streams "
            f"{[r.tokens for r in reqs_k]}; bulk streams {[r.tokens for r in reqs_b]}; "
            f"differing tokens {differing}" + (f" ({'; '.join(flips)})" if flips else "")
@@ -1430,6 +1482,12 @@ def dbrx_phases(card, gen) -> list[dict]:
             f"{n_req} requests x {max_new} tokens, host clock around the drain): {decode_txt}; "
             f"profile of kernel-mode decode: {prof_txt}")
 
+    del copy_to
+    torch.cuda.empty_cache()
+    rows44 = moe_prefill_rows_phase(card, gen, params)
+    rows45 = dbrx_prefill_phase(card, gen, bundle, params)
+    del params
+    torch.cuda.empty_cache()
     return [
         {"name": "fused_dispatch_a2a", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_dispatch_a2a.cu",
@@ -1437,14 +1495,18 @@ def dbrx_phases(card, gen) -> list[dict]:
          "launches": launches["fused_dispatch_a2a"], "max_abs_err": 0.0,
          "ms": t_disp, "plain_ms": t_disp_plain, "bound_ms": disp_bound, "bound_by": "bytes",
          "library_ms": t_copy, "device_ms": disp_split[0], "host_ms": disp_split[1],
-         "library_device_ms": copy_split[0], "library_host_ms": copy_split[1]},
+         "library_device_ms": copy_split[0], "library_host_ms": copy_split[1],
+         "prefill_launches": rows45["prefill_dispatch_launches"]},
         {"name": "fused_gemm_a2a", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_gemm_a2a.cu",
          "replaces": "src/repro/kernels/fused_gemm_a2a/kernel.py:67",
          "launches": launches["fused_gemm_a2a"], "max_abs_err": ffn_err[0],
          "ms": t_gemm, "plain_ms": t_gemm_plain, "bound_ms": gemm_bound, "bound_by": gemm_by,
          "library_ms": t_gemm_lib, "path": ffn_path,
-         "path_launches": {"stream": launches["fused_gemm_a2a.stream"]},
+         "path_launches": {"stream": launches["fused_gemm_a2a.stream"],
+                           "tile": rows45["prefill_tile_launches"]},
+         **rows44, "prefill_ms": rows45["prefill_ms"],
+         "prefill_bulk_ms": rows45["prefill_bulk_ms"],
          "panel_ms": t_gemm_panel, "panel_max_abs_err": ffn_panel_err[0],
          "device_ms": gemm_split[0], "host_ms": gemm_split[1],
          "library_device_ms": bulk_split[0], "library_host_ms": bulk_split[1],
@@ -1679,8 +1741,6 @@ def dlrm_phases(card, gen) -> list[dict]:
             f"F.embedding_bag over all {T} tables {t_lib:.4f} ms")
     say(14, f"on {card}: embedding_pool per path on other indices of the same shape, ms in "
             f"turns ring, warp, warp, ring: {gather_limits(tables, idx)}")
-    say(14, f"on {card}: embedding_pool on scratch builds beside the build, in turns: "
-            f"{pool_variant_times(tables, idx)}")
     say(14, f"on {card}: embedding_pool at bf16 rows of D = 64, per path, in turns: "
             f"{narrow_rows_times(gen)}")
     say(14, f"on {card}: ring sizes, ms on the ring path (CTAs an SM): " + "; ".join(
@@ -1757,87 +1817,17 @@ def ptxas_registers(log, kernel, flag=None) -> dict:
     return got
 
 
-def variant_lib(source, subs, tag):
-    """``csrc/<source>`` built alone into a shared library of its own under
-    ``build/repro_torch_variants/<tag>``, beside copies of the headers, each
-    (file, old, new) of ``subs`` replaced in its file first; returns (the
-    ctypes library, nvcc's output)."""
-    import ctypes
-
-    from repro_torch.kernels import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc
-
-    out = BUILD_DIR.parent / "repro_torch_variants" / tag
-    out.mkdir(parents=True, exist_ok=True)
-    texts = {p_.name: p_.read_text() for p_ in [*CSRC.glob("*.cuh"), CSRC / source]}
-    for name, old, new in subs:
-        if old not in texts[name]:
-            raise AssertionError(f"{name} no longer holds {old!r} ({tag})")
-        texts[name] = texts[name].replace(old, new)
-    for name, text in texts.items():
-        (out / name).write_text(text)
-    so = out / f"lib{tag}.so"
-    p = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(out), "-shared", "-o", str(so),
-                        str(out / source)], capture_output=True, text=True)
-    if p.returncode != 0:
-        raise AssertionError(f"nvcc failed on the {tag} variant of {source}:\n{p.stdout}{p.stderr}")
-    return ctypes.CDLL(str(so)), p.stdout + p.stderr
-
-
-# The parent commit's fused_embedding_a2a_kernel (before the ring path), for
-# phase 14's "before" scratch builds: the same body, on the current
-# EmbA2AArgs (blocks_per_frag is now units_per_frag) and under the
-# template signature the launcher instantiates; {bound} is "" (as it was)
-# or ", 3".
-PARENT_FUSED_KERNEL = """template <typename T, bool kPeers>
-__global__ void __launch_bounds__(kBagThreads{bound}) fused_embedding_a2a_kernel(EmbA2AArgs a) {{
-  const int ry = blockIdx.y, my = a.my_base + ry;
-  const int step = blockIdx.x / a.units_per_frag;
-  const int off = a.comm_aware ? a.n_dev - 1 - step : step;
-  const int dest = (my + off) % a.n_dev;
-  const int bag = (blockIdx.x % a.units_per_frag) * kBagWarps + threadIdx.x / 32;
-  if (bag < a.B_loc * a.T_loc) {{
-    const int b = bag / a.T_loc, t = bag % a.T_loc;
-    const T* tab = static_cast<const T*>(a.tables) + ry * a.tables_rank_stride + (size_t)t * a.V * a.D;
-    const int* ix = a.idx + ry * a.idx_rank_stride +
-                    ((size_t)(dest * a.B_loc + b) * a.T_loc + t) * a.L;
-    T* o = static_cast<T*>(a.out[dest]) +
-           ((size_t)b * a.n_dev * a.T_loc + (size_t)my * a.T_loc + t) * a.D;
-    pool_bag(tab, ix, a.L, a.D, o, a.vec);
-  }}
-  if (a.n_dev == 1) return;
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  unsigned* tk = a.tickets + (size_t)ry * (a.n_dev + 1);
-  __threadfence_system();
-  if (off != 0 && atomicAdd(tk + dest, 1u) == (unsigned)a.units_per_frag - 1) {{
-    tk[dest] = 0;
-    __threadfence_system();
-    store_release(a.flags[dest] + my, a.epoch);
-  }}
-  if (atomicAdd(tk + a.n_dev, 1u) == gridDim.x - 1) {{
-    tk[a.n_dev] = 0;
-    for (int s = 0; s < a.n_dev; ++s)
-      if (s != my) wait_flag(a.flags[my] + s, a.epoch);
-  }}
-}}
-"""
-
-
 def bag_occupancy(ctx, tables, idx) -> str:
     """Registers per thread (from the runtime, and registers and spill
     stores from the build log) and CTAs resident on an SM of both bag
     kernels in f32 on both paths (the ring path at the plan's shared
-    memory; the fused kernel at n = 1 and with the peer protocol), and of
-    the parent's fused kernel (before the ring path: the protocol's values
-    computed before the loop and kept across it, its tail behind a
-    run-time test, batch-major bags; PARENT_FUSED_KERNEL), unbounded as it
-    was and bounded to three CTAs an SM (scratch builds).  The fused kernel
-    at n = 1 on the warp path is timed on each build in turns on DLRM's
-    tables."""
+    memory; the fused kernel at n = 1 and with the peer protocol).  The
+    fused kernel at n = 1 on the warp path is timed on DLRM's tables.  (The
+    scratch builds of the parent's fused kernel were cut for phases 44-48's
+    time; PERF.md section 6 keeps their numbers.)"""
     import ctypes
-    import types
 
-    from repro_torch.kernels import CSRC, check_launch, load_library
+    from repro_torch.kernels import check_launch, load_library
     from repro_torch.kernels.embedding_pool.plan import RING_BYTES, ring_slots, smem_bytes
     from repro_torch.kernels.fused_embedding_a2a import ops as fused_ops
 
@@ -1858,35 +1848,15 @@ def bag_occupancy(ctx, tables, idx) -> str:
                 f"{r.value} registers (build log: {regs}, {spills} bytes spilled), "
                 f"{c.value} CTAs an SM")
 
-    cu = "fused_embedding_a2a.cu"
-    text = (CSRC / cu).read_text()
-    start = text.index("template <typename T, bool kPeers>\n__global__ void __launch_bounds__(kBagThreads, 3)")
-    ours = text[start:text.index("\n}\n", start) + 3]
-    variants = {"parent's kernel (before)": PARENT_FUSED_KERNEL.format(bound=""),
-                "parent's kernel bounded to 3 CTAs an SM": PARENT_FUSED_KERNEL.format(bound=", 3")}
-    libs, lines = {"build": built.lib}, []
-    for i, (name, kernel) in enumerate(variants.items()):
-        lib, log = variant_lib(cu, [(cu, ours, kernel)], f"fused_variant{i}")
-        lib.repro_fused_embedding_a2a.argtypes = built.lib.repro_fused_embedding_a2a.argtypes
-        lib.repro_fused_embedding_a2a.restype = built.lib.repro_fused_embedding_a2a.restype
-        libs[name] = lib
-        lines.append(f"{name} (a scratch build): " + info(lib, "fused_embedding_a2a", 0, log, 0))
-    want = fused_ops.fused_embedding_a2a(ctx, idx, tables, _path="warp")
-    times = {k: [] for k in libs}
-    for which in [*libs, *reversed(libs)]:
-        use = libs[which]
-        with swapped(fused_ops, "load_library", lambda: types.SimpleNamespace(lib=use)):
-            if not torch.equal(fused_ops.fused_embedding_a2a(ctx, idx, tables, _path="warp"), want):
-                raise AssertionError(f"the fused kernel's {which} build is not bit-identical")
-            times[which].append(time_ms(lambda: fused_ops.fused_embedding_a2a(
-                ctx, idx, tables, _path="warp"), iters=10, warmup=2))
+    t_warp = [time_ms(lambda: fused_ops.fused_embedding_a2a(ctx, idx, tables, _path="warp"),
+                      iters=10, warmup=2) for _ in range(2)]
     return ("; ".join([info(built.lib, "embedding_pool", ring, built.build_log)
                        for ring in (1, 0)]
                       + [info(built.lib, "fused_embedding_a2a", ring, built.build_log, peers)
                          for ring in (1, 0) for peers in (0, 1)]
-                      + [f"ring at {ring_smem} B of shared memory"] + lines)
-            + "; fused_embedding_a2a n_dev=1 on the warp path, each build in turns: " + ", ".join(
-                f"{w} " + "/".join(f"{t:.4f}" for t in v) + " ms" for w, v in times.items()))
+                      + [f"ring at {ring_smem} B of shared memory"])
+            + "; fused_embedding_a2a n_dev=1 on the warp path: "
+            + "/".join(f"{t:.4f}" for t in t_warp) + " ms")
 
 
 def gather_limits(tables, idx) -> str:
@@ -1912,42 +1882,6 @@ def gather_limits(tables, idx) -> str:
         out.append(f"{name}: " + ", ".join(f"{p_} " + "/".join(f"{x:.4f}" for x in v_)
                                            for p_, v_ in t.items()))
     return "; ".join(out)
-
-
-def pool_variant_times(tables, idx) -> str:
-    """embedding_pool on scratch builds beside the build, each bit-identical
-    to it and timed in turns: both paths with the units batch major (bag b
-    * T + t, the order before table major), and the warp path bounded to
-    four CTAs an SM."""
-    import types
-
-    from repro_torch.kernels import load_library
-    from repro_torch.kernels.embedding_pool import ops as pool_ops
-
-    built = load_library()
-    cu = "embedding_pool.cu"
-    batch_major = [(cu, "const long long t = s / B, b = s - t * B;",
-                    "const long long b = s / n_tab, t = s - b * n_tab;")]
-    four = [(cu, "__launch_bounds__(kBagThreads)\n    embedding_pool_kernel",
-             "__launch_bounds__(kBagThreads, 4)\n    embedding_pool_kernel")]
-    libs = {"build": built.lib}
-    for i, (name, subs) in enumerate((("batch major", batch_major), ("4 CTAs an SM", four))):
-        lib, _ = variant_lib(cu, subs, f"pool_variant{i}")
-        lib.repro_embedding_pool.argtypes = built.lib.repro_embedding_pool.argtypes
-        lib.repro_embedding_pool.restype = built.lib.repro_embedding_pool.restype
-        libs[name] = lib
-    runs = [(f"{p_}, {k}", p_, k) for k in libs for p_ in ("ring", "warp")
-            if not (k == "4 CTAs an SM" and p_ == "ring")]
-    want = pool_ops.embedding_pool_tables(tables, idx)
-    times = {name: [] for name, _, _ in runs}
-    for name, path, which in [*runs, *reversed(runs)]:
-        use = libs[which]
-        with swapped(pool_ops, "load_library", lambda: types.SimpleNamespace(lib=use)):
-            if not torch.equal(pool_ops.embedding_pool_tables(tables, idx, _path=path), want):
-                raise AssertionError(f"embedding_pool {name}: not bit-identical")
-            times[name].append(time_ms(lambda: pool_ops.embedding_pool_tables(
-                tables, idx, _path=path), iters=10, warmup=2))
-    return ", ".join(f"{w} " + "/".join(f"{t:.4f}" for t in v) + " ms" for w, v in times.items())
 
 
 def narrow_rows_times(gen) -> str:
@@ -2433,7 +2367,7 @@ def chatglm_prefill_phases(card, gen) -> tuple[list[dict], dict]:
         **{key: (cache_k[key], cache_b[key], cache_x[key]) for key in ("k", "v")}})
     # phase 36's yardsticks, on the host
     GLM_PREFILL.update(layers=L, max_seq=cfg.max_seq, tokens=tokens.cpu(), exact=logits_x.cpu(),
-                       err_bx=errors(logits_b, logits_x)[0],
+                       err_bx=[errors(logits_b[b_], logits_x[b_])[0] for b_ in range(B)],
                        cache={key: cache_k[key].cpu() for key in ("k", "v")})
     del cache_x, logits_x
     say(20, f"chatglm3-6b full width ({L}L d{cfg.d_model}, {Hq}/{Hkv} heads of {hd}, d_ff "
@@ -2478,9 +2412,12 @@ def chatglm_prefill_phases(card, gen) -> tuple[list[dict], dict]:
             raise AssertionError(f"decode logits: shape {tuple(lg.shape)} or non-finite")
     longer = {"tokens": torch.cat([tokens, steps_k[0][0]], dim=1)}
     logits_l = pre_k(params, longer)[0]
-    d_px = errors(logits_l, exact_prefill(longer)[0])[0]
+    logits_lx = exact_prefill(longer)[0]
+    d_px = errors(logits_l, logits_lx)[0]
     d_pd = errors(steps_k[0][1], logits_l)[0]
-    GLM_PREFILL["handoff"] = dict(token=steps_k[0][0].cpu(), logits=logits_l.cpu(), d_px=d_px)
+    GLM_PREFILL["handoff"] = dict(token=steps_k[0][0].cpu(), logits=logits_l.cpu(), d_px=[
+        errors(logits_l[b_], logits_lx[b_])[0] for b_ in range(B)])
+    del logits_lx
     tol = LOGITS_TOL_FACTOR * d_px
     if d_pd > tol:
         raise AssertionError(f"hand-off: the first decode step's logits are {d_pd:.3g} from a "
@@ -2890,10 +2827,11 @@ def flash_on_tile(n):
     return {"flash_attention": n, "flash_attention.tile": n, "flash_attention.cuda_core": 0}
 
 
-def flash_times(gen, b, s, hq, hkv, d, iters, plain):
+def flash_times(gen, b, s, hq, hkv, d, iters, plain,
+                turns=("tile", "cuda_core", "cuda_core", "tile")):
     """CUDA-event times (means of ``iters`` launches) of the flash kernel at
-    [b, s, hq, d] over hkv kv heads, bf16, causal, on both paths in turns
-    (tile, CUDA core, CUDA core, tile), beside
+    [b, s, hq, d] over hkv kv heads, bf16, causal, on both paths in
+    ``turns`` (by default tile, CUDA core, CUDA core, tile), beside
     F.scaled_dot_product_attention, the plain version (if ``plain``) and
     flash_bound; the paths' outputs checked against SDPA's at BF16_TOL.
     Returns the times (ms) and a summary line."""
@@ -2909,7 +2847,7 @@ def flash_times(gen, b, s, hq, hkv, d, iters, plain):
     want = sdpa().transpose(1, 2)
     out = {"tile": [], "cuda_core": []}
     errs = {}
-    for path in ("tile", "cuda_core", "cuda_core", "tile"):
+    for path in turns:
         run = lambda: flash_attention(q, k, v, _path=path)
         errs[path] = check_close(f"flash_attention {path} path vs SDPA [{b},{s},{hq},{d}]",
                                  run(), want, BF16_TOL)
@@ -2949,7 +2887,8 @@ def long_prefill_phase(card, gen, bundle, params, pre_k):
     cfg = bundle.config
     L, Hq, Hkv, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     B, S = LONG_B, LONG_S
-    fl = flash_times(gen, B, S, Hq, Hkv, hd, iters=1, plain=False)
+    # one turn a path (the CUDA-core path takes about a second a call here)
+    fl = flash_times(gen, B, S, Hq, Hkv, hd, iters=1, plain=False, turns=("tile", "cuda_core"))
     bf16 = torch.bfloat16
     q = randn(gen, (B, S, Hq, hd), bf16)
     k, v = randn(gen, (B, S, Hkv, hd), bf16), randn(gen, (B, S, Hkv, hd), bf16)
@@ -2984,7 +2923,8 @@ def long_prefill_phase(card, gen, bundle, params, pre_k):
            for key in ("k", "v")):
         raise AssertionError("prefill_32k cache: shapes or non-finite values")
     del logits, cache
-    t_pre = [time_ms(lambda: pre_k(params, batch), iters=1, warmup=1) for _ in range(2)]
+    # the checked prefill above warmed the plans and the allocator
+    t_pre = [time_ms(lambda: pre_k(params, batch), iters=1, warmup=0)]
     prof = profile_device(lambda i: pre_k(params, batch), 1, "prefill")
     say(22, f"on {card}: chatglm3-6b prefill at the reference's prefill_32k length, cut from "
             f"batch 32 to {B} (memory below): flash_attention {fl['line']}; "
@@ -3007,17 +2947,20 @@ def long_prefill_phase(card, gen, bundle, params, pre_k):
 
 # Paged serving (phases 23-24): the launcher's defaults (batch 4, block 16,
 # chunk 8, a pool of half the dense B x S_max budget: 512 blocks); (b)'s
-# prompts of 1, 37, 300 and 500 seeded tokens, 8 new tokens each; (c) the
-# same traffic on 51 blocks (816 tokens).  The engine allocates a prompt's
+# prompts of 1, 37, 140 and 250 seeded tokens, 8 new tokens each; (c) the
+# same traffic on 25 blocks (400 tokens).  The engine allocates a prompt's
 # blocks whole at admission, so a request grows only while it decodes, a
-# block per 16 tokens: on 50 blocks the 500-token prompt (32 blocks) waits
-# until the 300-token one (19) has finished and nothing is ever preempted;
-# on 51 it is admitted beside it, the pool fills, and the 300-token
-# request's growth at position 304 preempts it.  (The longest prompt was
-# 1000 tokens on 82 blocks: its chunk steps and their replays took 84 s of
-# a 771 s run on one H100 80GB HBM3.)
+# block per 16 tokens: on 25 blocks the 250-token prompt (16 blocks) waits
+# until the short ones have finished (its admission is deferred), is then
+# admitted beside the 140-token one (9), the pool fills, and the 140-token
+# request's growth at position 144 preempts it (the engine's own schedule,
+# checked on the CPU with a stand-in serve step: on 24 blocks nothing is
+# preempted).  (The prompts were 300 and 500 tokens on 51 blocks until the
+# script's time was cut, and 1000 tokens on 82 blocks before that: those
+# chunk steps and their replays took 84 s of a 771 s run on one H100 80GB
+# HBM3.)
 PAGED_B, PAGED_BLOCK, PAGED_CHUNK = 4, 16, 8
-PAGED_PROMPTS, PAGED_NEW, PAGED_TIGHT = (1, 37, 300, 500), 8, 51
+PAGED_PROMPTS, PAGED_NEW, PAGED_TIGHT = (1, 37, 140, 250), 8, 25
 # gemma2-27b (phases 32-34), full width: 46 layers, 54.5 GB of bf16 weights
 # on one card.  A prefill of 1 x GEMMA_S seeded tokens, past the window of
 # 4096 on its 23 local layers (at 2048 every layer would see every key),
@@ -3133,7 +3076,7 @@ def paged_phases(card, gen, bundle, params) -> dict:
     (a) the launcher's own traffic through ``launch.serve.main(["--paged",
     ...])``, its weights swapped in for the ones its ``init_params`` would
     draw (the same seed on the card: the same values), kernel mode held to
-    bulk mode teacher-forced; (b) prompts of 1-1000 tokens, their first
+    bulk mode teacher-forced; (b) prompts of 1-250 tokens, their first
     generated token's logits against a dense prefill; (c) (b)'s traffic on
     a pool that defers and preempts; (d) launches per step; (e) no host
     synchronisation inside ``serve_step``; (f) the fused kernel at the
@@ -3164,11 +3107,14 @@ def paged_phases(card, gen, bundle, params) -> dict:
                                 str(B), "--max-new", "16", "--block-size", str(PAGED_BLOCK),
                                 "--chunk", str(PAGED_CHUNK)], params, log, where)
 
-    def forced(name, log, ref_k, ref_b, ref_x):
+    def forced(name, log, ref_k, ref_b, ref_x, e_bx=None):
         """Kernel vs bulk teacher-forced, bound LOGITS_TOL_FACTOR x bulk's
-        distance from exact f32; returns the three distances."""
-        e_kb, e_bx, e_kx = (live_err(log, a, b) for a, b in ((ref_k, ref_b), (ref_b, ref_x),
-                                                              (ref_k, ref_x)))
+        distance from exact f32 (``ref_x``'s, or ``e_bx`` given without it);
+        returns the three distances (kernel vs exact None without ``ref_x``)."""
+        e_kb = live_err(log, ref_k, ref_b)
+        if ref_x is not None:
+            e_bx = live_err(log, ref_b, ref_x)
+        e_kx = None if ref_x is None else live_err(log, ref_k, ref_x)
         if not e_kb <= LOGITS_TOL_FACTOR * e_bx:
             raise AssertionError(f"{name}: teacher-forced logits kernel vs bulk {e_kb:.3g} > "
                                  f"{LOGITS_TOL_FACTOR} x bulk vs exact f32 {e_bx:.3g}")
@@ -3183,9 +3129,7 @@ def paged_phases(card, gen, bundle, params) -> dict:
     fin_b = launcher("bulk", log_ab, {})
     paths_a = check_step_launches(log_a, "kernel", L, F, D)
     check_step_launches(log_ab, "bulk", L, F, D)
-    ref_b = replay(serve["bulk"], params, log_a, new_pool(bundle, nb))
-    ref_x = replay(serve_x, params32, log_a, new_pool(exact, nb))
-    e_a = forced("(a)", log_a, [e["logits"] for e in log_a], ref_b, ref_x)
+    ref_a = replay(serve["bulk"], params, log_a, new_pool(bundle, nb))
     sk = {r.uid: r.tokens for r in fin_k}
     sb = {r.uid: r.tokens for r in fin_b}
     if sorted(sk) != list(range(8)) or any(len(v) != 16 for v in list(sk.values()) + list(
@@ -3195,19 +3139,8 @@ def paged_phases(card, gen, bundle, params) -> dict:
     if any(int(log_a[s_]["logits"][slot].argmax()) != sk[u][k]
            for (u, k), (s_, slot) in where_a.items()) or len(where_a) != 8 * 16:
         raise AssertionError("(a): the kernel streams are not the logged steps' greedy tokens")
-    # bulk mode teacher-forced on the kernel run's inputs, which match the
-    # bulk run's for a request up to its first difference
-    flips = near_tie_flips([sk[u] for u in sorted(sk)], [sb[u] for u in sorted(sk)],
-                           lambda u, k: ref_b[where_a[(u, k)][0]][where_a[(u, k)][1]],
-                           LOGITS_TOL_FACTOR * e_a[1])
-    del ref_b, ref_x
-    say(23, f"(a) the launcher (--paged, batch {B}, 8 requests x 16 tokens, block "
-            f"{PAGED_BLOCK}, chunk {PAGED_CHUNK}, default pool {nb} blocks): {len(log_a)} steps "
-            f"by B x C rows and fused path {paths_a}; teacher-forced logits (live rows) max abs "
-            f"err: kernel vs bulk {e_a[0]:.3g} (bound {LOGITS_TOL_FACTOR * e_a[1]:.3g}), bulk vs "
-            f"exact f32 {e_a[1]:.3g}, kernel vs exact f32 {e_a[2]:.3g}; kernel streams "
-            f"{[sk[u] for u in sorted(sk)]}; bulk streams {[sb[u] for u in sorted(sb)]}; "
-            f"differing tokens {differing}" + (f" ({'; '.join(flips)})" if flips else ""))
+    # (a) is held to (b)'s exact f32 replay (one replay of the f32 copy, not
+    # two), below
 
     # (b) long prompts: many chunk steps crossing blocks while others decode
     prompts = [torch.randint(0, cfg.vocab, (n_,), generator=gen, device="cuda").tolist()
@@ -3253,6 +3186,23 @@ def paged_phases(card, gen, bundle, params) -> dict:
         firsts.append(f"{len(r.prompt)} tokens {d:.3g} (bound {tol:.3g}; exact f32 paged vs "
                       f"dense {errors(px_, dx)[0]:.3g})")
     del ref_b, ref_x
+    # (a): kernel vs bulk teacher-forced, bound LOGITS_TOL_FACTOR x (b)'s bulk
+    # distance from exact f32 (the same weights and engine; (a)'s own exact
+    # replay was cut for phases 44-48's time)
+    e_a = forced("(a)", log_a, [e["logits"] for e in log_a], ref_a, None, e_b[1])
+    # bulk mode teacher-forced on the kernel run's inputs, which match the
+    # bulk run's for a request up to its first difference
+    flips = near_tie_flips([sk[u] for u in sorted(sk)], [sb[u] for u in sorted(sk)],
+                           lambda u, k: ref_a[where_a[(u, k)][0]][where_a[(u, k)][1]],
+                           LOGITS_TOL_FACTOR * e_a[1])
+    del ref_a
+    say(23, f"(a) the launcher (--paged, batch {B}, 8 requests x 16 tokens, block "
+            f"{PAGED_BLOCK}, chunk {PAGED_CHUNK}, default pool {nb} blocks): {len(log_a)} steps "
+            f"by B x C rows and fused path {paths_a}; teacher-forced logits (live rows) max abs "
+            f"err: kernel vs bulk {e_a[0]:.3g} (bound {LOGITS_TOL_FACTOR * e_a[1]:.3g}: "
+            f"{LOGITS_TOL_FACTOR} x (b)'s bulk vs exact f32); kernel streams "
+            f"{[sk[u] for u in sorted(sk)]}; bulk streams {[sb[u] for u in sorted(sb)]}; "
+            f"differing tokens {differing}" + (f" ({'; '.join(flips)})" if flips else ""))
     say(23, f"(b) prompts of {list(PAGED_PROMPTS)} seeded tokens x {PAGED_NEW} new, batch {B}, "
             f"chunk {PAGED_CHUNK}, {nb} blocks: {len(log_b)} steps {paths_b}, peak "
             f"{eng_b.kv.peak_blocks} blocks; teacher-forced kernel vs bulk {e_b[0]:.3g} (bound "
@@ -3317,7 +3267,7 @@ def paged_phases(card, gen, bundle, params) -> dict:
     step_t = {}
     for name, e in (("C=1", c1), (f"C={PAGED_CHUNK}", c8)):
         step_t[name] = {"kernel": [], "bulk": []}
-        for m in ("kernel", "bulk", "bulk", "kernel"):
+        for m in ("kernel", "bulk"):      # one turn each (turns cut for phases 44-48)
             step_t[name][m].append(time_ms(
                 lambda: serve[m](params, e["in"][0], pool, *e["in"][1:]), iters=5, warmup=1))
     prof = {f"{m} {name}": profile_device(lambda i: serve[m](params, e["in"][0], pool,
@@ -3348,7 +3298,7 @@ def paged_phases(card, gen, bundle, params) -> dict:
         return sum(len(r.tokens) for r in fin) / dt, dt
 
     tps = {"paged": [], "dense": []}
-    for kind in ("paged", "dense", "dense", "paged"):
+    for kind in ("paged", "dense"):       # one drain each (turns cut for phases 44-48)
         tps[kind].append(drain(kind == "paged"))
     t_path = {"tile": [], "stream": []}
     for p_ in ("tile", "stream", "stream", "tile"):
@@ -3359,12 +3309,12 @@ def paged_phases(card, gen, bundle, params) -> dict:
     pool_b = pool_hbm_bytes(pool)
     dense_b = dense_cache_hbm_bytes(bundle.init_cache(B, "meta"))
     ms = lambda ts: ", ".join(f"{t_:.4f}" for t_ in ts)
-    say(24, f"on {card}: serve_step per step (CUDA events, turns kernel, bulk, bulk, kernel): "
+    say(24, f"on {card}: serve_step per step (CUDA events, kernel then bulk): "
             + "; ".join(f"{name} " + ", ".join(f"{m} {ms(v)}" for m, v in d.items()) + " ms"
                         for name, d in step_t.items())
             + "; profiles: " + "; ".join(f"{n_} {p_}" for n_, p_ in prof.items())
             + f"; the launcher's traffic (8 requests x 16 tokens, batch {B}, kernel mode, host "
-            f"clock around the drain, turns paged, dense, dense, paged): "
+            f"clock around the drain, paged then dense): "
             + "; ".join(f"{k_} " + ", ".join(f"{v[0]:.1f} tok/s ({v[1]:.2f} s)" for v in vs)
                         for k_, vs in tps.items())
             + f"; fused_matmul_allreduce [{rows},{F}]@[{F},{D}] bf16: tile path {ms(t_path['tile'])}"
@@ -3675,39 +3625,19 @@ def profile_device(run, n, unit) -> str:
 # phases 28-29: chatglm3-6b decode over a tensor-parallel world on one card
 # ---------------------------------------------------------------------------
 def tp_phases(card) -> None:
-    """Phase 28 (the launcher at tp = 4 under torch.distributed.run, fused
-    mode) and phase 29 (teacher-forced logits of spawned tp = 4 and tp =
-    2 worlds against phase 5's exact f32 evaluation, and the FFN down product
-    over the world).  Needs phase 5's run (``GLM_DECODE``)."""
-    # fused mode only: bulk mode at tp = 4 is phase 29's yardstick (its
-    # launcher run was cut when phases 38-40 came, to keep the script
-    # under 900 s)
-    runs = {m: launcher_world_run(m) for m in ("fused",)}
-    streams5 = GLM_DECODE["streams"]
-    notes = []
-    for mode, r in runs.items():
-        notes += near_tie_notes(f"tp={TP_WORLD} {mode}", r["streams"])
-    GLM_DECODE["tp_streams"] = {m: r["streams"] for m, r in runs.items()}
-    say(28, f"[{TP_LABEL.format(TP_WORLD)}] python -m torch.distributed.run --nproc-per-node {TP_WORLD} -m "
-            f"repro_torch.launch.serve --tp {TP_WORLD} --backend gloo, full-width chatglm3-6b "
-            f"(28 layers, seed-0 weights sliced), 4 requests x 8 tokens at batch 4: "
-            + "; ".join(f"{m} {r['ms_step']:.2f} ms/step {r['tok_s']:.1f} tok/s ({r['steps']} "
-                        f"steps, {r['wall']:.1f} s with start and init), all {TP_WORLD} ranks' "
-                        f"streams equal" for m, r in runs.items())
-            + f"; streams {runs['fused']['streams']}; = tp 1 kernel mode (phase 5): "
-            + ", ".join(f"{m} {[r['streams'][u] for u in range(len(streams5))] == streams5}"
-                        for m, r in runs.items())
-            + (f" ({'; '.join(notes)})" if notes else ""))
-
+    """Phase 29: teacher-forced logits of a spawned tp = 4 world against
+    phase 5's exact f32 evaluation, and the FFN down product over the
+    world.  Needs phase 5's run (``GLM_DECODE``).  (Phase 28's launcher run
+    at tp = 4 was cut for phases 44-48's time: phase 31 runs the same
+    launcher at tp = 4 in fused mode, with auto knobs, under the same
+    gates.)"""
+    # the tp = 2 world (granularity 2) and the oblivious and bf16-wire
+    # settings were cut for phases 44-48's time (tests/test_torch_tp.py
+    # holds them on the CPU)
     settings = [("bulk", dict(mode="bulk")), ("fused", dict(mode="fused")),
                 ("fused skew 1", dict(mode="fused", skew=1)),
-                ("fused oblivious", dict(mode="fused", schedule="oblivious")),
-                ("fused bf16 wire", dict(mode="fused", wire="bf16")),
                 ("fused fp8 wire", dict(mode="fused", wire="fp8"))]
-    pair = [("bulk", dict(mode="bulk")),
-            ("fused", dict(mode="fused", granularity=TP_PAIR_Q)),
-            ("fused skew 1", dict(mode="fused", granularity=TP_PAIR_Q, skew=1))]
-    for tp, sets in ((TP_WORLD, settings), (TP_PAIR, pair)):
+    for tp, sets in ((TP_WORLD, settings),):
         res = spawn_world(tp, sets)
         err_b = res["bulk"]["err"]
         bound = LOGITS_TOL_FACTOR * err_b
@@ -3766,6 +3696,14 @@ def near_tie_notes(label, streams) -> list[str]:
         [streams[u] for u in range(len(streams5))], streams5, chose, GLM_DECODE["logits_tol"])]
 
 
+def stop_group(proc) -> None:
+    """Kill a launcher started in a session of its own, with its workers,
+    if it is still running."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+
+
 def launcher_world_run(mode, extra=(), tp=TP_WORLD, dp=1) -> dict:
     """The serve launcher at (dp, tp) (dp * tp processes) on the one card
     through its entry point, with the flags ``extra`` added."""
@@ -3790,41 +3728,92 @@ def launcher_world_run(mode, extra=(), tp=TP_WORLD, dp=1) -> dict:
             "streams": streams, "wall": wall, "out": proc.stdout}
 
 
-def spawn_world(tp, settings, target=None, args=None) -> dict:
-    """Run ``target(rank, tp, init, settings, *args, out)`` (by default
-    ``tp_world_rank`` on phase 5's inputs) on ``tp`` spawned processes
-    sharing the card; rank 0's results, and every rank's under "ranks",
-    after checking that every rank's logits are rank 0's."""
-    import tempfile
+# The rank processes of the spawned worlds (phases 29 and 36-47): started
+# once and handed one world after another, so that a world pays no process
+# start, torch import, CUDA context, kernel-library load or exit of its own
+# (by difference, tens of seconds of each world on one H100 80GB HBM3 when
+# each world spawned its own: phases 39 and 47 took 65.1 and 91.0 s so, and
+# 10.5 and 35.3 s through the pool).  Between worlds a rank returns its
+# cached device and pinned host memory.
+POOL: dict = {}
+POOL_SIZE = 4
 
+
+def pool_rank(rank, tasks, out):
+    """A rank process of the pool: runs each ``(target, args)`` handed to
+    it on ``tasks`` (the target puts its own result on ``out``), then frees
+    its caches and says so on ``out``; ends on ``None``."""
+    import gc
+
+    while True:
+        job = tasks.get()
+        if job is None:
+            return
+        target, args = job
+        target(rank, *args, out)
+        gc.collect()
+        torch.cuda.empty_cache()
+        host_empty = getattr(torch._C, "_host_emptyCache", None)
+        if host_empty is not None and torch.cuda.is_initialized():
+            host_empty()
+        out.put((rank, "idle", None))
+
+
+def start_pool() -> None:
     import torch.multiprocessing as mp
 
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     spawn = mp.get_context("spawn")
-    out = spawn.Queue()
+    POOL.update(out=spawn.Queue(), tasks=[spawn.Queue() for _ in range(POOL_SIZE)])
+    POOL["procs"] = [spawn.Process(target=pool_rank, args=(r, POOL["tasks"][r], POOL["out"]),
+                                   daemon=True) for r in range(POOL_SIZE)]
+    for p_ in POOL["procs"]:
+        p_.start()
+
+
+def stop_pool() -> None:
+    """End the pool's processes (their CUDA contexts with them)."""
+    if not POOL:
+        return
+    for q_ in POOL["tasks"]:
+        q_.put(None)
+    for p_ in POOL["procs"]:
+        p_.join(timeout=60)
+        if p_.is_alive():
+            p_.kill()
+            p_.join()
+    POOL.clear()
+
+
+def spawn_world(tp, settings, target=None, args=None) -> dict:
+    """Run ``target(rank, tp, init, settings, *args, out)`` (by default
+    ``tp_world_rank`` on phase 5's inputs) on ``tp`` of the pool's processes
+    (started here if it is not running), sharing the card; rank 0's
+    results, and every rank's under "ranks", after checking that every
+    rank's logits are rank 0's."""
+    import tempfile
+
+    if not POOL:
+        start_pool()
+    out = POOL["out"]
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as rdv:
         if target is None:
             target = tp_world_rank
             args = (GLM_DECODE["inputs"][:TP_STEPS], GLM_DECODE["exact"][:TP_STEPS])
-        procs = [spawn.Process(target=target, args=(r, tp, f"file://{rdv}/rdv", settings, *args,
-                                                    out))
-                 for r in range(tp)]
-        for p_ in procs:
-            p_.start()
-        got = {}
-        try:
-            while len(got) < tp:
-                rank, status, value = out.get(timeout=600)
-                if status != "ok":
-                    raise AssertionError(f"tp={tp} world, rank {rank}:\n{value}")
+        for r in range(tp):
+            POOL["tasks"][r].put((target, (tp, f"file://{rdv}/rdv", settings, *args)))
+        got, idle = {}, set()
+        # every rank's result, then every rank done with the world (its
+        # process group closed, so the rendezvous file can go)
+        while len(got) < tp or len(idle) < tp:
+            rank, status, value = out.get(timeout=600)
+            if status == "idle":
+                idle.add(rank)
+            elif status != "ok":
+                raise AssertionError(f"tp={tp} world, rank {rank}:\n{value}")
+            else:
                 got[rank] = value
-        finally:
-            for p_ in procs:
-                p_.join(timeout=60)
-                if p_.is_alive():
-                    p_.kill()
-                    p_.join()
     for name, _ in settings:
         if len({got[r][name]["digest"] for r in range(tp)}) != 1:
             raise AssertionError(f"tp={tp} {name}: the ranks' logits differ")
@@ -4079,7 +4068,6 @@ def autotune_phases(card) -> None:
         r["notes"] = near_tie_notes(f"tp={TP_WORLD} auto run {i}", r["streams"])
         r["decisions"] = re.findall(r"decision: (.*)", out)
         summary.append((swept[0].split(": ")[1], [ln for ln in per_rank[0] if "->" in ln]))
-    fused28 = GLM_DECODE["tp_streams"]["fused"]
     say(31, f"[{AUTO_LABEL.format(TP_WORLD)}] python -m torch.distributed.run --nproc-per-node "
             f"{TP_WORLD} -m repro_torch.launch.serve --tp {TP_WORLD} --backend gloo --fusion fused "
             f"--granularity auto --wire auto --calibrate --tune-cache, full-width chatglm3-6b: "
@@ -4087,7 +4075,7 @@ def autotune_phases(card) -> None:
             + "; ".join(summary[0][1]) + f"; decisions {runs[0]['decisions']} (link class gloo "
             f"host-staged, provisional; {len(entries)} cache entries under it); {runs[0]['ms_step']:.2f} "
             f"ms/step, {runs[0]['wall']:.1f} s with start, init and calibration; streams = phase "
-            f"28's streams: {runs[0]['streams'] == fused28}"
+            f"5's: {[runs[0]['streams'][u] for u in sorted(runs[0]['streams'])] == GLM_DECODE['streams']}"
             + (f" ({'; '.join(runs[0]['notes'])})" if runs[0]["notes"] else ""))
 
 
@@ -4268,8 +4256,9 @@ def flash_window_phase(card, gen) -> dict:
     want = flash_attention_plain(q, k, v, scale=scale, softcap=cap)
     t_plain = time_ms(lambda: flash_attention_plain(q, k, v, scale=scale, softcap=cap), iters=2,
                       warmup=1)
-    flex_s, flex_s_txt = flex_time(q, k, v, scale=scale, causal=True, window=None, cap=cap,
-                                   want=want, iters=20)
+    # the flex_attention yardsticks (32 s of compiles) were cut for phases
+    # 44-48's time; PERF.md section 6 keeps their numbers
+    flex_s, flex_s_txt = None, "not measured (cut)"
     del q, k, v, want
     q, k, v = inputs(1, FLASH_LONG_S, hq, hkv, hd, bf16, qs)
     kws = {"causal": {}, "window": {"window": win}, "window+cap": {"window": win, "softcap": cap}}
@@ -4280,9 +4269,7 @@ def flash_window_phase(card, gen) -> dict:
     b_long = {n_: flash_bound(1, FLASH_LONG_S, hq, hkv, hd, 2, window=kw_.get("window"))
               for n_, kw_ in kws.items()}
     want = flash_attention(q, k, v, scale=scale, window=win, softcap=cap)
-    # yardstick: flex_attention held to the kernel, which (a) held to plain
-    flex_l, flex_l_txt = flex_time(q, k, v, scale=scale, causal=True, window=win, cap=cap,
-                                   want=want, iters=3)
+    flex_l, flex_l_txt = None, "not measured (cut)"
     del q, k, v, want
     ms = lambda ts: ", ".join(f"{t_:.4f}" for t_ in ts)
     ratio = min(t_long["window"]) / min(t_long["causal"])
@@ -4386,8 +4373,15 @@ def gemma2_phases(card, gen) -> tuple[dict, dict]:
     steps_k, launch_d = counted_run(lambda: greedy("kernel", logits_k, cache_k),
                                     {"fused_matmul_allreduce": L * GEMMA_STEPS,
                                      f"fused_matmul_allreduce.{dec_path}": L * GEMMA_STEPS})
+    # bulk mode's one prefill, timed with CUDA events (a second, timed
+    # alone, was cut for the script's time: it took 8.3 s)
+    ev_b = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev_b[0].record()
     (logits_b, cache_b), launch_b = counted_run(lambda: pre["bulk"](params, {"tokens": tokens}),
                                                 {})
+    ev_b[1].record()
+    torch.cuda.synchronize()
+    bulk_ms = ev_b[0].elapsed_time(ev_b[1])
     steps_b = greedy("bulk", logits_b, cache_b)
     del cache_k, cache_b
     logits_x = pre_x(params_x, {"tokens": tokens})[0]
@@ -4415,9 +4409,10 @@ def gemma2_phases(card, gen) -> tuple[dict, dict]:
             f"{LOGITS_TOL_FACTOR} x bulk's): {errs_k}; peak {peak_k:.2f} GB through the "
             f"kernel-mode prefill, {peak_gb:.2f} GB through the exact f32 one")
 
-    # times: kernel and bulk mode in turns, then a profile of kernel mode
-    pre_t = {"kernel": [], "bulk": []}
-    for m in ("kernel", "bulk", "kernel"):
+    # times: kernel mode twice (bulk mode's is its checked prefill's), then
+    # a profile of kernel mode
+    pre_t = {"kernel": [], "bulk": [bulk_ms]}
+    for m in ("kernel", "kernel"):
         pre_t[m].append(time_ms(lambda: pre[m](params, {"tokens": tokens}), iters=1, warmup=0))
     prof_pre = profile_device(lambda i: pre["kernel"](params, {"tokens": tokens}), 1, "prefill")
     # bound: the products of every layer's weights at S tokens at the bf16 peak
@@ -4447,9 +4442,10 @@ def gemma2_phases(card, gen) -> tuple[dict, dict]:
     del steps_k, steps_b, logits_l, logits_k, logits_b, dec
     torch.cuda.empty_cache()
 
-    say(33, f"on {card}: prefill of 1x{S} per call (CUDA events, turns kernel, bulk, "
-            f"kernel): " + "; ".join(f"{m} " + ", ".join(f"{t_:.1f}" for t_ in ts) + " ms"
-                                     for m, ts in pre_t.items())
+    say(33, f"on {card}: prefill of 1x{S} per call (CUDA events; kernel mode twice, bulk "
+            f"mode its checked prefill, after kernel mode's): "
+            + "; ".join(f"{m} " + ", ".join(f"{t_:.1f}" for t_ in ts) + " ms"
+                        for m, ts in pre_t.items())
             + f"; bound {pre_bound:.1f} ms (operations: 2 x {layer_params / 1e9:.2f} G layer "
             f"parameters x {S} tokens); kernel-mode profile: {prof_pre}")
 
@@ -4578,7 +4574,7 @@ def gemma2_phases(card, gen) -> tuple[dict, dict]:
     step_t = {}
     for name, e in (("C=1", c1), (f"C={PAGED_CHUNK}", c8)):
         step_t[name] = {"kernel": [], "bulk": []}
-        for m in ("kernel", "bulk", "bulk", "kernel"):
+        for m in ("kernel", "bulk"):      # one turn each (turns cut for the script's time)
             step_t[name][m].append(time_ms(
                 lambda: serves[m](params, e["in"][0], pool, *e["in"][1:]), iters=3, warmup=1))
     prof_srv = {f"C={PAGED_CHUNK}": profile_device(
@@ -4604,8 +4600,8 @@ def gemma2_phases(card, gen) -> tuple[dict, dict]:
     del x, got
     ms = lambda ts: ", ".join(f"{t_:.4f}" for t_ in ts)
     say(34, f"(c) on {card}: dense decode (host clock around the drain): {decode_txt}; profile "
-            f"of kernel-mode decode: {prof_dec}; serve_step per step (CUDA events, turns kernel, "
-            f"bulk, bulk, kernel): " + "; ".join(
+            f"of kernel-mode decode: {prof_dec}; serve_step per step (CUDA events, kernel then "
+            f"bulk): " + "; ".join(
                 f"{name} " + ", ".join(f"{m} {ms(v)}" for m, v in d.items()) + " ms"
                 for name, d in step_t.items())
             + "; kernel-mode profile: " + "; ".join(f"{n_} {p_}" for n_, p_ in prof_srv.items())
@@ -4645,6 +4641,10 @@ RING_WORLDS = (
                ("fused q2 bf16", dict(mode="fused", granularity=2, wire="bf16")),
                ("fused q2 bf16 skew 1", dict(mode="fused", granularity=2, wire="bf16",
                                              skew=1))]),)
+# phase 36 prefills the first RING_B of phase 20's 4 rows (each setting's
+# time is mostly its all-gathers through host memory, which grow with the
+# rows; at all 4 the phase took 61.6 s of a 1052 s run on one H100 80GB HBM3)
+RING_B = 1
 GLM_PREFILL: dict = {}    # phase 20's run, which phase 36 is held to
 
 
@@ -4781,14 +4781,21 @@ def ring_prefill_phase(card) -> dict:
     rank 28 (1 + d) in kernel mode, 0 in bulk and fused mode; the hand-off
     (the chunks gathered into a tp = 4 decode cache, one fused-mode decode
     step from position 2048 against phase 20's prefill over 2049 tokens);
-    ms a prefill.  Needs phase 20's run (GLM_PREFILL).  Returns the flash
+    ms a prefill.  The first RING_B of phase 20's rows, each held to its
+    own rows there.  Needs phase 20's run (GLM_PREFILL).  Returns the flash
     row's prefill numbers."""
     L = GLM_PREFILL["layers"]
+    rows = slice(0, RING_B)
+    hand_in = GLM_PREFILL["handoff"]
+    handoff = dict(token=hand_in["token"][rows].clone(), logits=hand_in["logits"][rows].clone())
+    d_px = max(hand_in["d_px"][rows])
     row = {}
     for tp, settings in RING_WORLDS:
         res = spawn_world(tp, settings, target=prefill_world_rank, args=(dict(
-            arch="chatglm3-6b", tokens=GLM_PREFILL["tokens"], exact=GLM_PREFILL["exact"],
-            cache=GLM_PREFILL["cache"], handoff=GLM_PREFILL["handoff"] if tp == RING_TP else None),))
+            arch="chatglm3-6b", tokens=GLM_PREFILL["tokens"][rows].clone(),
+            exact=GLM_PREFILL["exact"][rows].clone(),
+            cache={k_: c_[:, rows].clone() for k_, c_ in GLM_PREFILL["cache"].items()},
+            handoff=handoff if tp == RING_TP else None),))
         ranks = res["ranks"]
         err_b, cache_b = ranks[0]["bulk"]["err"], max(r["bulk"]["cache_err"] for r in ranks)
         bound, cache_bound = LOGITS_TOL_FACTOR * err_b, LOGITS_TOL_FACTOR * cache_b
@@ -4815,7 +4822,7 @@ def ring_prefill_phase(card) -> dict:
         hand = ""
         if tp == RING_TP:
             h = ranks[0]["kernel"]["handoff"]
-            tol = LOGITS_TOL_FACTOR * GLM_PREFILL["handoff"]["d_px"]
+            tol = LOGITS_TOL_FACTOR * d_px
             if not h["err"] <= tol:
                 raise AssertionError(f"hand-off at tp={tp}: the decode step's logits are "
                                      f"{h['err']:.4g} from a prefill over {GLM_S + 1} tokens, "
@@ -4827,12 +4834,13 @@ def ring_prefill_phase(card) -> dict:
                     f"that prefill's distance from exact f32)")
             row = {"ring_prefill": {m_: ranks[0][m_]["ms"] for m_, _ in settings},
                    "ring_launches": [r["kernel"]["launches"] for r in ranks]}
-        say(36, f"[{TP_LABEL.format(tp)}] chatglm3-6b full width, prefill of {GLM_B}x{GLM_S} "
-                f"(phase 20's tokens) at tp = {tp} through prefill_fn, {GLM_S // tp} positions a "
-                f"rank, every rank's logits equal; max abs err of the logits from phase 20's "
-                f"exact f32 and of the ranks' cache chunks from phase 20's kernel-mode cache "
-                f"(bounds {bound:.4g} and {cache_bound:.4g} = {LOGITS_TOL_FACTOR} x bulk's; tp 1 "
-                f"bulk's logits {GLM_PREFILL['err_bx']:.4g}): " + "; ".join(notes) + skew + hand
+        say(36, f"[{TP_LABEL.format(tp)}] chatglm3-6b full width, prefill of {RING_B}x{GLM_S} "
+                f"(the first {RING_B} of phase 20's {GLM_B} rows) at tp = {tp} through "
+                f"prefill_fn, {GLM_S // tp} positions a rank, every rank's logits equal; max abs "
+                f"err of the logits from phase 20's exact f32 and of the ranks' cache chunks "
+                f"from phase 20's kernel-mode cache, on those rows (bounds {bound:.4g} and "
+                f"{cache_bound:.4g} = {LOGITS_TOL_FACTOR} x bulk's; tp 1 bulk's logits "
+                f"{max(GLM_PREFILL['err_bx'][rows]):.4g}): " + "; ".join(notes) + skew + hand
                 + f"; ms a prefill (host clock around the synchronised run, after a warm-up)")
     return row
 
@@ -4924,9 +4932,11 @@ def prefill_world_rank(rank, tp, init, settings, inputs, out):
         s_loc = batch["tokens"].shape[1] // tp
         rows = slice(rank * s_loc, (rank + 1) * s_loc)
         # a warm-up prefill (the world's first exchanges, cuBLAS's first
-        # products), untimed; then each setting's one prefill is counted,
-        # timed and checked
-        bundle.prefill_fn(ctx(**settings[0][1]))(params, batch)
+        # products) in the first setting that is not bulk mode's (bulk
+        # mode's all-gathers take the longest through the host), untimed;
+        # then each setting's one prefill is counted, timed and checked
+        warm = next((kw for _, kw in settings if kw.get("mode") != "bulk"), settings[0][1])
+        bundle.prefill_fn(ctx(**warm))(params, batch)
         res = {}
         for name, kw in settings:
             pre = bundle.prefill_fn(ctx(**kw))
@@ -5011,10 +5021,11 @@ TRAIN_TP_LAYERS, TRAIN_TP_STEPS = 2, 3
 TRAIN_TP_SETTINGS = [("kernel", dict(mode="kernel"))]
 # Phase 40: the launcher at tp = 2 against tp = 1 on the same flags, full
 # width cut to TRAIN_GRAD_LAYERS layers (the reduced model's heads of 16 are
-# not a size the flash kernel takes)
+# not a size the flash kernel takes), 3 steps (6 until the script's time was
+# cut: each step of the tp = 2 launcher took 2.45 s on one H100 80GB HBM3)
 TRAIN_EXACT: dict = {}    # phase 38's exact gradients, which phase 42 is held to
 TRAIN_TP1: dict = {}      # phases 39-40's tp = 1 runs, which phases 42-43 are held to
-TRAIN_TP_LAUNCH = ["--fusion", "kernel", "--layers", str(TRAIN_GRAD_LAYERS), "--steps", "6",
+TRAIN_TP_LAUNCH = ["--fusion", "kernel", "--layers", str(TRAIN_GRAD_LAYERS), "--steps", "3",
                    "--lr", TRAIN_LR, "--log-every", "1"]
 
 
@@ -5038,7 +5049,8 @@ def _whole(specs):
 def _digest(tensors) -> str:
     h = hashlib.sha256()
     for t_ in tensors:
-        h.update(t_.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        # the host copy's buffer itself (no bytes object copied from it)
+        h.update(t_.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy())
     return h.hexdigest()
 
 
@@ -5129,10 +5141,10 @@ def train_tp_grad_phase(card) -> dict:
                      + (f"; each leaf's max abs err from exact f32 over the ranks: {errs}"
                         if kw["mode"] == "kernel" else ""))
         row.setdefault("train_tp_grad_ms", {})[name] = [fwd, bwd, ar]
-    # the table's gradient is left out: its rows gather scatter-adds
-    # (index_add_), whose order on the card is the atomics'
-    a, b = (ranks[0][n_]["grads_digest"] for n_ in ("fused q2 bf16", "fused q2 bf16 skew 1"))
-    if a != b:
+    # compared bit for bit in each rank; the table's gradient is left out:
+    # its rows gather scatter-adds (index_add_), whose order on the card is
+    # the atomics'
+    if not all(r_["fused q2 bf16 skew 1"]["skew_equal"] for r_ in ranks):
         raise AssertionError(f"tp={RING_TP}: skew 1's gradients are not skew 0's bits")
     row["train_tp_launches"] = [r_["kernel"]["launches"] for r_ in ranks]
     say(38, f"[{TP_LABEL.format(RING_TP)}] gradients of {L} full-width chatglm3-6b layers at "
@@ -5415,10 +5427,14 @@ def train_world_rank(rank, tp, init, settings, inputs, out):
                          "finite": bool(torch.isfinite(loss)) and all(
                              bool(torch.isfinite(g).all()) for g in grads),
                          "whole_digest": _digest([g for g, w_ in zip(grads, _whole(specs))
-                                                  if w_]),
-                         "grads_digest": _digest([g for g, n_ in zip(grads, names)
-                                                  if n_ != "embed.table"])}
-            del loss, grads, p_t, lv
+                                                  if w_])}
+            mine = [g for g, n_ in zip(grads, names) if n_ != "embed.table"]
+            if name == "fused q2 bf16":
+                skew0 = mine
+            elif name == "fused q2 bf16 skew 1":
+                res[name]["skew_equal"] = all(torch.equal(a, b) for a, b in zip(skew0, mine))
+                del skew0
+            del loss, grads, p_t, lv, mine
         out.put((rank, "ok", res))
     except Exception:
         out.put((rank, "err", traceback.format_exc()))
@@ -6031,32 +6047,934 @@ def data_launcher_phase(card) -> None:
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
            "-m", "repro_torch.launch.train", "--dp", "2", "--tp", "2", "--backend", "gloo",
            *argv]
+    # both launchers at once (two worlds of 4 processes on the card)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    train = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        serve = launcher_world_run("fused", ["--paged"], tp=2, dp=2)
+        out, err = train.communicate(timeout=600)
+    finally:
+        stop_group(train)
     wall = time.perf_counter() - t0
-    got = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", proc.stdout)]
+    got = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", out)]
     want = TRAIN_TP1["launcher_losses"][:2]
-    if proc.returncode or "all 4 ranks' losses equal: True" not in proc.stdout:
-        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
-        raise AssertionError(f"train launcher at dp=2 tp=2: exit {proc.returncode}")
+    if train.returncode or "all 4 ranks' losses equal: True" not in out:
+        print(out[-4000:], err[-8000:], sep="\n", file=sys.stderr)
+        raise AssertionError(f"train launcher at dp=2 tp=2: exit {train.returncode}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(got, want)) if len(got) == len(want) else 1.0
     if not rel <= TRAIN_LOSS_REL:
         raise AssertionError(f"train launcher at dp=2 tp=2: losses {got} against tp = 1's {want}")
-    step_s = re.findall(r"\(([\d.]+)s/step\)", proc.stdout)
-    serve = launcher_world_run("fused", ["--paged"], tp=2, dp=2)
+    step_s = re.findall(r"\(([\d.]+)s/step\)", out)
     notes = near_tie_notes("dp=2 tp=2 paged", serve["streams"])
     say(43, f"[{TP_LABEL.format(4)}] python -m torch.distributed.run --nproc-per-node 4 -m "
             f"repro_torch.launch.train --dp 2 --tp 2 --backend gloo {' '.join(argv)}: "
             f"exit 0, all 4 ranks' losses equal; losses {', '.join(f'{x:.4f}' for x in got)} "
             f"against tp = 1's {', '.join(f'{x:.4f}' for x in want)} ({rel:.3g} of them at most, "
             f"bound {TRAIN_LOSS_REL}); {step_s[-1] if step_s else '?'} s a step on the host clock; "
-            f"{wall:.1f} s with start; -m repro_torch.launch.serve --dp 2 --tp 2 --paged --fusion "
+            f"{wall:.1f} s with start, beside the serve launcher (both at once); -m "
+            f"repro_torch.launch.serve --dp 2 --tp 2 --paged --fusion "
             f"fused (full width, 4 requests x 8 tokens, batch 4): all 4 ranks' streams equal, "
             f"{serve['ms_step']:.2f} ms/step ({serve['steps']} steps, {serve['wall']:.1f} s with "
             f"start and init), streams {[serve['streams'][u] for u in sorted(serve['streams'])]}; "
             f"= tp 1 kernel mode (phase 5): "
             f"{[serve['streams'][u] for u in sorted(serve['streams'])] == GLM_DECODE['streams']}"
             + (f" ({'; '.join(notes)})" if notes else ""))
+
+
+# ---------------------------------------------------------------------------
+# MoE beyond one-card decode (phases 44-48)
+# ---------------------------------------------------------------------------
+# dbrx-132b's prefill of 4 x 2048 tokens: C = ceil(8192 x 4 x 1.25 / 16) =
+# 2560 per expert; a prefill of 2 x 2048 has C = 1280, and phase 46's
+# training microbatch of 1 x 2048 C = 640
+DBRX_PRE_B, DBRX_PRE_S, DBRX_PRE_STEPS = 4, 2048, 8
+MOE_PREFILL_CS = (2560, 1280, 640)
+# the emulated 4-rank world at a prefill row: a rank of phase 47's tp = 4
+# world (2 x 1024 tokens) holds 2 x 256 positions, C = 512 x 4 x 1.25 / 16
+MOE_WORLD_C = 160
+# phase 46: 2 layers (14.3 GB of bf16 parameters); the gradients at phase
+# 26's 16 x 64 tokens (C = 320: the tile path), the registry's Adafactor
+# with 2 microbatches at 2 x 2048, on the same batch each step so that the
+# loss falls at the small lr full width needs (TRAIN_LR).  At 4 x 2048 (a
+# microbatch's C = 1280) the step ran out of the
+# card's 80 GB: the parameters, their f32 accumulators and a microbatch's
+# bf16 gradients hold 57 GB before any activation
+DBRX_TRAIN_LAYERS, DBRX_STEPS = 2, 4
+DBRX_STEP_B = 2        # x DBRX_PRE_S tokens a step: 2 microbatches of 1 x 2048 (C = 640)
+# the MoE layers of kernel mode against bulk mode on identical input: the
+# kernel keeps h and g in f32, the plain einsums round them to bf16
+# (REL_BF16, 2 % of the largest |output|)
+
+
+class GateLog:
+    """``models/moe._gates`` recorded or replayed in call order: recording
+    (no ``gates``) keeps each call's top-k choice (gate_i), replaying hands
+    ``gates[pos * stride + offset]`` back at the pos-th call, the gate
+    weights taken from the replaying run's own router probabilities at those
+    experts (as :func:`moe_routed` takes them).  A stream replayed on
+    another stream's choices is teacher-forced on routing: a token at a near
+    tie of its router goes to the same experts in both.  A rank of a world
+    replays its block of a run recorded block by block (:func:`moe_in_blocks`:
+    ``stride`` blocks a call, its own at ``offset``)."""
+
+    def __init__(self, gates=None, stride=1, offset=0):
+        self.gates = [] if gates is None else list(gates)
+        self.replaying = gates is not None
+        self.stride, self.offset = stride, offset
+        self.pos = 0
+
+    @contextlib.contextmanager
+    def active(self):
+        from repro_torch.models import moe as moe_mod
+
+        kept = moe_mod._gates
+
+        def gates(cfg, toks, w_r):
+            if not self.replaying:
+                gw, gi = kept(cfg, toks, w_r)
+                self.gates.append(gi)
+                return gw, gi
+            gi = self.gates[self.pos * self.stride + self.offset].to(toks.device)
+            self.pos += 1
+            probs = torch.softmax(toks.float() @ w_r.float(), dim=-1)
+            gw = probs.gather(1, gi)
+            if cfg.norm_topk_prob:
+                gw = gw / gw.sum(-1, keepdim=True).clamp_min(1e-9)
+            return gw * cfg.router_scale, gi
+
+        moe_mod._gates = gates
+        try:
+            yield self
+        finally:
+            moe_mod._gates = kept
+
+
+def moe_in_blocks(moe_apply, n):
+    """``moe_apply`` run on each of the ``n`` equal blocks of x's sequence
+    on its own: the MoE layer of a tp = n world on one rank.  Each rank of
+    the world routes its own positions, with the capacity of its own
+    tokens, and its tokens' outputs depend on nothing else; where an expert
+    overflows, one rank over the whole sequence drops other tokens, so the
+    world's yardsticks run the layer this way."""
+    def blocks(ctx, ffn, h, mcfg, **kw):
+        s = h.shape[1] // n
+        return torch.cat([moe_apply(ctx, ffn, h[:, i * s:(i + 1) * s], mcfg, **kw)
+                          for i in range(n)], dim=1)
+    return blocks
+
+
+def moe_exact(ffn, h, mcfg, gate_i):
+    """The MoE layer in exact f32 on the experts ``gate_i`` [T, K] chose:
+    the gate weights from this input's router probabilities, the expert
+    FFN one expert at a time (each expert's weights upcast while it runs:
+    an f32 copy of dbrx's 16 experts is 12.7 GB a layer)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.moe import _capacity_slots, _dispatch_buf, _unpermute
+
+    toks = h.reshape(-1, mcfg.d_model).float()
+    probs = torch.softmax(toks @ ffn["router"].float(), dim=-1)
+    gate_w = probs.gather(1, gate_i)
+    if mcfg.norm_topk_prob:
+        gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    gate_w = gate_w * mcfg.router_scale
+    e_clip, p_clip, valid, cap = _capacity_slots(mcfg, gate_i)
+    buf = _dispatch_buf(mcfg, toks, e_clip, p_clip, valid, cap, torch.float32)
+    out = torch.empty_like(buf)
+    for e in range(mcfg.n_experts):
+        g = buf[e] @ ffn["w_gate"][e].float()
+        u = buf[e] @ ffn["w_up"][e].float()
+        out[e] = (F.silu(g) * u) @ ffn["w_down"][e].float()
+    return _unpermute(mcfg, out, gate_w, e_clip, p_clip, valid, h.shape, torch.float32)
+
+
+def exact_prefill_logits(params, cfg, tokens, gates):
+    """Last-position logits [B, 1, V] of a prefill in exact f32 (bulk mode's
+    arithmetic, weights upcast one layer's attention and one expert at a
+    time), each MoE layer on the experts ``gates`` recorded."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embedding_lookup, rms_norm
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    cfg_x = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    ctx = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    S = tokens.shape[1]
+    x = embedding_lookup(ctx, {"table": params["embed"]["table"].float()}, tokens,
+                         seq_shard=True)
+    positions = tfm._positions_for(S, tokens.device)
+    for i, lp in enumerate(params["layers"]):
+        la = {"ln1": lp["ln1"].float(), "attn": {k: v.float() for k, v in lp["attn"].items()}}
+        x = x + tfm._attn_train(ctx, cfg_x, la, x, positions, cfg.layer_window(i))[0]
+        del la
+        h = rms_norm(x, lp["ln2"].float(), cfg.norm_eps, plus_one=cfg.norm_plus_one)
+        x = x + moe_exact(lp["ffn"], h, cfg.moe, gates[i])
+    x = rms_norm(x[:, -1:], params["final_norm"].float(), cfg.norm_eps,
+                 plus_one=cfg.norm_plus_one)
+    return tfm._lm_logits(params, cfg_x, x)
+
+
+def moe_prefill_rows_phase(card, gen, params) -> dict:
+    """Phase 44: the MoE kernels at prefill rows on phase 9's weights (layer
+    0's experts): the expert FFN's tile path at C = 2560, 1280 and 640 against
+    its plain version (REL_BF16), launches counted by path; the emulated
+    4-rank world on the tile path at C = MOE_WORLD_C (3 calls back to back);
+    the dispatch's VJP bit-identical to the kernel on the cotangent at the
+    prefill's [1, 1, 16, 2560, 6144]; the tile path's times beside its bound
+    and bulk mode's three einsums (the library call) in turns.  Returns the
+    two MoE rows' prefill numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused_dispatch_a2a.ops import fused_dispatch_a2a
+    from repro_torch.kernels.fused_gemm_a2a.ops import (fused_gemm_a2a, fused_gemm_a2a_ranks,
+                                                        gemm_a2a_path)
+    from repro_torch.kernels.fused_gemm_a2a.ref import (fused_gemm_a2a_ref,
+                                                        fused_gemm_a2a_ref_ranks)
+
+    bf16 = torch.bfloat16
+    lp0 = params["layers"][0]["ffn"]
+    wu, wg, wd = lp0["w_up"], lp0["w_gate"], lp0["w_down"]
+    E, D, Fd = wu.shape
+    errs, times, row = {}, {}, {}
+    for cap in MOE_PREFILL_CS:
+        xt = randn(gen, (1, 1, E, cap, D), bf16)
+        if gemm_a2a_path(bf16, 1, 1, E, cap, D, Fd) != "tile":
+            raise AssertionError(f"gemm_a2a_path at C={cap}: not the tile path")
+        got, took = on_path(fused_gemm_a2a, lambda: fused_gemm_a2a(xt, wu, wg, wd))
+        if took != "tile":
+            raise AssertionError(f"fused_gemm_a2a at C={cap}: took the {took} path")
+        errs[cap] = check_rel(f"fused_gemm_a2a tile C={cap}", got,
+                              fused_gemm_a2a_ref(xt, wu, wg, wd, "silu"), REL_BF16)
+        del got
+        x0 = xt[0]
+        bulk = lambda: torch.einsum(
+            "necf,efd->necd", F.silu(torch.einsum("necd,edf->necf", x0, wg))
+            * torch.einsum("necd,edf->necf", x0, wu), wd)
+        turns = {"tile": [], "bulk": []}
+        for which in ("tile", "bulk", "bulk", "tile"):
+            fn = bulk if which == "bulk" else (lambda: fused_gemm_a2a(xt, wu, wg, wd))
+            turns[which].append(time_ms(fn, iters=5, warmup=1))
+        plain = time_ms(lambda: fused_gemm_a2a_ref(xt, wu, wg, wd, "silu"), iters=3, warmup=1)
+        ops = 2 * 3 * E * cap * D * Fd
+        nbytes = (2 * xt.numel() + wu.numel() + wg.numel() + wd.numel()) * xt.element_size()
+        bound = max(ops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        by = "operations" if ops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+        times[cap] = dict(tile=min(turns["tile"]), bulk=min(turns["bulk"]), plain=plain,
+                          bound=bound, by=by, turns=turns)
+        del xt, x0
+        torch.cuda.empty_cache()
+    # the emulated world: rank r holds experts [4 r, 4 r + 4), views of layer 0's
+    n = 4
+    ws = [w.view(n, E // n, *w.shape[1:]) for w in (wu, wg, wd)]
+    xs = randn(gen, (n, n, 1, E // n, MOE_WORLD_C, D), bf16)
+    want = fused_gemm_a2a_ref_ranks(xs, *ws, "silu")
+    world_err = 0.0
+    for i in range(3):
+        got, took = on_path(fused_gemm_a2a_ranks, lambda: fused_gemm_a2a_ranks(xs, *ws))
+        if took != "tile":
+            raise AssertionError(f"the emulated world at C={MOE_WORLD_C}: took the {took} path")
+        world_err = max(world_err, check_rel(f"world tile call {i}", got, want, REL_BF16)[1])
+    del xs, want, got
+    # the dispatch's VJP: the kernel on the cotangent
+    cap = MOE_PREFILL_CS[0]
+    xd = randn(gen, (1, 1, E, cap, D), bf16).requires_grad_(True)
+    cot = randn(gen, (1, 1, E, cap, D), bf16)
+    before = fused_dispatch_a2a.launches
+    gx, = torch.autograd.grad(fused_dispatch_a2a(xd, chunks_per_rank=2), xd, cot)
+    if fused_dispatch_a2a.launches - before != 2:
+        raise AssertionError("the dispatch's forward and VJP did not launch the kernel twice")
+    if not torch.equal(gx, fused_dispatch_a2a(cot, chunks_per_rank=2)):
+        raise AssertionError("the dispatch's VJP differs from the kernel on the cotangent")
+    del xd, cot, gx
+    torch.cuda.empty_cache()
+    t_ = times[MOE_PREFILL_CS[0]]
+    say(44, f"on {card}: the expert FFN at prefill rows with dbrx-132b's layer-0 experts "
+            f"[{E},{D},{Fd}] bf16 on the tile path (tensor cores, two launches) vs plain, max "
+            f"abs/rel err: " + ", ".join(f"C={c} {e[0]:.3g}/{e[1]:.3g}" for c, e in errs.items())
+            + f" (bound {REL_BF16} rel); the emulated {n}-rank world on the tile path at "
+            f"C={MOE_WORLD_C}, 3 calls: max rel err {world_err:.3g}; the dispatch's VJP at "
+            f"[1,1,{E},{cap},{D}] bit-identical to the kernel on the cotangent; times (turns "
+            f"tile, bulk, bulk, tile; CUDA events): "
+            + "; ".join(f"C={c}: tile {', '.join(f'{v:.3f}' for v in tm['turns']['tile'])} ms, "
+                        f"bulk einsums {', '.join(f'{v:.3f}' for v in tm['turns']['bulk'])} ms, "
+                        f"plain {tm['plain']:.3f} ms, bound {tm['bound']:.3f} ms ({tm['by']}), "
+                        f"tile at {tm['bound'] / tm['tile']:.2f} of the bound"
+                        for c, tm in times.items()))
+    row.update(tile_ms=t_["tile"], tile_plain_ms=t_["plain"], tile_bound_ms=t_["bound"],
+               tile_bound_by=t_["by"], tile_library_ms=t_["bulk"],
+               tile_max_abs_err=errs[MOE_PREFILL_CS[0]][0],
+               tile_c1280_ms=times[1280]["tile"], tile_c1280_library_ms=times[1280]["bulk"],
+               tile_c1280_bound_ms=times[1280]["bound"], tile_c640_ms=times[640]["tile"],
+               tile_c640_library_ms=times[640]["bulk"], tile_c640_bound_ms=times[640]["bound"],
+               tile_world_rel_err=world_err)
+    return row
+
+
+def dbrx_prefill_phase(card, gen, bundle, params) -> dict:
+    """Phase 45: dbrx-132b (phase 9's 8 layers and weights) prefill of
+    DBRX_PRE_B x DBRX_PRE_S seeded tokens through prefill_fn in kernel and
+    bulk mode, then DBRX_PRE_STEPS greedy decode steps from the prefill's
+    cache.  Gates: launches (kernel mode: a dispatch, a tile-path expert FFN
+    and a flash launch a layer; bulk mode none), a second kernel prefill
+    building no plan; every MoE layer's kernel output against bulk mode on
+    its identical input within REL_BF16; the logits of kernel mode within
+    LOGITS_TOL_FACTOR x bulk mode's distance from an exact f32 evaluation,
+    the bulk and exact runs teacher-forced on the kernel run's routing
+    (GateLog); decode: a dispatch and a stream-path FFN launch a layer and
+    step, finite logits, tokens in range."""
+    from repro_torch.kernels.fused_gemm_a2a import ops as ffn_ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    cfg = bundle.config
+    L, B, S = cfg.n_layers, DBRX_PRE_B, DBRX_PRE_S
+    tokens = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(45))
+    ctx_k = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel"))
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    seen = []
+
+    def spy(ctx, ffn, h, mcfg, **kw):
+        out = moe_apply(ctx, ffn, h, mcfg, **kw)
+        seen.append((h, out))
+        return out
+
+    log = GateLog()
+    torch.cuda.reset_peak_memory_stats()
+    with log.active(), swapped(tfm, "moe_apply", spy):
+        (lk, cache_k), counts = counted_run(
+            lambda: bundle.prefill_fn(ctx_k)(params, {"tokens": tokens}),
+            {"fused_dispatch_a2a": L, "fused_gemm_a2a": L, "fused_gemm_a2a.tile": L,
+             "flash_attention": L})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    layer_rel = 0.0
+    for i, (h, f) in enumerate(seen):
+        layer_rel = max(layer_rel, check_rel(f"prefill MoE layer {i}: kernel vs bulk", f,
+                                             moe_apply(ctx_b, params["layers"][i]["ffn"], h,
+                                                       cfg.moe), REL_BF16)[1])
+    del seen
+    plans = len(ffn_ops._PLANS)
+    ms = {}
+    for mode, ctx in (("kernel", ctx_k), ("bulk", ctx_b)):
+        replay = GateLog(log.gates)
+        with replay.active():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = bundle.prefill_fn(ctx)(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            ms[mode] = (time.perf_counter() - t0) * 1e3
+        if mode == "kernel":
+            if len(ffn_ops._PLANS) != plans:
+                raise AssertionError("a second kernel-mode prefill built expert-FFN plans")
+        else:
+            lb, cache_b = lg, cache
+    lx = exact_prefill_logits(params, cfg, tokens, log.gates)
+    torch.cuda.empty_cache()
+    d_kx, d_bx, d_kb = errors(lk, lx)[0], errors(lb, lx)[0], errors(lk, lb)[0]
+    if not (torch.isfinite(lk).all() and d_kx <= LOGITS_TOL_FACTOR * d_bx):
+        raise AssertionError(f"dbrx prefill logits: kernel {d_kx:.3g} from exact f32, above "
+                             f"{LOGITS_TOL_FACTOR} x bulk's {d_bx:.3g}")
+    # the hand-off: DBRX_PRE_STEPS greedy steps from position S in a cache of
+    # max_seq rows, kernel mode; bulk mode teacher-forced on its tokens
+    def decode_cache(c):
+        full = bundle.init_cache(B, "cuda")
+        for k_ in ("k", "v"):
+            full[k_][:, :, :S] = c[k_]
+        return full
+
+    caches = {"kernel": decode_cache(cache_k), "bulk": decode_cache(cache_b)}
+    del cache_k, cache_b
+    tok = lk.argmax(-1).to(torch.int32)
+    dec = {m: bundle.decode_fn(c) for m, c in (("kernel", ctx_k), ("bulk", ctx_b))}
+    d_dec, steps_tok = 0.0, []
+    reset_counts()
+    for s in range(DBRX_PRE_STEPS):
+        pos = torch.full((B,), S + s, dtype=torch.int32, device="cuda")
+        gk, caches["kernel"] = dec["kernel"](params, tok, caches["kernel"], pos)
+        counts_k = launch_counts()
+        gb, caches["bulk"] = dec["bulk"](params, tok, caches["bulk"], pos)
+        if launch_counts() != counts_k:
+            raise AssertionError("bulk-mode decode launched a kernel")
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"decode step {s}: non-finite logits")
+        d_dec = max(d_dec, errors(gk, gb)[0])
+        tok = gk.argmax(-1).to(torch.int32)
+        steps_tok.append(tok[:, 0].tolist())
+    counts_d = launch_counts()
+    want = L * DBRX_PRE_STEPS
+    if (counts_d["fused_dispatch_a2a"], counts_d["fused_gemm_a2a.stream"]) != (want, want):
+        raise AssertionError(f"decode from the prefill: launches {counts_d}, expected {want} "
+                             f"dispatch and stream-path FFN launches")
+    if not all(0 <= t_ < cfg.vocab for st in steps_tok for t_ in st):
+        raise AssertionError("decode from the prefill: a token out of range")
+    del caches
+    torch.cuda.empty_cache()
+    say(45, f"on {card}: dbrx-132b ({L} of 40 layers, phase 9's weights) prefill of {B}x{S} "
+            f"seeded tokens through prefill_fn: kernel mode launches dispatch "
+            f"{counts['fused_dispatch_a2a']}, expert FFN {counts['fused_gemm_a2a']} (tile path "
+            f"{counts['fused_gemm_a2a.tile']}), flash {counts['flash_attention']}; a second "
+            f"kernel prefill built no plan ({plans} expert-FFN plans held); every MoE layer, "
+            f"kernel vs bulk on identical input: max rel err {layer_rel:.3g} (bound {REL_BF16}); "
+            f"last-position logits max abs err (bulk and exact teacher-forced on the kernel "
+            f"run's routing): kernel vs exact f32 {d_kx:.3g}, bulk vs exact {d_bx:.3g} (bound "
+            f"{LOGITS_TOL_FACTOR} x it), kernel vs bulk {d_kb:.3g}; prefill ms (host clock, "
+            f"synchronised, routing replayed): kernel {ms['kernel']:.1f}, bulk {ms['bulk']:.1f}; "
+            f"peak {peak:.1f} GB; {DBRX_PRE_STEPS} greedy decode steps from position {S} "
+            f"(kernel mode, bulk teacher-forced on its tokens): dispatch "
+            f"{counts_d['fused_dispatch_a2a']} and stream-path FFN "
+            f"{counts_d['fused_gemm_a2a.stream']} launches (= {L} x {DBRX_PRE_STEPS}), logits "
+            f"kernel vs bulk max abs {d_dec:.3g}, tokens {steps_tok}")
+    return {"prefill_tile_launches": counts["fused_gemm_a2a.tile"],
+            "prefill_dispatch_launches": counts["fused_dispatch_a2a"],
+            "prefill_ms": ms["kernel"], "prefill_bulk_ms": ms["bulk"]}
+
+
+def dbrx_train_phase(card) -> dict:
+    """Phase 46: dbrx-132b cut to DBRX_TRAIN_LAYERS layers at full width on
+    one card.  (a) The loss and every gradient at TRAIN_B x TRAIN_S tokens
+    (LMBatches seed 0, weights seed 0) through loss_fn in kernel and bulk
+    mode, each against an exact f32 evaluation, the bulk and exact runs
+    teacher-forced on the kernel run's routing (forward and remat recompute,
+    GateLog); kernel mode within LOGITS_TOL_FACTOR x bulk's distance on every
+    leaf; kernel mode's launches (a dispatch and a tile-path expert FFN a
+    layer, forward and recompute, and the dispatch's VJP a layer).  (b)
+    DBRX_STEPS steps of the registry's Adafactor with 2 microbatches at
+    DBRX_STEP_B x DBRX_PRE_S, lr TRAIN_LR, on one batch, in kernel and bulk mode from the seed-0 weights: finite losses,
+    the last below the first, steps 2 on within TRAIN_LOSS_REL of bulk's;
+    launches a step; ms a step split; peak memory."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic import LMBatches
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+    from repro_torch.train.optimizer import OptimizerConfig, tree_leaves, tree_map, tree_paths
+    from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
+
+    bundle = get_arch("dbrx-132b")
+    cfg = dataclasses.replace(bundle.config, n_layers=DBRX_TRAIN_LAYERS)
+    bundle = dataclasses.replace(bundle, config=cfg)
+    L = cfg.n_layers
+    init = lambda: bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    params = init()
+    n_bytes = sum(t_.numel() * t_.element_size() for t_ in _leaves(params))
+    names = [".".join(map(str, path)) for path, _ in tree_paths(params)]
+    batch = to_device(next(LMBatches(cfg.vocab, TRAIN_B, TRAIN_S, 0)), "cuda")
+    ctx = {m: ParallelContext(device="cuda", fusion=FusionConfig(mode=m))
+           for m in ("kernel", "bulk")}
+    # exact f32 first, recording its routing; the kernel and bulk runs are
+    # teacher-forced on it, and the exact gradients stay on the card
+    exact = dataclasses.replace(bundle, config=dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    params_x = tree_map(lambda t_: t_.detach().float().requires_grad_(True), params)
+    del params
+    torch.cuda.empty_cache()
+    log = GateLog()
+    with log.active():
+        loss_x = exact.loss_fn(ctx["bulk"])(params_x, batch)
+        grads_x = torch.autograd.grad(loss_x, tree_leaves(params_x))
+    lx = loss_x.item()
+    del params_x, loss_x
+    torch.cuda.empty_cache()
+    params = init()
+    leaves = tree_leaves(params)
+    for p_ in leaves:
+        p_.requires_grad_(True)
+    want = {"kernel": {"fused_dispatch_a2a": 3 * L, "fused_gemm_a2a": 2 * L,
+                       "fused_gemm_a2a.tile": 2 * L,
+                       "flash_attention": 2 * L}, "bulk": {}}
+    losses, dist = {}, {}
+    for mode in ("kernel", "bulk"):
+        with GateLog(log.gates).active():
+            (loss, grads), counts = counted_run(
+                lambda: (lambda l_: (l_.detach(), torch.autograd.grad(l_, leaves)))(
+                    bundle.loss_fn(ctx[mode])(params, batch)), want[mode])
+        if mode == "kernel":
+            counts_g = counts
+        losses[mode] = loss.item()
+        if not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"dbrx gradients in {mode} mode: non-finite")
+        dist[mode] = [errors(g, gx)[0] for g, gx in zip(grads, grads_x)]
+        del loss, grads
+    del params, leaves, grads_x
+    torch.cuda.empty_cache()
+    worst, rows = 0.0, []
+    for name, ek, eb in zip(names, dist["kernel"], dist["bulk"]):
+        if not ek <= LOGITS_TOL_FACTOR * eb:
+            raise AssertionError(f"dbrx gradient {name}: kernel mode {ek:.3g} from exact f32, "
+                                 f"above {LOGITS_TOL_FACTOR} x bulk mode's {eb:.3g}")
+        worst = max(worst, ek / max(eb, 1e-30))
+        rows.append(f"{name} {ek:.3g}/{eb:.3g}")
+    lk, lb = losses["kernel"], losses["bulk"]
+    say(46, f"(a) gradients of {L} full-width dbrx-132b layers ({n_bytes / 1e9:.1f} GB bf16) at "
+            f"{TRAIN_B}x{TRAIN_S} tokens (LMBatches seed 0, weights seed 0; C = "
+            f"{-(-TRAIN_B * TRAIN_S * cfg.moe.top_k * 5 // (4 * cfg.moe.n_experts))}, tile path): "
+            f"loss kernel {lk:.6f}, bulk {lb:.6f}, exact f32 {lx:.6f}; kernel-mode launches "
+            f"dispatch {counts_g['fused_dispatch_a2a']} (forward, recompute, VJP), expert FFN "
+            f"{counts_g['fused_gemm_a2a']} (tile {counts_g['fused_gemm_a2a.tile']}), flash "
+            f"{counts_g['flash_attention']}; each leaf's max abs err from exact f32, "
+            f"kernel/bulk (both teacher-forced on the exact run's routing; bound "
+            f"{LOGITS_TOL_FACTOR} x bulk's; worst ratio {worst:.3g}): " + ", ".join(rows))
+
+    # (b) Adafactor steps, 2 microbatches, one batch
+    step_batch = to_device(next(LMBatches(cfg.vocab, DBRX_STEP_B, DBRX_PRE_S, 0)), "cuda")
+    tc = TrainConfig(optimizer=OptimizerConfig(name=bundle.optimizer, lr=float(TRAIN_LR),
+                                               warmup_steps=5, total_steps=DBRX_STEPS),
+                     microbatches=bundle.microbatches)
+    runs = {}
+    for mode in ("kernel", "bulk"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(tc, init())
+        clock = StepClock(profile_step=DBRX_STEPS)
+        step = build_train_step(bundle.loss_fn(ctx[mode]), tc, on_phase=clock)
+        losses, per_step = [], []
+        for _ in range(DBRX_STEPS):
+            reset_counts()
+            state, m = step(state, step_batch)
+            losses.append(m["loss"].item())
+            per_step.append(launch_counts())
+        del state, step
+        runs[mode] = dict(losses=losses, counts=per_step[-1], split=clock.split(),
+                          busy=clock.busy, peak=torch.cuda.max_memory_allocated() / 1e9)
+    k_, b_ = runs["kernel"], runs["bulk"]
+    if not all(x == x and abs(x) < float("inf") for x in k_["losses"] + b_["losses"]):
+        raise AssertionError(f"dbrx Adafactor steps: non-finite losses {k_['losses']}, "
+                             f"{b_['losses']}")
+    if not k_["losses"][-1] < k_["losses"][0]:
+        raise AssertionError(f"dbrx Adafactor steps: the loss did not fall: {k_['losses']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k_["losses"][1:], b_["losses"][1:]))
+    if rel > TRAIN_LOSS_REL:
+        raise AssertionError(f"dbrx Adafactor steps 2-{DBRX_STEPS}: kernel losses "
+                             f"{k_['losses']} {rel:.3g} from bulk's {b_['losses']}")
+    want = {"fused_dispatch_a2a": 6 * L, "fused_gemm_a2a.tile": 4 * L, "flash_attention": 4 * L}
+    got = {n_: k_["counts"][n_] for n_ in want}
+    if got != want or any(b_["counts"][n_] for n_ in want):
+        raise AssertionError(f"dbrx Adafactor step launches: kernel {got}, expected {want}; bulk "
+                             f"{ {n_: b_['counts'][n_] for n_ in want} }")
+    tokens = DBRX_STEP_B * DBRX_PRE_S
+
+    def summary(r):
+        later = r["split"][1:]
+        med = sorted(later, key=lambda x: x[3])[len(later) // 2]
+        dev, wall, ops = r["busy"]
+        return (f"losses {', '.join(f'{x:.5f}' for x in r['losses'])}; step (median of 2-"
+                f"{DBRX_STEPS}) {med[3]:.1f} ms = forward {med[0]:.1f} + backward {med[1]:.1f} "
+                f"+ optimizer {med[2]:.1f}, {tokens / med[3] * 1e3:.0f} tok/s; device busy "
+                f"{100 * dev / wall:.1f}% of step {DBRX_STEPS}'s {wall:.1f} ms under the "
+                f"profiler; peak {r['peak']:.1f} GB"), med
+    sk, mk = summary(k_)
+    sb, mb = summary(b_)
+    micro_c = -(-(tokens // bundle.microbatches) * cfg.moe.top_k * 5 // (4 * cfg.moe.n_experts))
+    say(46, f"(b) on {card}: {DBRX_STEPS} steps of {bundle.optimizer} with "
+            f"{bundle.microbatches} microbatches (C = {micro_c} each) at {DBRX_STEP_B}x{DBRX_PRE_S} "
+            f"tokens (one LMBatches batch, lr {TRAIN_LR}): kernel mode {sk}; bulk mode {sb}; "
+            f"steps 2-{DBRX_STEPS} within {rel:.3g} of bulk's (bound {TRAIN_LOSS_REL}); "
+            f"kernel-mode launches a step: dispatch {got['fused_dispatch_a2a']}, tile-path "
+            f"expert FFN {got['fused_gemm_a2a.tile']}, flash {got['flash_attention']}")
+    return {"train_tile_launches_per_step": got["fused_gemm_a2a.tile"],
+            "train_dispatch_launches_per_step": got["fused_dispatch_a2a"],
+            "train_step_ms": mk[3], "train_bulk_step_ms": mb[3]}
+
+
+# Phase 47: dbrx-132b at full width cut to WORLD_LAYERS layers over gloo
+# worlds of 4 processes on the one card: WORLD_B x WORLD_S tokens (a
+# replica's row at (2, 2) is 1 x 1024), decode
+# at batch WORLD_DEC_B.  The (2, 2) steps take one microbatch (two would
+# keep an f32 gradient accumulator a rank beside the gathered experts: 4
+# ranks x about 15 GB already); the tp = 1 yardstick steps take the same.
+WORLD_LAYERS, WORLD_B, WORLD_S = 2, 2, 1024
+WORLD_DEC_B, WORLD_DEC_STEPS, WORLD_STEPS = 4, 4, 1
+# the (2, 2) Adafactor steps run on the first WORLD_STEP_LAYERS layers: at
+# 2 layers a step took 37 s, at 1 layer 20 s (each rank gathers 3.2 GB of
+# expert weights a layer over data through host memory, forward, recompute
+# and backward); the loss after the last step is a forward's
+WORLD_STEP_LAYERS = 1
+GRAD_SAMPLES = 1 << 16     # elements of each gradient held to exact f32
+WORLD_SETTINGS = [("tp 4 bulk", dict(mode="bulk")), ("tp 4 fused", dict(mode="fused")),
+                  ("tp 4 fused skew 1", dict(mode="fused", skew=1))]
+
+
+def sample_coords(shape, n, seed):
+    """n seeded element coordinates [n, ndim] of a tensor of ``shape``."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.stack([torch.randint(0, s, (n,), generator=g) for s in shape], dim=1)
+
+
+def shard_sample(coords, shape, spec, place):
+    """Which of the whole tensor's ``coords`` lie in the training shard of
+    ``place`` (tp, tp_rank, dp, dp_rank) under ``spec``, and their
+    coordinates in it: (mask [n], local coords [n, ndim])."""
+    from repro_torch.parallel.sharding import split_dims
+
+    mask = torch.ones(len(coords), dtype=torch.bool)
+    local = coords.clone()
+    for dim, n, r in split_dims(spec, place, training=True):
+        size = shape[dim] // n
+        mask &= (coords[:, dim] >= r * size) & (coords[:, dim] < (r + 1) * size)
+        local[:, dim] -= r * size
+    return mask, local
+
+
+def dbrx_world_phase(card) -> dict:
+    """Phase 47: the MoE All-to-Alls over worlds of gloo processes on the
+    card, dbrx-132b cut to WORLD_LAYERS layers at full width.  Here first,
+    at tp = 1 from the seed-0 weights: an exact f32 evaluation (prefill
+    logits, the loss and WORLD_DEC_STEPS decode steps recording their
+    routing, GRAD_SAMPLES seeded elements of every gradient) and bulk mode
+    teacher-forced on that routing (its distances from exact f32 are the
+    bounds' yardsticks), then WORLD_STEPS Adafactor step(s) in bulk mode
+    (on WORLD_STEP_LAYERS layers) and a forward for the loss after them.
+    Then one world of 4 ranks, every run teacher-forced on the exact run's
+    routing (each rank its tokens' share): tp = 4 prefill and loss with
+    gradients in bulk and fused mode (skew 0 and 1), (2, 2) decode EP and
+    WORLD_STEPS Adafactor step(s) over shards and the forward after them
+    (not forced).  Gates: the logits
+    and every sampled gradient element within LOGITS_TOL_FACTOR x tp = 1
+    bulk's distance from exact f32, the loss too; every rank's logits and
+    loss equal, the whole leaves' gradients bit-identical across the ranks;
+    skew 1 bit-identical to skew 0 (every leaf but the table, whose
+    scatter-adds are atomics); decode EP's logits the same on every rank
+    and within the bound; the (2, 2) losses within TRAIN_LOSS_REL of tp =
+    1's, the loss falling."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic import LMBatches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+    from repro_torch.train.optimizer import OptimizerConfig, tree_leaves, tree_map, tree_paths
+    from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
+    import numpy as np
+
+    bundle = get_arch("dbrx-132b")
+    cfg = dataclasses.replace(bundle.config, n_layers=WORLD_LAYERS)
+    bundle = dataclasses.replace(bundle, config=cfg)
+    exact = dataclasses.replace(bundle, config=dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    init = lambda: bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batch_np = next(LMBatches(cfg.vocab, WORLD_B, WORLD_S, 0))
+    batch = to_device(batch_np, "cuda")
+    dec_np = np.random.default_rng(47).integers(0, cfg.vocab, (WORLD_DEC_STEPS, WORLD_DEC_B, 1))
+    dec_tok = torch.as_tensor(dec_np, dtype=torch.int32, device="cuda")
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+
+    def decode_run(b_, params, gates):
+        dec, cache, out = b_.decode_fn(ctx_b), b_.init_cache(WORLD_DEC_B, "cuda"), []
+        with gates.active():
+            for s in range(WORLD_DEC_STEPS):
+                pos = torch.full((WORLD_DEC_B,), s, dtype=torch.int32, device="cuda")
+                lg, cache = dec(params, dec_tok[s], cache, pos)
+                out.append(lg)
+        return torch.stack(out)
+
+    # exact f32, recording the routing
+    params = init()
+    names = [".".join(map(str, p_)) for p_, _ in tree_paths(params)]
+    shapes = [tuple(t_.shape) for t_ in tree_leaves(params)]
+    specs = [tuple(s_) for s_ in spec_leaves_of(bundle, params)]
+    params_x = tree_map(lambda t_: t_.detach().float().requires_grad_(True), params)
+    del params
+    torch.cuda.empty_cache()
+    g_pre, g_tr, g_dec = GateLog(), GateLog(), GateLog()
+    # the prefill and the loss with the MoE layers of the tp = 4 world
+    blocks = lambda: swapped(tfm, "moe_apply", moe_in_blocks(tfm.moe_apply, RING_TP))
+    with torch.no_grad(), g_pre.active(), blocks():
+        lx_pre = exact.prefill_fn(ctx_b)(params_x, {"tokens": batch["tokens"]})[0]
+    with g_tr.active(), blocks():
+        loss_x = exact.loss_fn(ctx_b)(params_x, batch)
+        grads_x = torch.autograd.grad(loss_x, tree_leaves(params_x))
+    coords = [sample_coords(sh, min(GRAD_SAMPLES, int(np.prod(sh))), i)
+              for i, sh in enumerate(shapes)]
+    vals_x = [g[tuple(c.cuda().T)].cpu() for g, c in zip(grads_x, coords)]
+    del grads_x
+    with torch.no_grad():
+        lx_dec = decode_run(exact, params_x, g_dec)
+    lx = loss_x.item()
+    del params_x, loss_x
+    torch.cuda.empty_cache()
+    # tp = 1 bulk, teacher-forced
+    params = init()
+    leaves = tree_leaves(params)
+    for p_ in leaves:
+        p_.requires_grad_(True)
+    with torch.no_grad(), GateLog(g_pre.gates).active(), blocks():
+        lb_pre = bundle.prefill_fn(ctx_b)(params, {"tokens": batch["tokens"]})[0]
+    with GateLog(g_tr.gates).active(), blocks():
+        loss_b = bundle.loss_fn(ctx_b)(params, batch)
+        dist_b = [(g[tuple(c.cuda().T)].cpu().float() - v).abs().max().item()
+                  for g, c, v in zip(torch.autograd.grad(loss_b, leaves), coords, vals_x)]
+    with torch.no_grad():
+        lb_dec = decode_run(bundle, params, GateLog(g_dec.gates))
+    d_pre, d_dec = errors(lb_pre, lx_pre)[0], errors(lb_dec, lx_dec)[0]
+    lb = loss_b.item()
+    del params, leaves, loss_b
+    torch.cuda.empty_cache()
+    # tp = 1 bulk Adafactor steps, one microbatch, on WORLD_STEP_LAYERS layers
+    step_bundle = dataclasses.replace(bundle, config=dataclasses.replace(
+        cfg, n_layers=WORLD_STEP_LAYERS))
+    tc = TrainConfig(optimizer=OptimizerConfig(name=bundle.optimizer, lr=float(TRAIN_LR),
+                                               warmup_steps=5, total_steps=WORLD_STEPS))
+    state = init_train_state(tc, step_bundle.init_params(
+        torch.Generator(device="cuda").manual_seed(0)))
+    step = build_train_step(step_bundle.loss_fn(ctx_b), tc)
+    losses_1 = []
+    for _ in range(WORLD_STEPS):
+        state, m = step(state, batch)
+        losses_1.append(m["loss"].item())
+    with torch.no_grad():
+        losses_1.append(step_bundle.loss_fn(ctx_b)(state["params"], batch).item())
+    del state, step, batch
+    torch.cuda.empty_cache()
+    inputs = dict(layers=WORLD_LAYERS, step_layers=WORLD_STEP_LAYERS, batch=batch_np, dec=dec_np,
+                  gates=[[g.cpu() for g in log_.gates] for log_ in (g_pre, g_tr, g_dec)],
+                  exact_pre=lx_pre.cpu(), exact_dec=lx_dec.cpu(), loss_x=lx, coords=coords,
+                  vals=vals_x, shapes=shapes, specs=specs, names=names)
+    t0 = time.perf_counter()
+    got = spawn_world(RING_TP, WORLD_SETTINGS + [("(2, 2) decode EP", {})],
+                      target=dbrx_world_rank, args=(inputs,))
+    wall = time.perf_counter() - t0
+    ranks = got["ranks"]
+    notes = []
+    for name, _ in WORLD_SETTINGS:
+        mine = [r_[name] for r_ in ranks]
+        if mine[0]["pre_err"] > LOGITS_TOL_FACTOR * d_pre:
+            raise AssertionError(f"{name}: prefill logits {mine[0]['pre_err']:.3g} from exact "
+                                 f"f32, above {LOGITS_TOL_FACTOR} x tp = 1 bulk's {d_pre:.3g}")
+        if mine[0]["loss_err"] > LOGITS_TOL_FACTOR * abs(lb - lx):
+            raise AssertionError(f"{name}: loss {mine[0]['loss']:.6f} is "
+                                 f"{mine[0]['loss_err']:.3g} from exact f32 {lx:.6f}")
+        if len({m_["loss_digest"] for m_ in mine}) != 1:
+            raise AssertionError(f"{name}: the ranks' losses differ")
+        if len({m_["whole_digest"] for m_ in mine}) != 1:
+            raise AssertionError(f"{name}: the whole leaves' gradients differ across the ranks")
+        worst = 0.0
+        for i, n_ in enumerate(names):
+            e = max(m_["errs"][i] for m_ in mine)
+            if not e <= LOGITS_TOL_FACTOR * dist_b[i]:
+                raise AssertionError(f"{name} gradient {n_}: {e:.3g} from exact f32 (sampled), "
+                                     f"above {LOGITS_TOL_FACTOR} x tp = 1 bulk's {dist_b[i]:.3g}")
+            worst = max(worst, e / max(dist_b[i], 1e-30))
+        notes.append(f"{name}: prefill logits {mine[0]['pre_err']:.3g} from exact, loss "
+                     f"{mine[0]['loss']:.6f}, worst leaf at {worst:.3g} of its bulk distance, ms "
+                     f"prefill {max(m_['ms'][0] for m_ in mine):.0f}, loss forward "
+                     f"{max(m_['ms'][1] for m_ in mine):.0f}, backward "
+                     f"{max(m_['ms'][2] for m_ in mine):.0f} (slowest rank)")
+    # every leaf's gradient but the table's (its scatter-adds are atomics),
+    # compared bit for bit in each rank
+    for r_ in ranks:
+        if not r_["tp 4 fused skew 1"]["skew_equal"]:
+            raise AssertionError("tp = 4: skew 1's logits or gradients are not skew 0's bits")
+    dec = [r_["(2, 2) decode EP"] for r_ in ranks]
+    if dec[0]["dec_err"] > LOGITS_TOL_FACTOR * d_dec:
+        raise AssertionError(f"(2, 2) decode EP: logits {dec[0]['dec_err']:.3g} from exact f32, "
+                             f"above {LOGITS_TOL_FACTOR} x tp = 1 bulk's {d_dec:.3g}")
+    if len({d_["digest"] for d_ in dec}) != 1:
+        raise AssertionError("(2, 2) decode EP: the ranks' logits differ")
+    losses = dec[0]["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(losses, losses_1))
+    if rel > TRAIN_LOSS_REL or any(d_["losses"] != losses for d_ in dec):
+        raise AssertionError(f"(2, 2) Adafactor steps: losses {[d_['losses'] for d_ in dec]} "
+                             f"against tp = 1's {losses_1}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(2, 2) Adafactor steps: the loss did not fall: {losses}")
+    say(47, f"[{TP_LABEL.format(RING_TP)}] dbrx-132b ({WORLD_LAYERS} full-width layers, seed-0 "
+            f"weights) at {WORLD_B}x{WORLD_S} tokens (LMBatches seed 0), teacher-forced on "
+            f"the exact f32 run's routing: tp = 1 exact loss {lx:.6f}, bulk {lb:.6f}; tp = 1 "
+            f"bulk's distances from exact f32 (the bounds are {LOGITS_TOL_FACTOR} x them): "
+            f"prefill logits {d_pre:.3g}, decode logits {d_dec:.3g}, each leaf's "
+            f"{GRAD_SAMPLES} sampled gradient elements "
+            + ", ".join(f"{n_} {d_:.3g}" for n_, d_ in zip(names, dist_b)) + "; "
+            + "; ".join(notes) + f"; skew 1 bit-identical to skew 0 (logits and every "
+            f"gradient but the table's); (2, 2) decode EP "
+            f"{WORLD_DEC_STEPS} steps at batch {WORLD_DEC_B}: logits {dec[0]['dec_err']:.3g} "
+            f"from exact, every rank's equal, ms a step {max(d_['dec_ms'] for d_ in dec):.0f}; "
+            f"(2, 2) {bundle.optimizer} over shards, {WORLD_STEPS} step(s) of "
+            f"{WORLD_STEP_LAYERS} layer(s): losses (the last a forward after the last step) "
+            f"{', '.join(f'{x:.5f}' for x in losses)} against tp = 1's "
+            f"{', '.join(f'{x:.5f}' for x in losses_1)} ({rel:.3g} apart, bound "
+            f"{TRAIN_LOSS_REL}), ms a step {max(max(d_['step_ms']) for d_ in dec):.0f}; peak a "
+            f"rank {max(d_['peak'] for d_ in dec):.1f} GB; the world {wall:.0f} s")
+    return {}
+
+
+def spec_leaves_of(bundle, params):
+    from repro_torch.train.optimizer import spec_leaves
+
+    return spec_leaves(bundle.param_specs(params))
+
+
+def dbrx_world_rank(rank, tp, init, settings, inputs, out):
+    """One rank of phase 47's world of 4 (the tp = 4 world, and the (2, 2)
+    world of the same processes)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.collectives import all_reduce_grads
+    from repro_torch.launch.mesh import close_world, init_world
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext, make_world_groups
+    from repro_torch.parallel.sharding import splits_over_tp
+    from repro_torch.train.optimizer import OptimizerConfig, spec_leaves, tree_leaves
+    from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dev = init_world(tp, "gloo", "cuda", rank=rank, init_method=init)
+        make_world_groups(2, 2)
+        bundle = get_arch("dbrx-132b")
+        bundle = dataclasses.replace(bundle, config=dataclasses.replace(
+            bundle.config, n_layers=inputs["layers"]))
+        sync = lambda: torch.cuda.synchronize(dev)
+        gen = lambda: torch.Generator(device=dev).manual_seed(0)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in inputs["batch"].items()}
+        g_pre, g_tr, g_dec = inputs["gates"]
+        res = {}
+        c0 = ParallelContext(device=dev, tp=tp, fusion=FusionConfig(mode="bulk"))
+        params = bundle.init_params(gen(), c0)
+        leaves = tree_leaves(params)
+        for p_ in leaves:
+            p_.requires_grad_(True)
+        specs = spec_leaves(bundle.param_specs(params))
+        whole = [not splits_over_tp(sp) for sp in specs]
+        where = [shard_sample(c_, sh, sp, c0) for c_, sh, sp in
+                 zip(inputs["coords"], inputs["shapes"], inputs["specs"])]
+        for name, kw in settings:
+            if not name.startswith("tp 4"):
+                continue
+            c = ParallelContext(device=dev, tp=tp, fusion=FusionConfig(**kw))
+            sync()
+            t0 = time.perf_counter()
+            with torch.no_grad(), GateLog(g_pre, tp, rank).active():
+                logits = bundle.prefill_fn(c)(params, {"tokens": batch["tokens"]})[0]
+            sync()
+            t1 = time.perf_counter()
+            with GateLog(g_tr, tp, rank).active():
+                loss = bundle.loss_fn(c)(params, batch)
+                sync()
+                t2 = time.perf_counter()
+                grads = list(torch.autograd.grad(loss, leaves))
+            all_reduce_grads(c, grads, specs)
+            sync()
+            t3 = time.perf_counter()
+            errs = []
+            for g, (mask, loc), v in zip(grads, where, inputs["vals"]):
+                idx = tuple(loc[mask].to(dev).T)
+                errs.append((g[idx].float().cpu() - v[mask]).abs().max().item()
+                            if mask.any() else 0.0)
+            res[name] = {"ms": ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3),
+                         "pre_err": errors(logits.cpu(), inputs["exact_pre"])[0],
+                         "digest": _digest([logits]), "loss": loss.item(),
+                         "loss_err": abs(loss.item() - inputs["loss_x"]),
+                         "loss_digest": _digest([loss]), "errs": errs,
+                         "whole_digest": _digest([g for g, w_ in zip(grads, whole) if w_]),
+                         "finite": bool(torch.isfinite(logits).all())}
+            # skew 1 against skew 0 on the card, bit for bit: the logits and
+            # every gradient but the table's, whose rows gather scatter-adds
+            # (index_add_) in the order of the card's atomics (hashing the
+            # gradients on the host took seconds a setting)
+            mine = [logits] + [g for g, n_ in zip(grads, inputs["names"]) if n_ != "embed.table"]
+            if name == "tp 4 fused":
+                skew0 = mine
+            elif name == "tp 4 fused skew 1":
+                res[name]["skew_equal"] = all(torch.equal(a, b) for a, b in zip(skew0, mine))
+                del skew0
+            del logits, loss, grads, mine
+        del params, leaves
+        torch.cuda.empty_cache()
+        # (2, 2): decode EP on the serving shards, then Adafactor over the
+        # training shards
+        c22 = ParallelContext(device=dev, tp=2, dp=2, fusion=FusionConfig(mode="fused"))
+        params = bundle.init_params(gen(), c22)
+        dec, cache = bundle.decode_fn(c22), bundle.init_cache(len(inputs["dec"][0]), dev, 2, 2)
+        logits, ms = [], []
+        with torch.no_grad(), GateLog(g_dec).active():
+            for s, tok in enumerate(inputs["dec"]):
+                tok = torch.as_tensor(tok, dtype=torch.int32, device=dev)
+                pos = torch.full((tok.shape[0],), s, dtype=torch.int32, device=dev)
+                sync()
+                t0 = time.perf_counter()
+                lg, cache = dec(params, tok, cache, pos)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(lg)
+        logits = torch.stack(logits)
+        del params, cache
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_bundle = dataclasses.replace(bundle, config=dataclasses.replace(
+            bundle.config, n_layers=inputs["step_layers"]))
+        params = step_bundle.init_params(gen(), c22, training=True)
+        tc = TrainConfig(optimizer=OptimizerConfig(name=bundle.optimizer, lr=float(TRAIN_LR),
+                                                   warmup_steps=5, total_steps=WORLD_STEPS))
+        step = build_train_step(step_bundle.loss_fn(c22), tc, ctx=c22,
+                                param_specs=step_bundle.param_specs(params))
+        state = init_train_state(tc, params)
+        losses, step_ms = [], []
+        for _ in range(WORLD_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            losses.append(step_bundle.loss_fn(c22)(state["params"], batch).item())
+        res["(2, 2) decode EP"] = {
+            "dec_err": errors(logits.cpu(), inputs["exact_dec"])[0], "digest": _digest([logits]),
+            "dec_ms": sorted(ms)[len(ms) // 2], "losses": losses, "step_ms": step_ms,
+            "peak": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "finite": bool(torch.isfinite(logits).all())}
+        del state, step, params
+        out.put((rank, "ok", res))
+    except Exception:
+        out.put((rank, "err", traceback.format_exc()))
+    finally:
+        close_world()
+
+
+def dbrx_launcher_phase(card) -> None:
+    """Phase 48: the launchers with dbrx-132b at tp = 2 through
+    torch.distributed.run (gloo, fused mode, full width cut to WORLD_LAYERS
+    layers): train (1 step at 2 x 1024; every rank's loss equal, finite)
+    and serve (4 requests x 8 tokens through decode EP; every rank's streams
+    equal)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    head = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            "2", "-m"]
+    common = ["--arch", "dbrx-132b", "--tp", "2", "--layers", str(WORLD_LAYERS), "--backend",
+              "gloo", "--fusion", "fused"]
+    # both launchers at once (two worlds of 2 processes on the card)
+    jobs = {}
+    for what, extra, ok in (
+            ("train", ["--steps", "1", "--batch", "2", "--seq", "1024", "--lr", TRAIN_LR,
+                       "--log-every", "1"], "all 2 ranks' losses equal: True"),
+            ("serve", ["--requests", "4", "--batch", "4", "--max-new", "8"],
+             "all 2 ranks' token streams equal: True")):
+        jobs[what] = (subprocess.Popen(head + [f"repro_torch.launch.{what}"] + common + extra,
+                                       cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True,
+                                       start_new_session=True), ok)
+    t0 = time.perf_counter()
+    runs = {}
+    try:
+        for what, (proc, ok) in jobs.items():
+            out, err = proc.communicate(timeout=600)
+            runs[what] = (out, time.perf_counter() - t0)
+            if proc.returncode or ok not in out:
+                print(out[-4000:], err[-8000:], sep="\n", file=sys.stderr)
+                raise AssertionError(f"the {what} launcher at --tp 2: exit {proc.returncode}")
+    finally:
+        for proc, _ in jobs.values():
+            stop_group(proc)
+    losses = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", runs["train"][0])]
+    if len(losses) != 1 or not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"the train launcher's losses: {losses}")
+    served = re.search(r"served .*", runs["serve"][0])
+    streams = re.findall(r"req \d+: prompt .* -> \[.*\]", runs["serve"][0])
+    say(48, f"[{TP_LABEL.format(2)}] the launchers with --arch dbrx-132b --tp 2 --layers "
+            f"{WORLD_LAYERS} --backend gloo --fusion fused through torch.distributed.run: "
+            f"train 1 step at 2x1024, loss {', '.join(f'{x:.4f}' for x in losses)}, both "
+            f"ranks' equal ({runs['train'][1]:.0f} s with start-up, both launchers at once); "
+            f"serve (decode EP): "
+            f"{served[0] if served else '?'}, both ranks' streams equal, {streams} "
+            f"({runs['serve'][1]:.0f} s with start-up)")
 
 
 def _map(tree, fn):
@@ -6079,4 +6997,8 @@ def _leaves(tree):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_pool()
+    sys.exit(code)

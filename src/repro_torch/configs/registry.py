@@ -2,27 +2,27 @@
 
 The port serves the dense transformers (chatglm3-6b, phi3-medium-14b,
 gemma2-27b with its sliding-window and softcapped attention, deepseek-67b)
-and dbrx-132b (MoE decode), through the dense engine or the paged one
-(``serve_step_fn``), trains and prefills the dense ones (``loss_fn``,
-``prefill_fn``; dbrx's wait
-for the sequence-sharded MoE of ROADMAP Queue 1 item 5), runs rwkv6-7b's
+and dbrx-132b (MoE), through the dense engine or the paged one
+(``serve_step_fn``), trains and prefills them all (``loss_fn``,
+``prefill_fn``; dbrx's MoE layers sequence-sharded), runs rwkv6-7b's
 prefill and decode (``prefill_fn``, ``decode_fn``; no launcher serves it
 yet, and its training is item 7) and the forward of DLRM, the paper's own
 architecture (its ``loss_fn`` scores a batch; its kernel-mode pooling has no
 backward, so training it is item 6).  The reference's other architectures
 raise until their slice of the port lands.
 
-At tp > 1 (a ``ParallelContext`` over a tp world) only the dense transformers
-run: their decode, their prefill, their paged serving (the pool's blocks
-striped over the ranks) and their training (sequence-sharded: the KV ring,
-the embedding ring and the CE ring, each with its backward; ``param_specs``
-gives the leaves' logical specs the train step reads).  Over data replicas
-(dp > 1) the same holds: decode and prefill split the batch's rows, paged
-serving is replicated, and training splits the rows and the fsdp dims of
-the train state (``init_params(..., training=True)``).  rwkv6's heads over
-ranks are item 7, DLRM's tables over ranks item 6, MoE experts over ranks
-item 5; MoE over data is item 5, DLRM over data item 6 (``check_tp``,
-``check_prefill``).
+At tp > 1 (a ``ParallelContext`` over a tp world) the transformers run:
+their decode (dbrx's MoE as decode EP over the whole world), their prefill,
+their paged serving (the pool's blocks striped over the ranks; a MoE
+model's raises, item 5) and their training (sequence-sharded: the KV ring,
+the embedding ring, the CE ring and the MoE All-to-Alls, each with its
+backward; ``param_specs`` gives the leaves' logical specs the train step
+reads).  Over data replicas (dp > 1) the same holds: decode and prefill
+split the batch's rows, paged serving is replicated, and training splits
+the rows and the fsdp dims of the train state (``init_params(...,
+training=True)``).  rwkv6's heads over ranks are item 7, DLRM's tables over
+ranks item 6; rwkv6 over data is item 7, DLRM over data item 6
+(``check_tp``).
 """
 from __future__ import annotations
 
@@ -72,8 +72,6 @@ _DATA_ITEMS = {
     "rwkv6": "rwkv6 over data replicas is ROADMAP Queue 1 item 7",
     "dlrm": ("DLRM over data replicas (its embedding all-to-all over the flattened world) "
              "is ROADMAP Queue 1 item 6"),
-    "moe": ("MoE over data replicas (decode over the (data, model) EP world, "
-            "src/repro/parallel/sharding.py:178-180) is ROADMAP Queue 1 item 5"),
 }
 # the model module of each family that prefills and decodes
 _DECODERS = {"transformer": "repro_torch.models.transformer",
@@ -94,10 +92,8 @@ class ArchBundle:
         if ctx is not None and ctx.tp > 1 and self.family in _MULTI_RANK_ITEMS:
             raise NotImplementedError(f"{self.name} at tp={ctx.tp}: "
                                       f"{_MULTI_RANK_ITEMS[self.family]}")
-        if ctx is not None and getattr(ctx, "dp", 1) > 1:
-            kind = "moe" if getattr(self.config, "moe", None) is not None else self.family
-            if kind in _DATA_ITEMS:
-                raise NotImplementedError(f"{self.name} at dp={ctx.dp}: {_DATA_ITEMS[kind]}")
+        if ctx is not None and getattr(ctx, "dp", 1) > 1 and self.family in _DATA_ITEMS:
+            raise NotImplementedError(f"{self.name} at dp={ctx.dp}: {_DATA_ITEMS[self.family]}")
 
     def init_params(self, gen: torch.Generator, ctx: ParallelContext | None = None,
                     training: bool = False):
@@ -122,14 +118,14 @@ class ArchBundle:
         raise ValueError(self.family)
 
     def loss_fn(self, ctx: ParallelContext) -> Callable:
-        """(params, batch) -> scalar loss, for autograd.  A MoE transformer
-        raises (ROADMAP Queue 1 item 5), rwkv6 too (item 7)."""
+        """(params, batch) -> scalar loss, for autograd.  rwkv6 raises
+        (ROADMAP Queue 1 item 7)."""
         cfg = self.config
         self.check_tp(ctx)
         if self.family == "transformer":
-            from repro_torch.models.transformer import check_prefill, train_forward
+            from repro_torch.models.transformer import check_supported, train_forward
 
-            check_prefill(cfg, "training", ctx.tp)
+            check_supported(cfg, ctx.tp)
             return lambda p, b: train_forward(ctx, p, cfg, b)
         if self.family == "dlrm":
             from repro_torch.models.dlrm import dlrm_loss
@@ -153,15 +149,14 @@ class ArchBundle:
 
     def prefill_fn(self, ctx: ParallelContext) -> Callable:
         """(params, {"tokens": [B, S]}) -> (last logits [B, 1, V], state):
-        a transformer's KV cache, rwkv6's recurrent state.  A MoE
-        transformer raises (ROADMAP Queue 1 item 5)."""
+        a transformer's KV cache, rwkv6's recurrent state."""
         if self.family not in _DECODERS:
             raise ValueError(f"{self.name}: a {self.family} model does not prefill")
         mod = self._decoder()
         cfg = self.config
         self.check_tp(ctx)
         if self.family == "transformer":
-            mod.check_prefill(cfg, tp=ctx.tp)
+            mod.check_supported(cfg, ctx.tp)
         fn = mod.prefill_forward
         return lambda p, b: fn(ctx, p, cfg, b)
 

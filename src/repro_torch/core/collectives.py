@@ -42,8 +42,8 @@ import torch.distributed as dist
 from repro_torch.core.scheduling import ring_offsets, sub_chunk_service_order
 from repro_torch.parallel.sharding import ParallelContext
 
-_A2A_DATA_ITEM = ("ROADMAP Queue 1 items 5 and 6 (an all-to-all over the (data, model) "
-                  "world: MoE decode's two EP axes, DLRM's flattened world axis)")
+_A2A_DATA_ITEM = ("ROADMAP Queue 1 item 6 (an all-to-all over the flattened (data, model) "
+                  "world: DLRM's exchange; MoE passes group='tp', a data row's tp group)")
 
 # ---------------------------------------------------------------------------
 # wire-fault injection hook (chaos engineering)
@@ -562,17 +562,71 @@ def ring_all_gather_compute(
 # ---------------------------------------------------------------------------
 # direct all-to-all fused with per-destination compute (GEMM/embedding + A2A)
 # ---------------------------------------------------------------------------
-def bulk_all_to_all(ctx: ParallelContext, x):
-    """Baseline: one All-to-All over the leading dim [n, ...] -> [n, ...]
-    across the tp ranks (block ``j`` goes to rank ``j``; the result is
-    stacked by source).  On a one-rank world it is the identity."""
-    if ctx.dp != 1:
-        raise NotImplementedError(f"bulk_all_to_all at dp={ctx.dp}: {_A2A_DATA_ITEM}")
-    if ctx.tp == 1:
-        return x
+def _a2a_group(ctx: ParallelContext, group: str | None, name: str):
+    """Check the group an all-to-all runs over: ``"tp"``, the tp group of
+    this rank's data row (MoE's experts), at any dp; ``None``, the tp world,
+    only where it is the whole world (dp = 1): over data replicas the caller
+    names its group (DLRM's flattened world is not one)."""
+    if group not in (None, "tp"):
+        raise ValueError(f"{name}: group must be None or 'tp', got {group!r}")
+    if group is None and ctx.dp != 1:
+        raise NotImplementedError(f"{name} at dp={ctx.dp}: {_A2A_DATA_ITEM}")
+
+
+def _all_to_all(ctx: ParallelContext, x):
     out = _like(x)
     return _on_wire(ctx, lambda ins, bufs: [dist.all_to_all_single(
         bufs[0], ins[0], group=ctx.group, async_op=True)], [x], [out])()[0]
+
+
+class _BulkAllToAll(torch.autograd.Function):
+    """The exchange of ``bulk_all_to_all``; it is its own adjoint, so the
+    backward exchanges the cotangent the same way."""
+
+    @staticmethod
+    def forward(fctx, ctx, x):
+        fctx.pctx = ctx
+        return _all_to_all(ctx, x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, _all_to_all(fctx.pctx, g)
+
+
+def bulk_all_to_all(ctx: ParallelContext, x, *, group: str | None = None):
+    """Baseline: one All-to-All over the leading dim [n, ...] -> [n, ...]
+    across the tp ranks (block ``j`` goes to rank ``j``; the result is
+    stacked by source).  ``group="tp"`` runs it over the tp group of this
+    rank's data row at any dp (:func:`_a2a_group`).  On a one-rank world it
+    is the identity.  Differentiable (:class:`_BulkAllToAll`)."""
+    _a2a_group(ctx, group, "bulk_all_to_all")
+    if ctx.tp == 1:
+        return x
+    return _BulkAllToAll.apply(ctx, x)
+
+
+class _DirectSends(torch.autograd.Function):
+    """The remote sends of :func:`direct_all_to_all_compute` as one autograd
+    node: the inputs are the produced slices (``ys``, in send order), the
+    outputs the slices received for them (already on this rank: the forward
+    posted the sends as each slice was produced).  The backward sends each
+    received slice's cotangent back along ``-off``, in the forward's order
+    on every rank, and returns what came back as the cotangent of the slice
+    this rank sent."""
+
+    @staticmethod
+    def forward(fctx, ctx, offs, wire, received, *ys):
+        fctx.pctx, fctx.offs, fctx.wire = ctx, offs, wire
+        return tuple(received)
+
+    @staticmethod
+    def backward(fctx, *gs):
+        ctx, wire = fctx.pctx, fctx.wire
+        waits = []
+        for off, g in zip(fctx.offs, gs):      # undefined cotangents come as zeros
+            waits.append((ring_permute_start(ctx, wire_cast(g.contiguous(), wire), shift=-off),
+                          g.dtype))
+        return (None, None, None, None) + tuple(wire_uncast(w(), dt) for w, dt in waits)
 
 
 def direct_all_to_all_compute(
@@ -585,6 +639,7 @@ def direct_all_to_all_compute(
     sub_axis: int = 0,
     skew: int = 0,
     wire: str = "f32",
+    group: str | None = None,
 ):
     """Fused compute + All-to-All by per-destination direct sends.
 
@@ -595,13 +650,17 @@ def direct_all_to_all_compute(
     skew)`` order, remote ones first under comm_aware; each remote slice is
     sent (at offset ``off``: to ``d + off``, from ``d - off``) the moment it
     is produced and received at the end.  Returns ``[n, *chunk_shape]``
-    stacked by source rank.
+    stacked by source rank.  ``group="tp"`` runs over the tp group of this
+    rank's data row at any dp (:func:`_a2a_group`).
 
     ``wire`` compresses each remote send on the producer side (one rounding
     per value); the local chunk never touches the wire.  On a one-rank
-    world with q = 1 the produced chunk is returned without a copy."""
-    if ctx.dp != 1:
-        raise NotImplementedError(f"direct_all_to_all_compute at dp={ctx.dp}: {_A2A_DATA_ITEM}")
+    world with q = 1 the produced chunk is returned without a copy.
+
+    Differentiable: the local slices through their copies, the remote ones
+    through :class:`_DirectSends`, whose backward returns each cotangent
+    along ``-off`` (rounded to the wire as the forward's payload was)."""
+    _a2a_group(ctx, group, "direct_all_to_all_compute")
     n, d = ctx.tp, ctx.tp_rank
     q = chunks_per_rank
     if chunk_shape[sub_axis] % q:
@@ -614,7 +673,7 @@ def direct_all_to_all_compute(
         own = pieces[0] if q == 1 else torch.cat(pieces, dim=sub_axis)
         return own.unsqueeze(0)
     sub = chunk_shape[sub_axis] // q
-    out, pending = None, []
+    out, pending, sent = None, [], []
     for off in ring_offsets(n, schedule, skew):
         dest = (d + off) % n
         for s in range(q):
@@ -624,10 +683,15 @@ def direct_all_to_all_compute(
             if off == 0:
                 out[d].narrow(sub_axis, s * sub, sub).copy_(y)
             else:
-                pending.append((ring_permute_start(ctx, wire_cast(y, wire), shift=off),
+                pending.append((ring_permute_start(ctx, wire_cast(y.detach(), wire), shift=off),
                                 (d - off) % n, s))
-    for wait, src, s in pending:
-        out[src].narrow(sub_axis, s * sub, sub).copy_(wire_uncast(wait(), out.dtype))
+                sent.append((off, y))
+    received = [wire_uncast(wait(), out.dtype) for wait, _, _ in pending]
+    if torch.is_grad_enabled() and any(y.requires_grad for _, y in sent):
+        received = _DirectSends.apply(ctx, [off for off, _ in sent], wire, received,
+                                      *(y for _, y in sent))
+    for (_, src, s), r in zip(pending, received):
+        out[src].narrow(sub_axis, s * sub, sub).copy_(r)
     return out
 
 

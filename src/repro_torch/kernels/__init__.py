@@ -193,6 +193,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_gemm_a2a_stream_launch.restype = i32
     lib.repro_gemm_a2a_stream_plan_free.argtypes = [vp]
     lib.repro_gemm_a2a_stream_plan_free.restype = None
+    lib.repro_gemm_a2a_tile.argtypes = [
+        vp, vp, vp, vp, vp, ptrs, ptrs, vp, i32, i32, i32, i32, i32, i32, i32, i32,
+        ctypes.c_uint, i32, vp]
+    lib.repro_gemm_a2a_tile.restype = i32
     lib.repro_embedding_pool.argtypes = [vp, i64, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.repro_embedding_pool.restype = i32
     lib.repro_fused_embedding_a2a.argtypes = [

@@ -61,6 +61,21 @@
 //    sizes the grid from the same query).
 //  * panel (the other shapes): tile_gemv.cuh's loop on 32-column items, x
 //    staged in 512-deep panels; an up/gate item streams w_up, then w_gate.
+//  * tile (bf16 at prefill and training rows, C > 8, D and F multiples of
+//    8, 16-byte-aligned operands): tile_mma.cuh's tensor-core loop (TMA,
+//    wgmma, f32 accumulators) in two launches on the stream.  The up/gate
+//    launch's unit is a [128 rows, 64 columns] block of u: one pass over D
+//    with w_gate's 64 columns in the tile's first half and w_up's same
+//    columns in its second, so the epilogue holds g and h of each element
+//    in one thread and stores u = act(g) h rounded to bf16.  The down
+//    launch's unit is a [128 rows, 128 columns] block of y = u w_down[e],
+//    stored into the destination's slot and, for a remote destination, its
+//    flag (source, b, e, row block, D tile) released; then each CTA waits
+//    for a share of the tiles the peers send here (a cooperative launch
+//    where n_dev > 1).  The stream order between the launches carries the
+//    up/gate -> down dependency, so the u flags of the other paths are not
+//    needed.  The weights are read once per 128 capacity rows, where the
+//    panel path reads them once per 8.
 //
 // The combine exchange is fused_dispatch_a2a.cu's protocol: a remote y tile
 // is stored at the wire dtype straight into the destination's slot for this
@@ -71,6 +86,7 @@
 // group is local and only the up/gate -> down flags are used.
 #include "stream_gemv.cuh"
 #include "tile_gemv.cuh"
+#include "tile_mma.cuh"
 
 namespace repro_torch {
 
@@ -578,6 +594,139 @@ struct FfnPlan {
   size_t out_rank_bytes, recv_rank_bytes;  // rank r's out / recv at + r * these
 };
 
+// ---------------------------------------------------------------------------
+// the tile path
+// ---------------------------------------------------------------------------
+constexpr int kTileUpN = kMmaHalfN;  // columns of u per up/gate unit (gate | up in one tile)
+
+struct GemmA2ATileArgs {
+  GemmA2APeers peers;
+  __nv_bfloat16* u;  // rank 0's [n_dev, B, E, C, F] scratch; rank r's at + r * groups * C * F
+  const int* sched;  // [n_dev] step offsets
+  int my_base, n_dev, B, E, C, D, F;
+  unsigned epoch;
+  int act;
+};
+
+// The group (destination block, b, e) of step-ordered group k of rank `my`:
+// its index in x and u, the destination's offset, and the expert.
+struct TileGroup {
+  int g, off, dest, be, e;
+};
+
+__device__ __forceinline__ TileGroup tile_group(const GemmA2ATileArgs& a, int my, int k) {
+  const int per_dest = a.B * a.E;
+  const int off = a.sched[k / per_dest];
+  const int dest = (my + off) % a.n_dev;
+  const int be = k % per_dest;
+  return TileGroup{dest * per_dest + be, off, dest, be, be % a.E};
+}
+
+// Unit u of a rank: group (in the step schedule's order) u / (row_blocks *
+// f_tiles), then F tile, then row block, so that consecutive units share a
+// weight panel.
+__global__ void __launch_bounds__(kMmaThreads)
+    ffn_tile_up_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap gate_map,
+                       const __grid_constant__ CUtensorMap up_map, GemmA2ATileArgs a) {
+  const int my = a.my_base + blockIdx.y;
+  const int row_blocks = (a.C + kMmaBM - 1) / kMmaBM;
+  const int f_tiles = (a.F + kTileUpN - 1) / kTileUpN;
+  const int groups = a.n_dev * a.B * a.E;
+  const int per_group = row_blocks * f_tiles;
+  __nv_bfloat16* u = a.u + (size_t)blockIdx.y * groups * a.C * a.F;
+  auto coords = [&](int unit) {
+    const TileGroup tg = tile_group(a, my, unit / per_group);
+    const int rem = unit % per_group;
+    TileCoord tc{static_cast<int>(blockIdx.y) * groups + tg.g, (rem % row_blocks) * kMmaBM,
+                 (rem / row_blocks) * kTileUpN};
+    tc.wrank = static_cast<int>(blockIdx.y) * a.E + tg.e;
+    return tc;
+  };
+  auto epilogue = [&](int unit, TileCoord tc, float(&acc)[kMmaAccs], int wg, int t) {
+    const int g = tc.rank - static_cast<int>(blockIdx.y) * groups;
+    __nv_bfloat16* ug = u + (size_t)g * a.C * a.F;
+    const int warp = t / 32, lane = t % 32;
+    const int r = tc.row0 + wg * 64 + warp * 16 + lane / 4;
+    const int c = tc.col0 + (lane % 4) * 2;
+    // accumulator groups 0-7 hold g = x w_gate, 8-15 h = x w_up at the same columns
+#pragma unroll
+    for (int j = 0; j < kTileUpN / 8; ++j) {
+      const int col = c + j * 8;
+      const float* gj = acc + 4 * j;
+      const float* hj = acc + 4 * (j + kTileUpN / 8);
+      if (col < a.F) {
+        if (r < a.C)
+          store_pair(ug + (size_t)r * a.F + col, activate(gj[0], a.act) * hj[0],
+                     activate(gj[1], a.act) * hj[1]);
+        if (r + 8 < a.C)
+          store_pair(ug + (size_t)(r + 8) * a.F + col, activate(gj[2], a.act) * hj[2],
+                     activate(gj[3], a.act) * hj[3]);
+      }
+    }
+  };
+  mma_tile_loop(&xmap, &gate_map, (a.D + kMmaBK - 1) / kMmaBK, groups * per_group, coords,
+                epilogue, &up_map);
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+    ffn_tile_down_kernel(const __grid_constant__ CUtensorMap umap,
+                         const __grid_constant__ CUtensorMap down_map, GemmA2ATileArgs a) {
+  const int my = a.my_base + blockIdx.y;
+  const int row_blocks = (a.C + kMmaBM - 1) / kMmaBM;
+  const int d_tiles = (a.D + kMmaBN - 1) / kMmaBN;
+  const int per_dest = a.B * a.E;
+  const int groups = a.n_dev * per_dest;
+  const int per_group = row_blocks * d_tiles;
+  const size_t block = (size_t)per_dest * a.C * a.D;  // one destination's [B, E, C, D]
+  auto coords = [&](int unit) {
+    const TileGroup tg = tile_group(a, my, unit / per_group);
+    const int rem = unit % per_group;
+    TileCoord tc{static_cast<int>(blockIdx.y) * groups + tg.g, (rem % row_blocks) * kMmaBM,
+                 (rem / row_blocks) * kMmaBN};
+    tc.wrank = static_cast<int>(blockIdx.y) * a.E + tg.e;
+    return tc;
+  };
+  auto epilogue = [&](int unit, TileCoord tc, float(&acc)[kMmaAccs], int wg, int t) {
+    const TileGroup tg = tile_group(a, my, unit / per_group);
+    // this source's [C, D] block in the destination's output
+    __nv_bfloat16* slot = static_cast<__nv_bfloat16*>(a.peers.out[tg.dest]) + my * block +
+                          (size_t)tg.be * a.C * a.D;
+    for_each_acc_pair(acc, wg, t, [&](int r, int c, float& v0, float& v1) {
+      const int row = tc.row0 + r, col = tc.col0 + c;
+      if (row < a.C && col < a.D) store_pair(slot + (size_t)row * a.D + col, v0, v1);
+    });
+    if (tg.off != 0) {
+      consumer_sync();
+      if (t == 0 && wg == 0) {
+        __threadfence_system();
+        const int rb = tc.row0 / kMmaBM, tile = tc.col0 / kMmaBN;
+        store_release(a.peers.flags[tg.dest] +
+                          (((size_t)my * per_dest + tg.be) * row_blocks + rb) * d_tiles + tile,
+                      a.epoch);
+      }
+    }
+  };
+  mma_tile_loop(&umap, &down_map, (a.F + kMmaBK - 1) / kMmaBK, groups * per_group, coords,
+                epilogue);
+  if (a.n_dev == 1 || threadIdx.x >= kMmaConsumerThreads) return;
+  // the y tiles every peer sends here
+  const unsigned* my_flags = a.peers.flags[my];
+  const size_t per_src = (size_t)per_dest * per_group;
+  for (size_t i = (size_t)blockIdx.x * kMmaConsumerThreads + threadIdx.x;
+       i < (size_t)a.n_dev * per_src; i += (size_t)gridDim.x * kMmaConsumerThreads) {
+    if (static_cast<int>(i / per_src) != my) wait_flag(my_flags + i, a.epoch);
+  }
+}
+
+static cudaError_t allow_tile_smem() {
+  static cudaError_t err = [] {
+    cudaError_t e = allow_mma_smem(ffn_tile_up_kernel);
+    return e == cudaSuccess ? allow_mma_smem(ffn_tile_down_kernel) : e;
+  }();
+  return err;
+}
+
 }  // namespace repro_torch
 
 // The panel path.  x, w_up, w_gate, w_down, u: rank 0's operands and scratch (rank r's at
@@ -757,4 +906,83 @@ extern "C" int repro_gemm_a2a_stream_launch(const void* plan, const void* x, voi
 
 extern "C" void repro_gemm_a2a_stream_plan_free(void* plan) {
   delete static_cast<repro_torch::FfnPlan*>(plan);
+}
+
+// The tile path (bf16; kernels/fused_gemm_a2a takes it for C > 8).  x: the
+// rank-stacked [ranks_in_launch, n_dev, B, E, C, D]; w_up, w_gate
+// [ranks_in_launch, E, D, F], w_down [ranks_in_launch, E, F, D]; u the
+// rank-stacked [ranks_in_launch, n_dev, B, E, C, F] scratch; out_ptrs and
+// flag_ptrs host arrays of n_dev device pointers (each rank's output by
+// source, and n_dev * B * E * ceil(C / 128) * ceil(D / 128) flag words);
+// sched the device int32 [n_dev] step offsets; act as in
+// repro_fused_gemm_a2a.  D and F must be multiples of 8 and every operand
+// 16-byte aligned (TMA).  Two launches on `stream`: the up/gate units, then
+// the down units.  Returns a cudaError_t code (0 = launched).
+extern "C" int repro_gemm_a2a_tile(const void* x, const void* w_up, const void* w_gate,
+                                   const void* w_down, void* u, const uint64_t* out_ptrs,
+                                   const uint64_t* flag_ptrs, const void* sched, int my_base,
+                                   int ranks_in_launch, int n_dev, int B, int E, int C, int D,
+                                   int F, unsigned epoch, int act, void* stream) {
+  using namespace repro_torch;
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (n_dev < 1 || n_dev > kMaxDev || B <= 0 || E <= 0 || C <= 0 || D <= 0 || F <= 0 ||
+      D % 8 != 0 || F % 8 != 0 || act < 0 || act > 2 ||
+      (ranks_in_launch != 1 && ranks_in_launch != n_dev) || !aligned(x) || !aligned(w_up) ||
+      !aligned(w_gate) || !aligned(w_down) || !aligned(u))
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmA2ATileArgs a = {};
+  for (int d = 0; d < n_dev; ++d) {
+    a.peers.out[d] = reinterpret_cast<void*>(out_ptrs[d]);
+    a.peers.recv[d] = a.peers.out[d];
+    a.peers.flags[d] = reinterpret_cast<unsigned*>(flag_ptrs[d]);
+  }
+  a.u = static_cast<__nv_bfloat16*>(u);
+  a.sched = static_cast<const int*>(sched);
+  a.my_base = my_base;
+  a.n_dev = n_dev;
+  a.B = B;
+  a.E = E;
+  a.C = C;
+  a.D = D;
+  a.F = F;
+  a.epoch = epoch;
+  a.act = act;
+  const int groups = n_dev * B * E;
+  const int depth_x = ranks_in_launch * groups, depth_w = ranks_in_launch * E;
+  CUtensorMap xmap, gate_map, up_map, umap, down_map;
+  cudaError_t err = allow_tile_smem();
+  if (err == cudaSuccess) err = make_tile_map(&xmap, x, D, C, depth_x, kMmaBK, kMmaBM);
+  if (err == cudaSuccess) err = make_tile_map(&gate_map, w_gate, F, D, depth_w, kMmaHalfN, kMmaBK);
+  if (err == cudaSuccess) err = make_tile_map(&up_map, w_up, F, D, depth_w, kMmaHalfN, kMmaBK);
+  if (err == cudaSuccess) err = make_tile_map(&umap, u, F, C, depth_x, kMmaBK, kMmaBM);
+  if (err == cudaSuccess) err = make_tile_map(&down_map, w_down, D, F, depth_w, kMmaHalfN, kMmaBK);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int row_blocks = (C + kMmaBM - 1) / kMmaBM;
+  const long long up_units = (long long)groups * row_blocks * ((F + kTileUpN - 1) / kTileUpN);
+  const long long down_units = (long long)groups * row_blocks * ((D + kMmaBN - 1) / kMmaBN);
+  if (up_units > INT32_MAX || down_units > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ffn_tile_up_kernel<<<dim3(static_cast<unsigned>(up_units), ranks_in_launch), kMmaThreads,
+                       kMmaSmemBytes, st>>>(xmap, gate_map, up_map, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_dev == 1) {
+    ffn_tile_down_kernel<<<dim3(static_cast<unsigned>(down_units), ranks_in_launch), kMmaThreads,
+                           kMmaSmemBytes, st>>>(umap, down_map, a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // CTAs wait on flags set by other CTAs: all of them must be resident
+  int per_rank = 0;
+  err = resident_ctas(ffn_tile_down_kernel, kMmaThreads, ranks_in_launch, &per_rank,
+                      kMmaSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_rank < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const dim3 grid(down_units < per_rank ? static_cast<unsigned>(down_units) : per_rank,
+                  ranks_in_launch);
+  void* args[] = {(void*)&umap, (void*)&down_map, (void*)&a};
+  err = cudaLaunchCooperativeKernel((const void*)ffn_tile_down_kernel, grid, dim3(kMmaThreads),
+                                    args, kMmaSmemBytes, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

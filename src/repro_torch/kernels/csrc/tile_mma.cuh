@@ -58,9 +58,10 @@ struct MmaSmem {
 constexpr size_t kMmaSmemBytes = sizeof(MmaSmem) + 1024;
 
 struct TileCoord {
-  int rank;  // depth coordinate of the tensor maps
-  int row0;  // first row of x and of the output tile
-  int col0;  // first column of w and of the output tile
+  int rank;        // depth coordinate of the tensor maps
+  int row0;        // first row of x and of the output tile
+  int col0;        // first column of w and of the output tile
+  int wrank = -1;  // depth coordinate of w's maps where it is not x's (-1: rank)
 };
 
 // d[64 x 128] += a[64 x 16] (K-major) @ b[16 x 128] (N-major: transpose bit set)
@@ -107,10 +108,14 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1)
 // synchronise the consumers with consumer_sync()).  Needs kMmaThreads
 // threads and kMmaSmemBytes of dynamic shared memory.  Returns in every
 // thread; the producer warp returns once its last copy is issued.
+// With wmap_hi the tile's second 64 columns come from that map at the same
+// columns as the first (accumulators 0-63 hold x wmap, 64-127 x wmap_hi:
+// two products of one x panel in one pass, as the expert FFN's gate and up).
 template <typename Coords, typename Epilogue>
 __device__ __forceinline__ void mma_tile_loop(const CUtensorMap* xmap, const CUtensorMap* wmap,
                                               int k_tiles, int num_units, Coords coords,
-                                              Epilogue epi) {
+                                              Epilogue epi,
+                                              const CUtensorMap* wmap_hi = nullptr) {
   extern __shared__ uint8_t mma_smem_raw[];
   const uint32_t raw = smem_addr(mma_smem_raw);
   MmaSmem& sm = *reinterpret_cast<MmaSmem*>(mma_smem_raw + (1024 - raw % 1024) % 1024);
@@ -130,14 +135,19 @@ __device__ __forceinline__ void mma_tile_loop(const CUtensorMap* xmap, const CUt
     unsigned phase = 0;
     for (int u = blockIdx.x; u < num_units; u += gridDim.x) {
       const TileCoord tc = coords(u);
+      const int wd = tc.wrank < 0 ? tc.rank : tc.wrank;
       for (int kt = 0; kt < k_tiles; ++kt) {
         mbar_wait(&sm.empty[stage], phase ^ 1u);
         MmaStage& st = sm.stage[stage];
         mbar_expect_tx(&sm.full[stage], sizeof(MmaStage));
         tma_load_3d(st.a, xmap, &sm.full[stage], kt * kMmaBK, tc.row0, tc.rank);
-        tma_load_3d(st.b, wmap, &sm.full[stage], tc.col0, kt * kMmaBK, tc.rank);
-        tma_load_3d(st.b + kMmaBK * kMmaHalfN, wmap, &sm.full[stage], tc.col0 + kMmaHalfN,
-                    kt * kMmaBK, tc.rank);
+        tma_load_3d(st.b, wmap, &sm.full[stage], tc.col0, kt * kMmaBK, wd);
+        if (wmap_hi != nullptr)
+          tma_load_3d(st.b + kMmaBK * kMmaHalfN, wmap_hi, &sm.full[stage], tc.col0, kt * kMmaBK,
+                      wd);
+        else
+          tma_load_3d(st.b + kMmaBK * kMmaHalfN, wmap, &sm.full[stage], tc.col0 + kMmaHalfN,
+                      kt * kMmaBK, wd);
         if (++stage == kMmaStages) {
           stage = 0;
           phase ^= 1u;

@@ -7,6 +7,11 @@ signature (shape, dtype, wire, chunks_per_rank, comm_aware, skew, device):
 the checked wire and q, the schedule table, the flag words and a C plan
 holding every constant argument and the grid, so that a repeated call
 allocates its output and makes one foreign call.
+
+:func:`fused_dispatch_a2a` is differentiable: the exchange is its own
+adjoint, so its backward is the same kernel (on a CUDA tensor; the plain
+version on a CPU one) applied to the cotangent, with the forward's
+settings (the reference's ``custom_vjp``).
 """
 from __future__ import annotations
 
@@ -35,7 +40,28 @@ def fused_dispatch_a2a(xt, *, comm_aware=True, chunks_per_rank=1, skew=0, wire="
     rank's own block: the kernel copies it.  ``chunks_per_rank`` (a
     positive int) is clamped to the largest divisor of C no larger than
     it; ``wire="fp8"`` is clamped to bf16 with a one-time warning.  A CUDA
-    tensor launches the kernel or raises."""
+    tensor launches the kernel or raises.  Differentiable
+    (:class:`_DispatchA2A`)."""
+    kw = dict(comm_aware=comm_aware, chunks_per_rank=chunks_per_rank, skew=skew, wire=wire)
+    if torch.is_grad_enabled() and xt.requires_grad:
+        return _DispatchA2A.apply(kw, xt)
+    return _dispatch_forward(xt, **kw)
+
+
+class _DispatchA2A(torch.autograd.Function):
+    """The exchange, and as its backward the same exchange of the cotangent."""
+
+    @staticmethod
+    def forward(fctx, kw, xt):
+        fctx.kw = kw
+        return _dispatch_forward(xt, **kw)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, _dispatch_forward(g.contiguous(), **fctx.kw)
+
+
+def _dispatch_forward(xt, *, comm_aware, chunks_per_rank, skew, wire):
     if not xt.is_cuda:
         _check(xt, 5, chunks_per_rank, wire)
         _one_rank(xt)

@@ -8,13 +8,26 @@ launches with nothing in between.  A CUDA tensor launches
 ``csrc/fused_gemm_a2a.cu`` or raises; a CPU tensor takes the plain version
 in ``ref.py``.  There is no fallback from one to the other.
 
-The kernel has two paths, chosen by :func:`gemm_a2a_path`: ``"stream"``
-(128-column units on the streaming loop's TMA ring, K split over a
-thread-block cluster, partition from :mod:`.plan`) wherever TMA can read
-the weights, ``"panel"`` (``csrc/tile_gemv.cuh``'s loop) for the rest.  A
-call launches from a plan built once per call signature
+The kernel has three paths, chosen by :func:`gemm_a2a_path`: ``"stream"``
+(decode rows, C <= 8: 128-column units on the streaming loop's TMA ring,
+K split over a thread-block cluster, partition from :mod:`.plan`) wherever
+TMA can read the weights; ``"tile"`` (prefill and training rows, C > 8, in
+bf16 at widths TMA reads: ``csrc/tile_mma.cuh``'s tensor-core loop, u =
+act(x w_gate) (x w_up) over [128, 64] blocks, then y = u w_down over [128,
+128] blocks, two launches); ``"panel"`` (``csrc/tile_gemv.cuh``'s loop) for
+the rest.  A call launches from a plan built once per call signature
 (:class:`~repro_torch.kernels.PlanCache`): the tensor maps, grid, flag
-words, schedule table and the u scratch.
+words, schedule table and, on the stream and panel paths, the u scratch
+(the tile path's u, [.., C, F] at x's dtype, comes from the caching
+allocator on each call: at prefill rows it is hundreds of MB a capacity).
+
+:func:`fused_gemm_a2a` and :func:`fused_dispatch_a2a` are differentiable.
+The expert FFN's backward differentiates the plain version (``ref.py``:
+the three einsums at x's dtype, then the exchange, the identity on one
+rank) recomputed from the saved operands, as the reference's
+``custom_vjp`` does; the kernel keeps g and h in f32 where the plain
+version rounds them, so the gradient is that of the plain version at the
+kernel's inputs.
 """
 from __future__ import annotations
 
@@ -30,19 +43,31 @@ from repro_torch.kernels.fused_dispatch_a2a.ops import (MAX_DEV, REAL_PEERS_ITEM
 from repro_torch.kernels.fused_gemm_a2a.plan import TILE_N, ffn_plan, ffn_stream_fits
 from repro_torch.kernels.fused_gemm_a2a.ref import (ACTS, fused_gemm_a2a_ref,
                                                     fused_gemm_a2a_ref_ranks)
+from repro_torch.kernels.gemv.plan import MAX_ROWS
 
 PANEL_TILE = 32   # columns of u (F) or y (D) per panel item (kTileN in csrc/tile_gemv.cuh)
+TILE_M = TILE_D = 128   # rows and y columns of a tile-path unit (kMmaBM, kMmaBN)
 ACT_CODES = {name: i for i, name in enumerate(ACTS)}   # the kernel's `act` codes
-PATHS = ("stream", "panel")
+PATHS = ("stream", "tile", "panel")
 _PLANS = PlanCache()
+
+
+def tile_fits(dtype, c, d, f, aligned=True) -> bool:
+    """Whether the tile path takes a call: bf16 above ``MAX_ROWS`` capacity
+    rows, D and F multiples of 8 (TMA's 16-byte rows), aligned operands."""
+    return (dtype == torch.bfloat16 and c > MAX_ROWS and d % 8 == 0 and f % 8 == 0
+            and aligned)
 
 
 def gemm_a2a_path(dtype, n_dev, b, e, c, d, f, aligned=True) -> str:
     """The kernel path of one rank's call with x [n_dev, b, e, c, d] and
     weights [e, d, f] / [e, f, d]: ``"stream"`` where it fits
-    (:func:`~repro_torch.kernels.fused_gemm_a2a.plan.ffn_stream_fits`),
-    else ``"panel"``."""
-    return "stream" if ffn_stream_fits(dtype, n_dev, b, e, c, d, f, aligned) else "panel"
+    (:func:`~repro_torch.kernels.fused_gemm_a2a.plan.ffn_stream_fits`: C <=
+    8), ``"tile"`` where :func:`tile_fits` (bf16 prefill and training
+    rows), else ``"panel"`` (f32 and ragged widths)."""
+    if ffn_stream_fits(dtype, n_dev, b, e, c, d, f, aligned):
+        return "stream"
+    return "tile" if tile_fits(dtype, c, d, f, aligned) else "panel"
 
 
 def fused_gemm_a2a(xt, w_up, w_gate, w_down, *, act="silu", comm_aware=True, skew=0,
@@ -57,8 +82,17 @@ def fused_gemm_a2a(xt, w_up, w_gate, w_down, *, act="silu", comm_aware=True, ske
     x's dtype; ``wire="fp8"`` is clamped to bf16 with a one-time warning.
     A CUDA tensor launches the kernel or raises, on the path
     :func:`gemm_a2a_path` chooses or ``_path`` (one of :data:`PATHS`, for
-    timing both; a path that does not fit the call raises, on the CPU
-    too)."""
+    timing them; a path that does not fit the call raises, on the CPU
+    too).  Differentiable (:class:`_GemmA2A`: the plain version's VJP)."""
+    args = (xt, w_up, w_gate, w_down)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _GemmA2A.apply(dict(act=act, comm_aware=comm_aware, skew=skew, wire=wire,
+                                   _path=_path), *args)
+    return _gemm_a2a_forward(*args, act=act, comm_aware=comm_aware, skew=skew, wire=wire,
+                             _path=_path)
+
+
+def _gemm_a2a_forward(xt, w_up, w_gate, w_down, *, act, comm_aware, skew, wire, _path):
     if not xt.is_cuda:
         wire = _check(xt, (w_up, w_gate, w_down), 5, act, wire)
         _one_rank(xt)
@@ -68,6 +102,30 @@ def fused_gemm_a2a(xt, w_up, w_gate, w_down, *, act="silu", comm_aware=True, ske
     fused_gemm_a2a.launches += 1
     fused_gemm_a2a.path_launches[path] += 1
     return out
+
+
+class _GemmA2A(torch.autograd.Function):
+    """The kernel (or, on the CPU, its plain version) forward; the backward
+    differentiates the plain version, ``fused_gemm_a2a_ref`` (the three
+    einsums, then the one-rank exchange, which is the identity), recomputed
+    from the saved operands."""
+
+    @staticmethod
+    def forward(fctx, kw, xt, w_up, w_gate, w_down):
+        fctx.act = kw["act"]
+        fctx.save_for_backward(xt, w_up, w_gate, w_down)
+        return _gemm_a2a_forward(xt, w_up, w_gate, w_down, **kw)
+
+    @staticmethod
+    def backward(fctx, g):
+        saved = fctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(saved, fctx.needs_input_grad[1:])]
+            y = fused_gemm_a2a_ref(*ins, fctx.act)
+            wanted = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(y, wanted, g))
+        return (None,) + tuple(next(got) if t.requires_grad else None for t in ins)
 
 
 fused_gemm_a2a.launches = 0
@@ -178,6 +236,10 @@ def _resolve_path(path, xr, wu, wg, wd):
         raise ValueError(f"fused_gemm_a2a: the stream path takes C <= 8 and weights whose D and F "
                          f"rows are a multiple of 16 bytes at aligned bases; got C={c}, D={d}, "
                          f"F={wu.shape[-1]} {xr.dtype}")
+    if path == "tile" and not tile_fits(xr.dtype, c, d, wu.shape[-1], aligned):
+        raise ValueError(f"fused_gemm_a2a: the tile path takes bf16 at C > {MAX_ROWS}, D and F "
+                         f"multiples of 8, aligned weights; got C={c}, D={d}, F={wu.shape[-1]} "
+                         f"{xr.dtype}")
     return path
 
 
@@ -219,19 +281,33 @@ class _GemmA2APlan:
         self.path = _resolve_path(path, xr, wu, wg, wd)
         wdt = wire_dtype(xr.dtype, wire)
         dev, self.index = xr.device, xr.get_device()
-        self.u = torch.empty((n, n, b, e, c, f), dtype=xr.dtype, device=dev)  # act(g) h, per rank
+        self.u_shape = (n, n, b, e, c, f)   # act(g) h, per rank
+        # the tile path takes its u from the caching allocator at each call
+        self.u = None if self.path == "tile" else torch.empty(self.u_shape, dtype=xr.dtype,
+                                                              device=dev)
         # a narrowed wire lands in rx staging, widened into out at the end
         self.recv = None if n == 1 or wdt == xr.dtype else torch.empty(xr.shape, dtype=wdt,
                                                                        device=dev)
         # per rank: one word per (group, F tile) for u, then one per
-        # (source, group, D tile) for the y tiles arriving from each source
-        tile = TILE_N if self.path == "stream" else PANEL_TILE
-        self.flags = peer_flags(dev, n, n * b * e * (-(-f // tile) + -(-d // tile)))
+        # (source, group, D tile) for the y tiles arriving from each source;
+        # the tile path has no u words, and its y words are per (source,
+        # group, row block, D tile)
+        if self.path == "tile":
+            words = n * b * e * -(-c // TILE_M) * -(-d // TILE_D)
+        else:
+            tile = TILE_N if self.path == "stream" else PANEL_TILE
+            words = n * b * e * (-(-f // tile) + -(-d // tile))
+        self.flags = peer_flags(dev, n, words)
         flag_ptrs = (ctypes.c_uint64 * n)(*(self.flags.words[r].data_ptr() for r in range(n)))
         self.sched = schedule_table(dev, n, 1, bool(comm_aware), int(skew))
         self.lib = load_library().lib
         code, wire_code = dtype_code(xr.dtype), int(wdt != xr.dtype)
-        if self.path == "stream":
+        if self.path == "tile":
+            self.handle = None
+            self.flag_ptrs = flag_ptrs
+            self.fixed = (wu.data_ptr(), wg.data_ptr(), wd.data_ptr())
+            self.dims = (n, b, e, c, d, f, ACT_CODES[act])
+        elif self.path == "stream":
             with torch.cuda.device(self.index):
                 fp = ffn_plan(n, b, e, c, d, f, ranks_in_launch=n, sms=sm_count(self.index),
                               capacity=cluster_capacity(self.lib.repro_gemm_a2a_stream_capacity,
@@ -254,6 +330,15 @@ class _GemmA2APlan:
 
     def launch(self, x_ptr, out_ptr) -> int:
         epoch = self.flags.next_epoch()
+        if self.path == "tile":
+            n, b, e, c, d, f, act = self.dims
+            u = torch.empty(self.u_shape, dtype=torch.bfloat16, device=self.flags.words.device)
+            per_rank = n * b * e * c * d * 2
+            out_ptrs = (ctypes.c_uint64 * n)(*(out_ptr + r * per_rank for r in range(n)))
+            wu, wg, wd = self.fixed
+            return launch_on(self.index, self.lib.repro_gemm_a2a_tile, x_ptr, wu, wg, wd,
+                             u.data_ptr(), out_ptrs, self.flag_ptrs, self.sched.data_ptr(), 0,
+                             n, n, b, e, c, d, f, epoch, act)
         u_ptr = self.u.data_ptr()
         if self.handle is not None:
             recv_ptr = out_ptr if self.recv is None else self.recv.data_ptr()

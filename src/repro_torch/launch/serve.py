@@ -52,8 +52,11 @@ FFN + combine-A2A kernel.  The dense configs are chatglm3-6b (the
 default), phi3-medium-14b, gemma2-27b (its sliding window and softcaps in
 the same decode and paged steps; 54.5 GB of bf16 weights, which fit one
 card) and deepseek-67b (134 GB: not one card).  Full-width dbrx-132b (264
-GB of bf16 weights) does not fit one card: ``chip_smoke.py`` serves it cut
-to 8 of its 40 layers.
+GB of bf16 weights) does not fit one card: ``--layers N`` cuts a model to
+its first N layers at full width (``chip_smoke.py`` serves dbrx at 8).  At
+``--tp N`` dbrx's experts are split over the ranks and decode runs them as
+decode EP (``models/moe.py``); ``--paged`` with a MoE model at tp > 1 raises
+(ROADMAP Queue 1 item 5).
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
 device the default raises.  Weights are random, drawn from a fixed seed.
@@ -61,6 +64,7 @@ device the default raises.  Weights are random, drawn from a fixed seed.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -103,6 +107,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="chatglm3-6b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to its first N layers, widths kept (0: all)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -158,6 +164,9 @@ def _serve(args, bundle, device):
         print(f"tune cache: {loaded} decisions loaded from {args.tune_cache}")
     if args.reduced:
         bundle = bundle.reduced()
+    if args.layers:
+        bundle = dataclasses.replace(bundle, config=dataclasses.replace(
+            bundle.config, n_layers=args.layers))
     cfg = bundle.config
     gen = torch.Generator(device=ctx.device).manual_seed(0)
     params = bundle.init_params(gen, ctx)

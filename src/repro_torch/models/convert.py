@@ -4,8 +4,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import shard_params
-from repro_torch.train.optimizer import tree_leaves
+from repro_torch.models.transformer import param_specs, shard_params
+from repro_torch.parallel.sharding import shard_leaf
+from repro_torch.train.optimizer import (OptimizerConfig, optimizer_state_specs, tree_leaves,
+                                         tree_map)
 
 
 def _tensor(a, device):
@@ -44,13 +46,14 @@ def params_from_numpy(tree, device="cpu", ctx=None, training: bool = False):
     place (Adafactor's ``{"vr", "vc"}``).
 
     With a ``ctx`` at tp > 1 each leaf is sliced to this rank's shard by the
-    reference's logical spec (``transformer.PARAM_SPECS``: ``w_qkv`` and
-    ``w_o`` whole, ``w_gate`` and ``w_up`` by columns, ``w_down`` by rows,
+    reference's logical spec (``transformer.leaf_spec``: ``w_qkv`` and
+    ``w_o`` whole, the MLP's ``w_gate`` and ``w_up`` by columns and its
+    ``w_down`` by rows, a MoE FFN's experts by expert and its router whole,
     the embedding table by vocabulary rows); with ``training`` at dp > 1
     also by its ``"fsdp"`` dim over the data ranks (the train state's
     placement; serving keeps those whole)."""
     if "prefix" in tree:
-        raise NotImplementedError("dense-prefix layers: ROADMAP Queue 1 item 5")
+        raise NotImplementedError("dense-prefix layers: ROADMAP Queue 1 item 7 (with MLA)")
 
     stacked = tree["layers"]
     period = len(stacked)
@@ -89,9 +92,9 @@ def train_state_from_numpy(state, device="cpu", ctx=None):
     any) -> the port's state (``repro_torch.train.step``).  Parameters are
     marked as requiring a gradient, as ``init_train_state`` marks them.
     With a ``ctx`` of more than one rank, this rank's shards of the
-    parameters, AdamW's moments and the residuals, in the training
-    placement (``train_state_specs``); Adafactor's stacked state is one
-    rank's only (its update raises in a world)."""
+    parameters, the optimizer state (AdamW's moments, or Adafactor's
+    stacked factors by ``optimizer_state_specs``) and the residuals, in the
+    training placement (``train_state_specs``)."""
     conv = lambda t: params_from_numpy(t, device, ctx, training=True)
     params = conv(state["params"])
     for p in tree_leaves(params):
@@ -103,8 +106,13 @@ def train_state_from_numpy(state, device="cpu", ctx=None):
         # pattern's stacks "l0", "l1", ... by name (optimizer.adafactor_init)
         v = opt["v"]
         layers = _conv(v["layers"], device)
-        opt = {"v": {**{k: _conv(t, device) for k, t in v.items() if k != "layers"},
-                     "layers": layers["l0"] if set(layers) == {"l0"} else layers}}
+        v = {**{k: _conv(t, device) for k, t in v.items() if k != "layers"},
+             "layers": layers["l0"] if set(layers) == {"l0"} else layers}
+        if ctx is not None:
+            specs = optimizer_state_specs(OptimizerConfig(name="adafactor"),
+                                          param_specs(params), len(layers))["v"]
+            v = tree_map(lambda a, sp: shard_leaf(a, sp, ctx, training=True), v, specs)
+        opt = {"v": v}
     else:
         opt = {k: conv(v) for k, v in opt.items() if k != "step"}
     opt["step"] = torch.tensor(int(np.asarray(state["opt"]["step"])), dtype=torch.int32)

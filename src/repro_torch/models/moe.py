@@ -1,27 +1,40 @@
 """Mixture-of-Experts layer: capacity-based top-k routing and the expert FFN
 fused with the combine All-to-All (paper Sec. III, GEMM + All-to-All).
 
-Port of the JAX package's ``repro.models.moe`` for one card (n_ep = tp = 1).
-Routing keeps the reference's exact semantics: f32 router logits, softmax,
-top-k, renormalisation, ``router_scale``; capacity slots from a cumulative
-count over the token-major [T*K] assignments; tokens past an expert's
-capacity fall back to the residual stream.  The capacity C comes from
-static shapes, so routing never synchronises with the host.
+Port of the JAX package's ``repro.models.moe``.  Routing keeps the
+reference's exact semantics: f32 router logits, softmax, top-k,
+renormalisation, ``router_scale``; capacity slots from a cumulative count
+over the token-major [T*K] assignments; tokens past an expert's capacity
+fall back to the residual stream.  The capacity C comes from static shapes,
+so routing never synchronises with the host.
 
-  bulk   : dispatch buffer -> bulk All-to-All -> the expert FFN as three
-           einsums -> bulk All-to-All (the library baseline)
-  kernel : the hand-written dispatch-A2A kernel chained into the hand-written
-           expert-FFN + combine-A2A kernel
-           (``repro_torch.kernels.fused_gemm_a2a.ops.fused_moe_chain``)
+Experts are sharded over the tp ranks (expert parallelism, ``n_ep = tp``).
+:func:`moe_apply` takes the reference's layout by the global sequence
+length S:
 
-On one card the All-to-Alls move each rank's own block only.  What needs a
-multi-card world or training raises and names its ROADMAP item.
+  sequence-sharded (S a multiple of tp: prefill and training, which hand it
+  the rank's S / tp positions, and every call at tp = 1): :func:`_moe_local`
+  routes the rank's tokens, exchanges the dispatch buffer over the tp ranks
+  of its data row, runs its experts and sends their outputs back, through
+  the two entries of ``core/moe_all_to_all.py``:
+    bulk   : bulk All-to-All -> the expert FFN as three einsums -> bulk
+             All-to-All (the library baseline)
+    fused  : per-destination direct sends (``direct_all_to_all_compute``),
+             the combine's FFN computed one destination at a time and each
+             block sent the moment it is done
+    kernel : the hand-written dispatch-A2A kernel, then the hand-written
+             expert-FFN + combine-A2A kernel on its output; one rank only:
+             over several they need real peers and raise
+  decode EP (S = 1 at tp > 1: rows replicated over the tp ranks):
+  :func:`_moe_decode_ep`, weight-stationary over the whole (data, model)
+  world, in every mode (the reference's runs no kernel either).
 
 The dispatch and the combine each consult the degradation policy
 (``core/degrade.py``) under the reference's keys (``moe_dispatch_a2a``,
 ``moe_combine_a2a``); a quarantined side runs its bulk form.  Kernel mode
 resolves the dispatch's granularity and both wires through
 ``tune_all_to_all`` (``core/autotune.py``) under the kernel's own op.
+Every path is differentiable (the kernels' VJPs, the exchanges' own).
 """
 from __future__ import annotations
 
@@ -30,19 +43,17 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.autotune import resolve_overlap, tune_all_to_all
-from repro_torch.core.collectives import bulk_all_to_all
-from repro_torch.core.degrade import degrade_mode
-from repro_torch.kernels import clamp_kernel_wire
-from repro_torch.kernels.fused_dispatch_a2a.ops import fused_dispatch_a2a
-from repro_torch.kernels.fused_gemm_a2a.ops import fused_gemm_a2a, fused_moe_chain
-from repro_torch.kernels.fused_gemm_a2a.ref import ACTS
+from repro_torch.core.collectives import all_gather_data, all_reduce
+from repro_torch.core.moe_all_to_all import fused_expert_ffn_combine, moe_dispatch_all_to_all
+from repro_torch.kernels.fused_gemm_a2a.ref import expert_ffn_ref
 from repro_torch.models.common import dense_init
 from repro_torch.parallel.sharding import ParallelContext
 
-_MOE_ITEM = "ROADMAP Queue 1 item 5 (MoE)"
-_FUSED_ITEM = ("ROADMAP Queue 1 item 1 (left: fused mode of the MoE All-to-Alls) and "
-               "item 5 (the experts over several ranks)")
+_SHARED_ITEM = ("ROADMAP Queue 1 item 7 (shared experts and deepseek-v3's dense prefix, "
+                "which come with MLA)")
+# the reference's logical specs of the MoE leaves (src/repro/models/moe.py:47-52)
+MOE_PARAM_SPECS = {"router": (None, None), "w_gate": ("tp", "fsdp", None),
+                   "w_up": ("tp", "fsdp", None), "w_down": ("tp", None, "fsdp")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +74,7 @@ def moe_init(gen: torch.Generator, cfg: MoEConfig, dtype):
     reference draws them: ``dense_init`` takes fan_in = shape[0], which is
     the expert count for the [E, D, F] / [E, F, D] expert weights."""
     if cfg.n_shared_experts:
-        raise NotImplementedError(f"shared experts: {_MOE_ITEM}")
+        raise NotImplementedError(f"shared experts: {_SHARED_ITEM}")
     E, D, Fd = cfg.n_experts, cfg.d_model, cfg.d_ff
     return {
         "router": dense_init(gen, (D, E), torch.float32),
@@ -73,67 +84,137 @@ def moe_init(gen: torch.Generator, cfg: MoEConfig, dtype):
     }
 
 
-def moe_apply(ctx: ParallelContext, params, x, cfg: MoEConfig, *, mode: str | None = None):
-    """x: [B, S, D] -> [B, S, D] at x's dtype.
+def moe_apply(ctx: ParallelContext, params, x, cfg: MoEConfig, *, mode: str | None = None,
+              seq_sharded: bool = True, rows_split: bool = False):
+    """x: [B, S, D] -> [B, S, D] at x's dtype, this rank's rows.
+
+    ``seq_sharded``: x is this rank's S / tp positions of the sequence
+    (prefill, training: the global S is a multiple of tp); else x is
+    replicated over the tp ranks (decode's S = 1, and paged serving, which
+    runs MoE at tp = 1 only).  ``rows_split``: the data replicas split the
+    batch's rows (decode EP gathers them).  ``params`` hold this rank's
+    ``E / tp`` experts (``MOE_PARAM_SPECS``, fsdp dims whole).
 
     ``mode`` defaults to ``ctx.fusion.resolve("moe_a2a")``.  In kernel mode
     ``ctx.fusion``'s schedule, skew, granularity (as ``chunks_per_rank``)
-    and wire go to the kernels; a CUDA tensor launches them or raises.
-    With one EP rank the tokens count as sequence-sharded even at S = 1,
-    as in the reference, so the decode-EP layout of a multi-card world
-    (:func:`_moe_decode_ep`) never applies."""
+    and wire go to the kernels; a CUDA tensor launches them or raises.  At
+    tp = 1 every S counts as sequence-sharded, as in the reference, so
+    decode EP applies at tp > 1 only."""
     mode = mode or ctx.fusion.resolve("moe_a2a")
     if "shared" in params or cfg.n_shared_experts:
-        raise NotImplementedError(f"shared experts: {_MOE_ITEM}")
-    if mode not in ("bulk", "kernel"):
-        raise NotImplementedError(f"moe_apply mode={mode!r}: {_FUSED_ITEM}")
+        raise NotImplementedError(f"shared experts: {_SHARED_ITEM}")
+    if mode not in ("bulk", "fused", "kernel"):
+        raise ValueError(f"moe_apply: unknown mode {mode!r}")
+    if seq_sharded or ctx.tp == 1:
+        return _moe_local(ctx, cfg, x, params, mode)
+    if cfg.n_experts % (ctx.dp * ctx.tp) == 0:
+        return _moe_decode_ep(ctx, params, x, cfg, rows_split)
+    # the reference's shard_map over replicated rows: every rank routes all
+    # of them and the exchanges run as in the sequence-sharded layer
     return _moe_local(ctx, cfg, x, params, mode)
 
 
-def _moe_decode_ep(*_args, **_kwargs):
-    """Weight-stationary decode EP over a multi-card (data x model) world."""
-    raise NotImplementedError(f"decode EP on a multi-card world: {_MOE_ITEM}")
+def _moe_decode_ep(ctx: ParallelContext, params, x, cfg: MoEConfig, rows_split: bool = False):
+    """Weight-stationary decode MoE: experts over the whole (data, model)
+    world.
+
+    Where the replicas split the rows, the tokens are all-gathered over data
+    (a few rows of D); every rank routes all of them (the router is whole),
+    runs its ``E / (dp tp)`` experts on the tokens routed there, and one
+    sum over the world (the tp ranks, then the data ranks) combines the
+    contributions; a replica keeps its rows.  No expert weight moves.
+
+    The ranks number their experts model-major: rank (d, m) runs experts
+    ``[(m dp + d) E_w, (m dp + d + 1) E_w)``, E_w = E / (dp tp), slice d
+    of the tp shard m that serving holds.  The reference numbers them
+    data-major (``d tp + m``, src/repro/models/moe.py:169-172), which at dp
+    > 1 would need experts outside that shard; the sum is the same up to the
+    order of its f32 additions (ROADMAP Queue 3)."""
+    D, K = cfg.d_model, cfg.top_k
+    e_w = cfg.n_experts // (ctx.dp * ctx.tp)
+    toks = x.reshape(-1, D)
+    if rows_split:
+        toks = all_gather_data(ctx, toks)
+    T = toks.shape[0]
+    gate_w, gate_i = _gates(cfg, toks, params["router"])
+    flat_e, pos, C = _capacity_positions(cfg, gate_i)
+    e_rel = flat_e - (ctx.tp_rank * ctx.dp + ctx.dp_rank) * e_w
+    mine = (e_rel >= 0) & (e_rel < e_w) & (pos < C)
+    e_clip = torch.where(mine, e_rel, 0)
+    p_clip = torch.where(mine, pos, 0)
+    src = torch.where(mine[:, None], toks.repeat_interleave(K, dim=0), 0).to(x.dtype)
+    buf = torch.zeros((e_w, C, D), dtype=x.dtype, device=x.device).index_put(
+        (e_clip, p_clip), src, accumulate=True)
+    lo = ctx.dp_rank * e_w                      # slice d of this rank's tp shard
+    wg, wu, wd = (params[k][lo:lo + e_w] for k in ("w_gate", "w_up", "w_down"))
+    out_buf = expert_ffn_ref(buf, wu, wg, wd, cfg.act)
+    contrib = out_buf[e_clip, p_clip]                               # [T*K, D]
+    w = torch.where(mine, gate_w.reshape(-1), 0.0)
+    rows = torch.arange(T, device=x.device).repeat_interleave(K)
+    y = torch.zeros((T, D), dtype=torch.float32, device=x.device).index_add(
+        0, rows, contrib.float() * w[:, None])
+    y = all_reduce(ctx, y)
+    if ctx.dp > 1:
+        y = all_reduce(ctx.data, y)
+    if rows_split:
+        t_loc = T // ctx.dp
+        y = y[ctx.dp_rank * t_loc:(ctx.dp_rank + 1) * t_loc]
+    return y.reshape(x.shape).to(x.dtype)
 
 
 def _moe_kernel_staged(*_args, **_kwargs):
     """The reference stages the kernel chain for its CPU interpreter on
-    multi-axis meshes; the CUDA kernels need no such staging."""
-    raise NotImplementedError(f"the staged kernel path of a multi-axis mesh: {_MOE_ITEM}")
+    multi-axis meshes (routing, a global kernel entry over a flattened
+    mesh, then the unpermute); the CUDA kernels run inside the layer on
+    each rank and need no such staging."""
+    raise NotImplementedError(
+        "the staged kernel path is the reference's CPU-interpreter artefact; the port runs "
+        "the MoE kernels inside the layer (moe_apply; ROADMAP Queue 1 item 5)")
 
 
-def moe_aux_loss(*_args, **_kwargs):
-    """Switch-style load-balance loss of MoE training."""
-    raise NotImplementedError(f"MoE training: {_MOE_ITEM}")
+def moe_aux_loss(router_probs, gate_i, n_experts: int):
+    """Switch-style load-balance loss: ``n_experts`` times the sum over the
+    experts of the mean router probability and the share of tokens whose
+    first choice the expert is.  router_probs [T, E], gate_i [T, K]."""
+    me = router_probs.mean(dim=0)
+    ce = F.one_hot(gate_i[:, 0].long(), n_experts).to(router_probs.dtype).mean(dim=0)
+    return n_experts * torch.sum(me * ce)
+
+
+def _gates(cfg: MoEConfig, toks, w_r):
+    """Top-k of the f32 router's softmax: (gate_w [T, K], gate_i [T, K])."""
+    probs = torch.softmax(toks.float() @ w_r.float(), dim=-1)
+    gate_w, gate_i = torch.topk(probs, cfg.top_k, dim=-1)
+    if cfg.norm_topk_prob:
+        gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return gate_w * cfg.router_scale, gate_i
+
+
+def _capacity_positions(cfg: MoEConfig, gate_i):
+    """The token-major [T*K] assignments of gate_i [T, K], each one's place
+    in its expert's queue, and the capacity: (flat_e, pos, C)."""
+    E, T = cfg.n_experts, gate_i.shape[0]
+    # capacity floor 1 (a floor of 4 pads decode's few tokens/rank 4x)
+    C = int(max(1, -(-T * cfg.top_k * cfg.capacity_factor // E)))
+    flat_e = gate_i.reshape(-1)
+    pos = torch.cumsum(F.one_hot(flat_e, E), dim=0) - 1
+    return flat_e, pos.gather(1, flat_e[:, None])[:, 0], C
 
 
 def _route(cfg: MoEConfig, toks, w_r):
     """Capacity-based top-k routing in f32.
 
     Returns (gate_w [T, K], e_clip [T*K], p_clip [T*K], valid [T*K], C)."""
-    probs = torch.softmax(toks.float() @ w_r.float(), dim=-1)
-    gate_w, gate_i = torch.topk(probs, cfg.top_k, dim=-1)       # [T, K]
-    if cfg.norm_topk_prob:
-        gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
-    gate_w = gate_w * cfg.router_scale
+    gate_w, gate_i = _gates(cfg, toks, w_r)
     return (gate_w, *_capacity_slots(cfg, gate_i))
 
 
 def _capacity_slots(cfg: MoEConfig, gate_i):
-    """Capacity slots of the experts gate_i [T, K] chose: the token-major
-    [T*K] assignments counted per expert; past C they are dropped.
-
-    Returns (e_clip [T*K], p_clip [T*K], valid [T*K], C)."""
-    E, K = cfg.n_experts, cfg.top_k
-    T = gate_i.shape[0]
-    # capacity floor 1 (a floor of 4 pads decode's few tokens/rank 4x)
-    C = int(max(1, -(-T * K * cfg.capacity_factor // E)))
-    flat_e = gate_i.reshape(-1)                                  # [T*K]
-    pos = torch.cumsum(F.one_hot(flat_e, E), dim=0) - 1
-    pos = pos.gather(1, flat_e[:, None])[:, 0]
+    """Capacity slots of the experts gate_i [T, K] chose; past C they are
+    dropped.  Returns (e_clip [T*K], p_clip [T*K], valid [T*K], C)."""
+    flat_e, pos, C = _capacity_positions(cfg, gate_i)
     valid = pos < C
-    e_clip = torch.where(valid, flat_e, 0)
-    p_clip = torch.where(valid, pos, 0)
-    return e_clip, p_clip, valid, C
+    return torch.where(valid, flat_e, 0), torch.where(valid, pos, 0), valid, C
 
 
 def _dispatch_buf(cfg: MoEConfig, toks, e_clip, p_clip, valid, C, dtype):
@@ -142,7 +223,7 @@ def _dispatch_buf(cfg: MoEConfig, toks, e_clip, p_clip, valid, C, dtype):
     ``.at[].add(mode="drop")`` does."""
     src = torch.where(valid[:, None], toks.repeat_interleave(cfg.top_k, dim=0), 0)
     buf = torch.zeros((cfg.n_experts, C, cfg.d_model), dtype=dtype, device=toks.device)
-    return buf.index_put_((e_clip, p_clip), src.to(dtype), accumulate=True)
+    return buf.index_put((e_clip, p_clip), src.to(dtype), accumulate=True)
 
 
 def _unpermute(cfg: MoEConfig, out_buf, gate_w, e_clip, p_clip, valid, shape, dtype):
@@ -153,66 +234,19 @@ def _unpermute(cfg: MoEConfig, out_buf, gate_w, e_clip, p_clip, valid, shape, dt
     return y.reshape(shape).to(dtype)
 
 
-def _resolve(ctx: ParallelContext, granularity, wire, *, cap, chunk_elems, flops_per_dest,
-             dtype_bytes):
-    """The kernel path's ``(chunks_per_rank, wire)``: the reference's
-    ``moe_all_to_all._resolve`` with ``kernel=True`` (sub-chunks along the
-    capacity axis, fp8 clamped to bf16 in the decision, and a pinned fp8
-    clamped after it)."""
-    dec = resolve_overlap(
-        None, granularity, None, wire,
-        lambda fq, wr: tune_all_to_all(chunk_elems, flops_per_dest, dtype_bytes=dtype_bytes,
-                                       n_dev=ctx.tp, sub_dim=cap, hw=ctx.hw,
-                                       skew=ctx.fusion.skew, wire=wr, fixed_q=fq, kernel=True),
-        dim=cap, ring=1)
-    if dec.wire == "fp8":
-        dec = dec._replace(wire=clamp_kernel_wire(dec.wire, "moe_a2a_kernel"))
-    return dec
-
-
 def _moe_local(ctx: ParallelContext, cfg: MoEConfig, x, params, mode):
     """Per-rank MoE body: route -> dispatch A2A -> expert FFN + combine A2A
-    -> unpermute."""
+    -> unpermute, the exchanges over the tp ranks of this data row."""
     D, E = cfg.d_model, cfg.n_experts
-    n_ep = ctx.tp
     toks = x.reshape(-1, D)
     gate_w, e_clip, p_clip, valid, C = _route(cfg, toks, params["router"])
     buf = _dispatch_buf(cfg, toks, e_clip, p_clip, valid, C, x.dtype)
-    buf = buf.reshape(n_ep, E // n_ep, C, D)
-    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
-    fc = ctx.fusion
-    # the reference's keys: the dispatch buffer in its global [rows, n_ep,
-    # E, C, D] layout, and that with the expert width for the combine
-    key = (1, n_ep, E, C, D)
-    mode_d = degrade_mode("moe_dispatch_a2a", key, mode)
-    mode_c = degrade_mode("moe_combine_a2a", key + (wu.shape[-1],), mode)
-    flops_c = 2.0 * 3 * (E // n_ep) * C * D * wu.shape[-1]
-    dec_d = dec_c = None
-    if mode_d == "kernel":
-        dec_d = _resolve(ctx, fc.granularity, fc.wire, cap=C, chunk_elems=buf[0].numel(),
-                         flops_per_dest=0.0, dtype_bytes=x.element_size())
-    if mode_c == "kernel":
-        dec_c = _resolve(ctx, 1, fc.wire, cap=C, chunk_elems=buf[0].numel(),
-                         flops_per_dest=flops_c, dtype_bytes=x.element_size())
-    comm_aware = fc.schedule == "comm_aware"
-    if mode_d == mode_c == "kernel":
-        comb = fused_moe_chain(buf[:, None], wu, wg, wd, act=cfg.act, comm_aware=comm_aware,
-                               chunks_per_rank=dec_d.q, skew=fc.skew, wire=dec_d.wire,
-                               combine_wire=dec_c.wire)[:, 0]
-    else:
-        if mode_d == "kernel":
-            recv = fused_dispatch_a2a(buf[:, None], comm_aware=comm_aware,
-                                      chunks_per_rank=dec_d.q, skew=fc.skew,
-                                      wire=dec_d.wire)[:, 0]
-        else:
-            recv = bulk_all_to_all(ctx, buf)                     # [n_src, E_loc, C, D]
-        if mode_c == "kernel":
-            comb = fused_gemm_a2a(recv[:, None], wu, wg, wd, act=cfg.act, comm_aware=comm_aware,
-                                  skew=fc.skew, wire=dec_c.wire)[:, 0]
-        else:
-            g = torch.einsum("necd,edf->necf", recv, wg)         # all GEMMs first...
-            u = torch.einsum("necd,edf->necf", recv, wu)
-            y = torch.einsum("necf,efd->necd", ACTS[cfg.act](g) * u, wd)
-            comb = bulk_all_to_all(ctx, y)                       # ...then one A2A
+    buf = buf.reshape(1, ctx.tp, E // ctx.tp, C, D)
+    # fused mode keeps the reference layer's exchanges (one block a
+    # destination, f32 wire); kernel mode resolves both as the kernels' own
+    fixed = {} if mode == "kernel" else dict(chunks_per_rank=1, wire="f32")
+    recv = moe_dispatch_all_to_all(ctx, buf, mode=mode, **fixed)
+    comb = fused_expert_ffn_combine(ctx, recv, params["w_up"], params["w_gate"],
+                                    params["w_down"], act=cfg.act, mode=mode, **fixed)
     return _unpermute(cfg, comb.reshape(E, C, D), gate_w, e_clip, p_clip, valid,
                       x.shape, x.dtype)

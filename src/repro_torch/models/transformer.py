@@ -2,10 +2,10 @@
 
 The JAX package's unified decoder also covers MLA, M-RoPE, shared experts,
 dense-prefix layers and the audio/vision front ends, and scans its layers
-with ``lax.scan``.  This port runs GQA decode with a dense or MoE FFN, the
-training forward (``train_forward``: the loss, differentiated by autograd)
-and the prefill of the dense ones, and a Python loop over the layers; a
-config that needs the rest raises until its slice lands.  Decode keeps the reference's
+with ``lax.scan``.  This port runs GQA decode, prefill and the training
+forward (``train_forward``: the loss, differentiated by autograd) with a
+dense or a MoE FFN, and a Python loop over the layers; a config that needs
+the rest raises until its slice lands.  Decode keeps the reference's
 layouts: a per-layer cache slice is [B, S_max, Hkv, hd], ``pos`` a [B] int32
 vector, logits [B, 1, V] in f32.
 
@@ -31,6 +31,12 @@ rank: its stripe of the reference's ``[L, NB, block, Hkv, hd]`` (its
 ``pool["scan"]``, blocks split over tp, ``pool_logical_specs``) plus one
 sink block per layer (``models/attention.py``).  The pool is updated in
 place.  Every rank returns the same logits.
+
+A MoE FFN (``models/moe.py``) holds ``E / tp`` experts a rank
+(``MOE_PARAM_SPECS``).  Prefill and training run it sequence-sharded on the
+rank's positions, its two All-to-Alls over the tp ranks of the data row;
+decode at tp > 1 runs it as decode EP over the whole (data, model) world.
+Paged serving of a MoE model at tp > 1 raises (ROADMAP Queue 1 item 5).
 
 Data replicas (dp > 1): decode and prefill split the batch's rows over the
 replicas where dp divides B (each replica a dense cache of ``B / dp`` rows,
@@ -61,7 +67,7 @@ from repro_torch.models.attention import (broadcast_pos, cache_update, context_a
 from repro_torch.models.common import DTYPES, dense_init
 from repro_torch.models.layers import (embedding_init, embedding_lookup, mlp_apply,
                                        mlp_init, rms_norm, rms_norm_init)
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe import MOE_PARAM_SPECS, moe_apply, moe_init
 from repro_torch.models.rope import apply_rope, apply_rope_2d
 from repro_torch.core.degrade import Pins, pinned
 from repro_torch.data.pipeline import batch_rows, shard_batch
@@ -69,13 +75,22 @@ from repro_torch.parallel.sharding import ParallelContext, shard_leaf
 
 # The reference's logical specs of the dense transformer's parameters
 # (src/repro/models/transformer.py:107-108, layers.py:47-49 and :99), by leaf
-# name; a leaf not named (the norms) is whole on every rank.
+# name within a dict; a leaf not named (the norms) is whole on every rank.  A
+# MoE FFN's dict (the one holding a "router") takes ``MOE_PARAM_SPECS``
+# instead: its expert leaves share the MLP's names, not its layout.
 PARAM_SPECS = {"w_qkv": ("fsdp", None), "w_o": (None, "fsdp"),
                "w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"), "w_down": ("tp", "fsdp"),
                "table": ("tp", "fsdp")}
-_MULTI_RANK_ITEMS = {
-    "moe": "MoE over experts on several ranks is ROADMAP Queue 1 item 5",
-}
+_PAGED_MOE_ITEM = ("paged serving of a MoE model at tp > 1 (the MoE layer on the step's "
+                   "replicated chunks over striped pools) is ROADMAP Queue 1 item 5")
+
+
+def leaf_spec(d: dict, key: str, leaf):
+    """The logical spec of ``d[key]``: by its name in the table of ``d``'s
+    kind (``MOE_PARAM_SPECS`` for a MoE FFN's dict, else ``PARAM_SPECS``),
+    whole where it is not named."""
+    table = MOE_PARAM_SPECS if "router" in d else PARAM_SPECS
+    return table.get(key, (None,) * leaf.dim())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,16 +149,16 @@ class TransformerConfig:
 
 def check_supported(cfg: TransformerConfig, tp: int = 1):
     """Raise for the parts of the reference decoder this slice has not
-    ported, so that no config field is silently ignored; at tp > 1 also
-    for a MoE config, and for widths tp does not divide."""
+    ported, so that no config field is silently ignored, and for widths tp
+    does not divide."""
     missing = []
-    if tp > 1 and cfg.moe is not None:
-        missing.append(f"tp={tp}: {_MULTI_RANK_ITEMS['moe']}")
     for name in ("vocab", "d_ff", "max_seq"):
         if getattr(cfg, name) % tp:
             raise ValueError(f"{cfg.name}: tp={tp} does not divide {name}={getattr(cfg, name)}")
+    if cfg.moe is not None and cfg.moe.n_experts % tp:
+        raise ValueError(f"{cfg.name}: tp={tp} does not divide the {cfg.moe.n_experts} experts")
     if cfg.moe is not None and cfg.moe.n_shared_experts:
-        missing.append("moe shared experts (ROADMAP Queue 1 item 5)")
+        missing.append("moe shared experts (ROADMAP Queue 1 item 7, with MLA)")
     if cfg.attn_type != "gqa" or cfg.mla is not None:
         missing.append("mla attention (ROADMAP Queue 1 item 7)")
     if cfg.rope_style not in ("full", "2d"):
@@ -151,20 +166,9 @@ def check_supported(cfg: TransformerConfig, tp: int = 1):
     if cfg.frontend is not None:
         missing.append(f"frontend={cfg.frontend!r} (ROADMAP Queue 1 item 7)")
     if cfg.dense_prefix:
-        missing.append("dense_prefix (ROADMAP Queue 1 item 5)")
+        missing.append("dense_prefix (ROADMAP Queue 1 item 7, with MLA)")
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
-
-
-def check_prefill(cfg: TransformerConfig, what: str = "prefill", tp: int = 1):
-    """Raise for a config whose prefill (or training forward, which runs
-    the same sequence-sharded layers) this slice has not ported: a MoE
-    config."""
-    check_supported(cfg, tp)
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE {what} is ROADMAP Queue 1 item 5 (sequence-sharded MoE: "
-            f"the MoE kernels at prefill rows, and their VJPs)")
 
 
 # ---------------------------------------------------------------------------
@@ -191,23 +195,23 @@ def _layer_init(gen, cfg: TransformerConfig):
 
 def param_specs(tree):
     """The logical spec of every leaf of a parameter tree, in a tree of the
-    same structure: ``PARAM_SPECS`` by leaf name, a leaf not named whole on
-    every rank."""
+    same structure (:func:`leaf_spec`: by name within its dict's kind, a
+    leaf not named whole on every rank)."""
     if isinstance(tree, dict):
-        return {k: param_specs(v) if isinstance(v, (dict, list)) else
-                PARAM_SPECS.get(k, (None,) * v.dim()) for k, v in tree.items()}
+        return {k: param_specs(v) if isinstance(v, (dict, list)) else leaf_spec(tree, k, v)
+                for k, v in tree.items()}
     return [param_specs(v) for v in tree]
 
 
 def shard_params(tree, ctx: ParallelContext | None, training: bool = False):
     """A parameter tree (or a part of one) sliced to this rank's shards by
-    ``PARAM_SPECS``: the tp dims over the tp ranks, and with ``training``
+    :func:`leaf_spec`: the tp dims over the tp ranks, and with ``training``
     the ``"fsdp"`` dims over the data ranks (the train state's placement;
     serving keeps them whole).  The tree itself where nothing splits."""
     if ctx is None or (ctx.tp == 1 and (not training or getattr(ctx, "dp", 1) == 1)):
         return tree
     return {k: shard_params(v, ctx, training) if isinstance(v, dict) else
-            shard_leaf(v, PARAM_SPECS.get(k, (None,) * v.dim()), ctx, training)
+            shard_leaf(v, leaf_spec(tree, k, v), ctx, training)
             for k, v in tree.items()}
 
 
@@ -238,7 +242,7 @@ def gather_layer(ctx: ParallelContext, lp):
     if ctx.dp == 1:
         return lp
     return {k: gather_layer(ctx, v) if isinstance(v, dict) else
-            fsdp_gather(ctx, v, PARAM_SPECS.get(k, (None,) * v.dim()))
+            fsdp_gather(ctx, v, leaf_spec(lp, k, v))
             for k, v in lp.items()}
 
 
@@ -269,7 +273,10 @@ def _layer_train(ctx, cfg: TransformerConfig, lp, x, positions, window, collect_
         a = rms_norm(a, lp["post_ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    f = mlp_apply(ctx, lp["ffn"], h, act=cfg.act, seq_sharded=True)
+    if cfg.moe is not None:
+        f = moe_apply(ctx, lp["ffn"], h, cfg.moe, seq_sharded=True)
+    else:
+        f = mlp_apply(ctx, lp["ffn"], h, act=cfg.act, seq_sharded=True)
     if cfg.post_norms:
         f = rms_norm(f, lp["post_ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     return x + f, kv
@@ -320,7 +327,7 @@ def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
     ``jax.checkpoint`` does; the group's mode and overlap decisions are
     pinned at its first forward (``degrade.pinned``), so that the recompute
     posts the same sends and receives on every rank."""
-    check_prefill(cfg, "training", ctx.tp)
+    check_supported(cfg, ctx.tp)
     tokens = batch["tokens"]
     (B, S), n, fsdp = tokens.shape, ctx.tp, ctx.dp > 1
     if S % n:
@@ -368,7 +375,7 @@ def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch)
     divides B, this replica's ``B / dp`` rows of it; the logits are gathered
     over data).  S must be a multiple of tp (the reference's ``s_loc = S //
     n``)."""
-    check_prefill(cfg, tp=ctx.tp)
+    check_supported(cfg, ctx.tp)
     split = batch_rows(ctx, batch["tokens"].shape[0]) is not None
     batch = shard_batch(batch, ctx)
     tokens = batch["tokens"]
@@ -440,14 +447,15 @@ def _attn_decode(ctx, cfg: TransformerConfig, lp, x, k_cache, v_cache, pos, wind
     return o.reshape(B, 1, Hq * hd) @ lp["attn"]["w_o"]
 
 
-def _layer_decode(ctx, cfg, lp, x, k_cache, v_cache, pos, window):
+def _layer_decode(ctx, cfg, lp, x, k_cache, v_cache, pos, window, rows_split=False):
     a = _attn_decode(ctx, cfg, lp, x, k_cache, v_cache, pos, window)
     if cfg.post_norms:
         a = rms_norm(a, lp["post_ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     if cfg.moe is not None:
-        f = moe_apply(ctx, lp["ffn"], h, cfg.moe)
+        # rows replicated over the tp ranks: decode EP at tp > 1
+        f = moe_apply(ctx, lp["ffn"], h, cfg.moe, seq_sharded=False, rows_split=rows_split)
     else:
         f = mlp_apply(ctx, lp["ffn"], h, act=cfg.act, seq_sharded=False)
     if cfg.post_norms:
@@ -473,7 +481,7 @@ def decode_step(ctx: ParallelContext, params, cfg: TransformerConfig,
                          scale=scale).to(cfg.cdtype)
     for i, lp in enumerate(params["layers"]):
         x = _layer_decode(ctx, cfg, lp, x, cache["k"][i], cache["v"][i], pos,
-                          cfg.layer_window(i))
+                          cfg.layer_window(i), rows is not None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     return _gathered_logits(ctx, _lm_logits(params, cfg, x), rows is not None), cache
 
@@ -550,7 +558,7 @@ def _layer_serve(ctx, cfg, lp, x, k_pool, v_pool, tables, positions, valid, wind
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     if cfg.moe is not None and "router" in lp["ffn"]:
-        f = moe_apply(ctx, lp["ffn"], h, cfg.moe)
+        f = moe_apply(ctx, lp["ffn"], h, cfg.moe, seq_sharded=False)
     else:
         f = mlp_apply(ctx, lp["ffn"], h, act=cfg.act, seq_sharded=False)
     if cfg.post_norms:
@@ -572,8 +580,11 @@ def serve_step(ctx: ParallelContext, params, cfg: TransformerConfig,
     rank's stripe (``init_paged_pool(..., tp)``), ``tables`` hold global
     block ids, and the logits are gathered over the vocabulary's ranks: the
     same on every rank.  At dp > 1 every replica runs the whole step on a
-    pool of its own, as the reference replicates both over data."""
+    pool of its own, as the reference replicates both over data.  A MoE
+    model at tp > 1 raises (``_PAGED_MOE_ITEM``)."""
     check_supported(cfg, ctx.tp)
+    if cfg.moe is not None and ctx.tp > 1:
+        raise NotImplementedError(f"{cfg.name} at tp={ctx.tp}: {_PAGED_MOE_ITEM}")
     B, C = tokens.shape
     dev = tokens.device
     pos = broadcast_pos(pos, B, dev)

@@ -33,9 +33,13 @@ split over the data ranks as well, and AdamW updates those shards the same
 way.  :func:`clip_by_global_norm` takes the world and the specs and sums
 the squares of each leaf over the ranks it is split over;
 :func:`optimizer_state_specs` gives the state the parameters' specs (the
-moments inherit the fsdp split).  Adafactor's factored moments and update
-clip reduce over sharded axes: its update at tp > 1 or dp > 1 is ROADMAP
-Queue 1 item 5 (dbrx, its only user, trains there).
+moments inherit the fsdp split).  Adafactor's factored moments and its
+update clip reduce over the leaf's axes, some of which a world splits: given
+the world and the specs, each mean over a split dim is this rank's sum,
+summed over the ranks that split it and divided by the global length, and
+the clip's mean over the whole stacked leaf is summed over every rank that
+holds a part of it (:func:`adafactor_update`), so every shard takes the
+whole leaf's update.
 """
 from __future__ import annotations
 
@@ -45,10 +49,6 @@ import math
 import torch
 
 from repro_torch.models.common import DTYPES
-
-ADAFACTOR_TP_ITEM = ("ROADMAP Queue 1 item 5 (Adafactor's update at tp > 1 or dp > 1: its "
-                     "factored moments and RMS clip reduce over sharded axes; dbrx trains "
-                     "there)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,7 +222,8 @@ def adamw_init(cfg: OptimizerConfig, params, period: int = 1):
 def adamw_update(cfg: OptimizerConfig, grads, state, params, period: int = 1):
     """One AdamW step in place on ``params`` and ``state``; returns (params,
     state, lr).  Decoupled weight decay on matrices only.  ``period``: the
-    model's layer pattern (:func:`leaf_groups`)."""
+    model's layer pattern (:func:`leaf_groups`).  Elementwise, so a shard's
+    update needs no world."""
     step, step_f = _step_scalars(state)
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.betas
@@ -275,34 +276,89 @@ def adafactor_init(cfg: OptimizerConfig, params, period: int = 1):
     return {"v": v, "step": torch.zeros((), dtype=torch.int32)}
 
 
-def _adafactor_u(g, v, decay):
+class _Shards:
+    """Where a world splits one leaf of logical ``spec`` (its training
+    placement): the group and rank count of each split dim, for the means
+    of Adafactor's update.  ``None`` or a world of one rank splits nothing,
+    and every mean is the plain one."""
+
+    def __init__(self, spec, ctx):
+        from repro_torch.parallel.sharding import _DATA_AXES, _TP_AXES
+
+        self.dims = {}
+        for i, ax in enumerate(spec or ()):
+            if ctx is not None and ax in _TP_AXES and ctx.tp > 1:
+                self.dims[i] = (ctx, ctx.tp)
+            elif ctx is not None and ax in _DATA_AXES and ctx.dp > 1:
+                self.dims[i] = (ctx.data, ctx.dp)
+
+    def mean(self, x, dim, leaf_dim, keepdim=False):
+        """The mean of x over ``dim``, which is the leaf's dim ``leaf_dim``:
+        over every rank's part where a world splits it."""
+        split = self.dims.get(leaf_dim)
+        if split is None:
+            return x.mean(dim=dim, keepdim=keepdim)
+        from repro_torch.core.collectives import _all_reduce
+
+        group, ranks = split
+        return _all_reduce(group, x.sum(dim=dim, keepdim=keepdim)) / (x.shape[dim] * ranks)
+
+    def total(self, x):
+        """x (this rank's partial sums) summed over every rank that holds a
+        part of the leaf, and the number of such parts."""
+        from repro_torch.core.collectives import _all_reduce
+
+        parts = 1
+        for group, ranks in self.dims.values():      # the leaf's dim order, on every rank
+            x, parts = _all_reduce(group, x), parts * ranks
+        return x, parts
+
+
+def _adafactor_u(g, v, decay, shards: _Shards | None = None, lead: int = 0):
     """The reference's unclipped update of one (stacked) leaf, its factored
-    state updated in place."""
-    if g.dim() >= 2:
+    state updated in place.  ``shards``: where a world splits the leaf, whose
+    dims lie ``lead`` dims after g's (a layer of a stack)."""
+    shards = shards or _Shards(None, None)
+    nd = g.dim()
+    if nd >= 2:
         g2 = g * g + 1e-30
-        v["vr"].copy_(decay * v["vr"] + (1 - decay) * g2.mean(dim=-1))
-        v["vc"].copy_(decay * v["vc"] + (1 - decay) * g2.mean(dim=-2))
+        v["vr"].copy_(decay * v["vr"] + (1 - decay) * shards.mean(g2, -1, lead + nd - 1))
+        v["vc"].copy_(decay * v["vc"] + (1 - decay) * shards.mean(g2, -2, lead + nd - 2))
         del g2
-        return g / torch.sqrt(_adafactor_denom(v["vr"], v["vc"]) + 1e-30)
+        return g / torch.sqrt(_adafactor_denom(v["vr"], v["vc"], shards, lead + nd - 2) + 1e-30)
     v["v"].copy_(decay * v["v"] + (1 - decay) * g * g)
     return g / torch.sqrt(v["v"] + 1e-30)
 
 
-def _adafactor_denom(vr, vc):
-    return (vr[..., None] * vc[..., None, :]) / torch.clamp_min(
-        vr.mean(dim=-1, keepdim=True)[..., None], 1e-30)
+def _adafactor_denom(vr, vc, shards: _Shards | None = None, row_dim: int = -1):
+    """vr vc^T over the mean of vr (over the leaf's dim ``row_dim``)."""
+    mean = (vr.mean(dim=-1, keepdim=True) if shards is None else
+            shards.mean(vr, -1, row_dim, keepdim=True))
+    return (vr[..., None] * vc[..., None, :]) / torch.clamp_min(mean[..., None], 1e-30)
 
 
 @torch.no_grad()
-def adafactor_update(cfg: OptimizerConfig, grads, state, params, period: int = 1):
+def adafactor_update(cfg: OptimizerConfig, grads, state, params, period: int = 1, ctx=None,
+                     specs=None):
     """One Adafactor-lite step in place; returns (params, state, lr).  A
     stack of 1-D layer leaves (the norms) is updated stacked; a stack of
     matrices layer by layer, in two passes: the first updates the factored
     state and sums the squares of the update over the stack, the second
-    applies it clipped by the stack's RMS (the reference's rule)."""
+    applies it clipped by the stack's RMS (the reference's rule).
+
+    Over a world (``ctx`` of more than one rank, ``specs`` the parameters'
+    logical specs in their training placement) each rank updates its
+    shards: a mean over a dim the world splits (the factors' ``vr`` and
+    ``vc``, the denominator's mean of ``vr``) sums over the ranks that split
+    it, and the clip's mean over the whole stacked leaf over every rank
+    that holds a part of it.  The calls come in the same order on every
+    rank (the leaves' order, the same specs)."""
     step, step_f = _step_scalars(state)
     lr = lr_schedule(cfg, step)
     decay = 1.0 - (step_f + 1) ** -0.8
+    world = ctx is not None and (ctx.tp > 1 or ctx.dp > 1)
+    spec_groups = (leaf_groups(spec_tree(specs), period) if world else
+                   [None] * len(leaf_groups(grads, period)))
 
     def apply(p, u, ndim):
         p32 = p.float()
@@ -311,24 +367,29 @@ def adafactor_update(cfg: OptimizerConfig, grads, state, params, period: int = 1
             new_p -= lr * cfg.weight_decay * p32
         p.copy_(new_p)
 
-    for (path, gs, stacked), (_, ps, _) in zip(leaf_groups(grads, period),
-                                               leaf_groups(params, period)):
+    for (path, gs, stacked), (_, ps, _), sg in zip(leaf_groups(grads, period),
+                                                   leaf_groups(params, period), spec_groups):
         v = get_path(state["v"], path)
+        spec = None if sg is None else ((None,) if stacked else ()) + sg[1][0].spec
+        shards = _Shards(spec, ctx if world else None)
         if not stacked or ps[0].dim() == 1:
             g = torch.stack([x.float() for x in gs]) if stacked else gs[0].float()
-            u = _adafactor_u(g, v, decay)
-            # update clipping (Adafactor RMS rule)
-            u /= torch.clamp_min(torch.sqrt(torch.mean(u * u) + 1e-30), 1.0)
+            u = _adafactor_u(g, v, decay, shards)
+            # update clipping (Adafactor RMS rule), over the whole leaf
+            sq, parts = shards.total(torch.sum(u * u))
+            u /= torch.clamp_min(torch.sqrt(sq / (u.numel() * parts) + 1e-30), 1.0)
             for i, p in enumerate(ps):
                 apply(p, u[i] if stacked else u, g.dim())
             continue
         total = 0.0
         for i, g in enumerate(gs):
-            u = _adafactor_u(g.float(), {"vr": v["vr"][i], "vc": v["vc"][i]}, decay)
+            u = _adafactor_u(g.float(), {"vr": v["vr"][i], "vc": v["vc"][i]}, decay, shards, 1)
             total = total + torch.sum(u * u)
-        rms = torch.sqrt(total / (len(gs) * gs[0].numel()) + 1e-30)
+        total, parts = shards.total(total)
+        rms = torch.sqrt(total / (len(gs) * gs[0].numel() * parts) + 1e-30)
         for i, (g, p) in enumerate(zip(gs, ps)):
-            u = g.float() / torch.sqrt(_adafactor_denom(v["vr"][i], v["vc"][i]) + 1e-30)
+            den = _adafactor_denom(v["vr"][i], v["vc"][i], shards, g.dim() - 1)
+            u = g.float() / torch.sqrt(den + 1e-30)
             apply(p, u / torch.clamp_min(rms, 1.0), p.dim() + 1)
     state["step"] = step
     return params, state, lr

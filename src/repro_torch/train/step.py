@@ -22,8 +22,9 @@ global mean (``models/transformer.train_forward``); the gradients of the
 leaves whole over data are summed over the data ranks
 (``all_reduce_grads``), those of the fsdp shards come reduce-scattered from
 their gathers' backward.  Gradient compression runs over the shards
-(``compress_decompress`` with the world and the specs); Adafactor's update
-raises at tp > 1 or dp > 1 (``optimizer.ADAFACTOR_TP_ITEM``).
+(``compress_decompress`` with the world and the specs), and so does the
+optimizer's update (Adafactor's means over split dims reduce over the
+ranks that split them, ``optimizer.adafactor_update``).
 """
 from __future__ import annotations
 
@@ -35,9 +36,9 @@ import torch
 from repro_torch.train.grad_compression import (CompressionConfig, compress_decompress,
                                                 init_residuals)
 from repro_torch.core.collectives import all_reduce_grads
-from repro_torch.train.optimizer import (ADAFACTOR_TP_ITEM, OptimizerConfig, clip_by_global_norm,
-                                         make_optimizer, optimizer_state_specs, spec_leaves,
-                                         tree_leaves, tree_map)
+from repro_torch.train.optimizer import (OptimizerConfig, clip_by_global_norm, make_optimizer,
+                                         optimizer_state_specs, spec_leaves, tree_leaves,
+                                         tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,8 +82,6 @@ def build_train_step(loss_fn: Callable, tc: TrainConfig, *, ctx=None, param_spec
         if param_specs is None:
             raise ValueError(f"build_train_step at (dp, tp) = ({dp}, {tp}) needs the "
                              f"parameters' specs")
-        if tc.optimizer.name == "adafactor":
-            raise NotImplementedError(f"adafactor at tp={tp}, dp={dp}: {ADAFACTOR_TP_ITEM}")
     specs = spec_leaves(param_specs) if world else None
 
     def split_micro(batch, i):
@@ -123,8 +122,12 @@ def build_train_step(loss_fn: Callable, tc: TrainConfig, *, ctx=None, param_spec
             grads, state["residuals"] = compress_decompress(
                 tc.compression, grads, state["residuals"], tc.layer_period, ctx,
                 param_specs if world else None)
+        # Adafactor's factored means reduce over the ranks that split a leaf;
+        # AdamW is elementwise and takes no world
+        over = ((ctx, param_specs if world else None) if tc.optimizer.name == "adafactor"
+                else ())
         _, state["opt"], lr = opt_update(tc.optimizer, grads, state["opt"], params,
-                                         tc.layer_period)
+                                         tc.layer_period, *over)
         del grads
         mark("optimizer")
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "step": state["opt"]["step"]}

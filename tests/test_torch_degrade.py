@@ -31,6 +31,7 @@ from repro_torch.core import allgather_matmul as pagmm
 from repro_torch.core import degrade as pdeg
 from repro_torch.core import embedding_all_to_all as emb_a2a
 from repro_torch.core import matmul_allreduce as pmar
+from repro_torch.core import moe_all_to_all as pmoe_a2a
 from repro_torch.models import moe
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 
@@ -257,12 +258,12 @@ def test_moe_quarantined_side_runs_bulk(policies, rng, monkeypatch, side):
     params, x = _moe_inputs(rng, cfg_kw)
     want = moe.moe_apply(_pctx("bulk"), params, t(x), cfg)
     seen = []
-    for name in ("fused_moe_chain", "fused_dispatch_a2a", "fused_gemm_a2a"):
-        real = getattr(moe, name)
-        monkeypatch.setattr(moe, name, lambda *a, _n=name, _f=real, **k: seen.append(_n)
+    for name in ("fused_dispatch_a2a", "fused_gemm_a2a"):
+        real = getattr(pmoe_a2a, name)
+        monkeypatch.setattr(pmoe_a2a, name, lambda *a, _n=name, _f=real, **k: seen.append(_n)
                             or _f(*a, **k))
     moe.moe_apply(_pctx(), params, t(x), cfg)
-    assert seen == ["fused_moe_chain"]
+    assert seen == ["fused_dispatch_a2a", "fused_gemm_a2a"]
     (key,) = [k for k in pol._active if k[0] == side]
     pol.record_failure(key)
     seen.clear()

@@ -200,7 +200,7 @@ def test_direct_all_to_all_compute_on_one_card():
         y.data_ptr()                                # q = 1: no copy
     with pytest.raises(ValueError, match="feasible_chunks_per_rank"):
         direct_all_to_all_compute(CPU["kernel"], produce, (6, 3), chunks_per_rank=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 items 5 and 6"):   # over data
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):   # over data
         direct_all_to_all_compute(types.SimpleNamespace(tp=1, dp=2), produce, (6, 3))
 
 

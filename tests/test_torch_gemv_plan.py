@@ -487,8 +487,12 @@ def test_ffn_plan_refuses_what_the_stream_path_cannot_take():
     (BF16, 8, 4096, 1024, True, "stream"),
     (F32, 5, 1000, 777, True, "panel"),       # F rows of 3108 bytes: not for TMA
     (BF16, 2, 6143, 10752, True, "panel"),    # D rows of 12286 bytes
-    (BF16, 9, 6144, 10752, True, "panel"),    # C above 8
+    (BF16, 9, 6144, 10752, True, "tile"),     # C above 8 in bf16: prefill rows
     (BF16, 2, 6144, 10752, False, "panel"),   # an unaligned weight
+    (BF16, 2560, 6144, 10752, True, "tile"),  # dbrx prefill of 4 x 2048
+    (F32, 9, 6144, 10752, True, "panel"),     # f32 above 8 rows
+    (BF16, 9, 6143, 10752, True, "panel"),    # a ragged D
+    (BF16, 9, 6144, 10752, False, "panel"),   # prefill rows, an unaligned weight
 ])
 def test_gemm_a2a_path_choice(dtype, c, d, f, aligned, want):
     assert ffn_ops.gemm_a2a_path(dtype, 1, 1, 4, c, d, f, aligned) == want

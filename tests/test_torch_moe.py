@@ -29,6 +29,7 @@ from repro.parallel.sharding import ParallelContext as JaxContext
 from repro.serve.engine import DecodeEngine as JaxDecodeEngine
 from repro.serve.engine import Request as JaxRequest
 from repro_torch.configs.registry import get_arch
+from repro_torch.core import moe_all_to_all as pmoe_a2a
 from repro_torch.core.collectives import feasible_chunks_per_rank
 from repro_torch.kernels.fused_dispatch_a2a import ops as dispatch_ops
 from repro_torch.kernels.fused_dispatch_a2a.ref import (fused_dispatch_a2a_ref,
@@ -320,21 +321,30 @@ def test_moe_apply_matches_jax_bulk(ctx1, rng, mode, cfg_kw):
     np.testing.assert_allclose(got.numpy(), want, **TOL["f32"])
 
 
+def _record_kernels(monkeypatch):
+    """Kernel name -> the keyword arguments the MoE layer's exchanges
+    (``core/moe_all_to_all.py``) pass the two kernels."""
+    seen = {}
+    for name in ("fused_dispatch_a2a", "fused_gemm_a2a"):
+        real = getattr(pmoe_a2a, name)
+
+        def rec(*args, _n=name, _f=real, **kwargs):
+            seen[_n] = kwargs
+            return _f(*args, **kwargs)
+        monkeypatch.setattr(pmoe_a2a, name, rec)
+    return seen
+
+
 def test_moe_apply_passes_fusion_settings_to_the_kernels(rng, monkeypatch):
     cfg_kw = dict(n_experts=8, top_k=2, d_model=16, d_ff=8)
     p, x = _moe_case(rng, cfg_kw)
-    seen = {}
-
-    def chain(*args, **kwargs):
-        seen.update(kwargs)
-        return gemm_ops.fused_moe_chain(*args, **kwargs)
-
-    monkeypatch.setattr(moe, "fused_moe_chain", chain)
+    seen = _record_kernels(monkeypatch)
     ctx = ParallelContext(device="cpu", fusion=FusionConfig(
         mode="kernel", schedule="oblivious", granularity=2, skew=1, wire="bf16"))
     moe.moe_apply(ctx, {k: t(v) for k, v in p.items()}, t(x), moe.MoEConfig(**cfg_kw))
-    assert seen == dict(act="silu", comm_aware=False, chunks_per_rank=2, skew=1, wire="bf16",
-                        combine_wire="bf16")
+    assert seen == {"fused_dispatch_a2a": dict(comm_aware=False, chunks_per_rank=2, skew=1,
+                                               wire="bf16"),
+                    "fused_gemm_a2a": dict(act="silu", comm_aware=False, skew=1, wire="bf16")}
 
 
 def test_moe_auto_choices_match_jax(rng, monkeypatch):
@@ -346,13 +356,7 @@ def test_moe_auto_choices_match_jax(rng, monkeypatch):
     cfg_kw = dict(n_experts=8, top_k=2, d_model=16, d_ff=8)
     p, x = _moe_case(rng, cfg_kw)
     cfg = moe.MoEConfig(**cfg_kw)
-    seen = {}
-
-    def chain(*args, **kwargs):
-        seen.update(kwargs)
-        return gemm_ops.fused_moe_chain(*args, **kwargs)
-
-    monkeypatch.setattr(moe, "fused_moe_chain", chain)
+    seen = _record_kernels(monkeypatch)
     params = {k: t(v) for k, v in p.items()}
     C = moe._route(cfg, t(x).reshape(-1, 16), params["router"])[-1]
     jc = JaxContext.from_mesh(make_mesh((1, 1), ("data", "model")),
@@ -363,8 +367,8 @@ def test_moe_auto_choices_match_jax(rng, monkeypatch):
     jcomb = jmoe_a2a._resolve(jc, 1, None, flops_per_dest=2.0 * 3 * 8 * C * 16 * 8, **common)
     got = moe.moe_apply(v5e_ctx(mode="kernel", granularity="auto", wire="auto"), params, t(x), cfg)
     assert len(same_decisions()) == 2
-    assert (seen["chunks_per_rank"], seen["wire"], seen["combine_wire"]) == (
-        jd.q, jd.wire, jcomb.wire)
+    assert (seen["fused_dispatch_a2a"]["chunks_per_rank"], seen["fused_dispatch_a2a"]["wire"],
+            seen["fused_gemm_a2a"]["wire"]) == (jd.q, jd.wire, jcomb.wire)
     want = np.asarray(jmoe.moe_apply(jc.with_fusion(JaxFusion(mode="bulk")), p, x,
                                      jmoe.MoEConfig(**cfg_kw)))
     np.testing.assert_allclose(got.numpy(), want, **TOL["f32"])
@@ -372,21 +376,35 @@ def test_moe_auto_choices_match_jax(rng, monkeypatch):
 
 @pytest.mark.parametrize("what", ["shared", "fused", "aux_loss", "decode_ep", "staged"])
 def test_moe_unported_paths_raise(rng, what):
+    """What is left of the layer's unported paths: shared experts (with
+    MLA, ROADMAP item 7) and the reference's staged kernel path (an
+    artefact of its interpreter) raise, naming ROADMAP; fused mode, decode
+    EP (at one rank all the experts are its own) and the load-balance loss
+    run and give the JAX package's values."""
     cfg_kw = dict(n_experts=4, top_k=2, d_model=16, d_ff=8)
     p, x = _moe_case(rng, cfg_kw)
     params, cfg, ctx = {k: t(v) for k, v in p.items()}, moe.MoEConfig(**cfg_kw), CPU["kernel"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "shared":
-            moe.moe_init(torch.Generator(), dataclasses.replace(cfg, n_shared_experts=1),
-                         torch.float32)
-        elif what == "fused":
-            moe.moe_apply(ctx, params, t(x), cfg, mode="fused")
-        elif what == "aux_loss":
-            moe.moe_aux_loss(None, None, 4)
-        elif what == "decode_ep":
-            moe._moe_decode_ep(ctx, params, t(x), cfg)
-        else:
-            moe._moe_kernel_staged(ctx, params, t(x), cfg)
+    jc = JaxContext.from_mesh(make_mesh((1, 1), ("data", "model")), JaxFusion(mode="bulk"))
+    want = np.asarray(jmoe.moe_apply(jc, p, x, jmoe.MoEConfig(**cfg_kw)))
+    if what in ("shared", "staged"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            if what == "shared":
+                moe.moe_init(torch.Generator(), dataclasses.replace(cfg, n_shared_experts=1),
+                             torch.float32)
+            else:
+                moe._moe_kernel_staged(ctx, params, t(x), cfg)
+    elif what == "fused":
+        got = moe.moe_apply(ctx, params, t(x), cfg, mode="fused")
+        np.testing.assert_allclose(got.numpy(), want, **TOL["f32"])
+    elif what == "decode_ep":
+        got = moe._moe_decode_ep(ctx, params, t(x), cfg)
+        np.testing.assert_allclose(got.numpy(), want, **TOL["f32"])
+    else:
+        probs = np.asarray(jax.nn.softmax(x.reshape(-1, 16) @ p["router"], axis=-1))
+        gate_i = np.argsort(-probs, axis=-1)[:, :2]
+        np.testing.assert_allclose(
+            moe.moe_aux_loss(t(probs), t(gate_i), 4).item(),
+            float(jmoe.moe_aux_loss(probs, gate_i, 4)), rtol=1e-6)
 
 
 def test_moe_init_follows_the_reference_layout():

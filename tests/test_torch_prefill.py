@@ -188,11 +188,21 @@ def test_prefill_reads_the_decode_parameters(models):
 
 
 def test_moe_prefill_raises():
+    """MoE prefill, which raised before the sequence-sharded MoE layer, runs:
+    reduced dbrx's ``prefill_fn`` in kernel mode (the MoE kernels' plain
+    versions here) gives bulk mode's logits and caches (held to the JAX
+    package in tests/test_torch_moe_tp.py)."""
     pb = get_arch("dbrx-132b").reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pb.prefill_fn(CPU["bulk"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        transformer.prefill_forward(CPU["bulk"], {}, pb.config, {"tokens": torch.zeros(1, 4)})
+    params = pb.init_params(torch.Generator().manual_seed(0))
+    tokens = {"tokens": torch.randint(0, pb.config.vocab, (2, 12),
+                                      generator=torch.Generator().manual_seed(1))}
+    lk, ck = pb.prefill_fn(CPU["kernel"])(params, tokens)
+    lb, cb = transformer.prefill_forward(CPU["bulk"], params, pb.config, tokens)
+    assert lk.shape == (2, 1, pb.config.vocab) and torch.isfinite(lk).all()
+    torch.testing.assert_close(lk, lb, rtol=1e-5, atol=1e-5)
+    for name in ("k", "v"):
+        assert ck[name].shape == (pb.config.n_layers, 2, 12, pb.config.n_kv_heads, pb.config.hd)
+        torch.testing.assert_close(ck[name], cb[name], rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

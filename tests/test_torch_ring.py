@@ -268,13 +268,12 @@ def test_ring_attention_calibration_agrees_on_every_rank(world, qkv, window):
 
 
 @pytest.mark.parametrize("what,item", [("compression", None),
-                                       ("adafactor", "item 5 .*Adafactor"),
+                                       ("adafactor", None),
                                        ("paged", "item 5")])
 def test_training_and_paged_serving_still_raise_at_tp2(world, what, item):
-    """What training at tp > 1 leaves (Adafactor's update) and paged serving
-    of a MoE model at tp > 1 raise, each naming its ROADMAP entry; gradient
-    compression over shards (``item`` None) builds its step without a
-    refusal."""
+    """Paged serving of a MoE model at tp > 1 raises, naming its ROADMAP
+    entry; gradient compression and Adafactor over shards (``item`` None)
+    build their steps without a refusal."""
     for msg in run(world, "refusal_task", 2, what=what):
         if item is None:
             assert msg is None, msg

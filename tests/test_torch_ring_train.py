@@ -417,9 +417,11 @@ def test_adamw_steps_match_the_jax_step(world, jax_models):
 
 
 def test_moe_training_still_raises_at_tp2(world):
-    """MoE training at tp > 1 waits for ROADMAP Queue 1 item 5."""
-    for msg in run(world, "refusal_task", 2, what="moe"):
-        assert msg is not None and re.search("ROADMAP Queue 1 item 5", msg), msg
+    """MoE training at tp > 1 runs in bulk and fused mode
+    (tests/test_torch_moe_tp.py); in kernel mode it raises, naming the
+    real-peer half of ROADMAP Queue 1 item 1 (the MoE kernels over ranks)."""
+    for msg in run(world, "refusal_task", 2, what="moe_train"):
+        assert msg is not None and re.search("ROADMAP Queue 1 item 1 .*real-peer", msg), msg
 
 
 def _printed_losses(out):

@@ -401,8 +401,7 @@ def test_registry_rwkv6_entry_points(models):
     assert pb.family == jb.family == "rwkv6"
     assert pb.shapes() == jb.shapes()
     assert "long_500k" in pb.shapes() and "long_500k" not in get_arch("chatglm3-6b").shapes()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        get_arch("dbrx-132b").prefill_fn(CPU["bulk"])
+    assert callable(get_arch("dbrx-132b").prefill_fn(CPU["bulk"]))   # MoE prefills too
     with pytest.raises(ValueError, match="does not prefill"):
         get_arch("dlrm").prefill_fn(CPU["bulk"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):

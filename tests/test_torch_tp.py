@@ -278,11 +278,12 @@ def test_auto_choices_resolve_at_tp2(world, rng):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("kernel", "item 1 .*real-peer"), ("moe", "item 5"),
+    ("kernel", "item 1 .*real-peer"), ("moe", "item 1 .*real-peer"),
     ("paged", "item 5"), ("rwkv6", "item 7")])
 def test_paths_left_for_later_raise_at_tp2(world, what, item):
     """Kernel mode of the fused GEMV at tp > 1 raises (no fallback to fused
-    mode), as do MoE, a MoE model's paged serving and rwkv6."""
+    mode), as does the MoE layer's in kernel mode (its kernels over ranks
+    need real peers), a MoE model's paged serving and rwkv6."""
     for msg in run(world, "refusal_task", 2, what=what):
         assert msg is not None and re.search(f"ROADMAP Queue 1 {item}", msg), msg
 

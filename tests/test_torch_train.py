@@ -277,11 +277,23 @@ def test_launcher_autotune_flags(tmp_path, capsys, flag):
     (["--heartbeat-dir", "x"], "item 7"), (["--coordinator", "h:1"], "item 7"),
     (["--production-mesh"], "item 1"),
     (["--arch", "rwkv6-7b"], "item 7"), (["--arch", "dlrm"], "item 6"),
-    (["--arch", "dbrx-132b"], "item 5"),
+    (["--arch", "deepseek-v3-671b"], "item 5"),
 ])
 def test_launcher_refuses_later_slices(argv, match):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {match}"):
         launch_train.main(["--reduced", "--device", "cpu", "--steps", "1"] + argv)
+
+
+def test_launcher_trains_reduced_dbrx():
+    """dbrx-132b (MoE, Adafactor, 2 microbatches) trains through the
+    launcher: kernel mode (the MoE kernels' plain versions and their VJPs on
+    the CPU) gives bulk mode's losses, and they fall."""
+    argv = ["--arch", "dbrx-132b", "--reduced", "--device", "cpu", "--steps", "3",
+            "--lr", "1e-2"]
+    kernel = launch_train.main(argv + ["--fusion", "kernel"])
+    assert len(kernel) == 3 and kernel[-1] < kernel[0]
+    np.testing.assert_allclose(kernel, launch_train.main(argv + ["--fusion", "bulk"]),
+                               rtol=1e-5)
 
 
 def test_launcher_defaults_to_the_card():
@@ -300,9 +312,6 @@ def test_registry_training_fields_match_jax(name):
     assert (pb.optimizer, pb.microbatches) == (jb.optimizer, jb.microbatches)
     if name == "rwkv6-7b":
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            pb.loss_fn(CPU["bulk"])
-    elif name == "dbrx-132b":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             pb.loss_fn(CPU["bulk"])
     else:
         assert callable(pb.loss_fn(CPU["bulk"]))

@@ -342,8 +342,22 @@ def refusal_task(ctx, what):
     try:
         if what == "kernel":
             matmul_allreduce(ctx("kernel"), torch.ones(4, 8), torch.ones(8, 4))
-        elif what == "moe":
-            get_arch("dbrx-132b").reduced().init_params(torch.Generator(), ctx())
+        elif what == "moe":          # the MoE kernels over ranks (item 1's real peers)
+            from repro_torch.models.moe import moe_apply
+
+            cfg = get_arch("dbrx-132b").reduced().config
+            p = get_arch("dbrx-132b").reduced().init_params(torch.Generator(), ctx())
+            moe_apply(ctx("kernel"), p["layers"][0]["ffn"], torch.zeros(1, 4, cfg.d_model),
+                      cfg.moe)
+        elif what == "moe_train":
+            b = get_arch("dbrx-132b").reduced()
+            tok = torch.zeros(1, 8, dtype=torch.long)
+            b.loss_fn(ctx("kernel"))(b.init_params(torch.Generator(), ctx()),
+                                     {"tokens": tok, "labels": tok})
+        elif what == "moe_prefill":
+            b = get_arch("dbrx-132b").reduced()
+            b.prefill_fn(ctx("kernel"))(b.init_params(torch.Generator(), ctx()),
+                                        {"tokens": torch.zeros(1, 8, dtype=torch.long)})
         elif what == "paged":      # a MoE model's paged serving over ranks (item 5)
             from repro_torch.models.transformer import serve_step
 
@@ -654,16 +668,17 @@ def loss_grads_task(ctx, tree, tokens, labels, mode, arch="chatglm3-6b", q=1, wi
 
 @task
 def train_steps_task(ctx, tree, batches, mode, arch="chatglm3-6b", lr=3e-3, steps=6,
-                     microbatches=1):
-    """``build_train_step`` with AdamW from the JAX package's weights on the
-    given batches: each step's loss and grad norm, then this rank's
-    parameters."""
+                     microbatches=1, optimizer="adamw"):
+    """``build_train_step`` with ``optimizer`` (AdamW by default) from the
+    JAX package's weights on the given batches: each step's loss and grad
+    norm, then this rank's parameters."""
     from repro_torch.train.optimizer import OptimizerConfig, tree_leaves
     from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
 
     c = ctx(mode)
     bundle, params = _params_from(tree, c, arch)
-    tc = TrainConfig(optimizer=OptimizerConfig(lr=lr, warmup_steps=max(steps // 20, 5),
+    tc = TrainConfig(optimizer=OptimizerConfig(name=optimizer, lr=lr,
+                                               warmup_steps=max(steps // 20, 5),
                                                total_steps=steps),
                      microbatches=microbatches,
                      layer_period=bundle.config.local_global_period or 1)
@@ -862,3 +877,97 @@ def data_collectives_task(ctx, x):
     mean = data_mean(c, xl.sum())
     return (all_gather_data(c, xl.detach()).numpy(), reduce_scatter_data(c, xl.detach()).numpy(),
             mean.item(), torch.autograd.grad(mean, xl)[0].numpy())
+
+
+# ---------------------------------------------------------------------------
+# MoE over the (dp, tp) world (tests/test_torch_moe_tp.py)
+# ---------------------------------------------------------------------------
+def _rows(a, c, axis=0):
+    """This rank's replica's rows of ``a`` (all of them where dp does not
+    divide them)."""
+    n = a.shape[axis]
+    if c.dp == 1 or n % c.dp:
+        return a
+    return np.take(a, np.arange(c.dp_rank * n // c.dp, (c.dp_rank + 1) * n // c.dp), axis=axis)
+
+
+@task
+def moe_layer_task(ctx, params, x, cfg, mode, seq_sharded=True, q=1, wire="f32", skews=(0,),
+                   co=None):
+    """``moe_apply`` on this rank's experts (block tp_rank of the whole
+    [E, ...] leaves) and its part of x [B, S, D]: its replica's rows, and
+    with ``seq_sharded`` its tp block of S (else all of S, replicated).
+    One output per skew; with a cotangent ``co`` (x's shape) also, per
+    skew, the gradients of sum(y * co): x's part, then the router's (summed
+    over the world, as a whole leaf's), w_gate's, w_up's and w_down's (this
+    rank's experts)."""
+    from repro_torch.core.collectives import all_reduce
+    from repro_torch.models.moe import MoEConfig, moe_apply
+
+    mcfg = MoEConfig(**cfg)
+    B = x.shape[0]
+    rows_split = ctx().dp > 1 and B % ctx().dp == 0
+    outs, grads = [], []
+    for skew in skews:
+        c = ctx(mode, granularity=q, wire=wire, skew=skew)
+        p = {k: (t(v) if k == "router" else _block(v, c, 0)) for k, v in params.items()}
+        xl = t(_rows(x, c))
+        if seq_sharded:
+            xl = _block(xl.numpy(), c, 1)
+        if co is not None:
+            xl.requires_grad_(True)
+            for v in p.values():
+                v.requires_grad_(True)
+        y = moe_apply(c, p, xl, mcfg, seq_sharded=seq_sharded, rows_split=rows_split)
+        outs.append(y.detach().numpy())
+        if co is not None:
+            col = t(_rows(co, c))
+            if seq_sharded:
+                col = _block(col.numpy(), c, 1)
+            leaves = [xl, p["router"], p["w_gate"], p["w_up"], p["w_down"]]
+            g = list(torch.autograd.grad((y * col).sum(), leaves))
+            g[1] = all_reduce(c, g[1])
+            if c.dp > 1:
+                g[1] = all_reduce(c.data, g[1])
+            grads.append([a.numpy() for a in g])
+    return outs, grads
+
+
+@task
+def moe_entries_task(ctx, x, w_up, w_gate, w_down, mode, q=1, wire="f32", skews=(0,)):
+    """``moe_dispatch_all_to_all`` of this rank's part of the global
+    dispatch buffer x [B, n_ep, E, C, D] (its replica's rows, its tp block
+    of the expert dim), then ``fused_expert_ffn_combine`` of that output on
+    its experts; each per skew."""
+    from repro_torch.core.moe_all_to_all import (fused_expert_ffn_combine,
+                                                 moe_dispatch_all_to_all)
+
+    out = []
+    for skew in skews:
+        c = ctx(mode, granularity=q, wire=wire, skew=skew)
+        xl = _block(_rows(x, c), c, 2)
+        ws = [_block(w, c, 0) for w in (w_up, w_gate, w_down)]
+        d = moe_dispatch_all_to_all(c, xl)
+        out.append((d.numpy(), fused_expert_ffn_combine(c, d, *ws, act="silu").numpy()))
+    return out
+
+
+@task
+def adafactor_task(ctx, state, grads, steps=2):
+    """``adafactor_update`` over this rank's training shards of a JAX train
+    state (``train_state_from_numpy``) and of whole gradients (a JAX-layout
+    tree), ``steps`` times: the parameters, then the factored state, this
+    rank's shards in tree order."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.convert import params_from_numpy, train_state_from_numpy
+    from repro_torch.train.optimizer import OptimizerConfig, adafactor_update, tree_leaves
+
+    c = ctx()
+    st = train_state_from_numpy(state, "cpu", c)
+    g = params_from_numpy(grads, "cpu", c, training=True)
+    specs = get_arch("dbrx-132b").param_specs(st["params"])
+    cfg = OptimizerConfig(name="adafactor", lr=1e-2, warmup_steps=1)
+    for _ in range(steps):
+        adafactor_update(cfg, g, st["opt"], st["params"], 1, c, specs)
+    return ([p.detach().numpy() for p in tree_leaves(st["params"])],
+            [v.numpy() for v in tree_leaves(st["opt"]["v"])])
