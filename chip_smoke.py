@@ -364,6 +364,29 @@ prints one line, and any failure exits non-zero:
      (every rank's loss equal, finite) and serve 4 requests x 8 tokens through decode EP (every
      rank's streams equal).  Phases 47-48 are labelled "one card, N
      processes, wire staged through host"
+ 49. DLRM training on one card at the paper's widths with 32 of its 512
+     tables (11.78 GB), the train_8k batch of 8192: the loss and every
+     gradient in bulk and fused mode against an f64 evaluation (65536
+     sampled elements of the tables' gradient, the MLP leaves whole),
+     fused within LOGITS_TOL_FACTOR x bulk's distance on every leaf (and
+     whether its bits are bulk's); kernel mode's gradient raising; 3 AdamW
+     steps a mode on the batch (fused within TRAIN_LOSS_REL of bulk's, the
+     loss falling; ms a step split, busy share, peak); the trained
+     parameters scored in kernel mode (one pooling launch) against bulk's
+     logits
+ 50. DLRM over a (dp, tp) = (2, 2) world of the pool's gloo processes, 16
+     tables (4 a rank), batch 8192: scoring in bulk, fused (2 sub-chunks,
+     skew 0 and 1, f32 and bf16 wire) and kernel mode (8 embedding_pool
+     launches a rank, each against its plain version), every rank's rows
+     against tp = 1 bulk's logits, skew 1 bit-identical; a loss with
+     gradients in bulk and fused mode (skew 0 and 1), every shard within
+     LOGITS_TOL_FACTOR x tp = 1 bulk's distance from f64, skew 1
+     bit-identical on every leaf; one AdamW step, the MLP leaves
+     bit-identical on every rank after it.  Labelled "one card, N
+     processes, wire staged through host"
+ 51. the train launcher in this process: --arch dlrm --tables 32 --fusion
+     fused --batch 8192 --steps 3 --lr 1e-3, the loss falling; ms a step
+     split, busy share, peak
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
@@ -378,11 +401,12 @@ yardsticks, free them, and run their worlds in processes of their own;
 phases 41-42 do the same, phase 42 reusing phases 38, 39 and 41's
 yardsticks (phase 38's exact gradients stay in a file under build/ until
 phase 42 ends), and phase 43 runs the launchers.  Phases 44-45 run inside
-the dbrx phases, after phase 10, on phase 9's weights; phases 46-48 run
-last, each drawing its own weights (phase 47's and 48's in processes of
-their own).  Phase 29 runs after phase 35: its world starts one pool of 4
-rank processes (spawn_world) that the worlds of phases 36-47 reuse, each
-opening and closing its own process group; the pool ends after phase 47.
+the dbrx phases, after phase 10, on phase 9's weights; phases 46-51 run
+last, in the order 46, 47, 50, 48, 49, 51, each drawing its own weights
+(phase 47's, 48's and 50's in processes of their own).  Phase 29 runs after
+phase 35: its world starts one pool of 4 rank processes (spawn_world) that
+the worlds of phases 36-47 and 50 reuse, each opening and closing its own
+process group; the pool ends after phase 50.
 Every line ends with the seconds since the previous line and since the
 start; the end line gives each phase's seconds.  Phases 5, 9 and 17
 and the end print how many launch plans the plan-cached wrappers hold.
@@ -1053,8 +1077,17 @@ def main() -> int:
         trained.pop("train_dispatch_launches_per_step")
     moe_row.update(trained)
     dbrx_world_phase(card)
+    torch.cuda.empty_cache()
+    # the embedding_pool row gains its launches over a world (phase 50) and
+    # in training (phase 49)
+    pool_row = next(k_ for k_ in kernels if k_["name"] == "embedding_pool")
+    pool_row.update(dlrm_world_phase(card))
     stop_pool()
     dbrx_launcher_phase(card)
+    torch.cuda.empty_cache()
+    pool_row.update(dlrm_train_phase(card))
+    torch.cuda.empty_cache()
+    dlrm_launcher_phase(card)
     say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -6975,6 +7008,536 @@ def dbrx_launcher_phase(card) -> None:
             f"serve (decode EP): "
             f"{served[0] if served else '?'}, both ranks' streams equal, {streams} "
             f"({runs['serve'][1]:.0f} s with start-up)")
+
+
+# DLRM training and its world (phases 49-51), at the paper's widths (tables of
+# 1,000,000 x 92 f32, MLPs (512, 256, 92) and (682, 682, 682, 1), pooling 70,
+# the reference's train_8k batch of 8192), only the table count cut: phase 49
+# trains 32 of the 512 tables (11.78 GB, one rank's share of a 16-rank world;
+# with the gradient and AdamW's two moments 47.1 GB before the optimizer's
+# temporaries), phase 50's (2, 2) world holds 16 (4 a rank), phase 51's
+# launcher 32.  DLRM_LR: at the launcher's default 3e-3 a reduced-vocabulary
+# run's third step rose (its Adam steps move every MLP weight at once); the
+# steps take 1e-3.
+DLRM_TRAIN_TABLES, DLRM_WORLD_TABLES = 32, 16
+DLRM_STEPS, DLRM_LR, DLRM_WORLD_Q = 3, "1e-3", 2
+DLRM_WORLD_SETTINGS = [
+    ("bulk", dict(mode="bulk")),
+    ("fused q 2", dict(mode="fused", granularity=DLRM_WORLD_Q)),
+    ("fused q 2 skew 1", dict(mode="fused", granularity=DLRM_WORLD_Q, skew_world=1)),
+    ("fused q 2 bf16 wire", dict(mode="fused", granularity=DLRM_WORLD_Q, wire="bf16")),
+    ("kernel q 2", dict(mode="kernel", granularity=DLRM_WORLD_Q)),
+    ("grad bulk", dict(mode="bulk")),
+    ("grad fused q 2", dict(mode="fused", granularity=DLRM_WORLD_Q)),
+    ("grad fused q 2 skew 1", dict(mode="fused", granularity=DLRM_WORLD_Q, skew_world=1)),
+    ("step fused", dict(mode="fused")),
+]
+
+
+class ReluLog:
+    """The gate of every ReLU in DLRM's MLPs (``models/dlrm._mlp``), recorded
+    in one run (no ``masks``) and replayed in others, as GateLog replays
+    MoE routing.  A pre-activation within rounding of 0 takes one side in
+    one run's arithmetic and the other in another's, which moves its row's
+    gradient by the whole unit's share (on an H100 at (2, 2), rows of ranks
+    0 and 2 moved the pooled cotangent by 3 % of its largest element and the
+    tables' gradient by 17 % at a sampled element; PERF.md section 6): the
+    gradients are held to the f64 evaluation on its own gates.  ``rows``:
+    the (first, count) of the batch a rank holds."""
+
+    def __init__(self, masks=None, rows=None):
+        self.masks = [] if masks is None else masks
+        self.replaying, self.rows, self.pos = masks is not None, rows, 0
+
+    @contextlib.contextmanager
+    def active(self):
+        from repro_torch.models import dlrm
+
+        def mlp(layers, x):
+            for i, layer in enumerate(layers):
+                x = torch.matmul(x, layer["w"]) + layer["b"]
+                if i == len(layers) - 1:
+                    break
+                if not self.replaying:
+                    self.masks.append((x > 0).cpu())
+                    x = torch.relu(x)
+                    continue
+                m = self.masks[self.pos]
+                self.pos += 1
+                if self.rows is not None:
+                    m = m[self.rows[0]:self.rows[0] + self.rows[1]]
+                x = torch.where(m.to(x.device), x, torch.zeros_like(x))
+            return x
+
+        self.pos = 0
+        with swapped(dlrm, "_mlp", mlp):
+            yield self
+
+
+def dlrm_bundle(n_tables):
+    from repro_torch.configs.registry import get_arch
+
+    bundle = get_arch("dlrm")
+    return dataclasses.replace(bundle, config=dataclasses.replace(bundle.config,
+                                                                  n_tables=n_tables))
+
+
+def dlrm_batch(cfg):
+    """The first DLRMBatches(seed=0) batch of the train_8k size, on the card."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic import DLRMBatches
+
+    return to_device(next(DLRMBatches(cfg.n_tables, cfg.table_vocab, cfg.pooling, cfg.n_dense,
+                                      8192, seed=0)), "cuda")
+
+
+def dlrm_exact(params, batch, log):
+    """An f64 evaluation of DLRM's loss on the f32 weights, its ReLU gates
+    recorded in ``log`` (a recording ReluLog): (the loss, the pooled
+    embeddings' cotangent [B, T, D] f64, the MLP leaves' gradients in tree
+    order)."""
+    from repro_torch.models import dlrm
+
+    tables, idx = params["tables"].detach(), batch["indices"]
+    with torch.no_grad():
+        pooled = torch.stack([tables[t][idx[:, t]].double().mean(1)
+                              for t in range(tables.shape[0])], dim=1)
+    pooled.requires_grad_(True)
+    layers = [{k: v.detach().double().requires_grad_(True) for k, v in layer.items()}
+              for layer in params["bottom"] + params["top"]]
+    nb = len(params["bottom"])
+    with log.active():
+        bottom = dlrm._mlp(layers[:nb], batch["dense"].double())
+        z = dlrm._mlp(layers[nb:], dlrm._interaction(bottom, pooled))[:, 0]
+    y = batch["labels"].double()
+    loss = (torch.clamp_min(z, 0) - z * y + torch.log1p(torch.exp(-z.abs()))).mean()
+    grads = torch.autograd.grad(loss, [pooled] + [v for layer in layers for v in layer.values()])
+    return loss.item(), grads[0], list(grads[1:])
+
+
+def table_grad_samples(idx, g_pooled, coords, vocab):
+    """The tables' f64 gradient at ``coords`` [n, 3] (table, row, column):
+    table t's is each bag's pooled cotangent over L added to its L rows."""
+    n_tab, L, d = g_pooled.shape[1], idx.shape[2], g_pooled.shape[2]
+    out = torch.zeros(len(coords), dtype=torch.float64)
+    for t in range(n_tab):
+        sel = coords[:, 0] == t
+        if not sel.any():
+            continue
+        g = torch.zeros((vocab, d), dtype=torch.float64, device=g_pooled.device)
+        g.index_add_(0, idx[:, t].reshape(-1).long(),
+                     (g_pooled[:, t] / L).repeat_interleave(L, dim=0))
+        c = coords[sel].cuda()
+        out[sel] = g[c[:, 1], c[:, 2]].cpu()
+        del g
+    return out
+
+
+def dlrm_grad_errs(grads, coords, vals, mlp_x, where=None):
+    """Each leaf's max abs distance from the f64 evaluation: the tables' at
+    the sampled coordinates (``where``: the rank's (mask, local coords) of
+    its world shard), the MLP leaves' whole."""
+    g = grads[0]
+    if where is None:
+        tab = (g[tuple(coords.cuda().T)].double().cpu() - vals).abs().max().item()
+    else:
+        mask, loc = where
+        tab = ((g[tuple(loc[mask].cuda().T)].double().cpu() - vals[mask]).abs().max().item()
+               if mask.any() else 0.0)
+    return [tab] + [(a.double() - b.to(a.device)).abs().max().item()
+                    for a, b in zip(grads[1:], mlp_x)]
+
+
+def dlrm_train_phase(card) -> dict:
+    """Phase 49: DLRM training on one card, the paper's widths with
+    DLRM_TRAIN_TABLES tables, the train_8k batch (DLRMBatches seed 0,
+    weights seed 0).  (a) The loss and every gradient in bulk and fused mode
+    against an f64 evaluation (GRAD_SAMPLES seeded elements of the tables'
+    gradient, every MLP leaf whole; both modes on its ReLU gates, ReluLog):
+    fused within LOGITS_TOL_FACTOR x bulk's distance on every leaf; kernel
+    mode's gradient raises.  (b)
+    DLRM_STEPS AdamW steps (lr DLRM_LR, f32 moments) on that batch in each
+    mode: finite losses, fused within TRAIN_LOSS_REL of bulk's, the loss
+    falling; ms a step split, device busy share, peak memory.  (c) The
+    trained parameters scored in kernel mode (one pooling launch) against
+    bulk mode's logits at F32_TOL (phase 13's bound)."""
+    from repro_torch.kernels.embedding_pool.ops import embedding_pool_tables
+    from repro_torch.models.dlrm import dlrm_forward
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+    from repro_torch.train.optimizer import OptimizerConfig, tree_leaves, tree_paths
+    from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
+
+    bundle = dlrm_bundle(DLRM_TRAIN_TABLES)
+    cfg = bundle.config
+    ctx = {m: ParallelContext(device="cuda", fusion=FusionConfig(mode=m))
+           for m in ("kernel", "fused", "bulk")}
+    init = lambda: bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batch = dlrm_batch(cfg)
+    B = batch["dense"].shape[0]
+    params = init()
+    names = [".".join(map(str, p_)) for p_, _ in tree_paths(params)]
+    n_bytes = sum(t_.numel() * t_.element_size() for t_ in tree_leaves(params))
+    coords = sample_coords(params["tables"].shape, GRAD_SAMPLES, 49)
+    relu = ReluLog()
+    lx, g_pooled, mlp_x = dlrm_exact(params, batch, relu)
+    vals = table_grad_samples(batch["indices"], g_pooled, coords, cfg.table_vocab)
+    del g_pooled
+    torch.cuda.empty_cache()
+    leaves = tree_leaves(params)
+    for p_ in leaves:
+        p_.requires_grad_(True)
+    losses, dist, grads_b = {}, {}, None
+    for mode in ("bulk", "fused"):
+        with ReluLog(relu.masks).active():
+            loss = bundle.loss_fn(ctx[mode])(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        if not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"DLRM gradients in {mode} mode: non-finite")
+        losses[mode] = loss.item()
+        dist[mode] = dlrm_grad_errs(grads, coords, vals, mlp_x)
+        if mode == "bulk":
+            grads_b = grads
+        else:
+            same = all(torch.equal(a, b) for a, b in zip(grads, grads_b))
+        del loss, grads
+    del grads_b
+    for name, ef, eb in zip(names, dist["fused"], dist["bulk"]):
+        if not ef <= LOGITS_TOL_FACTOR * eb:
+            raise AssertionError(f"DLRM gradient {name}: fused mode {ef:.3g} from f64, above "
+                                 f"{LOGITS_TOL_FACTOR} x bulk mode's {eb:.3g}")
+    try:
+        torch.autograd.grad(bundle.loss_fn(ctx["kernel"])(params, batch), leaves)
+        raise AssertionError("DLRM: kernel mode's gradient did not raise")
+    except NotImplementedError as e:
+        refusal = str(e)
+    del params, leaves
+    torch.cuda.empty_cache()
+    say(49, f"(a) DLRM at the paper's widths with {cfg.n_tables} of 512 tables "
+            f"({n_bytes / 1e9:.2f} GB f32), batch {B} (DLRMBatches seed 0, weights seed 0): "
+            f"loss bulk {losses['bulk']:.6f}, fused {losses['fused']:.6f}, f64 {lx:.6f}; each "
+            f"leaf's max abs err from the f64 evaluation (tables: {GRAD_SAMPLES} sampled "
+            f"elements), fused/bulk (bound {LOGITS_TOL_FACTOR} x bulk's): "
+            + ", ".join(f"{n_} {a:.3g}/{b:.3g}" for n_, a, b in
+                        zip(names, dist["fused"], dist["bulk"]))
+            + f" (every run on the f64 run's ReLU gates, ReluLog); fused mode's gradients "
+            f"bit-identical to bulk's: {same}; kernel mode's "
+            f"gradient raises: {refusal!r}")
+
+    # (b) AdamW steps on the batch, each mode from the seed-0 weights
+    tc = TrainConfig(optimizer=OptimizerConfig(lr=float(DLRM_LR), warmup_steps=5,
+                                               total_steps=DLRM_STEPS))
+    runs = {}
+    for mode in ("bulk", "fused"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(tc, init())
+        clock = StepClock(profile_step=DLRM_STEPS)
+        step = build_train_step(bundle.loss_fn(ctx[mode]), tc, on_phase=clock)
+        step_losses = []
+        for _ in range(DLRM_STEPS):
+            state, m = step(state, batch)
+            step_losses.append(m["loss"].item())
+        runs[mode] = dict(losses=step_losses, split=clock.split(), busy=clock.busy,
+                          peak=torch.cuda.max_memory_allocated() / 1e9)
+        if mode == "fused":
+            trained = state["params"]
+        del state, step
+    f_, b_ = runs["fused"], runs["bulk"]
+    if not all(x == x and abs(x) < float("inf") for x in f_["losses"] + b_["losses"]):
+        raise AssertionError(f"DLRM steps: non-finite losses {f_['losses']}, {b_['losses']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(f_["losses"], b_["losses"]))
+    if rel > TRAIN_LOSS_REL or not f_["losses"][-1] < f_["losses"][0]:
+        raise AssertionError(f"DLRM steps: fused losses {f_['losses']} against bulk's "
+                             f"{b_['losses']} ({rel:.3g} apart; the loss must fall)")
+
+    def summary(r):
+        later = r["split"][1:]
+        med = sorted(later, key=lambda x: x[3])[len(later) // 2]
+        dev, wall, ops = r["busy"]
+        return (f"losses {', '.join(f'{x:.6f}' for x in r['losses'])}; step (median of 2-"
+                f"{DLRM_STEPS}) {med[3]:.1f} ms = forward {med[0]:.1f} + backward {med[1]:.1f} "
+                f"+ optimizer {med[2]:.1f} (steps: "
+                f"{', '.join(f'{x[3]:.1f}' for x in r['split'])} ms), {B / med[3] * 1e3:.0f} "
+                f"rows/s; device busy {100 * dev / wall:.1f}% of step {DLRM_STEPS}'s "
+                f"{wall:.1f} ms under the profiler ({ops} device ops); peak "
+                f"{r['peak']:.2f} GB"), med
+    sf, mf = summary(f_)
+    sb, mb = summary(b_)
+    say(49, f"(b) on {card}: {DLRM_STEPS} AdamW steps (lr {DLRM_LR}, f32 moments) on the batch: "
+            f"fused mode {sf}; bulk mode {sb}; fused within {rel:.3g} of bulk (bound "
+            f"{TRAIN_LOSS_REL})")
+
+    # (c) the trained parameters scored in kernel mode against bulk mode
+    with torch.no_grad():
+        logits_k, counts = counted_run(lambda: dlrm_forward(ctx["kernel"], trained, cfg, batch),
+                                       {"embedding_pool_tables": 1,
+                                        "embedding_pool_tables.warp": 1})
+        logits_b = dlrm_forward(ctx["bulk"], trained, cfg, batch)
+    err = check_close("DLRM trained logits kernel vs bulk", logits_k, logits_b, F32_TOL)
+    del trained, logits_k, logits_b, batch
+    torch.cuda.empty_cache()
+    say(49, f"(c) the trained parameters scored in kernel mode: "
+            f"{counts['embedding_pool_tables']} embedding_pool launch (warp path), logits "
+            f"against bulk mode's max abs/rel err {err[0]:.3g}/{err[1]:.3g} (bound {F32_TOL})")
+    return {"train_step_ms": mf[3], "train_bulk_step_ms": mb[3],
+            "train_scoring_launches": counts["embedding_pool_tables"]}
+
+
+def dlrm_world_phase(card) -> dict:
+    """Phase 50: DLRM over a (dp, tp) = (2, 2) world of the pool's gloo
+    processes on the card, the paper's widths with DLRM_WORLD_TABLES tables
+    (4 a rank), the train_8k batch.  Here first, at tp = 1: bulk mode's
+    logits, an f64 evaluation (the loss, GRAD_SAMPLES seeded elements of the
+    tables' gradient, the MLP's gradients whole) and bulk mode's loss and
+    gradients' distances from it.  Then each rank on its 4 tables and 2048
+    rows: scoring in bulk, fused (q = DLRM_WORLD_Q at skew 0 and 1, f32 and
+    bf16 wire) and kernel mode (the embedding_pool kernel a fragment, n q
+    launches a rank, each against its plain version); every rank's rows
+    against tp = 1 bulk's logits (F32_TOL, the bf16 wire WIRE_BF16_TOL),
+    skew 1 bit-identical to skew 0; a loss with gradients in bulk and fused
+    mode (skew 0 and 1), every run on the f64 run's ReLU gates (ReluLog,
+    each rank its rows'): the loss and every shard within LOGITS_TOL_FACTOR x
+    tp = 1 bulk's distance from f64, skew 1 bit-identical to skew 0 on every
+    leaf (the tables' gradient is one embedding_bag backward over the whole
+    batch, which sums without atomics in mean mode); one AdamW step, after
+    which the MLP leaves are bit-identical on every rank."""
+    from repro_torch.models.dlrm import dlrm_forward
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+    from repro_torch.train.optimizer import tree_leaves, tree_paths
+
+    bundle = dlrm_bundle(DLRM_WORLD_TABLES)
+    cfg = bundle.config
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    batch = dlrm_batch(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    names = [".".join(map(str, p_)) for p_, _ in tree_paths(params)]
+    shape = tuple(params["tables"].shape)
+    with torch.no_grad():
+        logits_b = dlrm_forward(ctx_b, params, cfg, batch).cpu()
+    coords = sample_coords(shape, GRAD_SAMPLES, 50)
+    relu = ReluLog()
+    lx, g_pooled, mlp_x = dlrm_exact(params, batch, relu)
+    vals = table_grad_samples(batch["indices"], g_pooled, coords, cfg.table_vocab)
+    del g_pooled
+    leaves = tree_leaves(params)
+    for p_ in leaves:
+        p_.requires_grad_(True)
+    with ReluLog(relu.masks).active():
+        loss_b = bundle.loss_fn(ctx_b)(params, batch)
+    dist_b = dlrm_grad_errs(torch.autograd.grad(loss_b, leaves), coords, vals, mlp_x)
+    lb = loss_b.item()
+    del params, leaves, loss_b
+    torch.cuda.empty_cache()
+    inputs = dict(tables=DLRM_WORLD_TABLES, batch={k: v.cpu().numpy() for k, v in batch.items()},
+                  coords=coords, vals=vals, mlp_x=[g.cpu() for g in mlp_x], shape=shape,
+                  relu=relu.masks)
+    del batch, mlp_x
+    t0 = time.perf_counter()
+    got = spawn_world(4, DLRM_WORLD_SETTINGS, target=dlrm_world_rank, args=(inputs,))
+    wall = time.perf_counter() - t0
+    ranks = got["ranks"]
+    notes = []
+    for name, kw in DLRM_WORLD_SETTINGS:
+        mine = [r_[name] for r_ in ranks]
+        ms = max(m_["ms"] for m_ in mine)
+        if name.startswith(("grad", "step")):
+            loss_err = abs(mine[0]["loss"] - lx)
+            if loss_err > LOGITS_TOL_FACTOR * abs(lb - lx) + 1e-7:
+                raise AssertionError(f"(2, 2) {name}: loss {mine[0]['loss']:.8f} is "
+                                     f"{loss_err:.3g} from f64 {lx:.8f}, tp = 1 bulk's {lb:.8f}")
+        if name.startswith("grad"):
+            worst = 0.0
+            for i, n_ in enumerate(names):
+                e = max(m_["errs"][i] for m_ in mine)
+                if not e <= LOGITS_TOL_FACTOR * dist_b[i]:
+                    raise AssertionError(f"(2, 2) {name} gradient {n_}: {e:.3g} from f64, above "
+                                         f"{LOGITS_TOL_FACTOR} x tp = 1 bulk's {dist_b[i]:.3g}")
+                worst = max(worst, e / max(dist_b[i], 1e-30))
+            notes.append(f"{name}: loss {mine[0]['loss']:.8f}, worst leaf at {worst:.3g} of tp "
+                         f"= 1 bulk's distance, {ms:.0f} ms (slowest rank)")
+            continue
+        if name.startswith("step"):
+            notes.append(f"{name}: loss {mine[0]['loss']:.8f}, the MLP leaves bit-identical on "
+                         f"every rank after the step, {ms:.0f} ms (slowest rank)")
+            continue
+        full = torch.from_numpy(mine[0]["logits"])
+        tol = WIRE_BF16_TOL if kw.get("wire") == "bf16" else F32_TOL
+        err = check_close(f"(2, 2) {name} logits vs tp = 1 bulk", full, logits_b, tol)
+        notes.append(f"{name}: logits {err[0]:.3g}/{err[1]:.3g} from tp = 1 bulk's, "
+                     f"{ms:.0f} ms (slowest rank)")
+    for r_ in ranks:
+        if not (r_["fused q 2 skew 1"]["skew_equal"] and r_["grad fused q 2 skew 1"]["skew_equal"]):
+            raise AssertionError("(2, 2): skew 1 is not skew 0's bits (logits or gradients)")
+    kern = [r_["kernel q 2"] for r_ in ranks]
+    want = 4 * DLRM_WORLD_Q
+    if any(k_["launches"] != want or k_["warp"] != want for k_ in kern):
+        raise AssertionError(f"(2, 2) kernel mode: embedding_pool launches "
+                             f"{[(k_['launches'], k_['warp']) for k_ in kern]}, expected {want} "
+                             f"a rank on the warp path")
+    frag_err = max(k_["frag_err"] for k_ in kern)
+    same = all(r_["grad fused q 2"]["same_as_bulk"] for r_ in ranks)
+    say(50, f"[{TP_LABEL.format(4)}] DLRM at (dp, tp) = (2, 2), the paper's widths with "
+            f"{DLRM_WORLD_TABLES} of 512 tables ({DLRM_WORLD_TABLES // 4} a rank), batch 8192 "
+            f"(2048 rows a rank): tp = 1 bulk loss {lb:.8f}, f64 {lx:.8f}; tp = 1 bulk's "
+            f"distances from f64 (bounds {LOGITS_TOL_FACTOR} x them; tables at {GRAD_SAMPLES} "
+            f"sampled elements): " + ", ".join(f"{n_} {d_:.3g}" for n_, d_ in zip(names, dist_b))
+            + "; " + "; ".join(notes) + f"; skew 1 bit-identical to skew 0 (logits and every "
+            f"gradient, the tables' too); fused mode's gradients bit-identical to bulk's on "
+            f"every rank: {same}; kernel mode: {want} embedding_pool launches a rank (warp "
+            f"path), each fragment against its plain version max abs err {frag_err:.3g} (bound "
+            f"{F32_TOL}); peak a rank {max(r_['peak'] for r_ in ranks):.2f} GB; the world "
+            f"{wall:.0f} s")
+    return {"world_launches_per_rank": want, "world_fragment_err": frag_err}
+
+
+def dlrm_world_rank(rank, tp, init, settings, inputs, out):
+    """One rank of phase 50's (2, 2) world: its 4 tables and 2048 rows."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.core import embedding_all_to_all as emb
+    from repro_torch.core.collectives import all_reduce_grads
+    from repro_torch.kernels.embedding_pool.ops import embedding_pool_tables
+    from repro_torch.kernels.embedding_pool.ref import embedding_pool_tables_ref
+    from repro_torch.launch.mesh import close_world, init_world
+    from repro_torch.models.dlrm import dlrm_forward
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext, make_world_groups
+    from repro_torch.train.optimizer import OptimizerConfig, spec_leaves, tree_leaves
+    from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dev = init_world(tp, "gloo", "cuda", rank=rank, init_method=init)
+        make_world_groups(2, 2)
+        torch.cuda.reset_peak_memory_stats(dev)
+        bundle = dlrm_bundle(inputs["tables"])
+        cfg = bundle.config
+        sync = lambda: torch.cuda.synchronize(dev)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in inputs["batch"].items()}
+        ctx = lambda kw: ParallelContext(device=dev, tp=2, dp=2, fusion=FusionConfig(**kw))
+        c0 = ctx({})
+        params = bundle.init_params(torch.Generator(device=dev).manual_seed(0), c0)
+        leaves = tree_leaves(params)
+        specs = spec_leaves(bundle.param_specs(params))
+        mlp_x = [g.to(dev) for g in inputs["mlp_x"]]
+        where = shard_sample(inputs["coords"], inputs["shape"], specs[0], c0)
+        res, keep = {}, {}
+        for name, kw in settings:
+            c = ctx(kw)
+            r = {}
+            if name.startswith("grad"):
+                for p_ in leaves:
+                    p_.requires_grad_(True)
+                sync()
+                t0 = time.perf_counter()
+                r_w = c.world.tp_rank
+                rows = batch["dense"].shape[0] // 4
+                with ReluLog(inputs["relu"], rows=(r_w * rows, rows)).active():
+                    loss = bundle.loss_fn(c)(params, batch)
+                grads = list(torch.autograd.grad(loss, leaves))
+                all_reduce_grads(c, grads, specs)
+                sync()
+                r.update(ms=(time.perf_counter() - t0) * 1e3, loss=loss.item(),
+                         digest=_digest([loss]), finite=bool(torch.isfinite(loss)),
+                         errs=dlrm_grad_errs(grads, inputs["coords"], inputs["vals"], mlp_x,
+                                             where))
+                keep[name] = grads
+                if name == "grad fused q 2":
+                    r["same_as_bulk"] = all(torch.equal(a, b)
+                                            for a, b in zip(grads, keep["grad bulk"]))
+                if name == "grad fused q 2 skew 1":
+                    r["skew_equal"] = all(torch.equal(a, b)
+                                          for a, b in zip(grads, keep["grad fused q 2"]))
+                    keep.clear()
+                del loss, grads
+            elif name.startswith("step"):
+                tc = TrainConfig(optimizer=OptimizerConfig(lr=float(DLRM_LR), warmup_steps=5,
+                                                           total_steps=1))
+                state = init_train_state(tc, params)
+                step = build_train_step(bundle.loss_fn(c), tc, ctx=c,
+                                        param_specs=bundle.param_specs(params))
+                sync()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                sync()
+                mlp = [p_ for p_, sp in zip(tree_leaves(state["params"]), specs) if sp[0] != "world"]
+                r.update(ms=(time.perf_counter() - t0) * 1e3, loss=m["loss"].item(),
+                         digest=_digest(mlp), finite=all(bool(torch.isfinite(p_).all())
+                                                         for p_ in mlp))
+                del state, step
+            else:
+                frags = []
+                if kw["mode"] == "kernel":
+                    def spy(tab, idx):
+                        o = embedding_pool_tables(tab, idx)
+                        frags.append((tab, idx, o))
+                        return o
+                    reset_counts()
+                    real, emb.embedding_pool_tables = emb.embedding_pool_tables, spy
+                try:
+                    sync()
+                    t0 = time.perf_counter()
+                    with torch.no_grad():
+                        logits = dlrm_forward(c, params, cfg, batch)
+                    sync()
+                    r["ms"] = (time.perf_counter() - t0) * 1e3
+                finally:
+                    if kw["mode"] == "kernel":
+                        emb.embedding_pool_tables = real
+                if kw["mode"] == "kernel":
+                    r.update(launches=embedding_pool_tables.launches,
+                             warp=embedding_pool_tables.path_launches["warp"],
+                             frag_err=max(check_close(f"rank {rank} fragment", o,
+                                                      embedding_pool_tables_ref(tab, idx),
+                                                      F32_TOL)[0] for tab, idx, o in frags))
+                    del frags
+                every = [torch.empty_like(logits, device="cpu") for _ in range(4)]
+                dist.all_gather(every, logits.cpu())
+                full = torch.cat(every)
+                r.update(logits=full.numpy(), digest=_digest([full]),
+                         finite=bool(torch.isfinite(full).all()))
+                if name == "fused q 2":
+                    keep["logits"] = logits
+                if name == "fused q 2 skew 1":
+                    r["skew_equal"] = torch.equal(logits, keep.pop("logits"))
+                del logits
+            res[name] = r
+        del params, leaves
+        res["peak"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out.put((rank, "ok", res))
+    except Exception:
+        out.put((rank, "err", traceback.format_exc()))
+    finally:
+        close_world()
+
+
+def dlrm_launcher_phase(card) -> None:
+    """Phase 51: the train launcher in this process, ``launch.train.main``
+    with --arch dlrm --tables DLRM_TRAIN_TABLES --fusion fused --batch 8192
+    --steps DLRM_STEPS --lr DLRM_LR: finite losses that fall; ms a step
+    split, the device's busy share, peak memory."""
+    from repro_torch.launch import train as launch_train
+
+    argv = ["--arch", "dlrm", "--tables", str(DLRM_TRAIN_TABLES), "--fusion", "fused",
+            "--batch", "8192", "--steps", str(DLRM_STEPS), "--lr", DLRM_LR, "--log-every", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    clock = StepClock(profile_step=DLRM_STEPS)
+    t0 = time.perf_counter()
+    losses = launch_train.main(argv, on_phase=clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(x == x and abs(x) < float("inf") for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the DLRM launcher's losses: {losses} (must be finite and fall)")
+    split = clock.split()
+    dev, busy_wall, ops = clock.busy
+    say(51, f"on {card}: python -m repro_torch.launch.train {' '.join(argv)} in this process: "
+            f"losses {', '.join(f'{x:.6f}' for x in losses)}; steps "
+            + ", ".join(f"{r[3]:.1f} ms (forward {r[0]:.1f}, backward {r[1]:.1f}, optimizer "
+                        f"{r[2]:.1f})" for r in split)
+            + f"; device busy {100 * dev / busy_wall:.1f}% of the last step's {busy_wall:.1f} ms "
+            f"({ops} device ops); peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+            f"{wall:.1f} s with init")
 
 
 def _map(tree, fn):

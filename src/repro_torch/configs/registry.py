@@ -6,10 +6,11 @@ and dbrx-132b (MoE), through the dense engine or the paged one
 (``serve_step_fn``), trains and prefills them all (``loss_fn``,
 ``prefill_fn``; dbrx's MoE layers sequence-sharded), runs rwkv6-7b's
 prefill and decode (``prefill_fn``, ``decode_fn``; no launcher serves it
-yet, and its training is item 7) and the forward of DLRM, the paper's own
-architecture (its ``loss_fn`` scores a batch; its kernel-mode pooling has no
-backward, so training it is item 6).  The reference's other architectures
-raise until their slice of the port lands.
+yet, and its training is item 7), and runs DLRM, the paper's own
+architecture: its ``loss_fn`` scores a batch in every mode and trains in
+bulk and fused mode (kernel mode's pooling has no backward, as the
+reference's has none).  The reference's other architectures raise until
+their slice of the port lands.
 
 At tp > 1 (a ``ParallelContext`` over a tp world) the transformers run:
 their decode (dbrx's MoE as decode EP over the whole world), their prefill,
@@ -20,8 +21,9 @@ backward; ``param_specs`` gives the leaves' logical specs the train step
 reads).  Over data replicas (dp > 1) the same holds: decode and prefill
 split the batch's rows, paged serving is replicated, and training splits
 the rows and the fsdp dims of the train state (``init_params(...,
-training=True)``).  rwkv6's heads over ranks are item 7, DLRM's tables over
-ranks item 6; rwkv6 over data is item 7, DLRM over data item 6
+training=True)``).  DLRM runs at any (dp, tp) over the flattened world:
+its tables split over all ``dp * tp`` ranks (``"world"``), its batch's rows
+too.  rwkv6's heads over ranks and rwkv6 over data are item 7
 (``check_tp``).
 """
 from __future__ import annotations
@@ -65,13 +67,10 @@ _RWKV6_TRAIN_ITEM = ("ROADMAP Queue 1 item 7 (rwkv6 training: train_forward with
 # what a family needs before it runs over several ranks
 _MULTI_RANK_ITEMS = {
     "rwkv6": "rwkv6's heads sharded over tp (state_logical_specs) are ROADMAP Queue 1 item 7",
-    "dlrm": "DLRM's tables split over real ranks are ROADMAP Queue 1 item 6",
 }
 # what a family needs before it runs over data replicas
 _DATA_ITEMS = {
     "rwkv6": "rwkv6 over data replicas is ROADMAP Queue 1 item 7",
-    "dlrm": ("DLRM over data replicas (its embedding all-to-all over the flattened world) "
-             "is ROADMAP Queue 1 item 6"),
 }
 # the model module of each family that prefills and decodes
 _DECODERS = {"transformer": "repro_torch.models.transformer",
@@ -101,7 +100,8 @@ class ArchBundle:
         more than one rank, this rank's shards of the one-rank weights
         (drawn a part at a time, each part whole, the rest freed):
         ``training`` places the fsdp dims over the data ranks, as the train
-        state is placed; serving keeps them whole."""
+        state is placed; serving keeps them whole.  DLRM's tables are split
+        over the whole world either way."""
         self.check_tp(ctx)
         if self.family == "transformer":
             from repro_torch.models.transformer import transformer_init
@@ -114,12 +114,15 @@ class ArchBundle:
         if self.family == "dlrm":
             from repro_torch.models.dlrm import dlrm_init
 
-            return dlrm_init(gen, self.config)
+            return dlrm_init(gen, self.config, ctx)
         raise ValueError(self.family)
 
     def loss_fn(self, ctx: ParallelContext) -> Callable:
-        """(params, batch) -> scalar loss, for autograd.  rwkv6 raises
-        (ROADMAP Queue 1 item 7)."""
+        """(params, batch) -> scalar loss, for autograd; the batch is the
+        global one, whole on every rank.  DLRM's is the mean BCE over the
+        global batch in any mode (in kernel mode its gradient raises: the
+        pooling kernel has no backward).  rwkv6 raises (ROADMAP Queue 1 item
+        7)."""
         cfg = self.config
         self.check_tp(ctx)
         if self.family == "transformer":
@@ -137,10 +140,14 @@ class ArchBundle:
         """The logical spec of every parameter leaf, in a tree of
         ``params``' structure (a transformer's ``PARAM_SPECS``); what
         ``build_train_step`` reads to sum the gradients of whole leaves over
-        the tp ranks.  Other families run at tp = 1 and hold every leaf
-        whole."""
+        the tp ranks; DLRM's tables ``("world", None, None)``.  rwkv6 runs at
+        tp = 1 and holds every leaf whole."""
         if self.family == "transformer":
             from repro_torch.models.transformer import param_specs
+
+            return param_specs(params)
+        if self.family == "dlrm":
+            from repro_torch.models.dlrm import param_specs
 
             return param_specs(params)
         from repro_torch.train.optimizer import tree_map
@@ -171,12 +178,13 @@ class ArchBundle:
         """The decode cache: a transformer's KV cache (at tp > 1 a rank's
         ``S_max / tp`` rows of it; at dp > 1 where dp divides the batch a
         replica's rows of it), rwkv6's recurrent state."""
+        decoder = self._decoder()
         if tp == 1 and dp == 1:
-            return self._decoder().init_cache(self.config, batch_size, device)
+            return decoder.init_cache(self.config, batch_size, device)
         if self.family != "transformer":
             raise NotImplementedError(f"{self.name} at tp={tp}, dp={dp}: "
                                       f"{_MULTI_RANK_ITEMS[self.family]}")
-        return self._decoder().init_cache(self.config, batch_size, device, tp, dp)
+        return decoder.init_cache(self.config, batch_size, device, tp, dp)
 
     # ---- paged serving (continuous batching) -----------------------------
     @property

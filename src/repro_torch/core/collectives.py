@@ -30,7 +30,10 @@ gradients of the leaves every rank holds whole.
 
 The data axis (dp > 1): ``ctx.data`` is the data group as a context of its
 own, so the same collectives run over it (:func:`all_gather_data`,
-:func:`reduce_scatter_data`, :func:`data_mean`, :func:`fsdp_gather`).
+:func:`reduce_scatter_data`, :func:`data_mean`, :func:`fsdp_gather`).  The
+flattened (dp, tp) world is ``ctx.world`` (world rank ``d * tp + m``): the
+all-to-alls take ``group="world"`` (DLRM's exchange) and :func:`world_mean`
+averages over it.
 """
 from __future__ import annotations
 
@@ -41,9 +44,6 @@ import torch.distributed as dist
 
 from repro_torch.core.scheduling import ring_offsets, sub_chunk_service_order
 from repro_torch.parallel.sharding import ParallelContext
-
-_A2A_DATA_ITEM = ("ROADMAP Queue 1 item 6 (an all-to-all over the flattened (data, model) "
-                  "world: DLRM's exchange; MoE passes group='tp', a data row's tp group)")
 
 # ---------------------------------------------------------------------------
 # wire-fault injection hook (chaos engineering)
@@ -286,6 +286,15 @@ def data_mean(ctx: ParallelContext, x):
     replica's mean loss -> the global mean); ``x`` itself at dp = 1.  Its
     backward hands each replica ``1 / dp`` of the cotangent."""
     return x if ctx.dp == 1 else all_reduce(ctx.data, x) / ctx.dp
+
+
+def world_mean(ctx: ParallelContext, x):
+    """The mean of ``x`` over all ``dp * tp`` ranks of the flattened world,
+    the same on every rank (a rank's mean loss over its rows -> the global
+    mean); ``x`` itself in a world of one rank.  Its backward hands each
+    rank ``1 / (dp * tp)`` of the cotangent."""
+    n = ctx.tp * ctx.dp
+    return x if n == 1 else all_reduce(ctx.world, x) / n
 
 
 class _FsdpGather(_AllGather):
@@ -562,15 +571,18 @@ def ring_all_gather_compute(
 # ---------------------------------------------------------------------------
 # direct all-to-all fused with per-destination compute (GEMM/embedding + A2A)
 # ---------------------------------------------------------------------------
-def _a2a_group(ctx: ParallelContext, group: str | None, name: str):
-    """Check the group an all-to-all runs over: ``"tp"``, the tp group of
-    this rank's data row (MoE's experts), at any dp; ``None``, the tp world,
-    only where it is the whole world (dp = 1): over data replicas the caller
-    names its group (DLRM's flattened world is not one)."""
-    if group not in (None, "tp"):
-        raise ValueError(f"{name}: group must be None or 'tp', got {group!r}")
+def _a2a_group(ctx: ParallelContext, group: str | None, name: str) -> ParallelContext:
+    """The context an all-to-all runs over: ``"tp"``, the tp group of this
+    rank's data row (MoE's experts), at any dp; ``"world"``, all ``dp * tp``
+    ranks in world order (``ctx.world``: DLRM's exchange); ``None``, the tp
+    world, only where it is the whole world (dp = 1): over data replicas the
+    caller names its group."""
+    if group not in (None, "tp", "world"):
+        raise ValueError(f"{name}: group must be None, 'tp' or 'world', got {group!r}")
     if group is None and ctx.dp != 1:
-        raise NotImplementedError(f"{name} at dp={ctx.dp}: {_A2A_DATA_ITEM}")
+        raise ValueError(f"{name} at dp={ctx.dp}: name the group, 'tp' (this replica's tp "
+                         f"ranks) or 'world' (all dp * tp ranks)")
+    return ctx.world if group == "world" else ctx
 
 
 def _all_to_all(ctx: ParallelContext, x):
@@ -597,9 +609,11 @@ def bulk_all_to_all(ctx: ParallelContext, x, *, group: str | None = None):
     """Baseline: one All-to-All over the leading dim [n, ...] -> [n, ...]
     across the tp ranks (block ``j`` goes to rank ``j``; the result is
     stacked by source).  ``group="tp"`` runs it over the tp group of this
-    rank's data row at any dp (:func:`_a2a_group`).  On a one-rank world it
-    is the identity.  Differentiable (:class:`_BulkAllToAll`)."""
-    _a2a_group(ctx, group, "bulk_all_to_all")
+    rank's data row at any dp, ``group="world"`` over all ``dp * tp`` ranks
+    in world order (:func:`_a2a_group`).  On a one-rank world it is the
+    identity.  Differentiable (:class:`_BulkAllToAll`, over the same
+    group)."""
+    ctx = _a2a_group(ctx, group, "bulk_all_to_all")
     if ctx.tp == 1:
         return x
     return _BulkAllToAll.apply(ctx, x)
@@ -621,12 +635,18 @@ class _DirectSends(torch.autograd.Function):
 
     @staticmethod
     def backward(fctx, *gs):
-        ctx, wire = fctx.pctx, fctx.wire
-        waits = []
-        for off, g in zip(fctx.offs, gs):      # undefined cotangents come as zeros
-            waits.append((ring_permute_start(ctx, wire_cast(g.contiguous(), wire), shift=-off),
-                          g.dtype))
-        return (None, None, None, None) + tuple(wire_uncast(w(), dt) for w, dt in waits)
+        # undefined cotangents come as zeros
+        return (None, None, None, None) + tuple(
+            _send_back(fctx.pctx, zip(fctx.offs, gs), fctx.wire))
+
+
+def _send_back(ctx: ParallelContext, sent, wire: str) -> list:
+    """Each (off, cotangent) of ``sent`` back along ``-off``, all posted in
+    that order, each rounded to the wire as the forward's payload was; the
+    cotangents received, in the same order."""
+    waits = [(ring_permute_start(ctx, wire_cast(g.contiguous(), wire), shift=-off), g.dtype)
+             for off, g in sent]
+    return [wire_uncast(w(), dt) for w, dt in waits]
 
 
 def direct_all_to_all_compute(
@@ -651,7 +671,8 @@ def direct_all_to_all_compute(
     sent (at offset ``off``: to ``d + off``, from ``d - off``) the moment it
     is produced and received at the end.  Returns ``[n, *chunk_shape]``
     stacked by source rank.  ``group="tp"`` runs over the tp group of this
-    rank's data row at any dp (:func:`_a2a_group`).
+    rank's data row at any dp, ``group="world"`` over all ``dp * tp`` ranks
+    in world order, the destinations world ranks (:func:`_a2a_group`).
 
     ``wire`` compresses each remote send on the producer side (one rounding
     per value); the local chunk never touches the wire.  On a one-rank
@@ -659,8 +680,9 @@ def direct_all_to_all_compute(
 
     Differentiable: the local slices through their copies, the remote ones
     through :class:`_DirectSends`, whose backward returns each cotangent
-    along ``-off`` (rounded to the wire as the forward's payload was)."""
-    _a2a_group(ctx, group, "direct_all_to_all_compute")
+    along ``-off`` (rounded to the wire as the forward's payload was), over
+    the same group."""
+    ctx = _a2a_group(ctx, group, "direct_all_to_all_compute")
     n, d = ctx.tp, ctx.tp_rank
     q = chunks_per_rank
     if chunk_shape[sub_axis] % q:
@@ -692,6 +714,43 @@ def direct_all_to_all_compute(
                                       *(y for _, y in sent))
     for (_, src, s), r in zip(pending, received):
         out[src].narrow(sub_axis, s * sub, sub).copy_(r)
+    return out
+
+
+def direct_all_to_all_transpose(
+    ctx: ParallelContext,
+    g,
+    *,
+    schedule: str = "comm_aware",
+    chunks_per_rank: int = 1,
+    sub_axis: int = 0,
+    skew: int = 0,
+    wire: str = "f32",
+    group: str | None = None,
+):
+    """The adjoint of :func:`direct_all_to_all_compute` on the same
+    arguments: ``g`` [n, *chunk] is the cotangent of its result (stacked by
+    source); returns [n, *chunk] stacked by destination, the cotangent of
+    each chunk this rank produced.  Each remote slice's cotangent goes back
+    along ``-off`` in the forward's order on every rank, rounded to the wire
+    as the forward's payload was (:class:`_DirectSends`' backward, for a
+    caller that produced its chunks without autograd)."""
+    ctx = _a2a_group(ctx, group, "direct_all_to_all_transpose")
+    n, d, q = ctx.tp, ctx.tp_rank, chunks_per_rank
+    if n == 1:
+        return g
+    sub = g.shape[1 + sub_axis] // q
+    piece = lambda t, s: t.narrow(sub_axis, s * sub, sub)
+    out, sent, places = torch.empty_like(g), [], []
+    for off in ring_offsets(n, schedule, skew):
+        for s in range(q):
+            if off == 0:
+                piece(out[d], s).copy_(piece(g[d], s))
+            else:
+                sent.append((off, piece(g[(d - off) % n], s)))
+                places.append(((d + off) % n, s))
+    for (dest, s), got in zip(places, _send_back(ctx, sent, wire)):
+        piece(out[dest], s).copy_(got)
     return out
 
 

@@ -8,7 +8,10 @@ overlap from its asynchronous ``device_put``).
 
 Over data replicas (dp > 1) every rank draws the same global batches from
 the seed, and :func:`shard_batch` keeps a replica's rows, as the reference's
-``"batch"`` spec places them; so the losses are dp = 1's.
+``"batch"`` spec places them; so the losses are dp = 1's.  A DLRM batch
+splits over the flattened (dp, tp) world instead, as the reference's
+``batch_struct`` places it: ``dense`` and ``labels`` by rows, ``indices`` by
+tables.
 """
 from __future__ import annotations
 
@@ -46,12 +49,35 @@ def batch_rows(ctx, B: int) -> tuple[int, int] | None:
 def shard_batch(batch: dict, ctx) -> dict:
     """Data replica ``ctx.dp_rank``'s rows of every array of a global batch
     (leading dim B; :func:`batch_rows`): the dict itself where the batch
-    stays whole."""
+    stays whole.  A DLRM batch (it has ``indices``) splits over the world
+    (:func:`shard_dlrm_batch`)."""
+    if "indices" in batch:
+        return shard_dlrm_batch(batch, ctx)
     rows = batch_rows(ctx, next(iter(batch.values())).shape[0])
     if rows is None:
         return batch
     lo, n = rows
     return {k: v[lo:lo + n] for k, v in batch.items()}
+
+
+def shard_dlrm_batch(batch: dict, ctx) -> dict:
+    """World rank r's part of a global DLRM batch (``r = dp_rank * tp +
+    tp_rank`` of ``n = dp * tp``): rows ``[r B / n, (r + 1) B / n)`` of
+    ``dense`` and ``labels``, the tables ``[r T / n, (r + 1) T / n)`` of
+    ``indices`` [B, T, L] (a contiguous copy: the pooling kernel takes
+    contiguous indices); the dict itself in a world of one rank."""
+    tp, dp = ctx.tp, getattr(ctx, "dp", 1)
+    n = tp * dp
+    if n == 1:
+        return batch
+    r = getattr(ctx, "dp_rank", 0) * tp + ctx.tp_rank
+    B, T = batch["indices"].shape[:2]
+    if B % n or T % n:
+        raise ValueError(f"a DLRM batch of {B} rows over {T} tables does not split over the "
+                         f"world's {n} ranks")
+    rows, tabs = B // n, T // n
+    return {k: v[:, r * tabs:(r + 1) * tabs].contiguous() if k == "indices" else
+            v[r * rows:(r + 1) * rows] for k, v in batch.items()}
 
 
 def prefetch(it: Iterator, device, depth: int = 2):

@@ -12,10 +12,12 @@ path for a one-rank call, the faster there on an H100.  The partition comes from
 from the CTAs it holds at once.
 
 Both entries go through one ``torch.autograd.Function`` whose backward
-raises: the TPU kernel has no VJP (``jax.grad`` through it raises), and a
-ctypes launch is invisible to autograd, so without it a gradient would be
-lost silently.  The backward raises on the CPU too, where the plain version
-runs, so kernel mode behaves the same on both devices.
+raises: the TPU kernel has no VJP (``jax.grad`` through it raises, and so
+does the reference's kernel-mode DLRM), and a ctypes launch is invisible to
+autograd, so without it a gradient would be lost silently.  DLRM trains in
+bulk or fused mode, whose pooling is the library's.  The backward raises on
+the CPU too, where the plain version runs, so kernel mode behaves the same
+on both devices.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ from repro_torch.kernels import check_launch, dtype_code, load_library, sm_count
 from repro_torch.kernels.embedding_pool.plan import PATHS, RING_BYTES, call_plan
 from repro_torch.kernels.embedding_pool.ref import embedding_pool_tables_ref
 
-_TRAIN_ITEM = "ROADMAP Queue 1 item 6 (DLRM training)"
+NO_BACKWARD = ("the embedding_pool kernel has no backward, nor has the TPU kernel (jax.grad "
+               "through the reference's kernel mode raises too): DLRM trains in bulk or fused "
+               "mode")
 
 
 def embedding_pool(table, idx):
@@ -98,8 +102,7 @@ class _Pool(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(f"embedding_pool has no backward kernel (nor has the "
-                                  f"TPU kernel): training DLRM is {_TRAIN_ITEM}")
+        raise NotImplementedError(NO_BACKWARD)
 
 
 def _launch(tables, idx, plan):

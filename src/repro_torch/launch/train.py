@@ -8,6 +8,8 @@ synthetic data through the fused operators.
       -m repro_torch.launch.train --tp 2 --backend gloo --reduced --device cpu
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
       -m repro_torch.launch.train --dp 2 --tp 2 --backend gloo --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm --tables 32 --fusion fused \
+      --batch 8192 --steps 3 --lr 1e-3
 
 Dense transformers train (``bundle.loss_fn``: ``train_forward`` with remat,
 the vocab-sharded CE ring), in ``kernel`` mode (every attention forward is
@@ -26,6 +28,14 @@ rank's losses are its own.
 ``--layers N`` cuts the model to its first N layers at full width (the
 reduced model's heads of 16 are not a size the flash kernel takes, so a
 card runs kernel mode at full width).
+
+``--arch dlrm`` trains DLRM on ``DLRMBatches`` of ``--batch`` rows (``--seq``
+unused) in bulk or fused mode, at any ``--tp`` and ``--dp``: its tables split
+over all ``dp * tp`` ranks, each rank its ``--batch / (dp * tp)`` rows.
+``--tables N`` keeps the first N tables, widths kept (DLRM's depth cut: its
+512 published tables are 188 GB in f32).  ``--fusion kernel`` (the default)
+raises for DLRM before any step: the pooling kernel has no backward, as the
+reference's kernel mode has none.
 Weights are random, drawn from seed 0; batches are ``LMBatches`` from seed
 0, copied to the device ahead of the step (``data.pipeline.prefetch``).  It
 prints the reference launcher's per-step line every ``--log-every`` steps
@@ -58,8 +68,9 @@ from repro_torch.core.autotune import (add_granularity_cli_args, load_cache_if_e
                                        save_cache)
 from repro_torch.core.calibrate import add_calibration_cli_args, warmup_and_calibrate
 from repro_torch.data.pipeline import prefetch, to_device
-from repro_torch.data.synthetic import LMBatches
+from repro_torch.data.synthetic import DLRMBatches, LMBatches
 from repro_torch.kernels import load_library
+from repro_torch.kernels.embedding_pool.ops import NO_BACKWARD
 from repro_torch.launch.mesh import BACKENDS, close_world, init_world
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 from repro_torch.train.optimizer import OptimizerConfig
@@ -87,17 +98,20 @@ _LATER_VALUES = (
     ("--step-deadline", "step_deadline", f"{_RUNTIME}: liveness"),
 )
 _NOT_TRAINED = {
-    "dlrm": "ROADMAP Queue 1 item 6 (DLRM training: kernel-mode pooling has no backward)",
     "rwkv6": "ROADMAP Queue 1 item 7 (rwkv6 training: a WKV6 backward)",
 }
 
 
 def make_batches(bundle, batch: int, seq: int, seed: int = 0):
-    """The reference launcher's batches for a transformer: numpy
-    ``LMBatches`` over the config's vocabulary."""
+    """The reference launcher's batches: numpy ``LMBatches`` over a
+    transformer's vocabulary, ``DLRMBatches`` of DLRM's tables (``seq``
+    unused)."""
+    cfg = bundle.config
+    if bundle.family == "dlrm":
+        return DLRMBatches(cfg.n_tables, cfg.table_vocab, cfg.pooling, cfg.n_dense, batch, seed)
     if bundle.family != "transformer":
         raise NotImplementedError(f"{bundle.name}: {_NOT_TRAINED[bundle.family]}")
-    return LMBatches(bundle.config.vocab, batch, seq, seed)
+    return LMBatches(cfg.vocab, batch, seq, seed)
 
 
 def build_parser():
@@ -106,6 +120,8 @@ def build_parser():
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to its first N layers, widths kept (0: all)")
+    ap.add_argument("--tables", type=int, default=0,
+                    help="DLRM: keep its first N tables, widths kept (0: all)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=64)
@@ -153,6 +169,13 @@ def _train(args, device, on_phase):
     if args.layers:
         bundle = dataclasses.replace(bundle, config=dataclasses.replace(
             bundle.config, n_layers=args.layers))
+    if args.tables:
+        if bundle.family != "dlrm":
+            raise ValueError(f"--tables cuts DLRM's tables; {bundle.name} has none")
+        bundle = dataclasses.replace(bundle, config=dataclasses.replace(
+            bundle.config, n_tables=args.tables))
+    if bundle.family == "dlrm" and args.fusion == "kernel":
+        raise NotImplementedError(f"--arch dlrm --fusion kernel: {NO_BACKWARD}")
     batches = make_batches(bundle, args.batch, args.seq)
     load_cache_if_exists(args.tune_cache)
     ctx = ParallelContext(device=device, tp=args.tp, dp=args.dp, fusion=FusionConfig(

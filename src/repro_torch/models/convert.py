@@ -64,14 +64,21 @@ def params_from_numpy(tree, device="cpu", ctx=None, training: bool = False):
             "final_norm": _conv(tree["final_norm"], device), "layers": layers}
 
 
-def dlrm_params_from_numpy(tree, device="cpu"):
+def dlrm_params_from_numpy(tree, device="cpu", ctx=None):
     """JAX DLRM params as nested numpy arrays (``split_params`` values
     through ``np.asarray``: ``tables`` [T, V, D], ``bottom`` and ``top``
-    lists of ``{"w", "b"}``) -> the port's parameters, the same tree."""
+    lists of ``{"w", "b"}``) -> the port's parameters, the same tree.  With
+    a ``ctx`` of more than one rank, the tables are this rank's world shard
+    (``dlrm.DLRM_PARAM_SPECS``); the MLP stays whole.  Any tree of that
+    layout converts the same way (AdamW's moments)."""
+    from repro_torch.models.dlrm import DLRM_PARAM_SPECS
+
     layers = lambda key: [{k: _tensor(v, device) for k, v in layer.items()}
                           for layer in tree[key]]
-    return {"tables": _tensor(tree["tables"], device), "bottom": layers("bottom"),
-            "top": layers("top")}
+    tables = _tensor(tree["tables"], device)
+    if ctx is not None:
+        tables = shard_leaf(tables, DLRM_PARAM_SPECS["tables"], ctx)
+    return {"tables": tables, "bottom": layers("bottom"), "top": layers("top")}
 
 
 def rwkv6_params_from_numpy(tree, device="cpu"):
@@ -86,7 +93,7 @@ def rwkv6_params_from_numpy(tree, device="cpu"):
 
 
 def train_state_from_numpy(state, device="cpu", ctx=None):
-    """A JAX transformer train state (``init_train_state``'s tree through
+    """A JAX transformer or DLRM train state (``init_train_state``'s tree through
     ``np.asarray``: ``params``, ``opt`` with AdamW's ``mu``/``nu``/``step``
     or Adafactor's ``v``/``step``, and the compression ``residuals`` if
     any) -> the port's state (``repro_torch.train.step``).  Parameters are
@@ -94,8 +101,12 @@ def train_state_from_numpy(state, device="cpu", ctx=None):
     With a ``ctx`` of more than one rank, this rank's shards of the
     parameters, the optimizer state (AdamW's moments, or Adafactor's
     stacked factors by ``optimizer_state_specs``) and the residuals, in the
-    training placement (``train_state_specs``)."""
-    conv = lambda t: params_from_numpy(t, device, ctx, training=True)
+    training placement (``train_state_specs``); a DLRM state's tables and
+    their moments by world rank."""
+    if "tables" in state["params"]:
+        conv = lambda t: dlrm_params_from_numpy(t, device, ctx)
+    else:
+        conv = lambda t: params_from_numpy(t, device, ctx, training=True)
     params = conv(state["params"])
     for p in tree_leaves(params):
         p.requires_grad_(True)

@@ -6,11 +6,16 @@ All-to-All the paper fuses into embedding pooling
 (:mod:`repro_torch.core.embedding_all_to_all`).  The interaction consumes
 that output directly in its {local batch, tables x dim} layout.
 
-This slice runs the forward on one card: scoring a batch, which is what
-recommendation inference runs and the first half of a training step.  In
-kernel mode the pooling has no backward (neither has the TPU kernel), so
-training DLRM waits for ROADMAP Queue 1 item 6.  Plain products stay
-``torch.matmul``, as the reference leaves them to XLA.
+Over a world of ``n = dp * tp`` ranks (world rank ``r = dp_rank * tp +
+tp_rank``) rank r holds tables ``[r T / n, (r + 1) T / n)`` (the reference's
+``("world", None, None)``: ``DLRM_PARAM_SPECS``) and every MLP leaf whole;
+it runs rows ``[r B / n, (r + 1) B / n)`` of the batch
+(``data.pipeline.shard_batch``), and the loss is the mean over the global
+batch, the same on every rank.  Bulk and fused mode train (the exchange and
+the pooling have their backward); kernel mode scores batches, and its
+gradient raises, as ``jax.grad`` through the reference's Pallas pooling
+does.  Plain products stay ``torch.matmul``, as the reference leaves them to
+XLA.
 """
 from __future__ import annotations
 
@@ -18,9 +23,16 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.collectives import world_mean
 from repro_torch.core.embedding_all_to_all import embedding_all_to_all
+from repro_torch.data.pipeline import shard_batch
 from repro_torch.models.common import DTYPES, dense_init, embed_init
-from repro_torch.parallel.sharding import ParallelContext
+from repro_torch.parallel.sharding import ParallelContext, shard_leaf
+
+# the reference's logical specs (src/repro/models/dlrm.py:43-56): the tables
+# split over the flattened world, every MLP leaf whole
+DLRM_PARAM_SPECS = {"tables": ("world", None, None), "w": (None, None), "b": (None,)}
+
 
 @dataclasses.dataclass(frozen=True)
 class DLRMConfig:
@@ -40,14 +52,23 @@ class DLRMConfig:
         return DTYPES[self.param_dtype]
 
 
-def dlrm_init(gen: torch.Generator, cfg: DLRMConfig):
+def param_specs(params):
+    """The logical spec of every leaf, in a tree of ``params``' structure."""
+    mlp = lambda key: [{k: DLRM_PARAM_SPECS[k] for k in layer} for layer in params[key]]
+    return {"tables": DLRM_PARAM_SPECS["tables"], "bottom": mlp("bottom"), "top": mlp("top")}
+
+
+def dlrm_init(gen: torch.Generator, cfg: DLRMConfig, ctx: ParallelContext | None = None):
     """Tables (normal, std 0.02), MLP weights (truncated-normal fan-in) and
-    zero biases on ``gen``'s device, in the reference's tree and order."""
+    zero biases on ``gen``'s device, in the reference's tree and order; with
+    a ``ctx`` of more than one rank, this rank's world shard of the
+    one-rank tables (drawn whole, then sliced and the rest freed), so every
+    rank draws the same MLP."""
     dt = cfg.pdtype
-    params = {
-        "tables": embed_init(gen, (cfg.n_tables, cfg.table_vocab, cfg.embed_dim), dt),
-        "bottom": [], "top": [],
-    }
+    tables = embed_init(gen, (cfg.n_tables, cfg.table_vocab, cfg.embed_dim), dt)
+    if ctx is not None:
+        tables = shard_leaf(tables, DLRM_PARAM_SPECS["tables"], ctx)
+    params = {"tables": tables, "bottom": [], "top": []}
     d = cfg.n_dense
     for h in cfg.bottom_mlp:
         params["bottom"].append({"w": dense_init(gen, (d, h), dt),
@@ -85,17 +106,30 @@ def _interaction(bottom, pooled):
 
 def dlrm_forward(ctx: ParallelContext, params, cfg: DLRMConfig, batch, *,
                  mode: str | None = None):
-    """batch: dense [B, n_dense], indices [B, T, L] int32.  Returns logits [B]."""
-    bottom = _mlp(params["bottom"], batch["dense"])           # [B, D]
-    pooled = embedding_all_to_all(ctx, batch["indices"], params["tables"], mode=mode)
+    """batch: the global batch, dense [B, n_dense] and indices [B, T, L]
+    int32 (and labels [B]), whole on every rank.  Returns this rank's
+    logits [B / n]: rows ``[r B / n, (r + 1) B / n)`` of world rank r (all B
+    in a world of one rank)."""
+    return _forward_rows(ctx, params, shard_batch(batch, ctx), mode)
+
+
+def _forward_rows(ctx, params, mine, mode):
+    """The forward on this rank's part of the batch (``shard_batch``)."""
+    bottom = _mlp(params["bottom"], mine["dense"])            # [B / n, D]
+    pooled = embedding_all_to_all(ctx, mine["indices"], params["tables"], mode=mode)
     return _mlp(params["top"], _interaction(bottom, pooled))[:, 0]
 
 
 def dlrm_loss(ctx: ParallelContext, params, cfg: DLRMConfig, batch, *,
               mode: str | None = None):
-    """Mean binary cross-entropy of the logits against ``batch["labels"]``."""
-    z = dlrm_forward(ctx, params, cfg, batch, mode=mode).float()
-    y = batch["labels"].float()
+    """Mean binary cross-entropy of the logits against ``batch["labels"]``
+    over the global batch, the same on every rank (each rank's mean over its
+    rows, averaged over the world: ``collectives.world_mean``), so the
+    gradients of the leaves whole on every rank, summed over the world,
+    are the global mean's."""
+    mine = shard_batch(batch, ctx)
+    z = _forward_rows(ctx, params, mine, mode).float()
+    y = mine["labels"].float()
     # numerically stable BCE-with-logits, the reference's formula
     loss = torch.clamp_min(z, 0) - z * y + torch.log1p(torch.exp(-z.abs()))
-    return loss.mean()
+    return world_mean(ctx, loss.mean())

@@ -13,9 +13,13 @@ tp`` of replica ``r // tp``.  Its tp group holds the ranks of one replica,
 its data group the ranks with the same tp rank (``make_world_groups``, which
 every rank runs in the same order).  ``ParallelContext.data`` is the data
 axis seen as a context of its own (its ``tp`` the data group's size), so the
-collectives of ``core/collectives.py`` run over it unchanged.  Training
+collectives of ``core/collectives.py`` run over it unchanged; so is
+``ParallelContext.world``, the flattened world of all ``dp * tp`` ranks in
+world order ``d * tp + m`` (the reference's ``dp_axes + (tp_axis,)``),
+which DLRM's tables and its embedding all-to-all run over.  Training
 places the ``"fsdp"`` dims over the data ranks (``shard_leaf(...,
 training=True)``); serving keeps them whole, as the reference's launchers do.
+A ``"world"`` dim is split over the whole world in both.
 """
 from __future__ import annotations
 
@@ -33,6 +37,11 @@ from repro_torch.core.perfmodel import GLOO_HOST, H100_NVLINK, MeshHardwareModel
 _TP_AXES = ("tp", "model", "vocab", "seq", "heads", "expert")
 _DATA_AXES = ("batch", "fsdp")
 _WHOLE_AXES = (None, "none") + _DATA_AXES
+# the flattened (data, model) world (src/repro/parallel/sharding.py:181):
+# DLRM's tables and its embedding all-to-all; the reference's axis names,
+# which the autotuner resolves a link model for
+WORLD_AXIS = "world"
+WORLD_AXES = ("data", "model")
 
 # (dp, tp) -> (this rank's tp group, its data group), made by make_world_groups
 _WORLD_GROUPS: dict = {}
@@ -138,7 +147,9 @@ class FusionConfig:
       wire hides behind compute keeps f32.
 
     In this port ``"bulk"`` and ``"fused"`` run at any tp, ``"kernel"`` at
-    tp = 1 (the real-peer kernels wait for a multi-card host), at any dp; the
+    tp = 1 (the real-peer kernels wait for a multi-card host), at any dp
+    (DLRM's embedding all-to-all in kernel mode at any (dp, tp): its kernel
+    pools a fragment on one rank, the fused loop sends it); the
     ``"auto"`` granularity and wire resolve at every fused-op call site.
     The ``"auto"`` mode (the comm-graph rewrite) waits for ROADMAP Queue 1
     item 7.
@@ -178,7 +189,11 @@ class ParallelContext:
     where one axis is the whole world), started beforehand
     (``launch.mesh.init_world``); the context reads this rank's place in
     each (``tp_rank``, ``dp_rank``) and the world's backend (``"gloo"`` or
-    ``"nccl"``).  ``data`` is the data axis as a context of its own.
+    ``"nccl"``).  ``data`` is the data axis as a context of its own, ``world``
+the flattened world of all ``dp * tp`` ranks (its ``tp`` the world's size,
+its ``tp_rank`` this rank's world rank ``dp_rank * tp + tp_rank``): the tp
+world itself at dp = 1, ``data`` at tp = 1, else the default process group,
+whose rank order is world order (``make_world_groups``).
 
     ``hw`` is the link model the autotuner decides under (a
     :class:`MeshHardwareModel`).  ``None`` takes it from the world: a gloo
@@ -198,6 +213,7 @@ class ParallelContext:
     dp_rank: int = dataclasses.field(init=False, default=0)
     backend: str | None = dataclasses.field(init=False, default=None)
     data: Any = dataclasses.field(init=False, default=None, repr=False, compare=False)
+    world: Any = dataclasses.field(init=False, default=None, repr=False, compare=False)
 
     def __post_init__(self):
         dev = torch.device(self.device)
@@ -229,6 +245,21 @@ class ParallelContext:
         if self.hw is None:
             link = GLOO_HOST if self.tp > 1 and self.backend == "gloo" else H100_NVLINK
             object.__setattr__(self, "hw", MeshHardwareModel.uniform(link))
+        object.__setattr__(self, "world", self._world())
+
+    def _world(self) -> "ParallelContext":
+        """The flattened world as a context of its own (``world``)."""
+        if self.dp == 1:
+            return self
+        if self.tp == 1:
+            return self.data
+        world = ParallelContext(device=self.device, fusion=self.fusion, tp=self.tp * self.dp,
+                                hw=self.hw)
+        if world.tp_rank != self.dp_rank * self.tp + self.tp_rank:
+            raise ValueError(f"rank {world.tp_rank} of the default group is tp rank "
+                             f"{self.tp_rank} of replica {self.dp_rank}: the world's rank "
+                             f"order must be replica major (make_world_groups)")
+        return world
 
     @staticmethod
     def _place(group, size: int, axis: str) -> int:
@@ -255,33 +286,40 @@ class ParallelContext:
 
 
 def splits_over_tp(spec) -> bool:
-    """Whether a logical ``spec`` splits a dim over the tp ranks (else the
-    leaf is whole on every rank of a replica)."""
-    return any(ax in _TP_AXES for ax in spec)
+    """Whether a logical ``spec`` splits a dim over the tp ranks (a tp axis
+    or ``"world"``; else the leaf is whole on every rank of a replica)."""
+    return any(ax in _TP_AXES or ax == WORLD_AXIS for ax in spec)
 
 
 def splits_over_data(spec) -> bool:
     """Whether a logical ``spec`` splits a dim over the data ranks where it
-    is placed for training (a ``"fsdp"`` or ``"batch"`` dim); else the leaf
-    is whole on every replica."""
-    return any(ax in _DATA_AXES for ax in spec)
+    is placed for training (a ``"fsdp"``, ``"batch"`` or ``"world"`` dim);
+    else the leaf is whole on every replica."""
+    return any(ax in _DATA_AXES or ax == WORLD_AXIS for ax in spec)
 
 
 def split_dims(spec, ctx, training: bool = False) -> list:
     """[(dim, ranks, rank)] of each dim ``spec`` splits in ``ctx``'s world:
-    a tp axis over ``ctx.tp``, with ``training`` a data axis over ``ctx.dp``
-    (a dim split over one rank is left out).  ``ctx`` needs only ``tp``,
-    ``tp_rank`` and, where dp > 1, ``dp`` and ``dp_rank``."""
-    unknown = [ax for ax in spec if ax not in _TP_AXES and ax not in _WHOLE_AXES]
+    a tp axis over ``ctx.tp``, with ``training`` a data axis over ``ctx.dp``,
+    a ``"world"`` dim over all ``dp * tp`` ranks at world rank ``dp_rank *
+    tp + tp_rank`` (a dim split over one rank is left out).  ``ctx`` needs
+    only ``tp``, ``tp_rank`` and, where dp > 1, ``dp`` and ``dp_rank``."""
+    unknown = [ax for ax in spec if ax not in _TP_AXES and ax not in _WHOLE_AXES
+               and ax != WORLD_AXIS]
     tp_dims = [i for i, ax in enumerate(spec) if ax in _TP_AXES]
     data_dims = [i for i, ax in enumerate(spec) if ax in _DATA_AXES]
-    if unknown or len(tp_dims) > 1 or len(data_dims) > 1:
+    world_dims = [i for i, ax in enumerate(spec) if ax == WORLD_AXIS]
+    if unknown or len(tp_dims) > 1 or len(data_dims) > 1 or \
+            (world_dims and (len(world_dims) > 1 or tp_dims or data_dims)):
         raise ValueError(f"logical spec {spec}: one tp axis of {_TP_AXES} and one data axis "
-                         f"of {_DATA_AXES} at most")
+                         f"of {_DATA_AXES} at most, or one {WORLD_AXIS!r} axis alone")
     dp = getattr(ctx, "dp", 1)
+    dp_rank = getattr(ctx, "dp_rank", 0)
     out = [(i, ctx.tp, ctx.tp_rank) for i in tp_dims if ctx.tp > 1]
     if training:
-        out += [(i, dp, ctx.dp_rank) for i in data_dims if dp > 1]
+        out += [(i, dp, dp_rank) for i in data_dims if dp > 1]
+    out += [(i, dp * ctx.tp, dp_rank * ctx.tp + ctx.tp_rank) for i in world_dims
+            if dp * ctx.tp > 1]
     return sorted(out)
 
 
@@ -292,7 +330,8 @@ def shard_leaf(x: torch.Tensor, spec, ctx: ParallelContext, training: bool = Fal
     ``"seq"`` or ``"heads"`` is split into ``ctx.tp`` equal blocks and block
     ``ctx.tp_rank`` kept; with ``training`` a dim named ``"fsdp"`` is split
     into ``ctx.dp`` blocks and block ``ctx.dp_rank`` kept (the train state's
-    placement); ``None``, and ``"fsdp"`` in serving, keep the dim whole.
+    placement); a ``"world"`` dim into ``dp * tp`` blocks in world order;
+    ``None``, and ``"fsdp"`` in serving, keep the dim whole.
     The SPMD counterpart of the reference's ``param_sharding_rules``.  When
     no dim splits, ``x`` itself is returned; otherwise a compact copy, so
     the whole can be freed."""

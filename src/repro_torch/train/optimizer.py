@@ -30,8 +30,10 @@ rule on it, and a leaf whole on every rank gets the same gradient and so
 the same bits everywhere (``train/step.py`` sums its partials over the
 ranks first).  Over data replicas (dp > 1) the train state's fsdp dims are
 split over the data ranks as well, and AdamW updates those shards the same
-way.  :func:`clip_by_global_norm` takes the world and the specs and sums
-the squares of each leaf over the ranks it is split over;
+way, and DLRM's tables, split over the whole flattened world.
+:func:`clip_by_global_norm` takes the world and the specs and sums
+the squares of each leaf over the ranks it is split over (a ``"world"``
+leaf over tp, then data: each table counted once);
 :func:`optimizer_state_specs` gives the state the parameters' specs (the
 moments inherit the fsdp split).  Adafactor's factored moments and its
 update clip reduce over the leaf's axes, some of which a world splits: given
@@ -283,7 +285,7 @@ class _Shards:
     and every mean is the plain one."""
 
     def __init__(self, spec, ctx):
-        from repro_torch.parallel.sharding import _DATA_AXES, _TP_AXES
+        from repro_torch.parallel.sharding import _DATA_AXES, _TP_AXES, WORLD_AXIS
 
         self.dims = {}
         for i, ax in enumerate(spec or ()):
@@ -291,6 +293,8 @@ class _Shards:
                 self.dims[i] = (ctx, ctx.tp)
             elif ctx is not None and ax in _DATA_AXES and ctx.dp > 1:
                 self.dims[i] = (ctx.data, ctx.dp)
+            elif ctx is not None and ax == WORLD_AXIS and ctx.tp * ctx.dp > 1:
+                self.dims[i] = (ctx.world, ctx.tp * ctx.dp)
 
     def mean(self, x, dim, leaf_dim, keepdim=False):
         """The mean of x over ``dim``, which is the leaf's dim ``leaf_dim``:

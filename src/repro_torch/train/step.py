@@ -25,6 +25,12 @@ their gathers' backward.  Gradient compression runs over the shards
 (``compress_decompress`` with the world and the specs), and so does the
 optimizer's update (Adafactor's means over split dims reduce over the
 ranks that split them, ``optimizer.adafactor_update``).
+
+DLRM at any (dp, tp): its tables are split over the flattened world
+(``"world"``), so their gradients (each rank's shard, complete through the
+exchange's backward) are not summed; its MLP leaves, whole on every rank,
+are summed over tp, then over data, which is the whole world; the clip's
+norm counts each table once, and AdamW updates the shards.
 """
 from __future__ import annotations
 

@@ -358,13 +358,15 @@ def test_params_and_train_state_from_numpy_at_dp(world, glm):
 
 
 def test_what_stays_out_refuses_at_dp():
-    """DLRM over data replicas raises naming its ROADMAP item; MoE over data
+    """rwkv6 over data replicas raises naming its ROADMAP item; DLRM over
+    data replicas (its tables over the flattened world), MoE over data
     replicas and Adafactor at dp > 1 (ROADMAP item 5's) build their
     functions."""
     two = types.SimpleNamespace(tp=1, dp=2)
     assert callable(get_arch("dbrx-132b").reduced().decode_fn(two))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        get_arch("dlrm").reduced().loss_fn(two)
+    assert callable(get_arch("dlrm").reduced().loss_fn(two))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        get_arch("rwkv6-7b").reduced().loss_fn(two)
     tc = TrainConfig(optimizer=OptimizerConfig(name="adafactor"))
     assert callable(build_train_step(lambda p, b: None, tc, ctx=two, param_specs={}))
 

@@ -276,12 +276,21 @@ def test_launcher_autotune_flags(tmp_path, capsys, flag):
     (["--ckpt-dir", "x"], "item 7"), (["--ckpt-every", "5"], "item 7"),
     (["--heartbeat-dir", "x"], "item 7"), (["--coordinator", "h:1"], "item 7"),
     (["--production-mesh"], "item 1"),
-    (["--arch", "rwkv6-7b"], "item 7"), (["--arch", "dlrm"], "item 6"),
+    (["--arch", "rwkv6-7b"], "item 7"),
     (["--arch", "deepseek-v3-671b"], "item 5"),
 ])
 def test_launcher_refuses_later_slices(argv, match):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {match}"):
         launch_train.main(["--reduced", "--device", "cpu", "--steps", "1"] + argv)
+
+
+def test_launcher_refuses_dlrm_in_kernel_mode():
+    """DLRM trains in bulk and fused mode; kernel mode (the launcher's
+    default) raises before any step, naming the pooling kernel's missing
+    backward, as the reference's kernel mode has none."""
+    with pytest.raises(NotImplementedError, match="embedding_pool kernel has no backward"):
+        launch_train.main(["--reduced", "--device", "cpu", "--steps", "1", "--arch", "dlrm",
+                           "--fusion", "kernel"])
 
 
 def test_launcher_trains_reduced_dbrx():

@@ -971,3 +971,129 @@ def adafactor_task(ctx, state, grads, steps=2):
         adafactor_update(cfg, g, st["opt"], st["params"], 1, c, specs)
     return ([p.detach().numpy() for p in tree_leaves(st["params"])],
             [v.numpy() for v in tree_leaves(st["opt"]["v"])])
+
+
+# ---------------------------------------------------------------------------
+# DLRM over the flattened (dp, tp) world: world rank r = dp_rank * tp +
+# tp_rank holds tables [r T / n, (r + 1) T / n) and runs rows [r B / n, ...)
+# ---------------------------------------------------------------------------
+def _dlrm_batch(batch):
+    return {k: t(v) for k, v in batch.items()}
+
+
+@task
+def dlrm_a2a_task(ctx, tables, indices, mode, cases, hw=None, skews=(0, 1)):
+    """``embedding_all_to_all`` of this rank's world shard of whole numpy
+    tables [T, V, D] and the global batch's indices on them, for each (q,
+    wire) of ``cases`` at each of ``skews`` (``skew_world``) on a cleared
+    tuner cache: each case's outputs, the pooling calls of the first run
+    (rows, tables), and the tuner's decisions."""
+    from repro_torch.core import autotune
+    from repro_torch.core import embedding_all_to_all as emb
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models.dlrm import DLRM_PARAM_SPECS
+    from repro_torch.parallel.sharding import shard_leaf
+
+    autotune.clear_cache()
+    calls, pool = [], emb.embedding_pool_tables
+
+    def counted(tb, ix):
+        calls.append((ix.shape[0], tb.shape[0]))
+        return pool(tb, ix)
+    emb.embedding_pool_tables = counted
+    out = []
+    try:
+        for q, wire in cases:
+            got, first = [], None
+            for skew in skews:
+                c = ctx(mode, hw=hw, granularity=q, wire=wire, skew_world=skew)
+                tab = shard_leaf(t(tables), DLRM_PARAM_SPECS["tables"], c)
+                idx = shard_batch({"indices": t(indices)}, c)["indices"]
+                calls.clear()
+                got.append(emb.embedding_all_to_all(c, idx, tab).numpy())
+                first = list(calls) if first is None else first
+            out.append((got, first))
+    finally:
+        emb.embedding_pool_tables = pool
+    return out, _decisions()
+
+
+def _dlrm_params(tree, c):
+    from repro_torch.models.convert import dlrm_params_from_numpy
+    from repro_torch.train.optimizer import tree_leaves
+
+    params = dlrm_params_from_numpy(tree, "cpu", c)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+@task
+def dlrm_loss_grads_task(ctx, tree, batch, mode, q=1, wire="f32", skew=0):
+    """Reduced DLRM from the JAX package's weights, this rank's world shard
+    of the tables: ``loss_fn``'s loss and this rank's gradients, the whole
+    leaves' summed over the world (``all_reduce_grads``, as the train step
+    does), in ``tree_leaves`` order.  In kernel mode: the error the backward
+    raises, as a string."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.collectives import all_reduce_grads
+    from repro_torch.train.optimizer import spec_leaves, tree_leaves
+
+    c = ctx(mode, granularity=q, wire=wire, skew_world=skew)
+    bundle = get_arch("dlrm").reduced()
+    params = _dlrm_params(tree, c)
+    leaves = tree_leaves(params)
+    loss = bundle.loss_fn(c)(params, _dlrm_batch(batch))
+    if mode == "kernel":
+        try:
+            torch.autograd.grad(loss, leaves)
+        except NotImplementedError as e:
+            return str(e)
+        return None
+    grads = list(torch.autograd.grad(loss, leaves))
+    all_reduce_grads(c, grads, spec_leaves(bundle.param_specs(params)))
+    return loss.item(), [g.numpy() for g in grads]
+
+
+@task
+def dlrm_train_steps_task(ctx, tree, batches, mode, lr=3e-3):
+    """AdamW steps through ``build_train_step`` from the JAX package's
+    weights, one a batch: each step's loss and grad norm, then this rank's
+    parameters (the tables its world shard) and its first moments."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.train.optimizer import OptimizerConfig, tree_leaves
+    from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
+
+    c = ctx(mode)
+    bundle = get_arch("dlrm").reduced()
+    params = _dlrm_params(tree, c)
+    tc = TrainConfig(optimizer=OptimizerConfig(lr=lr, warmup_steps=5, total_steps=len(batches)))
+    step = build_train_step(bundle.loss_fn(c), tc, ctx=c, param_specs=bundle.param_specs(params))
+    state = init_train_state(tc, params)
+    out = []
+    for b in batches:
+        state, m = step(state, _dlrm_batch(b))
+        out.append((m["loss"].item(), m["grad_norm"].item()))
+    return out, [p.detach().numpy() for p in tree_leaves(state["params"])], \
+        [m.numpy() for m in tree_leaves(state["opt"]["mu"])]
+
+
+@task
+def world_a2a_task(ctx, x, xb, g, q, wire="f32", schedule="comm_aware", skew=0):
+    """The all-to-alls over ``group="world"``: ``direct_all_to_all_compute``
+    of this world rank's fine chunks x[r][f] (with autograd), its gradient
+    for the cotangent g[r], ``direct_all_to_all_transpose`` of g[r], and
+    ``bulk_all_to_all`` of xb[r]."""
+    from repro_torch.core import collectives as col
+
+    c = ctx()
+    r = c.world.tp_rank
+    xl = t(x[r]).requires_grad_(True)
+    kw = dict(schedule=schedule, chunks_per_rank=q, sub_axis=0, skew=skew, wire=wire,
+              group="world")
+    out = col.direct_all_to_all_compute(c, lambda f: xl[f] * 1.0, (q * x.shape[2], x.shape[3]),
+                                        **kw)
+    (grad,) = torch.autograd.grad(out, xl, t(g[r]))
+    back = col.direct_all_to_all_transpose(c, t(g[r]), **kw)
+    bulk = col.bulk_all_to_all(c, t(xb[r]), group="world")
+    return out.detach().numpy(), grad.numpy(), back.numpy(), bulk.numpy()
