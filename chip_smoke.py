@@ -387,6 +387,18 @@ prints one line, and any failure exits non-zero:
  51. the train launcher in this process: --arch dlrm --tables 32 --fusion
      fused --batch 8192 --steps 3 --lr 1e-3, the loss falling; ms a step
      split, busy share, peak
+ 52. full-width chatglm3-6b cut to 1 layer, kernel mode, 6 AdamW steps at
+     4 x 512 tokens under the fault-tolerant supervisor with a seeded plan
+     (slow link, timeout, rank failure: 2 restarts) and async checkpoints
+     every 2 steps: the counts, every leaf of the final state a plain
+     loop's bits (where two plain runs differ, within their spread), the
+     flash kernel's launches with the replays; each save's and restore's
+     seconds and GB/s
+ 53. the train launcher in this process twice on one --ckpt-dir: 4 steps,
+     then 6, resuming at step 4; the losses phase 52's plain steps
+ 54. the paged serve launcher in this process, 2 layers, kernel mode,
+     clean and under --chaos (2 ticks dropped): the same tokens and fused
+     launches; a rank loss at one rank raises
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
@@ -403,7 +415,8 @@ yardsticks (phase 38's exact gradients stay in a file under build/ until
 phase 42 ends), and phase 43 runs the launchers.  Phases 44-45 run inside
 the dbrx phases, after phase 10, on phase 9's weights; phases 46-51 run
 last, in the order 46, 47, 50, 48, 49, 51, each drawing its own weights
-(phase 47's, 48's and 50's in processes of their own).  Phase 29 runs after
+(phase 47's, 48's and 50's in processes of their own); phases 52-54 run
+after them, each drawing its own weights.  Phase 29 runs after
 phase 35: its world starts one pool of 4 rank processes (spawn_world) that
 the worlds of phases 36-47 and 50 reuse, each opening and closing its own
 process group; the pool ends after phase 50.
@@ -1088,6 +1101,9 @@ def main() -> int:
     pool_row.update(dlrm_train_phase(card))
     torch.cuda.empty_cache()
     dlrm_launcher_phase(card)
+    torch.cuda.empty_cache()
+    # the flash row gains its launches under the supervisor (phases 52-54)
+    flash_row.update(runtime_phases(card))
     say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -7538,6 +7554,277 @@ def dlrm_launcher_phase(card) -> None:
             + f"; device busy {100 * dev / busy_wall:.1f}% of the last step's {busy_wall:.1f} ms "
             f"({ops} device ops); peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
             f"{wall:.1f} s with init")
+
+
+# Phases 52-54: the in-process runtime.  Phase 52 trains full-width
+# chatglm3-6b cut to RUNTIME_LAYERS of its 28 layers (0.737 G parameters, a
+# train state of about 7.4 GB with AdamW's f32 moments) in kernel mode at
+# RUNTIME_B x RUNTIME_S tokens, RUNTIME_STEPS AdamW steps at TRAIN_LR (the
+# launcher's warm-up of 5 steps, so steps 1-5 take the same lr at any
+# --steps), under the supervisor with RUNTIME_PLAN, checkpoints every 2
+# steps; phase 53 runs the train launcher on the same setup in two calls on
+# one directory; phase 54 the paged serve launcher on RUNTIME_SERVE_LAYERS
+# layers under RUNTIME_SERVE_PLAN.
+RUNTIME_LAYERS, RUNTIME_B, RUNTIME_S, RUNTIME_STEPS = 1, 4, 512, 6
+RUNTIME_PLAN = "at=1:slow_link+3:timeout+5:rank_fail,delay=0"
+RUNTIME_SERVE_LAYERS = 2
+RUNTIME_SERVE_PLAN = "at=1:timeout+2:nan_wire+3:slow_link,delay=0"
+RUNTIME_ARGV = ["--layers", str(RUNTIME_LAYERS), "--batch", str(RUNTIME_B), "--seq",
+                str(RUNTIME_S), "--lr", TRAIN_LR, "--fusion", "kernel", "--log-every", "100"]
+
+
+def leaf_paths(tree, path=()):
+    """[(path, leaf)] of a nested tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items() for pl in leaf_paths(v, path + (str(k),))]
+    if isinstance(tree, list):
+        return [pl for i, v in enumerate(tree) for pl in leaf_paths(v, path + (str(i),))]
+    return [("/".join(path), tree)]
+
+
+def runtime_setup():
+    """Phase 52's training as the train launcher sets it up for
+    RUNTIME_ARGV with --steps RUNTIME_STEPS: the cut bundle, the kernel-mode
+    context, the TrainConfig, the first RUNTIME_STEPS seeded batches on the
+    card, and a function drawing the seed-0 train state."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import train as launch_train
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import TrainConfig, init_train_state
+
+    bundle = get_arch("chatglm3-6b")
+    bundle = dataclasses.replace(bundle, config=dataclasses.replace(
+        bundle.config, n_layers=RUNTIME_LAYERS))
+    ctx = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel"))
+    tc = TrainConfig(optimizer=OptimizerConfig(
+        name=bundle.optimizer, lr=float(TRAIN_LR), warmup_steps=max(RUNTIME_STEPS // 20, 5),
+        total_steps=RUNTIME_STEPS), microbatches=bundle.microbatches)
+    it = launch_train.make_batches(bundle, RUNTIME_B, RUNTIME_S)
+    batches = [to_device(next(it), "cuda") for _ in range(RUNTIME_STEPS)]
+
+    def fresh():
+        return init_train_state(tc, bundle.init_params(
+            torch.Generator(device="cuda").manual_seed(0)))
+    return bundle, ctx, tc, batches, fresh
+
+
+def supervised_train_phase(card) -> dict:
+    """Phase 52: full-width chatglm3-6b, RUNTIME_LAYERS layer, kernel mode,
+    RUNTIME_STEPS AdamW steps under ``TrainSupervisor`` with RUNTIME_PLAN
+    (a slow link, a timeout and a rank failure: 2 restarts, each restoring
+    the last checkpoint and replaying its batches), async checkpoints every
+    2 steps (keep 2) into a directory under build/.  A plain loop runs the
+    same steps twice first; gates: the supervisor's counts, every leaf of
+    the final state the plain run's bits (where the two plain runs differ
+    on a leaf, within their spread), the per-step losses likewise, the
+    flash kernel's launches (2 a layer a step run, replays included, every
+    one on the tile path).  Prints each save's and restore's seconds and
+    GB/s.  Returns the plain losses and their spread for phase 53, and the
+    flash row's numbers."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import Placement
+    from repro_torch.runtime.chaos import parse_chaos_spec
+    from repro_torch.runtime.fault_tolerance import SupervisorConfig, TrainSupervisor
+    from repro_torch.train.step import build_train_step, train_state_specs
+
+    bundle, ctx, tc, batches, fresh = runtime_setup()
+    L = RUNTIME_LAYERS
+    plain = []
+    for _ in range(2):
+        state = fresh()
+        specs = bundle.param_specs(state["params"])
+        step_fn = build_train_step(bundle.loss_fn(ctx), tc, ctx=ctx, param_specs=specs)
+        losses = []
+        for b in batches:
+            state, m = step_fn(state, b)
+            losses.append(float(m["loss"]))
+        plain.append((state, losses))
+        del state, step_fn
+    (sa, la), (sb, lb) = plain
+    spread = {p_: (a - b).abs().max().item() if a.is_floating_point() else
+              float((a != b).any())
+              for (p_, a), (_, b) in zip(leaf_paths(sa), leaf_paths(sb))
+              if not torch.equal(a, b)}
+    loss_spread = max(abs(x - y) for x, y in zip(la, lb))
+    del sb
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh()
+    specs = bundle.param_specs(state["params"])
+    base = build_train_step(bundle.loss_fn(ctx), tc, ctx=ctx, param_specs=specs)
+    runs = [0]
+
+    def step_fn(st, b):
+        runs[0] += 1
+        return base(st, b)
+
+    plan = parse_chaos_spec(RUNTIME_PLAN, num_steps=RUNTIME_STEPS)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="phase52_", dir=ROOT / "build")
+    got_losses = {}
+    try:
+        sup = TrainSupervisor(
+            SupervisorConfig(checkpoint_dir=ckpt_dir, checkpoint_every=2, keep=2), step_fn,
+            state_shardings=Placement(ctx, train_state_specs(tc, specs), training=True),
+            fault_plan=plan)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, step = sup.run(state, batches, RUNTIME_STEPS,
+                              on_metrics=lambda s_, m: got_losses.__setitem__(s_, float(m["loss"])))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        on_disk = sup.manager.all_steps()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if (step, sup.restarts, sup.faults_injected, sup.rank_losses) != (RUNTIME_STEPS, 2, 3, 0) \
+            or sup.failures != [(3, "CollectiveTimeout"), (5, "CollectiveTimeout")]:
+        raise AssertionError(f"supervisor: step {step}, restarts {sup.restarts}, injected "
+                             f"{sup.faults_injected}, failures {sup.failures}")
+    if runs[0] != RUNTIME_STEPS + 2:
+        raise AssertionError(f"{runs[0]} step runs, expected {RUNTIME_STEPS} + 2 replays")
+    expect_counts("phase 52", counts, flash_on_tile(2 * L * runs[0]))
+    worst = {}
+    for (p_, got), (_, want) in zip(leaf_paths(state), leaf_paths(sa)):
+        if torch.equal(got, want):
+            continue
+        d = (got.float() - want.float()).abs().max().item()
+        if p_ not in spread or d > spread[p_]:
+            raise AssertionError(f"leaf {p_}: {d:.3g} from the plain run's, whose two runs "
+                                 f"differ there by {spread.get(p_, 0.0):.3g}")
+        worst[p_] = d
+    got_l = [got_losses[s_] for s_ in range(1, RUNTIME_STEPS + 1)]
+    d_loss = max(abs(x - y) for x, y in zip(got_l, la))
+    if d_loss > loss_spread:
+        raise AssertionError(f"losses {got_l} vs the plain run's {la} (spread {loss_spread:.3g})")
+    saves = "; ".join(f"step {h['step']}: {h['bytes'] / 1e9:.2f} GB, held the loop "
+                      f"{h['block_s']:.3f} s, on disk after {h['total_s']:.2f} s "
+                      f"({h['bytes'] / h['total_s'] / 1e9:.2f} GB/s)" for h in sup.manager.history)
+    restores = "; ".join(f"step {r['step']}: {r['seconds']:.2f} s "
+                         f"({r['bytes'] / r['seconds'] / 1e9:.2f} GB/s)" for r in sup.manager.stats)
+    same = "same bits" if d_loss == 0 else f"within {d_loss:.3g}"
+    say(52, f"on {card}: chatglm3-6b, {L} of 28 layers at full width, kernel mode, "
+            f"{RUNTIME_B}x{RUNTIME_S} tokens, {RUNTIME_STEPS} AdamW steps at lr {TRAIN_LR} under "
+            f"TrainSupervisor with --chaos {RUNTIME_PLAN}: restarts {sup.restarts} "
+            f"({sup.failures}), {runs[0]} step runs, flash launches {counts['flash_attention']} "
+            f"(2 a layer a run, replays included, all on the tile path); final state: "
+            f"{len(leaf_paths(state)) - len(worst)} of {len(leaf_paths(state))} leaves the plain "
+            f"run's bits"
+            + (f", the others within the two plain runs' spread: {worst}" if worst else "")
+            + f" (the two plain runs differ on {len(spread)} leaves: {sorted(spread)}); losses "
+            f"{', '.join(f'{x:.6f}' for x in got_l)} (the plain run's: {same}); "
+            f"saves: {saves}; restores: {restores}; checkpoints left {on_disk}; "
+            f"{wall:.1f} s under the supervisor, peak {peak:.2f} GB")
+    del state, sa, plain
+    torch.cuda.empty_cache()
+    return {"plain_losses": la, "loss_spread": loss_spread,
+            "row": {"supervised_flash_launches": counts["flash_attention"],
+                    "supervised_step_runs": runs[0]}}
+
+
+def train_resume_phase(card, plain_losses, loss_spread) -> None:
+    """Phase 53: ``launch.train.main`` in this process, twice on one
+    --ckpt-dir (--ckpt-every 4): --steps 4, then --steps 6, which resumes at
+    step 4 and runs on.  Gates: the first call's losses are phase 52's plain
+    steps 1-4 and the second call's its steps 5-6 (the lr of steps 1-5 does
+    not depend on --steps), within the plain runs' spread; 2 flash launches
+    a layer a step."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="phase53_", dir=ROOT / "build")
+    argv = RUNTIME_ARGV + ["--ckpt-dir", ckpt_dir, "--ckpt-every", "4"]
+    out = []
+    try:
+        for steps in (4, RUNTIME_STEPS):
+            reset_counts()
+            t0 = time.perf_counter()
+            losses = launch_train.main(argv + ["--steps", str(steps)])
+            torch.cuda.synchronize()
+            out.append((losses, launch_counts(), time.perf_counter() - t0,
+                        sorted(os.listdir(ckpt_dir))))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    (l1, c1, t1, d1), (l2, c2, t2, d2) = out
+    want = (plain_losses[:4], plain_losses[4:])
+    for i, (got, w) in enumerate(zip((l1, l2), want)):
+        if len(got) != len(w) or max(abs(x - y) for x, y in zip(got, w)) > loss_spread:
+            raise AssertionError(f"call {i + 1}: losses {got}, phase 52's plain steps {w}")
+    expect_counts("phase 53 call 1", c1, flash_on_tile(2 * RUNTIME_LAYERS * 4))
+    expect_counts("phase 53 call 2", c2, flash_on_tile(2 * RUNTIME_LAYERS * (RUNTIME_STEPS - 4)))
+    say(53, f"on {card}: python -m repro_torch.launch.train {' '.join(RUNTIME_ARGV)} --ckpt-dir "
+            f"D --ckpt-every 4 in this process: --steps 4: losses "
+            f"{', '.join(f'{x:.6f}' for x in l1)}, {t1:.1f} s with init, D holds {d1}; then "
+            f"--steps {RUNTIME_STEPS} resumed at step 4: losses "
+            f"{', '.join(f'{x:.6f}' for x in l2)}, {t2:.1f} s, D holds {d2}; both phase 52's "
+            f"plain steps ({'same bits' if loss_spread == 0 else f'within {loss_spread:.3g}'}); "
+            f"flash launches {c1['flash_attention']} and {c2['flash_attention']}")
+
+
+def serve_chaos_phase(card) -> None:
+    """Phase 54: ``launch.serve.main`` in this process, the paged engine
+    over full-width chatglm3-6b cut to RUNTIME_SERVE_LAYERS layers, kernel
+    mode: a clean drain, then --chaos RUNTIME_SERVE_PLAN (2 ticks dropped,
+    one slow link): every request's tokens the clean drain's, as many fused
+    GEMV + AllReduce launches (a dropped tick runs nothing); then
+    --chaos at=2:rank_loss, which at one rank raises as the reference's
+    shrink does."""
+    import io
+
+    from repro_torch.launch import serve as launch_serve
+
+    argv = ["--paged", "--layers", str(RUNTIME_SERVE_LAYERS), "--requests", "4", "--max-new",
+            "8", "--fusion", "kernel"]
+    runs = {}
+    for name, extra in (("clean", []), ("chaos", ["--chaos", RUNTIME_SERVE_PLAN])):
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fin = launch_serve.main(argv + extra)
+        torch.cuda.synchronize()
+        runs[name] = ({r.uid: r.tokens for r in fin}, launch_counts(), buf.getvalue(),
+                      time.perf_counter() - t0)
+    (tc_, cc, _, t_c), (tx, cx, out_x, t_x) = runs["clean"], runs["chaos"]
+    if tx != tc_ or len(tc_) != 4:
+        raise AssertionError(f"chaos tokens {tx} differ from the clean drain's {tc_}")
+    line = next((l_ for l_ in out_x.splitlines() if l_.startswith("chaos:")), "")
+    if "dropped 2, reshards 0, drained True" not in line:
+        raise AssertionError(f"serve under chaos: {line!r}")
+    n = cc["fused_matmul_allreduce"]
+    if n == 0 or cx["fused_matmul_allreduce"] != n:
+        raise AssertionError(f"fused launches: clean {n}, chaos {cx['fused_matmul_allreduce']}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            launch_serve.main(argv + ["--chaos", "at=2:rank_loss"])
+    except ValueError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("a rank loss at one rank did not raise")
+    if "no mesh axis divisible" not in raised:
+        raise AssertionError(f"a rank loss at one rank raised {raised!r}")
+    say(54, f"on {card}: python -m repro_torch.launch.serve {' '.join(argv)} in this process: "
+            f"clean {t_c:.1f} s, --chaos {RUNTIME_SERVE_PLAN} {t_x:.1f} s: {line}; every "
+            f"request's tokens the clean drain's; fused GEMV + AllReduce launches {n} in each "
+            f"drain; --chaos at=2:rank_loss at one rank raised ValueError: {raised}")
+
+
+def runtime_phases(card) -> dict:
+    """Phases 52-54; returns the flash row's numbers under the supervisor."""
+    got = supervised_train_phase(card)
+    train_resume_phase(card, got["plain_losses"], got["loss_spread"])
+    torch.cuda.empty_cache()
+    serve_chaos_phase(card)
+    torch.cuda.empty_cache()
+    return got["row"]
 
 
 def _map(tree, fn):

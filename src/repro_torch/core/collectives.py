@@ -43,16 +43,17 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.scheduling import ring_offsets, sub_chunk_service_order
-from repro_torch.parallel.sharding import ParallelContext
+from repro_torch.parallel.sharding import ParallelContext, split_contexts
 
 # ---------------------------------------------------------------------------
 # wire-fault injection hook (chaos engineering)
 # ---------------------------------------------------------------------------
 # Applied to every payload leaf as it goes on the wire (ring hops, direct
 # sends and the phase-2 all-gather), as in the reference.  ``None``, the
-# default, leaves the payload as it is.  The chaos runtime (ROADMAP Queue 1
-# item 7) installs a corruptor here to reproduce flipped-link / NaN-payload
-# faults inside the real rings.
+# default, leaves the payload as it is.  The chaos runtime
+# (``runtime/chaos.wire_faults``) installs a corruptor here to reproduce
+# flipped-link / NaN-payload faults inside the real rings; it is read as
+# each payload is sent, so a step run inside it runs poisoned.
 _WIRE_FAULT_HOOK = None
 
 
@@ -316,6 +317,17 @@ def fsdp_gather(ctx: ParallelContext, w, spec):
     if ctx.dp == 1 or not dims:
         return w
     return _FsdpGather.apply(ctx.data, w, dims[0])
+
+
+@torch.no_grad()
+def gather_leaf(ctx: ParallelContext, x, spec, training: bool = False):
+    """The whole leaf from every rank's part ``x`` under its logical
+    ``spec`` (the inverse of ``parallel.sharding.shard_leaf``): one
+    all-gather over each group that splits a dim, in dim order, so every
+    rank of the world must call it; ``x`` itself where nothing splits."""
+    for dim, sub in split_contexts(spec, ctx, training):
+        x = torch.cat(_all_gather(sub, x.contiguous()), dim=dim)
+    return x
 
 
 def _leaves(payload):

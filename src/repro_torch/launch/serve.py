@@ -41,7 +41,15 @@ prompt fed one token per step); with it the paged engine (a shared pool of
 through ``serve_step``, whose FFN down projection takes B x C rows).
 ``--journal PATH`` resubmits the unfinished requests a journal file holds
 (``serve.engine.request_journal``) in place of the seeded ones; writing it
-on a liveness failure waits for the runtime (ROADMAP Queue 1 item 7).
+on a liveness failure waits for the runtime's multi-process half (ROADMAP
+Queue 1 item 7).  ``--chaos SPEC`` drains the engine under a seeded fault
+plan (``serve.engine.serve_with_chaos``): a timeout, rank failure or NaN
+wire drops its tick, a slow link sleeps, a rank loss shrinks the world
+(``runtime/elastic.py``: the data axis first, then tp; at one rank it
+raises, as the reference's shrink does), re-places the weights over the
+survivors (the lost ranks take part in the gathers, then leave) and
+reshards the engine, whose in-flight requests replay their tokens through
+the new cache or pool.  ``--degrade`` installs the degradation policy.
 
 rwkv6-7b is refused (see ``_RWKV6_REFUSAL``): its prefill and decode
 run through ``get_arch("rwkv6-7b").prefill_fn`` / ``decode_fn``.
@@ -76,10 +84,14 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core.autotune import (add_granularity_cli_args, cache_info,
                                        load_cache_if_exists, save_cache)
 from repro_torch.core.calibrate import add_calibration_cli_args, warmup_and_calibrate
+from repro_torch.core.degrade import DegradationPolicy, set_degradation_policy
 from repro_torch.kernels import load_library
 from repro_torch.launch.mesh import BACKENDS, close_world, init_world
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
-from repro_torch.serve.engine import DecodeEngine, PagedDecodeEngine, Request, resubmit_journal
+from repro_torch.runtime.chaos import add_chaos_cli_args, build_fault_plan
+from repro_torch.runtime.elastic import reshard_tree, shrink_context
+from repro_torch.serve.engine import (DecodeEngine, PagedDecodeEngine, Request, resubmit_journal,
+                                      serve_with_chaos)
 from repro_torch.serve.kv_cache import dense_cache_hbm_bytes, pool_hbm_bytes
 
 
@@ -134,6 +146,7 @@ def main(argv=None):
     ap.add_argument("--journal", default=None,
                     help="request journal to resubmit (tokens intact) in place "
                          "of the seeded requests, if the file exists")
+    add_chaos_cli_args(ap)
     args = ap.parse_args(argv)
 
     bundle = get_arch(args.arch)
@@ -177,14 +190,22 @@ def _serve(args, bundle, device):
             steps[0] += 1
             return fn(*a)
         return step
+
+    def step_fns(c, p):
+        """The engine's step function and cache (or pool) factory over ``c``."""
+        if args.paged:
+            serve = bundle.serve_step_fn(c)
+            return (counted(lambda t, pl, tb, pos, nn: serve(p, t, pl, tb, pos, nn)),
+                    lambda nb, bs: bundle.init_paged_pool(nb, bs, c.device, c.tp))
+        decode = bundle.decode_fn(c)
+        return (counted(lambda t, cache, pos: decode(p, t, cache, pos)),
+                lambda b: bundle.init_cache(b, c.device, c.tp, c.dp))
     if args.paged:
         # half the dense budget, rounded to a tp-divisible block count
         num_blocks = args.num_blocks or max(
             ctx.tp, args.batch * cfg.max_seq // 2 // args.block_size // ctx.tp * ctx.tp)
-        serve = bundle.serve_step_fn(ctx)
         engine = PagedDecodeEngine(
-            counted(lambda t, pl, tb, pos, nn: serve(params, t, pl, tb, pos, nn)),
-            lambda nb, bs: bundle.init_paged_pool(nb, bs, ctx.device, ctx.tp), args.batch,
+            *step_fns(ctx, params), args.batch,
             num_blocks=num_blocks, block_size=args.block_size, max_seq=cfg.max_seq,
             chunk=args.chunk, device=ctx.device, n_stripes=ctx.tp)
         paged_b = pool_hbm_bytes(engine.pool)
@@ -195,10 +216,8 @@ def _serve(args, bundle, device):
                   f"= {paged_b / 2**20:.1f} MiB{stripe} vs dense B x S_max "
                   f"{dense_b / 2**20:.1f} MiB")
     else:
-        decode = bundle.decode_fn(ctx)
-        engine = DecodeEngine(counted(lambda t, c, pos: decode(params, t, c, pos)),
-                              lambda b: bundle.init_cache(b, ctx.device, ctx.tp, ctx.dp),
-                              args.batch, device=ctx.device, max_seq=cfg.max_seq)
+        engine = DecodeEngine(*step_fns(ctx, params), args.batch, device=ctx.device,
+                              max_seq=cfg.max_seq)
     if args.journal and os.path.exists(args.journal):
         with open(args.journal) as f:
             n = resubmit_journal(engine, json.load(f))
@@ -224,9 +243,48 @@ def _serve(args, bundle, device):
                              iters=args.calibrate_iters, granularity=args.granularity,
                              rank_tag=f" [rank {torch.distributed.get_rank()}]"
                              if world > 1 else "")
+    max_steps = len(engine.queue) * (cfg.max_seq - 1)
+    plan = build_fault_plan(args.chaos, num_steps=max_steps)
+    if args.degrade:
+        set_degradation_policy(DegradationPolicy())
+    cur = {"ctx": ctx, "params": params}
+
+    def reshard_fn(eng):
+        # drain-reshard-resume: shrink the world, re-place the weights over
+        # the survivors, replay the in-flight requests through the new
+        # cache or pool (they keep their generated tokens)
+        old = cur["ctx"]
+        new = shrink_context(old)
+        new_params, _ = reshard_tree(cur["params"], bundle.param_specs(cur["params"]), new,
+                                     old_ctx=old)
+        cur["ctx"], cur["params"] = new, new_params
+        if not new.member:
+            return False
+        if args.paged:
+            n = eng.reshard(*step_fns(new, new_params), args.batch, n_stripes=new.tp)
+        else:
+            n = eng.reshard(*step_fns(new, new_params), args.batch)
+        if new.world.tp_rank == 0:
+            print(f"rank lost: world -> (dp, tp) = ({new.dp}, {new.tp}), {n} in-flight "
+                  f"requests re-queued", flush=True)
+
     t0 = time.perf_counter()
-    finished = engine.run_until_drained(
-        max_steps=len(engine.queue) * (cfg.max_seq - 1))
+    try:
+        if plan is not None:
+            finished, stats = serve_with_chaos(engine, plan, reshard_fn=reshard_fn,
+                                               max_steps=max_steps)
+        else:
+            finished = engine.run_until_drained(max_steps=max_steps)
+    finally:
+        if args.degrade:
+            set_degradation_policy(None)
+    if plan is not None and stats["left"]:
+        print(f"rank {torch.distributed.get_rank()} left the world (not kept by the shrink)",
+              flush=True)
+        return finished
+    ctx = cur["ctx"]
+    world = ctx.world.tp
+    rank0 = ctx.world.tp_rank == 0
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
     dt = time.perf_counter() - t0
@@ -235,8 +293,10 @@ def _serve(args, bundle, device):
         # every rank took the same greedy tokens from the same gathered
         # logits, and the same autotune decisions
         streams, taken = [None] * world, [None] * world
-        torch.distributed.all_gather_object(streams, [(r.uid, r.tokens) for r in finished])
-        torch.distributed.all_gather_object(taken, decisions)
+        group = ctx.world.group
+        torch.distributed.all_gather_object(streams, [(r.uid, r.tokens) for r in finished],
+                                            group=group)
+        torch.distributed.all_gather_object(taken, decisions, group=group)
         if any(s != streams[0] for s in streams):
             raise AssertionError(f"the ranks' token streams differ: {streams}")
         if any(t != taken[0] for t in taken):
@@ -245,6 +305,9 @@ def _serve(args, bundle, device):
         return finished
     if args.tune_cache:
         print(f"tune cache: {save_cache(args.tune_cache)} decisions saved to {args.tune_cache}")
+    if plan is not None:
+        print(f"chaos: plan {plan.summary()}; ticks {stats['ticks']}, dropped "
+              f"{stats['dropped']}, reshards {stats['reshards']}, drained {stats['drained']}")
     if not finished.drained:
         print("WARNING: stopped at max_steps before draining — results truncated")
     total_tokens = sum(len(r.tokens) for r in finished)

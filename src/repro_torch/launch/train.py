@@ -47,10 +47,27 @@ loss once without gradients on a fresh first batch to record the hot keys
 and times their candidates (``core/calibrate.py``); ``--tune-cache PATH``
 loads decisions at the start and saves them at the end.
 
-The reference launcher also runs under a restart-on-failure supervisor with
-checkpoints, chaos injection, liveness, skew scheduling, degradation and
-the comm-graph rewrite; here each of those flags raises with the ROADMAP
-item that brings it.  The port's trainer does not checkpoint.
+``--ckpt-dir D`` runs the steps under the restart-on-failure supervisor
+(``runtime/fault_tolerance.py``): a checkpoint of the whole train state
+before the first step and every ``--ckpt-every`` steps (``keep`` 3,
+written on a worker thread by world rank 0, each rank's shards gathered
+first), restore and batch replay on a failure, and a resume from D's
+latest checkpoint in a later call (the seeded batches fast-forwarded past
+the steps it took).  ``--chaos SPEC`` injects the seeded fault plan of
+``runtime/chaos.py`` (a ``rank_loss`` shrinks the world: the data axis
+first, then tp, ``runtime/elastic.py``; the lost ranks take part in
+resharding the state, then leave); ``--degrade`` installs the degradation
+policy the supervisor feeds; ``--skew-schedule`` feeds each step's time,
+gathered over the world, to the skew estimator and swaps in the step built
+for a new rotation (``runtime/straggler.py``).  These three are the
+supervisor's, so each needs ``--ckpt-dir``.  One deliberate difference
+from the reference: its ``--ckpt-dir`` defaults to a fixed directory that
+every run checkpoints to and resumes from; the port's defaults to none,
+with the plain loop, so that two calls never share a run by accident and a
+full-width state is not written unasked.  The reference's liveness,
+multi-process launch, production mesh and comm-graph flags raise, each
+with the ROADMAP item that brings it.  The losses returned are a step's
+last (a replayed step's replace its first).
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
 device the default raises.
@@ -63,39 +80,40 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import Placement
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.autotune import (add_granularity_cli_args, load_cache_if_exists,
                                        save_cache)
 from repro_torch.core.calibrate import add_calibration_cli_args, warmup_and_calibrate
+from repro_torch.core.degrade import DegradationPolicy, set_degradation_policy
 from repro_torch.data.pipeline import prefetch, to_device
 from repro_torch.data.synthetic import DLRMBatches, LMBatches
 from repro_torch.kernels import load_library
 from repro_torch.kernels.embedding_pool.ops import NO_BACKWARD
 from repro_torch.launch.mesh import BACKENDS, close_world, init_world
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+from repro_torch.runtime.chaos import add_chaos_cli_args, build_fault_plan
+from repro_torch.runtime.elastic import reshard_tree, shrink_context
+from repro_torch.runtime.fault_tolerance import RESPAWN_SLICE, SupervisorConfig, TrainSupervisor
+from repro_torch.runtime.straggler import SkewEstimator, SkewScheduler
 from repro_torch.train.optimizer import OptimizerConfig
-from repro_torch.train.step import TrainConfig, build_train_step, init_train_state
+from repro_torch.train.step import (TrainConfig, build_train_step, init_train_state,
+                                    train_state_specs)
 
-_RUNTIME = "ROADMAP Queue 1 item 7 (the runtime)"
 # flags of the reference launcher that later slices bring: (flag, dest, ROADMAP item)
 _LATER_FLAGS = (
     ("--auto-fuse", "auto_fuse", "ROADMAP Queue 1 item 7 (the comm-graph analyzer)"),
     ("--explain-comm", "explain_comm", "ROADMAP Queue 1 item 7 (the comm-graph analyzer)"),
-    ("--skew-schedule", "skew_schedule", f"{_RUNTIME}: the straggler loop"),
-    ("--degrade", "degrade", f"{_RUNTIME}: degradation, which only the supervisor feeds"),
     ("--production-mesh", "production_mesh",
      "ROADMAP Queue 1 item 1 (left: the real-peer half, a host of many cards: the reference's "
      "16 x 16 TPU mesh)"),
 )
 _LATER_VALUES = (
-    ("--chaos", "chaos", f"{_RUNTIME}: chaos injection"),
-    ("--ckpt-dir", "ckpt_dir", f"{_RUNTIME}: checkpoints and the supervisor"),
-    ("--ckpt-every", "ckpt_every", f"{_RUNTIME}: checkpoints and the supervisor"),
-    ("--coordinator", "coordinator", f"{_RUNTIME}: multi-process launch"),
-    ("--num-processes", "num_processes", f"{_RUNTIME}: multi-process launch"),
-    ("--process-id", "process_id", f"{_RUNTIME}: multi-process launch"),
-    ("--heartbeat-dir", "heartbeat_dir", f"{_RUNTIME}: liveness"),
-    ("--step-deadline", "step_deadline", f"{_RUNTIME}: liveness"),
+    ("--coordinator", "coordinator", f"{RESPAWN_SLICE}: multi-process launch"),
+    ("--num-processes", "num_processes", f"{RESPAWN_SLICE}: multi-process launch"),
+    ("--process-id", "process_id", f"{RESPAWN_SLICE}: multi-process launch"),
+    ("--heartbeat-dir", "heartbeat_dir", f"{RESPAWN_SLICE}: liveness"),
+    ("--step-deadline", "step_deadline", f"{RESPAWN_SLICE}: liveness"),
 )
 _NOT_TRAINED = {
     "rwkv6": "ROADMAP Queue 1 item 7 (rwkv6 training: a WKV6 backward)",
@@ -137,6 +155,15 @@ def build_parser():
                     help="the world's backend (default: nccl on cuda, gloo on cpu)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--skew-schedule", action="store_true",
+                    help="close the Fig. 14 loop: feed each step's time, gathered over the "
+                         "world, to the skew estimator and swap in the step built for a new "
+                         "rotation (needs --ckpt-dir)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="run under the fault-tolerant supervisor, checkpointing here and "
+                         "resuming from its latest checkpoint (default: none, the plain loop)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    add_chaos_cli_args(ap)
     for flag, dest, _ in _LATER_FLAGS:
         ap.add_argument(flag, dest=dest, action="store_true", help=argparse.SUPPRESS)
     for flag, dest, _ in _LATER_VALUES:
@@ -148,6 +175,12 @@ def _refuse_later(args):
     for flag, dest, item in _LATER_FLAGS + _LATER_VALUES:
         if getattr(args, dest) not in (None, False):
             raise NotImplementedError(f"{flag}: {item}")
+    if args.ckpt_dir is None:
+        for flag, on in (("--chaos", args.chaos is not None), ("--degrade", args.degrade),
+                         ("--skew-schedule", args.skew_schedule)):
+            if on:
+                raise ValueError(f"{flag} runs under the supervisor, which needs --ckpt-dir "
+                                 f"(a restart restores from it)")
 
 
 def main(argv=None, *, on_phase=None):
@@ -181,7 +214,6 @@ def _train(args, device, on_phase):
     ctx = ParallelContext(device=device, tp=args.tp, dp=args.dp, fusion=FusionConfig(
         mode=args.fusion, granularity=args.granularity, wire=args.wire))
     world = ctx.tp * ctx.dp
-    rank0 = ctx.tp_rank == 0 and ctx.dp_rank == 0
     loss_fn = bundle.loss_fn(ctx)
     if ctx.device.type == "cuda" and args.fusion == "kernel":
         load_library()   # build the kernels before the first step
@@ -197,7 +229,6 @@ def _train(args, device, on_phase):
     specs = bundle.param_specs(params)
     state = init_train_state(tc, params)
     del params
-    step_fn = build_train_step(loss_fn, tc, ctx=ctx, param_specs=specs, on_phase=on_phase)
     if args.calibrate:
         # the loss on a fresh iterator's first batch records the hot keys;
         # the training batches and the state are untouched
@@ -208,35 +239,110 @@ def _train(args, device, on_phase):
                              if world > 1 else "")
 
     t0 = time.time()
-    losses = []
-    batch_iter = prefetch(batches, ctx.device)
-    for step in range(1, args.steps + 1):
-        state, metrics = step_fn(state, next(batch_iter))
-        losses.append(float(metrics["loss"]))
-        if rank0 and step % args.log_every == 0:
-            print(f"step {step:5d} loss {losses[-1]:.4f} "
+    losses = {}
+
+    def on_metrics(step, metrics):
+        losses[step] = float(metrics["loss"])
+        if ctx.world.tp_rank == 0 and step % args.log_every == 0:
+            print(f"step {step:5d} loss {losses[step]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"({(time.time() - t0) / max(step, 1):.2f}s/step)",
                   flush=True)
+
+    sup = None
+    if args.ckpt_dir is None:
+        step_fn = build_train_step(loss_fn, tc, ctx=ctx, param_specs=specs, on_phase=on_phase)
+        batch_iter = prefetch(batches, ctx.device)
+        for step in range(1, args.steps + 1):
+            state, metrics = step_fn(state, next(batch_iter))
+            on_metrics(step, metrics)
+        step = args.steps
+    else:
+        state, step, sup, ctx = _supervised(args, bundle, ctx, tc, specs, state, batches,
+                                            on_phase, on_metrics)
+        if sup.left:
+            print(f"rank {torch.distributed.get_rank()} left the world at step {step} (not "
+                  f"kept by the shrink)", flush=True)
+            return []
+    losses = [losses[s] for s in sorted(losses)]
+    world = ctx.world.tp
+    rank0 = ctx.world.tp_rank == 0
     if world > 1:
         # the loss is a replicated scalar: every rank's must be rank 0's
         every = [None] * world
-        torch.distributed.all_gather_object(every, losses)
+        torch.distributed.all_gather_object(every, losses, group=ctx.world.group)
         if any(x != every[0] for x in every):
             raise AssertionError(f"the ranks' losses differ: {every}")
     if not rank0:
         return losses
-    span = f"loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else "no steps run"
+    span = (f"loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses
+            else "no steps run (resumed at or past --steps)")
     where = (f" (dp={ctx.dp}, tp={ctx.tp}, {ctx.backend}, fusion={args.fusion})"
              if world > 1 else "")
-    print(f"done at step {args.steps}; {span}{where}")
+    stats = "" if sup is None else f"; straggler stats {sup.straggler.summary()}"
+    print(f"done at step {step}; {span}{where}{stats}")
+    if sup is not None and sup.fault_plan is not None:
+        print(f"chaos: plan {sup.fault_plan.summary()}; injected {sup.faults_injected}, "
+              f"restarts {sup.restarts}, rank losses {sup.rank_losses}, backoffs "
+              f"{[round(b, 3) for b in sup.backoffs]}")
+    if sup is not None and sup.degradation is not None:
+        print(f"degradation: {sup.degradation.summary()}")
     if world > 1:
         print(f"all {world} ranks' losses equal: True")
     if args.tune_cache:
         save_cache(args.tune_cache)
     return losses
 
+
+def _supervised(args, bundle, ctx, tc, specs, state, batches, on_phase, on_metrics):
+    """The steps under ``TrainSupervisor``, as the reference launcher runs
+    them; returns (state, step, supervisor, the final context)."""
+    state_specs = train_state_specs(tc, specs)
+    cur = {"ctx": ctx}
+
+    def build_step(skew: int = 0):
+        c = cur["ctx"]
+        c = c.with_fusion(dataclasses.replace(c.fusion, skew=skew))
+        return build_train_step(bundle.loss_fn(c), tc, ctx=c, param_specs=specs,
+                                on_phase=on_phase)
+
+    skew_sched = None
+    if args.skew_schedule:
+        skew_sched = SkewScheduler(build_step, SkewEstimator({"data": ctx.dp, "model": ctx.tp}),
+                                   axis="model")
+    degradation = None
+    if args.degrade:
+        degradation = DegradationPolicy()
+        set_degradation_policy(degradation)
+
+    def on_rank_loss(st, exc):
+        # elastic shrink: halve the data axis (else tp), reshard, go on
+        old = cur["ctx"]
+        cur["ctx"] = shrink_context(old)
+        st, sup.state_shardings = reshard_tree(st, state_specs, cur["ctx"], old_ctx=old,
+                                               training=True)
+        if st is None:
+            return None, None
+        if skew_sched is not None:
+            skew_sched.invalidate()     # its builds hold the old world
+            return st, skew_sched.fn()
+        return st, build_step()
+
+    sup = TrainSupervisor(
+        SupervisorConfig(checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every),
+        build_step(), state_shardings=Placement(ctx, state_specs, training=True),
+        skew_scheduler=skew_sched,
+        per_rank_times="process" if skew_sched is not None else None,
+        fault_plan=build_fault_plan(args.chaos, num_steps=args.steps),
+        degradation=degradation, rebuild_step=build_step, on_rank_loss=on_rank_loss)
+    try:
+        state, step = sup.run(state, prefetch(batches, ctx.device), args.steps,
+                              on_metrics=on_metrics)
+    finally:
+        if degradation is not None:
+            set_degradation_policy(None)
+    return state, step, sup, cur["ctx"]
 
 if __name__ == "__main__":
     main()

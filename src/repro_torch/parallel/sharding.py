@@ -11,7 +11,12 @@ A world of ``dp * tp`` ranks is ``dp`` data replicas of a tp world, as the
 reference's ``("data", "model")`` mesh: global rank ``r`` is tp rank ``r %
 tp`` of replica ``r // tp``.  Its tp group holds the ranks of one replica,
 its data group the ranks with the same tp rank (``make_world_groups``, which
-every rank runs in the same order).  ``ParallelContext.data`` is the data
+every rank runs in the same order).  A world can also cover a subset of the
+default group (``ParallelContext.ranks``, groups made by
+``make_subworld_groups``): the survivors of an elastic shrink
+(``runtime/elastic.shrink_context``), whose every group, its flattened
+world's too, is a group of its own, never the default group, of which the
+lost ranks are still members.  ``ParallelContext.data`` is the data
 axis seen as a context of its own (its ``tp`` the data group's size), so the
 collectives of ``core/collectives.py`` run over it unchanged; so is
 ``ParallelContext.world``, the flattened world of all ``dp * tp`` ranks in
@@ -70,6 +75,42 @@ def make_world_groups(dp: int, tp: int):
     return tp_group, data_group
 
 
+def make_subworld_groups(dp: int, tp: int, ranks) -> tuple:
+    """(tp group, data group, world group) of a world of ``dp * tp`` ranks
+    over ``ranks``, the global ranks of the default group in world order
+    (world rank ``i`` is global rank ``ranks[i]``: tp rank ``i % tp`` of
+    replica ``i // tp``).
+
+    ``dist.new_group`` is collective over the default group: every rank of
+    it calls this with the same arguments, in the same order, the ranks
+    outside ``ranks`` too (on those all three are ``None``).  Every group
+    of more than one rank is made here, the one that spans the whole of
+    ``ranks`` too; a group of one rank is ``None`` (a context never uses
+    it)."""
+    ranks = tuple(int(r) for r in ranks)
+    if len(ranks) != dp * tp or list(ranks) != sorted(set(ranks)):
+        # torch orders a group's ranks by global rank, so world order must be too
+        raise ValueError(f"(dp, tp) = ({dp}, {tp}) needs {dp * tp} ranks in increasing order, "
+                         f"got {ranks}")
+    key = (dp, tp, ranks)
+    if key in _WORLD_GROUPS:
+        return _WORLD_GROUPS[key]
+    me = dist.get_rank()
+    made = []
+    for members in ([ranks[i * tp:(i + 1) * tp] for i in range(dp)] if tp > 1 else []) + \
+            ([ranks[j::tp] for j in range(tp)] if dp > 1 else []) + \
+            ([ranks] if dp > 1 and tp > 1 else []):
+        g = dist.new_group(list(members))
+        made.append((members, g if me in members else None))
+    mine = lambda sets: next((g for m, g in sets if g is not None), None)
+    tp_sets = made[:dp] if tp > 1 else []
+    data_sets = made[len(tp_sets):len(tp_sets) + (tp if dp > 1 else 0)]
+    tp_group, data_group = mine(tp_sets), mine(data_sets)
+    world_group = (made[-1][1] if dp > 1 and tp > 1 else tp_group if tp > 1 else data_group)
+    _WORLD_GROUPS[key] = (tp_group, data_group, world_group)
+    return _WORLD_GROUPS[key]
+
+
 def world_groups(dp: int, tp: int):
     """This rank's (tp group, data group) of a (dp, tp) world, as
     :func:`make_world_groups` made them; raises where they were not made
@@ -122,14 +163,14 @@ class FusionConfig:
       do not divide the chunked dimension are clamped per-op to the
       largest feasible factor.
     skew: measured straggler rotation (paper Fig. 14).  An integer bucket
-      produced by :class:`repro.runtime.straggler.SkewEstimator` from
+      produced by :class:`repro_torch.runtime.straggler.SkewEstimator` from
       per-rank step-time telemetry; every fused op ringing over the *tp*
       axis rotates its static chunk schedule by it (the A2A family
       rotates the remote destination order, the ring-carry family the
-      sub-chunk service order).  The schedule is baked into the lowered
-      HLO, so changing the bucket requires a re-jit —
-      :class:`repro.runtime.straggler.SkewScheduler` owns that loop.
-      0 = no measured skew (the default schedules).
+      sub-chunk service order).  The ops read it at call time; a step is
+      built over a context with its bucket, and
+      :class:`repro_torch.runtime.straggler.SkewScheduler` keeps one build
+      a bucket.  0 = no measured skew (the default schedules).
     skew_world: the same bucket for ops that ring over the flattened
       full-world axis (the DLRM embedding A2A).  A rotation is only
       meaningful for the ring it was estimated on, so the world-ring ops
@@ -195,6 +236,14 @@ its ``tp_rank`` this rank's world rank ``dp_rank * tp + tp_rank``): the tp
 world itself at dp = 1, ``data`` at tp = 1, else the default process group,
 whose rank order is world order (``make_world_groups``).
 
+    ``ranks`` names the world's global ranks in world order where it covers
+    a subset of the default group (``None``: all of it, ranks ``0 ..
+    dp * tp - 1``).  Such a world is given all its groups
+    (:func:`make_subworld_groups`: ``group``, ``data_group`` and
+    ``world_group``, its flattened world's); a rank outside ``ranks`` gets
+    a context whose ``member`` is False, with no place in any group, which
+    it must not compute with (it leaves the world).
+
     ``hw`` is the link model the autotuner decides under (a
     :class:`MeshHardwareModel`).  ``None`` takes it from the world: a gloo
     world of more than one rank stages its payloads through host memory
@@ -209,6 +258,9 @@ whose rank order is world order (``make_world_groups``).
     group: Any = None
     data_group: Any = None
     hw: MeshHardwareModel | None = None
+    ranks: tuple | None = None
+    world_group: Any = None
+    member: bool = dataclasses.field(init=False, default=True)
     tp_rank: int = dataclasses.field(init=False, default=0)
     dp_rank: int = dataclasses.field(init=False, default=0)
     backend: str | None = dataclasses.field(init=False, default=None)
@@ -220,13 +272,16 @@ whose rank order is world order (``make_world_groups``).
         object.__setattr__(self, "device", dev)
         if self.tp < 1 or self.dp < 1:
             raise ValueError(f"tp and dp must be >= 1, got tp={self.tp}, dp={self.dp}")
-        if self.tp > 1 or self.dp > 1:
+        if self.tp > 1 or self.dp > 1 or self.ranks is not None:
             if not (dist.is_available() and dist.is_initialized()):
                 raise RuntimeError(
                     f"(dp, tp) = ({self.dp}, {self.tp}) needs a torch.distributed world of "
                     f"{self.dp * self.tp} ranks: start one with "
                     f"repro_torch.launch.mesh.init_world")
-            if self.tp > 1 and self.dp > 1 and (self.group is None or self.data_group is None):
+            if self.ranks is not None and not self._subworld():
+                return
+            if self.tp > 1 and self.dp > 1 and self.ranks is None and \
+                    (self.group is None or self.data_group is None):
                 tp_group, data_group = world_groups(self.dp, self.tp)
                 if self.group is None:
                     object.__setattr__(self, "group", tp_group)
@@ -247,6 +302,28 @@ whose rank order is world order (``make_world_groups``).
             object.__setattr__(self, "hw", MeshHardwareModel.uniform(link))
         object.__setattr__(self, "world", self._world())
 
+    def _subworld(self) -> bool:
+        """Check a world over ``ranks``; False on a rank outside it, whose
+        context is then complete (``member`` False, no place, no world)."""
+        ranks = tuple(int(r) for r in self.ranks)
+        object.__setattr__(self, "ranks", ranks)
+        if len(ranks) != self.dp * self.tp:
+            raise ValueError(f"(dp, tp) = ({self.dp}, {self.tp}) over {len(ranks)} ranks {ranks}")
+        object.__setattr__(self, "backend", str(dist.get_backend()))
+        if dist.get_rank() not in ranks:
+            object.__setattr__(self, "member", False)
+            object.__setattr__(self, "hw", self.hw or MeshHardwareModel.uniform(H100_NVLINK))
+            return False
+        unmade = [name for name, g, n in (("group", self.group, self.tp),
+                                          ("data_group", self.data_group, self.dp),
+                                          ("world_group", self.world_group, self.tp * self.dp))
+                  if n > 1 and g is None]
+        if unmade:
+            raise ValueError(f"a world over ranks {ranks} needs its own groups (the default "
+                             f"group holds ranks outside it); {unmade} not given "
+                             f"(make_subworld_groups)")
+        return True
+
     def _world(self) -> "ParallelContext":
         """The flattened world as a context of its own (``world``)."""
         if self.dp == 1:
@@ -254,9 +331,9 @@ whose rank order is world order (``make_world_groups``).
         if self.tp == 1:
             return self.data
         world = ParallelContext(device=self.device, fusion=self.fusion, tp=self.tp * self.dp,
-                                hw=self.hw)
+                                group=self.world_group, hw=self.hw)
         if world.tp_rank != self.dp_rank * self.tp + self.tp_rank:
-            raise ValueError(f"rank {world.tp_rank} of the default group is tp rank "
+            raise ValueError(f"rank {world.tp_rank} of the world's group is tp rank "
                              f"{self.tp_rank} of replica {self.dp_rank}: the world's rank "
                              f"order must be replica major (make_world_groups)")
         return world
@@ -321,6 +398,18 @@ def split_dims(spec, ctx, training: bool = False) -> list:
     out += [(i, dp * ctx.tp, dp_rank * ctx.tp + ctx.tp_rank) for i in world_dims
             if dp * ctx.tp > 1]
     return sorted(out)
+
+
+def split_contexts(spec, ctx: ParallelContext, training: bool = False) -> list:
+    """[(dim, context)] of each dim ``spec`` splits in ``ctx``'s world (the
+    dims of :func:`split_dims`), with the context whose ranks split it: a
+    tp axis ``ctx`` itself, a data axis ``ctx.data``, a ``"world"`` dim
+    ``ctx.world`` (each context's ``tp`` the dim's rank count)."""
+    out = []
+    for dim, _, _ in split_dims(spec, ctx, training):
+        ax = spec[dim]
+        out.append((dim, ctx if ax in _TP_AXES else ctx.data if ax in _DATA_AXES else ctx.world))
+    return out
 
 
 def shard_leaf(x: torch.Tensor, spec, ctx: ParallelContext, training: bool = False

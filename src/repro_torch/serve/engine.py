@@ -36,8 +36,9 @@ pool) mid-flight.  In-flight requests go back to the queue front with their
 generated tokens; on re-admission the engine replays prompt + generated
 tokens through the new cache and generation resumes where it stopped.
 :func:`request_journal` / :func:`resubmit_journal` carry the unfinished
-requests to a fresh engine.  Driving an engine under injected faults
-(:func:`serve_with_chaos`) waits for the runtime (ROADMAP Queue 1 item 7).
+requests to a fresh engine.  :func:`serve_with_chaos` drains an engine
+under a seeded fault plan (``runtime/chaos.py``): a failed collective drops
+its tick, a lost rank drains, reshards and resumes the in-flight requests.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.runtime.chaos import RankLost
 from repro_torch.serve.kv_cache import OutOfBlocks, PagedKVCache
 
 log = logging.getLogger("repro_torch.serve")
@@ -452,8 +454,56 @@ def resubmit_journal(engine, journal: list[dict]) -> int:
     return len(journal)
 
 
-def serve_with_chaos(engine, plan, **_kwargs):
-    """Drain an engine under a fault plan: waits for ``runtime/chaos.py``."""
-    raise NotImplementedError(
-        "serve_with_chaos needs the runtime's fault plans (runtime/chaos.py): "
-        "ROADMAP Queue 1 item 7")
+def serve_with_chaos(engine, plan, *,
+                     reshard_fn: Callable | None = None,
+                     sleep_fn: Callable[[float], None] = time.sleep,
+                     max_steps: int = 10_000):
+    """Drain the engine under a :class:`~repro_torch.runtime.chaos.FaultPlan`.
+
+    Per tick: ``slow_link`` sleeps its delay before stepping; ``timeout``
+    / ``rank_fail`` / ``nan_wire`` drop the tick entirely (the collective
+    failed, nothing was committed — the same decode step retries next
+    tick); ``rank_loss`` calls ``reshard_fn(engine)`` — the drain-reshard-
+    resume path — or raises :class:`~repro_torch.runtime.chaos.RankLost`
+    if no handler is wired.  Every rank of a world holds the same plan, so
+    every rank drops and reshards at the same tick.  ``reshard_fn``
+    returns False on a rank the shrunk world does not keep: the loop stops
+    there (``left`` True) with no further collective.
+
+    Returns ``(finished, stats)`` where stats counts ticks, dropped
+    ticks, and reshards, and carries ``drained`` — False when the loop
+    stopped at ``max_steps`` with requests still queued or in flight.
+    """
+    finished = DrainResult()
+    stats = {"ticks": 0, "dropped": 0, "reshards": 0, "drained": True, "left": False}
+    tick = 0
+    while engine._pending() and tick < max_steps:
+        events = plan.at(tick) if plan is not None else ()
+        tick += 1
+        stats["ticks"] += 1
+        dropped = False
+        for ev in events:
+            if ev.kind == "slow_link":
+                sleep_fn(ev.delay_s)
+            elif ev.kind == "rank_loss":
+                if reshard_fn is None:
+                    raise RankLost(ev.rank)
+                stats["reshards"] += 1
+                if reshard_fn(engine) is False:
+                    stats["left"] = True
+                    return finished, stats
+            else:  # timeout / rank_fail / nan_wire: the tick is lost
+                dropped = True
+        if dropped:
+            stats["dropped"] += 1
+            continue
+        _, fin = engine.step()
+        finished.extend(fin)
+    stats["drained"] = finished.drained = not engine._pending()
+    if not stats["drained"]:
+        log.warning(
+            "serve_with_chaos stopped at max_steps=%d with %d queued and "
+            "%d in-flight requests — results are TRUNCATED",
+            max_steps, len(engine.queue),
+            sum(s is not None for s in engine.slots))
+    return finished, stats

@@ -1097,3 +1097,222 @@ def world_a2a_task(ctx, x, xb, g, q, wire="f32", schedule="comm_aware", skew=0):
     back = col.direct_all_to_all_transpose(c, t(g[r]), **kw)
     bulk = col.bulk_all_to_all(c, t(xb[r]), group="world")
     return out.detach().numpy(), grad.numpy(), back.numpy(), bulk.numpy()
+
+
+# ---------------------------------------------------------------------------
+# the in-process runtime (tests/test_torch_runtime_world.py)
+# ---------------------------------------------------------------------------
+def toy_step(c, state, xg):
+    """The chaos scenarios' step (tests/test_chaos.py's, in torch) over
+    ``c``'s world: this rank's rows of the global batch ``xg`` [B, S, K]
+    (its replica's ``B / dp``) and its ``K / tp`` columns; y = x w summed
+    over tp (``matmul_allreduce``), g = x^T tanh(y) summed over the data
+    ranks, w -= 0.01 g in place, the loss mean(y^2) over the world's rows.
+    The step slices the batch by its own context, so a shrunk world's step
+    takes the rows of its new replicas."""
+    from repro_torch.core.collectives import all_reduce, data_mean
+    from repro_torch.core.matmul_allreduce import matmul_allreduce
+
+    rows = xg.shape[0] // c.dp
+    cols = xg.shape[2] // c.tp
+    x = xg[c.dp_rank * rows:(c.dp_rank + 1) * rows, :, c.tp_rank * cols:(c.tp_rank + 1) * cols]
+    y = matmul_allreduce(c, x.contiguous(), state["w"])
+    g = torch.einsum("bsk,bsn->kn", x, torch.tanh(y))
+    if c.dp > 1:
+        g = all_reduce(c.data, g)
+    with torch.no_grad():
+        state["w"].sub_(0.01 * g)
+    return state, {"loss": data_mean(c, torch.mean(y * y))}
+
+
+def _toy_supervisor(c, path, plan=None, **kw):
+    import functools
+
+    from repro_torch.checkpoint import Placement
+    from repro_torch.runtime.fault_tolerance import SupervisorConfig, TrainSupervisor
+
+    cfg = SupervisorConfig(checkpoint_dir=path, checkpoint_every=3, keep=3, max_restarts=8,
+                           backoff_base_s=1e-4, backoff_max_s=1e-3)
+    return TrainSupervisor(cfg, functools.partial(toy_step, c),
+                           state_shardings=Placement(c, {"w": ("tp", None)}, training=True),
+                           fault_plan=plan, sleep_fn=lambda s: None, **kw)
+
+
+def _world_dir(path, c):
+    """One directory a world: the two tp = 2 worlds run on the pairs."""
+    import torch.distributed as dist
+
+    return f"{path}/w{dist.get_rank() // (c.dp * c.tp)}"
+
+
+@task
+def toy_chaos_task(ctx, w, batches, path, plan=None, lose=False):
+    """The toy step under the supervisor on this world (fused mode), from
+    the whole ``w``; ``plan`` a list of (step, kind, rank, nth_send).  With
+    ``lose`` a rank loss shrinks the world (``shrink_context``, every rank
+    of the default group) and reshards the state (the lost ranks take part,
+    then leave).  Returns this rank's w shard (None where it left), the
+    step, the supervisor's counts and failures, the final world's (dp, tp)
+    and ranks."""
+    import functools
+
+    from repro_torch.runtime.chaos import FaultEvent, FaultPlan
+    from repro_torch.runtime.elastic import reshard_tree, shrink_context
+
+    c = ctx("fused", granularity=2)
+    cur = {"ctx": c}
+    state = {"w": _block(w, c, 0).clone()}
+    fp = None if plan is None else FaultPlan([FaultEvent(step=s, kind=k, rank=r, nth_send=n)
+                                              for s, k, r, n in plan])
+
+    def on_rank_loss(st, exc):
+        old = cur["ctx"]
+        cur["ctx"] = shrink_context(old)
+        st, sup.state_shardings = reshard_tree(st, {"w": ("tp", None)}, cur["ctx"],
+                                               old_ctx=old, training=True)
+        return (None, None) if st is None else (st, functools.partial(toy_step, cur["ctx"]))
+
+    sup = _toy_supervisor(c, _world_dir(path, c), fp,
+                          on_rank_loss=on_rank_loss if lose else None)
+    state, step = sup.run(state, [t(b) for b in batches], len(batches))
+    n = cur["ctx"]
+    return (None if state is None else state["w"].numpy().copy(), step,
+            (sup.restarts, sup.faults_injected, sup.rank_losses, sup.left), sup.failures,
+            (n.dp, n.tp, n.ranks, n.member))
+
+
+def _state_tree(whole, fn, path=()):
+    """``fn(path, numpy leaf)`` over a nested tree of dicts and lists."""
+    if isinstance(whole, dict):
+        return {k: _state_tree(v, fn, path + (k,)) for k, v in whole.items()}
+    if isinstance(whole, list):
+        return [_state_tree(v, fn, path + (i,)) for i, v in enumerate(whole)]
+    return fn(path, whole)
+
+
+def _as_state(path, a):
+    """A leaf of a whole train state as a tensor: ``nu`` in bf16."""
+    x = torch.from_numpy(np.array(a))
+    return x.to(torch.bfloat16) if "nu" in path else x
+
+
+def _host(x):
+    return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
+
+
+@task
+def ckpt_state_task(ctx, whole, specs, path, mode):
+    """Checkpoints of a train state over this world.  ``mode`` "save":
+    this rank's shards of the whole tree (fsdp dims over data, ``nu`` in
+    bf16) saved through an async manager (every rank gathers, world rank
+    0 writes), then the whole tree restored at (1, 1) on every rank;
+    "restore": this world's shards restored.  Returns the step and numpy
+    trees (bf16 leaves as their int16 words)."""
+    from repro_torch.checkpoint import CheckpointManager, Placement
+    from repro_torch.checkpoint.checkpointer import world_barrier
+    from repro_torch.parallel.sharding import ParallelContext, shard_leaf
+
+    def spec_at(p):
+        s = specs
+        for k in p:
+            s = s[k]
+        return tuple(s)
+
+    c = ctx()
+    mine = _state_tree(whole, lambda p, a: shard_leaf(_as_state(p, a), spec_at(p), c,
+                                                      training=True))
+    zeros = lambda tree: _state_tree(tree, lambda p, x: torch.zeros_like(x))
+    host = lambda tree: _state_tree(tree, lambda p, x: _host(x))
+    mgr = CheckpointManager(path, keep=2, async_save=True)
+    if mode == "save":
+        mgr.save(4, mine, Placement(c, specs, training=True))
+        mgr.wait()
+        world_barrier(Placement(c, specs))      # the writer is done for every rank
+        one = ParallelContext(device="cpu")
+        out, step = mgr.restore_latest(zeros(_state_tree(whole, _as_state)),
+                                       Placement(one, specs, training=True))
+        return step, host(out)
+    out, step = mgr.restore_latest(zeros(mine), Placement(c, specs, training=True))
+    return step, host(out), host(mine)
+
+
+@task
+def telemetry_task(ctx, w, xg):
+    """Each rank's own step time gathered over the world
+    (``ProcessTelemetry``), the rotation the estimator makes of them, and
+    the toy step built at that rotation beside the one at 0 (fused mode, 2
+    sub-chunks, so the rotation reorders the sends)."""
+    import dataclasses
+
+    from repro_torch.runtime.straggler import (ProcessTelemetry, SkewEstimator, SkewScheduler,
+                                               StragglerMonitor)
+
+    c = ctx("fused", granularity=2)
+    tel = ProcessTelemetry(StragglerMonitor(), c.dp * c.tp, ctx=c)
+    gathered = tel(0.1 * (c.dp_rank * c.tp + c.tp_rank + 1))
+    est = SkewEstimator({"data": c.dp, "model": c.tp}, alpha=1.0, min_obs=1, hysteresis=0.0)
+
+    def build(skew):
+        cs = c.with_fusion(dataclasses.replace(c.fusion, skew=skew))
+        return lambda st, x: toy_step(cs, st, x)
+
+    sched = SkewScheduler(build, est, axis="model")
+    outs = []
+    for bucket in (0, None):
+        if bucket is None:
+            sched.observe(gathered)
+        state = {"w": _block(w, c, 0).clone()}
+        _, m = sched.fn()(state, t(xg))
+        outs.append((state["w"].numpy(), float(m["loss"])))
+    return gathered, sched.bucket, sched.rebuilds, outs
+
+
+@task
+def serve_chaos_task(ctx, tree, requests, max_new, plan):
+    """Reduced chatglm3-6b's dense engine drained clean, then under
+    ``serve_with_chaos`` with ``plan`` (step, kind, rank) whose rank loss
+    shrinks the world (the weights re-placed over the survivors, the lost
+    ranks taking part, then leaving) and reshards the engine.  Returns both
+    drains' tokens (the chaos one None where this rank left), the stats
+    and the final world's (dp, tp, ranks)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.runtime.chaos import FaultEvent, FaultPlan
+    from repro_torch.runtime.elastic import reshard_tree, shrink_context
+    from repro_torch.serve.engine import DecodeEngine, Request, serve_with_chaos
+
+    c = ctx("fused")
+    bundle = get_arch("chatglm3-6b").reduced()
+    params = params_from_numpy(tree, "cpu", c)
+
+    def engine(cc, p):
+        dec = bundle.decode_fn(cc)
+        return DecodeEngine(lambda tk, cache, pos: dec(p, tk, cache, pos),
+                            lambda b: bundle.init_cache(b, "cpu", cc.tp, cc.dp), 4,
+                            device="cpu", max_seq=bundle.config.max_seq)
+
+    def drain(eng, plan=None, reshard_fn=None):
+        for i, p in enumerate(requests):
+            eng.submit(Request(uid=i, prompt=list(p), max_new=max_new))
+        if plan is None:
+            return eng.run_until_drained(max_steps=200), None
+        return serve_with_chaos(eng, plan, reshard_fn=reshard_fn, sleep_fn=lambda s: None,
+                                max_steps=200)
+
+    clean, _ = drain(engine(c, params))
+    cur = {"ctx": c}
+
+    def reshard_fn(eng):
+        old = cur["ctx"]
+        cur["ctx"] = new = shrink_context(old)
+        p, _ = reshard_tree(params, bundle.param_specs(params), new, old_ctx=old)
+        if not new.member:
+            return False
+        fresh = engine(new, p)
+        eng.reshard(fresh.decode_fn, fresh.init_cache_fn)
+
+    fp = FaultPlan([FaultEvent(step=s, kind=k, rank=r, delay_s=0.0) for s, k, r in plan])
+    fin, stats = drain(engine(c, params), fp, reshard_fn)
+    n = cur["ctx"]
+    got = None if stats["left"] else sorted((r.uid, r.tokens) for r in fin)
+    return sorted((r.uid, r.tokens) for r in clean), got, stats, (n.dp, n.tp, n.ranks)
