@@ -283,11 +283,13 @@ prints one line, and any failure exits non-zero:
      bit-identical across the ranks after the last step, ms a step split
      into forward, backward, all-reduce and optimizer, each rank's peak
      memory
- 40. the train launcher at tp = 2 through torch.distributed.run (--backend
-     gloo --fusion kernel, full width cut to 2 layers, 3 steps at lr
-     TRAIN_LR): exit 0, every rank's losses equal, the losses within
-     TRAIN_LOSS_REL of the tp = 1 launcher's on the same flags.  Phases
-     38-40 are labelled "one card, N processes, wire staged through host"
+ 40. the train launcher at tp = 1 (--fusion kernel, full width cut to 2
+     layers, 3 steps at lr TRAIN_LR) in this process, the yardstick of the
+     same flags at tp = 2 through torch.distributed.run (--backend gloo),
+     which runs beside phase 43's launchers and is checked there: exit 0,
+     every rank's losses equal, the losses within TRAIN_LOSS_REL of tp =
+     1's.  Phases 38-40 are labelled "one card, N processes, wire staged
+     through host"
  41. paged serving at tp = 4 and 2 (a spawned gloo world of 4 ranks on the
      card; tp = 2 on its pairs), full-width chatglm3-6b cut to PAGED_TP_LAYERS
      layers, fused and bulk mode at tp = 4, fused at tp = 2, phase 23(b)'s
@@ -325,7 +327,9 @@ prints one line, and any failure exits non-zero:
      at once: train (phase 40's flags at 2 steps: every rank's losses equal,
      within TRAIN_LOSS_REL of phase 40's first 2 tp = 1 losses) and serve
      --paged (full width, fused, 4 requests x 8 tokens: every rank's
-     streams equal, phase 5's or apart first at a near tie).  Phases 41-43 are labelled "one card, N
+     streams equal, phase 5's or apart first at a near tie), with phase
+     40's train launcher at --tp 2 beside them (its processes' start
+     overlapped with theirs).  Phases 41-43 are labelled "one card, N
      processes, wire staged through host"
  44. (runs after phase 10, on phase 9's weights) the MoE kernels at prefill
      rows: the expert FFN's tile path (tensor cores, C > 8) at dbrx's widths
@@ -399,6 +403,20 @@ prints one line, and any failure exits non-zero:
  54. the paged serve launcher in this process, 2 layers, kernel mode,
      clean and under --chaos (2 ticks dropped): the same tokens and fused
      launches; a rank loss at one rank raises
+ 55. the respawn protocol in training: the train launcher on phase 52's
+     setup at --dp 2 over gloo as the workers of MultiprocessDriver
+     (processes sharing the card), rank 1 SIGKILLed at step 3; rank 0 exits
+     17 through the heartbeat watchdog, a world of one resumes from the
+     checkpoint; its final checkpoint and losses are, bit for bit, a
+     fault-free launcher's from a copy of the checkpoint directory taken at
+     generation 0's end and an in-process kernel-mode run's from another
+     copy (2 flash launches a layer a step, tile path); detection, respawn
+     and restore seconds
+ 56. the respawn protocol in serving: the dense serve launcher over 2
+     layers at --dp 2 with --journal, rank 1 SIGKILLed at tick 10; rank 0
+     journals the unfinished requests and exits 17, a world of one drains
+     them; every request once, the tokens an uninterrupted drain's (fused
+     GEMV + AllReduce launches counted on its stream path)
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
@@ -416,7 +434,8 @@ phase 42 ends), and phase 43 runs the launchers.  Phases 44-45 run inside
 the dbrx phases, after phase 10, on phase 9's weights; phases 46-51 run
 last, in the order 46, 47, 50, 48, 49, 51, each drawing its own weights
 (phase 47's, 48's and 50's in processes of their own); phases 52-54 run
-after them, each drawing its own weights.  Phase 29 runs after
+after them, each drawing its own weights; phases 55-56 after those, their
+workers in processes of their own.  Phase 29 runs after
 phase 35: its world starts one pool of 4 rank processes (spawn_world) that
 the worlds of phases 36-47 and 50 reuse, each opening and closing its own
 process group; the pool ends after phase 50.
@@ -1103,7 +1122,11 @@ def main() -> int:
     dlrm_launcher_phase(card)
     torch.cuda.empty_cache()
     # the flash row gains its launches under the supervisor (phases 52-54)
+    # and in the respawn drills (phases 55-56), the fused row in the latter
     flash_row.update(runtime_phases(card))
+    flash_drill, fused_drill = respawn_phases(card)
+    flash_row.update(flash_drill)
+    next(k_ for k_ in kernels if k_["name"] == "fused_matmul_allreduce").update(fused_drill)
     say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -5338,40 +5361,49 @@ def train_tp_step_phase(card) -> dict:
     return row
 
 
+TP2_TRAIN_CMD = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2", "-m",
+                 "repro_torch.launch.train", "--tp", "2", "--backend", "gloo", *TRAIN_TP_LAUNCH]
+
+
 def train_tp_launcher_phase(card) -> dict:
-    """Phase 40: ``python -m torch.distributed.run --nproc-per-node 2 -m
-    repro_torch.launch.train --tp 2 --backend gloo`` with TRAIN_TP_LAUNCH
-    (two processes on the card): it exits 0, says every rank's losses are
-    equal, and its losses are within TRAIN_LOSS_REL of the tp = 1
-    launcher's on the same flags."""
+    """Phase 40: the train launcher at tp = 1 on TRAIN_TP_LAUNCH in this
+    process, the yardstick of ``python -m torch.distributed.run
+    --nproc-per-node 2 -m repro_torch.launch.train --tp 2 --backend gloo``
+    with the same flags, which runs beside phase 43's launchers
+    (``tp2_train_check``: its processes' start overlaps theirs)."""
     from repro_torch.launch import train as launch_train
 
+    t0 = time.perf_counter()
     want = launch_train.main(TRAIN_TP_LAUNCH)
     TRAIN_TP1["launcher_losses"] = want
     torch.cuda.empty_cache()
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
-           "-m", "repro_torch.launch.train", "--tp", "2", "--backend", "gloo", *TRAIN_TP_LAUNCH]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    got = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", proc.stdout)]
-    if proc.returncode or "all 2 ranks' losses equal: True" not in proc.stdout:
-        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
-        raise AssertionError(f"train launcher at tp=2: exit {proc.returncode}")
+    say(40, f"python -m repro_torch.launch.train {' '.join(TRAIN_TP_LAUNCH)} in this process "
+            f"(full-width chatglm3-6b, {TRAIN_GRAD_LAYERS} layers, 16x64 tokens): losses "
+            f"{', '.join(f'{x:.4f}' for x in want)} in {time.perf_counter() - t0:.1f} s, the "
+            f"yardstick of the launcher at --tp 2, which runs beside phase 43's")
+    return {}
+
+
+def tp2_train_check(out, err, code, wall) -> str:
+    """Phase 40's launcher at --tp 2 (two processes on the card, run beside
+    phase 43's): it exits 0, says every rank's losses are equal, and its
+    losses are within TRAIN_LOSS_REL of the tp = 1 launcher's on the same
+    flags.  Returns its summary."""
+    want = TRAIN_TP1["launcher_losses"]
+    got = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", out)]
+    if code or "all 2 ranks' losses equal: True" not in out:
+        print(out[-4000:], err[-8000:], sep="\n", file=sys.stderr)
+        raise AssertionError(f"train launcher at tp=2: exit {code}")
     rel = max(abs(a - b) / abs(b) for a, b in zip(got, want)) if len(got) == len(want) else 1.0
     if not rel <= TRAIN_LOSS_REL:
         raise AssertionError(f"train launcher at tp=2: losses {got} against tp = 1's {want}")
-    step_s = re.findall(r"\(([\d.]+)s/step\)", proc.stdout)
-    say(40, f"[{TP_LABEL.format(2)}] python -m torch.distributed.run --nproc-per-node 2 -m "
-            f"repro_torch.launch.train --tp 2 --backend gloo {' '.join(TRAIN_TP_LAUNCH)} "
-            f"(full-width chatglm3-6b, {TRAIN_GRAD_LAYERS} layers, 16x64 tokens): exit 0, all 2 "
-            f"ranks' losses equal; losses {', '.join(f'{x:.4f}' for x in got)} against tp = 1's "
-            f"{', '.join(f'{x:.4f}' for x in want)} ({rel:.3g} of them at most, bound "
+    step_s = re.findall(r"\(([\d.]+)s/step\)", out)
+    return (f"phase 40's python -m torch.distributed.run --nproc-per-node 2 -m "
+            f"repro_torch.launch.train --tp 2 --backend gloo {' '.join(TRAIN_TP_LAUNCH)}: exit "
+            f"0, all 2 ranks' losses equal; losses {', '.join(f'{x:.4f}' for x in got)} against "
+            f"tp = 1's {', '.join(f'{x:.4f}' for x in want)} ({rel:.3g} of them at most, bound "
             f"{TRAIN_LOSS_REL}); {step_s[-1] if step_s else '?'} s a step on the host clock "
             f"(rank 0's average over the run); {wall:.1f} s with the processes' start")
-    return {"train_tp_launcher_s": wall}
 
 
 def _pair_params(bundle, ctx, dev):
@@ -6096,16 +6128,24 @@ def data_launcher_phase(card) -> None:
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
            "-m", "repro_torch.launch.train", "--dp", "2", "--tp", "2", "--backend", "gloo",
            *argv]
-    # both launchers at once (two worlds of 4 processes on the card)
+    # both launchers at once (two worlds of 4 processes on the card), and
+    # phase 40's train launcher at --tp 2 beside them
     t0 = time.perf_counter()
     train = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.PIPE, text=True, start_new_session=True)
+    tp2 = subprocess.Popen([sys.executable, *TP2_TRAIN_CMD], cwd=ROOT, env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                           start_new_session=True)
     try:
         serve = launcher_world_run("fused", ["--paged"], tp=2, dp=2)
         out, err = train.communicate(timeout=600)
+        tp2_out, tp2_err = tp2.communicate(timeout=600)
+        tp2_wall = time.perf_counter() - t0
     finally:
         stop_group(train)
+        stop_group(tp2)
     wall = time.perf_counter() - t0
+    tp2_line = tp2_train_check(tp2_out, tp2_err, tp2.returncode, tp2_wall)
     got = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", out)]
     want = TRAIN_TP1["launcher_losses"][:2]
     if train.returncode or "all 4 ranks' losses equal: True" not in out:
@@ -6128,7 +6168,7 @@ def data_launcher_phase(card) -> None:
             f"start and init), streams {[serve['streams'][u] for u in sorted(serve['streams'])]}; "
             f"= tp 1 kernel mode (phase 5): "
             f"{[serve['streams'][u] for u in sorted(serve['streams'])] == GLM_DECODE['streams']}"
-            + (f" ({'; '.join(notes)})" if notes else ""))
+            + (f" ({'; '.join(notes)})" if notes else "") + f"; beside them {tp2_line}")
 
 
 # ---------------------------------------------------------------------------
@@ -7825,6 +7865,326 @@ def runtime_phases(card) -> dict:
     serve_chaos_phase(card)
     torch.cuda.empty_cache()
     return got["row"]
+
+
+# Phases 55-56: the respawn protocol (runtime/multiprocess.py).  The workers
+# are the launchers themselves, started by MultiprocessDriver as processes
+# sharing the one card in a gloo world (NCCL refuses two ranks on one
+# card): no time here is an NVLink time.  A heartbeat older than
+# RESPAWN_STALL_S marks a peer stalled or lost: room for a first save's
+# pinning (1.1-1.3 s in phase 52) and a gloo world's start on a loaded host.
+RESPAWN_STALL_S = 5.0
+RESPAWN_KILL_STEP = 3
+RESPAWN_SERVE = ["--layers", str(RUNTIME_SERVE_LAYERS), "--requests", "8", "--batch", "4",
+                 "--max-new", "32", "--fusion", "kernel"]
+RESPAWN_KILL_TICK = 10
+DRILL_LABEL = "one card, 2 gloo processes, wire staged through host memory: not NVLink"
+
+
+def respawn_driver(argv, workdir):
+    """A MultiprocessDriver of 2 workers running ``python -m <argv>``, with
+    the liveness flags, under ``workdir``."""
+    from repro_torch.runtime.multiprocess import MultiprocessDriver
+
+    flags = ["--backend", "gloo", "--heartbeat-dir", "{heartbeat_dir}", "--stall-after",
+             str(RESPAWN_STALL_S)]
+    return MultiprocessDriver(["-m", *argv, *flags], 2, workdir=str(workdir),
+                              env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                              hang_grace_s=30.0)
+
+
+def drill_logs(driver, report) -> dict:
+    """(generation, rank) -> the worker's log, for every worker started."""
+    logs = {}
+    for g in report.generations:
+        for r in range(g.world):
+            with open(os.path.join(driver.workdir, "logs", f"g{g.generation}_r{r}.log")) as f:
+                logs[(g.generation, r)] = f.read()
+    return logs
+
+
+def drill_times(driver, report, killed) -> str:
+    """The drill's seconds: the kill to rank 0's exit (detection), the kill to
+    generation 1's first step or tick (respawn), each generation's wall time."""
+    g0 = report.generations[0]
+    return (f"detection {g0.exit_times[0] - killed['t']:.2f} s (kill to rank 0's exit), respawn "
+            f"{killed['first'] - killed['t']:.2f} s (kill to generation 1's first "
+            f"{killed['unit']}), generations "
+            + ", ".join(f"{g.generation}: {g.duration_s:.1f} s" for g in report.generations))
+
+
+def drill_report(driver, report, killed, what) -> dict:
+    """The drill's gates common to both launchers: generation 0 ends {0: 17,
+    1: -9} through liveness, generation 1 is a world of one that ends 0,
+    one kill and no other break.  Returns the logs."""
+    logs = drill_logs(driver, report)
+    codes = [g.codes for g in report.generations]
+    if (not report.completed or codes != [{0: 17, 1: -9}, {0: 0}]
+            or len(report.events("kill")) != 1 or report.generations[1].world != 1):
+        for k_, v in logs.items():
+            print(f"--- {what} g{k_[0]} r{k_[1]}\n{v[-3000:]}", file=sys.stderr)
+        raise AssertionError(f"{what}: generations {codes}, kills {report.events('kill')}")
+    if "liveness:" not in logs[(0, 0)] or "RankLost from liveness" not in logs[(0, 0)]:
+        raise AssertionError(f"{what}: rank 0 left without liveness's verdict:\n"
+                             f"{logs[(0, 0)][-3000:]}")
+    if "world size 1: (dp, tp) = (1, 1), shrunk from --dp 2 --tp 1" not in logs[(1, 0)]:
+        raise AssertionError(f"{what}: generation 1 did not shrink to (1, 1)")
+    return logs
+
+
+def killer(rank, step, unit):
+    """A fault for run_elastic: SIGKILL ``rank`` once its heartbeat reports
+    ``step``, then note when generation 1's rank 0 beats its first step or
+    tick; the times land in the returned dict."""
+    killed = {"unit": unit}
+
+    def fault(d):
+        killed["t"] = d.kill_at_step(rank, step)
+
+    def first(d):
+        d.wait_for_step(0, 1, timeout_s=600)
+        killed["first"] = time.time()
+    return killed, {0: fault, 1: first}
+
+
+def same_bits(x, y) -> bool:
+    """Two host arrays (memory maps included) of one dtype and shape, equal
+    byte for byte, compared without a copy of either."""
+    import numpy as np
+
+    return x.dtype == y.dtype and x.shape == y.shape and np.array_equal(
+        np.ascontiguousarray(x).reshape(-1).view(np.uint8),
+        np.ascontiguousarray(y).reshape(-1).view(np.uint8))
+
+
+def checkpoint_leaves(d) -> dict:
+    """path -> a memory map of the leaf's file, for checkpoint directory ``d``."""
+    import numpy as np
+
+    with open(os.path.join(d, "manifest.json")) as f:
+        return {e["path"]: np.load(os.path.join(d, e["file"]), mmap_mode="r")
+                for e in json.load(f)["leaves"]}
+
+
+def same_checkpoint(a, b) -> int:
+    """Every leaf of checkpoint directories ``a`` and ``b`` equal bit for bit
+    (dtype, shape, bytes); returns the leaf count."""
+    x, y = checkpoint_leaves(a), checkpoint_leaves(b)
+    if sorted(x) != sorted(y):
+        raise AssertionError(f"checkpoints {a} and {b} hold different leaves")
+    for p_ in x:
+        if not same_bits(x[p_], y[p_]):
+            raise AssertionError(f"checkpoints {a} and {b} differ at {p_}")
+    return len(x)
+
+
+def train_respawn_phase(card) -> dict:
+    """Phase 55: the train launcher on phase 52's setup (chatglm3-6b, 1 of
+    28 layers at full width, kernel mode, 4 x 512 tokens, lr 3e-5, 6 steps,
+    --ckpt-every 2) at --dp 2 as the workers of MultiprocessDriver; rank 1
+    SIGKILLed once its heartbeat reports step 3 (never rank 0: it holds the
+    rendezvous store).  Gates: drill_report's; generation 1 resumes at a
+    step > 0; a copy of the checkpoint directory taken at generation 0's
+    end gives, through the launcher in this process at (1, 1), the same
+    final checkpoint on every leaf's bits and the same losses' bits, and,
+    restored in this process and stepped to the end under the counted
+    wrappers, the same again with 2 flash launches a layer a step, every
+    one on the tile path.  Returns the flash row's numbers."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpointer import restore_checkpoint
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.step import build_train_step
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase55_", dir=ROOT / "build")
+    ck, twin, mine = (os.path.join(work, n_) for n_ in ("ck", "twin", "mine"))
+    argv = RUNTIME_ARGV + ["--steps", str(RUNTIME_STEPS), "--ckpt-every", "2"]
+    try:
+        driver = respawn_driver(["repro_torch.launch.train", *argv, "--dp", "2", "--ckpt-dir",
+                                 ck, "--log-every", "1"], os.path.join(work, "run"))
+        killed, faults = killer(1, RESPAWN_KILL_STEP, "step")
+
+        def snapshot(d, result):
+            # hard links: a checkpoint's files are written once (to a .tmp
+            # directory, then renamed) and never changed, so the copies
+            # cost no 4.7 GB of writing each
+            if result.generation == 0:
+                shutil.copytree(ck, twin, copy_function=os.link)
+                shutil.copytree(ck, mine, copy_function=os.link)
+        report = driver.run_elastic(max_generations=3, gen_timeout_s=600, faults=faults,
+                                    on_generation_end=snapshot)
+        logs = drill_report(driver, report, killed, "train drill")
+        log1 = logs[(1, 0)]
+        step_s = re.findall(r"\(([\d.]+)s/step\)", logs[(0, 0)])
+        start = int(re.search(r"^resumed at step (\d+)$", log1, re.M)[1])
+        losses = json.loads(re.search(r"^losses (\[.*\])$", log1, re.M)[1])
+        restored = re.search(r"^restored step .*$", log1, re.M)[0]
+        if not 0 < start < RUNTIME_STEPS or len(losses) != RUNTIME_STEPS - start:
+            raise AssertionError(f"generation 1 resumed at {start} with losses {losses}")
+        final = os.path.join(ck, f"step_{RUNTIME_STEPS:08d}")
+
+        # the fault-free (1, 1) launcher from the first copy, in this process
+        reset_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            twin_losses = launch_train.main(argv + ["--ckpt-dir", twin])
+        torch.cuda.synchronize()
+        twin_s, twin_counts = time.perf_counter() - t0, launch_counts()
+        if twin_losses != losses:
+            raise AssertionError(f"the fault-free launcher's losses {twin_losses}, generation "
+                                 f"1's {losses}")
+        if f"resumed at step {start}" not in buf.getvalue():
+            raise AssertionError(f"the fault-free launcher did not resume at {start}")
+        n_leaves = same_checkpoint(final, os.path.join(twin, f"step_{RUNTIME_STEPS:08d}"))
+        expect_counts("phase 55 twin", twin_counts,
+                      flash_on_tile(2 * RUNTIME_LAYERS * (RUNTIME_STEPS - start)))
+
+        # the second copy restored here and stepped to the end, counted
+        t0 = time.perf_counter()
+        bundle, ctx, tc, batches, fresh = runtime_setup()
+        state = fresh()
+        state, at = restore_checkpoint(os.path.join(mine, f"step_{start:08d}"), state)
+        step_fn = build_train_step(bundle.loss_fn(ctx), tc, ctx=ctx,
+                                   param_specs=bundle.param_specs(state["params"]))
+        reset_counts()
+        mine_losses = []
+        for b in batches[at:]:
+            state, m = step_fn(state, b)
+            mine_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        mine_s, counts = time.perf_counter() - t0, launch_counts()
+        expect_counts("phase 55 in process", counts,
+                      flash_on_tile(2 * RUNTIME_LAYERS * (RUNTIME_STEPS - at)))
+        if mine_losses != losses:
+            raise AssertionError(f"in-process losses {mine_losses}, generation 1's {losses}")
+        on_disk = checkpoint_leaves(final)
+        for p_, leaf in leaf_paths(state):
+            y = leaf.detach().cpu()
+            y = y.view(torch.int16).numpy().view(on_disk[p_].dtype) \
+                if y.dtype == torch.bfloat16 else y.numpy()
+            if not same_bits(on_disk[p_], y):
+                raise AssertionError(f"in-process state differs from generation 1's at {p_}")
+        del state, step_fn, batches
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say(55, f"[{DRILL_LABEL}] on {card}: MultiprocessDriver over python -m "
+            f"repro_torch.launch.train {' '.join(argv)} --dp 2 --backend gloo --ckpt-dir D "
+            f"--heartbeat-dir H --stall-after {RESPAWN_STALL_S}, rank 1 SIGKILLed at step "
+            f"{RESPAWN_KILL_STEP}: generations {[g.codes for g in report.generations]}, rank 0 "
+            f"through liveness ({re.search(r'liveness failure .*', logs[(0, 0)])[0]}); "
+            f"generation 0 at {step_s[-1] if step_s else '?'} s a step (rank 0's host clock from "
+            f"the loop's start, its first save included); generation 1 a world of one at (1, 1), resumed at step {start} "
+            f"({restored}); "
+            f"{drill_times(driver, report, killed)}; losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)}: the fault-free (1, 1) launcher's from a "
+            f"copy of D ({twin_s:.1f} s in this process, {twin_counts['flash_attention']} flash "
+            f"launches) and an in-process kernel-mode run's from another "
+            f"({counts['flash_attention']} flash launches, tile path; {mine_s:.1f} s with "
+            f"init and restore), bit for bit; the final "
+            f"checkpoint's {n_leaves} leaves the fault-free launcher's and the in-process "
+            f"run's bits")
+    return {"respawn_flash_launches": counts["flash_attention"],
+            "respawn_twin_flash_launches": twin_counts["flash_attention"]}
+
+
+def serve_respawn_phase(card) -> dict:
+    """Phase 56: the dense serve launcher over full-width chatglm3-6b cut to
+    RUNTIME_SERVE_LAYERS layers, kernel mode, 8 requests x 32 tokens at batch
+    4, --dp 2 with --journal J, as the workers of MultiprocessDriver; rank 1
+    SIGKILLed at tick 10.  Gates: drill_report's; rank 0 journals a
+    non-empty set of unfinished requests; generation 1 resubmits it and
+    drains; every request finishes once across the generations; the merged
+    tokens are an uninterrupted drain's at one rank in this process (its
+    fused GEMV + AllReduce launches counted, all on the stream path), a
+    difference passing only at a near tie of that drain's logits (phase
+    43's rule: phase 5's logits_tol).  Returns the fused row's numbers."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.engine import DecodeEngine
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase56_", dir=ROOT / "build")
+    journal = os.path.join(work, "journal.json")
+    try:
+        driver = respawn_driver(["repro_torch.launch.serve", *RESPAWN_SERVE, "--dp", "2",
+                                 "--journal", journal], os.path.join(work, "run"))
+        killed, faults = killer(1, RESPAWN_KILL_TICK, "tick")
+        report = driver.run_elastic(max_generations=3, gen_timeout_s=600, faults=faults)
+        logs = drill_report(driver, report, killed, "serve drill")
+        with open(journal) as f:
+            journaled = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n = int(re.search(r"journal: persisted (\d+) unfinished", logs[(0, 0)])[1])
+    if not journaled or len(journaled) != n or \
+            f"journal: resubmitted {n} unfinished requests" not in logs[(1, 0)]:
+        raise AssertionError(f"serve drill: journal of {len(journaled)} requests, logs say {n}")
+    streams = [{int(u): json.loads(t_) for u, t_ in
+                re.findall(r"req (\d+): prompt .* -> (\[.*\])", logs[(g, 0)])} for g in (0, 1)]
+    if set(streams[0]) & set(streams[1]):
+        raise AssertionError(f"requests finished twice: {set(streams[0]) & set(streams[1])}")
+    merged = {**streams[0], **streams[1]}
+    n_req = int(RESPAWN_SERVE[RESPAWN_SERVE.index("--requests") + 1])
+    if sorted(merged) != list(range(n_req)):
+        raise AssertionError(f"serve drill: requests served {sorted(merged)}")
+
+    # the uninterrupted drain at one rank, its choosing logits kept
+    chose = {}
+    greedy = DecodeEngine._greedy
+
+    def spy(self, logits):
+        for i, req in enumerate(self.slots):
+            if req is not None and req.consumed >= len(req.prefix):
+                chose[(req.uid, len(req.tokens))] = logits[i].float().cpu()
+        return greedy(self, logits)
+    DecodeEngine._greedy = spy
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            want = {r.uid: r.tokens for r in launch_serve.main(RESPAWN_SERVE)}
+    finally:
+        DecodeEngine._greedy = greedy
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    fused = counts["fused_matmul_allreduce"]
+    if fused == 0 or counts["fused_matmul_allreduce.stream"] != fused:
+        raise AssertionError(f"the uninterrupted drain's fused launches: {counts}")
+    uids = sorted(want)
+    notes = []
+    if merged != want:
+        if "logits_tol" not in GLM_DECODE:
+            raise AssertionError("the drill's tokens differ from the uninterrupted drain's and "
+                                 "phase 5's logits_tol is not there to judge a near tie")
+        notes = near_tie_flips([merged[u] for u in uids], [want[u] for u in uids],
+                               lambda k_, i: chose[(uids[k_], i)], GLM_DECODE["logits_tol"])
+    say(56, f"[{DRILL_LABEL}] on {card}: MultiprocessDriver over python -m "
+            f"repro_torch.launch.serve {' '.join(RESPAWN_SERVE)} --dp 2 --backend gloo --journal "
+            f"J --heartbeat-dir H --stall-after {RESPAWN_STALL_S}, rank 1 SIGKILLed at tick "
+            f"{RESPAWN_KILL_TICK}: generations {[g.codes for g in report.generations]}; rank 0 "
+            f"journaled {n} unfinished requests ({len(streams[0])} finished before the kill), "
+            f"generation 1 (a world of one) resubmitted and drained them; "
+            f"{drill_times(driver, report, killed)}; every request once; the merged tokens "
+            + ("the uninterrupted drain's" if merged == want else
+               f"differ from the uninterrupted drain's only at near ties ({'; '.join(notes)})")
+            + f" ({fused} fused GEMV + AllReduce launches in that drain, all on the stream path)")
+    return {"respawn_drain_fused_launches": fused}
+
+
+def respawn_phases(card) -> tuple[dict, dict]:
+    """Phases 55-56; returns the flash and fused rows' numbers."""
+    flash = train_respawn_phase(card)
+    torch.cuda.empty_cache()
+    fused = serve_respawn_phase(card)
+    torch.cuda.empty_cache()
+    return flash, fused
 
 
 def _map(tree, fn):

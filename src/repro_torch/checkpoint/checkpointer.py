@@ -195,6 +195,23 @@ def save_checkpoint(directory: str, step: int, tree: Any, placement: Placement |
     return _write(directory, step, paths, host)
 
 
+def tree_to_host(tree: Any, placement: Placement | None = None):
+    """Every leaf whole, as a host tensor (numpy leaves copied), on every
+    rank: each split leaf gathered over its groups first, as a save gathers
+    it (a collective: every rank of the world calls it)."""
+    flat = _flatten(tree)
+    out = []
+    for (_, x), spec in zip(flat, _specs(placement, len(flat))):
+        if not isinstance(x, torch.Tensor):
+            out.append(np.array(x))
+            continue
+        x = x.detach()
+        if placement is not None and placement.world > 1:
+            x = gather_leaf(placement.ctx, x, spec, placement.training)
+        out.append(x.to("cpu", copy=True))
+    return _unflatten(tree, out)
+
+
 def world_barrier(placement: Placement | None) -> None:
     """A barrier over the placement's world (none at one rank): after it,
     every file world rank 0 wrote before it is on disk for every rank."""

@@ -67,17 +67,22 @@ def init_world(tp: int, backend: str | None, device, *, dp: int = 1, rank: int |
     rank come from ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` (and the
     rendezvous from ``MASTER_ADDR``/``MASTER_PORT``); a caller that spawns
     its own ranks passes ``rank`` and an ``init_method`` (a ``file://``
-    path or a ``tcp://localhost:<port>`` address).  ``backend`` ``None``
-    picks :func:`default_backend`.  In a world of one rank no process group
-    is made."""
+    path or a ``tcp://localhost:<port>`` address).  A world already made
+    (``launch/distributed.py``) gives the rank and the size.  ``backend``
+    ``None`` picks :func:`default_backend`.  In a world of one rank no
+    process group is made."""
     backend = backend or default_backend(device)
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    env_rank = os.environ.get("RANK")
-    rank = int(env_rank) if rank is None and env_rank is not None else rank
-    local_rank = int(os.environ.get("LOCAL_RANK", rank or 0))
     world = dp * tp
-    size = int(os.environ.get("WORLD_SIZE", world))
+    if dist.is_initialized():
+        # a world already made (launch/distributed.initialize_distributed)
+        rank, size = dist.get_rank(), dist.get_world_size()
+    else:
+        env_rank = os.environ.get("RANK")
+        rank = int(env_rank) if rank is None and env_rank is not None else rank
+        size = int(os.environ.get("WORLD_SIZE", world))
+    local_rank = int(os.environ.get("LOCAL_RANK", rank or 0))
     if size != world:
         raise ValueError(f"--dp {dp} --tp {tp} is {world} ranks, in a world of {size} processes")
     if world == 1:

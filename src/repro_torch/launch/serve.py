@@ -40,9 +40,18 @@ prompt fed one token per step); with it the paged engine (a shared pool of
 ``--block-size``-token blocks, prompts fed ``--chunk`` tokens per step
 through ``serve_step``, whose FFN down projection takes B x C rows).
 ``--journal PATH`` resubmits the unfinished requests a journal file holds
-(``serve.engine.request_journal``) in place of the seeded ones; writing it
-on a liveness failure waits for the runtime's multi-process half (ROADMAP
-Queue 1 item 7).  ``--chaos SPEC`` drains the engine under a seeded fault
+(``serve.engine.request_journal``) in place of the seeded ones.  The
+multi-process flags are the train launcher's (``launch/distributed.py``):
+``--coordinator``, ``--num-processes``, ``--process-id`` join a world
+without ``torch.distributed.run``, and ``--heartbeat-dir`` drains under the
+liveness watchdog, armed at once, each tick beating its count: a peer found
+dead or stalled (``runtime/watchdog.py``) writes the unfinished requests,
+tokens intact, to ``--journal`` and ends the process with the respawn
+protocol's code (17 a lost peer, 16 a stall; ``runtime/multiprocess.py``),
+and the respawned generation, on a world that may be smaller than ``--dp *
+--tp`` (shrunk data first), resubmits the journal and drains.  Rank 0
+prints every finished request's stream, those finished before a failure
+too.  ``--chaos SPEC`` drains the engine under a seeded fault
 plan (``serve.engine.serve_with_chaos``): a timeout, rank failure or NaN
 wire drops its tick, a slow link sleeps, a rank loss shrinks the world
 (``runtime/elastic.py``: the data axis first, then tp; at one rank it
@@ -86,12 +95,16 @@ from repro_torch.core.autotune import (add_granularity_cli_args, cache_info,
 from repro_torch.core.calibrate import add_calibration_cli_args, warmup_and_calibrate
 from repro_torch.core.degrade import DegradationPolicy, set_degradation_policy
 from repro_torch.kernels import load_library
-from repro_torch.launch.mesh import BACKENDS, close_world, init_world
+from repro_torch.launch.distributed import (add_distributed_cli_args, build_liveness_from_args,
+                                            join_world)
+from repro_torch.launch.mesh import BACKENDS, close_world
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 from repro_torch.runtime.chaos import add_chaos_cli_args, build_fault_plan
 from repro_torch.runtime.elastic import reshard_tree, shrink_context
-from repro_torch.serve.engine import (DecodeEngine, PagedDecodeEngine, Request, resubmit_journal,
-                                      serve_with_chaos)
+from repro_torch.runtime.multiprocess import exit_for_respawn
+from repro_torch.runtime.watchdog import verdict_for
+from repro_torch.serve.engine import (DecodeEngine, PagedDecodeEngine, Request, request_journal,
+                                      resubmit_journal, serve_with_chaos)
 from repro_torch.serve.kv_cache import dense_cache_hbm_bytes, pool_hbm_bytes
 
 
@@ -147,6 +160,7 @@ def main(argv=None):
                     help="request journal to resubmit (tokens intact) in place "
                          "of the seeded requests, if the file exists")
     add_chaos_cli_args(ap)
+    add_distributed_cli_args(ap)
     args = ap.parse_args(argv)
 
     bundle = get_arch(args.arch)
@@ -155,7 +169,7 @@ def main(argv=None):
     if args.paged and not bundle.supports_paged:
         raise SystemExit(f"--paged requires a GQA transformer ({args.arch} is "
                          f"{bundle.family}/{getattr(bundle.config, 'attn_type', '?')})")
-    device = init_world(args.tp, args.backend, args.device, dp=args.dp)
+    device = join_world(args)
     try:
         return _serve(args, bundle, device)
     finally:
@@ -221,11 +235,13 @@ def _serve(args, bundle, device):
     if args.journal and os.path.exists(args.journal):
         with open(args.journal) as f:
             n = resubmit_journal(engine, json.load(f))
-        print(f"journal: resubmitted {n} unfinished requests (tokens intact) "
-              f"from {args.journal}")
+        if rank0:
+            print(f"journal: resubmitted {n} unfinished requests (tokens intact) "
+                  f"from {args.journal}")
     else:
         for r in make_requests(args.requests, cfg.vocab, args.max_new):
             engine.submit(r)
+    submitted = list(engine.queue)
 
     where = "cpu"
     if ctx.device.type == "cuda":
@@ -268,13 +284,23 @@ def _serve(args, bundle, device):
             print(f"rank lost: world -> (dp, tp) = ({new.dp}, {new.tp}), {n} in-flight "
                   f"requests re-queued", flush=True)
 
+    hb_writer, liveness = build_liveness_from_args(args)
+    if liveness is not None:
+        liveness.enabled = True     # serving has no start-length steps
+        # each tick beats its count, so a driver can act "at tick k"
+        engine.step = _beating(engine.step, hb_writer)
     t0 = time.perf_counter()
     try:
         if plan is not None:
             finished, stats = serve_with_chaos(engine, plan, reshard_fn=reshard_fn,
                                                max_steps=max_steps)
         else:
-            finished = engine.run_until_drained(max_steps=max_steps)
+            finished = engine.run_until_drained(max_steps=max_steps, liveness=liveness)
+    except Exception as e:
+        verdict = None if liveness is None else verdict_for(liveness, e)
+        if verdict is None:
+            raise
+        _leave_for_respawn(verdict, engine, submitted, args.journal, hb_writer, rank0)
     finally:
         if args.degrade:
             set_degradation_policy(None)
@@ -301,6 +327,8 @@ def _serve(args, bundle, device):
             raise AssertionError(f"the ranks' token streams differ: {streams}")
         if any(t != taken[0] for t in taken):
             raise AssertionError(f"the ranks' autotune decisions differ: {taken}")
+    if hb_writer is not None:
+        hb_writer.stop()            # after the last collective
     if not rank0:
         return finished
     if args.tune_cache:
@@ -323,9 +351,39 @@ def _serve(args, bundle, device):
         print(f"all {world} ranks' autotune decisions equal: True")
     for line in decisions:
         print(f"decision: {line}")
-    for r in finished[:4]:
-        print(f"  req {r.uid}: prompt {r.prompt} -> {r.tokens[:12]}")
+    for r in finished:
+        print(f"  req {r.uid}: prompt {r.prompt} -> {r.tokens}")
     return finished
+
+
+def _beating(step, writer):
+    """``step`` beating the count of ticks run after each one."""
+    ticks = [0]
+
+    def beat():
+        out = step()
+        ticks[0] += 1
+        writer.beat(step=ticks[0])
+        return out
+    return beat
+
+
+def _leave_for_respawn(exc, engine, submitted, journal, hb_writer, rank0):
+    """The respawn protocol's exit: rank 0 writes the unfinished requests,
+    tokens intact, to ``journal`` and prints the streams of those finished,
+    then the process ends with 17 for a lost peer, 16 for a stall."""
+    if rank0:
+        live = request_journal(engine)
+        if journal:
+            tmp = f"{journal}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(live, f)
+            os.replace(tmp, journal)
+            print(f"journal: persisted {len(live)} unfinished requests to {journal}")
+        for r in submitted:
+            if r.done:
+                print(f"  req {r.uid}: prompt {r.prompt} -> {r.tokens}")
+    exit_for_respawn(exc, hb_writer)
 
 
 if __name__ == "__main__":

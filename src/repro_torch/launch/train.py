@@ -64,10 +64,30 @@ supervisor's, so each needs ``--ckpt-dir``.  One deliberate difference
 from the reference: its ``--ckpt-dir`` defaults to a fixed directory that
 every run checkpoints to and resumes from; the port's defaults to none,
 with the plain loop, so that two calls never share a run by accident and a
-full-width state is not written unasked.  The reference's liveness,
-multi-process launch, production mesh and comm-graph flags raise, each
-with the ROADMAP item that brings it.  The losses returned are a step's
-last (a replayed step's replace its first).
+full-width state is not written unasked.  The reference's production mesh
+and comm-graph flags raise, each with the ROADMAP item that brings it.  The
+losses returned are a step's last (a replayed step's replace its first);
+rank 0 prints them exactly at the end (``losses [...]``), and the step a
+resumed run began at.
+
+The multi-process flags (``launch/distributed.py``): ``--coordinator
+host:port --num-processes N --process-id i`` join a world of N processes
+without ``torch.distributed.run``.  ``--heartbeat-dir D`` (it needs
+``--ckpt-dir``) runs the supervisor under the liveness watchdog
+(``runtime/watchdog.py``; ``--heartbeat-interval``, ``--stall-after``,
+``--step-deadline``): each rank beats its step after every step and arms
+its monitor once the first step lands; a peer found dead or stalled ends
+the process with the respawn protocol's code (17 for a lost peer, 16 for a
+stall; ``runtime/multiprocess.py``) once its checkpoint in flight has
+landed, and the respawned generation resumes from ``--ckpt-dir``.  A world
+smaller than ``--dp * --tp`` (a respawned generation's) shrinks the shape
+by ``runtime/elastic.shrink_context``'s rule, data first, and says so.
+``runtime/multiprocess.MultiprocessDriver`` runs the launcher as its
+workers:
+
+  MultiprocessDriver(["-m", "repro_torch.launch.train", "--dp", "2", "--backend",
+                      "gloo", "--ckpt-dir", C, "--heartbeat-dir", "{heartbeat_dir}"],
+                     2, workdir=W).run_elastic()
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
 device the default raises.
@@ -76,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import torch
@@ -90,12 +111,17 @@ from repro_torch.data.pipeline import prefetch, to_device
 from repro_torch.data.synthetic import DLRMBatches, LMBatches
 from repro_torch.kernels import load_library
 from repro_torch.kernels.embedding_pool.ops import NO_BACKWARD
-from repro_torch.launch.mesh import BACKENDS, close_world, init_world
+from repro_torch.launch.distributed import (add_distributed_cli_args, build_liveness_from_args,
+                                            join_world)
+from repro_torch.launch.mesh import BACKENDS, close_world
 from repro_torch.parallel.sharding import FusionConfig, ParallelContext
-from repro_torch.runtime.chaos import add_chaos_cli_args, build_fault_plan
+from repro_torch.runtime.chaos import (CollectiveTimeout, RankLost, add_chaos_cli_args,
+                                       build_fault_plan)
 from repro_torch.runtime.elastic import reshard_tree, shrink_context
-from repro_torch.runtime.fault_tolerance import RESPAWN_SLICE, SupervisorConfig, TrainSupervisor
+from repro_torch.runtime.fault_tolerance import SupervisorConfig, TrainSupervisor
+from repro_torch.runtime.multiprocess import exit_for_respawn
 from repro_torch.runtime.straggler import SkewEstimator, SkewScheduler
+from repro_torch.runtime.watchdog import from_liveness
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.step import (TrainConfig, build_train_step, init_train_state,
                                     train_state_specs)
@@ -107,13 +133,6 @@ _LATER_FLAGS = (
     ("--production-mesh", "production_mesh",
      "ROADMAP Queue 1 item 1 (left: the real-peer half, a host of many cards: the reference's "
      "16 x 16 TPU mesh)"),
-)
-_LATER_VALUES = (
-    ("--coordinator", "coordinator", f"{RESPAWN_SLICE}: multi-process launch"),
-    ("--num-processes", "num_processes", f"{RESPAWN_SLICE}: multi-process launch"),
-    ("--process-id", "process_id", f"{RESPAWN_SLICE}: multi-process launch"),
-    ("--heartbeat-dir", "heartbeat_dir", f"{RESPAWN_SLICE}: liveness"),
-    ("--step-deadline", "step_deadline", f"{RESPAWN_SLICE}: liveness"),
 )
 _NOT_TRAINED = {
     "rwkv6": "ROADMAP Queue 1 item 7 (rwkv6 training: a WKV6 backward)",
@@ -164,20 +183,20 @@ def build_parser():
                          "resuming from its latest checkpoint (default: none, the plain loop)")
     ap.add_argument("--ckpt-every", type=int, default=50)
     add_chaos_cli_args(ap)
+    add_distributed_cli_args(ap)
     for flag, dest, _ in _LATER_FLAGS:
         ap.add_argument(flag, dest=dest, action="store_true", help=argparse.SUPPRESS)
-    for flag, dest, _ in _LATER_VALUES:
-        ap.add_argument(flag, dest=dest, default=None, help=argparse.SUPPRESS)
     return ap
 
 
 def _refuse_later(args):
-    for flag, dest, item in _LATER_FLAGS + _LATER_VALUES:
-        if getattr(args, dest) not in (None, False):
+    for flag, dest, item in _LATER_FLAGS:
+        if getattr(args, dest):
             raise NotImplementedError(f"{flag}: {item}")
     if args.ckpt_dir is None:
         for flag, on in (("--chaos", args.chaos is not None), ("--degrade", args.degrade),
-                         ("--skew-schedule", args.skew_schedule)):
+                         ("--skew-schedule", args.skew_schedule),
+                         ("--heartbeat-dir", args.heartbeat_dir is not None)):
             if on:
                 raise ValueError(f"{flag} runs under the supervisor, which needs --ckpt-dir "
                                  f"(a restart restores from it)")
@@ -188,7 +207,7 @@ def main(argv=None, *, on_phase=None):
     ``on_phase`` goes to ``build_train_step`` (for timing each part)."""
     args = build_parser().parse_args(argv)
     _refuse_later(args)
-    device = init_world(args.tp, args.backend, args.device, dp=args.dp)
+    device = join_world(args)
     try:
         return _train(args, device, on_phase)
     finally:
@@ -240,9 +259,13 @@ def _train(args, device, on_phase):
 
     t0 = time.time()
     losses = {}
+    hb_writer, liveness = build_liveness_from_args(args)
 
     def on_metrics(step, metrics):
         losses[step] = float(metrics["loss"])
+        if liveness is not None:
+            hb_writer.beat(step=step)
+            liveness.enabled = True     # armed once the first step lands
         if ctx.world.tp_rank == 0 and step % args.log_every == 0:
             print(f"step {step:5d} loss {losses[step]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
@@ -260,7 +283,7 @@ def _train(args, device, on_phase):
         step = args.steps
     else:
         state, step, sup, ctx = _supervised(args, bundle, ctx, tc, specs, state, batches,
-                                            on_phase, on_metrics)
+                                            on_phase, on_metrics, liveness, hb_writer)
         if sup.left:
             print(f"rank {torch.distributed.get_rank()} left the world at step {step} (not "
                   f"kept by the shrink)", flush=True)
@@ -274,6 +297,10 @@ def _train(args, device, on_phase):
         torch.distributed.all_gather_object(every, losses, group=ctx.world.group)
         if any(x != every[0] for x in every):
             raise AssertionError(f"the ranks' losses differ: {every}")
+    if hb_writer is not None:
+        # after the last collective: no peer is inside a guarded call that
+        # would read this rank's departure as a loss
+        hb_writer.stop()
     if not rank0:
         return losses
     span = (f"loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses
@@ -282,6 +309,12 @@ def _train(args, device, on_phase):
              if world > 1 else "")
     stats = "" if sup is None else f"; straggler stats {sup.straggler.summary()}"
     print(f"done at step {step}; {span}{where}{stats}")
+    if sup is not None and sup.start_step:
+        print(f"resumed at step {sup.start_step}")
+        for r in sup.manager.stats:
+            print(f"restored step {r['step']}: {r['bytes'] / 1e9:.3f} GB in {r['seconds']:.3f} s "
+                  f"({r['bytes'] / r['seconds'] / 1e9:.3f} GB/s)")
+    print(f"losses {json.dumps(losses)}")
     if sup is not None and sup.fault_plan is not None:
         print(f"chaos: plan {sup.fault_plan.summary()}; injected {sup.faults_injected}, "
               f"restarts {sup.restarts}, rank losses {sup.rank_losses}, backoffs "
@@ -295,9 +328,12 @@ def _train(args, device, on_phase):
     return losses
 
 
-def _supervised(args, bundle, ctx, tc, specs, state, batches, on_phase, on_metrics):
+def _supervised(args, bundle, ctx, tc, specs, state, batches, on_phase, on_metrics,
+                liveness=None, hb_writer=None):
     """The steps under ``TrainSupervisor``, as the reference launcher runs
-    them; returns (state, step, supervisor, the final context)."""
+    them; returns (state, step, supervisor, the final context).  Under
+    ``liveness`` a fault the watchdog names ends the process with the
+    respawn protocol's code, as the reference's launcher does."""
     state_specs = train_state_specs(tc, specs)
     cur = {"ctx": ctx}
 
@@ -335,10 +371,22 @@ def _supervised(args, bundle, ctx, tc, specs, state, batches, on_phase, on_metri
         skew_scheduler=skew_sched,
         per_rank_times="process" if skew_sched is not None else None,
         fault_plan=build_fault_plan(args.chaos, num_steps=args.steps),
-        degradation=degradation, rebuild_step=build_step, on_rank_loss=on_rank_loss)
+        degradation=degradation, rebuild_step=build_step, liveness=liveness,
+        # with real liveness a lost rank's memory is gone: the survivors leave
+        # and a respawned world restores from the checkpoint
+        on_rank_loss=None if liveness is not None else on_rank_loss)
     try:
         state, step = sup.run(state, prefetch(batches, ctx.device), args.steps,
                               on_metrics=on_metrics)
+    except (RankLost, CollectiveTimeout) as e:
+        if not from_liveness(e):
+            raise
+        # the respawn protocol's exit, once a checkpoint already gathered lands
+        try:
+            sup.manager.wait()
+        except Exception as err:     # the exit goes on: its code says what happened
+            print(f"the checkpoint in flight failed: {err!r}", flush=True)
+        exit_for_respawn(e, hb_writer)
     finally:
         if degradation is not None:
             set_degradation_policy(None)

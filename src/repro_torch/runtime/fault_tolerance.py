@@ -55,12 +55,9 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import ReplayBuffer
 from repro_torch.runtime.chaos import CollectiveTimeout, RankLost, wire_faults
 from repro_torch.runtime.straggler import ProcessTelemetry, StragglerMonitor, world_allgather
+from repro_torch.runtime.watchdog import from_liveness, verdict_for
 
 log = logging.getLogger("repro_torch.runtime")
-
-# the runtime's multi-process half: real heartbeats and respawn
-RESPAWN_SLICE = ("ROADMAP Queue 1 item 7 (the runtime's multi-process half: "
-                 "runtime/{watchdog,multiprocess}.py and launch/distributed.py)")
 
 
 class NonFiniteLoss(RuntimeError):
@@ -152,13 +149,24 @@ class TrainSupervisor:
         further collective (``left`` True) and ``run`` returns ``(None,
         step)``.
 
-        ``liveness`` — real process heartbeats belong to the runtime's
-        multi-process half; anything but ``None`` raises.
+        ``liveness`` — a :class:`~repro_torch.runtime.watchdog.
+        LivenessMonitor`: each step, each save and each restore first
+        ``check()`` the peers, then run under ``guarded``, as the
+        reference's step and save do.  A fault the watchdog names
+        (``RankLost`` or ``CollectiveTimeout`` from liveness) leaves ``run``
+        at once, whatever ``on_rank_loss`` says: the abandoned step may
+        have half updated the in-place state, and the in-process restart's
+        restore begins with a barrier over the world that a dead or stopped
+        peer never reaches.  The caller exits with the respawn protocol's
+        code (``runtime/multiprocess.py``).  A step's own error under
+        liveness (gloo's, as a dead peer's socket closes) first waits one
+        staleness deadline for the watchdog's verdict, which then leaves
+        instead; without a verdict it takes the ordinary restart path.  The
+        reference's supervisor sends a liveness ``CollectiveTimeout`` down
+        its restart path (ROADMAP Queue 3 records the difference).
 
         ``sleep_fn`` — injection point for the backoff clock (tests
         record delays instead of sleeping)."""
-        if liveness is not None:
-            raise NotImplementedError(f"liveness: {RESPAWN_SLICE}")
         self.cfg = cfg
         self.step_fn = step_fn
         self.state_shardings = state_shardings
@@ -181,6 +189,7 @@ class TrainSupervisor:
         self.degradation = degradation
         self.rebuild_step = rebuild_step
         self.on_rank_loss = on_rank_loss
+        self.liveness = liveness
         self.sleep_fn = sleep_fn
         self._rng = np.random.default_rng(cfg.seed)
         self._fired: set = set()   # (step, event) pairs already injected
@@ -191,6 +200,7 @@ class TrainSupervisor:
         self.rank_losses = 0
         self.failures: list[tuple[int, str]] = []   # (step, exception type) a restart
         self.left = False
+        self.start_step = 0     # where the last run began, a restored checkpoint's step
 
     def _ctx(self):
         sh = self.state_shardings
@@ -215,8 +225,29 @@ class TrainSupervisor:
                      sched.bucket, sched.axis)
             self.step_fn = sched.fn()
 
+    def _guard(self, fn, *args):
+        """``fn(*args)``; under liveness, after a check of the peers and
+        guarded by the monitor."""
+        if self.liveness is None:
+            return fn(*args)
+        self.liveness.check()
+        return self.liveness.guarded(fn, *args)
+
+    def _leave_on_liveness(self, e: Exception) -> None:
+        """Under liveness, raise the watchdog's verdict on ``e``
+        (:func:`~repro_torch.runtime.watchdog.verdict_for`), which leaves
+        ``run`` at once.  Injected faults and a non-finite loss keep the
+        in-process paths."""
+        if self.liveness is None or isinstance(e, NonFiniteLoss):
+            return
+        verdict = verdict_for(self.liveness, e)
+        if verdict is e:
+            raise e
+        if verdict is not None:
+            raise verdict from e
+
     def maybe_restore(self, state):
-        restored = self.manager.restore_latest(state, self.state_shardings)
+        restored = self._guard(self.manager.restore_latest, state, self.state_shardings)
         if restored is None:
             return state, 0
         new_state, step = restored
@@ -262,11 +293,12 @@ class TrainSupervisor:
         # as the reference's blames the live trace's
         self._begin_trace()
         if nan_ev is not None:
-            return self._poisoned_step(state, batch, nan_ev)
-        return self.step_fn(state, batch)
+            return self._guard(self._poisoned_step, state, batch, nan_ev)
+        return self._guard(self.step_fn, state, batch)
 
     def _save(self, step, state):
-        self.manager.save(step, state, self.state_shardings)
+        # a save's gathers are collectives: guarded like a step
+        self._guard(self.manager.save, step, state, self.state_shardings)
 
     # -- recovery --------------------------------------------------------
 
@@ -315,7 +347,7 @@ class TrainSupervisor:
         the batch an uninterrupted run gave it, in a fresh process too."""
         step = start_step
         state, ckpt_step = self.maybe_restore(state)
-        step = max(step, ckpt_step)
+        step = self.start_step = max(step, ckpt_step)
         batches = iter(batches)
         for _ in range(step - start_step):
             next(batches, None)
@@ -349,7 +381,7 @@ class TrainSupervisor:
                         f"loss={loss!r} at step {step}")
             except RankLost as e:
                 self.rank_losses += 1
-                if self.on_rank_loss is None:
+                if self.on_rank_loss is None or from_liveness(e):
                     raise
                 log.error("rank %d lost at step %d; shrinking the world",
                           e.rank, step)
@@ -368,6 +400,7 @@ class TrainSupervisor:
                 replay.rewind(step)
                 continue
             except Exception as e:  # node failure path
+                self._leave_on_liveness(e)
                 self._handle_failure(step, e)
                 state, ckpt_step = self.maybe_restore(state)
                 step = ckpt_step

@@ -138,11 +138,22 @@ class _EngineBase:
         """Greedy sampling on the device; only [B] int32 reaches the host."""
         return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
-    def run_until_drained(self, max_steps: int = 10_000) -> DrainResult:
+    def run_until_drained(self, max_steps: int = 10_000, liveness=None) -> DrainResult:
+        """Drain the queue.  With ``liveness`` (a :class:`~repro_torch.
+        runtime.watchdog.LivenessMonitor`) each tick first checks the peers'
+        heartbeats and runs its step guarded: a peer process dying
+        mid-decode raises :class:`~repro_torch.runtime.chaos.RankLost` from
+        liveness instead of hanging.  The bookkeeping of the requests' tokens
+        stays at the last whole tick, so :func:`request_journal` snapshots a
+        consistent set of unfinished requests for the respawned engine."""
         finished = DrainResult()
         steps = 0
         while self._pending() and steps < max_steps:
-            _, fin = self.step()
+            if liveness is not None:
+                liveness.check()
+                _, fin = liveness.guarded(self.step)
+            else:
+                _, fin = self.step()
             finished.extend(fin)
             steps += 1
         finished.drained = not self._pending()

@@ -24,6 +24,7 @@ ring, the elastic shrink, serving under chaos) is
 import functools
 import json
 import os
+import time
 import warnings
 
 import jax
@@ -42,6 +43,7 @@ from repro.runtime import chaos as jchaos
 from repro.runtime import elastic as jelastic
 from repro.runtime import fault_tolerance as jft
 from repro.runtime import straggler as jstrag
+from repro.runtime import watchdog as jwd
 from repro_torch.checkpoint import checkpointer as pckpt
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import degrade as pdeg
@@ -53,6 +55,7 @@ from repro_torch.runtime import chaos as pchaos
 from repro_torch.runtime import elastic as pelastic
 from repro_torch.runtime import fault_tolerance as pft
 from repro_torch.runtime import straggler as pstrag
+from repro_torch.runtime import watchdog as pwd
 
 B, S, K = 2, 8, 16
 LINKS = [1.0, 1.0, 1.0, 1.0, 4.0, 1.0, 1.0, 1.0]
@@ -521,13 +524,97 @@ def test_resume_skips_the_restored_steps_batches(tmp_path):
     assert seen == [0, 1, 2, 3, 4, 5]
 
 
-def test_liveness_is_the_next_slices(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        pft.TrainSupervisor(_cfg(pft, tmp_path), lambda s, b: (s, {}), liveness=object())
+def test_process_telemetry_needs_a_skew_scheduler(tmp_path):
     for mod in (pft, jft):
         with pytest.raises(ValueError):
             mod.TrainSupervisor(_cfg(mod, tmp_path / mod.__name__), lambda s, b: (s, {}),
                                 per_rank_times="process")
+
+
+def _peer_monitor(wd, path, *, alive, pid_alive=True, armed=True):
+    """The watchdog module ``wd``'s monitor of rank 0 in a world of 2 whose
+    peer's heartbeat is fresh for ever (``alive``) or 100 s stale."""
+    os.makedirs(path, exist_ok=True)
+    t = time.time()
+    wd.write_heartbeat(str(path), wd.Heartbeat(rank=1, pid=99, time=t + 1e6 if alive else t - 100))
+    mon = wd.LivenessMonitor(str(path), 0, 2, stall_after_s=0.05, pid_alive=lambda p: pid_alive)
+    mon.enabled = armed
+    return mon
+
+
+def test_supervisor_under_liveness_with_healthy_peers_is_the_references(tmp_path):
+    """With every peer heartbeating, a step's own failure and an injected
+    timeout take the in-process restart path under liveness, as the JAX
+    supervisor's do: the same restarts, checkpoints and final weights (the
+    port first waits one staleness deadline for a verdict that never comes)."""
+    out = {}
+    for name, mod, wd in (("port", pft, pwd), ("jax", jft, jwd)):
+        chaos = pchaos if mod is pft else jchaos
+        sup = mod.TrainSupervisor(
+            _cfg(mod, tmp_path / name, checkpoint_every=3, keep=2, max_restarts=3),
+            _plus_one(mod, fail_at=(7,)), sleep_fn=lambda s: None,
+            fault_plan=chaos.FaultPlan([chaos.FaultEvent(step=4, kind="timeout")]),
+            liveness=_peer_monitor(wd, tmp_path / f"hb_{name}", alive=True))
+        final, step = sup.run(_w0(mod), iter(lambda: {"id": 0}, None), num_steps=10)
+        out[name] = (step, float(np.asarray(final["w"])[0]), sup.restarts, sup.faults_injected,
+                     sup.manager.all_steps())
+    assert out["port"] == out["jax"] and out["port"][:4] == (10, 10.0, 2, 1), out
+
+
+@pytest.mark.parametrize("pid_alive,kind", [(False, pchaos.RankLost),
+                                             (True, pchaos.CollectiveTimeout)])
+def test_supervisor_leaves_at_once_on_the_watchdogs_verdict(tmp_path, pid_alive, kind):
+    """A peer found dead (RankLost) or stopped (CollectiveTimeout) by the
+    watchdog makes ``run`` raise at once: no restart, no restore, and no
+    ``on_rank_loss``, whose in-process shrink needs the lost rank's memory.
+    A deliberate difference: the reference restarts on a liveness
+    CollectiveTimeout (its restore has no barrier over the world)."""
+    mon = _peer_monitor(pwd, tmp_path / "hb", alive=False, pid_alive=pid_alive, armed=False)
+    base = _plus_one(pft)
+    calls = []
+
+    def step_fn(state, batch):
+        calls.append(1)
+        if len(calls) == 3:
+            mon.enabled = True        # the next check finds the peer gone
+        return base(state, batch)
+
+    sup = pft.TrainSupervisor(_cfg(pft, tmp_path / "ck", checkpoint_every=2), step_fn,
+                              sleep_fn=lambda s: None, liveness=mon,
+                              on_rank_loss=lambda st, e: pytest.fail("shrunk in process"))
+    with pytest.raises(kind) as ei:
+        sup.run(_w0(pft), iter(lambda: {"id": 0}, None), num_steps=8)
+    assert pwd.from_liveness(ei.value) and "liveness" in str(ei.value)
+    assert (len(calls), sup.restarts, sup.manager.all_steps()) == (3, 0, [0, 2])
+    if kind is pchaos.CollectiveTimeout:
+        jmon = _peer_monitor(jwd, tmp_path / "jhb", alive=False, pid_alive=True, armed=False)
+        jbase, jcalls = _plus_one(jft), []
+
+        def jstep(state, batch):
+            jcalls.append(1)
+            if len(jcalls) == 3:
+                jmon.enabled = True
+            return jbase(state, batch)
+        jsup = jft.TrainSupervisor(_cfg(jft, tmp_path / "jck", checkpoint_every=2,
+                                        max_restarts=1), jstep, sleep_fn=lambda s: None,
+                                   liveness=jmon)
+        with pytest.raises(jchaos.CollectiveTimeout):
+            jsup.run(_w0(jft), iter(lambda: {"id": 0}, None), num_steps=8)
+        assert jsup.restarts == 2          # the reference's restart path ran
+
+
+def test_step_error_under_liveness_becomes_the_verdict(tmp_path):
+    """A step's own error (gloo's, as a dead peer's socket closes) is handed
+    to the watchdog: the peer's verdict leaves ``run``, chained to it."""
+    mon = _peer_monitor(pwd, tmp_path / "hb", alive=False, pid_alive=False, armed=False)
+    sup = pft.TrainSupervisor(_cfg(pft, tmp_path / "ck", checkpoint_every=2),
+                              _plus_one(pft, fail_at=(3,)), sleep_fn=lambda s: None,
+                              liveness=mon)
+    with pytest.raises(pchaos.RankLost) as ei:
+        sup.run(_w0(pft), iter(lambda: {"id": 0}, None), num_steps=8)
+    assert isinstance(ei.value.__cause__, RuntimeError) and "injected failure" in str(
+        ei.value.__cause__)
+    assert sup.restarts == 0 and mon.enabled is False
 
 
 # ---------------------------------------------------------------------------
@@ -795,10 +882,7 @@ def test_launcher_runtime_flags_and_refusals(tmp_path, capsys):
         with pytest.raises(ValueError, match="--ckpt-dir"):
             ptrain.main(argv)
     refused = {"--auto-fuse": "analyzer", "--explain-comm": "analyzer",
-               "--production-mesh": "item 1", "--coordinator": "multi-process",
-               "--num-processes": "multi-process", "--process-id": "multi-process",
-               "--heartbeat-dir": "multi-process", "--step-deadline": "multi-process"}
+               "--production-mesh": "item 1"}
     for flag, item in refused.items():
-        value = [] if flag in ("--auto-fuse", "--explain-comm", "--production-mesh") else ["1"]
         with pytest.raises(NotImplementedError, match=item):
-            ptrain.main(LAUNCH + [flag] + value)
+            ptrain.main(LAUNCH + [flag])
