@@ -47,8 +47,8 @@ prints one line, and any failure exits non-zero:
      fused_gemm_a2a launch on the stream path), every MoE layer's kernel
      output against bulk on the identical input, and the whole model
      teacher-forced (tokens and experts) against bulk and an exact f32
-     evaluation, with where each mode's own router first parts from the
-     kernel run's
+     evaluation (logits, and the k and v caches after the last step), with
+     where each mode's own router first parts from the kernel run's
  10. the MoE kernels' and dbrx decode's times from CUDA events: both
      fused_gemm_a2a paths beside the bulk einsums in turns, with the stream
      path's and the einsums' device time and host time per call, and the
@@ -417,6 +417,27 @@ prints one line, and any failure exits non-zero:
      journals the unfinished requests and exits 17, a world of one drains
      them; every request once, the tokens an uninterrupted drain's (fused
      GEMV + AllReduce launches counted on its stream path)
+ 57. full-width deepseek-v3-671b cut to 5 of its 61 layers (the 3
+     dense-prefix layers and 2 MoE layers, 51.4 GB bf16), kernel mode
+     against bulk mode: (a) the serve launcher in this process at --arch
+     deepseek-v3-671b --layers 5 --fusion kernel (launches counted); (b)
+     the path's three kernels against their plain versions at its shapes
+     (the dispatch at C = 1 and 320, the expert FFN's stream path at C = 1
+     and tile path at C = 320 on layer 3's 256 experts, the fused GEMV at
+     [4,18432]@[18432,7168]); (c) DecodeEngine's drain of 4 requests x 8
+     tokens: 2 dispatch, 2 stream-path expert FFN and 3 stream-path fused
+     GEMV launches a step, no flash; every MoE layer's kernel output against
+     bulk on the identical input; the model teacher-forced (tokens and
+     experts) against bulk and exact f32, logits and the latent caches (c,
+     kr); (d) a prefill of 4 x 2048 (2 dispatch and 2 tile-path expert FFN
+     launches, no flash, no fused GEMV), its logits and latent caches held
+     the same way, then 8 greedy decode steps from its cache
+ 58. times from CUDA events on phase 57's weights: prefill and decode step
+     in both modes with the device's busy share; the expert FFN on the main
+     path's own buffers (C = 1 stream path, C = 320 tile path) against bulk
+     mode's einsums and its bound counted on what the buffer needs; the
+     dispatch at both; the fused GEMV against torch.matmul; MLA's plain
+     prefill attention a layer
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
@@ -435,7 +456,8 @@ the dbrx phases, after phase 10, on phase 9's weights; phases 46-51 run
 last, in the order 46, 47, 50, 48, 49, 51, each drawing its own weights
 (phase 47's, 48's and 50's in processes of their own); phases 52-54 run
 after them, each drawing its own weights; phases 55-56 after those, their
-workers in processes of their own.  Phase 29 runs after
+workers in processes of their own; phases 57-58 last, the launcher's
+weights drawn and freed before the phase draws its own.  Phase 29 runs after
 phase 35: its world starts one pool of 4 rank processes (spawn_world) that
 the worlds of phases 36-47 and 50 reuse, each opening and closing its own
 process group; the pool ends after phase 50.
@@ -1127,6 +1149,11 @@ def main() -> int:
     flash_drill, fused_drill = respawn_phases(card)
     flash_row.update(flash_drill)
     next(k_ for k_ in kernels if k_["name"] == "fused_matmul_allreduce").update(fused_drill)
+    torch.cuda.empty_cache()
+    # the three kernels on deepseek-v3's path gain their numbers at its
+    # shapes (phases 57-58)
+    for name, extra in deepseek_phases(card).items():
+        next(k_ for k_ in kernels if k_["name"] == name).update(extra)
     say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1460,29 +1487,9 @@ def dbrx_phases(card, gen) -> list[dict]:
     if launches["fused_matmul_allreduce"]:
         raise AssertionError("an MoE model launched the dense FFN's kernel")
     reqs_b, _ = serve(dec_b)
-    tf = teacher_forced_dbrx(bundle, params, ctx_k, ctx_b, log_k)
+    tf = teacher_forced_moe(bundle, params, ctx_k, ctx_b, log_k)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    differing, flips = 0, []
-    for slot, (rk, rb) in enumerate(zip(reqs_k, reqs_b)):
-        if not all(0 <= t < cfg.vocab for t in rk.tokens + rb.tokens):
-            raise AssertionError(f"request {rk.uid}: token out of range")
-        diff = [t for t, (a, b) in enumerate(zip(rk.tokens, rb.tokens)) if a != b]
-        differing += len(diff)
-        if not diff:
-            continue
-        st = len(rk.prompt) - 1 + diff[0]            # the step that sampled it
-        if tf["s_kb"] is not None and st >= tf["s_kb"]:
-            flips.append(f"req {rk.uid} token {diff[0]} (step {st}): after the first route "
-                         f"divergence")
-            continue
-        # same routes so far: a near tie in bulk mode (each side within the
-        # logits bound: a gap of at most twice it)
-        top = tf["logits_b"][st][slot, 0].topk(2).values
-        gap = (top[0] - top[1]).item()
-        flips.append(f"req {rk.uid} token {diff[0]} (step {st}): top-2 gap {gap:.3g}")
-        if gap > 2 * tf["tol"]:
-            raise AssertionError(f"token streams differ beyond a near tie: {flips[-1]} "
-                                 f"(allowed {2 * tf['tol']:.3g})")
+    differing, flips = routed_flips(reqs_k, reqs_b, tf, cfg.vocab)
     say(9, f"dbrx-132b full width cut to {cfg.n_layers} of 40 layers (d{cfg.d_model}, "
            f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff {cfg.moe.d_ff}, "
            f"{n_params / 1e9:.2f}B params, {n_bytes / 1e9:.1f} GB {cfg.param_dtype}, init "
@@ -3537,7 +3544,7 @@ def moe_routed(params, h, mcfg, gate_i):
     (gate_i [T, K]) instead of chosen by its own router: the gate weights
     are this input's router probabilities at those experts."""
     from repro_torch.kernels.fused_gemm_a2a.ref import ACTS
-    from repro_torch.models.moe import _capacity_slots, _dispatch_buf, _unpermute
+    from repro_torch.models.moe import _capacity_slots, _dispatch_buf, _plus_shared, _unpermute
 
     toks = h.reshape(-1, mcfg.d_model)
     probs = torch.softmax(toks.float() @ params["router"].float(), dim=-1)
@@ -3550,27 +3557,35 @@ def moe_routed(params, h, mcfg, gate_i):
     g = torch.einsum("ecd,edf->ecf", buf, params["w_gate"])
     u = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
     y = torch.einsum("ecf,efd->ecd", ACTS[mcfg.act](g) * u, params["w_down"])
-    return _unpermute(mcfg, y, gate_w, e_clip, p_clip, valid, h.shape, h.dtype)
+    return _plus_shared(params, h, _unpermute(mcfg, y, gate_w, e_clip, p_clip, valid, h.shape,
+                                              h.dtype), mcfg.act)
 
 
-def teacher_forced_dbrx(bundle, params, ctx_k, ctx_b, log_k) -> dict:
+def teacher_forced_moe(bundle, params, ctx_k, ctx_b, log_k) -> dict:
     """Decode the kernel run's inputs again, step by step, in three streams
     with their own caches: kernel mode, bulk mode, and bulk mode in exact
-    f32 (each layer's weights upcast while it runs, since an f32 copy of all
-    of them would not fit).
+    f32 (a layer's attention and dense FFN upcast while it runs, the routed
+    experts one at a time through :func:`moe_exact`: an f32 copy of all the
+    weights would not fit, and one of deepseek-v3's MoE layers alone is 45.1
+    GB).
 
     A token whose router sits at a near tie may go to other experts in
     another mode, and from there the streams part for good.  So the bulk
     and exact streams are teacher-forced on routing too: their MoE layers
-    take the experts the kernel stream chose (:func:`moe_routed`), and the
-    logits of all steps are compared as phase 5 compares them.  Where a
-    stream's own router would first choose other experts than the kernel
-    stream's, the step, layer, token and router margin are reported, and
-    kernel and bulk MoE inputs there must agree to ``H_DIVERGE_REL``.  At
-    every MoE layer the kernel stream's input also goes through bulk mode,
-    and the two outputs must agree to ``REL_BF16`` of the largest."""
+    take the experts the kernel stream chose (:func:`moe_routed`,
+    :func:`moe_exact`), and the logits of all steps are compared as phase 5
+    compares them.  Where a stream's own router would first choose other
+    experts than the kernel stream's, the step, layer, token and router
+    margin are reported, and kernel and bulk MoE inputs there must agree to
+    ``H_DIVERGE_REL``.  At every MoE layer the kernel stream's input also
+    goes through bulk mode, and the two outputs must agree to ``REL_BF16``
+    of the largest.  The caches after the last step (dbrx's k and v,
+    deepseek-v3's latents c and kr) are held as the logits are.  Returns the
+    first route divergence's step (``s_kb``), the logits' bound, bulk mode's
+    logits, the summary, and the kernel stream's input to its first MoE
+    layer at the last step (the main path's expert-FFN input)."""
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.layers import embedding_lookup, rms_norm
+    from repro_torch.models.layers import embedding_lookup, mlp_apply, rms_norm
     from repro_torch.models.moe import moe_apply
 
     cfg = bundle.config
@@ -3580,7 +3595,8 @@ def teacher_forced_dbrx(bundle, params, ctx_k, ctx_b, log_k) -> dict:
     K = cfg.moe.top_k
     logits = {m: [] for m in streams}
     first = {"bulk": None, "exact": None}
-    layer_rel, replay = 0.0, 0.0
+    layer_rel, replay, h_moe = 0.0, 0.0, None
+    upcast = lambda t: _map(t, lambda v: v.float())
 
     def probs(h, router):
         return torch.softmax(h.reshape(-1, cfg.d_model).float() @ router.float(), dim=-1)
@@ -3592,20 +3608,31 @@ def teacher_forced_dbrx(bundle, params, ctx_k, ctx_b, log_k) -> dict:
     for s, (tok, pos, lk) in enumerate(log_k):
         x = {m: embedding_lookup(ctx, params["embed"], tok, seq_shard=False).to(c.cdtype)
              for m, (ctx, c) in streams.items()}
-        for i in range(cfg.n_layers):
-            lp = params["layers"][i]
-            lps = {"kernel": lp, "bulk": lp, "exact": _map(lp, lambda t: t.float())}
-            h, p = {}, {}
+        for i, (lp, window) in enumerate(tfm.decoder_layers(params, cfg)):
+            dense = "router" not in lp["ffn"]
+            up = {"ln1": lp["ln1"].float(), "ln2": lp["ln2"].float(), "attn": upcast(lp["attn"])}
+            if dense:
+                up["ffn"] = upcast(lp["ffn"])
+            lps = {"kernel": lp, "bulk": lp, "exact": up}
+            h = {}
             for m, (ctx, c) in streams.items():
-                x[m] = x[m] + tfm._attn_decode(ctx, c, lps[m], x[m], caches[m]["k"][i],
-                                               caches[m]["v"][i], pos, c.layer_window(i))
+                lc = {k_: v_[i] for k_, v_ in caches[m].items()}
+                x[m] = x[m] + tfm._attn_decode(ctx, c, lps[m], x[m], lc, pos, window)
                 h[m] = rms_norm(x[m], lps[m]["ln2"], c.norm_eps, plus_one=c.norm_plus_one)
-                p[m] = probs(h[m], lp["ffn"]["router"])
+            if dense:
+                for m, (ctx, c) in streams.items():
+                    x[m] = x[m] + mlp_apply(ctx, lps[m]["ffn"], h[m], act=cfg.act,
+                                            seq_sharded=False)
+                del up, lps
+                continue
+            p = {m: probs(h[m], lp["ffn"]["router"]) for m in streams}
             chosen = p["kernel"].topk(K).indices.sort(dim=1).values
             f = moe_apply(ctx_k, lp["ffn"], h["kernel"], cfg.moe)
-            layer_rel = max(layer_rel, check_rel(       # the same input through bulk mode
+            layer_rel = max(layer_rel, check_rel(
                 f"MoE layer {i} step {s}: kernel vs bulk on identical input", f,
                 moe_apply(ctx_b, lp["ffn"], h["kernel"], cfg.moe), REL_BF16)[1])
+            if s == len(log_k) - 1 and h_moe is None:
+                h_moe = h["kernel"]
             x["kernel"] = x["kernel"] + f
             for m in ("bulk", "exact"):
                 own = p[m].topk(K).indices.sort(dim=1).values
@@ -3613,8 +3640,9 @@ def teacher_forced_dbrx(bundle, params, ctx_k, ctx_b, log_k) -> dict:
                     t = int((own != chosen).any(dim=1).nonzero()[0, 0])
                     first[m] = dict(step=s, layer=i, token=t, h_rel=errors(h["kernel"], h[m])[1],
                                     margin_k=margin(p["kernel"], t), margin=margin(p[m], t))
-                x[m] = x[m] + moe_routed(lps[m]["ffn"], h[m], cfg.moe, chosen)
-            del lps
+            x["bulk"] = x["bulk"] + moe_routed(lp["ffn"], h["bulk"], cfg.moe, chosen)
+            x["exact"] = x["exact"] + moe_exact(lp["ffn"], h["exact"], cfg.moe, chosen)
+            del up, lps
         for m, (ctx, c) in streams.items():
             xf = rms_norm(x[m], params["final_norm"], c.norm_eps, plus_one=c.norm_plus_one)
             lg = tfm._lm_logits(params, c, xf)      # upcasts the table for the exact stream
@@ -3628,31 +3656,64 @@ def teacher_forced_dbrx(bundle, params, ctx_k, ctx_b, log_k) -> dict:
 
     err_kb, err_bx, err_kx = err("kernel", "bulk"), err("bulk", "exact"), err("kernel", "exact")
     tol = LOGITS_TOL_FACTOR * err_bx
-    if err_kb > tol:
-        raise AssertionError(f"teacher-forced logits: kernel vs bulk {err_kb:.3g} > "
-                             f"{LOGITS_TOL_FACTOR} x bulk vs exact f32 {err_bx:.3g}")
+    if err_kb > tol or err_kx > tol:
+        raise AssertionError(f"teacher-forced logits: kernel vs bulk {err_kb:.3g}, kernel vs "
+                             f"exact {err_kx:.3g}, above {LOGITS_TOL_FACTOR} x bulk vs exact "
+                             f"f32 {err_bx:.3g}")
     if first["bulk"] and first["bulk"]["h_rel"] > H_DIVERGE_REL:
         raise AssertionError(f"bulk mode's router parts from kernel mode's with MoE inputs "
                              f"{first['bulk']['h_rel']:.3g} apart (of max |h|), above "
                              f"{H_DIVERGE_REL:.3g}: {first['bulk']}")
+    cache_txt = bounded_errors("decode cache", {
+        k_: tuple(caches[m][k_] for m in ("kernel", "bulk", "exact")) for k_ in caches["kernel"]})
 
     def where(d):
         if d is None:
             return "never"
         return (f"step {d['step']} layer {d['layer']} token {d['token']} (MoE inputs "
-                f"{d['h_rel']:.3g} apart of max |h|; router margin, K-th minus (K+1)-th "
-                f"probability: {d['margin_k']:.3g} in the kernel stream, {d['margin']:.3g} "
-                f"in its own)")
+                f"{d['h_rel']:.3g} apart of max |h|; router margin {d['margin_k']:.3g} in the "
+                f"kernel stream, {d['margin']:.3g} in its own)")
 
     summary = (f"every MoE layer, kernel vs bulk on identical input: max rel err {layer_rel:.3g} "
-               f"(bound {REL_BF16}); teacher-forced (tokens, and the kernel stream's experts in "
-               f"the bulk and exact streams) logits max abs err: kernel vs bulk {err_kb:.3g} "
-               f"(bound {tol:.3g}), bulk vs exact f32 {err_bx:.3g}, kernel vs exact f32 "
-               f"{err_kx:.3g}; the kernel stream replays the engine's logits to {replay:.3g}; "
-               f"where the bulk stream's own router first chooses other experts: "
-               f"{where(first['bulk'])}; the exact stream's: {where(first['exact'])}")
+               f"(bound {REL_BF16}); teacher-forced logits max abs err: kernel vs bulk "
+               f"{err_kb:.3g}, kernel vs exact f32 {err_kx:.3g} (bound {tol:.3g}), bulk vs exact "
+               f"{err_bx:.3g}; caches after the last step, kernel vs exact / bulk vs "
+               f"exact / kernel vs bulk (bound {LOGITS_TOL_FACTOR} x the second): {cache_txt}; "
+               f"the kernel stream replays the engine's logits to {replay:.3g}; the bulk "
+               f"stream's own router first parts: {where(first['bulk'])}; the exact stream's: "
+               f"{where(first['exact'])}")
     s_kb = first["bulk"]["step"] if first["bulk"] else None
-    return {"s_kb": s_kb, "tol": tol, "logits_b": logits["bulk"], "summary": summary}
+    return {"s_kb": s_kb, "tol": tol, "logits_b": logits["bulk"], "summary": summary,
+            "h_moe": h_moe}
+
+
+def routed_flips(reqs_k, reqs_b, tf, vocab) -> tuple[int, list[str]]:
+    """Kernel and bulk mode's streams of one drain (request i in slot i) may
+    part only where the routes parted first (``tf["s_kb"]``, the step where
+    bulk mode's own router first chose other experts) or at a near tie of
+    bulk mode's teacher-forced logits (a top-2 gap of at most twice
+    ``tf["tol"]``, each side within it).  Every token must lie in the
+    vocabulary.  Returns the differing tokens' count and a note each."""
+    differing, flips = 0, []
+    for slot, (rk, rb) in enumerate(zip(reqs_k, reqs_b)):
+        if not all(0 <= t < vocab for t in rk.tokens + rb.tokens):
+            raise AssertionError(f"request {rk.uid}: token out of range")
+        diff = [t for t, (a, b) in enumerate(zip(rk.tokens, rb.tokens)) if a != b]
+        differing += len(diff)
+        if not diff:
+            continue
+        st = len(rk.prompt) - 1 + diff[0]            # the step that sampled it
+        if tf["s_kb"] is not None and st >= tf["s_kb"]:
+            flips.append(f"req {rk.uid} token {diff[0]} (step {st}): after the first route "
+                         f"divergence")
+            continue
+        top = tf["logits_b"][st][slot, 0].topk(2).values
+        gap = (top[0] - top[1]).item()
+        flips.append(f"req {rk.uid} token {diff[0]} (step {st}): top-2 gap {gap:.3g}")
+        if gap > 2 * tf["tol"]:
+            raise AssertionError(f"token streams differ beyond a near tie: {flips[-1]} "
+                                 f"(allowed {2 * tf['tol']:.3g})")
+    return differing, flips
 
 
 def profile_decode(decode, params, cache, inputs) -> str:
@@ -6257,10 +6318,12 @@ def moe_exact(ffn, h, mcfg, gate_i):
     """The MoE layer in exact f32 on the experts ``gate_i`` [T, K] chose:
     the gate weights from this input's router probabilities, the expert
     FFN one expert at a time (each expert's weights upcast while it runs:
-    an f32 copy of dbrx's 16 experts is 12.7 GB a layer)."""
+    an f32 copy of dbrx's 16 experts is 12.7 GB a layer, of deepseek-v3's
+    256 45.1 GB), an expert no token reached skipped (its rows are zero),
+    and a shared expert's SwiGLU in f32 added."""
     import torch.nn.functional as F
 
-    from repro_torch.models.moe import _capacity_slots, _dispatch_buf, _unpermute
+    from repro_torch.models.moe import _capacity_slots, _dispatch_buf, _plus_shared, _unpermute
 
     toks = h.reshape(-1, mcfg.d_model).float()
     probs = torch.softmax(toks @ ffn["router"].float(), dim=-1)
@@ -6270,20 +6333,23 @@ def moe_exact(ffn, h, mcfg, gate_i):
     gate_w = gate_w * mcfg.router_scale
     e_clip, p_clip, valid, cap = _capacity_slots(mcfg, gate_i)
     buf = _dispatch_buf(mcfg, toks, e_clip, p_clip, valid, cap, torch.float32)
-    out = torch.empty_like(buf)
-    for e in range(mcfg.n_experts):
+    out = torch.zeros_like(buf)
+    for e in torch.unique(e_clip[valid]).tolist():
         g = buf[e] @ ffn["w_gate"][e].float()
         u = buf[e] @ ffn["w_up"][e].float()
         out[e] = (F.silu(g) * u) @ ffn["w_down"][e].float()
-    return _unpermute(mcfg, out, gate_w, e_clip, p_clip, valid, h.shape, torch.float32)
+    y = _unpermute(mcfg, out, gate_w, e_clip, p_clip, valid, h.shape, torch.float32)
+    shared = {"shared": _map(ffn["shared"], lambda t: t.float())} if "shared" in ffn else {}
+    return _plus_shared(shared, h.float(), y, mcfg.act)
 
 
-def exact_prefill_logits(params, cfg, tokens, gates):
-    """Last-position logits [B, 1, V] of a prefill in exact f32 (bulk mode's
-    arithmetic, weights upcast one layer's attention and one expert at a
-    time), each MoE layer on the experts ``gates`` recorded."""
+def exact_prefill(params, cfg, tokens, gates):
+    """Last-position logits [B, 1, V] and the cache of a prefill in exact
+    f32 (bulk mode's arithmetic, weights upcast one layer's attention and
+    dense FFN and one expert at a time), the MoE layers on the experts
+    ``gates`` recorded (one entry a MoE layer, in order)."""
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.layers import embedding_lookup, rms_norm
+    from repro_torch.models.layers import embedding_lookup, mlp_apply, rms_norm
     from repro_torch.parallel.sharding import FusionConfig, ParallelContext
 
     cfg_x = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
@@ -6292,15 +6358,23 @@ def exact_prefill_logits(params, cfg, tokens, gates):
     x = embedding_lookup(ctx, {"table": params["embed"]["table"].float()}, tokens,
                          seq_shard=True)
     positions = tfm._positions_for(S, tokens.device)
-    for i, lp in enumerate(params["layers"]):
-        la = {"ln1": lp["ln1"].float(), "attn": {k: v.float() for k, v in lp["attn"].items()}}
-        x = x + tfm._attn_train(ctx, cfg_x, la, x, positions, cfg.layer_window(i))[0]
-        del la
+    parts, routed = {}, iter(gates)
+    for lp, window in tfm.decoder_layers(params, cfg):
+        la = {"ln1": lp["ln1"].float(), "attn": _map(lp["attn"], lambda t: t.float())}
+        a, kv = tfm._attn_train(ctx, cfg_x, la, x, positions, window, collect_kv=True)
+        x = x + a
+        for k_, v_ in kv.items():
+            parts.setdefault(k_, []).append(v_)
+        del la, a, kv
         h = rms_norm(x, lp["ln2"].float(), cfg.norm_eps, plus_one=cfg.norm_plus_one)
-        x = x + moe_exact(lp["ffn"], h, cfg.moe, gates[i])
+        if "router" in lp["ffn"]:
+            x = x + moe_exact(lp["ffn"], h, cfg.moe, next(routed))
+        else:
+            x = x + mlp_apply(ctx, _map(lp["ffn"], lambda t: t.float()), h, act=cfg.act,
+                              seq_sharded=True)
     x = rms_norm(x[:, -1:], params["final_norm"].float(), cfg.norm_eps,
                  plus_one=cfg.norm_plus_one)
-    return tfm._lm_logits(params, cfg_x, x)
+    return tfm._lm_logits(params, cfg_x, x), {k_: torch.stack(v_) for k_, v_ in parts.items()}
 
 
 def moe_prefill_rows_phase(card, gen, params) -> dict:
@@ -6458,7 +6532,7 @@ def dbrx_prefill_phase(card, gen, bundle, params) -> dict:
                 raise AssertionError("a second kernel-mode prefill built expert-FFN plans")
         else:
             lb, cache_b = lg, cache
-    lx = exact_prefill_logits(params, cfg, tokens, log.gates)
+    lx, _ = exact_prefill(params, cfg, tokens, log.gates)
     torch.cuda.empty_cache()
     d_kx, d_bx, d_kb = errors(lk, lx)[0], errors(lb, lx)[0], errors(lk, lb)[0]
     if not (torch.isfinite(lk).all() and d_kx <= LOGITS_TOL_FACTOR * d_bx):
@@ -8185,6 +8259,391 @@ def respawn_phases(card) -> tuple[dict, dict]:
     fused = serve_respawn_phase(card)
     torch.cuda.empty_cache()
     return flash, fused
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v3-671b serving (phases 57-58)
+# ---------------------------------------------------------------------------
+# 5 of its 61 layers: the 3 dense-prefix layers (MLA 0.37 GB and a SwiGLU of
+# d_ff 18432, 0.79 GB, each) and 2 MoE layers (256 routed experts of d_ff
+# 2048, 22.55 GB, a shared expert, 0.09 GB, and MLA), with the tied table
+# (1.85 GB): 51.4 GB of bf16 weights.  A prefill of 4 x 2048 (C = ceil(8192
+# x 8 x 1.25 / 256) = 320: the expert FFN's tile path), then 8 decode steps
+# at batch 4 (C = 1: its stream path); the engine's drain of the launcher's
+# 4 seeded requests x 8 tokens
+DSV3_LAYERS = 5
+DSV3_B, DSV3_S, DSV3_STEPS = 4, 2048, 8
+DSV3_REQ, DSV3_NEW = 4, 8
+
+
+def deepseek_bundle():
+    from repro_torch.configs.registry import get_arch
+
+    b = get_arch("deepseek-v3-671b")
+    return dataclasses.replace(b, config=dataclasses.replace(b.config, n_layers=DSV3_LAYERS))
+
+
+def ffn_bound(buf, w, valid_slots=None):
+    """Least time of the expert FFN on the dispatch buffer ``buf`` [1, 1, E,
+    C, D] with experts ``w`` (w_up, w_gate, w_down), counting what this
+    input needs: the weights of the experts that hold a token (a slot that
+    is not all zero), read once, the buffer read and the output written
+    once; or the bf16 operations of its token slots (``valid_slots``, else
+    every nonzero slot) at the tensor-core peak.  Returns (ms, bound_by,
+    experts used, the bound with every expert's weights)."""
+    E, C, D = buf.shape[2:]
+    Fd = w[0].shape[2]
+    live = buf[0, 0].abs().amax(-1) > 0                           # [E, C]
+    used = int(live.any(-1).sum())
+    slots = int(live.sum()) if valid_slots is None else valid_slots
+    item = buf.element_size()
+    per_expert = 3 * D * Fd * item
+    t_bytes = (2 * buf.numel() * item + used * per_expert) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * 3 * slots * D * Fd / BF16_FLOPS * 1e3
+    t_all = max((2 * buf.numel() * item + E * per_expert) / HBM_BYTES_PER_S * 1e3, t_ops)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), used, t_all
+
+
+def main_path_buffer(ffn, h, mcfg):
+    """The dispatch buffer [1, 1, E, C, D] the MoE layer builds from its
+    input h at one rank (``models/moe.py``'s routing), and its valid slots."""
+    from repro_torch.models.moe import _dispatch_buf, _route
+
+    toks = h.reshape(-1, mcfg.d_model)
+    _, e_clip, p_clip, valid, cap = _route(mcfg, toks, ffn["router"])
+    buf = _dispatch_buf(mcfg, toks, e_clip, p_clip, valid, cap, h.dtype)
+    return buf[None, None], int(valid.sum())
+
+
+def deepseek_launcher_run() -> dict:
+    """Phase 57(a): the serve launcher in this process at --arch
+    deepseek-v3-671b --layers DSV3_LAYERS --fusion kernel, drawing its own
+    weights (freed when it returns); every launch counted on its path."""
+    import io
+
+    from repro_torch.launch import serve as launch_serve
+
+    argv = ["--arch", "deepseek-v3-671b", "--layers", str(DSV3_LAYERS), "--fusion", "kernel",
+            "--requests", str(DSV3_REQ), "--max-new", str(DSV3_NEW)]
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        fin = launch_serve.main(argv)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    text = out.getvalue()
+    served = re.search(r"served (\d+) requests, (\d+) tokens in [\d.]+s \(([\d.]+) tok/s, "
+                       r"(\d+) steps, ([\d.]+) ms/step", text)
+    if served is None or int(served[1]) != DSV3_REQ or len(fin) != DSV3_REQ:
+        raise AssertionError(f"the launcher did not serve {DSV3_REQ} requests:\n{text}")
+    steps = int(served[4])
+    cfg = deepseek_bundle().config
+    expect_counts("phase 57 launcher", counts, deepseek_decode_counts(steps, cfg))
+    del fin
+    torch.cuda.empty_cache()
+    return {"argv": " ".join(argv), "steps": steps, "tok_s": float(served[3]),
+            "ms_step": float(served[5]), "wall": wall, "counts": counts,
+            "per_step": f"{cfg.n_layers - cfg.dense_prefix}, {cfg.n_layers - cfg.dense_prefix}, "
+                        f"{cfg.dense_prefix} and 0"}
+
+
+def deepseek_decode_counts(steps, cfg):
+    """The launches of ``steps`` kernel-mode decode steps of ``cfg``: per MoE
+    layer a dispatch and a stream-path expert FFN, per dense-prefix layer a
+    fused GEMV + AllReduce on its stream path, no flash (MLA runs
+    _span_flash)."""
+    n, f = (cfg.n_layers - cfg.dense_prefix) * steps, cfg.dense_prefix * steps
+    return {"fused_dispatch_a2a": n, "fused_gemm_a2a": n, "fused_gemm_a2a.stream": n,
+            "fused_matmul_allreduce": f, "fused_matmul_allreduce.stream": f}
+
+
+def deepseek_phases(card) -> dict:
+    """Phases 57-58: full-width deepseek-v3-671b cut to DSV3_LAYERS of its 61
+    layers (its 3 dense-prefix layers and 2 MoE layers) on one card, kernel
+    mode against bulk mode.  Returns the three path kernels' rows' numbers
+    at deepseek-v3's shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused_dispatch_a2a.ops import fused_dispatch_a2a
+    from repro_torch.kernels.fused_dispatch_a2a.ref import fused_dispatch_a2a_ref
+    from repro_torch.kernels.fused_gemm_a2a.ops import fused_gemm_a2a, gemm_a2a_path
+    from repro_torch.kernels.fused_gemm_a2a.ref import fused_gemm_a2a_ref
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce, fused_path
+    from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    bf16 = torch.bfloat16
+    # 57(a) -------------------------------------------------------------
+    lr = deepseek_launcher_run()
+    say(57, f"(a) on {card}: python -m repro_torch.launch.serve {lr['argv']} in this process: "
+            f"{DSV3_REQ} requests served, {lr['steps']} steps, {lr['ms_step']:.2f} ms/step, "
+            f"{lr['tok_s']:.1f} tok/s, {lr['wall']:.1f} s with its weights' draw; launches "
+            f"dispatch {lr['counts']['fused_dispatch_a2a']}, expert FFN "
+            f"{lr['counts']['fused_gemm_a2a']} (stream path), fused GEMV "
+            f"{lr['counts']['fused_matmul_allreduce']} (stream path), flash "
+            f"{lr['counts']['flash_attention']} ({lr['per_step']} a step)")
+
+    # 57(b) -------------------------------------------------------------
+    bundle = deepseek_bundle()
+    cfg, mcfg = bundle.config, bundle.config.moe
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(57)
+    ffn0 = params["layers"][0]["ffn"]
+    wu, wg, wd = ffn0["w_up"], ffn0["w_gate"], ffn0["w_down"]
+    E, D, Fd = wu.shape
+    w_pre = params["prefix"][0]["ffn"]["w_down"]                # [18432, 7168]
+    kern = {}
+    for cap in (1, 320):
+        xt = randn(gen, (1, 1, E, cap, D), bf16)
+        if not torch.equal(fused_dispatch_a2a(xt), fused_dispatch_a2a_ref(xt)):
+            raise AssertionError(f"fused_dispatch_a2a at C={cap}: differs from its plain version")
+        want_path = gemm_a2a_path(bf16, 1, 1, E, cap, D, Fd)
+        got, took = on_path(fused_gemm_a2a, lambda: fused_gemm_a2a(xt, wu, wg, wd))
+        if took != want_path or took != ("stream" if cap == 1 else "tile"):
+            raise AssertionError(f"fused_gemm_a2a at C={cap}: took the {took} path, "
+                                 f"gemm_a2a_path says {want_path}")
+        kern[cap] = check_rel(f"fused_gemm_a2a C={cap} {took}", got,
+                              fused_gemm_a2a_ref(xt, wu, wg, wd, "silu"), REL_BF16)
+        del xt, got
+    xg = randn(gen, (DSV3_B, w_pre.shape[0]), bf16)
+    gemv_path_want = fused_path(bf16, DSV3_B, *w_pre.shape)
+    got, took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(xg, w_pre))
+    if took != gemv_path_want or took != "stream":
+        raise AssertionError(f"fused_matmul_allreduce [{DSV3_B},{w_pre.shape[0]}]: took the "
+                             f"{took} path, fused_path says {gemv_path_want}")
+    gemv_err = check_close("fused_matmul_allreduce deepseek prefix w_down", got,
+                           fused_matmul_allreduce_ref(xg, w_pre), BF16_TOL)
+    torch.cuda.empty_cache()
+    say(57, f"(b) deepseek-v3-671b full width cut to {cfg.n_layers} of 61 layers ({cfg.dense_prefix} "
+            f"dense prefix, d{cfg.d_model}, MLA {cfg.mla.n_heads} heads kv_lora "
+            f"{cfg.mla.kv_lora_rank} rope {cfg.mla.qk_rope_dim}, {mcfg.n_experts} experts top-"
+            f"{mcfg.top_k} d_ff {mcfg.d_ff} + {mcfg.n_shared_experts} shared, {n_params / 1e9:.2f}B "
+            f"params, {n_bytes / 1e9:.1f} GB {cfg.param_dtype}, init {init_s:.1f}s); the path's "
+            f"kernels vs plain on layer 3's experts and layer 0's FFN down: dispatch "
+            f"[1,1,{E},1,{D}] and [1,1,{E},320,{D}] bf16 exact; fused_gemm_a2a max abs/rel err "
+            f"C=1 stream path {kern[1][0]:.3g}/{kern[1][1]:.3g}, C=320 tile path "
+            f"{kern[320][0]:.3g}/{kern[320][1]:.3g} (bound {REL_BF16} rel); "
+            f"fused_matmul_allreduce [{DSV3_B},{w_pre.shape[0]}]@{list(w_pre.shape)} stream "
+            f"path {gemv_err[0]:.3g}/{gemv_err[1]:.3g} (bound {BF16_TOL})")
+
+    # 57(c) -------------------------------------------------------------
+    ctx_k = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel"))
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    dec_k, dec_b = bundle.decode_fn(ctx_k), bundle.decode_fn(ctx_b)
+
+    def serve(decode, log=None):
+        def step(tok, cache, pos):
+            logits, cache = decode(params, tok, cache, pos)
+            if log is not None:
+                log.append((tok.clone(), pos.clone(), logits.clone()))
+            return logits, cache
+        return serve_requests(step, bundle, DSV3_B, DSV3_REQ, DSV3_NEW)
+
+    log_k = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    reqs_k, _ = serve(dec_k, log_k)
+    steps = len(log_k)
+    expect_counts("phase 57 drain", launch_counts(), deepseek_decode_counts(steps, cfg))
+    reqs_b, _ = serve(dec_b)
+    tf = teacher_forced_moe(bundle, params, ctx_k, ctx_b, log_k)
+    differing, flips = routed_flips(reqs_k, reqs_b, tf, cfg.vocab)
+    peak_c = torch.cuda.max_memory_allocated() / 1e9
+    want_c = deepseek_decode_counts(steps, cfg)
+    say(57, f"(c) DecodeEngine, batch {DSV3_B}, {DSV3_REQ} requests x {DSV3_NEW} tokens: "
+            f"{steps} decode steps, launches dispatch {want_c['fused_dispatch_a2a']}, expert FFN "
+            f"{want_c['fused_gemm_a2a']} (stream path), fused GEMV "
+            f"{want_c['fused_matmul_allreduce']} (stream path), flash 0; {tf['summary']}; "
+            f"kernel streams {[r.tokens for r in reqs_k]}; bulk streams "
+            f"{[r.tokens for r in reqs_b]}; differing tokens {differing}"
+            + (f" ({'; '.join(flips)})" if flips else "") + f"; peak {peak_c:.1f} GB")
+
+    # 57(d) -------------------------------------------------------------
+    L, B, S = cfg.n_layers, DSV3_B, DSV3_S
+    tokens = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(57))
+    seen = []
+
+    def spy(ctx, ffn, h, m_cfg, **kw):
+        out = moe_apply(ctx, ffn, h, m_cfg, **kw)
+        seen.append((ffn, h, out))
+        return out
+
+    log = GateLog()
+    moe_layers = L - cfg.dense_prefix
+    torch.cuda.reset_peak_memory_stats()
+    with log.active(), swapped(tfm, "moe_apply", spy):
+        (lk, cache_k), pre_counts = counted_run(
+            lambda: bundle.prefill_fn(ctx_k)(params, {"tokens": tokens}),
+            {"fused_dispatch_a2a": moe_layers, "fused_gemm_a2a": moe_layers,
+             "fused_gemm_a2a.tile": moe_layers})
+    peak_d = torch.cuda.max_memory_allocated() / 1e9
+    pre_rel = 0.0
+    for i, (ffn, h, f) in enumerate(seen):
+        pre_rel = max(pre_rel, check_rel(f"prefill MoE layer {i}: kernel vs bulk", f,
+                                         moe_apply(ctx_b, ffn, h, mcfg), REL_BF16)[1])
+    h_pre = seen[0][1]
+    del seen
+    with GateLog(log.gates).active():
+        lb, cache_b = bundle.prefill_fn(ctx_b)(params, {"tokens": tokens})
+    lx, cache_x = exact_prefill(params, cfg, tokens, log.gates)
+    torch.cuda.empty_cache()
+    pre_txt = bounded_errors("prefill", {"logits": (lk, lb, lx),
+                                         **{k_: (cache_k[k_], cache_b[k_], cache_x[k_])
+                                            for k_ in ("c", "kr")}})
+    del cache_x
+
+    def decode_cache(c):
+        full = bundle.init_cache(B, "cuda")
+        for k_ in full:
+            full[k_][:, :, :S] = c[k_]
+        return full
+
+    caches = {"kernel": decode_cache(cache_k), "bulk": decode_cache(cache_b)}
+    del cache_k, cache_b
+    tok = lk.argmax(-1).to(torch.int32)
+    d_dec, steps_tok = 0.0, []
+    reset_counts()
+    for s in range(DSV3_STEPS):
+        pos = torch.full((B,), S + s, dtype=torch.int32, device="cuda")
+        gk, caches["kernel"] = dec_k(params, tok, caches["kernel"], pos)
+        counts_k = launch_counts()
+        gb, caches["bulk"] = dec_b(params, tok, caches["bulk"], pos)
+        if launch_counts() != counts_k:
+            raise AssertionError("bulk-mode decode launched a kernel")
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"decode step {s}: non-finite logits")
+        d_dec = max(d_dec, errors(gk, gb)[0])
+        tok = gk.argmax(-1).to(torch.int32)
+        steps_tok.append(tok[:, 0].tolist())
+    expect_counts("phase 57 decode from the prefill", launch_counts(),
+                  deepseek_decode_counts(DSV3_STEPS, cfg))
+    if not all(0 <= t_ < cfg.vocab for st in steps_tok for t_ in st):
+        raise AssertionError("decode from the prefill: a token out of range")
+    del caches
+    torch.cuda.empty_cache()
+    say(57, f"(d) prefill of {B}x{S} seeded tokens through prefill_fn: kernel mode launches "
+            f"dispatch {pre_counts['fused_dispatch_a2a']}, expert FFN "
+            f"{pre_counts['fused_gemm_a2a']} (tile path {pre_counts['fused_gemm_a2a.tile']}), "
+            f"fused GEMV {pre_counts['fused_matmul_allreduce']}, flash "
+            f"{pre_counts['flash_attention']}; every MoE layer, kernel vs bulk on identical "
+            f"input: max rel err {pre_rel:.3g} (bound {REL_BF16}); bulk and exact f32 "
+            f"teacher-forced on the kernel run's routing, kernel vs exact / bulk vs exact / "
+            f"kernel vs bulk max abs err (bound {LOGITS_TOL_FACTOR} x the second): {pre_txt}; "
+            f"peak {peak_d:.1f} GB; {DSV3_STEPS} greedy decode steps from position {S} (bulk "
+            f"teacher-forced on the kernel run's tokens): launches as the drain's a step, logits "
+            f"kernel vs bulk max abs {d_dec:.3g}, tokens {steps_tok}")
+
+    # 58 ----------------------------------------------------------------
+    prof = {}
+    for mode, ctx in (("kernel", ctx_k), ("bulk", ctx_b)):
+        fn = bundle.prefill_fn(ctx)
+        prof[f"prefill {mode}"] = profile_device(lambda i: fn(params, {"tokens": tokens}), 1,
+                                                 "prefill")
+    for mode, dec in (("kernel", dec_k), ("bulk", dec_b)):
+        prof[f"decode {mode}"] = profile_decode(dec, params, bundle.init_cache(B, "cuda"),
+                                                log_k[:4])
+    # the expert FFN on the main path's own buffers: the decode's (C = 1: the
+    # stream path, each expert's weights streamed, only those of the experts
+    # holding a token needed) and the prefill's (C = 320: the tile path)
+    rows = {}
+    for name, h, iters in (("stream", tf["h_moe"], 20), ("tile", h_pre, 5)):
+        buf, n_valid = main_path_buffer(ffn0, h, mcfg)
+        x0 = buf[0]
+        bulk = lambda: torch.einsum(
+            "necf,efd->necd", F.silu(torch.einsum("necd,edf->necf", x0, wg))
+            * torch.einsum("necd,edf->necf", x0, wu), wd)
+        got, took = on_path(fused_gemm_a2a, lambda: fused_gemm_a2a(buf, wu, wg, wd))
+        if took != name:
+            raise AssertionError(f"fused_gemm_a2a on the main path's C={buf.shape[3]} buffer: "
+                                 f"took the {took} path")
+        err = check_rel(f"fused_gemm_a2a main-path C={buf.shape[3]}", got,
+                        fused_gemm_a2a_ref(buf, wu, wg, wd, "silu"), REL_BF16)
+        turns = {name: [], "bulk": []}
+        for which in (name, "bulk", "bulk", name):
+            fn = bulk if which == "bulk" else (lambda: fused_gemm_a2a(buf, wu, wg, wd))
+            turns[which].append(time_ms(fn, iters=iters, warmup=2))
+        plain = time_ms(lambda: fused_gemm_a2a_ref(buf, wu, wg, wd, "silu"), iters=3, warmup=1)
+        bound, by, used, bound_all = ffn_bound(buf, (wu, wg, wd),
+                                               None if name == "stream" else n_valid)
+        disp = time_ms(lambda: fused_dispatch_a2a(buf), iters=50)
+        copy_to = torch.empty_like(buf)
+        rows[name] = dict(C=buf.shape[3], err=err, turns=turns, ms=min(turns[name]),
+                          lib=min(turns["bulk"]), plain=plain, bound=bound, by=by, used=used,
+                          bound_all=bound_all, slots=n_valid, disp=disp,
+                          disp_plain=time_ms(lambda: fused_dispatch_a2a_ref(buf), iters=20),
+                          copy=time_ms(lambda: copy_to.copy_(buf), iters=50),
+                          disp_bound=2 * buf.numel() * buf.element_size() / HBM_BYTES_PER_S * 1e3)
+        del buf, x0, got, copy_to
+        torch.cuda.empty_cache()
+    gemv_t = {"kernel": [], "matmul": []}
+    for which in ("kernel", "matmul", "matmul", "kernel"):
+        fn = ((lambda: fused_matmul_allreduce(xg, w_pre)) if which == "kernel"
+              else (lambda: torch.matmul(xg, w_pre)))
+        gemv_t[which].append(time_ms(fn, iters=200))
+    gemv_plain = time_ms(lambda: fused_matmul_allreduce_ref(xg, w_pre), iters=20)
+    gemv_bound, gemv_by = bound_ms(DSV3_B, w_pre.shape[0], w_pre.shape[1], 2)
+    attn0 = params["prefix"][0]["attn"]
+    h_attn = randn(gen, (B, S, cfg.d_model), bf16)
+    mla_ms = time_ms(lambda: mla_mod.mla_context_attention(ctx_b, attn0, cfg.mla, h_attn),
+                     iters=3, warmup=1)
+    st, ti = rows["stream"], rows["tile"]
+    say(58, f"on {card}, CUDA events: prefill of {B}x{S} and decode steps (profiles): "
+            + "; ".join(f"{k_}: {v_}" for k_, v_ in prof.items())
+            + f"; fused_gemm_a2a on the main path's buffers (turns kernel, bulk, bulk, kernel): "
+            f"C=1 stream path {', '.join(f'{v:.4f}' for v in st['turns']['stream'])} ms, bulk "
+            f"einsums {', '.join(f'{v:.4f}' for v in st['turns']['bulk'])} ms, plain "
+            f"{st['plain']:.4f} ms, bound {st['bound']:.4f} ms ({st['by']}: the {st['used']} of "
+            f"{E} experts holding a token; every expert's weights {st['bound_all']:.4f} ms), "
+            f"max abs err {st['err'][0]:.3g}; C=320 tile path "
+            f"{', '.join(f'{v:.3f}' for v in ti['turns']['tile'])} ms, bulk einsums "
+            f"{', '.join(f'{v:.3f}' for v in ti['turns']['bulk'])} ms, plain {ti['plain']:.3f} ms, "
+            f"bound {ti['bound']:.3f} ms ({ti['by']}: {ti['slots']} routed slots of {E * 320}; all "
+            f"slots {ti['bound_all']:.3f} ms), {ti['used']} experts used, max abs err "
+            f"{ti['err'][0]:.3g}; dispatch C=1 {st['disp']:.4f} ms (plain {st['disp_plain']:.4f}, "
+            f"Tensor.copy_ {st['copy']:.4f}, bound {st['disp_bound']:.5f}), C=320 "
+            f"{ti['disp']:.4f} ms (plain {ti['disp_plain']:.4f}, Tensor.copy_ {ti['copy']:.4f}, "
+            f"bound {ti['disp_bound']:.4f}); fused GEMV [{B},{w_pre.shape[0]}]@"
+            f"{list(w_pre.shape)} (turns kernel, matmul, matmul, kernel) "
+            f"{', '.join(f'{v:.4f}' for v in gemv_t['kernel'])} ms, torch.matmul "
+            f"{', '.join(f'{v:.4f}' for v in gemv_t['matmul'])} ms, plain {gemv_plain:.4f} ms, "
+            f"bound {gemv_bound:.4f} ms ({gemv_by}); MLA's plain prefill attention (bulk, "
+            f"_span_flash) a layer at {B}x{S}: {mla_ms:.1f} ms")
+    del params, h_attn, tf, log_k, h_pre
+    torch.cuda.empty_cache()
+    return {
+        "fused_dispatch_a2a": {
+            "deepseek_launches_per_decode_step": moe_layers,
+            "deepseek_prefill_launches": moe_layers,
+            "deepseek_ms": st["disp"], "deepseek_plain_ms": st["disp_plain"],
+            "deepseek_bound_ms": st["disp_bound"], "deepseek_library_ms": st["copy"],
+            "deepseek_prefill_ms": ti["disp"], "deepseek_prefill_bound_ms": ti["disp_bound"],
+            "deepseek_prefill_library_ms": ti["copy"]},
+        "fused_gemm_a2a": {
+            "deepseek_launches_per_decode_step": moe_layers,
+            "deepseek_prefill_tile_launches": moe_layers,
+            "deepseek_stream_ms": st["ms"], "deepseek_stream_plain_ms": st["plain"],
+            "deepseek_stream_bound_ms": st["bound"], "deepseek_stream_bound_by": st["by"],
+            "deepseek_stream_bound_all_experts_ms": st["bound_all"],
+            "deepseek_stream_library_ms": st["lib"], "deepseek_stream_max_abs_err": st["err"][0],
+            "deepseek_tile_ms": ti["ms"], "deepseek_tile_plain_ms": ti["plain"],
+            "deepseek_tile_bound_ms": ti["bound"], "deepseek_tile_bound_by": ti["by"],
+            "deepseek_tile_library_ms": ti["lib"], "deepseek_tile_max_abs_err": ti["err"][0]},
+        "fused_matmul_allreduce": {
+            "deepseek_launches_per_decode_step": cfg.dense_prefix,
+            "deepseek_ms": min(gemv_t["kernel"]),
+            "deepseek_plain_ms": gemv_plain, "deepseek_bound_ms": gemv_bound,
+            "deepseek_library_ms": min(gemv_t["matmul"]), "deepseek_max_abs_err": gemv_err[0]},
+    }
 
 
 def _map(tree, fn):

@@ -9,8 +9,11 @@ prefill and decode (``prefill_fn``, ``decode_fn``; no launcher serves it
 yet, and its training is item 7), and runs DLRM, the paper's own
 architecture: its ``loss_fn`` scores a batch in every mode and trains in
 bulk and fused mode (kernel mode's pooling has no backward, as the
-reference's has none).  The reference's other architectures raise until
-their slice of the port lands.
+reference's has none).  deepseek-v3-671b (MLA, a dense prefix of 3 layers,
+256 routed experts and a shared one) prefills and decodes through the same
+entries, dense engine only (its latent cache is not paged, as in the
+reference); its ``loss_fn`` raises (training is item 7).  The reference's
+other architectures raise until their slice of the port lands.
 
 At tp > 1 (a ``ParallelContext`` over a tp world) the transformers run:
 their decode (dbrx's MoE as decode EP over the whole world), their prefill,
@@ -55,13 +58,11 @@ _MODULES = {
     "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
 # the reference's other architectures, and the ROADMAP Queue 1 item of each
-_LATER = {
-    "musicgen-medium": 7, "zamba2-7b": 7,
-    "deepseek-v3-671b": 5, "qwen2-vl-2b": 7,
-}
+_LATER = {"musicgen-medium": 7, "zamba2-7b": 7, "qwen2-vl-2b": 7}
 _RWKV6_TRAIN_ITEM = ("ROADMAP Queue 1 item 7 (rwkv6 training: train_forward with a WKV6 "
                      "backward)")
 # what a family needs before it runs over several ranks
@@ -121,14 +122,14 @@ class ArchBundle:
         """(params, batch) -> scalar loss, for autograd; the batch is the
         global one, whole on every rank.  DLRM's is the mean BCE over the
         global batch in any mode (in kernel mode its gradient raises: the
-        pooling kernel has no backward).  rwkv6 raises (ROADMAP Queue 1 item
-        7)."""
+        pooling kernel has no backward).  rwkv6 and deepseek-v3 (MLA) raise
+        (ROADMAP Queue 1 item 7)."""
         cfg = self.config
         self.check_tp(ctx)
         if self.family == "transformer":
-            from repro_torch.models.transformer import check_supported, train_forward
+            from repro_torch.models.transformer import check_trainable, train_forward
 
-            check_supported(cfg, ctx.tp)
+            check_trainable(cfg, ctx.tp)
             return lambda p, b: train_forward(ctx, p, cfg, b)
         if self.family == "dlrm":
             from repro_torch.models.dlrm import dlrm_loss
@@ -238,18 +239,25 @@ class ArchBundle:
             return dataclasses.replace(self, config=dataclasses.replace(
                 c, n_layers=2, d_model=64, d_ff=128, vocab=512, head_size=16,
                 lora_r=8, chunk=8, param_dtype="float32", compute_dtype="float32"))
+        hd = 16
         over = dict(n_layers=2 * (c.local_global_period or 1), d_model=64,
-                    d_ff=128, vocab=512, head_dim=16, max_seq=64,
+                    d_ff=128, vocab=512, head_dim=hd, max_seq=64,
                     param_dtype="float32", compute_dtype="float32")
         over["n_heads"] = max(4, min(c.n_heads, 4))
         kv = min(c.n_kv_heads, over["n_heads"])
         over["n_kv_heads"] = kv if over["n_heads"] % kv == 0 else over["n_heads"]
         if c.window:
             over["window"] = 16
+        if c.mla is not None:
+            over["mla"] = dataclasses.replace(
+                c.mla, d_model=64, n_heads=4, q_lora_rank=32, kv_lora_rank=16,
+                qk_nope_dim=hd, qk_rope_dim=8, v_head_dim=hd)
         if c.moe is not None:
             over["moe"] = dataclasses.replace(
                 c.moe, n_experts=8, top_k=min(c.moe.top_k, 2), d_model=64,
                 d_ff=32)
+        if c.dense_prefix:
+            over.update(dense_prefix=1, n_layers=3)
         return dataclasses.replace(self, config=dataclasses.replace(c, **over))
 
 

@@ -7,6 +7,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+      --layers 5
   PYTHONPATH=src python -m torch.distributed.run --standalone \
       --nproc-per-node 4 -m repro_torch.launch.serve --tp 4 --fusion fused
   PYTHONPATH=src python -m torch.distributed.run --standalone \
@@ -74,6 +76,12 @@ its first N layers at full width (``chip_smoke.py`` serves dbrx at 8).  At
 ``--tp N`` dbrx's experts are split over the ranks and decode runs them as
 decode EP (``models/moe.py``); ``--paged`` with a MoE model at tp > 1 raises
 (ROADMAP Queue 1 item 5).
+deepseek-v3-671b (MLA with its latent cache, the MoE layer's shared expert,
+a dense prefix of 3 layers whose FFN down runs the fused GEMV) serves at
+any ``--tp`` / ``--dp`` in bulk and fused mode and at ``--tp 1`` in kernel
+mode; ``--layers N`` keeps the 3 prefix layers whole and needs N > 3
+(``chip_smoke.py`` serves it at 5); ``--paged`` refuses it, as the
+reference's launcher does (MLA keeps the dense latent cache).
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
 device the default raises.  Weights are random, drawn from a fixed seed.
@@ -192,6 +200,10 @@ def _serve(args, bundle, device):
     if args.reduced:
         bundle = bundle.reduced()
     if args.layers:
+        prefix = getattr(bundle.config, "dense_prefix", 0)
+        if args.layers <= prefix:
+            raise SystemExit(f"--layers {args.layers}: {args.arch} keeps its {prefix} "
+                             f"dense-prefix layers whole, so N must exceed {prefix}")
         bundle = dataclasses.replace(bundle, config=dataclasses.replace(
             bundle.config, n_layers=args.layers))
     cfg = bundle.config

@@ -49,19 +49,26 @@ def params_from_numpy(tree, device="cpu", ctx=None, training: bool = False):
     reference's logical spec (``transformer.leaf_spec``: ``w_qkv`` and
     ``w_o`` whole, the MLP's ``w_gate`` and ``w_up`` by columns and its
     ``w_down`` by rows, a MoE FFN's experts by expert and its router whole,
-    the embedding table by vocabulary rows); with ``training`` at dp > 1
-    also by its ``"fsdp"`` dim over the data ranks (the train state's
-    placement; serving keeps those whole)."""
-    if "prefix" in tree:
-        raise NotImplementedError("dense-prefix layers: ROADMAP Queue 1 item 7 (with MLA)")
+    its shared expert whole, every MLA leaf whole, the embedding table by
+    vocabulary rows); with ``training`` at dp > 1 also by its ``"fsdp"`` dim
+    over the data ranks (the train state's placement; serving keeps those
+    whole).
 
+    The dense-prefix layers (``tree["prefix"]``: a list of ``{"l0": layer}``,
+    unstacked) go to ``params["prefix"]``, one dict a layer; MLA's 3-D
+    ``w_uk`` / ``w_uv`` [kv_lora, H, d] and a MoE FFN's ``"shared"`` dict
+    are carried across as they are."""
     stacked = tree["layers"]
     period = len(stacked)
     groups = len(np.asarray(_first_leaf(stacked["l0"])))
     layers = [shard_params(_conv(stacked[f"l{j}"], device, g), ctx, training)
               for g in range(groups) for j in range(period)]
-    return {"embed": shard_params(_conv(tree["embed"], device), ctx, training),
-            "final_norm": _conv(tree["final_norm"], device), "layers": layers}
+    params = {"embed": shard_params(_conv(tree["embed"], device), ctx, training),
+              "final_norm": _conv(tree["final_norm"], device), "layers": layers}
+    if "prefix" in tree:
+        params["prefix"] = [shard_params(_conv(p["l0"], device), ctx, training)
+                            for p in tree["prefix"]]
+    return params
 
 
 def dlrm_params_from_numpy(tree, device="cpu", ctx=None):

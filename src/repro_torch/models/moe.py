@@ -29,6 +29,13 @@ length S:
   :func:`_moe_decode_ep`, weight-stationary over the whole (data, model)
   world, in every mode (the reference's runs no kernel either).
 
+A deepseek-style shared expert (``n_shared_experts``: ``params["shared"]``,
+a SwiGLU of ``d_ff * n_shared_experts`` whole on every rank) adds its
+output in every path, as the reference's does: in :func:`_moe_local` on
+the rank's own rows after the unpermute, in decode EP on the replicated
+rows after the world sum.  It is a plain product, outside any kernel, as
+in the reference.
+
 The dispatch and the combine each consult the degradation policy
 (``core/degrade.py``) under the reference's keys (``moe_dispatch_a2a``,
 ``moe_combine_a2a``); a quarantined side runs its bulk form.  Kernel mode
@@ -45,15 +52,16 @@ import torch.nn.functional as F
 
 from repro_torch.core.collectives import all_gather_data, all_reduce
 from repro_torch.core.moe_all_to_all import fused_expert_ffn_combine, moe_dispatch_all_to_all
-from repro_torch.kernels.fused_gemm_a2a.ref import expert_ffn_ref
+from repro_torch.kernels.fused_gemm_a2a.ref import ACTS, expert_ffn_ref
 from repro_torch.models.common import dense_init
 from repro_torch.parallel.sharding import ParallelContext
 
-_SHARED_ITEM = ("ROADMAP Queue 1 item 7 (shared experts and deepseek-v3's dense prefix, "
-                "which come with MLA)")
 # the reference's logical specs of the MoE leaves (src/repro/models/moe.py:47-52)
 MOE_PARAM_SPECS = {"router": (None, None), "w_gate": ("tp", "fsdp", None),
                    "w_up": ("tp", "fsdp", None), "w_down": ("tp", None, "fsdp")}
+# and of the shared expert's (:56-58): whole over tp, unlike the dense MLP's
+SHARED_PARAM_SPECS = {"w_gate": ("fsdp", None), "w_up": ("fsdp", None),
+                      "w_down": (None, "fsdp")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,16 +80,33 @@ class MoEConfig:
 def moe_init(gen: torch.Generator, cfg: MoEConfig, dtype):
     """Router (f32) and expert weights on ``gen``'s device, drawn as the
     reference draws them: ``dense_init`` takes fan_in = shape[0], which is
-    the expert count for the [E, D, F] / [E, F, D] expert weights."""
-    if cfg.n_shared_experts:
-        raise NotImplementedError(f"shared experts: {_SHARED_ITEM}")
+    the expert count for the [E, D, F] / [E, F, D] expert weights.  With
+    ``n_shared_experts`` the shared expert's ``{"w_gate", "w_up",
+    "w_down"}`` ([D, Fs], [D, Fs], [Fs, D], Fs = d_ff * n_shared_experts)
+    follow under ``"shared"``."""
     E, D, Fd = cfg.n_experts, cfg.d_model, cfg.d_ff
-    return {
+    params = {
         "router": dense_init(gen, (D, E), torch.float32),
         "w_gate": dense_init(gen, (E, D, Fd), dtype),
         "w_up": dense_init(gen, (E, D, Fd), dtype),
         "w_down": dense_init(gen, (E, Fd, D), dtype),
     }
+    if cfg.n_shared_experts:
+        Fs = Fd * cfg.n_shared_experts
+        params["shared"] = {"w_gate": dense_init(gen, (D, Fs), dtype),
+                            "w_up": dense_init(gen, (D, Fs), dtype),
+                            "w_down": dense_init(gen, (Fs, D), dtype)}
+    return params
+
+
+def _plus_shared(params, x, out, act: str):
+    """``out`` plus the shared expert's SwiGLU on x, at x's dtype; ``out``
+    itself without a shared expert."""
+    shared = params.get("shared")
+    if shared is None:
+        return out
+    h = ACTS[act](x @ shared["w_gate"]) * (x @ shared["w_up"])
+    return out + (h @ shared["w_down"]).to(x.dtype)
 
 
 def moe_apply(ctx: ParallelContext, params, x, cfg: MoEConfig, *, mode: str | None = None,
@@ -101,8 +126,6 @@ def moe_apply(ctx: ParallelContext, params, x, cfg: MoEConfig, *, mode: str | No
     tp = 1 every S counts as sequence-sharded, as in the reference, so
     decode EP applies at tp > 1 only."""
     mode = mode or ctx.fusion.resolve("moe_a2a")
-    if "shared" in params or cfg.n_shared_experts:
-        raise NotImplementedError(f"shared experts: {_SHARED_ITEM}")
     if mode not in ("bulk", "fused", "kernel"):
         raise ValueError(f"moe_apply: unknown mode {mode!r}")
     if seq_sharded or ctx.tp == 1:
@@ -159,7 +182,7 @@ def _moe_decode_ep(ctx: ParallelContext, params, x, cfg: MoEConfig, rows_split: 
     if rows_split:
         t_loc = T // ctx.dp
         y = y[ctx.dp_rank * t_loc:(ctx.dp_rank + 1) * t_loc]
-    return y.reshape(x.shape).to(x.dtype)
+    return _plus_shared(params, x, y.reshape(x.shape).to(x.dtype), cfg.act)
 
 
 def _moe_kernel_staged(*_args, **_kwargs):
@@ -248,5 +271,6 @@ def _moe_local(ctx: ParallelContext, cfg: MoEConfig, x, params, mode):
     recv = moe_dispatch_all_to_all(ctx, buf, mode=mode, **fixed)
     comb = fused_expert_ffn_combine(ctx, recv, params["w_up"], params["w_gate"],
                                     params["w_down"], act=cfg.act, mode=mode, **fixed)
-    return _unpermute(cfg, comb.reshape(E, C, D), gate_w, e_clip, p_clip, valid,
-                      x.shape, x.dtype)
+    out = _unpermute(cfg, comb.reshape(E, C, D), gate_w, e_clip, p_clip, valid,
+                     x.shape, x.dtype)
+    return _plus_shared(params, x, out, cfg.act)

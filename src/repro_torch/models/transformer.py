@@ -1,13 +1,21 @@
-"""Decoder-only LM training, prefill and decode for GQA transformers.
+"""Decoder-only LM training, prefill and decode for GQA and MLA transformers.
 
-The JAX package's unified decoder also covers MLA, M-RoPE, shared experts,
-dense-prefix layers and the audio/vision front ends, and scans its layers
-with ``lax.scan``.  This port runs GQA decode, prefill and the training
-forward (``train_forward``: the loss, differentiated by autograd) with a
-dense or a MoE FFN, and a Python loop over the layers; a config that needs
-the rest raises until its slice lands.  Decode keeps the reference's
-layouts: a per-layer cache slice is [B, S_max, Hkv, hd], ``pos`` a [B] int32
-vector, logits [B, 1, V] in f32.
+The JAX package's unified decoder also covers M-RoPE and the audio/vision
+front ends, and scans its layers with ``lax.scan``.  This port runs GQA
+decode, prefill and the training forward (``train_forward``: the loss,
+differentiated by autograd) with a dense or a MoE FFN, and a Python loop
+over the layers; MLA (``models/mla.py``) with its dense-prefix layers and
+the MoE layer's shared expert (deepseek-v3) decodes and prefills; a config
+that needs the rest raises until its slice lands.  Decode keeps the
+reference's layouts: a per-layer cache slice is [B, S_max, Hkv, hd] (MLA's:
+the latents c [B, S_max, kv_lora] and kr [B, S_max, rope]), ``pos`` a [B]
+int32 vector, logits [B, 1, V] in f32.
+
+A config with ``dense_prefix`` k holds its first k layers, each with a
+dense FFN, in ``params["prefix"]`` and the rest in ``params["layers"]``, as
+the reference's tree does; every loop runs the prefix first.  The cache
+holds all ``n_layers`` layers on its leading axis in that order (the
+reference splits it into ``"prefix"`` and ``"scan"``).
 
 Decode, prefill and training run at any tp (SPMD, one process a rank): each rank holds
 the parameters' shards of ``PARAM_SPECS`` (``w_qkv`` and ``w_o`` whole, as
@@ -67,7 +75,9 @@ from repro_torch.models.attention import (broadcast_pos, cache_update, context_a
 from repro_torch.models.common import DTYPES, dense_init
 from repro_torch.models.layers import (embedding_init, embedding_lookup, mlp_apply,
                                        mlp_init, rms_norm, rms_norm_init)
-from repro_torch.models.moe import MOE_PARAM_SPECS, moe_apply, moe_init
+from repro_torch.models.mla import (MLA_PARAM_SPECS, mla_context_attention,
+                                    mla_decode_attention, mla_init, mla_latents_for_cache)
+from repro_torch.models.moe import MOE_PARAM_SPECS, SHARED_PARAM_SPECS, moe_apply, moe_init
 from repro_torch.models.rope import apply_rope, apply_rope_2d
 from repro_torch.core.degrade import Pins, pinned
 from repro_torch.data.pipeline import batch_rows, shard_batch
@@ -77,19 +87,34 @@ from repro_torch.parallel.sharding import ParallelContext, shard_leaf
 # (src/repro/models/transformer.py:107-108, layers.py:47-49 and :99), by leaf
 # name within a dict; a leaf not named (the norms) is whole on every rank.  A
 # MoE FFN's dict (the one holding a "router") takes ``MOE_PARAM_SPECS``
-# instead: its expert leaves share the MLP's names, not its layout.
+# instead: its expert leaves share the MLP's names, not its layout; its
+# shared expert's dict (under "shared") ``SHARED_PARAM_SPECS``, whole over
+# tp; an MLA attention dict (the one holding "w_dkv") ``MLA_PARAM_SPECS``.
 PARAM_SPECS = {"w_qkv": ("fsdp", None), "w_o": (None, "fsdp"),
                "w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"), "w_down": ("tp", "fsdp"),
                "table": ("tp", "fsdp")}
 _PAGED_MOE_ITEM = ("paged serving of a MoE model at tp > 1 (the MoE layer on the step's "
                    "replicated chunks over striped pools) is ROADMAP Queue 1 item 5")
+# the reference refuses a paged pool for MLA (src/repro/models/transformer.py:442-444)
+_PAGED_MLA = "paged KV requires attn_type='gqa' (the reference keeps MLA's dense latent cache)"
+_MLA_TRAIN_ITEM = ("training with MLA or a dense prefix (deepseek-v3: MLA's backward through "
+                   "the latent ring, Adafactor with 4 microbatches) is ROADMAP Queue 1 item 7")
 
 
-def leaf_spec(d: dict, key: str, leaf):
-    """The logical spec of ``d[key]``: by its name in the table of ``d``'s
-    kind (``MOE_PARAM_SPECS`` for a MoE FFN's dict, else ``PARAM_SPECS``),
-    whole where it is not named."""
-    table = MOE_PARAM_SPECS if "router" in d else PARAM_SPECS
+def leaf_spec(d: dict, key: str, leaf, name: str | None = None):
+    """The logical spec of ``d[key]``, ``d`` held under ``name`` in its
+    parent: by its name in the table of ``d``'s kind (``SHARED_PARAM_SPECS``
+    for a shared expert's dict, ``MOE_PARAM_SPECS`` for a MoE FFN's,
+    ``MLA_PARAM_SPECS`` for an MLA attention's, else ``PARAM_SPECS``), whole
+    where it is not named."""
+    if name == "shared":
+        table = SHARED_PARAM_SPECS
+    elif "router" in d:
+        table = MOE_PARAM_SPECS
+    elif "w_dkv" in d:
+        table = MLA_PARAM_SPECS
+    else:
+        table = PARAM_SPECS
     return table.get(key, (None,) * leaf.dim())
 
 
@@ -157,68 +182,84 @@ def check_supported(cfg: TransformerConfig, tp: int = 1):
             raise ValueError(f"{cfg.name}: tp={tp} does not divide {name}={getattr(cfg, name)}")
     if cfg.moe is not None and cfg.moe.n_experts % tp:
         raise ValueError(f"{cfg.name}: tp={tp} does not divide the {cfg.moe.n_experts} experts")
-    if cfg.moe is not None and cfg.moe.n_shared_experts:
-        missing.append("moe shared experts (ROADMAP Queue 1 item 7, with MLA)")
-    if cfg.attn_type != "gqa" or cfg.mla is not None:
-        missing.append("mla attention (ROADMAP Queue 1 item 7)")
+    if cfg.attn_type not in ("gqa", "mla") or (cfg.attn_type == "mla") != (cfg.mla is not None):
+        raise ValueError(f"{cfg.name}: attn_type={cfg.attn_type!r} with mla={cfg.mla!r}")
+    if not 0 <= cfg.dense_prefix <= cfg.n_layers:
+        raise ValueError(f"{cfg.name}: dense_prefix={cfg.dense_prefix} of {cfg.n_layers} layers")
     if cfg.rope_style not in ("full", "2d"):
         missing.append(f"rope_style={cfg.rope_style!r} (ROADMAP Queue 1 item 7)")
     if cfg.frontend is not None:
         missing.append(f"frontend={cfg.frontend!r} (ROADMAP Queue 1 item 7)")
-    if cfg.dense_prefix:
-        missing.append("dense_prefix (ROADMAP Queue 1 item 7, with MLA)")
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
+
+
+def check_trainable(cfg: TransformerConfig, tp: int = 1):
+    """:func:`check_supported`, and raise for what trains only in a later
+    slice: MLA and the dense prefix (deepseek-v3)."""
+    check_supported(cfg, tp)
+    if cfg.attn_type == "mla" or cfg.dense_prefix:
+        raise NotImplementedError(f"{cfg.name}: {_MLA_TRAIN_ITEM}")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _layer_init(gen, cfg: TransformerConfig):
+def _layer_init(gen, cfg: TransformerConfig, dense: bool = False):
+    """One layer: norms, attention (GQA's fused QKV or MLA's), and the FFN:
+    the MoE layer where the config has one and ``dense`` is false, else the
+    dense SwiGLU (deepseek-v3's prefix layers)."""
     D, dev = cfg.d_model, gen.device
     p: dict[str, Any] = {"ln1": rms_norm_init(D, dev, zero=cfg.norm_plus_one),
                          "ln2": rms_norm_init(D, dev, zero=cfg.norm_plus_one)}
     if cfg.post_norms:
         p["post_ln1"] = rms_norm_init(D, dev, zero=cfg.norm_plus_one)
         p["post_ln2"] = rms_norm_init(D, dev, zero=cfg.norm_plus_one)
-    qkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd
-    p["attn"] = {
-        "w_qkv": dense_init(gen, (D, qkv), cfg.pdtype),
-        "w_o": dense_init(gen, (cfg.n_heads * cfg.hd, D), cfg.pdtype),
-    }
-    if cfg.moe is not None:
+    if cfg.attn_type == "mla":
+        p["attn"] = mla_init(gen, cfg.mla, cfg.pdtype)
+    else:
+        qkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd
+        p["attn"] = {
+            "w_qkv": dense_init(gen, (D, qkv), cfg.pdtype),
+            "w_o": dense_init(gen, (cfg.n_heads * cfg.hd, D), cfg.pdtype),
+        }
+    if cfg.moe is not None and not dense:
         p["ffn"] = moe_init(gen, cfg.moe, cfg.pdtype)
     else:
         p["ffn"] = mlp_init(gen, D, cfg.d_ff, cfg.pdtype)
     return p
 
 
-def param_specs(tree):
+def param_specs(tree, name: str | None = None):
     """The logical spec of every leaf of a parameter tree, in a tree of the
     same structure (:func:`leaf_spec`: by name within its dict's kind, a
     leaf not named whole on every rank)."""
     if isinstance(tree, dict):
-        return {k: param_specs(v) if isinstance(v, (dict, list)) else leaf_spec(tree, k, v)
-                for k, v in tree.items()}
+        return {k: param_specs(v, k) if isinstance(v, (dict, list)) else
+                leaf_spec(tree, k, v, name) for k, v in tree.items()}
     return [param_specs(v) for v in tree]
 
 
-def shard_params(tree, ctx: ParallelContext | None, training: bool = False):
-    """A parameter tree (or a part of one) sliced to this rank's shards by
-    :func:`leaf_spec`: the tp dims over the tp ranks, and with ``training``
-    the ``"fsdp"`` dims over the data ranks (the train state's placement;
-    serving keeps them whole).  The tree itself where nothing splits."""
+def shard_params(tree, ctx: ParallelContext | None, training: bool = False,
+                 name: str | None = None):
+    """A parameter tree (or a part of one, held under ``name``) sliced to
+    this rank's shards by :func:`leaf_spec`: the tp dims over the tp ranks,
+    and with ``training`` the ``"fsdp"`` dims over the data ranks (the train
+    state's placement; serving keeps them whole).  The tree itself where
+    nothing splits."""
     if ctx is None or (ctx.tp == 1 and (not training or getattr(ctx, "dp", 1) == 1)):
         return tree
-    return {k: shard_params(v, ctx, training) if isinstance(v, dict) else
-            shard_leaf(v, leaf_spec(tree, k, v), ctx, training)
+    return {k: shard_params(v, ctx, training, k) if isinstance(v, dict) else
+            shard_leaf(v, leaf_spec(tree, k, v, name), ctx, training)
             for k, v in tree.items()}
 
 
 def transformer_init(gen: torch.Generator, cfg: TransformerConfig,
                      ctx: ParallelContext | None = None, training: bool = False):
     """Random parameters on ``gen``'s device: {"embed": {"table"},
-    "final_norm", "layers": [per-layer dict, ...]}.
+    "final_norm", "layers": [per-layer dict, ...]}, and with
+    ``dense_prefix`` k the first k layers (dense FFN) in ``"prefix"``, drawn
+    after the others as the reference draws them.
 
     With a ``ctx`` of more than one rank each part is drawn whole, in the
     order one rank draws it, and only this rank's shard kept
@@ -228,21 +269,38 @@ def transformer_init(gen: torch.Generator, cfg: TransformerConfig,
     tp = 1 if ctx is None else ctx.tp
     check_supported(cfg, tp)
     shard = lambda tree: shard_params(tree, ctx, training)
-    return {
+    params = {
         "embed": shard(embedding_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype)),
         "final_norm": rms_norm_init(cfg.d_model, gen.device, zero=cfg.norm_plus_one),
-        "layers": [shard(_layer_init(gen, cfg)) for _ in range(cfg.n_layers)],
+        "layers": [shard(_layer_init(gen, cfg))
+                   for _ in range(cfg.n_layers - cfg.dense_prefix)],
     }
+    if cfg.dense_prefix:
+        params["prefix"] = [shard(_layer_init(gen, cfg, dense=True))
+                            for _ in range(cfg.dense_prefix)]
+    return params
 
 
-def gather_layer(ctx: ParallelContext, lp):
+def decoder_layers(params, cfg: TransformerConfig):
+    """Yield (layer dict, window) for every layer in the order they run: the
+    dense prefix (the reference's ``layer_window(0)``), then
+    ``params["layers"]``; the i-th is the cache's layer i.  One layer at a
+    time: ``params["layers"]`` may be any iterable of layer dicts, one that
+    frees a layer when the next is asked for too."""
+    for lp in params.get("prefix", []):
+        yield lp, cfg.layer_window(0)
+    for i, lp in enumerate(params["layers"]):
+        yield lp, cfg.layer_window(i)
+
+
+def gather_layer(ctx: ParallelContext, lp, name: str | None = None):
     """A layer's training shards with every fsdp-split weight made whole over
     the data ranks (``collectives.fsdp_gather``): the one place a layer
     gathers, at its start.  The layer dict itself at dp = 1."""
     if ctx.dp == 1:
         return lp
-    return {k: gather_layer(ctx, v) if isinstance(v, dict) else
-            fsdp_gather(ctx, v, leaf_spec(lp, k, v))
+    return {k: gather_layer(ctx, v, k) if isinstance(v, dict) else
+            fsdp_gather(ctx, v, leaf_spec(lp, k, v, name))
             for k, v in lp.items()}
 
 
@@ -252,6 +310,9 @@ def gather_layer(ctx: ParallelContext, lp):
 def _attn_train(ctx, cfg: TransformerConfig, lp, x, positions, window, collect_kv=False):
     B, S, D = x.shape
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    if cfg.attn_type == "mla":
+        out, (c, kr) = mla_context_attention(ctx, lp["attn"], cfg.mla, h)
+        return out, ({"c": c, "kr": kr} if collect_kv else None)
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     qkv = h @ lp["attn"]["w_qkv"]
     q, k, v = torch.split(qkv, [Hq * hd, Hkv * hd, Hkv * hd], dim=-1)
@@ -273,7 +334,7 @@ def _layer_train(ctx, cfg: TransformerConfig, lp, x, positions, window, collect_
         a = rms_norm(a, lp["post_ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    if cfg.moe is not None:
+    if "router" in lp["ffn"]:
         f = moe_apply(ctx, lp["ffn"], h, cfg.moe, seq_sharded=True)
     else:
         f = mlp_apply(ctx, lp["ffn"], h, act=cfg.act, seq_sharded=True)
@@ -327,7 +388,7 @@ def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
     ``jax.checkpoint`` does; the group's mode and overlap decisions are
     pinned at its first forward (``degrade.pinned``), so that the recompute
     posts the same sends and receives on every rank."""
-    check_supported(cfg, ctx.tp)
+    check_trainable(cfg, ctx.tp)
     tokens = batch["tokens"]
     (B, S), n, fsdp = tokens.shape, ctx.tp, ctx.dp > 1
     if S % n:
@@ -371,7 +432,8 @@ def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch)
     """Inference prefill: forward over the prompt {"tokens": [B, S]} (every
     rank the whole prompt), returning last-position logits [B, 1, V] f32,
     the same on every rank, and this rank's chunk of the cache {"k", "v"},
-    each [L, B, S / tp, Hkv, hd] at the compute dtype (at dp > 1 where dp
+    each [L, B, S / tp, Hkv, hd] at the compute dtype (MLA's {"c", "kr"},
+    [L, B, S / tp, kv_lora] and [L, B, S / tp, rope]; at dp > 1 where dp
     divides B, this replica's ``B / dp`` rows of it; the logits are gathered
     over data).  S must be a multiple of tp (the reference's ``s_loc = S //
     n``)."""
@@ -385,13 +447,13 @@ def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch)
                          f"over the ranks: S must be a multiple of tp")
     x = _embed_inputs(ctx, params, cfg, batch)
     positions = _positions_for(S, tokens.device, ctx)
-    ks, vs = [], []
-    for i, lp in enumerate(params["layers"]):
-        x, kv = _layer_train(ctx, cfg, lp, x, positions, cfg.layer_window(i), collect_kv=True)
-        ks.append(kv["k"])
-        vs.append(kv["v"])
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    del ks, vs
+    parts: dict[str, list] = {}
+    for lp, window in decoder_layers(params, cfg):
+        x, kv = _layer_train(ctx, cfg, lp, x, positions, window, collect_kv=True)
+        for k_, v_ in kv.items():
+            parts.setdefault(k_, []).append(v_)
+    cache = {k_: torch.stack(v_) for k_, v_ in parts.items()}
+    del parts
     # position S - 1 is the last row of rank tp - 1's chunk
     x = broadcast(ctx, x[:, -1:].contiguous(), n - 1)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
@@ -411,14 +473,19 @@ def _gathered_logits(ctx, logits, split: bool):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: TransformerConfig, batch_size: int, device, tp: int = 1, dp: int = 1):
     """Zeroed decode caches {"k", "v"}: [L, B, S_max / tp, Hkv, hd] each, a
-    rank's rows of the sequence-sharded cache; at dp > 1 where dp divides B
-    a replica's ``B / dp`` of its rows (``data.pipeline.batch_rows``)."""
+    rank's rows of the sequence-sharded cache (MLA's latents {"c", "kr"}:
+    [L, B, S_max / tp, kv_lora] and [L, B, S_max / tp, rope]); at dp > 1
+    where dp divides B a replica's ``B / dp`` of its rows
+    (``data.pipeline.batch_rows``).  L counts every layer, the dense prefix
+    first."""
     check_supported(cfg, tp)
     if dp > 1 and batch_size % dp == 0:
         batch_size //= dp
-    shape = (cfg.n_layers, batch_size, cfg.max_seq // tp, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+    lead = (cfg.n_layers, batch_size, cfg.max_seq // tp)
+    zeros = lambda *rest: torch.zeros(lead + rest, dtype=cfg.cdtype, device=device)
+    if cfg.attn_type == "mla":
+        return {"c": zeros(cfg.mla.kv_lora_rank), "kr": zeros(cfg.mla.qk_rope_dim)}
+    return {"k": zeros(cfg.n_kv_heads, cfg.hd), "v": zeros(cfg.n_kv_heads, cfg.hd)}
 
 
 def _apply_rope_any(cfg, x, positions):
@@ -427,10 +494,18 @@ def _apply_rope_any(cfg, x, positions):
     return apply_rope(x, positions, theta=cfg.rope_theta)
 
 
-def _attn_decode(ctx, cfg: TransformerConfig, lp, x, k_cache, v_cache, pos, window):
-    """One decode-attention step; ``pos`` is the per-slot position [B]."""
+def _attn_decode(ctx, cfg: TransformerConfig, lp, x, layer_cache, pos, window):
+    """One decode-attention step on a layer's cache ({"k", "v"} or MLA's
+    {"c", "kr"}, each updated in place); ``pos`` is the per-slot position
+    [B]."""
     B = x.shape[0]
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    if cfg.attn_type == "mla":
+        c_new, kr_new = mla_latents_for_cache(lp["attn"], cfg.mla, h, pos[:, None])
+        cache_update(ctx, layer_cache["c"], c_new, pos)
+        cache_update(ctx, layer_cache["kr"], kr_new, pos)
+        return mla_decode_attention(ctx, lp["attn"], cfg.mla, h, layer_cache["c"],
+                                    layer_cache["kr"], pos)
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     qkv = h @ lp["attn"]["w_qkv"]
     q, k, v = torch.split(qkv, [Hq * hd, Hkv * hd, Hkv * hd], dim=-1)
@@ -440,20 +515,20 @@ def _attn_decode(ctx, cfg: TransformerConfig, lp, x, k_cache, v_cache, pos, wind
     positions = pos[:, None]                         # [B, 1] per-slot
     q = _apply_rope_any(cfg, q, positions)
     k = _apply_rope_any(cfg, k, positions)
-    cache_update(ctx, k_cache, k, pos)
-    cache_update(ctx, v_cache, v, pos)
-    o = decode_attention(ctx, q, k_cache, v_cache, pos, window=window,
+    cache_update(ctx, layer_cache["k"], k, pos)
+    cache_update(ctx, layer_cache["v"], v, pos)
+    o = decode_attention(ctx, q, layer_cache["k"], layer_cache["v"], pos, window=window,
                          scale=cfg.query_scale, softcap_val=cfg.attn_softcap)
     return o.reshape(B, 1, Hq * hd) @ lp["attn"]["w_o"]
 
 
-def _layer_decode(ctx, cfg, lp, x, k_cache, v_cache, pos, window, rows_split=False):
-    a = _attn_decode(ctx, cfg, lp, x, k_cache, v_cache, pos, window)
+def _layer_decode(ctx, cfg, lp, x, layer_cache, pos, window, rows_split=False):
+    a = _attn_decode(ctx, cfg, lp, x, layer_cache, pos, window)
     if cfg.post_norms:
         a = rms_norm(a, lp["post_ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    if cfg.moe is not None:
+    if "router" in lp["ffn"]:
         # rows replicated over the tp ranks: decode EP at tp > 1
         f = moe_apply(ctx, lp["ffn"], h, cfg.moe, seq_sharded=False, rows_split=rows_split)
     else:
@@ -479,9 +554,9 @@ def decode_step(ctx: ParallelContext, params, cfg: TransformerConfig,
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
     x = embedding_lookup(ctx, params["embed"], tokens, seq_shard=False,
                          scale=scale).to(cfg.cdtype)
-    for i, lp in enumerate(params["layers"]):
-        x = _layer_decode(ctx, cfg, lp, x, cache["k"][i], cache["v"][i], pos,
-                          cfg.layer_window(i), rows is not None)
+    for i, (lp, window) in enumerate(decoder_layers(params, cfg)):
+        x = _layer_decode(ctx, cfg, lp, x, {k_: v_[i] for k_, v_ in cache.items()}, pos,
+                          window, rows is not None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     return _gathered_logits(ctx, _lm_logits(params, cfg, x), rows is not None), cache
 
@@ -509,12 +584,11 @@ def init_paged_pool(cfg: TransformerConfig, num_blocks: int, block_size: int, de
     block of each layer, that dropped writes land in
     (``models/attention.paged_cache_update``).  Blocks map to requests
     through host-side block tables (``serve/kv_cache.py``).  GQA only: MLA
-    keeps the dense latent cache (the registry gates on
-    ``supports_paged``)."""
+    keeps the dense latent cache, as in the reference (the registry gates
+    on ``supports_paged``)."""
     check_supported(cfg, tp)
     if cfg.attn_type != "gqa":
-        raise NotImplementedError(
-            f"paged KV requires attn_type='gqa' ({cfg.name} is {cfg.attn_type})")
+        raise NotImplementedError(f"{_PAGED_MLA} ({cfg.name} is {cfg.attn_type})")
     if num_blocks % tp:
         raise ValueError(f"{num_blocks} pool blocks do not stripe over tp={tp}")
     shape = (cfg.n_layers, num_blocks // tp + 1, block_size, cfg.n_kv_heads, cfg.hd)
@@ -557,7 +631,7 @@ def _layer_serve(ctx, cfg, lp, x, k_pool, v_pool, tables, positions, valid, wind
         a = rms_norm(a, lp["post_ln1"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    if cfg.moe is not None and "router" in lp["ffn"]:
+    if "router" in lp["ffn"]:
         f = moe_apply(ctx, lp["ffn"], h, cfg.moe, seq_sharded=False)
     else:
         f = mlp_apply(ctx, lp["ffn"], h, act=cfg.act, seq_sharded=False)
@@ -583,6 +657,8 @@ def serve_step(ctx: ParallelContext, params, cfg: TransformerConfig,
     pool of its own, as the reference replicates both over data.  A MoE
     model at tp > 1 raises (``_PAGED_MOE_ITEM``)."""
     check_supported(cfg, ctx.tp)
+    if cfg.attn_type != "gqa":
+        raise NotImplementedError(f"{_PAGED_MLA} ({cfg.name} is {cfg.attn_type})")
     if cfg.moe is not None and ctx.tp > 1:
         raise NotImplementedError(f"{cfg.name} at tp={ctx.tp}: {_PAGED_MOE_ITEM}")
     B, C = tokens.shape
@@ -595,9 +671,9 @@ def serve_step(ctx: ParallelContext, params, cfg: TransformerConfig,
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
     x = embedding_lookup(ctx, params["embed"], tokens, seq_shard=False,
                          scale=scale).to(cfg.cdtype)
-    for i, lp in enumerate(params["layers"]):
+    for i, (lp, window) in enumerate(decoder_layers(params, cfg)):
         x = _layer_serve(ctx, cfg, lp, x, pool["k"][i], pool["v"][i], tables, positions,
-                         valid, cfg.layer_window(i))
+                         valid, window)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
     idx = (n_new.long() - 1).clamp(0, C - 1)
     x_last = torch.take_along_dim(x, idx[:, None, None], dim=1)      # [B, 1, D]

@@ -177,7 +177,10 @@ class DecodeEngine(_EngineBase):
                  bos_id: int = 0, max_seq: int | None = None,
                  time_fn: Callable[[], float] = time.monotonic):
         """decode_fn(tokens [B,1], cache, pos [B]) -> (logits [B,1,V], cache),
-        on tensors on ``device``; init_cache_fn(batch_size) -> cache.
+        on tensors on ``device``; init_cache_fn(batch_size) -> cache.  The
+        engine never looks inside the cache: a GQA model's {"k", "v"} and
+        MLA's latents {"c", "kr"} (deepseek-v3) pass through it alike, from
+        a reshard's fresh cache through every admission.
 
         ``bos_id`` seeds the first decode step for empty-prompt requests.
         ``max_seq`` is the cache bound: a slot reaching it retires its

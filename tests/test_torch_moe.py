@@ -374,25 +374,21 @@ def test_moe_auto_choices_match_jax(rng, monkeypatch):
     np.testing.assert_allclose(got.numpy(), want, **TOL["f32"])
 
 
-@pytest.mark.parametrize("what", ["shared", "fused", "aux_loss", "decode_ep", "staged"])
+@pytest.mark.parametrize("what", ["fused", "aux_loss", "decode_ep", "staged"])
 def test_moe_unported_paths_raise(rng, what):
-    """What is left of the layer's unported paths: shared experts (with
-    MLA, ROADMAP item 7) and the reference's staged kernel path (an
-    artefact of its interpreter) raise, naming ROADMAP; fused mode, decode
-    EP (at one rank all the experts are its own) and the load-balance loss
-    run and give the JAX package's values."""
+    """What is left of the layer's unported paths: the reference's staged
+    kernel path (an artefact of its interpreter) raises, naming ROADMAP;
+    fused mode, decode EP (at one rank all the experts are its own) and the
+    load-balance loss run and give the JAX package's values.  (Shared
+    experts run since deepseek-v3's slice: tests/test_torch_mla.py.)"""
     cfg_kw = dict(n_experts=4, top_k=2, d_model=16, d_ff=8)
     p, x = _moe_case(rng, cfg_kw)
     params, cfg, ctx = {k: t(v) for k, v in p.items()}, moe.MoEConfig(**cfg_kw), CPU["kernel"]
     jc = JaxContext.from_mesh(make_mesh((1, 1), ("data", "model")), JaxFusion(mode="bulk"))
     want = np.asarray(jmoe.moe_apply(jc, p, x, jmoe.MoEConfig(**cfg_kw)))
-    if what in ("shared", "staged"):
+    if what == "staged":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            if what == "shared":
-                moe.moe_init(torch.Generator(), dataclasses.replace(cfg, n_shared_experts=1),
-                             torch.float32)
-            else:
-                moe._moe_kernel_staged(ctx, params, t(x), cfg)
+            moe._moe_kernel_staged(ctx, params, t(x), cfg)
     elif what == "fused":
         got = moe.moe_apply(ctx, params, t(x), cfg, mode="fused")
         np.testing.assert_allclose(got.numpy(), want, **TOL["f32"])

@@ -298,14 +298,18 @@ def test_unported_paged_paths_raise(glm):
     # pool_logical_specs is ported (the reference's [L, blocks over tp, ...])
     assert pb.pool_specs(pb.init_paged_pool(4, BS, "cpu")) == {
         k: (None, "seq", None, None, None) for k in ("k", "v")}
-    # serve_with_chaos is ported (tests/test_torch_runtime_world.py); the
-    # other model families are not
-    for name, cfg_kw in (("deepseek-v3", dict(dense_prefix=1)), ("mla", dict(attn_type="mla"))):
-        cfg = transformer.TransformerConfig(name=name, n_layers=2, d_model=64, n_heads=4,
-                                            n_kv_heads=4, d_ff=128, vocab=64, **cfg_kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            transformer.init_paged_pool(cfg, 4, BS, "cpu")
+    # serve_with_chaos is ported (tests/test_torch_runtime_world.py); a GQA
+    # pool with dense-prefix layers holds all of them, as the reference's
+    # does; MLA keeps its dense latent cache, as the reference refuses it a
+    # pool; the recurrent families and DLRM have none
+    cfg = transformer.TransformerConfig(name="gqa-prefix", n_layers=2, d_model=64, n_heads=4,
+                                        n_kv_heads=4, d_ff=128, vocab=64, dense_prefix=1)
+    assert transformer.init_paged_pool(cfg, 4, BS, "cpu")["k"].shape[0] == 2
+    mla = get_arch("deepseek-v3-671b").reduced()
+    with pytest.raises(NotImplementedError, match="dense latent cache"):
+        transformer.init_paged_pool(mla.config, 4, BS, "cpu")
     assert pb.supports_paged and get_arch("dbrx-132b").supports_paged
+    assert not mla.supports_paged
     assert not get_arch("rwkv6-7b").supports_paged and not get_arch("dlrm").supports_paged
 
 

@@ -281,7 +281,7 @@ def test_launcher_autotune_flags(tmp_path, capsys, flag):
     (["--arch", "zamba2-7b"], "item 7"), (["--arch", "qwen2-vl-2b"], "item 7"),
     (["--production-mesh"], "item 1"),
     (["--arch", "rwkv6-7b"], "item 7"),
-    (["--arch", "deepseek-v3-671b"], "item 5"),
+    (["--arch", "deepseek-v3-671b"], "item 7"),
 ])
 def test_launcher_refuses_later_slices(argv, match):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {match}"):

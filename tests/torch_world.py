@@ -304,7 +304,8 @@ def decode_attention_task(ctx, q, k, v, pos, window=None, softcap=None):
 @task
 def decode_steps_task(ctx, tree, mode, tokens, positions, q=1, wire="f32", arch="chatglm3-6b"):
     """The reduced ``arch`` from the JAX package's weights (numpy), its
-    decode steps on the given tokens; each step's logits and the cache."""
+    decode steps on the given tokens; each step's logits and the cache's
+    tensors ({"k", "v"}, or MLA's {"c", "kr"})."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.convert import params_from_numpy
 
@@ -317,7 +318,7 @@ def decode_steps_task(ctx, tree, mode, tokens, positions, q=1, wire="f32", arch=
     for tok, pos in zip(tokens, positions):
         lg, cache = dec(params, t(tok), cache, t(pos))
         logits.append(lg.numpy())
-    return np.stack(logits), cache["k"].numpy(), cache["v"].numpy()
+    return (np.stack(logits), *(v.numpy() for v in cache.values()))
 
 
 @task
@@ -354,6 +355,15 @@ def refusal_task(ctx, what):
             tok = torch.zeros(1, 8, dtype=torch.long)
             b.loss_fn(ctx("kernel"))(b.init_params(torch.Generator(), ctx()),
                                      {"tokens": tok, "labels": tok})
+        elif what in ("mla_prefill", "mla_decode"):   # deepseek-v3 in kernel mode
+            b = get_arch("deepseek-v3-671b").reduced()
+            p = b.init_params(torch.Generator(), ctx())
+            if what == "mla_prefill":
+                b.prefill_fn(ctx("kernel"))(p, {"tokens": torch.zeros(1, 8, dtype=torch.long)})
+            else:
+                b.decode_fn(ctx("kernel"))(p, torch.zeros(2, 1, dtype=torch.long),
+                                           b.init_cache(2, "cpu", ctx().tp),
+                                           torch.zeros(2, dtype=torch.int32))
         elif what == "moe_prefill":
             b = get_arch("dbrx-132b").reduced()
             b.prefill_fn(ctx("kernel"))(b.init_params(torch.Generator(), ctx()),
@@ -453,14 +463,14 @@ def embedding_seq_task(ctx, table, tokens, schedule, scale=None):
 def prefill_task(ctx, tree, tokens, mode, arch="chatglm3-6b", q=1, wire="f32"):
     """The reduced ``arch`` from the JAX package's weights (numpy): its
     prefill of the tokens through ``prefill_fn``; the logits and this
-    rank's chunk of the cache."""
+    rank's chunk of the cache ({"k", "v"}, or MLA's {"c", "kr"})."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.convert import params_from_numpy
 
     c = ctx(mode, granularity=q, wire=wire)
     logits, cache = get_arch(arch).reduced().prefill_fn(c)(params_from_numpy(tree, "cpu", c),
                                                            {"tokens": t(tokens)})
-    return logits.numpy(), cache["k"].numpy(), cache["v"].numpy()
+    return (logits.numpy(), *(v.numpy() for v in cache.values()))
 
 
 @task
@@ -895,7 +905,8 @@ def _rows(a, c, axis=0):
 def moe_layer_task(ctx, params, x, cfg, mode, seq_sharded=True, q=1, wire="f32", skews=(0,),
                    co=None):
     """``moe_apply`` on this rank's experts (block tp_rank of the whole
-    [E, ...] leaves) and its part of x [B, S, D]: its replica's rows, and
+    [E, ...] leaves; a shared expert whole) and its part of x [B, S, D]: its
+    replica's rows, and
     with ``seq_sharded`` its tp block of S (else all of S, replicated).
     One output per skew; with a cotangent ``co`` (x's shape) also, per
     skew, the gradients of sum(y * co): x's part, then the router's (summed
@@ -910,7 +921,8 @@ def moe_layer_task(ctx, params, x, cfg, mode, seq_sharded=True, q=1, wire="f32",
     outs, grads = [], []
     for skew in skews:
         c = ctx(mode, granularity=q, wire=wire, skew=skew)
-        p = {k: (t(v) if k == "router" else _block(v, c, 0)) for k, v in params.items()}
+        p = {k: (t(v) if k == "router" else {n: t(w) for n, w in v.items()} if k == "shared"
+                 else _block(v, c, 0)) for k, v in params.items()}
         xl = t(_rows(x, c))
         if seq_sharded:
             xl = _block(xl.numpy(), c, 1)
@@ -1316,3 +1328,35 @@ def serve_chaos_task(ctx, tree, requests, max_new, plan):
     n = cur["ctx"]
     got = None if stats["left"] else sorted((r.uid, r.tokens) for r in fin)
     return sorted((r.uid, r.tokens) for r in clean), got, stats, (n.dp, n.tp, n.ranks)
+
+
+# ---------------------------------------------------------------------------
+# MLA over the world (deepseek-v3)
+# ---------------------------------------------------------------------------
+@task
+def mla_attention_task(ctx, params, cfg, x, mode, x_dec, c_cache, kr_cache, pos):
+    """``mla_context_attention`` on this rank's part of x [B, S, D] (its
+    replica's rows, its tp block of S): the output, the latents and the
+    shapes of the ring's payloads (a list per send); then
+    ``mla_decode_attention`` of x_dec [B, 1, D] (the replica's rows) over
+    this rank's rows of the caches [B, S_max, ...]."""
+    from repro_torch.models import mla
+
+    c = ctx(mode)
+    mcfg = mla.MLAConfig(**cfg)
+    p = {k: t(v) for k, v in params.items()}
+    xl = _block(_rows(x, c), c, 1)
+    real, sent = mla.ring_permute_start, []
+
+    def counted(cc, payload, *a, **kw):
+        sent.append([tuple(v.shape) for v in payload])
+        return real(cc, payload, *a, **kw)
+    mla.ring_permute_start = counted
+    try:
+        out, (lat_c, lat_kr) = mla.mla_context_attention(c, p, mcfg, xl)
+    finally:
+        mla.ring_permute_start = real
+    dec = mla.mla_decode_attention(c, p, mcfg, t(_rows(x_dec, c)),
+                                   _block(_rows(c_cache, c), c, 1),
+                                   _block(_rows(kr_cache, c), c, 1), t(_rows(pos, c)))
+    return out.numpy(), lat_c.numpy(), lat_kr.numpy(), sent, dec.numpy()
