@@ -438,6 +438,33 @@ prints one line, and any failure exits non-zero:
      mode's einsums and its bound counted on what the buffer needs; the
      dispatch at both; the fused GEMV against torch.matmul; MLA's plain
      prefill attention a layer
+ 59. zamba2-7b at its published widths and full depth (81 Mamba-2 blocks:
+     13 groups of 6 with the shared attention block after each, and a tail
+     of 3; 13.95 GB bf16), kernel mode against bulk mode: (a) the serve
+     launcher in this process at --arch zamba2-7b --batch 4, 8 requests,
+     so every slot is reused once: 94 stream-path fused GEMV launches a
+     step (81 Mamba w_out, 13 shared-MLP downs), no flash; the second
+     wave's streams a fresh engine's on those requests (the reused slots'
+     states zeroed); (b) the flash kernel at head size 224 against its
+     plain version (zamba2's prefill shape [4,2048,32,224] bf16 causal, f32,
+     a ragged Sk at an offset with statistics, non-causal, odd S), and the
+     fused GEMV at zamba2's three shapes ([4,7168]@[7168,3584] and
+     [4,14336]@[14336,7168] on the stream path, [8192,7168]@[7168,3584] on
+     the tile path); (c) a prefill of 4 x 2048 (81 tile-path fused GEMV and
+     13 flash launches on the CUDA-core path; each flash output against
+     plain on its input) in kernel and bulk mode against an exact f32
+     evaluation (groups upcast one at a time): logits, SSM and conv states,
+     k and v; (d) 8 greedy decode steps from its state (k and v in rows
+     [0, 2048) of init_cache's buffers), bulk and exact f32 teacher-forced
+     on the kernel run's tokens, logits and final states held the same
+     way; the hand-off: a 64-token prefill against a 56-token prefill and
+     8 decode steps
+ 60. times from CUDA events on phase 59's weights: a prefill and a decode
+     step in both modes with the device's busy share and top device ops;
+     the flash kernel at [4,2048,32,224] against
+     F.scaled_dot_product_attention, its plain version and its bound; the
+     fused GEMV at zamba2's three shapes against torch.matmul, the plain
+     version and the bound
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
@@ -456,8 +483,9 @@ the dbrx phases, after phase 10, on phase 9's weights; phases 46-51 run
 last, in the order 46, 47, 50, 48, 49, 51, each drawing its own weights
 (phase 47's, 48's and 50's in processes of their own); phases 52-54 run
 after them, each drawing its own weights; phases 55-56 after those, their
-workers in processes of their own; phases 57-58 last, the launcher's
-weights drawn and freed before the phase draws its own.  Phase 29 runs after
+workers in processes of their own; phases 57-58 after those, the launcher's
+weights drawn and freed before the phase draws its own; phases 59-60 last,
+the same way.  Phase 29 runs after
 phase 35: its world starts one pool of 4 rank processes (spawn_world) that
 the worlds of phases 36-47 and 50 reuse, each opening and closing its own
 process group; the pool ends after phase 50.
@@ -1153,6 +1181,11 @@ def main() -> int:
     # the three kernels on deepseek-v3's path gain their numbers at its
     # shapes (phases 57-58)
     for name, extra in deepseek_phases(card).items():
+        next(k_ for k_ in kernels if k_["name"] == name).update(extra)
+    torch.cuda.empty_cache()
+    # the flash and fused rows gain their numbers at zamba2-7b's shapes
+    # (phases 59-60)
+    for name, extra in zamba2_phases(card).items():
         next(k_ for k_ in kernels if k_["name"] == name).update(extra)
     say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
@@ -8643,6 +8676,398 @@ def deepseek_phases(card) -> dict:
             "deepseek_ms": min(gemv_t["kernel"]),
             "deepseek_plain_ms": gemv_plain, "deepseek_bound_ms": gemv_bound,
             "deepseek_library_ms": min(gemv_t["matmul"]), "deepseek_max_abs_err": gemv_err[0]},
+    }
+
+
+# zamba2-7b (phases 59-60): its published widths at full depth, 81 Mamba-2
+# blocks (6.98 G parameters, 13.95 GB bf16; the dense cache at batch 4 and
+# max_seq 4096 6.7 GB): no cut.  A prefill of 4 x 2048 (the flash kernel's
+# main shape at head size 224: [4, 2048, 32, 224]), 8 greedy decode steps
+# from it, the hand-off at 64 tokens (56 prefilled, 8 decoded: a prompt
+# longer than the SSD chunk of 64 must be a multiple of it), and the serve
+# launcher's drain of 8 requests x 8 tokens at batch 4
+ZAMBA_B, ZAMBA_S, ZAMBA_STEPS = 4, 2048, 8
+ZAMBA_REQ, ZAMBA_NEW = 8, 8
+ZAMBA_HANDOFF = 64
+
+
+def zamba2_decode_counts(steps, cfg):
+    """The launches of ``steps`` kernel-mode zamba2 decode steps: a
+    stream-path fused GEMV + AllReduce per Mamba block's w_out and per
+    group's shared-MLP down, no flash (decode attention is plain)."""
+    n = (cfg.n_layers + cfg.n_groups) * steps
+    return {"fused_matmul_allreduce": n, "fused_matmul_allreduce.stream": n}
+
+
+def zamba2_launcher_run() -> dict:
+    """Phase 59(a): the serve launcher in this process at --arch zamba2-7b
+    --batch ZAMBA_B --fusion kernel over ZAMBA_REQ requests, drawing its own
+    weights (freed when it returns); every launch counted on its path."""
+    import io
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve as launch_serve
+
+    argv = ["--arch", "zamba2-7b", "--batch", str(ZAMBA_B), "--requests", str(ZAMBA_REQ),
+            "--max-new", str(ZAMBA_NEW), "--fusion", "kernel"]
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        fin = launch_serve.main(argv)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    text = out.getvalue()
+    served = re.search(r"served (\d+) requests, (\d+) tokens in [\d.]+s \(([\d.]+) tok/s, "
+                       r"(\d+) steps, ([\d.]+) ms/step", text)
+    if served is None or int(served[1]) != ZAMBA_REQ or len(fin) != ZAMBA_REQ:
+        raise AssertionError(f"the launcher did not serve {ZAMBA_REQ} requests:\n{text}")
+    steps = int(served[4])
+    expect_counts("phase 59 launcher", counts,
+                  zamba2_decode_counts(steps, get_arch("zamba2-7b").config))
+    streams = {r.uid: (list(r.prompt), list(r.tokens)) for r in fin}
+    del fin
+    torch.cuda.empty_cache()
+    return {"argv": " ".join(argv), "steps": steps, "tok_s": float(served[3]),
+            "ms_step": float(served[5]), "wall": wall, "counts": counts, "streams": streams}
+
+
+def zamba2_exact_params(params):
+    """zamba2's parameters read in f32: the embedding and the shared block
+    upcast whole (2.6 GB), the groups and the tail one at a time as the
+    model's loops reach them (UpcastLayers)."""
+    return {"embed": {"table": params["embed"]["table"].float()},
+            "final_norm": params["final_norm"],
+            "shared": _map(params["shared"], lambda t: t.float()),
+            "groups": UpcastLayers(params["groups"]), "tail": UpcastLayers(params["tail"])}
+
+
+def zamba2_decode_cache(cache, cfg, rows):
+    """A decode cache of ``rows`` positions holding a prefill's ``cache``:
+    its SSM and conv states, its k and v in rows [0, S)."""
+    from repro_torch.models import zamba2 as zamba2_model
+
+    dc = zamba2_model.init_cache(dataclasses.replace(cfg, max_seq=rows),
+                                 cache["attn"]["k"].shape[1], "cuda")
+    for grp in ("mamba", "tail"):
+        for k_ in dc[grp]:
+            dc[grp][k_].copy_(cache[grp][k_])
+    for k_ in ("k", "v"):
+        dc["attn"][k_][:, :, :cache["attn"][k_].shape[2]] = cache["attn"][k_]
+    return dc
+
+
+def zamba2_leaves(cache, rows=None):
+    """A zamba2 cache's leaves by name (k and v cut to ``rows`` rows)."""
+    out = {f"{grp} {k_}": v_ for grp in ("mamba", "tail") for k_, v_ in cache[grp].items()}
+    out.update({f"attn {k_}": v_[:, :, :rows] for k_, v_ in cache["attn"].items()})
+    return out
+
+
+def zamba2_phases(card) -> dict:
+    """Phases 59-60: zamba2-7b at its published widths and full depth on one
+    card, kernel mode against bulk mode and an exact f32 evaluation.
+    Returns the flash and fused kernels' rows' numbers at zamba2's shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_attention_plain,
+                                                         flash_path)
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce, fused_path
+    from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
+    from repro_torch.models import attention
+    from repro_torch.models import mamba2 as mamba2_model
+    from repro_torch.models import zamba2 as zamba2_model
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # 59(a) -------------------------------------------------------------
+    lr = zamba2_launcher_run()
+    bundle = get_arch("zamba2-7b")
+    cfg = bundle.config
+    per_step = cfg.n_layers + cfg.n_groups
+    say(59, f"(a) on {card}: python -m repro_torch.launch.serve {lr['argv']} in this process: "
+            f"{ZAMBA_REQ} requests served, {lr['steps']} steps, {lr['ms_step']:.2f} ms/step, "
+            f"{lr['tok_s']:.1f} tok/s, {lr['wall']:.1f} s with its weights' draw; launches fused "
+            f"GEMV {lr['counts']['fused_matmul_allreduce']} (stream path "
+            f"{lr['counts']['fused_matmul_allreduce.stream']}: {per_step} a step), flash "
+            f"{lr['counts']['flash_attention']}")
+
+    # 59(b) -------------------------------------------------------------
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t_.numel() for t_ in _leaves(params))
+    n_bytes = sum(t_.numel() * t_.element_size() for t_ in _leaves(params))
+    ctx_k = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel"))
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    dec_k, dec_b = bundle.decode_fn(ctx_k), bundle.decode_fn(ctx_b)
+    # the second wave: the requests that took a reused slot, on a fresh
+    # engine (every slot new) with the same seed-0 weights
+    second = sorted(lr["streams"])[ZAMBA_B:]
+    eng = DecodeEngine(lambda tk, c, p: dec_k(params, tk, c, p),
+                       lambda b: bundle.init_cache(b, "cuda"), ZAMBA_B, device="cuda",
+                       max_seq=cfg.max_seq, reset_slot_fn=bundle.reset_slot_fn())
+    for u in second:
+        eng.submit(Request(uid=u, prompt=lr["streams"][u][0], max_new=ZAMBA_NEW))
+    fresh = {r.uid: r.tokens for r in eng.run_until_drained()}
+    del eng
+    torch.cuda.empty_cache()
+    if any(fresh[u] != lr["streams"][u][1] for u in second):
+        raise AssertionError(f"the launcher's reused slots {[lr['streams'][u][1] for u in second]}"
+                             f" differ from a fresh engine's {[fresh[u] for u in second]}")
+
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, S = ZAMBA_B, ZAMBA_S
+    flash_errs = {}
+    for name, b, sq, sk, delta, h, g_kv, dt, causal in (
+            ("main", B, S, S, 0, Hq, Hkv, bf16, True),
+            ("f32 S=300", 1, 300, 300, 0, 4, 4, f32, True),
+            ("f32 non-causal g=4 S=129", 2, 129, 129, 0, 8, 2, f32, False),
+            ("S=37", 2, 37, 37, 0, 4, 4, bf16, True), ("S=1", 2, 1, 1, 0, 4, 4, bf16, True),
+            ("ragged Sk=1000 delta=900 stats", 2, 100, 1000, 900, 4, 4, bf16, True),
+            ("f32 ragged Sk=1000 delta=900 stats", 2, 100, 1000, 900, 4, 2, f32, True)):
+        q = randn(gen, (b, sq, h, hd), dt)
+        k, v = randn(gen, (b, sk, g_kv, hd), dt), randn(gen, (b, sk, g_kv, hd), dt)
+        stats = sk != sq
+        want = flash_attention_plain(q, k, v, causal=causal, delta=delta, stats=stats)
+        got, took = on_path(flash_attention, lambda: flash_attention(
+            q, k, v, causal=causal, delta=delta, stats=stats))
+        if took != flash_path(dt, hd) or took != "cuda_core":
+            raise AssertionError(f"flash_attention d={hd} {name}: took the {took} path")
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        if stats:
+            flash_errs[name] = [check_close(f"flash d={hd} {name} {part}", g_, w_,
+                                            tol if part == "o" else F32_TOL)
+                                for part, g_, w_ in zip("oml", got, want)]
+        else:
+            flash_errs[name] = [check_close(f"flash d={hd} {name}", got, want, tol)]
+        del q, k, v, want, got
+    torch.cuda.empty_cache()
+    w_out = params["groups"][0]["mamba"][0]["m"]["w_out"]          # [7168, 3584]
+    w_mlp = params["shared"]["mlp"]["w_down"]                       # [14336, 7168]
+    gemv_shapes = {"w_out decode": (B, w_out), "w_out prefill": (B * S, w_out),
+                   "shared MLP down decode": (B, w_mlp)}
+    gemv = {}
+    for name, (rows, w_) in gemv_shapes.items():
+        x_ = randn(gen, (rows, w_.shape[0]), bf16)
+        want_path = "tile" if rows > B else "stream"
+        got, took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(x_, w_))
+        if took != want_path or took != fused_path(bf16, rows, *w_.shape):
+            raise AssertionError(f"fused_matmul_allreduce zamba2 {name}: took the {took} path")
+        gemv[name] = dict(x=x_, w=w_, path=took, err=check_close(
+            f"fused_matmul_allreduce zamba2 {name}", got, fused_matmul_allreduce_ref(x_, w_),
+            BF16_TOL))
+        del got
+    say(59, f"(b) zamba2-7b full width and depth ({cfg.n_layers} Mamba-2 blocks: {cfg.n_groups} "
+            f"groups of {cfg.attn_every} + {cfg.n_tail}, d{cfg.d_model}, {cfg.mamba.n_heads} SSM "
+            f"heads of {cfg.mamba.head_dim}, state {cfg.d_state}; shared attention {Hq}/{Hkv} "
+            f"heads of {hd} on {cfg.d_attn}, LoRA {cfg.lora_r}, d_ff {cfg.d_ff}; "
+            f"{n_params / 1e9:.3f}B params, {n_bytes / 1e9:.2f} GB {cfg.param_dtype}, init "
+            f"{init_s:.1f}s); the launcher's reused slots ({second}) equal a fresh engine's "
+            f"streams: {[fresh[u] for u in second]}; flash_attention at d={hd} vs plain on the "
+            f"cuda_core path (bound: bf16 {BF16_TOL}, f32 {F32_TOL}; m and l {F32_TOL}), max "
+            f"abs/rel err: " + "; ".join(f"{n_} " + ", ".join(f"{e[0]:.3g}/{e[1]:.3g}" for e in es)
+                                        for n_, es in flash_errs.items())
+            + f" (main [{B},{S},{Hq},{hd}] over {Hkv} kv heads bf16 causal; stats: o, m, l); "
+            f"fused_matmul_allreduce vs plain (bound {BF16_TOL}): "
+            + "; ".join(f"{n_} [{g_['x'].shape[0]},{g_['w'].shape[0]}]@{list(g_['w'].shape)} "
+                        f"{g_['path']} path {g_['err'][0]:.3g}/{g_['err'][1]:.3g}"
+                        for n_, g_ in gemv.items()))
+
+    # 59(c) -------------------------------------------------------------
+    tokens = torch.randint(0, cfg.vocab, (B, S + ZAMBA_STEPS), device="cuda", generator=gen)
+    batch = {"tokens": tokens[:, :S]}
+    pre_k, pre_b = bundle.prefill_fn(ctx_k), bundle.prefill_fn(ctx_b)
+    cfg_x = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    params_x = zamba2_exact_params(params)
+    pre_x = lambda b_: zamba2_model.prefill_forward(ctx_b, params_x, cfg_x, b_)
+    layer_errs = []
+
+    def spy(q, k, v, **kw):
+        """The kernel, then its plain version on the identical input."""
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, scale=kw["scale"], causal=kw["causal"])
+        layer_errs.append(check_close(f"prefill group {len(layer_errs)} flash", got, want,
+                                      BF16_TOL)[0])
+        return got
+
+    torch.cuda.reset_peak_memory_stats()
+    pre_want = {"fused_matmul_allreduce": cfg.n_layers,
+                "fused_matmul_allreduce.tile": cfg.n_layers,
+                "flash_attention": cfg.n_groups, "flash_attention.cuda_core": cfg.n_groups}
+    with swapped(attention, "flash_attention", spy):
+        (lk, ck), pre_counts = counted_run(lambda: pre_k(params, batch), pre_want)
+    (lb, cb), _ = counted_run(lambda: pre_b(params, batch), {})
+    lx, cx = pre_x(batch)
+    peak_c = torch.cuda.max_memory_allocated() / 1e9
+    for lg in (lk, lb, lx):
+        if lg.shape != (B, 1, cfg.vocab) or not torch.isfinite(lg).all():
+            raise AssertionError(f"prefill logits: shape {tuple(lg.shape)} or non-finite")
+    leaves_k, leaves_b, leaves_x = zamba2_leaves(ck), zamba2_leaves(cb), zamba2_leaves(cx)
+    pre_txt = bounded_errors("prefill", {"logits": (lk, lb, lx), **{
+        k_: (leaves_k[k_], leaves_b[k_], leaves_x[k_]) for k_ in leaves_k}})
+    say(59, f"(c) prefill of {B}x{S} seeded tokens through prefill_fn: kernel mode launches "
+            f"fused GEMV {pre_counts['fused_matmul_allreduce']} (tile path "
+            f"{pre_counts['fused_matmul_allreduce.tile']}), flash {pre_counts['flash_attention']} "
+            f"(cuda_core path {pre_counts['flash_attention.cuda_core']}); bulk mode none; every "
+            f"group's flash output vs plain on its input: max abs err {max(layer_errs):.3g} over "
+            f"{len(layer_errs)} groups (bound {BF16_TOL}); kernel vs exact / bulk vs exact / "
+            f"kernel vs bulk max abs err (bound {LOGITS_TOL_FACTOR} x the second): {pre_txt}; "
+            f"peak {peak_c:.1f} GB")
+
+    # 59(d) -------------------------------------------------------------
+    rows_x = S + ZAMBA_STEPS
+    caches = {"kernel": zamba2_decode_cache(ck, cfg, cfg.max_seq)}
+    del ck, leaves_k
+    caches["bulk"] = zamba2_decode_cache(cb, cfg, cfg.max_seq)
+    del cb, leaves_b
+    caches["exact"] = zamba2_decode_cache(cx, cfg_x, rows_x)
+    del cx, leaves_x
+    torch.cuda.empty_cache()
+    tok, logits, log_k = lk.argmax(-1).to(torch.int32), {m_: [] for m_ in caches}, []
+    steps_tok = []
+    reset_counts()
+    for s_ in range(ZAMBA_STEPS):
+        pos = torch.full((B,), S + s_, dtype=torch.int32, device="cuda")
+        log_k.append((tok, pos))
+        gk, caches["kernel"] = dec_k(params, tok, caches["kernel"], pos)
+        logits["kernel"].append(gk)
+        tok = gk.argmax(-1).to(torch.int32)
+        steps_tok.append(tok[:, 0].tolist())
+    torch.cuda.synchronize()
+    expect_counts("phase 59 decode from the prefill", launch_counts(),
+                  zamba2_decode_counts(ZAMBA_STEPS, cfg))
+    for tok_, pos in log_k:                      # teacher-forced on the kernel run's tokens
+        gb, caches["bulk"] = dec_b(params, tok_, caches["bulk"], pos)
+        gx, caches["exact"] = zamba2_model.decode_step(ctx_b, params_x, cfg_x, tok_,
+                                                       caches["exact"], pos)
+        logits["bulk"].append(gb)
+        logits["exact"].append(gx)
+    cat = {m_: torch.cat(v_, dim=1) for m_, v_ in logits.items()}
+    if not torch.isfinite(cat["kernel"]).all():
+        raise AssertionError("decode from the prefill: non-finite logits")
+    fin = {m_: zamba2_leaves(c_, rows_x) for m_, c_ in caches.items()}
+    dec_txt = bounded_errors("decode", {"logits": (cat["kernel"], cat["bulk"], cat["exact"]), **{
+        k_: tuple(fin[m_][k_][:, :, S:] if k_.startswith("attn") else fin[m_][k_]
+                  for m_ in ("kernel", "bulk", "exact")) for k_ in fin["kernel"]}})
+    del caches, fin, logits, cat
+    torch.cuda.empty_cache()
+    # the hand-off: a prefill of ZAMBA_HANDOFF tokens against a prefill of 8
+    # fewer and 8 decode steps over the rest, in kernel mode
+    head = tokens[:, :ZAMBA_HANDOFF]
+    lp, cp = pre_k(params, {"tokens": head})
+    lpx, cpx = pre_x({"tokens": head})
+    cut = ZAMBA_HANDOFF - ZAMBA_STEPS
+    _, cs = pre_k(params, {"tokens": head[:, :cut]})
+    st = zamba2_decode_cache(cs, cfg, ZAMBA_HANDOFF)
+    for i in range(cut, ZAMBA_HANDOFF):
+        ld, st = dec_k(params, head[:, i:i + 1], st,
+                       torch.full((B,), i, dtype=torch.int32, device="cuda"))
+    handoff = []
+    got_l, pre_l, ex_l = zamba2_leaves(st), zamba2_leaves(cp), zamba2_leaves(cpx)
+    for key, got, pre, ex in (("logits", ld, lp, lpx),
+                              *((k_, got_l[k_], pre_l[k_], ex_l[k_]) for k_ in got_l)):
+        d_pd, d_px = errors(got, pre)[0], errors(pre, ex)[0]
+        if d_pd > LOGITS_TOL_FACTOR * d_px:
+            raise AssertionError(f"hand-off {key}: {cut} prefilled and {ZAMBA_STEPS} decoded are "
+                                 f"{d_pd:.3g} from a {ZAMBA_HANDOFF}-token prefill, above "
+                                 f"{LOGITS_TOL_FACTOR} x its distance {d_px:.3g} from exact f32")
+        handoff.append(f"{key} {d_pd:.3g} (bound {LOGITS_TOL_FACTOR * d_px:.3g})")
+    del st, cp, cpx, cs
+    say(59, f"(d) {ZAMBA_STEPS} greedy decode steps from position {S} (k and v in rows [0, {S}) "
+            f"of a {cfg.max_seq}-row cache): launches fused GEMV {ZAMBA_STEPS * per_step} "
+            f"(stream path, {per_step} a step), flash 0; bulk and exact f32 teacher-forced on the "
+            f"kernel run's tokens, max abs err kernel vs exact / bulk vs exact / kernel vs bulk "
+            f"(bound {LOGITS_TOL_FACTOR} x the second; k and v the decoded rows): {dec_txt}; "
+            f"tokens {steps_tok}; hand-off, kernel mode, {cut} prefilled + {ZAMBA_STEPS} decoded "
+            f"vs a {ZAMBA_HANDOFF}-token prefill, max abs err (bound {LOGITS_TOL_FACTOR} x the "
+            f"prefill's distance from exact f32): " + ", ".join(handoff))
+
+    # 60 ----------------------------------------------------------------
+    prof = {}
+    for mode, ctx in (("kernel", ctx_k), ("bulk", ctx_b)):
+        fn = bundle.prefill_fn(ctx)
+        prof[f"prefill {mode}"] = profile_device(lambda i: fn(params, batch), 1, "prefill")
+    for mode, dec in (("kernel", dec_k), ("bulk", dec_b)):
+        prof[f"decode {mode}"] = profile_decode(dec, params, bundle.init_cache(B, "cuda"),
+                                                log_k[:4])
+    torch.cuda.empty_cache()
+    # the SSD scan alone (plain PyTorch, as in the reference) at one block's
+    # prefill shape: a share of the prefill a kernel could take
+    mc_ = cfg.mamba
+    ssd_in = (randn(gen, (B, S, mc_.n_heads, mc_.head_dim), f32),
+              torch.rand((B, S, mc_.n_heads), generator=gen, device="cuda"),
+              torch.zeros(mc_.n_heads, device="cuda"),
+              randn(gen, (B, S, mc_.d_state), f32), randn(gen, (B, S, mc_.d_state), f32),
+              torch.zeros((B, mc_.n_heads, mc_.d_state, mc_.head_dim), device="cuda"))
+    ssd_ms = time_ms(lambda: mamba2_model.ssd_chunked(*ssd_in, mc_.chunk), iters=5, warmup=1)
+    del ssd_in
+    q = randn(gen, (B, S, Hq, hd), bf16)
+    k, v = randn(gen, (B, S, Hkv, hd), bf16), randn(gen, (B, S, Hkv, hd), bf16)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_err = check_close("flash d=224 vs SDPA", flash_attention(q, k, v),
+                           sdpa().transpose(1, 2), BF16_TOL)
+    fl_t = {"kernel": [], "sdpa": []}
+    for which in ("kernel", "sdpa", "sdpa", "kernel"):
+        fn = (lambda: flash_attention(q, k, v)) if which == "kernel" else sdpa
+        fl_t[which].append(time_ms(fn, iters=5 if which == "kernel" else 20, warmup=1))
+    fl_plain = time_ms(lambda: flash_attention_plain(q, k, v), iters=2, warmup=1)
+    fl_bound, fl_by, fl_bytes, fl_ops = flash_bound(B, S, Hq, Hkv, hd, 2)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    for name, g_ in gemv.items():
+        x_, w_ = g_["x"], g_["w"]
+        turns = {"kernel": [], "matmul": []}
+        iters = 200 if g_["path"] == "stream" else 20
+        for which in ("kernel", "matmul", "matmul", "kernel"):
+            fn = ((lambda: fused_matmul_allreduce(x_, w_)) if which == "kernel"
+                  else (lambda: torch.matmul(x_, w_)))
+            turns[which].append(time_ms(fn, iters=iters))
+        g_.update(turns=turns, plain=time_ms(lambda: fused_matmul_allreduce_ref(x_, w_),
+                                             iters=5 if g_["path"] == "tile" else 20))
+        g_["bound"], g_["by"] = bound_ms(x_.shape[0], *w_.shape, 2)
+    ms = lambda ts, f="{:.4f}": ", ".join(f.format(t_) for t_ in ts)
+    say(60, f"on {card}, CUDA events: prefill of {B}x{S} and decode steps (profiles): "
+            + "; ".join(f"{k_}: {v_}" for k_, v_ in prof.items())
+            + f"; the SSD scan (ssd_chunked, plain) at one block's [{B},{S},{mc_.n_heads},"
+            f"{mc_.head_dim}] state {mc_.d_state} chunk {mc_.chunk}: {ssd_ms:.3f} ms, x "
+            f"{cfg.n_layers} blocks {ssd_ms * cfg.n_layers:.1f} ms a prefill"
+            + f"; flash_attention [{B},{S},{Hq},{hd}] over {Hkv} kv heads bf16 causal (turns "
+            f"kernel, SDPA, SDPA, kernel): cuda_core path {ms(fl_t['kernel'], '{:.3f}')} ms "
+            f"({fl_ops / min(fl_t['kernel']) / 1e9:.1f} TFLOP/s), "
+            f"F.scaled_dot_product_attention(is_causal) {ms(fl_t['sdpa'])} ms (max abs/rel err vs "
+            f"it {sdpa_err[0]:.3g}/{sdpa_err[1]:.3g}), plain {fl_plain:.3f} ms, bound "
+            f"{fl_bound:.4f} ms ({fl_by}: {fl_ops / 1e9:.1f} GFLOP, {fl_bytes / 1e6:.1f} MB); "
+            f"fused GEMV (turns kernel, matmul, matmul, kernel): "
+            + "; ".join(f"{n_} [{g_['x'].shape[0]},{g_['w'].shape[0]}]@{list(g_['w'].shape)} "
+                        f"{g_['path']} path {ms(g_['turns']['kernel'])} ms, torch.matmul "
+                        f"{ms(g_['turns']['matmul'])} ms, plain {g_['plain']:.4f} ms, bound "
+                        f"{g_['bound']:.4f} ms ({g_['by']})" for n_, g_ in gemv.items()))
+    key = {"w_out decode": "w_out_decode", "w_out prefill": "w_out_prefill",
+           "shared MLP down decode": "mlp_down_decode"}
+    fused_row = {"zamba2_launches_per_decode_step": per_step,
+                 "zamba2_prefill_tile_launches": cfg.n_layers}
+    for name, g_ in gemv.items():
+        fused_row.update({f"zamba2_{key[name]}_ms": min(g_["turns"]["kernel"]),
+                          f"zamba2_{key[name]}_plain_ms": g_["plain"],
+                          f"zamba2_{key[name]}_bound_ms": g_["bound"],
+                          f"zamba2_{key[name]}_bound_by": g_["by"],
+                          f"zamba2_{key[name]}_library_ms": min(g_["turns"]["matmul"]),
+                          f"zamba2_{key[name]}_max_abs_err": g_["err"][0]})
+    del params, params_x, gemv, log_k, batch, tokens
+    torch.cuda.empty_cache()
+    return {
+        "flash_attention": {
+            "zamba2_prefill_launches": cfg.n_groups, "zamba2_ms": min(fl_t["kernel"]),
+            "zamba2_plain_ms": fl_plain, "zamba2_bound_ms": fl_bound, "zamba2_bound_by": fl_by,
+            "zamba2_library_ms": min(fl_t["sdpa"]),
+            "zamba2_max_abs_err": flash_errs["main"][0][0]},
+        "fused_matmul_allreduce": fused_row,
     }
 
 

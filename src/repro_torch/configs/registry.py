@@ -12,8 +12,13 @@ bulk and fused mode (kernel mode's pooling has no backward, as the
 reference's has none).  deepseek-v3-671b (MLA, a dense prefix of 3 layers,
 256 routed experts and a shared one) prefills and decodes through the same
 entries, dense engine only (its latent cache is not paged, as in the
-reference); its ``loss_fn`` raises (training is item 7).  The reference's
-other architectures raise until their slice of the port lands.
+reference); its ``loss_fn`` raises (training is item 7).  zamba2-7b
+(Mamba-2 blocks and a shared attention block with per-group LoRA) prefills
+and decodes at tp = 1 through the dense engine, which zeroes a reused
+slot's recurrent state (``reset_slot_fn``); its training, its Mamba heads
+over tp and over data are item 7, and it is not paged (as in the
+reference).  The reference's other architectures raise until their slice
+of the port lands.
 
 At tp > 1 (a ``ParallelContext`` over a tp world) the transformers run:
 their decode (dbrx's MoE as decode EP over the whole world), their prefill,
@@ -59,23 +64,33 @@ _MODULES = {
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 # the reference's other architectures, and the ROADMAP Queue 1 item of each
-_LATER = {"musicgen-medium": 7, "zamba2-7b": 7, "qwen2-vl-2b": 7}
-_RWKV6_TRAIN_ITEM = ("ROADMAP Queue 1 item 7 (rwkv6 training: train_forward with a WKV6 "
-                     "backward)")
+_LATER = {"musicgen-medium": 7, "qwen2-vl-2b": 7}
+# what a recurrent family needs before it trains
+_TRAIN_ITEMS = {
+    "rwkv6": "ROADMAP Queue 1 item 7 (rwkv6 training: train_forward with a WKV6 backward)",
+    "zamba2": "ROADMAP Queue 1 item 7 (zamba2 training)",
+}
+# Splitting w_in's [z, x, B, C, dt] columns over ranks needs a layout by
+# heads that the reference's GSPMD spec ("fsdp", "tp") does not give.
+_ZAMBA2_HEADS_ITEM = "ROADMAP Queue 1 item 7 (zamba2's Mamba heads over tp)"
 # what a family needs before it runs over several ranks
 _MULTI_RANK_ITEMS = {
     "rwkv6": "rwkv6's heads sharded over tp (state_logical_specs) are ROADMAP Queue 1 item 7",
+    "zamba2": _ZAMBA2_HEADS_ITEM,
 }
 # what a family needs before it runs over data replicas
 _DATA_ITEMS = {
     "rwkv6": "rwkv6 over data replicas is ROADMAP Queue 1 item 7",
+    "zamba2": _ZAMBA2_HEADS_ITEM,
 }
 # the model module of each family that prefills and decodes
 _DECODERS = {"transformer": "repro_torch.models.transformer",
-             "rwkv6": "repro_torch.models.rwkv6"}
+             "rwkv6": "repro_torch.models.rwkv6",
+             "zamba2": "repro_torch.models.zamba2"}
 
 
 @dataclasses.dataclass
@@ -112,6 +127,10 @@ class ArchBundle:
             from repro_torch.models.rwkv6 import rwkv6_init
 
             return rwkv6_init(gen, self.config)
+        if self.family == "zamba2":
+            from repro_torch.models.zamba2 import zamba2_init
+
+            return zamba2_init(gen, self.config)
         if self.family == "dlrm":
             from repro_torch.models.dlrm import dlrm_init
 
@@ -122,8 +141,8 @@ class ArchBundle:
         """(params, batch) -> scalar loss, for autograd; the batch is the
         global one, whole on every rank.  DLRM's is the mean BCE over the
         global batch in any mode (in kernel mode its gradient raises: the
-        pooling kernel has no backward).  rwkv6 and deepseek-v3 (MLA) raise
-        (ROADMAP Queue 1 item 7)."""
+        pooling kernel has no backward).  rwkv6, zamba2 and deepseek-v3
+        (MLA) raise (ROADMAP Queue 1 item 7)."""
         cfg = self.config
         self.check_tp(ctx)
         if self.family == "transformer":
@@ -135,14 +154,15 @@ class ArchBundle:
             from repro_torch.models.dlrm import dlrm_loss
 
             return lambda p, b: dlrm_loss(ctx, p, cfg, b)
-        raise NotImplementedError(f"{self.name}: the training forward is {_RWKV6_TRAIN_ITEM}")
+        raise NotImplementedError(f"{self.name}: the training forward is "
+                                  f"{_TRAIN_ITEMS[self.family]}")
 
     def param_specs(self, params):
         """The logical spec of every parameter leaf, in a tree of
         ``params``' structure (a transformer's ``PARAM_SPECS``); what
         ``build_train_step`` reads to sum the gradients of whole leaves over
-        the tp ranks; DLRM's tables ``("world", None, None)``.  rwkv6 runs at
-        tp = 1 and holds every leaf whole."""
+        the tp ranks; DLRM's tables ``("world", None, None)``.  rwkv6 and
+        zamba2 run at tp = 1 and hold every leaf whole."""
         if self.family == "transformer":
             from repro_torch.models.transformer import param_specs
 
@@ -157,7 +177,8 @@ class ArchBundle:
 
     def prefill_fn(self, ctx: ParallelContext) -> Callable:
         """(params, {"tokens": [B, S]}) -> (last logits [B, 1, V], state):
-        a transformer's KV cache, rwkv6's recurrent state."""
+        a transformer's KV cache, rwkv6's recurrent state, zamba2's states
+        and its groups' k and v."""
         if self.family not in _DECODERS:
             raise ValueError(f"{self.name}: a {self.family} model does not prefill")
         mod = self._decoder()
@@ -178,7 +199,8 @@ class ArchBundle:
     def init_cache(self, batch_size: int, device, tp: int = 1, dp: int = 1):
         """The decode cache: a transformer's KV cache (at tp > 1 a rank's
         ``S_max / tp`` rows of it; at dp > 1 where dp divides the batch a
-        replica's rows of it), rwkv6's recurrent state."""
+        replica's rows of it), rwkv6's recurrent state, zamba2's states and
+        its groups' dense KV caches."""
         decoder = self._decoder()
         if tp == 1 and dp == 1:
             return decoder.init_cache(self.config, batch_size, device)
@@ -186,6 +208,16 @@ class ArchBundle:
             raise NotImplementedError(f"{self.name} at tp={tp}, dp={dp}: "
                                       f"{_MULTI_RANK_ITEMS[self.family]}")
         return decoder.init_cache(self.config, batch_size, device, tp, dp)
+
+    def reset_slot_fn(self) -> Callable | None:
+        """``(cache, slot) -> cache`` zeroing a slot's recurrent state, for the
+        dense engine to call when a request takes a slot: zamba2's.  None for
+        the transformers, whose KV rows past a slot's position are masked."""
+        if self.family == "zamba2":
+            from repro_torch.models.zamba2 import reset_slot
+
+            return reset_slot
+        return None
 
     # ---- paged serving (continuous batching) -----------------------------
     @property
@@ -239,6 +271,11 @@ class ArchBundle:
             return dataclasses.replace(self, config=dataclasses.replace(
                 c, n_layers=2, d_model=64, d_ff=128, vocab=512, head_size=16,
                 lora_r=8, chunk=8, param_dtype="float32", compute_dtype="float32"))
+        if self.family == "zamba2":
+            return dataclasses.replace(self, config=dataclasses.replace(
+                c, n_layers=5, d_model=32, n_heads=4, n_kv_heads=4, d_ff=64,
+                vocab=256, d_state=8, attn_every=2, lora_r=4, max_seq=64,
+                param_dtype="float32", compute_dtype="float32"))
         hd = 16
         over = dict(n_layers=2 * (c.local_global_period or 1), d_model=64,
                     d_ff=128, vocab=512, head_dim=hd, max_seq=64,

@@ -91,10 +91,12 @@
 // calls the precise tanhf.
 //
 // flash_attention_kernel, every other call (f32, whose tensor-core product
-// would be TF32, and d = 64), on CUDA cores: Q, K and V tiles staged in
-// shared memory as f32 rows padded by 4 floats (float4 reads without bank
-// conflicts); each of the 256 threads holds a 4 x 4 block of the 64 x 64
-// score tile and the matching 4 rows x (d / 16) columns of acc; rows reduce
+// would be TF32, d = 64, and d = 224: zamba2-7b's shared attention), on
+// CUDA cores: Q, K and V tiles staged in shared memory as f32 rows padded by
+// 4 floats (float4 reads without bank conflicts); each of the 256 threads
+// holds a 4 x 4 block of the 64 x 64 score tile and the matching 4 rows x
+// (d / 16) columns of acc (at d = 224 the last 64-column group is half
+// used: lanes past column 224 skip it, no pad is staged); rows reduce
 // over 16 lanes with shuffles; P overwrites the K tile once the scores are
 // in registers and stays f32 in the PV product, as the model's own
 // blockwise attention (models/attention.py _flash_update) keeps it.
@@ -151,15 +153,24 @@ __device__ __forceinline__ void stage(float* dst, const T* src, size_t stride, i
   }
 }
 
+// D of 64 or 128 holds two CTAs an SM (the register cap that gives); at
+// D = 224 the f32 tiles take 175 KB of shared memory, so one CTA an SM, and
+// the register cap is lifted for acc's 64 floats a thread.
 template <typename T, int D>
-__global__ void __launch_bounds__(kFlashThreads, 2)
+__global__ void __launch_bounds__(kFlashThreads, D <= 128 ? 2 : 1)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
                            float* __restrict__ m_out, float* __restrict__ l_out, int Sq,
                            int Sk, int delta, int Hq, int Hkv, int n_qblk, float scale,
                            int causal, int window, float softcap) {
   constexpr int PD = D + 4;    // row pitch of Q, K and V in shared memory
-  constexpr int CV = D / 64;   // float4 column groups of acc per thread
+  // float4 column groups of acc per thread: thread tx holds columns
+  // 64 cv + 4 tx .. + 3.  A D off a multiple of 64 (zamba2's 224) rounds
+  // up, and the groups past D (the last group's tx >= (D % 64) / 4) are
+  // neither read from V nor stored; their acc stays 0.
+  constexpr int CV = (D + 63) / 64;
+  constexpr bool kRagged = D % 64 != 0;
+  static_assert(D % 4 == 0, "rows move 4 elements at a time");
   static_assert(kFlashBQ == 64 && kFlashBK == 64, "the thread layout assumes 64 x 64 tiles");
   static_assert(kFlashBQ * kFlashPP <= kFlashBK * PD, "P must fit in the K tile");
   extern __shared__ float4 smem4[];
@@ -274,6 +285,7 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
       for (int u = 0; u < 4; ++u)
 #pragma unroll
         for (int cv = 0; cv < CV; ++cv) {
+          if (kRagged && 64 * cv + 4 * tx >= D) continue;
           const float4 w = load4(vs + (kk + u) * PD + 64 * cv + 4 * tx);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -300,10 +312,11 @@ __global__ void __launch_bounds__(kFlashThreads, 2)
     T* out = o + ((size_t)b * Sq + qpos) * qstride + (size_t)h * D;
 #pragma unroll
     for (int cv = 0; cv < CV; ++cv)
-      store4(out + 64 * cv + 4 * tx,
-             empty ? make_float4(0.f, 0.f, 0.f, 0.f)
-                   : make_float4(acc[i][4 * cv] / den, acc[i][4 * cv + 1] / den,
-                                 acc[i][4 * cv + 2] / den, acc[i][4 * cv + 3] / den));
+      if (!kRagged || 64 * cv + 4 * tx < D)
+        store4(out + 64 * cv + 4 * tx,
+               empty ? make_float4(0.f, 0.f, 0.f, 0.f)
+                     : make_float4(acc[i][4 * cv] / den, acc[i][4 * cv + 1] / den,
+                                   acc[i][4 * cv + 2] / den, acc[i][4 * cv + 3] / den));
   }
 }
 
@@ -689,8 +702,8 @@ static cudaError_t launch_flash_tile(const void* q, const void* k, const void* v
 }  // namespace repro_torch
 
 // q, o [B, Sq, Hq, D]; k, v [B, Sk, Hkv, D]; all contiguous and 16-byte
-// aligned, of one element type (dtype 0 = f32, 1 = bf16).  D must be 64 or
-// 128 and Hq a multiple of Hkv.  Query row i and key j are at relative
+// aligned, of one element type (dtype 0 = f32, 1 = bf16).  D must be 64,
+// 128 or 224 and Hq a multiple of Hkv.  Query row i and key j are at relative
 // distance i + delta - j.  m and l: [B, Hq, Sq] f32 softmax statistics,
 // both null (none written) or both given.  window: a sliding window of that
 // many keys (0 = none); softcap: cap * tanh(s / cap) on every score (0 =
@@ -719,6 +732,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     err = launch(launch_flash<__nv_bfloat16, 64>);
   else if (dtype == 1 && D == 128)
     err = launch(launch_flash<__nv_bfloat16, 128>);
+  else if (dtype == 0 && D == 224)
+    err = launch(launch_flash<float, 224>);
+  else if (dtype == 1 && D == 224)
+    err = launch(launch_flash<__nv_bfloat16, 224>);
   return static_cast<int>(err);
 }
 

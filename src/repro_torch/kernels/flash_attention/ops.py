@@ -27,7 +27,7 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels import check_launch, dtype_code, load_library
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-KERNEL_D = (64, 128)   # head sizes the CUDA-core kernel takes
+KERNEL_D = (64, 128, 224)   # head sizes the CUDA-core kernel takes (224: zamba2-7b)
 TILE_D = 128           # the head size the tensor-core kernel takes
 PATHS = ("cuda_core", "tile")
 
@@ -36,7 +36,7 @@ def flash_path(dtype, d) -> str:
     """The kernel of a flash call: ``"tile"`` (tensor cores: TMA and
     ``wgmma``, ``flash_tile_kernel``) for bf16 at d = 128, else
     ``"cuda_core"`` (every f32 call: a tensor-core f32 product would be
-    TF32; and d = 64).  The launch passes every operand through
+    TF32; and d = 64 and 224).  The launch passes every operand through
     :func:`_aligned`, so TMA's bases are 16-byte aligned, and its rows,
     ``Hq * d`` and ``Hkv * d`` elements, are 16-byte multiples at d = 128."""
     if dtype == torch.bfloat16 and d == TILE_D:
@@ -53,7 +53,7 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None, softcap=No
     counts this is the JAX ``flash_attention``.  Any S: the kernel masks the
     tail block by bounds (the reference op needs S to have a block divisor).
     A CUDA tensor launches the kernel of ``csrc/flash_attention.cu`` that
-    :func:`flash_path` chooses (d of 64 or 128, f32 or bf16) or raises; a
+    :func:`flash_path` chooses (d of 64, 128 or 224, f32 or bf16) or raises; a
     CPU tensor takes :func:`flash_attention_plain`.  ``_path`` forces one of
     :data:`PATHS` (for timing both; no caller passes it) and raises where
     that kernel does not take the call, on any device.  ``window`` (keys

@@ -9,6 +9,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
       --layers 5
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
   PYTHONPATH=src python -m torch.distributed.run --standalone \
       --nproc-per-node 4 -m repro_torch.launch.serve --tp 4 --fusion fused
   PYTHONPATH=src python -m torch.distributed.run --standalone \
@@ -64,6 +65,13 @@ the new cache or pool.  ``--degrade`` installs the degradation policy.
 
 rwkv6-7b is refused (see ``_RWKV6_REFUSAL``): its prefill and decode
 run through ``get_arch("rwkv6-7b").prefill_fn`` / ``decode_fn``.
+zamba2-7b (Mamba-2 blocks, every 6 of them the shared attention block with
+its group's LoRA) serves at ``--tp 1`` in every mode through the dense
+engine, which zeroes a slot's SSM and conv states when a request takes it
+(the bundle's ``reset_slot_fn``; the reference's engine resets only the
+position, so there a reused slot starts from its last request's state);
+``--tp`` or ``--dp`` above 1 raises (ROADMAP Queue 1 item 7), and
+``--paged`` is refused, as the reference's launcher refuses it.
 
 A dense model's FFN down projection runs the fused GEMV+AllReduce kernel;
 an MoE model's experts run the dispatch-A2A kernel chained into the expert
@@ -174,6 +182,7 @@ def main(argv=None):
     bundle = get_arch(args.arch)
     if bundle.family == "rwkv6":
         raise NotImplementedError(_RWKV6_REFUSAL)
+    bundle.check_tp(args)   # a family that does not run at --tp / --dp raises before the world
     if args.paged and not bundle.supports_paged:
         raise SystemExit(f"--paged requires a GQA transformer ({args.arch} is "
                          f"{bundle.family}/{getattr(bundle.config, 'attn_type', '?')})")
@@ -243,7 +252,7 @@ def _serve(args, bundle, device):
                   f"{dense_b / 2**20:.1f} MiB")
     else:
         engine = DecodeEngine(*step_fns(ctx, params), args.batch, device=ctx.device,
-                              max_seq=cfg.max_seq)
+                              max_seq=cfg.max_seq, reset_slot_fn=bundle.reset_slot_fn())
     if args.journal and os.path.exists(args.journal):
         with open(args.journal) as f:
             n = resubmit_journal(engine, json.load(f))

@@ -136,6 +136,7 @@ _LATER_FLAGS = (
 )
 _NOT_TRAINED = {
     "rwkv6": "ROADMAP Queue 1 item 7 (rwkv6 training: a WKV6 backward)",
+    "zamba2": "ROADMAP Queue 1 item 7 (zamba2 training)",
 }
 
 

@@ -19,10 +19,12 @@ def _tensor(a, device):
 
 
 def _conv(tree, device, index=None):
-    """A nested dict of arrays as tensors; with ``index``, the entry at that
-    position of every array's leading (stacked-layer) axis."""
+    """Nested dicts and lists of arrays as tensors; with ``index``, the entry
+    at that position of every array's leading (stacked-layer) axis."""
     if isinstance(tree, dict):
         return {k: _conv(v, device, index) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_conv(v, device, index) for v in tree]
     return _tensor(tree if index is None else np.asarray(tree)[index], device)
 
 
@@ -97,6 +99,23 @@ def rwkv6_params_from_numpy(tree, device="cpu"):
     return {"embed": _conv(tree["embed"], device),
             "final_norm": _conv(tree["final_norm"], device),
             "layers": [_conv(tree["layers"], device, i) for i in range(n_layers)]}
+
+
+def zamba2_params_from_numpy(tree, device="cpu"):
+    """JAX zamba2 params as nested numpy arrays (``split_params`` values
+    through ``np.asarray``) -> the port's parameters.  The reference stacks
+    its groups (``stacked_init``): every leaf of ``tree["groups"]``, the
+    per-group list of ``attn_every`` Mamba blocks' leaves and the LoRA
+    among them, carries the group on a leading axis.  The port keeps one
+    dict per group in ``params["groups"]``, each with its list of Mamba
+    blocks; the shared block and the tail's list are carried as they are."""
+    groups = tree["groups"]
+    n_groups = len(np.asarray(groups["lora_a"]))
+    return {"embed": _conv(tree["embed"], device),
+            "final_norm": _conv(tree["final_norm"], device),
+            "shared": _conv(tree["shared"], device),
+            "groups": [_conv(groups, device, g) for g in range(n_groups)],
+            "tail": _conv(tree["tail"], device)}
 
 
 def train_state_from_numpy(state, device="cpu", ctx=None):

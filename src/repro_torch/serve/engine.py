@@ -175,12 +175,20 @@ class DecodeEngine(_EngineBase):
     def __init__(self, decode_fn: Callable, init_cache_fn: Callable,
                  batch_size: int, *, device="cuda", eos_id: int = -1,
                  bos_id: int = 0, max_seq: int | None = None,
+                 reset_slot_fn: Callable | None = None,
                  time_fn: Callable[[], float] = time.monotonic):
         """decode_fn(tokens [B,1], cache, pos [B]) -> (logits [B,1,V], cache),
         on tensors on ``device``; init_cache_fn(batch_size) -> cache.  The
         engine never looks inside the cache: a GQA model's {"k", "v"} and
         MLA's latents {"c", "kr"} (deepseek-v3) pass through it alike, from
         a reshard's fresh cache through every admission.
+
+        ``reset_slot_fn(cache, slot) -> cache`` runs whenever a request takes
+        a slot (a first admission, a journal's or a reshard's re-admission):
+        a recurrent model's state (zamba2's SSM and conv states) carries
+        from step to step, so a reused slot must start from zeros, where the
+        transformers' KV rows past the slot's position are masked and need
+        nothing.  The reference's engine resets only the position.
 
         ``bos_id`` seeds the first decode step for empty-prompt requests.
         ``max_seq`` is the cache bound: a slot reaching it retires its
@@ -191,6 +199,7 @@ class DecodeEngine(_EngineBase):
         self.decode_fn = decode_fn
         self.init_cache_fn = init_cache_fn
         self.max_seq = max_seq
+        self.reset_slot_fn = reset_slot_fn
         self.cache = init_cache_fn(batch_size)
         self.cur_tok = np.zeros((batch_size, 1), np.int32)
         self.pos = np.zeros(batch_size, np.int32)   # per-slot, not shared
@@ -203,6 +212,8 @@ class DecodeEngine(_EngineBase):
                     return
                 self.slots[i] = req
                 self.pos[i] = 0
+                if self.reset_slot_fn is not None:
+                    self.cache = self.reset_slot_fn(self.cache, i)
                 # the prompt (and, after a reshard, the generated tokens) is
                 # fed one token per step through the decode path
                 req.prefix = list(req.prompt) + list(req.tokens)

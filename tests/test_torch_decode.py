@@ -276,6 +276,6 @@ def test_registry_matches_reference_reduced_config():
     full = get_arch("chatglm3-6b").config
     assert (full.n_layers, full.d_model, full.d_ff, full.vocab) == (28, 4096, 13696, 65024)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("zamba2-7b")
+        get_arch("qwen2-vl-2b")
     with pytest.raises(KeyError):
         get_arch("no-such-model")

@@ -226,7 +226,7 @@ def test_flash_attention_counts_only_kernel_launches(rng):
     before = flash_attention.launches
     flash_attention(q, k, v)
     assert flash_attention.launches == before        # the CPU runs the plain version
-    assert flash_ops.KERNEL_D == (64, 128)
+    assert flash_ops.KERNEL_D == (64, 128, 224)       # 224: zamba2-7b's shared attention
 
 
 @pytest.mark.parametrize("dtype,d,want", [
@@ -234,6 +234,8 @@ def test_flash_attention_counts_only_kernel_launches(rng):
     (torch.bfloat16, 64, "cuda_core"),                   # the tile kernel takes d = 128 only
     (torch.float32, 128, "cuda_core"),                   # tensor cores would be TF32
     (torch.float32, 64, "cuda_core"),
+    (torch.bfloat16, 224, "cuda_core"),                  # zamba2's heads: no tile path at 224
+    (torch.float32, 224, "cuda_core"),
 ])
 def test_flash_path_choice(dtype, d, want):
     assert flash_ops.flash_path(dtype, d) == want
