@@ -465,6 +465,33 @@ prints one line, and any failure exits non-zero:
      F.scaled_dot_product_attention, its plain version and its bound; the
      fused GEMV at zamba2's three shapes against torch.matmul, the plain
      version and the bound
+ 61. qwen2-vl-2b at its published widths and full depth (28 layers, 12/2
+     heads of 128, M-RoPE (16, 24, 24), the stub vision front end; 3.1 GB
+     bf16), kernel mode against bulk mode: (a) the serve launcher's drain
+     of 8 requests x 8 tokens at batch 4 in kernel mode (28 stream-path
+     fused GEMV launches a step, no flash) and in bulk mode (none); (b) a
+     prefill of 4 x 2048 with patch embeddings on the first 256 positions
+     and mrope_positions' streams (28 tile-path flash launches at GQA 6;
+     each flash output against plain on its input) in kernel and bulk
+     mode against an exact f32 evaluation (layers upcast one at a time):
+     logits, k and v; then 8 greedy decode steps from its cache, bulk and
+     exact f32 teacher-forced on the kernel run's tokens; (c) the paged
+     serve_step at C = 8 and C = 1 (28 fused GEMV launches, tile and stream
+     path) against bulk and exact f32, then again under
+     torch.cuda.set_sync_debug_mode("error"); times: a prefill and a
+     decode step in both modes (profiles), the flash kernel at
+     [4,2048,12/2,128] against F.scaled_dot_product_attention, plain and
+     its bound, the fused GEMV at [4,8960]@[8960,1536] and
+     [32,8960]@[8960,1536] against torch.matmul, plain and the bound; (d)
+     3 AdamW steps of the train launcher in kernel mode at 4 x 2048 with
+     its vision extras, lr TRAIN_LR: the loss falls, 56 flash launches a
+     step
+ 62. musicgen-medium at its published widths and full depth (48 layers, 24
+     heads of 64, gelu, the stub audio front end; 3.6 GB bf16): phase 61's
+     (a), (b) with frame embeddings on every position (48 flash launches on
+     the CUDA-core path, head size 64) and times (the flash kernel at
+     [4,2048,24,64], the fused GEMV at [4,6144]@[6144,1536]), and (d) at
+     16 x 64 tokens
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
@@ -484,8 +511,9 @@ last, in the order 46, 47, 50, 48, 49, 51, each drawing its own weights
 (phase 47's, 48's and 50's in processes of their own); phases 52-54 run
 after them, each drawing its own weights; phases 55-56 after those, their
 workers in processes of their own; phases 57-58 after those, the launcher's
-weights drawn and freed before the phase draws its own; phases 59-60 last,
-the same way.  Phase 29 runs after
+weights drawn and freed before the phase draws its own; phases 59-60 after
+those, the same way; phases 61-62 last, the same way, each launcher run
+drawing and freeing its own weights.  Phase 29 runs after
 phase 35: its world starts one pool of 4 rank processes (spawn_world) that
 the worlds of phases 36-47 and 50 reuse, each opening and closing its own
 process group; the pool ends after phase 50.
@@ -1186,6 +1214,11 @@ def main() -> int:
     # the flash and fused rows gain their numbers at zamba2-7b's shapes
     # (phases 59-60)
     for name, extra in zamba2_phases(card).items():
+        next(k_ for k_ in kernels if k_["name"] == name).update(extra)
+    torch.cuda.empty_cache()
+    # the flash and fused rows gain their numbers at qwen2-vl-2b's and
+    # musicgen-medium's shapes (phases 61-62)
+    for name, extra in frontend_phases(card).items():
         next(k_ for k_ in kernels if k_["name"] == name).update(extra)
     say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
@@ -6387,10 +6420,9 @@ def exact_prefill(params, cfg, tokens, gates):
 
     cfg_x = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     ctx = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
-    S = tokens.shape[1]
     x = embedding_lookup(ctx, {"table": params["embed"]["table"].float()}, tokens,
                          seq_shard=True)
-    positions = tfm._positions_for(S, tokens.device)
+    positions = tfm._positions_for(ctx, cfg, {"tokens": tokens})
     parts, routed = {}, iter(gates)
     for lp, window in tfm.decoder_layers(params, cfg):
         la = {"ln1": lp["ln1"].float(), "attn": _map(lp["attn"], lambda t: t.float())}
@@ -8348,16 +8380,15 @@ def main_path_buffer(ffn, h, mcfg):
     return buf[None, None], int(valid.sum())
 
 
-def deepseek_launcher_run() -> dict:
-    """Phase 57(a): the serve launcher in this process at --arch
-    deepseek-v3-671b --layers DSV3_LAYERS --fusion kernel, drawing its own
-    weights (freed when it returns); every launch counted on its path."""
+def serve_launcher_run(argv, n_req, want_counts, what) -> dict:
+    """The serve launcher in this process on ``argv``, drawing its own
+    weights (freed when it returns): it must serve ``n_req`` requests, and
+    its launches must be ``want_counts(steps)`` (every launch counted on
+    its path)."""
     import io
 
     from repro_torch.launch import serve as launch_serve
 
-    argv = ["--arch", "deepseek-v3-671b", "--layers", str(DSV3_LAYERS), "--fusion", "kernel",
-            "--requests", str(DSV3_REQ), "--max-new", str(DSV3_NEW)]
     out = io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
@@ -8368,17 +8399,27 @@ def deepseek_launcher_run() -> dict:
     text = out.getvalue()
     served = re.search(r"served (\d+) requests, (\d+) tokens in [\d.]+s \(([\d.]+) tok/s, "
                        r"(\d+) steps, ([\d.]+) ms/step", text)
-    if served is None or int(served[1]) != DSV3_REQ or len(fin) != DSV3_REQ:
-        raise AssertionError(f"the launcher did not serve {DSV3_REQ} requests:\n{text}")
+    if served is None or int(served[1]) != n_req or len(fin) != n_req:
+        raise AssertionError(f"the launcher did not serve {n_req} requests:\n{text}")
     steps = int(served[4])
-    cfg = deepseek_bundle().config
-    expect_counts("phase 57 launcher", counts, deepseek_decode_counts(steps, cfg))
+    expect_counts(what, counts, want_counts(steps))
+    streams = {r.uid: (list(r.prompt), list(r.tokens)) for r in fin}
     del fin
     torch.cuda.empty_cache()
     return {"argv": " ".join(argv), "steps": steps, "tok_s": float(served[3]),
-            "ms_step": float(served[5]), "wall": wall, "counts": counts,
-            "per_step": f"{cfg.n_layers - cfg.dense_prefix}, {cfg.n_layers - cfg.dense_prefix}, "
-                        f"{cfg.dense_prefix} and 0"}
+            "ms_step": float(served[5]), "wall": wall, "counts": counts, "streams": streams}
+
+
+def deepseek_launcher_run() -> dict:
+    """Phase 57(a): the serve launcher in this process at --arch
+    deepseek-v3-671b --layers DSV3_LAYERS --fusion kernel."""
+    argv = ["--arch", "deepseek-v3-671b", "--layers", str(DSV3_LAYERS), "--fusion", "kernel",
+            "--requests", str(DSV3_REQ), "--max-new", str(DSV3_NEW)]
+    cfg = deepseek_bundle().config
+    run = serve_launcher_run(argv, DSV3_REQ, lambda steps: deepseek_decode_counts(steps, cfg),
+                             "phase 57 launcher")
+    moe = cfg.n_layers - cfg.dense_prefix
+    return {**run, "per_step": f"{moe}, {moe}, {cfg.dense_prefix} and 0"}
 
 
 def deepseek_decode_counts(steps, cfg):
@@ -8701,35 +8742,14 @@ def zamba2_decode_counts(steps, cfg):
 
 def zamba2_launcher_run() -> dict:
     """Phase 59(a): the serve launcher in this process at --arch zamba2-7b
-    --batch ZAMBA_B --fusion kernel over ZAMBA_REQ requests, drawing its own
-    weights (freed when it returns); every launch counted on its path."""
-    import io
-
+    --batch ZAMBA_B --fusion kernel over ZAMBA_REQ requests."""
     from repro_torch.configs.registry import get_arch
-    from repro_torch.launch import serve as launch_serve
 
     argv = ["--arch", "zamba2-7b", "--batch", str(ZAMBA_B), "--requests", str(ZAMBA_REQ),
             "--max-new", str(ZAMBA_NEW), "--fusion", "kernel"]
-    out = io.StringIO()
-    reset_counts()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        fin = launch_serve.main(argv)
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
-    text = out.getvalue()
-    served = re.search(r"served (\d+) requests, (\d+) tokens in [\d.]+s \(([\d.]+) tok/s, "
-                       r"(\d+) steps, ([\d.]+) ms/step", text)
-    if served is None or int(served[1]) != ZAMBA_REQ or len(fin) != ZAMBA_REQ:
-        raise AssertionError(f"the launcher did not serve {ZAMBA_REQ} requests:\n{text}")
-    steps = int(served[4])
-    expect_counts("phase 59 launcher", counts,
-                  zamba2_decode_counts(steps, get_arch("zamba2-7b").config))
-    streams = {r.uid: (list(r.prompt), list(r.tokens)) for r in fin}
-    del fin
-    torch.cuda.empty_cache()
-    return {"argv": " ".join(argv), "steps": steps, "tok_s": float(served[3]),
-            "ms_step": float(served[5]), "wall": wall, "counts": counts, "streams": streams}
+    cfg = get_arch("zamba2-7b").config
+    return serve_launcher_run(argv, ZAMBA_REQ, lambda steps: zamba2_decode_counts(steps, cfg),
+                              "phase 59 launcher")
 
 
 def zamba2_exact_params(params):
@@ -9069,6 +9089,390 @@ def zamba2_phases(card) -> dict:
             "zamba2_max_abs_err": flash_errs["main"][0][0]},
         "fused_matmul_allreduce": fused_row,
     }
+
+
+# ---------------------------------------------------------------------------
+# the front ends and M-RoPE: qwen2-vl-2b (phase 61), musicgen-medium (phase 62)
+# ---------------------------------------------------------------------------
+# Both at their published widths and full depth, no cut: qwen2-vl-2b's 28
+# layers with its tied table (1.54 G parameters, 3.1 GB bf16), musicgen-
+# medium's 48 (1.81 G, 3.6 GB).  (a) the serve launcher's drain of FE_REQ
+# requests x FE_NEW tokens at batch FE_B in kernel and bulk mode (the text
+# phase: M-RoPE on three equal streams); (b) a prefill of FE_B x FE_S with
+# the front end's inputs (qwen2-vl: patch embeddings on the first FE_PATCHES
+# positions and mrope_positions' streams on a grid of 16; musicgen: frame
+# embeddings on every position), then FE_STEPS greedy decode steps from its
+# cache; (c) qwen2-vl's paged serve_step at C = FE_CHUNK and C = 1; (d)
+# FE_TRAIN_STEPS AdamW steps of the train launcher in kernel mode at
+# FE_TRAIN's batch x seq with the launcher's front-end extras, at lr TRAIN_LR
+FE_B, FE_S, FE_STEPS, FE_PATCHES = 4, 2048, 8, 256
+FE_REQ, FE_NEW = 8, 8
+FE_CHUNK, FE_BLOCK, FE_BLOCKS = 8, 16, 64
+FE_TRAIN = {"qwen2-vl-2b": (4, 2048), "musicgen-medium": (16, 64)}
+FE_TRAIN_STEPS = 3
+FE_KEY = {"qwen2-vl-2b": "qwen2vl", "musicgen-medium": "musicgen"}   # the kernel rows' keys
+
+
+def fe_decode_counts(steps, cfg):
+    """The launches of ``steps`` kernel-mode decode steps of a dense
+    transformer: the stream-path fused GEMV + AllReduce a layer (its FFN
+    down), no flash (decode attention is plain)."""
+    n = cfg.n_layers * steps
+    return {"fused_matmul_allreduce": n, "fused_matmul_allreduce.stream": n}
+
+
+def fe_flash_counts(cfg, n):
+    """counted_run's expectation: n flash launches, every one on the path
+    flash_path chooses for the config's head size in bf16."""
+    from repro_torch.kernels.flash_attention.ops import PATHS, flash_path
+
+    took = flash_path(torch.bfloat16, cfg.hd)
+    return {"flash_attention": n, **{f"flash_attention.{p_}": n if p_ == took else 0
+                                     for p_ in PATHS}}
+
+
+def fe_batch(cfg, gen, tokens):
+    """The prefill's batch: the tokens and the front end's inputs, drawn on
+    the card (``models/frontends.py``)."""
+    from repro_torch.models import frontends
+
+    B, S = tokens.shape
+    batch = {"tokens": tokens}
+    if cfg.frontend == "vision":
+        emb, mask = frontends.vision_patch_embeddings(gen, B, S, cfg.d_model, FE_PATCHES)
+        batch.update(vision_embeds=emb, vision_mask=mask,
+                     positions_thw=frontends.mrope_positions(B, S, FE_PATCHES, device="cuda"))
+    else:
+        batch["frame_embeds"] = frontends.audio_frame_embeddings(gen, B, S, cfg.d_model)
+    return batch
+
+
+def fe_decode_cache(cfg, cache, rows):
+    """A decode cache of ``rows`` positions holding a prefill's k and v in
+    rows [0, S)."""
+    from repro_torch.models import transformer as tfm
+
+    dc = tfm.init_cache(dataclasses.replace(cfg, max_seq=rows), cache["k"].shape[1], "cuda")
+    for k_ in dc:
+        dc[k_][:, :, :cache[k_].shape[2]] = cache[k_]
+    return dc
+
+
+def flash_turns(gen, b, s, hq, hkv, d):
+    """The flash kernel at [b, s, hq, d] over hkv kv heads, bf16 causal, on
+    its path (turns kernel, SDPA, SDPA, kernel), beside
+    F.scaled_dot_product_attention, its plain version and flash_bound; its
+    output checked against SDPA's and against plain."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+
+    bf16 = torch.bfloat16
+    q = randn(gen, (b, s, hq, d), bf16)
+    k, v = randn(gen, (b, s, hkv, d), bf16), randn(gen, (b, s, hkv, d), bf16)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=hkv != hq)
+    got, took = on_path(flash_attention, lambda: flash_attention(q, k, v))
+    err = check_close(f"flash [{b},{s},{hq}/{hkv},{d}] vs plain", got,
+                      flash_attention_plain(q, k, v), BF16_TOL)
+    sdpa_err = check_close(f"flash [{b},{s},{hq}/{hkv},{d}] vs SDPA", got,
+                           sdpa().transpose(1, 2), BF16_TOL)
+    del got
+    t_ = {"kernel": [], "sdpa": []}
+    for which in ("kernel", "sdpa", "sdpa", "kernel"):
+        fn = (lambda: flash_attention(q, k, v)) if which == "kernel" else sdpa
+        t_[which].append(time_ms(fn, iters=10 if which == "kernel" else 20, warmup=2))
+    plain = time_ms(lambda: flash_attention_plain(q, k, v), iters=2, warmup=1)
+    bound, by, n_bytes, ops = flash_bound(b, s, hq, hkv, d, 2)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(path=took, err=err, sdpa_err=sdpa_err, turns=t_, ms=min(t_["kernel"]),
+                sdpa=min(t_["sdpa"]), plain=plain, bound=bound, by=by, ops=ops, bytes=n_bytes,
+                shape=f"[{b},{s},{hq}/{hkv},{d}]")
+
+
+def gemv_turns(gen, rows, w, name):
+    """The fused GEMV at x [rows, K] @ w on the path fused_path chooses,
+    against its plain version, then timed (turns kernel, matmul, matmul,
+    kernel) beside torch.matmul, the plain version and bound_ms."""
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_matmul_allreduce, fused_path
+    from repro_torch.kernels.fused_gemv_allreduce.ref import fused_matmul_allreduce_ref
+
+    bf16 = torch.bfloat16
+    x = randn(gen, (rows, w.shape[0]), bf16)
+    got, took = on_path(fused_matmul_allreduce, lambda: fused_matmul_allreduce(x, w))
+    if took != fused_path(bf16, rows, *w.shape):
+        raise AssertionError(f"fused_matmul_allreduce {name}: took the {took} path")
+    err = check_close(f"fused_matmul_allreduce {name}", got, fused_matmul_allreduce_ref(x, w),
+                      BF16_TOL)
+    t_ = {"kernel": [], "matmul": []}
+    iters = 200 if took == "stream" else 50
+    for which in ("kernel", "matmul", "matmul", "kernel"):
+        fn = ((lambda: fused_matmul_allreduce(x, w)) if which == "kernel"
+              else (lambda: torch.matmul(x, w)))
+        t_[which].append(time_ms(fn, iters=iters))
+    plain = time_ms(lambda: fused_matmul_allreduce_ref(x, w), iters=20)
+    bound, by = bound_ms(rows, *w.shape, 2)
+    return dict(path=took, err=err, turns=t_, ms=min(t_["kernel"]), lib=min(t_["matmul"]),
+                plain=plain, bound=bound, by=by, shape=f"[{rows},{w.shape[0]}]@{list(w.shape)}")
+
+
+def fe_paged_phase(bundle, params, params_x, cfg_x, ctx_k, ctx_b) -> str:
+    """Phase 61(c): serve_step at C = FE_CHUNK (every slot a chunk from
+    position 0) then C = 1 (each slot decodes at FE_CHUNK), kernel and bulk
+    mode against an exact f32 step on a pool of its own; then each step
+    again under set_sync_debug_mode("error")."""
+    from repro_torch.kernels.fused_gemv_allreduce.ops import fused_path
+    from repro_torch.models import transformer as tfm
+
+    cfg = bundle.config
+    B, L = FE_B, cfg.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(611)
+    per_slot = FE_BLOCKS // B
+    tables = torch.arange(FE_BLOCKS, dtype=torch.int32, device="cuda").view(B, per_slot)
+    steps = [(torch.randint(0, cfg.vocab, (B, FE_CHUNK), generator=gen, device="cuda"),
+              torch.zeros(B, dtype=torch.int32, device="cuda"),
+              torch.full((B,), FE_CHUNK, dtype=torch.int32, device="cuda")),
+             (torch.randint(0, cfg.vocab, (B, 1), generator=gen, device="cuda"),
+              torch.full((B,), FE_CHUNK, dtype=torch.int32, device="cuda"),
+              torch.ones(B, dtype=torch.int32, device="cuda"))]
+    pools = {"kernel": bundle.init_paged_pool(FE_BLOCKS, FE_BLOCK, "cuda"),
+             "bulk": bundle.init_paged_pool(FE_BLOCKS, FE_BLOCK, "cuda"),
+             "exact": tfm.init_paged_pool(cfg_x, FE_BLOCKS, FE_BLOCK, "cuda")}
+    serve = {"kernel": bundle.serve_step_fn(ctx_k), "bulk": bundle.serve_step_fn(ctx_b)}
+    exact = lambda tk, pool, *rest: tfm.serve_step(ctx_b, params_x, cfg_x, tk, pool, tables, *rest)
+    texts, paths = [], []
+    for tk, pos, n_new in steps:
+        rows = B * tk.shape[1]
+        path = fused_path(torch.bfloat16, rows, cfg.d_ff, cfg.d_model)
+        paths.append(f"C = {tk.shape[1]}: {L} {path}-path launches")
+        (lk, _), _ = counted_run(lambda: serve["kernel"](params, tk, pools["kernel"], tables, pos,
+                                                         n_new),
+                                 {"fused_matmul_allreduce": L, f"fused_matmul_allreduce.{path}": L})
+        (lb, _), _ = counted_run(lambda: serve["bulk"](params, tk, pools["bulk"], tables, pos,
+                                                       n_new), {})
+        lx, _ = exact(tk, pools["exact"], pos, n_new)
+        texts.append(f"C = {tk.shape[1]} " + bounded_errors(
+            f"paged C={tk.shape[1]}", {"logits": (lk, lb, lx)}))
+    for tk, pos, n_new in steps:
+        for m in ("kernel", "bulk"):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                serve[m](params, tk, pools[m], tables, pos, n_new)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    del pools
+    torch.cuda.empty_cache()
+    return (f"(c) serve_step on a pool of {FE_BLOCKS} x {FE_BLOCK}-token blocks, batch {B}: "
+            f"{'; '.join(paths)} (the text phase: M-RoPE on three equal streams); kernel vs "
+            f"exact / bulk vs exact / kernel vs bulk max abs err (bound {LOGITS_TOL_FACTOR} x the "
+            f"second): {'; '.join(texts)}; each step again in kernel and bulk mode under "
+            f"torch.cuda.set_sync_debug_mode('error'): no call synchronised")
+
+
+def fe_phase(card, arch, n) -> dict:
+    """Phase ``n`` (61: qwen2-vl-2b, 62: musicgen-medium) at its published
+    widths and full depth on one card, kernel mode against bulk mode and an
+    exact f32 evaluation.  Returns the flash and fused kernels' rows'
+    numbers at its shapes."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+
+    key = FE_KEY[arch]
+    bundle = get_arch(arch)
+    cfg = bundle.config
+    L, Hq, Hkv, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, S = FE_B, FE_S
+    # (a) ---------------------------------------------------------------
+    argv = ["--arch", arch, "--batch", str(B), "--requests", str(FE_REQ), "--max-new",
+            str(FE_NEW)]
+    runs = {m: serve_launcher_run(argv + ["--fusion", m], FE_REQ,
+                                  (lambda st: fe_decode_counts(st, cfg)) if m == "kernel"
+                                  else (lambda st: {}), f"phase {n} launcher {m} mode")
+            for m in ("kernel", "bulk")}
+    sk, sb = runs["kernel"]["streams"], runs["bulk"]["streams"]
+    differing = sum(a != b for u in sk for a, b in zip(sk[u][1], sb[u][1]))
+    say(n, f"(a) on {card}: python -m repro_torch.launch.serve {runs['kernel']['argv']} in this "
+           f"process: {FE_REQ} requests served, " + "; ".join(
+               f"{m} mode {r['steps']} steps, {r['ms_step']:.2f} ms/step, {r['tok_s']:.1f} tok/s, "
+               f"{r['wall']:.1f} s with its weights' draw, launches fused GEMV "
+               f"{r['counts']['fused_matmul_allreduce']} (stream path "
+               f"{r['counts']['fused_matmul_allreduce.stream']}), flash "
+               f"{r['counts']['flash_attention']}" for m, r in runs.items())
+           + f"; kernel streams {[sk[u][1] for u in sorted(sk)]}; bulk streams "
+           f"{[sb[u][1] for u in sorted(sb)]}; differing tokens {differing}")
+    del runs
+
+    # (b) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t_.numel() for t_ in _leaves(params))
+    n_bytes = sum(t_.numel() * t_.element_size() for t_ in _leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    batch = fe_batch(cfg, gen, tokens)
+    ctx_k = ParallelContext(device="cuda", fusion=FusionConfig(mode="kernel"))
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    pre_k, pre_b = bundle.prefill_fn(ctx_k), bundle.prefill_fn(ctx_b)
+    dec_k, dec_b = bundle.decode_fn(ctx_k), bundle.decode_fn(ctx_b)
+    cfg_x = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    params_x = {**params, "layers": UpcastLayers(params["layers"])}
+    layer_errs = []
+
+    def spy(q, k, v, **kw):
+        """The kernel, then its plain version on the identical input."""
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, scale=kw["scale"], causal=kw["causal"])
+        layer_errs.append(check_close(f"prefill layer {len(layer_errs)} flash", got, want,
+                                      BF16_TOL)[0])
+        return got
+
+    torch.cuda.reset_peak_memory_stats()
+    with swapped(attention, "flash_attention", spy):
+        (lk, ck), pre_counts = counted_run(lambda: pre_k(params, batch), fe_flash_counts(cfg, L))
+    (lb, cb), _ = counted_run(lambda: pre_b(params, batch), {})
+    lx, cx = tfm.prefill_forward(ctx_b, params_x, cfg_x, batch)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for lg in (lk, lb, lx):
+        if lg.shape != (B, 1, cfg.vocab) or not torch.isfinite(lg).all():
+            raise AssertionError(f"prefill logits: shape {tuple(lg.shape)} or non-finite")
+    if any(tuple(c_[k_].shape) != (L, B, S, Hkv, hd) for c_ in (ck, cb) for k_ in ("k", "v")):
+        raise AssertionError(f"prefill cache: shapes {[tuple(t_.shape) for t_ in ck.values()]}")
+    pre_txt = bounded_errors("prefill", {"logits": (lk, lb, lx),
+                                         **{k_: (ck[k_], cb[k_], cx[k_]) for k_ in ("k", "v")}})
+    # FE_STEPS greedy steps from the prefill's cache; bulk and exact f32
+    # teacher-forced on the kernel run's tokens
+    rows_x = S + FE_STEPS
+    caches = {"kernel": fe_decode_cache(cfg, ck, cfg.max_seq),
+              "bulk": fe_decode_cache(cfg, cb, cfg.max_seq),
+              "exact": fe_decode_cache(cfg_x, cx, rows_x)}
+    del ck, cb, cx
+    torch.cuda.empty_cache()
+    tok, logits, log_k, steps_tok = lk.argmax(-1).to(torch.int32), {m: [] for m in caches}, [], []
+    reset_counts()
+    for s_ in range(FE_STEPS):
+        pos = torch.full((B,), S + s_, dtype=torch.int32, device="cuda")
+        log_k.append((tok, pos))
+        gk, caches["kernel"] = dec_k(params, tok, caches["kernel"], pos)
+        logits["kernel"].append(gk)
+        tok = gk.argmax(-1).to(torch.int32)
+        steps_tok.append(tok[:, 0].tolist())
+    torch.cuda.synchronize()
+    expect_counts(f"phase {n} decode from the prefill", launch_counts(),
+                  fe_decode_counts(FE_STEPS, cfg))
+    for tok_, pos in log_k:
+        gb, caches["bulk"] = dec_b(params, tok_, caches["bulk"], pos)
+        gx, caches["exact"] = tfm.decode_step(ctx_b, params_x, cfg_x, tok_, caches["exact"], pos)
+        logits["bulk"].append(gb)
+        logits["exact"].append(gx)
+    cat = {m: torch.cat(v_, dim=1) for m, v_ in logits.items()}
+    if not torch.isfinite(cat["kernel"]).all():
+        raise AssertionError("decode from the prefill: non-finite logits")
+    dec_txt = bounded_errors("decode", {"logits": (cat["kernel"], cat["bulk"], cat["exact"]), **{
+        k_: tuple(caches[m][k_][:, :, S:rows_x] for m in ("kernel", "bulk", "exact"))
+        for k_ in ("k", "v")}})
+    del caches, logits, cat
+    torch.cuda.empty_cache()
+    front = (f"patch embeddings on the first {FE_PATCHES} positions, M-RoPE sections "
+             f"{cfg.mrope_sections} at theta {cfg.rope_theta:g} on mrope_positions' streams "
+             f"(text from position {int(batch['positions_thw'][0, 0, FE_PATCHES])})"
+             if cfg.frontend == "vision" else "frame embeddings on every position")
+    say(n, f"(b) {arch} full width and depth ({L} layers, d{cfg.d_model}, {Hq}/{Hkv} heads of "
+           f"{hd}, d_ff {cfg.d_ff} {cfg.act}, vocab {cfg.vocab}; {n_params / 1e9:.3f}B params, "
+           f"{n_bytes / 1e9:.2f} GB {cfg.param_dtype}, init {init_s:.1f}s): a prefill of {B}x{S} "
+           f"seeded tokens with {front} through prefill_fn: kernel mode launches flash "
+           f"{pre_counts['flash_attention']} (tile path {pre_counts['flash_attention.tile']}, "
+           f"cuda_core path {pre_counts['flash_attention.cuda_core']}), bulk mode none; every "
+           f"layer's flash output vs plain on its input: max abs err {max(layer_errs):.3g} "
+           f"(bound {BF16_TOL}); kernel vs exact / bulk vs exact / kernel vs bulk max abs err "
+           f"(bound {LOGITS_TOL_FACTOR} x the second): {pre_txt}; peak {peak:.1f} GB; "
+           f"{FE_STEPS} greedy decode steps from position {S} (launches fused GEMV "
+           f"{FE_STEPS * L}, stream path, flash 0; bulk and exact f32 teacher-forced on the "
+           f"kernel run's tokens; k and v the decoded rows): {dec_txt}; tokens {steps_tok}")
+
+    # (c) ---------------------------------------------------------------
+    if cfg.frontend == "vision":
+        say(n, fe_paged_phase(bundle, params, params_x, cfg_x, ctx_k, ctx_b))
+
+    # times -------------------------------------------------------------
+    prof = {}
+    for mode, ctx in (("kernel", ctx_k), ("bulk", ctx_b)):
+        fn = bundle.prefill_fn(ctx)
+        fn(params, batch)       # warm: the allocator's segments, emptied after (b), mapped again
+        prof[f"prefill {mode}"] = profile_device(lambda i: fn(params, batch), 1, "prefill")
+    for mode, dec in (("kernel", dec_k), ("bulk", dec_b)):
+        prof[f"decode {mode}"] = profile_decode(dec, params, bundle.init_cache(B, "cuda"),
+                                                log_k[:4])
+    del batch, log_k
+    torch.cuda.empty_cache()
+    fl = flash_turns(gen, B, S, Hq, Hkv, hd)
+    w_down = params["layers"][0]["ffn"]["w_down"]
+    gemv = {"decode": gemv_turns(gen, B, w_down, f"{arch} FFN down decode")}
+    if cfg.frontend == "vision":
+        gemv["paged chunk"] = gemv_turns(gen, B * FE_CHUNK, w_down, f"{arch} FFN down chunk")
+    del params, params_x, w_down
+    torch.cuda.empty_cache()
+    ms = lambda ts, f="{:.4f}": ", ".join(f.format(t_) for t_ in ts)
+    say(n, f"on {card}, CUDA events: prefill of {B}x{S} and decode steps (profiles): "
+           + "; ".join(f"{k_}: {v_}" for k_, v_ in prof.items())
+           + f"; flash_attention {fl['shape']} bf16 causal (turns kernel, SDPA, SDPA, kernel): "
+           f"{fl['path']} path {ms(fl['turns']['kernel'])} ms ({fl['ops'] / fl['ms'] / 1e9:.1f} "
+           f"TFLOP/s), F.scaled_dot_product_attention(is_causal) {ms(fl['turns']['sdpa'])} ms "
+           f"({fl['ms'] / fl['sdpa']:.2f}x SDPA; max abs/rel err vs it {fl['sdpa_err'][0]:.3g}/"
+           f"{fl['sdpa_err'][1]:.3g}, vs plain {fl['err'][0]:.3g}), plain {fl['plain']:.3f} ms, "
+           f"bound {fl['bound']:.4f} ms ({fl['by']}: {fl['ops'] / 1e9:.1f} GFLOP, "
+           f"{fl['bytes'] / 1e6:.1f} MB); fused GEMV vs plain (bound {BF16_TOL}), turns kernel, "
+           f"matmul, matmul, kernel: " + "; ".join(
+               f"{n_} {g_['shape']} {g_['path']} path {ms(g_['turns']['kernel'])} ms, "
+               f"torch.matmul {ms(g_['turns']['matmul'])} ms, plain {g_['plain']:.4f} ms, bound "
+               f"{g_['bound']:.4f} ms ({g_['by']}), max abs/rel err {g_['err'][0]:.3g}/"
+               f"{g_['err'][1]:.3g}" for n_, g_ in gemv.items()))
+
+    # (d) ---------------------------------------------------------------
+    tb, ts = FE_TRAIN[arch]
+    train_argv = ["--arch", arch, "--steps", str(FE_TRAIN_STEPS), "--batch", str(tb), "--seq",
+                  str(ts), "--lr", TRAIN_LR, "--log-every", "1", "--fusion", "kernel"]
+    losses, counts, clock, tpeak, summary, med = launch_run(train_argv, tb * ts)
+    expect_counts(f"phase {n} train launcher", counts,
+                  fe_flash_counts(cfg, FE_TRAIN_STEPS * 2 * L))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"phase {n} train launcher: loss did not fall: {losses}")
+    say(n, f"(d) on {card}: python -m repro_torch.launch.train {' '.join(train_argv)} ({arch} "
+           f"full width and depth, {tb}x{ts} tokens with the launcher's "
+           f"{cfg.frontend} extras, AdamW with f32 moments, weights and batches from seed 0): "
+           f"{summary}")
+    torch.cuda.empty_cache()
+    return {
+        "flash_attention": {
+            f"{key}_prefill_launches": L, f"{key}_train_launches_per_step": 2 * L,
+            f"{key}_path": fl["path"], f"{key}_ms": fl["ms"], f"{key}_plain_ms": fl["plain"],
+            f"{key}_bound_ms": fl["bound"], f"{key}_bound_by": fl["by"],
+            f"{key}_library_ms": fl["sdpa"], f"{key}_max_abs_err": fl["err"][0]},
+        "fused_matmul_allreduce": {
+            f"{key}_launches_per_decode_step": L, **{
+                f"{key}_{n_.replace(' ', '_')}_{k_}": g_[v_] for n_, g_ in gemv.items()
+                for k_, v_ in (("ms", "ms"), ("plain_ms", "plain"), ("bound_ms", "bound"),
+                               ("bound_by", "by"), ("library_ms", "lib"))},
+            **{f"{key}_{n_.replace(' ', '_')}_max_abs_err": g_["err"][0]
+               for n_, g_ in gemv.items()}},
+    }
+
+
+def frontend_phases(card) -> dict:
+    """Phases 61-62; returns each kernel row's numbers at their shapes."""
+    rows = {"flash_attention": {}, "fused_matmul_allreduce": {}}
+    for arch, n in (("qwen2-vl-2b", 61), ("musicgen-medium", 62)):
+        for name, extra in fe_phase(card, arch, n).items():
+            rows[name].update(extra)
+    return rows
 
 
 def _map(tree, fn):

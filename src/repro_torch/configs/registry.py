@@ -17,8 +17,11 @@ reference); its ``loss_fn`` raises (training is item 7).  zamba2-7b
 and decodes at tp = 1 through the dense engine, which zeroes a reused
 slot's recurrent state (``reset_slot_fn``); its training, its Mamba heads
 over tp and over data are item 7, and it is not paged (as in the
-reference).  The reference's other architectures raise until their slice
-of the port lands.
+reference).  qwen2-vl-2b (M-RoPE, the stub vision front end) and
+musicgen-medium (the stub audio front end) are dense transformers: they
+serve, prefill and train through the same entries, their front-end inputs
+in the batch (``models/frontends.py``).  Every architecture of the
+reference is ported.
 
 At tp > 1 (a ``ParallelContext`` over a tp world) the transformers run:
 their decode (dbrx's MoE as decode EP over the whole world), their prefill,
@@ -65,10 +68,9 @@ _MODULES = {
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
 }
-
-# the reference's other architectures, and the ROADMAP Queue 1 item of each
-_LATER = {"musicgen-medium": 7, "qwen2-vl-2b": 7}
 # what a recurrent family needs before it trains
 _TRAIN_ITEMS = {
     "rwkv6": "ROADMAP Queue 1 item 7 (rwkv6 training: train_forward with a WKV6 backward)",
@@ -293,15 +295,14 @@ class ArchBundle:
             over["moe"] = dataclasses.replace(
                 c.moe, n_experts=8, top_k=min(c.moe.top_k, 2), d_model=64,
                 d_ff=32)
+        if c.rope_style == "mrope":
+            over.update(mrope_sections=(4, 6, 6), head_dim=32)
         if c.dense_prefix:
             over.update(dense_prefix=1, n_layers=3)
         return dataclasses.replace(self, config=dataclasses.replace(c, **over))
 
 
 def get_arch(name: str) -> ArchBundle:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name}: not ported yet (ROADMAP Queue 1 item {_LATER[name]})")
     mod = importlib.import_module(_MODULES[name])
     return ArchBundle(name=name, family=mod.FAMILY, config=mod.CONFIG,
                       optimizer=getattr(mod, "OPTIMIZER", "adamw"),

@@ -46,18 +46,34 @@ def batch_rows(ctx, B: int) -> tuple[int, int] | None:
     return ctx.dp_rank * (B // dp), B // dp
 
 
+def batch_size(batch: dict) -> int:
+    """The batch's rows B: ``tokens``' where it has them, else its first
+    array's leading dim."""
+    return (batch["tokens"] if "tokens" in batch else next(iter(batch.values()))).shape[0]
+
+
+def batch_row_slice(batch: dict, lo: int, n: int) -> dict:
+    """Rows ``[lo, lo + n)`` of every array of a batch: on the batch axis,
+    which is axis 0 but for M-RoPE's ``positions_thw`` [3, B, S] (axis 1);
+    ``vision_mask`` [S] has none and stays whole."""
+    def rows(k, v):
+        if k == "vision_mask":
+            return v
+        return v[:, lo:lo + n] if k == "positions_thw" else v[lo:lo + n]
+    return {k: rows(k, v) for k, v in batch.items()}
+
+
 def shard_batch(batch: dict, ctx) -> dict:
     """Data replica ``ctx.dp_rank``'s rows of every array of a global batch
-    (leading dim B; :func:`batch_rows`): the dict itself where the batch
-    stays whole.  A DLRM batch (it has ``indices``) splits over the world
-    (:func:`shard_dlrm_batch`)."""
+    (:func:`batch_size`, :func:`batch_rows`, :func:`batch_row_slice`): the
+    dict itself where the batch stays whole.  A DLRM batch (it has
+    ``indices``) splits over the world (:func:`shard_dlrm_batch`)."""
     if "indices" in batch:
         return shard_dlrm_batch(batch, ctx)
-    rows = batch_rows(ctx, next(iter(batch.values())).shape[0])
+    rows = batch_rows(ctx, batch_size(batch))
     if rows is None:
         return batch
-    lo, n = rows
-    return {k: v[lo:lo + n] for k, v in batch.items()}
+    return batch_row_slice(batch, *rows)
 
 
 def shard_dlrm_batch(batch: dict, ctx) -> dict:

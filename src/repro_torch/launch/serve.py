@@ -10,6 +10,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
       --layers 5
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b --paged
   PYTHONPATH=src python -m torch.distributed.run --standalone \
       --nproc-per-node 4 -m repro_torch.launch.serve --tp 4 --fusion fused
   PYTHONPATH=src python -m torch.distributed.run --standalone \
@@ -90,6 +91,12 @@ any ``--tp`` / ``--dp`` in bulk and fused mode and at ``--tp 1`` in kernel
 mode; ``--layers N`` keeps the 3 prefix layers whole and needs N > 3
 (``chip_smoke.py`` serves it at 5); ``--paged`` refuses it, as the
 reference's launcher does (MLA keeps the dense latent cache).
+qwen2-vl-2b (M-RoPE, the stub vision front end) and musicgen-medium (the
+stub audio front end) serve as the dense configs do, dense and ``--paged``,
+at any ``--tp`` / ``--dp`` in bulk and fused mode and at ``--tp 1`` in every
+mode.  Serving is the text phase, as the reference's launcher serves them:
+the engines feed token ids, and M-RoPE rotates by three equal streams at
+each slot's position.
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
 device the default raises.  Weights are random, drawn from a fixed seed.

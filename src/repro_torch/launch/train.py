@@ -29,6 +29,11 @@ rank's losses are its own.
 reduced model's heads of 16 are not a size the flash kernel takes, so a
 card runs kernel mode at full width).
 
+qwen2-vl-2b and musicgen-medium train as the dense configs do, their
+batches carrying the reference launcher's front-end extras (``make_batches``:
+patch embeddings on the first 8 positions with M-RoPE's streams, or frame
+embeddings), bit for bit the reference's.
+
 ``--arch dlrm`` trains DLRM on ``DLRMBatches`` of ``--batch`` rows (``--seq``
 unused) in bulk or fused mode, at any ``--tp`` and ``--dp``: its tables split
 over all ``dp * tp`` ranks, each rank its ``--batch / (dp * tp)`` rows.
@@ -99,6 +104,7 @@ import dataclasses
 import json
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import Placement
@@ -143,13 +149,35 @@ _NOT_TRAINED = {
 def make_batches(bundle, batch: int, seq: int, seed: int = 0):
     """The reference launcher's batches: numpy ``LMBatches`` over a
     transformer's vocabulary, ``DLRMBatches`` of DLRM's tables (``seq``
-    unused)."""
+    unused).  A front end's extras come from ``default_rng(seed + 7)`` in
+    the reference's order and scale: an audio batch's ``frame_embeds`` [B,
+    S, D], a vision batch's ``vision_embeds`` [B, S, D] on the first
+    ``min(8, S)`` positions (``vision_mask`` [S]) with ``positions_thw`` [3,
+    B, S] three equal streams of ``arange(S)``."""
     cfg = bundle.config
     if bundle.family == "dlrm":
         return DLRMBatches(cfg.n_tables, cfg.table_vocab, cfg.pooling, cfg.n_dense, batch, seed)
     if bundle.family != "transformer":
         raise NotImplementedError(f"{bundle.name}: {_NOT_TRAINED[bundle.family]}")
-    return LMBatches(cfg.vocab, batch, seq, seed)
+    base = LMBatches(cfg.vocab, batch, seq, seed)
+    if cfg.frontend is None:
+        return base
+    return _with_frontend(base, cfg, batch, seq, seed)
+
+
+def _with_frontend(base, cfg, batch: int, seq: int, seed: int):
+    rng = np.random.default_rng(seed + 7)
+    for b in base:
+        if cfg.frontend == "audio":
+            b["frame_embeds"] = rng.standard_normal(
+                (batch, seq, cfg.d_model)).astype(np.float32) * 0.02
+        if cfg.frontend == "vision":
+            b["vision_embeds"] = rng.standard_normal(
+                (batch, seq, cfg.d_model)).astype(np.float32) * 0.02
+            b["vision_mask"] = np.arange(seq) < min(8, seq)
+            b["positions_thw"] = np.tile(np.arange(seq, dtype=np.int32)[None, None],
+                                         (3, batch, 1))
+        yield b
 
 
 def build_parser():

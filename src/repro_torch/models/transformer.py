@@ -1,12 +1,20 @@
 """Decoder-only LM training, prefill and decode for GQA and MLA transformers.
 
-The JAX package's unified decoder also covers M-RoPE and the audio/vision
-front ends, and scans its layers with ``lax.scan``.  This port runs GQA
-decode, prefill and the training forward (``train_forward``: the loss,
-differentiated by autograd) with a dense or a MoE FFN, and a Python loop
-over the layers; MLA (``models/mla.py``) with its dense-prefix layers and
-the MoE layer's shared expert (deepseek-v3) decodes and prefills; a config
-that needs the rest raises until its slice lands.  Decode keeps the
+The JAX package's unified decoder scans its layers with ``lax.scan``.  This
+port runs GQA decode, prefill and the training forward (``train_forward``:
+the loss, differentiated by autograd) with a dense or a MoE FFN, and a
+Python loop over the layers; MLA (``models/mla.py``) with its dense-prefix
+layers and the MoE layer's shared expert (deepseek-v3) decodes and
+prefills, and trains in a later slice.
+
+The stub front ends (``models/frontends.py``) reach the model through the
+batch, as in the reference: a vision batch's ``vision_embeds`` [B, S, D]
+replace the token embeddings where ``vision_mask`` [S] is set, an audio
+batch's ``frame_embeds`` [B, S, D] are added to them, and an M-RoPE config
+(qwen2-vl) rotates by the batch's ``positions_thw`` [3, B, S] in prefill and
+training.  The batch is whole on every rank: each rank takes its rows and
+its sequence chunk of every extra.  Decode and paged serving are the text
+phase: their positions go to M-RoPE as three equal streams.  Decode keeps the
 reference's layouts: a per-layer cache slice is [B, S_max, Hkv, hd] (MLA's:
 the latents c [B, S_max, kv_lora] and kr [B, S_max, rope]), ``pos`` a [B]
 int32 vector, logits [B, 1, V] in f32.
@@ -78,7 +86,7 @@ from repro_torch.models.layers import (embedding_init, embedding_lookup, mlp_app
 from repro_torch.models.mla import (MLA_PARAM_SPECS, mla_context_attention,
                                     mla_decode_attention, mla_init, mla_latents_for_cache)
 from repro_torch.models.moe import MOE_PARAM_SPECS, SHARED_PARAM_SPECS, moe_apply, moe_init
-from repro_torch.models.rope import apply_rope, apply_rope_2d
+from repro_torch.models.rope import apply_mrope, apply_rope, apply_rope_2d
 from repro_torch.core.degrade import Pins, pinned
 from repro_torch.data.pipeline import batch_rows, shard_batch
 from repro_torch.parallel.sharding import ParallelContext, shard_leaf
@@ -173,10 +181,8 @@ class TransformerConfig:
 
 
 def check_supported(cfg: TransformerConfig, tp: int = 1):
-    """Raise for the parts of the reference decoder this slice has not
-    ported, so that no config field is silently ignored, and for widths tp
-    does not divide."""
-    missing = []
+    """Raise for a config field the port does not know, so that none is
+    silently ignored, and for widths tp does not divide."""
     for name in ("vocab", "d_ff", "max_seq"):
         if getattr(cfg, name) % tp:
             raise ValueError(f"{cfg.name}: tp={tp} does not divide {name}={getattr(cfg, name)}")
@@ -186,12 +192,10 @@ def check_supported(cfg: TransformerConfig, tp: int = 1):
         raise ValueError(f"{cfg.name}: attn_type={cfg.attn_type!r} with mla={cfg.mla!r}")
     if not 0 <= cfg.dense_prefix <= cfg.n_layers:
         raise ValueError(f"{cfg.name}: dense_prefix={cfg.dense_prefix} of {cfg.n_layers} layers")
-    if cfg.rope_style not in ("full", "2d"):
-        missing.append(f"rope_style={cfg.rope_style!r} (ROADMAP Queue 1 item 7)")
-    if cfg.frontend is not None:
-        missing.append(f"frontend={cfg.frontend!r} (ROADMAP Queue 1 item 7)")
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
+    if cfg.rope_style not in ("full", "2d", "mrope"):
+        raise ValueError(f"{cfg.name}: rope_style={cfg.rope_style!r}")
+    if cfg.frontend not in (None, "audio", "vision"):
+        raise ValueError(f"{cfg.name}: frontend={cfg.frontend!r}")
 
 
 def check_trainable(cfg: TransformerConfig, tp: int = 1):
@@ -343,20 +347,43 @@ def _layer_train(ctx, cfg: TransformerConfig, lp, x, positions, window, collect_
     return x + f, kv
 
 
+def _seq_chunk(ctx: ParallelContext, S: int) -> slice:
+    """This rank's positions ``[d S / tp, (d + 1) S / tp)`` of a sequence of S."""
+    n, d = ctx.tp, ctx.tp_rank
+    return slice(d * (S // n), (d + 1) * (S // n))
+
+
 def _embed_inputs(ctx, params, cfg: TransformerConfig, batch, fsdp=False):
-    """tokens -> x [B, S, D], sequence-sharded (the front ends raise in
-    ``check_supported``); ``fsdp``: the table is a training shard, gathered
+    """tokens and the front end's embeddings -> x [B, S / tp, D], this
+    rank's sequence chunk (the batch holds this replica's rows: rows and
+    chunk are cut from each extra here, as the reference's global arrays
+    are placed by GSPMD); ``fsdp``: the table is a training shard, gathered
     over data for the lookup."""
+    tokens = batch["tokens"]
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
     embed = gather_layer(ctx, params["embed"]) if fsdp else params["embed"]
-    x = embedding_lookup(ctx, embed, batch["tokens"], seq_shard=True, scale=scale)
-    return x.to(cfg.cdtype)
+    x = embedding_lookup(ctx, embed, tokens, seq_shard=True, scale=scale).to(cfg.cdtype)
+    chunk = _seq_chunk(ctx, tokens.shape[1])
+    if cfg.frontend == "vision" and "vision_embeds" in batch:
+        is_v = batch["vision_mask"][chunk]
+        x = torch.where(is_v[None, :, None], batch["vision_embeds"][:, chunk].to(cfg.cdtype), x)
+    if cfg.frontend == "audio" and "frame_embeds" in batch:
+        x = x + batch["frame_embeds"][:, chunk].to(cfg.cdtype)
+    return x
 
 
-def _positions_for(S, device, ctx: ParallelContext | None = None):
-    """This rank's positions [1, S / tp] of a sequence of S."""
-    n, d = (1, 0) if ctx is None else (ctx.tp, ctx.tp_rank)
-    return torch.arange(d * (S // n), (d + 1) * (S // n), device=device)[None, :]
+def _positions_for(ctx: ParallelContext, cfg: TransformerConfig, batch):
+    """This rank's positions of the batch's sequence of S: M-RoPE's streams
+    ``positions_thw[:, :, chunk]`` [3, B, S / tp] (the batch holds this
+    replica's rows), else [1, S / tp]."""
+    tokens = batch["tokens"]
+    chunk = _seq_chunk(ctx, tokens.shape[1])
+    if cfg.rope_style == "mrope":
+        if "positions_thw" not in batch:
+            raise ValueError(f"{cfg.name}: M-RoPE needs the batch's positions_thw [3, B, S] "
+                             f"(models.frontends.mrope_positions)")
+        return batch["positions_thw"][:, :, chunk]
+    return torch.arange(chunk.start, chunk.stop, device=tokens.device)[None, :]
 
 
 def _group_train(ctx, cfg, layers, x, positions, first):
@@ -370,10 +397,11 @@ def _group_train(ctx, cfg, layers, x, positions, first):
 
 
 def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
-    """batch: {"tokens" [B, S], "labels" [B, S]}, whole on every rank -> the
-    scalar mean token cross-entropy over the B x S tokens, the same on every
-    rank, for autograd.  At tp > 1 rank d runs positions ``[d S / tp, (d +
-    1) S / tp)`` (S must be a multiple of tp), as the prefill does, and
+    """batch: {"tokens" [B, S], "labels" [B, S], and the front end's extras},
+    whole on every rank -> the scalar mean token cross-entropy over the B x
+    S tokens, the same on every rank, for autograd.  At tp > 1 rank d runs
+    positions ``[d S / tp, (d + 1) S / tp)`` (S must be a multiple of tp),
+    as the prefill does, and
     this rank's gradients are its shards' (a leaf whole on every rank gets
     this rank's partial: ``train/step.py`` sums those over the ranks).  At
     dp > 1 (dp must divide B) a replica runs its ``B / dp`` rows
@@ -399,9 +427,8 @@ def train_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
             raise ValueError(f"{cfg.name}: training at dp={ctx.dp} splits the batch's {B} rows "
                              f"over the replicas: B must be a multiple of dp")
         batch = shard_batch(batch, ctx)
-        tokens = batch["tokens"]
     x = _embed_inputs(ctx, params, cfg, batch, fsdp)
-    positions = _positions_for(S, tokens.device, ctx)
+    positions = _positions_for(ctx, cfg, batch)
     period = cfg.local_global_period or 1
     group = []
     for i, lp in enumerate(params["layers"]):      # any iterable of layer dicts
@@ -429,8 +456,8 @@ def _pinned_group(pins, ctx, cfg, layers, x, positions, first):
 
 
 def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch):
-    """Inference prefill: forward over the prompt {"tokens": [B, S]} (every
-    rank the whole prompt), returning last-position logits [B, 1, V] f32,
+    """Inference prefill: forward over the prompt {"tokens": [B, S], and the
+    front end's extras} (every rank the whole prompt), returning last-position logits [B, 1, V] f32,
     the same on every rank, and this rank's chunk of the cache {"k", "v"},
     each [L, B, S / tp, Hkv, hd] at the compute dtype (MLA's {"c", "kr"},
     [L, B, S / tp, kv_lora] and [L, B, S / tp, rope]; at dp > 1 where dp
@@ -440,13 +467,12 @@ def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch)
     check_supported(cfg, ctx.tp)
     split = batch_rows(ctx, batch["tokens"].shape[0]) is not None
     batch = shard_batch(batch, ctx)
-    tokens = batch["tokens"]
-    S, n = tokens.shape[1], ctx.tp
+    S, n = batch["tokens"].shape[1], ctx.tp
     if S % n:
         raise ValueError(f"{cfg.name}: a prefill at tp={n} shards the prompt's {S} positions "
                          f"over the ranks: S must be a multiple of tp")
     x = _embed_inputs(ctx, params, cfg, batch)
-    positions = _positions_for(S, tokens.device, ctx)
+    positions = _positions_for(ctx, cfg, batch)
     parts: dict[str, list] = {}
     for lp, window in decoder_layers(params, cfg):
         x, kv = _layer_train(ctx, cfg, lp, x, positions, window, collect_kv=True)
@@ -491,7 +517,18 @@ def init_cache(cfg: TransformerConfig, batch_size: int, device, tp: int = 1, dp:
 def _apply_rope_any(cfg, x, positions):
     if cfg.rope_style == "2d":
         return apply_rope_2d(x, positions, theta=cfg.rope_theta)
+    if cfg.rope_style == "mrope":
+        return apply_mrope(x, positions, theta=cfg.rope_theta, sections=cfg.mrope_sections)
     return apply_rope(x, positions, theta=cfg.rope_theta)
+
+
+def _text_positions(cfg, positions):
+    """Decode's and serving's [B, C] positions, as M-RoPE's three equal
+    streams [3, B, C] where the config has it (the text phase, as in the
+    reference): a view, nothing read back from the device."""
+    if cfg.rope_style == "mrope":
+        return positions[None].expand(3, *positions.shape)
+    return positions
 
 
 def _attn_decode(ctx, cfg: TransformerConfig, lp, x, layer_cache, pos, window):
@@ -512,7 +549,7 @@ def _attn_decode(ctx, cfg: TransformerConfig, lp, x, layer_cache, pos, window):
     q = q.reshape(B, 1, Hq, hd)
     k = k.reshape(B, 1, Hkv, hd)
     v = v.reshape(B, 1, Hkv, hd)
-    positions = pos[:, None]                         # [B, 1] per-slot
+    positions = _text_positions(cfg, pos[:, None])   # [B, 1] per-slot
     q = _apply_rope_any(cfg, q, positions)
     k = _apply_rope_any(cfg, k, positions)
     cache_update(ctx, layer_cache["k"], k, pos)
@@ -615,8 +652,9 @@ def _attn_serve(ctx, cfg: TransformerConfig, lp, x, k_pool, v_pool, tables, posi
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     qkv = h @ lp["attn"]["w_qkv"]
     q, k, v = torch.split(qkv, [Hq * hd, Hkv * hd, Hkv * hd], dim=-1)
-    q = _apply_rope_any(cfg, q.reshape(B, C, Hq, hd), positions)
-    k = _apply_rope_any(cfg, k.reshape(B, C, Hkv, hd), positions)
+    rpos = _text_positions(cfg, positions)
+    q = _apply_rope_any(cfg, q.reshape(B, C, Hq, hd), rpos)
+    k = _apply_rope_any(cfg, k.reshape(B, C, Hkv, hd), rpos)
     v = v.reshape(B, C, Hkv, hd)
     paged_cache_update(ctx, k_pool, k, tables, positions, valid)
     paged_cache_update(ctx, v_pool, v, tables, positions, valid)

@@ -39,6 +39,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.data.pipeline import batch_row_slice, batch_size
 from repro_torch.train.grad_compression import (CompressionConfig, compress_decompress,
                                                 init_residuals)
 from repro_torch.core.collectives import all_reduce_grads
@@ -91,10 +92,8 @@ def build_train_step(loss_fn: Callable, tc: TrainConfig, *, ctx=None, param_spec
     specs = spec_leaves(param_specs) if world else None
 
     def split_micro(batch, i):
-        def sl(x):
-            mb = x.shape[0] // tc.microbatches
-            return x[i * mb:(i + 1) * mb]
-        return {k: sl(v) for k, v in batch.items()}
+        mb = batch_size(batch) // tc.microbatches
+        return batch_row_slice(batch, i * mb, mb)
 
     def train_step(state, batch):
         params = state["params"]

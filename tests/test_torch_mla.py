@@ -444,10 +444,10 @@ def test_launcher_layers_keep_the_dense_prefix():
         launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--paged"])
 
 
-@pytest.mark.parametrize("what", ["paged_pool", "serve_step", "train", "mrope", "frontend"])
+@pytest.mark.parametrize("what", ["paged_pool", "serve_step", "train"])
 def test_what_still_raises(models, what):
-    """Paged MLA (the reference's refusal), MLA training (ROADMAP item 7),
-    M-RoPE and the front ends raise, each naming its reason."""
+    """Paged MLA (the reference's refusal) and MLA training (ROADMAP item 7)
+    raise, each naming its reason."""
     _, _, pb, pparams = models
     cfg = pb.config
     if what == "paged_pool":
@@ -458,10 +458,6 @@ def test_what_still_raises(models, what):
         with pytest.raises(NotImplementedError, match="dense latent cache"):
             transformer.serve_step(CPU["bulk"], pparams, cfg, torch.zeros((1, 1), dtype=torch.long),
                                    {}, None, 0, 1)
-    elif what == "train":
+    else:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
             pb.loss_fn(CPU["bulk"])
-    else:
-        over = {"rope_style": "mrope"} if what == "mrope" else {"frontend": "audio"}
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            transformer.init_cache(dataclasses.replace(cfg, **over), 2, "cpu")

@@ -459,17 +459,28 @@ def embedding_seq_task(ctx, table, tokens, schedule, scale=None):
     return embedding_lookup(c, p, t(tokens), seq_shard=True, scale=scale).numpy()
 
 
+def _lm_batch(tokens, labels=None, extras=None):
+    """A global LM batch of tensors: the tokens, the labels where given, and
+    a front end's extras (numpy arrays by name)."""
+    batch = {"tokens": t(tokens)}
+    if labels is not None:
+        batch["labels"] = t(labels)
+    batch.update({k: t(v) for k, v in (extras or {}).items()})
+    return batch
+
+
 @task
-def prefill_task(ctx, tree, tokens, mode, arch="chatglm3-6b", q=1, wire="f32"):
+def prefill_task(ctx, tree, tokens, mode, arch="chatglm3-6b", q=1, wire="f32", extras=None):
     """The reduced ``arch`` from the JAX package's weights (numpy): its
-    prefill of the tokens through ``prefill_fn``; the logits and this
-    rank's chunk of the cache ({"k", "v"}, or MLA's {"c", "kr"})."""
+    prefill of the tokens (and a front end's ``extras``) through
+    ``prefill_fn``; the logits and this rank's chunk of the cache ({"k",
+    "v"}, or MLA's {"c", "kr"})."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.convert import params_from_numpy
 
     c = ctx(mode, granularity=q, wire=wire)
     logits, cache = get_arch(arch).reduced().prefill_fn(c)(params_from_numpy(tree, "cpu", c),
-                                                           {"tokens": t(tokens)})
+                                                           _lm_batch(tokens, extras=extras))
     return (logits.numpy(), *(v.numpy() for v in cache.values()))
 
 
@@ -659,18 +670,19 @@ def _params_from(tree, c, arch):
 
 
 @task
-def loss_grads_task(ctx, tree, tokens, labels, mode, arch="chatglm3-6b", q=1, wire="f32"):
+def loss_grads_task(ctx, tree, tokens, labels, mode, arch="chatglm3-6b", q=1, wire="f32",
+                    extras=None):
     """The reduced ``arch`` from the JAX package's weights: ``loss_fn``'s loss
-    and this rank's gradients, the whole leaves' summed over the ranks
-    (``all_reduce_grads``, as the train step does), in ``tree_leaves``
-    order."""
+    on the tokens (and a front end's ``extras``) and this rank's gradients,
+    the whole leaves' summed over the ranks (``all_reduce_grads``, as the
+    train step does), in ``tree_leaves`` order."""
     from repro_torch.core.collectives import all_reduce_grads
     from repro_torch.train.optimizer import spec_leaves, tree_leaves
 
     c = ctx(mode, granularity=q, wire=wire)
     bundle, params = _params_from(tree, c, arch)
     leaves = tree_leaves(params)
-    loss = bundle.loss_fn(c)(params, {"tokens": t(tokens), "labels": t(labels)})
+    loss = bundle.loss_fn(c)(params, _lm_batch(tokens, labels, extras))
     grads = list(torch.autograd.grad(loss, leaves))
     all_reduce_grads(c, grads, spec_leaves(bundle.param_specs(params)))
     return loss.item(), [g.numpy() for g in grads]
