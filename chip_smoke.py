@@ -199,8 +199,10 @@ prints one line, and any failure exits non-zero:
      distance from exact f32; (c) released after cooldown record_healthy
      calls: 28 launches a step again; (d) the host time of one cache-hit
      resolve (through the memo and through the TuneKey)
- 31. the launcher at tp = 4 (gloo, one card) with --fusion fused
-     --granularity auto --wire auto --calibrate --tune-cache: every rank's
+ 31. (after phase 29) the launcher at tp = 4 (gloo, one card; its main()
+     in 4 of the pool's processes, joined through --coordinator) with
+     --fusion fused --granularity auto --wire auto --calibrate
+     --tune-cache: every rank's
      model and measured decisions and candidate times equal, the cache's
      keys under the gloo link class, the streams phase 28's (or apart first
      at a near tie).  (A second launch from the saved cache was cut for
@@ -285,10 +287,9 @@ prints one line, and any failure exits non-zero:
      memory
  40. the train launcher at tp = 1 (--fusion kernel, full width cut to 2
      layers, 3 steps at lr TRAIN_LR) in this process, the yardstick of the
-     same flags at tp = 2 through torch.distributed.run (--backend gloo),
-     which runs beside phase 43's launchers and is checked there: exit 0,
-     every rank's losses equal, the losses within TRAIN_LOSS_REL of tp =
-     1's.  Phases 38-40 are labelled "one card, N processes, wire staged
+     same flags at tp = 2 (--backend gloo), which runs after phase 43's
+     launchers and is checked there: every rank's losses equal, the losses
+     within TRAIN_LOSS_REL of tp = 1's.  Phases 38-40 are labelled "one card, N processes, wire staged
      through host"
  41. paged serving at tp = 4 and 2 (a spawned gloo world of 4 ranks on the
      card; tp = 2 on its pairs), full-width chatglm3-6b cut to PAGED_TP_LAYERS
@@ -323,13 +324,14 @@ prints one line, and any failure exits non-zero:
      moment bytes a leaf the (1, 2) world's (the pairs) over 2 where the
      leaf splits over data, and a rank's peak memory below the (1, 2)
      world's by at least the bytes that split saves
- 43. the launchers at --dp 2 --tp 2 through torch.distributed.run, both
-     at once: train (phase 40's flags at 2 steps: every rank's losses equal,
-     within TRAIN_LOSS_REL of phase 40's first 2 tp = 1 losses) and serve
-     --paged (full width, fused, 4 requests x 8 tokens: every rank's
-     streams equal, phase 5's or apart first at a near tie), with phase
-     40's train launcher at --tp 2 beside them (its processes' start
-     overlapped with theirs).  Phases 41-43 are labelled "one card, N
+ 43. the launchers at --dp 2 --tp 2, one after the other, each main() in
+     the pool's 4 processes: train (phase 40's flags at 2 steps: every
+     rank's losses equal, within TRAIN_LOSS_REL of phase 40's first 2 tp =
+     1 losses) and serve --paged (full width, fused, 4 requests x 8 tokens:
+     every rank's streams equal, phase 5's or apart first at a near tie),
+     then phase 40's train launcher at --tp 2 in 2 of them.  (Through
+     torch.distributed.run, three launchers at once in 10 processes of
+     their own, they took 43.0 s: cut to no process start.)  Phases 41-43 are labelled "one card, N
      processes, wire staged through host"
  44. (runs after phase 10, on phase 9's weights) the MoE kernels at prefill
      rows: the expert FFN's tile path (tensor cores, C > 8) at dbrx's widths
@@ -363,8 +365,9 @@ prints one line, and any failure exits non-zero:
      f32, the ranks' logits equal, skew 1 bit-identical to skew 0 (every
      leaf but the table), the (2, 2) losses before and after the step
      within TRAIN_LOSS_REL of tp = 1's, the loss falling
- 48. the launchers with --arch dbrx-132b --tp 2 --layers 2 (gloo, fused)
-     through torch.distributed.run, both at once: train 1 step at 2 x 1024
+ 48. the launchers with --arch dbrx-132b --tp 2 --layers 2 (gloo, fused),
+     both at once, each main() in 2 processes of a fresh pool (through
+     torch.distributed.run they took 30.1 s): train 1 step at 2 x 1024
      (every rank's loss equal, finite) and serve 4 requests x 8 tokens through decode EP (every
      rank's streams equal).  Phases 47-48 are labelled "one card, N
      processes, wire staged through host"
@@ -492,12 +495,27 @@ prints one line, and any failure exits non-zero:
      the CUDA-core path, head size 64) and times (the flash kernel at
      [4,2048,24,64], the fused GEMV at [4,6144]@[6144,1536]), and (d) at
      16 x 64 tokens
+ 63. zamba2-7b training at its published widths, depth cut to 13 Mamba-2
+     blocks (2 groups of 6 and a tail of 1, the reduced model's
+     structure): (a) the loss and every gradient at 4 x 2048 in kernel
+     and bulk mode against an exact f32 evaluation, each leaf's largest
+     error within LOGITS_TOL_FACTOR x bulk's, the loss within
+     LOGITS_TOL_FACTOR x bulk's distance or LOSS_FLOOR's, kernel mode's
+     launches (a CUDA-core flash launch at head size 224 a group, forward
+     and remat; a tile-path fused GEMM a Mamba block's w_out, forward and
+     recompute);
+     (b) the train launcher's 3 AdamW steps at 4 x 2048, lr TRAIN_LR, in
+     each mode: losses falling, every step's within TRAIN_LOSS_REL of
+     bulk's, the launches of every step, the step's split and peak
+     memory; (c) the flash op's analytic backward at [4,2048,32,224]
+     against an exact f32 evaluation (LOGITS_TOL_FACTOR x bulk's autograd)
+     and timed beside SDPA's backward, and the SSD scan's forward and
+     backward at a block's [4,2048,112,64] with its peak
 
 chatglm3-6b's weights are freed before phase 7, dbrx-132b's before phase
 11, DLRM's before phase 15, rwkv6-7b's before phase 19, the prefill's
 before phase 25; phases 28-29 run in processes of their own, each holding
-its shards; phase 30 draws the seed-0 weights again, phase 31 runs in
-processes of its own; phase 33 draws gemma2-27b's, freed after phase 34;
+its shards; phase 30 draws the seed-0 weights again; phase 33 draws gemma2-27b's, freed after phase 34;
 phases 36-37 run in processes of their own (phase 20's logits, exact
 logits and cache stay on the host for phase 36: GLM_PREFILL), phase 37's
 tp = 1 yardsticks draw gemma2's first 4 layers and free them first;
@@ -508,15 +526,18 @@ yardsticks (phase 38's exact gradients stay in a file under build/ until
 phase 42 ends), and phase 43 runs the launchers.  Phases 44-45 run inside
 the dbrx phases, after phase 10, on phase 9's weights; phases 46-51 run
 last, in the order 46, 47, 50, 48, 49, 51, each drawing its own weights
-(phase 47's, 48's and 50's in processes of their own); phases 52-54 run
+(phase 47's and 50's in the pool's processes, 48's in a pool of its
+own); phases 52-54 run
 after them, each drawing its own weights; phases 55-56 after those, their
 workers in processes of their own; phases 57-58 after those, the launcher's
 weights drawn and freed before the phase draws its own; phases 59-60 after
 those, the same way; phases 61-62 last, the same way, each launcher run
-drawing and freeing its own weights.  Phase 29 runs after
-phase 35: its world starts one pool of 4 rank processes (spawn_world) that
-the worlds of phases 36-47 and 50 reuse, each opening and closing its own
-process group; the pool ends after phase 50.
+drawing and freeing its own weights; phase 63 after them, drawing
+its own.  Phase 29 runs after phase 35: its world starts one pool of 4
+rank processes (spawn_world) that the worlds of phases 31, 36-47 and 50
+reuse, each opening and closing its own process group (a launcher's
+main() through --coordinator, pool_launchers); the pool ends after phase
+50, and phase 48 runs in a pool of its own.
 Every line ends with the seconds since the previous line and since the
 start; the end line gives each phase's seconds.  Phases 5, 9 and 17
 and the end print how many launch plans the plan-cached wrappers hold.
@@ -537,7 +558,6 @@ import hashlib
 import json
 import os
 import re
-import signal
 import subprocess
 import sys
 import time
@@ -577,6 +597,13 @@ WIRE_BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 # accurate as the library's lies within twice that of the bulk path; the
 # bound allows three times.
 LOGITS_TOL_FACTOR = 3.0
+# A mean loss against its exact f32 evaluation: each token's loss comes from
+# bf16 logits, which round by 2^-8 relative at most, and the B x S tokens'
+# roundings are independent, so the mean's rounding is about 2^-8 |loss| /
+# sqrt(B x S).  Bulk mode's own distance may fall far below that by chance
+# (zamba2-7b's 13 blocks: one f32 step, 9.5e-07 at 11.08, on an H100), so
+# the bound is LOGITS_TOL_FACTOR x the larger of the two.
+LOSS_FLOOR = 2.0 ** -8
 
 MAIN_B, MAIN_K, MAIN_N = 4, 13696, 4096   # chatglm3-6b w_down, batch 4
 
@@ -1159,8 +1186,10 @@ def main() -> int:
     flash_row.update(flash_ring_phase(card, gen))
     # phase 29 runs here, after the single-card phases 30-35 (whose peaks want
     # the card's memory), and its world starts the pool of rank processes
-    # that phases 36-47 reuse
+    # that phases 31 and 36-50 reuse
     tp_phases(card)
+    # phase 31's launcher runs in the pool phase 29 started
+    autotune_world_phase(card)
     flash_row.update(ring_prefill_phase(card))
     flash_row.update(gemma2_ring_phase(card, gen))
     torch.cuda.empty_cache()
@@ -1192,8 +1221,12 @@ def main() -> int:
     # in training (phase 49)
     pool_row = next(k_ for k_ in kernels if k_["name"] == "embedding_pool")
     pool_row.update(dlrm_world_phase(card))
+    # phase 48's launchers run in a pool of their own: in the pool phases
+    # 29-50 had used, its train launcher ran out of memory on an H100 80GB
+    # HBM3, in a fresh one it did not
     stop_pool()
     dbrx_launcher_phase(card)
+    stop_pool()
     torch.cuda.empty_cache()
     pool_row.update(dlrm_train_phase(card))
     torch.cuda.empty_cache()
@@ -1219,6 +1252,11 @@ def main() -> int:
     # the flash and fused rows gain their numbers at qwen2-vl-2b's and
     # musicgen-medium's shapes (phases 61-62)
     for name, extra in frontend_phases(card).items():
+        next(k_ for k_ in kernels if k_["name"] == name).update(extra)
+    torch.cuda.empty_cache()
+    # the flash and fused rows gain their numbers of zamba2-7b's training
+    # (phase 63)
+    for name, extra in zamba2_train_phase(card).items():
         next(k_ for k_ in kernels if k_["name"] == name).update(extra)
     say("end", f"plans cached: {plan_counts()}; seconds per phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}))
@@ -3895,39 +3933,97 @@ def near_tie_notes(label, streams) -> list[str]:
         [streams[u] for u in range(len(streams5))], streams5, chose, GLM_DECODE["logits_tol"])]
 
 
-def stop_group(proc) -> None:
-    """Kill a launcher started in a session of its own, with its workers,
-    if it is still running."""
-    if proc.poll() is None:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-
-
 def launcher_world_run(mode, extra=(), tp=TP_WORLD, dp=1) -> dict:
-    """The serve launcher at (dp, tp) (dp * tp processes) on the one card
-    through its entry point, with the flags ``extra`` added."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    """The serve launcher at (dp, tp) (dp * tp of the pool's processes) on
+    the one card through its entry point, with the flags ``extra`` added."""
     world = dp * tp
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(world), "-m", "repro_torch.launch.serve", "--tp", str(tp), "--dp", str(dp),
-           "--backend", "gloo", "--fusion", mode, "--requests", "4", "--batch", "4",
-           "--max-new", "8", *extra]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    served = re.search(r"\(([\d.]+) tok/s, (\d+) steps, ([\d.]+) ms/step", proc.stdout)
-    if (proc.returncode or served is None
-            or f"all {world} ranks' token streams equal: True" not in proc.stdout):
-        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
-        raise AssertionError(f"launcher at dp={dp}, tp={tp} {mode}: exit {proc.returncode}")
+    argv = ["--tp", str(tp), "--dp", str(dp), "--backend", "gloo", "--fusion", mode,
+            "--requests", "4", "--batch", "4", "--max-new", "8", *extra]
+    run = pool_launchers([("serve", argv, world)])[0]
+    out = run["out"]
+    served = re.search(r"\(([\d.]+) tok/s, (\d+) steps, ([\d.]+) ms/step", out)
+    if served is None or f"all {world} ranks' token streams equal: True" not in out:
+        print(out[-4000:], file=sys.stderr)
+        raise AssertionError(f"launcher at dp={dp}, tp={tp} {mode}: no drain reported")
     streams = {int(u): json.loads(t_) for u, t_ in
-               re.findall(r"req (\d+): prompt .* -> (\[.*\])", proc.stdout)}
+               re.findall(r"req (\d+): prompt .* -> (\[.*\])", out)}
     return {"tok_s": float(served[1]), "steps": int(served[2]), "ms_step": float(served[3]),
-            "streams": streams, "wall": wall, "out": proc.stdout}
+            "streams": streams, "wall": run["wall"], "out": out}
 
 
-# The rank processes of the spawned worlds (phases 29 and 36-47): started
+def launcher_rank(rank, module, argv, out):
+    """A pool process as one rank of a launcher's world (phases 31, 43 and
+    48): ``repro_torch.launch.<module>.main(argv)``, which joins its world
+    through ``--coordinator`` (``launch/distributed.py``: a process that
+    torch.distributed.run did not start), from what a fresh process holds
+    (no autotune decision, degradation policy or wire-fault hook).  Puts
+    the rank's standard output on ``out``."""
+    import contextlib
+    import importlib
+    import io
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import autotune
+    from repro_torch.core.collectives import set_wire_fault_hook
+    from repro_torch.core.degrade import set_degradation_policy
+
+    autotune.clear_cache()
+    set_wire_fault_hook(None)
+    set_degradation_policy(None)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module(f"repro_torch.launch.{module}").main(argv)
+    except (Exception, SystemExit):    # the caller shows the rank's output and traceback
+        out.put((rank, "err", buf.getvalue()[-4000:] + traceback.format_exc()))
+        return
+    out.put((rank, "ok", buf.getvalue()))
+
+
+def pool_launchers(jobs) -> list[dict]:
+    """Each ``(module, argv, ranks)`` of ``jobs`` as a launcher world of its
+    own on ``ranks`` of the pool's processes (started here if it is not
+    running), all at once, sharing the card; each world joins through its
+    own ``--coordinator`` port.  Returns each world's standard output (its
+    ranks' in rank order) and the seconds to its last rank's end.  The
+    launchers run in processes that hold torch and a CUDA context already:
+    no process start (what phases 31, 43 and 48 paid with
+    torch.distributed.run)."""
+    import socket
+
+    if not POOL:
+        start_pool()
+    if sum(n for *_, n in jobs) > POOL_SIZE:
+        raise ValueError(f"{jobs}: more ranks than the pool's {POOL_SIZE} processes")
+    owner, first = {}, 0
+    t0 = time.perf_counter()
+    for j, (module, argv, n) in enumerate(jobs):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        for r in range(n):
+            join = ["--coordinator", f"localhost:{port}", "--num-processes", str(n),
+                    "--process-id", str(r)]
+            POOL["tasks"][first + r].put((launcher_rank, (module, list(argv) + join)))
+            owner[first + r] = (j, r)
+        first += n
+    texts, ends, idle = [dict() for _ in jobs], [0.0] * len(jobs), set()
+    while len(idle) < first:
+        prank, status, value = POOL["out"].get(timeout=600)
+        if status == "idle":
+            idle.add(prank)
+            continue
+        j, r = owner[prank]
+        if status != "ok":
+            raise AssertionError(f"the {jobs[j][0]} launcher {jobs[j][1]}, rank {r}:\n{value}")
+        texts[j][r] = value
+        ends[j] = time.perf_counter() - t0
+    return [{"out": "".join(t_[r] for r in sorted(t_)), "wall": ends[j]}
+            for j, t_ in enumerate(texts)]
+
+
+# The rank processes of the spawned worlds (phases 29, 36-47 and 50) and of
+# the launchers' worlds (phases 31, 43 and 48): started
 # once and handed one world after another, so that a world pays no process
 # start, torch import, CUDA context, kernel-library load or exit of its own
 # (by difference, tens of seconds of each world on one H100 80GB HBM3 when
@@ -4119,9 +4215,8 @@ RESOLVE_CALLS = 20000
 def autotune_phases(card) -> None:
     """Phase 30 (tp = 1, kernel mode: the launcher with 'auto' granularity
     and wire, the FFN down's key quarantined and released, a cache-hit
-    resolve's host time) and phase 31 (the launcher at tp = 4 with
-    --calibrate and a tune cache, then again from the cache).  Needs phases
-    5 and 28 (``GLM_DECODE``)."""
+    resolve's host time; phase 31, the launcher at tp = 4 with --calibrate,
+    is :func:`autotune_world_phase`).  Needs phase 5 (``GLM_DECODE``)."""
     import io
 
     from repro_torch.configs.registry import get_arch
@@ -4239,7 +4334,10 @@ def autotune_phases(card) -> None:
             f"(d) host us a cache-hit call on {card}: "
             + ", ".join(f"{n_} {v:.3f}" for n_, v in us.items()))
 
-    # 31 ----------------------------------------------------------------
+
+def autotune_world_phase(card) -> None:
+    """Phase 31: the serve launcher at tp = 4 in the pool's processes with
+    --calibrate and a tune cache.  Needs phase 5 (``GLM_DECODE``)."""
     import tempfile
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -4267,13 +4365,15 @@ def autotune_phases(card) -> None:
         r["notes"] = near_tie_notes(f"tp={TP_WORLD} auto run {i}", r["streams"])
         r["decisions"] = re.findall(r"decision: (.*)", out)
         summary.append((swept[0].split(": ")[1], [ln for ln in per_rank[0] if "->" in ln]))
-    say(31, f"[{AUTO_LABEL.format(TP_WORLD)}] python -m torch.distributed.run --nproc-per-node "
-            f"{TP_WORLD} -m repro_torch.launch.serve --tp {TP_WORLD} --backend gloo --fusion fused "
+    say(31, f"[{AUTO_LABEL.format(TP_WORLD)}] launch.serve.main(--coordinator ... "
+            f"--num-processes {TP_WORLD}) in {TP_WORLD} of the pool's processes, --tp {TP_WORLD} "
+            f"--backend gloo --fusion fused "
             f"--granularity auto --wire auto --calibrate --tune-cache, full-width chatglm3-6b: "
             f"(a) {summary[0][0]}, every rank's calibration equal; "
             + "; ".join(summary[0][1]) + f"; decisions {runs[0]['decisions']} (link class gloo "
             f"host-staged, provisional; {len(entries)} cache entries under it); {runs[0]['ms_step']:.2f} "
-            f"ms/step, {runs[0]['wall']:.1f} s with start, init and calibration; streams = phase "
+            f"ms/step, {runs[0]['wall']:.1f} s with init and calibration (the pool's processes: "
+            f"no process start); streams = phase "
             f"5's: {[runs[0]['streams'][u] for u in sorted(runs[0]['streams'])] == GLM_DECODE['streams']}"
             + (f" ({'; '.join(runs[0]['notes'])})" if runs[0]["notes"] else ""))
 
@@ -5488,8 +5588,7 @@ def train_tp_step_phase(card) -> dict:
     return row
 
 
-TP2_TRAIN_CMD = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2", "-m",
-                 "repro_torch.launch.train", "--tp", "2", "--backend", "gloo", *TRAIN_TP_LAUNCH]
+TP2_TRAIN_ARGV = ["--tp", "2", "--backend", "gloo", *TRAIN_TP_LAUNCH]
 
 
 def train_tp_launcher_phase(card) -> dict:
@@ -5511,26 +5610,26 @@ def train_tp_launcher_phase(card) -> dict:
     return {}
 
 
-def tp2_train_check(out, err, code, wall) -> str:
-    """Phase 40's launcher at --tp 2 (two processes on the card, run beside
-    phase 43's): it exits 0, says every rank's losses are equal, and its
-    losses are within TRAIN_LOSS_REL of the tp = 1 launcher's on the same
-    flags.  Returns its summary."""
+def tp2_train_check(out, wall) -> str:
+    """Phase 40's launcher at --tp 2 (two of the pool's processes, run after
+    phase 43's): it says every rank's losses are equal, and its losses are
+    within TRAIN_LOSS_REL of the tp = 1 launcher's on the same flags.
+    Returns its summary."""
     want = TRAIN_TP1["launcher_losses"]
     got = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", out)]
-    if code or "all 2 ranks' losses equal: True" not in out:
-        print(out[-4000:], err[-8000:], sep="\n", file=sys.stderr)
-        raise AssertionError(f"train launcher at tp=2: exit {code}")
+    if "all 2 ranks' losses equal: True" not in out:
+        print(out[-4000:], file=sys.stderr)
+        raise AssertionError("train launcher at tp=2: the ranks' losses not checked equal")
     rel = max(abs(a - b) / abs(b) for a, b in zip(got, want)) if len(got) == len(want) else 1.0
     if not rel <= TRAIN_LOSS_REL:
         raise AssertionError(f"train launcher at tp=2: losses {got} against tp = 1's {want}")
     step_s = re.findall(r"\(([\d.]+)s/step\)", out)
-    return (f"phase 40's python -m torch.distributed.run --nproc-per-node 2 -m "
-            f"repro_torch.launch.train --tp 2 --backend gloo {' '.join(TRAIN_TP_LAUNCH)}: exit "
-            f"0, all 2 ranks' losses equal; losses {', '.join(f'{x:.4f}' for x in got)} against "
-            f"tp = 1's {', '.join(f'{x:.4f}' for x in want)} ({rel:.3g} of them at most, bound "
+    return (f"phase 40's launch.train.main(--tp 2 --backend gloo {' '.join(TRAIN_TP_LAUNCH)}) "
+            f"in 2 of the pool's processes: all 2 ranks' losses equal; losses "
+            f"{', '.join(f'{x:.4f}' for x in got)} against tp = 1's "
+            f"{', '.join(f'{x:.4f}' for x in want)} ({rel:.3g} of them at most, bound "
             f"{TRAIN_LOSS_REL}); {step_s[-1] if step_s else '?'} s a step on the host clock "
-            f"(rank 0's average over the run); {wall:.1f} s with the processes' start")
+            f"(rank 0's average over the run); {wall:.1f} s with init")
 
 
 def _pair_params(bundle, ctx, dev):
@@ -6245,57 +6344,44 @@ def data_world_rank(rank, tp, init, settings, inputs, out):
 
 
 def data_launcher_phase(card) -> None:
-    """Phase 43: both launchers at --dp 2 --tp 2 (see the module docstring)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    """Phase 43: both launchers at --dp 2 --tp 2, one after the other in the
+    pool's 4 processes, then phase 40's train launcher at --tp 2 (see the
+    module docstring)."""
     # phase 40's flags at 2 steps: the warm-up's 5 steps keep the lr, and so
     # the losses, of phase 40's first 2 steps
     argv = list(TRAIN_TP_LAUNCH)
     argv[argv.index("--steps") + 1] = "2"
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
-           "-m", "repro_torch.launch.train", "--dp", "2", "--tp", "2", "--backend", "gloo",
-           *argv]
-    # both launchers at once (two worlds of 4 processes on the card), and
-    # phase 40's train launcher at --tp 2 beside them
     t0 = time.perf_counter()
-    train = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                             stderr=subprocess.PIPE, text=True, start_new_session=True)
-    tp2 = subprocess.Popen([sys.executable, *TP2_TRAIN_CMD], cwd=ROOT, env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                           start_new_session=True)
-    try:
-        serve = launcher_world_run("fused", ["--paged"], tp=2, dp=2)
-        out, err = train.communicate(timeout=600)
-        tp2_out, tp2_err = tp2.communicate(timeout=600)
-        tp2_wall = time.perf_counter() - t0
-    finally:
-        stop_group(train)
-        stop_group(tp2)
+    train = pool_launchers([("train", ["--dp", "2", "--tp", "2", "--backend", "gloo", *argv],
+                             4)])[0]
+    serve = launcher_world_run("fused", ["--paged"], tp=2, dp=2)
+    tp2 = pool_launchers([("train", TP2_TRAIN_ARGV, 2)])[0]
     wall = time.perf_counter() - t0
-    tp2_line = tp2_train_check(tp2_out, tp2_err, tp2.returncode, tp2_wall)
+    tp2_line = tp2_train_check(tp2["out"], tp2["wall"])
+    out = train["out"]
     got = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", out)]
     want = TRAIN_TP1["launcher_losses"][:2]
-    if train.returncode or "all 4 ranks' losses equal: True" not in out:
-        print(out[-4000:], err[-8000:], sep="\n", file=sys.stderr)
-        raise AssertionError(f"train launcher at dp=2 tp=2: exit {train.returncode}")
+    if "all 4 ranks' losses equal: True" not in out:
+        print(out[-4000:], file=sys.stderr)
+        raise AssertionError("train launcher at dp=2 tp=2: the ranks' losses not checked equal")
     rel = max(abs(a - b) / abs(b) for a, b in zip(got, want)) if len(got) == len(want) else 1.0
     if not rel <= TRAIN_LOSS_REL:
         raise AssertionError(f"train launcher at dp=2 tp=2: losses {got} against tp = 1's {want}")
     step_s = re.findall(r"\(([\d.]+)s/step\)", out)
     notes = near_tie_notes("dp=2 tp=2 paged", serve["streams"])
-    say(43, f"[{TP_LABEL.format(4)}] python -m torch.distributed.run --nproc-per-node 4 -m "
-            f"repro_torch.launch.train --dp 2 --tp 2 --backend gloo {' '.join(argv)}: "
-            f"exit 0, all 4 ranks' losses equal; losses {', '.join(f'{x:.4f}' for x in got)} "
-            f"against tp = 1's {', '.join(f'{x:.4f}' for x in want)} ({rel:.3g} of them at most, "
-            f"bound {TRAIN_LOSS_REL}); {step_s[-1] if step_s else '?'} s a step on the host clock; "
-            f"{wall:.1f} s with start, beside the serve launcher (both at once); -m "
-            f"repro_torch.launch.serve --dp 2 --tp 2 --paged --fusion "
-            f"fused (full width, 4 requests x 8 tokens, batch 4): all 4 ranks' streams equal, "
-            f"{serve['ms_step']:.2f} ms/step ({serve['steps']} steps, {serve['wall']:.1f} s with "
-            f"start and init), streams {[serve['streams'][u] for u in sorted(serve['streams'])]}; "
-            f"= tp 1 kernel mode (phase 5): "
-            f"{[serve['streams'][u] for u in sorted(serve['streams'])] == GLM_DECODE['streams']}"
-            + (f" ({'; '.join(notes)})" if notes else "") + f"; beside them {tp2_line}")
+    say(43, f"[{TP_LABEL.format(4)}] launch.train.main(--dp 2 --tp 2 --backend gloo "
+            f"{' '.join(argv)}) in the pool's 4 processes: all 4 ranks' losses equal; losses "
+            f"{', '.join(f'{x:.4f}' for x in got)} against tp = 1's "
+            f"{', '.join(f'{x:.4f}' for x in want)} ({rel:.3g} of them at most, bound "
+            f"{TRAIN_LOSS_REL}); {step_s[-1] if step_s else '?'} s a step on the host clock; "
+            f"{train['wall']:.1f} s with init; then launch.serve.main(--dp 2 --tp 2 --paged "
+            f"--fusion fused) (full width, 4 requests x 8 tokens, batch 4): all 4 ranks' "
+            f"streams equal, {serve['ms_step']:.2f} ms/step ({serve['steps']} steps, "
+            f"{serve['wall']:.1f} s with init), streams "
+            f"{[serve['streams'][u] for u in sorted(serve['streams'])]}; = tp 1 kernel mode "
+            f"(phase 5): {[serve['streams'][u] for u in sorted(serve['streams'])] == GLM_DECODE['streams']}"
+            + (f" ({'; '.join(notes)})" if notes else "") + f"; then {tp2_line}; "
+            f"{wall:.1f} s in all, no process started")
 
 
 # ---------------------------------------------------------------------------
@@ -7157,52 +7243,33 @@ def dbrx_world_rank(rank, tp, init, settings, inputs, out):
 
 
 def dbrx_launcher_phase(card) -> None:
-    """Phase 48: the launchers with dbrx-132b at tp = 2 through
-    torch.distributed.run (gloo, fused mode, full width cut to WORLD_LAYERS
-    layers): train (1 step at 2 x 1024; every rank's loss equal, finite)
-    and serve (4 requests x 8 tokens through decode EP; every rank's streams
-    equal)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    head = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-            "2", "-m"]
+    """Phase 48: the launchers with dbrx-132b at tp = 2, each in 2 of the
+    pool's processes, both at once (gloo, fused mode, full width cut to
+    WORLD_LAYERS layers): train (1 step at 2 x 1024; every rank's loss
+    equal, finite) and serve (4 requests x 8 tokens through decode EP; every
+    rank's streams equal)."""
     common = ["--arch", "dbrx-132b", "--tp", "2", "--layers", str(WORLD_LAYERS), "--backend",
               "gloo", "--fusion", "fused"]
-    # both launchers at once (two worlds of 2 processes on the card)
-    jobs = {}
-    for what, extra, ok in (
-            ("train", ["--steps", "1", "--batch", "2", "--seq", "1024", "--lr", TRAIN_LR,
-                       "--log-every", "1"], "all 2 ranks' losses equal: True"),
-            ("serve", ["--requests", "4", "--batch", "4", "--max-new", "8"],
-             "all 2 ranks' token streams equal: True")):
-        jobs[what] = (subprocess.Popen(head + [f"repro_torch.launch.{what}"] + common + extra,
-                                       cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                                       stderr=subprocess.PIPE, text=True,
-                                       start_new_session=True), ok)
-    t0 = time.perf_counter()
-    runs = {}
-    try:
-        for what, (proc, ok) in jobs.items():
-            out, err = proc.communicate(timeout=600)
-            runs[what] = (out, time.perf_counter() - t0)
-            if proc.returncode or ok not in out:
-                print(out[-4000:], err[-8000:], sep="\n", file=sys.stderr)
-                raise AssertionError(f"the {what} launcher at --tp 2: exit {proc.returncode}")
-    finally:
-        for proc, _ in jobs.values():
-            stop_group(proc)
-    losses = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", runs["train"][0])]
+    train, serve = pool_launchers([
+        ("train", common + ["--steps", "1", "--batch", "2", "--seq", "1024", "--lr", TRAIN_LR,
+                            "--log-every", "1"], 2),
+        ("serve", common + ["--requests", "4", "--batch", "4", "--max-new", "8"], 2)])
+    for what, run, ok in (("train", train, "all 2 ranks' losses equal: True"),
+                          ("serve", serve, "all 2 ranks' token streams equal: True")):
+        if ok not in run["out"]:
+            print(run["out"][-4000:], file=sys.stderr)
+            raise AssertionError(f"the {what} launcher at --tp 2: {ok!r} not said")
+    losses = [float(x) for x in re.findall(r"step +\d+ loss ([\d.]+)", train["out"])]
     if len(losses) != 1 or not all(x == x and abs(x) < float("inf") for x in losses):
         raise AssertionError(f"the train launcher's losses: {losses}")
-    served = re.search(r"served .*", runs["serve"][0])
-    streams = re.findall(r"req \d+: prompt .* -> \[.*\]", runs["serve"][0])
+    served = re.search(r"served .*", serve["out"])
+    streams = re.findall(r"req \d+: prompt .* -> \[.*\]", serve["out"])
     say(48, f"[{TP_LABEL.format(2)}] the launchers with --arch dbrx-132b --tp 2 --layers "
-            f"{WORLD_LAYERS} --backend gloo --fusion fused through torch.distributed.run: "
-            f"train 1 step at 2x1024, loss {', '.join(f'{x:.4f}' for x in losses)}, both "
-            f"ranks' equal ({runs['train'][1]:.0f} s with start-up, both launchers at once); "
-            f"serve (decode EP): "
-            f"{served[0] if served else '?'}, both ranks' streams equal, {streams} "
-            f"({runs['serve'][1]:.0f} s with start-up)")
+            f"{WORLD_LAYERS} --backend gloo --fusion fused, each main() in 2 of the pool's "
+            f"processes: train 1 step at 2x1024, loss {', '.join(f'{x:.4f}' for x in losses)}, "
+            f"both ranks' equal ({train['wall']:.0f} s with init, both launchers at once); "
+            f"serve (decode EP): {served[0] if served else '?'}, both ranks' streams equal, "
+            f"{streams} ({serve['wall']:.0f} s with init)")
 
 
 # DLRM training and its world (phases 49-51), at the paper's widths (tables of
@@ -9088,6 +9155,241 @@ def zamba2_phases(card) -> dict:
             "zamba2_library_ms": min(fl_t["sdpa"]),
             "zamba2_max_abs_err": flash_errs["main"][0][0]},
         "fused_matmul_allreduce": fused_row,
+    }
+
+
+# zamba2-7b training (phase 63): its published widths, depth cut to
+# ZAMBA_TRAIN_LAYERS Mamba-2 blocks, two groups of 6 (each with the shared
+# block and its LoRA) and a tail of 1, the reduced model's structure (1.67 G
+# parameters; with the gradient and AdamW's f32 moments about 20 GB: all 81
+# blocks would need about 80 GB).  A loss with every gradient at
+# ZAMBA_TRAIN_B x ZAMBA_TRAIN_S in kernel and bulk mode against an exact f32
+# evaluation, then the train launcher's ZAMBA_TRAIN_STEPS AdamW steps in
+# each mode at lr TRAIN_LR (the reference's fields: AdamW, one microbatch)
+ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_B, ZAMBA_TRAIN_S, ZAMBA_TRAIN_STEPS = 13, 4, 2048, 3
+
+
+def zamba2_train_counts(cfg, steps=1):
+    """The launches of ``steps`` kernel-mode zamba2 training steps: a flash
+    launch (CUDA cores, head size 224) a group in the forward and again in
+    its remat recompute; a tile-path fused GEMM a Mamba block's ``w_out`` in
+    the forward and again for each group's blocks in the recompute (the
+    backward of both is plain)."""
+    flash = 2 * cfg.n_groups * steps
+    fused = (cfg.n_layers + cfg.n_groups * cfg.attn_every) * steps
+    return {"flash_attention": flash, "flash_attention.cuda_core": flash,
+            "flash_attention.tile": 0, "fused_matmul_allreduce": fused,
+            "fused_matmul_allreduce.tile": fused}
+
+
+def zamba2_train_phase(card) -> dict:
+    """Phase 63: zamba2-7b training on one card (see ZAMBA_TRAIN_LAYERS).
+    (a) the loss and every gradient in kernel and bulk mode against an
+    exact f32 evaluation (f32 weights and arithmetic, bulk mode): each
+    leaf's largest error in kernel mode within LOGITS_TOL_FACTOR x bulk
+    mode's, the loss within LOGITS_TOL_FACTOR x bulk's distance or
+    LOSS_FLOOR's, the launches as ``zamba2_train_counts``; (b) the
+    launcher's steps in each mode (losses falling, every step's within
+    TRAIN_LOSS_REL of bulk's, the launches of every step); (c) the flash
+    op's analytic backward at the shared block's shape beside SDPA's
+    backward, and the SSD scan's forward and backward at a block's shape
+    with its peak.
+    Returns the flash and fused rows' numbers of zamba2's training.  The
+    backward's gradients are held to an exact f32 evaluation within
+    LOGITS_TOL_FACTOR x bulk mode's (autograd through span_attention)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import mamba2 as mamba2_model
+    from repro_torch.models.attention import span_attention
+    from repro_torch.parallel.sharding import FusionConfig, ParallelContext
+    from repro_torch.train.optimizer import tree_leaves, tree_map, tree_paths
+
+    full = get_arch("zamba2-7b")
+    cfg = dataclasses.replace(full.config, n_layers=ZAMBA_TRAIN_LAYERS)
+    bundle = dataclasses.replace(full, config=cfg)
+    B, S, L = ZAMBA_TRAIN_B, ZAMBA_TRAIN_S, cfg.n_layers
+    # (a) ---------------------------------------------------------------
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    leaves = tree_leaves(params)
+    n_params = sum(t_.numel() for t_ in leaves)
+    for p_ in leaves:
+        p_.requires_grad_(True)
+    batch = to_device(next(launch_train.make_batches(bundle, B, S)), "cuda")
+    out, peaks = {}, {}
+    for mode in ("kernel", "bulk"):
+        ctx = ParallelContext(device="cuda", fusion=FusionConfig(mode=mode))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        want = zamba2_train_counts(cfg) if mode == "kernel" else {}
+        (loss, grads), _ = counted_run(
+            lambda: (lambda l_: (l_.detach(), torch.autograd.grad(l_, leaves)))(
+                bundle.loss_fn(ctx)(params, batch)), want)
+        peaks[mode] = torch.cuda.max_memory_allocated() / 1e9
+        out[mode] = (loss, grads)
+    exact = dataclasses.replace(bundle, config=dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    params_x = tree_map(lambda t_: t_.detach().float().requires_grad_(True), params)
+    ctx_b = ParallelContext(device="cuda", fusion=FusionConfig(mode="bulk"))
+    loss_x = exact.loss_fn(ctx_b)(params_x, batch)
+    grads_x = torch.autograd.grad(loss_x, tree_leaves(params_x))
+    del params_x
+    # every leaf on its own, as phase 26 holds chatglm3's
+    rows, bad, worst = [], [], 0.0
+    for (path, _), gk, gb, gx in zip(tree_paths(params), out["kernel"][1], out["bulk"][1],
+                                     grads_x):
+        name = ".".join(map(str, path))
+        ek, eb = errors(gk, gx)[0], errors(gb, gx)[0]
+        if not (torch.isfinite(gk.float()).all() and ek <= LOGITS_TOL_FACTOR * eb):
+            bad.append(f"{name} {ek:.3g} (bulk {eb:.3g})")
+        worst = max(worst, ek / eb)
+        rows.append(f"{name} {ek:.3g}/{eb:.3g}")
+    lk, lb, lx = out["kernel"][0].item(), out["bulk"][0].item(), loss_x.item()
+    loss_bound = LOGITS_TOL_FACTOR * max(abs(lb - lx), LOSS_FLOOR * abs(lx) / (B * S) ** 0.5)
+    del out, grads_x
+    torch.cuda.empty_cache()
+    say(63, f"(a) on {card}: zamba2-7b full width cut to {L} Mamba-2 blocks ({cfg.n_groups} "
+            f"groups of {cfg.attn_every} with the shared block, a tail of {cfg.n_tail}; "
+            f"{n_params / 1e9:.3f}B params {cfg.param_dtype}), every gradient of a loss at "
+            f"{B}x{S} tokens (the launcher's first batch, weights seed 0): loss kernel {lk:.6f} "
+            f"({abs(lk - lx):.3g} from exact f32, bound {loss_bound:.3g}), bulk {lb:.6f} "
+            f"({abs(lb - lx):.3g}), exact f32 {lx:.6f}; kernel mode's launches flash "
+            f"{2 * cfg.n_groups} (cuda_core path, d {cfg.hd}: forward and remat), fused GEMM "
+            f"{L + cfg.n_groups * cfg.attn_every} (tile path: {L} w_out forward, "
+            f"{cfg.n_groups * cfg.attn_every} recompute), bulk mode none; peak kernel "
+            f"{peaks['kernel']:.2f} GB, bulk {peaks['bulk']:.2f} GB; each of the {len(leaves)} "
+            f"leaves' max abs err from exact f32, kernel/bulk (bound {LOGITS_TOL_FACTOR} x "
+            f"bulk's; worst ratio {worst:.3g}): " + ", ".join(rows))
+    if bad:
+        raise AssertionError(f"zamba2 gradients of kernel mode non-finite or above "
+                             f"{LOGITS_TOL_FACTOR} x bulk mode's distance from exact f32: "
+                             + ", ".join(bad))
+    if not abs(lk - lx) <= loss_bound:
+        raise AssertionError(f"zamba2 loss: kernel mode {lk:.6f} is {abs(lk - lx):.3g} from exact "
+                             f"f32 {lx:.6f}, above {loss_bound:.3g}")
+    del params, leaves, batch
+    torch.cuda.empty_cache()
+
+    # (b) ---------------------------------------------------------------
+    argv = ["--arch", "zamba2-7b", "--layers", str(L), "--steps", str(ZAMBA_TRAIN_STEPS),
+            "--batch", str(B), "--seq", str(S), "--lr", TRAIN_LR, "--log-every", "1"]
+    runs = {}
+    per_step = zamba2_train_counts(cfg)
+    for mode in ("kernel", "bulk"):
+        runs[mode] = launch_run(argv + ["--fusion", mode], B * S)
+        want = zamba2_train_counts(cfg, ZAMBA_TRAIN_STEPS) if mode == "kernel" else {}
+        expect_counts(f"phase 63 launcher {mode} mode", runs[mode][1], want)
+        flash_step = per_step["flash_attention"] if mode == "kernel" else 0
+        if runs[mode][2].launches != [flash_step] * ZAMBA_TRAIN_STEPS:
+            raise AssertionError(f"{mode} mode: flash launches a step {runs[mode][2].launches}")
+        losses = runs[mode][0]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{mode} mode: loss did not fall: {losses}")
+    # step 1's loss is (a)'s, which (a) held to the exact f32 evaluation
+    lk_, lb_ = runs["kernel"][0], runs["bulk"][0]
+    d_k, d_b = abs(lk_[0] - lx), abs(lb_[0] - lx)
+    rel = max(abs(a - b) / b for a, b in zip(lk_, lb_))
+    if rel > TRAIN_LOSS_REL:
+        raise AssertionError(f"steps 1-{ZAMBA_TRAIN_STEPS}: kernel losses {lk_} differ from "
+                             f"bulk's {lb_} by {rel:.3g} of bulk's, above {TRAIN_LOSS_REL}")
+    say(63, f"(b) python -m repro_torch.launch.train {' '.join(argv)} (AdamW with f32 moments, "
+            f"one microbatch, the reference's fields): kernel mode {runs['kernel'][4]}; bulk "
+            f"mode {runs['bulk'][4]}; launches a kernel-mode step: flash "
+            f"{per_step['flash_attention']} (cuda_core), fused GEMM "
+            f"{per_step['fused_matmul_allreduce']} (tile); step 1 vs exact f32 {lx:.6f}: kernel "
+            f"{d_k:.3g}, bulk {d_b:.3g}; steps 1-{ZAMBA_TRAIN_STEPS} kernel vs bulk {rel:.3g} "
+            f"of bulk's loss (bound {TRAIN_LOSS_REL})")
+    row_k, row_b = runs["kernel"], runs["bulk"]
+    del runs
+    torch.cuda.empty_cache()
+
+    # (c) ---------------------------------------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(63)
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    bf16, f32 = torch.bfloat16, torch.float32
+    leaves = [randn(gen, (B, S, h, hd), bf16).requires_grad_(True) for h in (Hq, Hkv, Hkv)]
+    do = randn(gen, (B, S, Hq, hd), bf16)
+    scale = hd ** -0.5
+    o_k = flash_attention(*leaves, scale=scale, causal=True)
+    qt, kt, vt = (a.transpose(1, 2) for a in leaves)
+    o_sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    g_k = torch.autograd.grad(o_k, leaves, do, retain_graph=True)
+    g_b = grads_of(lambda *a: span_attention(*a, causal=True, window=None, scale=scale,
+                                              cap=None), leaves, do)
+    exact = [a.detach().float().requires_grad_(True) for a in leaves]
+    g_x = grads_of(lambda *a: dense_attention(*a, scale), exact, do.float())
+    del exact
+    bwd_err = []
+    for n_, gk, gb, gx in zip(("dq", "dk", "dv"), g_k, g_b, g_x):
+        ek, eb = errors(gk, gx)[0], errors(gb, gx)[0]
+        if not (torch.isfinite(gk.float()).all() and ek <= LOGITS_TOL_FACTOR * eb):
+            raise AssertionError(f"flash backward d={hd} {n_}: {ek:.3g} from exact f32, above "
+                                 f"{LOGITS_TOL_FACTOR} x bulk mode's {eb:.3g}")
+        bwd_err.append((ek, eb))
+    del g_k, g_b, g_x
+    bwd = lambda o, c: lambda: torch.autograd.grad(o, leaves, c, retain_graph=True)
+    t_k, t_sd = [], []
+    for which in ("kernel", "sdpa", "sdpa", "kernel"):
+        if which == "kernel":
+            t_k.append(time_ms(bwd(o_k, do), iters=2, warmup=1))
+        else:
+            t_sd.append(time_ms(bwd(o_sd, dot), iters=10, warmup=2))
+    _, _, n_bytes, ops = flash_bound(B, S, Hq, Hkv, hd, 2)
+    b_bytes = n_bytes + 3 * B * S * Hq * hd * 2 + 2 * B * Hq * S * 4 + B * S * (Hq + 2 * Hkv) * hd * 2
+    t_bytes, t_ops = b_bytes / HBM_BYTES_PER_S * 1e3, 2.5 * ops / BF16_FLOPS * 1e3
+    bwd_bound = max(t_bytes, t_ops)
+    bwd_by = "bytes" if t_bytes >= t_ops else "operations"
+    del o_k, o_sd, qt, kt, vt, dot, do, leaves
+    torch.cuda.empty_cache()
+    mc_ = cfg.mamba
+    ssd_in = [randn(gen, (B, S, mc_.n_heads, mc_.head_dim), f32),
+              torch.rand((B, S, mc_.n_heads), generator=gen, device="cuda"),
+              torch.zeros(mc_.n_heads, device="cuda"),
+              randn(gen, (B, S, mc_.d_state), f32), randn(gen, (B, S, mc_.d_state), f32)]
+    ssd_in = [a.requires_grad_(True) for a in ssd_in]
+    state0 = torch.zeros((B, mc_.n_heads, mc_.d_state, mc_.head_dim), device="cuda")
+    gy = randn(gen, (B, S, mc_.n_heads, mc_.head_dim), f32)
+
+    def ssd_fwd_bwd():
+        y, _ = mamba2_model.ssd_chunked(*ssd_in, state0, mc_.chunk)
+        return torch.autograd.grad(y, ssd_in, gy)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_fwd_bwd()
+    torch.cuda.synchronize()
+    ssd_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ssd_ms = time_ms(ssd_fwd_bwd, iters=3, warmup=1)
+    ssd_fwd_ms = time_ms(lambda: mamba2_model.ssd_chunked(*ssd_in, state0, mc_.chunk),
+                         iters=3, warmup=1)
+    del ssd_in, state0, gy
+    torch.cuda.empty_cache()
+    say(63, f"(c) on {card}, CUDA events: the flash op's analytic backward (flash_backward, "
+            f"plain PyTorch) at [{B},{S},{Hq}/{Hkv},{hd}] bf16 causal (turns kernel, SDPA, SDPA, "
+            f"kernel) {', '.join(f'{t_:.3f}' for t_ in t_k)} ms; "
+            f"F.scaled_dot_product_attention's backward {', '.join(f'{t_:.3f}' for t_ in t_sd)} "
+            f"ms ({min(t_k) / min(t_sd):.1f}x); dq, dk, dv max abs err from exact f32, the "
+            f"analytic backward/bulk mode's autograd through span_attention (bound "
+            f"{LOGITS_TOL_FACTOR} x bulk's): "
+            + ", ".join(f"{e[0]:.3g}/{e[1]:.3g}" for e in bwd_err) + f"; bound "
+            f"{bwd_bound:.4f} ms ({bwd_by}: {2.5 * ops / 1e9:.1f} GFLOP, {b_bytes / 1e6:.1f} "
+            f"MB); the SSD scan (ssd_chunked, autograd) at one block's [{B},{S},{mc_.n_heads},"
+            f"{mc_.head_dim}] state {mc_.d_state} chunk {mc_.chunk}: forward {ssd_fwd_ms:.3f} "
+            f"ms, forward + backward {ssd_ms:.3f} ms, peak {ssd_peak:.2f} GB above its inputs")
+    return {
+        "flash_attention": {
+            "zamba2_train_launches_per_step": per_step["flash_attention"],
+            "zamba2_backward_ms": min(t_k), "zamba2_backward_bound_ms": bwd_bound,
+            "zamba2_backward_bound_by": bwd_by, "zamba2_sdpa_backward_ms": min(t_sd),
+            "zamba2_train_step_ms": row_k[5][3], "zamba2_train_step_ms_bulk": row_b[5][3],
+            "zamba2_train_peak_gb": row_k[3]},
+        "fused_matmul_allreduce": {
+            "zamba2_train_launches_per_step": per_step["fused_matmul_allreduce"]},
     }
 
 

@@ -50,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.collectives import gather_leaf
-from repro_torch.parallel.sharding import split_dims
+from repro_torch.parallel.sharding import segmented_dims, split_dims
 from repro_torch.train.optimizer import spec_leaves
 
 _BF16 = "bfloat16"
@@ -269,12 +269,16 @@ class AsyncCheckpointer:
 
 
 def _slices(shape, spec, placement: Placement | None):
-    """This rank's slice of a whole leaf of ``shape`` under ``spec``."""
+    """This rank's slice of a whole leaf of ``shape`` under ``spec``: a
+    slice a dim, or an index array for a segmented dim (by its segments)."""
     sl = [slice(None)] * len(shape)
     if placement is None or spec is None:
         return tuple(sl)
     if len(spec) != len(shape):
         raise ValueError(f"spec {spec} for a leaf of shape {tuple(shape)}")
+    ctx = placement.ctx
+    for dim, ax in segmented_dims(spec, ctx):
+        sl[dim] = ax.index(ctx.tp, ctx.tp_rank).numpy()
     for dim, n, r in split_dims(spec, placement.ctx, placement.training):
         if shape[dim] % n:
             raise ValueError(f"dim {dim} of shape {tuple(shape)} does not split over {n} ranks")
@@ -311,7 +315,8 @@ def restore_checkpoint(path: str, target_tree: Any, shardings: Placement | None 
         if list(arr.shape) != list(entry["shape"]):
             raise ValueError(f"{p}: file shape {arr.shape}, manifest {entry['shape']}")
         sl = _slices(arr.shape, spec, shardings)
-        shape = tuple(len(range(*s.indices(n))) for s, n in zip(sl, arr.shape))
+        shape = tuple(len(range(*s.indices(n))) if isinstance(s, slice) else len(s)
+                      for s, n in zip(sl, arr.shape))
         want = tuple(leaf.shape) if hasattr(leaf, "shape") else np.shape(leaf)
         if shape != tuple(want):
             raise ValueError(f"shape mismatch for {p}: {shape} vs {tuple(want)}")

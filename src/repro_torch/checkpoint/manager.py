@@ -4,7 +4,10 @@ The port of the JAX package's ``checkpoint/manager.py``.  Over a world
 every rank holds a manager on the same directory: every rank takes part in
 a save's gathers, world rank 0 writes and collects, and a restore first
 waits for the writer (a barrier over the world), so every rank lists the
-same steps and restores the same one.
+same steps and restores the same one.  The writer must not write again
+before every rank has listed: a save that follows a restore with no
+collective between them (the supervisor's first save) is preceded by a
+barrier of its own.
 """
 from __future__ import annotations
 
@@ -32,6 +35,9 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._async = AsyncCheckpointer() if async_save else None
         self.stats: list[dict] = []
+        # the steps the last restore listed (after its barrier: the same on
+        # every rank)
+        self.listed: list[int] = []
 
     def all_steps(self):
         steps = []
@@ -75,7 +81,8 @@ class CheckpointManager:
         entry does not brick the run."""
         self.wait()
         world_barrier(shardings)
-        for step in reversed(self.all_steps()):
+        self.listed = self.all_steps()
+        for step in reversed(self.listed):
             path = os.path.join(self.directory, f"step_{step:08d}")
             t0 = time.perf_counter()
             try:

@@ -13,10 +13,11 @@ reference's has none).  deepseek-v3-671b (MLA, a dense prefix of 3 layers,
 256 routed experts and a shared one) prefills and decodes through the same
 entries, dense engine only (its latent cache is not paged, as in the
 reference); its ``loss_fn`` raises (training is item 7).  zamba2-7b
-(Mamba-2 blocks and a shared attention block with per-group LoRA) prefills
-and decodes at tp = 1 through the dense engine, which zeroes a reused
-slot's recurrent state (``reset_slot_fn``); its training, its Mamba heads
-over tp and over data are item 7, and it is not paged (as in the
+(Mamba-2 blocks and a shared attention block with per-group LoRA) trains,
+prefills and decodes at any (dp, tp) where tp divides its Mamba heads (its
+heads split over tp, ``models/mamba2.py``; its shared block
+context-parallel), through the dense engine, which zeroes a reused slot's
+recurrent state (``reset_slot_fn``); it is not paged (as in the
 reference).  qwen2-vl-2b (M-RoPE, the stub vision front end) and
 musicgen-medium (the stub audio front end) are dense transformers: they
 serve, prefill and train through the same entries, their front-end inputs
@@ -35,7 +36,8 @@ the rows and the fsdp dims of the train state (``init_params(...,
 training=True)``).  DLRM runs at any (dp, tp) over the flattened world:
 its tables split over all ``dp * tp`` ranks (``"world"``), its batch's rows
 too.  rwkv6's heads over ranks and rwkv6 over data are item 7
-(``check_tp``).
+(``check_tp``).  Kernel mode over more than one tp rank raises where it
+reaches the fused GEMV (item 1).
 """
 from __future__ import annotations
 
@@ -74,20 +76,14 @@ _MODULES = {
 # what a recurrent family needs before it trains
 _TRAIN_ITEMS = {
     "rwkv6": "ROADMAP Queue 1 item 7 (rwkv6 training: train_forward with a WKV6 backward)",
-    "zamba2": "ROADMAP Queue 1 item 7 (zamba2 training)",
 }
-# Splitting w_in's [z, x, B, C, dt] columns over ranks needs a layout by
-# heads that the reference's GSPMD spec ("fsdp", "tp") does not give.
-_ZAMBA2_HEADS_ITEM = "ROADMAP Queue 1 item 7 (zamba2's Mamba heads over tp)"
 # what a family needs before it runs over several ranks
 _MULTI_RANK_ITEMS = {
     "rwkv6": "rwkv6's heads sharded over tp (state_logical_specs) are ROADMAP Queue 1 item 7",
-    "zamba2": _ZAMBA2_HEADS_ITEM,
 }
 # what a family needs before it runs over data replicas
 _DATA_ITEMS = {
     "rwkv6": "rwkv6 over data replicas is ROADMAP Queue 1 item 7",
-    "zamba2": _ZAMBA2_HEADS_ITEM,
 }
 # the model module of each family that prefills and decodes
 _DECODERS = {"transformer": "repro_torch.models.transformer",
@@ -105,7 +101,12 @@ class ArchBundle:
 
     def check_tp(self, ctx: ParallelContext | None):
         """Raise for a family that does not run over ``ctx``'s tp ranks or
-        data replicas."""
+        data replicas, and for a zamba2 whose Mamba heads (or shared MLP,
+        vocabulary, cache rows) tp does not divide."""
+        if ctx is not None and self.family == "zamba2":
+            from repro_torch.models.zamba2 import check_supported
+
+            check_supported(self.config, ctx.tp)
         if ctx is not None and ctx.tp > 1 and self.family in _MULTI_RANK_ITEMS:
             raise NotImplementedError(f"{self.name} at tp={ctx.tp}: "
                                       f"{_MULTI_RANK_ITEMS[self.family]}")
@@ -132,7 +133,7 @@ class ArchBundle:
         if self.family == "zamba2":
             from repro_torch.models.zamba2 import zamba2_init
 
-            return zamba2_init(gen, self.config)
+            return zamba2_init(gen, self.config, ctx, training)
         if self.family == "dlrm":
             from repro_torch.models.dlrm import dlrm_init
 
@@ -143,8 +144,10 @@ class ArchBundle:
         """(params, batch) -> scalar loss, for autograd; the batch is the
         global one, whole on every rank.  DLRM's is the mean BCE over the
         global batch in any mode (in kernel mode its gradient raises: the
-        pooling kernel has no backward).  rwkv6, zamba2 and deepseek-v3
-        (MLA) raise (ROADMAP Queue 1 item 7)."""
+        pooling kernel has no backward).  zamba2's is its
+        ``train_forward`` (remat by group, the shared block context-parallel
+        at tp > 1).  rwkv6 and deepseek-v3 (MLA) raise (ROADMAP Queue 1
+        item 7)."""
         cfg = self.config
         self.check_tp(ctx)
         if self.family == "transformer":
@@ -156,6 +159,10 @@ class ArchBundle:
             from repro_torch.models.dlrm import dlrm_loss
 
             return lambda p, b: dlrm_loss(ctx, p, cfg, b)
+        if self.family == "zamba2":
+            from repro_torch.models.zamba2 import train_forward
+
+            return lambda p, b: train_forward(ctx, p, cfg, b)
         raise NotImplementedError(f"{self.name}: the training forward is "
                                   f"{_TRAIN_ITEMS[self.family]}")
 
@@ -163,8 +170,13 @@ class ArchBundle:
         """The logical spec of every parameter leaf, in a tree of
         ``params``' structure (a transformer's ``PARAM_SPECS``); what
         ``build_train_step`` reads to sum the gradients of whole leaves over
-        the tp ranks; DLRM's tables ``("world", None, None)``.  rwkv6 and
-        zamba2 run at tp = 1 and hold every leaf whole."""
+        the tp ranks; DLRM's tables ``("world", None, None)``; zamba2's the
+        reference's, its Mamba blocks' by heads (``models/zamba2.py``).
+        rwkv6 runs at tp = 1 and holds every leaf whole."""
+        if self.family == "zamba2":
+            from repro_torch.models.zamba2 import param_specs
+
+            return param_specs(self.config, params)
         if self.family == "transformer":
             from repro_torch.models.transformer import param_specs
 
@@ -202,24 +214,33 @@ class ArchBundle:
         """The decode cache: a transformer's KV cache (at tp > 1 a rank's
         ``S_max / tp`` rows of it; at dp > 1 where dp divides the batch a
         replica's rows of it), rwkv6's recurrent state, zamba2's states and
-        its groups' dense KV caches."""
+        its groups' dense KV caches (a rank's part, as the transformer's)."""
         decoder = self._decoder()
         if tp == 1 and dp == 1:
             return decoder.init_cache(self.config, batch_size, device)
-        if self.family != "transformer":
+        if self.family in _MULTI_RANK_ITEMS:
             raise NotImplementedError(f"{self.name} at tp={tp}, dp={dp}: "
                                       f"{_MULTI_RANK_ITEMS[self.family]}")
         return decoder.init_cache(self.config, batch_size, device, tp, dp)
 
-    def reset_slot_fn(self) -> Callable | None:
+    def reset_slot_fn(self, ctx: ParallelContext | None = None, batch_size: int = 0
+                      ) -> Callable | None:
         """``(cache, slot) -> cache`` zeroing a slot's recurrent state, for the
-        dense engine to call when a request takes a slot: zamba2's.  None for
-        the transformers, whose KV rows past a slot's position are masked."""
-        if self.family == "zamba2":
-            from repro_torch.models.zamba2 import reset_slot
+        dense engine to call when a request takes a slot: zamba2's.  Over
+        data replicas that split the engine's ``batch_size`` rows the slot is
+        a global one and a replica zeroes it where its rows hold it.  None
+        for the transformers, whose KV rows past a slot's position are
+        masked."""
+        if self.family != "zamba2":
+            return None
+        from repro_torch.data.pipeline import batch_rows
+        from repro_torch.models.zamba2 import reset_slot
 
+        rows = None if ctx is None else batch_rows(ctx, batch_size)
+        if rows is None:
             return reset_slot
-        return None
+        lo, n = rows
+        return lambda cache, slot: reset_slot(cache, slot - lo) if lo <= slot < lo + n else cache
 
     # ---- paged serving (continuous batching) -----------------------------
     @property

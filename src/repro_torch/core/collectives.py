@@ -43,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.scheduling import ring_offsets, sub_chunk_service_order
-from repro_torch.parallel.sharding import ParallelContext, split_contexts
+from repro_torch.parallel.sharding import ParallelContext, segmented_dims, split_contexts
 
 # ---------------------------------------------------------------------------
 # wire-fault injection hook (chaos engineering)
@@ -212,6 +212,73 @@ def _reduce_scatter(ctx: ParallelContext, x, axis: int):
     return _all_reduce(ctx, x).narrow(axis, ctx.tp_rank * size, size).contiguous()
 
 
+class _CopyToTp(torch.autograd.Function):
+    """Identity; the backward sums the cotangent over the tp ranks
+    (Megatron's "f").  For a value the same on every rank that each rank
+    consumes in its own way (its own heads): each rank's cotangent is its
+    own part of the whole one."""
+
+    @staticmethod
+    def forward(fctx, ctx, x):
+        fctx.pctx = ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, _all_reduce(fctx.pctx, g.contiguous())
+
+
+def copy_to_tp(ctx: ParallelContext, x):
+    """``x`` itself, whose gradient is summed over the tp ranks
+    (:class:`_CopyToTp`); ``x`` at tp = 1."""
+    return x if ctx.tp == 1 else _CopyToTp.apply(ctx, x)
+
+
+class _SplitToTp(torch.autograd.Function):
+    """This rank's chunk along ``axis`` of a value the same on every rank;
+    the backward all-gathers the chunks' cotangents, each the whole one of
+    its chunk."""
+
+    @staticmethod
+    def forward(fctx, ctx, x, axis):
+        fctx.pctx, fctx.axis = ctx, axis
+        size = x.shape[axis] // ctx.tp
+        return x.narrow(axis, ctx.tp_rank * size, size).contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, torch.cat(_all_gather(fctx.pctx, g.contiguous()), dim=fctx.axis), None
+
+
+class _GatherFromTp(torch.autograd.Function):
+    """Every rank's chunk joined along ``axis`` into a value that every rank
+    then consumes in the same way; the backward keeps this rank's chunk of
+    the cotangent, which every rank holds whole."""
+
+    @staticmethod
+    def forward(fctx, ctx, x, axis):
+        fctx.pctx, fctx.axis = ctx, axis
+        return torch.cat(_all_gather(ctx, x.contiguous()), dim=axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx, axis = fctx.pctx, fctx.axis
+        size = g.shape[axis] // ctx.tp
+        return None, g.narrow(axis, ctx.tp_rank * size, size).contiguous(), None
+
+
+def split_to_tp(ctx: ParallelContext, x, *, axis: int):
+    """This rank's chunk along ``axis`` of ``x``, the same on every rank
+    (:class:`_SplitToTp`); ``x`` at tp = 1."""
+    return x if ctx.tp == 1 else _SplitToTp.apply(ctx, x, axis)
+
+
+def gather_from_tp(ctx: ParallelContext, x, *, axis: int):
+    """Every rank's chunk ``x`` joined along ``axis``, for a use that every
+    rank makes alike (:class:`_GatherFromTp`); ``x`` at tp = 1."""
+    return x if ctx.tp == 1 else _GatherFromTp.apply(ctx, x, axis)
+
+
 def all_gather(ctx: ParallelContext, x, *, axis: int = 0):
     """Every rank's ``x`` concatenated along ``axis`` in tp-rank order (the
     gather GSPMD inserts where the reference reads a sharded array whole);
@@ -276,6 +343,14 @@ def all_gather_data(ctx: ParallelContext, x, *, axis: int = 0):
     return x if ctx.dp == 1 else all_gather(ctx.data, x, axis=axis)
 
 
+def gather_logits(ctx: ParallelContext, logits, rows_split: bool):
+    """A rank's logits [b, 1, V_local] -> [B, 1, V] on every rank: gathered
+    over the vocabulary's tp ranks, and over data where the replicas split
+    the rows."""
+    logits = all_gather(ctx, logits, axis=-1)
+    return all_gather_data(ctx, logits) if rows_split else logits
+
+
 def reduce_scatter_data(ctx: ParallelContext, x, *, axis: int = 0):
     """This data rank's slice along ``axis`` of the sum of ``x`` over the
     data replicas; ``x`` itself at dp = 1.  Differentiable."""
@@ -323,8 +398,17 @@ def fsdp_gather(ctx: ParallelContext, w, spec):
 def gather_leaf(ctx: ParallelContext, x, spec, training: bool = False):
     """The whole leaf from every rank's part ``x`` under its logical
     ``spec`` (the inverse of ``parallel.sharding.shard_leaf``): one
-    all-gather over each group that splits a dim, in dim order, so every
-    rank of the world must call it; ``x`` itself where nothing splits."""
+    all-gather over each group that splits a dim, a segmented dim first
+    (joined segment by segment, a whole segment taken from tp rank 0), then
+    the others in dim order, so every rank of the world must call it; ``x``
+    itself where nothing splits."""
+    for dim, ax in segmented_dims(spec, ctx):
+        parts, out, off = _all_gather(ctx, x.contiguous()), [], 0
+        for size, whole in ax.local(ctx.tp):
+            out += [parts[0].narrow(dim, off, size)] if whole else \
+                [p.narrow(dim, off, size) for p in parts]
+            off += size
+        x = torch.cat(out, dim=dim)
     for dim, sub in split_contexts(spec, ctx, training):
         x = torch.cat(_all_gather(sub, x.contiguous()), dim=dim)
     return x

@@ -20,7 +20,8 @@ Gradients: bulk mode trains through the differentiable all-reduce (its
 backward passes the replicated output's cotangent through); fused mode at
 tp > 1 is one ``torch.autograd.Function`` whose backward needs no
 collective: y is the same on every rank, so dx = dy @ w.T and dw = x.T dy
-on this rank's shards.
+on this rank's shards.  Kernel mode at tp = 1 (zamba2's Mamba ``w_out`` in
+training) takes the same local backward around the kernel's launch.
 
 The chunked dim is chosen as in the reference: rows (the flattened leading
 dims) when they split over the ring, else the output columns.
@@ -103,15 +104,16 @@ def matmul_allreduce(
         dim=chunk_dim, ring=n)
     if mode == "kernel":
         # the kernel's granularity is its own tile pipeline
-        y = fused_matmul_allreduce(
-            xf.contiguous(), w, wire=clamp_kernel_wire(dec.wire, "matmul_allreduce"))
+        wire = clamp_kernel_wire(dec.wire, "matmul_allreduce")
+        y = _LocalBackward.apply(lambda a, b: fused_matmul_allreduce(a, b, wire=wire),
+                                 xf.contiguous(), w)
         return y.reshape(*lead, nout)
     q, wire = dec
     schedule = schedule or ctx.fusion.schedule
     if n == 1:
         return _ring(ctx, xf, w, use_rows, schedule, q, skew, wire).reshape(*lead, nout)
-    return _MatmulAllReduce.apply(ctx, xf, w, use_rows, schedule, q, skew,
-                                  wire).reshape(*lead, nout)
+    return _LocalBackward.apply(lambda a, b: _ring(ctx, a, b, use_rows, schedule, q, skew, wire),
+                                xf, w).reshape(*lead, nout)
 
 
 def _ring(ctx: ParallelContext, xf, w, use_rows, schedule, q, skew, wire):
@@ -129,16 +131,19 @@ def _ring(ctx: ParallelContext, xf, w, use_rows, schedule, q, skew, wire):
     return all_gather_wire(ctx, mine, axis=0 if use_rows else 1, wire=wire)
 
 
-class _MatmulAllReduce(torch.autograd.Function):
-    """The fused ring at tp > 1; its backward is local (y is replicated, so
-    every rank holds the whole dy)."""
+class _LocalBackward(torch.autograd.Function):
+    """``product(xf, w)``, the sum over the tp ranks of x_r @ w_r: the fused
+    ring at tp > 1, or kernel mode's fused kernel at tp = 1 (a launch on a
+    CUDA tensor, its plain version on the CPU; the kernel has no backward of
+    its own).  The backward is local: y is replicated, so every rank holds
+    the whole dy."""
 
     @staticmethod
-    def forward(fctx, ctx, xf, w, use_rows, schedule, q, skew, wire):
+    def forward(fctx, product, xf, w):
         fctx.save_for_backward(xf, w)
-        return _ring(ctx, xf, w, use_rows, schedule, q, skew, wire)
+        return product(xf, w)
 
     @staticmethod
     def backward(fctx, dy):
         xf, w = fctx.saved_tensors
-        return None, dy @ w.t(), (xf.t() @ dy).to(w.dtype), None, None, None, None, None
+        return None, dy @ w.t(), (xf.t() @ dy).to(w.dtype)

@@ -70,9 +70,10 @@ zamba2-7b (Mamba-2 blocks, every 6 of them the shared attention block with
 its group's LoRA) serves at ``--tp 1`` in every mode through the dense
 engine, which zeroes a slot's SSM and conv states when a request takes it
 (the bundle's ``reset_slot_fn``; the reference's engine resets only the
-position, so there a reused slot starts from its last request's state);
-``--tp`` or ``--dp`` above 1 raises (ROADMAP Queue 1 item 7), and
-``--paged`` is refused, as the reference's launcher refuses it.
+position, so there a reused slot starts from its last request's state),
+and at any ``--tp`` dividing its Mamba heads and any ``--dp`` in bulk and
+fused mode (its Mamba heads split over tp, its groups' KV caches by
+sequence); ``--paged`` is refused, as the reference's launcher refuses it.
 
 A dense model's FFN down projection runs the fused GEMV+AllReduce kernel;
 an MoE model's experts run the dispatch-A2A kernel chained into the expert
@@ -259,7 +260,8 @@ def _serve(args, bundle, device):
                   f"{dense_b / 2**20:.1f} MiB")
     else:
         engine = DecodeEngine(*step_fns(ctx, params), args.batch, device=ctx.device,
-                              max_seq=cfg.max_seq, reset_slot_fn=bundle.reset_slot_fn())
+                              max_seq=cfg.max_seq,
+                              reset_slot_fn=bundle.reset_slot_fn(ctx, args.batch))
     if args.journal and os.path.exists(args.journal):
         with open(args.journal) as f:
             n = resubmit_journal(engine, json.load(f))
@@ -308,6 +310,8 @@ def _serve(args, bundle, device):
             n = eng.reshard(*step_fns(new, new_params), args.batch, n_stripes=new.tp)
         else:
             n = eng.reshard(*step_fns(new, new_params), args.batch)
+            # a replica's rows change with the world
+            eng.reset_slot_fn = bundle.reset_slot_fn(new, args.batch)
         if new.world.tp_rank == 0:
             print(f"rank lost: world -> (dp, tp) = ({new.dp}, {new.tp}), {n} in-flight "
                   f"requests re-queued", flush=True)

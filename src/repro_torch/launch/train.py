@@ -29,6 +29,13 @@ rank's losses are its own.
 reduced model's heads of 16 are not a size the flash kernel takes, so a
 card runs kernel mode at full width).
 
+zamba2-7b trains as the reference's does (AdamW, one microbatch; its
+``train_forward``: each group of Mamba blocks and the shared block under
+remat, the flash kernel at head size 224 in kernel mode, every Mamba
+block's ``w_out`` through the fused GEMM + AllReduce) on the dense
+configs' batches, at any ``--tp`` dividing its Mamba heads and any
+``--dp`` in bulk and fused mode; ``--layers N`` keeps its first N Mamba
+blocks (``chip_smoke.py`` trains 13: two groups of 6 and a tail of 1).
 qwen2-vl-2b and musicgen-medium train as the dense configs do, their
 batches carrying the reference launcher's front-end extras (``make_batches``:
 patch embeddings on the first 8 positions with M-RoPE's streams, or frame
@@ -142,14 +149,13 @@ _LATER_FLAGS = (
 )
 _NOT_TRAINED = {
     "rwkv6": "ROADMAP Queue 1 item 7 (rwkv6 training: a WKV6 backward)",
-    "zamba2": "ROADMAP Queue 1 item 7 (zamba2 training)",
 }
 
 
 def make_batches(bundle, batch: int, seq: int, seed: int = 0):
     """The reference launcher's batches: numpy ``LMBatches`` over a
-    transformer's vocabulary, ``DLRMBatches`` of DLRM's tables (``seq``
-    unused).  A front end's extras come from ``default_rng(seed + 7)`` in
+    transformer's or zamba2's vocabulary, ``DLRMBatches`` of DLRM's tables
+    (``seq`` unused).  A front end's extras come from ``default_rng(seed + 7)`` in
     the reference's order and scale: an audio batch's ``frame_embeds`` [B,
     S, D], a vision batch's ``vision_embeds`` [B, S, D] on the first
     ``min(8, S)`` positions (``vision_mask`` [S]) with ``positions_thw`` [3,
@@ -157,10 +163,10 @@ def make_batches(bundle, batch: int, seq: int, seed: int = 0):
     cfg = bundle.config
     if bundle.family == "dlrm":
         return DLRMBatches(cfg.n_tables, cfg.table_vocab, cfg.pooling, cfg.n_dense, batch, seed)
-    if bundle.family != "transformer":
+    if bundle.family in _NOT_TRAINED:
         raise NotImplementedError(f"{bundle.name}: {_NOT_TRAINED[bundle.family]}")
     base = LMBatches(cfg.vocab, batch, seq, seed)
-    if cfg.frontend is None:
+    if getattr(cfg, "frontend", None) is None:
         return base
     return _with_frontend(base, cfg, batch, seq, seed)
 

@@ -101,25 +101,36 @@ def rwkv6_params_from_numpy(tree, device="cpu"):
             "layers": [_conv(tree["layers"], device, i) for i in range(n_layers)]}
 
 
-def zamba2_params_from_numpy(tree, device="cpu"):
+def zamba2_params_from_numpy(tree, device="cpu", cfg=None, ctx=None, training: bool = False):
     """JAX zamba2 params as nested numpy arrays (``split_params`` values
     through ``np.asarray``) -> the port's parameters.  The reference stacks
     its groups (``stacked_init``): every leaf of ``tree["groups"]``, the
     per-group list of ``attn_every`` Mamba blocks' leaves and the LoRA
     among them, carries the group on a leading axis.  The port keeps one
     dict per group in ``params["groups"]``, each with its list of Mamba
-    blocks; the shared block and the tail's list are carried as they are."""
+    blocks; the shared block and the tail's list are carried as they are.
+    With a ``ctx`` of more than one rank (and the model's ``cfg``), this
+    rank's shards (``models/zamba2.shard_params``: the Mamba heads by heads,
+    ``training`` placing the fsdp dims over data)."""
+    from repro_torch.models.zamba2 import param_specs, shard_params
+
     groups = tree["groups"]
     n_groups = len(np.asarray(groups["lora_a"]))
-    return {"embed": _conv(tree["embed"], device),
-            "final_norm": _conv(tree["final_norm"], device),
-            "shared": _conv(tree["shared"], device),
-            "groups": [_conv(groups, device, g) for g in range(n_groups)],
-            "tail": _conv(tree["tail"], device)}
+    params = {"embed": _conv(tree["embed"], device),
+              "final_norm": _conv(tree["final_norm"], device),
+              "shared": _conv(tree["shared"], device),
+              "groups": [_conv(groups, device, g) for g in range(n_groups)],
+              "tail": _conv(tree["tail"], device)}
+    if ctx is None:
+        return params
+    if cfg is None:
+        raise ValueError("zamba2_params_from_numpy over a world needs the config (the Mamba "
+                         "blocks' segments)")
+    return shard_params(params, param_specs(cfg, params), ctx, training)
 
 
-def train_state_from_numpy(state, device="cpu", ctx=None):
-    """A JAX transformer or DLRM train state (``init_train_state``'s tree through
+def train_state_from_numpy(state, device="cpu", ctx=None, cfg=None):
+    """A JAX transformer, zamba2 or DLRM train state (``init_train_state``'s tree through
     ``np.asarray``: ``params``, ``opt`` with AdamW's ``mu``/``nu``/``step``
     or Adafactor's ``v``/``step``, and the compression ``residuals`` if
     any) -> the port's state (``repro_torch.train.step``).  Parameters are
@@ -128,9 +139,17 @@ def train_state_from_numpy(state, device="cpu", ctx=None):
     parameters, the optimizer state (AdamW's moments, or Adafactor's
     stacked factors by ``optimizer_state_specs``) and the residuals, in the
     training placement (``train_state_specs``); a DLRM state's tables and
-    their moments by world rank."""
+    their moments by world rank.  A zamba2 state (its parameters' stacked
+    ``"groups"``) converts as ``zamba2_params_from_numpy`` does, over a
+    world with the model's ``cfg``; it trains with AdamW, and an Adafactor
+    state of it raises."""
     if "tables" in state["params"]:
         conv = lambda t: dlrm_params_from_numpy(t, device, ctx)
+    elif "groups" in state["params"]:
+        if "v" in state["opt"]:
+            raise ValueError("an Adafactor state of zamba2: the port trains zamba2 with AdamW, "
+                             "as the reference's config does")
+        conv = lambda t: zamba2_params_from_numpy(t, device, cfg, ctx, training=True)
     else:
         conv = lambda t: params_from_numpy(t, device, ctx, training=True)
     params = conv(state["params"])

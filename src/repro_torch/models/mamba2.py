@@ -6,9 +6,26 @@ algorithm is safe at any chunk size.  The reference computes the scan and
 the causal conv outside any Pallas kernel, and so does the port: plain
 PyTorch, f32 for the scan.  The out projection is row-parallel through
 ``matmul_allreduce``: the fused GEMV/GEMM + AllReduce kernel in kernel mode
-on a CUDA tensor, the paper's operator at every Mamba block.  Serving only:
-the reference's per-chunk ``jax.checkpoint`` is a training device and has
-no counterpart here.
+on a CUDA tensor, the paper's operator at every Mamba block.
+
+Training differentiates the scan by autograd (:func:`ssd_chunked` computes
+every chunk's intra-chunk term at once, then carries the state chunk after
+chunk: the same products per chunk as the reference's ``lax.scan`` over
+``jax.checkpoint``-ed chunks, whose recompute the caller's group remat
+stands in for).
+
+Over tp the heads are split (:func:`param_specs`): rank r holds heads
+``[r H / tp, (r + 1) H / tp)``, that is ``w_in``'s z, x and dt columns of
+its heads and its B and C columns whole, ``conv``'s x channels of its heads
+and its B and C channels whole, the heads' entries of ``A_log``, ``D``,
+``dt_bias`` and the gated norm's weight, and ``w_out``'s rows of its heads.
+The block's input is the same on every rank and so is its output (the out
+projection sums over the ranks).  The gated norm normalises over the whole
+d_inner: each rank's sum of squares is summed over tp.  B and C are the
+same on every rank and each rank's heads use them, so their weights'
+gradients are summed over tp (``copy_to_tp``), as is the sum of squares'.
+The caller passes the block's input through ``copy_to_tp`` before its norm
+(``models/zamba2.py``), so the input's gradient is whole on every rank.
 """
 from __future__ import annotations
 
@@ -17,10 +34,11 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.collectives import all_reduce, copy_to_tp
 from repro_torch.core.matmul_allreduce import matmul_allreduce
 from repro_torch.models.common import dense_init
-from repro_torch.models.layers import rms_norm, rms_norm_init
-from repro_torch.parallel.sharding import ParallelContext
+from repro_torch.models.layers import rms_norm_init
+from repro_torch.parallel.sharding import HeadsAxis, ParallelContext
 
 LOG_DECAY_MIN = -60.0    # every clip(..., -60, 0) of the reference
 
@@ -57,6 +75,24 @@ def mamba2_init(gen: torch.Generator, cfg: Mamba2Config, dtype):
         "norm": rms_norm_init(Di, gen.device),
         "w_out": dense_init(gen, (Di, D), dtype),
     }
+
+
+def param_specs(cfg: Mamba2Config) -> dict:
+    """The logical specs of a block's leaves in the port's layout by heads:
+    the reference's ``"fsdp"`` dims kept (split over data in training), its
+    tp dims split by heads (segmented where B and C stay whole,
+    ``parallel.sharding.HeadsAxis``), and ``A_log``, ``D``, ``dt_bias`` and
+    the norm, which the reference keeps whole, split by heads as well."""
+    Di, N, H = cfg.d_inner, cfg.d_state, cfg.n_heads
+    return {"w_in": ("fsdp", HeadsAxis((Di, False), (Di, False), (2 * N, True), (H, False))),
+            "conv": (None, HeadsAxis((Di, False), (2 * N, True))),
+            "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",), "norm": ("heads",),
+            "w_out": ("heads", "fsdp")}
+
+
+def check_heads(cfg: Mamba2Config, tp: int):
+    if cfg.n_heads % tp:
+        raise ValueError(f"tp={tp} does not divide the {cfg.n_heads} Mamba heads")
 
 
 def _decay(x):
@@ -144,18 +180,39 @@ def _causal_conv(x, kernel, conv_state=None):
     return out, new_state
 
 
+def _gated_norm(ctx: ParallelContext, y, weight, width: int, eps: float = 1e-6):
+    """The reference's ``rms_norm(y, weight)`` over the whole d_inner of
+    ``width`` where y [..., width / tp] is this rank's heads: the sum of
+    squares summed over tp (its gradient too: each rank's heads use it),
+    divided by ``width``.  At tp = 1 both collectives are the identity."""
+    yf = y.float()
+    ss = copy_to_tp(ctx, all_reduce(ctx, torch.sum(yf * yf, dim=-1, keepdim=True)))
+    return (yf * torch.rsqrt(ss / width + eps) * weight.float()).to(y.dtype)
+
+
 def mamba2_apply(ctx: ParallelContext, p, cfg: Mamba2Config, x, *, state=None,
                  conv_state=None):
-    """x: [B, T, D].  Without ``state`` the chunked scan from a zero state
-    (prefill); with it (decode, T = 1) one step from ``state`` and
-    ``conv_state``.  Returns (out [B, T, D], (ssm state [B, H, N, P] f32,
-    conv state [B, W - 1, Di + 2N]))."""
+    """x: [B, T, D], the same on every rank.  Without ``state`` the chunked
+    scan from a zero state (prefill and training); with it (decode, T = 1)
+    one step from ``state`` and ``conv_state``.  Returns (out [B, T, D], the
+    same on every rank, (ssm state [B, H / tp, N, P] f32, conv state [B,
+    W - 1, Di / tp + 2N])): this rank's heads' states, B and C's conv
+    channels whole."""
     b, T, D = x.shape
-    Di, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
-    zxbcdt = x @ p["w_in"]
-    z, xin, Bc, Cc, dt = torch.split(zxbcdt, [Di, Di, N, N, H], dim=-1)
+    n = ctx.tp
+    Di, N, H, P = cfg.d_inner // n, cfg.d_state, cfg.n_heads // n, cfg.head_dim
+    w_in, conv = p["w_in"], p["conv"]
+    if n == 1:
+        z, xin, Bc, Cc, dt = torch.split(x @ w_in, [Di, Di, N, N, H], dim=-1)
+    else:
+        # B and C are the same on every rank and every rank's heads use them;
+        # w_in's columns are read as views, its shard never copied
+        z, xin = torch.split(x @ w_in[:, :2 * Di], [Di, Di], dim=-1)
+        Bc, Cc = torch.split(x @ copy_to_tp(ctx, w_in[:, 2 * Di:2 * Di + 2 * N]), [N, N], dim=-1)
+        dt = x @ w_in[:, 2 * Di + 2 * N:]
+        conv = torch.cat([conv[:, :Di], copy_to_tp(ctx, conv[:, Di:])], dim=1)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
-    conv_out, new_conv = _causal_conv(conv_in, p["conv"], conv_state)
+    conv_out, new_conv = _causal_conv(conv_in, conv, conv_state)
     conv_out = F.silu(conv_out)
     xin, Bc, Cc = torch.split(conv_out, [Di, N, N], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"][None, None])
@@ -167,7 +224,7 @@ def mamba2_apply(ctx: ParallelContext, p, cfg: Mamba2Config, x, *, state=None,
         y, new_state = ssd_step(xh, dt, p["A_log"], Bc.float(), Cc.float(), state)
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(b, T, Di).to(x.dtype)
-    y = rms_norm(y, p["norm"]) * F.silu(z)
+    y = _gated_norm(ctx, y, p["norm"], cfg.d_inner) * F.silu(z)
     # row-parallel out projection: the fused GEMV/GEMM + AllReduce (the
     # paper's operator); the kernel takes contiguous operands
     out = matmul_allreduce(ctx, y.contiguous(), p["w_out"])

@@ -74,8 +74,8 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.collectives import (all_gather, all_gather_data, broadcast, data_mean,
-                                          fsdp_gather)
+from repro_torch.core.collectives import (all_gather, broadcast, data_mean, fsdp_gather,
+                                          gather_logits)
 from repro_torch.core.loss import sharded_cross_entropy
 from repro_torch.models.attention import (broadcast_pos, cache_update, context_attention,
                                           decode_attention, paged_attention,
@@ -483,15 +483,7 @@ def prefill_forward(ctx: ParallelContext, params, cfg: TransformerConfig, batch)
     # position S - 1 is the last row of rank tp - 1's chunk
     x = broadcast(ctx, x[:, -1:].contiguous(), n - 1)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    return _gathered_logits(ctx, _lm_logits(params, cfg, x), split), cache
-
-
-def _gathered_logits(ctx, logits, split: bool):
-    """A rank's logits [b, 1, V_local] -> [B, 1, V] on every rank: gathered
-    over the vocabulary's tp ranks, and over data where the replicas split
-    the rows."""
-    logits = all_gather(ctx, logits, axis=-1)
-    return all_gather_data(ctx, logits) if split else logits
+    return gather_logits(ctx, _lm_logits(params, cfg, x), split), cache
 
 
 # ---------------------------------------------------------------------------
@@ -595,7 +587,7 @@ def decode_step(ctx: ParallelContext, params, cfg: TransformerConfig,
         x = _layer_decode(ctx, cfg, lp, x, {k_: v_[i] for k_, v_ in cache.items()}, pos,
                           window, rows is not None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    return _gathered_logits(ctx, _lm_logits(params, cfg, x), rows is not None), cache
+    return gather_logits(ctx, _lm_logits(params, cfg, x), rows is not None), cache
 
 
 def _lm_logits(params, cfg, x):

@@ -25,6 +25,16 @@ which DLRM's tables and its embedding all-to-all run over.  Training
 places the ``"fsdp"`` dims over the data ranks (``shard_leaf(...,
 training=True)``); serving keeps them whole, as the reference's launchers do.
 A ``"world"`` dim is split over the whole world in both.
+
+A dim whose parts are not contiguous has a *segmented* axis
+(:class:`HeadsAxis`): the dim is a concatenation of segments, each split
+into tp equal blocks or whole on every rank, and rank r holds block r of
+every split segment and every whole one, in the dim's order.  zamba2's
+Mamba blocks lay their heads out so (``models/mamba2.py``): ``w_in``'s
+columns ``[z, x, B, C, dt]`` split by heads with B and C whole.
+:func:`shard_leaf`, ``core/collectives.gather_leaf`` and the checkpoint's
+restore cut and join such a dim by its segments; :func:`split_dims` leaves
+it out (its parts are no slice).
 """
 from __future__ import annotations
 
@@ -362,10 +372,52 @@ whose rank order is world order (``make_world_groups``).
         return dataclasses.replace(self, fusion=fusion)
 
 
+class HeadsAxis(tuple):
+    """A segmented tp axis: the dim is the concatenation of these ``(size,
+    whole)`` segments; a segment split over the tp ranks gives rank r its
+    block r, a ``whole`` one is on every rank in full."""
+
+    def __new__(cls, *segments):
+        return super().__new__(cls, segments)
+
+    def __repr__(self):
+        return f"HeadsAxis{tuple(self)}"
+
+    def local(self, tp: int) -> list:
+        """[(size on a rank, whole)] of each segment at tp ranks."""
+        return [(size if whole else size // tp, whole) for size, whole in self]
+
+    def index(self, tp: int, rank: int) -> torch.Tensor:
+        """The indices, into the whole dim, of the entries tp rank ``rank``
+        holds, in the dim's order (int64)."""
+        out, off = [], 0
+        for size, whole in self:
+            if size % tp and not whole:
+                raise ValueError(f"segment of {size} in {self} does not split over tp={tp}")
+            lo, n = (off, size) if whole else (off + rank * (size // tp), size // tp)
+            out.append(torch.arange(lo, lo + n))
+            off += size
+        return torch.cat(out)
+
+
+def segmented_dims(spec, ctx) -> list:
+    """[(dim, axis)] of each segmented dim of ``spec`` that ``ctx``'s tp
+    ranks split (none at tp = 1)."""
+    if ctx.tp == 1:
+        return []
+    return [(i, ax) for i, ax in enumerate(spec) if isinstance(ax, HeadsAxis)]
+
+
+def unsegmented(spec) -> tuple:
+    """``spec`` with each segmented axis as ``None``."""
+    return tuple(None if isinstance(ax, HeadsAxis) else ax for ax in spec)
+
+
 def splits_over_tp(spec) -> bool:
-    """Whether a logical ``spec`` splits a dim over the tp ranks (a tp axis
-    or ``"world"``; else the leaf is whole on every rank of a replica)."""
-    return any(ax in _TP_AXES or ax == WORLD_AXIS for ax in spec)
+    """Whether a logical ``spec`` splits a dim over the tp ranks (a tp axis,
+    a segmented one or ``"world"``; else the leaf is whole on every rank of
+    a replica)."""
+    return any(ax in _TP_AXES or ax == WORLD_AXIS or isinstance(ax, HeadsAxis) for ax in spec)
 
 
 def splits_over_data(spec) -> bool:
@@ -379,8 +431,14 @@ def split_dims(spec, ctx, training: bool = False) -> list:
     """[(dim, ranks, rank)] of each dim ``spec`` splits in ``ctx``'s world:
     a tp axis over ``ctx.tp``, with ``training`` a data axis over ``ctx.dp``,
     a ``"world"`` dim over all ``dp * tp`` ranks at world rank ``dp_rank *
-    tp + tp_rank`` (a dim split over one rank is left out).  ``ctx`` needs
-    only ``tp``, ``tp_rank`` and, where dp > 1, ``dp`` and ``dp_rank``."""
+    tp + tp_rank`` (a dim split over one rank is left out).  A segmented
+    dim is no slice and is left out too (:func:`segmented_dims`).  ``ctx``
+    needs only ``tp``, ``tp_rank`` and, where dp > 1, ``dp`` and
+    ``dp_rank``."""
+    if any(isinstance(ax, HeadsAxis) for ax in spec) and \
+            [ax for ax in spec if ax in _TP_AXES or ax == WORLD_AXIS]:
+        raise ValueError(f"logical spec {spec}: a segmented axis is the leaf's one tp axis")
+    spec = unsegmented(spec)
     unknown = [ax for ax in spec if ax not in _TP_AXES and ax not in _WHOLE_AXES
                and ax != WORLD_AXIS]
     tp_dims = [i for i, ax in enumerate(spec) if ax in _TP_AXES]
@@ -420,12 +478,18 @@ def shard_leaf(x: torch.Tensor, spec, ctx: ParallelContext, training: bool = Fal
     ``ctx.tp_rank`` kept; with ``training`` a dim named ``"fsdp"`` is split
     into ``ctx.dp`` blocks and block ``ctx.dp_rank`` kept (the train state's
     placement); a ``"world"`` dim into ``dp * tp`` blocks in world order;
-    ``None``, and ``"fsdp"`` in serving, keep the dim whole.
+    ``None``, and ``"fsdp"`` in serving, keep the dim whole; a segmented
+    dim (:class:`HeadsAxis`) keeps rank ``ctx.tp_rank``'s entries of it.
     The SPMD counterpart of the reference's ``param_sharding_rules``.  When
     no dim splits, ``x`` itself is returned; otherwise a compact copy, so
     the whole can be freed."""
     if len(spec) != x.dim():
         raise ValueError(f"spec {spec} for a tensor of shape {tuple(x.shape)}")
+    seg = segmented_dims(spec, ctx)
+    for dim, ax in seg:
+        if sum(size for size, _ in ax) != x.shape[dim]:
+            raise ValueError(f"dim {dim} of shape {tuple(x.shape)} is not the segments of {ax}")
+        x = x.index_select(dim, ax.index(ctx.tp, ctx.tp_rank).to(x.device))
     splits = split_dims(spec, ctx, training)
     for dim, n, r in splits:
         if x.shape[dim] % n:

@@ -351,10 +351,14 @@ class TrainSupervisor:
         batches = iter(batches)
         for _ in range(step - start_step):
             next(batches, None)
-        if not self.manager.all_steps():
+        if not self.manager.listed:
             # Failures before the first periodic save need something to
             # restore onto — the step updates the state in place, so the
-            # pre-step state is gone once a step has run.
+            # pre-step state is gone once a step has run.  The decision is
+            # the restore's listing, the same on every rank, and the writer
+            # waits at a barrier until every rank has listed: a rank that
+            # listed after the writer's save would skip the save's gathers.
+            world_barrier(self.state_shardings)
             self._save(step, state)
         last_saved = step
         replay = ReplayBuffer(batches, base_step=step)

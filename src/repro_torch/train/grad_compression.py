@@ -73,8 +73,12 @@ def _split_axes(ctx, spec) -> list:
 def _global_index(shape, spec, ctx):
     """The flat index in the whole leaf of each element of this rank's shard
     (of ``shape``), as int64 [numel], and the whole leaf's numel."""
-    from repro_torch.parallel.sharding import split_dims
+    from repro_torch.parallel.sharding import segmented_dims, split_dims
 
+    if segmented_dims(spec, ctx):
+        raise NotImplementedError(f"top-k compression over a segmented tp dim {spec} (zamba2's "
+                                  f"Mamba heads): the whole leaf's index of a shard needs the "
+                                  f"segments")
     whole, offs = list(shape), [0] * len(shape)
     for dim, n, r in split_dims(spec, ctx, training=True):
         whole[dim] *= n

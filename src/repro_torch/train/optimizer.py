@@ -113,16 +113,22 @@ def _set_path(tree, path, value):
 
 def leaf_groups(tree, period: int = 1) -> list:
     """[(path, tensors, stacked)]: the leaves as the reference's optimizer
-    sees them.  A leaf outside ``tree["layers"]`` is a group of one
-    (``stacked`` False); each leaf of the per-layer dicts forms a group with
-    the same leaf of every layer at the same position j of a layer pattern
-    of ``period`` layers (layers j, j + period, ...; ``stacked`` True), as
-    the reference's scan stacks them: path ``("layers", ...)`` for a
-    pattern of one, ``("layers", "l<j>", ...)`` for a longer one.  Trees of
-    one structure (parameters, gradients, AdamW moments) give aligned
-    groups."""
-    groups = [(path, [leaf], False)
-              for path, leaf in tree_paths({k: v for k, v in tree.items() if k != "layers"})]
+    sees them.  A leaf outside ``tree["layers"]`` and ``tree["groups"]`` is
+    a group of one (``stacked`` False); each leaf of the per-layer dicts
+    forms a group with the same leaf of every layer at the same position j
+    of a layer pattern of ``period`` layers (layers j, j + period, ...;
+    ``stacked`` True), as the reference's scan stacks them: path
+    ``("layers", ...)`` for a pattern of one, ``("layers", "l<j>", ...)``
+    for a longer one.  zamba2's ``tree["groups"]`` (one dict a group of
+    Mamba blocks, which the reference builds with ``stacked_init``) stacks
+    the same way with a pattern of one, path ``("groups", ...)``; its tail
+    blocks are groups of one.  Trees of one structure (parameters,
+    gradients, AdamW moments) give aligned groups."""
+    groups = [(path, [leaf], False) for path, leaf in
+              tree_paths({k: v for k, v in tree.items() if k not in ("layers", "groups")})]
+    stack = tree.get("groups", [])
+    groups += [(("groups",) + path, [get_path(gp, path) for gp in stack], True)
+               for path, _ in (tree_paths(stack[0]) if stack else ())]
     layers = tree.get("layers", [])
     if len(layers) % period:
         raise ValueError(f"{len(layers)} layers are not whole patterns of {period}")
@@ -175,10 +181,12 @@ def global_norm(tree, ctx=None, specs=None):
     from repro_torch.parallel.sharding import splits_over_data, splits_over_tp
 
     zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    kinds = [(tp > 1 and splits_over_tp(sp), dp > 1 and splits_over_data(sp))
-             for sp in spec_leaves(specs)]
-    part = {k: sq([x for x, kind in zip(leaves, kinds) if kind == k]) + zero
-            for k in ((False, False), (True, False), (False, True), (True, True))}
+    part = {k: zero for k in ((False, False), (True, False), (False, True), (True, True))}
+    for x, sp in zip(leaves, spec_leaves(specs)):
+        over_data = dp > 1 and splits_over_data(sp)
+        for whole, piece in _tp_pieces(x, sp, ctx):
+            kind = (tp > 1 and splits_over_tp(sp) and not whole, over_data)
+            part[kind] = part[kind] + sq([piece])
     # [tp only, both] summed over tp; then [data only, both's tp sum] over data
     over_tp = torch.stack([part[(True, False)], part[(True, True)]])
     if tp > 1:
@@ -187,6 +195,24 @@ def global_norm(tree, ctx=None, specs=None):
     if dp > 1:
         over_data = _all_reduce(ctx.data, over_data)
     return torch.sqrt(part[(False, False)] + over_tp[0] + over_data[0] + over_data[1])
+
+
+def _tp_pieces(x, spec, ctx) -> list:
+    """[(whole over tp, piece)] of a leaf: the leaf itself, or for a
+    segmented dim (``parallel.sharding.HeadsAxis``) its entries split over
+    tp and those whole on every rank, so the norm counts the whole ones
+    once."""
+    from repro_torch.parallel.sharding import segmented_dims
+
+    seg = segmented_dims(spec, ctx)
+    if not seg:
+        return [(False, x)]
+    dim, ax = seg[0]
+    out, off = [], 0
+    for size, whole in ax.local(ctx.tp):
+        out.append((whole, x.narrow(dim, off, size)))
+        off += size
+    return out
 
 
 @torch.no_grad()
@@ -285,9 +311,13 @@ class _Shards:
     and every mean is the plain one."""
 
     def __init__(self, spec, ctx):
-        from repro_torch.parallel.sharding import _DATA_AXES, _TP_AXES, WORLD_AXIS
+        from repro_torch.parallel.sharding import _DATA_AXES, _TP_AXES, WORLD_AXIS, HeadsAxis
 
         self.dims = {}
+        if ctx is not None and ctx.tp > 1 and any(isinstance(ax, HeadsAxis) for ax in spec or ()):
+            raise NotImplementedError(f"Adafactor over a segmented tp dim {spec}: its factored "
+                                      f"means would need the segments (zamba2 trains with "
+                                      f"AdamW)")
         for i, ax in enumerate(spec or ()):
             if ctx is not None and ax in _TP_AXES and ctx.tp > 1:
                 self.dims[i] = (ctx, ctx.tp)

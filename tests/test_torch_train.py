@@ -278,7 +278,7 @@ def test_launcher_autotune_flags(tmp_path, capsys, flag):
 # their places hold refusals still standing
 @pytest.mark.parametrize("argv,match", [
     (["--auto-fuse"], "item 7"), (["--explain-comm"], "item 7"),
-    (["--arch", "zamba2-7b"], "item 7"),
+    (["--arch", "deepseek-v3-671b", "--fusion", "bulk"], "item 7"),
     (["--production-mesh"], "item 1"),
     (["--arch", "rwkv6-7b"], "item 7"),
     (["--arch", "deepseek-v3-671b"], "item 7"),

@@ -39,7 +39,6 @@ from repro.serve.engine import Request as JaxRequest
 from repro_torch.configs.registry import ArchBundle, get_arch
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
 from repro_torch.launch import serve as launch_serve
-from repro_torch.launch import train as launch_train
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import zamba2
 from repro_torch.models.convert import zamba2_params_from_numpy
@@ -445,40 +444,50 @@ def test_registry_config_matches_the_reference_field_for_field(reduced):
         assert (pc.n_groups, pc.n_tail, pc.hd) == (13, 3, 224)
 
 
-@pytest.mark.parametrize("what", ["tp", "dp", "cache_tp", "paged", "loss", "train_launcher",
-                                  "serve_tp"])
+@pytest.mark.parametrize("what", ["tp", "init_tp", "cache_tp", "paged", "kernel_tp", "topk",
+                                  "adafactor"])
 def test_what_still_raises(models, what):
-    """Training (item 7), the Mamba heads over tp and over data (item 7),
-    and the paged engine (the reference's refusal) raise, each naming its
-    reason."""
+    """What zamba2 still refuses, each naming its reason: a tp that does not
+    divide the Mamba heads (the reduced model has one) in ``check_tp``,
+    ``init_params`` and ``init_cache``; the paged engine (the reference's
+    refusal); kernel mode over more than one tp rank where a Mamba block's
+    ``w_out`` reaches the fused GEMV/GEMM (ROADMAP Queue 1 item 1; the
+    whole model's refusal runs on a world in
+    tests/test_torch_zamba2_world.py); top-k compression and Adafactor over
+    the heads' segmented dims."""
     import types
 
+    from repro_torch.core.matmul_allreduce import matmul_allreduce
+    from repro_torch.train import grad_compression, optimizer
+
     pb = models[2]
-    heads = "ROADMAP Queue 1 item 7 \\(zamba2's Mamba heads over tp\\)"
-    if what in ("tp", "dp"):
-        ctx = types.SimpleNamespace(tp=2 if what == "tp" else 1, dp=2 if what == "dp" else 1)
-        with pytest.raises(NotImplementedError, match=heads):
-            pb.decode_fn(ctx)
-        with pytest.raises(NotImplementedError, match=heads):
-            pb.init_params(torch.Generator().manual_seed(0), ctx)
+    heads = "does not divide the 1 Mamba heads"
+    two = types.SimpleNamespace(tp=2, dp=1, tp_rank=0, dp_rank=0)
+    if what == "tp":
+        with pytest.raises(ValueError, match=heads):
+            pb.decode_fn(two)
+    elif what == "init_tp":
+        with pytest.raises(ValueError, match=heads):
+            pb.init_params(torch.Generator().manual_seed(0), two)
     elif what == "cache_tp":
-        with pytest.raises(NotImplementedError, match=heads):
+        with pytest.raises(ValueError, match=heads):
             pb.init_cache(2, "cpu", tp=2)
     elif what == "paged":
         assert not pb.supports_paged
         with pytest.raises(SystemExit, match="GQA transformer"):
             launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--paged"])
-    elif what == "loss":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7 \\(zamba2 train"):
-            pb.loss_fn(CPU["bulk"])
-        with pytest.raises(NotImplementedError, match="item 7 \\(zamba2 training\\)"):
-            zamba2.train_forward(CPU["bulk"], models[3], pb.config, {})
-    elif what == "train_launcher":
-        with pytest.raises(NotImplementedError, match="item 7 \\(zamba2 training\\)"):
-            launch_train.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "1"])
+    elif what == "kernel_tp":
+        ctx = types.SimpleNamespace(tp=2, fusion=FusionConfig(mode="kernel"))
+        w_out = torch.zeros(pb.config.mamba.d_inner // 2, pb.config.d_model)
+        with pytest.raises(NotImplementedError, match="tp=2: ROADMAP Queue 1 item 1"):
+            matmul_allreduce(ctx, torch.zeros(2, 4, w_out.shape[0]), w_out)
     else:
-        with pytest.raises(NotImplementedError, match=heads):
-            launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--tp", "2"])
+        spec = m2.param_specs(pb.config.mamba)["w_in"]
+        with pytest.raises(NotImplementedError, match="segmented tp dim"):
+            if what == "topk":
+                grad_compression._global_index((4, 4), spec, two)
+            else:
+                optimizer._Shards(spec, two)
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,13 @@ replica ``r // 2``); (2, 1) runs two worlds of two replicas on the pairs;
 rank as ``fn(ctx_factory, **inputs)`` with numpy inputs; ``World.run``
 returns each rank's result in rank order and fails after a timeout, tearing
 the world down (the next task starts a new one), so that a hang fails one
-test and not the whole run.
+test and not the whole run.  A little before the timeout every rank
+still in its task writes its threads' stacks to stderr (``faulthandler``),
+so a hang names where each rank waits.
 """
 from __future__ import annotations
 
+import faulthandler
 import queue
 import traceback
 
@@ -71,10 +74,13 @@ def _rank_main(rank, init_method, inbox, outbox):
             return ParallelContext(device="cpu", tp=tp, dp=dp, group=group,
                                    data_group=data_group, hw=link,
                                    fusion=FusionConfig(mode=mode, **fusion))
+        faulthandler.dump_traceback_later(TIMEOUT_S - 10)
         try:
             outbox.put((rank, "ok", TASKS[name](ctx, **kwargs)))
         except Exception:        # the test shows the rank's traceback
             outbox.put((rank, "err", traceback.format_exc()))
+        finally:
+            faulthandler.cancel_dump_traceback_later()
     dist.destroy_process_group()
 
 
@@ -384,6 +390,14 @@ def refusal_task(ctx, what):
             build_train_step(lambda p, b: None, tc, ctx=ctx("bulk"), param_specs={})
         elif what == "rwkv6":
             get_arch("rwkv6-7b").reduced().decode_fn(ctx())
+        elif what in ("zamba2_prefill", "zamba2_train"):   # kernel mode over ranks (item 1)
+            b = zamba2_bundle(128)
+            tok = torch.zeros(1, 8, dtype=torch.long)
+            p = b.init_params(torch.Generator(), ctx(), training=what == "zamba2_train")
+            if what == "zamba2_prefill":
+                b.prefill_fn(ctx("kernel"))(p, {"tokens": tok})
+            else:
+                b.loss_fn(ctx("kernel"))(p, {"tokens": tok, "labels": tok})
     except NotImplementedError as e:
         return str(e)
     return None
@@ -1372,3 +1386,94 @@ def mla_attention_task(ctx, params, cfg, x, mode, x_dec, c_cache, kr_cache, pos)
                                    _block(_rows(c_cache, c), c, 1),
                                    _block(_rows(kr_cache, c), c, 1), t(_rows(pos, c)))
     return out.numpy(), lat_c.numpy(), lat_kr.numpy(), sent, dec.numpy()
+
+
+# ---------------------------------------------------------------------------
+# zamba2 over the world: its Mamba heads split by heads, its shared block
+# context-parallel (tests/test_torch_zamba2_world.py)
+# ---------------------------------------------------------------------------
+def zamba2_bundle(d_model):
+    """The reduced zamba2-7b at ``d_model`` (128: 4 Mamba heads of 64)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+
+    b = get_arch("zamba2-7b").reduced()
+    return dataclasses.replace(b, config=dataclasses.replace(b.config, d_model=d_model))
+
+
+def _leaves(cache):
+    """(group, leaf) -> numpy array of a zamba2 cache."""
+    return {(g, k): v.detach().numpy().copy() for g, sub in cache.items() if sub is not None
+            for k, v in sub.items()}
+
+
+@task
+def zamba2_task(ctx, tree, d_model, tokens, labels, mode, steps, path):
+    """The reduced zamba2-7b at ``d_model`` from the JAX package's weights on
+    this world.  Its prefill of ``tokens`` (the logits, this rank's cache
+    leaves, the fused rings it ran), then ``steps`` greedy decode steps
+    from the prefill's state (the prompt's k and v gathered over tp and
+    placed into this rank's rows of the decode cache): each step's logits
+    and the final cache; ``loss_fn``'s loss on (tokens, labels) and this
+    rank's gradients, summed over the ranks as the train step sums them,
+    in ``tree_leaves`` order, and their global norm over the world (the
+    clip's); and the training shards checkpointed to
+    ``path`` (world rank 0 writes; the two tp = 2 worlds a directory each)
+    and restored onto zeros."""
+    from repro_torch.checkpoint import CheckpointManager, Placement
+    from repro_torch.checkpoint.checkpointer import world_barrier
+    from repro_torch.core import matmul_allreduce as mar
+    from repro_torch.core.collectives import all_gather, all_reduce_grads
+    from repro_torch.data.pipeline import batch_rows
+    from repro_torch.models.convert import zamba2_params_from_numpy
+    from repro_torch.train.optimizer import global_norm, spec_leaves, tree_leaves, tree_map
+
+    c = ctx(mode)
+    bundle = zamba2_bundle(d_model)
+    cfg = bundle.config
+    serve = zamba2_params_from_numpy(tree, "cpu", cfg, c)
+    rings, real = [], mar._ring
+    mar._ring = lambda *a, **kw: rings.append(1) or real(*a, **kw)
+    try:
+        with torch.no_grad():
+            logits, cache = bundle.prefill_fn(c)(serve, _lm_batch(tokens))
+    finally:
+        mar._ring = real
+    B, S = tokens.shape
+    dc = bundle.init_cache(B, "cpu", c.tp, c.dp)
+    for g in ("mamba", "tail"):
+        for k in dc[g]:
+            dc[g][k].copy_(cache[g][k])
+    rows = cfg.max_seq // c.tp
+    lo = c.tp_rank * rows
+    for k in ("k", "v"):
+        whole = all_gather(c, cache["attn"][k], axis=2)
+        n = max(0, min(S, lo + rows) - lo)
+        dc["attn"][k][:, :, :n] = whole[:, :, lo:lo + n]
+    dec = bundle.decode_fn(c)
+    tok, dec_logits = logits.argmax(-1).to(torch.int32), []
+    with torch.no_grad():
+        for s in range(steps):
+            lg, dc = dec(serve, tok, dc, torch.full((B,), S + s, dtype=torch.int32))
+            dec_logits.append(lg.numpy())
+            tok = lg.argmax(-1).to(torch.int32)
+    params = zamba2_params_from_numpy(tree, "cpu", cfg, c, training=True)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    specs = bundle.param_specs(params)
+    loss = bundle.loss_fn(c)(params, _lm_batch(tokens, labels))
+    grads = list(torch.autograd.grad(loss, leaves))
+    all_reduce_grads(c, grads, spec_leaves(specs))
+    it = iter(grads)
+    norm = global_norm(tree_map(lambda _: next(it), params), c, specs).item()
+    place = Placement(c, specs, training=True)
+    mgr = CheckpointManager(_world_dir(path, c), keep=1, async_save=False)
+    with torch.no_grad():
+        mgr.save(1, params, place)
+        world_barrier(place)
+        back, _ = mgr.restore_latest(tree_map(torch.zeros_like, params), place)
+    return (logits.numpy(), _leaves(cache), len(rings), np.stack(dec_logits), _leaves(dc),
+            loss.item(), [g.numpy() for g in grads],
+            [a.detach().numpy() for a in tree_leaves(back)], norm, batch_rows(c, B))
